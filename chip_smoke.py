@@ -17,14 +17,40 @@ Phases, each printing its own lines:
    (100% for the standard normal, at least 99% for the correlated
    Gaussian), and the error of q, grad and energy on those chains (q
    within 1e-4 posterior sd, energy within 1e-3);
+   2b. the same with the dense metric (the true covariance shared by
+   every chain; at least 99% agreement);
+   2c. the fused multi-draw kernel against its plain version at 1024
+   chains, 4 draws: a static draw chunk and an ``adapt_dense`` tune chunk
+   across a window swap with the step size held (flags agree on at least
+   99% of chain-draws, q within 1e-4 sd, energy within 1e-3, the
+   accept statistic, step sizes, log density and energy changes of each
+   draw within the limits of ``_held_stat_errors``, the combined block
+   Welford state exact in weight, within 1e-4 in mean and 1e-3 in raw
+   scatter, against the plain version and a float64 replay), and the
+   tune chunk as the main path runs it, step size adapting (its first
+   draw tree for tree, stats included, the dual-averaging state against
+   the update replayed over the kernel's accept statistics, the Welford
+   state against the float64 replay);
 3. the main path: ``sample(CorrelatedGaussian(100).logp_grad,
    model_ndim=100, chains=1024, tune=500, draws=1000, random_seed=42)``,
    with the kernel's launch count set to 0 before and read after, and the
    posterior held to the model's known moments;
+   3b. the same call with ``init="adapt_full"``: pooled dense adaptation
+   on the fused kernel (engine ``fused_dense_pooled``, 12 fused launches,
+   no per-draw launch), the same posterior gates and a draw-phase mean
+   tree depth of at most 4;
+   3c. 3b with ``fuse_draws=False`` (engine ``per_draw_dense_pooled``,
+   1500 launches of the trajectory kernel's dense branch), the same gates;
 4. the kernel's time per launch at the main path's final state beside its
    plain version's time and its bound, where 50 more draws from that
-   state spend their device time (``torch.profiler``), and one JSON line
-   of kernels.
+   state spend their device time (``torch.profiler``);
+   4b. the fused kernel's time per 250-draw launch at 3b's final state,
+   per draw, its bound, and where one draw chunk spends its device time;
+   the 3b call once more under ``torch.profiler``, the fused kernel's
+   device time launch by launch; the dense trajectory kernel's time at
+   3c's final state; then one JSON line of kernels (for the fused kernel
+   ``ms``, ``plain_ms`` and ``bound_ms`` are one 4-draw launch on 2c's
+   draw-chunk input, ``chunk_*`` the 250-draw launch).
 
 The last line is ``{"ok": true, "device": {...}}``. Any failure raises
 and the script exits non-zero without that line. Without a CUDA device,
@@ -47,6 +73,8 @@ PEAK_BYTES_PER_S = 3.35e12
 
 N, CHAINS, TUNE, DRAWS, DEPTH, CHAIN_BLOCK = 100, 1024, 500, 1000, 10, 8
 FLAGS = ("depth", "n_leaves", "diverging", "turning")
+STAT_CHECKS = ("model_logp", "energy_error", "max_energy_change", "mean_tree_accept",
+               "step_size", "step_size_bar")  # the fused op's per-draw stats held
 Q_TOL_SD, E_TOL = 1e-4, 1e-3  # kernel vs plain, on the chains that agree
 
 
@@ -90,14 +118,48 @@ def _stationary_inputs(model, chol, C, eps, seed):
             torch.from_numpy(var).to(dev))
 
 
-def _compare(name, model, args, seed, need):
-    """One kernel launch against the plain version on the same inputs."""
+def _dense_stationary_inputs(model, C, eps, seed):
+    """As :func:`_stationary_inputs` for the dense metric: the true
+    covariance shared by every chain, q ~ N(0, cov), p ~ N(0, cov^-1)."""
+    import numpy as np
+    import torch
+
+    rng = np.random.default_rng(seed)
+    n = model.ndim
+    chol = np.linalg.cholesky(model.cov)
+    q = (rng.standard_normal((C, n)) @ chol.T).astype(np.float32)
+    p = np.ascontiguousarray(np.linalg.solve(chol.T, rng.standard_normal((n, C))).T,
+                             dtype=np.float32)
+    eps = (eps * rng.uniform(0.8, 1.2, C)).astype(np.float32)
+    dev = torch.device("cuda")
+    qt = torch.from_numpy(q).to(dev)
+    logp, grad = model.batched_logp_grad(qt)
+    return (qt, torch.from_numpy(p).to(dev), grad.contiguous(), logp.contiguous(),
+            torch.from_numpy(eps).to(dev),
+            torch.full((C,), DEPTH, dtype=torch.int32, device=dev),
+            torch.from_numpy(model.cov.astype(np.float32)).to(dev))
+
+
+def _held(agree, cb=CHAIN_BLOCK):
+    """Per (draw, chain) of a ``(T, C)`` flag agreement: every chain of the
+    chain's block agreed at this draw and all earlier ones. One chain's
+    other decision changes its block's shared counter stream, so only
+    these chains are held number for number."""
+    import torch
+
+    block = agree.reshape(agree.shape[0], -1, cb).all(-1)
+    return torch.cumprod(block.to(torch.int32), 0).bool().repeat_interleave(cb, 1)
+
+
+def _compare(name, model, args, seed, need, metric="diag"):
+    """One kernel launch against the plain version on the same inputs
+    (the dense metric: numbers held on the chains whose block agreed)."""
     import numpy as np
     import torch
     from littlemcmc_torch.ops.nuts_trajectory import trajectory, trajectory_plain
 
     kw = dict(spec=model.trajectory_spec(), max_treedepth=DEPTH, Emax=1000.0,
-              chain_block=CHAIN_BLOCK)
+              chain_block=CHAIN_BLOCK, metric=metric)
     got = trajectory(*args, seed, **kw)
     torch.cuda.synchronize()
     start, end = (torch.cuda.Event(enable_timing=True) for _ in range(2))
@@ -107,6 +169,8 @@ def _compare(name, model, args, seed, need):
     end.synchronize()
     agree = torch.stack([got[k] == want[k] for k in FLAGS]).all(0)
     share = float(agree.float().mean())
+    if metric == "dense":
+        agree = _held(agree[None])[0]
     errs = {}
     for k in ("q", "grad", "energy"):
         d = (got[k] - want[k])[agree].abs()
@@ -115,7 +179,8 @@ def _compare(name, model, args, seed, need):
         errs[f"{k}_max_rel"] = float(rel.max())
     sd = torch.from_numpy(np.sqrt(model.true_var)).float().to(got["q"].device)
     errs["q_max_err_in_sd"] = float(((got["q"] - want["q"]).abs() / sd)[agree].max())
-    print(json.dumps({"phase": "kernel_vs_plain", "model": name, "chains": args[0].shape[0],
+    print(json.dumps({"phase": "kernel_vs_plain", "model": name, "metric": metric,
+                      "chains": args[0].shape[0],
                       "ndim": args[0].shape[1], "agree_share": share,
                       "mean_depth": float(want["depth"].float().mean()),
                       "mean_leaves": float(want["n_leaves"].float().mean()),
@@ -133,14 +198,293 @@ def _compare(name, model, args, seed, need):
     return errs["q_max_abs"]
 
 
-def _bound_ms(n_leaves_total: int, C: int, n: int) -> tuple[float, str]:
+def _bound_ms(n_leaves_total: int, C: int, n: int, metric: str = "diag") -> tuple[float, str]:
     """Least time for one transition: per leaf and chain the 2n^2-FLOP
-    matvec plus about 20n elementwise operations, plus the proposal's
-    gradient; the inputs read once and the outputs written once."""
-    ops = n_leaves_total * (2 * n * n + 20 * n) + C * (2 * n * n + 2 * n)
-    nbytes = 4 * (4 * C * n + 3 * C + n * n) + 4 * (2 * C * n + 7 * C) + 2 * C
+    matvec (plus, for the dense metric, the 2n^2-FLOP velocity) and about
+    20n elementwise operations, plus the proposal's gradient (and the
+    start energy's velocity); the inputs read once and the outputs written
+    once."""
+    per_leaf = (4 if metric == "dense" else 2) * n * n + 20 * n
+    ops = n_leaves_total * per_leaf + C * (2 * n * n + 2 * n)
+    var_floats = n * n if metric == "dense" else C * n
+    if metric == "dense":
+        ops += C * 2 * n * n
+    nbytes = (4 * (3 * C * n + var_floats + 3 * C + n * n) + 4 * (2 * C * n + 7 * C)
+              + 2 * C)
     t_ops, t_bytes = ops / PEAK_FP32_FLOPS, nbytes / PEAK_BYTES_PER_S
     return 1e3 * max(t_ops, t_bytes), ("operations" if t_ops >= t_bytes else "bytes")
+
+
+def _fused_bound_ms(n_leaves_total: int, C: int, n: int, T: int,
+                    tuning: bool) -> tuple[float, str]:
+    """Least time for one fused launch of ``T`` draws: per chain and draw
+    2n^2 FLOP for the momentum, 2n^2 for the final gradient and, in tune,
+    4n^2 for the Welford adds; per leaf 2n^2 for the model body, 2n^2 for
+    the velocity and about 20n elementwise; against the state, metric and
+    precision read once and the trace and 11 stats of each draw written
+    once."""
+    ops = (n_leaves_total * (4 * n * n + 20 * n)
+           + C * T * (4 * n * n + (4 * n * n if tuning else 0)))
+    nbytes = 4 * (2 * C * n + 8 * C + 3 * n * n) + 4 * (T * C * n + 11 * T * C + 2 * C * n)
+    t_ops, t_bytes = ops / PEAK_FP32_FLOPS, nbytes / PEAK_BYTES_PER_S
+    return 1e3 * max(t_ops, t_bytes), ("operations" if t_ops >= t_bytes else "bytes")
+
+
+def _fused_inputs(model, C, seed, iter_count=300.0, log_step=-0.7):
+    """Fused-op inputs at stationarity: q ~ N(0, cov), the true covariance
+    as the metric with L^-1 from its Cholesky factor, step sizes near
+    exp(log_step), dual averaging part way through."""
+    import numpy as np
+    import torch
+
+    rng = np.random.default_rng(seed)
+    dev = torch.device("cuda")
+    f = dict(dtype=torch.float32, device=dev)
+    n = model.ndim
+    chol = np.linalg.cholesky(model.cov)
+    q = torch.from_numpy((rng.standard_normal((C, n)) @ chol.T).astype(np.float32)).to(dev)
+    logp, grad = model.batched_logp_grad(q)
+    ls = torch.from_numpy((log_step + rng.uniform(-0.1, 0.1, C)).astype(np.float32)).to(dev)
+    cov = torch.from_numpy(model.cov.astype(np.float32)).to(dev)
+    linv = torch.linalg.solve_triangular(torch.linalg.cholesky(cov),
+                                         torch.eye(n, **f), upper=False)
+    return (q, grad.contiguous(), logp.contiguous(), torch.full((C,), iter_count, **f), ls,
+            ls.clone(), torch.zeros(C, **f), torch.full((C,), 40.0, **f), ls + np.log(10.0),
+            cov, linv)
+
+
+def _welford_seed(model):
+    """A global pooled dense Welford state whose windows swap at draw 2 of
+    a chunk (n_samples 200, prev_update 101, window 101)."""
+    import torch
+
+    f = dict(dtype=torch.float32, device=torch.device("cuda"))
+    n = model.ndim
+    cov = torch.from_numpy(model.cov).to(**f)
+    return (torch.zeros(n, **f), cov * 5000.0, torch.tensor(5000.0, **f),
+            torch.full((n,), 0.01, **f), cov * 900.0, torch.tensor(900.0, **f),
+            torch.tensor(200.0, **f), torch.tensor(101.0, **f), torch.tensor(101.0, **f))
+
+
+def _replay_welford(welford, trace, mult=2.0):
+    """The pooled Welford bookkeeping in float64: each draw's positions of
+    every chain join both windows, then the shared swap."""
+    import torch
+
+    fgm, fgr, fgw, bgm, bgr, bgw, ns, pu, win = (w.double() for w in welford)
+    fg, bg = [fgw, fgm, fgr], [bgw, bgm, bgr]
+    for x in trace.double():
+        xm = x.mean(0)
+        xc = x - xm
+        for w_ in (fg, bg):
+            W, m, r = w_
+            Wn = W + x.shape[0]
+            d = xm - m
+            w_[:] = [Wn, m + d * (x.shape[0] / Wn),
+                     r + xc.T @ xc + (W * x.shape[0] / Wn) * torch.outer(d, d)]
+        if ns - pu >= win:
+            fg, bg = bg, [torch.zeros_like(fgw), torch.zeros_like(fgm), torch.zeros_like(fgr)]
+            pu, win = ns, torch.floor(win * mult)
+        ns = ns + 1.0
+    return {"fg": fg, "bg": bg}
+
+
+def _welford_errors(got, want, center):
+    """Per window: the weight difference and the max mean and raw-scatter
+    errors relative to the largest entry, of the Chan-combined block
+    states of ``got`` against ``want`` (``(W, mean, raw)`` per window)."""
+    from littlemcmc_torch.ops.fused_nuts import combine_dense_welford
+
+    errs = {}
+    for side in ("fg", "bg"):
+        Wg, Mg, Rg = combine_dense_welford(*(got[f"dense_{side}_{x}"]
+                                             for x in ("w", "mean", "raw")), center)
+        Ww, Mw, Rw = want[side]
+        errs[f"{side}_w_diff"] = float(Wg) - float(Ww)
+        errs[f"{side}_mean_rel"] = float((Mg - Mw).abs().max() / Mw.abs().max())
+        errs[f"{side}_raw_rel"] = float((Rg - Rw).abs().max() / Rw.abs().max())
+    return errs
+
+
+def _welford_failures(errs, what):
+    """Weight exact, mean within 1e-4 and raw scatter within 1e-3."""
+    return [f"{side} Welford state against {what}: {errs}" for side in ("fg", "bg")
+            if (errs[f"{side}_w_diff"] != 0.0 or errs[f"{side}_mean_rel"] > 1e-4
+                or errs[f"{side}_raw_rel"] > 1e-3)]
+
+
+def _held_stat_errors(got, want, held, da_count, config, adapting):
+    """The per-draw stats of the held chain-draws, kernel against plain,
+    each as a share of its limit (over 1 fails). ``model_logp``,
+    ``energy_error`` and ``max_energy_change`` are energies: within E_TOL.
+    ``mean_tree_accept`` averages leaf accept probabilities
+    exp(min(0, E0 - E)), each of which moves by at most the error of
+    E0 - E, so it is within 2 E_TOL relative. The step sizes are within
+    1e-5 relative, plus, while dual averaging runs, what the accept
+    statistic's difference moves them by: sqrt(count) / (gamma (count +
+    t0)) in log step per unit of accept statistic."""
+    import torch
+
+    T = held.shape[0]
+    g = {k: got[k][:T] for k in STAT_CHECKS}
+    w = {k: want[k][:T] for k in STAT_CHECKS}
+    share = {k: float(((g[k] - w[k]).abs() / E_TOL)[held].max())
+             for k in ("model_logp", "energy_error", "max_energy_change")}
+    d_mta = (g["mean_tree_accept"] - w["mean_tree_accept"]).abs()
+    share["mean_tree_accept"] = float(
+        (d_mta / (2 * E_TOL * w["mean_tree_accept"] + 1e-7))[held].max())
+    cnt = da_count[None, :] + torch.arange(T, device=da_count.device)[:, None]
+    slope = (cnt.sqrt() / (float(config.gamma) * (cnt + float(config.t0)))
+             if adapting else torch.zeros_like(cnt))
+    for k in ("step_size", "step_size_bar"):
+        rel = (g[k] - w[k]).abs() / w[k]
+        share[k] = float((rel / (1e-5 + slope * d_mta))[held].max())
+    return share
+
+
+def fused_check(model, C, T, tuning, adapt_step_size, seed, words):
+    """One fused launch of ``T`` draws at ``C`` chains against the plain
+    version on the same inputs: flags, trace, energies and the per-draw
+    stats on the chain-draws held number for number, and in a tune chunk
+    the pooled Welford state against the plain version and a float64
+    replay and the dual-averaging state against its update replayed over
+    the kernel's accept statistics. Returns the result line, the list of
+    failures and both outputs."""
+    import numpy as np
+    import torch
+    from littlemcmc_torch.base import NUTSConfig
+    from littlemcmc_torch.ops.fused_nuts import (_da_update, combine_dense_welford,
+                                                 fused_nuts, fused_nuts_plain)
+
+    args = _fused_inputs(model, C, seed)
+    welford = _welford_seed(model) if tuning else None
+    config = NUTSConfig(adapt_step_size=adapt_step_size)
+    kw = dict(spec=model.trajectory_spec(), T=T, tuning=tuning, config=config,
+              window_multiplier=2.0, chain_block=CHAIN_BLOCK, dense_welford=welford)
+    launches = fused_nuts.launches
+    got = fused_nuts(*args, words, **kw)
+    torch.cuda.synchronize()
+    start, end = (torch.cuda.Event(enable_timing=True) for _ in range(2))
+    start.record()
+    want = fused_nuts_plain(*args, words, **kw)
+    end.record()
+    end.synchronize()
+
+    agree = torch.stack([got[k] == want[k] for k in FLAGS]).all(0)  # (T, C)
+    sd = torch.from_numpy(np.sqrt(model.true_var)).float().to(got["q"].device)
+    # with the step size adapting, only the first draw is held tree for
+    # tree: dual averaging carries each draw's rounding into the next
+    # draw's step size
+    adapting = tuning and adapt_step_size
+    checked = agree[:1] if adapting else agree
+    held = _held(checked)
+    dq = ((got["trace"][:held.shape[0]] - want["trace"][:held.shape[0]]).abs())[held]
+    de = (got["energy"][:held.shape[0]] - want["energy"][:held.shape[0]]).abs()[held]
+    res = {"phase": "fused_vs_plain", "chunk": "tune" if tuning else "draw",
+           "step_size_adapting": adapting, "chains": C,
+           "draws": T, "agree_share": float(checked.float().mean()),
+           "agree_share_all_draws": float(agree.float().mean()),
+           "held_share": float(held.float().mean()),
+           "mean_depth": float(want["depth"].float().mean()),
+           "mean_leaves": float(want["n_leaves"].float().mean()),
+           "q_max_abs": float(dq.max()), "q_max_err_in_sd": float(
+               ((got["trace"][:held.shape[0]] - want["trace"][:held.shape[0]]).abs()
+                / sd)[held].max()),
+           "energy_max_abs": float(de.max()),
+           "stat_tol_share": _held_stat_errors(got, want, held, args[7], config, adapting),
+           "plain_ms": start.elapsed_time(end)}
+    failures = []
+    if fused_nuts.launches != launches + 1:
+        failures.append(f"{fused_nuts.launches - launches} kernel launches counted, not 1")
+    if res["agree_share"] < 0.99 or res["held_share"] < 0.9:
+        failures.append("flags agree on fewer than 99% of chain-draws, or fewer than "
+                        "90% are held number for number")
+    if res["q_max_err_in_sd"] > Q_TOL_SD or res["energy_max_abs"] > E_TOL:
+        failures.append("q or energy differ beyond the tolerance")
+    failures += [f"stat {k} at {v:.3g} of its limit"
+                 for k, v in res["stat_tol_share"].items() if v > 1.0]
+    if tuning:
+        replay = _replay_welford(welford, got["trace"])
+        res["welford_vs_replay"] = _welford_errors(got, replay, welford[0])
+        failures += _welford_failures(res["welford_vs_replay"], "a float64 replay of its trace")
+        if not adapting:
+            plain = {side: combine_dense_welford(*(want[f"dense_{side}_{x}"]
+                                                   for x in ("w", "mean", "raw")), welford[0])
+                     for side in ("fg", "bg")}
+            res["welford_vs_plain"] = _welford_errors(got, plain, welford[0])
+            failures += _welford_failures(res["welford_vs_plain"], "the plain version")
+        for k in ("n_samples", "prev_update", "window"):
+            if float(got[k]) != float(want[k]):
+                failures.append(f"counter {k}: {float(got[k])} vs {float(want[k])}")
+        if adapting:
+            s = dict(zip(("da_log_step", "da_log_bar", "da_hbar", "da_count", "da_mu"),
+                         args[4:9]))
+            for t in range(T):
+                _da_update(s, got["mean_tree_accept"][t], config)
+            # within 1e-5 relative, 1e-6 absolute near 0 (hbar is a
+            # running mean of target - accept, near 0 once adapted)
+            res["da_max_abs"] = max(float((got[k] - v).abs().max()) for k, v in s.items())
+            res["da_tol_share"] = max(float(((got[k] - v).abs() / (1e-6 + 1e-5 * v.abs())).max())
+                                      for k, v in s.items())
+            if res["da_tol_share"] > 1.0:
+                failures.append("dual averaging differs from its replay")
+    return res, failures, got, want, args, kw
+
+
+def _compare_fused(T, tuning, adapt_step_size, seed, words):
+    """Phase 2c: :func:`fused_check` at the main path's shapes, printed,
+    and the kernel timed on the same input. Returns the kernel's and the
+    plain version's ms, the largest q difference on the held chain-draws,
+    and the kernel's leaves summed over chains and draws."""
+    from littlemcmc_torch.models import CorrelatedGaussian
+    from littlemcmc_torch.ops.fused_nuts import fused_nuts
+
+    res, failures, got, _, args, kw = fused_check(CorrelatedGaussian(N), CHAINS, T, tuning,
+                                                  adapt_step_size, seed, words)
+    res["kernel_ms"] = _cuda_time_ms(lambda: fused_nuts(*args, words, **kw), reps=5, warmup=1)
+    print(json.dumps(res), flush=True)
+    if failures:
+        raise RuntimeError(f"fused kernel vs plain ({res['chunk']} chunk): {failures}")
+    return res["kernel_ms"], res["plain_ms"], res["q_max_abs"], int(got["n_leaves"].sum())
+
+
+def _quality(model, trace, stats, secs, report, label, card, extra):
+    """The posterior gates of a main-path run; prints its JSON line."""
+    import numpy as np
+    from littlemcmc_torch.utils.diagnostics import ess_bulk
+
+    if trace.shape != (CHAINS, DRAWS, N) or not np.isfinite(trace).all():
+        raise RuntimeError(f"{label}: bad trace: shape {trace.shape}, finite "
+                           f"{np.isfinite(trace).all()}")
+    t_ess = time.perf_counter()
+    flat = trace.reshape(-1, N)
+    sd = np.sqrt(model.true_var)
+    var_ratio = float((flat.var(0) / model.true_var).mean())
+    mean_err = float((np.abs(flat.mean(0)) / sd).max())
+    div_rate = float(stats["diverging"].mean())
+    min_ess = float(min(ess_bulk(trace[:, :, i]) for i in range(N)))
+    line = {"phase": label, "engine": report["engine"],
+            "trajectory": report["trajectory"], "chain_block": report["chain_block"],
+            "chains": CHAINS, "ndim": N, "tune": TUNE, "draws": DRAWS, **extra,
+            "sample_seconds": secs,
+            "transitions_per_s": CHAINS * (TUNE + DRAWS) / secs,
+            "min_bulk_ess": min_ess, "min_bulk_ess_per_s": min_ess / secs,
+            "divergence_rate": div_rate, "posterior_var_ratio": var_ratio,
+            "max_abs_mean_over_sd": mean_err,
+            "mean_tree_size": float(stats["tree_size"].mean()),
+            "mean_depth": float(stats["depth"].mean()),
+            "step_size": float(stats["step_size"][:, -1].mean()),
+            "mean_tree_accept": float(stats["mean_tree_accept"].mean()),
+            "ess_seconds": time.perf_counter() - t_ess, "card": card}
+    print(json.dumps(line), flush=True)
+    gates = [("divergence_rate < 0.01", div_rate < 0.01),
+             ("0.9 <= posterior_var_ratio <= 1.1", 0.9 <= var_ratio <= 1.1),
+             ("max |mean| / sd < 0.1", mean_err < 0.1),
+             ("min bulk ESS > 1000", min_ess > 1000)]
+    failed = [g for g, ok in gates if not ok]
+    if failed:
+        raise RuntimeError(f"{label} quality gates failed: {failed}")
+    return line
 
 
 def _breakdown(model, state, gen, draws: int = 50) -> None:
@@ -178,6 +522,79 @@ def _breakdown(model, state, gen, draws: int = 50) -> None:
         "top_device_us": [[k[:60], t] for k, t in top]}), flush=True)
 
 
+def _fused_breakdown(model, state, chunk: int, iter0: int) -> None:
+    """Where one draw chunk of the fused engine spends its time: the
+    runner's chunk (L^-1, the launch, the state) from 3b's final state
+    under ``torch.profiler``, device time by kernel over the chunk's time
+    on CUDA events."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+    from littlemcmc_torch.base import NUTSConfig
+    from littlemcmc_torch.nuts import build_fused_nuts_runner_factory
+
+    factory = build_fused_nuts_runner_factory(NUTSConfig(), model.trajectory_spec(),
+                                              state.potential, True, (101, 103))
+    run = factory(chunk, False, True)
+    start, end = (torch.cuda.Event(enable_timing=True) for _ in range(2))
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        start.record()
+        run(state, iter0)
+        end.record()
+        end.synchronize()
+    window_us = 1e3 * start.elapsed_time(end)
+    by_kernel = {}
+    for e in prof.key_averages():
+        if e.device_type == torch.autograd.DeviceType.CUDA and e.self_device_time_total > 0:
+            by_kernel[e.key] = e.self_device_time_total
+    busy = sum(by_kernel.values())
+    fused = sum(t for k, t in by_kernel.items() if "fused_nuts" in k)
+    top = sorted(by_kernel.items(), key=lambda kv: -kv[1])[:4]
+    print(json.dumps({
+        "phase": "fused_breakdown", "draws": chunk, "chunk_ms": window_us / 1e3,
+        "ms_per_draw": window_us / chunk / 1e3,
+        "device_busy_share": busy / window_us if busy else "not measured",
+        "fused_kernel_share": fused / window_us if busy else "not measured",
+        "other_kernels": len(by_kernel) - (1 if fused else 0),
+        "top_device_us": [[k[:60], t] for k, t in top]}), flush=True)
+
+
+def _fused_path_breakdown(model) -> None:
+    """Where the slice's call spends its time: the 3b call once more under
+    ``torch.profiler``; the fused kernel's device time launch by launch (8
+    tune chunks, then 4 draw chunks), and over the window from the first
+    launch's start to the last one's end, the other kernels' device time
+    (the metric refreshes between chunks) and the device's busy share."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+    from littlemcmc_torch import sample
+
+    report = {}
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        sample(model.logp_grad, model_ndim=N, chains=CHAINS, tune=TUNE, draws=DRAWS,
+               random_seed=42, init="adapt_full", perf_report=report, progressbar=False,
+               compute_convergence_checks=False)
+    kernels = sorted((e for e in prof.events()
+                      if e.device_type == torch.autograd.DeviceType.CUDA),
+                     key=lambda e: e.time_range.start)
+    fused = [e for e in kernels if "fused_nuts" in e.name]
+    line = {"phase": "fused_path_breakdown",
+            "sample_seconds_profiled": report["sample_seconds"]}
+    if not fused:
+        line["fused_launch_ms"] = "not measured"
+    else:
+        t0, t1 = fused[0].time_range.start, fused[-1].time_range.end
+        fused_us = [e.time_range.elapsed_us() for e in fused]
+        other_us = sum(e.time_range.elapsed_us() for e in kernels
+                       if "fused_nuts" not in e.name and t0 <= e.time_range.start
+                       and e.time_range.end <= t1)
+        line.update(fused_launch_ms=[t / 1e3 for t in fused_us],
+                    fused_tune_ms=sum(fused_us[:-4]) / 1e3,
+                    fused_draw_ms=sum(fused_us[-4:]) / 1e3,
+                    window_ms=(t1 - t0) / 1e3, other_kernels_in_window_ms=other_us / 1e3,
+                    device_busy_share=(sum(fused_us) + other_us) / (t1 - t0))
+    print(json.dumps(line), flush=True)
+
+
 def main() -> int:
     if not (ROOT / "littlemcmc_torch" / "ops" / "csrc").is_dir():
         print("chip_smoke.py must run from a littlemcmc checkout "
@@ -207,13 +624,14 @@ def main() -> int:
     for name in sorted(libs):
         log = (libs[name].parent / f"{name}.log").read_text()
         for ln in log.splitlines():
-            if "registers" in ln or "spill" in ln:
+            if "registers" in ln or "spill" in ln or "entry function" in ln:
                 print(f"ptxas[{name}]: {ln.strip()}", flush=True)
 
     from littlemcmc_torch import sample
+    from littlemcmc_torch.base import NUTSConfig
     from littlemcmc_torch.models import CorrelatedGaussian, StandardNormal
+    from littlemcmc_torch.ops.fused_nuts import fused_nuts
     from littlemcmc_torch.ops.nuts_trajectory import trajectory, trajectory_plain
-    from littlemcmc_torch.utils.diagnostics import ess_bulk
 
     # --- 2. the kernel against its plain version -------------------------------
     cg = CorrelatedGaussian(N)
@@ -222,49 +640,80 @@ def main() -> int:
     sn = StandardNormal(4)
     _compare("standard_normal", sn, _stationary_inputs(sn, np.eye(4), CHAINS, 0.5, seed=1),
              (5, 6), need=1.0)
+    # 2b. the dense branch, the true covariance as the shared metric
+    dense_err = _compare("correlated_gaussian", cg,
+                         _dense_stationary_inputs(cg, CHAINS, 0.5, seed=2), (23, 31),
+                         need=0.99, metric="dense")
+    # 2c. the fused kernel: a draw chunk, a tune chunk with the step size
+    # held, and a tune chunk as the main path runs it
+    fused_cmp = _compare_fused(4, False, True, seed=3, words=(41, -7))
+    fused_err = fused_cmp[2]
+    cmp_bound_ms, cmp_bound_by = _fused_bound_ms(fused_cmp[3], CHAINS, N, 4, False)
+    for tuning_cmp in (_compare_fused(4, True, False, seed=4, words=(43, 11)),
+                       _compare_fused(4, True, True, seed=5, words=(47, 13))):
+        fused_err = max(fused_err, tuning_cmp[2])
+    _line(phase="kernel_checks", elapsed_s=f"{time.perf_counter() - t_start:.1f}")
 
     # --- 3. the main path -------------------------------------------------------
     trajectory.launches = 0
+    fused_nuts.launches = 0
     report = {}
     trace, stats, state = sample(cg.logp_grad, model_ndim=N, chains=CHAINS, tune=TUNE,
                                  draws=DRAWS, random_seed=42, perf_report=report,
                                  return_final_state=True, progressbar=False)
     launches = trajectory.launches
-    if report["kernel_launches"] != TUNE + DRAWS or launches != TUNE + DRAWS:
+    if (report["kernel_launches"] != {"nuts_trajectory": TUNE + DRAWS, "fused_nuts": 0}
+            or launches != TUNE + DRAWS or fused_nuts.launches != 0):
         raise RuntimeError(f"main path launched the kernel {launches} times, "
                            f"expected {TUNE + DRAWS}")
-    if trace.shape != (CHAINS, DRAWS, N) or not np.isfinite(trace).all():
-        raise RuntimeError(f"bad trace: shape {trace.shape}, finite "
-                           f"{np.isfinite(trace).all()}")
-    t_ess = time.perf_counter()
-    flat = trace.reshape(-1, N)
-    sd = np.sqrt(cg.true_var)
-    var_ratio = float((flat.var(0) / cg.true_var).mean())
-    mean_err = float((np.abs(flat.mean(0)) / sd).max())
-    div_rate = float(stats["diverging"].mean())
-    min_ess = float(min(ess_bulk(trace[:, :, i]) for i in range(N)))
-    secs = report["sample_seconds"]
-    main = {"phase": "main_path", "engine": report["engine"],
-            "trajectory": report["trajectory"], "chain_block": report["chain_block"],
-            "chains": CHAINS, "ndim": N, "tune": TUNE, "draws": DRAWS,
-            "kernel_launches": launches, "sample_seconds": secs,
-            "transitions_per_s": CHAINS * (TUNE + DRAWS) / secs,
-            "min_bulk_ess": min_ess, "min_bulk_ess_per_s": min_ess / secs,
-            "divergence_rate": div_rate, "posterior_var_ratio": var_ratio,
-            "max_abs_mean_over_sd": mean_err,
-            "mean_tree_size": float(stats["tree_size"].mean()),
-            "mean_depth": float(stats["depth"].mean()),
-            "step_size": float(stats["step_size"][:, -1].mean()),
-            "mean_tree_accept": float(stats["mean_tree_accept"].mean()),
-            "ess_seconds": time.perf_counter() - t_ess, "card": smi}
-    print(json.dumps(main), flush=True)
-    gates = [("divergence_rate < 0.01", div_rate < 0.01),
-             ("0.9 <= posterior_var_ratio <= 1.1", 0.9 <= var_ratio <= 1.1),
-             ("max |mean| / sd < 0.1", mean_err < 0.1),
-             ("min bulk ESS > 1000", min_ess > 1000)]
-    failed = [g for g, ok in gates if not ok]
-    if failed:
-        raise RuntimeError(f"main path quality gates failed: {failed}")
+    _quality(cg, trace, stats, report["sample_seconds"], report, "main_path", smi,
+             {"kernel_launches": launches})
+
+    # 3b. init="adapt_full": pooled dense adaptation on the fused kernel
+    trajectory.launches = 0
+    fused_nuts.launches = 0
+    report_f = {}
+    trace_f, stats_f, state_f = sample(cg.logp_grad, model_ndim=N, chains=CHAINS, tune=TUNE,
+                                       draws=DRAWS, random_seed=42, init="adapt_full",
+                                       perf_report=report_f, return_final_state=True,
+                                       progressbar=False)
+    fused_launches, per_draw_launches = fused_nuts.launches, trajectory.launches
+    # tune chunks 10, 10, 30, 50, then 100 four times; draw chunks 4 x 250
+    if (report_f["engine"] != "fused_dense_pooled" or fused_launches != 12
+            or per_draw_launches != 0
+            or report_f["kernel_launches"] != {"nuts_trajectory": 0, "fused_nuts": 12}):
+        raise RuntimeError(f"adapt_full ran engine {report_f['engine']} with "
+                           f"{fused_launches} fused and {per_draw_launches} per-draw "
+                           f"launches, expected fused_dense_pooled, 12 and 0")
+    draw_depth = float(stats_f["depth"].mean())
+    line_f = _quality(cg, trace_f, stats_f, report_f["sample_seconds"], report_f,
+                      "adapt_full_fused", smi,
+                      {"kernel_launches": report_f["kernel_launches"]})
+    if draw_depth > 4.0:
+        raise RuntimeError(f"adapt_full: draw-phase mean tree depth {draw_depth} > 4")
+
+    # 3c. the same on the per-draw engine, the trajectory kernel's dense branch
+    trajectory.launches = 0
+    fused_nuts.launches = 0
+    report_d = {}
+    trace_d, stats_d, state_d = sample(cg.logp_grad, model_ndim=N, chains=CHAINS, tune=TUNE,
+                                       draws=DRAWS, random_seed=42, init="adapt_full",
+                                       fuse_draws=False, perf_report=report_d,
+                                       return_final_state=True, progressbar=False)
+    dense_launches = trajectory.launches
+    if (report_d["engine"] != "per_draw_dense_pooled" or dense_launches != TUNE + DRAWS
+            or fused_nuts.launches != 0):
+        raise RuntimeError(f"adapt_full, fuse_draws=False ran engine {report_d['engine']} "
+                           f"with {dense_launches} trajectory and {fused_nuts.launches} "
+                           f"fused launches")
+    line_d = _quality(cg, trace_d, stats_d, report_d["sample_seconds"], report_d,
+                      "adapt_full_per_draw", smi,
+                      {"kernel_launches": report_d["kernel_launches"]})
+    _line(phase="dense_engines", fused_sample_seconds=line_f["sample_seconds"],
+          per_draw_sample_seconds=line_d["sample_seconds"],
+          fused_min_bulk_ess_per_s=line_f["min_bulk_ess_per_s"],
+          per_draw_min_bulk_ess_per_s=line_d["min_bulk_ess_per_s"],
+          elapsed_s=f"{time.perf_counter() - t_start:.1f}")
 
     # --- 4. the kernel's time at the main path's final state -------------------
     gen = torch.Generator(device="cuda").manual_seed(7)
@@ -283,14 +732,71 @@ def main() -> int:
           bound_ms=f"{bound_ms:.4f}", bound_by=bound_by,
           mean_leaves=f"{leaves / CHAINS:.2f}", elapsed_s=f"{time.perf_counter() - t_start:.1f}")
     _breakdown(cg, state, gen)
-    print(json.dumps({"kernels": [{
-        "name": "nuts_trajectory", "route": "cuda",
-        "source": "littlemcmc_torch/ops/csrc/nuts_trajectory.cu",
-        "replaces": "littlemcmc_tpu/ops/nuts_trajectory_pallas.py:1023",
-        "launches": launches, "max_abs_err": max_abs_err, "ms": kernel_ms,
-        "plain_ms": plain_ms, "bound_ms": bound_ms, "bound_by": bound_by,
-        # no single PyTorch call computes a NUTS transition
-        "library_ms": None}]}), flush=True)
+
+    # 4b. the fused kernel at 3b's final state: one 250-draw chunk
+    cfg = NUTSConfig()
+    pot_f = state_f.potential
+    cov = pot_f.cov[0].contiguous()
+    linv = torch.linalg.solve_triangular(pot_f.chol[0], torch.eye(N, device="cuda"),
+                                         upper=False)
+    da = state_f.da
+    fargs = (state_f.q, state_f.q_grad, state_f.logp, state_f.iter_count.float(),
+             da.log_step, da.log_bar, da.hbar, da.count.float(), da.mu, cov, linv)
+    fkw = dict(spec=cg.trajectory_spec(), T=250, tuning=False, config=cfg,
+               chain_block=CHAIN_BLOCK)
+    fout = fused_nuts(*fargs, (5, 9), **fkw)
+    f_leaves = int(fout["n_leaves"].sum())
+    f_ms = _cuda_time_ms(lambda: fused_nuts(*fargs, (5, 9), **fkw), reps=3, warmup=0)
+    f_bound_ms, f_bound_by = _fused_bound_ms(f_leaves, CHAINS, N, 250, False)
+    _line(phase="fused_timing", chunk_draws=250, kernel_ms=f"{f_ms:.4f}",
+          ms_per_draw=f"{f_ms / 250:.5f}", bound_ms=f"{f_bound_ms:.4f}",
+          bound_by=f_bound_by, mean_leaves_per_draw=f"{f_leaves / CHAINS / 250:.3f}",
+          max_depth=int(fout["depth"].max()),
+          plain_ms_4_draws=f"{fused_cmp[1]:.1f}", kernel_ms_4_draws=f"{fused_cmp[0]:.4f}")
+    _fused_breakdown(cg, state_f, 250, TUNE + DRAWS)
+    _fused_path_breakdown(cg)
+
+    # the dense trajectory kernel at 3c's final state
+    pot_d = state_d.potential
+    dargs = (state_d.q, pot_d.sample_momentum(gen), state_d.q_grad, state_d.logp,
+             torch.exp(state_d.da.log_bar),
+             torch.full((CHAINS,), DEPTH, dtype=torch.int32, device="cuda"),
+             pot_d.cov[0].contiguous())
+    dkw = dict(kw, metric="dense")
+    dout = trajectory(*dargs, (3, 8), **dkw)
+    d_leaves = int(dout["n_leaves"].sum())
+    d_ms = _cuda_time_ms(lambda: trajectory(*dargs, (3, 8), **dkw), reps=20, warmup=3)
+    d_plain_ms = _cuda_time_ms(lambda: trajectory_plain(*dargs, (3, 8), **dkw), reps=1,
+                               warmup=0)
+    d_bound_ms, d_bound_by = _bound_ms(d_leaves, CHAINS, N, "dense")
+    _line(phase="dense_timing", kernel_ms=f"{d_ms:.4f}", plain_ms=f"{d_plain_ms:.1f}",
+          bound_ms=f"{d_bound_ms:.4f}", bound_by=d_bound_by,
+          mean_leaves=f"{d_leaves / CHAINS:.2f}", elapsed_s=f"{time.perf_counter() - t_start:.1f}")
+
+    traj_src = "littlemcmc_torch/ops/csrc/nuts_trajectory.cu"
+    traj_tpu = "littlemcmc_tpu/ops/nuts_trajectory_pallas.py:1023"
+    # no single PyTorch call computes a NUTS transition: library_ms is null
+    print(json.dumps({"kernels": [
+        {"name": "nuts_trajectory", "metric": "diag", "route": "cuda", "source": traj_src,
+         "replaces": traj_tpu, "launches": launches, "max_abs_err": max_abs_err,
+         "ms": kernel_ms, "plain_ms": plain_ms, "bound_ms": bound_ms, "bound_by": bound_by,
+         "library_ms": None},
+        {"name": "nuts_trajectory", "metric": "dense", "route": "cuda", "source": traj_src,
+         "replaces": traj_tpu, "launches": dense_launches, "max_abs_err": dense_err,
+         "ms": d_ms, "plain_ms": d_plain_ms, "bound_ms": d_bound_ms,
+         "bound_by": d_bound_by, "library_ms": None},
+        # ms, plain_ms and bound_ms: one 4-draw launch of 1024 chains on
+        # phase 2c's draw-chunk input; chunk_*: one 250-draw launch at
+        # 3b's final state (the main path's draw chunk)
+        {"name": "fused_nuts", "metric": "dense", "route": "cuda",
+         "source": "littlemcmc_torch/ops/csrc/fused_nuts.cu",
+         "replaces": "littlemcmc_tpu/ops/fused_nuts_pallas.py:978",
+         "launches": fused_launches, "max_abs_err": fused_err, "ms": fused_cmp[0],
+         "draws": 4, "plain_ms": fused_cmp[1], "bound_ms": cmp_bound_ms,
+         "bound_by": cmp_bound_by, "library_ms": None, "chunk_draws": 250,
+         "chunk_ms": f_ms, "chunk_bound_ms": f_bound_ms, "chunk_bound_by": f_bound_by},
+    ]}), flush=True)
+    _line(phase="done", elapsed_s=f"{time.perf_counter() - t_start:.1f}")
     print(smi, flush=True)
     print(json.dumps({"ok": True, "device": {"platform": "gpu",
                                              "kind": torch.cuda.get_device_name(0),

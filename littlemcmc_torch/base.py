@@ -16,7 +16,8 @@ import torch
 
 from .step_sizes import DualAverageState, dual_average_init, dual_average_update
 
-__all__ = ["NUTSConfig", "ChainState", "init_chain_state", "finish_step"]
+__all__ = ["NUTSConfig", "ChainState", "init_chain_state", "finish_step",
+           "pooled_tune_schedule"]
 
 BatchedLogpGrad = Callable[[torch.Tensor], Tuple[torch.Tensor, torch.Tensor]]
 
@@ -83,3 +84,18 @@ def finish_step(state: ChainState, proposal_q: torch.Tensor,
         potential=state.potential.update(proposal_q, proposal_grad, tuning),
         da=da, iter_count=state.iter_count + 1,
     )
+
+
+def pooled_tune_schedule(t: int) -> int:
+    """Iterations from tune position ``t`` to the next metric refresh of a
+    pooled boundary-cadence metric (reference ``base.py:157-179``).
+
+    The fused pooled dense engine refreshes the shared metric only at
+    chunk boundaries, so the chunking is the adaptation schedule:
+    boundaries at 10, 20, 50, 100, then every 100, as Stan's expanding
+    adaptation windows.
+    """
+    for b in (10, 20, 50, 100):
+        if t < b:
+            return b - t
+    return 100 - (t % 100)

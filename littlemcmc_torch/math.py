@@ -9,7 +9,21 @@ from __future__ import annotations
 
 import torch
 
-__all__ = ["logbern", "log1mexp", "logdiffexp", "round_up"]
+__all__ = ["logbern", "log1mexp", "logdiffexp", "round_up", "fp32_matmul"]
+
+
+def fp32_matmul(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    """``a @ b`` in full float32, whatever ``torch.set_float32_matmul_precision``
+    (or ``allow_tf32``) says: the products feed energies and U-turn
+    decisions. The caller's setting is restored."""
+    prev = torch.get_float32_matmul_precision()
+    if prev == "highest":
+        return a @ b
+    torch.set_float32_matmul_precision("highest")
+    try:
+        return a @ b
+    finally:
+        torch.set_float32_matmul_precision(prev)
 
 
 def logbern(log_p: torch.Tensor, generator: torch.Generator | None = None) -> torch.Tensor:

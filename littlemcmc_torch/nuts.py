@@ -1,25 +1,44 @@
-"""The per-draw NUTS transition on the trajectory op, batched over chains.
+"""NUTS transitions on the trajectory op and the fused op, batched over chains.
 
-Counterpart of ``littlemcmc_tpu/nuts.py:682-917`` (``build_nuts_kernel``)
-on its trajectory-op path with a diagonal metric: fresh momentum, the
-step size from dual averaging, the early tree-depth cap, one trajectory
-launch for all chains, then the dual-averaging and metric updates.
+Counterpart of ``littlemcmc_tpu/nuts.py`` on its kernel paths:
+
+- :func:`build_nuts_kernel` (``:682-917``), the per-draw engine: fresh
+  momentum, the step size from dual averaging, the early tree-depth cap,
+  one trajectory launch for all chains, then the dual-averaging and metric
+  updates; diag metrics, a static dense metric, or a pooled adaptive dense
+  metric (``_shared_dense_cov`` ``:642-659``);
+- :func:`build_fused_nuts_runner_factory` (``:1006-1326``), the fused
+  engine for dense metrics (its ``dense_static`` and ``dense_pooled``
+  branches): one fused-op launch per chunk of draws, with the pooled dense
+  metric refreshed at chunk boundaries (``_pool_dense_welford``
+  ``:927-950``, ``_dense_boundary_potential`` ``:967-1003``).
+
 ``run_nuts_tree`` (the tree built from separate tensor ops, the engine
-for models without a kernel body) and the dense and low-rank metrics are
-not ported yet.
+for models without a kernel body), the fused diag and low-rank branches
+and the low-rank metric are not ported yet.
 """
 
 from __future__ import annotations
 
+import dataclasses
 from typing import Callable, NamedTuple, Optional, Sequence, Tuple
 
 import torch
 
-from .base import ChainState, NUTSConfig, finish_step
+from .base import ChainState, NUTSConfig, finish_step, pooled_tune_schedule
 from .math import log1mexp
+from .ops.fused_nuts import combine_dense_welford, fused_nuts
 from .ops.nuts_trajectory import DEFAULT_CHAIN_BLOCK, TrajectorySpec, trajectory
+from .quadpotential import (QuadPotentialDiag, QuadPotentialDiagAdapt, QuadPotentialFull,
+                            QuadPotentialFullAdapt, WelfordCovariance, cholesky_or_keep)
+from .step_sizes import DualAverageState
 
-__all__ = ["NUTSInfo", "build_nuts_kernel"]
+__all__ = ["NUTSInfo", "build_nuts_kernel", "build_fused_nuts_runner_factory"]
+
+_NO_TREE = ("littlemcmc_torch runs NUTS only through its kernels, which need a "
+            "model with a trajectory_spec() (StandardNormal, CorrelatedGaussian). "
+            "The tensor-op tree for other models is ROADMAP Queue 1 item 6 "
+            "(run_nuts_tree).")
 
 
 class NUTSInfo(NamedTuple):
@@ -39,20 +58,48 @@ class NUTSInfo(NamedTuple):
     reached_max_treedepth: torch.Tensor
 
 
+def _shared_dense_cov(potential, pooled: bool = False) -> Optional[torch.Tensor]:
+    """The ``(n, n)`` covariance every chain shares, or None.
+
+    ``QuadPotentialFull`` always qualifies (row 0 of a broadcast).
+    ``QuadPotentialFullAdapt`` qualifies only under cross-chain pooled
+    adaptation: ``sample()`` overwrites every chain's metric with the pooled
+    estimate each tuning step, so row 0 is the shared matrix at every
+    kernel entry.
+    """
+    if isinstance(potential, QuadPotentialFull) or (
+            pooled and isinstance(potential, QuadPotentialFullAdapt)):
+        return potential.cov[0].contiguous()
+    return None
+
+
+def _trajectory_metric(potential, pooled: bool) -> Tuple[str, torch.Tensor]:
+    """``(metric, var)`` of the trajectory op for a chain-batched metric."""
+    if isinstance(potential, (QuadPotentialDiag, QuadPotentialDiagAdapt)):
+        return "diag", potential.inverse_mass
+    cov = _shared_dense_cov(potential, pooled)
+    if cov is None:
+        raise NotImplementedError(
+            "per-chain dense adaptation has no shared covariance for the "
+            "trajectory kernel; it runs on the tensor-op tree, ROADMAP Queue 1 "
+            "item 6. Use cross_chain_adapt=True (the default at >= 128 chains).")
+    return "dense", cov
+
+
 def build_nuts_kernel(config: NUTSConfig = NUTSConfig(),
-                      trajectory_spec: Optional[TrajectorySpec] = None
+                      trajectory_spec: Optional[TrajectorySpec] = None,
+                      pooled_metric: bool = False
                       ) -> Callable[..., Tuple[ChainState, NUTSInfo]]:
     """``kernel(state, tuning, generator, seed) -> (state, info)``.
 
     ``generator`` draws the momenta (on the state's device); ``seed`` is
     the trajectory's two int32 counter-stream words for this draw.
+    ``pooled_metric``: the state's adaptive dense metric is pooled across
+    chains (``sample()`` pools it after every tuning draw), so its row 0 is
+    the covariance the trajectory kernel shares.
     """
     if trajectory_spec is None:
-        raise NotImplementedError(
-            "littlemcmc_torch runs NUTS only through the trajectory kernel, "
-            "which needs a model with a trajectory_spec() (StandardNormal, "
-            "CorrelatedGaussian). The tensor-op tree for other models is "
-            "ROADMAP Queue 1 item 6 (run_nuts_tree).")
+        raise NotImplementedError(_NO_TREE)
     chain_block = config.chain_block or DEFAULT_CHAIN_BLOCK
 
     def kernel(state: ChainState, tuning: bool, generator: torch.Generator,
@@ -70,11 +117,12 @@ def build_nuts_kernel(config: NUTSConfig = NUTSConfig(),
             early, torch.full_like(state.iter_count, config.early_max_treedepth),
             torch.full_like(state.iter_count, config.max_treedepth))
 
+        metric, var = _trajectory_metric(pot, pooled_metric)
         out = trajectory(state.q, p0, state.q_grad, state.logp, step_size,
-                         max_depth_c, pot.inverse_mass, seed,
+                         max_depth_c, var, seed,
                          spec=trajectory_spec, max_treedepth=config.max_treedepth,
                          Emax=config.Emax, chain_block=chain_block,
-                         integrator=config.integrator)
+                         integrator=config.integrator, metric=metric)
 
         log_size = out["log_size"]
         mta = torch.where(
@@ -101,3 +149,158 @@ def build_nuts_kernel(config: NUTSConfig = NUTSConfig(),
         return new_state, info
 
     return kernel
+
+
+# --------------------------------------------------------------------------
+# The fused engine (dense metrics)
+# --------------------------------------------------------------------------
+
+def _pool_dense_welford(pot: QuadPotentialFullAdapt):
+    """Global pooled moments of a chain-batched ``QuadPotentialFullAdapt``:
+    the exact Chan combination over chains of both windows, as full
+    ``(mean, raw, weight)`` states, plus the shared counters as 0-d float32
+    tensors (reference ``nuts.py:927-950``)."""
+    f32 = torch.float32
+
+    def pool(wf):
+        nc = wf.n_samples.to(f32)  # (C,)
+        N = torch.sum(nc)
+        M = torch.sum(nc[:, None] * wf.mean, dim=0) / torch.clamp(N, min=1e-30)
+        d = wf.mean - M
+        raw = torch.sum(wf.raw_cov, dim=0) + torch.einsum("c,ci,cj->ij", nc, d, d)
+        return M, raw, N
+
+    fgM, fgR, fgW = pool(pot.fg)
+    bgM, bgR, bgW = pool(pot.bg)
+    return (fgM, fgR, fgW, bgM, bgR, bgW, pot.n_samples[0].to(f32),
+            pot.prev_update[0].to(f32), pot.window[0].to(f32))
+
+
+def _dense_boundary_potential(pot: QuadPotentialFullAdapt, outs, c_fg: torch.Tensor,
+                              C: int) -> QuadPotentialFullAdapt:
+    """The pooled dense metric at a chunk boundary from the fused op's
+    per-block Welford states (reference ``nuts.py:967-1003``).
+
+    Chan-combines the blocks, refreshes the shared metric with the pooled
+    covariance ``raw / (W - 1)`` and its Cholesky factor (keeping the
+    previous factor and latching ``chol_failed`` where it fails), and
+    stores the pooled state in replicated per-chain form: each chain
+    carries 1/C of the weight at the pooled mean, so Chan-combining the C
+    rows gives back the global state and the per-draw engine can take
+    over. Rows are views of one matrix; the pooled metric's rows are
+    identical before and after.
+    """
+    Wf, Mf, Rf = combine_dense_welford(outs["dense_fg_w"], outs["dense_fg_mean"],
+                                       outs["dense_fg_raw"], c_fg)
+    Wb, Mb, Rb = combine_dense_welford(outs["dense_bg_w"], outs["dense_bg_mean"],
+                                       outs["dense_bg_raw"], c_fg)
+    cov_new = Rf / torch.clamp(Wf - 1.0, min=1.0)
+    chol, ok = cholesky_or_keep(cov_new, pot.chol[0])
+    n = cov_new.shape[0]
+    cov = torch.where(ok, cov_new, pot.cov[0])
+    Cf = float(C)
+
+    def rep(x):
+        return x.expand(C, *x.shape)
+
+    def counter(k):
+        return outs[k].to(torch.int32).expand(C)
+
+    return dataclasses.replace(
+        pot, cov=rep(cov), chol=rep(chol), chol_failed=pot.chol_failed | ~ok,
+        fg=WelfordCovariance(n_samples=rep(Wf / Cf), mean=rep(Mf), raw_cov=rep(Rf / Cf)),
+        bg=WelfordCovariance(n_samples=rep(Wb / Cf), mean=rep(Mb), raw_cov=rep(Rb / Cf)),
+        n_samples=counter("n_samples"), prev_update=counter("prev_update"),
+        window=counter("window"))
+
+
+def build_fused_nuts_runner_factory(config: NUTSConfig, trajectory_spec: TrajectorySpec,
+                                    potential_template, pooled: bool,
+                                    seed_words: Tuple[int, int]):
+    """Chunk-runner factory of the fused multi-draw kernel for dense metrics.
+
+    Returns ``factory(chunk, tuning, collect) -> run_chunk`` with
+    ``run_chunk(state, iter0) -> (state, (trace, NUTSInfo) | None, ndiv)``:
+    one fused-op launch runs the ``chunk`` transitions that start at global
+    iteration ``iter0``. ``trace`` is ``(chunk, C, n)``, every stat of
+    ``NUTSInfo`` ``(chunk, C)`` and ``ndiv`` the divergences, a tensor on
+    the state's device.
+
+    ``potential_template`` gives the metric's structure:
+
+    - static dense (``QuadPotentialFull``): every chunk with the frozen
+      metric; momentum ``z @ L^{-1}``, velocities ``p @ cov``;
+    - pooled dense (``pooled`` and ``QuadPotentialFullAdapt``): tune chunks
+      carry the block-local pooled Welford state on chip and the epilogue
+      refreshes the metric at the chunk boundary
+      (:func:`_dense_boundary_potential`); draw chunks run with the frozen
+      post-tune metric. Tune chunks follow :func:`pooled_tune_schedule`.
+
+    ``seed_words``: the run's two seed words ``(w0, w1)``. Chunk seeds fold
+    the global iteration in (``w0 + iter0 * 15485863``), so the draws do not
+    depend on the chunking (reference ``nuts.py:1190-1207``).
+    """
+    dense_static = isinstance(potential_template, QuadPotentialFull)
+    dense_pooled = pooled and isinstance(potential_template, QuadPotentialFullAdapt)
+    if not (dense_static or dense_pooled):
+        raise NotImplementedError(
+            "the fused kernel of littlemcmc_torch runs a static dense metric or a "
+            "cross-chain pooled adaptive dense metric; its per-chain diag and "
+            "low-rank branches are ROADMAP Queue 2 items 1 and 3")
+    if trajectory_spec is None:
+        raise NotImplementedError(_NO_TREE)
+    mult = potential_template.window_multiplier if dense_pooled else 1.0
+    w0, w1 = seed_words
+    chain_block = config.chain_block or DEFAULT_CHAIN_BLOCK
+
+    def factory(chunk: int, tuning: bool, collect: bool):
+        adapt_dense = bool(tuning) and dense_pooled
+
+        def run_chunk(state: ChainState, iter0: int):
+            pot = state.potential
+            cov = pot.cov[0].contiguous()
+            eye = torch.eye(cov.shape[0], dtype=cov.dtype, device=cov.device)
+            linv = torch.linalg.solve_triangular(pot.chol[0], eye, upper=False)
+            dense_welford = _pool_dense_welford(pot) if adapt_dense else None
+            da = state.da
+            outs = fused_nuts(
+                state.q, state.q_grad, state.logp, state.iter_count.to(torch.float32),
+                da.log_step, da.log_bar, da.hbar, da.count.to(torch.float32), da.mu,
+                cov, linv, ((w0 + iter0 * 15485863) & 0xFFFFFFFF, w1),
+                spec=trajectory_spec, T=chunk, tuning=bool(tuning), config=config,
+                window_multiplier=mult, chain_block=chain_block, collect_trace=collect,
+                dense_welford=dense_welford)
+            if adapt_dense:
+                pot = _dense_boundary_potential(pot, outs, dense_welford[0],
+                                                state.q.shape[0])
+            new_state = ChainState(
+                q=outs["q"], q_grad=outs["grad"], logp=outs["logp"], potential=pot,
+                da=DualAverageState(log_step=outs["da_log_step"],
+                                    log_bar=outs["da_log_bar"], hbar=outs["da_hbar"],
+                                    count=outs["da_count"].to(torch.int32),
+                                    mu=outs["da_mu"]),
+                iter_count=outs["iter_count"].to(torch.int32))
+            ndiv = outs["diverging"].sum(dtype=torch.int32)
+            if not collect:
+                return new_state, None, ndiv
+            info = NUTSInfo(
+                depth=outs["depth"], step_size=outs["step_size"],
+                tune=torch.full_like(outs["diverging"], bool(tuning)),
+                mean_tree_accept=outs["mean_tree_accept"],
+                step_size_bar=outs["step_size_bar"],
+                tree_size=outs["n_leaves"].to(torch.float32),
+                diverging=outs["diverging"], energy_error=outs["energy_error"],
+                energy=outs["energy"], max_energy_error=outs["max_energy_change"],
+                model_logp=outs["model_logp"],
+                reached_max_treedepth=(~outs["diverging"] & ~outs["turning"]
+                                       & (not tuning)))
+            return new_state, (outs["trace"], info), ndiv
+
+        return run_chunk
+
+    if dense_pooled:
+        # the metric refreshes only at chunk boundaries, so the tune chunks
+        # are the adaptation schedule (reference nuts.py:1309-1326; the
+        # reference's tune_chunk_cap of 50 is never read beside a schedule)
+        factory.tune_chunk_schedule = pooled_tune_schedule
+    return factory

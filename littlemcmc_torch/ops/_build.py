@@ -96,12 +96,17 @@ _SIGNATURES = {
     "nuts_trajectory": {
         "nuts_trajectory_launch": (
             _I, [_P, _P, _P, _P, _P, _P, _P,  # q p g var logp eps mdc
-                 _U, _U, _I, _P,              # seed0 seed1 body consts
+                 _U, _U, _I, _I, _P,          # seed0 seed1 body metric consts
                  _I, _I, _I, _F, _I, _I, _P,  # C n D Emax cb n_stages coef
                  _P,                          # stack
                  _P, _P, _P, _P, _P, _P, _P,  # q g energy logp ls lwas mec
                  _P, _P, _P, _P,              # depth n_leaves div turn
                  _P]),                        # stream
+        "cuda_error_string": (ctypes.c_char_p, [_I]),
+    },
+    "fused_nuts": {
+        # pointers, ints, floats (ops/fused_nuts.py: _PTRS, _INTS, _FLOATS), stream
+        "fused_nuts_launch": (_I, [_P, _P, _P, _P]),
         "cuda_error_string": (ctypes.c_char_p, [_I]),
     },
 }

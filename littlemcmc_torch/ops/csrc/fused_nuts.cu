@@ -1,0 +1,360 @@
+// T NUTS transitions per launch with a shared dense metric: the fused
+// multi-draw kernel.
+//
+// Replaces the TPU kernel littlemcmc_tpu/ops/fused_nuts_pallas.py::
+// build_fused_nuts_op (kernel :561, pallas_call at :978) for metric="dense",
+// static (draw chunks) and with adapt_dense (pooled dense adaptation in
+// tune chunks). The plain PyTorch version it is held against is
+// ops/fused_nuts.py::fused_nuts_plain.
+//
+// Mapping. One thread block is one chain block of CB chains, one warp per
+// chain, as in the per-draw kernel; the block loops t = 0..T-1 inside the
+// launch, where the TPU kernel's grid walks its sequential draw axis. The
+// chain state (q, grad in shared memory; logp, the iteration counter and
+// the dual-averaging state in registers, the same bits in every lane of
+// the warp) stays on chip across draws, as the TPU kernel keeps it in VMEM
+// scratch (:635-657, :773-795). Per draw and chain:
+//   1. Box-Muller normals z from the momentum stream, salted seed0 +
+//      1013904223 with lane_r = row * Npad + col (:700-705);
+//   2. the momentum p = z @ L^-1 (row convention, :154-166);
+//   3. E0 = p.(p @ COV)/2 - logp;
+//   4. the step size and depth cap from the iteration counter (:716-723);
+//   5. the transition of nuts_transition.cuh, with its counter restarted;
+//   6. the gradient recomputed at the proposal (:731);
+//   7. mean_tree_accept, then dual averaging (:734-750);
+//   8. tune chunks with adapt_dense: the block's CB new positions are
+//      Chan-combined into the block-local pooled Welford state of both
+//      windows, then the shared window swap (:758-764);
+//   9. the trace row and the per-draw stats, written to (T, C) outputs.
+// The per-draw seed word is seed0 = w0 + block*7919 + t*15485863 (:662).
+//
+// Where the state lives, and why. At n = 100 and CB = 8: the transition's
+// 16 vectors and the chain's q and grad (18 x CB x n floats, 58 KB), the
+// slot scalars (1.3 KB), the Welford means and shifts (5 x n floats), the
+// precision P (40 KB) and COV (40 KB) sit in shared memory: 141 KB of the
+// 227 KB a block may use. L^-1 (40 KB) is read once per draw, so it stays
+// in global memory, where L2 holds it. The block-local raw scatters of the
+// two windows (2 x n x n floats a block, 10 MB at 128 blocks) live in the
+// per-block output tensors, which the wrapper seeds with 1/B of the global
+// state and the kernel updates in place; they too stay in L2.
+//
+// What bounds it on this card. Per chain and draw: 2n^2 FLOP for the
+// momentum, per leaf 2n^2 for the model body and 2n^2 for the velocity
+// plus about 20n elementwise, 2n^2 for the final gradient, and in tune
+// 4n^2 for the Welford adds; all fp32 outside the tensor cores, against
+// the trace and stats written once to device memory. The design keeps the
+// state on chip across the T draws, so device memory sees only the trace.
+//
+// Build: as nuts_trajectory.cu (-fmad=false, fmaf explicit in the matvecs).
+
+#include "nuts_transition.cuh"
+
+namespace {
+
+using namespace lmc;
+
+// pointer arguments, in the order of ops/fused_nuts.py::_PTRS
+enum {
+    kQ, kG, kScal, kCov, kLinv, kConsts, kStack,
+    kQOut, kGOut, kScalOut, kTrace, kStatF, kStatI, kStatB,
+    kWSeed, kFgMean, kFgRaw, kBgMean, kBgRaw, kWOut, kNumPtrs
+};
+// int arguments, in the order of ops/fused_nuts.py::_INTS
+enum {
+    iC, iN, iD, iT, iCb, iStages, iBody, iTuning, iAdapting, iAdaptDense,
+    iEarlyWindow, iEarlyMax, iMaxDepth, iSeed0, iSeed1, iNpad, kNumInts
+};
+// float arguments, in the order of ops/fused_nuts.py::_FLOATS
+enum {
+    fEmax, fB0, fB1, fB2, fB3, fA0, fA1, fA2, fTarget, fGamma, fK, fT0, fMult, kNumFloats
+};
+// per-chain scalar columns of the (C, 8) state in/out
+enum { sLogp, sIter, sLogStep, sLogBar, sHbar, sCount, sMu, kNumScal = 8 };
+// per-draw f32 stats, each (T, C)
+enum { oEnergy, oLogp, oEnergyErr, oAccept, oStep, oStepBar, oMaxErr, kNumStatF };
+
+constexpr float kTwoPi = 6.283185307179586f;
+
+struct Args {
+    const float* ptr_f[kNumPtrs];
+    int C, n, D, T, cb, n_stages, tuning, adapting, adapt_dense;
+    int early_window, early_max, max_depth, Npad;
+    uint32_t seed0, seed1;
+    float Emax, b[4], a[3], target, gamma, k, t0, mult;
+    int lam_in_smem, cov_in_smem;
+};
+
+// log(1 - exp(-x)) for x > 0, the fused JAX kernel's formula (:113-131)
+__device__ __forceinline__ float log1mexp_fused(float x) {
+    if (x < 0.683f) {
+        if (x < 1e-4f) return logf(fmaxf(x, 1e-30f)) - 0.5f * x;
+        return logf(fmaxf(1.0f - expf(-x), 1e-30f));
+    }
+    return logf(1.0f - expf(-x));
+}
+
+template <int BODY>
+__global__ void __launch_bounds__(32 * kMaxChainBlock) fused_nuts_kernel(Args A) {
+    extern __shared__ float smem[];
+    const int n = A.n, cb = A.cb, D = A.D, C = A.C;
+    const int w = threadIdx.x >> 5, lane = threadIdx.x & 31;
+    const int tid = threadIdx.x, nthreads = blockDim.x;
+    const int blk = blockIdx.x;
+    const int chain = blk * cb + w;
+
+    // shared layout: the transition's 16 vectors and the chain's q and grad
+    // [18][cb][n], the slot scalars [4][D][cb], the Welford fg and bg means,
+    // the batch mean and the two mean shifts [5][n], then P and COV
+    const WarpVecs V = warp_vecs<kDense>(smem, cb, w, n);
+    float* qs = warp_vec(smem, 16, cb, w, n);
+    float* gs = warp_vec(smem, 17, cb, w, n);
+    float* slot_sc = smem + (size_t)18 * cb * n;
+    float* fgm = slot_sc + (size_t)4 * D * cb;
+    float* bgm = fgm + n;
+    float* xm = fgm + 2 * n;
+    float* dfg = fgm + 3 * n;
+    float* dbg = fgm + 4 * n;
+    float* after = fgm + 5 * n;
+
+    TreeConsts T;
+    T.lam = A.ptr_f[kConsts]; T.cov = A.ptr_f[kCov];
+    T.stack = const_cast<float*>(A.ptr_f[kStack]);
+    T.C = C; T.n = n; T.D = D; T.cb = cb; T.n_stages = A.n_stages; T.Emax = A.Emax;
+    for (int k = 0; k < 4; ++k) T.b[k] = A.b[k];
+    for (int k = 0; k < 3; ++k) T.a[k] = A.a[k];
+    if (BODY == 1 && A.lam_in_smem) {
+        for (int k = tid; k < n * n; k += nthreads) after[k] = A.ptr_f[kConsts][k];
+        T.lam = after;
+        after += (size_t)n * n;
+    }
+    if (A.cov_in_smem) {
+        for (int k = tid; k < n * n; k += nthreads) after[k] = A.ptr_f[kCov][k];
+        T.cov = after;
+    }
+    const float* linv = A.ptr_f[kLinv];
+
+    // the chain's state
+    for (int i = lane; i < n; i += 32) {
+        qs[i] = A.ptr_f[kQ][(size_t)chain * n + i];
+        gs[i] = A.ptr_f[kG][(size_t)chain * n + i];
+    }
+    const float* sc = A.ptr_f[kScal] + (size_t)chain * kNumScal;
+    float lp = sc[sLogp], iter = sc[sIter], log_step = sc[sLogStep], log_bar = sc[sLogBar];
+    float hbar = sc[sHbar], count = sc[sCount];
+    const float mu = sc[sMu];
+
+    // the block-local pooled Welford state (adapt_dense): the seed is the
+    // global state's means, 1/B of its weights, and the shared counters
+    float* fgr = nullptr;
+    float* bgr = nullptr;
+    float wf = 0.f, wb = 0.f, ns = 0.f, pu = 0.f, win = 0.f;
+    if (A.adapt_dense) {
+        const float* seed = A.ptr_f[kWSeed];
+        for (int i = tid; i < n; i += nthreads) { fgm[i] = seed[i]; bgm[i] = seed[n + i]; }
+        wf = seed[2 * n]; wb = seed[2 * n + 1];
+        ns = seed[2 * n + 2]; pu = seed[2 * n + 3]; win = seed[2 * n + 4];
+        fgr = const_cast<float*>(A.ptr_f[kFgRaw]) + (size_t)blk * n * n;
+        bgr = const_cast<float*>(A.ptr_f[kBgRaw]) + (size_t)blk * n * n;
+    }
+    __syncthreads();  // P, COV and the Welford means are in shared memory
+
+    const uint32_t s1u = A.seed1 * kGolden;
+    float* trace = const_cast<float*>(A.ptr_f[kTrace]);
+    float* stf = const_cast<float*>(A.ptr_f[kStatF]);
+    int* sti = reinterpret_cast<int*>(const_cast<float*>(A.ptr_f[kStatI]));
+    bool* stb = reinterpret_cast<bool*>(const_cast<float*>(A.ptr_f[kStatB]));
+    const size_t TC = (size_t)A.T * C;
+
+    for (int t = 0; t < A.T; ++t) {
+        const uint32_t seed0 = A.seed0 + (uint32_t)blk * 7919u + (uint32_t)t * 15485863u;
+
+        // 1-2. momentum: Box-Muller normals, then p = z @ L^-1
+        const uint32_t mbase = seed0 + 1013904223u;
+        for (int i = lane; i < n; i += 32) {
+            const uint32_t lane_r = (uint32_t)w * (uint32_t)A.Npad + (uint32_t)i;
+            const uint32_t salt_row = fmix32((mbase + lane_r * 65063u + 17u) ^ s1u);
+            const float u1 = counter_uniform(salt_row, 1u);
+            const float u2 = counter_uniform(salt_row, 2u);
+            V.va[i] = sqrtf(-2.0f * logf(u1)) * cosf(kTwoPi * u2);
+        }
+        matvec(V.va, linv, V.vb, n, lane);
+        // 3. start energy
+        matvec(V.vb, T.cov, V.vc, n, lane);
+        float part = 0.f;
+        for (int i = lane; i < n; i += 32) part += V.vb[i] * V.vc[i];
+        const float E0 = 0.5f * warp_sum(part) - lp;
+        // 4. step size and depth cap
+        const float eps = expf(A.adapting ? log_step : log_bar);
+        const int mdc = (A.tuning && iter < (float)A.early_window) ? A.early_max : A.max_depth;
+        // 5. the transition, on the stream salted with seed0
+        const uint32_t salt = fmix32((seed0 + (uint32_t)w * 101027u) ^ s1u);
+        const TreeResult r = transition<BODY, kDense>(T, V, slot_sc, chain, w, lane, qs, V.vb,
+                                                      gs, lp, E0, eps, mdc, salt);
+        // 6. the proposal's gradient
+        model_eval<BODY>(V.prq, V.cg, T.lam, n, lane);
+        // 7. mean tree accept and dual averaging (step_sizes.py:85-92)
+        const float ls = r.log_size;
+        const float mta = ls > 0.f ? expf(r.lwas - (ls + log1mexp_fused(ls))) : 0.f;
+        if (A.adapting) {
+            const float wgt = 1.0f / (count + A.t0);
+            hbar = (1.0f - wgt) * hbar + wgt * (A.target - mta);
+            log_step = mu - hbar * sqrtf(count) / A.gamma;
+            const float mk = expf(-A.k * logf(count));
+            log_bar = mk * log_step + (1.0f - mk) * log_bar;
+            count = count + 1.0f;
+        }
+        // advance the chain
+        iter = iter + 1.0f;
+        lp = r.pr_lp;
+        for (int i = lane; i < n; i += 32) {
+            const float qi = V.prq[i];
+            qs[i] = qi;
+            gs[i] = V.cg[i];
+            if (trace) trace[((size_t)t * C + chain) * n + i] = qi;
+        }
+        // 9. per-draw stats
+        if (lane == 0) {
+            const size_t o = (size_t)t * C + chain;
+            stf[oEnergy * TC + o] = r.pr_e;
+            stf[oLogp * TC + o] = r.pr_lp;
+            stf[oEnergyErr * TC + o] = r.pr_e - E0;
+            stf[oAccept * TC + o] = mta;
+            stf[oStep * TC + o] = expf(log_step);
+            stf[oStepBar * TC + o] = expf(log_bar);
+            stf[oMaxErr * TC + o] = r.mec;
+            sti[o] = r.depth;
+            sti[TC + o] = r.n_leaves;
+            stb[o] = r.diverging;
+            stb[TC + o] = r.turning;
+        }
+        // 8. the block-local pooled Welford adds (_dense_welford_batch_add
+        // :246, both windows) and the shared swap (:267)
+        if (A.adapt_dense) {
+            __syncthreads();  // every chain's new q is in shared memory
+            const float cbf = (float)cb;
+            const float wf_n = wf + cbf, wb_n = wb + cbf;
+            for (int i = tid; i < n; i += nthreads) {
+                float s = 0.f;
+                for (int r2 = 0; r2 < cb; ++r2) s += warp_vec(smem, 16, cb, r2, n)[i];
+                const float xmi = s * (1.0f / cbf);
+                xm[i] = xmi;
+                const float df = xmi - fgm[i], db = xmi - bgm[i];
+                dfg[i] = df;
+                dbg[i] = db;
+                fgm[i] = fgm[i] + df * (cbf / wf_n);
+                bgm[i] = bgm[i] + db * (cbf / wb_n);
+            }
+            __syncthreads();
+            const float cf = wf * cbf / wf_n, cg2 = wb * cbf / wb_n;
+            for (int e = tid; e < n * n; e += nthreads) {
+                const int i = e / n, j = e - i * n;
+                float rb = 0.f;
+                for (int r2 = 0; r2 < cb; ++r2) {
+                    const float* x = warp_vec(smem, 16, cb, r2, n);
+                    rb += (x[i] - xm[i]) * (x[j] - xm[j]);
+                }
+                fgr[e] = (fgr[e] + rb) + cf * (dfg[i] * dfg[j]);
+                bgr[e] = (bgr[e] + rb) + cg2 * (dbg[i] * dbg[j]);
+            }
+            wf = wf_n;
+            wb = wb_n;
+            if (ns - pu >= win) {  // the same decision in every thread
+                for (int e = tid; e < n * n; e += nthreads) { fgr[e] = bgr[e]; bgr[e] = 0.f; }
+                for (int i = tid; i < n; i += nthreads) { fgm[i] = bgm[i]; bgm[i] = 0.f; }
+                wf = wb;
+                wb = 0.f;
+                pu = ns;
+                win = floorf(win * A.mult);
+            }
+            ns = ns + 1.0f;
+        }
+    }
+
+    // the final state
+    for (int i = lane; i < n; i += 32) {
+        const_cast<float*>(A.ptr_f[kQOut])[(size_t)chain * n + i] = qs[i];
+        const_cast<float*>(A.ptr_f[kGOut])[(size_t)chain * n + i] = gs[i];
+    }
+    if (lane == 0) {
+        float* so = const_cast<float*>(A.ptr_f[kScalOut]) + (size_t)chain * kNumScal;
+        so[sLogp] = lp; so[sIter] = iter; so[sLogStep] = log_step; so[sLogBar] = log_bar;
+        so[sHbar] = hbar; so[sCount] = count; so[sMu] = mu; so[kNumScal - 1] = 0.f;
+    }
+    if (A.adapt_dense) {
+        __syncthreads();
+        float* om = const_cast<float*>(A.ptr_f[kFgMean]) + (size_t)blk * n;
+        float* obm = const_cast<float*>(A.ptr_f[kBgMean]) + (size_t)blk * n;
+        for (int i = tid; i < n; i += nthreads) { om[i] = fgm[i]; obm[i] = bgm[i]; }
+        if (tid == 0) {
+            float* wo = const_cast<float*>(A.ptr_f[kWOut]) + (size_t)blk * 8;
+            wo[0] = wf; wo[1] = wb; wo[2] = ns; wo[3] = pu; wo[4] = win;
+            wo[5] = 0.f; wo[6] = 0.f; wo[7] = 0.f;
+        }
+    }
+}
+
+// 227 KB per block on Hopper, less room for the static shared int
+constexpr size_t kSmemLimit = 232448 - 1024;
+
+template <int BODY>
+cudaError_t launch(const Args& A0, cudaStream_t stream) {
+    Args A = A0;
+    size_t bytes = ((size_t)18 * A.cb * A.n + (size_t)4 * A.D * A.cb + (size_t)5 * A.n)
+                   * sizeof(float);
+    const size_t sq_bytes = (size_t)A.n * A.n * sizeof(float);
+    A.lam_in_smem = (BODY == 1 && bytes + sq_bytes <= kSmemLimit) ? 1 : 0;
+    if (A.lam_in_smem) bytes += sq_bytes;
+    A.cov_in_smem = (bytes + sq_bytes <= kSmemLimit) ? 1 : 0;
+    if (A.cov_in_smem) bytes += sq_bytes;
+    if (bytes > kSmemLimit) return cudaErrorInvalidConfiguration;
+    cudaError_t err = cudaFuncSetAttribute(fused_nuts_kernel<BODY>,
+                                           cudaFuncAttributeMaxDynamicSharedMemorySize,
+                                           (int)bytes);
+    if (err != cudaSuccess) return err;
+    fused_nuts_kernel<BODY><<<A.C / A.cb, 32 * A.cb, bytes, stream>>>(A);
+    return cudaGetLastError();
+}
+
+}  // namespace
+
+extern "C" {
+
+// Returns cudaGetLastError() after the launch (0 on success). ptrs: the
+// kNumPtrs device pointers (kTrace may be null: no trace; the Welford ones
+// are read only with adapt_dense); ints: kNumInts; floats: kNumFloats.
+int fused_nuts_launch(void* const* ptrs, const int* ints, const float* floats, void* stream) {
+    Args A;
+    for (int k = 0; k < kNumPtrs; ++k) A.ptr_f[k] = static_cast<const float*>(ptrs[k]);
+    A.C = ints[iC]; A.n = ints[iN]; A.D = ints[iD]; A.T = ints[iT]; A.cb = ints[iCb];
+    A.n_stages = ints[iStages];
+    const int body = ints[iBody];
+    A.tuning = ints[iTuning]; A.adapting = ints[iAdapting]; A.adapt_dense = ints[iAdaptDense];
+    A.early_window = ints[iEarlyWindow]; A.early_max = ints[iEarlyMax];
+    A.max_depth = ints[iMaxDepth];
+    A.seed0 = (uint32_t)ints[iSeed0]; A.seed1 = (uint32_t)ints[iSeed1];
+    A.Npad = ints[iNpad];
+    A.Emax = floats[fEmax];
+    for (int k = 0; k < 4; ++k) A.b[k] = floats[fB0 + k];
+    for (int k = 0; k < 3; ++k) A.a[k] = floats[fA0 + k];
+    A.target = floats[fTarget]; A.gamma = floats[fGamma]; A.k = floats[fK];
+    A.t0 = floats[fT0]; A.mult = floats[fMult];
+    A.lam_in_smem = 0;
+    A.cov_in_smem = 0;
+    if (A.cb < 1 || A.cb > kMaxChainBlock || A.C % A.cb != 0 || A.n < 1 || A.n > 32 * kMaxCols
+        || A.D < 1 || A.T < 1 || A.n_stages < 1 || A.n_stages > 3 || A.max_depth > A.D
+        || A.early_max > A.D)
+        return (int)cudaErrorInvalidValue;
+    if (A.adapt_dense && !A.tuning) return (int)cudaErrorInvalidValue;
+    cudaStream_t s = static_cast<cudaStream_t>(stream);
+    switch (body) {
+        case 0: return (int)launch<0>(A, s);
+        case 1: return (int)launch<1>(A, s);
+        default: return (int)cudaErrorInvalidValue;
+    }
+}
+
+const char* cuda_error_string(int err) {
+    return cudaGetErrorString(static_cast<cudaError_t>(err));
+}
+
+}  // extern "C"

@@ -1,0 +1,498 @@
+// One whole NUTS transition of one chain, run by one warp, with the model
+// inlined: the device function shared by the per-draw trajectory kernel
+// (nuts_trajectory.cu) and the fused multi-draw kernel (fused_nuts.cu).
+//
+// Counterpart of _run_transition in littlemcmc_tpu/ops/nuts_trajectory_pallas.py
+// (:374-697), which the JAX package's per-draw and fused kernels also share.
+// Templated on the model body (BODY) and on the metric (METRIC):
+//
+// - kDiag: a per-chain inverse-mass diagonal `vv` (shared memory); the
+//   velocity of a momentum p is vv * p, computed where it is used.
+// - kDense: one (n, n) covariance COV shared by every chain
+//   (make_velocities(V, "dense"), nuts_trajectory_pallas.py:309-333); the
+//   velocity is p @ COV in the energy, the drift and every U-turn check.
+//   Each velocity is one warp matvec (matvec below: COV read from shared
+//   or global memory, p[i] broadcast across the warp, up to kMaxCols output
+//   columns per lane in registers, fmaf explicit) into one of five scratch
+//   vectors (vv, va, vb, vc, vd), before the loop that reads it.
+//
+// Control flow runs in lockstep per thread block: the depth, leaf and merge
+// loops continue while ANY chain of the block needs them (__syncthreads_or),
+// because the counter PRNG advances once per block-wide call. Every lane of
+// a warp holds the same per-chain scalars (xor-butterfly sums give every
+// lane the same bits), so per-chain branches are warp-uniform.
+//
+// Randomness: the JAX kernel's counter stream (_fmix32 :152-165,
+// _make_counter_uniform :336-371): a per-chain salt and a call counter that
+// starts at 0 on entry.
+
+#pragma once
+
+#include <cuda_runtime.h>
+#include <math_constants.h>
+#include <stdint.h>
+
+namespace lmc {
+
+constexpr int kMaxCols = 8;         // register tile of a warp matvec: n <= 256
+constexpr int kMaxChainBlock = 16;  // warps per block: 512 threads x 128 registers
+constexpr int kDiag = 0;
+constexpr int kDense = 1;
+constexpr uint32_t kGolden = 0x9E3779B9u;
+
+__device__ __forceinline__ uint32_t fmix32(uint32_t x) {
+    x ^= x >> 16;
+    x *= 0x85EBCA6Bu;
+    x ^= x >> 13;
+    x *= 0xC2B2AE35u;
+    x ^= x >> 16;
+    return x;
+}
+
+// U(0, 1) of call number `call` of the stream `salt`
+__device__ __forceinline__ float counter_uniform(uint32_t salt, uint32_t call) {
+    const uint32_t x = fmix32(salt ^ (call * kGolden));
+    return ((float)(x >> 8) + 0.5f) * (1.0f / 16777216.0f);
+}
+
+__device__ __forceinline__ float warp_sum(float v) {
+#pragma unroll
+    for (int o = 16; o > 0; o >>= 1) v += __shfl_xor_sync(0xffffffffu, v, o);
+    return v;
+}
+
+// jnp.logaddexp's formula, so all three implementations round alike
+__device__ __forceinline__ float logaddexp(float a, float b) {
+    float d = a - b;
+    if (isnan(d)) return a + b;
+    return fmaxf(a, b) + log1pf(expf(-fabsf(d)));
+}
+
+// out = x M for one chain: M is (n, n) row-major, x and out length n. Lanes
+// own the columns lane, lane+32, ...; x may be in shared or global memory.
+__device__ __forceinline__ void matvec(const float* x, const float* M, float* out, int n,
+                                       int lane) {
+    float acc[kMaxCols];
+#pragma unroll
+    for (int k = 0; k < kMaxCols; ++k) acc[k] = 0.f;
+    __syncwarp();  // every lane's part of x is written
+    for (int i = 0; i < n; ++i) {
+        const float xi = x[i];
+        const float* row = M + (size_t)i * n;
+#pragma unroll
+        for (int k = 0; k < kMaxCols; ++k) {
+            int j = lane + 32 * k;
+            if (j < n) acc[k] = fmaf(xi, row[j], acc[k]);
+        }
+    }
+    __syncwarp();  // every lane has read x before anyone writes out
+#pragma unroll
+    for (int k = 0; k < kMaxCols; ++k) {
+        int j = lane + 32 * k;
+        if (j < n) out[j] = acc[k];
+    }
+}
+
+// The model body at q (shared memory, one chain): writes grad into g
+// (shared memory) and returns logp. Lanes own columns lane, lane+32, ...
+template <int BODY>
+__device__ float model_eval(const float* q, float* g, const float* lam, int n, int lane) {
+    float part = 0.f;
+    if (BODY == 0) {  // standard normal: logp = -q.q/2, grad = -q
+        for (int i = lane; i < n; i += 32) {
+            float qi = q[i];
+            part += qi * qi;
+            g[i] = -qi;
+        }
+        __syncwarp();
+        return -0.5f * warp_sum(part);
+    } else {  // correlated Gaussian: grad = -q P, logp = q.grad/2
+        float acc[kMaxCols];
+#pragma unroll
+        for (int k = 0; k < kMaxCols; ++k) acc[k] = 0.f;
+        for (int i = 0; i < n; ++i) {
+            const float qi = q[i];
+            const float* row = lam + (size_t)i * n;
+#pragma unroll
+            for (int k = 0; k < kMaxCols; ++k) {
+                int j = lane + 32 * k;
+                if (j < n) acc[k] = fmaf(qi, row[j], acc[k]);
+            }
+        }
+        __syncwarp();  // every lane has read q before anyone writes g
+#pragma unroll
+        for (int k = 0; k < kMaxCols; ++k) {
+            int j = lane + 32 * k;
+            if (j < n) {
+                float gj = -acc[k];
+                g[j] = gj;
+                part += q[j] * gj;
+            }
+        }
+        __syncwarp();
+        return 0.5f * warp_sum(part);
+    }
+}
+
+// What a transition reads that is the same for every chain of a launch.
+struct TreeConsts {
+    const float* lam;  // model constants (correlated Gaussian: P), shared or global
+    const float* cov;  // kDense: the shared covariance, shared or global
+    float* stack;      // [4][D][C][n]: left p, right p, p sum, proposal q
+    int C, n, D, cb, n_stages;
+    float Emax;
+    float b[4];
+    float a[3];
+};
+
+// One warp's working vectors, each of length n in shared memory.
+struct WarpVecs {
+    float *lq, *lp, *lg, *rq, *rp, *rg, *cq, *cp, *cg, *prq, *psum;
+    float* vv;                 // kDiag: inverse-mass diagonal; kDense: velocity scratch
+    float *va, *vb, *vc, *vd;  // kDense: velocity scratch (unused for kDiag)
+};
+
+// Vector v of warp w in a [NV][cb][n] shared layout.
+__device__ __forceinline__ float* warp_vec(float* smem, int v, int cb, int w, int n) {
+    return smem + ((size_t)v * cb + w) * n;
+}
+
+// The transition's vectors at the start of `smem`: 12 for kDiag, 16 for kDense.
+template <int METRIC>
+__device__ __forceinline__ WarpVecs warp_vecs(float* smem, int cb, int w, int n) {
+    WarpVecs V;
+    V.lq = warp_vec(smem, 0, cb, w, n);  V.lp = warp_vec(smem, 1, cb, w, n);
+    V.lg = warp_vec(smem, 2, cb, w, n);  V.rq = warp_vec(smem, 3, cb, w, n);
+    V.rp = warp_vec(smem, 4, cb, w, n);  V.rg = warp_vec(smem, 5, cb, w, n);
+    V.cq = warp_vec(smem, 6, cb, w, n);  V.cp = warp_vec(smem, 7, cb, w, n);
+    V.cg = warp_vec(smem, 8, cb, w, n);  V.prq = warp_vec(smem, 9, cb, w, n);
+    V.psum = warp_vec(smem, 10, cb, w, n);
+    V.vv = warp_vec(smem, 11, cb, w, n);
+    if (METRIC == kDense) {
+        V.va = warp_vec(smem, 12, cb, w, n);  V.vb = warp_vec(smem, 13, cb, w, n);
+        V.vc = warp_vec(smem, 14, cb, w, n);  V.vd = warp_vec(smem, 15, cb, w, n);
+    } else {
+        V.va = V.vb = V.vc = V.vd = nullptr;
+    }
+    return V;
+}
+
+template <int METRIC>
+__host__ __device__ constexpr int n_warp_vecs() { return METRIC == kDense ? 16 : 12; }
+
+struct TreeResult {
+    float pr_e, pr_lp, log_size, lwas, mec;
+    int depth, n_leaves;
+    bool diverging, turning;
+};
+
+// One transition of chain `chain` (warp w of its block) from (q0, p0, g0,
+// lp0) with start energy E0, step eps and depth cap mdc. Every thread of
+// the block must call it. slot_sc: [4][D][cb] floats of shared memory for
+// the merge stack's per-slot scalars. On return the proposal is in V.prq
+// and the tree's edges in V.lq..V.rg; V.cg holds the last leaf's gradient.
+template <int BODY, int METRIC>
+__device__ TreeResult transition(const TreeConsts& T, const WarpVecs& V, float* slot_sc,
+                                 int chain, int w, int lane, const float* q0,
+                                 const float* p0, const float* g0, float lp0, float E0,
+                                 float eps, int mdc, uint32_t salt) {
+    const int n = T.n, cb = T.cb, D = T.D, C = T.C;
+    float *lq = V.lq, *lp = V.lp, *lg = V.lg, *rq = V.rq, *rp = V.rp, *rg = V.rg;
+    float *cq = V.cq, *cp = V.cp, *cg = V.cg, *prq = V.prq, *psum = V.psum, *vv = V.vv;
+    const float* cov = T.cov;
+
+    float* s_e = slot_sc;                        // [D][cb] proposal energy
+    float* s_lpp = slot_sc + (size_t)D * cb;     // proposal logp
+    float* s_ls = slot_sc + (size_t)2 * D * cb;  // log size
+    float* s_lw = slot_sc + (size_t)3 * D * cb;  // log weighted accept sum
+    __shared__ int max_sched_sh;
+
+    const size_t stride_k = (size_t)D * C * n;  // between the 4 stacks
+    auto slot = [&](int k, int s) -> float* {
+        return T.stack + k * stride_k + ((size_t)s * C + chain) * n;
+    };
+    auto ssc = [&](float* arr, int s) -> float& { return arr[s * cb + w]; };
+
+    for (int i = lane; i < n; i += 32) {
+        const float q = q0[i], p = p0[i], g = g0[i];
+        lq[i] = q; rq[i] = q; prq[i] = q;
+        lp[i] = p; rp[i] = p; psum[i] = p;
+        lg[i] = g; rg[i] = g;
+    }
+
+    __syncthreads();  // the previous call's readers of max_sched_sh are done
+    if (threadIdx.x == 0) max_sched_sh = 0;
+    __syncthreads();
+    if (lane == 0) atomicMax(&max_sched_sh, mdc);
+    __syncthreads();
+    const int max_sched = min(max_sched_sh, D);
+
+    uint32_t calls = 0;
+    auto uniform = [&]() -> float { return counter_uniform(salt, ++calls); };
+
+    float acc_ls = 0.f, acc_lw = -CUDART_INF_F, mec = 0.f;
+    int depth_c = 0, nlv = 0;
+    bool div = false, trn = false;
+    float pr_e = E0, pr_lp = lp0, c_e = E0, c_lp = lp0;
+    float part;
+
+    int depth = 0;
+    bool cont = max_sched > 0;
+    while (cont) {
+        const bool active = !div && !trn && depth_c < mdc;
+        const bool go_right = uniform() < 0.5f;
+        const float epss = go_right ? eps : -eps;
+        {
+            const float *sq = go_right ? rq : lq, *sp = go_right ? rp : lp,
+                        *sg = go_right ? rg : lg;
+            for (int i = lane; i < n; i += 32) { cq[i] = sq[i]; cp[i] = sp[i]; cg[i] = sg[i]; }
+            __syncwarp();
+        }
+        bool bld = active, sdv = false, stn = false;
+        const int n_total = 1 << depth;
+        int leaf = 0, h = 0;
+        bool go_l = __syncthreads_or(bld);
+        while (leaf < n_total && go_l) {
+            float dE = 0.f, lpaw = 0.f;
+            bool div_leaf = false;
+            if (bld) {
+                // one symplectic step (reference integration.py:100-121)
+                const float kick0 = T.b[0] * epss;
+                for (int i = lane; i < n; i += 32) cp[i] = cp[i] + kick0 * cg[i];
+                for (int s = 0; s < T.n_stages; ++s) {
+                    const float drift = T.a[s] * epss;
+                    if (METRIC == kDense) {
+                        matvec(cp, cov, vv, n, lane);
+                        for (int i = lane; i < n; i += 32) cq[i] = cq[i] + drift * vv[i];
+                    } else {
+                        for (int i = lane; i < n; i += 32) cq[i] = cq[i] + drift * (vv[i] * cp[i]);
+                    }
+                    __syncwarp();
+                    c_lp = model_eval<BODY>(cq, cg, T.lam, n, lane);
+                    const float kick = T.b[s + 1] * epss;
+                    for (int i = lane; i < n; i += 32) cp[i] = cp[i] + kick * cg[i];
+                }
+                part = 0.f;
+                if (METRIC == kDense) {
+                    matvec(cp, cov, vv, n, lane);
+                    for (int i = lane; i < n; i += 32) part += cp[i] * vv[i];
+                } else {
+                    for (int i = lane; i < n; i += 32) part += cp[i] * (vv[i] * cp[i]);
+                }
+                c_e = 0.5f * warp_sum(part) - c_lp;
+
+                dE = c_e - E0;
+                if (isnan(dE)) dE = CUDART_INF_F;
+                if (fabsf(dE) > fabsf(mec)) mec = dE;
+                div_leaf = !(fabsf(dE) < T.Emax);
+                ++nlv;
+                lpaw = -dE + fminf(0.f, -dE);
+            }
+            bool mrg = bld && !div_leaf;
+            const bool is_odd = leaf & 1;
+            const bool go_m0 = __syncthreads_or(mrg);
+            if (!is_odd) {
+                if (mrg) {  // a leaf slot has left p == right p == p sum
+                    float *dps = slot(2, h), *dq = slot(3, h);
+                    for (int i = lane; i < n; i += 32) { dps[i] = cp[i]; dq[i] = cq[i]; }
+                    if (lane == 0) {
+                        ssc(s_e, h) = c_e; ssc(s_lpp, h) = c_lp;
+                        ssc(s_ls, h) = -dE; ssc(s_lw, h) = lpaw;
+                    }
+                }
+            } else if (go_m0) {
+                // leaf (+) leaf, peeled (nuts_trajectory_pallas.py:505-538)
+                const float u = uniform();
+                if (mrg) {
+                    __syncwarp();
+                    const int s = h - 1;
+                    const float t2_ls = -dE;
+                    const float ls = logaddexp(ssc(s_ls, s), t2_ls);
+                    const float lw = logaddexp(ssc(s_lw, s), lpaw);
+                    const bool take2 = logf(u) < t2_ls - ls;
+                    float *slp = slot(0, s), *srp = slot(1, s), *sps = slot(2, s),
+                          *sq = slot(3, s);
+                    if (METRIC == kDense) {
+                        matvec(sps, cov, V.va, n, lane);  // velocity of the even leaf
+                        matvec(cp, cov, V.vb, n, lane);   // and of this leaf
+                    }
+                    float d1 = 0.f, d2 = 0.f;
+                    for (int i = lane; i < n; i += 32) {
+                        const float t1p = sps[i], t2p = cp[i];
+                        const float ps = t1p + t2p;
+                        if (METRIC == kDense) {
+                            d1 += ps * V.va[i];
+                            d2 += ps * V.vb[i];
+                        } else {
+                            const float v = vv[i];
+                            d1 += ps * (v * t1p);
+                            d2 += ps * (v * t2p);
+                        }
+                        slp[i] = t1p; srp[i] = t2p; sps[i] = ps;
+                        if (take2) sq[i] = cq[i];
+                    }
+                    d1 = warp_sum(d1);
+                    d2 = warp_sum(d2);
+                    if (lane == 0) {
+                        if (take2) { ssc(s_e, s) = c_e; ssc(s_lpp, s) = c_lp; }
+                        ssc(s_ls, s) = ls; ssc(s_lw, s) = lw;
+                    }
+                    mrg = !(d1 <= 0.f || d2 <= 0.f);
+                }
+            }
+            __syncwarp();
+
+            // one in-place merge per trailing one-bit of leaf past bit 0
+            int j = 1, hh = h - (is_odd ? 1 : 0);
+            bool go_m = __syncthreads_or(mrg) && is_odd;
+            while (((leaf >> j) & 1) && go_m) {
+                const float u = uniform();
+                if (mrg) {
+                    const int s1 = hh - 1, s2 = hh;
+                    const float ls = logaddexp(ssc(s_ls, s1), ssc(s_ls, s2));
+                    const float lw = logaddexp(ssc(s_lw, s1), ssc(s_lw, s2));
+                    const bool take2 = logf(u) < ssc(s_ls, s2) - ls;
+                    float *a_lp = slot(0, s1), *a_rp = slot(1, s1), *a_ps = slot(2, s1),
+                          *a_q = slot(3, s1);
+                    const float *b_lp = slot(0, s2), *b_rp = slot(1, s2), *b_ps = slot(2, s2),
+                                *b_q = slot(3, s2);
+                    if (METRIC == kDense) {
+                        matvec(a_lp, cov, V.va, n, lane);
+                        matvec(a_rp, cov, V.vb, n, lane);
+                        matvec(b_lp, cov, V.vc, n, lane);
+                        matvec(b_rp, cov, V.vd, n, lane);
+                    }
+                    float d[6] = {0.f, 0.f, 0.f, 0.f, 0.f, 0.f};
+                    for (int i = lane; i < n; i += 32) {
+                        const float t1lp = a_lp[i], t1rp = a_rp[i], t1ps = a_ps[i];
+                        const float t2lp = b_lp[i], t2rp = b_rp[i], t2ps = b_ps[i];
+                        float vt1lp, vt1rp, vt2lp, vt2rp;
+                        if (METRIC == kDense) {
+                            vt1lp = V.va[i]; vt1rp = V.vb[i]; vt2lp = V.vc[i]; vt2rp = V.vd[i];
+                        } else {
+                            const float v = vv[i];
+                            vt1lp = v * t1lp; vt1rp = v * t1rp;
+                            vt2lp = v * t2lp; vt2rp = v * t2rp;
+                        }
+                        const float ps = t1ps + t2ps;
+                        d[0] += ps * vt1lp;
+                        d[1] += ps * vt2rp;
+                        const float ps1 = t1ps + t2lp;
+                        d[2] += ps1 * vt1lp;
+                        d[3] += ps1 * vt2lp;
+                        const float ps2 = t1rp + t2ps;
+                        d[4] += ps2 * vt1rp;
+                        d[5] += ps2 * vt2rp;
+                        a_rp[i] = t2rp;
+                        a_ps[i] = ps;
+                        if (take2) a_q[i] = b_q[i];
+                    }
+                    bool turn = false;
+#pragma unroll
+                    for (int k = 0; k < 6; ++k) turn |= warp_sum(d[k]) <= 0.f;
+                    if (lane == 0) {
+                        if (take2) { ssc(s_e, s1) = ssc(s_e, s2); ssc(s_lpp, s1) = ssc(s_lpp, s2); }
+                        ssc(s_ls, s1) = ls; ssc(s_lw, s1) = lw;
+                    }
+                    __syncwarp();
+                    mrg = mrg && !turn;
+                }
+                go_m = __syncthreads_or(mrg);
+                ++j;
+                --hh;
+            }
+
+            const bool turned = bld && !div_leaf && !mrg;
+            sdv = sdv || div_leaf;
+            stn = stn || turned;
+            bld = bld && !div_leaf && !turned;
+            go_l = __syncthreads_or(bld);
+            ++leaf;
+            h = hh + 1;
+        }
+        __syncwarp();
+
+        // the finished subtree is slot 0; a depth-0 subtree is one leaf
+        const float u = uniform();
+        const bool ok = active && !sdv && !stn;
+        bool turning_new = false;
+        if (ok) {
+            // multinomial swap against the old tree (reference nuts.py:321-323)
+            const float n_ls = ssc(s_ls, 0), n_lw = ssc(s_lw, 0);
+            const bool take_new = logf(u) < n_ls - acc_ls;
+            if (take_new) { pr_e = ssc(s_e, 0); pr_lp = ssc(s_lpp, 0); }
+            acc_ls = logaddexp(acc_ls, n_ls);
+            acc_lw = logaddexp(acc_lw, n_lw);
+            const float *nlp = slot(depth == 0 ? 2 : 0, 0), *nrp = slot(depth == 0 ? 2 : 1, 0),
+                        *nps = slot(2, 0), *nq = slot(3, 0);
+            if (METRIC == kDense) {
+                // velocities of the five edge momenta the U-turn checks use
+                matvec(lp, cov, V.va, n, lane);  // old left edge
+                matvec(rp, cov, V.vb, n, lane);  // old right edge
+                matvec(cp, cov, V.vc, n, lane);  // the new subtree's outer edge
+                matvec(nlp, cov, V.vd, n, lane);
+                matvec(nrp, cov, vv, n, lane);
+            }
+            float d[6] = {0.f, 0.f, 0.f, 0.f, 0.f, 0.f};
+            for (int i = lane; i < n; i += 32) {
+                const float n_ps = nps[i], n_lp = nlp[i], n_rp = nrp[i];
+                if (take_new) prq[i] = nq[i];
+                const float old_ps = psum[i];
+                const float pst = old_ps + n_ps;
+                psum[i] = pst;
+                const float old_l_p = lp[i], old_r_p = rp[i];
+                float new_l_p = old_l_p, new_r_p = old_r_p;
+                if (go_right) {
+                    rq[i] = cq[i]; rp[i] = cp[i]; rg[i] = cg[i]; new_r_p = cp[i];
+                } else {
+                    lq[i] = cq[i]; lp[i] = cp[i]; lg[i] = cg[i]; new_l_p = cp[i];
+                }
+                // 3-way U-turn on the merged span (reference nuts.py:332-340)
+                const float ps1 = go_right ? old_ps + n_lp : n_ps + old_l_p;
+                const float ps2 = go_right ? old_r_p + n_ps : n_lp + old_ps;
+                if (METRIC == kDense) {
+                    const float v_ol = V.va[i], v_or = V.vb[i], v_c = V.vc[i];
+                    const float v_nl = V.vd[i], v_nr = vv[i];
+                    d[0] += pst * (go_right ? v_ol : v_c);
+                    d[1] += pst * (go_right ? v_c : v_or);
+                    d[2] += ps1 * (go_right ? v_ol : v_nr);
+                    d[3] += ps1 * (go_right ? v_nl : v_ol);
+                    d[4] += ps2 * (go_right ? v_or : v_nl);
+                    d[5] += ps2 * (go_right ? v_nr : v_or);
+                } else {
+                    const float v = vv[i];
+                    d[0] += pst * (v * new_l_p);
+                    d[1] += pst * (v * new_r_p);
+                    const float p1a = go_right ? old_l_p : n_rp;
+                    const float p1b = go_right ? n_lp : old_l_p;
+                    d[2] += ps1 * (v * p1a);
+                    d[3] += ps1 * (v * p1b);
+                    const float p2a = go_right ? old_r_p : n_lp;
+                    const float p2b = go_right ? n_rp : old_r_p;
+                    d[4] += ps2 * (v * p2a);
+                    d[5] += ps2 * (v * p2b);
+                }
+            }
+#pragma unroll
+            for (int k = 0; k < 6; ++k) turning_new |= warp_sum(d[k]) <= 0.f;
+        }
+        const bool sel_turn = ok ? turning_new : stn;
+        if (active) {
+            trn = trn || sel_turn;
+            div = div || sdv;
+            ++depth_c;
+        }
+        const bool nxt = !div && !trn && depth_c < mdc;
+        const bool any_nxt = __syncthreads_or(nxt);
+        cont = (depth + 1) < max_sched && any_nxt;
+        ++depth;
+    }
+    __syncwarp();
+
+    TreeResult r;
+    r.pr_e = pr_e; r.pr_lp = pr_lp; r.log_size = acc_ls; r.lwas = acc_lw; r.mec = mec;
+    r.depth = depth_c; r.n_leaves = nlv; r.diverging = div; r.turning = trn;
+    return r;
+}
+
+}  // namespace lmc

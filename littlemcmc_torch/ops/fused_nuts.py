@@ -1,0 +1,432 @@
+"""T NUTS transitions per call with a shared dense metric: the fused op.
+
+Counterpart of ``littlemcmc_tpu/ops/fused_nuts_pallas.py::
+build_fused_nuts_op`` with ``metric="dense"``: static (draw chunks) and
+with ``adapt_dense`` (pooled dense adaptation inside tune chunks). One call
+runs ``T`` transitions for every chain with the chain state kept inside the
+op, and per draw:
+
+- the momentum ``p = z @ L^{-1}`` from Box-Muller normals of the counter
+  stream (``_boxmuller_std`` ``:134``, ``_dense_momentum`` ``:154``);
+- the step size and early depth cap from the iteration counter;
+- one transition (:func:`.nuts_trajectory.transition_block`, velocity
+  ``p @ cov``) and the proposal's gradient;
+- ``mean_tree_accept`` and dual averaging (``_da_update_cols`` ``:399``);
+- with ``adapt_dense``, the block-local pooled Welford adds of the block's
+  new positions to both windows and the shared window swap
+  (``_dense_welford_batch_add`` ``:246``, ``_dense_welford_swap_and_count``
+  ``:267``), each block seeded with 1/B of the global pooled state
+  (``_adapt_dense_inputs`` ``:293-325``);
+- the trace row and the per-draw stats.
+
+Two implementations compute the same function: :func:`fused_nuts_plain`,
+plain PyTorch, block by block in lockstep, for CPU tensors and as the
+yardstick; and the CUDA kernel ``csrc/fused_nuts.cu`` for CUDA tensors.
+:func:`fused_nuts` picks by the tensors' device and never falls back.
+:func:`combine_dense_welford` Chan-combines the per-block Welford states
+outside the op, as in the JAX package.
+
+Randomness: per draw ``t`` of block ``i`` the seed word is
+``seed0 = w0 + i*7919 + t*15485863`` (``:662``); the transition draws the
+block's counter stream salted with ``seed0`` and the momentum draws the
+stream salted ``seed0 + 1013904223`` with per-element lanes
+``row * Npad + col`` (``:700-705``, ``nuts_trajectory_pallas.py:354-358``),
+``Npad = padded_dim(n)``.
+"""
+
+from __future__ import annotations
+
+import ctypes
+import math
+from typing import Dict, Optional, Sequence, Tuple
+
+import torch
+
+from ..integration import INTEGRATOR_COEFFS
+from ..math import fp32_matmul, round_up
+from .nuts_trajectory import (BODY_IDS, DEFAULT_CHAIN_BLOCK, MAX_KERNEL_CHAIN_BLOCK,
+                              MAX_KERNEL_NDIM_DENSE, TrajectorySpec, _M32, _GOLDEN,
+                              _rowdot, _seed_words, block_uniform, body_logp_grad,
+                              counter_uniform, fmix32, metric_velocity,
+                              resolve_chain_block, transition_block)
+
+__all__ = ["fused_nuts", "fused_nuts_plain", "combine_dense_welford", "padded_dim",
+           "dense_momentum", "STAT_KEYS"]
+
+_TWO_PI = 6.283185307179586
+_MOMENTUM_SALT = 1013904223
+_DRAW_STRIDE = 15485863
+
+# per-draw stats the op returns, each (T, C)
+STAT_KEYS = ("energy", "model_logp", "energy_error", "mean_tree_accept", "step_size",
+             "step_size_bar", "max_energy_change", "depth", "n_leaves", "diverging",
+             "turning")
+_STAT_F32 = STAT_KEYS[:7]  # order of the kernel's f32 stats
+# the per-chain scalar state, columns of the kernel's (C, 8) in/out
+_SCALARS = ("logp", "iter_count", "da_log_step", "da_log_bar", "da_hbar", "da_count",
+            "da_mu")
+# the kernel's pointer, int and float arguments, in the order of
+# csrc/fused_nuts.cu
+_PTRS = ("q", "grad", "scal", "cov", "linv", "consts", "stack", "q_out", "grad_out",
+         "scal_out", "trace", "stat_f", "stat_i", "stat_b", "welford_seed",
+         "dense_fg_mean", "dense_fg_raw", "dense_bg_mean", "dense_bg_raw", "welford_out")
+_INTS = ("C", "n", "D", "T", "cb", "n_stages", "body", "tuning", "adapting",
+         "adapt_dense", "early_window", "early_max", "max_depth", "seed0", "seed1", "Npad")
+_FLOATS = ("Emax", "b0", "b1", "b2", "b3", "a0", "a1", "a2", "target_accept", "gamma",
+           "k", "t0", "window_multiplier")
+
+
+def padded_dim(n: int) -> int:
+    """The TPU kernel's padded row width for ``n`` parameters (``n`` plus
+    four slot scalars, rounded up to 128 lanes): the momentum stream's
+    lanes are numbered ``row * padded_dim(n) + col``."""
+    return round_up(n + 4, 128)
+
+
+# --------------------------------------------------------------------------
+# Helpers the op runs per draw
+# --------------------------------------------------------------------------
+
+def dense_momentum(seed0: int, seed1: int, block_id: int, rows: int,
+                   linv: torch.Tensor) -> torch.Tensor:
+    """The momentum draw of one chain block: Box-Muller normals ``z`` from
+    the stream salted ``seed0 + 1013904223`` (calls 1 and 2), then
+    ``p = z @ L^{-1}``. ``seed0`` is the draw's seed word before the block
+    offset."""
+    n = linv.shape[0]
+    dev = linv.device
+    lanes = (torch.arange(rows, dtype=torch.int64, device=dev)[:, None] * padded_dim(n)
+             + torch.arange(n, dtype=torch.int64, device=dev)[None, :])
+    base = seed0 + block_id * 7919 + _MOMENTUM_SALT
+    s1 = ((seed1 & _M32) * _GOLDEN) & _M32
+    salt = fmix32(((base + lanes * 65063 + 17) & _M32) ^ s1)
+    u1, u2 = counter_uniform(salt, 1), counter_uniform(salt, 2)
+    z = torch.sqrt(-2.0 * torch.log(u1)) * torch.cos(_TWO_PI * u2)
+    return fp32_matmul(z, linv)
+
+
+def _log1mexp(x: torch.Tensor) -> torch.Tensor:
+    """``log(1 - exp(-x))`` for ``x > 0`` by the fused JAX kernel's formula
+    (``fused_nuts_pallas.py:113-131``)."""
+    small = x < 0.683
+    safe_small = torch.where(small, x, torch.ones_like(x))
+    safe_large = torch.where(small, torch.ones_like(x), x)
+    tiny = torch.log(torch.clamp(safe_small, min=1e-30)) - 0.5 * safe_small
+    mid = torch.log(torch.clamp(1.0 - torch.exp(-safe_small), min=1e-30))
+    return torch.where(small, torch.where(x < 1e-4, tiny, mid),
+                       torch.log(1.0 - torch.exp(-safe_large)))
+
+
+def mean_tree_accept(log_size: torch.Tensor, lwas: torch.Tensor) -> torch.Tensor:
+    """``exp(lwas - log(exp(log_size) - 1))``, 0 for a one-leaf tree."""
+    return torch.where(log_size > 0, torch.exp(lwas - (log_size + _log1mexp(log_size))),
+                       torch.zeros_like(log_size))
+
+
+def _da_update(s: Dict[str, torch.Tensor], mta: torch.Tensor, config) -> None:
+    """Dual averaging in place on the op's float32 columns
+    (``_da_update_cols``, ``fused_nuts_pallas.py:399-415``)."""
+    cnt = s["da_count"]
+    w = 1.0 / (cnt + float(config.t0))
+    hb = (1.0 - w) * s["da_hbar"] + w * (float(config.target_accept) - mta)
+    ls_new = s["da_mu"] - hb * torch.sqrt(cnt) / float(config.gamma)
+    mk = torch.exp(-float(config.k) * torch.log(cnt))
+    s["da_log_bar"] = mk * ls_new + (1.0 - mk) * s["da_log_bar"]
+    s["da_hbar"], s["da_log_step"], s["da_count"] = hb, ls_new, cnt + 1.0
+
+
+class _BlockWelford:
+    """One chain block's pooled dense Welford state (both windows and the
+    shared counters), seeded with 1/B of the global pooled state."""
+
+    def __init__(self, dense_welford, B: int):
+        fgm, fgr, fgw, bgm, bgr, bgw, ns, pu, win = dense_welford
+        self.fg = [fgm.clone(), fgr / float(B), fgw / float(B)]
+        self.bg = [bgm.clone(), bgr / float(B), bgw / float(B)]
+        self.ns, self.pu, self.win = float(ns), float(pu), float(win)
+
+    def add_batch(self, x: torch.Tensor) -> None:
+        """Chan-combine the ``(RW, n)`` batch ``x`` into both windows
+        (``_dense_welford_batch_add``)."""
+        RWf = float(x.shape[0])
+        xm = torch.sum(x, dim=0) * (1.0 / RWf)
+        xc = x - xm
+        raw_b = fp32_matmul(xc.T, xc)
+        for win in (self.fg, self.bg):
+            m, r, W = win
+            Wn = W + RWf
+            d = xm - m
+            win[0] = m + d * (RWf / Wn)
+            win[1] = r + raw_b + (W * RWf / Wn) * torch.outer(d, d)
+            win[2] = Wn
+
+    def swap_and_count(self, mult: float) -> None:
+        """The shared window swap after the adds (``:267-290``)."""
+        if self.ns - self.pu >= self.win:
+            m, r, W = self.bg
+            self.fg = [m, r, W]
+            self.bg = [torch.zeros_like(m), torch.zeros_like(r), torch.zeros_like(W)]
+            self.pu = self.ns
+            self.win = math.floor(self.win * mult)
+        self.ns += 1.0
+
+
+def combine_dense_welford(W: torch.Tensor, m: torch.Tensor, r: torch.Tensor,
+                          center: torch.Tensor):
+    """Exactly combine stacked Welford states ``(B, ...)`` into one
+    (``fused_nuts_pallas.py:380-396``): sum form centred at ``center``.
+    Returns ``(W_tot, mean, raw)``."""
+    W_tot = torch.sum(W)
+    d = m - center  # (B, n)
+    S1 = torch.sum(W[:, None] * d, dim=0)
+    S2 = torch.sum(r + W[:, None, None] * (d[:, :, None] * d[:, None, :]), dim=0)
+    mean = center + S1 / torch.clamp(W_tot, min=1e-30)
+    md = mean - center
+    raw = S2 - W_tot * torch.outer(md, md)
+    return W_tot, mean, raw
+
+
+# --------------------------------------------------------------------------
+# The plain version
+# --------------------------------------------------------------------------
+
+def fused_nuts_plain(q, grad, logp, iter_count, da_log_step, da_log_bar, da_hbar,
+                     da_count, da_mu, cov, linv, seed, *, spec: TrajectorySpec, T: int,
+                     tuning: bool, config, window_multiplier: float = 1.0,
+                     chain_block: int = DEFAULT_CHAIN_BLOCK, collect_trace: bool = True,
+                     dense_welford: Optional[Sequence[torch.Tensor]] = None
+                     ) -> Dict[str, torch.Tensor]:
+    """The plain PyTorch op, block by block, on any device."""
+    C, n = q.shape
+    cb = resolve_chain_block(C, chain_block)
+    B = C // cb
+    w0, w1 = _seed_words(seed)
+    coeffs = INTEGRATOR_COEFFS[config.integrator]
+    adapting = tuning and config.adapt_step_size
+    D = int(config.max_treedepth)
+    vel = metric_velocity(cov, "dense")
+
+    def model(x):
+        return body_logp_grad(spec, x)
+
+    state = dict(zip(_SCALARS, (logp, iter_count, da_log_step, da_log_bar, da_hbar,
+                                da_count, da_mu)))
+    outs = []
+    for blk in range(B):
+        rows = slice(blk * cb, (blk + 1) * cb)
+        s = {k: v[rows] for k, v in state.items()}
+        qb, gb = q[rows], grad[rows]
+        wel = _BlockWelford(dense_welford, B) if dense_welford is not None else None
+        per_draw = {k: [] for k in STAT_KEYS + ("trace",)}
+        for t in range(T):
+            seed0 = (w0 + t * _DRAW_STRIDE) & _M32
+            p0 = dense_momentum(seed0, w1, blk, cb, linv)
+            lp0 = s["logp"]
+            E0 = 0.5 * _rowdot(p0, vel(p0)) - lp0
+            eps = torch.exp(s["da_log_step"] if adapting else s["da_log_bar"])
+            if tuning:
+                early = s["iter_count"] < float(config.early_window)
+                mdc = torch.where(early, config.early_max_treedepth, config.max_treedepth)
+            else:
+                mdc = torch.full_like(s["iter_count"], config.max_treedepth)
+            out = transition_block(model, vel, block_uniform(seed0, w1, blk, cb, q.device),
+                                   coeffs, float(config.Emax), D, qb, p0, gb, lp0, E0, eps,
+                                   mdc.to(torch.int32))
+            mta = mean_tree_accept(out["log_size"], out["log_weighted_accept_sum"])
+            if adapting:
+                _da_update(s, mta, config)
+            s["iter_count"] = s["iter_count"] + 1.0
+            s["logp"] = out["logp"]
+            qb, gb = out["q"], out["grad"]
+            if wel is not None:
+                wel.add_batch(qb)
+                wel.swap_and_count(window_multiplier)
+            per_draw["trace"].append(qb)
+            for k, v in (("energy", out["energy"]), ("model_logp", out["logp"]),
+                         ("energy_error", out["energy"] - E0), ("mean_tree_accept", mta),
+                         ("step_size", torch.exp(s["da_log_step"])),
+                         ("step_size_bar", torch.exp(s["da_log_bar"])),
+                         ("max_energy_change", out["max_energy_change"]),
+                         ("depth", out["depth"]), ("n_leaves", out["n_leaves"]),
+                         ("diverging", out["diverging"]), ("turning", out["turning"])):
+                per_draw[k].append(v)
+        res = {k: torch.stack(v) for k, v in per_draw.items()}
+        res.update(q=qb, grad=gb, **s)
+        if wel is not None:
+            res.update(dense_fg_mean=wel.fg[0], dense_fg_raw=wel.fg[1], dense_fg_w=wel.fg[2],
+                       dense_bg_mean=wel.bg[0], dense_bg_raw=wel.bg[1], dense_bg_w=wel.bg[2],
+                       counters=torch.tensor([wel.ns, wel.pu, wel.win], dtype=torch.float32))
+        outs.append(res)
+
+    result = {k: torch.cat([o[k] for o in outs], dim=1)
+              for k in STAT_KEYS + ("trace",)}
+    for k in ("q", "grad") + _SCALARS:
+        result[k] = torch.cat([o[k] for o in outs])
+    if not collect_trace:
+        result["trace"] = None
+    if dense_welford is not None:
+        for k in ("dense_fg_mean", "dense_fg_raw", "dense_fg_w", "dense_bg_mean",
+                  "dense_bg_raw", "dense_bg_w"):
+            result[k] = torch.stack([o[k] for o in outs])
+        ns, pu, win = outs[0]["counters"].to(q.device)
+        result.update(n_samples=ns, prev_update=pu, window=win)
+    return result
+
+
+# --------------------------------------------------------------------------
+# The CUDA kernel's wrapper
+# --------------------------------------------------------------------------
+
+def _check_inputs(spec, q, grad, scalars, cov, linv, dense_welford, tuning):
+    C, n = q.shape
+    if n != spec.ndim:
+        raise ValueError(f"q has {n} columns but the model has {spec.ndim}")
+    dev = q.device
+    named = [("q", q, (C, n)), ("grad", grad, (C, n)), ("cov", cov, (n, n)),
+             ("linv", linv, (n, n))]
+    named += [(k, v, (C,)) for k, v in zip(_SCALARS, scalars)]
+    if dense_welford is not None:
+        if not tuning:
+            raise ValueError("dense_welford (pooled dense adaptation) needs tuning=True")
+        named += [(k, v, shape) for k, v, shape in zip(
+            ("fg_mean", "fg_raw", "fg_w", "bg_mean", "bg_raw", "bg_w", "n_samples",
+             "prev_update", "window"), dense_welford,
+            ((n,), (n, n), (), (n,), (n, n), (), (), (), ()))]
+    for name, t, shape in named:
+        if t.device != dev or t.dtype != torch.float32 or tuple(t.shape) != shape:
+            raise ValueError(f"{name}: expected torch.float32 {shape} on {dev}, got "
+                             f"{t.dtype} {tuple(t.shape)} on {t.device}")
+    for c in spec.consts:
+        if c.device != dev or c.dtype != torch.float32 or not c.is_contiguous():
+            raise ValueError("model constants must be contiguous float32 on "
+                             f"{dev}; got {c.dtype} on {c.device}")
+
+
+def _launch_kernel(q, grad, scalars, cov, linv, seed, *, spec, T, tuning, config,
+                   window_multiplier, chain_block, collect_trace, dense_welford):
+    from ._build import load_library
+
+    C, n = q.shape
+    cb = resolve_chain_block(C, chain_block)
+    if cb > MAX_KERNEL_CHAIN_BLOCK:
+        raise ValueError(f"chain_block {cb} exceeds the kernel's "
+                         f"{MAX_KERNEL_CHAIN_BLOCK} chains per thread block")
+    if n > MAX_KERNEL_NDIM_DENSE:
+        raise ValueError(f"the fused kernel takes n <= {MAX_KERNEL_NDIM_DENSE}, got {n}")
+    if spec.body == "correlated_gaussian" and tuple(spec.consts[0].shape) != (n, n):
+        raise ValueError("the precision must be (n, n)")
+    B = C // cb
+    D = int(config.max_treedepth)
+    dev = q.device
+    f32 = torch.float32
+    w0, w1 = _seed_words(seed)
+    b_coef, a_coef = INTEGRATOR_COEFFS[config.integrator]
+
+    def empty(*shape, dtype=f32):
+        return torch.empty(shape, dtype=dtype, device=dev)
+
+    buf = {
+        "q": q.contiguous(), "grad": grad.contiguous(),
+        "scal": torch.stack(list(scalars) + [torch.zeros_like(scalars[0])], 1).contiguous(),
+        "cov": cov.contiguous(), "linv": linv.contiguous(),
+        "consts": spec.consts[0] if spec.consts else None,
+        "stack": empty(4, D, C, n), "q_out": empty(C, n), "grad_out": empty(C, n),
+        "scal_out": empty(C, 8), "trace": empty(T, C, n) if collect_trace else None,
+        "stat_f": empty(len(_STAT_F32), T, C), "stat_i": empty(2, T, C, dtype=torch.int32),
+        "stat_b": empty(2, T, C, dtype=torch.bool),
+    }
+    adapt_dense = dense_welford is not None
+    if adapt_dense:
+        fgm, fgr, fgw, bgm, bgr, bgw, ns, pu, win = dense_welford
+        buf.update(
+            welford_seed=torch.cat([fgm, bgm, torch.stack(
+                [fgw / float(B), bgw / float(B), ns, pu, win])]).contiguous(),
+            dense_fg_mean=empty(B, n), dense_bg_mean=empty(B, n),
+            dense_fg_raw=(fgr / float(B)).expand(B, n, n).contiguous(),
+            dense_bg_raw=(bgr / float(B)).expand(B, n, n).contiguous(),
+            welford_out=empty(B, 8))
+    ptrs = (ctypes.c_void_p * len(_PTRS))(
+        *(buf[k].data_ptr() if buf.get(k) is not None else None for k in _PTRS))
+    ints = dict(C=C, n=n, D=D, T=int(T), cb=cb, n_stages=len(a_coef),
+                body=BODY_IDS[spec.body], tuning=int(bool(tuning)),
+                adapting=int(bool(tuning) and config.adapt_step_size),
+                adapt_dense=int(adapt_dense), early_window=int(config.early_window),
+                early_max=int(config.early_max_treedepth),
+                max_depth=int(config.max_treedepth),
+                # the seed words as the int32 bits the kernel reads as uint32
+                seed0=(w0 & _M32) - ((w0 & 0x80000000) << 1),
+                seed1=(w1 & _M32) - ((w1 & 0x80000000) << 1), Npad=padded_dim(n))
+    floats = dict(Emax=float(config.Emax), target_accept=float(config.target_accept),
+                  gamma=float(config.gamma), k=float(config.k), t0=float(config.t0),
+                  window_multiplier=float(window_multiplier))
+    floats.update({f"b{i}": (list(b_coef) + [0.0] * 4)[i] for i in range(4)})
+    floats.update({f"a{i}": (list(a_coef) + [0.0] * 3)[i] for i in range(3)})
+    int_arr = (ctypes.c_int * len(_INTS))(*(ints[k] for k in _INTS))
+    float_arr = (ctypes.c_float * len(_FLOATS))(*(floats[k] for k in _FLOATS))
+
+    lib = load_library("fused_nuts")
+    with torch.cuda.device(dev):
+        stream = torch.cuda.current_stream(dev).cuda_stream
+        err = lib.fused_nuts_launch(ctypes.cast(ptrs, ctypes.c_void_p),
+                                    ctypes.cast(int_arr, ctypes.c_void_p),
+                                    ctypes.cast(float_arr, ctypes.c_void_p), stream)
+    if err != 0:
+        raise RuntimeError(f"fused_nuts kernel launch failed: CUDA error {err} "
+                           f"({lib.cuda_error_string(err).decode()})")
+    fused_nuts.launches += 1
+
+    res = {"trace": buf["trace"], "q": buf["q_out"], "grad": buf["grad_out"]}
+    res.update({k: buf["scal_out"][:, i] for i, k in enumerate(_SCALARS)})
+    res.update({k: buf["stat_f"][i] for i, k in enumerate(_STAT_F32)})
+    res.update(depth=buf["stat_i"][0], n_leaves=buf["stat_i"][1],
+               diverging=buf["stat_b"][0], turning=buf["stat_b"][1])
+    if adapt_dense:
+        wo = buf["welford_out"]
+        res.update(dense_fg_mean=buf["dense_fg_mean"], dense_fg_raw=buf["dense_fg_raw"],
+                   dense_fg_w=wo[:, 0], dense_bg_mean=buf["dense_bg_mean"],
+                   dense_bg_raw=buf["dense_bg_raw"], dense_bg_w=wo[:, 1],
+                   n_samples=wo[0, 2], prev_update=wo[0, 3], window=wo[0, 4])
+    return res
+
+
+def fused_nuts(q, grad, logp, iter_count, da_log_step, da_log_bar, da_hbar, da_count,
+               da_mu, cov, linv, seed, *, spec: TrajectorySpec, T: int, tuning: bool,
+               config, window_multiplier: float = 1.0,
+               chain_block: int = DEFAULT_CHAIN_BLOCK, collect_trace: bool = True,
+               dense_welford: Optional[Sequence[torch.Tensor]] = None
+               ) -> Dict[str, torch.Tensor]:
+    """``T`` NUTS transitions for every chain, where the tensors lie.
+
+    Inputs (float32): ``q, grad`` ``(C, n)``; the per-chain ``logp``,
+    ``iter_count`` and dual-averaging leaves ``(C,)``; the shared
+    covariance ``cov`` and its inverse lower Cholesky factor ``linv``
+    ``(n, n)``; ``seed`` two int32 words. ``config`` is a
+    :class:`~littlemcmc_torch.base.NUTSConfig`. ``dense_welford`` (tune
+    chunks of pooled dense adaptation) is the global pooled state
+    ``(fg_mean (n,), fg_raw (n, n), fg_w, bg_mean, bg_raw, bg_w,
+    n_samples, prev_update, window)``, scalars as 0-d tensors.
+
+    Returns the JAX op's dict: ``trace`` ``(T, C, n)`` (None without
+    ``collect_trace``), the per-draw stats of :data:`STAT_KEYS` ``(T, C)``,
+    the final state leaves and, with ``dense_welford``, the per-block
+    states ``dense_fg_mean (B, n)``, ``dense_fg_raw (B, n, n)``,
+    ``dense_fg_w (B,)`` (and ``dense_bg_*``) and the shared counters
+    ``n_samples``, ``prev_update``, ``window``, for
+    :func:`combine_dense_welford`.
+
+    CPU tensors run :func:`fused_nuts_plain`; CUDA tensors launch the
+    kernel (``fused_nuts.launches`` counts those launches) or raise.
+    """
+    scalars = (logp, iter_count, da_log_step, da_log_bar, da_hbar, da_count, da_mu)
+    _check_inputs(spec, q, grad, scalars, cov, linv, dense_welford, tuning)
+    kw = dict(spec=spec, T=T, tuning=tuning, config=config,
+              window_multiplier=window_multiplier, chain_block=chain_block,
+              collect_trace=collect_trace, dense_welford=dense_welford)
+    if q.device.type == "cpu":
+        return fused_nuts_plain(q, grad, *scalars, cov, linv, seed, **kw)
+    if q.device.type == "cuda":
+        return _launch_kernel(q, grad, scalars, cov, linv, seed, **kw)
+    raise RuntimeError(f"no fused NUTS implementation for device {q.device}")
+
+
+fused_nuts.launches = 0

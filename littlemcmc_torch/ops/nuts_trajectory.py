@@ -1,9 +1,13 @@
 """One whole NUTS transition per chain: the trajectory op.
 
 Counterpart of ``littlemcmc_tpu/ops/nuts_trajectory_pallas.py::
-build_trajectory_op`` with ``metric="diag"`` and ``pack=1``. One call
-builds each chain's whole tree: the merge stack, the edge states and the
-proposal stay inside the op, and the model's ``(logp, grad)`` is inlined.
+build_trajectory_op`` with ``metric="diag"`` or ``metric="dense"`` and
+``pack=1``. One call builds each chain's whole tree: the merge stack, the
+edge states and the proposal stay inside the op, and the model's
+``(logp, grad)`` is inlined. The diag metric is a per-chain inverse-mass
+diagonal (velocity ``var * p``); the dense metric is one ``(n, n)``
+covariance shared by every chain (velocity ``p @ var``,
+``make_velocities(V, "dense")``, ``nuts_trajectory_pallas.py:309-333``).
 It does the multinomial swaps, the 3-way generalized U-turn, divergence
 on ``|dE| >= Emax`` with NaN counted as infinite, and each chain's own
 depth cap.
@@ -37,10 +41,11 @@ from typing import Callable, Dict, Tuple
 import torch
 
 from ..integration import INTEGRATOR_COEFFS
+from ..math import fp32_matmul
 
 __all__ = ["TrajectorySpec", "fmix32", "counter_salt", "counter_uniform",
            "resolve_chain_block", "trajectory", "trajectory_plain",
-           "body_logp_grad", "DEFAULT_CHAIN_BLOCK"]
+           "body_logp_grad", "DEFAULT_CHAIN_BLOCK", "METRIC_IDS"]
 
 # Chains per CUDA thread block, one warp per chain: 128 blocks at the
 # main path's 1024 chains for the card's 132 SMs.
@@ -49,8 +54,10 @@ DEFAULT_CHAIN_BLOCK = 8
 MAX_KERNEL_CHAIN_BLOCK = 16
 MAX_KERNEL_NDIM_DENSE = 256  # register tile of the dense model body
 
-# model bodies compiled into the kernel (ids match csrc/nuts_trajectory.cu)
+# model bodies and metrics compiled into the kernels (ids match
+# csrc/nuts_transition.cuh)
 BODY_IDS = {"standard_normal": 0, "correlated_gaussian": 1}
+METRIC_IDS = {"diag": 0, "dense": 1}
 
 _M32 = 0xFFFFFFFF
 _GOLDEN = 0x9E3779B9
@@ -82,10 +89,7 @@ def body_logp_grad(spec: TrajectorySpec, q: torch.Tensor):
     if spec.body == "standard_normal":
         return -0.5 * (q * q).sum(1), -q
     (prec,) = spec.consts
-    if q.is_cuda:
-        # full fp32 products: the result feeds U-turn and accept decisions
-        torch.backends.cuda.matmul.allow_tf32 = False
-    g = -(q @ prec)
+    g = -fp32_matmul(q, prec)
     return 0.5 * (q * g).sum(1), g
 
 
@@ -159,19 +163,28 @@ def _col(x: torch.Tensor) -> torch.Tensor:
     return x[:, None]
 
 
-def _transition_block(model: Callable, uniform: Callable, coeffs, Emax: float,
-                      D: int, q0, p0, g0, lp0, eps, mdc, var) -> Dict[str, torch.Tensor]:
-    """One chain block's transition: ``_run_transition`` +
-    ``_build_kernel_body`` (``nuts_trajectory_pallas.py:374-697``,
-    ``:755-817``) with the diag metric. Block-wide loop conditions are
-    ``any`` over the block's chains, as in the kernels."""
+def metric_velocity(var: torch.Tensor, metric: str) -> Callable:
+    """The velocity ``p -> M^{-1} p`` of a metric: ``var * p`` for a
+    per-chain diagonal, ``p @ var`` for a shared dense covariance."""
+    if metric == "diag":
+        return lambda p: var * p
+    if metric == "dense":
+        return lambda p: fp32_matmul(p, var)
+    raise ValueError(f"unknown metric {metric!r}; known: {sorted(METRIC_IDS)}")
+
+
+def transition_block(model: Callable, vel: Callable, uniform: Callable, coeffs,
+                     Emax: float, D: int, q0, p0, g0, lp0, E0, eps,
+                     mdc) -> Dict[str, torch.Tensor]:
+    """One chain block's transition from start energy ``E0``:
+    ``_run_transition`` (``nuts_trajectory_pallas.py:374-697``) with the
+    velocity ``vel``. Block-wide loop conditions are ``any`` over the
+    block's chains, as in the kernels. The fused op's plain version runs
+    it too."""
     CB, n = q0.shape
     dev = q0.device
     f32 = torch.float32
     b_coef, a_coef = coeffs
-
-    def vel(p):
-        return var * p
 
     def logbern(log_p):
         return torch.log(uniform()) < log_p
@@ -179,7 +192,6 @@ def _transition_block(model: Callable, uniform: Callable, coeffs, Emax: float,
     def any_(m):
         return bool(m.any())
 
-    E0 = 0.5 * _rowdot(p0, vel(p0)) - lp0
     l_q, l_p, l_g = q0, p0, g0
     r_q, r_p, r_g = q0, p0, g0
     pr_q, psum = q0, p0
@@ -360,10 +372,30 @@ def _seed_words(seed) -> Tuple[int, int]:
     return s0, s1
 
 
+def block_uniform(seed0: int, seed1: int, block_id: int, rows: int, device) -> Callable:
+    """The counter stream of one chain block, from call 1 on: each call
+    returns one ``(rows,)`` float32 draw. Hashed ``_CALLS_PER_HASH`` calls
+    at a time."""
+    salt = counter_salt(seed0, seed1, block_id, rows, device)
+    stream = {"calls": 0, "table": salt.new_empty((0, rows), dtype=torch.float32)}
+
+    def uniform():
+        c = stream["calls"]
+        if c == stream["table"].shape[0]:
+            nxt = torch.arange(c + 1, c + 1 + _CALLS_PER_HASH, device=salt.device)
+            stream["table"] = torch.cat(
+                [stream["table"], counter_uniform(salt[None, :], nxt[:, None])])
+        stream["calls"] = c + 1
+        return stream["table"][c]
+
+    return uniform
+
+
 def trajectory_plain(q, p, grad, logp, eps, max_depth_c, var, seed, *,
                      spec: TrajectorySpec, max_treedepth: int, Emax: float,
                      chain_block: int = DEFAULT_CHAIN_BLOCK,
-                     integrator: str = "leapfrog") -> Dict[str, torch.Tensor]:
+                     integrator: str = "leapfrog",
+                     metric: str = "diag") -> Dict[str, torch.Tensor]:
     """The plain PyTorch transition, block by block, on any device."""
     C = q.shape[0]
     cb = resolve_chain_block(C, chain_block)
@@ -376,23 +408,13 @@ def trajectory_plain(q, p, grad, logp, eps, max_depth_c, var, seed, *,
     outs = []
     for blk in range(C // cb):
         rows = slice(blk * cb, (blk + 1) * cb)
-        salt = counter_salt(seed0, seed1, blk, cb, q.device)
-        # the block's stream, hashed _CALLS_PER_HASH calls at a time
-        stream = {"calls": 0, "table": salt.new_empty((0, cb), dtype=torch.float32)}
-
-        def uniform():
-            c = stream["calls"]
-            if c == stream["table"].shape[0]:
-                nxt = torch.arange(c + 1, c + 1 + _CALLS_PER_HASH, device=salt.device)
-                stream["table"] = torch.cat(
-                    [stream["table"], counter_uniform(salt[None, :], nxt[:, None])])
-            stream["calls"] = c + 1
-            return stream["table"][c]
-
-        outs.append(_transition_block(
-            model, uniform, coeffs, float(Emax), max_treedepth,
-            q[rows], p[rows], grad[rows], logp[rows], eps[rows],
-            max_depth_c[rows], var[rows]))
+        vel = metric_velocity(var[rows] if metric == "diag" else var, metric)
+        p0, lp0 = p[rows], logp[rows]
+        E0 = 0.5 * _rowdot(p0, vel(p0)) - lp0
+        outs.append(transition_block(
+            model, vel, block_uniform(seed0, seed1, blk, cb, q.device), coeffs,
+            float(Emax), max_treedepth, q[rows], p0, grad[rows], lp0, E0, eps[rows],
+            max_depth_c[rows]))
     return {k: torch.cat([o[k] for o in outs]) for k in outs[0]}
 
 
@@ -406,14 +428,17 @@ _OUT_I32 = ("depth", "n_leaves")
 _OUT_BOOL = ("diverging", "turning")
 
 
-def _check_inputs(spec, q, p, grad, logp, eps, max_depth_c, var):
+def _check_inputs(spec, q, p, grad, logp, eps, max_depth_c, var, metric):
     C, n = q.shape
     if n != spec.ndim:
         raise ValueError(f"q has {n} columns but the model has {spec.ndim}")
+    if metric not in METRIC_IDS:
+        raise ValueError(f"unknown metric {metric!r}; known: {sorted(METRIC_IDS)}")
     dev = q.device
+    var_shape = (C, n) if metric == "diag" else (n, n)
     for name, t, shape, dtype in (
             ("q", q, (C, n), torch.float32), ("p", p, (C, n), torch.float32),
-            ("grad", grad, (C, n), torch.float32), ("var", var, (C, n), torch.float32),
+            ("grad", grad, (C, n), torch.float32), ("var", var, var_shape, torch.float32),
             ("logp", logp, (C,), torch.float32), ("eps", eps, (C,), torch.float32),
             ("max_depth_c", max_depth_c, (C,), torch.int32)):
         if t.device != dev or t.dtype != dtype or tuple(t.shape) != shape:
@@ -428,7 +453,7 @@ def _check_inputs(spec, q, p, grad, logp, eps, max_depth_c, var):
 
 
 def _launch_kernel(q, p, grad, logp, eps, max_depth_c, var, seed, *, spec,
-                   max_treedepth, Emax, chain_block, integrator):
+                   max_treedepth, Emax, chain_block, integrator, metric):
     from ._build import load_library
 
     C, n = q.shape
@@ -436,10 +461,10 @@ def _launch_kernel(q, p, grad, logp, eps, max_depth_c, var, seed, *, spec,
     if cb > MAX_KERNEL_CHAIN_BLOCK:
         raise ValueError(f"chain_block {cb} exceeds the kernel's "
                          f"{MAX_KERNEL_CHAIN_BLOCK} chains per thread block")
+    if (spec.body == "correlated_gaussian" or metric == "dense") and n > MAX_KERNEL_NDIM_DENSE:
+        raise ValueError(f"the correlated_gaussian body and the dense metric take "
+                         f"n <= {MAX_KERNEL_NDIM_DENSE}, got {n}")
     if spec.body == "correlated_gaussian":
-        if n > MAX_KERNEL_NDIM_DENSE:
-            raise ValueError(f"the correlated_gaussian body takes n <= "
-                             f"{MAX_KERNEL_NDIM_DENSE}, got {n}")
         if tuple(spec.consts[0].shape) != (n, n):
             raise ValueError("the precision must be (n, n)")
     b_coef, a_coef = INTEGRATOR_COEFFS[integrator]
@@ -466,7 +491,7 @@ def _launch_kernel(q, p, grad, logp, eps, max_depth_c, var, seed, *, spec,
             q.data_ptr(), p.data_ptr(), grad.data_ptr(), var.data_ptr(),
             logp.data_ptr(), eps.data_ptr(), max_depth_c.data_ptr(),
             seed0 & 0xFFFFFFFF, seed1 & 0xFFFFFFFF,
-            BODY_IDS[spec.body], consts,
+            BODY_IDS[spec.body], METRIC_IDS[metric], consts,
             C, n, D, float(Emax), cb, len(a_coef), ctypes.cast(coef, ctypes.c_void_p),
             stack.data_ptr(),
             *(out[k].data_ptr() for k in ("q", "grad") + _OUT_F32 + _OUT_I32 + _OUT_BOOL),
@@ -481,11 +506,13 @@ def _launch_kernel(q, p, grad, logp, eps, max_depth_c, var, seed, *, spec,
 def trajectory(q, p, grad, logp, eps, max_depth_c, var, seed, *,
                spec: TrajectorySpec, max_treedepth: int, Emax: float,
                chain_block: int = DEFAULT_CHAIN_BLOCK,
-               integrator: str = "leapfrog") -> Dict[str, torch.Tensor]:
+               integrator: str = "leapfrog",
+               metric: str = "diag") -> Dict[str, torch.Tensor]:
     """One NUTS transition for every chain, where the tensors lie.
 
-    Inputs: ``q, p, grad, var`` ``(C, n)`` float32 (``var`` is the
-    inverse-mass diagonal), ``logp, eps`` ``(C,)`` float32,
+    Inputs: ``q, p, grad`` ``(C, n)`` float32; ``var`` the metric:
+    ``(C, n)`` inverse-mass diagonals for ``metric="diag"``, one ``(n, n)``
+    covariance for ``metric="dense"``; ``logp, eps`` ``(C,)`` float32,
     ``max_depth_c`` ``(C,)`` int32, ``seed`` an int or two int32 words.
     Returns the JAX op's dict (``nuts_trajectory_pallas.py:1045-1057``):
     proposal ``q``/``grad``/``energy``/``logp``, ``log_size``,
@@ -495,9 +522,9 @@ def trajectory(q, p, grad, logp, eps, max_depth_c, var, seed, *,
     CPU tensors run :func:`trajectory_plain`; CUDA tensors launch the
     kernel (``trajectory.launches`` counts those launches) or raise.
     """
-    _check_inputs(spec, q, p, grad, logp, eps, max_depth_c, var)
+    _check_inputs(spec, q, p, grad, logp, eps, max_depth_c, var, metric)
     kw = dict(spec=spec, max_treedepth=max_treedepth, Emax=Emax,
-              chain_block=chain_block, integrator=integrator)
+              chain_block=chain_block, integrator=integrator, metric=metric)
     if q.device.type == "cpu":
         return trajectory_plain(q, p, grad, logp, eps, max_depth_c, var, seed, **kw)
     if q.device.type == "cuda":

@@ -2,10 +2,19 @@
 
 Counterpart of ``littlemcmc_tpu/sampling.py`` for the subset this package
 runs: NUTS with a diagonal metric (``adapt_diag`` / ``jitter+adapt_diag``,
-per-chain ``QuadPotentialDiagAdapt`` plus dual averaging), every chain
-advanced together by one trajectory-kernel launch per draw. The host runs
-a plain Python loop over ``tune + draws`` transitions; the trace and stats
-stay on the device until the end.
+per-chain ``QuadPotentialDiagAdapt``, optionally pooled across chains) or a
+dense one (``adapt_full`` / ``jitter+adapt_full`` pooled across chains, or
+a static ``QuadPotentialFull``), with dual averaging. Two engines:
+
+- per-draw: one trajectory-kernel launch per draw for all chains, the
+  adaptation updates between launches;
+- fused (dense metrics): one fused-kernel launch per chunk of draws, with
+  momentum, dual averaging and the pooled dense Welford adds inside it.
+
+Both run in the chunk loop of ``_run_chunked`` (``sampling.py:686-876``):
+tune chunks follow the fused engine's refresh schedule, the divergence
+count stays on the device, and the trace and stats stay there until the
+end.
 
 Outputs match the JAX package: ``trace`` is a ``(chains, draws, ndim)``
 numpy array and ``stats`` maps the reference's stat names to
@@ -15,6 +24,7 @@ numpy array and ``stats`` maps the reference's stat names to
 
 from __future__ import annotations
 
+import dataclasses
 import logging
 import time
 from typing import List, Optional, Union
@@ -22,26 +32,41 @@ from typing import List, Optional, Union
 import numpy as np
 import torch
 
-from .base import NUTSConfig, init_chain_state
+from .base import init_chain_state, NUTSConfig
 from .device import resolve_device
 from .model import as_logp_grad, batched
-from .nuts import build_nuts_kernel
+from .nuts import build_fused_nuts_runner_factory, build_nuts_kernel
+from .ops.fused_nuts import fused_nuts
 from .ops.nuts_trajectory import DEFAULT_CHAIN_BLOCK, trajectory
-from .quadpotential import QuadPotentialDiag, QuadPotentialDiagAdapt
+from .parallel.cross_chain import cross_chain_potential_pool
+from .quadpotential import (QuadPotentialDiag, QuadPotentialDiagAdapt, QuadPotentialFull,
+                            QuadPotentialFullAdapt, potential_to, quad_potential)
 from .report import warnings_from_stats
 
 __all__ = ["NUTS", "sample", "init_nuts"]
 
 _log = logging.getLogger("littlemcmc_torch")
 
-_INIT_METHODS = ("adapt_diag", "jitter+adapt_diag")
+_INIT_METHODS = ("adapt_diag", "jitter+adapt_diag", "adapt_full", "jitter+adapt_full")
+
+# draws per chunk (reference sampling.py:644)
+_AUTO_CHUNK = 250
+
+# chain count at which adapt_full auto-promotes to cross-chain pooled
+# adaptation (reference sampling.py:648)
+_POOLED_PROMOTE_CHAINS = 128
+
+_POTENTIALS = (QuadPotentialDiag, QuadPotentialDiagAdapt, QuadPotentialFull,
+               QuadPotentialFullAdapt)
 
 
 class NUTS:
     """No-U-Turn sampler spec (constructor parity with reference ``nuts.py:103-121``).
 
+    ``scaling`` builds a static metric with :func:`quad_potential` (a 1-D
+    diagonal, or a dense covariance with ``is_cov=True``).
     ``trajectory_spec``: ``"auto"`` takes the model's ``trajectory_spec()``
-    (the model body the trajectory kernel inlines); or pass a
+    (the model body the kernels inline); or pass a
     :class:`~littlemcmc_torch.ops.TrajectorySpec`.
     """
 
@@ -73,22 +98,19 @@ class NUTS:
                  max_treedepth: int = 10, early_max_treedepth: int = 8,
                  integrator: str = "leapfrog", trajectory_spec="auto",
                  chain_block: int = 0):
-        del is_cov, path_length  # accepted for constructor parity
-        if scaling is not None:
-            raise NotImplementedError(
-                "`scaling` needs the quad_potential factory and the dense "
-                "metrics, which are ROADMAP Queue 1 item 8; pass a diagonal "
-                "`potential` instead.")
+        del path_length  # accepted for constructor parity
+        if scaling is not None and potential is not None:
+            raise ValueError("Cannot specify both `potential` and `scaling`.")
         if step_rand is not None:
             raise NotImplementedError("`step_rand` is not ported yet.")
-        if potential is not None and not isinstance(
-                potential, (QuadPotentialDiag, QuadPotentialDiagAdapt)):
-            raise ValueError("`potential` must be a littlemcmc_torch diagonal "
-                             "quadpotential (QuadPotentialDiag or "
-                             "QuadPotentialDiagAdapt).")
+        if potential is not None and not isinstance(potential, _POTENTIALS):
+            raise ValueError("`potential` must be a littlemcmc_torch quadpotential "
+                             "(QuadPotentialDiag, QuadPotentialDiagAdapt, "
+                             "QuadPotentialFull or QuadPotentialFullAdapt).")
         self.logp_dlogp_func = logp_dlogp_func
         self.model_ndim = model_ndim
-        self.potential = potential
+        self.potential = (potential if scaling is None
+                          else quad_potential(scaling, is_cov))
         self.trajectory_spec = trajectory_spec
         self.config = NUTSConfig(
             target_accept=float(target_accept), Emax=float(Emax),
@@ -132,9 +154,24 @@ def _resolve_init(init: str) -> str:
     if init_l not in _INIT_METHODS:
         raise ValueError(
             f"Unknown initializer: {init}. littlemcmc_torch supports "
-            f"{', '.join(_INIT_METHODS)} (the dense and low-rank metrics are "
-            "ROADMAP Queue 1 items 8 and 12).")
+            f"{', '.join(_INIT_METHODS)} (the low-rank metric is ROADMAP Queue 1 "
+            "item 12).")
     return init_l
+
+
+def _init_metric_kind(init_l: str) -> str:
+    """``"full"`` or ``"diag"`` from a lowercased init method."""
+    return "full" if init_l.endswith("adapt_full") else "diag"
+
+
+def _make_adaptive_potential(kind: str, mean: torch.Tensor):
+    """The default adaptive metric over ``mean`` (``(n,)`` or ``(C, n)``),
+    as built by ``init_nuts`` (reference ``sampling.py:305-326``)."""
+    n = mean.shape[-1]
+    if kind == "full":
+        return QuadPotentialFullAdapt.create(
+            mean, torch.eye(n, dtype=mean.dtype, device=mean.device), initial_weight=10.0)
+    return QuadPotentialDiagAdapt.create(mean, torch.ones_like(mean), initial_weight=10.0)
 
 
 def init_nuts(logp_dlogp_func=None, model_ndim: Optional[int] = None,
@@ -144,7 +181,8 @@ def init_nuts(logp_dlogp_func=None, model_ndim: Optional[int] = None,
 
     Returns ``(start, step)``: one ``(ndim,)`` starting point (uniform in
     ``[-1, 1)`` for ``jitter+``) and a :class:`NUTS` spec carrying the
-    adaptive diagonal metric. ``sample()`` jitters per chain itself.
+    adaptive metric (diagonal, or dense for ``adapt_full``). ``sample()``
+    jitters per chain itself.
     """
     init_l = _resolve_init(init)
     if model_ndim is None:
@@ -157,8 +195,7 @@ def init_nuts(logp_dlogp_func=None, model_ndim: Optional[int] = None,
         start = torch.zeros(model_ndim, device=dev)
     if logp_fn is not None:
         logp_dlogp_func = as_logp_grad(logp_dlogp_func, logp_fn)
-    potential = QuadPotentialDiagAdapt.create(
-        start, torch.ones_like(start), initial_weight=10.0)
+    potential = _make_adaptive_potential(_init_metric_kind(init_l), start)
     return start, NUTS(logp_dlogp_func=logp_dlogp_func, model_ndim=model_ndim,
                        potential=potential, **kwargs)
 
@@ -170,6 +207,61 @@ def _resolve_spec(step: NUTS, logp_grad):
     owner = getattr(logp_grad, "__self__", None)
     spec_fn = getattr(owner, "trajectory_spec", None)
     return spec_fn() if spec_fn is not None else None
+
+
+def _per_draw_factory(kernel, generator: torch.Generator, seeds, pooled: bool):
+    """Chunk runners of the per-draw engine, with the fused factory's
+    contract: ``run_chunk(state, iter0) -> (state, (trace, info) | None,
+    ndiv)``; a pooled metric is pooled after every tuning draw."""
+
+    def factory(chunk: int, tuning: bool, collect: bool):
+        def run_chunk(state, iter0: int):
+            qs, infos, ndiv = [], [], 0
+            for i in range(iter0, iter0 + chunk):
+                state, info = kernel(state, tuning, generator, seeds[i])
+                if pooled and tuning:
+                    state = dataclasses.replace(
+                        state, potential=cross_chain_potential_pool(state.potential, True))
+                ndiv = ndiv + info.diverging.sum(dtype=torch.int32)
+                if collect:
+                    qs.append(state.q)
+                    infos.append(info)
+            if not collect:
+                return state, None, ndiv
+            return state, (torch.stack(qs), type(infos[0])(
+                *(torch.stack(f) for f in zip(*infos)))), ndiv
+
+        return run_chunk
+
+    return factory
+
+
+def _run_chunked(factory, state, tune: int, draws: int, collect_tune: bool):
+    """Run ``tune + draws`` transitions chunk by chunk (the core of the
+    reference's ``_run_chunked``, ``sampling.py:686-876``).
+
+    Chunks are ``_AUTO_CHUNK`` draws; tune chunks follow the factory's
+    ``tune_chunk_schedule`` where it has one, since a boundary-cadence
+    metric refreshes only between chunks. Returns the final state, the
+    collected ``(trace, info)`` chunks and the divergence count (a device
+    tensor).
+    """
+    total = tune + draws
+    done, outs, ndiv = 0, [], 0
+    sched = getattr(factory, "tune_chunk_schedule", None)
+    while done < total:
+        tuning = done < tune
+        step_len = _AUTO_CHUNK
+        if tuning and sched is not None:
+            step_len = min(step_len, sched(done))
+        stop = min(tune if tuning else total, done + step_len)
+        collect = collect_tune if tuning else True
+        state, out, nd = factory(stop - done, tuning, collect)(state, done)
+        if collect:
+            outs.append(out)
+        ndiv = ndiv + nd
+        done = stop
+    return state, outs, ndiv
 
 
 def sample(
@@ -190,7 +282,9 @@ def sample(
     logp_fn=None,
     mp_ctx=None,
     pickle_backend: str = "pickle",
+    cross_chain_adapt: Optional[bool] = None,
     return_final_state: bool = False,
+    fuse_draws: Optional[bool] = None,
     compute_convergence_checks: bool = True,
     perf_report: Optional[dict] = None,
     device=None,
@@ -198,18 +292,28 @@ def sample(
 ):
     """Draw posterior samples with NUTS on the CUDA card (or the CPU).
 
-    The signature follows the JAX package's ``sample()``; this slice runs
-    NUTS with ``init`` in ``adapt_diag`` / ``jitter+adapt_diag`` and a model
-    that carries a trajectory spec. ``device=None`` means ``"cuda"`` and
-    raises when no CUDA device exists; ``device="cpu"`` runs the plain
-    PyTorch trajectory. ``cores``, ``chain_idx``, ``mp_ctx`` and
-    ``pickle_backend`` are accepted and ignored, as in the JAX package.
+    The signature follows the JAX package's ``sample()``; this port runs
+    NUTS with ``init`` in ``adapt_diag`` / ``jitter+adapt_diag`` /
+    ``adapt_full`` / ``jitter+adapt_full`` (or a static metric on the step)
+    and a model that carries a trajectory spec. ``device=None`` means
+    ``"cuda"`` and raises when no CUDA device exists; ``device="cpu"`` runs
+    the kernels' plain PyTorch versions. ``cores``, ``chain_idx``,
+    ``mp_ctx`` and ``pickle_backend`` are accepted and ignored, as in the
+    JAX package.
 
-    ``perf_report``: pass a dict and it is filled with ``engine``
-    (``per_draw_diag``), ``trajectory`` (``cuda`` or ``plain``),
-    ``chain_block``, ``kernel_launches`` (trajectory-kernel launches in
-    this call) and ``sample_seconds`` (the transition loop; CUDA events on
-    the card).
+    - ``cross_chain_adapt``: pool the metric's Welford statistics across
+      all chains. ``None`` pools ``adapt_full`` at >= 128 chains (reference
+      ``sampling.py:1040-1055``). Per-chain dense adaptation runs on the
+      tensor-op tree, ROADMAP Queue 1 item 6, and raises here.
+    - ``fuse_draws``: ``None`` elects the engine as the JAX package does
+      (dense metrics: the fused kernel; diagonal metrics: per-draw);
+      ``False`` forces the per-draw engine; ``True`` requires the fused
+      one. A failed build or launch raises; nothing falls back.
+    - ``perf_report``: pass a dict and it is filled with ``engine`` (e.g.
+      ``fused_dense_pooled``), ``trajectory`` (``cuda`` or ``plain``),
+      ``chain_block``, ``chunk`` (draws per chunk), ``kernel_launches``
+      (launches of each kernel in this call, by kernel name) and
+      ``sample_seconds`` (the chunk loop; CUDA events on the card).
 
     Returns ``(trace, stats)`` (plus the final ``ChainState`` with
     ``return_final_state``).
@@ -234,6 +338,7 @@ def sample(
         else (step.logp_dlogp_func if step is not None else None),
         logp_fn)
     init_l = _resolve_init(init)
+    kind = _init_metric_kind(init_l)
     if step is None:
         step = NUTS(model_ndim=model_ndim, **kwargs)
     elif kwargs:
@@ -242,9 +347,15 @@ def sample(
     spec = _resolve_spec(step, logp_grad)
     config = step.config
 
+    # pool adapt_full across chains from _POOLED_PROMOTE_CHAINS chains on
+    if cross_chain_adapt is None:
+        poolable = kind == "full" or isinstance(step.potential, QuadPotentialFullAdapt)
+        cross_chain_adapt = poolable and chains >= _POOLED_PROMOTE_CHAINS
+    pooled = bool(cross_chain_adapt)
+
     seed = _as_seed(random_seed)
     # one generator on the device for starts and momenta, one on the host
-    # for the trajectory kernel's per-draw counter-stream seeds
+    # for the kernels' counter-stream seeds
     gen = torch.Generator(device=dev).manual_seed(seed)
     host_gen = torch.Generator().manual_seed(seed + 1)
 
@@ -263,12 +374,24 @@ def sample(
         starts = torch.zeros((chains, model_ndim), device=dev)
 
     if step.potential is not None:
-        potential = step.potential.broadcast(chains)
+        potential = potential_to(step.potential, dev).broadcast(chains)
     else:
-        potential = QuadPotentialDiagAdapt.create(
-            starts, torch.ones_like(starts), initial_weight=10.0)
-    state = init_chain_state(starts, potential, config, batched(logp_grad))
+        potential = _make_adaptive_potential(kind, starts)
+    dense = isinstance(potential, (QuadPotentialFull, QuadPotentialFullAdapt))
+    if isinstance(potential, QuadPotentialFullAdapt) and not pooled:
+        raise NotImplementedError(
+            "per-chain dense adaptation (adapt_full below 128 chains, or "
+            "cross_chain_adapt=False) runs on the tensor-op tree, ROADMAP Queue 1 "
+            "item 6; pass cross_chain_adapt=True to pool it across chains.")
+    if fuse_draws is True and not dense:
+        raise NotImplementedError(
+            "fuse_draws=True: the fused kernel's diagonal branch is ROADMAP Queue 2 "
+            "item 3; the diagonal metric runs on the per-draw engine.")
+    fused = dense and fuse_draws is not False  # the JAX election: dense -> fused
+    engine = (("fused_" if fused else "per_draw_") + ("dense" if dense else "diag")
+              + ("_pooled" if pooled else ""))
 
+    state = init_chain_state(starts, potential, config, batched(logp_grad))
     # fail fast on a bad start, as the reference's "Bad initial energy"
     # check (base_hmc.py:145-148), for all chains at once
     if not bool(torch.isfinite(state.logp).all()):
@@ -276,26 +399,27 @@ def sample(
             "Bad initial energy: model log-probability is not finite at the "
             "starting point. The model might be misspecified.")
 
-    kernel = build_nuts_kernel(config, spec)
-    seeds = torch.randint(-2 ** 31, 2 ** 31, (tune + draws, 2),
-                          generator=host_gen, dtype=torch.int64).tolist()
+    if fused:
+        words = torch.randint(-2 ** 31, 2 ** 31, (2,), generator=host_gen,
+                              dtype=torch.int64).tolist()
+        factory = build_fused_nuts_runner_factory(config, spec, potential, pooled, words)
+    else:
+        kernel = build_nuts_kernel(config, spec, pooled_metric=pooled)
+        seeds = torch.randint(-2 ** 31, 2 ** 31, (tune + draws, 2),
+                              generator=host_gen, dtype=torch.int64).tolist()
+        factory = _per_draw_factory(kernel, gen, seeds, pooled)
     if progressbar:
-        _log.info("Sampling %d chains (%d tune + %d draws) on %s...",
-                  chains, tune, draws, dev)
+        _log.info("Sampling %d chains (%d tune + %d draws) on %s, engine %s...",
+                  chains, tune, draws, dev, engine)
 
-    launches0 = trajectory.launches
+    launches0 = {"nuts_trajectory": trajectory.launches, "fused_nuts": fused_nuts.launches}
     on_card = dev.type == "cuda"
     if on_card:
         ev0, ev1 = (torch.cuda.Event(enable_timing=True) for _ in range(2))
         ev0.record()
     t0 = time.perf_counter()
-    qs, infos = [], []
-    for i in range(tune + draws):
-        tuning = i < tune
-        state, info = kernel(state, tuning, gen, seeds[i])
-        if not tuning or not discard_tuned_samples:
-            qs.append(state.q)
-            infos.append(info)
+    state, outs, ndiv = _run_chunked(factory, state, tune, draws,
+                                        collect_tune=not discard_tuned_samples)
     if on_card:
         ev1.record()
         ev1.synchronize()
@@ -304,9 +428,9 @@ def sample(
         elapsed = time.perf_counter() - t0
 
     dtypes = step.stats_dtypes[0]
-    if qs:
-        trace = torch.stack(qs, dim=1).cpu().numpy()
-        stats = {name: torch.stack([getattr(x, name) for x in infos], dim=1)
+    if outs:
+        trace = torch.cat([o[0] for o in outs]).transpose(0, 1).cpu().numpy()
+        stats = {name: torch.cat([getattr(o[1], name) for o in outs]).transpose(0, 1)
                  .cpu().numpy().astype(dt) for name, dt in dtypes.items()}
     else:
         trace = np.zeros((chains, 0, model_ndim), np.float32)
@@ -314,15 +438,18 @@ def sample(
 
     if perf_report is not None:
         perf_report.update(
-            engine="per_draw_diag",
+            engine=engine,
             trajectory="cuda" if on_card else "plain",
             chain_block=config.chain_block or DEFAULT_CHAIN_BLOCK,
-            kernel_launches=trajectory.launches - launches0,
+            chunk=_AUTO_CHUNK,
+            kernel_launches={"nuts_trajectory": trajectory.launches
+                             - launches0["nuts_trajectory"],
+                             "fused_nuts": fused_nuts.launches - launches0["fused_nuts"]},
             sample_seconds=elapsed,
         )
     if progressbar:
-        _log.info("Done in %.2fs (%.0f transitions/s).", elapsed,
-                  chains * (tune + draws) / elapsed)
+        _log.info("Done in %.2fs (%.0f transitions/s, %d divergences).", elapsed,
+                  chains * (tune + draws) / elapsed, int(ndiv))
 
     step._last_stats = stats
     step._last_trace = trace

@@ -1,4 +1,4 @@
-"""The port's CUDA kernel on the card, held against its plain version.
+"""The port's CUDA kernels on the card, held against their plain versions.
 
 Imports no JAX, so it runs on a machine with a CUDA card and PyTorch alone:
 
@@ -6,10 +6,13 @@ Imports no JAX, so it runs on a machine with a CUDA card and PyTorch alone:
 
 (``--noconftest`` skips the repository's conftest files, which set up
 JAX.) Every test here needs a CUDA device of compute capability 9.0 and
-skips elsewhere. The kernel and the plain version draw the same counter
-stream, so they build the same trees; the correlated Gaussian's matvec
-sums in another order in each, and a rounding difference can flip one
-decision and, through the block's shared counter, the rest of its block.
+skips elsewhere. Each kernel and its plain version draw the same counter
+stream, so they build the same trees; the correlated Gaussian's matvecs
+(and the dense metric's) sum in another order in each, and a rounding
+difference can flip one decision and, through the block's shared
+counter, the rest of its block. The fused kernel's checks are those of
+``chip_smoke.py``'s phase 2c (:func:`chip_smoke.fused_check`), at fewer
+chains.
 """
 
 import numpy as np
@@ -20,7 +23,7 @@ from littlemcmc_torch import models as tm
 from littlemcmc_torch import sample
 from littlemcmc_torch.ops import trajectory, trajectory_plain
 
-FLAGS = ("depth", "n_leaves", "diverging", "turning")
+from chip_smoke import FLAGS, _held, fused_check
 
 
 @pytest.fixture
@@ -95,7 +98,90 @@ def test_sample_on_the_card_launches_once_per_draw(hopper):
     report = {}
     trace, stats = sample(model.logp_grad, model_ndim=20, chains=256, tune=150, draws=150,
                           random_seed=3, perf_report=report, progressbar=False)
-    assert report["kernel_launches"] == 300 and report["trajectory"] == "cuda"
+    assert report["kernel_launches"] == {"nuts_trajectory": 300, "fused_nuts": 0}
+    assert report["trajectory"] == "cuda"
+    assert trace.shape == (256, 150, 20) and np.isfinite(trace).all()
+    assert stats["diverging"].mean() < 0.01
+    assert abs((trace.reshape(-1, 20).var(0) / model.true_var).mean() - 1) < 0.1
+
+
+def _dense_inputs(model, C, D, eps, seed, dev):
+    """Stationary inputs for the true covariance as the dense metric:
+    q ~ N(0, cov), p ~ N(0, cov^-1)."""
+    rng = np.random.default_rng(seed)
+    chol = np.linalg.cholesky(model.cov)
+    q = torch.from_numpy((rng.standard_normal((C, model.ndim)) @ chol.T)
+                         .astype(np.float32)).to(dev)
+    p = np.ascontiguousarray(np.linalg.solve(chol.T, rng.standard_normal((model.ndim, C))).T)
+    eps = (eps * rng.uniform(0.8, 1.2, C)).astype(np.float32)
+    mdc = np.full(C, D, np.int32)
+    mdc[::5] = D - 2
+    logp, grad = model.batched_logp_grad(q)
+    return (q, torch.from_numpy(p.astype(np.float32)).to(dev), grad.contiguous(),
+            logp.contiguous(), torch.from_numpy(eps).to(dev), torch.from_numpy(mdc).to(dev),
+            torch.from_numpy(model.cov.astype(np.float32)).to(dev))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("n,chains,block", [(100, 256, 8), (20, 128, 16)])
+def test_dense_kernel_matches_plain(hopper, n, chains, block):
+    model = tm.CorrelatedGaussian(n)
+    D = 10
+    args = _dense_inputs(model, chains, D, 0.5, 5, hopper)
+    kw = dict(spec=model.trajectory_spec(), max_treedepth=D, Emax=1000.0,
+              chain_block=block, metric="dense")
+    launches = trajectory.launches
+    got = trajectory(*args, (4, 9), **kw)
+    torch.cuda.synchronize()
+    assert trajectory.launches == launches + 1
+    want = trajectory_plain(*args, (4, 9), **kw)
+    agree = torch.stack([got[k] == want[k] for k in FLAGS]).all(0)
+    assert float(agree.float().mean()) >= 0.99
+    assert float(want["depth"].float().mean()) > 1
+    held = _held(agree[None], block)[0]
+    assert float(held.float().mean()) >= 0.9
+    scale = torch.from_numpy(np.sqrt(model.true_var)).float().to(hopper)
+    assert float(((got["q"] - want["q"]).abs() / scale)[held].max()) < 1e-4
+    assert float((got["energy"] - want["energy"]).abs()[held].max()) < 1e-3
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("tuning", [False, True], ids=["draw_chunk", "tune_chunk"])
+def test_fused_kernel_matches_plain(hopper, tuning):
+    """Tree for tree, with the step size fixed within the chunk: a static
+    draw chunk, and an adapt_dense tune chunk across a window swap; the
+    checks of the smoke's phase 2c at 256 chains."""
+    res, failures, got, _, _, _ = fused_check(tm.CorrelatedGaussian(100), 256, 4, tuning,
+                                              False, seed=8, words=(21, -3))
+    assert not failures, res
+    if tuning:
+        assert float(got["window"]) == 202.0
+
+
+@pytest.mark.cuda
+def test_fused_kernel_tune_chunk_with_dual_averaging(hopper):
+    """The tune chunk as the main path runs it. Dual averaging feeds each
+    draw's accept statistic into the next draw's step size and amplifies
+    rounding, so the kernel's first draw is held tree for tree (stats
+    included), its dual-averaging state to the update replayed over its
+    own accept statistics, and its pooled Welford state to a float64
+    replay of its own trace."""
+    res, failures, _, _, _, _ = fused_check(tm.CorrelatedGaussian(100), 256, 4, True, True,
+                                            seed=8, words=(21, -3))
+    assert not failures, res
+    assert res["step_size_adapting"] and "da_tol_share" in res
+
+
+@pytest.mark.cuda
+def test_adapt_full_on_the_card_runs_the_fused_kernel(hopper):
+    model = tm.CorrelatedGaussian(20)
+    report = {}
+    trace, stats = sample(model.logp_grad, model_ndim=20, chains=256, tune=150, draws=150,
+                          random_seed=3, init="adapt_full", perf_report=report,
+                          progressbar=False)
+    # tune chunks 10, 10, 30, 50, 50; one draw chunk
+    assert report["engine"] == "fused_dense_pooled"
+    assert report["kernel_launches"] == {"nuts_trajectory": 0, "fused_nuts": 6}
     assert trace.shape == (256, 150, 20) and np.isfinite(trace).all()
     assert stats["diverging"].mean() < 0.01
     assert abs((trace.reshape(-1, 20).var(0) / model.true_var).mean() - 1) < 0.1
