@@ -31,6 +31,15 @@ Phases, each printing its own lines:
    draw tree for tree, stats included, the dual-averaging state against
    the update replayed over the kernel's accept statistics, the Welford
    state against the float64 replay);
+   2d. the HMC trajectory kernel against its plain version, one
+   transition of 1024 chains at n = 100 (correlated Gaussian) and n = 4
+   (standard normal) from stationary inputs with the sampler's jittered
+   step counts (accept and divergence agree on at least 99% / all chains;
+   q within 1e-4 sd, energies within 1e-3, the accept statistic within
+   1e-3 relative, on the chains that agree);
+   2e. the fused HMC kernel against its plain version in the three modes
+   of 2c (HMC's chains share no stream, so each is held until its first
+   disagreement; the path lengths must agree exactly);
 3. the main path: ``sample(CorrelatedGaussian(100).logp_grad,
    model_ndim=100, chains=1024, tune=500, draws=1000, random_seed=42)``,
    with the kernel's launch count set to 0 before and read after, and the
@@ -41,16 +50,28 @@ Phases, each printing its own lines:
    tree depth of at most 4;
    3c. 3b with ``fuse_draws=False`` (engine ``per_draw_dense_pooled``,
    1500 launches of the trajectory kernel's dense branch), the same gates;
+   3d-3f. the same three calls with ``step=HamiltonianMC(model_ndim=100)``:
+   1500 launches of the HMC trajectory kernel (``per_draw_diag``), 12 of
+   the fused HMC kernel (``fused_dense_pooled``, its final step size
+   larger than 3d's), and the ``fuse_draws=False`` twin on the tensor-op
+   trajectory (no kernel), each with the posterior gates;
 4. the kernel's time per launch at the main path's final state beside its
    plain version's time and its bound, where 50 more draws from that
-   state spend their device time (``torch.profiler``);
+   state spend their device time (``torch.profiler``); each kernel's
+   ``ms`` is its device time per launch under the profiler, and
+   ``events_ms`` the CUDA events' time around back-to-back calls of its
+   wrapper, which for a kernel shorter than the wrapper's host work also
+   counts the card waiting for the host;
    4b. the fused kernel's time per 250-draw launch at 3b's final state,
    per draw, its bound, and where one draw chunk spends its device time;
    the 3b call once more under ``torch.profiler``, the fused kernel's
    device time launch by launch; the dense trajectory kernel's time at
-   3c's final state; then one JSON line of kernels (for the fused kernel
-   ``ms``, ``plain_ms`` and ``bound_ms`` are one 4-draw launch on 2c's
-   draw-chunk input, ``chunk_*`` the 250-draw launch).
+   3c's final state;
+   4c-4d. the same for the HMC kernels at 3d's and 3e's final states,
+   and the 3e call under ``torch.profiler``; then one JSON line of five
+   kernel rows (for the fused kernels ``ms``, ``plain_ms`` and
+   ``bound_ms`` are one 4-draw launch on 2c's or 2e's draw-chunk input,
+   ``chunk_*`` the 250-draw launch).
 
 The last line is ``{"ok": true, "device": {...}}``. Any failure raises
 and the script exits non-zero without that line. Without a CUDA device,
@@ -72,10 +93,21 @@ PEAK_FP32_FLOPS = 67e12  # outside the tensor cores
 PEAK_BYTES_PER_S = 3.35e12
 
 N, CHAINS, TUNE, DRAWS, DEPTH, CHAIN_BLOCK = 100, 1024, 500, 1000, 10, 8
+DEVICE = "cuda"  # where the checks' inputs are made: the card
 FLAGS = ("depth", "n_leaves", "diverging", "turning")
-STAT_CHECKS = ("model_logp", "energy_error", "max_energy_change", "mean_tree_accept",
-               "step_size", "step_size_bar")  # the fused op's per-draw stats held
+HMC_FLAGS = ("n_steps", "accepted", "diverging")
 Q_TOL_SD, E_TOL = 1e-4, 1e-3  # kernel vs plain, on the chains that agree
+# what the fused ops' checks hold, by step method: the decisions that must
+# agree, the per-draw energies (within E_TOL), the accept statistic that
+# feeds dual averaging (within ACCEPT_REL * E_TOL relative: NUTS's averages
+# leaves, each off by at most the error of its energy change) and the
+# count of work units (leaves, leapfrog steps)
+FUSED_STEPS = {
+    "nuts": dict(flags=FLAGS, energies=("model_logp", "energy_error", "max_energy_change"),
+                 accept="mean_tree_accept", accept_rel=2.0, work="n_leaves"),
+    "hmc": dict(flags=HMC_FLAGS, energies=("model_logp", "energy_error", "energy"),
+                accept="accept", accept_rel=1.0, work="n_steps"),
+}
 
 
 def _line(**kv) -> None:
@@ -97,6 +129,30 @@ def _cuda_time_ms(fn, reps: int, warmup: int) -> float:
     return start.elapsed_time(end) / reps
 
 
+def _device_ms(fn, name: str, reps: int, fallback_ms: float) -> tuple[float, str]:
+    """Mean device milliseconds of one launch of the kernel whose name
+    holds ``name``, over ``reps`` calls of ``fn`` under ``torch.profiler``:
+    the kernel's own time, without the gaps in which the card waits for
+    the host's next launch, which CUDA events around a kernel shorter than
+    its Python wrapper also count. Returns ``(ms, "profiler")``, or
+    ``(fallback_ms, "events")`` where the profiler sees no device time."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        for _ in range(reps):
+            fn()
+        torch.cuda.synchronize()
+    hits = [e for e in prof.key_averages()
+            if e.device_type == torch.autograd.DeviceType.CUDA and name in e.key]
+    count = sum(e.count for e in hits)
+    if count != reps:
+        return fallback_ms, f"events:{count}/{reps}_profiled"
+    return sum(e.self_device_time_total for e in hits) / reps / 1e3, "profiler"
+
+
 def _stationary_inputs(model, chol, C, eps, seed):
     """Trajectory inputs at stationarity, made with numpy: q ~ N(0, chol
     chol^T), an inverse-mass diagonal near the true variances, p ~ N(0, M)."""
@@ -109,7 +165,7 @@ def _stationary_inputs(model, chol, C, eps, seed):
     var = (model.true_var * rng.uniform(0.5, 2.0, (C, n))).astype(np.float32)
     p = (rng.standard_normal((C, n)) / np.sqrt(var)).astype(np.float32)
     eps = (eps * rng.uniform(0.8, 1.2, C)).astype(np.float32)
-    dev = torch.device("cuda")
+    dev = torch.device(DEVICE)
     qt = torch.from_numpy(q).to(dev)
     logp, grad = model.batched_logp_grad(qt)
     return (qt, torch.from_numpy(p).to(dev), grad.contiguous(), logp.contiguous(),
@@ -131,7 +187,7 @@ def _dense_stationary_inputs(model, C, eps, seed):
     p = np.ascontiguousarray(np.linalg.solve(chol.T, rng.standard_normal((n, C))).T,
                              dtype=np.float32)
     eps = (eps * rng.uniform(0.8, 1.2, C)).astype(np.float32)
-    dev = torch.device("cuda")
+    dev = torch.device(DEVICE)
     qt = torch.from_numpy(q).to(dev)
     logp, grad = model.batched_logp_grad(qt)
     return (qt, torch.from_numpy(p).to(dev), grad.contiguous(), logp.contiguous(),
@@ -144,7 +200,8 @@ def _held(agree, cb=CHAIN_BLOCK):
     """Per (draw, chain) of a ``(T, C)`` flag agreement: every chain of the
     chain's block agreed at this draw and all earlier ones. One chain's
     other decision changes its block's shared counter stream, so only
-    these chains are held number for number."""
+    these chains are held number for number. ``cb=1``: the chain itself
+    (HMC's chains share no stream)."""
     import torch
 
     block = agree.reshape(agree.shape[0], -1, cb).all(-1)
@@ -198,6 +255,13 @@ def _compare(name, model, args, seed, need, metric="diag"):
     return errs["q_max_abs"]
 
 
+def _roofline_ms(ops: float, nbytes: float) -> tuple[float, str]:
+    """The least time for ``ops`` fp32 operations and ``nbytes`` of device
+    memory traffic on this card, in ms, and which of the two bounds it."""
+    t_ops, t_bytes = ops / PEAK_FP32_FLOPS, nbytes / PEAK_BYTES_PER_S
+    return 1e3 * max(t_ops, t_bytes), ("operations" if t_ops >= t_bytes else "bytes")
+
+
 def _bound_ms(n_leaves_total: int, C: int, n: int, metric: str = "diag") -> tuple[float, str]:
     """Least time for one transition: per leaf and chain the 2n^2-FLOP
     matvec (plus, for the dense metric, the 2n^2-FLOP velocity) and about
@@ -211,8 +275,7 @@ def _bound_ms(n_leaves_total: int, C: int, n: int, metric: str = "diag") -> tupl
         ops += C * 2 * n * n
     nbytes = (4 * (3 * C * n + var_floats + 3 * C + n * n) + 4 * (2 * C * n + 7 * C)
               + 2 * C)
-    t_ops, t_bytes = ops / PEAK_FP32_FLOPS, nbytes / PEAK_BYTES_PER_S
-    return 1e3 * max(t_ops, t_bytes), ("operations" if t_ops >= t_bytes else "bytes")
+    return _roofline_ms(ops, nbytes)
 
 
 def _fused_bound_ms(n_leaves_total: int, C: int, n: int, T: int,
@@ -226,8 +289,7 @@ def _fused_bound_ms(n_leaves_total: int, C: int, n: int, T: int,
     ops = (n_leaves_total * (4 * n * n + 20 * n)
            + C * T * (4 * n * n + (4 * n * n if tuning else 0)))
     nbytes = 4 * (2 * C * n + 8 * C + 3 * n * n) + 4 * (T * C * n + 11 * T * C + 2 * C * n)
-    t_ops, t_bytes = ops / PEAK_FP32_FLOPS, nbytes / PEAK_BYTES_PER_S
-    return 1e3 * max(t_ops, t_bytes), ("operations" if t_ops >= t_bytes else "bytes")
+    return _roofline_ms(ops, nbytes)
 
 
 def _fused_inputs(model, C, seed, iter_count=300.0, log_step=-0.7):
@@ -238,7 +300,7 @@ def _fused_inputs(model, C, seed, iter_count=300.0, log_step=-0.7):
     import torch
 
     rng = np.random.default_rng(seed)
-    dev = torch.device("cuda")
+    dev = torch.device(DEVICE)
     f = dict(dtype=torch.float32, device=dev)
     n = model.ndim
     chol = np.linalg.cholesky(model.cov)
@@ -258,7 +320,7 @@ def _welford_seed(model):
     a chunk (n_samples 200, prev_update 101, window 101)."""
     import torch
 
-    f = dict(dtype=torch.float32, device=torch.device("cuda"))
+    f = dict(dtype=torch.float32, device=torch.device(DEVICE))
     n = model.ndim
     cov = torch.from_numpy(model.cov).to(**f)
     return (torch.zeros(n, **f), cov * 5000.0, torch.tensor(5000.0, **f),
@@ -313,94 +375,110 @@ def _welford_failures(errs, what):
                 or errs[f"{side}_raw_rel"] > 1e-3)]
 
 
-def _held_stat_errors(got, want, held, da_count, config, adapting):
+def _held_stat_errors(got, want, held, da_count, config, adapting, step="nuts"):
     """The per-draw stats of the held chain-draws, kernel against plain,
-    each as a share of its limit (over 1 fails). ``model_logp``,
-    ``energy_error`` and ``max_energy_change`` are energies: within E_TOL.
-    ``mean_tree_accept`` averages leaf accept probabilities
-    exp(min(0, E0 - E)), each of which moves by at most the error of
-    E0 - E, so it is within 2 E_TOL relative. The step sizes are within
-    1e-5 relative, plus, while dual averaging runs, what the accept
-    statistic's difference moves them by: sqrt(count) / (gamma (count +
-    t0)) in log step per unit of accept statistic."""
+    each as a share of its limit (over 1 fails). The energies of
+    ``FUSED_STEPS[step]`` are within E_TOL. The accept statistic is built
+    from leaf accept probabilities exp(min(0, E0 - E)), each of which moves
+    by at most the error of E0 - E: within ``accept_rel`` E_TOL relative.
+    The step sizes are within 1e-5 relative, plus, while dual averaging
+    runs, what the accept statistic's difference moves them by:
+    sqrt(count) / (gamma (count + t0)) in log step per unit of accept
+    statistic."""
     import torch
 
+    kind = FUSED_STEPS[step]
+    acc = kind["accept"]
     T = held.shape[0]
-    g = {k: got[k][:T] for k in STAT_CHECKS}
-    w = {k: want[k][:T] for k in STAT_CHECKS}
-    share = {k: float(((g[k] - w[k]).abs() / E_TOL)[held].max())
-             for k in ("model_logp", "energy_error", "max_energy_change")}
-    d_mta = (g["mean_tree_accept"] - w["mean_tree_accept"]).abs()
-    share["mean_tree_accept"] = float(
-        (d_mta / (2 * E_TOL * w["mean_tree_accept"] + 1e-7))[held].max())
+    share = {k: float(((got[k][:T] - want[k][:T]).abs() / E_TOL)[held].max())
+             for k in kind["energies"]}
+    d_acc = (got[acc][:T] - want[acc][:T]).abs()
+    share[acc] = float((d_acc / (kind["accept_rel"] * E_TOL * want[acc][:T] + 1e-7))[held].max())
     cnt = da_count[None, :] + torch.arange(T, device=da_count.device)[:, None]
     slope = (cnt.sqrt() / (float(config.gamma) * (cnt + float(config.t0)))
              if adapting else torch.zeros_like(cnt))
     for k in ("step_size", "step_size_bar"):
-        rel = (g[k] - w[k]).abs() / w[k]
-        share[k] = float((rel / (1e-5 + slope * d_mta))[held].max())
+        rel = (got[k][:T] - want[k][:T]).abs() / want[k][:T]
+        share[k] = float((rel / (1e-5 + slope * d_acc))[held].max())
     return share
 
 
-def fused_check(model, C, T, tuning, adapt_step_size, seed, words):
+def fused_check(model, C, T, tuning, adapt_step_size, seed, words, step="nuts"):
     """One fused launch of ``T`` draws at ``C`` chains against the plain
-    version on the same inputs: flags, trace, energies and the per-draw
-    stats on the chain-draws held number for number, and in a tune chunk
-    the pooled Welford state against the plain version and a float64
+    version on the same inputs (``step``: the fused NUTS op, or with
+    ``"hmc"`` the fused HMC op): the decisions, trace, energies and the
+    per-draw stats on the chain-draws held number for number, and in a tune
+    chunk the pooled Welford state against the plain version and a float64
     replay and the dual-averaging state against its update replayed over
     the kernel's accept statistics. Returns the result line, the list of
     failures and both outputs."""
     import numpy as np
     import torch
-    from littlemcmc_torch.base import NUTSConfig
+    from littlemcmc_torch.base import HMCConfig, NUTSConfig
+    from littlemcmc_torch.ops.fused_hmc import fused_hmc, fused_hmc_plain
     from littlemcmc_torch.ops.fused_nuts import (_da_update, combine_dense_welford,
                                                  fused_nuts, fused_nuts_plain)
 
+    kind = FUSED_STEPS[step]
+    op, plain = (fused_nuts, fused_nuts_plain) if step == "nuts" else (fused_hmc, fused_hmc_plain)
     args = _fused_inputs(model, C, seed)
     welford = _welford_seed(model) if tuning else None
-    config = NUTSConfig(adapt_step_size=adapt_step_size)
+    config = (NUTSConfig if step == "nuts" else HMCConfig)(adapt_step_size=adapt_step_size)
     kw = dict(spec=model.trajectory_spec(), T=T, tuning=tuning, config=config,
               window_multiplier=2.0, chain_block=CHAIN_BLOCK, dense_welford=welford)
-    launches = fused_nuts.launches
-    got = fused_nuts(*args, words, **kw)
+    launches = op.launches
+    got = op(*args, words, **kw)
     torch.cuda.synchronize()
     start, end = (torch.cuda.Event(enable_timing=True) for _ in range(2))
     start.record()
-    want = fused_nuts_plain(*args, words, **kw)
+    want = plain(*args, words, **kw)
     end.record()
     end.synchronize()
 
-    agree = torch.stack([got[k] == want[k] for k in FLAGS]).all(0)  # (T, C)
+    agree = torch.stack([got[k] == want[k] for k in kind["flags"]]).all(0)  # (T, C)
     sd = torch.from_numpy(np.sqrt(model.true_var)).float().to(got["q"].device)
-    # with the step size adapting, only the first draw is held tree for
-    # tree: dual averaging carries each draw's rounding into the next
+    # with the step size adapting, only the first draw is held number for
+    # number: dual averaging carries each draw's rounding into the next
     # draw's step size
     adapting = tuning and adapt_step_size
     checked = agree[:1] if adapting else agree
-    held = _held(checked)
-    dq = ((got["trace"][:held.shape[0]] - want["trace"][:held.shape[0]]).abs())[held]
-    de = (got["energy"][:held.shape[0]] - want["energy"][:held.shape[0]]).abs()[held]
-    res = {"phase": "fused_vs_plain", "chunk": "tune" if tuning else "draw",
+    held = _held(checked, CHAIN_BLOCK if step == "nuts" else 1)
+    Th = held.shape[0]
+    dq = ((got["trace"][:Th] - want["trace"][:Th]).abs())[held]
+    de = (got["energy"][:Th] - want["energy"][:Th]).abs()[held]
+    work = kind["work"]
+    res = {"phase": f"fused_{step}_vs_plain", "chunk": "tune" if tuning else "draw",
            "step_size_adapting": adapting, "chains": C,
            "draws": T, "agree_share": float(checked.float().mean()),
            "agree_share_all_draws": float(agree.float().mean()),
            "held_share": float(held.float().mean()),
-           "mean_depth": float(want["depth"].float().mean()),
-           "mean_leaves": float(want["n_leaves"].float().mean()),
+           f"mean_{work}": float(want[work].float().mean()),
            "q_max_abs": float(dq.max()), "q_max_err_in_sd": float(
-               ((got["trace"][:held.shape[0]] - want["trace"][:held.shape[0]]).abs()
-                / sd)[held].max()),
+               ((got["trace"][:Th] - want["trace"][:Th]).abs() / sd)[held].max()),
            "energy_max_abs": float(de.max()),
-           "stat_tol_share": _held_stat_errors(got, want, held, args[7], config, adapting),
+           "stat_tol_share": _held_stat_errors(got, want, held, args[7], config, adapting,
+                                               step),
            "plain_ms": start.elapsed_time(end)}
+    if step == "nuts":
+        res["mean_depth"] = float(want["depth"].float().mean())
+    else:
+        # the path length is the stream's call 3 times path_length: exact;
+        # a step count that differs there sits on a floor boundary of
+        # path / eps, eps differing in its last bits
+        res["path_length_exact"] = bool((got["path_length"] == want["path_length"]).all())
+        res["n_steps_boundary_draws"] = int(((got["n_steps"] != want["n_steps"])[:Th]
+                                             & held).sum())
+        res["accept_rate"] = float(want["accepted"].float().mean())
     failures = []
-    if fused_nuts.launches != launches + 1:
-        failures.append(f"{fused_nuts.launches - launches} kernel launches counted, not 1")
+    if op.launches != launches + 1:
+        failures.append(f"{op.launches - launches} kernel launches counted, not 1")
     if res["agree_share"] < 0.99 or res["held_share"] < 0.9:
         failures.append("flags agree on fewer than 99% of chain-draws, or fewer than "
                         "90% are held number for number")
     if res["q_max_err_in_sd"] > Q_TOL_SD or res["energy_max_abs"] > E_TOL:
         failures.append("q or energy differ beyond the tolerance")
+    if step == "hmc" and not res["path_length_exact"]:
+        failures.append("path lengths differ: the counter streams differ")
     failures += [f"stat {k} at {v:.3g} of its limit"
                  for k, v in res["stat_tol_share"].items() if v > 1.0]
     if tuning:
@@ -408,10 +486,10 @@ def fused_check(model, C, T, tuning, adapt_step_size, seed, words):
         res["welford_vs_replay"] = _welford_errors(got, replay, welford[0])
         failures += _welford_failures(res["welford_vs_replay"], "a float64 replay of its trace")
         if not adapting:
-            plain = {side: combine_dense_welford(*(want[f"dense_{side}_{x}"]
-                                                   for x in ("w", "mean", "raw")), welford[0])
-                     for side in ("fg", "bg")}
-            res["welford_vs_plain"] = _welford_errors(got, plain, welford[0])
+            plain_w = {side: combine_dense_welford(*(want[f"dense_{side}_{x}"]
+                                                     for x in ("w", "mean", "raw")), welford[0])
+                       for side in ("fg", "bg")}
+            res["welford_vs_plain"] = _welford_errors(got, plain_w, welford[0])
             failures += _welford_failures(res["welford_vs_plain"], "the plain version")
         for k in ("n_samples", "prev_update", "window"):
             if float(got[k]) != float(want[k]):
@@ -420,7 +498,7 @@ def fused_check(model, C, T, tuning, adapt_step_size, seed, words):
             s = dict(zip(("da_log_step", "da_log_bar", "da_hbar", "da_count", "da_mu"),
                          args[4:9]))
             for t in range(T):
-                _da_update(s, got["mean_tree_accept"][t], config)
+                _da_update(s, got[kind["accept"]][t], config)
             # within 1e-5 relative, 1e-6 absolute near 0 (hbar is a
             # running mean of target - accept, near 0 once adapted)
             res["da_max_abs"] = max(float((got[k] - v).abs().max()) for k, v in s.items())
@@ -431,25 +509,130 @@ def fused_check(model, C, T, tuning, adapt_step_size, seed, words):
     return res, failures, got, want, args, kw
 
 
-def _compare_fused(T, tuning, adapt_step_size, seed, words):
-    """Phase 2c: :func:`fused_check` at the main path's shapes, printed,
-    and the kernel timed on the same input. Returns the kernel's and the
-    plain version's ms, the largest q difference on the held chain-draws,
-    and the kernel's leaves summed over chains and draws."""
+def _compare_fused(T, tuning, adapt_step_size, seed, words, step="nuts"):
+    """Phases 2c and 2e: :func:`fused_check` at the main path's shapes,
+    printed, and the kernel timed on the same input. Returns the kernel's
+    and the plain version's ms, the largest q difference on the held
+    chain-draws, and the kernel's work units (leaves, leapfrog steps)
+    summed over chains and draws."""
     from littlemcmc_torch.models import CorrelatedGaussian
+    from littlemcmc_torch.ops.fused_hmc import fused_hmc
     from littlemcmc_torch.ops.fused_nuts import fused_nuts
 
+    op = fused_nuts if step == "nuts" else fused_hmc
     res, failures, got, _, args, kw = fused_check(CorrelatedGaussian(N), CHAINS, T, tuning,
-                                                  adapt_step_size, seed, words)
-    res["kernel_ms"] = _cuda_time_ms(lambda: fused_nuts(*args, words, **kw), reps=5, warmup=1)
+                                                  adapt_step_size, seed, words, step)
+    res["events_ms"] = _cuda_time_ms(lambda: op(*args, words, **kw), reps=5, warmup=1)
+    res["kernel_ms"], res["ms_source"] = _device_ms(lambda: op(*args, words, **kw),
+                                                    f"fused_{step}", 5, res["events_ms"])
     print(json.dumps(res), flush=True)
     if failures:
-        raise RuntimeError(f"fused kernel vs plain ({res['chunk']} chunk): {failures}")
-    return res["kernel_ms"], res["plain_ms"], res["q_max_abs"], int(got["n_leaves"].sum())
+        raise RuntimeError(f"fused {step} kernel vs plain ({res['chunk']} chunk): {failures}")
+    return (res["kernel_ms"], res["plain_ms"], res["q_max_abs"],
+            int(got[FUSED_STEPS[step]["work"]].sum()), res["events_ms"])
+
+
+def _hmc_inputs(model, chol, C, eps, seed):
+    """HMC trajectory inputs at stationarity (:func:`_stationary_inputs`)
+    with each chain's step count drawn as the sampler draws it:
+    floor(U(0, 1) * 2 / eps), at least 1."""
+    import numpy as np
+    import torch
+
+    q, p, grad, logp, eps_t, _, var = _stationary_inputs(model, chol, C, eps, seed)
+    u = np.random.default_rng(seed + 1000).uniform(size=C).astype(np.float32)
+    n_steps = torch.clamp((torch.from_numpy(u).to(eps_t.device) * 2.0 / eps_t).to(torch.int32),
+                          1, 1024)
+    return q, p, grad, logp, eps_t, n_steps, var
+
+
+def hmc_check(model, args, seed, need, chain_block=512, integrator="leapfrog"):
+    """One launch of the HMC trajectory kernel against its plain version on
+    the same inputs: the accept and divergence decisions on ``need`` of the
+    chains, and on those q (within Q_TOL_SD posterior sd), the energies
+    (within E_TOL) and the accept statistic (within E_TOL relative).
+    Returns the result line, the failures and both outputs."""
+    import numpy as np
+    import torch
+    from littlemcmc_torch.ops.hmc_trajectory import hmc_trajectory, hmc_trajectory_plain
+
+    kw = dict(spec=model.trajectory_spec(), Emax=1000.0, chain_block=chain_block,
+              integrator=integrator)
+    launches = hmc_trajectory.launches
+    got = hmc_trajectory(*args, seed, **kw)
+    torch.cuda.synchronize()
+    start, end = (torch.cuda.Event(enable_timing=True) for _ in range(2))
+    start.record()
+    want = hmc_trajectory_plain(*args, seed, **kw)
+    end.record()
+    end.synchronize()
+    agree = (got["accepted"] == want["accepted"]) & (got["diverging"] == want["diverging"])
+    sd = torch.from_numpy(np.sqrt(model.true_var)).float().to(got["q"].device)
+    res = {"phase": "hmc_kernel_vs_plain", "body": model.trajectory_spec().body,
+           "chains": args[0].shape[0], "ndim": args[0].shape[1],
+           "agree_share": float(agree.float().mean()),
+           "mean_n_steps": float(args[5].float().mean()),
+           "max_n_steps": int(args[5].max()),
+           "accept_rate": float(want["accepted"].float().mean()),
+           "q_max_abs": float((got["q"] - want["q"]).abs()[agree].max()),
+           "q_max_err_in_sd": float(((got["q"] - want["q"]).abs() / sd)[agree].max()),
+           "plain_ms": start.elapsed_time(end)}
+    for k in ("energy", "logp_end", "energy_change"):
+        res[f"{k}_max_abs"] = float((got[k] - want[k]).abs()[agree].max())
+    res["accept_stat_max_rel"] = float(((got["accept_stat"] - want["accept_stat"]).abs()
+                                        / (want["accept_stat"] + 1e-7))[agree].max())
+    failures = []
+    if hmc_trajectory.launches != launches + 1:
+        failures.append(f"{hmc_trajectory.launches - launches} launches counted, not 1")
+    if res["agree_share"] < need:
+        failures.append(f"decisions agree on {res['agree_share']:.4f} of chains, need {need}")
+    if res["q_max_err_in_sd"] > Q_TOL_SD:
+        failures.append(f"q differs by {res['q_max_err_in_sd']} sd (limit {Q_TOL_SD})")
+    if max(res[f"{k}_max_abs"] for k in ("energy", "logp_end", "energy_change")) > E_TOL:
+        failures.append(f"energies differ beyond {E_TOL}")
+    if res["accept_stat_max_rel"] > E_TOL:
+        failures.append(f"the accept statistic differs beyond {E_TOL} relative")
+    return res, failures, got, want
+
+
+def _compare_hmc(model, args, seed, need):
+    """Phase 2d: :func:`hmc_check`, printed; raises on a failure. Returns
+    the largest q difference on the chains that agree."""
+    res, failures, _, _ = hmc_check(model, args, seed, need)
+    print(json.dumps(res), flush=True)
+    if failures:
+        raise RuntimeError(f"HMC kernel vs plain ({res['body']}): {failures}")
+    return res["q_max_abs"], res["plain_ms"]
+
+
+def _hmc_bound_ms(steps_total: int, C: int, n: int) -> tuple[float, str]:
+    """Least time for one HMC trajectory launch: per chain and step the
+    2n^2-FLOP model body and about 10n elementwise, plus 4n per chain for
+    the two energies, over the steps these inputs ask for; against q, p,
+    grad and the inverse mass, the scalars and P read once and q, grad,
+    five scalars and two flags written once."""
+    ops = steps_total * (2 * n * n + 10 * n) + C * 4 * n
+    nbytes = 4 * (4 * C * n + 3 * C + n * n) + 4 * (2 * C * n + 5 * C) + 2 * C
+    return _roofline_ms(ops, nbytes)
+
+
+def _fused_hmc_bound_ms(steps_total: int, C: int, n: int, T: int,
+                        tuning: bool) -> tuple[float, str]:
+    """Least time for one fused HMC launch of ``T`` draws: per chain and
+    draw 2n^2 FLOP for the momentum, 4n^2 for the velocities of the two
+    energies and, in tune, 4n^2 for the Welford adds; per step 2n^2 for
+    the model body, 2n^2 for the velocity and about 10n elementwise;
+    against the state, metric, L^-1 and precision read once and the trace
+    and 10 stats of each draw written once."""
+    ops = (steps_total * (4 * n * n + 10 * n)
+           + C * T * (6 * n * n + (4 * n * n if tuning else 0)))
+    nbytes = 4 * (2 * C * n + 8 * C + 3 * n * n) + 4 * (T * C * n + 10 * T * C + 2 * C * n)
+    return _roofline_ms(ops, nbytes)
 
 
 def _quality(model, trace, stats, secs, report, label, card, extra):
-    """The posterior gates of a main-path run; prints its JSON line."""
+    """The posterior gates of a main-path run (NUTS or HMC stats); prints
+    its JSON line."""
     import numpy as np
     from littlemcmc_torch.utils.diagnostics import ess_bulk
 
@@ -471,11 +654,16 @@ def _quality(model, trace, stats, secs, report, label, card, extra):
             "min_bulk_ess": min_ess, "min_bulk_ess_per_s": min_ess / secs,
             "divergence_rate": div_rate, "posterior_var_ratio": var_ratio,
             "max_abs_mean_over_sd": mean_err,
-            "mean_tree_size": float(stats["tree_size"].mean()),
-            "mean_depth": float(stats["depth"].mean()),
             "step_size": float(stats["step_size"][:, -1].mean()),
-            "mean_tree_accept": float(stats["mean_tree_accept"].mean()),
             "ess_seconds": time.perf_counter() - t_ess, "card": card}
+    if "tree_size" in stats:
+        line.update(mean_tree_size=float(stats["tree_size"].mean()),
+                    mean_depth=float(stats["depth"].mean()),
+                    mean_tree_accept=float(stats["mean_tree_accept"].mean()))
+    else:
+        line.update(mean_n_steps=float(stats["n_steps"].mean()),
+                    accept=float(stats["accept"].mean()),
+                    accepted=float(stats["accepted"].mean()))
     print(json.dumps(line), flush=True)
     gates = [("divergence_rate < 0.01", div_rate < 0.01),
              ("0.9 <= posterior_var_ratio <= 1.1", 0.9 <= var_ratio <= 1.1),
@@ -487,16 +675,22 @@ def _quality(model, trace, stats, secs, report, label, card, extra):
     return line
 
 
-def _breakdown(model, state, gen, draws: int = 50) -> None:
-    """Where a post-tune draw's time goes: ``draws`` transitions from the
-    main path's final state under ``torch.profiler``; device time by
-    kernel over the window's time on CUDA events."""
+def _breakdown(model, state, gen, draws: int = 50, step: str = "nuts") -> None:
+    """Where a post-tune draw's time goes: ``draws`` transitions from a
+    main path's final state (``step``: the NUTS or the HMC path) under
+    ``torch.profiler``; device time by kernel over the window's time on
+    CUDA events."""
     import torch
     from torch.profiler import ProfilerActivity, profile
-    from littlemcmc_torch.base import NUTSConfig
+    from littlemcmc_torch.base import HMCConfig, NUTSConfig
+    from littlemcmc_torch.hmc import build_hmc_kernel
     from littlemcmc_torch.nuts import build_nuts_kernel
 
-    kernel = build_nuts_kernel(NUTSConfig(), model.trajectory_spec())
+    if step == "nuts":
+        kernel, name = build_nuts_kernel(NUTSConfig(), model.trajectory_spec()), "nuts_trajectory"
+    else:
+        kernel = build_hmc_kernel(model.batched_logp_grad, HMCConfig(), model.trajectory_spec())
+        name = "hmc_trajectory"
     kernel(state, False, gen, (1, 2))  # warm-up
     start, end = (torch.cuda.Event(enable_timing=True) for _ in range(2))
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
@@ -511,10 +705,11 @@ def _breakdown(model, state, gen, draws: int = 50) -> None:
         if e.device_type == torch.autograd.DeviceType.CUDA and e.self_device_time_total > 0:
             by_kernel[e.key] = e.self_device_time_total
     busy = sum(by_kernel.values())
-    traj = sum(t for k, t in by_kernel.items() if "nuts_trajectory" in k)
+    traj = sum(t for k, t in by_kernel.items() if name in k)
     top = sorted(by_kernel.items(), key=lambda kv: -kv[1])[:4]
     print(json.dumps({
-        "phase": "breakdown", "draws": draws, "ms_per_draw": window_us / draws / 1e3,
+        "phase": "breakdown" if step == "nuts" else "hmc_breakdown", "draws": draws,
+        "ms_per_draw": window_us / draws / 1e3,
         "device_busy_share": busy / window_us if busy else "not measured",
         "trajectory_kernel_share": traj / window_us if busy else "not measured",
         "trajectory_kernel_ms_per_draw": traj / draws / 1e3 if busy else "not measured",
@@ -558,26 +753,29 @@ def _fused_breakdown(model, state, chunk: int, iter0: int) -> None:
         "top_device_us": [[k[:60], t] for k, t in top]}), flush=True)
 
 
-def _fused_path_breakdown(model) -> None:
-    """Where the slice's call spends its time: the 3b call once more under
-    ``torch.profiler``; the fused kernel's device time launch by launch (8
-    tune chunks, then 4 draw chunks), and over the window from the first
-    launch's start to the last one's end, the other kernels' device time
-    (the metric refreshes between chunks) and the device's busy share."""
+def _fused_path_breakdown(model, step: str = "nuts") -> None:
+    """Where an ``adapt_full`` call spends its time: the 3b call (with
+    ``step="hmc"`` the 3e call) once more under ``torch.profiler``; the
+    fused kernel's device time launch by launch (8 tune chunks, then 4 draw
+    chunks), and over the window from the first launch's start to the last
+    one's end, the other kernels' device time (the metric refreshes between
+    chunks) and the device's busy share."""
     import torch
     from torch.profiler import ProfilerActivity, profile
-    from littlemcmc_torch import sample
+    from littlemcmc_torch import HamiltonianMC, sample
 
     report = {}
+    name = "fused_nuts" if step == "nuts" else "fused_hmc"
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
         sample(model.logp_grad, model_ndim=N, chains=CHAINS, tune=TUNE, draws=DRAWS,
                random_seed=42, init="adapt_full", perf_report=report, progressbar=False,
-               compute_convergence_checks=False)
+               compute_convergence_checks=False,
+               step=HamiltonianMC(model_ndim=N) if step == "hmc" else None)
     kernels = sorted((e for e in prof.events()
                       if e.device_type == torch.autograd.DeviceType.CUDA),
                      key=lambda e: e.time_range.start)
-    fused = [e for e in kernels if "fused_nuts" in e.name]
-    line = {"phase": "fused_path_breakdown",
+    fused = [e for e in kernels if name in e.name]
+    line = {"phase": f"{name}_path_breakdown",
             "sample_seconds_profiled": report["sample_seconds"]}
     if not fused:
         line["fused_launch_ms"] = "not measured"
@@ -585,7 +783,7 @@ def _fused_path_breakdown(model) -> None:
         t0, t1 = fused[0].time_range.start, fused[-1].time_range.end
         fused_us = [e.time_range.elapsed_us() for e in fused]
         other_us = sum(e.time_range.elapsed_us() for e in kernels
-                       if "fused_nuts" not in e.name and t0 <= e.time_range.start
+                       if name not in e.name and t0 <= e.time_range.start
                        and e.time_range.end <= t1)
         line.update(fused_launch_ms=[t / 1e3 for t in fused_us],
                     fused_tune_ms=sum(fused_us[:-4]) / 1e3,
@@ -627,11 +825,22 @@ def main() -> int:
             if "registers" in ln or "spill" in ln or "entry function" in ln:
                 print(f"ptxas[{name}]: {ln.strip()}", flush=True)
 
-    from littlemcmc_torch import sample
-    from littlemcmc_torch.base import NUTSConfig
+    from littlemcmc_torch import HamiltonianMC, sample
+    from littlemcmc_torch.base import HMCConfig, NUTSConfig
     from littlemcmc_torch.models import CorrelatedGaussian, StandardNormal
+    from littlemcmc_torch.ops.fused_hmc import fused_hmc
     from littlemcmc_torch.ops.fused_nuts import fused_nuts
+    from littlemcmc_torch.ops.hmc_trajectory import hmc_trajectory, hmc_trajectory_plain
     from littlemcmc_torch.ops.nuts_trajectory import trajectory, trajectory_plain
+
+    ops = (trajectory, fused_nuts, hmc_trajectory, fused_hmc)
+
+    def reset_counts():
+        for op in ops:
+            op.launches = 0
+
+    def counts():
+        return {op.__name__: op.launches for op in ops}
 
     # --- 2. the kernel against its plain version -------------------------------
     cg = CorrelatedGaussian(N)
@@ -652,11 +861,22 @@ def main() -> int:
     for tuning_cmp in (_compare_fused(4, True, False, seed=4, words=(43, 11)),
                        _compare_fused(4, True, True, seed=5, words=(47, 13))):
         fused_err = max(fused_err, tuning_cmp[2])
+    # 2d. the HMC trajectory kernel, diag metric
+    hmc_err, _ = _compare_hmc(cg, _hmc_inputs(cg, np.linalg.cholesky(cg.cov), CHAINS, 0.2, 6),
+                              (61, -67), need=0.99)
+    _compare_hmc(sn, _hmc_inputs(sn, np.eye(4), CHAINS, 0.5, 7), (71, 73), need=1.0)
+    # 2e. the fused HMC kernel: a draw chunk, a tune chunk with the step size
+    # held, and a tune chunk as the HMC adapt_full path runs it
+    fh_cmp = _compare_fused(4, False, True, seed=8, words=(53, -11), step="hmc")
+    fh_err = fh_cmp[2]
+    fh_bound_ms, fh_bound_by = _fused_hmc_bound_ms(fh_cmp[3], CHAINS, N, 4, False)
+    for tuning_cmp in (_compare_fused(4, True, False, seed=9, words=(59, 17), step="hmc"),
+                       _compare_fused(4, True, True, seed=10, words=(67, 19), step="hmc")):
+        fh_err = max(fh_err, tuning_cmp[2])
     _line(phase="kernel_checks", elapsed_s=f"{time.perf_counter() - t_start:.1f}")
 
     # --- 3. the main path -------------------------------------------------------
-    trajectory.launches = 0
-    fused_nuts.launches = 0
+    reset_counts()
     report = {}
     trace, stats, state = sample(cg.logp_grad, model_ndim=N, chains=CHAINS, tune=TUNE,
                                  draws=DRAWS, random_seed=42, perf_report=report,
@@ -670,8 +890,7 @@ def main() -> int:
              {"kernel_launches": launches})
 
     # 3b. init="adapt_full": pooled dense adaptation on the fused kernel
-    trajectory.launches = 0
-    fused_nuts.launches = 0
+    reset_counts()
     report_f = {}
     trace_f, stats_f, state_f = sample(cg.logp_grad, model_ndim=N, chains=CHAINS, tune=TUNE,
                                        draws=DRAWS, random_seed=42, init="adapt_full",
@@ -693,8 +912,7 @@ def main() -> int:
         raise RuntimeError(f"adapt_full: draw-phase mean tree depth {draw_depth} > 4")
 
     # 3c. the same on the per-draw engine, the trajectory kernel's dense branch
-    trajectory.launches = 0
-    fused_nuts.launches = 0
+    reset_counts()
     report_d = {}
     trace_d, stats_d, state_d = sample(cg.logp_grad, model_ndim=N, chains=CHAINS, tune=TUNE,
                                        draws=DRAWS, random_seed=42, init="adapt_full",
@@ -715,20 +933,82 @@ def main() -> int:
           per_draw_min_bulk_ess_per_s=line_d["min_bulk_ess_per_s"],
           elapsed_s=f"{time.perf_counter() - t_start:.1f}")
 
+    # 3d. HamiltonianMC: jitter+adapt_diag on the HMC trajectory kernel
+    reset_counts()
+    report_h = {}
+    trace_h, stats_h, state_h = sample(cg.logp_grad, model_ndim=N, chains=CHAINS, tune=TUNE,
+                                       draws=DRAWS, random_seed=42,
+                                       step=HamiltonianMC(model_ndim=N), perf_report=report_h,
+                                       return_final_state=True, progressbar=False)
+    hmc_launches = hmc_trajectory.launches
+    want = {"trajectory": 0, "fused_nuts": 0, "hmc_trajectory": TUNE + DRAWS, "fused_hmc": 0}
+    if (report_h["engine"] != "per_draw_diag" or counts() != want
+            or report_h["kernel_launches"] != {"hmc_trajectory": TUNE + DRAWS, "fused_hmc": 0}):
+        raise RuntimeError(f"the HMC path ran engine {report_h['engine']} with launches "
+                           f"{counts()}, expected per_draw_diag and {want}")
+    line_h = _quality(cg, trace_h, stats_h, report_h["sample_seconds"], report_h,
+                      "hmc_path", smi, {"kernel_launches": report_h["kernel_launches"]})
+
+    # 3e. HamiltonianMC with init="adapt_full": the fused HMC kernel
+    reset_counts()
+    report_hf = {}
+    trace_hf, stats_hf, state_hf = sample(cg.logp_grad, model_ndim=N, chains=CHAINS,
+                                          tune=TUNE, draws=DRAWS, random_seed=42,
+                                          init="adapt_full", step=HamiltonianMC(model_ndim=N),
+                                          perf_report=report_hf, return_final_state=True,
+                                          progressbar=False)
+    fh_launches = fused_hmc.launches
+    want = {"trajectory": 0, "fused_nuts": 0, "hmc_trajectory": 0, "fused_hmc": 12}
+    if (report_hf["engine"] != "fused_dense_pooled" or counts() != want
+            or report_hf["kernel_launches"] != {"hmc_trajectory": 0, "fused_hmc": 12}):
+        raise RuntimeError(f"the HMC adapt_full path ran engine {report_hf['engine']} with "
+                           f"launches {counts()}, expected fused_dense_pooled and {want}")
+    line_hf = _quality(cg, trace_hf, stats_hf, report_hf["sample_seconds"], report_hf,
+                       "hmc_adapt_full_fused", smi,
+                       {"kernel_launches": report_hf["kernel_launches"]})
+    # the pooled dense metric was learned: a larger step than the diag path's
+    if line_hf["step_size"] <= line_h["step_size"]:
+        raise RuntimeError(f"HMC adapt_full: final step size {line_hf['step_size']} is not "
+                           f"larger than the diag path's {line_h['step_size']}")
+
+    # 3f. the same with fuse_draws=False: the tensor-op trajectory
+    # (run_hmc_trajectory), timed beside 3e for the election
+    reset_counts()
+    report_hd = {}
+    trace_hd, stats_hd = sample(cg.logp_grad, model_ndim=N, chains=CHAINS, tune=TUNE,
+                                draws=DRAWS, random_seed=42, init="adapt_full",
+                                step=HamiltonianMC(model_ndim=N), fuse_draws=False,
+                                perf_report=report_hd, progressbar=False)
+    if (report_hd["engine"] != "per_draw_dense_pooled" or report_hd["trajectory"] != "tensor"
+            or any(counts().values())):
+        raise RuntimeError(f"HMC adapt_full, fuse_draws=False ran engine "
+                           f"{report_hd['engine']} ({report_hd['trajectory']}) with launches "
+                           f"{counts()}")
+    line_hd = _quality(cg, trace_hd, stats_hd, report_hd["sample_seconds"], report_hd,
+                       "hmc_adapt_full_per_draw", smi, {"trajectory": "tensor"})
+    _line(phase="hmc_dense_engines", fused_sample_seconds=line_hf["sample_seconds"],
+          per_draw_sample_seconds=line_hd["sample_seconds"],
+          fused_min_bulk_ess_per_s=line_hf["min_bulk_ess_per_s"],
+          per_draw_min_bulk_ess_per_s=line_hd["min_bulk_ess_per_s"],
+          elapsed_s=f"{time.perf_counter() - t_start:.1f}")
+
     # --- 4. the kernel's time at the main path's final state -------------------
-    gen = torch.Generator(device="cuda").manual_seed(7)
+    gen = torch.Generator(device=DEVICE).manual_seed(7)
     pot = state.potential
     step_size = torch.exp(state.da.log_bar)
     targs = (state.q, pot.sample_momentum(gen), state.q_grad, state.logp, step_size,
-             torch.full((CHAINS,), DEPTH, dtype=torch.int32, device="cuda"), pot.var)
+             torch.full((CHAINS,), DEPTH, dtype=torch.int32, device=DEVICE), pot.var)
     kw = dict(spec=cg.trajectory_spec(), max_treedepth=DEPTH, Emax=1000.0,
               chain_block=CHAIN_BLOCK)
     out = trajectory(*targs, (3, 8), **kw)
     leaves = int(out["n_leaves"].sum())
-    kernel_ms = _cuda_time_ms(lambda: trajectory(*targs, (3, 8), **kw), reps=20, warmup=3)
+    events_ms = _cuda_time_ms(lambda: trajectory(*targs, (3, 8), **kw), reps=20, warmup=3)
+    kernel_ms, ms_src = _device_ms(lambda: trajectory(*targs, (3, 8), **kw), "nuts_trajectory",
+                                   20, events_ms)
     plain_ms = _cuda_time_ms(lambda: trajectory_plain(*targs, (3, 8), **kw), reps=1, warmup=0)
     bound_ms, bound_by = _bound_ms(leaves, CHAINS, N)
-    _line(phase="timing", kernel_ms=f"{kernel_ms:.4f}", plain_ms=f"{plain_ms:.1f}",
+    _line(phase="timing", kernel_ms=f"{kernel_ms:.4f}", ms_source=ms_src,
+          events_ms=f"{events_ms:.4f}", plain_ms=f"{plain_ms:.1f}",
           bound_ms=f"{bound_ms:.4f}", bound_by=bound_by,
           mean_leaves=f"{leaves / CHAINS:.2f}", elapsed_s=f"{time.perf_counter() - t_start:.1f}")
     _breakdown(cg, state, gen)
@@ -737,7 +1017,7 @@ def main() -> int:
     cfg = NUTSConfig()
     pot_f = state_f.potential
     cov = pot_f.cov[0].contiguous()
-    linv = torch.linalg.solve_triangular(pot_f.chol[0], torch.eye(N, device="cuda"),
+    linv = torch.linalg.solve_triangular(pot_f.chol[0], torch.eye(N, device=DEVICE),
                                          upper=False)
     da = state_f.da
     fargs = (state_f.q, state_f.q_grad, state_f.logp, state_f.iter_count.float(),
@@ -760,30 +1040,80 @@ def main() -> int:
     pot_d = state_d.potential
     dargs = (state_d.q, pot_d.sample_momentum(gen), state_d.q_grad, state_d.logp,
              torch.exp(state_d.da.log_bar),
-             torch.full((CHAINS,), DEPTH, dtype=torch.int32, device="cuda"),
+             torch.full((CHAINS,), DEPTH, dtype=torch.int32, device=DEVICE),
              pot_d.cov[0].contiguous())
     dkw = dict(kw, metric="dense")
     dout = trajectory(*dargs, (3, 8), **dkw)
     d_leaves = int(dout["n_leaves"].sum())
-    d_ms = _cuda_time_ms(lambda: trajectory(*dargs, (3, 8), **dkw), reps=20, warmup=3)
+    d_events_ms = _cuda_time_ms(lambda: trajectory(*dargs, (3, 8), **dkw), reps=20, warmup=3)
+    d_ms, d_src = _device_ms(lambda: trajectory(*dargs, (3, 8), **dkw), "nuts_trajectory", 20,
+                             d_events_ms)
     d_plain_ms = _cuda_time_ms(lambda: trajectory_plain(*dargs, (3, 8), **dkw), reps=1,
                                warmup=0)
     d_bound_ms, d_bound_by = _bound_ms(d_leaves, CHAINS, N, "dense")
-    _line(phase="dense_timing", kernel_ms=f"{d_ms:.4f}", plain_ms=f"{d_plain_ms:.1f}",
+    _line(phase="dense_timing", kernel_ms=f"{d_ms:.4f}", ms_source=d_src,
+          events_ms=f"{d_events_ms:.4f}", plain_ms=f"{d_plain_ms:.1f}",
           bound_ms=f"{d_bound_ms:.4f}", bound_by=d_bound_by,
           mean_leaves=f"{d_leaves / CHAINS:.2f}", elapsed_s=f"{time.perf_counter() - t_start:.1f}")
 
+    # 4c. the HMC trajectory kernel at 3d's final state, step counts drawn
+    # as the sampler draws them
+    pot_h = state_h.potential
+    eps_h = torch.exp(state_h.da.log_bar)
+    path = torch.rand(CHAINS, generator=gen, device=DEVICE) * 2.0
+    hargs = (state_h.q, pot_h.sample_momentum(gen), state_h.q_grad, state_h.logp, eps_h,
+             torch.clamp((path / eps_h).to(torch.int32), 1, 1024), pot_h.var.contiguous())
+    hkw = dict(spec=cg.trajectory_spec(), Emax=1000.0)
+    h_steps = int(hargs[5].sum())
+    h_events_ms = _cuda_time_ms(lambda: hmc_trajectory(*hargs, (3, 8), **hkw), reps=50,
+                                warmup=3)
+    h_ms, h_src = _device_ms(lambda: hmc_trajectory(*hargs, (3, 8), **hkw), "hmc_trajectory",
+                             50, h_events_ms)
+    h_plain_ms = _cuda_time_ms(lambda: hmc_trajectory_plain(*hargs, (3, 8), **hkw), reps=1,
+                               warmup=0)
+    h_bound_ms, h_bound_by = _hmc_bound_ms(h_steps, CHAINS, N)
+    _line(phase="hmc_timing", kernel_ms=f"{h_ms:.4f}", ms_source=h_src,
+          events_ms=f"{h_events_ms:.4f}", plain_ms=f"{h_plain_ms:.2f}",
+          bound_ms=f"{h_bound_ms:.5f}", bound_by=h_bound_by,
+          mean_n_steps=f"{h_steps / CHAINS:.2f}", max_n_steps=int(hargs[5].max()),
+          elapsed_s=f"{time.perf_counter() - t_start:.1f}")
+    _breakdown(cg, state_h, gen, step="hmc")
+
+    # 4d. the fused HMC kernel at 3e's final state: one 250-draw chunk
+    pot_hf = state_hf.potential
+    cov_h = pot_hf.cov[0].contiguous()
+    linv_h = torch.linalg.solve_triangular(pot_hf.chol[0], torch.eye(N, device=DEVICE),
+                                           upper=False)
+    da_h = state_hf.da
+    fhargs = (state_hf.q, state_hf.q_grad, state_hf.logp, state_hf.iter_count.float(),
+              da_h.log_step, da_h.log_bar, da_h.hbar, da_h.count.float(), da_h.mu, cov_h, linv_h)
+    fhkw = dict(spec=cg.trajectory_spec(), T=250, tuning=False, config=HMCConfig(),
+                chain_block=CHAIN_BLOCK)
+    fhout = fused_hmc(*fhargs, (5, 9), **fhkw)
+    fh_steps = int(fhout["n_steps"].sum())
+    fh_ms = _cuda_time_ms(lambda: fused_hmc(*fhargs, (5, 9), **fhkw), reps=3, warmup=0)
+    fh_chunk_bound_ms, fh_chunk_bound_by = _fused_hmc_bound_ms(fh_steps, CHAINS, N, 250, False)
+    _line(phase="fused_hmc_timing", chunk_draws=250, kernel_ms=f"{fh_ms:.4f}",
+          ms_per_draw=f"{fh_ms / 250:.5f}", bound_ms=f"{fh_chunk_bound_ms:.4f}",
+          bound_by=fh_chunk_bound_by, mean_n_steps=f"{fh_steps / CHAINS / 250:.3f}",
+          max_n_steps=int(fhout["n_steps"].max()),
+          plain_ms_4_draws=f"{fh_cmp[1]:.1f}", kernel_ms_4_draws=f"{fh_cmp[0]:.4f}")
+    _fused_path_breakdown(cg, step="hmc")
+
     traj_src = "littlemcmc_torch/ops/csrc/nuts_trajectory.cu"
     traj_tpu = "littlemcmc_tpu/ops/nuts_trajectory_pallas.py:1023"
-    # no single PyTorch call computes a NUTS transition: library_ms is null
+    # no single PyTorch call computes a NUTS or an HMC transition:
+    # library_ms is null. ms: the kernel's device time per launch
+    # (_device_ms); events_ms: CUDA events around back-to-back calls of its
+    # wrapper, which also count the card waiting for the host
     print(json.dumps({"kernels": [
         {"name": "nuts_trajectory", "metric": "diag", "route": "cuda", "source": traj_src,
          "replaces": traj_tpu, "launches": launches, "max_abs_err": max_abs_err,
-         "ms": kernel_ms, "plain_ms": plain_ms, "bound_ms": bound_ms, "bound_by": bound_by,
-         "library_ms": None},
+         "ms": kernel_ms, "events_ms": events_ms, "plain_ms": plain_ms, "bound_ms": bound_ms,
+         "bound_by": bound_by, "library_ms": None},
         {"name": "nuts_trajectory", "metric": "dense", "route": "cuda", "source": traj_src,
          "replaces": traj_tpu, "launches": dense_launches, "max_abs_err": dense_err,
-         "ms": d_ms, "plain_ms": d_plain_ms, "bound_ms": d_bound_ms,
+         "ms": d_ms, "events_ms": d_events_ms, "plain_ms": d_plain_ms, "bound_ms": d_bound_ms,
          "bound_by": d_bound_by, "library_ms": None},
         # ms, plain_ms and bound_ms: one 4-draw launch of 1024 chains on
         # phase 2c's draw-chunk input; chunk_*: one 250-draw launch at
@@ -792,9 +1122,27 @@ def main() -> int:
          "source": "littlemcmc_torch/ops/csrc/fused_nuts.cu",
          "replaces": "littlemcmc_tpu/ops/fused_nuts_pallas.py:978",
          "launches": fused_launches, "max_abs_err": fused_err, "ms": fused_cmp[0],
-         "draws": 4, "plain_ms": fused_cmp[1], "bound_ms": cmp_bound_ms,
+         "events_ms": fused_cmp[4], "draws": 4, "plain_ms": fused_cmp[1],
+         "bound_ms": cmp_bound_ms,
          "bound_by": cmp_bound_by, "library_ms": None, "chunk_draws": 250,
          "chunk_ms": f_ms, "chunk_bound_ms": f_bound_ms, "chunk_bound_by": f_bound_by},
+        # ms, plain_ms and bound_ms: one launch at 3d's final state
+        {"name": "hmc_trajectory", "metric": "diag", "route": "cuda",
+         "source": "littlemcmc_torch/ops/csrc/hmc_trajectory.cu",
+         "replaces": "littlemcmc_tpu/ops/hmc_trajectory_pallas.py:273",
+         "launches": hmc_launches, "max_abs_err": hmc_err, "ms": h_ms,
+         "events_ms": h_events_ms, "plain_ms": h_plain_ms, "bound_ms": h_bound_ms,
+         "bound_by": h_bound_by, "library_ms": None},
+        # as fused_nuts: one 4-draw launch on phase 2e's draw-chunk input;
+        # chunk_*: one 250-draw launch at 3e's final state
+        {"name": "fused_hmc", "metric": "dense", "route": "cuda",
+         "source": "littlemcmc_torch/ops/csrc/fused_hmc.cu",
+         "replaces": "littlemcmc_tpu/ops/fused_hmc_pallas.py:511",
+         "launches": fh_launches, "max_abs_err": fh_err, "ms": fh_cmp[0],
+         "events_ms": fh_cmp[4], "draws": 4, "plain_ms": fh_cmp[1], "bound_ms": fh_bound_ms,
+         "bound_by": fh_bound_by,
+         "library_ms": None, "chunk_draws": 250, "chunk_ms": fh_ms,
+         "chunk_bound_ms": fh_chunk_bound_ms, "chunk_bound_by": fh_chunk_bound_by},
     ]}), flush=True)
     _line(phase="done", elapsed_s=f"{time.perf_counter() - t_start:.1f}")
     print(smi, flush=True)

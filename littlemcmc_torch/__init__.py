@@ -1,25 +1,28 @@
 """littlemcmc_torch: the PyTorch and CUDA port of littlemcmc_tpu.
 
-NUTS for many chains at once on one NVIDIA Hopper card. Each draw
-launches one hand-written CUDA kernel that builds every chain's whole
-trajectory with the model inlined (:mod:`littlemcmc_torch.ops`). Entry
+NUTS and classic HMC for many chains at once on one NVIDIA Hopper card,
+through hand-written CUDA kernels that run every chain's whole trajectory
+with the model inlined, one draw per launch or a chunk of draws per launch
+(:mod:`littlemcmc_torch.ops`). Entry
 points run on the CUDA device unless the caller passes ``device="cpu"``,
 which runs the kernels' plain PyTorch versions.
 
 This package imports PyTorch, numpy and the standard library only.
 """
 
-from .base import ChainState, NUTSConfig
+from .base import ChainState, HMCConfig, NUTSConfig
 from .exceptions import IntegrationError, ParallelSamplingError, SamplingError
 from .quadpotential import QuadPotentialDiag, QuadPotentialDiagAdapt
 from .report import SamplerWarning, WarningType
-from .sampling import NUTS, init_nuts, sample
+from .sampling import NUTS, HamiltonianMC, init_nuts, sample
 
 __all__ = [
     "sample",
     "init_nuts",
     "NUTS",
+    "HamiltonianMC",
     "NUTSConfig",
+    "HMCConfig",
     "ChainState",
     "QuadPotentialDiag",
     "QuadPotentialDiagAdapt",

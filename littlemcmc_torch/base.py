@@ -1,4 +1,4 @@
-"""Shared HMC machinery: the NUTS config and the chain-batched sampler state.
+"""Shared HMC machinery: the NUTS and HMC configs and the chain-batched state.
 
 Counterpart of ``littlemcmc_tpu/base.py:27-154``. ``ChainState`` holds
 every chain at once: ``(C, n)`` positions and gradients, ``(C,)`` log
@@ -16,15 +16,15 @@ import torch
 
 from .step_sizes import DualAverageState, dual_average_init, dual_average_update
 
-__all__ = ["NUTSConfig", "ChainState", "init_chain_state", "finish_step",
+__all__ = ["NUTSConfig", "HMCConfig", "ChainState", "init_chain_state", "finish_step",
            "pooled_tune_schedule"]
 
 BatchedLogpGrad = Callable[[torch.Tensor], Tuple[torch.Tensor, torch.Tensor]]
 
 
 @dataclasses.dataclass(frozen=True)
-class NUTSConfig:
-    """NUTS options (defaults from reference ``nuts.py:103-120``)."""
+class _BaseConfig:
+    """Options both step methods share (defaults from reference ``nuts.py:110-120``)."""
 
     target_accept: float = 0.8
     Emax: float = 1000.0
@@ -35,12 +35,26 @@ class NUTSConfig:
     t0: float = 10.0
     # "leapfrog" (reference parity), "two_stage" or "three_stage"
     integrator: str = "leapfrog"
-    # chains per trajectory-kernel thread block (0: the GPU default)
+    # chains per kernel block (0: the step method's default)
     chain_block: int = 0
+
+
+@dataclasses.dataclass(frozen=True)
+class NUTSConfig(_BaseConfig):
+    """NUTS options (defaults from reference ``nuts.py:103-120``)."""
+
     max_treedepth: int = 10
     early_max_treedepth: int = 8
     # tuning iterations that use early_max_treedepth (reference nuts.py:205)
     early_window: int = 200
+
+
+@dataclasses.dataclass(frozen=True)
+class HMCConfig(_BaseConfig):
+    """Classic HMC options (reference ``hmc.py:52-68``)."""
+
+    path_length: float = 2.0
+    max_steps: int = 1024
 
 
 @dataclasses.dataclass(frozen=True)
@@ -55,7 +69,7 @@ class ChainState:
     iter_count: torch.Tensor  # (C,) int32
 
 
-def init_chain_state(q0: torch.Tensor, potential, config: NUTSConfig,
+def init_chain_state(q0: torch.Tensor, potential, config: _BaseConfig,
                      logp_grad_fn: BatchedLogpGrad) -> ChainState:
     """Start every chain at its row of ``q0`` (``(C, n)``).
 
@@ -74,7 +88,7 @@ def init_chain_state(q0: torch.Tensor, potential, config: NUTSConfig,
 def finish_step(state: ChainState, proposal_q: torch.Tensor,
                 proposal_grad: torch.Tensor, proposal_logp: torch.Tensor,
                 accept_stat: torch.Tensor, tuning: bool,
-                config: NUTSConfig) -> ChainState:
+                config: _BaseConfig) -> ChainState:
     """Adaptation updates after one transition (reference ``base_hmc.py:161-162``)."""
     da = dual_average_update(state.da, accept_stat, tuning and config.adapt_step_size,
                              target=config.target_accept, gamma=config.gamma,

@@ -246,7 +246,7 @@ def build_fused_nuts_runner_factory(config: NUTSConfig, trajectory_spec: Traject
         raise NotImplementedError(
             "the fused kernel of littlemcmc_torch runs a static dense metric or a "
             "cross-chain pooled adaptive dense metric; its per-chain diag and "
-            "low-rank branches are ROADMAP Queue 2 items 1 and 3")
+            "low-rank branches are ROADMAP Queue 2 item 10 and Queue 1 item 12")
     if trajectory_spec is None:
         raise NotImplementedError(_NO_TREE)
     mult = potential_template.window_multiplier if dense_pooled else 1.0

@@ -18,9 +18,9 @@ import shutil
 import subprocess
 import tempfile
 from pathlib import Path
-from typing import Dict
+from typing import Dict, Optional, Sequence
 
-__all__ = ["build_all", "load_library", "BUILD_FLAGS"]
+__all__ = ["build_all", "load_library", "launch", "BUILD_FLAGS"]
 
 _CSRC = Path(__file__).resolve().parent / "csrc"
 _BUILD_ROOT = Path(__file__).resolve().parents[2] / "build" / "littlemcmc_torch"
@@ -104,9 +104,17 @@ _SIGNATURES = {
                  _P]),                        # stream
         "cuda_error_string": (ctypes.c_char_p, [_I]),
     },
+    # pointers, ints, floats (each module's _PTRS, _INTS, _FLOATS), stream
     "fused_nuts": {
-        # pointers, ints, floats (ops/fused_nuts.py: _PTRS, _INTS, _FLOATS), stream
         "fused_nuts_launch": (_I, [_P, _P, _P, _P]),
+        "cuda_error_string": (ctypes.c_char_p, [_I]),
+    },
+    "hmc_trajectory": {
+        "hmc_trajectory_launch": (_I, [_P, _P, _P, _P]),
+        "cuda_error_string": (ctypes.c_char_p, [_I]),
+    },
+    "fused_hmc": {
+        "fused_hmc_launch": (_I, [_P, _P, _P, _P]),
         "cuda_error_string": (ctypes.c_char_p, [_I]),
     },
 }
@@ -121,3 +129,22 @@ def load_library(name: str = "nuts_trajectory") -> ctypes.CDLL:
         f.restype = restype
         f.argtypes = argtypes
     return lib
+
+
+def launch(name: str, ptrs: Sequence[Optional[int]], ints: Sequence[int],
+           floats: Sequence[float], device) -> None:
+    """Call ``{name}_launch(ptrs, ints, floats, stream)`` of the library
+    ``name`` on ``device``'s current stream: device pointers (None for
+    null), C ints and C floats, in the orders the kernel's source declares.
+    Raises on a CUDA error."""
+    import torch
+
+    lib = load_library(name)
+    args = [(ctypes.c_void_p * len(ptrs))(*ptrs), (ctypes.c_int * len(ints))(*ints),
+            (ctypes.c_float * len(floats))(*floats)]
+    with torch.cuda.device(device):
+        stream = torch.cuda.current_stream(device).cuda_stream
+        err = getattr(lib, f"{name}_launch")(*(ctypes.cast(a, _P) for a in args), stream)
+    if err != 0:
+        raise RuntimeError(f"{name} kernel launch failed: CUDA error {err} "
+                           f"({lib.cuda_error_string(err).decode()})")

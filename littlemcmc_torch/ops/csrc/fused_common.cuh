@@ -1,0 +1,130 @@
+// Device helpers the fused multi-draw kernels share (fused_nuts.cu and
+// fused_hmc.cu): the dense momentum, dual averaging, and the block-local
+// pooled dense Welford state.
+//
+// Counterparts of the JAX fused kernels' helpers in
+// littlemcmc_tpu/ops/fused_nuts_pallas.py, which fused_hmc_pallas.py
+// imports from there: _boxmuller_std (:134) with _dense_momentum (:154),
+// _da_update_cols (:399), _dense_welford_batch_add (:246) and
+// _dense_welford_swap_and_count (:267).
+
+#pragma once
+
+#include "nuts_transition.cuh"
+
+namespace lmc {
+
+constexpr float kTwoPi = 6.283185307179586f;
+
+// The momentum p = z @ L^-1 of the chain of warp w: z are the Box-Muller
+// normals of calls 1 and 2 of the row stream with base word mbase (the
+// draw's seed word plus the kernel's stream offset) and lanes
+// lane_r = w * Npad + col (nuts_trajectory_pallas.py:354-358). z and p are
+// vectors of length n in shared memory.
+__device__ __forceinline__ void dense_momentum(uint32_t mbase, uint32_t s1u, int w, int Npad,
+                                               const float* linv, float* z, float* p, int n,
+                                               int lane) {
+    for (int i = lane; i < n; i += 32) {
+        const uint32_t lane_r = (uint32_t)w * (uint32_t)Npad + (uint32_t)i;
+        const uint32_t salt_row = fmix32((mbase + lane_r * 65063u + 17u) ^ s1u);
+        const float u1 = counter_uniform(salt_row, 1u);
+        const float u2 = counter_uniform(salt_row, 2u);
+        z[i] = sqrtf(-2.0f * logf(u1)) * cosf(kTwoPi * u2);
+    }
+    matvec(z, linv, p, n, lane);
+}
+
+// One chain's dual-averaging state (reference step_sizes.py:85-92), the
+// same bits in every lane of its warp.
+struct DualAverage {
+    float log_step, log_bar, hbar, count, mu;
+
+    __device__ __forceinline__ void update(float accept, float target, float gamma, float k,
+                                           float t0) {
+        const float wgt = 1.0f / (count + t0);
+        hbar = (1.0f - wgt) * hbar + wgt * (target - accept);
+        log_step = mu - hbar * sqrtf(count) / gamma;
+        const float mk = expf(-k * logf(count));
+        log_bar = mk * log_step + (1.0f - mk) * log_bar;
+        count = count + 1.0f;
+    }
+};
+
+// The pooled dense Welford state of one chain block: both windows and the
+// shared counters. Its weights and counters are these five floats, the
+// same in every thread of the block; the means and the adds' scratch sit
+// in 5n floats of shared memory `sh` ([fg mean, bg mean, batch mean, fg
+// shift, bg shift] x n), the raw scatters (n x n each) in the block's
+// slice of the per-block outputs, which the wrapper seeds with 1/B of the
+// global state. The pointers are passed to each call, not kept, so that
+// they cost no registers across the draws.
+struct BlockWelford {
+    float wf, wb, ns, pu, win;
+
+    // From seed = [fg mean (n), bg mean (n), fg weight / B, bg weight / B,
+    // n_samples, prev_update, window].
+    __device__ void load(float* sh, const float* seed, int n, int tid, int nthreads) {
+        for (int i = tid; i < n; i += nthreads) { sh[i] = seed[i]; sh[n + i] = seed[n + i]; }
+        wf = seed[2 * n]; wb = seed[2 * n + 1];
+        ns = seed[2 * n + 2]; pu = seed[2 * n + 3]; win = seed[2 * n + 4];
+    }
+
+    // Chan-combine the block's cb new positions X ([cb][n], shared memory)
+    // into both windows (raw scatters fgr and bgr), then the shared window
+    // swap. Every thread of the block calls it.
+    __device__ void add_and_swap(const float* X, float* sh, float* fgr, float* bgr, int cb,
+                                 int n, float mult, int tid, int nthreads) {
+        float *fgm = sh, *bgm = sh + n, *xm = sh + 2 * n, *dfg = sh + 3 * n, *dbg = sh + 4 * n;
+        __syncthreads();  // every chain's new position is in X
+        const float cbf = (float)cb;
+        const float wf_n = wf + cbf, wb_n = wb + cbf;
+        for (int i = tid; i < n; i += nthreads) {
+            float s = 0.f;
+            for (int r = 0; r < cb; ++r) s += X[(size_t)r * n + i];
+            const float xmi = s * (1.0f / cbf);
+            xm[i] = xmi;
+            const float df = xmi - fgm[i], db = xmi - bgm[i];
+            dfg[i] = df;
+            dbg[i] = db;
+            fgm[i] = fgm[i] + df * (cbf / wf_n);
+            bgm[i] = bgm[i] + db * (cbf / wb_n);
+        }
+        __syncthreads();
+        const float cf = wf * cbf / wf_n, cg = wb * cbf / wb_n;
+        for (int e = tid; e < n * n; e += nthreads) {
+            const int i = e / n, j = e - i * n;
+            float rb = 0.f;
+            for (int r = 0; r < cb; ++r) {
+                const float* x = X + (size_t)r * n;
+                rb += (x[i] - xm[i]) * (x[j] - xm[j]);
+            }
+            fgr[e] = (fgr[e] + rb) + cf * (dfg[i] * dfg[j]);
+            bgr[e] = (bgr[e] + rb) + cg * (dbg[i] * dbg[j]);
+        }
+        wf = wf_n;
+        wb = wb_n;
+        if (ns - pu >= win) {  // the same decision in every thread
+            for (int e = tid; e < n * n; e += nthreads) { fgr[e] = bgr[e]; bgr[e] = 0.f; }
+            for (int i = tid; i < n; i += nthreads) { fgm[i] = bgm[i]; bgm[i] = 0.f; }
+            wf = wb;
+            wb = 0.f;
+            pu = ns;
+            win = floorf(win * mult);
+        }
+        ns = ns + 1.0f;
+    }
+
+    // The block's means into rows of the (B, n) outputs and its weights and
+    // counters into wout[0..7].
+    __device__ void store(const float* sh, float* fg_mean, float* bg_mean, float* wout, int n,
+                          int tid, int nthreads) const {
+        __syncthreads();
+        for (int i = tid; i < n; i += nthreads) { fg_mean[i] = sh[i]; bg_mean[i] = sh[n + i]; }
+        if (tid == 0) {
+            wout[0] = wf; wout[1] = wb; wout[2] = ns; wout[3] = pu; wout[4] = win;
+            wout[5] = 0.f; wout[6] = 0.f; wout[7] = 0.f;
+        }
+    }
+};
+
+}  // namespace lmc

@@ -45,8 +45,12 @@
 // the trace and stats written once to device memory. The design keeps the
 // state on chip across the T draws, so device memory sees only the trace.
 //
+// The dense momentum, dual averaging and the block Welford state are the
+// helpers of fused_common.cuh, which the fused HMC kernel shares.
+//
 // Build: as nuts_trajectory.cu (-fmad=false, fmaf explicit in the matvecs).
 
+#include "fused_common.cuh"
 #include "nuts_transition.cuh"
 
 namespace {
@@ -72,8 +76,6 @@ enum {
 enum { sLogp, sIter, sLogStep, sLogBar, sHbar, sCount, sMu, kNumScal = 8 };
 // per-draw f32 stats, each (T, C)
 enum { oEnergy, oLogp, oEnergyErr, oAccept, oStep, oStepBar, oMaxErr, kNumStatF };
-
-constexpr float kTwoPi = 6.283185307179586f;
 
 struct Args {
     const float* ptr_f[kNumPtrs];
@@ -109,12 +111,8 @@ __global__ void __launch_bounds__(32 * kMaxChainBlock) fused_nuts_kernel(Args A)
     float* qs = warp_vec(smem, 16, cb, w, n);
     float* gs = warp_vec(smem, 17, cb, w, n);
     float* slot_sc = smem + (size_t)18 * cb * n;
-    float* fgm = slot_sc + (size_t)4 * D * cb;
-    float* bgm = fgm + n;
-    float* xm = fgm + 2 * n;
-    float* dfg = fgm + 3 * n;
-    float* dbg = fgm + 4 * n;
-    float* after = fgm + 5 * n;
+    float* wel_sh = slot_sc + (size_t)4 * D * cb;
+    float* after = wel_sh + 5 * n;
 
     TreeConsts T;
     T.lam = A.ptr_f[kConsts]; T.cov = A.ptr_f[kCov];
@@ -139,23 +137,12 @@ __global__ void __launch_bounds__(32 * kMaxChainBlock) fused_nuts_kernel(Args A)
         gs[i] = A.ptr_f[kG][(size_t)chain * n + i];
     }
     const float* sc = A.ptr_f[kScal] + (size_t)chain * kNumScal;
-    float lp = sc[sLogp], iter = sc[sIter], log_step = sc[sLogStep], log_bar = sc[sLogBar];
-    float hbar = sc[sHbar], count = sc[sCount];
-    const float mu = sc[sMu];
+    float lp = sc[sLogp], iter = sc[sIter];
+    DualAverage da{sc[sLogStep], sc[sLogBar], sc[sHbar], sc[sCount], sc[sMu]};
 
-    // the block-local pooled Welford state (adapt_dense): the seed is the
-    // global state's means, 1/B of its weights, and the shared counters
-    float* fgr = nullptr;
-    float* bgr = nullptr;
-    float wf = 0.f, wb = 0.f, ns = 0.f, pu = 0.f, win = 0.f;
-    if (A.adapt_dense) {
-        const float* seed = A.ptr_f[kWSeed];
-        for (int i = tid; i < n; i += nthreads) { fgm[i] = seed[i]; bgm[i] = seed[n + i]; }
-        wf = seed[2 * n]; wb = seed[2 * n + 1];
-        ns = seed[2 * n + 2]; pu = seed[2 * n + 3]; win = seed[2 * n + 4];
-        fgr = const_cast<float*>(A.ptr_f[kFgRaw]) + (size_t)blk * n * n;
-        bgr = const_cast<float*>(A.ptr_f[kBgRaw]) + (size_t)blk * n * n;
-    }
+    // the block-local pooled Welford state (adapt_dense)
+    BlockWelford wel;
+    if (A.adapt_dense) wel.load(wel_sh, A.ptr_f[kWSeed], n, tid, nthreads);
     __syncthreads();  // P, COV and the Welford means are in shared memory
 
     const uint32_t s1u = A.seed1 * kGolden;
@@ -169,22 +156,14 @@ __global__ void __launch_bounds__(32 * kMaxChainBlock) fused_nuts_kernel(Args A)
         const uint32_t seed0 = A.seed0 + (uint32_t)blk * 7919u + (uint32_t)t * 15485863u;
 
         // 1-2. momentum: Box-Muller normals, then p = z @ L^-1
-        const uint32_t mbase = seed0 + 1013904223u;
-        for (int i = lane; i < n; i += 32) {
-            const uint32_t lane_r = (uint32_t)w * (uint32_t)A.Npad + (uint32_t)i;
-            const uint32_t salt_row = fmix32((mbase + lane_r * 65063u + 17u) ^ s1u);
-            const float u1 = counter_uniform(salt_row, 1u);
-            const float u2 = counter_uniform(salt_row, 2u);
-            V.va[i] = sqrtf(-2.0f * logf(u1)) * cosf(kTwoPi * u2);
-        }
-        matvec(V.va, linv, V.vb, n, lane);
+        dense_momentum(seed0 + 1013904223u, s1u, w, A.Npad, linv, V.va, V.vb, n, lane);
         // 3. start energy
         matvec(V.vb, T.cov, V.vc, n, lane);
         float part = 0.f;
         for (int i = lane; i < n; i += 32) part += V.vb[i] * V.vc[i];
         const float E0 = 0.5f * warp_sum(part) - lp;
         // 4. step size and depth cap
-        const float eps = expf(A.adapting ? log_step : log_bar);
+        const float eps = expf(A.adapting ? da.log_step : da.log_bar);
         const int mdc = (A.tuning && iter < (float)A.early_window) ? A.early_max : A.max_depth;
         // 5. the transition, on the stream salted with seed0
         const uint32_t salt = fmix32((seed0 + (uint32_t)w * 101027u) ^ s1u);
@@ -195,14 +174,7 @@ __global__ void __launch_bounds__(32 * kMaxChainBlock) fused_nuts_kernel(Args A)
         // 7. mean tree accept and dual averaging (step_sizes.py:85-92)
         const float ls = r.log_size;
         const float mta = ls > 0.f ? expf(r.lwas - (ls + log1mexp_fused(ls))) : 0.f;
-        if (A.adapting) {
-            const float wgt = 1.0f / (count + A.t0);
-            hbar = (1.0f - wgt) * hbar + wgt * (A.target - mta);
-            log_step = mu - hbar * sqrtf(count) / A.gamma;
-            const float mk = expf(-A.k * logf(count));
-            log_bar = mk * log_step + (1.0f - mk) * log_bar;
-            count = count + 1.0f;
-        }
+        if (A.adapting) da.update(mta, A.target, A.gamma, A.k, A.t0);
         // advance the chain
         iter = iter + 1.0f;
         lp = r.pr_lp;
@@ -219,8 +191,8 @@ __global__ void __launch_bounds__(32 * kMaxChainBlock) fused_nuts_kernel(Args A)
             stf[oLogp * TC + o] = r.pr_lp;
             stf[oEnergyErr * TC + o] = r.pr_e - E0;
             stf[oAccept * TC + o] = mta;
-            stf[oStep * TC + o] = expf(log_step);
-            stf[oStepBar * TC + o] = expf(log_bar);
+            stf[oStep * TC + o] = expf(da.log_step);
+            stf[oStepBar * TC + o] = expf(da.log_bar);
             stf[oMaxErr * TC + o] = r.mec;
             sti[o] = r.depth;
             sti[TC + o] = r.n_leaves;
@@ -229,45 +201,11 @@ __global__ void __launch_bounds__(32 * kMaxChainBlock) fused_nuts_kernel(Args A)
         }
         // 8. the block-local pooled Welford adds (_dense_welford_batch_add
         // :246, both windows) and the shared swap (:267)
-        if (A.adapt_dense) {
-            __syncthreads();  // every chain's new q is in shared memory
-            const float cbf = (float)cb;
-            const float wf_n = wf + cbf, wb_n = wb + cbf;
-            for (int i = tid; i < n; i += nthreads) {
-                float s = 0.f;
-                for (int r2 = 0; r2 < cb; ++r2) s += warp_vec(smem, 16, cb, r2, n)[i];
-                const float xmi = s * (1.0f / cbf);
-                xm[i] = xmi;
-                const float df = xmi - fgm[i], db = xmi - bgm[i];
-                dfg[i] = df;
-                dbg[i] = db;
-                fgm[i] = fgm[i] + df * (cbf / wf_n);
-                bgm[i] = bgm[i] + db * (cbf / wb_n);
-            }
-            __syncthreads();
-            const float cf = wf * cbf / wf_n, cg2 = wb * cbf / wb_n;
-            for (int e = tid; e < n * n; e += nthreads) {
-                const int i = e / n, j = e - i * n;
-                float rb = 0.f;
-                for (int r2 = 0; r2 < cb; ++r2) {
-                    const float* x = warp_vec(smem, 16, cb, r2, n);
-                    rb += (x[i] - xm[i]) * (x[j] - xm[j]);
-                }
-                fgr[e] = (fgr[e] + rb) + cf * (dfg[i] * dfg[j]);
-                bgr[e] = (bgr[e] + rb) + cg2 * (dbg[i] * dbg[j]);
-            }
-            wf = wf_n;
-            wb = wb_n;
-            if (ns - pu >= win) {  // the same decision in every thread
-                for (int e = tid; e < n * n; e += nthreads) { fgr[e] = bgr[e]; bgr[e] = 0.f; }
-                for (int i = tid; i < n; i += nthreads) { fgm[i] = bgm[i]; bgm[i] = 0.f; }
-                wf = wb;
-                wb = 0.f;
-                pu = ns;
-                win = floorf(win * A.mult);
-            }
-            ns = ns + 1.0f;
-        }
+        if (A.adapt_dense)
+            wel.add_and_swap(warp_vec(smem, 16, cb, 0, n), wel_sh,
+                             const_cast<float*>(A.ptr_f[kFgRaw]) + (size_t)blk * n * n,
+                             const_cast<float*>(A.ptr_f[kBgRaw]) + (size_t)blk * n * n, cb, n,
+                             A.mult, tid, nthreads);
     }
 
     // the final state
@@ -277,20 +215,13 @@ __global__ void __launch_bounds__(32 * kMaxChainBlock) fused_nuts_kernel(Args A)
     }
     if (lane == 0) {
         float* so = const_cast<float*>(A.ptr_f[kScalOut]) + (size_t)chain * kNumScal;
-        so[sLogp] = lp; so[sIter] = iter; so[sLogStep] = log_step; so[sLogBar] = log_bar;
-        so[sHbar] = hbar; so[sCount] = count; so[sMu] = mu; so[kNumScal - 1] = 0.f;
+        so[sLogp] = lp; so[sIter] = iter; so[sLogStep] = da.log_step; so[sLogBar] = da.log_bar;
+        so[sHbar] = da.hbar; so[sCount] = da.count; so[sMu] = da.mu; so[kNumScal - 1] = 0.f;
     }
-    if (A.adapt_dense) {
-        __syncthreads();
-        float* om = const_cast<float*>(A.ptr_f[kFgMean]) + (size_t)blk * n;
-        float* obm = const_cast<float*>(A.ptr_f[kBgMean]) + (size_t)blk * n;
-        for (int i = tid; i < n; i += nthreads) { om[i] = fgm[i]; obm[i] = bgm[i]; }
-        if (tid == 0) {
-            float* wo = const_cast<float*>(A.ptr_f[kWOut]) + (size_t)blk * 8;
-            wo[0] = wf; wo[1] = wb; wo[2] = ns; wo[3] = pu; wo[4] = win;
-            wo[5] = 0.f; wo[6] = 0.f; wo[7] = 0.f;
-        }
-    }
+    if (A.adapt_dense)
+        wel.store(wel_sh, const_cast<float*>(A.ptr_f[kFgMean]) + (size_t)blk * n,
+                  const_cast<float*>(A.ptr_f[kBgMean]) + (size_t)blk * n,
+                  const_cast<float*>(A.ptr_f[kWOut]) + (size_t)blk * 8, n, tid, nthreads);
 }
 
 // 227 KB per block on Hopper, less room for the static shared int

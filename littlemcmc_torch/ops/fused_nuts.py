@@ -36,7 +36,6 @@ stream salted ``seed0 + 1013904223`` with per-element lanes
 
 from __future__ import annotations
 
-import ctypes
 import math
 from typing import Dict, Optional, Sequence, Tuple
 
@@ -47,7 +46,7 @@ from ..math import fp32_matmul, round_up
 from .nuts_trajectory import (BODY_IDS, DEFAULT_CHAIN_BLOCK, MAX_KERNEL_CHAIN_BLOCK,
                               MAX_KERNEL_NDIM_DENSE, TrajectorySpec, _M32, _GOLDEN,
                               _rowdot, _seed_words, block_uniform, body_logp_grad,
-                              counter_uniform, fmix32, metric_velocity,
+                              counter_uniform, fmix32, int32_bits, metric_velocity,
                               resolve_chain_block, transition_block)
 
 __all__ = ["fused_nuts", "fused_nuts_plain", "combine_dense_welford", "padded_dim",
@@ -65,11 +64,15 @@ _STAT_F32 = STAT_KEYS[:7]  # order of the kernel's f32 stats
 # the per-chain scalar state, columns of the kernel's (C, 8) in/out
 _SCALARS = ("logp", "iter_count", "da_log_step", "da_log_bar", "da_hbar", "da_count",
             "da_mu")
+# the block Welford state's per-block outputs, (B, ...) each
+_WELFORD_KEYS = ("dense_fg_mean", "dense_fg_raw", "dense_fg_w", "dense_bg_mean",
+                 "dense_bg_raw", "dense_bg_w")
+_WELFORD_PTRS = ("welford_seed", "dense_fg_mean", "dense_fg_raw", "dense_bg_mean",
+                 "dense_bg_raw", "welford_out")
 # the kernel's pointer, int and float arguments, in the order of
 # csrc/fused_nuts.cu
 _PTRS = ("q", "grad", "scal", "cov", "linv", "consts", "stack", "q_out", "grad_out",
-         "scal_out", "trace", "stat_f", "stat_i", "stat_b", "welford_seed",
-         "dense_fg_mean", "dense_fg_raw", "dense_bg_mean", "dense_bg_raw", "welford_out")
+         "scal_out", "trace", "stat_f", "stat_i", "stat_b") + _WELFORD_PTRS
 _INTS = ("C", "n", "D", "T", "cb", "n_stages", "body", "tuning", "adapting",
          "adapt_dense", "early_window", "early_max", "max_depth", "seed0", "seed1", "Npad")
 _FLOATS = ("Emax", "b0", "b1", "b2", "b3", "a0", "a1", "a2", "target_accept", "gamma",
@@ -88,16 +91,17 @@ def padded_dim(n: int) -> int:
 # --------------------------------------------------------------------------
 
 def dense_momentum(seed0: int, seed1: int, block_id: int, rows: int,
-                   linv: torch.Tensor) -> torch.Tensor:
+                   linv: torch.Tensor, offset: int = _MOMENTUM_SALT) -> torch.Tensor:
     """The momentum draw of one chain block: Box-Muller normals ``z`` from
-    the stream salted ``seed0 + 1013904223`` (calls 1 and 2), then
+    the row stream salted ``seed0 + offset`` (calls 1 and 2), then
     ``p = z @ L^{-1}``. ``seed0`` is the draw's seed word before the block
-    offset."""
+    offset; the NUTS kernel's stream ``offset`` is 1013904223, the HMC
+    kernel's 0."""
     n = linv.shape[0]
     dev = linv.device
     lanes = (torch.arange(rows, dtype=torch.int64, device=dev)[:, None] * padded_dim(n)
              + torch.arange(n, dtype=torch.int64, device=dev)[None, :])
-    base = seed0 + block_id * 7919 + _MOMENTUM_SALT
+    base = seed0 + block_id * 7919 + offset
     s1 = ((seed1 & _M32) * _GOLDEN) & _M32
     salt = fmix32(((base + lanes * 65063 + 17) & _M32) ^ s1)
     u1, u2 = counter_uniform(salt, 1), counter_uniform(salt, 2)
@@ -169,6 +173,45 @@ class _BlockWelford:
             self.pu = self.ns
             self.win = math.floor(self.win * mult)
         self.ns += 1.0
+
+    def results(self) -> Dict[str, torch.Tensor]:
+        """The block's outputs under the op's names, counters apart."""
+        out = dict(zip(_WELFORD_KEYS, self.fg + self.bg))
+        out["counters"] = torch.tensor([self.ns, self.pu, self.win], dtype=torch.float32)
+        return out
+
+
+def stack_block_welford(blocks, device) -> Dict[str, torch.Tensor]:
+    """The per-block Welford outputs of a plain version's blocks, stacked,
+    with the shared counters (every block holds the same)."""
+    res = {k: torch.stack([b[k] for b in blocks]) for k in _WELFORD_KEYS}
+    res["n_samples"], res["prev_update"], res["window"] = blocks[0]["counters"].to(device)
+    return res
+
+
+def welford_buffers(dense_welford, B: int, empty) -> Dict[str, torch.Tensor]:
+    """The fused kernels' Welford buffers: the seed (the global means, 1/B
+    of the weights and the counters), per-block mean outputs, the raw
+    scatters seeded with 1/B of the global ones (updated in place), and
+    the per-block weights and counters."""
+    fgm, fgr, fgw, bgm, bgr, bgw, ns, pu, win = dense_welford
+    n = fgm.shape[0]
+    return dict(
+        welford_seed=torch.cat([fgm, bgm, torch.stack(
+            [fgw / float(B), bgw / float(B), ns, pu, win])]).contiguous(),
+        dense_fg_mean=empty(B, n), dense_bg_mean=empty(B, n),
+        dense_fg_raw=(fgr / float(B)).expand(B, n, n).contiguous(),
+        dense_bg_raw=(bgr / float(B)).expand(B, n, n).contiguous(),
+        welford_out=empty(B, 8))
+
+
+def welford_results(buf) -> Dict[str, torch.Tensor]:
+    """The op's Welford outputs from :func:`welford_buffers` after a launch."""
+    wo = buf["welford_out"]
+    return dict(dense_fg_mean=buf["dense_fg_mean"], dense_fg_raw=buf["dense_fg_raw"],
+                dense_fg_w=wo[:, 0], dense_bg_mean=buf["dense_bg_mean"],
+                dense_bg_raw=buf["dense_bg_raw"], dense_bg_w=wo[:, 1],
+                n_samples=wo[0, 2], prev_update=wo[0, 3], window=wo[0, 4])
 
 
 def combine_dense_welford(W: torch.Tensor, m: torch.Tensor, r: torch.Tensor,
@@ -253,9 +296,7 @@ def fused_nuts_plain(q, grad, logp, iter_count, da_log_step, da_log_bar, da_hbar
         res = {k: torch.stack(v) for k, v in per_draw.items()}
         res.update(q=qb, grad=gb, **s)
         if wel is not None:
-            res.update(dense_fg_mean=wel.fg[0], dense_fg_raw=wel.fg[1], dense_fg_w=wel.fg[2],
-                       dense_bg_mean=wel.bg[0], dense_bg_raw=wel.bg[1], dense_bg_w=wel.bg[2],
-                       counters=torch.tensor([wel.ns, wel.pu, wel.win], dtype=torch.float32))
+            res.update(wel.results())
         outs.append(res)
 
     result = {k: torch.cat([o[k] for o in outs], dim=1)
@@ -265,11 +306,7 @@ def fused_nuts_plain(q, grad, logp, iter_count, da_log_step, da_log_bar, da_hbar
     if not collect_trace:
         result["trace"] = None
     if dense_welford is not None:
-        for k in ("dense_fg_mean", "dense_fg_raw", "dense_fg_w", "dense_bg_mean",
-                  "dense_bg_raw", "dense_bg_w"):
-            result[k] = torch.stack([o[k] for o in outs])
-        ns, pu, win = outs[0]["counters"].to(q.device)
-        result.update(n_samples=ns, prev_update=pu, window=win)
+        result.update(stack_block_welford(outs, q.device))
     return result
 
 
@@ -277,7 +314,9 @@ def fused_nuts_plain(q, grad, logp, iter_count, da_log_step, da_log_bar, da_hbar
 # The CUDA kernel's wrapper
 # --------------------------------------------------------------------------
 
-def _check_inputs(spec, q, grad, scalars, cov, linv, dense_welford, tuning):
+def check_inputs(spec, q, grad, scalars, cov, linv, dense_welford, tuning):
+    """The fused ops' input contract: float32 tensors of the shapes
+    :func:`fused_nuts` documents, on one device."""
     C, n = q.shape
     if n != spec.ndim:
         raise ValueError(f"q has {n} columns but the model has {spec.ndim}")
@@ -302,11 +341,10 @@ def _check_inputs(spec, q, grad, scalars, cov, linv, dense_welford, tuning):
                              f"{dev}; got {c.dtype} on {c.device}")
 
 
-def _launch_kernel(q, grad, scalars, cov, linv, seed, *, spec, T, tuning, config,
-                   window_multiplier, chain_block, collect_trace, dense_welford):
-    from ._build import load_library
-
-    C, n = q.shape
+def check_kernel_shapes(spec, C: int, n: int, chain_block: int) -> int:
+    """The fused kernels' chain block for ``C`` chains, after checking what
+    they take: at most 16 chains a block, ``n`` at most 256, an ``(n, n)``
+    precision."""
     cb = resolve_chain_block(C, chain_block)
     if cb > MAX_KERNEL_CHAIN_BLOCK:
         raise ValueError(f"chain_block {cb} exceeds the kernel's "
@@ -315,6 +353,15 @@ def _launch_kernel(q, grad, scalars, cov, linv, seed, *, spec, T, tuning, config
         raise ValueError(f"the fused kernel takes n <= {MAX_KERNEL_NDIM_DENSE}, got {n}")
     if spec.body == "correlated_gaussian" and tuple(spec.consts[0].shape) != (n, n):
         raise ValueError("the precision must be (n, n)")
+    return cb
+
+
+def _launch_kernel(q, grad, scalars, cov, linv, seed, *, spec, T, tuning, config,
+                   window_multiplier, chain_block, collect_trace, dense_welford):
+    from ._build import launch
+
+    C, n = q.shape
+    cb = check_kernel_shapes(spec, C, n, chain_block)
     B = C // cb
     D = int(config.max_treedepth)
     dev = q.device
@@ -337,42 +384,21 @@ def _launch_kernel(q, grad, scalars, cov, linv, seed, *, spec, T, tuning, config
     }
     adapt_dense = dense_welford is not None
     if adapt_dense:
-        fgm, fgr, fgw, bgm, bgr, bgw, ns, pu, win = dense_welford
-        buf.update(
-            welford_seed=torch.cat([fgm, bgm, torch.stack(
-                [fgw / float(B), bgw / float(B), ns, pu, win])]).contiguous(),
-            dense_fg_mean=empty(B, n), dense_bg_mean=empty(B, n),
-            dense_fg_raw=(fgr / float(B)).expand(B, n, n).contiguous(),
-            dense_bg_raw=(bgr / float(B)).expand(B, n, n).contiguous(),
-            welford_out=empty(B, 8))
-    ptrs = (ctypes.c_void_p * len(_PTRS))(
-        *(buf[k].data_ptr() if buf.get(k) is not None else None for k in _PTRS))
+        buf.update(welford_buffers(dense_welford, B, empty))
     ints = dict(C=C, n=n, D=D, T=int(T), cb=cb, n_stages=len(a_coef),
                 body=BODY_IDS[spec.body], tuning=int(bool(tuning)),
                 adapting=int(bool(tuning) and config.adapt_step_size),
                 adapt_dense=int(adapt_dense), early_window=int(config.early_window),
                 early_max=int(config.early_max_treedepth),
                 max_depth=int(config.max_treedepth),
-                # the seed words as the int32 bits the kernel reads as uint32
-                seed0=(w0 & _M32) - ((w0 & 0x80000000) << 1),
-                seed1=(w1 & _M32) - ((w1 & 0x80000000) << 1), Npad=padded_dim(n))
+                seed0=int32_bits(w0), seed1=int32_bits(w1), Npad=padded_dim(n))
     floats = dict(Emax=float(config.Emax), target_accept=float(config.target_accept),
                   gamma=float(config.gamma), k=float(config.k), t0=float(config.t0),
                   window_multiplier=float(window_multiplier))
     floats.update({f"b{i}": (list(b_coef) + [0.0] * 4)[i] for i in range(4)})
     floats.update({f"a{i}": (list(a_coef) + [0.0] * 3)[i] for i in range(3)})
-    int_arr = (ctypes.c_int * len(_INTS))(*(ints[k] for k in _INTS))
-    float_arr = (ctypes.c_float * len(_FLOATS))(*(floats[k] for k in _FLOATS))
-
-    lib = load_library("fused_nuts")
-    with torch.cuda.device(dev):
-        stream = torch.cuda.current_stream(dev).cuda_stream
-        err = lib.fused_nuts_launch(ctypes.cast(ptrs, ctypes.c_void_p),
-                                    ctypes.cast(int_arr, ctypes.c_void_p),
-                                    ctypes.cast(float_arr, ctypes.c_void_p), stream)
-    if err != 0:
-        raise RuntimeError(f"fused_nuts kernel launch failed: CUDA error {err} "
-                           f"({lib.cuda_error_string(err).decode()})")
+    launch("fused_nuts", [buf[k].data_ptr() if buf.get(k) is not None else None for k in _PTRS],
+           [ints[k] for k in _INTS], [floats[k] for k in _FLOATS], dev)
     fused_nuts.launches += 1
 
     res = {"trace": buf["trace"], "q": buf["q_out"], "grad": buf["grad_out"]}
@@ -381,11 +407,7 @@ def _launch_kernel(q, grad, scalars, cov, linv, seed, *, spec, T, tuning, config
     res.update(depth=buf["stat_i"][0], n_leaves=buf["stat_i"][1],
                diverging=buf["stat_b"][0], turning=buf["stat_b"][1])
     if adapt_dense:
-        wo = buf["welford_out"]
-        res.update(dense_fg_mean=buf["dense_fg_mean"], dense_fg_raw=buf["dense_fg_raw"],
-                   dense_fg_w=wo[:, 0], dense_bg_mean=buf["dense_bg_mean"],
-                   dense_bg_raw=buf["dense_bg_raw"], dense_bg_w=wo[:, 1],
-                   n_samples=wo[0, 2], prev_update=wo[0, 3], window=wo[0, 4])
+        res.update(welford_results(buf))
     return res
 
 
@@ -418,7 +440,7 @@ def fused_nuts(q, grad, logp, iter_count, da_log_step, da_log_bar, da_hbar, da_c
     kernel (``fused_nuts.launches`` counts those launches) or raise.
     """
     scalars = (logp, iter_count, da_log_step, da_log_bar, da_hbar, da_count, da_mu)
-    _check_inputs(spec, q, grad, scalars, cov, linv, dense_welford, tuning)
+    check_inputs(spec, q, grad, scalars, cov, linv, dense_welford, tuning)
     kw = dict(spec=spec, T=T, tuning=tuning, config=config,
               window_multiplier=window_multiplier, chain_block=chain_block,
               collect_trace=collect_trace, dense_welford=dense_welford)

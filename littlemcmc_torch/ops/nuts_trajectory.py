@@ -372,6 +372,11 @@ def _seed_words(seed) -> Tuple[int, int]:
     return s0, s1
 
 
+def int32_bits(word: int) -> int:
+    """A seed word as the int32 whose bits the kernels read as uint32."""
+    return (word & _M32) - ((word & 0x80000000) << 1)
+
+
 def block_uniform(seed0: int, seed1: int, block_id: int, rows: int, device) -> Callable:
     """The counter stream of one chain block, from call 1 on: each call
     returns one ``(rows,)`` float32 draw. Hashed ``_CALLS_PER_HASH`` calls

@@ -1,13 +1,15 @@
 """Sampling driver: the public ``sample()`` / ``init_nuts()`` entry points.
 
 Counterpart of ``littlemcmc_tpu/sampling.py`` for the subset this package
-runs: NUTS with a diagonal metric (``adapt_diag`` / ``jitter+adapt_diag``,
-per-chain ``QuadPotentialDiagAdapt``, optionally pooled across chains) or a
-dense one (``adapt_full`` / ``jitter+adapt_full`` pooled across chains, or
-a static ``QuadPotentialFull``), with dual averaging. Two engines:
+runs: NUTS or classic HMC (``NUTS``, ``HamiltonianMC``) with a diagonal
+metric (``adapt_diag`` / ``jitter+adapt_diag``, per-chain
+``QuadPotentialDiagAdapt``, optionally pooled across chains) or a dense one
+(``adapt_full`` / ``jitter+adapt_full`` pooled across chains, or a static
+``QuadPotentialFull``), with dual averaging. Two engines:
 
-- per-draw: one trajectory-kernel launch per draw for all chains, the
-  adaptation updates between launches;
+- per-draw: one trajectory-kernel launch per draw for all chains (for HMC
+  without a model body or with a dense metric, the tensor-op trajectory of
+  ``hmc.run_hmc_trajectory``), the adaptation updates between draws;
 - fused (dense metrics): one fused-kernel launch per chunk of draws, with
   momentum, dual averaging and the pooled dense Welford adds inside it.
 
@@ -32,18 +34,21 @@ from typing import List, Optional, Union
 import numpy as np
 import torch
 
-from .base import init_chain_state, NUTSConfig
+from .base import HMCConfig, NUTSConfig, init_chain_state
 from .device import resolve_device
+from .hmc import build_fused_hmc_runner_factory, build_hmc_kernel
 from .model import as_logp_grad, batched
 from .nuts import build_fused_nuts_runner_factory, build_nuts_kernel
+from .ops.fused_hmc import fused_hmc
 from .ops.fused_nuts import fused_nuts
+from .ops.hmc_trajectory import DEFAULT_HMC_CHAIN_BLOCK, hmc_trajectory
 from .ops.nuts_trajectory import DEFAULT_CHAIN_BLOCK, trajectory
 from .parallel.cross_chain import cross_chain_potential_pool
 from .quadpotential import (QuadPotentialDiag, QuadPotentialDiagAdapt, QuadPotentialFull,
                             QuadPotentialFullAdapt, potential_to, quad_potential)
 from .report import warnings_from_stats
 
-__all__ = ["NUTS", "sample", "init_nuts"]
+__all__ = ["NUTS", "HamiltonianMC", "sample", "init_nuts"]
 
 _log = logging.getLogger("littlemcmc_torch")
 
@@ -60,18 +65,51 @@ _POTENTIALS = (QuadPotentialDiag, QuadPotentialDiagAdapt, QuadPotentialFull,
                QuadPotentialFullAdapt)
 
 
-class NUTS:
-    """No-U-Turn sampler spec (constructor parity with reference ``nuts.py:103-121``).
+class _StepSpec:
+    """What both step methods' specs share: the model, the metric (a static
+    one from ``scaling`` with :func:`quad_potential`, a 1-D diagonal or a
+    dense covariance with ``is_cov=True``), the model body the kernels
+    inline (``trajectory_spec``: ``"auto"`` takes the model's
+    ``trajectory_spec()``; or pass a
+    :class:`~littlemcmc_torch.ops.TrajectorySpec`), and the end-of-run
+    warnings."""
 
-    ``scaling`` builds a static metric with :func:`quad_potential` (a 1-D
-    diagonal, or a dense covariance with ``is_cov=True``).
-    ``trajectory_spec``: ``"auto"`` takes the model's ``trajectory_spec()``
-    (the model body the kernels inline); or pass a
-    :class:`~littlemcmc_torch.ops.TrajectorySpec`.
-    """
+    generates_stats = True
+
+    def __init__(self, logp_dlogp_func, model_ndim, scaling, is_cov, potential, step_rand,
+                 trajectory_spec):
+        if scaling is not None and potential is not None:
+            raise ValueError("Cannot specify both `potential` and `scaling`.")
+        if step_rand is not None:
+            raise NotImplementedError("`step_rand` is not ported yet.")
+        if potential is not None and not isinstance(potential, _POTENTIALS):
+            raise ValueError("`potential` must be a littlemcmc_torch quadpotential "
+                             "(QuadPotentialDiag, QuadPotentialDiagAdapt, "
+                             "QuadPotentialFull or QuadPotentialFullAdapt).")
+        self.logp_dlogp_func = logp_dlogp_func
+        self.model_ndim = model_ndim
+        self.potential = (potential if scaling is None
+                          else quad_potential(scaling, is_cov))
+        self.trajectory_spec = trajectory_spec
+        self._last_stats = None
+        self._last_trace = None
+
+    def warnings(self, stats=None, *, tune: int = 0, trace=None):
+        """End-of-run sampler warnings of the last ``sample()`` run (or of
+        ``stats``), as the reference's ``step.warnings()``."""
+        if stats is None:
+            if self._last_stats is None:
+                return []
+            stats, trace = self._last_stats, self._last_trace
+        return warnings_from_stats(stats, target_accept=self.config.target_accept,
+                                   max_treedepth=getattr(self.config, "max_treedepth", None),
+                                   tune=int(tune), trace=trace)
+
+
+class NUTS(_StepSpec):
+    """No-U-Turn sampler spec (constructor parity with reference ``nuts.py:103-121``)."""
 
     name = "nuts"
-    generates_stats = True
     stats_dtypes = [
         {
             "depth": np.int64,
@@ -99,19 +137,8 @@ class NUTS:
                  integrator: str = "leapfrog", trajectory_spec="auto",
                  chain_block: int = 0):
         del path_length  # accepted for constructor parity
-        if scaling is not None and potential is not None:
-            raise ValueError("Cannot specify both `potential` and `scaling`.")
-        if step_rand is not None:
-            raise NotImplementedError("`step_rand` is not ported yet.")
-        if potential is not None and not isinstance(potential, _POTENTIALS):
-            raise ValueError("`potential` must be a littlemcmc_torch quadpotential "
-                             "(QuadPotentialDiag, QuadPotentialDiagAdapt, "
-                             "QuadPotentialFull or QuadPotentialFullAdapt).")
-        self.logp_dlogp_func = logp_dlogp_func
-        self.model_ndim = model_ndim
-        self.potential = (potential if scaling is None
-                          else quad_potential(scaling, is_cov))
-        self.trajectory_spec = trajectory_spec
+        super().__init__(logp_dlogp_func, model_ndim, scaling, is_cov, potential, step_rand,
+                         trajectory_spec)
         self.config = NUTSConfig(
             target_accept=float(target_accept), Emax=float(Emax),
             adapt_step_size=bool(adapt_step_size), step_scale=float(step_scale),
@@ -120,19 +147,50 @@ class NUTS:
             max_treedepth=int(max_treedepth),
             early_max_treedepth=int(early_max_treedepth),
         )
-        self._last_stats = None
-        self._last_trace = None
 
-    def warnings(self, stats=None, *, tune: int = 0, trace=None):
-        """End-of-run sampler warnings of the last ``sample()`` run (or of
-        ``stats``), as the reference's ``step.warnings()``."""
-        if stats is None:
-            if self._last_stats is None:
-                return []
-            stats, trace = self._last_stats, self._last_trace
-        return warnings_from_stats(stats, target_accept=self.config.target_accept,
-                                   max_treedepth=self.config.max_treedepth,
-                                   tune=int(tune), trace=trace)
+
+class HamiltonianMC(_StepSpec):
+    """Classic HMC spec (constructor parity with reference ``hmc.py:52-69``).
+
+    Each draw integrates a jittered path of ``U(0, 1) * path_length`` in
+    steps of the adapted step size (at most ``max_steps``) and
+    Metropolis-accepts its end.
+    """
+
+    name = "hmc"
+    stats_dtypes = [
+        {
+            "step_size": np.float64,
+            "n_steps": np.int64,
+            "tune": np.bool_,
+            "step_size_bar": np.float64,
+            "accept": np.float64,
+            "diverging": np.bool_,
+            "energy_error": np.float64,
+            "energy": np.float64,
+            "path_length": np.float64,
+            "accepted": np.bool_,
+            "model_logp": np.float64,
+        }
+    ]
+
+    def __init__(self, logp_dlogp_func=None, model_ndim: Optional[int] = None,
+                 scaling=None, is_cov: bool = False, potential=None,
+                 target_accept: float = 0.8, Emax: float = 1000,
+                 adapt_step_size: bool = True, step_scale: float = 0.25,
+                 gamma: float = 0.05, k: float = 0.75, t0: int = 10,
+                 step_rand=None, path_length: float = 2.0, max_steps: int = 1024,
+                 integrator: str = "leapfrog", trajectory_spec="auto",
+                 chain_block: int = 0):
+        super().__init__(logp_dlogp_func, model_ndim, scaling, is_cov, potential, step_rand,
+                         trajectory_spec)
+        self.config = HMCConfig(
+            target_accept=float(target_accept), Emax=float(Emax),
+            adapt_step_size=bool(adapt_step_size), step_scale=float(step_scale),
+            gamma=float(gamma), k=float(k), t0=float(t0),
+            integrator=str(integrator), chain_block=int(chain_block),
+            path_length=float(path_length), max_steps=int(max_steps),
+        )
 
 
 def _as_seed(random_seed) -> int:
@@ -200,7 +258,7 @@ def init_nuts(logp_dlogp_func=None, model_ndim: Optional[int] = None,
                        potential=potential, **kwargs)
 
 
-def _resolve_spec(step: NUTS, logp_grad):
+def _resolve_spec(step: _StepSpec, logp_grad):
     spec = step.trajectory_spec
     if spec != "auto":
         return spec
@@ -269,7 +327,7 @@ def sample(
     model_ndim: Optional[int] = None,
     draws: int = 1000,
     tune: int = 1000,
-    step: Optional[NUTS] = None,
+    step: Optional[_StepSpec] = None,
     init: str = "auto",
     chains: Optional[int] = None,
     cores: Optional[int] = None,
@@ -290,12 +348,14 @@ def sample(
     device=None,
     **kwargs,
 ):
-    """Draw posterior samples with NUTS on the CUDA card (or the CPU).
+    """Draw posterior samples with NUTS or HMC on the CUDA card (or the CPU).
 
     The signature follows the JAX package's ``sample()``; this port runs
-    NUTS with ``init`` in ``adapt_diag`` / ``jitter+adapt_diag`` /
-    ``adapt_full`` / ``jitter+adapt_full`` (or a static metric on the step)
-    and a model that carries a trajectory spec. ``device=None`` means
+    ``step`` (:class:`NUTS`, the default, or :class:`HamiltonianMC`) with
+    ``init`` in ``adapt_diag`` / ``jitter+adapt_diag`` / ``adapt_full`` /
+    ``jitter+adapt_full`` (or a static metric on the step). NUTS needs a
+    model that carries a trajectory spec; HMC runs any model, through its
+    kernels where the model has a spec. ``device=None`` means
     ``"cuda"`` and raises when no CUDA device exists; ``device="cpu"`` runs
     the kernels' plain PyTorch versions. ``cores``, ``chain_idx``,
     ``mp_ctx`` and ``pickle_backend`` are accepted and ignored, as in the
@@ -308,12 +368,16 @@ def sample(
     - ``fuse_draws``: ``None`` elects the engine as the JAX package does
       (dense metrics: the fused kernel; diagonal metrics: per-draw);
       ``False`` forces the per-draw engine; ``True`` requires the fused
-      one. A failed build or launch raises; nothing falls back.
+      one. A failed build or launch raises; nothing falls back. HMC on the
+      per-draw engine runs its trajectory kernel for a diagonal metric and
+      a model with a spec, else :func:`~littlemcmc_torch.hmc.run_hmc_trajectory`.
     - ``perf_report``: pass a dict and it is filled with ``engine`` (e.g.
-      ``fused_dense_pooled``), ``trajectory`` (``cuda`` or ``plain``),
-      ``chain_block``, ``chunk`` (draws per chunk), ``kernel_launches``
-      (launches of each kernel in this call, by kernel name) and
-      ``sample_seconds`` (the chunk loop; CUDA events on the card).
+      ``fused_dense_pooled``), ``trajectory`` (``cuda`` or ``plain`` for the
+      kernels or their plain versions, ``tensor`` for HMC's tensor-op
+      trajectory), ``chain_block``, ``chunk`` (draws per chunk),
+      ``kernel_launches`` (launches of each of the step method's kernels in
+      this call, by kernel name) and ``sample_seconds`` (the chunk loop;
+      CUDA events on the card).
 
     Returns ``(trace, stats)`` (plus the final ``ChainState`` with
     ``return_final_state``).
@@ -385,9 +449,16 @@ def sample(
             "item 6; pass cross_chain_adapt=True to pool it across chains.")
     if fuse_draws is True and not dense:
         raise NotImplementedError(
-            "fuse_draws=True: the fused kernel's diagonal branch is ROADMAP Queue 2 "
-            "item 3; the diagonal metric runs on the per-draw engine.")
-    fused = dense and fuse_draws is not False  # the JAX election: dense -> fused
+            "fuse_draws=True: the fused kernels' diagonal branch is ROADMAP Queue 2 "
+            "item 10; the diagonal metric runs on the per-draw engine.")
+    hmc = isinstance(step, HamiltonianMC)
+    if fuse_draws is True and hmc and spec is None:
+        raise NotImplementedError(
+            "fuse_draws=True: the fused HMC kernel needs a model with a "
+            "trajectory_spec() (StandardNormal, CorrelatedGaussian).")
+    # the JAX election: dense -> fused; HMC without a model body runs the
+    # tensor-op trajectory (sampling.py:1237-1300)
+    fused = dense and fuse_draws is not False and not (hmc and spec is None)
     engine = (("fused_" if fused else "per_draw_") + ("dense" if dense else "diag")
               + ("_pooled" if pooled else ""))
 
@@ -399,12 +470,29 @@ def sample(
             "Bad initial energy: model log-probability is not finite at the "
             "starting point. The model might be misspecified.")
 
+    # the kernels' launch counters of this step method, by kernel name
+    counters = ({"hmc_trajectory": hmc_trajectory, "fused_hmc": fused_hmc} if hmc
+                else {"nuts_trajectory": trajectory, "fused_nuts": fused_nuts})
+    on_card = dev.type == "cuda"
+    trajectory_kind = "cuda" if on_card else "plain"
+    chain_block = config.chain_block or DEFAULT_CHAIN_BLOCK
     if fused:
         words = torch.randint(-2 ** 31, 2 ** 31, (2,), generator=host_gen,
                               dtype=torch.int64).tolist()
-        factory = build_fused_nuts_runner_factory(config, spec, potential, pooled, words)
+        build = build_fused_hmc_runner_factory if hmc else build_fused_nuts_runner_factory
+        factory = build(config, spec, potential, pooled, words)
     else:
-        kernel = build_nuts_kernel(config, spec, pooled_metric=pooled)
+        if hmc:
+            # the per-draw HMC kernel is diagonal-only (reference
+            # sampling.py:287-298)
+            hmc_spec = None if dense else spec
+            kernel = build_hmc_kernel(batched(logp_grad), config, hmc_spec)
+            if hmc_spec is None:
+                trajectory_kind = "tensor"
+            else:
+                chain_block = config.chain_block or DEFAULT_HMC_CHAIN_BLOCK
+        else:
+            kernel = build_nuts_kernel(config, spec, pooled_metric=pooled)
         seeds = torch.randint(-2 ** 31, 2 ** 31, (tune + draws, 2),
                               generator=host_gen, dtype=torch.int64).tolist()
         factory = _per_draw_factory(kernel, gen, seeds, pooled)
@@ -412,8 +500,7 @@ def sample(
         _log.info("Sampling %d chains (%d tune + %d draws) on %s, engine %s...",
                   chains, tune, draws, dev, engine)
 
-    launches0 = {"nuts_trajectory": trajectory.launches, "fused_nuts": fused_nuts.launches}
-    on_card = dev.type == "cuda"
+    launches0 = {name: op.launches for name, op in counters.items()}
     if on_card:
         ev0, ev1 = (torch.cuda.Event(enable_timing=True) for _ in range(2))
         ev0.record()
@@ -439,12 +526,11 @@ def sample(
     if perf_report is not None:
         perf_report.update(
             engine=engine,
-            trajectory="cuda" if on_card else "plain",
-            chain_block=config.chain_block or DEFAULT_CHAIN_BLOCK,
+            trajectory=trajectory_kind,
+            chain_block=chain_block,
             chunk=_AUTO_CHUNK,
-            kernel_launches={"nuts_trajectory": trajectory.launches
-                             - launches0["nuts_trajectory"],
-                             "fused_nuts": fused_nuts.launches - launches0["fused_nuts"]},
+            kernel_launches={name: op.launches - launches0[name]
+                             for name, op in counters.items()},
             sample_seconds=elapsed,
         )
     if progressbar:
@@ -459,7 +545,7 @@ def sample(
         tuned = 0 if discard_tuned_samples else tune
         for w in warnings_from_stats(
                 stats, target_accept=config.target_accept,
-                max_treedepth=config.max_treedepth, tune=tuned,
+                max_treedepth=getattr(config, "max_treedepth", None), tune=tuned,
                 trace=trace if trace.size <= 50_000_000 else None):
             (_log.error if w.level == "error" else _log.warning)(
                 "%s: %s", w.kind.name, w.message)

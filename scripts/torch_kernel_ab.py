@@ -1,0 +1,101 @@
+#!/usr/bin/env python3
+"""Time the NUTS kernels of one checkout of littlemcmc_torch on the card.
+
+    python3 scripts/torch_kernel_ab.py [ROOT]
+
+Builds the CUDA kernels of the checkout at ROOT (default: the one this
+script is in) and prints one JSON line: ptxas's register, stack-frame and
+spill lines of the NUTS trajectory kernel and the fused NUTS kernel, and
+their milliseconds per launch at the shapes of ``chip_smoke.py``'s phases 2
+and 2c (1024 chains, the 100-d correlated Gaussian): one diag-metric
+transition from stationary inputs, and a 4-draw dense draw chunk. The
+inputs are made with numpy from fixed seeds, so two checkouts see the same
+work. To compare two checkouts, run them in turns (A, B, B, A) in one
+command on one card.
+"""
+
+from __future__ import annotations
+
+import json
+import subprocess
+import sys
+from pathlib import Path
+
+
+def _ms(fn, reps: int, warmup: int) -> float:
+    import torch
+
+    for _ in range(warmup):
+        fn()
+    start, end = (torch.cuda.Event(enable_timing=True) for _ in range(2))
+    start.record()
+    for _ in range(reps):
+        fn()
+    end.record()
+    end.synchronize()
+    return start.elapsed_time(end) / reps
+
+
+def main() -> int:
+    root = Path(sys.argv[1] if len(sys.argv) > 1 else Path(__file__).resolve().parents[1])
+    sys.path.insert(0, str(root.resolve()))
+    import numpy as np
+    import torch
+
+    if not torch.cuda.is_available():
+        print("no CUDA device", file=sys.stderr)
+        return 2
+    torch.backends.cuda.matmul.allow_tf32 = False
+    from littlemcmc_torch.base import NUTSConfig
+    from littlemcmc_torch.models import CorrelatedGaussian
+    from littlemcmc_torch.ops import _build
+    from littlemcmc_torch.ops.fused_nuts import fused_nuts
+    from littlemcmc_torch.ops.nuts_trajectory import trajectory
+
+    libs = _build.build_all()
+    ptxas = {name: [ln.strip() for ln in (libs[name].parent / f"{name}.log").read_text()
+                    .splitlines() if "registers" in ln or "spill" in ln]
+             for name in ("nuts_trajectory", "fused_nuts")}
+
+    C, n, dev = 1024, 100, torch.device("cuda")
+    model = CorrelatedGaussian(n)
+    chol = np.linalg.cholesky(model.cov)
+    rng = np.random.default_rng(0)
+
+    def t(x, dtype=torch.float32):
+        return torch.from_numpy(np.ascontiguousarray(x)).to(dev, dtype)
+
+    # phase 2's input: q ~ N(0, cov), inverse mass near the true variances
+    q = t(rng.standard_normal((C, n)) @ chol.T)
+    var = model.true_var * rng.uniform(0.5, 2.0, (C, n))
+    p = t(rng.standard_normal((C, n)) / np.sqrt(var))
+    logp, grad = model.batched_logp_grad(q)
+    eps = t(0.2 * rng.uniform(0.8, 1.2, C))
+    targs = (q, p, grad.contiguous(), logp.contiguous(), eps,
+             torch.full((C,), 10, dtype=torch.int32, device=dev), t(var))
+    tkw = dict(spec=model.trajectory_spec(), max_treedepth=10, Emax=1000.0, chain_block=8)
+    traj_ms = _ms(lambda: trajectory(*targs, (17, 29), **tkw), reps=20, warmup=3)
+
+    # phase 2c's input: the true covariance as the metric, step near 0.5
+    ls = t(-0.7 + rng.uniform(-0.1, 0.1, C))
+    cov = t(model.cov)
+    linv = torch.linalg.solve_triangular(torch.linalg.cholesky(cov), torch.eye(n, device=dev),
+                                         upper=False)
+    f = dict(dtype=torch.float32, device=dev)
+    fargs = (q, grad.contiguous(), logp.contiguous(), torch.full((C,), 300.0, **f), ls,
+             ls.clone(), torch.zeros(C, **f), torch.full((C,), 40.0, **f), ls + np.log(10.0),
+             cov, linv)
+    fkw = dict(spec=model.trajectory_spec(), T=4, tuning=False, config=NUTSConfig(),
+               chain_block=8)
+    fused_ms = _ms(lambda: fused_nuts(*fargs, (41, -7), **fkw), reps=10, warmup=2)
+
+    smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
+                         capture_output=True, text=True, timeout=60).stdout.strip()
+    print(json.dumps({"root": str(root), "card": smi, "ptxas": ptxas,
+                      "nuts_trajectory_diag_ms": traj_ms, "fused_nuts_4_draws_ms": fused_ms}),
+          flush=True)
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())

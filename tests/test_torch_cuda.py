@@ -10,20 +10,21 @@ skips elsewhere. Each kernel and its plain version draw the same counter
 stream, so they build the same trees; the correlated Gaussian's matvecs
 (and the dense metric's) sum in another order in each, and a rounding
 difference can flip one decision and, through the block's shared
-counter, the rest of its block. The fused kernel's checks are those of
-``chip_smoke.py``'s phase 2c (:func:`chip_smoke.fused_check`), at fewer
-chains.
+counter, the rest of its block. The fused kernels' checks are those of
+``chip_smoke.py``'s phases 2c and 2e (:func:`chip_smoke.fused_check`), the
+HMC trajectory kernel's those of phase 2d (:func:`chip_smoke.hmc_check`),
+at fewer chains.
 """
 
 import numpy as np
 import pytest
 import torch
 
-from littlemcmc_torch import models as tm
+from littlemcmc_torch import HamiltonianMC, models as tm
 from littlemcmc_torch import sample
 from littlemcmc_torch.ops import trajectory, trajectory_plain
 
-from chip_smoke import FLAGS, _held, fused_check
+from chip_smoke import FLAGS, _held, _hmc_inputs, fused_check, hmc_check
 
 
 @pytest.fixture
@@ -182,6 +183,72 @@ def test_adapt_full_on_the_card_runs_the_fused_kernel(hopper):
     # tune chunks 10, 10, 30, 50, 50; one draw chunk
     assert report["engine"] == "fused_dense_pooled"
     assert report["kernel_launches"] == {"nuts_trajectory": 0, "fused_nuts": 6}
+    assert trace.shape == (256, 150, 20) and np.isfinite(trace).all()
+    assert stats["diverging"].mean() < 0.01
+    assert abs((trace.reshape(-1, 20).var(0) / model.true_var).mean() - 1) < 0.1
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("body,n,chains,block,integrator", [
+    ("standard_normal", 4, 1024, 512, "leapfrog"),
+    ("correlated_gaussian", 100, 256, 512, "leapfrog"),
+    ("correlated_gaussian", 20, 250, 8, "two_stage"),
+    # the precision (250 KB) does not fit in shared memory: the kernel
+    # reads it from global memory
+    ("correlated_gaussian", 250, 64, 16, "leapfrog"),
+])
+def test_hmc_kernel_matches_plain(hopper, body, n, chains, block, integrator):
+    """The HMC trajectory kernel chain for chain: the checks of the smoke's
+    phase 2d, at other shapes, chain blocks and integrators (250 chains:
+    a last thread block that is not full)."""
+    model = tm.StandardNormal(n) if body == "standard_normal" else tm.CorrelatedGaussian(n)
+    chol = np.eye(n) if body == "standard_normal" else np.linalg.cholesky(model.cov)
+    args = _hmc_inputs(model, chol, chains, 0.25 if n == 4 else 0.2, 3)
+    res, failures, got, _ = hmc_check(model, args, (9, -4), 1.0 if n == 4 else 0.99,
+                                      chain_block=block, integrator=integrator)
+    assert not failures, res
+    assert res["max_n_steps"] > 5 and res["accept_rate"] > 0.1
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("tuning", [False, True], ids=["draw_chunk", "tune_chunk"])
+def test_fused_hmc_kernel_matches_plain(hopper, tuning):
+    """The fused HMC kernel chain for chain, step size held: a static draw
+    chunk, and an adapt_dense tune chunk across a window swap; the checks of
+    the smoke's phase 2e at 256 chains."""
+    res, failures, got, _, _, _ = fused_check(tm.CorrelatedGaussian(100), 256, 4, tuning,
+                                              False, seed=8, words=(21, -3), step="hmc")
+    assert not failures, res
+    if tuning:
+        assert float(got["window"]) == 202.0
+
+
+@pytest.mark.cuda
+def test_fused_hmc_kernel_tune_chunk_with_dual_averaging(hopper):
+    """The fused HMC tune chunk as the adapt_full path runs it: its first
+    draw held chain for chain, its dual-averaging state to the update
+    replayed over its own accept statistics, its pooled Welford state to a
+    float64 replay of its own trace."""
+    res, failures, _, _, _, _ = fused_check(tm.CorrelatedGaussian(100), 256, 4, True, True,
+                                            seed=8, words=(21, -3), step="hmc")
+    assert not failures, res
+    assert res["step_size_adapting"] and "da_tol_share" in res
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("init,engine,launches", [
+    ("jitter+adapt_diag", "per_draw_diag", {"hmc_trajectory": 300, "fused_hmc": 0}),
+    # tune chunks 10, 10, 30, 50, 50; one draw chunk
+    ("adapt_full", "fused_dense_pooled", {"hmc_trajectory": 0, "fused_hmc": 6}),
+])
+def test_hmc_sample_on_the_card(hopper, init, engine, launches):
+    model = tm.CorrelatedGaussian(20)
+    report = {}
+    trace, stats = sample(model.logp_grad, model_ndim=20, chains=256, tune=150, draws=150,
+                          random_seed=3, init=init, step=HamiltonianMC(model_ndim=20),
+                          perf_report=report, progressbar=False)
+    assert report["engine"] == engine and report["trajectory"] == "cuda"
+    assert report["kernel_launches"] == launches
     assert trace.shape == (256, 150, 20) and np.isfinite(trace).all()
     assert stats["diverging"].mean() < 0.01
     assert abs((trace.reshape(-1, 20).var(0) / model.true_var).mean() - 1) < 0.1
