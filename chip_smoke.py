@@ -40,6 +40,18 @@ Phases, each printing its own lines:
    2e. the fused HMC kernel against its plain version in the three modes
    of 2c (HMC's chains share no stream, so each is held until its first
    disagreement; the path lengths must agree exactly);
+   2f-2g. the per-draw NUTS and HMC kernels with the eight-schools body
+   against their plain versions, 1024 chains (a quarter deep in the
+   funnel's neck), at least 99% of chains agreeing; energies of draws far
+   from the start's energy, and of divergent ones, held as ``hmc_check``
+   and ``_held_stat_errors`` say for ``scaled``;
+   2h-2i. the fused NUTS and HMC kernels' diag branch against their plain
+   versions, bodies 1 (100-d correlated Gaussian) and 2 (eight schools),
+   1024 chains x 4 draws (2 for body 1), trees to the path's depth of
+   10: a draw chunk, and a tune chunk with the per-chain Welford steps
+   (a window swap at draw 2, or 1) and dual averaging on, its metric and
+   Welford state within 1e-4 of their scales of a float64 replay of the
+   kernel's trace;
 3. the main path: ``sample(CorrelatedGaussian(100).logp_grad,
    model_ndim=100, chains=1024, tune=500, draws=1000, random_seed=42)``,
    with the kernel's launch count set to 0 before and read after, and the
@@ -55,6 +67,16 @@ Phases, each printing its own lines:
    the fused HMC kernel (``fused_dense_pooled``, its final step size
    larger than 3d's), and the ``fuse_draws=False`` twin on the tensor-op
    trajectory (no kernel), each with the posterior gates;
+   3g-3j. eight schools (``scripts/bench_suite.py:253-258``, 275-278):
+   ``sample(EightSchools().logp_grad, model_ndim=10, chains=10240,
+   tune=500, draws=500, target_accept=0.95)`` with NUTS and with
+   ``HamiltonianMC``, each on the fused diag engine (4 launches of its
+   fused kernel) and with ``fuse_draws=False`` on the per-draw kernel
+   (1000 launches), each under the gates of ``_es_quality`` (divergence
+   rate < 2% for NUTS, < 1% for HMC; R-hat < 1.05; bulk ESS > 1000; mu and
+   log_tau against ``EightSchools.exact_moments``);
+   3k. the main path with ``fuse_draws=True``: the fused NUTS kernel's diag
+   branch with the correlated body (6 launches), the main path's gates;
 4. the kernel's time per launch at the main path's final state beside its
    plain version's time and its bound, where 50 more draws from that
    state spend their device time (``torch.profiler``); each kernel's
@@ -68,10 +90,16 @@ Phases, each printing its own lines:
    device time launch by launch; the dense trajectory kernel's time at
    3c's final state;
    4c-4d. the same for the HMC kernels at 3d's and 3e's final states,
-   and the 3e call under ``torch.profiler``; then one JSON line of five
-   kernel rows (for the fused kernels ``ms``, ``plain_ms`` and
-   ``bound_ms`` are one 4-draw launch on 2c's or 2e's draw-chunk input,
-   ``chunk_*`` the 250-draw launch).
+   and the 3e call under ``torch.profiler``;
+   4e. the eight-schools kernels: the per-draw ones at 2f-2g's inputs and
+   at the twins' final states, the fused kDiag instances per 250-draw
+   chunk at the fused paths' final states, the eight-schools calls and
+   the 3k call under ``torch.profiler``; then one JSON line of ten kernel
+   rows (for the fused kernels ``ms``, ``plain_ms`` and ``bound_ms`` are
+   one 4-draw (2h-2i body 1: 2-draw) launch on 2c's, 2e's, 2h's or
+   2i's draw-chunk input,
+   ``chunk_*`` the 250-draw launch; for the eight-schools per-draw rows
+   ``main_*`` one launch at 10,240 chains).
 
 The last line is ``{"ok": true, "device": {...}}``. Any failure raises
 and the script exits non-zero without that line. Without a CUDA device,
@@ -93,6 +121,8 @@ PEAK_FP32_FLOPS = 67e12  # outside the tensor cores
 PEAK_BYTES_PER_S = 3.35e12
 
 N, CHAINS, TUNE, DRAWS, DEPTH, CHAIN_BLOCK = 100, 1024, 500, 1000, 10, 8
+# eight schools at the north star's chain count (scripts/bench_suite.py:253-258)
+ES_CHAINS, ES_TUNE, ES_DRAWS, ES_TARGET = 10240, 500, 500, 0.95
 DEVICE = "cuda"  # where the checks' inputs are made: the card
 FLAGS = ("depth", "n_leaves", "diverging", "turning")
 HMC_FLAGS = ("n_steps", "accepted", "diverging")
@@ -196,6 +226,50 @@ def _dense_stationary_inputs(model, C, eps, seed):
             torch.from_numpy(model.cov.astype(np.float32)).to(dev))
 
 
+def _posterior_sd(model):
+    """The posterior sd of each parameter: exact for the Gaussians; for
+    eight schools the exact sds of mu and log_tau and 1 for theta_tilde,
+    the scale its prior gives them."""
+    import numpy as np
+
+    if hasattr(model, "true_var"):
+        return np.sqrt(model.true_var)
+    m = model.exact_moments()
+    return np.array([m["mu"][1], m["log_tau"][1]] + [1.0] * 8)
+
+
+def _es_positions(rng, C):
+    """Eight-schools positions spread like the posterior, a quarter of the
+    chains deep in the funnel's neck (log_tau <= -8)."""
+    import numpy as np
+
+    q = np.concatenate([rng.normal(4.5, 3.2, (C, 1)), rng.normal(-2.7, 3.4, (C, 1)),
+                        rng.standard_normal((C, 8))], 1).astype(np.float32)
+    q[: C // 4, 1] = rng.uniform(-12.0, -8.0, C // 4)
+    return q
+
+
+def _es_inputs(model, C, eps, seed):
+    """The trajectory inputs of :func:`_stationary_inputs` for eight
+    schools: positions of :func:`_es_positions`, an inverse-mass diagonal
+    near the posterior variances, p ~ N(0, M)."""
+    import numpy as np
+    import torch
+
+    rng = np.random.default_rng(seed)
+    q = _es_positions(rng, C)
+    var = (_posterior_sd(model) ** 2 * rng.uniform(0.5, 2.0, (C, 10))).astype(np.float32)
+    p = (rng.standard_normal((C, 10)) / np.sqrt(var)).astype(np.float32)
+    eps = (eps * rng.uniform(0.7, 1.3, C)).astype(np.float32)
+    dev = torch.device(DEVICE)
+    qt = torch.from_numpy(q).to(dev)
+    logp, grad = model.batched_logp_grad(qt)
+    return (qt, torch.from_numpy(p).to(dev), grad.contiguous(), logp.contiguous(),
+            torch.from_numpy(eps).to(dev),
+            torch.full((C,), DEPTH, dtype=torch.int32, device=dev),
+            torch.from_numpy(var).to(dev))
+
+
 def _held(agree, cb=CHAIN_BLOCK):
     """Per (draw, chain) of a ``(T, C)`` flag agreement: every chain of the
     chain's block agreed at this draw and all earlier ones. One chain's
@@ -210,7 +284,8 @@ def _held(agree, cb=CHAIN_BLOCK):
 
 def _compare(name, model, args, seed, need, metric="diag"):
     """One kernel launch against the plain version on the same inputs
-    (the dense metric: numbers held on the chains whose block agreed)."""
+    (the dense metric: numbers held on the chains whose block agreed), q
+    in units of the model's posterior sd (:func:`_posterior_sd`)."""
     import numpy as np
     import torch
     from littlemcmc_torch.ops.nuts_trajectory import trajectory, trajectory_plain
@@ -234,7 +309,7 @@ def _compare(name, model, args, seed, need, metric="diag"):
         rel = d / want[k][agree].abs().clamp_min(1e-6)
         errs[f"{k}_max_abs"] = float(d.max())
         errs[f"{k}_max_rel"] = float(rel.max())
-    sd = torch.from_numpy(np.sqrt(model.true_var)).float().to(got["q"].device)
+    sd = torch.from_numpy(_posterior_sd(model)).float().to(got["q"].device)
     errs["q_max_err_in_sd"] = float(((got["q"] - want["q"]).abs() / sd)[agree].max())
     print(json.dumps({"phase": "kernel_vs_plain", "model": name, "metric": metric,
                       "chains": args[0].shape[0],
@@ -252,7 +327,7 @@ def _compare(name, model, args, seed, need, metric="diag"):
         raise RuntimeError(f"{name}: kernel and plain version differ by "
                            f"{errs['q_max_err_in_sd']} sd in q (limit {Q_TOL_SD}) and "
                            f"{errs['energy_max_abs']} in energy (limit {E_TOL})")
-    return errs["q_max_abs"]
+    return errs["q_max_abs"], start.elapsed_time(end)
 
 
 def _roofline_ms(ops: float, nbytes: float) -> tuple[float, str]:
@@ -262,18 +337,28 @@ def _roofline_ms(ops: float, nbytes: float) -> tuple[float, str]:
     return 1e3 * max(t_ops, t_bytes), ("operations" if t_ops >= t_bytes else "bytes")
 
 
-def _bound_ms(n_leaves_total: int, C: int, n: int, metric: str = "diag") -> tuple[float, str]:
-    """Least time for one transition: per leaf and chain the 2n^2-FLOP
-    matvec (plus, for the dense metric, the 2n^2-FLOP velocity) and about
-    20n elementwise operations, plus the proposal's gradient (and the
-    start energy's velocity); the inputs read once and the outputs written
+def _body_ops(body: str, n: int) -> int:
+    """Operations of one evaluation of a model body: the correlated
+    Gaussian's 2n^2-FLOP matvec, eight schools' about 15n (the theta
+    lanes, four warp sums and an exp), the standard normal's 2n."""
+    return {"correlated_gaussian": 2 * n * n, "eight_schools": 15 * n,
+            "standard_normal": 2 * n}[body]
+
+
+def _bound_ms(n_leaves_total: int, C: int, n: int, metric: str = "diag",
+              body: str = "correlated_gaussian") -> tuple[float, str]:
+    """Least time for one transition: per leaf and chain the model body
+    (plus, for the dense metric, the 2n^2-FLOP velocity) and about 20n
+    elementwise operations, plus the proposal's gradient (and the start
+    energy's velocity); the inputs read once and the outputs written
     once."""
-    per_leaf = (4 if metric == "dense" else 2) * n * n + 20 * n
-    ops = n_leaves_total * per_leaf + C * (2 * n * n + 2 * n)
+    per_leaf = (2 * n * n if metric == "dense" else 0) + _body_ops(body, n) + 20 * n
+    ops = n_leaves_total * per_leaf + C * (_body_ops(body, n) + 2 * n)
     var_floats = n * n if metric == "dense" else C * n
     if metric == "dense":
         ops += C * 2 * n * n
-    nbytes = (4 * (3 * C * n + var_floats + 3 * C + n * n) + 4 * (2 * C * n + 7 * C)
+    consts = {"correlated_gaussian": n * n, "eight_schools": 2 * n}.get(body, 0)
+    nbytes = (4 * (3 * C * n + var_floats + 3 * C + consts) + 4 * (2 * C * n + 7 * C)
               + 2 * C)
     return _roofline_ms(ops, nbytes)
 
@@ -375,7 +460,8 @@ def _welford_failures(errs, what):
                 or errs[f"{side}_raw_rel"] > 1e-3)]
 
 
-def _held_stat_errors(got, want, held, da_count, config, adapting, step="nuts"):
+def _held_stat_errors(got, want, held, da_count, config, adapting, step="nuts",
+                      scaled=False):
     """The per-draw stats of the held chain-draws, kernel against plain,
     each as a share of its limit (over 1 fails). The energies of
     ``FUSED_STEPS[step]`` are within E_TOL. The accept statistic is built
@@ -384,16 +470,45 @@ def _held_stat_errors(got, want, held, da_count, config, adapting, step="nuts"):
     The step sizes are within 1e-5 relative, plus, while dual averaging
     runs, what the accept statistic's difference moves them by:
     sqrt(count) / (gamma (count + t0)) in log step per unit of accept
-    statistic."""
+    statistic.
+
+    ``scaled`` (eight schools): a draw whose energy moved far from the
+    start's (|energy_error| up to 60, and up to 1e18 on a divergent leaf)
+    ends a trajectory the step size makes unstable, whose rounding grows
+    from step to step: the energies within E_TOL (1 + |energy_error|); a
+    tree's largest energy change, which is such a leaf's wherever it is
+    large, in size within E_TOL (1 + |energy_error| + its size) where it is
+    below 10 (the leaf's weight in the tree below e^-10). At 10 and above
+    kernel and plain version must fall on the same side of 10 and of Emax
+    (a divergent tree's exceeds Emax in both), unless the plain version's
+    size lies within that limit of the threshold: ``max_energy_change_side``
+    is, over the chain-draws whose sides differ, the plain version's
+    distance from the threshold as a share of the limit. Its size, not its
+    sign: two leaves a rounding apart in size and opposite in sign swap."""
     import torch
 
     kind = FUSED_STEPS[step]
     acc = kind["accept"]
     T = held.shape[0]
-    share = {k: float(((got[k][:T] - want[k][:T]).abs() / E_TOL)[held].max())
-             for k in kind["energies"]}
+    size = (1.0 + want["energy_error"][:T].abs() if scaled
+            else torch.ones_like(held, dtype=torch.float32))
+    share = {}
+    for k in kind["energies"]:
+        g, w = got[k][:T], want[k][:T]
+        mask, lim = held, E_TOL * size
+        if scaled and k == "max_energy_change":
+            g, w = g.abs(), w.abs()
+            mask, lim = held & (w < 10.0), lim + E_TOL * w
+            side = torch.zeros_like(lim)
+            for thr in (10.0, float(config.Emax)):
+                differ = held & ((g >= thr) != (w >= thr))
+                side = torch.where(differ, torch.maximum(side, (w - thr).abs() / lim), side)
+            share["max_energy_change_side"] = float(side.max())
+        d = (g - w).abs()
+        share[k] = float((d / lim)[mask].max()) if bool(mask.any()) else 0.0
     d_acc = (got[acc][:T] - want[acc][:T]).abs()
-    share[acc] = float((d_acc / (kind["accept_rel"] * E_TOL * want[acc][:T] + 1e-7))[held].max())
+    share[acc] = float((d_acc / (kind["accept_rel"] * E_TOL * size * want[acc][:T]
+                                 + 1e-7))[held].max())
     cnt = da_count[None, :] + torch.arange(T, device=da_count.device)[:, None]
     slope = (cnt.sqrt() / (float(config.gamma) * (cnt + float(config.t0)))
              if adapting else torch.zeros_like(cnt))
@@ -403,14 +518,115 @@ def _held_stat_errors(got, want, held, da_count, config, adapting, step="nuts"):
     return share
 
 
-def fused_check(model, C, T, tuning, adapt_step_size, seed, words, step="nuts"):
+def _diag_fused_inputs(model, C, seed, tuning, iter_count=300.0, swap_at=2):
+    """Fused-op inputs for the diag metric: positions near the posterior
+    (eight schools: :func:`_es_positions`), an inverse-mass diagonal near
+    the posterior variances, dual averaging part way through, and for a
+    tune chunk a per-chain Welford state (40 draws in the foreground,
+    10 - ``swap_at`` in the background) whose windows swap at draw
+    ``swap_at`` (n_samples 50 - ``swap_at``, window 50), step sizes near 0.3 (eight schools adapts
+    to about 0.27; at 0.5 the correlated Gaussian's diag trees diverge on
+    96% of chain-draws). Returns the op's arguments through ``linv``
+    (None) and the Welford state (None for a draw chunk)."""
+    import numpy as np
+    import torch
+
+    rng = np.random.default_rng(seed)
+    dev = torch.device(DEVICE)
+    n = model.ndim
+    sd = _posterior_sd(model)
+    if hasattr(model, "cov"):
+        q = (rng.standard_normal((C, n)) @ np.linalg.cholesky(model.cov).T).astype(np.float32)
+    else:
+        q = _es_positions(rng, C)
+    log_step = -1.2
+    qt = torch.from_numpy(q).to(dev)
+    logp, grad = model.batched_logp_grad(qt)
+
+    def t(x):
+        return torch.from_numpy(np.asarray(x, np.float32)).to(dev)
+
+    ls = t(log_step + rng.uniform(-0.1, 0.1, C))
+    var = t(sd ** 2 * rng.uniform(0.5, 2.0, (C, n)))
+    args = (qt, grad.contiguous(), logp.contiguous(), t(np.full(C, iter_count)), ls,
+            ls.clone(), t(np.zeros(C)), t(np.full(C, 40.0)), ls + float(np.log(10.0)), var,
+            None)
+    if not tuning:
+        return args, None
+    bg_w = 10.0 - swap_at
+    welford = (t(0.3 * sd * rng.standard_normal((C, n))),
+               t(40.0 * sd ** 2 * rng.uniform(0.5, 2.0, (C, n))), t(np.full(C, 40.0)),
+               t(np.full(C, 40.0)), t(0.3 * sd * rng.standard_normal((C, n))),
+               t(bg_w * sd ** 2 * rng.uniform(0.5, 2.0, (C, n))), t(np.full(C, bg_w)),
+               t(np.full(C, bg_w)), t(np.full(C, 40.0 + bg_w)), t(np.full(C, 50.0)))
+    return args, welford
+
+
+def _replay_diag_welford(welford, trace, mult=2.0):
+    """The per-chain Welford bookkeeping in float64 over a chunk's trace,
+    in ``QuadPotentialDiagAdapt.update``'s order: add to both windows, the
+    foreground's variance, then the swap where ``n_samples % window ==
+    0``. Returns the last draw's variance and the state by
+    ``WELFORD_KEYS``."""
+    import torch
+    from littlemcmc_torch.ops.fused_nuts import WELFORD_KEYS
+
+    s = {k: v.double() for k, v in zip(WELFORD_KEYS, welford)}
+    var = None
+    for x in trace.double():
+        for side in ("fg", "bg"):
+            w = s[f"{side}_w"] + 1.0
+            d = x - s[f"{side}_mean"]
+            m = s[f"{side}_mean"] + d / w[:, None]
+            s[f"{side}_raw"] = s[f"{side}_raw"] + d * (x - m)
+            s[f"{side}_mean"], s[f"{side}_w"] = m, w
+            s[f"{side}_w2"] = s[f"{side}_w2"] + 1.0
+        var = s["fg_raw"] / s["fg_w"][:, None]
+        swap = (s["n_samples"] > 0) & (torch.remainder(s["n_samples"], s["window"]) == 0)
+        for k in ("mean", "raw", "w", "w2"):
+            fg, bg = s[f"fg_{k}"], s[f"bg_{k}"]
+            sw = swap[:, None] if fg.ndim == 2 else swap
+            s[f"fg_{k}"] = torch.where(sw, bg, fg)
+            s[f"bg_{k}"] = torch.where(sw, torch.zeros_like(bg), bg)
+        s["window"] = torch.where(swap, torch.floor(s["window"] * mult), s["window"])
+        s["n_samples"] = s["n_samples"] + 1.0
+    return var, s
+
+
+def _diag_welford_errors(got, want_var, want, sd, chains=None):
+    """The kernel's per-chain Welford state against ``want`` (a replay or
+    the plain version) on ``chains`` (a (C,) mask, default all): the
+    largest error of ``var`` in posterior variances, of the means in
+    posterior sds and of the raw variances in weights times variances,
+    and whether the weights and counters are equal."""
+    import torch
+    from littlemcmc_torch.ops.fused_nuts import WELFORD_KEYS
+
+    sd = torch.as_tensor(sd, dtype=torch.float64, device=got["var"].device)
+    rows = chains if chains is not None else torch.ones_like(got["fg_w"], dtype=torch.bool)
+    errs = {"var": float(((got["var"].double() - want_var.double()).abs() / sd ** 2)[rows].max())}
+    for k in WELFORD_KEYS:
+        g, w = got[k].double(), want[k].double()
+        if g.ndim == 2:
+            scale = sd if k.endswith("mean") else want[k[:2] + "_w"].double()[:, None] * sd ** 2
+            errs[k] = float(((g - w).abs() / scale)[rows].max())
+        else:
+            errs[k + "_equal"] = bool((g == w)[rows].all())
+    return errs
+
+
+def fused_check(model, C, T, tuning, adapt_step_size, seed, words, step="nuts",
+                metric="dense"):
     """One fused launch of ``T`` draws at ``C`` chains against the plain
     version on the same inputs (``step``: the fused NUTS op, or with
-    ``"hmc"`` the fused HMC op): the decisions, trace, energies and the
-    per-draw stats on the chain-draws held number for number, and in a tune
-    chunk the pooled Welford state against the plain version and a float64
-    replay and the dual-averaging state against its update replayed over
-    the kernel's accept statistics. Returns the result line, the list of
+    ``"hmc"`` the fused HMC op; ``metric``: the dense branch, with the
+    pooled dense adaptation in a tune chunk, or the per-chain diag branch,
+    with its Welford adaptation in a tune chunk): the decisions, trace,
+    energies and the per-draw stats on the chain-draws held number for
+    number, and in a tune chunk the Welford state against the plain
+    version and a float64 replay and the dual-averaging state against its
+    update replayed over the kernel's accept statistics. NUTS's trees run
+    to the sampler's depth of 10. Returns the result line, the list of
     failures and both outputs."""
     import numpy as np
     import torch
@@ -421,11 +637,17 @@ def fused_check(model, C, T, tuning, adapt_step_size, seed, words, step="nuts"):
 
     kind = FUSED_STEPS[step]
     op, plain = (fused_nuts, fused_nuts_plain) if step == "nuts" else (fused_hmc, fused_hmc_plain)
-    args = _fused_inputs(model, C, seed)
-    welford = _welford_seed(model) if tuning else None
-    config = (NUTSConfig if step == "nuts" else HMCConfig)(adapt_step_size=adapt_step_size)
-    kw = dict(spec=model.trajectory_spec(), T=T, tuning=tuning, config=config,
-              window_multiplier=2.0, chain_block=CHAIN_BLOCK, dense_welford=welford)
+    config = (NUTSConfig(adapt_step_size=adapt_step_size) if step == "nuts"
+              else HMCConfig(adapt_step_size=adapt_step_size))
+    kw = dict(spec=model.trajectory_spec(), T=T, tuning=tuning, config=config, metric=metric,
+              window_multiplier=2.0, chain_block=CHAIN_BLOCK)
+    if metric == "dense":
+        args = _fused_inputs(model, C, seed)
+        welford = _welford_seed(model) if tuning else None
+        kw["dense_welford"] = welford
+    else:
+        args, welford = _diag_fused_inputs(model, C, seed, tuning, swap_at=min(2, T - 1))
+        kw["welford"] = welford
     launches = op.launches
     got = op(*args, words, **kw)
     torch.cuda.synchronize()
@@ -436,7 +658,7 @@ def fused_check(model, C, T, tuning, adapt_step_size, seed, words, step="nuts"):
     end.synchronize()
 
     agree = torch.stack([got[k] == want[k] for k in kind["flags"]]).all(0)  # (T, C)
-    sd = torch.from_numpy(np.sqrt(model.true_var)).float().to(got["q"].device)
+    sd = torch.from_numpy(_posterior_sd(model)).float().to(got["q"].device)
     # with the step size adapting, only the first draw is held number for
     # number: dual averaging carries each draw's rounding into the next
     # draw's step size
@@ -445,20 +667,35 @@ def fused_check(model, C, T, tuning, adapt_step_size, seed, words, step="nuts"):
     held = _held(checked, CHAIN_BLOCK if step == "nuts" else 1)
     Th = held.shape[0]
     dq = ((got["trace"][:Th] - want["trace"][:Th]).abs())[held]
-    de = (got["energy"][:Th] - want["energy"][:Th]).abs()[held]
+    de = (got["energy"][:Th] - want["energy"][:Th]).abs()
+    scaled = model.trajectory_spec().body == "eight_schools"
+    if scaled:  # the energy of a draw far from the start's, as scaled stats
+        de = de / (1.0 + want["energy_error"][:Th].abs())
+    de = de[held]
     work = kind["work"]
-    res = {"phase": f"fused_{step}_vs_plain", "chunk": "tune" if tuning else "draw",
+    res = {"phase": f"fused_{step}_vs_plain", "metric": metric,
+           "body": model.trajectory_spec().body, "chunk": "tune" if tuning else "draw",
            "step_size_adapting": adapting, "chains": C,
            "draws": T, "agree_share": float(checked.float().mean()),
            "agree_share_all_draws": float(agree.float().mean()),
            "held_share": float(held.float().mean()),
            f"mean_{work}": float(want[work].float().mean()),
+           "divergence_share": float(want["diverging"].float().mean()),
            "q_max_abs": float(dq.max()), "q_max_err_in_sd": float(
                ((got["trace"][:Th] - want["trace"][:Th]).abs() / sd)[held].max()),
            "energy_max_abs": float(de.max()),
            "stat_tol_share": _held_stat_errors(got, want, held, args[7], config, adapting,
-                                               step),
+                                               step, scaled),
            "plain_ms": start.elapsed_time(end)}
+    if scaled:
+        # the largest |energy_error| the scaled limits widen for (draws
+        # that did not diverge), and the chain-draws whose
+        # max_energy_change is held by its side only
+        calm = held & ~want["diverging"][:Th]
+        res["max_abs_energy_error"] = float(want["energy_error"][:Th].abs()[calm].max())
+        if step == "nuts":
+            res["mec_over_10_share"] = float((want["max_energy_change"][:Th].abs()
+                                              >= 10.0)[held].float().mean())
     if step == "nuts":
         res["mean_depth"] = float(want["depth"].float().mean())
     else:
@@ -481,7 +718,7 @@ def fused_check(model, C, T, tuning, adapt_step_size, seed, words, step="nuts"):
         failures.append("path lengths differ: the counter streams differ")
     failures += [f"stat {k} at {v:.3g} of its limit"
                  for k, v in res["stat_tol_share"].items() if v > 1.0]
-    if tuning:
+    if tuning and metric == "dense":
         replay = _replay_welford(welford, got["trace"])
         res["welford_vs_replay"] = _welford_errors(got, replay, welford[0])
         failures += _welford_failures(res["welford_vs_replay"], "a float64 replay of its trace")
@@ -494,23 +731,40 @@ def fused_check(model, C, T, tuning, adapt_step_size, seed, words, step="nuts"):
         for k in ("n_samples", "prev_update", "window"):
             if float(got[k]) != float(want[k]):
                 failures.append(f"counter {k}: {float(got[k])} vs {float(want[k])}")
-        if adapting:
-            s = dict(zip(("da_log_step", "da_log_bar", "da_hbar", "da_count", "da_mu"),
-                         args[4:9]))
-            for t in range(T):
-                _da_update(s, got[kind["accept"]][t], config)
-            # within 1e-5 relative, 1e-6 absolute near 0 (hbar is a
-            # running mean of target - accept, near 0 once adapted)
-            res["da_max_abs"] = max(float((got[k] - v).abs().max()) for k, v in s.items())
-            res["da_tol_share"] = max(float(((got[k] - v).abs() / (1e-6 + 1e-5 * v.abs())).max())
-                                      for k, v in s.items())
-            if res["da_tol_share"] > 1.0:
-                failures.append("dual averaging differs from its replay")
+    if tuning and metric == "diag":
+        # the metric and the Welford rows within 1e-4 of their scales of a
+        # float64 replay of the kernel's own trace (every chain), and of the
+        # plain version on the chains held through the chunk; the weights
+        # and counters equal
+        var64, state64 = _replay_diag_welford(welford, got["trace"])
+        res["welford_vs_replay"] = _diag_welford_errors(got, var64, state64, sd)
+        checks = [("a float64 replay of its trace", res["welford_vs_replay"])]
+        if not adapting:
+            res["welford_vs_plain"] = _diag_welford_errors(got, want["var"], want, sd,
+                                                           held[-1])
+            checks.append(("the plain version", res["welford_vs_plain"]))
+        for what, errs in checks:
+            failures += [f"diag Welford {k} against {what}: {v}" for k, v in errs.items()
+                         if (v is False) or (not isinstance(v, bool) and v > 1e-4)]
+    if tuning and adapting:
+        s = dict(zip(("da_log_step", "da_log_bar", "da_hbar", "da_count", "da_mu"),
+                     args[4:9]))
+        for t in range(T):
+            _da_update(s, got[kind["accept"]][t], config)
+        # within 1e-5 relative, 1e-6 absolute near 0 (hbar is a
+        # running mean of target - accept, near 0 once adapted)
+        res["da_max_abs"] = max(float((got[k] - v).abs().max()) for k, v in s.items())
+        res["da_tol_share"] = max(float(((got[k] - v).abs() / (1e-6 + 1e-5 * v.abs())).max())
+                                  for k, v in s.items())
+        if res["da_tol_share"] > 1.0:
+            failures.append("dual averaging differs from its replay")
     return res, failures, got, want, args, kw
 
 
-def _compare_fused(T, tuning, adapt_step_size, seed, words, step="nuts"):
-    """Phases 2c and 2e: :func:`fused_check` at the main path's shapes,
+def _compare_fused(T, tuning, adapt_step_size, seed, words, step="nuts", model=None,
+                   metric="dense"):
+    """Phases 2c, 2e, 2h and 2i: :func:`fused_check` at 1024 chains
+    (``model``: the main path's 100-d correlated Gaussian by default),
     printed, and the kernel timed on the same input. Returns the kernel's
     and the plain version's ms, the largest q difference on the held
     chain-draws, and the kernel's work units (leaves, leapfrog steps)
@@ -520,38 +774,47 @@ def _compare_fused(T, tuning, adapt_step_size, seed, words, step="nuts"):
     from littlemcmc_torch.ops.fused_nuts import fused_nuts
 
     op = fused_nuts if step == "nuts" else fused_hmc
-    res, failures, got, _, args, kw = fused_check(CorrelatedGaussian(N), CHAINS, T, tuning,
-                                                  adapt_step_size, seed, words, step)
+    model = CorrelatedGaussian(N) if model is None else model
+    res, failures, got, _, args, kw = fused_check(model, CHAINS, T, tuning, adapt_step_size,
+                                                  seed, words, step, metric)
     res["events_ms"] = _cuda_time_ms(lambda: op(*args, words, **kw), reps=5, warmup=1)
     res["kernel_ms"], res["ms_source"] = _device_ms(lambda: op(*args, words, **kw),
                                                     f"fused_{step}", 5, res["events_ms"])
     print(json.dumps(res), flush=True)
     if failures:
-        raise RuntimeError(f"fused {step} kernel vs plain ({res['chunk']} chunk): {failures}")
+        raise RuntimeError(f"fused {step} kernel vs plain ({metric}, {res['body']}, "
+                           f"{res['chunk']} chunk): {failures}")
     return (res["kernel_ms"], res["plain_ms"], res["q_max_abs"],
             int(got[FUSED_STEPS[step]["work"]].sum()), res["events_ms"])
 
 
 def _hmc_inputs(model, chol, C, eps, seed):
-    """HMC trajectory inputs at stationarity (:func:`_stationary_inputs`)
-    with each chain's step count drawn as the sampler draws it:
-    floor(U(0, 1) * 2 / eps), at least 1."""
+    """HMC trajectory inputs at stationarity (:func:`_stationary_inputs`;
+    ``chol=None``: eight schools, :func:`_es_inputs`) with each chain's
+    step count drawn as the sampler draws it: floor(U(0, 1) * 2 / eps), at
+    least 1."""
     import numpy as np
     import torch
 
-    q, p, grad, logp, eps_t, _, var = _stationary_inputs(model, chol, C, eps, seed)
+    q, p, grad, logp, eps_t, _, var = (_es_inputs(model, C, eps, seed) if chol is None
+                                       else _stationary_inputs(model, chol, C, eps, seed))
     u = np.random.default_rng(seed + 1000).uniform(size=C).astype(np.float32)
     n_steps = torch.clamp((torch.from_numpy(u).to(eps_t.device) * 2.0 / eps_t).to(torch.int32),
                           1, 1024)
     return q, p, grad, logp, eps_t, n_steps, var
 
 
-def hmc_check(model, args, seed, need, chain_block=512, integrator="leapfrog"):
+def hmc_check(model, args, seed, need, chain_block=512, integrator="leapfrog",
+              scaled=False):
     """One launch of the HMC trajectory kernel against its plain version on
     the same inputs: the accept and divergence decisions on ``need`` of the
     chains, and on those q (within Q_TOL_SD posterior sd), the energies
     (within E_TOL) and the accept statistic (within E_TOL relative).
-    Returns the result line, the failures and both outputs."""
+    ``scaled`` (eight schools): a trajectory the step size makes unstable
+    carries rounding that grows from step to step, so the energies are held
+    on the chains that did not diverge, within E_TOL (1 + |energy
+    change|), and the accept statistic within that relative. Returns the
+    result line, the failures and both outputs."""
     import numpy as np
     import torch
     from littlemcmc_torch.ops.hmc_trajectory import hmc_trajectory, hmc_trajectory_plain
@@ -567,7 +830,12 @@ def hmc_check(model, args, seed, need, chain_block=512, integrator="leapfrog"):
     end.record()
     end.synchronize()
     agree = (got["accepted"] == want["accepted"]) & (got["diverging"] == want["diverging"])
-    sd = torch.from_numpy(np.sqrt(model.true_var)).float().to(got["q"].device)
+    sd = torch.from_numpy(_posterior_sd(model)).float().to(got["q"].device)
+    size = torch.ones_like(want["energy"])
+    calm = agree
+    if scaled:
+        size = 1.0 + want["energy_change"].abs()
+        calm = agree & ~want["diverging"]
     res = {"phase": "hmc_kernel_vs_plain", "body": model.trajectory_spec().body,
            "chains": args[0].shape[0], "ndim": args[0].shape[1],
            "agree_share": float(agree.float().mean()),
@@ -578,9 +846,12 @@ def hmc_check(model, args, seed, need, chain_block=512, integrator="leapfrog"):
            "q_max_err_in_sd": float(((got["q"] - want["q"]).abs() / sd)[agree].max()),
            "plain_ms": start.elapsed_time(end)}
     for k in ("energy", "logp_end", "energy_change"):
-        res[f"{k}_max_abs"] = float((got[k] - want[k]).abs()[agree].max())
+        res[f"{k}_max_abs"] = float(((got[k] - want[k]).abs() / size)[calm].max())
     res["accept_stat_max_rel"] = float(((got["accept_stat"] - want["accept_stat"]).abs()
-                                        / (want["accept_stat"] + 1e-7))[agree].max())
+                                        / (size * want["accept_stat"] + 1e-7))[calm].max())
+    if scaled:
+        res["divergence_rate"] = float(want["diverging"].float().mean())
+        res["max_abs_energy_change"] = float(want["energy_change"].abs()[calm].max())
     failures = []
     if hmc_trajectory.launches != launches + 1:
         failures.append(f"{hmc_trajectory.launches - launches} launches counted, not 1")
@@ -595,24 +866,53 @@ def hmc_check(model, args, seed, need, chain_block=512, integrator="leapfrog"):
     return res, failures, got, want
 
 
-def _compare_hmc(model, args, seed, need):
-    """Phase 2d: :func:`hmc_check`, printed; raises on a failure. Returns
-    the largest q difference on the chains that agree."""
-    res, failures, _, _ = hmc_check(model, args, seed, need)
+def _compare_hmc(model, args, seed, need, scaled=False):
+    """Phases 2d and 2g: :func:`hmc_check`, printed; raises on a failure.
+    Returns the largest q difference on the chains that agree and the
+    plain version's ms."""
+    res, failures, _, _ = hmc_check(model, args, seed, need, scaled=scaled)
     print(json.dumps(res), flush=True)
     if failures:
         raise RuntimeError(f"HMC kernel vs plain ({res['body']}): {failures}")
     return res["q_max_abs"], res["plain_ms"]
 
 
-def _hmc_bound_ms(steps_total: int, C: int, n: int) -> tuple[float, str]:
+def _hmc_bound_ms(steps_total: int, C: int, n: int,
+                  body: str = "correlated_gaussian") -> tuple[float, str]:
     """Least time for one HMC trajectory launch: per chain and step the
-    2n^2-FLOP model body and about 10n elementwise, plus 4n per chain for
-    the two energies, over the steps these inputs ask for; against q, p,
-    grad and the inverse mass, the scalars and P read once and q, grad,
-    five scalars and two flags written once."""
-    ops = steps_total * (2 * n * n + 10 * n) + C * 4 * n
-    nbytes = 4 * (4 * C * n + 3 * C + n * n) + 4 * (2 * C * n + 5 * C) + 2 * C
+    model body and about 10n elementwise, plus 4n per chain for the two
+    energies, over the steps these inputs ask for; against q, p, grad and
+    the inverse mass, the scalars and the body's constants read once and
+    q, grad, five scalars and two flags written once."""
+    ops = steps_total * (_body_ops(body, n) + 10 * n) + C * 4 * n
+    consts = n * n if body == "correlated_gaussian" else 2 * n
+    nbytes = 4 * (4 * C * n + 3 * C + consts) + 4 * (2 * C * n + 5 * C) + 2 * C
+    return _roofline_ms(ops, nbytes)
+
+
+def _fused_diag_bound_ms(work_total: int, C: int, n: int, T: int, adapt_metric: bool,
+                         body: str, step: str = "nuts") -> tuple[float, str]:
+    """Least time for one fused launch of ``T`` draws with a per-chain diag
+    metric: per chain and draw about 10n for the momentum, the proposal's
+    gradient (NUTS) or the two energies (HMC, 6n), and with
+    ``adapt_metric`` 12n for the Welford step; per leaf (NUTS) the model
+    body and about 20n elementwise, per leapfrog step (HMC) the body and
+    about 10n. Bytes, each input read once and each output written once:
+    q, grad and the 7 per-chain scalars (position's logp, iter_count,
+    dual averaging) read and written, ``var`` and the body's constants
+    read; with ``adapt_metric`` also ``var`` written and the four Welford
+    rows and 6 weight and counter columns read and written; the trace and
+    each draw's stats at their widths (NUTS: 7 float32, depth and leaves
+    int32, 2 bool flags; HMC: 7 float32, the step count int32, 2 flags)
+    written."""
+    per_work = _body_ops(body, n) + (20 if step == "nuts" else 10) * n
+    per_draw = 10 * n + (_body_ops(body, n) if step == "nuts" else 6 * n)
+    ops = work_total * per_work + C * T * (per_draw + (12 * n if adapt_metric else 0))
+    consts = {"correlated_gaussian": n * n, "eight_schools": 2 * n}.get(body, 0)
+    rows_in, rows_out, cols = (5, 5, 13) if adapt_metric else (1, 0, 7)
+    state = 4 * (4 * C * n + (rows_in + rows_out) * C * n + 2 * cols * C + consts)
+    stat_bytes = 7 * 4 + (2 * 4 if step == "nuts" else 4) + 2 * 1
+    nbytes = state + T * C * (4 * n + stat_bytes)
     return _roofline_ms(ops, nbytes)
 
 
@@ -628,6 +928,14 @@ def _fused_hmc_bound_ms(steps_total: int, C: int, n: int, T: int,
            + C * T * (6 * n * n + (4 * n * n if tuning else 0)))
     nbytes = 4 * (2 * C * n + 8 * C + 3 * n * n) + 4 * (T * C * n + 10 * T * C + 2 * C * n)
     return _roofline_ms(ops, nbytes)
+
+
+def _check_gates(label, gates) -> None:
+    """Raise naming every gate of ``gates`` (``(name, passed)`` pairs)
+    that failed."""
+    failed = [g for g, ok in gates if not ok]
+    if failed:
+        raise RuntimeError(f"{label} gates failed: {failed}")
 
 
 def _quality(model, trace, stats, secs, report, label, card, extra):
@@ -669,17 +977,68 @@ def _quality(model, trace, stats, secs, report, label, card, extra):
              ("0.9 <= posterior_var_ratio <= 1.1", 0.9 <= var_ratio <= 1.1),
              ("max |mean| / sd < 0.1", mean_err < 0.1),
              ("min bulk ESS > 1000", min_ess > 1000)]
-    failed = [g for g, ok in gates if not ok]
-    if failed:
-        raise RuntimeError(f"{label} quality gates failed: {failed}")
+    _check_gates(label, gates)
     return line
 
 
-def _breakdown(model, state, gen, draws: int = 50, step: str = "nuts") -> None:
+def _es_quality(model, exact, trace, stats, report, label, card, div_limit, extra):
+    """The gates of an eight-schools run: divergence rate below
+    ``div_limit``, max split R-hat < 1.05 and min bulk ESS > 1000 over the
+    ten parameters, and the posterior mean of mu and log_tau within 0.1
+    posterior sd of the exact values (``exact``, from
+    ``EightSchools.exact_moments``), their sds within 10%. The diagnostics
+    of the ten parameters run in threads. Prints its JSON line."""
+    from concurrent.futures import ThreadPoolExecutor
+
+    import numpy as np
+    from littlemcmc_torch.utils.diagnostics import ess_bulk, split_rhat
+
+    shape = (ES_CHAINS, ES_DRAWS, model.ndim)
+    if trace.shape != shape or not np.isfinite(trace).all():
+        raise RuntimeError(f"{label}: bad trace: shape {trace.shape}, finite "
+                           f"{np.isfinite(trace).all()}")
+    t_ess = time.perf_counter()
+    with ThreadPoolExecutor(8) as pool:
+        ess = list(pool.map(lambda i: ess_bulk(trace[:, :, i]), range(model.ndim)))
+        rhat = list(pool.map(lambda i: split_rhat(trace[:, :, i]), range(model.ndim)))
+    secs = report["sample_seconds"]
+    div_rate = float(stats["diverging"].mean())
+    line = {"phase": label, "engine": report["engine"], "trajectory": report["trajectory"],
+            "chains": ES_CHAINS, "ndim": model.ndim, "tune": ES_TUNE, "draws": ES_DRAWS,
+            "target_accept": ES_TARGET, **extra, "sample_seconds": secs,
+            "transitions_per_s": ES_CHAINS * (ES_TUNE + ES_DRAWS) / secs,
+            "min_bulk_ess": float(min(ess)), "min_bulk_ess_per_s": float(min(ess)) / secs,
+            "max_split_rhat": float(max(rhat)), "divergence_rate": div_rate,
+            "step_size": float(stats["step_size"][:, -1].mean()),
+            "ess_seconds": time.perf_counter() - t_ess, "card": card}
+    gates = [(f"divergence_rate < {div_limit}", div_rate < div_limit),
+             ("max split R-hat < 1.05", line["max_split_rhat"] < 1.05),
+             ("min bulk ESS > 1000", line["min_bulk_ess"] > 1000)]
+    for i, name in enumerate(("mu", "log_tau")):
+        mean, sd = exact[name]
+        x = trace[:, :, i].astype(np.float64)
+        line[f"{name}_mean"], line[f"{name}_sd"] = float(x.mean()), float(x.std())
+        line[f"{name}_mean_err_in_sd"] = abs(line[f"{name}_mean"] - mean) / sd
+        line[f"{name}_sd_ratio"] = line[f"{name}_sd"] / sd
+        gates += [(f"|{name} mean - {mean:.3f}| < 0.1 sd", line[f"{name}_mean_err_in_sd"] < 0.1),
+                  (f"{name} sd within 10% of {sd:.3f}", abs(line[f"{name}_sd_ratio"] - 1) < 0.1)]
+    if "tree_size" in stats:
+        line.update(mean_tree_size=float(stats["tree_size"].mean()),
+                    mean_depth=float(stats["depth"].mean()),
+                    mean_tree_accept=float(stats["mean_tree_accept"].mean()))
+    else:
+        line.update(mean_n_steps=float(stats["n_steps"].mean()),
+                    accept=float(stats["accept"].mean()))
+    print(json.dumps(line), flush=True)
+    _check_gates(label, gates)
+    return line
+
+
+def _breakdown(model, state, gen, draws: int = 50, step: str = "nuts", label: str = "") -> None:
     """Where a post-tune draw's time goes: ``draws`` transitions from a
     main path's final state (``step``: the NUTS or the HMC path) under
     ``torch.profiler``; device time by kernel over the window's time on
-    CUDA events."""
+    CUDA events. ``label`` is appended to the phase's name."""
     import torch
     from torch.profiler import ProfilerActivity, profile
     from littlemcmc_torch.base import HMCConfig, NUTSConfig
@@ -708,7 +1067,7 @@ def _breakdown(model, state, gen, draws: int = 50, step: str = "nuts") -> None:
     traj = sum(t for k, t in by_kernel.items() if name in k)
     top = sorted(by_kernel.items(), key=lambda kv: -kv[1])[:4]
     print(json.dumps({
-        "phase": "breakdown" if step == "nuts" else "hmc_breakdown", "draws": draws,
+        "phase": ("breakdown" if step == "nuts" else "hmc_breakdown") + label, "draws": draws,
         "ms_per_draw": window_us / draws / 1e3,
         "device_busy_share": busy / window_us if busy else "not measured",
         "trajectory_kernel_share": traj / window_us if busy else "not measured",
@@ -753,29 +1112,32 @@ def _fused_breakdown(model, state, chunk: int, iter0: int) -> None:
         "top_device_us": [[k[:60], t] for k, t in top]}), flush=True)
 
 
-def _fused_path_breakdown(model, step: str = "nuts") -> None:
-    """Where an ``adapt_full`` call spends its time: the 3b call (with
-    ``step="hmc"`` the 3e call) once more under ``torch.profiler``; the
-    fused kernel's device time launch by launch (8 tune chunks, then 4 draw
+def _fused_path_breakdown(model, step: str = "nuts", sample_kw=None, draw_chunks: int = 4,
+                          label: str = "") -> dict:
+    """Where a fused call spends its time: the call once more under
+    ``torch.profiler`` (by default the 3b call, with ``step="hmc"`` the 3e
+    call; ``sample_kw`` replaces its arguments); the fused kernel's device
+    time launch by launch (the tune chunks, then ``draw_chunks`` draw
     chunks), and over the window from the first launch's start to the last
-    one's end, the other kernels' device time (the metric refreshes between
-    chunks) and the device's busy share."""
+    one's end, the other kernels' device time (the metric updates between
+    chunks) and the device's busy share. Prints and returns its line."""
     import torch
     from torch.profiler import ProfilerActivity, profile
     from littlemcmc_torch import HamiltonianMC, sample
 
     report = {}
     name = "fused_nuts" if step == "nuts" else "fused_hmc"
+    if sample_kw is None:
+        sample_kw = dict(model_ndim=N, chains=CHAINS, tune=TUNE, draws=DRAWS, init="adapt_full",
+                         step=HamiltonianMC(model_ndim=N) if step == "hmc" else None)
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-        sample(model.logp_grad, model_ndim=N, chains=CHAINS, tune=TUNE, draws=DRAWS,
-               random_seed=42, init="adapt_full", perf_report=report, progressbar=False,
-               compute_convergence_checks=False,
-               step=HamiltonianMC(model_ndim=N) if step == "hmc" else None)
+        sample(model.logp_grad, random_seed=42, perf_report=report, progressbar=False,
+               compute_convergence_checks=False, **sample_kw)
     kernels = sorted((e for e in prof.events()
                       if e.device_type == torch.autograd.DeviceType.CUDA),
                      key=lambda e: e.time_range.start)
     fused = [e for e in kernels if name in e.name]
-    line = {"phase": f"{name}_path_breakdown",
+    line = {"phase": f"{name}_path_breakdown{label}", "engine": report["engine"],
             "sample_seconds_profiled": report["sample_seconds"]}
     if not fused:
         line["fused_launch_ms"] = "not measured"
@@ -786,11 +1148,76 @@ def _fused_path_breakdown(model, step: str = "nuts") -> None:
                        if name not in e.name and t0 <= e.time_range.start
                        and e.time_range.end <= t1)
         line.update(fused_launch_ms=[t / 1e3 for t in fused_us],
-                    fused_tune_ms=sum(fused_us[:-4]) / 1e3,
-                    fused_draw_ms=sum(fused_us[-4:]) / 1e3,
+                    fused_tune_ms=sum(fused_us[:-draw_chunks]) / 1e3,
+                    fused_draw_ms=sum(fused_us[-draw_chunks:]) / 1e3,
                     window_ms=(t1 - t0) / 1e3, other_kernels_in_window_ms=other_us / 1e3,
-                    device_busy_share=(sum(fused_us) + other_us) / (t1 - t0))
+                    device_busy_share=(sum(fused_us) + other_us) / (t1 - t0),
+                    fused_share_of_sample=sum(fused_us) / 1e6 / report["sample_seconds"])
     print(json.dumps(line), flush=True)
+    return line
+
+
+def _es_kernel_timing(model, state, pd_state, step: str, gen) -> dict:
+    """The eight-schools kernels' time at the main paths' final states
+    (10,240 chains): the fused kernel's kDiag instance per 250-draw draw
+    chunk at the fused path's (device time under the profiler) with its
+    bound, and the per-draw kernel with the eight-schools body per launch
+    at the twin's (``pd_state``), with fresh momenta and the sampler's step
+    counts, with its bound."""
+    import torch
+    from littlemcmc_torch.base import HMCConfig, NUTSConfig
+    from littlemcmc_torch.ops.fused_hmc import fused_hmc
+    from littlemcmc_torch.ops.fused_nuts import fused_nuts
+    from littlemcmc_torch.ops.hmc_trajectory import hmc_trajectory
+    from littlemcmc_torch.ops.nuts_trajectory import trajectory
+
+    C, n = state.q.shape
+    spec = model.trajectory_spec()
+    pot, da = state.potential, state.da
+    cfg = (NUTSConfig if step == "nuts" else HMCConfig)(target_accept=ES_TARGET)
+    op = fused_nuts if step == "nuts" else fused_hmc
+    fargs = (state.q, state.q_grad, state.logp, state.iter_count.float(), da.log_step,
+             da.log_bar, da.hbar, da.count.float(), da.mu, pot.var.contiguous(), None)
+    fkw = dict(spec=spec, T=250, tuning=False, config=cfg, metric="diag",
+               chain_block=CHAIN_BLOCK)
+    out = op(*fargs, (5, 9), **fkw)
+    work = int(out["n_leaves" if step == "nuts" else "n_steps"].sum())
+    events = _cuda_time_ms(lambda: op(*fargs, (5, 9), **fkw), reps=3, warmup=0)
+    f_ms, f_src = _device_ms(lambda: op(*fargs, (5, 9), **fkw), f"fused_{step}", 3, events)
+    f_bound, f_by = _fused_diag_bound_ms(work, C, n, 250, False, spec.body, step)
+    s, var = pd_state, pd_state.potential.var.contiguous()
+    eps = torch.exp(s.da.log_bar)
+    p0 = s.potential.sample_momentum(gen)
+    if step == "nuts":
+        pname = "nuts_trajectory"
+        targs = (s.q, p0, s.q_grad, s.logp, eps,
+                 torch.full((C,), DEPTH, dtype=torch.int32, device=DEVICE), var)
+        kw = dict(spec=spec, max_treedepth=DEPTH, Emax=1000.0, chain_block=CHAIN_BLOCK)
+        pout = trajectory(*targs, (3, 8), **kw)
+        p_bound, p_by = _bound_ms(int(pout["n_leaves"].sum()), C, n, body=spec.body)
+
+        def call():
+            return trajectory(*targs, (3, 8), **kw)
+    else:
+        pname = "hmc_trajectory"
+        path = torch.rand(C, generator=gen, device=DEVICE) * cfg.path_length
+        nst = torch.clamp((path / eps).to(torch.int32), 1, cfg.max_steps)
+        targs = (s.q, p0, s.q_grad, s.logp, eps, nst, var)
+        kw = dict(spec=spec, Emax=1000.0)
+        p_bound, p_by = _hmc_bound_ms(int(nst.sum()), C, n, body=spec.body)
+
+        def call():
+            return hmc_trajectory(*targs, (3, 8), **kw)
+    p_events = _cuda_time_ms(call, reps=20, warmup=3)
+    p_ms, p_src = _device_ms(call, pname, 20, p_events)
+    line = {"phase": f"es_{step}_kernel_timing", "chains": C,
+            "fused_chunk_draws": 250, "fused_ms": f_ms, "fused_ms_source": f_src,
+            "fused_events_ms": events, "fused_bound_ms": f_bound, "fused_bound_by": f_by,
+            "fused_work_per_chain_draw": work / C / 250,
+            "per_draw_ms": p_ms, "per_draw_ms_source": p_src, "per_draw_events_ms": p_events,
+            "per_draw_bound_ms": p_bound, "per_draw_bound_by": p_by}
+    print(json.dumps(line), flush=True)
+    return line
 
 
 def main() -> int:
@@ -825,9 +1252,9 @@ def main() -> int:
             if "registers" in ln or "spill" in ln or "entry function" in ln:
                 print(f"ptxas[{name}]: {ln.strip()}", flush=True)
 
-    from littlemcmc_torch import HamiltonianMC, sample
+    from littlemcmc_torch import NUTS, HamiltonianMC, sample
     from littlemcmc_torch.base import HMCConfig, NUTSConfig
-    from littlemcmc_torch.models import CorrelatedGaussian, StandardNormal
+    from littlemcmc_torch.models import CorrelatedGaussian, EightSchools, StandardNormal
     from littlemcmc_torch.ops.fused_hmc import fused_hmc
     from littlemcmc_torch.ops.fused_nuts import fused_nuts
     from littlemcmc_torch.ops.hmc_trajectory import hmc_trajectory, hmc_trajectory_plain
@@ -845,12 +1272,12 @@ def main() -> int:
     # --- 2. the kernel against its plain version -------------------------------
     cg = CorrelatedGaussian(N)
     args = _stationary_inputs(cg, np.linalg.cholesky(cg.cov), CHAINS, 0.2, seed=0)
-    max_abs_err = _compare("correlated_gaussian", cg, args, (17, 29), need=0.99)
+    max_abs_err, _ = _compare("correlated_gaussian", cg, args, (17, 29), need=0.99)
     sn = StandardNormal(4)
     _compare("standard_normal", sn, _stationary_inputs(sn, np.eye(4), CHAINS, 0.5, seed=1),
              (5, 6), need=1.0)
     # 2b. the dense branch, the true covariance as the shared metric
-    dense_err = _compare("correlated_gaussian", cg,
+    dense_err, _ = _compare("correlated_gaussian", cg,
                          _dense_stationary_inputs(cg, CHAINS, 0.5, seed=2), (23, 31),
                          need=0.99, metric="dense")
     # 2c. the fused kernel: a draw chunk, a tune chunk with the step size
@@ -873,6 +1300,24 @@ def main() -> int:
     for tuning_cmp in (_compare_fused(4, True, False, seed=9, words=(59, 17), step="hmc"),
                        _compare_fused(4, True, True, seed=10, words=(67, 19), step="hmc")):
         fh_err = max(fh_err, tuning_cmp[2])
+    # 2f-2g. the per-draw kernels with the eight-schools body, 1024 chains
+    es = EightSchools()
+    es_exact = es.exact_moments()
+    es_args = _es_inputs(es, CHAINS, 0.3, seed=11)
+    es_traj_err, es_plain_ms = _compare("eight_schools", es, es_args, (83, -89), need=0.99)
+    es_hargs = _hmc_inputs(es, None, CHAINS, 0.25, 12)
+    es_hmc_err, es_hmc_plain_ms = _compare_hmc(es, es_hargs, (97, 101), need=0.99, scaled=True)
+    # 2h-2i. the fused kernels' diag branch, bodies 1 and 2, 1024 chains: a
+    # draw chunk, and a tune chunk with the Welford steps and dual averaging
+    # on; 4 draws, 2 for the 100-d body (its trees, at the path's depth of
+    # 10, run about 70 leaves a chain-draw, and the plain version steps
+    # each block to its deepest chain's tree)
+    diag_cmp = {}
+    for step in ("nuts", "hmc"):
+        for mname, model, T in (("correlated_gaussian", cg, 2), ("eight_schools", es, 4)):
+            draw = _compare_fused(T, False, True, 13, (103, -7), step, model, "diag")
+            tune = _compare_fused(T, True, True, 14, (107, 11), step, model, "diag")
+            diag_cmp[step, mname] = (draw, max(draw[2], tune[2]), T)
     _line(phase="kernel_checks", elapsed_s=f"{time.perf_counter() - t_start:.1f}")
 
     # --- 3. the main path -------------------------------------------------------
@@ -992,6 +1437,58 @@ def main() -> int:
           per_draw_min_bulk_ess_per_s=line_hd["min_bulk_ess_per_s"],
           elapsed_s=f"{time.perf_counter() - t_start:.1f}")
 
+    # 3g-3j. eight schools at 10,240 chains, NUTS and HMC: the fused diag
+    # engine, and the fuse_draws=False twin on the per-draw kernels
+    es_lines, es_states = {}, {}
+    for step, div_limit in (("nuts", 0.02), ("hmc", 0.01)):
+        fused_op, per_draw_op = ((fused_nuts, trajectory) if step == "nuts"
+                                 else (fused_hmc, hmc_trajectory))
+        n_chunks = -(-ES_TUNE // 250) - (-ES_DRAWS // 250)
+        for fuse, engine, launches_want in ((None, "fused_diag", {fused_op.__name__: n_chunks}),
+                                            (False, "per_draw_diag",
+                                             {per_draw_op.__name__: ES_TUNE + ES_DRAWS})):
+            reset_counts()
+            rep = {}
+            es_step = (HamiltonianMC(model_ndim=10, target_accept=ES_TARGET) if step == "hmc"
+                       else NUTS(model_ndim=10, target_accept=ES_TARGET))
+            tr, st, fs = sample(es.logp_grad, model_ndim=10, chains=ES_CHAINS, tune=ES_TUNE,
+                                draws=ES_DRAWS, random_seed=42, step=es_step, fuse_draws=fuse,
+                                perf_report=rep, return_final_state=True, progressbar=False,
+                                compute_convergence_checks=False)
+            got = {k: v for k, v in counts().items() if v}
+            if rep["engine"] != engine or got != launches_want:
+                raise RuntimeError(f"eight schools {step}, fuse_draws={fuse}: engine "
+                                   f"{rep['engine']}, launches {got}; expected {engine}, "
+                                   f"{launches_want}")
+            es_lines[step, engine] = _es_quality(es, es_exact, tr, st, rep,
+                                                 f"eight_schools_{step}_{engine}", smi,
+                                                 div_limit, {"kernel_launches": got})
+            es_states[step, engine] = fs
+        _line(phase=f"eight_schools_{step}_engines",
+              fused_sample_seconds=es_lines[step, "fused_diag"]["sample_seconds"],
+              per_draw_sample_seconds=es_lines[step, "per_draw_diag"]["sample_seconds"],
+              elapsed_s=f"{time.perf_counter() - t_start:.1f}")
+
+    # 3k. the 100-d NUTS main path with fuse_draws=True: the fused kernel's
+    # diag branch with the correlated body (2 tune chunks, 4 draw chunks)
+    reset_counts()
+    report_fd = {}
+    trace_fd, stats_fd, state_fd = sample(cg.logp_grad, model_ndim=N, chains=CHAINS, tune=TUNE,
+                                          draws=DRAWS, random_seed=42, fuse_draws=True,
+                                          perf_report=report_fd, return_final_state=True,
+                                          progressbar=False)
+    fd_launches = fused_nuts.launches
+    if (report_fd["engine"] != "fused_diag" or trajectory.launches != 0
+            or fd_launches != -(-TUNE // 250) - (-DRAWS // 250)):
+        raise RuntimeError(f"fuse_draws=True ran engine {report_fd['engine']} with "
+                           f"{fd_launches} fused and {trajectory.launches} per-draw launches")
+    line_fd = _quality(cg, trace_fd, stats_fd, report_fd["sample_seconds"], report_fd,
+                       "main_path_fused_diag", smi,
+                       {"kernel_launches": report_fd["kernel_launches"]})
+    _line(phase="diag_engines", fused_sample_seconds=line_fd["sample_seconds"],
+          per_draw_sample_seconds=report["sample_seconds"],
+          elapsed_s=f"{time.perf_counter() - t_start:.1f}")
+
     # --- 4. the kernel's time at the main path's final state -------------------
     gen = torch.Generator(device=DEVICE).manual_seed(7)
     pot = state.potential
@@ -1100,8 +1597,113 @@ def main() -> int:
           plain_ms_4_draws=f"{fh_cmp[1]:.1f}", kernel_ms_4_draws=f"{fh_cmp[0]:.4f}")
     _fused_path_breakdown(cg, step="hmc")
 
+    # 4e. the eight-schools kernels: the per-draw kernels at 2f-2g's inputs
+    # (1024 chains) and at the 10,240-chain twins' final states, the fused
+    # kDiag instances per 250-draw chunk at the fused paths' final states;
+    # where the eight-schools calls spend their time; the fused diag call of
+    # 3k and where the 100-d fused diag call spends its time
+    es_kw = dict(spec=es.trajectory_spec(), max_treedepth=DEPTH, Emax=1000.0,
+                 chain_block=CHAIN_BLOCK)
+    es_leaves = int(trajectory(*es_args, (83, -89), **es_kw)["n_leaves"].sum())
+    es_ev = _cuda_time_ms(lambda: trajectory(*es_args, (83, -89), **es_kw), reps=20, warmup=3)
+    es_ms, es_src = _device_ms(lambda: trajectory(*es_args, (83, -89), **es_kw),
+                               "nuts_trajectory", 20, es_ev)
+    es_bound = _bound_ms(es_leaves, CHAINS, 10, body="eight_schools")
+    es_hkw = dict(spec=es.trajectory_spec(), Emax=1000.0)
+    es_h_ev = _cuda_time_ms(lambda: hmc_trajectory(*es_hargs, (97, 101), **es_hkw), reps=20,
+                            warmup=3)
+    es_h_ms, es_h_src = _device_ms(lambda: hmc_trajectory(*es_hargs, (97, 101), **es_hkw),
+                                   "hmc_trajectory", 20, es_h_ev)
+    es_h_bound = _hmc_bound_ms(int(es_hargs[5].sum()), CHAINS, 10, body="eight_schools")
+    _line(phase="es_check_input_timing", nuts_trajectory_ms=es_ms, nuts_ms_source=es_src,
+          nuts_bound_ms=es_bound[0], mean_leaves=es_leaves / CHAINS,
+          hmc_trajectory_ms=es_h_ms, hmc_ms_source=es_h_src, hmc_bound_ms=es_h_bound[0],
+          mean_n_steps=float(es_hargs[5].float().mean()))
+    es_timing = {}
+    for step in ("nuts", "hmc"):
+        es_timing[step] = _es_kernel_timing(es, es_states[step, "fused_diag"],
+                                            es_states[step, "per_draw_diag"], step, gen)
+        es_step = (HamiltonianMC(model_ndim=10, target_accept=ES_TARGET) if step == "hmc"
+                   else NUTS(model_ndim=10, target_accept=ES_TARGET))
+        _fused_path_breakdown(es, step, dict(model_ndim=10, chains=ES_CHAINS, tune=ES_TUNE,
+                                             draws=ES_DRAWS, step=es_step),
+                              draw_chunks=2, label="_eight_schools")
+        _breakdown(es, es_states[step, "per_draw_diag"], gen, step=step, label="_eight_schools")
+    # the kDiag instance with the correlated body: one 250-draw draw chunk
+    # at 3k's final state
+    pot_fd, da_fd = state_fd.potential, state_fd.da
+    fdargs = (state_fd.q, state_fd.q_grad, state_fd.logp, state_fd.iter_count.float(),
+              da_fd.log_step, da_fd.log_bar, da_fd.hbar, da_fd.count.float(), da_fd.mu,
+              pot_fd.var.contiguous(), None)
+    fdkw = dict(spec=cg.trajectory_spec(), T=250, tuning=False, config=NUTSConfig(),
+                metric="diag", chain_block=CHAIN_BLOCK)
+    fd_leaves = int(fused_nuts(*fdargs, (5, 9), **fdkw)["n_leaves"].sum())
+    fd_ev = _cuda_time_ms(lambda: fused_nuts(*fdargs, (5, 9), **fdkw), reps=3, warmup=0)
+    fd_ms, fd_src = _device_ms(lambda: fused_nuts(*fdargs, (5, 9), **fdkw), "fused_nuts", 3,
+                               fd_ev)
+    fd_bound = _fused_diag_bound_ms(fd_leaves, CHAINS, N, 250, False, "correlated_gaussian")
+    _line(phase="fused_diag_timing", chunk_draws=250, kernel_ms=f"{fd_ms:.4f}",
+          ms_source=fd_src, events_ms=f"{fd_ev:.4f}", bound_ms=f"{fd_bound[0]:.4f}",
+          bound_by=fd_bound[1], mean_leaves_per_draw=f"{fd_leaves / CHAINS / 250:.3f}")
+    _fused_path_breakdown(cg, "nuts", dict(model_ndim=N, chains=CHAINS, tune=TUNE,
+                                           draws=DRAWS, fuse_draws=True),
+                          draw_chunks=4, label="_fused_diag")
+    _line(phase="es_timing_done", elapsed_s=f"{time.perf_counter() - t_start:.1f}")
+
     traj_src = "littlemcmc_torch/ops/csrc/nuts_trajectory.cu"
     traj_tpu = "littlemcmc_tpu/ops/nuts_trajectory_pallas.py:1023"
+    fn_src, fn_tpu = ("littlemcmc_torch/ops/csrc/fused_nuts.cu",
+                      "littlemcmc_tpu/ops/fused_nuts_pallas.py:978")
+    fh_src, fh_tpu = ("littlemcmc_torch/ops/csrc/fused_hmc.cu",
+                      "littlemcmc_tpu/ops/fused_hmc_pallas.py:511")
+
+    def diag_row(step, mname, n, launches_main, main_ms=None, main_bound=None):
+        """A fused kDiag instance: ms, plain_ms and bound_ms at 2h-2i's
+        draw-chunk input (1024 chains, ``draws``); chunk_*: one 250-draw launch
+        at the main path's final state."""
+        (k_ms, p_ms, _, work, ev_ms), err, T = diag_cmp[step, mname]
+        bound = _fused_diag_bound_ms(work, CHAINS, n, T, False, mname, step)
+        row = {"name": f"fused_{step}", "metric": "diag", "body": mname, "route": "cuda",
+               "source": fn_src if step == "nuts" else fh_src,
+               "replaces": fn_tpu if step == "nuts" else fh_tpu,
+               "launches": launches_main, "max_abs_err": err, "ms": k_ms, "events_ms": ev_ms,
+               "draws": T, "plain_ms": p_ms, "bound_ms": bound[0], "bound_by": bound[1],
+               "library_ms": None}
+        if main_ms is not None:
+            row.update(chunk_draws=250, chunk_ms=main_ms, chunk_bound_ms=main_bound[0],
+                       chunk_bound_by=main_bound[1])
+        return row
+
+    es_rows = [
+        # ms, plain_ms, bound_ms: one launch at 2f's input (1024 chains);
+        # main_*: one launch at the 10,240-chain twin's final state
+        {"name": "nuts_trajectory", "metric": "diag", "body": "eight_schools",
+         "route": "cuda", "source": traj_src, "replaces": traj_tpu,
+         "launches": es_lines["nuts", "per_draw_diag"]["kernel_launches"]["trajectory"],
+         "max_abs_err": es_traj_err, "ms": es_ms, "ms_source": es_src,
+         "plain_ms": es_plain_ms, "bound_ms": es_bound[0], "bound_by": es_bound[1],
+         "library_ms": None, "main_chains": ES_CHAINS,
+         "main_ms": es_timing["nuts"]["per_draw_ms"],
+         "main_bound_ms": es_timing["nuts"]["per_draw_bound_ms"]},
+        {"name": "hmc_trajectory", "metric": "diag", "body": "eight_schools",
+         "route": "cuda", "source": "littlemcmc_torch/ops/csrc/hmc_trajectory.cu",
+         "replaces": "littlemcmc_tpu/ops/hmc_trajectory_pallas.py:273",
+         "launches": es_lines["hmc", "per_draw_diag"]["kernel_launches"]["hmc_trajectory"],
+         "max_abs_err": es_hmc_err, "ms": es_h_ms, "ms_source": es_h_src,
+         "plain_ms": es_hmc_plain_ms, "bound_ms": es_h_bound[0], "bound_by": es_h_bound[1],
+         "library_ms": None, "main_chains": ES_CHAINS,
+         "main_ms": es_timing["hmc"]["per_draw_ms"],
+         "main_bound_ms": es_timing["hmc"]["per_draw_bound_ms"]},
+        diag_row("nuts", "correlated_gaussian", N, fd_launches, fd_ms, fd_bound),
+        diag_row("nuts", "eight_schools", 10,
+                 es_lines["nuts", "fused_diag"]["kernel_launches"]["fused_nuts"],
+                 es_timing["nuts"]["fused_ms"],
+                 (es_timing["nuts"]["fused_bound_ms"], es_timing["nuts"]["fused_bound_by"])),
+        diag_row("hmc", "eight_schools", 10,
+                 es_lines["hmc", "fused_diag"]["kernel_launches"]["fused_hmc"],
+                 es_timing["hmc"]["fused_ms"],
+                 (es_timing["hmc"]["fused_bound_ms"], es_timing["hmc"]["fused_bound_by"])),
+    ]
     # no single PyTorch call computes a NUTS or an HMC transition:
     # library_ms is null. ms: the kernel's device time per launch
     # (_device_ms); events_ms: CUDA events around back-to-back calls of its
@@ -1143,7 +1745,7 @@ def main() -> int:
          "bound_by": fh_bound_by,
          "library_ms": None, "chunk_draws": 250, "chunk_ms": fh_ms,
          "chunk_bound_ms": fh_chunk_bound_ms, "chunk_bound_by": fh_chunk_bound_by},
-    ]}), flush=True)
+    ] + es_rows}), flush=True)
     _line(phase="done", elapsed_s=f"{time.perf_counter() - t_start:.1f}")
     print(smi, flush=True)
     print(json.dumps({"ok": True, "device": {"platform": "gpu",

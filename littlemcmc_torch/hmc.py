@@ -12,11 +12,11 @@ Counterpart of ``littlemcmc_tpu/hmc.py``:
   HMC trajectory op for every chain (diag metrics), then dual averaging and
   the metric's Welford update;
 - :func:`build_fused_hmc_runner_factory` (``:285-552``), the fused engine
-  for a static dense or a pooled adaptive dense metric: one fused-op launch
-  per chunk of draws.
+  for a diagonal metric (static, or adapted per chain and pooled at chunk
+  boundaries or not), a static dense or a pooled adaptive dense metric: one
+  fused-op launch per chunk of draws.
 
-The fused op's per-chain diag branch (``adapt_metric``), the low-rank
-metric and ``step_rand`` are not ported yet.
+The low-rank metric and ``step_rand`` are not ported yet.
 """
 
 from __future__ import annotations
@@ -27,12 +27,11 @@ import torch
 
 from .base import ChainState, HMCConfig, finish_step, pooled_tune_schedule
 from .integration import IntegratorState, leapfrog, recompute_with_momentum
-from .nuts import _dense_boundary_potential, _pool_dense_welford
+from .nuts import fused_metric_after, fused_metric_inputs, fused_metric_kind
 from .ops.fused_hmc import fused_hmc
 from .ops.hmc_trajectory import DEFAULT_HMC_CHAIN_BLOCK, hmc_trajectory
 from .ops.nuts_trajectory import DEFAULT_CHAIN_BLOCK, TrajectorySpec
-from .quadpotential import (QuadPotentialDiag, QuadPotentialDiagAdapt, QuadPotentialFull,
-                            QuadPotentialFullAdapt)
+from .quadpotential import QuadPotentialDiag, QuadPotentialDiagAdapt
 from .step_sizes import DualAverageState
 
 __all__ = ["HMCConfig", "HMCInfo", "run_hmc_trajectory", "build_hmc_kernel",
@@ -166,54 +165,47 @@ def build_hmc_kernel(logp_grad_fn: BatchedLogpGrad, config: HMCConfig = HMCConfi
 def build_fused_hmc_runner_factory(config: HMCConfig, trajectory_spec: TrajectorySpec,
                                    potential_template, pooled: bool,
                                    seed_words: Tuple[int, int]):
-    """Chunk-runner factory of the fused multi-draw HMC kernel, dense metrics.
+    """Chunk-runner factory of the fused multi-draw HMC kernel.
 
     The contract of :func:`littlemcmc_torch.nuts.build_fused_nuts_runner_factory`
     with HMC's stats: ``factory(chunk, tuning, collect) -> run_chunk``,
-    ``run_chunk(state, iter0) -> (state, (trace, HMCInfo) | None, ndiv)``.
-    A static ``QuadPotentialFull`` runs every chunk with the frozen metric;
-    a pooled ``QuadPotentialFullAdapt`` carries the block-local pooled
+    ``run_chunk(state, iter0) -> (state, (trace, HMCInfo) | None, ndiv)``,
+    and its metrics (:func:`~littlemcmc_torch.nuts.fused_metric_kind`): a
+    diagonal metric, static or adapted per chain in the kernel through its
+    tune chunks (pooled once at each tune chunk's boundary with
+    ``pooled``); a static ``QuadPotentialFull`` with the frozen metric; a
+    pooled ``QuadPotentialFullAdapt``, which carries the block-local pooled
     Welford state through its tune chunks and refreshes the shared metric
     at each chunk boundary, with tune chunks from
     :func:`~littlemcmc_torch.base.pooled_tune_schedule` (reference
-    ``hmc.py:539-552``).
+    ``hmc.py:285-552``).
     """
-    dense_static = isinstance(potential_template, QuadPotentialFull)
-    dense_pooled = pooled and isinstance(potential_template, QuadPotentialFullAdapt)
-    if not (dense_static or dense_pooled):
-        raise NotImplementedError(
-            "the fused HMC kernel of littlemcmc_torch runs a static dense metric or a "
-            "cross-chain pooled adaptive dense metric; its per-chain diag branch is ROADMAP "
-            "Queue 2 item 10 and its low-rank branch Queue 1 item 12")
+    kind = fused_metric_kind(potential_template, pooled)
     if trajectory_spec is None:
         raise NotImplementedError("the fused HMC kernel needs a model with a "
-                                  "trajectory_spec() (StandardNormal, CorrelatedGaussian)")
-    mult = potential_template.window_multiplier if dense_pooled else 1.0
+                                  "trajectory_spec() (StandardNormal, CorrelatedGaussian, "
+                                  "EightSchools)")
+    mult = (potential_template.window_multiplier
+            if kind in ("diag_adapt", "dense_pooled") else 1.0)
     w0, w1 = seed_words
     chain_block = config.chain_block or DEFAULT_CHAIN_BLOCK
 
     def factory(chunk: int, tuning: bool, collect: bool):
-        adapt_dense = bool(tuning) and dense_pooled
-
         def run_chunk(state: ChainState, iter0: int):
             pot = state.potential
-            cov = pot.cov[0].contiguous()
-            eye = torch.eye(cov.shape[0], dtype=cov.dtype, device=cov.device)
-            linv = torch.linalg.solve_triangular(pot.chol[0], eye, upper=False)
-            dense_welford = _pool_dense_welford(pot) if adapt_dense else None
+            metric, var, linv, welford, dense_welford = fused_metric_inputs(kind, pot, tuning)
             da = state.da
             outs = fused_hmc(
                 state.q, state.q_grad, state.logp, state.iter_count.to(torch.float32),
                 da.log_step, da.log_bar, da.hbar, da.count.to(torch.float32), da.mu,
-                cov, linv, ((w0 + iter0 * 15485863) & 0xFFFFFFFF, w1),
+                var, linv, ((w0 + iter0 * 15485863) & 0xFFFFFFFF, w1),
                 spec=trajectory_spec, T=chunk, tuning=bool(tuning), config=config,
-                window_multiplier=mult, chain_block=chain_block, collect_trace=collect,
-                dense_welford=dense_welford)
-            if adapt_dense:
-                pot = _dense_boundary_potential(pot, outs, dense_welford[0],
-                                                state.q.shape[0])
+                metric=metric, window_multiplier=mult, chain_block=chain_block,
+                collect_trace=collect, welford=welford, dense_welford=dense_welford)
             new_state = ChainState(
-                q=outs["q"], q_grad=outs["grad"], logp=outs["logp"], potential=pot,
+                q=outs["q"], q_grad=outs["grad"], logp=outs["logp"],
+                potential=fused_metric_after(pot, outs, tuning, pooled, dense_welford,
+                                             state.q.shape[0]),
                 da=DualAverageState(log_step=outs["da_log_step"],
                                     log_bar=outs["da_log_bar"], hbar=outs["da_hbar"],
                                     count=outs["da_count"].to(torch.int32),
@@ -233,7 +225,7 @@ def build_fused_hmc_runner_factory(config: HMCConfig, trajectory_spec: Trajector
 
         return run_chunk
 
-    if dense_pooled:
+    if kind == "dense_pooled":
         # the metric refreshes only at chunk boundaries, so the tune chunks
         # are the adaptation schedule (reference hmc.py:539-552)
         factory.tune_chunk_schedule = pooled_tune_schedule

@@ -1,5 +1,6 @@
-"""Model zoo (this slice: the Gaussian targets)."""
+"""Model zoo: the Gaussian targets and eight schools."""
 
+from .eight_schools import EightSchools
 from .gaussian import CorrelatedGaussian, StandardNormal
 
-__all__ = ["CorrelatedGaussian", "StandardNormal"]
+__all__ = ["CorrelatedGaussian", "EightSchools", "StandardNormal"]

@@ -27,7 +27,7 @@ class StandardNormal:
         self.device = resolve_device(device)
         self.true_mean = np.zeros(self.ndim)
         self.true_var = np.ones(self.ndim)
-        self._spec = TrajectorySpec("standard_normal", (), self.ndim)
+        self._spec = TrajectorySpec("standard_normal", (), self.ndim, packable=True)
 
     def logp(self, q: torch.Tensor) -> torch.Tensor:
         return -0.5 * torch.sum(q * q)

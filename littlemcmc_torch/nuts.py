@@ -8,14 +8,16 @@ Counterpart of ``littlemcmc_tpu/nuts.py`` on its kernel paths:
   updates; diag metrics, a static dense metric, or a pooled adaptive dense
   metric (``_shared_dense_cov`` ``:642-659``);
 - :func:`build_fused_nuts_runner_factory` (``:1006-1326``), the fused
-  engine for dense metrics (its ``dense_static`` and ``dense_pooled``
-  branches): one fused-op launch per chunk of draws, with the pooled dense
-  metric refreshed at chunk boundaries (``_pool_dense_welford``
-  ``:927-950``, ``_dense_boundary_potential`` ``:967-1003``).
+  engine: one fused-op launch per chunk of draws, for a static or an
+  adaptive diagonal metric, per chain or pooled at chunk boundaries
+  (``diag_static``, ``diag_adapt``, the pooled diag of ``:1259-1271``), a
+  static dense metric, or the pooled dense metric refreshed at chunk
+  boundaries (``_pool_dense_welford`` ``:927-950``,
+  ``_dense_boundary_potential`` ``:967-1003``).
 
 ``run_nuts_tree`` (the tree built from separate tensor ops, the engine
-for models without a kernel body), the fused diag and low-rank branches
-and the low-rank metric are not ported yet.
+for models without a kernel body), the fused low-rank branch and the
+low-rank metric are not ported yet.
 """
 
 from __future__ import annotations
@@ -27,8 +29,9 @@ import torch
 
 from .base import ChainState, NUTSConfig, finish_step, pooled_tune_schedule
 from .math import log1mexp
-from .ops.fused_nuts import combine_dense_welford, fused_nuts
+from .ops.fused_nuts import WELFORD_KEYS, combine_dense_welford, fused_nuts
 from .ops.nuts_trajectory import DEFAULT_CHAIN_BLOCK, TrajectorySpec, trajectory
+from .parallel.cross_chain import cross_chain_potential_pool
 from .quadpotential import (QuadPotentialDiag, QuadPotentialDiagAdapt, QuadPotentialFull,
                             QuadPotentialFullAdapt, WelfordCovariance, cholesky_or_keep)
 from .step_sizes import DualAverageState
@@ -36,7 +39,8 @@ from .step_sizes import DualAverageState
 __all__ = ["NUTSInfo", "build_nuts_kernel", "build_fused_nuts_runner_factory"]
 
 _NO_TREE = ("littlemcmc_torch runs NUTS only through its kernels, which need a "
-            "model with a trajectory_spec() (StandardNormal, CorrelatedGaussian). "
+            "model with a trajectory_spec() (StandardNormal, CorrelatedGaussian, "
+            "EightSchools). "
             "The tensor-op tree for other models is ROADMAP Queue 1 item 6 "
             "(run_nuts_tree).")
 
@@ -152,7 +156,7 @@ def build_nuts_kernel(config: NUTSConfig = NUTSConfig(),
 
 
 # --------------------------------------------------------------------------
-# The fused engine (dense metrics)
+# The fused engine
 # --------------------------------------------------------------------------
 
 def _pool_dense_welford(pot: QuadPotentialFullAdapt):
@@ -214,10 +218,66 @@ def _dense_boundary_potential(pot: QuadPotentialFullAdapt, outs, c_fg: torch.Ten
         window=counter("window"))
 
 
+def fused_metric_kind(potential_template, pooled: bool) -> str:
+    """Which fused branch runs a metric: ``diag_static``
+    (``QuadPotentialDiag``), ``diag_adapt`` (``QuadPotentialDiagAdapt``,
+    per chain or, with ``pooled``, pooled at chunk boundaries),
+    ``dense_static`` (``QuadPotentialFull``) or ``dense_pooled`` (``pooled``
+    and ``QuadPotentialFullAdapt``); raises for any other (reference
+    ``nuts.py:1059-1072``)."""
+    if isinstance(potential_template, QuadPotentialDiagAdapt):
+        return "diag_adapt"
+    if isinstance(potential_template, QuadPotentialDiag):
+        return "diag_static"
+    if isinstance(potential_template, QuadPotentialFull):
+        return "dense_static"
+    if pooled and isinstance(potential_template, QuadPotentialFullAdapt):
+        return "dense_pooled"
+    raise NotImplementedError(
+        "the fused kernels of littlemcmc_torch run a diagonal metric, a static dense "
+        "metric or a cross-chain pooled adaptive dense metric; per-chain dense "
+        "adaptation is ROADMAP Queue 1 item 6 and the low-rank branch Queue 1 item 12")
+
+
+def fused_metric_inputs(kind: str, pot, tuning: bool):
+    """``(metric, var, linv, welford, dense_welford)`` of a fused launch
+    from the chunk's starting metric (reference ``nuts.py:1106-1139``): the
+    shared covariance and ``L^{-1}`` (one triangular solve a chunk) with,
+    in pooled tune chunks, the global pooled Welford state; or the
+    per-chain inverse-mass diagonals with, in tune chunks of an adaptive
+    diag metric, its per-chain Welford state (``_fused_welford_tuple``
+    ``:920``). Draw chunks leave an adaptive diag metric as it is, so they
+    pass no Welford state."""
+    if kind.startswith("dense"):
+        cov = pot.cov[0].contiguous()
+        eye = torch.eye(cov.shape[0], dtype=cov.dtype, device=cov.device)
+        linv = torch.linalg.solve_triangular(pot.chol[0], eye, upper=False)
+        pooled_tune = tuning and kind == "dense_pooled"
+        return "dense", cov, linv, None, _pool_dense_welford(pot) if pooled_tune else None
+    if kind == "diag_adapt":
+        return "diag", pot.var, None, pot.welford_leaves() if tuning else None, None
+    return "diag", pot.v, None, None, None
+
+
+def fused_metric_after(pot, outs, tuning: bool, pooled: bool, dense_welford, C: int):
+    """The metric at the chunk boundary from the fused op's outputs: an
+    adaptive diag metric rebuilt from the updated per-chain state and, in
+    pooled tune chunks, pooled across chains once (reference
+    ``nuts.py:1223-1274``); the pooled dense metric refreshed from the
+    combined block states (:func:`_dense_boundary_potential`); a static
+    metric as it was."""
+    if "var" in outs:
+        pot = pot.with_welford_leaves(outs["var"], [outs[k] for k in WELFORD_KEYS])
+        return cross_chain_potential_pool(pot, pooled and tuning)
+    if dense_welford is not None:
+        return _dense_boundary_potential(pot, outs, dense_welford[0], C)
+    return pot
+
+
 def build_fused_nuts_runner_factory(config: NUTSConfig, trajectory_spec: TrajectorySpec,
                                     potential_template, pooled: bool,
                                     seed_words: Tuple[int, int]):
-    """Chunk-runner factory of the fused multi-draw kernel for dense metrics.
+    """Chunk-runner factory of the fused multi-draw NUTS kernel.
 
     Returns ``factory(chunk, tuning, collect) -> run_chunk`` with
     ``run_chunk(state, iter0) -> (state, (trace, NUTSInfo) | None, ndiv)``:
@@ -226,8 +286,15 @@ def build_fused_nuts_runner_factory(config: NUTSConfig, trajectory_spec: Traject
     ``NUTSInfo`` ``(chunk, C)`` and ``ndiv`` the divergences, a tensor on
     the state's device.
 
-    ``potential_template`` gives the metric's structure:
+    ``potential_template`` gives the metric's structure
+    (:func:`fused_metric_kind`):
 
+    - diagonal (``QuadPotentialDiag``, ``QuadPotentialDiagAdapt``): every
+      chunk fused; an adaptive metric runs each chain's Welford updates in
+      the kernel through its tune chunks and, with ``pooled``, is pooled
+      across chains once at each tune chunk's boundary (mid-chunk each
+      chain rides its own estimate, reference ``nuts.py:1073-1088``). Tune
+      chunks of ``_AUTO_CHUNK`` draws;
     - static dense (``QuadPotentialFull``): every chunk with the frozen
       metric; momentum ``z @ L^{-1}``, velocities ``p @ cov``;
     - pooled dense (``pooled`` and ``QuadPotentialFullAdapt``): tune chunks
@@ -240,41 +307,30 @@ def build_fused_nuts_runner_factory(config: NUTSConfig, trajectory_spec: Traject
     the global iteration in (``w0 + iter0 * 15485863``), so the draws do not
     depend on the chunking (reference ``nuts.py:1190-1207``).
     """
-    dense_static = isinstance(potential_template, QuadPotentialFull)
-    dense_pooled = pooled and isinstance(potential_template, QuadPotentialFullAdapt)
-    if not (dense_static or dense_pooled):
-        raise NotImplementedError(
-            "the fused kernel of littlemcmc_torch runs a static dense metric or a "
-            "cross-chain pooled adaptive dense metric; its per-chain diag and "
-            "low-rank branches are ROADMAP Queue 2 item 10 and Queue 1 item 12")
+    kind = fused_metric_kind(potential_template, pooled)
     if trajectory_spec is None:
         raise NotImplementedError(_NO_TREE)
-    mult = potential_template.window_multiplier if dense_pooled else 1.0
+    mult = (potential_template.window_multiplier
+            if kind in ("diag_adapt", "dense_pooled") else 1.0)
     w0, w1 = seed_words
     chain_block = config.chain_block or DEFAULT_CHAIN_BLOCK
 
     def factory(chunk: int, tuning: bool, collect: bool):
-        adapt_dense = bool(tuning) and dense_pooled
-
         def run_chunk(state: ChainState, iter0: int):
             pot = state.potential
-            cov = pot.cov[0].contiguous()
-            eye = torch.eye(cov.shape[0], dtype=cov.dtype, device=cov.device)
-            linv = torch.linalg.solve_triangular(pot.chol[0], eye, upper=False)
-            dense_welford = _pool_dense_welford(pot) if adapt_dense else None
+            metric, var, linv, welford, dense_welford = fused_metric_inputs(kind, pot, tuning)
             da = state.da
             outs = fused_nuts(
                 state.q, state.q_grad, state.logp, state.iter_count.to(torch.float32),
                 da.log_step, da.log_bar, da.hbar, da.count.to(torch.float32), da.mu,
-                cov, linv, ((w0 + iter0 * 15485863) & 0xFFFFFFFF, w1),
+                var, linv, ((w0 + iter0 * 15485863) & 0xFFFFFFFF, w1),
                 spec=trajectory_spec, T=chunk, tuning=bool(tuning), config=config,
-                window_multiplier=mult, chain_block=chain_block, collect_trace=collect,
-                dense_welford=dense_welford)
-            if adapt_dense:
-                pot = _dense_boundary_potential(pot, outs, dense_welford[0],
-                                                state.q.shape[0])
+                metric=metric, window_multiplier=mult, chain_block=chain_block,
+                collect_trace=collect, welford=welford, dense_welford=dense_welford)
             new_state = ChainState(
-                q=outs["q"], q_grad=outs["grad"], logp=outs["logp"], potential=pot,
+                q=outs["q"], q_grad=outs["grad"], logp=outs["logp"],
+                potential=fused_metric_after(pot, outs, tuning, pooled, dense_welford,
+                                             state.q.shape[0]),
                 da=DualAverageState(log_step=outs["da_log_step"],
                                     log_bar=outs["da_log_bar"], hbar=outs["da_hbar"],
                                     count=outs["da_count"].to(torch.int32),
@@ -298,7 +354,7 @@ def build_fused_nuts_runner_factory(config: NUTSConfig, trajectory_spec: Traject
 
         return run_chunk
 
-    if dense_pooled:
+    if kind == "dense_pooled":
         # the metric refreshes only at chunk boundaries, so the tune chunks
         # are the adaptation schedule (reference nuts.py:1309-1326; the
         # reference's tune_chunk_cap of 50 is never read beside a schedule)

@@ -1,12 +1,14 @@
 // Device helpers the fused multi-draw kernels share (fused_nuts.cu and
-// fused_hmc.cu): the dense momentum, dual averaging, and the block-local
-// pooled dense Welford state.
+// fused_hmc.cu): the dense and diag momenta, dual averaging, the
+// block-local pooled dense Welford state and the per-chain diag Welford
+// state.
 //
 // Counterparts of the JAX fused kernels' helpers in
 // littlemcmc_tpu/ops/fused_nuts_pallas.py, which fused_hmc_pallas.py
-// imports from there: _boxmuller_std (:134) with _dense_momentum (:154),
-// _da_update_cols (:399), _dense_welford_batch_add (:246) and
-// _dense_welford_swap_and_count (:267).
+// imports from there: _boxmuller_std (:134) with _dense_momentum (:154)
+// and _boxmuller_momentum (:143), _da_update_cols (:399),
+// _dense_welford_batch_add (:246), _dense_welford_swap_and_count (:267)
+// and _welford_update_rows (:418).
 
 #pragma once
 
@@ -16,22 +18,33 @@ namespace lmc {
 
 constexpr float kTwoPi = 6.283185307179586f;
 
-// The momentum p = z @ L^-1 of the chain of warp w: z are the Box-Muller
-// normals of calls 1 and 2 of the row stream with base word mbase (the
-// draw's seed word plus the kernel's stream offset) and lanes
-// lane_r = w * Npad + col (nuts_trajectory_pallas.py:354-358). z and p are
-// vectors of length n in shared memory.
+// The Box-Muller normal of column i of the chain of warp w: calls 1 and 2
+// of the row stream with base word mbase (the draw's seed word plus the
+// kernel's stream offset) and lane lane_r = w * Npad + i
+// (nuts_trajectory_pallas.py:354-358).
+__device__ __forceinline__ float boxmuller_normal(uint32_t mbase, uint32_t s1u, int w, int Npad,
+                                                  int i) {
+    const uint32_t lane_r = (uint32_t)w * (uint32_t)Npad + (uint32_t)i;
+    const uint32_t salt_row = fmix32((mbase + lane_r * 65063u + 17u) ^ s1u);
+    const float u1 = counter_uniform(salt_row, 1u);
+    const float u2 = counter_uniform(salt_row, 2u);
+    return sqrtf(-2.0f * logf(u1)) * cosf(kTwoPi * u2);
+}
+
+// The momentum p = z @ L^-1 of the chain of warp w. z and p are vectors of
+// length n in shared memory.
 __device__ __forceinline__ void dense_momentum(uint32_t mbase, uint32_t s1u, int w, int Npad,
                                                const float* linv, float* z, float* p, int n,
                                                int lane) {
-    for (int i = lane; i < n; i += 32) {
-        const uint32_t lane_r = (uint32_t)w * (uint32_t)Npad + (uint32_t)i;
-        const uint32_t salt_row = fmix32((mbase + lane_r * 65063u + 17u) ^ s1u);
-        const float u1 = counter_uniform(salt_row, 1u);
-        const float u2 = counter_uniform(salt_row, 2u);
-        z[i] = sqrtf(-2.0f * logf(u1)) * cosf(kTwoPi * u2);
-    }
+    for (int i = lane; i < n; i += 32) z[i] = boxmuller_normal(mbase, s1u, w, Npad, i);
     matvec(z, linv, p, n, lane);
+}
+
+// The momentum p = z / sqrt(V) for the chain's inverse-mass diagonal V
+// (_boxmuller_momentum :143-151). Each lane writes its own columns.
+__device__ __forceinline__ void diag_momentum(uint32_t mbase, uint32_t s1u, int w, int Npad,
+                                              const float* V, float* p, int n, int lane) {
+    for (int i = lane; i < n; i += 32) p[i] = boxmuller_normal(mbase, s1u, w, Npad, i) / sqrtf(V[i]);
 }
 
 // One chain's dual-averaging state (reference step_sizes.py:85-92), the
@@ -124,6 +137,53 @@ struct BlockWelford {
             wout[0] = wf; wout[1] = wb; wout[2] = ns; wout[3] = pu; wout[4] = win;
             wout[5] = 0.f; wout[6] = 0.f; wout[7] = 0.f;
         }
+    }
+};
+
+// One chain's dual-window diag Welford state (_welford_update_rows
+// :418-458): the weights and counters, the same bits in every lane of its
+// warp, in registers; the foreground and background means and raw
+// variances are four vectors of length n in shared memory (Rows), each
+// lane owning its columns.
+struct DiagWelford {
+    float fw, fw2, bw, bw2, pn, win;
+
+    struct Rows {
+        float *fgm, *fgv, *bgm, *bgv;
+    };
+
+    // Adds x to both windows and writes the variance of the pre-swap
+    // foreground into V; swaps fg <- bg where pn - win floor(pn / win) == 0
+    // and pn > 0, and then win <- floor(win mult). Call after the
+    // adaptation of the draw's step size, on the draw's new position.
+    __device__ __forceinline__ void update(const float* x, const Rows& R, float* V, int n,
+                                           float mult, int lane) {
+        const float fw_n = fw + 1.0f, bw_n = bw + 1.0f;
+        const float rf = 1.0f / fw_n, rb = 1.0f / bw_n;
+        // float modulo via floor: the counts stay far below 2^24 (exact)
+        const bool swap = pn > 0.f && (pn - win * floorf(pn / win)) == 0.f;
+        for (int i = lane; i < n; i += 32) {
+            const float xi = x[i];
+            const float old_diff = xi - R.fgm[i];
+            const float fmean = R.fgm[i] + rf * old_diff;
+            const float fraw = R.fgv[i] + old_diff * (xi - fmean);
+            const float bold = xi - R.bgm[i];
+            const float bmean = R.bgm[i] + rb * bold;
+            const float braw = R.bgv[i] + bold * (xi - bmean);
+            V[i] = fraw * rf;
+            R.fgm[i] = swap ? bmean : fmean;
+            R.fgv[i] = swap ? braw : fraw;
+            R.bgm[i] = swap ? 0.f : bmean;
+            R.bgv[i] = swap ? 0.f : braw;
+        }
+        const float fw2_n = fw2 + 1.0f, bw2_n = bw2 + 1.0f;
+        fw = swap ? bw_n : fw_n;
+        fw2 = swap ? bw2_n : fw2_n;
+        bw = swap ? 0.f : bw_n;
+        bw2 = swap ? 0.f : bw2_n;
+        win = swap ? floorf(win * mult) : win;
+        pn = pn + 1.0f;
+        __syncwarp();
     }
 };
 

@@ -1,47 +1,57 @@
-// T classic-HMC transitions per launch with a shared dense metric: the
-// fused multi-draw HMC kernel.
+// T classic-HMC transitions per launch: the fused multi-draw HMC kernel,
+// for a shared dense metric or a per-chain inverse-mass diagonal.
 //
 // Replaces the TPU kernel littlemcmc_tpu/ops/fused_hmc_pallas.py::
 // build_fused_hmc_op (kernel :161, pallas_call at :511) for metric="dense",
 // static (draw chunks) and with adapt_dense (pooled dense adaptation in
-// tune chunks). The plain PyTorch version it is held against is
-// ops/fused_hmc.py::fused_hmc_plain.
+// tune chunks), and for metric="diag", static and with adapt_metric (the
+// per-chain dual-window Welford adaptation in tune chunks). The plain
+// PyTorch version it is held against is ops/fused_hmc.py::fused_hmc_plain.
 //
 // Mapping. fused_nuts.cu's layout: one thread block is one chain block of
 // CB chains, one warp per chain; the block loops t = 0..T-1 inside the
 // launch, where the TPU kernel's grid walks its sequential draw axis, and
-// the chain state (q, grad in shared memory; logp, the iteration counter
-// and the dual-averaging state in registers) stays on chip across draws.
-// Per draw and chain, in the JAX body's order (:251-325):
-//   1. the momentum p = z @ L^-1, z from calls 1 and 2 of the row stream
-//      (base word seed0, lanes row * Npad + col);
+// the chain state (q, grad and, for kDiag, V and the four Welford rows in
+// shared memory; logp, the iteration counter, the dual-averaging state and
+// the Welford counters in registers) stays on chip across draws. Per draw
+// and chain, in the JAX body's order (:251-325):
+//   1. the momentum p = z @ L^-1 (kDense) or p = z / sqrt(V) (kDiag, V at
+//      :257, :279), z from calls 1 and 2 of the row stream (base word
+//      seed0, lanes row * Npad + col);
 //   2. path_u, call 3 of the chain's stream, and
 //      n_steps = clamp(floor(path_u * path_length / eps), 1, max_steps);
 //   3. the trajectory of hmc_transition.cuh from the chain's state, with
-//      velocity p @ COV, then the accept against call 4 of the stream;
+//      velocity p @ COV or V p, then the accept against call 4 of the
+//      stream;
 //   4. the stats (_H_* at :82-84);
 //   5. dual averaging on the accept statistic, when adapting;
-//   6. tune chunks with adapt_dense: the block-local pooled Welford adds of
-//      the block's CB new positions to both windows, then the swap;
+//   6. tune chunks, kDiag with adapt_metric: the chain's Welford step on
+//      the selected state, which refreshes V for the next draw (:311-313);
+//      kDense with adapt_dense: the block-local pooled Welford adds of the
+//      block's CB new positions to both windows, then the swap;
 //   7. the trace row.
 // The per-draw seed word is seed0 = w0 + block*7919 + t*15485863 (:251).
-// The dense momentum, dual averaging and the block Welford state are the
-// helpers of fused_common.cuh, shared with fused_nuts.cu.
+// The momenta, dual averaging and both Welford states are the helpers of
+// fused_common.cuh, shared with fused_nuts.cu.
 //
 // Where the state lives. At n = 100 and CB = 8: the chain's q and grad, the
 // trajectory's q, p, g and the momentum and velocity scratch (7 x CB x n
-// floats, 22 KB), the Welford means and shifts (5 x n), the precision P
-// and COV (40 KB each) in shared memory; L^-1 (40 KB, read once a draw) in
-// global memory behind L2, and the block's Welford raw scatters (2 x n x n)
-// in the per-block outputs, as in fused_nuts.cu. Warps do not wait for
-// each other inside a draw: each runs its own step count; only the
-// adapt_dense adds synchronise the block once a draw.
+// floats, 22 KB; kDiag keeps V in the velocity's place and adds its four
+// Welford rows, 11 x CB x n), the pooled Welford means and shifts (5 x n,
+// kDense), the precision P and COV (40 KB each) in shared memory; L^-1
+// (40 KB, read once a draw) in global memory behind L2, and the block's
+// Welford raw scatters (2 x n x n) in the per-block outputs, as in
+// fused_nuts.cu. Warps do not wait for each other inside a draw: each runs
+// its own step count; only the adapt_dense adds synchronise the block once
+// a draw.
 //
-// What bounds it on this card. Per chain and draw: 2n^2 FLOP for the
-// momentum, 2n^2 for the start energy's velocity, per step 2n^2 for the
-// model body and 2n^2 for the velocity plus about 10n elementwise, 2n^2
-// for the end energy, and in tune 4n^2 for the Welford adds; fp32 outside
-// the tensor cores, against the trace and stats written once.
+// What bounds it on this card. Per chain and draw: the momentum (kDense
+// 2n^2 FLOP, kDiag about 10n), the start and end energies (kDense 2n^2
+// each for the velocity, kDiag 3n), per step the model body (2n^2 for the
+// correlated Gaussian, about 15n for the eight schools), for kDense 2n^2
+// for the velocity, plus about 10n elementwise, and in tune 4n^2 (kDense,
+// pooled) or about 12n (kDiag) for the Welford adds; fp32 outside the
+// tensor cores, against the trace and stats written once.
 //
 // Build: as nuts_trajectory.cu (-fmad=false, fmaf explicit in the matvecs).
 
@@ -54,27 +64,30 @@ using namespace lmc;
 
 // pointer arguments, in the order of ops/fused_hmc.py::_PTRS
 enum {
-    kQ, kG, kScal, kCov, kLinv, kConsts, kQOut, kGOut, kScalOut, kTrace, kStatF, kStatI,
-    kStatB, kWSeed, kFgMean, kFgRaw, kBgMean, kBgRaw, kWOut, kNumPtrs
+    kQ, kG, kScal, kCov, kLinv, kVar, kConsts, kQOut, kGOut, kScalOut, kVarOut, kTrace, kStatF,
+    kStatI, kStatB, kWSeed, kFgMean, kFgRaw, kBgMean, kBgRaw, kWOut, kNumPtrs
 };
 // int arguments, in the order of ops/fused_hmc.py::_INTS
 enum {
-    iC, iN, iT, iCb, iStages, iBody, iAdapting, iAdaptDense, iMaxSteps, iSeed0, iSeed1,
-    iNpad, kNumInts
+    iC, iN, iT, iCb, iStages, iBody, iMetric, iTuning, iAdapting, iAdaptMetric, iAdaptDense,
+    iMaxSteps, iSeed0, iSeed1, iNpad, kNumInts
 };
 // float arguments, in the order of ops/fused_hmc.py::_FLOATS
 enum {
     fEmax, fB0, fA0 = fB0 + 4, fTarget = fA0 + 3, fGamma, fK, fT0, fMult, fPathLength,
     kNumFloats
 };
-// per-chain scalar columns of the (C, 8) state in/out
-enum { sLogp, sIter, sLogStep, sLogBar, sHbar, sCount, sMu, kNumScal = 8 };
+// per-chain scalar columns of the (C, 16) state in/out, as fused_nuts.cu's
+enum {
+    sLogp, sIter, sLogStep, sLogBar, sHbar, sCount, sMu,
+    sFw = 8, sFw2, sBw, sBw2, sPn, sWin, kNumScal = 16
+};
 // per-draw f32 stats, each (T, C), in the order of ops/fused_hmc.py::_STAT_F32
 enum { oStep, oStepBar, oAccept, oEnergyErr, oEnergy, oPathLength, oLogp, kNumStatF };
 
 struct Args {
     void* ptr[kNumPtrs];
-    int C, T, cb, adapting, adapt_dense, max_steps, Npad;
+    int C, T, cb, tuning, adapting, adapt_metric, adapt_dense, max_steps, Npad;
     uint32_t seed0, seed1;
     HmcConsts K;
     float target, gamma, k, t0, mult, path_length;
@@ -86,7 +99,13 @@ __device__ __forceinline__ T* arg(const Args& A, int k) {
     return static_cast<T*>(A.ptr[k]);
 }
 
-template <int BODY>
+// vectors a warp keeps in shared memory: q, grad, the trajectory's q, p,
+// g, the normals z and the velocity (kDense) or V (kDiag), then for kDiag
+// the four Welford rows
+template <int METRIC>
+__host__ __device__ constexpr int n_fused_vecs() { return METRIC == kDense ? 7 : 11; }
+
+template <int BODY, int METRIC>
 __global__ void __launch_bounds__(32 * kMaxChainBlock) fused_hmc_kernel(Args A) {
     extern __shared__ float smem[];
     const int n = A.K.n, cb = A.cb, C = A.C;
@@ -95,18 +114,20 @@ __global__ void __launch_bounds__(32 * kMaxChainBlock) fused_hmc_kernel(Args A) 
     const int blk = blockIdx.x;
     const int chain = blk * cb + w;
 
-    // shared layout: the chain's q and grad, the trajectory's q, p, g, the
-    // normals z and the velocity [7][cb][n]; the Welford means and scratch
-    // [5][n]; then P and COV where they fit
+    // shared layout: the warp vectors [n_fused_vecs][cb][n]; the pooled
+    // Welford means and scratch [5][n] (kDense); then P and COV where they
+    // fit
     float* qs = warp_vec(smem, 0, cb, w, n);
     float* gs = warp_vec(smem, 1, cb, w, n);
     float* q = warp_vec(smem, 2, cb, w, n);
     float* p = warp_vec(smem, 3, cb, w, n);
     float* g = warp_vec(smem, 4, cb, w, n);
     float* z = warp_vec(smem, 5, cb, w, n);
-    float* vel = warp_vec(smem, 6, cb, w, n);
-    float* wel_sh = smem + (size_t)7 * cb * n;
-    float* after = wel_sh + 5 * n;
+    float* vel = warp_vec(smem, 6, cb, w, n);  // kDiag: V
+    DiagWelford::Rows wrows{warp_vec(smem, 7, cb, w, n), warp_vec(smem, 8, cb, w, n),
+                            warp_vec(smem, 9, cb, w, n), warp_vec(smem, 10, cb, w, n)};
+    float* wel_sh = smem + (size_t)n_fused_vecs<METRIC>() * cb * n;
+    float* after = wel_sh + (METRIC == kDense ? 5 * n : 0);
 
     HmcConsts K = A.K;
     if (BODY == 1 && A.lam_in_smem) {
@@ -114,14 +135,14 @@ __global__ void __launch_bounds__(32 * kMaxChainBlock) fused_hmc_kernel(Args A) 
         K.lam = after;
         after += (size_t)n * n;
     }
-    if (A.cov_in_smem) {
+    if (METRIC == kDense && A.cov_in_smem) {
         for (int k = tid; k < n * n; k += nthreads) after[k] = K.cov[k];
         K.cov = after;
     }
     const float* linv = arg<const float>(A, kLinv);
 
     // the chain's state
-    const size_t row = (size_t)chain * n;
+    const size_t row = (size_t)chain * n, CN = (size_t)C * n;
     for (int i = lane; i < n; i += 32) {
         qs[i] = arg<const float>(A, kQ)[row + i];
         gs[i] = arg<const float>(A, kG)[row + i];
@@ -129,6 +150,25 @@ __global__ void __launch_bounds__(32 * kMaxChainBlock) fused_hmc_kernel(Args A) 
     const float* sc = arg<const float>(A, kScal) + (size_t)chain * kNumScal;
     float lp = sc[sLogp], iter = sc[sIter];
     DualAverage da{sc[sLogStep], sc[sLogBar], sc[sHbar], sc[sCount], sc[sMu]};
+
+    // kDiag: the chain's inverse mass and, with adapt_metric, its Welford
+    // state ([var, fg mean, fg raw, bg mean, bg raw] x (C, n) in kVar)
+    // (kDense keeps no diag Welford counters: they would hold registers
+    // across the draw loop)
+    DiagWelford dw{0.f, 0.f, 0.f, 0.f, 0.f, 0.f};
+    if constexpr (METRIC == kDiag)
+        dw = {sc[sFw], sc[sFw2], sc[sBw], sc[sBw2], sc[sPn], sc[sWin]};
+    if (METRIC == kDiag) {
+        const float* vin = arg<const float>(A, kVar) + row;
+        for (int i = lane; i < n; i += 32) vel[i] = vin[i];
+        if (A.adapt_metric)
+            for (int i = lane; i < n; i += 32) {
+                wrows.fgm[i] = vin[CN + i];
+                wrows.fgv[i] = vin[2 * CN + i];
+                wrows.bgm[i] = vin[3 * CN + i];
+                wrows.bgv[i] = vin[4 * CN + i];
+            }
+    }
 
     // the block-local pooled Welford state (adapt_dense)
     BlockWelford wel;
@@ -145,18 +185,23 @@ __global__ void __launch_bounds__(32 * kMaxChainBlock) fused_hmc_kernel(Args A) 
     for (int t = 0; t < A.T; ++t) {
         const uint32_t seed0 = A.seed0 + (uint32_t)blk * 7919u + (uint32_t)t * 15485863u;
 
-        // 1. momentum: Box-Muller normals, then p = z @ L^-1
-        dense_momentum(seed0, s1u, w, A.Npad, linv, z, p, n, lane);
+        // 1. momentum: Box-Muller normals, then p = z @ L^-1 or z / sqrt(V)
+        if constexpr (METRIC == kDense)
+            dense_momentum(seed0, s1u, w, A.Npad, linv, z, p, n, lane);
+        else
+            diag_momentum(seed0, s1u, w, A.Npad, vel, p, n, lane);
         // 2. the jittered path length and the step count (hmc.py:141-143)
         const float eps = expf(A.adapting ? da.log_step : da.log_bar);
         const uint32_t salt = fmix32((seed0 + (uint32_t)w * 101027u) ^ s1u);
         const float path_length = counter_uniform(salt, 3u) * A.path_length;
         const float nst = fminf(fmaxf(floorf(path_length / eps), 1.0f), (float)A.max_steps);
         // 3. the trajectory from the chain's state, and the accept
-        const float E0 = half_kinetic<kDense>(K, p, nullptr, vel, lane) - lp;
+        const float* vv = METRIC == kDiag ? vel : nullptr;
+        float* vscratch = METRIC == kDense ? vel : nullptr;
+        const float E0 = half_kinetic<METRIC>(K, p, vv, vscratch, lane) - lp;
         for (int i = lane; i < n; i += 32) { q[i] = qs[i]; g[i] = gs[i]; }
         __syncwarp();
-        const HmcResult r = hmc_trajectory<BODY, kDense>(K, q, p, g, nullptr, vel, lp, E0, eps,
+        const HmcResult r = hmc_trajectory<BODY, METRIC>(K, q, p, g, vv, vscratch, lp, E0, eps,
                                                          (int)nst, lane);
         const bool accepted = !r.div && counter_uniform(salt, 4u) < r.acc;
         // 5. dual averaging on the accept statistic (step_sizes.py:85-92)
@@ -168,6 +213,10 @@ __global__ void __launch_bounds__(32 * kMaxChainBlock) fused_hmc_kernel(Args A) 
             if (accepted) { qs[i] = q[i]; gs[i] = g[i]; }
             if (trace) trace[((size_t)t * C + chain) * n + i] = qs[i];
         }
+        // 6a. kDiag with adapt_metric: the chain's Welford step on the
+        // selected state (each lane reads its own columns of qs)
+        if (METRIC == kDiag && A.adapt_metric && A.tuning)
+            dw.update(qs, wrows, vel, n, A.mult, lane);
         // 4. per-draw stats
         if (lane == 0) {
             const size_t o = (size_t)t * C + chain;
@@ -182,9 +231,10 @@ __global__ void __launch_bounds__(32 * kMaxChainBlock) fused_hmc_kernel(Args A) 
             stb[o] = r.div;
             stb[TC + o] = accepted;
         }
-        // 6. the block-local pooled Welford adds (_dense_welford_batch_add
-        // :246, both windows) and the shared swap (:267)
-        if (A.adapt_dense)
+        // 6b. kDense with adapt_dense: the block-local pooled Welford adds
+        // (_dense_welford_batch_add :246, both windows) and the shared swap
+        // (:267)
+        if (METRIC == kDense && A.adapt_dense)
             wel.add_and_swap(warp_vec(smem, 0, cb, 0, n), wel_sh,
                              arg<float>(A, kFgRaw) + (size_t)blk * n * n,
                              arg<float>(A, kBgRaw) + (size_t)blk * n * n, cb, n, A.mult, tid,
@@ -198,10 +248,25 @@ __global__ void __launch_bounds__(32 * kMaxChainBlock) fused_hmc_kernel(Args A) 
     }
     if (lane == 0) {
         float* so = arg<float>(A, kScalOut) + (size_t)chain * kNumScal;
+        for (int k = 0; k < kNumScal; ++k) so[k] = 0.f;
         so[sLogp] = lp; so[sIter] = iter; so[sLogStep] = da.log_step; so[sLogBar] = da.log_bar;
-        so[sHbar] = da.hbar; so[sCount] = da.count; so[sMu] = da.mu; so[kNumScal - 1] = 0.f;
+        so[sHbar] = da.hbar; so[sCount] = da.count; so[sMu] = da.mu;
+        if constexpr (METRIC == kDiag) {
+            so[sFw] = dw.fw; so[sFw2] = dw.fw2; so[sBw] = dw.bw; so[sBw2] = dw.bw2;
+            so[sPn] = dw.pn; so[sWin] = dw.win;
+        }
     }
-    if (A.adapt_dense)
+    if (METRIC == kDiag && A.adapt_metric) {
+        float* vout = arg<float>(A, kVarOut) + row;
+        for (int i = lane; i < n; i += 32) {
+            vout[i] = vel[i];
+            vout[CN + i] = wrows.fgm[i];
+            vout[2 * CN + i] = wrows.fgv[i];
+            vout[3 * CN + i] = wrows.bgm[i];
+            vout[4 * CN + i] = wrows.bgv[i];
+        }
+    }
+    if (METRIC == kDense && A.adapt_dense)
         wel.store(wel_sh, arg<float>(A, kFgMean) + (size_t)blk * n,
                   arg<float>(A, kBgMean) + (size_t)blk * n, arg<float>(A, kWOut) + (size_t)blk * 8,
                   n, tid, nthreads);
@@ -210,23 +275,33 @@ __global__ void __launch_bounds__(32 * kMaxChainBlock) fused_hmc_kernel(Args A) 
 // 227 KB per block on Hopper
 constexpr size_t kSmemLimit = 232448;
 
-template <int BODY>
+template <int BODY, int METRIC>
 cudaError_t launch(const Args& A0, cudaStream_t stream) {
     Args A = A0;
     const int n = A.K.n;
-    size_t bytes = ((size_t)7 * A.cb * n + (size_t)5 * n) * sizeof(float);
+    size_t bytes = ((size_t)n_fused_vecs<METRIC>() * A.cb * n
+                    + (METRIC == kDense ? (size_t)5 * n : 0)) * sizeof(float);
     const size_t sq_bytes = (size_t)n * n * sizeof(float);
     A.lam_in_smem = (BODY == 1 && bytes + sq_bytes <= kSmemLimit) ? 1 : 0;
     if (A.lam_in_smem) bytes += sq_bytes;
-    A.cov_in_smem = (bytes + sq_bytes <= kSmemLimit) ? 1 : 0;
+    A.cov_in_smem = (METRIC == kDense && bytes + sq_bytes <= kSmemLimit) ? 1 : 0;
     if (A.cov_in_smem) bytes += sq_bytes;
     if (bytes > kSmemLimit) return cudaErrorInvalidConfiguration;
-    cudaError_t err = cudaFuncSetAttribute(fused_hmc_kernel<BODY>,
+    cudaError_t err = cudaFuncSetAttribute(fused_hmc_kernel<BODY, METRIC>,
                                            cudaFuncAttributeMaxDynamicSharedMemorySize,
                                            (int)bytes);
     if (err != cudaSuccess) return err;
-    fused_hmc_kernel<BODY><<<A.C / A.cb, 32 * A.cb, bytes, stream>>>(A);
+    fused_hmc_kernel<BODY, METRIC><<<A.C / A.cb, 32 * A.cb, bytes, stream>>>(A);
     return cudaGetLastError();
+}
+
+template <int BODY>
+cudaError_t launch_metric(const Args& A, int metric, cudaStream_t stream) {
+    switch (metric) {
+        case kDiag: return launch<BODY, kDiag>(A, stream);
+        case kDense: return launch<BODY, kDense>(A, stream);
+        default: return cudaErrorInvalidValue;
+    }
 }
 
 }  // namespace
@@ -235,13 +310,15 @@ extern "C" {
 
 // Returns cudaGetLastError() after the launch (0 on success). ptrs: the
 // kNumPtrs device pointers (kTrace may be null: no trace; kConsts null for
-// a body without constants; the Welford ones are read only with
-// adapt_dense); ints: kNumInts; floats: kNumFloats.
+// a body without constants; kCov and kLinv are read only for the dense
+// metric, kVar only for the diag one, kVarOut with adapt_metric, the pooled
+// Welford ones with adapt_dense); ints: kNumInts; floats: kNumFloats.
 int fused_hmc_launch(void* const* ptrs, const int* ints, const float* floats, void* stream) {
     Args A;
     for (int k = 0; k < kNumPtrs; ++k) A.ptr[k] = ptrs[k];
     A.C = ints[iC]; A.T = ints[iT]; A.cb = ints[iCb];
-    A.adapting = ints[iAdapting]; A.adapt_dense = ints[iAdaptDense];
+    A.tuning = ints[iTuning]; A.adapting = ints[iAdapting];
+    A.adapt_metric = ints[iAdaptMetric]; A.adapt_dense = ints[iAdaptDense];
     A.max_steps = ints[iMaxSteps]; A.Npad = ints[iNpad];
     A.seed0 = (uint32_t)ints[iSeed0]; A.seed1 = (uint32_t)ints[iSeed1];
     A.K.lam = static_cast<const float*>(ptrs[kConsts]);
@@ -253,15 +330,18 @@ int fused_hmc_launch(void* const* ptrs, const int* ints, const float* floats, vo
     A.t0 = floats[fT0]; A.mult = floats[fMult]; A.path_length = floats[fPathLength];
     A.lam_in_smem = 0;
     A.cov_in_smem = 0;
-    const int body = ints[iBody];
+    const int body = ints[iBody], metric = ints[iMetric];
     if (A.cb < 1 || A.cb > kMaxChainBlock || A.C % A.cb != 0 || A.K.n < 1
         || A.K.n > 32 * kMaxCols || A.T < 1 || A.K.n_stages < 1 || A.K.n_stages > 3
-        || A.max_steps < 1)
+        || A.max_steps < 1 || (body == 2 && A.K.n != 10))
         return (int)cudaErrorInvalidValue;
+    if (A.adapt_dense && (!A.tuning || metric != kDense)) return (int)cudaErrorInvalidValue;
+    if (A.adapt_metric && metric != kDiag) return (int)cudaErrorInvalidValue;
     cudaStream_t s = static_cast<cudaStream_t>(stream);
     switch (body) {
-        case 0: return (int)launch<0>(A, s);
-        case 1: return (int)launch<1>(A, s);
+        case 0: return (int)launch_metric<0>(A, metric, s);
+        case 1: return (int)launch_metric<1>(A, metric, s);
+        case 2: return (int)launch_metric<2>(A, metric, s);
         default: return (int)cudaErrorInvalidValue;
     }
 }

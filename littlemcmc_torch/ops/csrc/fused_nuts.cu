@@ -1,52 +1,64 @@
-// T NUTS transitions per launch with a shared dense metric: the fused
-// multi-draw kernel.
+// T NUTS transitions per launch: the fused multi-draw kernel, for a
+// shared dense metric or a per-chain inverse-mass diagonal.
 //
 // Replaces the TPU kernel littlemcmc_tpu/ops/fused_nuts_pallas.py::
 // build_fused_nuts_op (kernel :561, pallas_call at :978) for metric="dense",
 // static (draw chunks) and with adapt_dense (pooled dense adaptation in
-// tune chunks). The plain PyTorch version it is held against is
-// ops/fused_nuts.py::fused_nuts_plain.
+// tune chunks), and for metric="diag", static and with adapt_metric (the
+// per-chain dual-window Welford adaptation in tune chunks). The plain
+// PyTorch version it is held against is ops/fused_nuts.py::fused_nuts_plain.
 //
 // Mapping. One thread block is one chain block of CB chains, one warp per
 // chain, as in the per-draw kernel; the block loops t = 0..T-1 inside the
 // launch, where the TPU kernel's grid walks its sequential draw axis. The
-// chain state (q, grad in shared memory; logp, the iteration counter and
-// the dual-averaging state in registers, the same bits in every lane of
-// the warp) stays on chip across draws, as the TPU kernel keeps it in VMEM
-// scratch (:635-657, :773-795). Per draw and chain:
+// chain state (q, grad in shared memory; logp, the iteration counter, the
+// dual-averaging state and the diag Welford counters in registers, the
+// same bits in every lane of the warp) stays on chip across draws, as the
+// TPU kernel keeps it in VMEM scratch (:635-657, :773-795). Per draw and
+// chain:
 //   1. Box-Muller normals z from the momentum stream, salted seed0 +
 //      1013904223 with lane_r = row * Npad + col (:700-705);
-//   2. the momentum p = z @ L^-1 (row convention, :154-166);
-//   3. E0 = p.(p @ COV)/2 - logp;
+//   2. the momentum p = z @ L^-1 (kDense, row convention, :154-166) or
+//      p = z / sqrt(V) (kDiag, :143-151, :712);
+//   3. E0 = p.(p @ COV)/2 - logp, or p.(V p)/2 - logp;
 //   4. the step size and depth cap from the iteration counter (:716-723);
 //   5. the transition of nuts_transition.cuh, with its counter restarted;
 //   6. the gradient recomputed at the proposal (:731);
 //   7. mean_tree_accept, then dual averaging (:734-750);
-//   8. tune chunks with adapt_dense: the block's CB new positions are
-//      Chan-combined into the block-local pooled Welford state of both
-//      windows, then the shared window swap (:758-764);
+//   8. tune chunks, kDiag with adapt_metric: the chain's Welford step on
+//      its proposal, which refreshes V for the next draw from the pre-swap
+//      foreground (:753-757); kDense with adapt_dense: the block's CB new
+//      positions are Chan-combined into the block-local pooled Welford
+//      state of both windows, then the shared window swap (:758-764);
 //   9. the trace row and the per-draw stats, written to (T, C) outputs.
 // The per-draw seed word is seed0 = w0 + block*7919 + t*15485863 (:662).
 //
-// Where the state lives, and why. At n = 100 and CB = 8: the transition's
-// 16 vectors and the chain's q and grad (18 x CB x n floats, 58 KB), the
-// slot scalars (1.3 KB), the Welford means and shifts (5 x n floats), the
-// precision P (40 KB) and COV (40 KB) sit in shared memory: 141 KB of the
-// 227 KB a block may use. L^-1 (40 KB) is read once per draw, so it stays
-// in global memory, where L2 holds it. The block-local raw scatters of the
-// two windows (2 x n x n floats a block, 10 MB at 128 blocks) live in the
-// per-block output tensors, which the wrapper seeds with 1/B of the global
-// state and the kernel updates in place; they too stay in L2.
+// Where the state lives, and why. kDense at n = 100 and CB = 8: the
+// transition's 16 vectors and the chain's q and grad (18 x CB x n floats,
+// 58 KB), the slot scalars (1.3 KB), the Welford means and shifts (5 x n
+// floats), the precision P (40 KB) and COV (40 KB) sit in shared memory:
+// 141 KB of the 227 KB a block may use. L^-1 (40 KB) is read once per
+// draw, so it stays in global memory, where L2 holds it. The block-local
+// raw scatters of the two windows (2 x n x n floats a block, 10 MB at 128
+// blocks) live in the per-block output tensors, which the wrapper seeds
+// with 1/B of the global state and the kernel updates in place; they too
+// stay in L2. kDiag: the transition's 12 vectors (V among them), q, grad,
+// the start momentum and the chain's four Welford rows, 19 x CB x n
+// floats (2.4 KB a block at the eight-schools n = 10, 61 KB at n = 100),
+// read from device memory once a launch and written back once.
 //
-// What bounds it on this card. Per chain and draw: 2n^2 FLOP for the
-// momentum, per leaf 2n^2 for the model body and 2n^2 for the velocity
-// plus about 20n elementwise, 2n^2 for the final gradient, and in tune
-// 4n^2 for the Welford adds; all fp32 outside the tensor cores, against
-// the trace and stats written once to device memory. The design keeps the
-// state on chip across the T draws, so device memory sees only the trace.
+// What bounds it on this card. Per chain and draw: the momentum (kDense
+// 2n^2 FLOP, kDiag about 10n with the Box-Muller transcendentals), per
+// leaf the model body (2n^2 for the correlated Gaussian, about 15n for the
+// eight schools) and for kDense 2n^2 for the velocity, plus about 20n
+// elementwise, the final gradient, and in tune 4n^2 (kDense, pooled) or
+// about 12n (kDiag) for the Welford adds; all fp32 outside the tensor
+// cores, against the state read once and the trace and stats written once
+// to device memory. The design keeps the state on chip across the T
+// draws, so device memory sees only the trace.
 //
-// The dense momentum, dual averaging and the block Welford state are the
-// helpers of fused_common.cuh, which the fused HMC kernel shares.
+// The momenta, dual averaging and both Welford states are the helpers of
+// fused_common.cuh, which the fused HMC kernel shares.
 //
 // Build: as nuts_trajectory.cu (-fmad=false, fmaf explicit in the matvecs).
 
@@ -59,27 +71,31 @@ using namespace lmc;
 
 // pointer arguments, in the order of ops/fused_nuts.py::_PTRS
 enum {
-    kQ, kG, kScal, kCov, kLinv, kConsts, kStack,
-    kQOut, kGOut, kScalOut, kTrace, kStatF, kStatI, kStatB,
+    kQ, kG, kScal, kCov, kLinv, kVar, kConsts, kStack,
+    kQOut, kGOut, kScalOut, kVarOut, kTrace, kStatF, kStatI, kStatB,
     kWSeed, kFgMean, kFgRaw, kBgMean, kBgRaw, kWOut, kNumPtrs
 };
 // int arguments, in the order of ops/fused_nuts.py::_INTS
 enum {
-    iC, iN, iD, iT, iCb, iStages, iBody, iTuning, iAdapting, iAdaptDense,
-    iEarlyWindow, iEarlyMax, iMaxDepth, iSeed0, iSeed1, iNpad, kNumInts
+    iC, iN, iD, iT, iCb, iStages, iBody, iMetric, iTuning, iAdapting, iAdaptMetric,
+    iAdaptDense, iEarlyWindow, iEarlyMax, iMaxDepth, iSeed0, iSeed1, iNpad, kNumInts
 };
 // float arguments, in the order of ops/fused_nuts.py::_FLOATS
 enum {
     fEmax, fB0, fB1, fB2, fB3, fA0, fA1, fA2, fTarget, fGamma, fK, fT0, fMult, kNumFloats
 };
-// per-chain scalar columns of the (C, 8) state in/out
-enum { sLogp, sIter, sLogStep, sLogBar, sHbar, sCount, sMu, kNumScal = 8 };
+// per-chain scalar columns of the (C, 16) state in/out: the chain, dual
+// averaging, and the diag Welford weights and counters (adapt_metric)
+enum {
+    sLogp, sIter, sLogStep, sLogBar, sHbar, sCount, sMu,
+    sFw = 8, sFw2, sBw, sBw2, sPn, sWin, kNumScal = 16
+};
 // per-draw f32 stats, each (T, C)
 enum { oEnergy, oLogp, oEnergyErr, oAccept, oStep, oStepBar, oMaxErr, kNumStatF };
 
 struct Args {
     const float* ptr_f[kNumPtrs];
-    int C, n, D, T, cb, n_stages, tuning, adapting, adapt_dense;
+    int C, n, D, T, cb, n_stages, tuning, adapting, adapt_metric, adapt_dense;
     int early_window, early_max, max_depth, Npad;
     uint32_t seed0, seed1;
     float Emax, b[4], a[3], target, gamma, k, t0, mult;
@@ -95,7 +111,15 @@ __device__ __forceinline__ float log1mexp_fused(float x) {
     return logf(1.0f - expf(-x));
 }
 
-template <int BODY>
+// vectors a warp keeps in shared memory: the transition's, then the
+// chain's q and grad, then for kDiag the start momentum and the four
+// Welford rows (for kDense the momentum is a transition scratch vector)
+template <int METRIC>
+__host__ __device__ constexpr int n_fused_vecs() {
+    return n_warp_vecs<METRIC>() + (METRIC == kDense ? 2 : 7);
+}
+
+template <int BODY, int METRIC>
 __global__ void __launch_bounds__(32 * kMaxChainBlock) fused_nuts_kernel(Args A) {
     extern __shared__ float smem[];
     const int n = A.n, cb = A.cb, D = A.D, C = A.C;
@@ -103,16 +127,21 @@ __global__ void __launch_bounds__(32 * kMaxChainBlock) fused_nuts_kernel(Args A)
     const int tid = threadIdx.x, nthreads = blockDim.x;
     const int blk = blockIdx.x;
     const int chain = blk * cb + w;
+    constexpr int NV = n_warp_vecs<METRIC>();
 
-    // shared layout: the transition's 16 vectors and the chain's q and grad
-    // [18][cb][n], the slot scalars [4][D][cb], the Welford fg and bg means,
-    // the batch mean and the two mean shifts [5][n], then P and COV
-    const WarpVecs V = warp_vecs<kDense>(smem, cb, w, n);
-    float* qs = warp_vec(smem, 16, cb, w, n);
-    float* gs = warp_vec(smem, 17, cb, w, n);
-    float* slot_sc = smem + (size_t)18 * cb * n;
+    // shared layout: the warp vectors [n_fused_vecs][cb][n], the slot
+    // scalars [4][D][cb], the pooled Welford fg and bg means, the batch
+    // mean and the two mean shifts [5][n] (kDense), then P and COV
+    const WarpVecs V = warp_vecs<METRIC>(smem, cb, w, n);
+    float* qs = warp_vec(smem, NV, cb, w, n);
+    float* gs = warp_vec(smem, NV + 1, cb, w, n);
+    // the start momentum: a velocity scratch vector (kDense) or its own
+    float* p0 = METRIC == kDense ? V.vb : warp_vec(smem, NV + 2, cb, w, n);
+    DiagWelford::Rows wrows{warp_vec(smem, NV + 3, cb, w, n), warp_vec(smem, NV + 4, cb, w, n),
+                            warp_vec(smem, NV + 5, cb, w, n), warp_vec(smem, NV + 6, cb, w, n)};
+    float* slot_sc = smem + (size_t)n_fused_vecs<METRIC>() * cb * n;
     float* wel_sh = slot_sc + (size_t)4 * D * cb;
-    float* after = wel_sh + 5 * n;
+    float* after = wel_sh + (METRIC == kDense ? 5 * n : 0);
 
     TreeConsts T;
     T.lam = A.ptr_f[kConsts]; T.cov = A.ptr_f[kCov];
@@ -125,20 +154,40 @@ __global__ void __launch_bounds__(32 * kMaxChainBlock) fused_nuts_kernel(Args A)
         T.lam = after;
         after += (size_t)n * n;
     }
-    if (A.cov_in_smem) {
+    if (METRIC == kDense && A.cov_in_smem) {
         for (int k = tid; k < n * n; k += nthreads) after[k] = A.ptr_f[kCov][k];
         T.cov = after;
     }
     const float* linv = A.ptr_f[kLinv];
 
     // the chain's state
+    const size_t row = (size_t)chain * n, CN = (size_t)C * n;
     for (int i = lane; i < n; i += 32) {
-        qs[i] = A.ptr_f[kQ][(size_t)chain * n + i];
-        gs[i] = A.ptr_f[kG][(size_t)chain * n + i];
+        qs[i] = A.ptr_f[kQ][row + i];
+        gs[i] = A.ptr_f[kG][row + i];
     }
     const float* sc = A.ptr_f[kScal] + (size_t)chain * kNumScal;
     float lp = sc[sLogp], iter = sc[sIter];
     DualAverage da{sc[sLogStep], sc[sLogBar], sc[sHbar], sc[sCount], sc[sMu]};
+
+    // kDiag: the chain's inverse mass and, with adapt_metric, its Welford
+    // state ([var, fg mean, fg raw, bg mean, bg raw] x (C, n) in kVar)
+    // (kDense keeps no diag Welford counters: they would hold registers
+    // across the draw loop)
+    DiagWelford dw{0.f, 0.f, 0.f, 0.f, 0.f, 0.f};
+    if constexpr (METRIC == kDiag)
+        dw = {sc[sFw], sc[sFw2], sc[sBw], sc[sBw2], sc[sPn], sc[sWin]};
+    if (METRIC == kDiag) {
+        const float* vin = A.ptr_f[kVar] + row;
+        for (int i = lane; i < n; i += 32) V.vv[i] = vin[i];
+        if (A.adapt_metric)
+            for (int i = lane; i < n; i += 32) {
+                wrows.fgm[i] = vin[CN + i];
+                wrows.fgv[i] = vin[2 * CN + i];
+                wrows.bgm[i] = vin[3 * CN + i];
+                wrows.bgv[i] = vin[4 * CN + i];
+            }
+    }
 
     // the block-local pooled Welford state (adapt_dense)
     BlockWelford wel;
@@ -155,19 +204,25 @@ __global__ void __launch_bounds__(32 * kMaxChainBlock) fused_nuts_kernel(Args A)
     for (int t = 0; t < A.T; ++t) {
         const uint32_t seed0 = A.seed0 + (uint32_t)blk * 7919u + (uint32_t)t * 15485863u;
 
-        // 1-2. momentum: Box-Muller normals, then p = z @ L^-1
-        dense_momentum(seed0 + 1013904223u, s1u, w, A.Npad, linv, V.va, V.vb, n, lane);
-        // 3. start energy
-        matvec(V.vb, T.cov, V.vc, n, lane);
+        // 1-2. momentum: Box-Muller normals, then p = z @ L^-1 (kDense) or
+        // p = z / sqrt(V) (kDiag)
         float part = 0.f;
-        for (int i = lane; i < n; i += 32) part += V.vb[i] * V.vc[i];
+        if constexpr (METRIC == kDense) {
+            dense_momentum(seed0 + 1013904223u, s1u, w, A.Npad, linv, V.va, p0, n, lane);
+            // 3. start energy
+            matvec(p0, T.cov, V.vc, n, lane);
+            for (int i = lane; i < n; i += 32) part += p0[i] * V.vc[i];
+        } else {
+            diag_momentum(seed0 + 1013904223u, s1u, w, A.Npad, V.vv, p0, n, lane);
+            for (int i = lane; i < n; i += 32) part += p0[i] * (V.vv[i] * p0[i]);
+        }
         const float E0 = 0.5f * warp_sum(part) - lp;
         // 4. step size and depth cap
         const float eps = expf(A.adapting ? da.log_step : da.log_bar);
         const int mdc = (A.tuning && iter < (float)A.early_window) ? A.early_max : A.max_depth;
         // 5. the transition, on the stream salted with seed0
         const uint32_t salt = fmix32((seed0 + (uint32_t)w * 101027u) ^ s1u);
-        const TreeResult r = transition<BODY, kDense>(T, V, slot_sc, chain, w, lane, qs, V.vb,
+        const TreeResult r = transition<BODY, METRIC>(T, V, slot_sc, chain, w, lane, qs, p0,
                                                       gs, lp, E0, eps, mdc, salt);
         // 6. the proposal's gradient
         model_eval<BODY>(V.prq, V.cg, T.lam, n, lane);
@@ -175,6 +230,10 @@ __global__ void __launch_bounds__(32 * kMaxChainBlock) fused_nuts_kernel(Args A)
         const float ls = r.log_size;
         const float mta = ls > 0.f ? expf(r.lwas - (ls + log1mexp_fused(ls))) : 0.f;
         if (A.adapting) da.update(mta, A.target, A.gamma, A.k, A.t0);
+        // 8a. kDiag tune chunks with adapt_metric: the chain's Welford step
+        // on its proposal, which refreshes V for the next draw (:753-757)
+        if (METRIC == kDiag && A.adapt_metric && A.tuning)
+            dw.update(V.prq, wrows, V.vv, n, A.mult, lane);
         // advance the chain
         iter = iter + 1.0f;
         lp = r.pr_lp;
@@ -199,10 +258,11 @@ __global__ void __launch_bounds__(32 * kMaxChainBlock) fused_nuts_kernel(Args A)
             stb[o] = r.diverging;
             stb[TC + o] = r.turning;
         }
-        // 8. the block-local pooled Welford adds (_dense_welford_batch_add
-        // :246, both windows) and the shared swap (:267)
-        if (A.adapt_dense)
-            wel.add_and_swap(warp_vec(smem, 16, cb, 0, n), wel_sh,
+        // 8b. kDense with adapt_dense: the block-local pooled Welford adds
+        // (_dense_welford_batch_add :246, both windows) and the shared swap
+        // (:267)
+        if (METRIC == kDense && A.adapt_dense)
+            wel.add_and_swap(warp_vec(smem, NV, cb, 0, n), wel_sh,
                              const_cast<float*>(A.ptr_f[kFgRaw]) + (size_t)blk * n * n,
                              const_cast<float*>(A.ptr_f[kBgRaw]) + (size_t)blk * n * n, cb, n,
                              A.mult, tid, nthreads);
@@ -210,15 +270,30 @@ __global__ void __launch_bounds__(32 * kMaxChainBlock) fused_nuts_kernel(Args A)
 
     // the final state
     for (int i = lane; i < n; i += 32) {
-        const_cast<float*>(A.ptr_f[kQOut])[(size_t)chain * n + i] = qs[i];
-        const_cast<float*>(A.ptr_f[kGOut])[(size_t)chain * n + i] = gs[i];
+        const_cast<float*>(A.ptr_f[kQOut])[row + i] = qs[i];
+        const_cast<float*>(A.ptr_f[kGOut])[row + i] = gs[i];
     }
     if (lane == 0) {
         float* so = const_cast<float*>(A.ptr_f[kScalOut]) + (size_t)chain * kNumScal;
+        for (int k = 0; k < kNumScal; ++k) so[k] = 0.f;
         so[sLogp] = lp; so[sIter] = iter; so[sLogStep] = da.log_step; so[sLogBar] = da.log_bar;
-        so[sHbar] = da.hbar; so[sCount] = da.count; so[sMu] = da.mu; so[kNumScal - 1] = 0.f;
+        so[sHbar] = da.hbar; so[sCount] = da.count; so[sMu] = da.mu;
+        if constexpr (METRIC == kDiag) {
+            so[sFw] = dw.fw; so[sFw2] = dw.fw2; so[sBw] = dw.bw; so[sBw2] = dw.bw2;
+            so[sPn] = dw.pn; so[sWin] = dw.win;
+        }
     }
-    if (A.adapt_dense)
+    if (METRIC == kDiag && A.adapt_metric) {
+        float* vout = const_cast<float*>(A.ptr_f[kVarOut]) + row;
+        for (int i = lane; i < n; i += 32) {
+            vout[i] = V.vv[i];
+            vout[CN + i] = wrows.fgm[i];
+            vout[2 * CN + i] = wrows.fgv[i];
+            vout[3 * CN + i] = wrows.bgm[i];
+            vout[4 * CN + i] = wrows.bgv[i];
+        }
+    }
+    if (METRIC == kDense && A.adapt_dense)
         wel.store(wel_sh, const_cast<float*>(A.ptr_f[kFgMean]) + (size_t)blk * n,
                   const_cast<float*>(A.ptr_f[kBgMean]) + (size_t)blk * n,
                   const_cast<float*>(A.ptr_f[kWOut]) + (size_t)blk * 8, n, tid, nthreads);
@@ -227,23 +302,32 @@ __global__ void __launch_bounds__(32 * kMaxChainBlock) fused_nuts_kernel(Args A)
 // 227 KB per block on Hopper, less room for the static shared int
 constexpr size_t kSmemLimit = 232448 - 1024;
 
-template <int BODY>
+template <int BODY, int METRIC>
 cudaError_t launch(const Args& A0, cudaStream_t stream) {
     Args A = A0;
-    size_t bytes = ((size_t)18 * A.cb * A.n + (size_t)4 * A.D * A.cb + (size_t)5 * A.n)
-                   * sizeof(float);
+    size_t bytes = ((size_t)n_fused_vecs<METRIC>() * A.cb * A.n + (size_t)4 * A.D * A.cb
+                    + (METRIC == kDense ? (size_t)5 * A.n : 0)) * sizeof(float);
     const size_t sq_bytes = (size_t)A.n * A.n * sizeof(float);
     A.lam_in_smem = (BODY == 1 && bytes + sq_bytes <= kSmemLimit) ? 1 : 0;
     if (A.lam_in_smem) bytes += sq_bytes;
-    A.cov_in_smem = (bytes + sq_bytes <= kSmemLimit) ? 1 : 0;
+    A.cov_in_smem = (METRIC == kDense && bytes + sq_bytes <= kSmemLimit) ? 1 : 0;
     if (A.cov_in_smem) bytes += sq_bytes;
     if (bytes > kSmemLimit) return cudaErrorInvalidConfiguration;
-    cudaError_t err = cudaFuncSetAttribute(fused_nuts_kernel<BODY>,
+    cudaError_t err = cudaFuncSetAttribute(fused_nuts_kernel<BODY, METRIC>,
                                            cudaFuncAttributeMaxDynamicSharedMemorySize,
                                            (int)bytes);
     if (err != cudaSuccess) return err;
-    fused_nuts_kernel<BODY><<<A.C / A.cb, 32 * A.cb, bytes, stream>>>(A);
+    fused_nuts_kernel<BODY, METRIC><<<A.C / A.cb, 32 * A.cb, bytes, stream>>>(A);
     return cudaGetLastError();
+}
+
+template <int BODY>
+cudaError_t launch_metric(const Args& A, int metric, cudaStream_t stream) {
+    switch (metric) {
+        case kDiag: return launch<BODY, kDiag>(A, stream);
+        case kDense: return launch<BODY, kDense>(A, stream);
+        default: return cudaErrorInvalidValue;
+    }
 }
 
 }  // namespace
@@ -251,15 +335,18 @@ cudaError_t launch(const Args& A0, cudaStream_t stream) {
 extern "C" {
 
 // Returns cudaGetLastError() after the launch (0 on success). ptrs: the
-// kNumPtrs device pointers (kTrace may be null: no trace; the Welford ones
-// are read only with adapt_dense); ints: kNumInts; floats: kNumFloats.
+// kNumPtrs device pointers (kTrace may be null: no trace; kCov and kLinv
+// are read only for the dense metric, kVar only for the diag one, kVarOut
+// with adapt_metric, the pooled Welford ones with adapt_dense); ints:
+// kNumInts; floats: kNumFloats.
 int fused_nuts_launch(void* const* ptrs, const int* ints, const float* floats, void* stream) {
     Args A;
     for (int k = 0; k < kNumPtrs; ++k) A.ptr_f[k] = static_cast<const float*>(ptrs[k]);
     A.C = ints[iC]; A.n = ints[iN]; A.D = ints[iD]; A.T = ints[iT]; A.cb = ints[iCb];
     A.n_stages = ints[iStages];
-    const int body = ints[iBody];
-    A.tuning = ints[iTuning]; A.adapting = ints[iAdapting]; A.adapt_dense = ints[iAdaptDense];
+    const int body = ints[iBody], metric = ints[iMetric];
+    A.tuning = ints[iTuning]; A.adapting = ints[iAdapting];
+    A.adapt_metric = ints[iAdaptMetric]; A.adapt_dense = ints[iAdaptDense];
     A.early_window = ints[iEarlyWindow]; A.early_max = ints[iEarlyMax];
     A.max_depth = ints[iMaxDepth];
     A.seed0 = (uint32_t)ints[iSeed0]; A.seed1 = (uint32_t)ints[iSeed1];
@@ -273,13 +360,15 @@ int fused_nuts_launch(void* const* ptrs, const int* ints, const float* floats, v
     A.cov_in_smem = 0;
     if (A.cb < 1 || A.cb > kMaxChainBlock || A.C % A.cb != 0 || A.n < 1 || A.n > 32 * kMaxCols
         || A.D < 1 || A.T < 1 || A.n_stages < 1 || A.n_stages > 3 || A.max_depth > A.D
-        || A.early_max > A.D)
+        || A.early_max > A.D || (body == 2 && A.n != 10))
         return (int)cudaErrorInvalidValue;
-    if (A.adapt_dense && !A.tuning) return (int)cudaErrorInvalidValue;
+    if (A.adapt_dense && (!A.tuning || metric != kDense)) return (int)cudaErrorInvalidValue;
+    if (A.adapt_metric && metric != kDiag) return (int)cudaErrorInvalidValue;
     cudaStream_t s = static_cast<cudaStream_t>(stream);
     switch (body) {
-        case 0: return (int)launch<0>(A, s);
-        case 1: return (int)launch<1>(A, s);
+        case 0: return (int)launch_metric<0>(A, metric, s);
+        case 1: return (int)launch_metric<1>(A, metric, s);
+        case 2: return (int)launch_metric<2>(A, metric, s);
         default: return (int)cudaErrorInvalidValue;
     }
 }

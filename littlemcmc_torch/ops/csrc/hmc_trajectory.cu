@@ -158,12 +158,13 @@ int hmc_trajectory_launch(void* const* ptrs, const int* ints, const float* float
     A.lam_in_smem = 0;
     const int body = ints[iBody];
     if (A.C < 1 || A.n < 1 || A.cb < 1 || A.K.n_stages < 1 || A.K.n_stages > 3
-        || (body == 1 && A.n > 32 * kMaxCols))
+        || (body == 1 && A.n > 32 * kMaxCols) || (body == 2 && A.n != 10))
         return (int)cudaErrorInvalidValue;
     cudaStream_t s = static_cast<cudaStream_t>(stream);
     switch (body) {
         case 0: return (int)launch<0>(A, s);
         case 1: return (int)launch<1>(A, s);
+        case 2: return (int)launch<2>(A, s);
         default: return (int)cudaErrorInvalidValue;
     }
 }

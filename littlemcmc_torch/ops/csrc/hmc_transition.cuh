@@ -24,7 +24,7 @@ namespace lmc {
 
 // What a trajectory reads that is the same for every chain of a launch.
 struct HmcConsts {
-    const float* lam;  // model constants (correlated Gaussian: P), shared or global
+    const float* lam;  // model constants (correlated Gaussian: P; eight schools: y, 1/sigma^2)
     const float* cov;  // kDense: the shared covariance, shared or global
     int n, n_stages;
     float Emax;

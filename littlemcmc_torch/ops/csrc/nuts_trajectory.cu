@@ -54,7 +54,7 @@ struct Params {
     const float* logp;
     const float* eps;
     const int* mdc;
-    const float* consts;  // body constants (correlated Gaussian: P, n x n)
+    const float* consts;  // body constants (correlated Gaussian: P, n x n; eight schools: 2 x 10)
     float* stack;         // [4][D][C][n]: left p, right p, p sum, proposal q
     float* q_out;
     float* g_out;
@@ -196,6 +196,7 @@ int nuts_trajectory_launch(
     if (cb < 1 || cb > kMaxChainBlock || C % cb != 0 || n < 1 || D < 1 || n_stages < 1 || n_stages > 3)
         return (int)cudaErrorInvalidValue;
     if ((body == 1 || metric == kDense) && n > 32 * kMaxCols) return (int)cudaErrorInvalidValue;
+    if (body == 2 && n != 10) return (int)cudaErrorInvalidValue;
     Params P;
     P.q = q; P.p = p; P.g = g; P.var = var; P.logp = logp; P.eps = eps; P.mdc = mdc;
     P.consts = consts; P.stack = stack;
@@ -212,6 +213,7 @@ int nuts_trajectory_launch(
     switch (body) {
         case 0: return (int)launch_metric<0>(P, metric, s);
         case 1: return (int)launch_metric<1>(P, metric, s);
+        case 2: return (int)launch_metric<2>(P, metric, s);
         default: return (int)cudaErrorInvalidValue;
     }
 }

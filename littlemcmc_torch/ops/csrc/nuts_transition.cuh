@@ -95,10 +95,13 @@ __device__ __forceinline__ void matvec(const float* x, const float* M, float* ou
 
 // The model body at q (shared memory, one chain): writes grad into g
 // (shared memory) and returns logp. Lanes own columns lane, lane+32, ...
+// Body ids match ops/nuts_trajectory.py::BODY_IDS; any other id does not
+// compile, and every launch switch refuses it at run time.
 template <int BODY>
 __device__ float model_eval(const float* q, float* g, const float* lam, int n, int lane) {
+    static_assert(BODY >= 0 && BODY <= 2, "unknown model body");
     float part = 0.f;
-    if (BODY == 0) {  // standard normal: logp = -q.q/2, grad = -q
+    if constexpr (BODY == 0) {  // standard normal: logp = -q.q/2, grad = -q
         for (int i = lane; i < n; i += 32) {
             float qi = q[i];
             part += qi * qi;
@@ -106,7 +109,7 @@ __device__ float model_eval(const float* q, float* g, const float* lam, int n, i
         }
         __syncwarp();
         return -0.5f * warp_sum(part);
-    } else {  // correlated Gaussian: grad = -q P, logp = q.grad/2
+    } else if constexpr (BODY == 1) {  // correlated Gaussian: grad = -q P, logp = q.grad/2
         float acc[kMaxCols];
 #pragma unroll
         for (int k = 0; k < kMaxCols; ++k) acc[k] = 0.f;
@@ -131,12 +134,42 @@ __device__ float model_eval(const float* q, float* g, const float* lam, int n, i
         }
         __syncwarp();
         return 0.5f * warp_sum(part);
+    } else {
+        // non-centred eight schools, n = 10 (models/eight_schools.py:80-101):
+        // q = [mu, log_tau, theta_tilde_1..8]; lam = [y; 1/sigma^2], (2, 10),
+        // zero in columns 0 and 1. Lane j < 10 owns column j; four warp sums
+        // give logp and the gradients of mu and log_tau.
+        __syncwarp();  // q is written
+        const float mu = q[0], log_tau = q[1];
+        const float tau = expf(log_tau);
+        float s_tt2 = 0.f, s_dr = 0.f, s_r = 0.f, s_rtt = 0.f, dtt = 0.f;
+        if (lane < 10) {
+            const float tt = lane >= 2 ? q[lane] : 0.f;
+            const float theta = mu + tau * tt;
+            const float dy = lam[lane] - theta;
+            const float resid = dy * lam[10 + lane];
+            s_tt2 = tt * tt;
+            s_dr = dy * resid;
+            s_r = resid;
+            s_rtt = resid * tt;
+            dtt = -tt + tau * resid;
+        }
+        s_tt2 = warp_sum(s_tt2);
+        s_dr = warp_sum(s_dr);
+        s_r = warp_sum(s_r);
+        s_rtt = warp_sum(s_rtt);
+        const float m5 = mu / 5.0f, l5 = log_tau / 5.0f;
+        if (lane < 10)
+            g[lane] = lane == 0 ? -mu / 25.0f + s_r
+                    : lane == 1 ? -log_tau / 25.0f + tau * s_rtt : dtt;
+        __syncwarp();
+        return -0.5f * (m5 * m5) - 0.5f * (l5 * l5) - 0.5f * s_tt2 - 0.5f * s_dr;
     }
 }
 
 // What a transition reads that is the same for every chain of a launch.
 struct TreeConsts {
-    const float* lam;  // model constants (correlated Gaussian: P), shared or global
+    const float* lam;  // model constants (correlated Gaussian: P; eight schools: y, 1/sigma^2)
     const float* cov;  // kDense: the shared covariance, shared or global
     float* stack;      // [4][D][C][n]: left p, right p, p sum, proposal q
     int C, n, D, cb, n_stages;

@@ -1,17 +1,24 @@
-"""T classic-HMC transitions per call with a shared dense metric: the fused HMC op.
+"""T classic-HMC transitions per call: the fused HMC op, for a shared dense
+metric or a per-chain inverse-mass diagonal.
 
 Counterpart of ``littlemcmc_tpu/ops/fused_hmc_pallas.py::build_fused_hmc_op``
-with ``metric="dense"``: static (draw chunks) and with ``adapt_dense``
-(pooled dense adaptation inside tune chunks). One call runs ``T``
-transitions for every chain with the chain state kept inside the op, and
-per draw (``:251-325``):
+with ``metric="dense"``, static (draw chunks) and with ``adapt_dense``
+(pooled dense adaptation inside tune chunks), and with ``metric="diag"``,
+static and with ``adapt_metric`` (per-chain diag adaptation inside tune
+chunks). One call runs ``T`` transitions for every chain with the chain
+state kept inside the op, and per draw (``:251-325``):
 
-- the momentum ``p = z @ L^{-1}`` (:func:`.fused_nuts.dense_momentum`);
+- the momentum ``p = z @ L^{-1}`` (:func:`.fused_nuts.dense_momentum`) or
+  ``p = z / sqrt(V)`` (:func:`.fused_nuts.diag_momentum`, ``V`` at
+  ``:257``, ``:279``);
 - the jittered path length ``U * path_length`` and
   ``n_steps = clamp(floor(path / eps), 1, max_steps)`` (``:282-286``);
 - the trajectory and the accept (:func:`.hmc_trajectory.hmc_transition`,
-  velocity ``p @ cov``);
+  velocity ``p @ cov`` or ``V p``);
 - dual averaging on the accept statistic, when adapting;
+- in tune chunks with ``welford`` (diag), each chain's dual-window Welford
+  step on its selected state, which refreshes ``V`` for the next draw
+  (``:311-313``, :class:`.fused_nuts.DiagWelford`);
 - with ``adapt_dense``, the block-local pooled Welford adds of the block's
   new positions to both windows, then the shared window swap
   (:class:`.fused_nuts._BlockWelford`);
@@ -37,11 +44,12 @@ from typing import Dict, Optional, Sequence
 import torch
 
 from ..integration import INTEGRATOR_COEFFS
-from .fused_nuts import (_DRAW_STRIDE, _SCALARS, _WELFORD_PTRS, _BlockWelford, _da_update,
-                         check_inputs, check_kernel_shapes, dense_momentum, padded_dim,
-                         stack_block_welford, welford_buffers, welford_results)
+from .fused_nuts import (_DRAW_STRIDE, _SCALARS, _WELFORD_PTRS, DiagWelford, _BlockWelford,
+                         _da_update, check_inputs, check_kernel_shapes, dense_momentum,
+                         diag_momentum, gather_blocks, padded_dim, state_buffers,
+                         state_results, welford_buffers, welford_results)
 from .hmc_trajectory import hmc_transition
-from .nuts_trajectory import (BODY_IDS, DEFAULT_CHAIN_BLOCK, TrajectorySpec, _M32,
+from .nuts_trajectory import (BODY_IDS, DEFAULT_CHAIN_BLOCK, METRIC_IDS, TrajectorySpec, _M32,
                               _seed_words, body_logp_grad, counter_salt, counter_uniform,
                               int32_bits, metric_velocity, resolve_chain_block)
 
@@ -54,10 +62,10 @@ STAT_KEYS = ("step_size", "step_size_bar", "accept", "energy_error", "energy",
 _STAT_F32 = STAT_KEYS[:7]
 # the kernel's pointer, int and float arguments, in the order of
 # csrc/fused_hmc.cu
-_PTRS = ("q", "grad", "scal", "cov", "linv", "consts", "q_out", "grad_out", "scal_out",
-         "trace", "stat_f", "stat_i", "stat_b") + _WELFORD_PTRS
-_INTS = ("C", "n", "T", "cb", "n_stages", "body", "adapting", "adapt_dense", "max_steps",
-         "seed0", "seed1", "Npad")
+_PTRS = ("q", "grad", "scal", "cov", "linv", "var", "consts", "q_out", "grad_out",
+         "scal_out", "var_out", "trace", "stat_f", "stat_i", "stat_b") + _WELFORD_PTRS
+_INTS = ("C", "n", "T", "cb", "n_stages", "body", "metric", "tuning", "adapting",
+         "adapt_metric", "adapt_dense", "max_steps", "seed0", "seed1", "Npad")
 _FLOATS = ("Emax", "b0", "b1", "b2", "b3", "a0", "a1", "a2", "target_accept", "gamma",
            "k", "t0", "window_multiplier", "path_length")
 
@@ -67,9 +75,10 @@ _FLOATS = ("Emax", "b0", "b1", "b2", "b3", "a0", "a1", "a2", "target_accept", "g
 # --------------------------------------------------------------------------
 
 def fused_hmc_plain(q, grad, logp, iter_count, da_log_step, da_log_bar, da_hbar, da_count,
-                    da_mu, cov, linv, seed, *, spec: TrajectorySpec, T: int, tuning: bool,
-                    config, window_multiplier: float = 1.0,
+                    da_mu, var, linv, seed, *, spec: TrajectorySpec, T: int, tuning: bool,
+                    config, metric: str = "dense", window_multiplier: float = 1.0,
                     chain_block: int = DEFAULT_CHAIN_BLOCK, collect_trace: bool = True,
+                    welford: Optional[Sequence[torch.Tensor]] = None,
                     dense_welford: Optional[Sequence[torch.Tensor]] = None
                     ) -> Dict[str, torch.Tensor]:
     """The plain PyTorch op, block by block, on any device."""
@@ -79,7 +88,6 @@ def fused_hmc_plain(q, grad, logp, iter_count, da_log_step, da_log_bar, da_hbar,
     w0, w1 = _seed_words(seed)
     coeffs = INTEGRATOR_COEFFS[config.integrator]
     adapting = tuning and config.adapt_step_size
-    vel = metric_velocity(cov, "dense")
 
     def model(x):
         return body_logp_grad(spec, x)
@@ -92,21 +100,28 @@ def fused_hmc_plain(q, grad, logp, iter_count, da_log_step, da_log_bar, da_hbar,
         s = {k: v[rows] for k, v in state.items()}
         qb, gb = q[rows], grad[rows]
         wel = _BlockWelford(dense_welford, B) if dense_welford is not None else None
+        vb = var[rows] if metric == "diag" else var
+        dw = DiagWelford(welford).rows(rows) if welford is not None else None
         per_draw = {k: [] for k in STAT_KEYS + ("trace",)}
         for t in range(T):
             seed0 = (w0 + t * _DRAW_STRIDE) & _M32
-            p0 = dense_momentum(seed0, w1, blk, cb, linv, offset=0)
+            if metric == "dense":
+                p0 = dense_momentum(seed0, w1, blk, cb, linv, offset=0)
+            else:
+                p0 = diag_momentum(seed0, w1, blk, vb, offset=0)
             eps = torch.exp(s["da_log_step"] if adapting else s["da_log_bar"])
             salt = counter_salt(seed0, w1, blk, cb, q.device)
             path_length = counter_uniform(salt, 3) * float(config.path_length)
             n_steps = torch.clamp(torch.floor(path_length / eps), 1.0, float(config.max_steps))
-            out = hmc_transition(model, vel, coeffs, float(config.Emax), qb, p0, gb, s["logp"],
-                                 eps, n_steps, counter_uniform(salt, 4))
+            out = hmc_transition(model, metric_velocity(vb, metric), coeffs, float(config.Emax),
+                                 qb, p0, gb, s["logp"], eps, n_steps, counter_uniform(salt, 4))
             if adapting:
                 _da_update(s, out["accept_stat"], config)
             s["iter_count"] = s["iter_count"] + 1.0
             s["logp"] = out["logp"]
             qb, gb = out["q"], out["grad"]
+            if dw is not None and tuning:
+                vb = dw.update(qb, window_multiplier)
             if wel is not None:
                 wel.add_batch(qb)
                 wel.swap_and_count(window_multiplier)
@@ -120,30 +135,25 @@ def fused_hmc_plain(q, grad, logp, iter_count, da_log_step, da_log_bar, da_hbar,
                 per_draw[k].append(v)
         res = {k: torch.stack(v) for k, v in per_draw.items()}
         res.update(q=qb, grad=gb, **s)
+        if dw is not None:
+            res.update(var=vb, **dw.leaves)
         if wel is not None:
             res.update(wel.results())
         outs.append(res)
-
-    result = {k: torch.cat([o[k] for o in outs], dim=1) for k in STAT_KEYS + ("trace",)}
-    for k in ("q", "grad") + _SCALARS:
-        result[k] = torch.cat([o[k] for o in outs])
-    if not collect_trace:
-        result["trace"] = None
-    if dense_welford is not None:
-        result.update(stack_block_welford(outs, q.device))
-    return result
+    return gather_blocks(outs, q.device, collect_trace, welford is not None,
+                         dense_welford is not None, STAT_KEYS)
 
 
 # --------------------------------------------------------------------------
 # The CUDA kernel's wrapper
 # --------------------------------------------------------------------------
 
-def _launch_kernel(q, grad, scalars, cov, linv, seed, *, spec, T, tuning, config,
-                   window_multiplier, chain_block, collect_trace, dense_welford):
+def _launch_kernel(q, grad, scalars, var, linv, seed, *, spec, T, tuning, config, metric,
+                   window_multiplier, chain_block, collect_trace, welford, dense_welford):
     from ._build import launch
 
     C, n = q.shape
-    cb = check_kernel_shapes(spec, C, n, chain_block)
+    cb = check_kernel_shapes(C, n, chain_block)
     dev = q.device
     w0, w1 = _seed_words(seed)
     b_coef, a_coef = INTEGRATOR_COEFFS[config.integrator]
@@ -153,21 +163,22 @@ def _launch_kernel(q, grad, scalars, cov, linv, seed, *, spec, T, tuning, config
 
     buf = {
         "q": q.contiguous(), "grad": grad.contiguous(),
-        "scal": torch.stack(list(scalars) + [torch.zeros_like(scalars[0])], 1).contiguous(),
-        "cov": cov.contiguous(), "linv": linv.contiguous(),
         "consts": spec.consts[0] if spec.consts else None,
-        "q_out": empty(C, n), "grad_out": empty(C, n), "scal_out": empty(C, 8),
+        "q_out": empty(C, n), "grad_out": empty(C, n),
         "trace": empty(T, C, n) if collect_trace else None,
         "stat_f": empty(len(_STAT_F32), T, C), "stat_i": empty(T, C, dtype=torch.int32),
         "stat_b": empty(2, T, C, dtype=torch.bool),
     }
+    buf.update(state_buffers(scalars, var, linv, metric, welford, empty))
     adapt_dense = dense_welford is not None
     if adapt_dense:
         buf.update(welford_buffers(dense_welford, C // cb, empty))
     ints = dict(C=C, n=n, T=int(T), cb=cb, n_stages=len(a_coef), body=BODY_IDS[spec.body],
+                metric=METRIC_IDS[metric], tuning=int(bool(tuning)),
                 adapting=int(bool(tuning) and config.adapt_step_size),
-                adapt_dense=int(adapt_dense), max_steps=int(config.max_steps),
-                seed0=int32_bits(w0), seed1=int32_bits(w1), Npad=padded_dim(n))
+                adapt_metric=int(welford is not None), adapt_dense=int(adapt_dense),
+                max_steps=int(config.max_steps), seed0=int32_bits(w0), seed1=int32_bits(w1),
+                Npad=padded_dim(n))
     floats = dict(Emax=float(config.Emax), target_accept=float(config.target_accept),
                   gamma=float(config.gamma), k=float(config.k), t0=float(config.t0),
                   window_multiplier=float(window_multiplier),
@@ -179,7 +190,7 @@ def _launch_kernel(q, grad, scalars, cov, linv, seed, *, spec, T, tuning, config
     fused_hmc.launches += 1
 
     res = {"trace": buf["trace"], "q": buf["q_out"], "grad": buf["grad_out"]}
-    res.update({k: buf["scal_out"][:, i] for i, k in enumerate(_SCALARS)})
+    res.update(state_results(buf))
     res.update({k: buf["stat_f"][i] for i, k in enumerate(_STAT_F32)})
     res.update(n_steps=buf["stat_i"], diverging=buf["stat_b"][0], accepted=buf["stat_b"][1])
     if adapt_dense:
@@ -188,9 +199,10 @@ def _launch_kernel(q, grad, scalars, cov, linv, seed, *, spec, T, tuning, config
 
 
 def fused_hmc(q, grad, logp, iter_count, da_log_step, da_log_bar, da_hbar, da_count, da_mu,
-              cov, linv, seed, *, spec: TrajectorySpec, T: int, tuning: bool, config,
-              window_multiplier: float = 1.0, chain_block: int = DEFAULT_CHAIN_BLOCK,
-              collect_trace: bool = True,
+              var, linv, seed, *, spec: TrajectorySpec, T: int, tuning: bool, config,
+              metric: str = "dense", window_multiplier: float = 1.0,
+              chain_block: int = DEFAULT_CHAIN_BLOCK, collect_trace: bool = True,
+              welford: Optional[Sequence[torch.Tensor]] = None,
               dense_welford: Optional[Sequence[torch.Tensor]] = None
               ) -> Dict[str, torch.Tensor]:
     """``T`` HMC transitions for every chain, where the tensors lie.
@@ -199,22 +211,23 @@ def fused_hmc(q, grad, logp, iter_count, da_log_step, da_log_bar, da_hbar, da_co
     :class:`~littlemcmc_torch.base.HMCConfig`. Returns the JAX op's dict
     (``fused_hmc_pallas.py:538-577``): ``trace`` ``(T, C, n)`` (None
     without ``collect_trace``), the per-draw stats of :data:`STAT_KEYS`
-    ``(T, C)``, the final state leaves and, with ``dense_welford``, the
-    per-block Welford states and shared counters of
+    ``(T, C)``, the final state leaves, with ``welford`` the updated
+    ``var`` and Welford leaves, and with ``dense_welford`` the per-block
+    Welford states and shared counters of
     :func:`.fused_nuts.combine_dense_welford`'s input.
 
     CPU tensors run :func:`fused_hmc_plain`; CUDA tensors launch the kernel
     (``fused_hmc.launches`` counts those launches) or raise.
     """
     scalars = (logp, iter_count, da_log_step, da_log_bar, da_hbar, da_count, da_mu)
-    check_inputs(spec, q, grad, scalars, cov, linv, dense_welford, tuning)
-    kw = dict(spec=spec, T=T, tuning=tuning, config=config,
+    check_inputs(spec, q, grad, scalars, var, linv, metric, welford, dense_welford, tuning)
+    kw = dict(spec=spec, T=T, tuning=tuning, config=config, metric=metric,
               window_multiplier=window_multiplier, chain_block=chain_block,
-              collect_trace=collect_trace, dense_welford=dense_welford)
+              collect_trace=collect_trace, welford=welford, dense_welford=dense_welford)
     if q.device.type == "cpu":
-        return fused_hmc_plain(q, grad, *scalars, cov, linv, seed, **kw)
+        return fused_hmc_plain(q, grad, *scalars, var, linv, seed, **kw)
     if q.device.type == "cuda":
-        return _launch_kernel(q, grad, scalars, cov, linv, seed, **kw)
+        return _launch_kernel(q, grad, scalars, var, linv, seed, **kw)
     raise RuntimeError(f"no fused HMC implementation for device {q.device}")
 
 

@@ -1,17 +1,23 @@
-"""T NUTS transitions per call with a shared dense metric: the fused op.
+"""T NUTS transitions per call: the fused op, for a shared dense metric or
+a per-chain inverse-mass diagonal.
 
 Counterpart of ``littlemcmc_tpu/ops/fused_nuts_pallas.py::
-build_fused_nuts_op`` with ``metric="dense"``: static (draw chunks) and
-with ``adapt_dense`` (pooled dense adaptation inside tune chunks). One call
-runs ``T`` transitions for every chain with the chain state kept inside the
-op, and per draw:
+build_fused_nuts_op`` with ``metric="dense"``, static (draw chunks) and
+with ``adapt_dense`` (pooled dense adaptation inside tune chunks), and with
+``metric="diag"``, static and with ``adapt_metric`` (per-chain diag
+adaptation inside tune chunks). One call runs ``T`` transitions for every
+chain with the chain state kept inside the op, and per draw:
 
-- the momentum ``p = z @ L^{-1}`` from Box-Muller normals of the counter
-  stream (``_boxmuller_std`` ``:134``, ``_dense_momentum`` ``:154``);
+- the momentum from Box-Muller normals ``z`` of the counter stream
+  (``_boxmuller_std`` ``:134``): ``p = z @ L^{-1}`` (``_dense_momentum``
+  ``:154``) or ``p = z / sqrt(V)`` (``_boxmuller_momentum`` ``:143``);
 - the step size and early depth cap from the iteration counter;
 - one transition (:func:`.nuts_trajectory.transition_block`, velocity
-  ``p @ cov``) and the proposal's gradient;
+  ``p @ cov`` or ``V p``) and the proposal's gradient;
 - ``mean_tree_accept`` and dual averaging (``_da_update_cols`` ``:399``);
+- in tune chunks with ``welford`` (diag), each chain's dual-window Welford
+  step on its proposal, which refreshes ``V`` for the next draw from the
+  pre-swap foreground (``_welford_update_rows`` ``:418-458``);
 - with ``adapt_dense``, the block-local pooled Welford adds of the block's
   new positions to both windows and the shared window swap
   (``_dense_welford_batch_add`` ``:246``, ``_dense_welford_swap_and_count``
@@ -37,20 +43,20 @@ stream salted ``seed0 + 1013904223`` with per-element lanes
 from __future__ import annotations
 
 import math
-from typing import Dict, Optional, Sequence, Tuple
+from typing import Dict, Optional, Sequence
 
 import torch
 
 from ..integration import INTEGRATOR_COEFFS
 from ..math import fp32_matmul, round_up
 from .nuts_trajectory import (BODY_IDS, DEFAULT_CHAIN_BLOCK, MAX_KERNEL_CHAIN_BLOCK,
-                              MAX_KERNEL_NDIM_DENSE, TrajectorySpec, _M32, _GOLDEN,
+                              MAX_KERNEL_NDIM_DENSE, METRIC_IDS, TrajectorySpec, _M32, _GOLDEN,
                               _rowdot, _seed_words, block_uniform, body_logp_grad,
                               counter_uniform, fmix32, int32_bits, metric_velocity,
                               resolve_chain_block, transition_block)
 
 __all__ = ["fused_nuts", "fused_nuts_plain", "combine_dense_welford", "padded_dim",
-           "dense_momentum", "STAT_KEYS"]
+           "dense_momentum", "diag_momentum", "STAT_KEYS", "WELFORD_KEYS"]
 
 _TWO_PI = 6.283185307179586
 _MOMENTUM_SALT = 1013904223
@@ -61,9 +67,16 @@ STAT_KEYS = ("energy", "model_logp", "energy_error", "mean_tree_accept", "step_s
              "step_size_bar", "max_energy_change", "depth", "n_leaves", "diverging",
              "turning")
 _STAT_F32 = STAT_KEYS[:7]  # order of the kernel's f32 stats
-# the per-chain scalar state, columns of the kernel's (C, 8) in/out
+# the per-chain scalar state, columns 0-6 of the kernel's (C, 16) in/out
 _SCALARS = ("logp", "iter_count", "da_log_step", "da_log_bar", "da_hbar", "da_count",
             "da_mu")
+# the per-chain diag Welford state (``welford``), in the JAX op's order
+# (``fused_nuts_pallas.py:800-802``): rows (C, n) and columns (C,)
+WELFORD_KEYS = ("fg_mean", "fg_raw", "fg_w", "fg_w2", "bg_mean", "bg_raw", "bg_w", "bg_w2",
+                "n_samples", "window")
+_WELFORD_ROWS = ("fg_mean", "fg_raw", "bg_mean", "bg_raw")  # kernel's kVar rows 1-4
+_WELFORD_COLS = ("fg_w", "fg_w2", "bg_w", "bg_w2", "n_samples", "window")  # columns 8-13
+_N_SCAL = 16
 # the block Welford state's per-block outputs, (B, ...) each
 _WELFORD_KEYS = ("dense_fg_mean", "dense_fg_raw", "dense_fg_w", "dense_bg_mean",
                  "dense_bg_raw", "dense_bg_w")
@@ -71,10 +84,11 @@ _WELFORD_PTRS = ("welford_seed", "dense_fg_mean", "dense_fg_raw", "dense_bg_mean
                  "dense_bg_raw", "welford_out")
 # the kernel's pointer, int and float arguments, in the order of
 # csrc/fused_nuts.cu
-_PTRS = ("q", "grad", "scal", "cov", "linv", "consts", "stack", "q_out", "grad_out",
-         "scal_out", "trace", "stat_f", "stat_i", "stat_b") + _WELFORD_PTRS
-_INTS = ("C", "n", "D", "T", "cb", "n_stages", "body", "tuning", "adapting",
-         "adapt_dense", "early_window", "early_max", "max_depth", "seed0", "seed1", "Npad")
+_PTRS = ("q", "grad", "scal", "cov", "linv", "var", "consts", "stack", "q_out", "grad_out",
+         "scal_out", "var_out", "trace", "stat_f", "stat_i", "stat_b") + _WELFORD_PTRS
+_INTS = ("C", "n", "D", "T", "cb", "n_stages", "body", "metric", "tuning", "adapting",
+         "adapt_metric", "adapt_dense", "early_window", "early_max", "max_depth", "seed0",
+         "seed1", "Npad")
 _FLOATS = ("Emax", "b0", "b1", "b2", "b3", "a0", "a1", "a2", "target_accept", "gamma",
            "k", "t0", "window_multiplier")
 
@@ -90,23 +104,34 @@ def padded_dim(n: int) -> int:
 # Helpers the op runs per draw
 # --------------------------------------------------------------------------
 
-def dense_momentum(seed0: int, seed1: int, block_id: int, rows: int,
-                   linv: torch.Tensor, offset: int = _MOMENTUM_SALT) -> torch.Tensor:
-    """The momentum draw of one chain block: Box-Muller normals ``z`` from
-    the row stream salted ``seed0 + offset`` (calls 1 and 2), then
-    ``p = z @ L^{-1}``. ``seed0`` is the draw's seed word before the block
-    offset; the NUTS kernel's stream ``offset`` is 1013904223, the HMC
-    kernel's 0."""
-    n = linv.shape[0]
-    dev = linv.device
-    lanes = (torch.arange(rows, dtype=torch.int64, device=dev)[:, None] * padded_dim(n)
-             + torch.arange(n, dtype=torch.int64, device=dev)[None, :])
+def boxmuller_normals(seed0: int, seed1: int, block_id: int, rows: int, n: int, device,
+                      offset: int = _MOMENTUM_SALT) -> torch.Tensor:
+    """The ``(rows, n)`` Box-Muller normals of one chain block's momentum
+    draw: calls 1 and 2 of the row stream salted ``seed0 + offset``.
+    ``seed0`` is the draw's seed word before the block offset; the NUTS
+    kernel's stream ``offset`` is 1013904223, the HMC kernel's 0."""
+    lanes = (torch.arange(rows, dtype=torch.int64, device=device)[:, None] * padded_dim(n)
+             + torch.arange(n, dtype=torch.int64, device=device)[None, :])
     base = seed0 + block_id * 7919 + offset
     s1 = ((seed1 & _M32) * _GOLDEN) & _M32
     salt = fmix32(((base + lanes * 65063 + 17) & _M32) ^ s1)
     u1, u2 = counter_uniform(salt, 1), counter_uniform(salt, 2)
-    z = torch.sqrt(-2.0 * torch.log(u1)) * torch.cos(_TWO_PI * u2)
+    return torch.sqrt(-2.0 * torch.log(u1)) * torch.cos(_TWO_PI * u2)
+
+
+def dense_momentum(seed0: int, seed1: int, block_id: int, rows: int,
+                   linv: torch.Tensor, offset: int = _MOMENTUM_SALT) -> torch.Tensor:
+    """The momentum ``p = z @ L^{-1}`` of one chain block."""
+    z = boxmuller_normals(seed0, seed1, block_id, rows, linv.shape[0], linv.device, offset)
     return fp32_matmul(z, linv)
+
+
+def diag_momentum(seed0: int, seed1: int, block_id: int, var: torch.Tensor,
+                  offset: int = _MOMENTUM_SALT) -> torch.Tensor:
+    """The momentum ``p = z / sqrt(V)`` of one chain block whose
+    inverse-mass diagonals are the rows of ``var``."""
+    rows, n = var.shape
+    return boxmuller_normals(seed0, seed1, block_id, rows, n, var.device, offset) / torch.sqrt(var)
 
 
 def _log1mexp(x: torch.Tensor) -> torch.Tensor:
@@ -137,6 +162,48 @@ def _da_update(s: Dict[str, torch.Tensor], mta: torch.Tensor, config) -> None:
     mk = torch.exp(-float(config.k) * torch.log(cnt))
     s["da_log_bar"] = mk * ls_new + (1.0 - mk) * s["da_log_bar"]
     s["da_hbar"], s["da_log_step"], s["da_count"] = hb, ls_new, cnt + 1.0
+
+
+class DiagWelford:
+    """The per-chain dual-window diag Welford state of a set of chains, in
+    the arithmetic of ``_welford_update_rows`` (``fused_nuts_pallas.py:
+    418-458``) and of the kernels' ``DiagWelford``: float32 weights and
+    counters per chain, the window swap at ``pn - win floor(pn / win) ==
+    0``."""
+
+    def __init__(self, welford: Sequence[torch.Tensor]):
+        self.leaves = dict(zip(WELFORD_KEYS, welford))
+
+    def rows(self, rows: slice) -> "DiagWelford":
+        return DiagWelford([self.leaves[k][rows] for k in WELFORD_KEYS])
+
+    def update(self, x: torch.Tensor, mult: float) -> torch.Tensor:
+        """Add ``x`` to both windows, swap where a window ends; returns the
+        variance of the pre-swap foreground, the next draw's metric."""
+        s = self.leaves
+        fw, bw = s["fg_w"] + 1.0, s["bg_w"] + 1.0
+        rf, rb = (1.0 / fw)[:, None], (1.0 / bw)[:, None]
+        pn, win = s["n_samples"], s["window"]
+        # float modulo via floor: the counts stay far below 2^24 (exact)
+        swap = (pn > 0) & ((pn - win * torch.floor(pn / win)) == 0)
+        old = x - s["fg_mean"]
+        fmean = s["fg_mean"] + rf * old
+        fraw = s["fg_raw"] + old * (x - fmean)
+        bold = x - s["bg_mean"]
+        bmean = s["bg_mean"] + rb * bold
+        braw = s["bg_raw"] + bold * (x - bmean)
+        var = fraw * rf
+        sw = swap[:, None]
+        zero = torch.zeros_like(fw)
+        s.update(fg_mean=torch.where(sw, bmean, fmean), fg_raw=torch.where(sw, braw, fraw),
+                 bg_mean=torch.where(sw, torch.zeros_like(bmean), bmean),
+                 bg_raw=torch.where(sw, torch.zeros_like(braw), braw),
+                 fg_w=torch.where(swap, bw, fw),
+                 fg_w2=torch.where(swap, s["bg_w2"] + 1.0, s["fg_w2"] + 1.0),
+                 bg_w=torch.where(swap, zero, bw),
+                 bg_w2=torch.where(swap, zero, s["bg_w2"] + 1.0),
+                 window=torch.where(swap, torch.floor(win * mult), win), n_samples=pn + 1.0)
+        return var
 
 
 class _BlockWelford:
@@ -233,10 +300,16 @@ def combine_dense_welford(W: torch.Tensor, m: torch.Tensor, r: torch.Tensor,
 # The plain version
 # --------------------------------------------------------------------------
 
+def _cat_chains(outs, keys) -> Dict[str, torch.Tensor]:
+    return {k: torch.cat([o[k] for o in outs]) for k in keys}
+
+
 def fused_nuts_plain(q, grad, logp, iter_count, da_log_step, da_log_bar, da_hbar,
-                     da_count, da_mu, cov, linv, seed, *, spec: TrajectorySpec, T: int,
-                     tuning: bool, config, window_multiplier: float = 1.0,
+                     da_count, da_mu, var, linv, seed, *, spec: TrajectorySpec, T: int,
+                     tuning: bool, config, metric: str = "dense",
+                     window_multiplier: float = 1.0,
                      chain_block: int = DEFAULT_CHAIN_BLOCK, collect_trace: bool = True,
+                     welford: Optional[Sequence[torch.Tensor]] = None,
                      dense_welford: Optional[Sequence[torch.Tensor]] = None
                      ) -> Dict[str, torch.Tensor]:
     """The plain PyTorch op, block by block, on any device."""
@@ -247,7 +320,6 @@ def fused_nuts_plain(q, grad, logp, iter_count, da_log_step, da_log_bar, da_hbar
     coeffs = INTEGRATOR_COEFFS[config.integrator]
     adapting = tuning and config.adapt_step_size
     D = int(config.max_treedepth)
-    vel = metric_velocity(cov, "dense")
 
     def model(x):
         return body_logp_grad(spec, x)
@@ -260,10 +332,16 @@ def fused_nuts_plain(q, grad, logp, iter_count, da_log_step, da_log_bar, da_hbar
         s = {k: v[rows] for k, v in state.items()}
         qb, gb = q[rows], grad[rows]
         wel = _BlockWelford(dense_welford, B) if dense_welford is not None else None
+        vb = var[rows] if metric == "diag" else var
+        dw = DiagWelford(welford).rows(rows) if welford is not None else None
         per_draw = {k: [] for k in STAT_KEYS + ("trace",)}
         for t in range(T):
             seed0 = (w0 + t * _DRAW_STRIDE) & _M32
-            p0 = dense_momentum(seed0, w1, blk, cb, linv)
+            if metric == "dense":
+                p0 = dense_momentum(seed0, w1, blk, cb, linv)
+            else:
+                p0 = diag_momentum(seed0, w1, blk, vb)
+            vel = metric_velocity(vb, metric)
             lp0 = s["logp"]
             E0 = 0.5 * _rowdot(p0, vel(p0)) - lp0
             eps = torch.exp(s["da_log_step"] if adapting else s["da_log_bar"])
@@ -281,6 +359,8 @@ def fused_nuts_plain(q, grad, logp, iter_count, da_log_step, da_log_bar, da_hbar
             s["iter_count"] = s["iter_count"] + 1.0
             s["logp"] = out["logp"]
             qb, gb = out["q"], out["grad"]
+            if dw is not None and tuning:
+                vb = dw.update(qb, window_multiplier)
             if wel is not None:
                 wel.add_batch(qb)
                 wel.swap_and_count(window_multiplier)
@@ -295,18 +375,29 @@ def fused_nuts_plain(q, grad, logp, iter_count, da_log_step, da_log_bar, da_hbar
                 per_draw[k].append(v)
         res = {k: torch.stack(v) for k, v in per_draw.items()}
         res.update(q=qb, grad=gb, **s)
+        if dw is not None:
+            res.update(var=vb, **dw.leaves)
         if wel is not None:
             res.update(wel.results())
         outs.append(res)
+    return gather_blocks(outs, q.device, collect_trace, welford is not None,
+                         dense_welford is not None, STAT_KEYS)
 
-    result = {k: torch.cat([o[k] for o in outs], dim=1)
-              for k in STAT_KEYS + ("trace",)}
-    for k in ("q", "grad") + _SCALARS:
-        result[k] = torch.cat([o[k] for o in outs])
+
+def gather_blocks(outs, device, collect_trace: bool, adapt_metric: bool, adapt_dense: bool,
+                  stat_keys) -> Dict[str, torch.Tensor]:
+    """A fused plain version's result from its blocks' results: the
+    per-draw streams joined along the chain axis, the per-chain state and
+    diag Welford state along the chains, the per-block pooled states
+    stacked."""
+    result = {k: torch.cat([o[k] for o in outs], dim=1) for k in stat_keys + ("trace",)}
+    result.update(_cat_chains(outs, ("q", "grad") + _SCALARS))
     if not collect_trace:
         result["trace"] = None
-    if dense_welford is not None:
-        result.update(stack_block_welford(outs, q.device))
+    if adapt_metric:
+        result.update(_cat_chains(outs, ("var",) + WELFORD_KEYS))
+    if adapt_dense:
+        result.update(stack_block_welford(outs, device))
     return result
 
 
@@ -314,16 +405,28 @@ def fused_nuts_plain(q, grad, logp, iter_count, da_log_step, da_log_bar, da_hbar
 # The CUDA kernel's wrapper
 # --------------------------------------------------------------------------
 
-def check_inputs(spec, q, grad, scalars, cov, linv, dense_welford, tuning):
+def check_inputs(spec, q, grad, scalars, var, linv, metric, welford, dense_welford, tuning):
     """The fused ops' input contract: float32 tensors of the shapes
     :func:`fused_nuts` documents, on one device."""
     C, n = q.shape
     if n != spec.ndim:
         raise ValueError(f"q has {n} columns but the model has {spec.ndim}")
+    if metric not in ("diag", "dense"):
+        raise ValueError(f"unknown metric {metric!r}; known: diag, dense")
     dev = q.device
-    named = [("q", q, (C, n)), ("grad", grad, (C, n)), ("cov", cov, (n, n)),
-             ("linv", linv, (n, n))]
+    named = [("q", q, (C, n)), ("grad", grad, (C, n))]
     named += [(k, v, (C,)) for k, v in zip(_SCALARS, scalars)]
+    if metric == "dense":
+        if welford is not None or linv is None:
+            raise ValueError("the dense metric takes linv and no per-chain welford state")
+        named += [("cov", var, (n, n)), ("linv", linv, (n, n))]
+    else:
+        if dense_welford is not None:
+            raise ValueError("dense_welford (pooled dense adaptation) needs metric='dense'")
+        named.append(("var", var, (C, n)))
+        if welford is not None:
+            named += [(k, v, (C, n) if k in _WELFORD_ROWS else (C,))
+                      for k, v in zip(WELFORD_KEYS, welford)]
     if dense_welford is not None:
         if not tuning:
             raise ValueError("dense_welford (pooled dense adaptation) needs tuning=True")
@@ -341,27 +444,58 @@ def check_inputs(spec, q, grad, scalars, cov, linv, dense_welford, tuning):
                              f"{dev}; got {c.dtype} on {c.device}")
 
 
-def check_kernel_shapes(spec, C: int, n: int, chain_block: int) -> int:
+def check_kernel_shapes(C: int, n: int, chain_block: int) -> int:
     """The fused kernels' chain block for ``C`` chains, after checking what
-    they take: at most 16 chains a block, ``n`` at most 256, an ``(n, n)``
-    precision."""
+    they take: at most 16 chains a block, ``n`` at most 256."""
     cb = resolve_chain_block(C, chain_block)
     if cb > MAX_KERNEL_CHAIN_BLOCK:
         raise ValueError(f"chain_block {cb} exceeds the kernel's "
                          f"{MAX_KERNEL_CHAIN_BLOCK} chains per thread block")
     if n > MAX_KERNEL_NDIM_DENSE:
         raise ValueError(f"the fused kernel takes n <= {MAX_KERNEL_NDIM_DENSE}, got {n}")
-    if spec.body == "correlated_gaussian" and tuple(spec.consts[0].shape) != (n, n):
-        raise ValueError("the precision must be (n, n)")
     return cb
 
 
-def _launch_kernel(q, grad, scalars, cov, linv, seed, *, spec, T, tuning, config,
-                   window_multiplier, chain_block, collect_trace, dense_welford):
+def state_buffers(scalars, var, linv, metric, welford, empty) -> Dict[str, torch.Tensor]:
+    """The fused kernels' state inputs and the outputs they update: the
+    ``(C, 16)`` scalar state (the chain and dual averaging in columns 0-6,
+    the diag Welford weights and counters in 8-13), the metric (``cov`` and
+    ``linv``, or ``var``: the inverse mass, stacked over the four Welford
+    rows with ``welford``) and the outputs."""
+    C = scalars[0].shape[0]
+    zero = torch.zeros_like(scalars[0])
+    wl = dict(zip(WELFORD_KEYS, welford)) if welford is not None else {}
+    cols = list(scalars) + [zero] + [wl.get(k, zero) for k in _WELFORD_COLS] + [zero] * 2
+    buf = {"scal": torch.stack(cols, 1).contiguous(), "scal_out": empty(C, _N_SCAL),
+           "cov": None, "linv": None, "var": None, "var_out": None}
+    if metric == "dense":
+        buf.update(cov=var.contiguous(), linv=linv.contiguous())
+    elif welford is None:
+        buf["var"] = var.contiguous()
+    else:
+        buf["var"] = torch.stack([var] + [wl[k] for k in _WELFORD_ROWS]).contiguous()
+        buf["var_out"] = empty(5, *var.shape)
+    return buf
+
+
+def state_results(buf) -> Dict[str, torch.Tensor]:
+    """The per-chain state leaves from :func:`state_buffers` after a launch."""
+    so = buf["scal_out"]
+    res = {k: so[:, i] for i, k in enumerate(_SCALARS)}
+    if buf["var_out"] is not None:
+        vo = buf["var_out"]
+        res["var"] = vo[0]
+        res.update({k: vo[1 + i] for i, k in enumerate(_WELFORD_ROWS)})
+        res.update({k: so[:, 8 + i] for i, k in enumerate(_WELFORD_COLS)})
+    return res
+
+
+def _launch_kernel(q, grad, scalars, var, linv, seed, *, spec, T, tuning, config, metric,
+                   window_multiplier, chain_block, collect_trace, welford, dense_welford):
     from ._build import launch
 
     C, n = q.shape
-    cb = check_kernel_shapes(spec, C, n, chain_block)
+    cb = check_kernel_shapes(C, n, chain_block)
     B = C // cb
     D = int(config.max_treedepth)
     dev = q.device
@@ -374,21 +508,21 @@ def _launch_kernel(q, grad, scalars, cov, linv, seed, *, spec, T, tuning, config
 
     buf = {
         "q": q.contiguous(), "grad": grad.contiguous(),
-        "scal": torch.stack(list(scalars) + [torch.zeros_like(scalars[0])], 1).contiguous(),
-        "cov": cov.contiguous(), "linv": linv.contiguous(),
         "consts": spec.consts[0] if spec.consts else None,
         "stack": empty(4, D, C, n), "q_out": empty(C, n), "grad_out": empty(C, n),
-        "scal_out": empty(C, 8), "trace": empty(T, C, n) if collect_trace else None,
+        "trace": empty(T, C, n) if collect_trace else None,
         "stat_f": empty(len(_STAT_F32), T, C), "stat_i": empty(2, T, C, dtype=torch.int32),
         "stat_b": empty(2, T, C, dtype=torch.bool),
     }
+    buf.update(state_buffers(scalars, var, linv, metric, welford, empty))
     adapt_dense = dense_welford is not None
     if adapt_dense:
         buf.update(welford_buffers(dense_welford, B, empty))
     ints = dict(C=C, n=n, D=D, T=int(T), cb=cb, n_stages=len(a_coef),
-                body=BODY_IDS[spec.body], tuning=int(bool(tuning)),
+                body=BODY_IDS[spec.body], metric=METRIC_IDS[metric], tuning=int(bool(tuning)),
                 adapting=int(bool(tuning) and config.adapt_step_size),
-                adapt_dense=int(adapt_dense), early_window=int(config.early_window),
+                adapt_metric=int(welford is not None), adapt_dense=int(adapt_dense),
+                early_window=int(config.early_window),
                 early_max=int(config.early_max_treedepth),
                 max_depth=int(config.max_treedepth),
                 seed0=int32_bits(w0), seed1=int32_bits(w1), Npad=padded_dim(n))
@@ -402,7 +536,7 @@ def _launch_kernel(q, grad, scalars, cov, linv, seed, *, spec, T, tuning, config
     fused_nuts.launches += 1
 
     res = {"trace": buf["trace"], "q": buf["q_out"], "grad": buf["grad_out"]}
-    res.update({k: buf["scal_out"][:, i] for i, k in enumerate(_SCALARS)})
+    res.update(state_results(buf))
     res.update({k: buf["stat_f"][i] for i, k in enumerate(_STAT_F32)})
     res.update(depth=buf["stat_i"][0], n_leaves=buf["stat_i"][1],
                diverging=buf["stat_b"][0], turning=buf["stat_b"][1])
@@ -412,42 +546,49 @@ def _launch_kernel(q, grad, scalars, cov, linv, seed, *, spec, T, tuning, config
 
 
 def fused_nuts(q, grad, logp, iter_count, da_log_step, da_log_bar, da_hbar, da_count,
-               da_mu, cov, linv, seed, *, spec: TrajectorySpec, T: int, tuning: bool,
-               config, window_multiplier: float = 1.0,
+               da_mu, var, linv, seed, *, spec: TrajectorySpec, T: int, tuning: bool,
+               config, metric: str = "dense", window_multiplier: float = 1.0,
                chain_block: int = DEFAULT_CHAIN_BLOCK, collect_trace: bool = True,
+               welford: Optional[Sequence[torch.Tensor]] = None,
                dense_welford: Optional[Sequence[torch.Tensor]] = None
                ) -> Dict[str, torch.Tensor]:
     """``T`` NUTS transitions for every chain, where the tensors lie.
 
     Inputs (float32): ``q, grad`` ``(C, n)``; the per-chain ``logp``,
-    ``iter_count`` and dual-averaging leaves ``(C,)``; the shared
-    covariance ``cov`` and its inverse lower Cholesky factor ``linv``
-    ``(n, n)``; ``seed`` two int32 words. ``config`` is a
-    :class:`~littlemcmc_torch.base.NUTSConfig`. ``dense_welford`` (tune
-    chunks of pooled dense adaptation) is the global pooled state
-    ``(fg_mean (n,), fg_raw (n, n), fg_w, bg_mean, bg_raw, bg_w,
-    n_samples, prev_update, window)``, scalars as 0-d tensors.
+    ``iter_count`` and dual-averaging leaves ``(C,)``; the metric ``var``:
+    for ``metric="dense"`` the shared covariance ``(n, n)`` with its
+    inverse lower Cholesky factor ``linv``, for ``metric="diag"`` the
+    per-chain inverse-mass diagonals ``(C, n)`` and ``linv=None``; ``seed``
+    two int32 words. ``config`` is a
+    :class:`~littlemcmc_torch.base.NUTSConfig`. ``welford`` (diag: the
+    per-chain adaptation, ``adapt_metric``) is the state of
+    :data:`WELFORD_KEYS`, rows ``(C, n)`` and weights and counters
+    ``(C,)``; tune chunks update it and ``var`` every draw, draw chunks
+    pass it through. ``dense_welford`` (dense: tune chunks of pooled
+    adaptation) is the global pooled state ``(fg_mean (n,), fg_raw (n, n),
+    fg_w, bg_mean, bg_raw, bg_w, n_samples, prev_update, window)``, scalars
+    as 0-d tensors.
 
     Returns the JAX op's dict: ``trace`` ``(T, C, n)`` (None without
     ``collect_trace``), the per-draw stats of :data:`STAT_KEYS` ``(T, C)``,
-    the final state leaves and, with ``dense_welford``, the per-block
-    states ``dense_fg_mean (B, n)``, ``dense_fg_raw (B, n, n)``,
-    ``dense_fg_w (B,)`` (and ``dense_bg_*``) and the shared counters
-    ``n_samples``, ``prev_update``, ``window``, for
-    :func:`combine_dense_welford`.
+    the final state leaves, with ``welford`` the updated ``var`` and
+    Welford leaves, and with ``dense_welford`` the per-block states
+    ``dense_fg_mean (B, n)``, ``dense_fg_raw (B, n, n)``, ``dense_fg_w
+    (B,)`` (and ``dense_bg_*``) and the shared counters ``n_samples``,
+    ``prev_update``, ``window``, for :func:`combine_dense_welford`.
 
     CPU tensors run :func:`fused_nuts_plain`; CUDA tensors launch the
     kernel (``fused_nuts.launches`` counts those launches) or raise.
     """
     scalars = (logp, iter_count, da_log_step, da_log_bar, da_hbar, da_count, da_mu)
-    check_inputs(spec, q, grad, scalars, cov, linv, dense_welford, tuning)
-    kw = dict(spec=spec, T=T, tuning=tuning, config=config,
+    check_inputs(spec, q, grad, scalars, var, linv, metric, welford, dense_welford, tuning)
+    kw = dict(spec=spec, T=T, tuning=tuning, config=config, metric=metric,
               window_multiplier=window_multiplier, chain_block=chain_block,
-              collect_trace=collect_trace, dense_welford=dense_welford)
+              collect_trace=collect_trace, welford=welford, dense_welford=dense_welford)
     if q.device.type == "cpu":
-        return fused_nuts_plain(q, grad, *scalars, cov, linv, seed, **kw)
+        return fused_nuts_plain(q, grad, *scalars, var, linv, seed, **kw)
     if q.device.type == "cuda":
-        return _launch_kernel(q, grad, scalars, cov, linv, seed, **kw)
+        return _launch_kernel(q, grad, scalars, var, linv, seed, **kw)
     raise RuntimeError(f"no fused NUTS implementation for device {q.device}")
 
 

@@ -56,7 +56,7 @@ MAX_KERNEL_NDIM_DENSE = 256  # register tile of the dense model body
 
 # model bodies and metrics compiled into the kernels (ids match
 # csrc/nuts_transition.cuh)
-BODY_IDS = {"standard_normal": 0, "correlated_gaussian": 1}
+BODY_IDS = {"standard_normal": 0, "correlated_gaussian": 1, "eight_schools": 2}
 METRIC_IDS = {"diag": 0, "dense": 1}
 
 _M32 = 0xFFFFFFFF
@@ -72,25 +72,62 @@ class TrajectorySpec:
     ``standard_normal``: no constants; ``logp = -q.q/2``, ``grad = -q``.
     ``correlated_gaussian``: the ``(n, n)`` fp32 precision ``P``;
     ``grad = -q P``, ``logp = q.grad/2``.
+    ``eight_schools``: the non-centred eight schools at ``n = 10``
+    (``q = [mu, log_tau, theta_tilde_1..8]``); one ``(2, 10)`` fp32
+    constant, ``y`` and ``1/sigma^2`` in columns 2..9 and zero in
+    columns 0 and 1 (``models/eight_schools.py:80-101``).
+
+    ``packable``: the JAX model's spec has a lane-packed body
+    (``packed_fn``). Nothing in the port packs lanes; the flag only
+    takes part in the engine election, as ``resolve_pack`` does there.
     """
 
     body: str
     consts: Tuple[torch.Tensor, ...]
     ndim: int
+    packable: bool = False
 
     def __post_init__(self):
         if self.body not in BODY_IDS:
             raise ValueError(f"unknown model body {self.body!r}; "
                              f"known: {sorted(BODY_IDS)}")
+        if self.body == "eight_schools" and self.ndim != 10:
+            raise ValueError(f"the eight_schools body has 10 parameters, not {self.ndim}")
+        want = {"standard_normal": [], "correlated_gaussian": [(self.ndim, self.ndim)],
+                "eight_schools": [(2, 10)]}[self.body]
+        if [tuple(c.shape) for c in self.consts] != want:
+            raise ValueError(f"the {self.body} body takes constants of shapes {want}, got "
+                             f"{[tuple(c.shape) for c in self.consts]}")
 
 
 def body_logp_grad(spec: TrajectorySpec, q: torch.Tensor):
     """The body's plain ``(logp (C,), grad (C, n))`` at ``q (C, n)``."""
     if spec.body == "standard_normal":
         return -0.5 * (q * q).sum(1), -q
+    if spec.body == "eight_schools":
+        return _eight_schools_logp_grad(spec.consts[0], q)
     (prec,) = spec.consts
     g = -fp32_matmul(q, prec)
     return 0.5 * (q * g).sum(1), g
+
+
+def _eight_schools_logp_grad(consts: torch.Tensor, q: torch.Tensor):
+    """The eight-schools body in the arithmetic of the JAX spec's ``fn``
+    (``models/eight_schools.py:80-101``): ``theta_tilde`` masked to columns
+    2..9, ``y`` and ``1/sigma^2`` zero outside them."""
+    y, is2 = consts[0], consts[1]
+    mu, log_tau = q[:, 0:1], q[:, 1:2]
+    tau = torch.exp(log_tau)
+    tt = torch.cat([torch.zeros_like(q[:, :2]), q[:, 2:]], 1)
+    theta = mu + tau * tt
+    dy = y - theta
+    resid = dy * is2  # zero outside the theta columns
+    lp = (-0.5 * (mu / 5.0) ** 2 - 0.5 * (log_tau / 5.0) ** 2
+          - 0.5 * (tt * tt).sum(1, keepdim=True) - 0.5 * (dy * resid).sum(1, keepdim=True))
+    dmu = -mu / 25.0 + resid.sum(1, keepdim=True)
+    dlog_tau = -log_tau / 25.0 + tau * (resid * tt).sum(1, keepdim=True)
+    dtt = -tt + tau * resid
+    return lp[:, 0], torch.cat([dmu, dlog_tau, dtt[:, 2:]], 1)
 
 
 # --------------------------------------------------------------------------
@@ -469,9 +506,6 @@ def _launch_kernel(q, p, grad, logp, eps, max_depth_c, var, seed, *, spec,
     if (spec.body == "correlated_gaussian" or metric == "dense") and n > MAX_KERNEL_NDIM_DENSE:
         raise ValueError(f"the correlated_gaussian body and the dense metric take "
                          f"n <= {MAX_KERNEL_NDIM_DENSE}, got {n}")
-    if spec.body == "correlated_gaussian":
-        if tuple(spec.consts[0].shape) != (n, n):
-            raise ValueError("the precision must be (n, n)")
     b_coef, a_coef = INTEGRATOR_COEFFS[integrator]
     coef = (ctypes.c_float * 7)(*(list(b_coef) + [0.0] * (4 - len(b_coef))
                                   + list(a_coef) + [0.0] * (3 - len(a_coef))))

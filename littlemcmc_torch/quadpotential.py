@@ -340,6 +340,29 @@ class QuadPotentialDiagAdapt:
             window_multiplier=self.window_multiplier,
         )
 
+    def welford_leaves(self) -> tuple:
+        """The Welford state as the fused kernels take it (the order of
+        ``ops.fused_nuts.WELFORD_KEYS``): the windows' means and raw
+        variances ``(C, n)``, their weights, and the counters as float32
+        ``(C,)``."""
+        f32 = torch.float32
+        return (self.fg.mean, self.fg.raw_var, self.fg.w_sum, self.fg.w_sum2,
+                self.bg.mean, self.bg.raw_var, self.bg.w_sum, self.bg.w_sum2,
+                self.n_samples.to(f32), self.window.to(f32))
+
+    def with_welford_leaves(self, var: torch.Tensor, leaves) -> "QuadPotentialDiagAdapt":
+        """This metric with the inverse mass ``var`` and the Welford state
+        ``leaves`` of :meth:`welford_leaves`' layout (a fused kernel's
+        outputs)."""
+        fgm, fgr, fgw, fgw2, bgm, bgr, bgw, bgw2, ns, win = leaves
+        stds = torch.sqrt(var)
+        return QuadPotentialDiagAdapt(
+            var=var, stds=stds, inv_stds=1.0 / stds,
+            fg=WelfordVariance(w_sum=fgw, w_sum2=fgw2, mean=fgm, raw_var=fgr),
+            bg=WelfordVariance(w_sum=bgw, w_sum2=bgw2, mean=bgm, raw_var=bgr),
+            n_samples=ns.to(torch.int32), window=win.to(torch.int32),
+            window_multiplier=self.window_multiplier)
+
     def broadcast(self, chains: int) -> "QuadPotentialDiagAdapt":
         """One chain's metric repeated for ``chains`` chains."""
         def rep(x):

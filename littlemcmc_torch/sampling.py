@@ -10,8 +10,12 @@ metric (``adapt_diag`` / ``jitter+adapt_diag``, per-chain
 - per-draw: one trajectory-kernel launch per draw for all chains (for HMC
   without a model body or with a dense metric, the tensor-op trajectory of
   ``hmc.run_hmc_trajectory``), the adaptation updates between draws;
-- fused (dense metrics): one fused-kernel launch per chunk of draws, with
-  momentum, dual averaging and the pooled dense Welford adds inside it.
+- fused: one fused-kernel launch per chunk of draws, with momentum, dual
+  averaging and the metric's Welford updates (per-chain diag, or pooled
+  dense) inside it.
+
+``sample`` elects between them as the JAX package does
+(``sampling.py:1237-1300``, ``elect_fused_engine`` ``:660-683``).
 
 Both run in the chunk loop of ``_run_chunked`` (``sampling.py:686-876``):
 tune chunks follow the fused engine's refresh schedule, the divergence
@@ -63,6 +67,37 @@ _POOLED_PROMOTE_CHAINS = 128
 
 _POTENTIALS = (QuadPotentialDiag, QuadPotentialDiagAdapt, QuadPotentialFull,
                QuadPotentialFullAdapt)
+
+# the JAX kernels' lane width and per-chain slot scalars, which set how many
+# chains of an n-parameter model share a lane row there
+# (nuts_trajectory_pallas.py:66-67)
+_LANE, _N_SCALARS = 128, 4
+
+
+def _resolve_pack(spec, n: int, chains: int) -> int:
+    """The JAX package's lane-pack factor for a run (``natural_pack`` and
+    ``resolve_pack``, ``nuts_trajectory_pallas.py:820-847``): the largest
+    power of two up to 16 whose ``128 / pack``-lane segments hold ``n + 4``
+    lanes, for a packable model, demoted until ``chains`` blocks into rows
+    of 8. Nothing in the port packs lanes; the factor decides the engine."""
+    if not spec.packable:
+        return 1
+    pack, seg = 1, _LANE
+    while pack * 2 <= 16 and seg // 2 >= n + _N_SCALARS:
+        pack, seg = pack * 2, seg // 2
+    while pack > 1 and chains % (8 * pack):
+        pack //= 2
+    return pack
+
+
+def _usable_chain_count(chains: int, chain_block: int = 256) -> bool:
+    """Whether ``chains`` blocks into chain blocks of at least 8 by the
+    JAX kernels' rule (``usable_chain_count``,
+    ``nuts_trajectory_pallas.py:93-102``)."""
+    cb = min(chain_block, chains)
+    while chains % cb:
+        cb //= 2
+    return cb >= 8
 
 
 class _StepSpec:
@@ -365,10 +400,16 @@ def sample(
       all chains. ``None`` pools ``adapt_full`` at >= 128 chains (reference
       ``sampling.py:1040-1055``). Per-chain dense adaptation runs on the
       tensor-op tree, ROADMAP Queue 1 item 6, and raises here.
-    - ``fuse_draws``: ``None`` elects the engine as the JAX package does
-      (dense metrics: the fused kernel; diagonal metrics: per-draw);
-      ``False`` forces the per-draw engine; ``True`` requires the fused
-      one. A failed build or launch raises; nothing falls back. HMC on the
+    - ``fuse_draws``: ``None`` elects the engine as the JAX package does:
+      the fused kernels for a model with a spec, at a chain count that
+      blocks into chain blocks of at least 8, and a dense metric (static
+      or pooled), or a diagonal one (static, or adaptive per chain or
+      pooled) where the JAX kernels would pack lanes (a packable model,
+      ``StandardNormal`` or ``EightSchools``, at n <= 60 and a chain
+      count that is a multiple of 16 or more; ``elect_fused_engine``);
+      else per-draw. ``False`` forces the per-draw engine; ``True``
+      requires the fused one and raises ``ValueError`` where it does not
+      run. A failed build or launch raises; nothing falls back. HMC on the
       per-draw engine runs its trajectory kernel for a diagonal metric and
       a model with a spec, else :func:`~littlemcmc_torch.hmc.run_hmc_trajectory`.
     - ``perf_report``: pass a dict and it is filled with ``engine`` (e.g.
@@ -447,18 +488,25 @@ def sample(
             "per-chain dense adaptation (adapt_full below 128 chains, or "
             "cross_chain_adapt=False) runs on the tensor-op tree, ROADMAP Queue 1 "
             "item 6; pass cross_chain_adapt=True to pool it across chains.")
-    if fuse_draws is True and not dense:
-        raise NotImplementedError(
-            "fuse_draws=True: the fused kernels' diagonal branch is ROADMAP Queue 2 "
-            "item 10; the diagonal metric runs on the per-draw engine.")
     hmc = isinstance(step, HamiltonianMC)
-    if fuse_draws is True and hmc and spec is None:
-        raise NotImplementedError(
-            "fuse_draws=True: the fused HMC kernel needs a model with a "
-            "trajectory_spec() (StandardNormal, CorrelatedGaussian).")
-    # the JAX election: dense -> fused; HMC without a model body runs the
-    # tensor-op trajectory (sampling.py:1237-1300)
-    fused = dense and fuse_draws is not False and not (hmc and spec is None)
+    # the JAX election (sampling.py:1237-1300): the fused kernels run a
+    # model with a spec, at a chain count that blocks into rows of 8, with
+    # a dense metric or a diagonal one (a static diagonal is not pooled);
+    # fuse_draws=None takes a diagonal metric there only where the JAX
+    # kernels pack lanes (elect_fused_engine, sampling.py:660-683)
+    fusable = (spec is not None and _usable_chain_count(chains)
+               and (dense or not pooled or isinstance(potential, QuadPotentialDiagAdapt)))
+    if fuse_draws is True and not fusable:
+        raise ValueError(
+            "fuse_draws=True but the fused kernels do not run this configuration: "
+            "they need a model with a trajectory_spec() (StandardNormal, "
+            "CorrelatedGaussian, EightSchools), a chain count that blocks into "
+            "chain blocks of at least 8, and a dense or a diagonal metric (a static "
+            "diagonal one not pooled across chains).")
+    if fuse_draws is None:
+        fused = fusable and (dense or _resolve_pack(spec, model_ndim, chains) > 1)
+    else:
+        fused = bool(fuse_draws)
     engine = (("fused_" if fused else "per_draw_") + ("dense" if dense else "diag")
               + ("_pooled" if pooled else ""))
 

@@ -1,17 +1,18 @@
 #!/usr/bin/env python3
-"""Time the NUTS kernels of one checkout of littlemcmc_torch on the card.
+"""Time the kernels of one checkout of littlemcmc_torch on the card.
 
     python3 scripts/torch_kernel_ab.py [ROOT]
 
 Builds the CUDA kernels of the checkout at ROOT (default: the one this
 script is in) and prints one JSON line: ptxas's register, stack-frame and
-spill lines of the NUTS trajectory kernel and the fused NUTS kernel, and
-their milliseconds per launch at the shapes of ``chip_smoke.py``'s phases 2
-and 2c (1024 chains, the 100-d correlated Gaussian): one diag-metric
-transition from stationary inputs, and a 4-draw dense draw chunk. The
-inputs are made with numpy from fixed seeds, so two checkouts see the same
-work. To compare two checkouts, run them in turns (A, B, B, A) in one
-command on one card.
+spill lines of every kernel, and the milliseconds per launch of the NUTS
+trajectory kernel, the fused NUTS kernel and the fused HMC kernel at the
+shapes of ``chip_smoke.py``'s phases 2, 2c and 2e (1024 chains, the 100-d
+correlated Gaussian): one diag-metric transition from stationary inputs,
+and a 4-draw dense draw chunk of each fused kernel. The inputs are made
+with numpy from fixed seeds, so two checkouts see the same work. To
+compare two checkouts, run them in turns (A, B, B, A) in one command on
+one card.
 """
 
 from __future__ import annotations
@@ -49,13 +50,15 @@ def main() -> int:
     from littlemcmc_torch.base import NUTSConfig
     from littlemcmc_torch.models import CorrelatedGaussian
     from littlemcmc_torch.ops import _build
+    from littlemcmc_torch.base import HMCConfig
+    from littlemcmc_torch.ops.fused_hmc import fused_hmc
     from littlemcmc_torch.ops.fused_nuts import fused_nuts
     from littlemcmc_torch.ops.nuts_trajectory import trajectory
 
     libs = _build.build_all()
     ptxas = {name: [ln.strip() for ln in (libs[name].parent / f"{name}.log").read_text()
-                    .splitlines() if "registers" in ln or "spill" in ln]
-             for name in ("nuts_trajectory", "fused_nuts")}
+                    .splitlines() if "registers" in ln or "spill" in ln or "entry" in ln]
+             for name in sorted(libs)}
 
     C, n, dev = 1024, 100, torch.device("cuda")
     model = CorrelatedGaussian(n)
@@ -88,11 +91,14 @@ def main() -> int:
     fkw = dict(spec=model.trajectory_spec(), T=4, tuning=False, config=NUTSConfig(),
                chain_block=8)
     fused_ms = _ms(lambda: fused_nuts(*fargs, (41, -7), **fkw), reps=10, warmup=2)
+    hkw = dict(fkw, config=HMCConfig())
+    fused_hmc_ms = _ms(lambda: fused_hmc(*fargs, (53, -11), **hkw), reps=10, warmup=2)
 
     smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
                          capture_output=True, text=True, timeout=60).stdout.strip()
     print(json.dumps({"root": str(root), "card": smi, "ptxas": ptxas,
-                      "nuts_trajectory_diag_ms": traj_ms, "fused_nuts_4_draws_ms": fused_ms}),
+                      "nuts_trajectory_diag_ms": traj_ms, "fused_nuts_4_draws_ms": fused_ms,
+                      "fused_hmc_4_draws_ms": fused_hmc_ms}),
           flush=True)
     return 0
 

@@ -20,7 +20,7 @@ import numpy as np
 import pytest
 import torch
 
-from littlemcmc_torch import HamiltonianMC, models as tm
+from littlemcmc_torch import NUTS, HamiltonianMC, models as tm
 from littlemcmc_torch import sample
 from littlemcmc_torch.ops import trajectory, trajectory_plain
 
@@ -252,3 +252,92 @@ def test_hmc_sample_on_the_card(hopper, init, engine, launches):
     assert trace.shape == (256, 150, 20) and np.isfinite(trace).all()
     assert stats["diverging"].mean() < 0.01
     assert abs((trace.reshape(-1, 20).var(0) / model.true_var).mean() - 1) < 0.1
+
+
+# --------------------------------------------------------------------------
+# eight schools and the fused kernels' diag branch
+# --------------------------------------------------------------------------
+
+@pytest.mark.cuda
+def test_eight_schools_kernels_match_plain(hopper):
+    """The per-draw NUTS and HMC kernels with the eight-schools body chain
+    for chain, 512 chains, a quarter of them deep in the funnel's neck: the
+    checks of the smoke's phases 2f-2g."""
+    from chip_smoke import _compare, _es_inputs
+
+    es = tm.EightSchools()
+    _compare("eight_schools", es, _es_inputs(es, 512, 0.3, seed=4), (5, -6), need=0.99)
+    res, failures, _, _ = hmc_check(es, _hmc_inputs(es, None, 512, 0.25, 5), (7, 8), 0.99,
+                                    scaled=True)
+    assert not failures, res
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("step", ["nuts", "hmc"])
+@pytest.mark.parametrize("body", ["correlated_gaussian", "eight_schools"])
+@pytest.mark.parametrize("tuning", [False, True], ids=["draw_chunk", "tune_chunk"])
+def test_fused_diag_kernel_matches_plain(hopper, step, body, tuning):
+    """The fused kernels' diag branch against the plain version at 256
+    chains x 4 draws: a draw chunk, and a tune chunk with the per-chain
+    Welford steps across a window swap and dual averaging on (its metric
+    and Welford state against a float64 replay); the checks of the smoke's
+    phases 2h-2i."""
+    model = tm.CorrelatedGaussian(100) if body == "correlated_gaussian" else tm.EightSchools()
+    res, failures, got, _, _, _ = fused_check(model, 256, 4, tuning, True, seed=9,
+                                              words=(23, -5), step=step, metric="diag")
+    assert not failures, res
+    if tuning:
+        assert (got["window"] == 100.0).all() and (got["n_samples"] == 52.0).all()
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("step", ["nuts", "hmc"])
+def test_eight_schools_sample_on_the_card(hopper, step):
+    """Eight schools at 1024 chains, 250 + 250, target_accept 0.95, on the
+    fused diag engine: two launches of the fused kernel, mu and log_tau
+    within 0.2 posterior sd of the exact means."""
+    model = tm.EightSchools()
+    report = {}
+    es_step = (HamiltonianMC(model_ndim=10, target_accept=0.95) if step == "hmc"
+               else NUTS(model_ndim=10, target_accept=0.95))
+    trace, stats = sample(model.logp_grad, model_ndim=10, chains=1024, tune=250, draws=250,
+                          random_seed=3, step=es_step, perf_report=report, progressbar=False)
+    name = "fused_nuts" if step == "nuts" else "fused_hmc"
+    assert report["engine"] == "fused_diag" and report["trajectory"] == "cuda"
+    assert report["kernel_launches"][name] == 2 and sum(report["kernel_launches"].values()) == 2
+    assert trace.shape == (1024, 250, 10) and np.isfinite(trace).all()
+    assert stats["diverging"].mean() < 0.03
+    exact = model.exact_moments()
+    for i, k in enumerate(("mu", "log_tau")):
+        assert abs(trace[:, :, i].mean() - exact[k][0]) < 0.2 * exact[k][1], k
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("kernel", ["trajectory", "hmc_trajectory", "fused_nuts", "fused_hmc"])
+def test_kernels_refuse_an_unknown_body(hopper, monkeypatch, kernel):
+    """A body id no kernel was compiled for is refused at launch (CUDA's
+    invalid-argument error, raised by the wrapper), never run as another
+    body."""
+    from littlemcmc_torch.base import HMCConfig, NUTSConfig
+    from littlemcmc_torch.ops import fused_hmc, fused_nuts, hmc_trajectory
+    from littlemcmc_torch.ops.nuts_trajectory import BODY_IDS
+
+    model = tm.StandardNormal(4)
+    monkeypatch.setitem(BODY_IDS, "standard_normal", 3)
+    q = torch.zeros(64, 4, device=hopper)
+    c = torch.zeros(64, device=hopper)
+    spec = model.trajectory_spec()
+    launches = {"trajectory": lambda: trajectory(
+                    q, q, q, c, c + 0.1, torch.full((64,), 3, dtype=torch.int32, device=hopper),
+                    q + 1.0, 1, spec=spec, max_treedepth=3, Emax=1000.0),
+                "hmc_trajectory": lambda: hmc_trajectory.hmc_trajectory(
+                    q, q, q, c, c + 0.1, torch.ones(64, dtype=torch.int32, device=hopper),
+                    q + 1.0, 1, spec=spec, Emax=1000.0),
+                "fused_nuts": lambda: fused_nuts.fused_nuts(
+                    q, q, c, c, c, c, c, c + 1, c, q + 1.0, None, (1, 2), spec=spec, T=1,
+                    tuning=False, config=NUTSConfig(max_treedepth=3), metric="diag"),
+                "fused_hmc": lambda: fused_hmc.fused_hmc(
+                    q, q, c, c, c, c, c, c + 1, c, q + 1.0, None, (1, 2), spec=spec, T=1,
+                    tuning=False, config=HMCConfig(), metric="diag")}
+    with pytest.raises(RuntimeError, match="launch failed"):
+        launches[kernel]()

@@ -364,11 +364,15 @@ def test_hmc_sample_matches_jax(slice_runs):
     (dict(init="adapt_full"), "fused_dense_pooled", "plain"),
     (dict(init="adapt_full", fuse_draws=False), "per_draw_dense_pooled", "tensor"),
     (dict(trajectory_spec=None), "per_draw_diag", "tensor"),
-    (dict(fuse_draws=True), None, None),
-], ids=["diag_kernel", "fused_pooled", "dense_per_draw", "no_spec", "fused_diag_raises"])
+    (dict(fuse_draws=True), "fused_diag", "plain"),
+    (dict(fuse_draws=True, trajectory_spec=None), None, None),
+], ids=["diag_kernel", "fused_pooled", "dense_per_draw", "no_spec", "fused_diag",
+        "fused_diag_raises"])
 def test_hmc_engine_election_and_stats(kw, engine, trajectory):
     """(iv) the JAX package's engine choice for HMC, and the 11 stats with
-    the names and dtypes of ``HamiltonianMC.stats_dtypes``."""
+    the names and dtypes of ``HamiltonianMC.stats_dtypes``; ``fuse_draws=
+    True`` runs the fused kernel's diag branch and raises for a model
+    without a kernel body."""
     model = tm.CorrelatedGaussian(3, device="cpu")
     step = lt.HamiltonianMC(model_ndim=3, chain_block=64,
                             **({"trajectory_spec": None} if "trajectory_spec" in kw else {}))
@@ -376,7 +380,7 @@ def test_hmc_engine_election_and_stats(kw, engine, trajectory):
     args = dict(model_ndim=3, chains=128, tune=12, draws=4, random_seed=2, step=step,
                 device="cpu", progressbar=False, compute_convergence_checks=False, **kw)
     if engine is None:
-        with pytest.raises(NotImplementedError, match="Queue 2 item 10"):
+        with pytest.raises(ValueError, match="fuse_draws=True"):
             lt.sample(model.logp_grad, **args)
         return
     report = {}
