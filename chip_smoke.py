@@ -47,11 +47,28 @@ Phases, each printing its own lines:
    and ``_held_stat_errors`` say for ``scaled``;
    2h-2i. the fused NUTS and HMC kernels' diag branch against their plain
    versions, bodies 1 (100-d correlated Gaussian) and 2 (eight schools),
-   1024 chains x 4 draws (2 for body 1), trees to the path's depth of
-   10: a draw chunk, and a tune chunk with the per-chain Welford steps
-   (a window swap at draw 2, or 1) and dual averaging on, its metric and
-   Welford state within 1e-4 of their scales of a float64 replay of the
-   kernel's trace;
+   1024 chains, trees to the path's depth of 10: a draw chunk of 2 draws
+   (1 for body 1), and a tune chunk of 4 (2 for body 1) with the per-chain
+   Welford steps (a window swap at draw 2, or 1) and dual averaging on, its
+   metric and Welford state within 1e-4 of their scales of a float64
+   replay of the kernel's trace;
+   2j. the batched model kernels against their plain versions at the
+   paths' widths, from inputs made with numpy from fixed seeds: row 6,
+   ``logistic_logp_grad`` (1024 chains, the 1000 x 25 design of
+   BASELINE config 4, positions from the reference posterior; logp rtol
+   3e-4 / atol 1e-2, grad rtol 3e-4 / atol 1e-3), and row 5,
+   ``quadform_logp_grad`` (1024 chains, n = 100; rtol 2e-4 / atol 1e-4):
+   ``tests/test_ops.py``'s tolerances; each timed beside its plain version
+   and the library yardstick (PyTorch's own calls for the same function,
+   TF32 off);
+   2k. the per-draw NUTS kernel with the logistic body (3) against its
+   plain version, 1024 chains from the reference posterior: at least 99%
+   of chains agree, q within 1e-4 posterior sd, energies (sums over 1000
+   rows, 500-700 in size) within 1e-3 of each 100 of their size;
+   2l. the logistic body in the fused NUTS, the HMC and the fused HMC
+   kernels against their plain versions at 256 chains (a 2-draw draw
+   chunk; one HMC transition), as ``fused_check`` and ``hmc_check`` hold
+   them;
 3. the main path: ``sample(CorrelatedGaussian(100).logp_grad,
    model_ndim=100, chains=1024, tune=500, draws=1000, random_seed=42)``,
    with the kernel's launch count set to 0 before and read after, and the
@@ -77,6 +94,22 @@ Phases, each printing its own lines:
    log_tau against ``EightSchools.exact_moments``);
    3k. the main path with ``fuse_draws=True``: the fused NUTS kernel's diag
    branch with the correlated body (6 launches), the main path's gates;
+   3l. path (A): ``sample(LogisticRegression(use_kernel=True).logp_grad,
+   model_ndim=25, chains=1024, tune=300, draws=200, random_seed=42,
+   step=NUTS(model_ndim=25, batched_logp_dlogp_func=m.batched_logp_grad,
+   trajectory_spec=None))``: the tensor-op tree (``per_draw_diag``,
+   trajectory ``tensor``), the logistic kernel launched at every leaf
+   (its count read before and after), under ``_logistic_quality``'s gates
+   against the reference moments (``tests/logistic_reference_moments.json``);
+   3m. path (B): ``sample(LogisticRegression().logp_grad, model_ndim=25,
+   chains=1024, tune=500, draws=1000, random_seed=42)``: 1500 launches of
+   the per-draw NUTS kernel with the logistic body, the same gates, and
+   the two paths' posterior means within 0.1 reference sd of each other;
+   3n. T2: ``sample(CorrelatedGaussian(100, use_kernel=True).logp_grad,
+   init="jitter+adapt_full", cross_chain_adapt=False, chains=256,
+   tune=300, draws=150)``: the tree with a per-chain dense metric
+   (``per_draw_dense``), the quadform kernel at every leaf, the main
+   path's gates;
 4. the kernel's time per launch at the main path's final state beside its
    plain version's time and its bound, where 50 more draws from that
    state spend their device time (``torch.profiler``); each kernel's
@@ -94,12 +127,16 @@ Phases, each printing its own lines:
    4e. the eight-schools kernels: the per-draw ones at 2f-2g's inputs and
    at the twins' final states, the fused kDiag instances per 250-draw
    chunk at the fused paths' final states, the eight-schools calls and
-   the 3k call under ``torch.profiler``; then one JSON line of ten kernel
+   the 3k call under ``torch.profiler``;
+   4f. where a draw of paths (A) and (B) spends its time (``_breakdown``:
+   20 and 50 draws from the paths' final states under the profiler), the
+   trajectory kernel's logistic body at path (B)'s final state, and the
+   HMC kernel's at 2l's input; then one JSON line of sixteen kernel
    rows (for the fused kernels ``ms``, ``plain_ms`` and ``bound_ms`` are
-   one 4-draw (2h-2i body 1: 2-draw) launch on 2c's, 2e's, 2h's or
-   2i's draw-chunk input,
-   ``chunk_*`` the 250-draw launch; for the eight-schools per-draw rows
-   ``main_*`` one launch at 10,240 chains).
+   one launch on 2c's, 2e's, 2h's or 2i's draw-chunk input: 4 draws, in
+   2h-2i 1 for body 1 and 2 for body 2; ``chunk_*`` the 250-draw launch;
+   for the eight-schools per-draw rows ``main_*`` one launch at 10,240
+   chains).
 
 The last line is ``{"ok": true, "device": {...}}``. Any failure raises
 and the script exits non-zero without that line. Without a CUDA device,
@@ -123,6 +160,18 @@ PEAK_BYTES_PER_S = 3.35e12
 N, CHAINS, TUNE, DRAWS, DEPTH, CHAIN_BLOCK = 100, 1024, 500, 1000, 10, 8
 # eight schools at the north star's chain count (scripts/bench_suite.py:253-258)
 ES_CHAINS, ES_TUNE, ES_DRAWS, ES_TARGET = 10240, 500, 500, 0.95
+# logistic regression, BASELINE config 4 (scripts/bench_suite.py:250-252):
+# 25 parameters, 1000 data rows, at the main path's chains and draws; on
+# the tensor-op tree (path A) cut to 300 + 200: the tree takes 1.2-1.9 ms
+# a leaf, with the host's speed, and 500 + 500 took 138-205 s
+LG_N, LG_ROWS, LG_TUNE, LG_DRAWS = 25, 1000, 500, 1000
+LG_TREE_TUNE, LG_TREE_DRAWS = 300, 200
+# the tree with a per-chain dense metric and the quadform kernel (T2),
+# cut to 300 + 150 for the script's time (500 + 250 took 190-300 s)
+T2_CHAINS, T2_TUNE, T2_DRAWS = 256, 300, 150
+# the logistic posterior's reference moments, from a long run of the JAX
+# package on a CPU (tests/test_torch_logistic.py writes them)
+REFERENCE = ROOT / "tests" / "logistic_reference_moments.json"
 DEVICE = "cuda"  # where the checks' inputs are made: the card
 FLAGS = ("depth", "n_leaves", "diverging", "turning")
 HMC_FLAGS = ("n_steps", "accepted", "diverging")
@@ -226,16 +275,41 @@ def _dense_stationary_inputs(model, C, eps, seed):
             torch.from_numpy(model.cov.astype(np.float32)).to(dev))
 
 
+def _reference() -> dict:
+    """The logistic regression's reference posterior moments (``mean``,
+    ``sd``, ``mcse_mean``: 25 each)."""
+    return json.loads(REFERENCE.read_text())
+
+
 def _posterior_sd(model):
     """The posterior sd of each parameter: exact for the Gaussians; for
     eight schools the exact sds of mu and log_tau and 1 for theta_tilde,
-    the scale its prior gives them."""
+    the scale its prior gives them; for the logistic regression the
+    reference's."""
     import numpy as np
 
     if hasattr(model, "true_var"):
         return np.sqrt(model.true_var)
+    if not hasattr(model, "exact_moments"):
+        return np.array(_reference()["sd"])
     m = model.exact_moments()
     return np.array([m["mu"][1], m["log_tau"][1]] + [1.0] * 8)
+
+
+def _positions(model, rng, C):
+    """Positions spread like the posterior, float32 ``(C, n)``: the
+    Gaussians' exactly; eight schools' by :func:`_es_positions`; the
+    logistic regression's from its reference means and sds."""
+    import numpy as np
+
+    if hasattr(model, "cov"):
+        return (rng.standard_normal((C, model.ndim)) @ np.linalg.cholesky(model.cov).T
+                ).astype(np.float32)
+    if model.trajectory_spec().body == "logistic":
+        ref = _reference()
+        return (np.array(ref["mean"]) + np.array(ref["sd"])
+                * rng.standard_normal((C, model.ndim))).astype(np.float32)
+    return _es_positions(rng, C)
 
 
 def _es_positions(rng, C):
@@ -249,17 +323,18 @@ def _es_positions(rng, C):
     return q
 
 
-def _es_inputs(model, C, eps, seed):
+def _posterior_inputs(model, C, eps, seed):
     """The trajectory inputs of :func:`_stationary_inputs` for eight
-    schools: positions of :func:`_es_positions`, an inverse-mass diagonal
-    near the posterior variances, p ~ N(0, M)."""
+    schools and the logistic regression: positions of :func:`_positions`,
+    an inverse-mass diagonal near the posterior variances, p ~ N(0, M)."""
     import numpy as np
     import torch
 
     rng = np.random.default_rng(seed)
-    q = _es_positions(rng, C)
-    var = (_posterior_sd(model) ** 2 * rng.uniform(0.5, 2.0, (C, 10))).astype(np.float32)
-    p = (rng.standard_normal((C, 10)) / np.sqrt(var)).astype(np.float32)
+    n = model.ndim
+    q = _positions(model, rng, C)
+    var = (_posterior_sd(model) ** 2 * rng.uniform(0.5, 2.0, (C, n))).astype(np.float32)
+    p = (rng.standard_normal((C, n)) / np.sqrt(var)).astype(np.float32)
     eps = (eps * rng.uniform(0.7, 1.3, C)).astype(np.float32)
     dev = torch.device(DEVICE)
     qt = torch.from_numpy(q).to(dev)
@@ -311,6 +386,12 @@ def _compare(name, model, args, seed, need, metric="diag"):
         errs[f"{k}_max_rel"] = float(rel.max())
     sd = torch.from_numpy(_posterior_sd(model)).float().to(got["q"].device)
     errs["q_max_err_in_sd"] = float(((got["q"] - want["q"]).abs() / sd)[agree].max())
+    # E_TOL is set for energies about 100 in size; the logistic body's are
+    # sums over 1000 data rows, 500-700 in size, held in proportion
+    e_size = (torch.clamp(want["energy"].abs() / 100.0, min=1.0)
+              if model.trajectory_spec().body == "logistic" else torch.ones_like(want["energy"]))
+    errs["energy_max_in_tol"] = float(((got["energy"] - want["energy"]).abs()
+                                       / (E_TOL * e_size))[agree].max())
     print(json.dumps({"phase": "kernel_vs_plain", "model": name, "metric": metric,
                       "chains": args[0].shape[0],
                       "ndim": args[0].shape[1], "agree_share": share,
@@ -322,11 +403,13 @@ def _compare(name, model, args, seed, need, metric="diag"):
                            f"of chains, need {need}")
     # fp32 rounding of two summation orders, carried through up to 2^10
     # leapfrog steps: proposals within Q_TOL_SD posterior sds, energies
-    # (about n in size) within E_TOL
-    if errs["q_max_err_in_sd"] > Q_TOL_SD or errs["energy_max_abs"] > E_TOL:
+    # (about n in size) within E_TOL, the logistic body's within E_TOL of
+    # each 100 of their size
+    if errs["q_max_err_in_sd"] > Q_TOL_SD or errs["energy_max_in_tol"] > 1.0:
         raise RuntimeError(f"{name}: kernel and plain version differ by "
                            f"{errs['q_max_err_in_sd']} sd in q (limit {Q_TOL_SD}) and "
-                           f"{errs['energy_max_abs']} in energy (limit {E_TOL})")
+                           f"{errs['energy_max_abs']} in energy ({errs['energy_max_in_tol']} "
+                           f"of the limit)")
     return errs["q_max_abs"], start.elapsed_time(end)
 
 
@@ -337,27 +420,51 @@ def _roofline_ms(ops: float, nbytes: float) -> tuple[float, str]:
     return 1e3 * max(t_ops, t_bytes), ("operations" if t_ops >= t_bytes else "bytes")
 
 
-def _body_ops(body: str, n: int) -> int:
+def _body_ops(body: str, n: int, rows: int = 0) -> int:
     """Operations of one evaluation of a model body: the correlated
     Gaussian's 2n^2-FLOP matvec, eight schools' about 15n (the theta
-    lanes, four warp sums and an exp), the standard normal's 2n."""
+    lanes, four warp sums and an exp), the standard normal's 2n, the
+    logistic regression's two products over ``rows`` data rows (4 rows n)
+    and about 8 operations a row for the softplus, the sigmoid and the
+    log likelihood (an exponential counted as one)."""
     return {"correlated_gaussian": 2 * n * n, "eight_schools": 15 * n,
-            "standard_normal": 2 * n}[body]
+            "standard_normal": 2 * n, "logistic": 4 * rows * n + 8 * rows}[body]
+
+
+def _body_consts(body: str, n: int, rows: int = 0) -> int:
+    """Floats of a model body's constants, each read once."""
+    return {"correlated_gaussian": n * n, "eight_schools": 2 * n,
+            "logistic": rows * n + rows + 1}.get(body, 0)
+
+
+def _logistic_bound_ms(C: int, n: int, rows: int) -> tuple[float, str]:
+    """Least time for one batched logistic evaluation (row 6): the body's
+    operations and 4n an chain for the prior and the gradient's epilogue;
+    q and the constants read once, logp and grad written once."""
+    ops = C * (_body_ops("logistic", n, rows) + 4 * n)
+    return _roofline_ms(ops, 4 * (C * n + _body_consts("logistic", n, rows)) + 4 * (C + C * n))
+
+
+def _quadform_bound_ms(C: int, n: int) -> tuple[float, str]:
+    """Least time for one batched quadform evaluation (row 5): 2 C n^2 for
+    the product and 3 C n for the epilogue; q and the precision read once,
+    logp and grad written once."""
+    return _roofline_ms(2 * C * n * n + 3 * C * n, 4 * (C * n + n * n) + 4 * (C + C * n))
 
 
 def _bound_ms(n_leaves_total: int, C: int, n: int, metric: str = "diag",
-              body: str = "correlated_gaussian") -> tuple[float, str]:
+              body: str = "correlated_gaussian", rows: int = 0) -> tuple[float, str]:
     """Least time for one transition: per leaf and chain the model body
     (plus, for the dense metric, the 2n^2-FLOP velocity) and about 20n
     elementwise operations, plus the proposal's gradient (and the start
     energy's velocity); the inputs read once and the outputs written
     once."""
-    per_leaf = (2 * n * n if metric == "dense" else 0) + _body_ops(body, n) + 20 * n
-    ops = n_leaves_total * per_leaf + C * (_body_ops(body, n) + 2 * n)
+    per_leaf = (2 * n * n if metric == "dense" else 0) + _body_ops(body, n, rows) + 20 * n
+    ops = n_leaves_total * per_leaf + C * (_body_ops(body, n, rows) + 2 * n)
     var_floats = n * n if metric == "dense" else C * n
     if metric == "dense":
         ops += C * 2 * n * n
-    consts = {"correlated_gaussian": n * n, "eight_schools": 2 * n}.get(body, 0)
+    consts = _body_consts(body, n, rows)
     nbytes = (4 * (3 * C * n + var_floats + 3 * C + consts) + 4 * (2 * C * n + 7 * C)
               + 2 * C)
     return _roofline_ms(ops, nbytes)
@@ -472,10 +579,14 @@ def _held_stat_errors(got, want, held, da_count, config, adapting, step="nuts",
     sqrt(count) / (gamma (count + t0)) in log step per unit of accept
     statistic.
 
-    ``scaled`` (eight schools): a draw whose energy moved far from the
-    start's (|energy_error| up to 60, and up to 1e18 on a divergent leaf)
-    ends a trajectory the step size makes unstable, whose rounding grows
-    from step to step: the energies within E_TOL (1 + |energy_error|); a
+    ``scaled`` (eight schools, the logistic regression): a draw whose
+    energy moved far from the start's (|energy_error| up to 60 for eight
+    schools, up to about 1400 for the logistic regression's checks, and up
+    to 1e18 on a divergent leaf) ends a trajectory the step size makes
+    unstable, whose rounding grows from step to step: the energies within
+    E_TOL (1 + |energy_error|) (the logistic plain version in fp32 is
+    within 1.1e-4 (1 + |energy change|) of a float64 run on 2l's HMC
+    input, and up to 4e-3 from it unscaled); a
     tree's largest energy change, which is such a leaf's wherever it is
     large, in size within E_TOL (1 + |energy_error| + its size) where it is
     below 10 (the leaf's weight in the tree below e^-10). At 10 and above
@@ -535,10 +646,7 @@ def _diag_fused_inputs(model, C, seed, tuning, iter_count=300.0, swap_at=2):
     dev = torch.device(DEVICE)
     n = model.ndim
     sd = _posterior_sd(model)
-    if hasattr(model, "cov"):
-        q = (rng.standard_normal((C, n)) @ np.linalg.cholesky(model.cov).T).astype(np.float32)
-    else:
-        q = _es_positions(rng, C)
+    q = _positions(model, rng, C)
     log_step = -1.2
     qt = torch.from_numpy(q).to(dev)
     logp, grad = model.batched_logp_grad(qt)
@@ -668,7 +776,7 @@ def fused_check(model, C, T, tuning, adapt_step_size, seed, words, step="nuts",
     Th = held.shape[0]
     dq = ((got["trace"][:Th] - want["trace"][:Th]).abs())[held]
     de = (got["energy"][:Th] - want["energy"][:Th]).abs()
-    scaled = model.trajectory_spec().body == "eight_schools"
+    scaled = model.trajectory_spec().body in ("eight_schools", "logistic")
     if scaled:  # the energy of a draw far from the start's, as scaled stats
         de = de / (1.0 + want["energy_error"][:Th].abs())
     de = de[held]
@@ -762,8 +870,8 @@ def fused_check(model, C, T, tuning, adapt_step_size, seed, words, step="nuts",
 
 
 def _compare_fused(T, tuning, adapt_step_size, seed, words, step="nuts", model=None,
-                   metric="dense"):
-    """Phases 2c, 2e, 2h and 2i: :func:`fused_check` at 1024 chains
+                   metric="dense", chains=None):
+    """Phases 2c, 2e, 2h, 2i and 2l: :func:`fused_check` at ``chains``
     (``model``: the main path's 100-d correlated Gaussian by default),
     printed, and the kernel timed on the same input. Returns the kernel's
     and the plain version's ms, the largest q difference on the held
@@ -775,8 +883,8 @@ def _compare_fused(T, tuning, adapt_step_size, seed, words, step="nuts", model=N
 
     op = fused_nuts if step == "nuts" else fused_hmc
     model = CorrelatedGaussian(N) if model is None else model
-    res, failures, got, _, args, kw = fused_check(model, CHAINS, T, tuning, adapt_step_size,
-                                                  seed, words, step, metric)
+    res, failures, got, _, args, kw = fused_check(model, chains or CHAINS, T, tuning,
+                                                  adapt_step_size, seed, words, step, metric)
     res["events_ms"] = _cuda_time_ms(lambda: op(*args, words, **kw), reps=5, warmup=1)
     res["kernel_ms"], res["ms_source"] = _device_ms(lambda: op(*args, words, **kw),
                                                     f"fused_{step}", 5, res["events_ms"])
@@ -790,13 +898,14 @@ def _compare_fused(T, tuning, adapt_step_size, seed, words, step="nuts", model=N
 
 def _hmc_inputs(model, chol, C, eps, seed):
     """HMC trajectory inputs at stationarity (:func:`_stationary_inputs`;
-    ``chol=None``: eight schools, :func:`_es_inputs`) with each chain's
+    ``chol=None``: eight schools or the logistic regression,
+    :func:`_posterior_inputs`) with each chain's
     step count drawn as the sampler draws it: floor(U(0, 1) * 2 / eps), at
     least 1."""
     import numpy as np
     import torch
 
-    q, p, grad, logp, eps_t, _, var = (_es_inputs(model, C, eps, seed) if chol is None
+    q, p, grad, logp, eps_t, _, var = (_posterior_inputs(model, C, eps, seed) if chol is None
                                        else _stationary_inputs(model, chol, C, eps, seed))
     u = np.random.default_rng(seed + 1000).uniform(size=C).astype(np.float32)
     n_steps = torch.clamp((torch.from_numpy(u).to(eps_t.device) * 2.0 / eps_t).to(torch.int32),
@@ -810,7 +919,8 @@ def hmc_check(model, args, seed, need, chain_block=512, integrator="leapfrog",
     the same inputs: the accept and divergence decisions on ``need`` of the
     chains, and on those q (within Q_TOL_SD posterior sd), the energies
     (within E_TOL) and the accept statistic (within E_TOL relative).
-    ``scaled`` (eight schools): a trajectory the step size makes unstable
+    ``scaled`` (eight schools, the logistic regression): a trajectory the
+    step size makes unstable
     carries rounding that grows from step to step, so the energies are held
     on the chains that did not diverge, within E_TOL (1 + |energy
     change|), and the accept statistic within that relative. Returns the
@@ -878,20 +988,20 @@ def _compare_hmc(model, args, seed, need, scaled=False):
 
 
 def _hmc_bound_ms(steps_total: int, C: int, n: int,
-                  body: str = "correlated_gaussian") -> tuple[float, str]:
+                  body: str = "correlated_gaussian", rows: int = 0) -> tuple[float, str]:
     """Least time for one HMC trajectory launch: per chain and step the
     model body and about 10n elementwise, plus 4n per chain for the two
     energies, over the steps these inputs ask for; against q, p, grad and
     the inverse mass, the scalars and the body's constants read once and
     q, grad, five scalars and two flags written once."""
-    ops = steps_total * (_body_ops(body, n) + 10 * n) + C * 4 * n
-    consts = n * n if body == "correlated_gaussian" else 2 * n
+    ops = steps_total * (_body_ops(body, n, rows) + 10 * n) + C * 4 * n
+    consts = _body_consts(body, n, rows)
     nbytes = 4 * (4 * C * n + 3 * C + consts) + 4 * (2 * C * n + 5 * C) + 2 * C
     return _roofline_ms(ops, nbytes)
 
 
 def _fused_diag_bound_ms(work_total: int, C: int, n: int, T: int, adapt_metric: bool,
-                         body: str, step: str = "nuts") -> tuple[float, str]:
+                         body: str, step: str = "nuts", rows: int = 0) -> tuple[float, str]:
     """Least time for one fused launch of ``T`` draws with a per-chain diag
     metric: per chain and draw about 10n for the momentum, the proposal's
     gradient (NUTS) or the two energies (HMC, 6n), and with
@@ -905,10 +1015,10 @@ def _fused_diag_bound_ms(work_total: int, C: int, n: int, T: int, adapt_metric: 
     each draw's stats at their widths (NUTS: 7 float32, depth and leaves
     int32, 2 bool flags; HMC: 7 float32, the step count int32, 2 flags)
     written."""
-    per_work = _body_ops(body, n) + (20 if step == "nuts" else 10) * n
-    per_draw = 10 * n + (_body_ops(body, n) if step == "nuts" else 6 * n)
+    per_work = _body_ops(body, n, rows) + (20 if step == "nuts" else 10) * n
+    per_draw = 10 * n + (_body_ops(body, n, rows) if step == "nuts" else 6 * n)
     ops = work_total * per_work + C * T * (per_draw + (12 * n if adapt_metric else 0))
-    consts = {"correlated_gaussian": n * n, "eight_schools": 2 * n}.get(body, 0)
+    consts = _body_consts(body, n, rows)
     rows_in, rows_out, cols = (5, 5, 13) if adapt_metric else (1, 0, 7)
     state = 4 * (4 * C * n + (rows_in + rows_out) * C * n + 2 * cols * C + consts)
     stat_bytes = 7 * 4 + (2 * 4 if step == "nuts" else 4) + 2 * 1
@@ -930,6 +1040,130 @@ def _fused_hmc_bound_ms(steps_total: int, C: int, n: int, T: int,
     return _roofline_ms(ops, nbytes)
 
 
+def _logistic_library(q, xb, y, prior_prec):
+    """Row 6's function as PyTorch's library calls compute it (cuBLAS
+    products in full fp32, the library softplus and sigmoid, ``addmm`` for
+    the gradient): the yardstick timed as ``library_ms``, used nowhere in
+    the port."""
+    import torch
+    import torch.nn.functional as F
+
+    prec = float(prior_prec[0])
+    logits = torch.mm(q, xb.t())
+    logp = (y * logits - F.softplus(logits)).sum(1) - 0.5 * prec * (q * q).sum(1)
+    return logp, torch.addmm(q, y - torch.sigmoid(logits), xb, beta=-prec)
+
+
+def _quadform_library(q, prec):
+    """Row 5's function as PyTorch's library calls compute it (a cuBLAS
+    product in full fp32 and a row sum): the yardstick timed as
+    ``library_ms``, used nowhere in the port."""
+    import torch
+
+    g = torch.mm(q, prec).neg_()
+    return 0.5 * torch.einsum("ij,ij->i", q, g), g
+
+
+def _device_total_ms(fn, reps: int) -> tuple[float, str]:
+    """Mean device milliseconds of every kernel one call of ``fn`` runs,
+    over ``reps`` calls under ``torch.profiler``; CUDA events around the
+    calls (which also count the card waiting for the host) where the
+    profiler sees no device time."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        for _ in range(reps):
+            fn()
+        torch.cuda.synchronize()
+    total = sum(e.self_device_time_total for e in prof.key_averages()
+                if e.device_type == torch.autograd.DeviceType.CUDA)
+    if total <= 0:
+        return _cuda_time_ms(fn, reps, 0), "events"
+    return total / reps / 1e3, "profiler"
+
+
+def model_kernel_check(kind: str, C: int, n: int, rows: int = 0, seed: int = 0):
+    """Row 6 (``kind="logistic"``: the design of
+    ``german_credit_synthetic(rows, n - 1)`` with the intercept, positions
+    from the reference posterior at the full width, else N(0, 0.3^2)) or
+    row 5 (``"quadform"``: the n-d correlated Gaussian's precision, q ~
+    N(0, cov)) against its plain version on the same inputs on the card,
+    with ``tests/test_ops.py``'s tolerances (logistic: logp rtol 3e-4 /
+    atol 1e-2, grad rtol 3e-4 / atol 1e-3; quadform: rtol 2e-4 / atol
+    1e-4); the library yardstick held to the same. Returns the result
+    line, the failures, and the kernel's, plain version's and library's
+    calls on those inputs."""
+    import numpy as np
+    import torch
+    from littlemcmc_torch.models import (CorrelatedGaussian, LogisticRegression,
+                                         german_credit_synthetic)
+    from littlemcmc_torch.ops.logistic import logistic_logp_grad, logistic_logp_grad_plain
+    from littlemcmc_torch.ops.quadform import quadform_logp_grad, quadform_logp_grad_plain
+
+    rng = np.random.default_rng(seed)
+    dev = torch.device(DEVICE)
+    if kind == "logistic":
+        model = LogisticRegression(*german_credit_synthetic(rows, n - 1))
+        q = (_positions(model, rng, C) if (rows, n) == (LG_ROWS, LG_N)
+             else (0.3 * rng.standard_normal((C, n))).astype(np.float32))
+        args = (torch.from_numpy(q).to(dev), model.Xb, model.y, model.prior_prec)
+        op, plain, library = logistic_logp_grad, logistic_logp_grad_plain, _logistic_library
+        tol = {"logp": (3e-4, 1e-2), "grad": (3e-4, 1e-3)}
+    else:
+        model = CorrelatedGaussian(n)
+        args = (torch.from_numpy(_positions(model, rng, C)).to(dev), model.prec_f32)
+        op, plain, library = quadform_logp_grad, quadform_logp_grad_plain, _quadform_library
+        tol = {"logp": (2e-4, 1e-4), "grad": (2e-4, 1e-4)}
+    launches = op.launches
+    got = op(*args)
+    torch.cuda.synchronize()
+    want, lib = plain(*args), library(*args)
+    res = {"phase": f"{kind}_kernel_vs_plain", "chains": C, "ndim": n, "rows": rows}
+    failures = []
+    if op.launches != launches + 1:
+        failures.append(f"{op.launches - launches} launches counted, not 1")
+    for i, k in enumerate(("logp", "grad")):
+        rtol, atol = tol[k]
+        for who, x in (("kernel", got[i]), ("library", lib[i])):
+            d = (x - want[i]).abs()
+            res[f"{who}_{k}_max_abs"] = float(d.max())
+            worst = float((d - rtol * want[i].abs()).max())
+            if not (worst <= atol):
+                failures.append(f"{who} {k} beyond rtol {rtol} / atol {atol} ({worst})")
+    calls = (lambda: op(*args), lambda: plain(*args), lambda: library(*args))
+    return res, failures, calls
+
+
+def _compare_model_kernel(kind: str, C: int, n: int, rows: int = 0, seed: int = 0) -> dict:
+    """Phase 2j: :func:`model_kernel_check` at the main paths' widths,
+    printed with the kernel's, plain version's and library's device time
+    per call (:func:`_device_total_ms`, 200 calls each; the kernel's also
+    on CUDA events, which count the wrapper's host work too) and the
+    bound; raises on a failure. Returns the kernel's row of the kernels
+    line, but ``launches``."""
+    res, failures, (kernel, plain, library) = model_kernel_check(kind, C, n, rows, seed)
+    for name, fn in (("kernel", kernel), ("plain", plain), ("library", library)):
+        res[f"{name}_ms"], res[f"{name}_ms_source"] = _device_total_ms(fn, 200)
+    res["kernel_events_ms"] = _cuda_time_ms(kernel, reps=200, warmup=10)
+    bound = _logistic_bound_ms(C, n, rows) if kind == "logistic" else _quadform_bound_ms(C, n)
+    res["bound_ms"], res["bound_by"] = bound
+    print(json.dumps(res), flush=True)
+    if failures:
+        raise RuntimeError(f"{kind} kernel vs plain: {failures}")
+    src, tpu = {"logistic": ("logistic_logp_grad.cu", "ops/logistic_pallas.py:66"),
+                "quadform": ("quadform_logp_grad.cu", "ops/gaussian_pallas.py:53")}[kind]
+    return {"name": f"{kind}_logp_grad", "route": "cuda",
+            "source": f"littlemcmc_torch/ops/csrc/{src}", "replaces": f"littlemcmc_tpu/{tpu}",
+            "max_abs_err": max(res["kernel_logp_max_abs"], res["kernel_grad_max_abs"]),
+            "ms": res["kernel_ms"], "ms_source": res["kernel_ms_source"],
+            "events_ms": res["kernel_events_ms"], "plain_ms": res["plain_ms"],
+            "bound_ms": bound[0], "bound_by": bound[1], "library_ms": res["library_ms"],
+            "chains": C, "ndim": n, "rows": rows}
+
+
 def _check_gates(label, gates) -> None:
     """Raise naming every gate of ``gates`` (``(name, passed)`` pairs)
     that failed."""
@@ -938,27 +1172,36 @@ def _check_gates(label, gates) -> None:
         raise RuntimeError(f"{label} gates failed: {failed}")
 
 
-def _quality(model, trace, stats, secs, report, label, card, extra):
-    """The posterior gates of a main-path run (NUTS or HMC stats); prints
-    its JSON line."""
+def _quality(model, trace, stats, secs, report, label, card, extra, chains=None, tune=None,
+             draws=None):
+    """The posterior gates of a Gaussian run (NUTS or HMC stats; by default
+    the main path's chains, tune and draws); the ESS of the parameters runs
+    in threads. Prints its JSON line."""
+    from concurrent.futures import ThreadPoolExecutor
+
     import numpy as np
     from littlemcmc_torch.utils.diagnostics import ess_bulk
 
-    if trace.shape != (CHAINS, DRAWS, N) or not np.isfinite(trace).all():
+    chains = CHAINS if chains is None else chains
+    tune = TUNE if tune is None else tune
+    draws = DRAWS if draws is None else draws
+
+    if trace.shape != (chains, draws, model.ndim) or not np.isfinite(trace).all():
         raise RuntimeError(f"{label}: bad trace: shape {trace.shape}, finite "
                            f"{np.isfinite(trace).all()}")
     t_ess = time.perf_counter()
-    flat = trace.reshape(-1, N)
+    flat = trace.reshape(-1, model.ndim)
     sd = np.sqrt(model.true_var)
     var_ratio = float((flat.var(0) / model.true_var).mean())
     mean_err = float((np.abs(flat.mean(0)) / sd).max())
     div_rate = float(stats["diverging"].mean())
-    min_ess = float(min(ess_bulk(trace[:, :, i]) for i in range(N)))
+    with ThreadPoolExecutor(8) as pool:
+        min_ess = float(min(pool.map(lambda i: ess_bulk(trace[:, :, i]), range(model.ndim))))
     line = {"phase": label, "engine": report["engine"],
             "trajectory": report["trajectory"], "chain_block": report["chain_block"],
-            "chains": CHAINS, "ndim": N, "tune": TUNE, "draws": DRAWS, **extra,
+            "chains": chains, "ndim": model.ndim, "tune": tune, "draws": draws, **extra,
             "sample_seconds": secs,
-            "transitions_per_s": CHAINS * (TUNE + DRAWS) / secs,
+            "transitions_per_s": chains * (tune + draws) / secs,
             "min_bulk_ess": min_ess, "min_bulk_ess_per_s": min_ess / secs,
             "divergence_rate": div_rate, "posterior_var_ratio": var_ratio,
             "max_abs_mean_over_sd": mean_err,
@@ -1034,18 +1277,74 @@ def _es_quality(model, exact, trace, stats, report, label, card, div_limit, extr
     return line
 
 
-def _breakdown(model, state, gen, draws: int = 50, step: str = "nuts", label: str = "") -> None:
+def _logistic_quality(trace, stats, report, label, card, extra, tune=None, draws=None):
+    """The gates of a logistic run (BASELINE config 4): divergence rate
+    below 1%, max split R-hat < 1.01 and min bulk ESS > 1000 over the 25
+    parameters, each posterior mean within 0.1 reference sd of the
+    reference mean and each sd within 10% of the reference sd. The
+    diagnostics run in threads. Prints and returns its JSON line."""
+    from concurrent.futures import ThreadPoolExecutor
+
+    import numpy as np
+    from littlemcmc_torch.utils.diagnostics import ess_bulk, split_rhat
+
+    tune = LG_TUNE if tune is None else tune
+    draws = LG_DRAWS if draws is None else draws
+    if trace.shape != (CHAINS, draws, LG_N) or not np.isfinite(trace).all():
+        raise RuntimeError(f"{label}: bad trace: shape {trace.shape}, finite "
+                           f"{np.isfinite(trace).all()}")
+    ref = _reference()
+    t_ess = time.perf_counter()
+    with ThreadPoolExecutor(8) as pool:
+        ess = list(pool.map(lambda i: ess_bulk(trace[:, :, i]), range(LG_N)))
+        rhat = list(pool.map(lambda i: split_rhat(trace[:, :, i]), range(LG_N)))
+    flat = trace.reshape(-1, LG_N).astype(np.float64)
+    mean_err = np.abs(flat.mean(0) - np.array(ref["mean"])) / np.array(ref["sd"])
+    sd_ratio = flat.std(0) / np.array(ref["sd"])
+    secs = report["sample_seconds"]
+    line = {"phase": label, "engine": report["engine"], "trajectory": report["trajectory"],
+            "chains": CHAINS, "ndim": LG_N, "tune": tune, "draws": draws, **extra,
+            "sample_seconds": secs, "ms_per_draw": 1e3 * secs / (tune + draws),
+            "transitions_per_s": CHAINS * (tune + draws) / secs,
+            "min_bulk_ess": float(min(ess)), "min_bulk_ess_per_s": float(min(ess)) / secs,
+            "max_split_rhat": float(max(rhat)),
+            "divergence_rate": float(stats["diverging"].mean()),
+            "max_mean_err_in_ref_sd": float(mean_err.max()),
+            "max_sd_ratio_err": float(np.abs(sd_ratio - 1).max()),
+            "step_size": float(stats["step_size"][:, -1].mean()),
+            "mean_tree_size": float(stats["tree_size"].mean()),
+            "mean_depth": float(stats["depth"].mean()),
+            "max_depth": int(stats["depth"].max()),
+            "mean_tree_accept": float(stats["mean_tree_accept"].mean()),
+            "ess_seconds": time.perf_counter() - t_ess, "card": card}
+    print(json.dumps(line), flush=True)
+    _check_gates(label, [("divergence_rate < 0.01", line["divergence_rate"] < 0.01),
+                         ("max split R-hat < 1.01", line["max_split_rhat"] < 1.01),
+                         ("min bulk ESS > 1000", line["min_bulk_ess"] > 1000),
+                         ("each mean within 0.1 reference sd", line["max_mean_err_in_ref_sd"] < 0.1),
+                         ("each sd within 10% of the reference", line["max_sd_ratio_err"] < 0.1)])
+    line["posterior_mean"] = flat.mean(0)
+    return line
+
+
+def _breakdown(model, state, gen, draws: int = 50, step: str = "nuts", label: str = "",
+               tree_fn=None) -> dict:
     """Where a post-tune draw's time goes: ``draws`` transitions from a
-    main path's final state (``step``: the NUTS or the HMC path) under
-    ``torch.profiler``; device time by kernel over the window's time on
-    CUDA events. ``label`` is appended to the phase's name."""
+    main path's final state (``step``: the NUTS or the HMC path; with
+    ``tree_fn``, NUTS on the tensor-op tree calling that batched model,
+    the logistic kernel) under ``torch.profiler``; device time by kernel
+    over the window's time on CUDA events. ``label`` is appended to the
+    phase's name. Prints and returns its line."""
     import torch
     from torch.profiler import ProfilerActivity, profile
     from littlemcmc_torch.base import HMCConfig, NUTSConfig
     from littlemcmc_torch.hmc import build_hmc_kernel
     from littlemcmc_torch.nuts import build_nuts_kernel
 
-    if step == "nuts":
+    if tree_fn is not None:
+        kernel = build_nuts_kernel(NUTSConfig(), None, batched_logp_grad_fn=tree_fn)
+        name = "logistic_logp_grad"
+    elif step == "nuts":
         kernel, name = build_nuts_kernel(NUTSConfig(), model.trajectory_spec()), "nuts_trajectory"
     else:
         kernel = build_hmc_kernel(model.batched_logp_grad, HMCConfig(), model.trajectory_spec())
@@ -1066,14 +1365,24 @@ def _breakdown(model, state, gen, draws: int = 50, step: str = "nuts", label: st
     busy = sum(by_kernel.values())
     traj = sum(t for k, t in by_kernel.items() if name in k)
     top = sorted(by_kernel.items(), key=lambda kv: -kv[1])[:4]
-    print(json.dumps({
+    line = {
         "phase": ("breakdown" if step == "nuts" else "hmc_breakdown") + label, "draws": draws,
         "ms_per_draw": window_us / draws / 1e3,
         "device_busy_share": busy / window_us if busy else "not measured",
         "trajectory_kernel_share": traj / window_us if busy else "not measured",
         "trajectory_kernel_ms_per_draw": traj / draws / 1e3 if busy else "not measured",
         "other_kernels": len(by_kernel) - 1,
-        "top_device_us": [[k[:60], t] for k, t in top]}), flush=True)
+        "top_device_us": [[k[:60], t] for k, t in top]}
+    if tree_fn is not None:
+        line["kernel"] = name
+        line["kernel_launches_per_draw"] = sum(
+            e.count for e in prof.key_averages()
+            if e.device_type == torch.autograd.DeviceType.CUDA and name in e.key) / draws
+        line["device_kernels_per_draw"] = sum(
+            e.count for e in prof.key_averages()
+            if e.device_type == torch.autograd.DeviceType.CUDA) / draws
+    print(json.dumps(line), flush=True)
+    return line
 
 
 def _fused_breakdown(model, state, chunk: int, iter0: int) -> None:
@@ -1220,6 +1529,132 @@ def _es_kernel_timing(model, state, pd_state, step: str, gen) -> dict:
     return line
 
 
+def _tree_paths(smi, lg, reset_counts, counts, model_ops, t_start) -> dict:
+    """Phases 3l-3n (``lg``: the default ``LogisticRegression``;
+    ``reset_counts``, ``counts`` and ``model_ops``: ``main``'s launch
+    counters). Raises on a failed check or gate; returns each path's final
+    state, gate line and launch count."""
+    import numpy as np
+    from littlemcmc_torch import NUTS, sample
+    from littlemcmc_torch.models import CorrelatedGaussian, LogisticRegression
+    from littlemcmc_torch.ops.logistic import logistic_logp_grad
+    from littlemcmc_torch.ops.nuts_trajectory import trajectory
+    from littlemcmc_torch.ops.quadform import quadform_logp_grad
+
+    # 3l. path (A): logistic regression on the tensor-op tree, every leaf
+    # one launch of the batched logistic kernel
+    reset_counts()
+    lg_k = LogisticRegression(use_kernel=True)
+    report_a = {}
+    trace_a, stats_a, state_a = sample(
+        lg_k.logp_grad, model_ndim=LG_N, chains=CHAINS, tune=LG_TREE_TUNE, draws=LG_TREE_DRAWS,
+        random_seed=42, step=NUTS(model_ndim=LG_N, batched_logp_dlogp_func=lg_k.batched_logp_grad,
+                                  trajectory_spec=None),
+        perf_report=report_a, return_final_state=True, progressbar=False,
+        compute_convergence_checks=False)
+    a_launches = logistic_logp_grad.launches
+    if (report_a["engine"] != "per_draw_diag" or report_a["trajectory"] != "tensor"
+            or any(counts().values()) or a_launches <= 0 or quadform_logp_grad.launches):
+        raise RuntimeError(f"logistic on the tree ran engine {report_a['engine']} "
+                           f"({report_a['trajectory']}) with launches {counts()}, "
+                           f"{a_launches} of the logistic kernel")
+    line_a = _logistic_quality(trace_a, stats_a, report_a, "logistic_tree", smi,
+                               {"kernel_launches": {"logistic_logp_grad": a_launches}},
+                               tune=LG_TREE_TUNE, draws=LG_TREE_DRAWS)
+
+    # 3m. path (B): the default call, the trajectory kernel's logistic body
+    reset_counts()
+    report_b = {}
+    trace_b, stats_b, state_b = sample(lg.logp_grad, model_ndim=LG_N, chains=CHAINS,
+                                       tune=LG_TUNE, draws=LG_DRAWS, random_seed=42,
+                                       perf_report=report_b, return_final_state=True,
+                                       progressbar=False, compute_convergence_checks=False)
+    b_launches = trajectory.launches
+    want = {"trajectory": LG_TUNE + LG_DRAWS, "fused_nuts": 0, "hmc_trajectory": 0,
+            "fused_hmc": 0}
+    if (report_b["engine"] != "per_draw_diag" or counts() != want
+            or any(op.launches for op in model_ops)):
+        raise RuntimeError(f"the default logistic call ran engine {report_b['engine']} with "
+                           f"launches {counts()}, expected per_draw_diag and {want}")
+    line_b = _logistic_quality(trace_b, stats_b, report_b, "logistic_default", smi,
+                               {"kernel_launches": report_b["kernel_launches"]})
+    engines_diff = float((np.abs(line_a["posterior_mean"] - line_b["posterior_mean"])
+                          / np.array(_reference()["sd"])).max())
+    _line(phase="logistic_engines", tree_sample_seconds=line_a["sample_seconds"],
+          kernel_sample_seconds=line_b["sample_seconds"],
+          max_mean_diff_in_ref_sd=f"{engines_diff:.4f}",
+          elapsed_s=f"{time.perf_counter() - t_start:.1f}")
+    _check_gates("logistic_engines",
+                 [("the engines' means within 0.1 reference sd", engines_diff < 0.1)])
+
+    # 3n. T2: per-chain dense adaptation on the tree, the quadform kernel at
+    # every leaf
+    reset_counts()
+    cg_k = CorrelatedGaussian(N, use_kernel=True)
+    report_t = {}
+    trace_t, stats_t = sample(cg_k.logp_grad, model_ndim=N, chains=T2_CHAINS, tune=T2_TUNE,
+                              draws=T2_DRAWS, random_seed=42, init="jitter+adapt_full",
+                              cross_chain_adapt=False, perf_report=report_t, progressbar=False,
+                              compute_convergence_checks=False)
+    t2_launches = quadform_logp_grad.launches
+    if (report_t["engine"] != "per_draw_dense" or report_t["trajectory"] != "tensor"
+            or any(counts().values()) or t2_launches <= 0 or logistic_logp_grad.launches):
+        raise RuntimeError(f"T2 ran engine {report_t['engine']} ({report_t['trajectory']}) "
+                           f"with launches {counts()}, {t2_launches} of the quadform kernel")
+    line_t = _quality(cg_k, trace_t, stats_t, report_t["sample_seconds"], report_t,
+                      "t2_per_chain_dense_tree", smi,
+                      {"kernel_launches": {"quadform_logp_grad": t2_launches},
+                       "max_depth": int(stats_t["depth"].max())},
+                      chains=T2_CHAINS, tune=T2_TUNE, draws=T2_DRAWS)
+    _line(phase="tree_paths_done", t2_sample_seconds=line_t["sample_seconds"],
+          elapsed_s=f"{time.perf_counter() - t_start:.1f}")
+    return dict(lg_k=lg_k, state_a=state_a, state_b=state_b, a_launches=a_launches,
+                b_launches=b_launches, t2_launches=t2_launches)
+
+
+def _logistic_timing(lg, tp, lg_args, lg_hargs, gen, t_start) -> dict:
+    """Phase 4f: where a draw of paths (A) and (B) spends its time, the
+    trajectory kernel's logistic body at 2k's input (``lg_args``, where its
+    plain version was timed) and at path (B)'s final state (``tp``:
+    :func:`_tree_paths`' result), and the HMC kernel's at 2l's input
+    (``lg_hargs``). Returns the times and bounds of the kernels line."""
+    import torch
+    from littlemcmc_torch.ops.hmc_trajectory import hmc_trajectory
+    from littlemcmc_torch.ops.nuts_trajectory import trajectory
+
+    lg_k, state_a, state_b = tp["lg_k"], tp["state_a"], tp["state_b"]
+    _breakdown(lg_k, state_a, gen, draws=5, label="_logistic_tree",
+               tree_fn=lg_k.batched_logp_grad)
+    _breakdown(lg, state_b, gen, label="_logistic")
+    lkw = dict(spec=lg.trajectory_spec(), max_treedepth=DEPTH, Emax=1000.0,
+               chain_block=CHAIN_BLOCK)
+    largs = (state_b.q, state_b.potential.sample_momentum(gen), state_b.q_grad, state_b.logp,
+             torch.exp(state_b.da.log_bar),
+             torch.full((CHAINS,), DEPTH, dtype=torch.int32, device=DEVICE),
+             state_b.potential.var)
+    out = {}
+    for where, args, seed in (("", lg_args, (109, -113)), ("main_", largs, (3, 8))):
+        leaves = int(trajectory(*args, seed, **lkw)["n_leaves"].sum())
+        events = _cuda_time_ms(lambda: trajectory(*args, seed, **lkw), reps=20, warmup=3)
+        ms, src = _device_ms(lambda: trajectory(*args, seed, **lkw), "nuts_trajectory", 20,
+                             events)
+        bound = _bound_ms(leaves, CHAINS, LG_N, body="logistic", rows=LG_ROWS)
+        out.update({f"{where}ms": ms, f"{where}ms_source": src, f"{where}events_ms": events,
+                    f"{where}bound_ms": bound[0], f"{where}bound_by": bound[1]})
+        _line(phase=f"logistic_{where}timing", kernel_ms=f"{ms:.4f}", ms_source=src,
+              events_ms=f"{events:.4f}", bound_ms=f"{bound[0]:.4f}", bound_by=bound[1],
+              mean_leaves=f"{leaves / CHAINS:.2f}",
+              elapsed_s=f"{time.perf_counter() - t_start:.1f}")
+    lhkw = dict(spec=lg.trajectory_spec(), Emax=1000.0)
+    lh_events = _cuda_time_ms(lambda: hmc_trajectory(*lg_hargs, (131, 137), **lhkw), reps=20,
+                              warmup=3)
+    lh_ms, lh_src = _device_ms(lambda: hmc_trajectory(*lg_hargs, (131, 137), **lhkw),
+                               "hmc_trajectory", 20, lh_events)
+    lh_bound = _hmc_bound_ms(int(lg_hargs[5].sum()), 256, LG_N, body="logistic", rows=LG_ROWS)
+    return dict(lg_row=out, lh_ms=lh_ms, lh_src=lh_src, lh_events=lh_events,
+                lh_bound=lh_bound)
+
+
 def main() -> int:
     if not (ROOT / "littlemcmc_torch" / "ops" / "csrc").is_dir():
         print("chip_smoke.py must run from a littlemcmc checkout "
@@ -1254,25 +1689,31 @@ def main() -> int:
 
     from littlemcmc_torch import NUTS, HamiltonianMC, sample
     from littlemcmc_torch.base import HMCConfig, NUTSConfig
-    from littlemcmc_torch.models import CorrelatedGaussian, EightSchools, StandardNormal
+    from littlemcmc_torch.models import (CorrelatedGaussian, EightSchools, LogisticRegression,
+                                         StandardNormal)
     from littlemcmc_torch.ops.fused_hmc import fused_hmc
     from littlemcmc_torch.ops.fused_nuts import fused_nuts
     from littlemcmc_torch.ops.hmc_trajectory import hmc_trajectory, hmc_trajectory_plain
+    from littlemcmc_torch.ops.logistic import logistic_logp_grad
     from littlemcmc_torch.ops.nuts_trajectory import trajectory, trajectory_plain
+    from littlemcmc_torch.ops.quadform import quadform_logp_grad
 
     ops = (trajectory, fused_nuts, hmc_trajectory, fused_hmc)
+    model_ops = (logistic_logp_grad, quadform_logp_grad)
 
     def reset_counts():
-        for op in ops:
+        for op in ops + model_ops:
             op.launches = 0
 
     def counts():
+        """The four transition kernels' launch counts (the batched model
+        kernels' are read on their own)."""
         return {op.__name__: op.launches for op in ops}
 
     # --- 2. the kernel against its plain version -------------------------------
     cg = CorrelatedGaussian(N)
     args = _stationary_inputs(cg, np.linalg.cholesky(cg.cov), CHAINS, 0.2, seed=0)
-    max_abs_err, _ = _compare("correlated_gaussian", cg, args, (17, 29), need=0.99)
+    max_abs_err, plain_ms = _compare("correlated_gaussian", cg, args, (17, 29), need=0.99)
     sn = StandardNormal(4)
     _compare("standard_normal", sn, _stationary_inputs(sn, np.eye(4), CHAINS, 0.5, seed=1),
              (5, 6), need=1.0)
@@ -1303,21 +1744,36 @@ def main() -> int:
     # 2f-2g. the per-draw kernels with the eight-schools body, 1024 chains
     es = EightSchools()
     es_exact = es.exact_moments()
-    es_args = _es_inputs(es, CHAINS, 0.3, seed=11)
+    es_args = _posterior_inputs(es, CHAINS, 0.3, seed=11)
     es_traj_err, es_plain_ms = _compare("eight_schools", es, es_args, (83, -89), need=0.99)
     es_hargs = _hmc_inputs(es, None, CHAINS, 0.25, 12)
     es_hmc_err, es_hmc_plain_ms = _compare_hmc(es, es_hargs, (97, 101), need=0.99, scaled=True)
     # 2h-2i. the fused kernels' diag branch, bodies 1 and 2, 1024 chains: a
     # draw chunk, and a tune chunk with the Welford steps and dual averaging
-    # on; 4 draws, 2 for the 100-d body (its trees, at the path's depth of
-    # 10, run about 70 leaves a chain-draw, and the plain version steps
-    # each block to its deepest chain's tree)
+    # on; the tune chunk 4 draws, 2 for the 100-d body (its trees, at the
+    # path's depth of 10, run about 70 leaves a chain-draw, and the plain
+    # version steps each block to its deepest chain's tree), the draw chunk
+    # half that, to keep the script in its time beside the tree's paths
     diag_cmp = {}
     for step in ("nuts", "hmc"):
         for mname, model, T in (("correlated_gaussian", cg, 2), ("eight_schools", es, 4)):
-            draw = _compare_fused(T, False, True, 13, (103, -7), step, model, "diag")
+            draw = _compare_fused(T // 2, False, True, 13, (103, -7), step, model, "diag")
             tune = _compare_fused(T, True, True, 14, (107, 11), step, model, "diag")
-            diag_cmp[step, mname] = (draw, max(draw[2], tune[2]), T)
+            diag_cmp[step, mname] = (draw, max(draw[2], tune[2]), T // 2)
+    # 2j. the batched model kernels, rows 6 and 5, at the paths' widths
+    lg_row = _compare_model_kernel("logistic", CHAINS, LG_N, LG_ROWS, seed=15)
+    qf_row = _compare_model_kernel("quadform", CHAINS, N, seed=16)
+    # 2k. the per-draw NUTS kernel with the logistic body, 1024 chains
+    lg = LogisticRegression()
+    lg_args = _posterior_inputs(lg, CHAINS, 0.25, 17)
+    lg_traj_err, lg_plain_ms = _compare("logistic", lg, lg_args, (109, -113), need=0.99)
+    # 2l. the logistic body in the fused NUTS, the HMC and the fused HMC
+    # kernels (on no path of this script), 256 chains, a 2-draw draw chunk
+    lg_fused = {step: _compare_fused(2, False, True, 18, (113, 7), step, lg, "diag", chains=256)
+                for step in ("nuts", "hmc")}
+    lg_hargs = _hmc_inputs(lg, None, 256, 0.25, 20)
+    lg_hmc_err, lg_hmc_plain_ms = _compare_hmc(lg, lg_hargs, (131, 137), need=0.99,
+                                               scaled=True)
     _line(phase="kernel_checks", elapsed_s=f"{time.perf_counter() - t_start:.1f}")
 
     # --- 3. the main path -------------------------------------------------------
@@ -1489,6 +1945,10 @@ def main() -> int:
           per_draw_sample_seconds=report["sample_seconds"],
           elapsed_s=f"{time.perf_counter() - t_start:.1f}")
 
+    # 3l-3n. logistic regression on the tree (path A) and on the trajectory
+    # kernel (path B); per-chain dense adaptation on the tree (T2)
+    tp = _tree_paths(smi, lg, reset_counts, counts, model_ops, t_start)
+
     # --- 4. the kernel's time at the main path's final state -------------------
     gen = torch.Generator(device=DEVICE).manual_seed(7)
     pot = state.potential
@@ -1502,7 +1962,8 @@ def main() -> int:
     events_ms = _cuda_time_ms(lambda: trajectory(*targs, (3, 8), **kw), reps=20, warmup=3)
     kernel_ms, ms_src = _device_ms(lambda: trajectory(*targs, (3, 8), **kw), "nuts_trajectory",
                                    20, events_ms)
-    plain_ms = _cuda_time_ms(lambda: trajectory_plain(*targs, (3, 8), **kw), reps=1, warmup=0)
+    # plain_ms is phase 2's launch of the plain version (the same shapes, 71
+    # against 70.7 leaves a chain): a second one here took 25-38 s
     bound_ms, bound_by = _bound_ms(leaves, CHAINS, N)
     _line(phase="timing", kernel_ms=f"{kernel_ms:.4f}", ms_source=ms_src,
           events_ms=f"{events_ms:.4f}", plain_ms=f"{plain_ms:.1f}",
@@ -1650,6 +2111,9 @@ def main() -> int:
                           draw_chunks=4, label="_fused_diag")
     _line(phase="es_timing_done", elapsed_s=f"{time.perf_counter() - t_start:.1f}")
 
+    # 4f. the logistic paths' breakdowns and kernel times
+    lt = _logistic_timing(lg, tp, lg_args, lg_hargs, gen, t_start)
+
     traj_src = "littlemcmc_torch/ops/csrc/nuts_trajectory.cu"
     traj_tpu = "littlemcmc_tpu/ops/nuts_trajectory_pallas.py:1023"
     fn_src, fn_tpu = ("littlemcmc_torch/ops/csrc/fused_nuts.cu",
@@ -1704,6 +2168,40 @@ def main() -> int:
                  es_timing["hmc"]["fused_ms"],
                  (es_timing["hmc"]["fused_bound_ms"], es_timing["hmc"]["fused_bound_by"])),
     ]
+    def lg_fused_row(step):
+        """The logistic body's fused kDiag instance: one 2-draw draw chunk of
+        256 chains at 2l's input."""
+        k_ms, p_ms, err, work, ev_ms = lg_fused[step]
+        bound = _fused_diag_bound_ms(work, 256, LG_N, 2, False, "logistic", step, LG_ROWS)
+        return {"name": f"fused_{step}", "metric": "diag", "body": "logistic", "route": "cuda",
+                "source": fn_src if step == "nuts" else fh_src,
+                "replaces": fn_tpu if step == "nuts" else fh_tpu, "launches": 0,
+                "max_abs_err": err, "ms": k_ms, "events_ms": ev_ms, "chains": 256, "draws": 2,
+                "plain_ms": p_ms, "bound_ms": bound[0], "bound_by": bound[1],
+                "library_ms": None}
+
+    lg_rows = [
+        # the per-draw kernel's logistic body, path (B): ms, plain_ms,
+        # bound_ms and max_abs_err one launch at 2k's input (1024 chains);
+        # main_*: one launch at path (B)'s final state
+        {"name": "nuts_trajectory", "metric": "diag", "body": "logistic", "route": "cuda",
+         "source": traj_src, "replaces": traj_tpu, "launches": tp["b_launches"],
+         "max_abs_err": lg_traj_err, **lt["lg_row"], "plain_ms": lg_plain_ms,
+         "library_ms": None},
+        # rows 6 and 5 on paths (A) and T2, timed at 2j's inputs (ms: the
+        # kernel's device time; library_ms: the library yardstick's)
+        dict(lg_row, launches=tp["a_launches"]),
+        dict(qf_row, launches=tp["t2_launches"]),
+        lg_fused_row("nuts"),
+        # the HMC kernel's logistic body at 2l's input, 256 chains
+        {"name": "hmc_trajectory", "metric": "diag", "body": "logistic", "route": "cuda",
+         "source": "littlemcmc_torch/ops/csrc/hmc_trajectory.cu",
+         "replaces": "littlemcmc_tpu/ops/hmc_trajectory_pallas.py:273", "launches": 0,
+         "max_abs_err": lg_hmc_err, "ms": lt["lh_ms"], "ms_source": lt["lh_src"],
+         "events_ms": lt["lh_events"], "chains": 256, "plain_ms": lg_hmc_plain_ms,
+         "bound_ms": lt["lh_bound"][0], "bound_by": lt["lh_bound"][1], "library_ms": None},
+        lg_fused_row("hmc"),
+    ]
     # no single PyTorch call computes a NUTS or an HMC transition:
     # library_ms is null. ms: the kernel's device time per launch
     # (_device_ms); events_ms: CUDA events around back-to-back calls of its
@@ -1745,7 +2243,7 @@ def main() -> int:
          "bound_by": fh_bound_by,
          "library_ms": None, "chunk_draws": 250, "chunk_ms": fh_ms,
          "chunk_bound_ms": fh_chunk_bound_ms, "chunk_bound_by": fh_chunk_bound_by},
-    ] + es_rows}), flush=True)
+    ] + es_rows + lg_rows}), flush=True)
     _line(phase="done", elapsed_s=f"{time.perf_counter() - t_start:.1f}")
     print(smi, flush=True)
     print(json.dumps({"ok": True, "device": {"platform": "gpu",

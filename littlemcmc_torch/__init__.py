@@ -3,7 +3,8 @@
 NUTS and classic HMC for many chains at once on one NVIDIA Hopper card,
 through hand-written CUDA kernels that run every chain's whole trajectory
 with the model inlined, one draw per launch or a chunk of draws per launch
-(:mod:`littlemcmc_torch.ops`). Entry
+(:mod:`littlemcmc_torch.ops`), or, for a model without a kernel body, on
+the tensor-op NUTS tree (:func:`littlemcmc_torch.nuts.run_nuts_tree`). Entry
 points run on the CUDA device unless the caller passes ``device="cpu"``,
 which runs the kernels' plain PyTorch versions.
 

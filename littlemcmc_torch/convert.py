@@ -16,6 +16,8 @@ and the metric's leaves, by kind:
   ``potential.fg.{n_samples, mean, raw_cov}``, ``potential.bg.{...}``,
   ``potential.{n_samples, prev_update, window}``.
 
+- ``QuadPotentialFullInv``: ``potential.chol``.
+
 (``rng_key`` is ignored: the port draws from ``torch.Generator`` objects.)
 :func:`chain_state_from_numpy` builds the port's :class:`ChainState` with
 the metric the leaves name, and :func:`chain_state_to_numpy` is its
@@ -23,7 +25,10 @@ inverse. A metric's static fields (``window_multiplier`` and the dense
 adaptation's ``update_window`` and ``regularize``) are not leaves: pass
 them as keywords. :func:`spec_consts_from_numpy`
 turns a JAX model spec's constants, zero-padded to the TPU kernel's lane
-width, into the port's unpadded ones.
+width, into the port's unpadded ones. :func:`phase_state_from_numpy` and
+:func:`tree_node_from_numpy` carry the tensor-op tree's ``PhaseState`` and
+``TreeNode`` (``littlemcmc_tpu/nuts.py:68-104``) across, field by field,
+so both trees can start from the same state.
 """
 
 from __future__ import annotations
@@ -34,11 +39,13 @@ import numpy as np
 import torch
 
 from .base import ChainState
+from .nuts import PhaseState, TreeNode
 from .quadpotential import (QuadPotentialDiagAdapt, QuadPotentialFull, QuadPotentialFullAdapt,
-                            WelfordCovariance, WelfordVariance)
+                            QuadPotentialFullInv, WelfordCovariance, WelfordVariance)
 from .step_sizes import DualAverageState
 
-__all__ = ["chain_state_from_numpy", "chain_state_to_numpy", "spec_consts_from_numpy"]
+__all__ = ["chain_state_from_numpy", "chain_state_to_numpy", "spec_consts_from_numpy",
+           "phase_state_from_numpy", "tree_node_from_numpy"]
 
 _WELFORD = ("w_sum", "w_sum2", "mean", "raw_var")
 _WELFORD_COV = ("n_samples", "mean", "raw_cov")
@@ -72,6 +79,8 @@ def _potential_from_numpy(d, device, window_multiplier, **static):
             bg=welford(WelfordCovariance, "bg", _WELFORD_COV),
             n_samples=leaf("n_samples", i32), prev_update=leaf("prev_update", i32),
             window=leaf("window", i32), **mult, **static)
+    if "potential.cov" not in d:
+        return QuadPotentialFullInv(chol=leaf("chol"))
     return QuadPotentialFull(cov=leaf("cov"), chol=leaf("chol"))
 
 
@@ -102,6 +111,8 @@ def chain_state_to_numpy(state: ChainState) -> Dict[str, np.ndarray]:
     elif isinstance(pot, QuadPotentialFullAdapt):
         names = ("cov", "chol", "chol_failed", "n_samples", "prev_update", "window")
         welford = _WELFORD_COV
+    elif isinstance(pot, QuadPotentialFullInv):
+        names, welford = ("chol",), ()
     else:
         names, welford = ("cov", "chol"), ()
     for k in names:
@@ -122,3 +133,21 @@ def spec_consts_from_numpy(consts: Sequence[np.ndarray], ndim: int,
         _t(np.asarray(c)[tuple(slice(0, ndim) for _ in np.shape(c))], device,
            torch.float32).contiguous()
         for c in consts)
+
+
+def _tree_tuple(cls, d: Dict[str, Optional[np.ndarray]], device):
+    return cls(*(None if d.get(k) is None else _t(d[k], device, torch.float32)
+                 for k in cls._fields))
+
+
+def phase_state_from_numpy(d: Dict[str, np.ndarray], device=None) -> PhaseState:
+    """The tree's ``PhaseState`` from the JAX one's fields (``q, p,
+    q_grad, energy, logp``) as numpy arrays, e.g. ``{k: np.asarray(v) for
+    k, v in state._asdict().items()}``."""
+    return _tree_tuple(PhaseState, d, device)
+
+
+def tree_node_from_numpy(d: Dict[str, Optional[np.ndarray]], device=None) -> TreeNode:
+    """The tree's ``TreeNode`` from the JAX one's fields as numpy arrays;
+    ``left_v``/``right_v`` may be None (a diagonal metric's nodes)."""
+    return _tree_tuple(TreeNode, d, device)

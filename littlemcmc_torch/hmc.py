@@ -27,11 +27,11 @@ import torch
 
 from .base import ChainState, HMCConfig, finish_step, pooled_tune_schedule
 from .integration import IntegratorState, leapfrog, recompute_with_momentum
-from .nuts import fused_metric_after, fused_metric_inputs, fused_metric_kind
+from .nuts import (_diag_inverse_mass, fused_metric_after, fused_metric_inputs,
+                   fused_metric_kind)
 from .ops.fused_hmc import fused_hmc
 from .ops.hmc_trajectory import DEFAULT_HMC_CHAIN_BLOCK, hmc_trajectory
 from .ops.nuts_trajectory import DEFAULT_CHAIN_BLOCK, TrajectorySpec
-from .quadpotential import QuadPotentialDiag, QuadPotentialDiagAdapt
 from .step_sizes import DualAverageState
 
 __all__ = ["HMCConfig", "HMCInfo", "run_hmc_trajectory", "build_hmc_kernel",
@@ -93,13 +93,6 @@ def run_hmc_trajectory(generator: torch.Generator, start: IntegratorState,
     accepted = ~diverging & (torch.rand(C, **f) < accept_stat)
     final = _select(accepted, end, start)
     return final, end, accept_stat, accepted, diverging, energy_change, path_length, n_steps
-
-
-def _diag_inverse_mass(potential) -> Optional[torch.Tensor]:
-    """The ``(C, n)`` inverse-mass diagonal of a diagonal metric, or None."""
-    if isinstance(potential, (QuadPotentialDiag, QuadPotentialDiagAdapt)):
-        return potential.inverse_mass
-    return None
 
 
 def build_hmc_kernel(logp_grad_fn: BatchedLogpGrad, config: HMCConfig = HMCConfig(),
@@ -184,7 +177,7 @@ def build_fused_hmc_runner_factory(config: HMCConfig, trajectory_spec: Trajector
     if trajectory_spec is None:
         raise NotImplementedError("the fused HMC kernel needs a model with a "
                                   "trajectory_spec() (StandardNormal, CorrelatedGaussian, "
-                                  "EightSchools)")
+                                  "EightSchools, LogisticRegression)")
     mult = (potential_template.window_multiplier
             if kind in ("diag_adapt", "dense_pooled") else 1.0)
     w0, w1 = seed_words

@@ -1,12 +1,26 @@
-"""NUTS transitions on the trajectory op and the fused op, batched over chains.
+"""NUTS transitions, batched over chains: the tensor-op tree and the kernel paths.
 
-Counterpart of ``littlemcmc_tpu/nuts.py`` on its kernel paths:
+Counterpart of ``littlemcmc_tpu/nuts.py``:
 
+- :func:`run_nuts_tree` (``:461-628``), the tree built from separate
+  tensor ops with the model called as a function: the engine for a model
+  without a kernel body (a plain closure, a numpy callable, a batched
+  model kernel such as the logistic one), and for metrics the kernels do
+  not take (per-chain dense adaptation, ``QuadPotentialFullInv``). It
+  keeps the JAX code's structure (``nuts.py:1-47``): one scalar schedule
+  for every chain (depth, leaf index, merge count, stack height), the
+  merge stack ``_build_subtree`` replaying the reference's recursion, and
+  per-chain masks for the chains that stopped. Each ``jnp.any`` of a JAX
+  ``while_loop`` condition is one host read here (``bool(mask.any())``):
+  one per doubling, one per leaf and one per merge. Those reads, and the
+  about 80 PyTorch launches of a leaf, set how host-bound this engine is;
 - :func:`build_nuts_kernel` (``:682-917``), the per-draw engine: fresh
   momentum, the step size from dual averaging, the early tree-depth cap,
-  one trajectory launch for all chains, then the dual-averaging and metric
-  updates; diag metrics, a static dense metric, or a pooled adaptive dense
-  metric (``_shared_dense_cov`` ``:642-659``);
+  then either one trajectory-kernel launch for all chains (diag metrics,
+  a static dense metric, or a pooled adaptive dense metric,
+  ``_shared_dense_cov`` ``:642-659``) or :func:`run_nuts_tree` with the
+  proposal's gradient recomputed once, then the dual-averaging and
+  metric updates;
 - :func:`build_fused_nuts_runner_factory` (``:1006-1326``), the fused
   engine: one fused-op launch per chunk of draws, for a static or an
   adaptive diagonal metric, per chain or pooled at chunk boundaries
@@ -15,9 +29,14 @@ Counterpart of ``littlemcmc_tpu/nuts.py`` on its kernel paths:
   boundaries (``_pool_dense_welford`` ``:927-950``,
   ``_dense_boundary_potential`` ``:967-1003``).
 
-``run_nuts_tree`` (the tree built from separate tensor ops, the engine
-for models without a kernel body), the fused low-rank branch and the
-low-rank metric are not ported yet.
+The tree's random calls (the key splits ``_split_each`` ``:140``, the
+direction's Bernoulli ``:491`` and ``_logbern_b`` ``:146``) go through one
+object, a *tree random source*: :class:`GeneratorTreeRandom` draws from a
+``torch.Generator`` (Philox on the card) with opaque placeholder keys; a
+test can pass one that wraps ``jax.random`` with threefry keys, so the
+port's tree and the JAX package's build the same trees chain for chain.
+
+The fused low-rank branch and the low-rank metric are not ported yet.
 """
 
 from __future__ import annotations
@@ -27,22 +46,23 @@ from typing import Callable, NamedTuple, Optional, Sequence, Tuple
 
 import torch
 
-from .base import ChainState, NUTSConfig, finish_step, pooled_tune_schedule
+from .base import BatchedLogpGrad, ChainState, NUTSConfig, finish_step, pooled_tune_schedule
+from .integration import INTEGRATOR_COEFFS
 from .math import log1mexp
 from .ops.fused_nuts import WELFORD_KEYS, combine_dense_welford, fused_nuts
-from .ops.nuts_trajectory import DEFAULT_CHAIN_BLOCK, TrajectorySpec, trajectory
+from .ops.nuts_trajectory import DEFAULT_CHAIN_BLOCK, TrajectorySpec, _rowdot, trajectory
 from .parallel.cross_chain import cross_chain_potential_pool
 from .quadpotential import (QuadPotentialDiag, QuadPotentialDiagAdapt, QuadPotentialFull,
                             QuadPotentialFullAdapt, WelfordCovariance, cholesky_or_keep)
 from .step_sizes import DualAverageState
 
-__all__ = ["NUTSInfo", "build_nuts_kernel", "build_fused_nuts_runner_factory"]
+__all__ = ["NUTSInfo", "PhaseState", "TreeNode", "TreeResult", "GeneratorTreeRandom",
+           "run_nuts_tree", "build_nuts_kernel", "build_fused_nuts_runner_factory"]
 
-_NO_TREE = ("littlemcmc_torch runs NUTS only through its kernels, which need a "
-            "model with a trajectory_spec() (StandardNormal, CorrelatedGaussian, "
-            "EightSchools). "
-            "The tensor-op tree for other models is ROADMAP Queue 1 item 6 "
-            "(run_nuts_tree).")
+_NO_SPEC = ("the fused NUTS kernel inlines a model body: it needs a model with a "
+            "trajectory_spec() (StandardNormal, CorrelatedGaussian, EightSchools, "
+            "LogisticRegression); other models run on the per-draw engine's tensor-op "
+            "tree (run_nuts_tree)")
 
 
 class NUTSInfo(NamedTuple):
@@ -62,6 +82,366 @@ class NUTSInfo(NamedTuple):
     reached_max_treedepth: torch.Tensor
 
 
+# --------------------------------------------------------------------------
+# The tensor-op tree
+# --------------------------------------------------------------------------
+
+class PhaseState(NamedTuple):
+    """Slim phase-space point of the tree's hot loop, ``(C, ...)`` each;
+    no velocity (recomputed from ``p`` where needed; reference
+    ``nuts.py:68-79``)."""
+
+    q: torch.Tensor
+    p: torch.Tensor
+    q_grad: torch.Tensor
+    energy: torch.Tensor
+    logp: torch.Tensor
+
+
+class TreeNode(NamedTuple):
+    """A completed subtree, boundaries in integration order, ``(C, ...)``
+    each (reference ``nuts.py:82-104``): the momenta at its two ends, their
+    velocities for a dense metric (None for a diagonal one, recomputed at
+    the checks), the momentum sum and the multinomial proposal."""
+
+    left_p: torch.Tensor
+    right_p: torch.Tensor
+    left_v: Optional[torch.Tensor]
+    right_v: Optional[torch.Tensor]
+    p_sum: torch.Tensor
+    q: torch.Tensor
+    energy: torch.Tensor
+    logp: torch.Tensor
+    log_size: torch.Tensor
+    log_weighted_accept_sum: torch.Tensor
+
+
+class TreeResult(NamedTuple):
+    """One trajectory's proposal and stats, ``(C,)`` each but ``prop_q``
+    (reference ``nuts.py:448-458``)."""
+
+    prop_q: torch.Tensor
+    prop_energy: torch.Tensor
+    prop_logp: torch.Tensor
+    depth: torch.Tensor
+    n_proposals: torch.Tensor
+    mean_tree_accept: torch.Tensor
+    max_energy_change: torch.Tensor
+    diverging: torch.Tensor
+    turning: torch.Tensor
+    reached_max_treedepth: torch.Tensor
+
+
+class GeneratorTreeRandom:
+    """The tree's random source on a ``torch.Generator``: every call draws
+    fresh numbers for all ``chains`` on ``device``. Its keys are
+    placeholders (None); a split gives placeholders and a masked select
+    the first. A random source has four methods: ``split(keys, num)``
+    (a tuple of ``num`` key batches), ``where(mask, a, b)`` (per chain),
+    ``bernoulli(keys)`` (a fair coin per chain, bool ``(C,)``) and
+    ``uniform(keys)`` (U(0, 1) per chain, float32 ``(C,)``)."""
+
+    def __init__(self, generator: torch.Generator, chains: int, device):
+        self.generator, self.chains, self.device = generator, chains, device
+
+    def split(self, keys, num: int):
+        return (None,) * num
+
+    def where(self, mask, a, b):
+        return a
+
+    def bernoulli(self, keys) -> torch.Tensor:
+        return self.uniform(keys) < 0.5
+
+    def uniform(self, keys) -> torch.Tensor:
+        return torch.rand(self.chains, generator=self.generator, device=self.device)
+
+
+def _mwhere(mask: torch.Tensor, a, b):
+    """``where`` over every field of two NamedTuples with a ``(C,)`` mask."""
+    def sel(x, y):
+        return torch.where(mask.reshape(mask.shape + (1,) * (x.ndim - 1)), x, y)
+
+    return type(a)(*(sel(x, y) for x, y in zip(a, b)))
+
+
+def _logbern_b(rng, keys, log_p: torch.Tensor) -> torch.Tensor:
+    """Per-chain Bernoulli in log space; NaN ``log_p`` gives False
+    (reference ``nuts.py:146-149``)."""
+    return torch.log(rng.uniform(keys)) < log_p
+
+
+def _leaf_node(state: PhaseState, energy_change: torch.Tensor,
+               v: Optional[torch.Tensor] = None) -> TreeNode:
+    """Single-leapfrog subtree (reference ``_single_step``, ``nuts.py:359-368``):
+    log size ``-dE``, log weighted accept ``-dE + min(0, -dE)``."""
+    log_size = -energy_change
+    return TreeNode(left_p=state.p, right_p=state.p, left_v=v, right_v=v, p_sum=state.p,
+                    q=state.q, energy=state.energy, logp=state.logp, log_size=log_size,
+                    log_weighted_accept_sum=log_size + torch.clamp(log_size, max=0.0))
+
+
+def _make_batched_potential_ops(potential):
+    """``(velocity_b, kinetic_b)`` of a chain-batched metric: its own
+    batched methods (the JAX package vmaps a per-chain pytree)."""
+    return potential.velocity, potential.kinetic
+
+
+def _diag_inverse_mass(potential) -> Optional[torch.Tensor]:
+    """The ``(C, n)`` inverse-mass diagonal of a diagonal metric, or None."""
+    if isinstance(potential, (QuadPotentialDiag, QuadPotentialDiagAdapt)):
+        return potential.inverse_mass
+    return None
+
+
+def _leapfrog_b(velocity_b, kinetic_b, logp_grad_b: BatchedLogpGrad, epsilon: torch.Tensor,
+                state: PhaseState, scheme: str = "leapfrog"
+                ) -> Tuple[PhaseState, torch.Tensor]:
+    """Batched symplectic step (reference ``nuts.py:185-206``); also
+    returns the final velocity, which a dense metric's caller stores."""
+    b, a = INTEGRATOR_COEFFS[scheme]
+    eps = epsilon[:, None]
+    p = state.p + (b[0] * eps) * state.q_grad
+    q, logp, grad = state.q, state.logp, state.q_grad
+    for i, ai in enumerate(a):
+        v = velocity_b(p)
+        q = q + (ai * eps) * v
+        logp, grad = logp_grad_b(q)
+        p = p + (b[i + 1] * eps) * grad
+    v = velocity_b(p)
+    kin = kinetic_b(p, v)
+    return PhaseState(q, p, grad, kin - logp, logp), v
+
+
+def _merge_nodes(rng, keys, t1: TreeNode, t2: TreeNode, check_extra: bool,
+                 velocity_b) -> Tuple[TreeNode, torch.Tensor]:
+    """Merge two adjacent complete subtrees, ``t1`` then ``t2`` in
+    integration order (reference ``nuts.py:209-256``): the full-span
+    U-turn check, the two cross-subtree checks when both children have
+    depth >= 1 (``check_extra``), the log-space weights and the
+    multinomial proposal swap. Returns the node and the per-chain
+    ``turning``."""
+    if t1.left_v is not None:
+        v_1l, v_1r, v_2l, v_2r = t1.left_v, t1.right_v, t2.left_v, t2.right_v
+    else:
+        v_1l, v_1r = velocity_b(t1.left_p), velocity_b(t1.right_p)
+        v_2l, v_2r = velocity_b(t2.left_p), velocity_b(t2.right_p)
+
+    p_sum = t1.p_sum + t2.p_sum
+    turning = (_rowdot(p_sum, v_1l) <= 0) | (_rowdot(p_sum, v_2r) <= 0)
+    if check_extra:
+        p_sum1 = t1.p_sum + t2.left_p
+        turning1 = (_rowdot(p_sum1, v_1l) <= 0) | (_rowdot(p_sum1, v_2l) <= 0)
+        p_sum2 = t1.right_p + t2.p_sum
+        turning2 = (_rowdot(p_sum2, v_1r) <= 0) | (_rowdot(p_sum2, v_2r) <= 0)
+        turning = turning | turning1 | turning2
+
+    # torch's fused logaddexp: within an ulp of jnp.logaddexp's formula
+    # (which the kernels' plain versions keep), at a tenth of its launches
+    log_size = torch.logaddexp(t1.log_size, t2.log_size)
+    lwas = torch.logaddexp(t1.log_weighted_accept_sum, t2.log_weighted_accept_sum)
+    take2 = _logbern_b(rng, keys, t2.log_size - log_size)
+    node = TreeNode(
+        left_p=t1.left_p, right_p=t2.right_p, left_v=t1.left_v, right_v=t2.right_v,
+        p_sum=p_sum, q=torch.where(take2[:, None], t2.q, t1.q),
+        energy=torch.where(take2, t2.energy, t1.energy),
+        logp=torch.where(take2, t2.logp, t1.logp),
+        log_size=log_size, log_weighted_accept_sum=lwas)
+    return node, turning
+
+
+class _SubtreeResult(NamedTuple):
+    node: TreeNode
+    end_state: PhaseState
+    n_leaves: torch.Tensor
+    max_energy_change: torch.Tensor
+    diverging: torch.Tensor
+    turning: torch.Tensor
+
+
+def _push(stack: TreeNode, node: TreeNode, h: int) -> None:
+    """Write ``node`` into slot ``h`` of the merge stack, in place."""
+    for s, x in zip(stack, node):
+        if s is not None:
+            s[h] = x
+
+
+def _peek(stack: TreeNode, h: int) -> TreeNode:
+    """Slot ``h`` of the merge stack (views)."""
+    return TreeNode(*(None if s is None else s[h] for s in stack))
+
+
+def _build_subtree(rng, keys, edge: PhaseState, depth: int, epsilon: torch.Tensor,
+                   active: torch.Tensor, start_energy: torch.Tensor,
+                   max_energy_change0: torch.Tensor, stack: TreeNode, velocity_b, kinetic_b,
+                   logp_grad_b: BatchedLogpGrad, config: NUTSConfig,
+                   store_velocity: bool = False) -> _SubtreeResult:
+    """Build a complete subtree of ``2**depth`` leapfrogs from ``edge``:
+    the merge-stack replay of the reference's ``_build_subtree``
+    (reference ``nuts.py:282-425``). ``depth``, the leaf index and the
+    stack height are scalars shared by every chain; ``active`` and
+    ``building`` mask the chains that stopped. ``stack`` is the caller's
+    scratch, written in place (no slot is read before it is written).
+
+    Aborted (non-building) chains are not frozen: they integrate on, and
+    every consumer of their values is masked, as in the JAX code."""
+    n_total = 1 << depth
+    C = edge.q.shape[0]
+    dev = edge.q.device
+    leaf_idx, height = 0, 0
+    cur, building = edge, active
+    n_leaves = torch.zeros(C, dtype=torch.int32, device=dev)
+    mec = max_energy_change0
+    diverging = torch.zeros(C, dtype=torch.bool, device=dev)
+    turning = torch.zeros_like(diverging)
+    # host read: one per leaf (the JAX loop's jnp.any(c.building))
+    while leaf_idx < n_total and bool(building.any()):
+        cur, v_new = _leapfrog_b(velocity_b, kinetic_b, logp_grad_b, epsilon, cur,
+                                 config.integrator)
+        inf = float("inf")
+        energy_change = torch.nan_to_num(cur.energy - start_energy, nan=inf, posinf=inf,
+                                         neginf=-inf)
+        abs_change = energy_change.abs()
+        mec = torch.where(building & (abs_change > mec.abs()), energy_change, mec)
+        div_leaf = building & (abs_change >= config.Emax)  # NaN counted as infinite
+        n_leaves = n_leaves + building
+        node = _leaf_node(cur, energy_change, v_new if store_velocity else None)
+
+        # one merge per trailing one-bit of leaf_idx: the internal nodes the
+        # reference's recursion completes after this leaf; chains that
+        # diverged here or turned at an earlier merge stop applying them
+        merging0 = building & ~div_leaf
+        merging, j, h = merging0, 0, height
+        # host read: one per merge (the JAX merge loop's jnp.any(merging_))
+        while (leaf_idx >> j) & 1 and bool(merging.any()):
+            keys, k_merge = rng.split(keys, 2)
+            node, turning_new = _merge_nodes(rng, k_merge, _peek(stack, h - 1), node,
+                                             j >= 1, velocity_b)
+            merging = merging & ~turning_new
+            j, h = j + 1, h - 1
+        turned = merging0 & ~merging
+
+        # building & ~div_leaf & ~turned: the chains still merging
+        building = merging
+        _push(stack, node, h)
+        leaf_idx, height = leaf_idx + 1, h + 1
+        diverging = diverging | div_leaf
+        turning = turning | turned
+
+    # a clean completion leaves one frame on the stack, slot 0
+    return _SubtreeResult(node=_peek(stack, 0), end_state=cur, n_leaves=n_leaves,
+                          max_energy_change=mec, diverging=diverging, turning=turning)
+
+
+def run_nuts_tree(rng, keys, start: PhaseState, step_size: torch.Tensor,
+                  max_depth_c: torch.Tensor, potential, logp_grad_b: BatchedLogpGrad,
+                  config: NUTSConfig) -> TreeResult:
+    """One NUTS trajectory for every chain: iterative tree doubling
+    (reference ``run_nuts_tree``, ``nuts.py:461-628``; ``NUTS._hamiltonian_step``
+    and ``_Tree.extend``, reference ``nuts.py:204-224, 284-342``).
+
+    ``rng``/``keys``: the random source and its keys (``None`` for
+    :class:`GeneratorTreeRandom`). ``max_depth_c`` is per chain; the scalar
+    loop runs to the largest. Diagonal metrics recompute boundary
+    velocities at the checks; other metrics store them in the nodes."""
+    velocity_b, kinetic_b = _make_batched_potential_ops(potential)
+    C = start.q.shape[0]
+    dtype, dev = start.energy.dtype, start.q.device
+    max_depth_sched = int(max_depth_c.max())  # host read, once a trajectory
+    store_v = _diag_inverse_mass(potential) is None
+
+    v_start = velocity_b(start.p) if store_v else None
+    zero_node = _leaf_node(start, torch.zeros(C, dtype=dtype, device=dev), v=v_start)
+    stack = TreeNode(*(None if x is None else
+                       torch.zeros((config.max_treedepth,) + tuple(x.shape), dtype=x.dtype,
+                                   device=dev) for x in zero_node))
+    left = right = start
+    left_v = right_v = v_start
+    p_sum = start.p
+    prop_q, prop_energy, prop_logp = start.q, start.energy, start.logp
+    log_size = torch.zeros(C, dtype=dtype, device=dev)
+    lwas = torch.full((C,), float("-inf"), dtype=dtype, device=dev)
+    depth = 0
+    depth_c = torch.zeros(C, dtype=torch.int32, device=dev)
+    n_proposals = torch.zeros(C, dtype=torch.int32, device=dev)
+    mec = torch.zeros(C, dtype=dtype, device=dev)
+    diverging = torch.zeros(C, dtype=torch.bool, device=dev)
+    turning = torch.zeros_like(diverging)
+
+    while depth < max_depth_sched:
+        active = ~diverging & ~turning & (depth_c < max_depth_c)
+        if not bool(active.any()):  # host read: one per doubling
+            break
+        keys_next, k_dir, k_sub, k_swap = rng.split(keys, 4)
+        keys = rng.where(active, keys_next, keys)
+
+        go_right = rng.bernoulli(k_dir)
+        eps_signed = torch.where(go_right, step_size, -step_size)
+        edge = _mwhere(go_right, right, left)
+
+        sub = _build_subtree(rng, k_sub, edge, depth, eps_signed, active, start.energy, mec,
+                             stack, velocity_b, kinetic_b, logp_grad_b, config,
+                             store_velocity=store_v)
+        ok = active & ~sub.diverging & ~sub.turning
+        node = sub.node
+
+        # multinomial swap against the old tree's weight (reference nuts.py:321-323)
+        take_new = ok & _logbern_b(rng, k_swap, node.log_size - log_size)
+        old_p_sum, old_left, old_right = p_sum, left, right
+        old_left_v, old_right_v = left_v, right_v
+        prop_q = torch.where(take_new[:, None], node.q, prop_q)
+        prop_energy = torch.where(take_new, node.energy, prop_energy)
+        prop_logp = torch.where(take_new, node.logp, prop_logp)
+        log_size = torch.where(ok, torch.logaddexp(log_size, node.log_size), log_size)
+        lwas = torch.where(ok, torch.logaddexp(lwas, node.log_weighted_accept_sum), lwas)
+        p_sum = torch.where(ok[:, None], old_p_sum + node.p_sum, old_p_sum)
+
+        # the new span's ends in position order: the subtree's far end (its
+        # last integrated state) replaces the extended edge
+        left = _mwhere(ok & ~go_right, sub.end_state, old_left)
+        right = _mwhere(ok & go_right, sub.end_state, old_right)
+        go = go_right[:, None]
+        if store_v:
+            v_end = velocity_b(sub.end_state.p)  # once a doubling
+            okm = ok[:, None]
+            left_v = torch.where(okm & ~go, v_end, old_left_v)
+            right_v = torch.where(okm & go, v_end, old_right_v)
+            v_left, v_right = left_v, right_v
+            v1a = torch.where(go, old_left_v, node.right_v)
+            v1b = torch.where(go, node.left_v, old_left_v)
+            v2a = torch.where(go, old_right_v, node.left_v)
+            v2b = torch.where(go, node.right_v, old_right_v)
+        else:
+            v_left, v_right = velocity_b(left.p), velocity_b(right.p)
+            v1a = velocity_b(torch.where(go, old_left.p, node.right_p))
+            v1b = velocity_b(torch.where(go, node.left_p, old_left.p))
+            v2a = velocity_b(torch.where(go, old_right.p, node.left_p))
+            v2b = velocity_b(torch.where(go, node.right_p, old_right.p))
+
+        # the 3-way generalized U-turn on the merged span (reference nuts.py:332-340)
+        turning_full = (_rowdot(p_sum, v_left) <= 0) | (_rowdot(p_sum, v_right) <= 0)
+        p_sum1 = torch.where(go, old_p_sum + node.left_p, node.p_sum + old_left.p)
+        turning1 = (_rowdot(p_sum1, v1a) <= 0) | (_rowdot(p_sum1, v1b) <= 0)
+        p_sum2 = torch.where(go, old_right.p + node.p_sum, node.left_p + old_p_sum)
+        turning2 = (_rowdot(p_sum2, v2a) <= 0) | (_rowdot(p_sum2, v2b) <= 0)
+        turning_new = turning_full | turning1 | turning2
+
+        depth += 1
+        depth_c = depth_c + active.to(torch.int32)
+        n_proposals = n_proposals + torch.where(active, sub.n_leaves, 0)
+        mec = torch.where(active, sub.max_energy_change, mec)
+        diverging = diverging | (active & sub.diverging)
+        turning = turning | (active & torch.where(ok, turning_new, sub.turning))
+
+    # mean_tree_accept with the initial state's unit weight removed
+    # (reference nuts.py:419-425)
+    mta = torch.where(log_size > 0, torch.exp(lwas - (log_size + log1mexp(log_size))),
+                      torch.zeros_like(log_size))
+    return TreeResult(prop_q=prop_q, prop_energy=prop_energy, prop_logp=prop_logp,
+                      depth=depth_c, n_proposals=n_proposals, mean_tree_accept=mta,
+                      max_energy_change=mec, diverging=diverging, turning=turning,
+                      reached_max_treedepth=~diverging & ~turning)
+
 def _shared_dense_cov(potential, pooled: bool = False) -> Optional[torch.Tensor]:
     """The ``(n, n)`` covariance every chain shares, or None.
 
@@ -77,33 +457,35 @@ def _shared_dense_cov(potential, pooled: bool = False) -> Optional[torch.Tensor]
     return None
 
 
-def _trajectory_metric(potential, pooled: bool) -> Tuple[str, torch.Tensor]:
-    """``(metric, var)`` of the trajectory op for a chain-batched metric."""
+def trajectory_metric(potential, pooled: bool):
+    """``(metric, var)`` of the trajectory kernel for a chain-batched
+    metric, or None where the kernel does not take it (per-chain dense
+    adaptation, ``QuadPotentialFullInv``): such a metric runs on the tree."""
     if isinstance(potential, (QuadPotentialDiag, QuadPotentialDiagAdapt)):
         return "diag", potential.inverse_mass
     cov = _shared_dense_cov(potential, pooled)
-    if cov is None:
-        raise NotImplementedError(
-            "per-chain dense adaptation has no shared covariance for the "
-            "trajectory kernel; it runs on the tensor-op tree, ROADMAP Queue 1 "
-            "item 6. Use cross_chain_adapt=True (the default at >= 128 chains).")
-    return "dense", cov
+    return None if cov is None else ("dense", cov)
 
 
 def build_nuts_kernel(config: NUTSConfig = NUTSConfig(),
                       trajectory_spec: Optional[TrajectorySpec] = None,
-                      pooled_metric: bool = False
+                      pooled_metric: bool = False,
+                      batched_logp_grad_fn: Optional[BatchedLogpGrad] = None
                       ) -> Callable[..., Tuple[ChainState, NUTSInfo]]:
     """``kernel(state, tuning, generator, seed) -> (state, info)``.
 
-    ``generator`` draws the momenta (on the state's device); ``seed`` is
-    the trajectory's two int32 counter-stream words for this draw.
-    ``pooled_metric``: the state's adaptive dense metric is pooled across
-    chains (``sample()`` pools it after every tuning draw), so its row 0 is
-    the covariance the trajectory kernel shares.
+    ``generator`` draws the momenta (on the state's device) and, on the
+    tree, the tree's random numbers; ``seed`` is the trajectory kernel's
+    two int32 counter-stream words for this draw. With a
+    ``trajectory_spec`` each draw is one trajectory-kernel launch for all
+    chains (``pooled_metric``: the state's adaptive dense metric is pooled
+    across chains, so its row 0 is the covariance the kernel shares);
+    without one, :func:`run_nuts_tree` calls ``batched_logp_grad_fn``
+    (``(C, n) -> ((C,), (C, n))``) at every leaf and once more at the
+    proposal (reference ``nuts.py:863-873``).
     """
-    if trajectory_spec is None:
-        raise NotImplementedError(_NO_TREE)
+    if trajectory_spec is None and batched_logp_grad_fn is None:
+        raise ValueError("the tensor-op tree needs batched_logp_grad_fn")
     chain_block = config.chain_block or DEFAULT_CHAIN_BLOCK
 
     def kernel(state: ChainState, tuning: bool, generator: torch.Generator,
@@ -121,18 +503,39 @@ def build_nuts_kernel(config: NUTSConfig = NUTSConfig(),
             early, torch.full_like(state.iter_count, config.early_max_treedepth),
             torch.full_like(state.iter_count, config.max_treedepth))
 
-        metric, var = _trajectory_metric(pot, pooled_metric)
-        out = trajectory(state.q, p0, state.q_grad, state.logp, step_size,
-                         max_depth_c, var, seed,
-                         spec=trajectory_spec, max_treedepth=config.max_treedepth,
-                         Emax=config.Emax, chain_block=chain_block,
-                         integrator=config.integrator, metric=metric)
+        if trajectory_spec is None:
+            start = PhaseState(state.q, p0, state.q_grad, start_energy, state.logp)
+            tree = run_nuts_tree(GeneratorTreeRandom(generator, state.q.shape[0],
+                                                     state.q.device), None, start,
+                                 step_size, max_depth_c, pot, batched_logp_grad_fn, config)
+            # the proposal's gradient is not carried through the tree:
+            # recomputed once at the accepted position (reference nuts.py:869-873)
+            prop_logp, prop_grad = batched_logp_grad_fn(tree.prop_q)
+            out = dict(q=tree.prop_q, grad=prop_grad, logp=prop_logp,
+                       energy=tree.prop_energy, depth=tree.depth,
+                       n_leaves=tree.n_proposals, diverging=tree.diverging,
+                       turning=tree.turning, max_energy_change=tree.max_energy_change)
+            mta, model_logp = tree.mean_tree_accept, tree.prop_logp
+        else:
+            metric_var = trajectory_metric(pot, pooled_metric)
+            if metric_var is None:
+                raise ValueError(
+                    "the trajectory kernel takes a diagonal metric, a static dense one or "
+                    "a cross-chain pooled adaptive dense one; other metrics run on the "
+                    "tensor-op tree (trajectory_spec=None)")
+            metric, var = metric_var
+            out = trajectory(state.q, p0, state.q_grad, state.logp, step_size,
+                             max_depth_c, var, seed,
+                             spec=trajectory_spec, max_treedepth=config.max_treedepth,
+                             Emax=config.Emax, chain_block=chain_block,
+                             integrator=config.integrator, metric=metric)
+            log_size = out["log_size"]
+            mta = torch.where(
+                log_size > 0,
+                torch.exp(out["log_weighted_accept_sum"] - (log_size + log1mexp(log_size))),
+                torch.zeros_like(log_size))
+            model_logp = out["logp"]
 
-        log_size = out["log_size"]
-        mta = torch.where(
-            log_size > 0,
-            torch.exp(out["log_weighted_accept_sum"] - (log_size + log1mexp(log_size))),
-            torch.zeros_like(log_size))
         new_state = finish_step(state, out["q"], out["grad"], out["logp"], mta,
                                 tuning, config)
         not_stopped = ~out["diverging"] & ~out["turning"]
@@ -147,7 +550,7 @@ def build_nuts_kernel(config: NUTSConfig = NUTSConfig(),
             energy_error=out["energy"] - start_energy,
             energy=out["energy"],
             max_energy_error=out["max_energy_change"],
-            model_logp=out["logp"],
+            model_logp=model_logp,
             reached_max_treedepth=not_stopped & (not tuning),
         )
         return new_state, info
@@ -236,7 +639,8 @@ def fused_metric_kind(potential_template, pooled: bool) -> str:
     raise NotImplementedError(
         "the fused kernels of littlemcmc_torch run a diagonal metric, a static dense "
         "metric or a cross-chain pooled adaptive dense metric; per-chain dense "
-        "adaptation is ROADMAP Queue 1 item 6 and the low-rank branch Queue 1 item 12")
+        "adaptation and QuadPotentialFullInv run on the per-draw engine (the tensor-op "
+        "tree for NUTS), and the low-rank branch is ROADMAP Queue 1 item 12")
 
 
 def fused_metric_inputs(kind: str, pot, tuning: bool):
@@ -309,7 +713,7 @@ def build_fused_nuts_runner_factory(config: NUTSConfig, trajectory_spec: Traject
     """
     kind = fused_metric_kind(potential_template, pooled)
     if trajectory_spec is None:
-        raise NotImplementedError(_NO_TREE)
+        raise NotImplementedError(_NO_SPEC)
     mult = (potential_template.window_multiplier
             if kind in ("diag_adapt", "dense_pooled") else 1.0)
     w0, w1 = seed_words

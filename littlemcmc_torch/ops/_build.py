@@ -96,7 +96,7 @@ _SIGNATURES = {
     "nuts_trajectory": {
         "nuts_trajectory_launch": (
             _I, [_P, _P, _P, _P, _P, _P, _P,  # q p g var logp eps mdc
-                 _U, _U, _I, _I, _P,          # seed0 seed1 body metric consts
+                 _U, _U, _I, _I, _P, _I,      # seed0 seed1 body metric consts rows
                  _I, _I, _I, _F, _I, _I, _P,  # C n D Emax cb n_stages coef
                  _P,                          # stack
                  _P, _P, _P, _P, _P, _P, _P,  # q g energy logp ls lwas mec
@@ -115,6 +115,14 @@ _SIGNATURES = {
     },
     "fused_hmc": {
         "fused_hmc_launch": (_I, [_P, _P, _P, _P]),
+        "cuda_error_string": (ctypes.c_char_p, [_I]),
+    },
+    "logistic_logp_grad": {
+        "logistic_logp_grad_launch": (_I, [_P, _P, _P, _P]),
+        "cuda_error_string": (ctypes.c_char_p, [_I]),
+    },
+    "quadform_logp_grad": {
+        "quadform_logp_grad_launch": (_I, [_P, _P, _P, _P]),
         "cuda_error_string": (ctypes.c_char_p, [_I]),
     },
 }

@@ -70,7 +70,7 @@ enum {
 // int arguments, in the order of ops/fused_hmc.py::_INTS
 enum {
     iC, iN, iT, iCb, iStages, iBody, iMetric, iTuning, iAdapting, iAdaptMetric, iAdaptDense,
-    iMaxSteps, iSeed0, iSeed1, iNpad, kNumInts
+    iMaxSteps, iSeed0, iSeed1, iNpad, iRows, kNumInts
 };
 // float arguments, in the order of ops/fused_hmc.py::_FLOATS
 enum {
@@ -115,8 +115,8 @@ __global__ void __launch_bounds__(32 * kMaxChainBlock) fused_hmc_kernel(Args A) 
     const int chain = blk * cb + w;
 
     // shared layout: the warp vectors [n_fused_vecs][cb][n]; the pooled
-    // Welford means and scratch [5][n] (kDense); then P and COV where they
-    // fit
+    // Welford means and scratch [5][n] (kDense); then the body's constants
+    // (P, or the logistic Xb and y) and COV where they fit
     float* qs = warp_vec(smem, 0, cb, w, n);
     float* gs = warp_vec(smem, 1, cb, w, n);
     float* q = warp_vec(smem, 2, cb, w, n);
@@ -130,11 +130,8 @@ __global__ void __launch_bounds__(32 * kMaxChainBlock) fused_hmc_kernel(Args A) 
     float* after = wel_sh + (METRIC == kDense ? 5 * n : 0);
 
     HmcConsts K = A.K;
-    if (BODY == 1 && A.lam_in_smem) {
-        for (int k = tid; k < n * n; k += nthreads) after[k] = K.lam[k];
-        K.lam = after;
-        after += (size_t)n * n;
-    }
+    K.lam = stage_body<BODY>(K.lam, n, K.rows, A.lam_in_smem ? after : nullptr);
+    if (A.lam_in_smem) after += body_floats(BODY, n, K.rows);
     if (METRIC == kDense && A.cov_in_smem) {
         for (int k = tid; k < n * n; k += nthreads) after[k] = K.cov[k];
         K.cov = after;
@@ -282,8 +279,9 @@ cudaError_t launch(const Args& A0, cudaStream_t stream) {
     size_t bytes = ((size_t)n_fused_vecs<METRIC>() * A.cb * n
                     + (METRIC == kDense ? (size_t)5 * n : 0)) * sizeof(float);
     const size_t sq_bytes = (size_t)n * n * sizeof(float);
-    A.lam_in_smem = (BODY == 1 && bytes + sq_bytes <= kSmemLimit) ? 1 : 0;
-    if (A.lam_in_smem) bytes += sq_bytes;
+    const size_t body_bytes = body_floats(BODY, n, A.K.rows) * sizeof(float);
+    A.lam_in_smem = (body_bytes > 0 && bytes + body_bytes <= kSmemLimit) ? 1 : 0;
+    if (A.lam_in_smem) bytes += body_bytes;
     A.cov_in_smem = (METRIC == kDense && bytes + sq_bytes <= kSmemLimit) ? 1 : 0;
     if (A.cov_in_smem) bytes += sq_bytes;
     if (bytes > kSmemLimit) return cudaErrorInvalidConfiguration;
@@ -323,7 +321,7 @@ int fused_hmc_launch(void* const* ptrs, const int* ints, const float* floats, vo
     A.seed0 = (uint32_t)ints[iSeed0]; A.seed1 = (uint32_t)ints[iSeed1];
     A.K.lam = static_cast<const float*>(ptrs[kConsts]);
     A.K.cov = static_cast<const float*>(ptrs[kCov]);
-    A.K.n = ints[iN]; A.K.n_stages = ints[iStages]; A.K.Emax = floats[fEmax];
+    A.K.n = ints[iN]; A.K.rows = ints[iRows]; A.K.n_stages = ints[iStages]; A.K.Emax = floats[fEmax];
     for (int k = 0; k < 4; ++k) A.K.b[k] = floats[fB0 + k];
     for (int k = 0; k < 3; ++k) A.K.a[k] = floats[fA0 + k];
     A.target = floats[fTarget]; A.gamma = floats[fGamma]; A.k = floats[fK];
@@ -333,7 +331,7 @@ int fused_hmc_launch(void* const* ptrs, const int* ints, const float* floats, vo
     const int body = ints[iBody], metric = ints[iMetric];
     if (A.cb < 1 || A.cb > kMaxChainBlock || A.C % A.cb != 0 || A.K.n < 1
         || A.K.n > 32 * kMaxCols || A.T < 1 || A.K.n_stages < 1 || A.K.n_stages > 3
-        || A.max_steps < 1 || (body == 2 && A.K.n != 10))
+        || A.max_steps < 1 || (body == 2 && A.K.n != 10) || (body == 3 && A.K.rows < 1))
         return (int)cudaErrorInvalidValue;
     if (A.adapt_dense && (!A.tuning || metric != kDense)) return (int)cudaErrorInvalidValue;
     if (A.adapt_metric && metric != kDiag) return (int)cudaErrorInvalidValue;
@@ -342,6 +340,7 @@ int fused_hmc_launch(void* const* ptrs, const int* ints, const float* floats, vo
         case 0: return (int)launch_metric<0>(A, metric, s);
         case 1: return (int)launch_metric<1>(A, metric, s);
         case 2: return (int)launch_metric<2>(A, metric, s);
+        case 3: return (int)launch_metric<3>(A, metric, s);
         default: return (int)cudaErrorInvalidValue;
     }
 }

@@ -78,7 +78,7 @@ enum {
 // int arguments, in the order of ops/fused_nuts.py::_INTS
 enum {
     iC, iN, iD, iT, iCb, iStages, iBody, iMetric, iTuning, iAdapting, iAdaptMetric,
-    iAdaptDense, iEarlyWindow, iEarlyMax, iMaxDepth, iSeed0, iSeed1, iNpad, kNumInts
+    iAdaptDense, iEarlyWindow, iEarlyMax, iMaxDepth, iSeed0, iSeed1, iNpad, iRows, kNumInts
 };
 // float arguments, in the order of ops/fused_nuts.py::_FLOATS
 enum {
@@ -96,7 +96,7 @@ enum { oEnergy, oLogp, oEnergyErr, oAccept, oStep, oStepBar, oMaxErr, kNumStatF 
 struct Args {
     const float* ptr_f[kNumPtrs];
     int C, n, D, T, cb, n_stages, tuning, adapting, adapt_metric, adapt_dense;
-    int early_window, early_max, max_depth, Npad;
+    int early_window, early_max, max_depth, Npad, rows;
     uint32_t seed0, seed1;
     float Emax, b[4], a[3], target, gamma, k, t0, mult;
     int lam_in_smem, cov_in_smem;
@@ -131,7 +131,8 @@ __global__ void __launch_bounds__(32 * kMaxChainBlock) fused_nuts_kernel(Args A)
 
     // shared layout: the warp vectors [n_fused_vecs][cb][n], the slot
     // scalars [4][D][cb], the pooled Welford fg and bg means, the batch
-    // mean and the two mean shifts [5][n] (kDense), then P and COV
+    // mean and the two mean shifts [5][n] (kDense), then the body's constants
+    // (P, or the logistic Xb and y) and COV where they fit
     const WarpVecs V = warp_vecs<METRIC>(smem, cb, w, n);
     float* qs = warp_vec(smem, NV, cb, w, n);
     float* gs = warp_vec(smem, NV + 1, cb, w, n);
@@ -144,16 +145,14 @@ __global__ void __launch_bounds__(32 * kMaxChainBlock) fused_nuts_kernel(Args A)
     float* after = wel_sh + (METRIC == kDense ? 5 * n : 0);
 
     TreeConsts T;
-    T.lam = A.ptr_f[kConsts]; T.cov = A.ptr_f[kCov];
+    T.lam = stage_body<BODY>(A.ptr_f[kConsts], n, A.rows, A.lam_in_smem ? after : nullptr);
+    T.cov = A.ptr_f[kCov];
     T.stack = const_cast<float*>(A.ptr_f[kStack]);
-    T.C = C; T.n = n; T.D = D; T.cb = cb; T.n_stages = A.n_stages; T.Emax = A.Emax;
+    T.C = C; T.n = n; T.D = D; T.cb = cb; T.n_stages = A.n_stages; T.rows = A.rows;
+    T.Emax = A.Emax;
     for (int k = 0; k < 4; ++k) T.b[k] = A.b[k];
     for (int k = 0; k < 3; ++k) T.a[k] = A.a[k];
-    if (BODY == 1 && A.lam_in_smem) {
-        for (int k = tid; k < n * n; k += nthreads) after[k] = A.ptr_f[kConsts][k];
-        T.lam = after;
-        after += (size_t)n * n;
-    }
+    if (A.lam_in_smem) after += body_floats(BODY, n, A.rows);
     if (METRIC == kDense && A.cov_in_smem) {
         for (int k = tid; k < n * n; k += nthreads) after[k] = A.ptr_f[kCov][k];
         T.cov = after;
@@ -225,7 +224,7 @@ __global__ void __launch_bounds__(32 * kMaxChainBlock) fused_nuts_kernel(Args A)
         const TreeResult r = transition<BODY, METRIC>(T, V, slot_sc, chain, w, lane, qs, p0,
                                                       gs, lp, E0, eps, mdc, salt);
         // 6. the proposal's gradient
-        model_eval<BODY>(V.prq, V.cg, T.lam, n, lane);
+        model_eval<BODY>(V.prq, V.cg, T.lam, n, A.rows, lane);
         // 7. mean tree accept and dual averaging (step_sizes.py:85-92)
         const float ls = r.log_size;
         const float mta = ls > 0.f ? expf(r.lwas - (ls + log1mexp_fused(ls))) : 0.f;
@@ -308,8 +307,9 @@ cudaError_t launch(const Args& A0, cudaStream_t stream) {
     size_t bytes = ((size_t)n_fused_vecs<METRIC>() * A.cb * A.n + (size_t)4 * A.D * A.cb
                     + (METRIC == kDense ? (size_t)5 * A.n : 0)) * sizeof(float);
     const size_t sq_bytes = (size_t)A.n * A.n * sizeof(float);
-    A.lam_in_smem = (BODY == 1 && bytes + sq_bytes <= kSmemLimit) ? 1 : 0;
-    if (A.lam_in_smem) bytes += sq_bytes;
+    const size_t body_bytes = body_floats(BODY, A.n, A.rows) * sizeof(float);
+    A.lam_in_smem = (body_bytes > 0 && bytes + body_bytes <= kSmemLimit) ? 1 : 0;
+    if (A.lam_in_smem) bytes += body_bytes;
     A.cov_in_smem = (METRIC == kDense && bytes + sq_bytes <= kSmemLimit) ? 1 : 0;
     if (A.cov_in_smem) bytes += sq_bytes;
     if (bytes > kSmemLimit) return cudaErrorInvalidConfiguration;
@@ -350,7 +350,7 @@ int fused_nuts_launch(void* const* ptrs, const int* ints, const float* floats, v
     A.early_window = ints[iEarlyWindow]; A.early_max = ints[iEarlyMax];
     A.max_depth = ints[iMaxDepth];
     A.seed0 = (uint32_t)ints[iSeed0]; A.seed1 = (uint32_t)ints[iSeed1];
-    A.Npad = ints[iNpad];
+    A.Npad = ints[iNpad]; A.rows = ints[iRows];
     A.Emax = floats[fEmax];
     for (int k = 0; k < 4; ++k) A.b[k] = floats[fB0 + k];
     for (int k = 0; k < 3; ++k) A.a[k] = floats[fA0 + k];
@@ -360,7 +360,7 @@ int fused_nuts_launch(void* const* ptrs, const int* ints, const float* floats, v
     A.cov_in_smem = 0;
     if (A.cb < 1 || A.cb > kMaxChainBlock || A.C % A.cb != 0 || A.n < 1 || A.n > 32 * kMaxCols
         || A.D < 1 || A.T < 1 || A.n_stages < 1 || A.n_stages > 3 || A.max_depth > A.D
-        || A.early_max > A.D || (body == 2 && A.n != 10))
+        || A.early_max > A.D || (body == 2 && A.n != 10) || (body == 3 && A.rows < 1))
         return (int)cudaErrorInvalidValue;
     if (A.adapt_dense && (!A.tuning || metric != kDense)) return (int)cudaErrorInvalidValue;
     if (A.adapt_metric && metric != kDiag) return (int)cudaErrorInvalidValue;
@@ -369,6 +369,7 @@ int fused_nuts_launch(void* const* ptrs, const int* ints, const float* floats, v
         case 0: return (int)launch_metric<0>(A, metric, s);
         case 1: return (int)launch_metric<1>(A, metric, s);
         case 2: return (int)launch_metric<2>(A, metric, s);
+        case 3: return (int)launch_metric<3>(A, metric, s);
         default: return (int)cudaErrorInvalidValue;
     }
 }

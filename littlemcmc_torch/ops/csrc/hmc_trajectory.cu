@@ -38,7 +38,7 @@ enum {
     kQ, kP, kG, kVar, kLogp, kEps, kNSteps, kConsts, kQOut, kGOut,
     kLogpOut, kLogpEnd, kEnergy, kEnergyChange, kAccept, kAccepted, kDiverging, kNumPtrs
 };
-enum { iC, iN, iCb, iStages, iBody, iSeed0, iSeed1, kNumInts };
+enum { iC, iN, iCb, iStages, iBody, iSeed0, iSeed1, iRows, kNumInts };
 enum { fEmax, fB0, fA0 = fB0 + 4, kNumFloats = fA0 + 3 };
 
 constexpr int kWarps = 8;  // chains per thread block
@@ -64,17 +64,14 @@ __global__ void __launch_bounds__(32 * kWarps) hmc_trajectory_kernel(Args A) {
     const int chain = blockIdx.x * kWarps + w;
 
     // shared layout: the chain's q, p, g and inverse mass [4][kWarps][n],
-    // then P where it fits
+    // then the body's constants where they fit
     float* q = warp_vec(smem, 0, kWarps, w, n);
     float* p = warp_vec(smem, 1, kWarps, w, n);
     float* g = warp_vec(smem, 2, kWarps, w, n);
     float* vv = warp_vec(smem, 3, kWarps, w, n);
     HmcConsts K = A.K;
-    if (BODY == 1 && A.lam_in_smem) {
-        float* lam = smem + (size_t)4 * kWarps * n;
-        for (int k = threadIdx.x; k < n * n; k += blockDim.x) lam[k] = K.lam[k];
-        K.lam = lam;
-    }
+    K.lam = stage_body<BODY>(K.lam, n, K.rows,
+                             A.lam_in_smem ? smem + (size_t)4 * kWarps * n : nullptr);
     const bool live = chain < A.C;
     const size_t row = (size_t)chain * n;
     if (live) {
@@ -85,7 +82,7 @@ __global__ void __launch_bounds__(32 * kWarps) hmc_trajectory_kernel(Args A) {
             vv[i] = arg<const float>(A, kVar)[row + i];
         }
     }
-    __syncthreads();  // P is in shared memory
+    __syncthreads();  // the body's constants are in shared memory
     if (!live) return;
 
     const float lp0 = arg<const float>(A, kLogp)[chain];
@@ -125,9 +122,9 @@ template <int BODY>
 cudaError_t launch(const Args& A0, cudaStream_t stream) {
     Args A = A0;
     size_t bytes = (size_t)4 * kWarps * A.n * sizeof(float);
-    const size_t sq_bytes = (size_t)A.n * A.n * sizeof(float);
-    A.lam_in_smem = (BODY == 1 && bytes + sq_bytes <= kSmemLimit) ? 1 : 0;
-    if (A.lam_in_smem) bytes += sq_bytes;
+    const size_t body_bytes = body_floats(BODY, A.n, A.K.rows) * sizeof(float);
+    A.lam_in_smem = (body_bytes > 0 && bytes + body_bytes <= kSmemLimit) ? 1 : 0;
+    if (A.lam_in_smem) bytes += body_bytes;
     if (bytes > kSmemLimit) return cudaErrorInvalidConfiguration;
     cudaError_t err = cudaFuncSetAttribute(hmc_trajectory_kernel<BODY>,
                                            cudaFuncAttributeMaxDynamicSharedMemorySize,
@@ -151,6 +148,7 @@ int hmc_trajectory_launch(void* const* ptrs, const int* ints, const float* float
     A.C = ints[iC]; A.n = ints[iN]; A.cb = ints[iCb];
     A.seed0 = (uint32_t)ints[iSeed0]; A.seed1 = (uint32_t)ints[iSeed1];
     A.K.lam = static_cast<const float*>(ptrs[kConsts]);
+    A.K.rows = ints[iRows];
     A.K.cov = nullptr;
     A.K.n = A.n; A.K.n_stages = ints[iStages]; A.K.Emax = floats[fEmax];
     for (int k = 0; k < 4; ++k) A.K.b[k] = floats[fB0 + k];
@@ -158,13 +156,15 @@ int hmc_trajectory_launch(void* const* ptrs, const int* ints, const float* float
     A.lam_in_smem = 0;
     const int body = ints[iBody];
     if (A.C < 1 || A.n < 1 || A.cb < 1 || A.K.n_stages < 1 || A.K.n_stages > 3
-        || (body == 1 && A.n > 32 * kMaxCols) || (body == 2 && A.n != 10))
+        || ((body == 1 || body == 3) && A.n > 32 * kMaxCols) || (body == 2 && A.n != 10)
+        || (body == 3 && A.K.rows < 1))
         return (int)cudaErrorInvalidValue;
     cudaStream_t s = static_cast<cudaStream_t>(stream);
     switch (body) {
         case 0: return (int)launch<0>(A, s);
         case 1: return (int)launch<1>(A, s);
         case 2: return (int)launch<2>(A, s);
+        case 3: return (int)launch<3>(A, s);
         default: return (int)cudaErrorInvalidValue;
     }
 }

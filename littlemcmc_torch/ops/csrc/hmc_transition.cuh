@@ -24,12 +24,16 @@ namespace lmc {
 
 // What a trajectory reads that is the same for every chain of a launch.
 struct HmcConsts {
-    const float* lam;  // model constants (correlated Gaussian: P; eight schools: y, 1/sigma^2)
+    const float* lam;  // the model body's constants (body_floats), shared or global
     const float* cov;  // kDense: the shared covariance, shared or global
     int n, n_stages;
     float Emax;
     float b[4];
     float a[3];
+    // body 3's data rows: last, and passed to model_eval for body 3 only;
+    // otherwise ptxas gives hmc_trajectory<1> 40 registers and a spill,
+    // and the kernel runs at half the speed
+    int rows;
 };
 
 struct HmcResult {
@@ -74,7 +78,7 @@ __device__ HmcResult hmc_trajectory(const HmcConsts& K, float* q, float* p, floa
                 for (int i = lane; i < n; i += 32) q[i] = q[i] + drift * (vv[i] * p[i]);
             }
             __syncwarp();
-            lp = model_eval<BODY>(q, g, K.lam, n, lane);
+            lp = model_eval<BODY>(q, g, K.lam, n, BODY == 3 ? K.rows : 0, lane);
             const float kick = K.b[s + 1] * eps;
             for (int i = lane; i < n; i += 32) p[i] = p[i] + kick * g[i];
         }

@@ -28,7 +28,12 @@
 // shared memory, broadcast q[i] across the warp and keep up to 8 output
 // columns per lane in registers. The merge stack lives in a global scratch
 // tensor (4 x D x C x n floats, 16 MB at the main path's shapes) that
-// stays in the 50 MB L2. Chains that stopped building skip the leapfrog
+// stays in the 50 MB L2. The logistic body (3) stages its design matrix
+// Xb (1000 x 25 floats, 100 KB, at an odd row stride) and y in shared
+// memory beside the vectors when they fit, else reads them through L2;
+// its leaf costs 2 N n FMAs and 2 N exponentials a chain (lanes own data
+// rows for the logits, then gradient columns; nuts_transition.cuh::
+// logistic_rows). Chains that stopped building skip the leapfrog
 // and the merges. Each block waits for its own deepest tree only: small
 // blocks shrink the lockstep tail. The dense metric recomputes each
 // velocity where the U-turn checks need it, as the JAX kernel does; caching
@@ -54,7 +59,7 @@ struct Params {
     const float* logp;
     const float* eps;
     const int* mdc;
-    const float* consts;  // body constants (correlated Gaussian: P, n x n; eight schools: 2 x 10)
+    const float* consts;  // the body's packed constants (body_floats, nuts_transition.cuh)
     float* stack;         // [4][D][C][n]: left p, right p, p sum, proposal q
     float* q_out;
     float* g_out;
@@ -68,7 +73,7 @@ struct Params {
     bool* diverging;
     bool* turning;
     uint32_t seed0, seed1;
-    int C, n, D, cb, n_stages;
+    int C, n, D, cb, n_stages, rows;
     float Emax;
     float b[4];
     float a[3];
@@ -83,20 +88,19 @@ __global__ void __launch_bounds__(32 * kMaxChainBlock) nuts_trajectory_kernel(Pa
     const int chain = blockIdx.x * cb + w;
 
     // shared layout: the transition's vectors [NV][cb][n], the stack slots'
-    // scalars [4][D][cb], then P and COV where they fit
+    // scalars [4][D][cb], then the body's constants (body_floats) and
+    // COV where they fit
     const WarpVecs V = warp_vecs<METRIC>(smem, cb, w, n);
     float* slot_sc = smem + (size_t)n_warp_vecs<METRIC>() * cb * n;
     float* after = slot_sc + (size_t)4 * D * cb;
     TreeConsts T;
-    T.lam = P.consts; T.cov = P.var; T.stack = P.stack;
-    T.C = P.C; T.n = n; T.D = D; T.cb = cb; T.n_stages = P.n_stages; T.Emax = P.Emax;
+    T.lam = stage_body<BODY>(P.consts, n, P.rows, P.lam_in_smem ? after : nullptr);
+    T.cov = P.var; T.stack = P.stack;
+    T.C = P.C; T.n = n; T.D = D; T.cb = cb; T.n_stages = P.n_stages; T.rows = P.rows;
+    T.Emax = P.Emax;
     for (int k = 0; k < 4; ++k) T.b[k] = P.b[k];
     for (int k = 0; k < 3; ++k) T.a[k] = P.a[k];
-    if (BODY == 1 && P.lam_in_smem) {
-        for (int k = threadIdx.x; k < n * n; k += blockDim.x) after[k] = P.consts[k];
-        T.lam = after;
-        after += (size_t)n * n;
-    }
+    if (P.lam_in_smem) after += body_floats(BODY, n, P.rows);
     if (METRIC == kDense && P.cov_in_smem) {
         for (int k = threadIdx.x; k < n * n; k += blockDim.x) after[k] = P.var[k];
         T.cov = after;
@@ -109,7 +113,7 @@ __global__ void __launch_bounds__(32 * kMaxChainBlock) nuts_trajectory_kernel(Pa
         const float* vin = P.var + (size_t)chain * n;
         for (int i = lane; i < n; i += 32) V.vv[i] = vin[i];
     }
-    __syncthreads();  // P and COV are in shared memory
+    __syncthreads();  // the body's constants and COV are in shared memory
 
     float part = 0.f;
     if (METRIC == kDense) {
@@ -131,7 +135,7 @@ __global__ void __launch_bounds__(32 * kMaxChainBlock) nuts_trajectory_kernel(Pa
                                                   lp0, E0, P.eps[chain], P.mdc[chain], salt);
 
     // the proposal's gradient is recomputed, not carried (:810-813)
-    model_eval<BODY>(V.prq, V.cg, T.lam, n, lane);
+    model_eval<BODY>(V.prq, V.cg, T.lam, n, P.rows, lane);
     float* qo = P.q_out + (size_t)chain * n;
     float* go = P.g_out + (size_t)chain * n;
     for (int i = lane; i < n; i += 32) { qo[i] = V.prq[i]; go[i] = V.cg[i]; }
@@ -156,9 +160,10 @@ cudaError_t launch(const Params& P, cudaStream_t stream) {
     size_t bytes = (size_t)n_warp_vecs<METRIC>() * P.cb * P.n * sizeof(float)
                    + (size_t)4 * P.D * P.cb * sizeof(float);
     const size_t sq_bytes = (size_t)P.n * P.n * sizeof(float);
+    const size_t body_bytes = body_floats(BODY, P.n, P.rows) * sizeof(float);
     Params Q = P;
-    Q.lam_in_smem = (BODY == 1 && bytes + sq_bytes <= kSmemLimit) ? 1 : 0;
-    if (Q.lam_in_smem) bytes += sq_bytes;
+    Q.lam_in_smem = (body_bytes > 0 && bytes + body_bytes <= kSmemLimit) ? 1 : 0;
+    if (Q.lam_in_smem) bytes += body_bytes;
     Q.cov_in_smem = (METRIC == kDense && bytes + sq_bytes <= kSmemLimit) ? 1 : 0;
     if (Q.cov_in_smem) bytes += sq_bytes;
     if (bytes > kSmemLimit) return cudaErrorInvalidConfiguration;
@@ -184,19 +189,21 @@ cudaError_t launch_metric(const Params& P, int metric, cudaStream_t stream) {
 extern "C" {
 
 // Returns cudaGetLastError() after the launch (0 on success). metric: 0
-// diag (var is (C, n)), 1 dense (var is the shared (n, n) covariance).
+// diag (var is (C, n)), 1 dense (var is the shared (n, n) covariance);
+// consts: the body's packed constants, rows its data rows (body 3).
 int nuts_trajectory_launch(
     const float* q, const float* p, const float* g, const float* var,
     const float* logp, const float* eps, const int* mdc,
     unsigned int seed0, unsigned int seed1, int body, int metric, const float* consts,
-    int C, int n, int D, float Emax, int cb, int n_stages, const float* coef,
+    int rows, int C, int n, int D, float Emax, int cb, int n_stages, const float* coef,
     float* stack, float* q_out, float* g_out, float* energy, float* logp_out,
     float* log_size, float* lwas, float* mec, int* depth, int* n_leaves,
     bool* diverging, bool* turning, void* stream) {
     if (cb < 1 || cb > kMaxChainBlock || C % cb != 0 || n < 1 || D < 1 || n_stages < 1 || n_stages > 3)
         return (int)cudaErrorInvalidValue;
-    if ((body == 1 || metric == kDense) && n > 32 * kMaxCols) return (int)cudaErrorInvalidValue;
-    if (body == 2 && n != 10) return (int)cudaErrorInvalidValue;
+    if ((body == 1 || body == 3 || metric == kDense) && n > 32 * kMaxCols)
+        return (int)cudaErrorInvalidValue;
+    if ((body == 2 && n != 10) || (body == 3 && rows < 1)) return (int)cudaErrorInvalidValue;
     Params P;
     P.q = q; P.p = p; P.g = g; P.var = var; P.logp = logp; P.eps = eps; P.mdc = mdc;
     P.consts = consts; P.stack = stack;
@@ -204,7 +211,7 @@ int nuts_trajectory_launch(
     P.log_size = log_size; P.lwas = lwas; P.mec = mec; P.depth = depth;
     P.n_leaves = n_leaves; P.diverging = diverging; P.turning = turning;
     P.seed0 = seed0; P.seed1 = seed1;
-    P.C = C; P.n = n; P.D = D; P.cb = cb; P.n_stages = n_stages; P.Emax = Emax;
+    P.C = C; P.n = n; P.D = D; P.cb = cb; P.n_stages = n_stages; P.rows = rows; P.Emax = Emax;
     for (int k = 0; k < 4; ++k) P.b[k] = coef[k];
     for (int k = 0; k < 3; ++k) P.a[k] = coef[4 + k];
     P.lam_in_smem = 0;
@@ -214,6 +221,7 @@ int nuts_trajectory_launch(
         case 0: return (int)launch_metric<0>(P, metric, s);
         case 1: return (int)launch_metric<1>(P, metric, s);
         case 2: return (int)launch_metric<2>(P, metric, s);
+        case 3: return (int)launch_metric<3>(P, metric, s);
         default: return (int)cudaErrorInvalidValue;
     }
 }

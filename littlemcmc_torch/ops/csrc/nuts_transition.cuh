@@ -93,13 +93,80 @@ __device__ __forceinline__ void matvec(const float* x, const float* M, float* ou
     }
 }
 
-// The model body at q (shared memory, one chain): writes grad into g
-// (shared memory) and returns logp. Lanes own columns lane, lane+32, ...
-// Body ids match ops/nuts_trajectory.py::BODY_IDS; any other id does not
-// compile, and every launch switch refuses it at run time.
+// A model body's constants, as the wrappers pass them in one packed buffer
+// (TrajectorySpec.kernel_consts): body 1 the (n, n) precision P; body 2
+// [y; 1/sigma^2], (2, 10); body 3, the logistic regression over `rows`
+// data rows, the design Xb at the odd row stride n | 1 (lanes reading one
+// row each hit 32 different banks of shared memory), then y (rows), then
+// the prior precision. body_floats counts the floats of P and of body 3's
+// constants, which stage_body copies into shared memory where the launch
+// found room (eight schools' 20 floats stay in global memory, in L1).
+__host__ __device__ inline size_t body_floats(int body, int n, int rows) {
+    if (body == 1) return (size_t)n * n;
+    if (body == 3) return (size_t)rows * (n | 1) + rows + 1;
+    return 0;
+}
+
+// The body's constants for model_eval: `consts`, or with `stage` non-null
+// their copy there, made by every thread of the block (bodies 1 and 3;
+// the caller syncs the block before the first model_eval).
 template <int BODY>
-__device__ float model_eval(const float* q, float* g, const float* lam, int n, int lane) {
-    static_assert(BODY >= 0 && BODY <= 2, "unknown model body");
+__device__ const float* stage_body(const float* consts, int n, int rows, float* stage) {
+    const int count = (int)body_floats(BODY, n, rows);
+    if (stage == nullptr || count == 0) return consts;
+    for (int k = threadIdx.x; k < count; k += blockDim.x) stage[k] = consts[k];
+    return stage;
+}
+
+// Logistic regression over `rows` data rows for one chain at q (shared
+// memory, read as a broadcast): X (rows, ldx) and y are relative to the
+// rows' first. Lanes own the rows lane, lane + 32, ...: each takes its
+// row's logit with fp32 FMAs, the stable softplus of jax.nn.softplus
+// (max(x, 0) + log1p(exp(-|x|))) and the sigmoid, and adds its row's
+// y * logit - softplus to the lane's part of the log likelihood, which it
+// returns. Then each 32-row group's residuals y - sigma are broadcast by
+// shuffle and the lanes own the gradient columns lane, lane + 32, ...
+// (acc, added to). No per-row reduction across the warp.
+__device__ __forceinline__ float logistic_rows(const float* q, const float* X, int ldx,
+                                               const float* y, int rows, int n, int lane,
+                                               float (&acc)[kMaxCols]) {
+    float ll = 0.f;
+    for (int base = 0; base < rows; base += 32) {
+        const int r = base + lane;
+        float resid = 0.f;
+        if (r < rows) {
+            const float* x = X + (size_t)r * ldx;
+            float logit = 0.f;
+            for (int k = 0; k < n; ++k) logit = fmaf(q[k], x[k], logit);
+            const float yr = y[r];
+            const float softplus = fmaxf(logit, 0.f) + log1pf(expf(-fabsf(logit)));
+            ll += yr * logit - softplus;
+            resid = yr - 1.f / (1.f + expf(-logit));
+        }
+        const int m = min(32, rows - base);
+        for (int t = 0; t < m; ++t) {
+            const float rt = __shfl_sync(0xffffffffu, resid, t);
+            const float* xt = X + (size_t)(base + t) * ldx;
+#pragma unroll
+            for (int k = 0; k < kMaxCols; ++k) {
+                const int j = lane + 32 * k;
+                if (j < n) acc[k] = fmaf(rt, xt[j], acc[k]);
+            }
+        }
+    }
+    return ll;
+}
+
+// The model body at q (shared memory, one chain): writes grad into g
+// (shared memory) and returns logp. lam: the body's constants (body_floats);
+// rows: body 3's data rows. Lanes own columns lane, lane+32, ... (body 3:
+// rows first, see logistic_rows). Body ids match
+// ops/nuts_trajectory.py::BODY_IDS; any other id does not compile, and
+// every launch switch refuses it at run time.
+template <int BODY>
+__device__ float model_eval(const float* q, float* g, const float* lam, int n, int rows,
+                           int lane) {
+    static_assert(BODY >= 0 && BODY <= 3, "unknown model body");
     float part = 0.f;
     if constexpr (BODY == 0) {  // standard normal: logp = -q.q/2, grad = -q
         for (int i = lane; i < n; i += 32) {
@@ -134,7 +201,7 @@ __device__ float model_eval(const float* q, float* g, const float* lam, int n, i
         }
         __syncwarp();
         return 0.5f * warp_sum(part);
-    } else {
+    } else if constexpr (BODY == 2) {
         // non-centred eight schools, n = 10 (models/eight_schools.py:80-101):
         // q = [mu, log_tau, theta_tilde_1..8]; lam = [y; 1/sigma^2], (2, 10),
         // zero in columns 0 and 1. Lane j < 10 owns column j; four warp sums
@@ -164,15 +231,43 @@ __device__ float model_eval(const float* q, float* g, const float* lam, int n, i
                     : lane == 1 ? -log_tau / 25.0f + tau * s_rtt : dtt;
         __syncwarp();
         return -0.5f * (m5 * m5) - 0.5f * (l5 * l5) - 0.5f * s_tt2 - 0.5f * s_dr;
+    } else {
+        // logistic regression (models/logistic.py:90-136): logp = sum over
+        // rows of y * logit - softplus(logit) - prior_prec * q.q / 2,
+        // grad = (y - sigma(logit)) Xb - prior_prec * q
+        __syncwarp();  // q is written
+        const int ldx = n | 1;
+        const float prior_prec = lam[(size_t)rows * ldx + rows];
+        float acc[kMaxCols];
+#pragma unroll
+        for (int k = 0; k < kMaxCols; ++k) acc[k] = 0.f;
+        const float ll = warp_sum(logistic_rows(q, lam, ldx, lam + (size_t)rows * ldx, rows, n,
+                                                lane, acc));
+#pragma unroll
+        for (int k = 0; k < kMaxCols; ++k) {
+            const int j = lane + 32 * k;
+            if (j < n) {
+                const float qj = q[j];
+                part += qj * qj;
+            }
+        }
+        const float qq = warp_sum(part);
+#pragma unroll
+        for (int k = 0; k < kMaxCols; ++k) {
+            const int j = lane + 32 * k;
+            if (j < n) g[j] = acc[k] - prior_prec * q[j];
+        }
+        __syncwarp();
+        return ll + -0.5f * prior_prec * qq;
     }
 }
 
 // What a transition reads that is the same for every chain of a launch.
 struct TreeConsts {
-    const float* lam;  // model constants (correlated Gaussian: P; eight schools: y, 1/sigma^2)
+    const float* lam;  // the model body's constants (body_floats), shared or global
     const float* cov;  // kDense: the shared covariance, shared or global
     float* stack;      // [4][D][C][n]: left p, right p, p sum, proposal q
-    int C, n, D, cb, n_stages;
+    int C, n, D, cb, n_stages, rows;
     float Emax;
     float b[4];
     float a[3];
@@ -301,7 +396,7 @@ __device__ TreeResult transition(const TreeConsts& T, const WarpVecs& V, float* 
                         for (int i = lane; i < n; i += 32) cq[i] = cq[i] + drift * (vv[i] * cp[i]);
                     }
                     __syncwarp();
-                    c_lp = model_eval<BODY>(cq, cg, T.lam, n, lane);
+                    c_lp = model_eval<BODY>(cq, cg, T.lam, n, T.rows, lane);
                     const float kick = T.b[s + 1] * epss;
                     for (int i = lane; i < n; i += 32) cp[i] = cp[i] + kick * cg[i];
                 }

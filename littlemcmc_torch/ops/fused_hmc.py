@@ -65,7 +65,7 @@ _STAT_F32 = STAT_KEYS[:7]
 _PTRS = ("q", "grad", "scal", "cov", "linv", "var", "consts", "q_out", "grad_out",
          "scal_out", "var_out", "trace", "stat_f", "stat_i", "stat_b") + _WELFORD_PTRS
 _INTS = ("C", "n", "T", "cb", "n_stages", "body", "metric", "tuning", "adapting",
-         "adapt_metric", "adapt_dense", "max_steps", "seed0", "seed1", "Npad")
+         "adapt_metric", "adapt_dense", "max_steps", "seed0", "seed1", "Npad", "rows")
 _FLOATS = ("Emax", "b0", "b1", "b2", "b3", "a0", "a1", "a2", "target_accept", "gamma",
            "k", "t0", "window_multiplier", "path_length")
 
@@ -163,7 +163,7 @@ def _launch_kernel(q, grad, scalars, var, linv, seed, *, spec, T, tuning, config
 
     buf = {
         "q": q.contiguous(), "grad": grad.contiguous(),
-        "consts": spec.consts[0] if spec.consts else None,
+        "consts": spec.kernel_consts,
         "q_out": empty(C, n), "grad_out": empty(C, n),
         "trace": empty(T, C, n) if collect_trace else None,
         "stat_f": empty(len(_STAT_F32), T, C), "stat_i": empty(T, C, dtype=torch.int32),
@@ -178,7 +178,7 @@ def _launch_kernel(q, grad, scalars, var, linv, seed, *, spec, T, tuning, config
                 adapting=int(bool(tuning) and config.adapt_step_size),
                 adapt_metric=int(welford is not None), adapt_dense=int(adapt_dense),
                 max_steps=int(config.max_steps), seed0=int32_bits(w0), seed1=int32_bits(w1),
-                Npad=padded_dim(n))
+                Npad=padded_dim(n), rows=spec.rows)
     floats = dict(Emax=float(config.Emax), target_accept=float(config.target_accept),
                   gamma=float(config.gamma), k=float(config.k), t0=float(config.t0),
                   window_multiplier=float(window_multiplier),

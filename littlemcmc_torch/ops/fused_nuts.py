@@ -88,7 +88,7 @@ _PTRS = ("q", "grad", "scal", "cov", "linv", "var", "consts", "stack", "q_out", 
          "scal_out", "var_out", "trace", "stat_f", "stat_i", "stat_b") + _WELFORD_PTRS
 _INTS = ("C", "n", "D", "T", "cb", "n_stages", "body", "metric", "tuning", "adapting",
          "adapt_metric", "adapt_dense", "early_window", "early_max", "max_depth", "seed0",
-         "seed1", "Npad")
+         "seed1", "Npad", "rows")
 _FLOATS = ("Emax", "b0", "b1", "b2", "b3", "a0", "a1", "a2", "target_accept", "gamma",
            "k", "t0", "window_multiplier")
 
@@ -508,7 +508,7 @@ def _launch_kernel(q, grad, scalars, var, linv, seed, *, spec, T, tuning, config
 
     buf = {
         "q": q.contiguous(), "grad": grad.contiguous(),
-        "consts": spec.consts[0] if spec.consts else None,
+        "consts": spec.kernel_consts,
         "stack": empty(4, D, C, n), "q_out": empty(C, n), "grad_out": empty(C, n),
         "trace": empty(T, C, n) if collect_trace else None,
         "stat_f": empty(len(_STAT_F32), T, C), "stat_i": empty(2, T, C, dtype=torch.int32),
@@ -525,7 +525,8 @@ def _launch_kernel(q, grad, scalars, var, linv, seed, *, spec, T, tuning, config
                 early_window=int(config.early_window),
                 early_max=int(config.early_max_treedepth),
                 max_depth=int(config.max_treedepth),
-                seed0=int32_bits(w0), seed1=int32_bits(w1), Npad=padded_dim(n))
+                seed0=int32_bits(w0), seed1=int32_bits(w1), Npad=padded_dim(n),
+                rows=spec.rows)
     floats = dict(Emax=float(config.Emax), target_accept=float(config.target_accept),
                   gamma=float(config.gamma), k=float(config.k), t0=float(config.t0),
                   window_multiplier=float(window_multiplier))

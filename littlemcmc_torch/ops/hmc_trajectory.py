@@ -139,8 +139,8 @@ def _launch_kernel(q, p, grad, logp, eps, n_steps, var, seed, *, spec, Emax, cha
     from ._build import launch
 
     C, n = q.shape
-    if spec.body == "correlated_gaussian" and n > MAX_KERNEL_NDIM_DENSE:
-        raise ValueError(f"the correlated_gaussian body takes n <= "
+    if spec.body in ("correlated_gaussian", "logistic") and n > MAX_KERNEL_NDIM_DENSE:
+        raise ValueError(f"the {spec.body} body takes n <= "
                          f"{MAX_KERNEL_NDIM_DENSE}, got {n}")
     cb = resolve_chain_block(C, chain_block)
     seed0, seed1 = _seed_words(seed)
@@ -149,7 +149,7 @@ def _launch_kernel(q, p, grad, logp, eps, n_steps, var, seed, *, spec, Emax, cha
     buf = {"q": q.contiguous(), "p": p.contiguous(), "grad": grad.contiguous(),
            "var": var.contiguous(), "logp_in": logp.contiguous(), "eps": eps.contiguous(),
            "n_steps": n_steps.contiguous(),
-           "consts": spec.consts[0] if spec.consts else None,
+           "consts": spec.kernel_consts,
            "q_out": torch.empty_like(q), "grad_out": torch.empty_like(q)}
     for k in _OUT_F32:
         buf[k] = torch.empty(C, dtype=torch.float32, device=dev)
@@ -157,8 +157,9 @@ def _launch_kernel(q, p, grad, logp, eps, n_steps, var, seed, *, spec, Emax, cha
         buf[k] = torch.empty(C, dtype=torch.bool, device=dev)
     launch("hmc_trajectory",
            [buf[k].data_ptr() if buf[k] is not None else None for k in _PTRS],
-           # C n cb n_stages body seed0 seed1
-           [C, n, cb, len(a_coef), BODY_IDS[spec.body], int32_bits(seed0), int32_bits(seed1)],
+           # C n cb n_stages body seed0 seed1 rows
+           [C, n, cb, len(a_coef), BODY_IDS[spec.body], int32_bits(seed0), int32_bits(seed1),
+            spec.rows],
            # Emax b0 b1 b2 b3 a0 a1 a2
            [float(Emax)] + list(b_coef) + [0.0] * (4 - len(b_coef))
            + list(a_coef) + [0.0] * (3 - len(a_coef)), dev)

@@ -36,12 +36,14 @@ from __future__ import annotations
 
 import ctypes
 import dataclasses
-from typing import Callable, Dict, Tuple
+from typing import Callable, Dict, Optional, Tuple
 
 import torch
 
 from ..integration import INTEGRATOR_COEFFS
 from ..math import fp32_matmul
+from .logistic import logistic_logp_grad_plain, pack_logistic
+from .quadform import quadform_logp_grad_plain
 
 __all__ = ["TrajectorySpec", "fmix32", "counter_salt", "counter_uniform",
            "resolve_chain_block", "trajectory", "trajectory_plain",
@@ -52,11 +54,11 @@ __all__ = ["TrajectorySpec", "fmix32", "counter_salt", "counter_uniform",
 DEFAULT_CHAIN_BLOCK = 8
 # 16 warps of 32 threads at up to 128 registers fill an SM's 65,536
 MAX_KERNEL_CHAIN_BLOCK = 16
-MAX_KERNEL_NDIM_DENSE = 256  # register tile of the dense model body
+MAX_KERNEL_NDIM_DENSE = 256  # register tile of the dense and the logistic model bodies
 
 # model bodies and metrics compiled into the kernels (ids match
 # csrc/nuts_transition.cuh)
-BODY_IDS = {"standard_normal": 0, "correlated_gaussian": 1, "eight_schools": 2}
+BODY_IDS = {"standard_normal": 0, "correlated_gaussian": 1, "eight_schools": 2, "logistic": 3}
 METRIC_IDS = {"diag": 0, "dense": 1}
 
 _M32 = 0xFFFFFFFF
@@ -76,16 +78,29 @@ class TrajectorySpec:
     (``q = [mu, log_tau, theta_tilde_1..8]``); one ``(2, 10)`` fp32
     constant, ``y`` and ``1/sigma^2`` in columns 2..9 and zero in
     columns 0 and 1 (``models/eight_schools.py:80-101``).
+    ``logistic``: Bayesian logistic regression over ``N`` data rows
+    (``models/logistic.py:90-136``); the design ``Xb`` ``(N, n)`` with the
+    intercept folded in, the responses ``y`` ``(N,)`` and the prior
+    precision ``1/prior_scale^2`` ``(1,)``, all fp32 and unpadded;
+    ``logp = sum(y * logits - softplus(logits)) - prior_prec q.q/2``.
 
     ``packable``: the JAX model's spec has a lane-packed body
     (``packed_fn``). Nothing in the port packs lanes; the flag only
     takes part in the engine election, as ``resolve_pack`` does there.
+
+    ``kernel_consts`` is what the CUDA kernels read: the one constant, or
+    for the logistic body its three packed into one contiguous buffer
+    (:func:`~littlemcmc_torch.ops.logistic.pack_logistic`), or None for a
+    body without constants; ``rows`` is the logistic body's ``N`` (0 for
+    the others).
     """
 
     body: str
     consts: Tuple[torch.Tensor, ...]
     ndim: int
     packable: bool = False
+    kernel_consts: Optional[torch.Tensor] = dataclasses.field(init=False, repr=False)
+    rows: int = dataclasses.field(init=False)
 
     def __post_init__(self):
         if self.body not in BODY_IDS:
@@ -93,22 +108,33 @@ class TrajectorySpec:
                              f"known: {sorted(BODY_IDS)}")
         if self.body == "eight_schools" and self.ndim != 10:
             raise ValueError(f"the eight_schools body has 10 parameters, not {self.ndim}")
+        got = [tuple(c.shape) for c in self.consts]
+        rows = got[0][0] if self.body == "logistic" and got and got[0] else 0
         want = {"standard_normal": [], "correlated_gaussian": [(self.ndim, self.ndim)],
-                "eight_schools": [(2, 10)]}[self.body]
-        if [tuple(c.shape) for c in self.consts] != want:
+                "eight_schools": [(2, 10)],
+                "logistic": [(rows, self.ndim), (rows,), (1,)]}[self.body]
+        if got != want or (self.body == "logistic" and rows < 1):
             raise ValueError(f"the {self.body} body takes constants of shapes {want}, got "
-                             f"{[tuple(c.shape) for c in self.consts]}")
+                             f"{got}")
+        packed = (pack_logistic(*self.consts) if self.body == "logistic"
+                  else (self.consts[0] if self.consts else None))
+        object.__setattr__(self, "kernel_consts", packed)
+        object.__setattr__(self, "rows", rows)
 
 
 def body_logp_grad(spec: TrajectorySpec, q: torch.Tensor):
-    """The body's plain ``(logp (C,), grad (C, n))`` at ``q (C, n)``."""
+    """The body's plain ``(logp (C,), grad (C, n))`` at ``q (C, n)``: the
+    plain versions of the batched model kernels for the correlated
+    Gaussian (:func:`~littlemcmc_torch.ops.quadform.quadform_logp_grad_plain`)
+    and the logistic regression
+    (:func:`~littlemcmc_torch.ops.logistic.logistic_logp_grad_plain`)."""
     if spec.body == "standard_normal":
         return -0.5 * (q * q).sum(1), -q
     if spec.body == "eight_schools":
         return _eight_schools_logp_grad(spec.consts[0], q)
-    (prec,) = spec.consts
-    g = -fp32_matmul(q, prec)
-    return 0.5 * (q * g).sum(1), g
+    if spec.body == "logistic":
+        return logistic_logp_grad_plain(q, *spec.consts)
+    return quadform_logp_grad_plain(q, spec.consts[0])
 
 
 def _eight_schools_logp_grad(consts: torch.Tensor, q: torch.Tensor):
@@ -503,8 +529,9 @@ def _launch_kernel(q, p, grad, logp, eps, max_depth_c, var, seed, *, spec,
     if cb > MAX_KERNEL_CHAIN_BLOCK:
         raise ValueError(f"chain_block {cb} exceeds the kernel's "
                          f"{MAX_KERNEL_CHAIN_BLOCK} chains per thread block")
-    if (spec.body == "correlated_gaussian" or metric == "dense") and n > MAX_KERNEL_NDIM_DENSE:
-        raise ValueError(f"the correlated_gaussian body and the dense metric take "
+    if (spec.body in ("correlated_gaussian", "logistic") or metric == "dense") \
+            and n > MAX_KERNEL_NDIM_DENSE:
+        raise ValueError(f"the {spec.body} body and the dense metric take "
                          f"n <= {MAX_KERNEL_NDIM_DENSE}, got {n}")
     b_coef, a_coef = INTEGRATOR_COEFFS[integrator]
     coef = (ctypes.c_float * 7)(*(list(b_coef) + [0.0] * (4 - len(b_coef))
@@ -521,7 +548,7 @@ def _launch_kernel(q, p, grad, logp, eps, max_depth_c, var, seed, *, spec,
         out[k] = torch.empty(C, dtype=torch.bool, device=q.device)
     # merge stack: (left p, right p, p sum, proposal q) x D slots x C x n
     stack = torch.empty((4, D, C, n), dtype=torch.float32, device=q.device)
-    consts = spec.consts[0].data_ptr() if spec.consts else 0
+    consts = spec.kernel_consts.data_ptr() if spec.kernel_consts is not None else 0
 
     lib = load_library()
     with torch.cuda.device(q.device):
@@ -530,7 +557,7 @@ def _launch_kernel(q, p, grad, logp, eps, max_depth_c, var, seed, *, spec,
             q.data_ptr(), p.data_ptr(), grad.data_ptr(), var.data_ptr(),
             logp.data_ptr(), eps.data_ptr(), max_depth_c.data_ptr(),
             seed0 & 0xFFFFFFFF, seed1 & 0xFFFFFFFF,
-            BODY_IDS[spec.body], METRIC_IDS[metric], consts,
+            BODY_IDS[spec.body], METRIC_IDS[metric], consts, spec.rows,
             C, n, D, float(Emax), cb, len(a_coef), ctypes.cast(coef, ctypes.c_void_p),
             stack.data_ptr(),
             *(out[k].data_ptr() for k in ("q", "grad") + _OUT_F32 + _OUT_I32 + _OUT_BOOL),

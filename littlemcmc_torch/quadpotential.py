@@ -6,7 +6,9 @@ Counterpart of the diagonal and dense parts of
 (``:89-135``), ``WelfordCovariance`` (``:138-180``), ``QuadPotentialDiag``
 (``:189-221``), ``QuadPotentialFull`` (``:224-258``),
 ``QuadPotentialDiagAdapt`` (``:302-411``, dual-window Welford with a swap
-every ``adaptation_window`` samples), ``QuadPotentialFullAdapt``
+every ``adaptation_window`` samples), ``QuadPotentialFullInv``
+(``:262-293``, a static dense metric given by the mass matrix itself),
+``QuadPotentialFullAdapt``
 (``:415-541``, Stan windows, shrinkage and a latched Cholesky failure)
 and the ``quad_potential`` factory (``:845-863``). Where the JAX package
 vmaps a per-chain pytree, these classes hold ``(C, n)`` tensors (``(C,)``
@@ -28,7 +30,8 @@ from .math import fp32_matmul
 __all__ = ["PositiveDefiniteError", "partial_check_positive_definite", "quad_potential",
            "potential_to",
            "WelfordVariance", "WelfordCovariance", "QuadPotentialDiag",
-           "QuadPotentialDiagAdapt", "QuadPotentialFull", "QuadPotentialFullAdapt"]
+           "QuadPotentialDiagAdapt", "QuadPotentialFull", "QuadPotentialFullAdapt",
+           "QuadPotentialFullInv"]
 
 
 class PositiveDefiniteError(ValueError):
@@ -250,6 +253,44 @@ class QuadPotentialFull(_DenseKinetics):
     def broadcast(self, chains: int) -> "QuadPotentialFull":
         """One chain's metric shared by ``chains`` chains (views, no copies)."""
         return QuadPotentialFull(*(x.expand(chains, *x.shape) for x in (self.cov, self.chol)))
+
+    def raise_ok(self) -> None:
+        return None
+
+
+@dataclasses.dataclass(frozen=True)
+class QuadPotentialFullInv:
+    """Fixed dense metric parameterized by the mass (precision) matrix
+    ``A`` itself: ``velocity = A^{-1} p`` by Cholesky solves, momentum
+    ``p = L z`` (reference ``quadpotential.py:262-293``). No kernel takes
+    it: NUTS runs it on the tensor-op tree, HMC on its tensor-op
+    trajectory."""
+
+    chol: torch.Tensor  # lower Cholesky factor of the mass matrix
+
+    @classmethod
+    def create(cls, A: torch.Tensor) -> "QuadPotentialFullInv":
+        return cls(chol=torch.linalg.cholesky(A))
+
+    def velocity(self, p: torch.Tensor) -> torch.Tensor:
+        return torch.cholesky_solve(p[..., None], self.chol)[..., 0]
+
+    def kinetic(self, p: torch.Tensor, velocity: torch.Tensor | None = None) -> torch.Tensor:
+        if velocity is None:
+            velocity = self.velocity(p)
+        return 0.5 * (p * velocity).sum(-1)
+
+    def sample_momentum(self, generator: torch.Generator | None = None) -> torch.Tensor:
+        z = torch.randn(self.chol.shape[:-1], generator=generator, dtype=self.chol.dtype,
+                        device=self.chol.device)
+        return _matvec(self.chol, z)
+
+    def update(self, sample, grad, tuning: bool) -> "QuadPotentialFullInv":
+        return self
+
+    def broadcast(self, chains: int) -> "QuadPotentialFullInv":
+        """One chain's metric shared by ``chains`` chains (a view)."""
+        return QuadPotentialFullInv(chol=self.chol.expand(chains, *self.chol.shape))
 
     def raise_ok(self) -> None:
         return None
@@ -508,8 +549,9 @@ class QuadPotentialFullAdapt(_DenseKinetics):
 def quad_potential(C, is_cov: bool):
     """A static metric from a scaling vector or matrix (reference
     ``quadpotential.py:33-65``): a 1-D ``C`` is a diagonal, a 2-D ``C`` a
-    dense covariance (``is_cov=True``). ``is_cov`` selects covariance vs
-    precision for the diagonal."""
+    dense covariance (``is_cov=True``) or mass matrix (``is_cov=False``,
+    :class:`QuadPotentialFullInv`). ``is_cov`` selects covariance vs
+    precision."""
     if type(C).__module__.startswith("scipy.sparse"):
         raise ValueError("Sparse scaling matrices are not supported.")
     C = torch.as_tensor(np.asarray(C.detach().cpu() if isinstance(C, torch.Tensor) else C),
@@ -519,7 +561,4 @@ def quad_potential(C, is_cov: bool):
         return QuadPotentialDiag.create(C if is_cov else 1.0 / C)
     if is_cov:
         return QuadPotentialFull.create(C)
-    raise NotImplementedError(
-        "a dense precision-matrix scaling (is_cov=False, QuadPotentialFullInv) "
-        "runs only on the tensor-op tree, which is ROADMAP Queue 1 item 6; pass "
-        "its inverse with is_cov=True.")
+    return QuadPotentialFullInv.create(C)

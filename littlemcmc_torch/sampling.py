@@ -1,15 +1,18 @@
 """Sampling driver: the public ``sample()`` / ``init_nuts()`` entry points.
 
 Counterpart of ``littlemcmc_tpu/sampling.py`` for the subset this package
-runs: NUTS or classic HMC (``NUTS``, ``HamiltonianMC``) with a diagonal
-metric (``adapt_diag`` / ``jitter+adapt_diag``, per-chain
+runs: NUTS or classic HMC (``NUTS``, ``HamiltonianMC``) on any model, with
+a diagonal metric (``adapt_diag`` / ``jitter+adapt_diag``, per-chain
 ``QuadPotentialDiagAdapt``, optionally pooled across chains) or a dense one
-(``adapt_full`` / ``jitter+adapt_full`` pooled across chains, or a static
-``QuadPotentialFull``), with dual averaging. Two engines:
+(``adapt_full`` / ``jitter+adapt_full``, per chain or pooled across
+chains, or a static ``QuadPotentialFull`` / ``QuadPotentialFullInv``), with
+dual averaging. Two engines:
 
-- per-draw: one trajectory-kernel launch per draw for all chains (for HMC
-  without a model body or with a dense metric, the tensor-op trajectory of
-  ``hmc.run_hmc_trajectory``), the adaptation updates between draws;
+- per-draw: one trajectory-kernel launch per draw for all chains where the
+  model has a kernel body and the kernel takes the metric, else the
+  tensor-op tree of ``nuts.run_nuts_tree`` (NUTS) or the tensor-op
+  trajectory of ``hmc.run_hmc_trajectory`` (HMC, also for any dense
+  metric), the adaptation updates between draws;
 - fused: one fused-kernel launch per chunk of draws, with momentum, dual
   averaging and the metric's Welford updates (per-chain diag, or pooled
   dense) inside it.
@@ -42,14 +45,15 @@ from .base import HMCConfig, NUTSConfig, init_chain_state
 from .device import resolve_device
 from .hmc import build_fused_hmc_runner_factory, build_hmc_kernel
 from .model import as_logp_grad, batched
-from .nuts import build_fused_nuts_runner_factory, build_nuts_kernel
+from .nuts import build_fused_nuts_runner_factory, build_nuts_kernel, trajectory_metric
 from .ops.fused_hmc import fused_hmc
 from .ops.fused_nuts import fused_nuts
 from .ops.hmc_trajectory import DEFAULT_HMC_CHAIN_BLOCK, hmc_trajectory
 from .ops.nuts_trajectory import DEFAULT_CHAIN_BLOCK, trajectory
 from .parallel.cross_chain import cross_chain_potential_pool
 from .quadpotential import (QuadPotentialDiag, QuadPotentialDiagAdapt, QuadPotentialFull,
-                            QuadPotentialFullAdapt, potential_to, quad_potential)
+                            QuadPotentialFullAdapt, QuadPotentialFullInv, potential_to,
+                            quad_potential)
 from .report import warnings_from_stats
 
 __all__ = ["NUTS", "HamiltonianMC", "sample", "init_nuts"]
@@ -66,7 +70,8 @@ _AUTO_CHUNK = 250
 _POOLED_PROMOTE_CHAINS = 128
 
 _POTENTIALS = (QuadPotentialDiag, QuadPotentialDiagAdapt, QuadPotentialFull,
-               QuadPotentialFullAdapt)
+               QuadPotentialFullAdapt, QuadPotentialFullInv)
+_DENSE = (QuadPotentialFull, QuadPotentialFullAdapt, QuadPotentialFullInv)
 
 # the JAX kernels' lane width and per-chain slot scalars, which set how many
 # chains of an n-parameter model share a lane row there
@@ -120,7 +125,8 @@ class _StepSpec:
         if potential is not None and not isinstance(potential, _POTENTIALS):
             raise ValueError("`potential` must be a littlemcmc_torch quadpotential "
                              "(QuadPotentialDiag, QuadPotentialDiagAdapt, "
-                             "QuadPotentialFull or QuadPotentialFullAdapt).")
+                             "QuadPotentialFull, QuadPotentialFullAdapt or "
+                             "QuadPotentialFullInv).")
         self.logp_dlogp_func = logp_dlogp_func
         self.model_ndim = model_ndim
         self.potential = (potential if scaling is None
@@ -142,7 +148,14 @@ class _StepSpec:
 
 
 class NUTS(_StepSpec):
-    """No-U-Turn sampler spec (constructor parity with reference ``nuts.py:103-121``)."""
+    """No-U-Turn sampler spec (constructor parity with reference ``nuts.py:103-121``).
+
+    ``batched_logp_dlogp_func``: a natively batched ``(C, n) -> ((C,), (C,
+    n))`` model, e.g. a batched model kernel, that the tensor-op tree calls
+    instead of the model's own batched form or a vmap of
+    ``logp_dlogp_func`` (the JAX package's ``sampling.py:164``).
+    ``trajectory_spec=None`` keeps a model off the trajectory kernels.
+    """
 
     name = "nuts"
     stats_dtypes = [
@@ -169,11 +182,12 @@ class NUTS(_StepSpec):
                  gamma: float = 0.05, k: float = 0.75, t0: int = 10,
                  step_rand=None, path_length: float = 2.0,
                  max_treedepth: int = 10, early_max_treedepth: int = 8,
-                 integrator: str = "leapfrog", trajectory_spec="auto",
-                 chain_block: int = 0):
+                 integrator: str = "leapfrog", batched_logp_dlogp_func=None,
+                 trajectory_spec="auto", chain_block: int = 0):
         del path_length  # accepted for constructor parity
         super().__init__(logp_dlogp_func, model_ndim, scaling, is_cov, potential, step_rand,
                          trajectory_spec)
+        self.batched_logp_dlogp_func = batched_logp_dlogp_func
         self.config = NUTSConfig(
             target_accept=float(target_accept), Emax=float(Emax),
             adapt_step_size=bool(adapt_step_size), step_scale=float(step_scale),
@@ -388,9 +402,9 @@ def sample(
     The signature follows the JAX package's ``sample()``; this port runs
     ``step`` (:class:`NUTS`, the default, or :class:`HamiltonianMC`) with
     ``init`` in ``adapt_diag`` / ``jitter+adapt_diag`` / ``adapt_full`` /
-    ``jitter+adapt_full`` (or a static metric on the step). NUTS needs a
-    model that carries a trajectory spec; HMC runs any model, through its
-    kernels where the model has a spec. ``device=None`` means
+    ``jitter+adapt_full`` (or a static metric on the step), on any model:
+    through the kernels where the model has a trajectory spec and the
+    kernels take the metric, else on tensor ops. ``device=None`` means
     ``"cuda"`` and raises when no CUDA device exists; ``device="cpu"`` runs
     the kernels' plain PyTorch versions. ``cores``, ``chain_idx``,
     ``mp_ctx`` and ``pickle_backend`` are accepted and ignored, as in the
@@ -399,7 +413,7 @@ def sample(
     - ``cross_chain_adapt``: pool the metric's Welford statistics across
       all chains. ``None`` pools ``adapt_full`` at >= 128 chains (reference
       ``sampling.py:1040-1055``). Per-chain dense adaptation runs on the
-      tensor-op tree, ROADMAP Queue 1 item 6, and raises here.
+      per-draw engine's tensor ops (engine ``per_draw_dense``).
     - ``fuse_draws``: ``None`` elects the engine as the JAX package does:
       the fused kernels for a model with a spec, at a chain count that
       blocks into chain blocks of at least 8, and a dense metric (static
@@ -409,13 +423,16 @@ def sample(
       count that is a multiple of 16 or more; ``elect_fused_engine``);
       else per-draw. ``False`` forces the per-draw engine; ``True``
       requires the fused one and raises ``ValueError`` where it does not
-      run. A failed build or launch raises; nothing falls back. HMC on the
-      per-draw engine runs its trajectory kernel for a diagonal metric and
-      a model with a spec, else :func:`~littlemcmc_torch.hmc.run_hmc_trajectory`.
+      run. A failed build or launch raises; nothing falls back. NUTS on the
+      per-draw engine launches its trajectory kernel for a model with a
+      spec and a metric the kernel takes (diagonal, static dense, pooled
+      dense), else runs :func:`~littlemcmc_torch.nuts.run_nuts_tree`; HMC
+      runs its trajectory kernel for a diagonal metric and a model with a
+      spec, else :func:`~littlemcmc_torch.hmc.run_hmc_trajectory`.
     - ``perf_report``: pass a dict and it is filled with ``engine`` (e.g.
       ``fused_dense_pooled``), ``trajectory`` (``cuda`` or ``plain`` for the
-      kernels or their plain versions, ``tensor`` for HMC's tensor-op
-      trajectory), ``chain_block``, ``chunk`` (draws per chunk),
+      kernels or their plain versions, ``tensor`` for the NUTS tree or
+      HMC's tensor-op trajectory), ``chain_block``, ``chunk`` (draws per chunk),
       ``kernel_launches`` (launches of each of the step method's kernels in
       this call, by kernel name) and ``sample_seconds`` (the chunk loop;
       CUDA events on the card).
@@ -482,27 +499,27 @@ def sample(
         potential = potential_to(step.potential, dev).broadcast(chains)
     else:
         potential = _make_adaptive_potential(kind, starts)
-    dense = isinstance(potential, (QuadPotentialFull, QuadPotentialFullAdapt))
-    if isinstance(potential, QuadPotentialFullAdapt) and not pooled:
-        raise NotImplementedError(
-            "per-chain dense adaptation (adapt_full below 128 chains, or "
-            "cross_chain_adapt=False) runs on the tensor-op tree, ROADMAP Queue 1 "
-            "item 6; pass cross_chain_adapt=True to pool it across chains.")
+    dense = isinstance(potential, _DENSE)
+    # the kernels take a diagonal metric, a static dense one and a pooled
+    # adaptive dense one; per-chain dense adaptation and QuadPotentialFullInv
+    # run on tensor ops
+    kernel_metric = trajectory_metric(potential, pooled) is not None
     hmc = isinstance(step, HamiltonianMC)
     # the JAX election (sampling.py:1237-1300): the fused kernels run a
     # model with a spec, at a chain count that blocks into rows of 8, with
     # a dense metric or a diagonal one (a static diagonal is not pooled);
     # fuse_draws=None takes a diagonal metric there only where the JAX
     # kernels pack lanes (elect_fused_engine, sampling.py:660-683)
-    fusable = (spec is not None and _usable_chain_count(chains)
+    fusable = (spec is not None and kernel_metric and _usable_chain_count(chains)
                and (dense or not pooled or isinstance(potential, QuadPotentialDiagAdapt)))
     if fuse_draws is True and not fusable:
         raise ValueError(
             "fuse_draws=True but the fused kernels do not run this configuration: "
             "they need a model with a trajectory_spec() (StandardNormal, "
-            "CorrelatedGaussian, EightSchools), a chain count that blocks into "
-            "chain blocks of at least 8, and a dense or a diagonal metric (a static "
-            "diagonal one not pooled across chains).")
+            "CorrelatedGaussian, EightSchools, LogisticRegression), a chain count "
+            "that blocks into chain blocks of at least 8, and a diagonal metric (a "
+            "static diagonal one not pooled across chains), a static QuadPotentialFull "
+            "or a pooled adaptive dense metric.")
     if fuse_draws is None:
         fused = fusable and (dense or _resolve_pack(spec, model_ndim, chains) > 1)
     else:
@@ -510,7 +527,8 @@ def sample(
     engine = (("fused_" if fused else "per_draw_") + ("dense" if dense else "diag")
               + ("_pooled" if pooled else ""))
 
-    state = init_chain_state(starts, potential, config, batched(logp_grad))
+    batched_fn = getattr(step, "batched_logp_dlogp_func", None) or batched(logp_grad)
+    state = init_chain_state(starts, potential, config, batched_fn)
     # fail fast on a bad start, as the reference's "Bad initial energy"
     # check (base_hmc.py:145-148), for all chains at once
     if not bool(torch.isfinite(state.logp).all()):
@@ -534,13 +552,17 @@ def sample(
             # the per-draw HMC kernel is diagonal-only (reference
             # sampling.py:287-298)
             hmc_spec = None if dense else spec
-            kernel = build_hmc_kernel(batched(logp_grad), config, hmc_spec)
+            kernel = build_hmc_kernel(batched_fn, config, hmc_spec)
             if hmc_spec is None:
                 trajectory_kind = "tensor"
             else:
                 chain_block = config.chain_block or DEFAULT_HMC_CHAIN_BLOCK
         else:
-            kernel = build_nuts_kernel(config, spec, pooled_metric=pooled)
+            nuts_spec = spec if kernel_metric else None
+            kernel = build_nuts_kernel(config, nuts_spec, pooled_metric=pooled,
+                                       batched_logp_grad_fn=batched_fn)
+            if nuts_spec is None:
+                trajectory_kind = "tensor"
         seeds = torch.randint(-2 ** 31, 2 ** 31, (tune + draws, 2),
                               generator=host_gen, dtype=torch.int64).tolist()
         factory = _per_draw_factory(kernel, gen, seeds, pooled)

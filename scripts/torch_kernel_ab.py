@@ -9,7 +9,13 @@ spill lines of every kernel, and the milliseconds per launch of the NUTS
 trajectory kernel, the fused NUTS kernel and the fused HMC kernel at the
 shapes of ``chip_smoke.py``'s phases 2, 2c and 2e (1024 chains, the 100-d
 correlated Gaussian): one diag-metric transition from stationary inputs,
-and a 4-draw dense draw chunk of each fused kernel. The inputs are made
+and a 4-draw dense draw chunk of each fused kernel; the HMC trajectory
+kernel at phase 2d's input (the same positions, step counts from a fixed
+seed; device time under ``torch.profiler``). Where the checkout has
+them, also the batched model kernels at phase 2j's widths (1024 chains;
+the logistic regression's 1000 x 25 design, the 100-d precision): CUDA
+events around back-to-back calls (which hold the wrapper's host work too)
+and the kernel's device time under ``torch.profiler``. The inputs are made
 with numpy from fixed seeds, so two checkouts see the same work. To
 compare two checkouts, run them in turns (A, B, B, A) in one command on
 one card.
@@ -35,6 +41,23 @@ def _ms(fn, reps: int, warmup: int) -> float:
     end.record()
     end.synchronize()
     return start.elapsed_time(end) / reps
+
+
+def _device_ms(fn, name: str, reps: int):
+    """Mean device ms of the kernel whose name holds ``name`` over ``reps``
+    calls under ``torch.profiler``, or None where it kept no record."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        for _ in range(reps):
+            fn()
+        torch.cuda.synchronize()
+    us = sum(e.self_device_time_total for e in prof.key_averages()
+             if e.device_type == torch.autograd.DeviceType.CUDA and name in e.key)
+    return us / reps / 1e3 if us else None
 
 
 def main() -> int:
@@ -94,11 +117,34 @@ def main() -> int:
     hkw = dict(fkw, config=HMCConfig())
     fused_hmc_ms = _ms(lambda: fused_hmc(*fargs, (53, -11), **hkw), reps=10, warmup=2)
 
+    from littlemcmc_torch.ops.hmc_trajectory import hmc_trajectory
+
+    n_steps = torch.clamp((t(rng.uniform(size=C)) * 2.0 / eps).to(torch.int32), 1, 1024)
+    hargs = targs[:5] + (n_steps, targs[6])
+    hkw = dict(spec=model.trajectory_spec(), Emax=1000.0)
+    model_ms = {"hmc_trajectory_device_ms": _device_ms(
+        lambda: hmc_trajectory(*hargs, (61, -67), **hkw), "hmc_trajectory", 50)}
+    try:
+        from littlemcmc_torch.models import LogisticRegression
+        from littlemcmc_torch.ops.logistic import logistic_logp_grad
+        from littlemcmc_torch.ops.quadform import quadform_logp_grad
+    except ImportError:  # a checkout from before the batched model kernels
+        pass
+    else:
+        lg = LogisticRegression()
+        ql = t(0.3 * rng.standard_normal((C, lg.ndim)))
+        packed = lg.trajectory_spec().kernel_consts
+        for name, fn in (("logistic_logp_grad", lambda: logistic_logp_grad(
+                              ql, lg.Xb, lg.y, lg.prior_prec, packed=packed)),
+                         ("quadform_logp_grad", lambda: quadform_logp_grad(q, model.prec_f32))):
+            model_ms[f"{name}_ms"] = _ms(fn, reps=200, warmup=10)
+            model_ms[f"{name}_device_ms"] = _device_ms(fn, f"{name}_kernel", 200)
+
     smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
                          capture_output=True, text=True, timeout=60).stdout.strip()
     print(json.dumps({"root": str(root), "card": smi, "ptxas": ptxas,
                       "nuts_trajectory_diag_ms": traj_ms, "fused_nuts_4_draws_ms": fused_ms,
-                      "fused_hmc_4_draws_ms": fused_hmc_ms}),
+                      "fused_hmc_4_draws_ms": fused_hmc_ms, **model_ms}),
           flush=True)
     return 0
 

@@ -263,10 +263,10 @@ def test_eight_schools_kernels_match_plain(hopper):
     """The per-draw NUTS and HMC kernels with the eight-schools body chain
     for chain, 512 chains, a quarter of them deep in the funnel's neck: the
     checks of the smoke's phases 2f-2g."""
-    from chip_smoke import _compare, _es_inputs
+    from chip_smoke import _compare, _posterior_inputs
 
     es = tm.EightSchools()
-    _compare("eight_schools", es, _es_inputs(es, 512, 0.3, seed=4), (5, -6), need=0.99)
+    _compare("eight_schools", es, _posterior_inputs(es, 512, 0.3, seed=4), (5, -6), need=0.99)
     res, failures, _, _ = hmc_check(es, _hmc_inputs(es, None, 512, 0.25, 5), (7, 8), 0.99,
                                     scaled=True)
     assert not failures, res
@@ -341,3 +341,110 @@ def test_kernels_refuse_an_unknown_body(hopper, monkeypatch, kernel):
                     tuning=False, config=HMCConfig(), metric="diag")}
     with pytest.raises(RuntimeError, match="launch failed"):
         launches[kernel]()
+
+
+# --------------------------------------------------------------------------
+# the batched model kernels and the logistic body
+# --------------------------------------------------------------------------
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("kind,chains,n,rows", [
+    ("logistic", 5, 10, 300),
+    ("logistic", 1024, 25, 1000),
+    ("logistic", 37, 40, 129),
+    ("quadform", 5, 7, 0),
+    ("quadform", 1024, 100, 0),
+    ("quadform", 19, 33, 0),
+])
+def test_model_kernels_match_plain(hopper, kind, chains, n, rows):
+    """Rows 6 (logistic) and 5 (quadform) against their plain versions at
+    odd sizes, where the tiles' edges fall inside a chain block, a row
+    tile or a warp's columns, and at the paths' widths: the checks of the
+    smoke's phase 2j (``tests/test_ops.py``'s tolerances)."""
+    from chip_smoke import model_kernel_check
+
+    res, failures, _ = model_kernel_check(kind, chains, n, rows, seed=chains)
+    assert not failures, res
+
+
+@pytest.mark.cuda
+def test_logistic_body_in_the_trajectory_kernels_matches_plain(hopper):
+    """The logistic body (3) in the per-draw NUTS kernel (512 chains) and
+    the HMC kernel (256 chains) against their plain versions: the smoke's
+    phases 2k and 2l (the HMC energies held relative to the energy change,
+    ``scaled``: some of these trajectories end far from their start)."""
+    from chip_smoke import _compare, _posterior_inputs
+
+    lg = tm.LogisticRegression()
+    _compare("logistic", lg, _posterior_inputs(lg, 512, 0.25, seed=21), (3, -5), need=0.99)
+    res, failures, _, _ = hmc_check(lg, _hmc_inputs(lg, None, 256, 0.25, 22), (7, 11), 0.99,
+                                    scaled=True)
+    assert not failures, res
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("step", ["nuts", "hmc"])
+@pytest.mark.parametrize("tuning", [False, True], ids=["draw_chunk", "tune_chunk"])
+def test_fused_logistic_kernel_matches_plain(hopper, step, tuning):
+    """The logistic body in the fused kernels' diag branch against the
+    plain version at 256 chains x 2 draws: a draw chunk, and a tune chunk
+    with the per-chain Welford steps across a window swap and dual
+    averaging on (the smoke's phase 2l runs the draw chunk)."""
+    res, failures, _, _, _, _ = fused_check(tm.LogisticRegression(), 256, 2, tuning, True,
+                                            seed=12, words=(29, -3), step=step, metric="diag")
+    assert not failures, res
+
+
+@pytest.mark.cuda
+def test_logistic_kernel_raises_rather_than_falling_back(hopper, monkeypatch):
+    """``LogisticRegression(use_kernel=True).batched_logp_grad`` on CUDA
+    tensors launches the kernel; when its build fails it raises and never
+    runs the plain version."""
+    from littlemcmc_torch.ops import _build, logistic
+
+    model = tm.LogisticRegression(use_kernel=True)
+    q = torch.zeros(16, model.ndim, device=hopper)
+    launches = logistic.logistic_logp_grad.launches
+    logp, grad = model.batched_logp_grad(q)
+    torch.cuda.synchronize()
+    assert logistic.logistic_logp_grad.launches == launches + 1
+    assert logp.is_cuda and grad.shape == (16, model.ndim)
+
+    def fail(*a, **k):
+        raise AssertionError("the plain version ran")
+
+    def no_build(name="nuts_trajectory"):
+        raise RuntimeError("nvcc failed to build: (made to fail)")
+
+    monkeypatch.setattr(logistic, "logistic_logp_grad_plain", fail)
+    monkeypatch.setattr(_build, "load_library", no_build)
+    with pytest.raises(RuntimeError, match="nvcc failed"):
+        model.batched_logp_grad(q)
+    assert logistic.logistic_logp_grad.launches == launches + 1
+
+
+@pytest.mark.cuda
+def test_tree_on_the_card_stays_on_the_card(hopper):
+    """NUTS on the tensor-op tree with CUDA tensors: a plain closure and
+    per-chain adapt_full with the quadform kernel (128 chains, 100 + 100):
+    the trace is finite, the engine the tree's, the quadform kernel ran at
+    every leaf, and no trajectory kernel launched."""
+    from littlemcmc_torch.ops import quadform
+
+    def closure(q):
+        return -0.5 * (q * q).sum(), -q
+
+    report = {}
+    trace, _ = sample(closure, model_ndim=3, chains=128, tune=100, draws=100, random_seed=2,
+                      perf_report=report, progressbar=False)
+    assert report["trajectory"] == "tensor" and np.isfinite(trace).all()
+    assert abs(trace.reshape(-1, 3).var(0).mean() - 1) < 0.1
+    model = tm.CorrelatedGaussian(10, use_kernel=True)
+    launches = quadform.quadform_logp_grad.launches
+    trace, stats = sample(model.logp_grad, model_ndim=10, chains=128, tune=100, draws=100,
+                          random_seed=2, init="adapt_full", cross_chain_adapt=False,
+                          perf_report=report, progressbar=False)
+    assert report["engine"] == "per_draw_dense" and report["trajectory"] == "tensor"
+    assert report["kernel_launches"] == {"nuts_trajectory": 0, "fused_nuts": 0}
+    assert quadform.quadform_logp_grad.launches - launches >= 200
+    assert np.isfinite(trace).all() and stats["diverging"].mean() < 0.01

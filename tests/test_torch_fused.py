@@ -364,22 +364,26 @@ def test_slice_matches_jax_sample(slice_runs):
 @pytest.mark.parametrize("chains,fuse_draws,engine", [
     (128, None, "fused_dense_pooled"),
     (128, False, "per_draw_dense_pooled"),
-    (64, None, None),
-], ids=["fused", "per_draw", "per_chain_raises"])
+    (64, True, None),
+    (64, None, "per_draw_dense"),
+], ids=["fused", "per_draw", "per_chain_raises", "per_chain"])
 def test_adapt_full_engine_election(chains, fuse_draws, engine):
     """(iv) adapt_full pools at >= 128 chains and runs the fused engine
-    unless fuse_draws=False; per-chain dense adaptation is not ported."""
+    unless fuse_draws=False; per-chain dense adaptation (64 chains) runs on
+    the per-draw engine's tensor-op tree, and the fused kernels refuse it
+    (``fuse_draws=True`` raises)."""
     model = tm.CorrelatedGaussian(3, device="cpu")
     kw = dict(model_ndim=3, chains=chains, tune=12, draws=4, random_seed=2,
               init="adapt_full", fuse_draws=fuse_draws, device="cpu", chain_block=64,
               progressbar=False, compute_convergence_checks=False)
     if engine is None:
-        with pytest.raises(NotImplementedError, match="Queue 1 item 6"):
+        with pytest.raises(ValueError, match="fuse_draws=True"):
             lt.sample(model.logp_grad, **kw)
         return
     report = {}
     trace, stats = lt.sample(model.logp_grad, perf_report=report, **kw)
-    assert report["engine"] == engine and report["trajectory"] == "plain"
+    assert report["engine"] == engine
+    assert report["trajectory"] == ("tensor" if engine == "per_draw_dense" else "plain")
     assert report["kernel_launches"] == {"nuts_trajectory": 0, "fused_nuts": 0}
     assert trace.shape == (chains, 4, 3) and np.isfinite(trace).all()
 

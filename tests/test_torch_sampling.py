@@ -148,8 +148,9 @@ def test_sample_rejects_what_the_slice_does_not_run():
 
     with pytest.raises(ValueError, match="Bad initial energy"):
         lt.sample(nan_model, model_ndim=2, device="cpu", progressbar=False)
-    with pytest.raises(NotImplementedError, match="run_nuts_tree"):
-        lt.sample(plain_model, model_ndim=2, device="cpu", progressbar=False)
+    with pytest.raises(NotImplementedError, match="callback"):
+        lt.sample(plain_model, model_ndim=2, device="cpu", progressbar=False,
+                  callback=print)
     with pytest.raises(ValueError, match="Unknown initializer"):
         lt.sample(plain_model, model_ndim=2, init="adapt_lowrank", device="cpu")
 
