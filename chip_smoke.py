@@ -69,6 +69,16 @@ Phases, each printing its own lines:
    kernels against their plain versions at 256 chains (a 2-draw draw
    chunk; one HMC transition), as ``fused_check`` and ``hmc_check`` hold
    them;
+   2m. the trajectory kernel's low-rank branch against its plain version:
+   the spiked Gaussian's body (4) at 1024 chains and the correlated body
+   (1) at 256, the metric near each model's covariance
+   (``_lowrank_metric``); body 4 at kDiag (256 chains) and in the HMC
+   kernel (256 chains); the numbers held as in phase 2;
+   2n. the fused NUTS and HMC kernels' low-rank branch with body 4 against
+   their plain versions at 256 chains: a 2-draw draw chunk, and a 4-draw
+   tune chunk with the per-chain Welford steps across a window swap and
+   dual averaging on, its variances and Welford state against a float64
+   replay, as 2h-2i hold the diag branch;
 3. the main path: ``sample(CorrelatedGaussian(100).logp_grad,
    model_ndim=100, chains=1024, tune=500, draws=1000, random_seed=42)``,
    with the kernel's launch count set to 0 before and read after, and the
@@ -95,7 +105,7 @@ Phases, each printing its own lines:
    3k. the main path with ``fuse_draws=True``: the fused NUTS kernel's diag
    branch with the correlated body (6 launches), the main path's gates;
    3l. path (A): ``sample(LogisticRegression(use_kernel=True).logp_grad,
-   model_ndim=25, chains=1024, tune=300, draws=200, random_seed=42,
+   model_ndim=25, chains=1024, tune=200, draws=200, random_seed=42,
    step=NUTS(model_ndim=25, batched_logp_dlogp_func=m.batched_logp_grad,
    trajectory_spec=None))``: the tensor-op tree (``per_draw_diag``,
    trajectory ``tensor``), the logistic kernel launched at every leaf
@@ -107,9 +117,20 @@ Phases, each printing its own lines:
    the two paths' posterior means within 0.1 reference sd of each other;
    3n. T2: ``sample(CorrelatedGaussian(100, use_kernel=True).logp_grad,
    init="jitter+adapt_full", cross_chain_adapt=False, chains=256,
-   tune=300, draws=150)``: the tree with a per-chain dense metric
+   tune=250, draws=100)``: the tree with a per-chain dense metric
    (``per_draw_dense``), the quadform kernel at every leaf, the main
    path's gates;
+   3o-3r. the low-rank cells: ``sample(SpikedGaussian(100).logp_grad,
+   model_ndim=100, init="jitter+adapt_lowrank", chains=1024, tune=500,
+   draws=1000, random_seed=42)``, pooled at 1024 chains: L1 on the fused
+   NUTS kernel (``fused_lowrank_pooled``, 12 launches), L2 with
+   ``fuse_draws=False`` (``per_draw_lowrank_pooled``, 1500 launches of the
+   trajectory kernel's low-rank branch), L3 with ``HamiltonianMC``
+   (``fused_lowrank_pooled`` on the fused HMC kernel), each under the main
+   path's gates with every dimension's variance ratio in [0.9, 1.1]; L0,
+   the diag contrast (``init="jitter+adapt_diag"``: ``per_draw_diag`` on
+   body 4); and the learned-metric gate, L1's min bulk ESS per 1000
+   leapfrogs at least 10x L0's;
 4. the kernel's time per launch at the main path's final state beside its
    plain version's time and its bound, where 50 more draws from that
    state spend their device time (``torch.profiler``); each kernel's
@@ -131,7 +152,13 @@ Phases, each printing its own lines:
    4f. where a draw of paths (A) and (B) spends its time (``_breakdown``:
    20 and 50 draws from the paths' final states under the profiler), the
    trajectory kernel's logistic body at path (B)'s final state, and the
-   HMC kernel's at 2l's input; then one JSON line of sixteen kernel
+   HMC kernel's at 2l's input;
+   4g. the low-rank kernels (``_lowrank_timing``): the trajectory kernel's
+   low-rank branch at L2's final state, body 4 at kDiag at 2m's input and
+   L0's final state, body 4 in the HMC kernel at 2m's input, the fused
+   kernels' low-rank branch at 2n's draw-chunk input and per 250-draw
+   chunk at L1's and L3's final states; where L1, L3 and a post-tune draw
+   of L2 spend their time; then one JSON line of twenty-one kernel
    rows (for the fused kernels ``ms``, ``plain_ms`` and ``bound_ms`` are
    one launch on 2c's, 2e's, 2h's or 2i's draw-chunk input: 4 draws, in
    2h-2i 1 for body 1 and 2 for body 2; ``chunk_*`` the 250-draw launch;
@@ -162,13 +189,16 @@ N, CHAINS, TUNE, DRAWS, DEPTH, CHAIN_BLOCK = 100, 1024, 500, 1000, 10, 8
 ES_CHAINS, ES_TUNE, ES_DRAWS, ES_TARGET = 10240, 500, 500, 0.95
 # logistic regression, BASELINE config 4 (scripts/bench_suite.py:250-252):
 # 25 parameters, 1000 data rows, at the main path's chains and draws; on
-# the tensor-op tree (path A) cut to 300 + 200: the tree takes 1.2-1.9 ms
-# a leaf, with the host's speed, and 500 + 500 took 138-205 s
+# the tensor-op tree (path A) cut to 200 + 200: the tree takes 1.2-1.9 ms
+# a leaf, with the host's speed; 500 + 500 took 138-205 s, 300 + 200
+# 67-160 s, and the low-rank phases need the room (at 200 + 100 its R-hat
+# gate failed: 1.012)
 LG_N, LG_ROWS, LG_TUNE, LG_DRAWS = 25, 1000, 500, 1000
-LG_TREE_TUNE, LG_TREE_DRAWS = 300, 200
+LG_TREE_TUNE, LG_TREE_DRAWS = 200, 200
 # the tree with a per-chain dense metric and the quadform kernel (T2),
-# cut to 300 + 150 for the script's time (500 + 250 took 190-300 s)
-T2_CHAINS, T2_TUNE, T2_DRAWS = 256, 300, 150
+# cut to 250 + 100 for the script's time (500 + 250 took 190-300 s,
+# 300 + 150 96-198 s)
+T2_CHAINS, T2_TUNE, T2_DRAWS = 256, 250, 100
 # the logistic posterior's reference moments, from a long run of the JAX
 # package on a CPU (tests/test_torch_logistic.py writes them)
 REFERENCE = ROOT / "tests" / "logistic_reference_moments.json"
@@ -302,6 +332,8 @@ def _positions(model, rng, C):
     logistic regression's from its reference means and sds."""
     import numpy as np
 
+    if hasattr(model, "scales"):
+        return model.draws(rng.standard_normal((C, model.ndim)))
     if hasattr(model, "cov"):
         return (rng.standard_normal((C, model.ndim)) @ np.linalg.cholesky(model.cov).T
                 ).astype(np.float32)
@@ -345,6 +377,60 @@ def _posterior_inputs(model, C, eps, seed):
             torch.from_numpy(var).to(dev))
 
 
+def _lowrank_metric(model):
+    """A low-rank metric near a Gaussian's covariance: ``(scales, V, lam,
+    alpha)``. The spiked Gaussian's own (its scales and spikes, the bulk
+    1, which is exact); else the scales ``sqrt(diag cov)`` and the top 8
+    eigenpairs of the correlation matrix with the rest's mean as the
+    bulk."""
+    import numpy as np
+
+    if hasattr(model, "scales"):
+        return model.scales, model.V, model.lam, 1.0
+    s = np.sqrt(np.diag(model.cov))
+    w, U = np.linalg.eigh(model.cov / np.outer(s, s))
+    rest = w[::-1][8:]
+    return s, U[:, ::-1][:, :8], w[::-1][:8], float(rest.mean()) if rest.size else 1.0
+
+
+def _model_fac(model, device):
+    """The factor block of :func:`_lowrank_metric`."""
+    import torch
+    from littlemcmc_torch.ops.nuts_trajectory import build_lowrank_fac
+
+    _, V, lam, alpha = _lowrank_metric(model)
+    f = dict(dtype=torch.float32, device=device)
+    return build_lowrank_fac(torch.tensor(V.copy(), **f), torch.tensor(lam.copy(), **f),
+                             torch.tensor(alpha, **f))
+
+
+def _lowrank_inputs(model, C, eps, seed):
+    """Trajectory inputs for the low-rank metric of :func:`_lowrank_metric`:
+    positions of :func:`_positions`, the scales off by up to 25% per chain,
+    momenta ``p = S⁻¹(α^{-1/2} z + V((lam^{-1/2} - α^{-1/2}).(Vᵀz)))`` of
+    that metric. Returns the trajectory's arguments, the chains' scales as
+    ``var``, and the factor block."""
+    import numpy as np
+    import torch
+
+    rng = np.random.default_rng(seed)
+    n = model.ndim
+    scales, V, lam, alpha = _lowrank_metric(model)
+    q = _positions(model, rng, C)
+    stds = (scales * rng.uniform(0.8, 1.25, (C, n))).astype(np.float32)
+    z = rng.standard_normal((C, n))
+    p = ((alpha ** -0.5 * z + ((z @ V) * (lam ** -0.5 - alpha ** -0.5)) @ V.T) / stds
+         ).astype(np.float32)
+    eps = (eps * rng.uniform(0.8, 1.2, C)).astype(np.float32)
+    dev = torch.device(DEVICE)
+    qt = torch.from_numpy(q).to(dev)
+    logp, grad = model.batched_logp_grad(qt)
+    return (qt, torch.from_numpy(p).to(dev), grad.contiguous(), logp.contiguous(),
+            torch.from_numpy(eps).to(dev),
+            torch.full((C,), DEPTH, dtype=torch.int32, device=dev),
+            torch.from_numpy(stds).to(dev)), _model_fac(model, dev)
+
+
 def _held(agree, cb=CHAIN_BLOCK):
     """Per (draw, chain) of a ``(T, C)`` flag agreement: every chain of the
     chain's block agreed at this draw and all earlier ones. One chain's
@@ -357,16 +443,17 @@ def _held(agree, cb=CHAIN_BLOCK):
     return torch.cumprod(block.to(torch.int32), 0).bool().repeat_interleave(cb, 1)
 
 
-def _compare(name, model, args, seed, need, metric="diag"):
+def _compare(name, model, args, seed, need, metric="diag", fac=None):
     """One kernel launch against the plain version on the same inputs
     (the dense metric: numbers held on the chains whose block agreed), q
-    in units of the model's posterior sd (:func:`_posterior_sd`)."""
+    in units of the model's posterior sd (:func:`_posterior_sd`); ``fac``
+    the low-rank metric's factor block."""
     import numpy as np
     import torch
     from littlemcmc_torch.ops.nuts_trajectory import trajectory, trajectory_plain
 
     kw = dict(spec=model.trajectory_spec(), max_treedepth=DEPTH, Emax=1000.0,
-              chain_block=CHAIN_BLOCK, metric=metric)
+              chain_block=CHAIN_BLOCK, metric=metric, fac=fac)
     got = trajectory(*args, seed, **kw)
     torch.cuda.synchronize()
     start, end = (torch.cuda.Event(enable_timing=True) for _ in range(2))
@@ -376,7 +463,7 @@ def _compare(name, model, args, seed, need, metric="diag"):
     end.synchronize()
     agree = torch.stack([got[k] == want[k] for k in FLAGS]).all(0)
     share = float(agree.float().mean())
-    if metric == "dense":
+    if metric != "diag":
         agree = _held(agree[None])[0]
     errs = {}
     for k in ("q", "grad", "energy"):
@@ -427,6 +514,8 @@ def _body_ops(body: str, n: int, rows: int = 0) -> int:
     logistic regression's two products over ``rows`` data rows (4 rows n)
     and about 8 operations a row for the softplus, the sigmoid and the
     log likelihood (an exponential counted as one)."""
+    if body == "spiked_gaussian":  # two thin matvecs of k = rows columns
+        return 4 * rows * n + 5 * n
     return {"correlated_gaussian": 2 * n * n, "eight_schools": 15 * n,
             "standard_normal": 2 * n, "logistic": 4 * rows * n + 8 * rows}[body]
 
@@ -434,7 +523,25 @@ def _body_ops(body: str, n: int, rows: int = 0) -> int:
 def _body_consts(body: str, n: int, rows: int = 0) -> int:
     """Floats of a model body's constants, each read once."""
     return {"correlated_gaussian": n * n, "eight_schools": 2 * n,
-            "logistic": rows * n + rows + 1}.get(body, 0)
+            "logistic": rows * n + rows + 1, "spiked_gaussian": rows * (n + 1) + n}.get(body, 0)
+
+
+# operations of the low-rank metric's velocity and momentum for a factor of
+# rank k (the kernels pad it to 8 columns of zeros, work the function does
+# not need): two thin matvecs and the elementwise scalings
+def _lowrank_velocity_ops(n: int, k: int) -> int:
+    return 4 * k * n + 5 * n
+
+
+def _lowrank_fac_floats(n: int, k: int) -> int:
+    return k * (n + 2) + 2
+
+
+def _fac_rank(fac, n: int) -> int:
+    """The rank of a factor block: its columns of V that are not padding."""
+    from littlemcmc_torch.ops.nuts_trajectory import lowrank_fac_parts
+
+    return int((lowrank_fac_parts(fac, n)[0] != 0).any(1).sum())
 
 
 def _logistic_bound_ms(C: int, n: int, rows: int) -> tuple[float, str]:
@@ -453,17 +560,19 @@ def _quadform_bound_ms(C: int, n: int) -> tuple[float, str]:
 
 
 def _bound_ms(n_leaves_total: int, C: int, n: int, metric: str = "diag",
-              body: str = "correlated_gaussian", rows: int = 0) -> tuple[float, str]:
+              body: str = "correlated_gaussian", rows: int = 0,
+              rank: int = 0) -> tuple[float, str]:
     """Least time for one transition: per leaf and chain the model body
-    (plus, for the dense metric, the 2n^2-FLOP velocity) and about 20n
+    (plus one velocity: the dense metric's 2n^2-FLOP matvec, the low-rank
+    metric's two thin matvecs of its ``rank`` columns) and about 20n
     elementwise operations, plus the proposal's gradient (and the start
-    energy's velocity); the inputs read once and the outputs written
-    once."""
-    per_leaf = (2 * n * n if metric == "dense" else 0) + _body_ops(body, n, rows) + 20 * n
-    ops = n_leaves_total * per_leaf + C * (_body_ops(body, n, rows) + 2 * n)
-    var_floats = n * n if metric == "dense" else C * n
-    if metric == "dense":
-        ops += C * 2 * n * n
+    energy's velocity); the inputs (the low-rank metric: the scales and
+    the factor block) read once and the outputs written once."""
+    vel = {"dense": 2 * n * n, "lowrank": _lowrank_velocity_ops(n, rank)}.get(metric, 0)
+    per_leaf = vel + _body_ops(body, n, rows) + 20 * n
+    ops = n_leaves_total * per_leaf + C * (_body_ops(body, n, rows) + 2 * n) + C * vel
+    var_floats = {"dense": n * n,
+                  "lowrank": C * n + _lowrank_fac_floats(n, rank)}.get(metric, C * n)
     consts = _body_consts(body, n, rows)
     nbytes = (4 * (3 * C * n + var_floats + 3 * C + consts) + 4 * (2 * C * n + 7 * C)
               + 2 * C)
@@ -629,7 +738,7 @@ def _held_stat_errors(got, want, held, da_count, config, adapting, step="nuts",
     return share
 
 
-def _diag_fused_inputs(model, C, seed, tuning, iter_count=300.0, swap_at=2):
+def _diag_fused_inputs(model, C, seed, tuning, iter_count=300.0, swap_at=2, var_sd=None):
     """Fused-op inputs for the diag metric: positions near the posterior
     (eight schools: :func:`_es_positions`), an inverse-mass diagonal near
     the posterior variances, dual averaging part way through, and for a
@@ -637,8 +746,10 @@ def _diag_fused_inputs(model, C, seed, tuning, iter_count=300.0, swap_at=2):
     10 - ``swap_at`` in the background) whose windows swap at draw
     ``swap_at`` (n_samples 50 - ``swap_at``, window 50), step sizes near 0.3 (eight schools adapts
     to about 0.27; at 0.5 the correlated Gaussian's diag trees diverge on
-    96% of chain-draws). Returns the op's arguments through ``linv``
-    (None) and the Welford state (None for a draw chunk)."""
+    96% of chain-draws). ``var_sd``: the sds the variances are drawn near
+    (default the posterior's; the low-rank metric's variances are the
+    spiked Gaussian's squared scales). Returns the op's arguments through
+    ``linv`` (None) and the Welford state (None for a draw chunk)."""
     import numpy as np
     import torch
 
@@ -655,7 +766,7 @@ def _diag_fused_inputs(model, C, seed, tuning, iter_count=300.0, swap_at=2):
         return torch.from_numpy(np.asarray(x, np.float32)).to(dev)
 
     ls = t(log_step + rng.uniform(-0.1, 0.1, C))
-    var = t(sd ** 2 * rng.uniform(0.5, 2.0, (C, n)))
+    var = t((sd if var_sd is None else var_sd) ** 2 * rng.uniform(0.5, 2.0, (C, n)))
     args = (qt, grad.contiguous(), logp.contiguous(), t(np.full(C, iter_count)), ls,
             ls.clone(), t(np.zeros(C)), t(np.full(C, 40.0)), ls + float(np.log(10.0)), var,
             None)
@@ -728,8 +839,10 @@ def fused_check(model, C, T, tuning, adapt_step_size, seed, words, step="nuts",
     """One fused launch of ``T`` draws at ``C`` chains against the plain
     version on the same inputs (``step``: the fused NUTS op, or with
     ``"hmc"`` the fused HMC op; ``metric``: the dense branch, with the
-    pooled dense adaptation in a tune chunk, or the per-chain diag branch,
-    with its Welford adaptation in a tune chunk): the decisions, trace,
+    pooled dense adaptation in a tune chunk, the per-chain diag branch,
+    with its Welford adaptation in a tune chunk, or the low-rank branch on
+    the spiked Gaussian, the model's spikes as the factor, its variances
+    adapted as diag's): the decisions, trace,
     energies and the per-draw stats on the chain-draws held number for
     number, and in a tune chunk the Welford state against the plain
     version and a float64 replay and the dual-averaging state against its
@@ -754,8 +867,12 @@ def fused_check(model, C, T, tuning, adapt_step_size, seed, words, step="nuts",
         welford = _welford_seed(model) if tuning else None
         kw["dense_welford"] = welford
     else:
-        args, welford = _diag_fused_inputs(model, C, seed, tuning, swap_at=min(2, T - 1))
+        lowrank = metric == "lowrank"
+        args, welford = _diag_fused_inputs(model, C, seed, tuning, swap_at=min(2, T - 1),
+                                           var_sd=_lowrank_metric(model)[0] if lowrank else None)
         kw["welford"] = welford
+        if lowrank:
+            kw["fac"] = _model_fac(model, args[0].device)
     launches = op.launches
     got = op(*args, words, **kw)
     torch.cuda.synchronize()
@@ -839,7 +956,7 @@ def fused_check(model, C, T, tuning, adapt_step_size, seed, words, step="nuts",
         for k in ("n_samples", "prev_update", "window"):
             if float(got[k]) != float(want[k]):
                 failures.append(f"counter {k}: {float(got[k])} vs {float(want[k])}")
-    if tuning and metric == "diag":
+    if tuning and metric in ("diag", "lowrank"):
         # the metric and the Welford rows within 1e-4 of their scales of a
         # float64 replay of the kernel's own trace (every chain), and of the
         # plain version on the chains held through the chunk; the weights
@@ -1001,7 +1118,8 @@ def _hmc_bound_ms(steps_total: int, C: int, n: int,
 
 
 def _fused_diag_bound_ms(work_total: int, C: int, n: int, T: int, adapt_metric: bool,
-                         body: str, step: str = "nuts", rows: int = 0) -> tuple[float, str]:
+                         body: str, step: str = "nuts", rows: int = 0,
+                         rank: int = 0) -> tuple[float, str]:
     """Least time for one fused launch of ``T`` draws with a per-chain diag
     metric: per chain and draw about 10n for the momentum, the proposal's
     gradient (NUTS) or the two energies (HMC, 6n), and with
@@ -1014,11 +1132,14 @@ def _fused_diag_bound_ms(work_total: int, C: int, n: int, T: int, adapt_metric: 
     rows and 6 weight and counter columns read and written; the trace and
     each draw's stats at their widths (NUTS: 7 float32, depth and leaves
     int32, 2 bool flags; HMC: 7 float32, the step count int32, 2 flags)
-    written."""
-    per_work = _body_ops(body, n, rows) + (20 if step == "nuts" else 10) * n
-    per_draw = 10 * n + (_body_ops(body, n, rows) if step == "nuts" else 6 * n)
+    written. ``rank`` > 0: the low-rank metric of that rank, its velocity
+    once a leaf or step, and its momentum and the start energy's velocity
+    once a draw; the factor block read once."""
+    vel = _lowrank_velocity_ops(n, rank) if rank else 0
+    per_work = _body_ops(body, n, rows) + (20 if step == "nuts" else 10) * n + vel
+    per_draw = 10 * n + (_body_ops(body, n, rows) if step == "nuts" else 6 * n) + 2 * vel
     ops = work_total * per_work + C * T * (per_draw + (12 * n if adapt_metric else 0))
-    consts = _body_consts(body, n, rows)
+    consts = _body_consts(body, n, rows) + (_lowrank_fac_floats(n, rank) if rank else 0)
     rows_in, rows_out, cols = (5, 5, 13) if adapt_metric else (1, 0, 7)
     state = 4 * (4 * C * n + (rows_in + rows_out) * C * n + 2 * cols * C + consts)
     stat_bytes = 7 * 4 + (2 * 4 if step == "nuts" else 4) + 2 * 1
@@ -1173,10 +1294,12 @@ def _check_gates(label, gates) -> None:
 
 
 def _quality(model, trace, stats, secs, report, label, card, extra, chains=None, tune=None,
-             draws=None):
+             draws=None, gated=True, per_dim=False):
     """The posterior gates of a Gaussian run (NUTS or HMC stats; by default
     the main path's chains, tune and draws); the ESS of the parameters runs
-    in threads. Prints its JSON line."""
+    in threads. ``per_dim``: each dimension's variance ratio in [0.9, 1.1],
+    not only their mean; ``gated=False`` prints the line and checks
+    nothing. Prints its JSON line."""
     from concurrent.futures import ThreadPoolExecutor
 
     import numpy as np
@@ -1192,7 +1315,8 @@ def _quality(model, trace, stats, secs, report, label, card, extra, chains=None,
     t_ess = time.perf_counter()
     flat = trace.reshape(-1, model.ndim)
     sd = np.sqrt(model.true_var)
-    var_ratio = float((flat.var(0) / model.true_var).mean())
+    ratios = flat.var(0) / model.true_var
+    var_ratio = float(ratios.mean())
     mean_err = float((np.abs(flat.mean(0)) / sd).max())
     div_rate = float(stats["diverging"].mean())
     with ThreadPoolExecutor(8) as pool:
@@ -1204,6 +1328,8 @@ def _quality(model, trace, stats, secs, report, label, card, extra, chains=None,
             "transitions_per_s": chains * (tune + draws) / secs,
             "min_bulk_ess": min_ess, "min_bulk_ess_per_s": min_ess / secs,
             "divergence_rate": div_rate, "posterior_var_ratio": var_ratio,
+            "posterior_var_ratio_min": float(ratios.min()),
+            "posterior_var_ratio_max": float(ratios.max()),
             "max_abs_mean_over_sd": mean_err,
             "step_size": float(stats["step_size"][:, -1].mean()),
             "ess_seconds": time.perf_counter() - t_ess, "card": card}
@@ -1220,7 +1346,11 @@ def _quality(model, trace, stats, secs, report, label, card, extra, chains=None,
              ("0.9 <= posterior_var_ratio <= 1.1", 0.9 <= var_ratio <= 1.1),
              ("max |mean| / sd < 0.1", mean_err < 0.1),
              ("min bulk ESS > 1000", min_ess > 1000)]
-    _check_gates(label, gates)
+    if per_dim:
+        gates.append(("each dimension's var ratio in [0.9, 1.1]",
+                      bool(((ratios >= 0.9) & (ratios <= 1.1)).all())))
+    if gated:
+        _check_gates(label, gates)
     return line
 
 
@@ -1328,13 +1458,14 @@ def _logistic_quality(trace, stats, report, label, card, extra, tune=None, draws
 
 
 def _breakdown(model, state, gen, draws: int = 50, step: str = "nuts", label: str = "",
-               tree_fn=None) -> dict:
+               tree_fn=None, pooled: bool = False) -> dict:
     """Where a post-tune draw's time goes: ``draws`` transitions from a
     main path's final state (``step``: the NUTS or the HMC path; with
     ``tree_fn``, NUTS on the tensor-op tree calling that batched model,
     the logistic kernel) under ``torch.profiler``; device time by kernel
     over the window's time on CUDA events. ``label`` is appended to the
-    phase's name. Prints and returns its line."""
+    phase's name; ``pooled``: the state's metric is pooled across chains
+    (the low-rank one). Prints and returns its line."""
     import torch
     from torch.profiler import ProfilerActivity, profile
     from littlemcmc_torch.base import HMCConfig, NUTSConfig
@@ -1345,7 +1476,8 @@ def _breakdown(model, state, gen, draws: int = 50, step: str = "nuts", label: st
         kernel = build_nuts_kernel(NUTSConfig(), None, batched_logp_grad_fn=tree_fn)
         name = "logistic_logp_grad"
     elif step == "nuts":
-        kernel, name = build_nuts_kernel(NUTSConfig(), model.trajectory_spec()), "nuts_trajectory"
+        kernel = build_nuts_kernel(NUTSConfig(), model.trajectory_spec(), pooled_metric=pooled)
+        name = "nuts_trajectory"
     else:
         kernel = build_hmc_kernel(model.batched_logp_grad, HMCConfig(), model.trajectory_spec())
         name = "hmc_trajectory"
@@ -1655,6 +1787,192 @@ def _logistic_timing(lg, tp, lg_args, lg_hargs, gen, t_start) -> dict:
                 lh_bound=lh_bound)
 
 
+def _lowrank_cells(smi, sg, reset_counts, counts, t_start) -> dict:
+    """Phases 3o-3r: ``sample(SpikedGaussian(100).logp_grad, model_ndim=100,
+    init="jitter+adapt_lowrank", chains=1024, tune=500, draws=1000,
+    random_seed=42)`` (L1: pooled, ``fused_lowrank_pooled`` on the fused
+    NUTS kernel, 12 launches: tune chunks of 10, 10, 30, 50 and 4 x 100
+    draws, then 4 x 250), the same with ``fuse_draws=False`` (L2:
+    ``per_draw_lowrank_pooled``, 1500 launches of the trajectory kernel's
+    low-rank branch) and with ``HamiltonianMC`` (L3: ``fused_lowrank_pooled``
+    on the fused HMC kernel), each under the main path's gates with each
+    dimension's variance ratio in [0.9, 1.1]; and L0, the diag contrast
+    (``init="jitter+adapt_diag"``: ``per_draw_diag`` on body 4), ungated.
+    The learned-metric gate: L1's min bulk ESS per 1000 leapfrogs at least
+    10x L0's. Returns ``{label: (line, final state)}``."""
+    import numpy as np
+    from littlemcmc_torch import HamiltonianMC, sample
+
+    from littlemcmc_torch.base import pooled_tune_schedule
+
+    # the fused engine's launches: tune chunks to the pooled schedule's
+    # boundaries (10, 20, 50, 100, then every 100), then 250-draw chunks
+    t, chunks = 0, 0
+    while t < TUNE:
+        t, chunks = min(TUNE, t + min(250, pooled_tune_schedule(t))), chunks + 1
+    chunks += -(-DRAWS // 250)
+    cells = (("L1", {}, "fused_lowrank_pooled", {"fused_nuts": chunks}),
+             ("L2", dict(fuse_draws=False), "per_draw_lowrank_pooled",
+              {"trajectory": TUNE + DRAWS}),
+             ("L3", dict(step=HamiltonianMC(model_ndim=N)), "fused_lowrank_pooled",
+              {"fused_hmc": chunks}),
+             ("L0", dict(init="jitter+adapt_diag"), "per_draw_diag",
+              {"trajectory": TUNE + DRAWS}))
+    out = {}
+    for label, kw, engine, want in cells:
+        reset_counts()
+        rep = {}
+        kw = dict(dict(init="jitter+adapt_lowrank"), **kw)
+        tr, st, fs = sample(sg.logp_grad, model_ndim=N, chains=CHAINS, tune=TUNE, draws=DRAWS,
+                            random_seed=42, perf_report=rep, return_final_state=True,
+                            progressbar=False, **kw)
+        got = {k: v for k, v in counts().items() if v}
+        if rep["engine"] != engine or got != want:
+            raise RuntimeError(f"low-rank cell {label}: engine {rep['engine']}, launches "
+                               f"{got}; expected {engine}, {want}")
+        leapfrogs = float(np.sum(st["tree_size"] if "tree_size" in st else st["n_steps"]))
+        line = _quality(sg, tr, st, rep["sample_seconds"], rep, f"lowrank_{label}", smi,
+                        {"kernel_launches": got, "draw_leapfrogs": leapfrogs},
+                        gated=label != "L0", per_dim=True)
+        line["min_bulk_ess_per_1000_leapfrogs"] = 1e3 * line["min_bulk_ess"] / leapfrogs
+        out[label] = (line, fs)
+    per_klf = {k: v[0]["min_bulk_ess_per_1000_leapfrogs"] for k, v in out.items()}
+    _line(phase="lowrank_cells", **{f"{k}_sample_seconds": v[0]["sample_seconds"]
+                                    for k, v in out.items()},
+          **{f"{k}_min_bulk_ess_per_1000_leapfrogs": v for k, v in per_klf.items()},
+          L1_over_L0=per_klf["L1"] / per_klf["L0"],
+          elapsed_s=f"{time.perf_counter() - t_start:.1f}")
+    _check_gates("lowrank", [("L1 min bulk ESS per 1000 leapfrogs >= 10x L0's",
+                              per_klf["L1"] >= 10.0 * per_klf["L0"])])
+    return out
+
+
+def _lowrank_timing(sg, lr, lr_args, lr_cmp, sg_args, sg_cmp, sg_hargs, sg_hmc_cmp, lr_fused,
+                    gen, t_start) -> list:
+    """Phase 4g: the low-rank kernels and the spiked body, and their rows
+    of the kernels line. The trajectory kernel's low-rank branch at L2's
+    final state (``ms``; ``check_ms``, ``plain_ms`` and ``max_abs_err`` at
+    2m's input, the same shapes); body 4 at kDiag at 2m's input (256
+    chains; ``main_ms`` at L0's final state, 1024 chains); body 4 in the
+    HMC kernel at 2m's input (on no cell's path); the fused kernels'
+    low-rank branch at 2n's draw-chunk input (2 draws of 256 chains;
+    ``chunk_*``: one 250-draw launch at L1's or L3's final state). Then
+    where L1's call and a post-tune draw of L2 spend their time."""
+    import torch
+    from littlemcmc_torch import HamiltonianMC
+    from littlemcmc_torch.base import HMCConfig, NUTSConfig
+    from littlemcmc_torch.nuts import _shared_lowrank_factor
+    from littlemcmc_torch.ops.fused_hmc import fused_hmc
+    from littlemcmc_torch.ops.fused_nuts import fused_nuts
+    from littlemcmc_torch.ops.hmc_trajectory import hmc_trajectory
+    from littlemcmc_torch.ops.nuts_trajectory import trajectory
+
+    spec, k = sg.trajectory_spec(), sg.rank
+    kw = dict(spec=spec, max_treedepth=DEPTH, Emax=1000.0, chain_block=CHAIN_BLOCK)
+    traj_src = "littlemcmc_torch/ops/csrc/nuts_trajectory.cu"
+    traj_tpu = "littlemcmc_tpu/ops/nuts_trajectory_pallas.py:1023"
+
+    def state_args(state, metric):
+        pot = state.potential
+        var = pot.stds.contiguous() if metric == "lowrank" else pot.var
+        return (state.q, pot.sample_momentum(gen), state.q_grad, state.logp,
+                torch.exp(state.da.log_bar),
+                torch.full((CHAINS,), DEPTH, dtype=torch.int32, device=DEVICE), var)
+
+    def traj_time(args, metric, fac=None, reps=20):
+        mkw = dict(kw, metric=metric, fac=fac)
+        leaves = int(trajectory(*args, (3, 8), **mkw)["n_leaves"].sum())
+        ev = _cuda_time_ms(lambda: trajectory(*args, (3, 8), **mkw), reps=reps, warmup=2)
+        ms, src = _device_ms(lambda: trajectory(*args, (3, 8), **mkw), "nuts_trajectory",
+                             reps, ev)
+        return ms, src, ev, leaves
+
+    rows = []
+    # the trajectory kernel's low-rank branch
+    l2_line, l2_state = lr["L2"]
+    l2_fac = _shared_lowrank_factor(l2_state.potential, True)
+    ms, src, ev, leaves = traj_time(state_args(l2_state, "lowrank"), "lowrank", l2_fac)
+    c_ms, c_src, _, c_leaves = traj_time(lr_args[0], "lowrank", lr_args[1])
+    # the bound counts the factor's own rank: L2's learned one, 2m's the
+    # model's spikes
+    bound = _bound_ms(leaves, CHAINS, N, "lowrank", "spiked_gaussian", k,
+                      _fac_rank(l2_fac, N))
+    c_bound = _bound_ms(c_leaves, CHAINS, N, "lowrank", "spiked_gaussian", k,
+                        _fac_rank(lr_args[1], N))
+    rows.append({"name": "nuts_trajectory", "metric": "lowrank", "body": "spiked_gaussian",
+                 "route": "cuda", "source": traj_src, "replaces": traj_tpu,
+                 "launches": l2_line["kernel_launches"]["trajectory"],
+                 "max_abs_err": lr_cmp[0], "ms": ms, "ms_source": src, "events_ms": ev,
+                 "plain_ms": lr_cmp[1], "bound_ms": bound[0], "bound_by": bound[1],
+                 "library_ms": None, "mean_leaves": leaves / CHAINS,
+                 "fac_rank": _fac_rank(l2_fac, N), "check_ms": c_ms,
+                 "check_bound_ms": c_bound[0], "check_mean_leaves": c_leaves / CHAINS})
+    # body 4 at kDiag: 2m's input, and L0's final state
+    l0_line, l0_state = lr["L0"]
+    ms4, src4, ev4, leaves4 = traj_time(sg_args, "diag")
+    m_ms, _, _, m_leaves = traj_time(state_args(l0_state, "diag"), "diag", reps=5)
+    b4 = _bound_ms(leaves4, 256, N, "diag", "spiked_gaussian", k)
+    mb4 = _bound_ms(m_leaves, CHAINS, N, "diag", "spiked_gaussian", k)
+    rows.append({"name": "nuts_trajectory", "metric": "diag", "body": "spiked_gaussian",
+                 "route": "cuda", "source": traj_src, "replaces": traj_tpu,
+                 "launches": l0_line["kernel_launches"]["trajectory"],
+                 "max_abs_err": sg_cmp[0], "ms": ms4, "ms_source": src4, "events_ms": ev4,
+                 "chains": 256, "plain_ms": sg_cmp[1], "bound_ms": b4[0], "bound_by": b4[1],
+                 "library_ms": None, "main_chains": CHAINS, "main_ms": m_ms,
+                 "main_bound_ms": mb4[0], "main_mean_leaves": m_leaves / CHAINS})
+    # body 4 in the HMC kernel, 2m's input
+    hkw = dict(spec=spec, Emax=1000.0)
+    h_ev = _cuda_time_ms(lambda: hmc_trajectory(*sg_hargs, (3, 8), **hkw), reps=20, warmup=2)
+    h_ms, h_src = _device_ms(lambda: hmc_trajectory(*sg_hargs, (3, 8), **hkw),
+                             "hmc_trajectory", 20, h_ev)
+    hb = _hmc_bound_ms(int(sg_hargs[5].sum()), 256, N, "spiked_gaussian", k)
+    rows.append({"name": "hmc_trajectory", "metric": "diag", "body": "spiked_gaussian",
+                 "route": "cuda", "source": "littlemcmc_torch/ops/csrc/hmc_trajectory.cu",
+                 "replaces": "littlemcmc_tpu/ops/hmc_trajectory_pallas.py:273", "launches": 0,
+                 "max_abs_err": sg_hmc_cmp[0], "ms": h_ms, "ms_source": h_src,
+                 "events_ms": h_ev, "chains": 256, "plain_ms": sg_hmc_cmp[1],
+                 "bound_ms": hb[0], "bound_by": hb[1], "library_ms": None})
+    # the fused kernels' low-rank branch
+    for step, label, op in (("nuts", "L1", fused_nuts), ("hmc", "L3", fused_hmc)):
+        (k_ms, p_ms, _, work, ev_ms), err = lr_fused[step]
+        bound = _fused_diag_bound_ms(work, 256, N, 2, False, "spiked_gaussian", step, k,
+                                     _fac_rank(_model_fac(sg, DEVICE), N))
+        line, state = lr[label]
+        pot, da = state.potential, state.da
+        fac = _shared_lowrank_factor(pot, True)
+        fargs = (state.q, state.q_grad, state.logp, state.iter_count.float(), da.log_step,
+                 da.log_bar, da.hbar, da.count.float(), da.mu, pot.var.contiguous(), None)
+        fkw = dict(spec=spec, T=250, tuning=False, metric="lowrank", fac=fac,
+                   config=NUTSConfig() if step == "nuts" else HMCConfig(),
+                   chain_block=CHAIN_BLOCK)
+        work_c = int(op(*fargs, (5, 9), **fkw)[FUSED_STEPS[step]["work"]].sum())
+        c_ev = _cuda_time_ms(lambda: op(*fargs, (5, 9), **fkw), reps=3, warmup=0)
+        c_ms, c_src = _device_ms(lambda: op(*fargs, (5, 9), **fkw), f"fused_{step}", 3, c_ev)
+        c_bound = _fused_diag_bound_ms(work_c, CHAINS, N, 250, False, "spiked_gaussian", step,
+                                       k, _fac_rank(fac, N))
+        rows.append({"name": f"fused_{step}", "metric": "lowrank", "body": "spiked_gaussian",
+                     "route": "cuda",
+                     "source": f"littlemcmc_torch/ops/csrc/fused_{step}.cu",
+                     "replaces": ("littlemcmc_tpu/ops/fused_nuts_pallas.py:978" if step == "nuts"
+                                  else "littlemcmc_tpu/ops/fused_hmc_pallas.py:511"),
+                     "launches": line["kernel_launches"][f"fused_{step}"], "max_abs_err": err,
+                     "ms": k_ms, "events_ms": ev_ms, "chains": 256, "draws": 2,
+                     "plain_ms": p_ms, "bound_ms": bound[0], "bound_by": bound[1],
+                     "library_ms": None, "chunk_draws": 250, "chunk_ms": c_ms,
+                     "chunk_ms_source": c_src, "chunk_bound_ms": c_bound[0],
+                     "chunk_bound_by": c_bound[1]})
+    _fused_path_breakdown(sg, "nuts", dict(model_ndim=N, chains=CHAINS, tune=TUNE, draws=DRAWS,
+                                           init="jitter+adapt_lowrank"),
+                          draw_chunks=4, label="_lowrank")
+    _fused_path_breakdown(sg, "hmc", dict(model_ndim=N, chains=CHAINS, tune=TUNE, draws=DRAWS,
+                                          init="jitter+adapt_lowrank",
+                                          step=HamiltonianMC(model_ndim=N)),
+                          draw_chunks=4, label="_lowrank")
+    _breakdown(sg, l2_state, gen, label="_lowrank_per_draw", pooled=True)
+    _line(phase="lowrank_timing_done", elapsed_s=f"{time.perf_counter() - t_start:.1f}")
+    return rows
+
+
 def main() -> int:
     if not (ROOT / "littlemcmc_torch" / "ops" / "csrc").is_dir():
         print("chip_smoke.py must run from a littlemcmc checkout "
@@ -1690,7 +2008,7 @@ def main() -> int:
     from littlemcmc_torch import NUTS, HamiltonianMC, sample
     from littlemcmc_torch.base import HMCConfig, NUTSConfig
     from littlemcmc_torch.models import (CorrelatedGaussian, EightSchools, LogisticRegression,
-                                         StandardNormal)
+                                         SpikedGaussian, StandardNormal)
     from littlemcmc_torch.ops.fused_hmc import fused_hmc
     from littlemcmc_torch.ops.fused_nuts import fused_nuts
     from littlemcmc_torch.ops.hmc_trajectory import hmc_trajectory, hmc_trajectory_plain
@@ -1774,6 +2092,28 @@ def main() -> int:
     lg_hargs = _hmc_inputs(lg, None, 256, 0.25, 20)
     lg_hmc_err, lg_hmc_plain_ms = _compare_hmc(lg, lg_hargs, (131, 137), need=0.99,
                                                scaled=True)
+    # 2m. the trajectory kernel's low-rank branch (body 4 at 1024 chains,
+    # body 1 at 256), the spiked body (4) in the kDiag trajectory kernel and
+    # in the HMC kernel (256 chains)
+    sg = SpikedGaussian(N)
+    lr_args = _lowrank_inputs(sg, CHAINS, 0.5, seed=23)
+    lr_err, lr_plain_ms = _compare("spiked_gaussian", sg, lr_args[0], (139, -149), need=0.99,
+                                   metric="lowrank", fac=lr_args[1])
+    cg_args, cg_fac = _lowrank_inputs(cg, 256, 0.5, seed=24)
+    _compare("correlated_gaussian", cg, cg_args, (151, 157), need=0.99, metric="lowrank",
+             fac=cg_fac)
+    sg_args = _posterior_inputs(sg, 256, 0.1, seed=25)
+    sg_err, sg_plain_ms = _compare("spiked_gaussian", sg, sg_args, (163, 167), need=0.99)
+    sg_hargs = _hmc_inputs(sg, None, 256, 0.1, 26)
+    sg_hmc_err, sg_hmc_plain_ms = _compare_hmc(sg, sg_hargs, (173, 179), need=0.99)
+    # 2n. the fused kernels' low-rank branch with body 4, 256 chains: a
+    # 2-draw draw chunk, and a 4-draw tune chunk with the per-chain Welford
+    # steps across a window swap and dual averaging on
+    lr_fused = {}
+    for step in ("nuts", "hmc"):
+        draw = _compare_fused(2, False, True, 27, (181, 7), step, sg, "lowrank", chains=256)
+        tune = _compare_fused(4, True, True, 28, (191, 11), step, sg, "lowrank", chains=256)
+        lr_fused[step] = (draw, max(draw[2], tune[2]))
     _line(phase="kernel_checks", elapsed_s=f"{time.perf_counter() - t_start:.1f}")
 
     # --- 3. the main path -------------------------------------------------------
@@ -1945,6 +2285,10 @@ def main() -> int:
           per_draw_sample_seconds=report["sample_seconds"],
           elapsed_s=f"{time.perf_counter() - t_start:.1f}")
 
+    # 3o-3r. the low-rank cells on the spiked Gaussian: L1-L3 and L0, the
+    # diag contrast
+    lr = _lowrank_cells(smi, sg, reset_counts, counts, t_start)
+
     # 3l-3n. logistic regression on the tree (path A) and on the trajectory
     # kernel (path B); per-chain dense adaptation on the tree (T2)
     tp = _tree_paths(smi, lg, reset_counts, counts, model_ops, t_start)
@@ -2114,6 +2458,12 @@ def main() -> int:
     # 4f. the logistic paths' breakdowns and kernel times
     lt = _logistic_timing(lg, tp, lg_args, lg_hargs, gen, t_start)
 
+    # 4g. the low-rank kernels and the spiked body at the L cells' final
+    # states, and where L1 and L2 spend their time
+    lr_rows = _lowrank_timing(sg, lr, lr_args, (lr_err, lr_plain_ms), sg_args,
+                              (sg_err, sg_plain_ms), sg_hargs, (sg_hmc_err, sg_hmc_plain_ms),
+                              lr_fused, gen, t_start)
+
     traj_src = "littlemcmc_torch/ops/csrc/nuts_trajectory.cu"
     traj_tpu = "littlemcmc_tpu/ops/nuts_trajectory_pallas.py:1023"
     fn_src, fn_tpu = ("littlemcmc_torch/ops/csrc/fused_nuts.cu",
@@ -2243,7 +2593,7 @@ def main() -> int:
          "bound_by": fh_bound_by,
          "library_ms": None, "chunk_draws": 250, "chunk_ms": fh_ms,
          "chunk_bound_ms": fh_chunk_bound_ms, "chunk_bound_by": fh_chunk_bound_by},
-    ] + es_rows + lg_rows}), flush=True)
+    ] + es_rows + lg_rows + lr_rows}), flush=True)
     _line(phase="done", elapsed_s=f"{time.perf_counter() - t_start:.1f}")
     print(smi, flush=True)
     print(json.dumps({"ok": True, "device": {"platform": "gpu",

@@ -13,7 +13,7 @@ This package imports PyTorch, numpy and the standard library only.
 
 from .base import ChainState, HMCConfig, NUTSConfig
 from .exceptions import IntegrationError, ParallelSamplingError, SamplingError
-from .quadpotential import QuadPotentialDiag, QuadPotentialDiagAdapt
+from .quadpotential import QuadPotentialDiag, QuadPotentialDiagAdapt, QuadPotentialLowRankAdapt
 from .report import SamplerWarning, WarningType
 from .sampling import NUTS, HamiltonianMC, init_nuts, sample
 
@@ -27,6 +27,7 @@ __all__ = [
     "ChainState",
     "QuadPotentialDiag",
     "QuadPotentialDiagAdapt",
+    "QuadPotentialLowRankAdapt",
     "SamplerWarning",
     "WarningType",
     "SamplingError",

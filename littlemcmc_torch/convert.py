@@ -16,14 +16,18 @@ and the metric's leaves, by kind:
   ``potential.fg.{n_samples, mean, raw_cov}``, ``potential.bg.{...}``,
   ``potential.{n_samples, prev_update, window}``.
 
-- ``QuadPotentialFullInv``: ``potential.chol``.
+- ``QuadPotentialFullInv``: ``potential.chol``;
+- ``QuadPotentialLowRankAdapt``: the diag adaptation's leaves, then
+  ``potential.{vecs, lam, alpha, lam_w, lam_s2, alpha_s2, buf, buf_pos,
+  buf_fill}``.
 
 (``rng_key`` is ignored: the port draws from ``torch.Generator`` objects.)
 :func:`chain_state_from_numpy` builds the port's :class:`ChainState` with
 the metric the leaves name, and :func:`chain_state_to_numpy` is its
-inverse. A metric's static fields (``window_multiplier`` and the dense
-adaptation's ``update_window`` and ``regularize``) are not leaves: pass
-them as keywords. :func:`spec_consts_from_numpy`
+inverse. A metric's static fields (``window_multiplier``, the dense
+adaptation's ``update_window`` and ``regularize``, the low-rank one's
+``lam_clip``) are not leaves: pass them as keywords (the low-rank
+``rank`` and ``buffer_size`` are read from the leaves' shapes). :func:`spec_consts_from_numpy`
 turns a JAX model spec's constants, zero-padded to the TPU kernel's lane
 width, into the port's unpadded ones. :func:`phase_state_from_numpy` and
 :func:`tree_node_from_numpy` carry the tensor-op tree's ``PhaseState`` and
@@ -41,7 +45,8 @@ import torch
 from .base import ChainState
 from .nuts import PhaseState, TreeNode
 from .quadpotential import (QuadPotentialDiagAdapt, QuadPotentialFull, QuadPotentialFullAdapt,
-                            QuadPotentialFullInv, WelfordCovariance, WelfordVariance)
+                            QuadPotentialFullInv, QuadPotentialLowRankAdapt,
+                            WelfordCovariance, WelfordVariance)
 from .step_sizes import DualAverageState
 
 __all__ = ["chain_state_from_numpy", "chain_state_to_numpy", "spec_consts_from_numpy",
@@ -50,6 +55,9 @@ __all__ = ["chain_state_from_numpy", "chain_state_to_numpy", "spec_consts_from_n
 _WELFORD = ("w_sum", "w_sum2", "mean", "raw_var")
 _WELFORD_COV = ("n_samples", "mean", "raw_cov")
 _DA = ("log_step", "log_bar", "hbar", "count", "mu")
+_DIAG_ADAPT = ("var", "stds", "inv_stds", "n_samples", "window")
+_LOWRANK = ("vecs", "lam", "alpha", "lam_w", "lam_s2", "alpha_s2", "buf", "buf_pos",
+            "buf_fill")
 
 
 def _t(x, device, dtype=None) -> torch.Tensor:
@@ -66,6 +74,15 @@ def _potential_from_numpy(d, device, window_multiplier, **static):
         return cls(*(leaf(f"{side}.{k}") for k in names))
 
     mult = {} if window_multiplier is None else {"window_multiplier": float(window_multiplier)}
+    if "potential.vecs" in d:
+        lowrank = {k: leaf(k, i32 if k.startswith("buf_") else f32) for k in _LOWRANK}
+        return QuadPotentialLowRankAdapt(
+            var=leaf("var"), stds=leaf("stds"), inv_stds=leaf("inv_stds"),
+            fg=welford(WelfordVariance, "fg", _WELFORD),
+            bg=welford(WelfordVariance, "bg", _WELFORD),
+            n_samples=leaf("n_samples", i32), window=leaf("window", i32), **lowrank,
+            rank=int(lowrank["vecs"].shape[-1]), buffer_size=int(lowrank["buf"].shape[-2]),
+            **mult, **static)
     if "potential.var" in d:
         return QuadPotentialDiagAdapt(
             var=leaf("var"), stds=leaf("stds"), inv_stds=leaf("inv_stds"),
@@ -91,7 +108,8 @@ def chain_state_from_numpy(d: Dict[str, np.ndarray], device=None,
 
     ``window_multiplier`` (default: the metric class's own) and
     ``static`` (``update_window``, ``regularize`` of the dense adaptation)
-    set the metric's non-leaf fields."""
+    set the metric's non-leaf fields; ``static`` also takes the low-rank
+    metric's ``lam_clip``."""
     f32, i32 = torch.float32, torch.int32
     da = DualAverageState(*(_t(d[f"da.{k}"], device, i32 if k == "count" else f32)
                             for k in _DA))
@@ -106,8 +124,10 @@ def chain_state_to_numpy(state: ChainState) -> Dict[str, np.ndarray]:
     pot = state.potential
     out = {"q": state.q, "q_grad": state.q_grad, "logp": state.logp,
            "iter_count": state.iter_count}
-    if isinstance(pot, QuadPotentialDiagAdapt):
-        names, welford = ("var", "stds", "inv_stds", "n_samples", "window"), _WELFORD
+    if isinstance(pot, QuadPotentialLowRankAdapt):
+        names, welford = _DIAG_ADAPT + _LOWRANK, _WELFORD
+    elif isinstance(pot, QuadPotentialDiagAdapt):
+        names, welford = _DIAG_ADAPT, _WELFORD
     elif isinstance(pot, QuadPotentialFullAdapt):
         names = ("cov", "chol", "chol_failed", "n_samples", "prev_update", "window")
         welford = _WELFORD_COV

@@ -13,10 +13,12 @@ Counterpart of ``littlemcmc_tpu/hmc.py``:
   the metric's Welford update;
 - :func:`build_fused_hmc_runner_factory` (``:285-552``), the fused engine
   for a diagonal metric (static, or adapted per chain and pooled at chunk
-  boundaries or not), a static dense or a pooled adaptive dense metric: one
-  fused-op launch per chunk of draws.
+  boundaries or not), a static dense, a pooled adaptive dense or the pooled
+  low-rank metric: one fused-op launch per chunk of draws.
 
-The low-rank metric and ``step_rand`` are not ported yet.
+A low-rank metric on the per-draw engine runs the tensor-op trajectory
+(the HMC trajectory kernel is diagonal-only). ``step_rand`` is not ported
+yet.
 """
 
 from __future__ import annotations
@@ -169,7 +171,9 @@ def build_fused_hmc_runner_factory(config: HMCConfig, trajectory_spec: Trajector
     ``pooled``); a static ``QuadPotentialFull`` with the frozen metric; a
     pooled ``QuadPotentialFullAdapt``, which carries the block-local pooled
     Welford state through its tune chunks and refreshes the shared metric
-    at each chunk boundary, with tune chunks from
+    at each chunk boundary; a pooled ``QuadPotentialLowRankAdapt``, its
+    variances adapted per chain in the kernel and its factor refreshed at
+    each tune chunk's boundary; the last two with tune chunks from
     :func:`~littlemcmc_torch.base.pooled_tune_schedule` (reference
     ``hmc.py:285-552``).
     """
@@ -177,27 +181,27 @@ def build_fused_hmc_runner_factory(config: HMCConfig, trajectory_spec: Trajector
     if trajectory_spec is None:
         raise NotImplementedError("the fused HMC kernel needs a model with a "
                                   "trajectory_spec() (StandardNormal, CorrelatedGaussian, "
-                                  "EightSchools, LogisticRegression)")
-    mult = (potential_template.window_multiplier
-            if kind in ("diag_adapt", "dense_pooled") else 1.0)
+                                  "SpikedGaussian, EightSchools, LogisticRegression)")
+    mult = (1.0 if kind.endswith("static") else potential_template.window_multiplier)
     w0, w1 = seed_words
     chain_block = config.chain_block or DEFAULT_CHAIN_BLOCK
 
     def factory(chunk: int, tuning: bool, collect: bool):
         def run_chunk(state: ChainState, iter0: int):
             pot = state.potential
-            metric, var, linv, welford, dense_welford = fused_metric_inputs(kind, pot, tuning)
+            m = fused_metric_inputs(kind, pot, tuning)
             da = state.da
             outs = fused_hmc(
                 state.q, state.q_grad, state.logp, state.iter_count.to(torch.float32),
                 da.log_step, da.log_bar, da.hbar, da.count.to(torch.float32), da.mu,
-                var, linv, ((w0 + iter0 * 15485863) & 0xFFFFFFFF, w1),
+                m["var"], m["linv"], ((w0 + iter0 * 15485863) & 0xFFFFFFFF, w1),
                 spec=trajectory_spec, T=chunk, tuning=bool(tuning), config=config,
-                metric=metric, window_multiplier=mult, chain_block=chain_block,
-                collect_trace=collect, welford=welford, dense_welford=dense_welford)
+                metric=m["metric"], window_multiplier=mult, chain_block=chain_block,
+                collect_trace=collect, welford=m["welford"],
+                dense_welford=m["dense_welford"], fac=m["fac"])
             new_state = ChainState(
                 q=outs["q"], q_grad=outs["grad"], logp=outs["logp"],
-                potential=fused_metric_after(pot, outs, tuning, pooled, dense_welford,
+                potential=fused_metric_after(pot, outs, tuning, pooled, m["dense_welford"],
                                              state.q.shape[0]),
                 da=DualAverageState(log_step=outs["da_log_step"],
                                     log_bar=outs["da_log_bar"], hbar=outs["da_hbar"],
@@ -218,8 +222,8 @@ def build_fused_hmc_runner_factory(config: HMCConfig, trajectory_spec: Trajector
 
         return run_chunk
 
-    if kind == "dense_pooled":
-        # the metric refreshes only at chunk boundaries, so the tune chunks
-        # are the adaptation schedule (reference hmc.py:539-552)
+    if kind in ("dense_pooled", "lowrank_pooled"):
+        # the shared metric refreshes only at chunk boundaries, so the tune
+        # chunks are the adaptation schedule (reference hmc.py:539-552)
         factory.tune_chunk_schedule = pooled_tune_schedule
     return factory

@@ -6,7 +6,8 @@ Counterpart of ``littlemcmc_tpu/nuts.py``:
   tensor ops with the model called as a function: the engine for a model
   without a kernel body (a plain closure, a numpy callable, a batched
   model kernel such as the logistic one), and for metrics the kernels do
-  not take (per-chain dense adaptation, ``QuadPotentialFullInv``). It
+  not take (per-chain dense and low-rank adaptation,
+  ``QuadPotentialFullInv``). It
   keeps the JAX code's structure (``nuts.py:1-47``): one scalar schedule
   for every chain (depth, leaf index, merge count, stack height), the
   merge stack ``_build_subtree`` replaying the reference's recursion, and
@@ -17,17 +18,21 @@ Counterpart of ``littlemcmc_tpu/nuts.py``:
 - :func:`build_nuts_kernel` (``:682-917``), the per-draw engine: fresh
   momentum, the step size from dual averaging, the early tree-depth cap,
   then either one trajectory-kernel launch for all chains (diag metrics,
-  a static dense metric, or a pooled adaptive dense metric,
-  ``_shared_dense_cov`` ``:642-659``) or :func:`run_nuts_tree` with the
+  a static dense metric, a pooled adaptive dense metric,
+  ``_shared_dense_cov`` ``:642-659``, or the pooled low-rank metric,
+  ``_shared_lowrank_factor`` ``:662-680``) or :func:`run_nuts_tree` with the
   proposal's gradient recomputed once, then the dual-averaging and
   metric updates;
 - :func:`build_fused_nuts_runner_factory` (``:1006-1326``), the fused
   engine: one fused-op launch per chunk of draws, for a static or an
   adaptive diagonal metric, per chain or pooled at chunk boundaries
   (``diag_static``, ``diag_adapt``, the pooled diag of ``:1259-1271``), a
-  static dense metric, or the pooled dense metric refreshed at chunk
+  static dense metric, the pooled dense metric refreshed at chunk
   boundaries (``_pool_dense_welford`` ``:927-950``,
-  ``_dense_boundary_potential`` ``:967-1003``).
+  ``_dense_boundary_potential`` ``:967-1003``), or the pooled low-rank
+  metric: its variances adapted per chain in the kernel, its factor frozen
+  for a chunk and refreshed at tune chunks' boundaries (``:1053-1135``,
+  ``:1228-1250``).
 
 The tree's random calls (the key splits ``_split_each`` ``:140``, the
 direction's Bernoulli ``:491`` and ``_logbern_b`` ``:146``) go through one
@@ -35,8 +40,6 @@ object, a *tree random source*: :class:`GeneratorTreeRandom` draws from a
 ``torch.Generator`` (Philox on the card) with opaque placeholder keys; a
 test can pass one that wraps ``jax.random`` with threefry keys, so the
 port's tree and the JAX package's build the same trees chain for chain.
-
-The fused low-rank branch and the low-rank metric are not ported yet.
 """
 
 from __future__ import annotations
@@ -50,19 +53,21 @@ from .base import BatchedLogpGrad, ChainState, NUTSConfig, finish_step, pooled_t
 from .integration import INTEGRATOR_COEFFS
 from .math import log1mexp
 from .ops.fused_nuts import WELFORD_KEYS, combine_dense_welford, fused_nuts
-from .ops.nuts_trajectory import DEFAULT_CHAIN_BLOCK, TrajectorySpec, _rowdot, trajectory
-from .parallel.cross_chain import cross_chain_potential_pool
+from .ops.nuts_trajectory import (DEFAULT_CHAIN_BLOCK, TrajectorySpec, _rowdot,
+                                  build_lowrank_fac, trajectory)
+from .parallel.cross_chain import cross_chain_potential_pool, lowrank_boundary_refresh
 from .quadpotential import (QuadPotentialDiag, QuadPotentialDiagAdapt, QuadPotentialFull,
-                            QuadPotentialFullAdapt, WelfordCovariance, cholesky_or_keep)
+                            QuadPotentialFullAdapt, QuadPotentialLowRankAdapt,
+                            WelfordCovariance, cholesky_or_keep)
 from .step_sizes import DualAverageState
 
 __all__ = ["NUTSInfo", "PhaseState", "TreeNode", "TreeResult", "GeneratorTreeRandom",
            "run_nuts_tree", "build_nuts_kernel", "build_fused_nuts_runner_factory"]
 
 _NO_SPEC = ("the fused NUTS kernel inlines a model body: it needs a model with a "
-            "trajectory_spec() (StandardNormal, CorrelatedGaussian, EightSchools, "
-            "LogisticRegression); other models run on the per-draw engine's tensor-op "
-            "tree (run_nuts_tree)")
+            "trajectory_spec() (StandardNormal, CorrelatedGaussian, SpikedGaussian, "
+            "EightSchools, LogisticRegression); other models run on the per-draw engine's "
+            "tensor-op tree (run_nuts_tree)")
 
 
 class NUTSInfo(NamedTuple):
@@ -457,14 +462,29 @@ def _shared_dense_cov(potential, pooled: bool = False) -> Optional[torch.Tensor]
     return None
 
 
+def _shared_lowrank_factor(potential, pooled: bool = False):
+    """The factor block of a pooled low-rank metric, or None (reference
+    ``nuts.py:662-680``): row 0's ``(V, lam, alpha)``, which the pool keeps
+    the same for every chain. Per-chain low-rank adaptation keeps a basis
+    per chain, which no kernel models: it runs on the tree."""
+    if pooled and isinstance(potential, QuadPotentialLowRankAdapt):
+        return build_lowrank_fac(potential.vecs[0], potential.lam[0], potential.alpha[0])
+    return None
+
+
 def trajectory_metric(potential, pooled: bool):
-    """``(metric, var)`` of the trajectory kernel for a chain-batched
-    metric, or None where the kernel does not take it (per-chain dense
-    adaptation, ``QuadPotentialFullInv``): such a metric runs on the tree."""
+    """``(metric, var, fac)`` of the trajectory kernel for a chain-batched
+    metric (``fac`` the low-rank metric's factor block, ``var`` then the
+    chains' scales), or None where the kernel does not take it (per-chain
+    dense and low-rank adaptation, ``QuadPotentialFullInv``): such a
+    metric runs on the tree."""
     if isinstance(potential, (QuadPotentialDiag, QuadPotentialDiagAdapt)):
-        return "diag", potential.inverse_mass
+        return "diag", potential.inverse_mass, None
     cov = _shared_dense_cov(potential, pooled)
-    return None if cov is None else ("dense", cov)
+    if cov is not None:
+        return "dense", cov, None
+    fac = _shared_lowrank_factor(potential, pooled)
+    return None if fac is None else ("lowrank", potential.stds.contiguous(), fac)
 
 
 def build_nuts_kernel(config: NUTSConfig = NUTSConfig(),
@@ -480,7 +500,9 @@ def build_nuts_kernel(config: NUTSConfig = NUTSConfig(),
     ``trajectory_spec`` each draw is one trajectory-kernel launch for all
     chains (``pooled_metric``: the state's adaptive dense metric is pooled
     across chains, so its row 0 is the covariance the kernel shares);
-    without one, :func:`run_nuts_tree` calls ``batched_logp_grad_fn``
+    without one (or for a pooled low-rank metric, the pair of the chains'
+    scales and the shared factor block), :func:`run_nuts_tree` calls
+    ``batched_logp_grad_fn``
     (``(C, n) -> ((C,), (C, n))``) at every leaf and once more at the
     proposal (reference ``nuts.py:863-873``).
     """
@@ -521,14 +543,14 @@ def build_nuts_kernel(config: NUTSConfig = NUTSConfig(),
             if metric_var is None:
                 raise ValueError(
                     "the trajectory kernel takes a diagonal metric, a static dense one or "
-                    "a cross-chain pooled adaptive dense one; other metrics run on the "
-                    "tensor-op tree (trajectory_spec=None)")
-            metric, var = metric_var
+                    "a cross-chain pooled adaptive dense or low-rank one; other metrics run "
+                    "on the tensor-op tree (trajectory_spec=None)")
+            metric, var, fac = metric_var
             out = trajectory(state.q, p0, state.q_grad, state.logp, step_size,
                              max_depth_c, var, seed,
                              spec=trajectory_spec, max_treedepth=config.max_treedepth,
                              Emax=config.Emax, chain_block=chain_block,
-                             integrator=config.integrator, metric=metric)
+                             integrator=config.integrator, metric=metric, fac=fac)
             log_size = out["log_size"]
             mta = torch.where(
                 log_size > 0,
@@ -625,8 +647,9 @@ def fused_metric_kind(potential_template, pooled: bool) -> str:
     """Which fused branch runs a metric: ``diag_static``
     (``QuadPotentialDiag``), ``diag_adapt`` (``QuadPotentialDiagAdapt``,
     per chain or, with ``pooled``, pooled at chunk boundaries),
-    ``dense_static`` (``QuadPotentialFull``) or ``dense_pooled`` (``pooled``
-    and ``QuadPotentialFullAdapt``); raises for any other (reference
+    ``dense_static`` (``QuadPotentialFull``), ``dense_pooled`` (``pooled``
+    and ``QuadPotentialFullAdapt``) or ``lowrank_pooled`` (``pooled`` and
+    ``QuadPotentialLowRankAdapt``); raises for any other (reference
     ``nuts.py:1059-1072``)."""
     if isinstance(potential_template, QuadPotentialDiagAdapt):
         return "diag_adapt"
@@ -636,42 +659,58 @@ def fused_metric_kind(potential_template, pooled: bool) -> str:
         return "dense_static"
     if pooled and isinstance(potential_template, QuadPotentialFullAdapt):
         return "dense_pooled"
+    if pooled and isinstance(potential_template, QuadPotentialLowRankAdapt):
+        return "lowrank_pooled"
     raise NotImplementedError(
         "the fused kernels of littlemcmc_torch run a diagonal metric, a static dense "
-        "metric or a cross-chain pooled adaptive dense metric; per-chain dense "
-        "adaptation and QuadPotentialFullInv run on the per-draw engine (the tensor-op "
-        "tree for NUTS), and the low-rank branch is ROADMAP Queue 1 item 12")
+        "metric or a cross-chain pooled adaptive dense or low-rank metric; per-chain dense "
+        "and low-rank adaptation and QuadPotentialFullInv run on the per-draw engine (the "
+        "tensor-op tree for NUTS)")
 
 
-def fused_metric_inputs(kind: str, pot, tuning: bool):
-    """``(metric, var, linv, welford, dense_welford)`` of a fused launch
-    from the chunk's starting metric (reference ``nuts.py:1106-1139``): the
-    shared covariance and ``L^{-1}`` (one triangular solve a chunk) with,
-    in pooled tune chunks, the global pooled Welford state; or the
-    per-chain inverse-mass diagonals with, in tune chunks of an adaptive
-    diag metric, its per-chain Welford state (``_fused_welford_tuple``
-    ``:920``). Draw chunks leave an adaptive diag metric as it is, so they
-    pass no Welford state."""
+def fused_metric_inputs(kind: str, pot, tuning: bool) -> dict:
+    """The metric arguments of a fused launch from the chunk's starting
+    metric (reference ``nuts.py:1106-1139``): ``metric``, ``var``, ``linv``,
+    ``welford``, ``dense_welford`` and ``fac``. The shared covariance and
+    ``L^{-1}`` (one triangular solve a chunk) with, in pooled tune chunks,
+    the global pooled Welford state; or the per-chain variances with, in
+    tune chunks of an adaptive diag or low-rank metric, the per-chain
+    Welford state (``_fused_welford_tuple`` ``:920``), and for the low-rank
+    metric the factor block of row 0, frozen for the chunk. Draw chunks
+    leave the variances as they are, so they pass no Welford state."""
+    args = dict(linv=None, welford=None, dense_welford=None, fac=None)
     if kind.startswith("dense"):
         cov = pot.cov[0].contiguous()
         eye = torch.eye(cov.shape[0], dtype=cov.dtype, device=cov.device)
-        linv = torch.linalg.solve_triangular(pot.chol[0], eye, upper=False)
         pooled_tune = tuning and kind == "dense_pooled"
-        return "dense", cov, linv, None, _pool_dense_welford(pot) if pooled_tune else None
-    if kind == "diag_adapt":
-        return "diag", pot.var, None, pot.welford_leaves() if tuning else None, None
-    return "diag", pot.v, None, None, None
+        return dict(args, metric="dense", var=cov,
+                    linv=torch.linalg.solve_triangular(pot.chol[0], eye, upper=False),
+                    dense_welford=_pool_dense_welford(pot) if pooled_tune else None)
+    if kind == "diag_static":
+        return dict(args, metric="diag", var=pot.v)
+    args.update(var=pot.var.contiguous(), welford=pot.welford_leaves() if tuning else None)
+    if kind == "lowrank_pooled":
+        return dict(args, metric="lowrank", fac=_shared_lowrank_factor(pot, True))
+    return dict(args, metric="diag")
 
 
 def fused_metric_after(pot, outs, tuning: bool, pooled: bool, dense_welford, C: int):
     """The metric at the chunk boundary from the fused op's outputs: an
     adaptive diag metric rebuilt from the updated per-chain state and, in
     pooled tune chunks, pooled across chains once (reference
-    ``nuts.py:1223-1274``); the pooled dense metric refreshed from the
-    combined block states (:func:`_dense_boundary_potential`); a static
+    ``nuts.py:1223-1274``); the low-rank metric with its updated variances,
+    ``buf_fill`` set to 0 (the kernel keeps no ring buffer, so a per-draw
+    update must refill it first) and, after a tune chunk,
+    :func:`~littlemcmc_torch.parallel.cross_chain.lowrank_boundary_refresh`
+    on the chunk's last positions; the pooled dense metric refreshed from
+    the combined block states (:func:`_dense_boundary_potential`); a static
     metric as it was."""
     if "var" in outs:
         pot = pot.with_welford_leaves(outs["var"], [outs[k] for k in WELFORD_KEYS])
+    if isinstance(pot, QuadPotentialLowRankAdapt):
+        pot = pot.replace(buf_fill=torch.zeros_like(pot.buf_fill))
+        return lowrank_boundary_refresh(pot, outs["q"]) if tuning else pot
+    if "var" in outs:
         return cross_chain_potential_pool(pot, pooled and tuning)
     if dense_welford is not None:
         return _dense_boundary_potential(pot, outs, dense_welford[0], C)
@@ -705,7 +744,12 @@ def build_fused_nuts_runner_factory(config: NUTSConfig, trajectory_spec: Traject
       carry the block-local pooled Welford state on chip and the epilogue
       refreshes the metric at the chunk boundary
       (:func:`_dense_boundary_potential`); draw chunks run with the frozen
-      post-tune metric. Tune chunks follow :func:`pooled_tune_schedule`.
+      post-tune metric. Tune chunks follow :func:`pooled_tune_schedule`;
+    - pooled low-rank (``pooled`` and ``QuadPotentialLowRankAdapt``): each
+      chain's variances adapt in the kernel through the tune chunks, the
+      factor freezes for each chunk and refreshes at tune chunks'
+      boundaries (:func:`fused_metric_after`); tune chunks follow
+      :func:`pooled_tune_schedule`.
 
     ``seed_words``: the run's two seed words ``(w0, w1)``. Chunk seeds fold
     the global iteration in (``w0 + iter0 * 15485863``), so the draws do not
@@ -714,26 +758,26 @@ def build_fused_nuts_runner_factory(config: NUTSConfig, trajectory_spec: Traject
     kind = fused_metric_kind(potential_template, pooled)
     if trajectory_spec is None:
         raise NotImplementedError(_NO_SPEC)
-    mult = (potential_template.window_multiplier
-            if kind in ("diag_adapt", "dense_pooled") else 1.0)
+    mult = (1.0 if kind.endswith("static") else potential_template.window_multiplier)
     w0, w1 = seed_words
     chain_block = config.chain_block or DEFAULT_CHAIN_BLOCK
 
     def factory(chunk: int, tuning: bool, collect: bool):
         def run_chunk(state: ChainState, iter0: int):
             pot = state.potential
-            metric, var, linv, welford, dense_welford = fused_metric_inputs(kind, pot, tuning)
+            m = fused_metric_inputs(kind, pot, tuning)
             da = state.da
             outs = fused_nuts(
                 state.q, state.q_grad, state.logp, state.iter_count.to(torch.float32),
                 da.log_step, da.log_bar, da.hbar, da.count.to(torch.float32), da.mu,
-                var, linv, ((w0 + iter0 * 15485863) & 0xFFFFFFFF, w1),
+                m["var"], m["linv"], ((w0 + iter0 * 15485863) & 0xFFFFFFFF, w1),
                 spec=trajectory_spec, T=chunk, tuning=bool(tuning), config=config,
-                metric=metric, window_multiplier=mult, chain_block=chain_block,
-                collect_trace=collect, welford=welford, dense_welford=dense_welford)
+                metric=m["metric"], window_multiplier=mult, chain_block=chain_block,
+                collect_trace=collect, welford=m["welford"],
+                dense_welford=m["dense_welford"], fac=m["fac"])
             new_state = ChainState(
                 q=outs["q"], q_grad=outs["grad"], logp=outs["logp"],
-                potential=fused_metric_after(pot, outs, tuning, pooled, dense_welford,
+                potential=fused_metric_after(pot, outs, tuning, pooled, m["dense_welford"],
                                              state.q.shape[0]),
                 da=DualAverageState(log_step=outs["da_log_step"],
                                     log_bar=outs["da_log_bar"], hbar=outs["da_hbar"],
@@ -758,9 +802,10 @@ def build_fused_nuts_runner_factory(config: NUTSConfig, trajectory_spec: Traject
 
         return run_chunk
 
-    if kind == "dense_pooled":
-        # the metric refreshes only at chunk boundaries, so the tune chunks
-        # are the adaptation schedule (reference nuts.py:1309-1326; the
-        # reference's tune_chunk_cap of 50 is never read beside a schedule)
+    if kind in ("dense_pooled", "lowrank_pooled"):
+        # the shared metric refreshes only at chunk boundaries, so the tune
+        # chunks are the adaptation schedule (reference nuts.py:1309-1326;
+        # the reference's tune_chunk_cap of 50 is never read beside a
+        # schedule)
         factory.tune_chunk_schedule = pooled_tune_schedule
     return factory

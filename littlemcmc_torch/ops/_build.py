@@ -95,7 +95,8 @@ _F = ctypes.c_float
 _SIGNATURES = {
     "nuts_trajectory": {
         "nuts_trajectory_launch": (
-            _I, [_P, _P, _P, _P, _P, _P, _P,  # q p g var logp eps mdc
+            _I, [_P, _P, _P, _P, _P,          # q p g var fac
+                 _P, _P, _P,                  # logp eps mdc
                  _U, _U, _I, _I, _P, _I,      # seed0 seed1 body metric consts rows
                  _I, _I, _I, _F, _I, _I, _P,  # C n D Emax cb n_stages coef
                  _P,                          # stack

@@ -1,12 +1,12 @@
 // Device helpers the fused multi-draw kernels share (fused_nuts.cu and
-// fused_hmc.cu): the dense and diag momenta, dual averaging, the
+// fused_hmc.cu): the dense, diag and low-rank momenta, dual averaging, the
 // block-local pooled dense Welford state and the per-chain diag Welford
 // state.
 //
 // Counterparts of the JAX fused kernels' helpers in
 // littlemcmc_tpu/ops/fused_nuts_pallas.py, which fused_hmc_pallas.py
-// imports from there: _boxmuller_std (:134) with _dense_momentum (:154)
-// and _boxmuller_momentum (:143), _da_update_cols (:399),
+// imports from there: _boxmuller_std (:134) with _dense_momentum (:154),
+// _boxmuller_momentum (:143) and _lowrank_momentum (:169), _da_update_cols (:399),
 // _dense_welford_batch_add (:246), _dense_welford_swap_and_count (:267)
 // and _welford_update_rows (:418).
 
@@ -45,6 +45,30 @@ __device__ __forceinline__ void dense_momentum(uint32_t mbase, uint32_t s1u, int
 __device__ __forceinline__ void diag_momentum(uint32_t mbase, uint32_t s1u, int w, int Npad,
                                               const float* V, float* p, int n, int lane) {
     for (int i = lane; i < n; i += 32) p[i] = boxmuller_normal(mbase, s1u, w, Npad, i) / sqrtf(V[i]);
+}
+
+// The low-rank metric's momentum p = S^-1 (alpha^-1/2 z + sum_j V_j d_j),
+// d_j = (V^T z)_j (lam_j^-1/2 - alpha^-1/2) (_lowrank_momentum :169-192),
+// for the chain's scales s and the factor block fac (nuts_transition.cuh,
+// kLowRank): the normals z of diag_momentum's stream into the scratch
+// vector z, then the thin matvecs of lowrank_velocity.
+__device__ __forceinline__ void lowrank_momentum(uint32_t mbase, uint32_t s1u, int w, int Npad,
+                                                 const float* s, const float* fac, float* z,
+                                                 float* p, int n, int lane) {
+    for (int i = lane; i < n; i += 32) z[i] = boxmuller_normal(mbase, s1u, w, Npad, i);
+    __syncwarp();
+    float c[kMaxRank];
+    thin_dots<false>(z, nullptr, fac, kMaxRank, n, lane, c);
+    const float* cmom = fac + (size_t)kMaxRank * (n + 1);
+    const float ah = fac[(size_t)kMaxRank * (n + 2) + 1];
+#pragma unroll
+    for (int j = 0; j < kMaxRank; ++j) c[j] = c[j] * cmom[j];
+    for (int i = lane; i < n; i += 32) {
+        float acc = 0.f;
+#pragma unroll
+        for (int j = 0; j < kMaxRank; ++j) acc = acc + fac[(size_t)j * n + i] * c[j];
+        p[i] = (ah * z[i] + acc) / s[i];
+    }
 }
 
 // One chain's dual-averaging state (reference step_sizes.py:85-92), the

@@ -1,11 +1,15 @@
 // T classic-HMC transitions per launch: the fused multi-draw HMC kernel,
-// for a shared dense metric or a per-chain inverse-mass diagonal.
+// for a shared dense metric, a per-chain inverse-mass diagonal or the
+// pooled low-rank metric.
 //
 // Replaces the TPU kernel littlemcmc_tpu/ops/fused_hmc_pallas.py::
 // build_fused_hmc_op (kernel :161, pallas_call at :511) for metric="dense",
 // static (draw chunks) and with adapt_dense (pooled dense adaptation in
-// tune chunks), and for metric="diag", static and with adapt_metric (the
-// per-chain dual-window Welford adaptation in tune chunks). The plain
+// tune chunks), for metric="diag", static and with adapt_metric (the
+// per-chain dual-window Welford adaptation in tune chunks), and for
+// metric="lowrank" (:118-132, :258-277): the per-chain variances V adapted
+// as kDiag's, the scales sqrt(V) recomputed each draw, the factor block
+// frozen for the launch in shared memory (fused_nuts.cu's scheme). The plain
 // PyTorch version it is held against is ops/fused_hmc.py::fused_hmc_plain.
 //
 // Mapping. fused_nuts.cu's layout: one thread block is one chain block of
@@ -15,8 +19,9 @@
 // shared memory; logp, the iteration counter, the dual-averaging state and
 // the Welford counters in registers) stays on chip across draws. Per draw
 // and chain, in the JAX body's order (:251-325):
-//   1. the momentum p = z @ L^-1 (kDense) or p = z / sqrt(V) (kDiag, V at
-//      :257, :279), z from calls 1 and 2 of the row stream (base word
+//   1. the momentum p = z @ L^-1 (kDense), p = z / sqrt(V) (kDiag, V at
+//      :257, :279) or the low-rank one (kLowRank, fused_common.cuh::
+//      lowrank_momentum), z from calls 1 and 2 of the row stream (base word
 //      seed0, lanes row * Npad + col);
 //   2. path_u, call 3 of the chain's stream, and
 //      n_steps = clamp(floor(path_u * path_length / eps), 1, max_steps);
@@ -25,8 +30,9 @@
 //      stream;
 //   4. the stats (_H_* at :82-84);
 //   5. dual averaging on the accept statistic, when adapting;
-//   6. tune chunks, kDiag with adapt_metric: the chain's Welford step on
-//      the selected state, which refreshes V for the next draw (:311-313);
+//   6. tune chunks, kDiag and kLowRank with adapt_metric: the chain's
+//      Welford step on the selected state, which refreshes V for the next
+//      draw (:311-313);
 //      kDense with adapt_dense: the block-local pooled Welford adds of the
 //      block's CB new positions to both windows, then the swap;
 //   7. the trace row.
@@ -100,10 +106,13 @@ __device__ __forceinline__ T* arg(const Args& A, int k) {
 }
 
 // vectors a warp keeps in shared memory: q, grad, the trajectory's q, p,
-// g, the normals z and the velocity (kDense) or V (kDiag), then for kDiag
-// the four Welford rows
+// g, the normals z and the velocity (kDense, kLowRank) or V (kDiag), then
+// for kDiag and kLowRank the four Welford rows, and for kLowRank the scales
+// and V
 template <int METRIC>
-__host__ __device__ constexpr int n_fused_vecs() { return METRIC == kDense ? 7 : 11; }
+__host__ __device__ constexpr int n_fused_vecs() {
+    return METRIC == kDense ? 7 : METRIC == kDiag ? 11 : 13;
+}
 
 template <int BODY, int METRIC>
 __global__ void __launch_bounds__(32 * kMaxChainBlock) fused_hmc_kernel(Args A) {
@@ -126,6 +135,9 @@ __global__ void __launch_bounds__(32 * kMaxChainBlock) fused_hmc_kernel(Args A) 
     float* vel = warp_vec(smem, 6, cb, w, n);  // kDiag: V
     DiagWelford::Rows wrows{warp_vec(smem, 7, cb, w, n), warp_vec(smem, 8, cb, w, n),
                             warp_vec(smem, 9, cb, w, n), warp_vec(smem, 10, cb, w, n)};
+    // kLowRank: the chain's scales and its variances V (kDiag keeps V in vel)
+    float* scales = METRIC == kLowRank ? warp_vec(smem, 11, cb, w, n) : nullptr;
+    float* vrow = METRIC == kLowRank ? warp_vec(smem, 12, cb, w, n) : vel;
     float* wel_sh = smem + (size_t)n_fused_vecs<METRIC>() * cb * n;
     float* after = wel_sh + (METRIC == kDense ? 5 * n : 0);
 
@@ -134,6 +146,10 @@ __global__ void __launch_bounds__(32 * kMaxChainBlock) fused_hmc_kernel(Args A) 
     if (A.lam_in_smem) after += body_floats(BODY, n, K.rows);
     if (METRIC == kDense && A.cov_in_smem) {
         for (int k = tid; k < n * n; k += nthreads) after[k] = K.cov[k];
+        K.cov = after;
+    }
+    if constexpr (METRIC == kLowRank) {  // the factor block, in kCov's place
+        for (int k = tid; k < lowrank_fac_floats(n); k += nthreads) after[k] = K.cov[k];
         K.cov = after;
     }
     const float* linv = arg<const float>(A, kLinv);
@@ -148,16 +164,16 @@ __global__ void __launch_bounds__(32 * kMaxChainBlock) fused_hmc_kernel(Args A) 
     float lp = sc[sLogp], iter = sc[sIter];
     DualAverage da{sc[sLogStep], sc[sLogBar], sc[sHbar], sc[sCount], sc[sMu]};
 
-    // kDiag: the chain's inverse mass and, with adapt_metric, its Welford
-    // state ([var, fg mean, fg raw, bg mean, bg raw] x (C, n) in kVar)
-    // (kDense keeps no diag Welford counters: they would hold registers
-    // across the draw loop)
+    // kDiag, kLowRank: the chain's variances and, with adapt_metric, its
+    // Welford state ([var, fg mean, fg raw, bg mean, bg raw] x (C, n) in
+    // kVar) (kDense keeps no diag Welford counters: they would hold
+    // registers across the draw loop)
     DiagWelford dw{0.f, 0.f, 0.f, 0.f, 0.f, 0.f};
-    if constexpr (METRIC == kDiag)
+    if constexpr (METRIC != kDense)
         dw = {sc[sFw], sc[sFw2], sc[sBw], sc[sBw2], sc[sPn], sc[sWin]};
-    if (METRIC == kDiag) {
+    if (METRIC != kDense) {
         const float* vin = arg<const float>(A, kVar) + row;
-        for (int i = lane; i < n; i += 32) vel[i] = vin[i];
+        for (int i = lane; i < n; i += 32) vrow[i] = vin[i];
         if (A.adapt_metric)
             for (int i = lane; i < n; i += 32) {
                 wrows.fgm[i] = vin[CN + i];
@@ -182,19 +198,24 @@ __global__ void __launch_bounds__(32 * kMaxChainBlock) fused_hmc_kernel(Args A) 
     for (int t = 0; t < A.T; ++t) {
         const uint32_t seed0 = A.seed0 + (uint32_t)blk * 7919u + (uint32_t)t * 15485863u;
 
-        // 1. momentum: Box-Muller normals, then p = z @ L^-1 or z / sqrt(V)
-        if constexpr (METRIC == kDense)
+        // 1. momentum: Box-Muller normals, then p = z @ L^-1, z / sqrt(V) or
+        // the low-rank momentum from the scales sqrt(V)
+        if constexpr (METRIC == kDense) {
             dense_momentum(seed0, s1u, w, A.Npad, linv, z, p, n, lane);
-        else
+        } else if constexpr (METRIC == kLowRank) {
+            for (int i = lane; i < n; i += 32) scales[i] = sqrtf(vrow[i]);
+            lowrank_momentum(seed0, s1u, w, A.Npad, scales, K.cov, z, p, n, lane);
+        } else {
             diag_momentum(seed0, s1u, w, A.Npad, vel, p, n, lane);
+        }
         // 2. the jittered path length and the step count (hmc.py:141-143)
         const float eps = expf(A.adapting ? da.log_step : da.log_bar);
         const uint32_t salt = fmix32((seed0 + (uint32_t)w * 101027u) ^ s1u);
         const float path_length = counter_uniform(salt, 3u) * A.path_length;
         const float nst = fminf(fmaxf(floorf(path_length / eps), 1.0f), (float)A.max_steps);
         // 3. the trajectory from the chain's state, and the accept
-        const float* vv = METRIC == kDiag ? vel : nullptr;
-        float* vscratch = METRIC == kDense ? vel : nullptr;
+        const float* vv = METRIC == kDiag ? vel : scales;
+        float* vscratch = METRIC != kDiag ? vel : nullptr;
         const float E0 = half_kinetic<METRIC>(K, p, vv, vscratch, lane) - lp;
         for (int i = lane; i < n; i += 32) { q[i] = qs[i]; g[i] = gs[i]; }
         __syncwarp();
@@ -212,8 +233,8 @@ __global__ void __launch_bounds__(32 * kMaxChainBlock) fused_hmc_kernel(Args A) 
         }
         // 6a. kDiag with adapt_metric: the chain's Welford step on the
         // selected state (each lane reads its own columns of qs)
-        if (METRIC == kDiag && A.adapt_metric && A.tuning)
-            dw.update(qs, wrows, vel, n, A.mult, lane);
+        if (METRIC != kDense && A.adapt_metric && A.tuning)
+            dw.update(qs, wrows, vrow, n, A.mult, lane);
         // 4. per-draw stats
         if (lane == 0) {
             const size_t o = (size_t)t * C + chain;
@@ -248,15 +269,15 @@ __global__ void __launch_bounds__(32 * kMaxChainBlock) fused_hmc_kernel(Args A) 
         for (int k = 0; k < kNumScal; ++k) so[k] = 0.f;
         so[sLogp] = lp; so[sIter] = iter; so[sLogStep] = da.log_step; so[sLogBar] = da.log_bar;
         so[sHbar] = da.hbar; so[sCount] = da.count; so[sMu] = da.mu;
-        if constexpr (METRIC == kDiag) {
+        if constexpr (METRIC != kDense) {
             so[sFw] = dw.fw; so[sFw2] = dw.fw2; so[sBw] = dw.bw; so[sBw2] = dw.bw2;
             so[sPn] = dw.pn; so[sWin] = dw.win;
         }
     }
-    if (METRIC == kDiag && A.adapt_metric) {
+    if (METRIC != kDense && A.adapt_metric) {
         float* vout = arg<float>(A, kVarOut) + row;
         for (int i = lane; i < n; i += 32) {
-            vout[i] = vel[i];
+            vout[i] = vrow[i];
             vout[CN + i] = wrows.fgm[i];
             vout[2 * CN + i] = wrows.fgv[i];
             vout[3 * CN + i] = wrows.bgm[i];
@@ -277,7 +298,8 @@ cudaError_t launch(const Args& A0, cudaStream_t stream) {
     Args A = A0;
     const int n = A.K.n;
     size_t bytes = ((size_t)n_fused_vecs<METRIC>() * A.cb * n
-                    + (METRIC == kDense ? (size_t)5 * n : 0)) * sizeof(float);
+                    + (METRIC == kDense ? (size_t)5 * n : 0)
+                    + (METRIC == kLowRank ? (size_t)lowrank_fac_floats(n) : 0)) * sizeof(float);
     const size_t sq_bytes = (size_t)n * n * sizeof(float);
     const size_t body_bytes = body_floats(BODY, n, A.K.rows) * sizeof(float);
     A.lam_in_smem = (body_bytes > 0 && bytes + body_bytes <= kSmemLimit) ? 1 : 0;
@@ -298,6 +320,7 @@ cudaError_t launch_metric(const Args& A, int metric, cudaStream_t stream) {
     switch (metric) {
         case kDiag: return launch<BODY, kDiag>(A, stream);
         case kDense: return launch<BODY, kDense>(A, stream);
+        case kLowRank: return launch<BODY, kLowRank>(A, stream);
         default: return cudaErrorInvalidValue;
     }
 }
@@ -309,8 +332,9 @@ extern "C" {
 // Returns cudaGetLastError() after the launch (0 on success). ptrs: the
 // kNumPtrs device pointers (kTrace may be null: no trace; kConsts null for
 // a body without constants; kCov and kLinv are read only for the dense
-// metric, kVar only for the diag one, kVarOut with adapt_metric, the pooled
-// Welford ones with adapt_dense); ints: kNumInts; floats: kNumFloats.
+// metric, kCov the factor block for the low-rank one, kVar for the diag
+// and low-rank ones, kVarOut with adapt_metric, the pooled Welford ones
+// with adapt_dense); ints: kNumInts; floats: kNumFloats.
 int fused_hmc_launch(void* const* ptrs, const int* ints, const float* floats, void* stream) {
     Args A;
     for (int k = 0; k < kNumPtrs; ++k) A.ptr[k] = ptrs[k];
@@ -331,16 +355,19 @@ int fused_hmc_launch(void* const* ptrs, const int* ints, const float* floats, vo
     const int body = ints[iBody], metric = ints[iMetric];
     if (A.cb < 1 || A.cb > kMaxChainBlock || A.C % A.cb != 0 || A.K.n < 1
         || A.K.n > 32 * kMaxCols || A.T < 1 || A.K.n_stages < 1 || A.K.n_stages > 3
-        || A.max_steps < 1 || (body == 2 && A.K.n != 10) || (body == 3 && A.K.rows < 1))
+        || A.max_steps < 1 || (body == 2 && A.K.n != 10) || (body == 3 && A.K.rows < 1)
+        || (body == 4 && (A.K.rows < 1 || A.K.rows > kMaxRank)))
         return (int)cudaErrorInvalidValue;
     if (A.adapt_dense && (!A.tuning || metric != kDense)) return (int)cudaErrorInvalidValue;
-    if (A.adapt_metric && metric != kDiag) return (int)cudaErrorInvalidValue;
+    if (A.adapt_metric && metric == kDense) return (int)cudaErrorInvalidValue;
+    if (metric == kLowRank && A.K.cov == nullptr) return (int)cudaErrorInvalidValue;
     cudaStream_t s = static_cast<cudaStream_t>(stream);
     switch (body) {
         case 0: return (int)launch_metric<0>(A, metric, s);
         case 1: return (int)launch_metric<1>(A, metric, s);
         case 2: return (int)launch_metric<2>(A, metric, s);
         case 3: return (int)launch_metric<3>(A, metric, s);
+        case 4: return (int)launch_metric<4>(A, metric, s);
         default: return (int)cudaErrorInvalidValue;
     }
 }

@@ -1,11 +1,15 @@
 // T NUTS transitions per launch: the fused multi-draw kernel, for a
-// shared dense metric or a per-chain inverse-mass diagonal.
+// shared dense metric, a per-chain inverse-mass diagonal or the pooled
+// low-rank metric.
 //
 // Replaces the TPU kernel littlemcmc_tpu/ops/fused_nuts_pallas.py::
 // build_fused_nuts_op (kernel :561, pallas_call at :978) for metric="dense",
 // static (draw chunks) and with adapt_dense (pooled dense adaptation in
-// tune chunks), and for metric="diag", static and with adapt_metric (the
-// per-chain dual-window Welford adaptation in tune chunks). The plain
+// tune chunks), for metric="diag", static and with adapt_metric (the
+// per-chain dual-window Welford adaptation in tune chunks), and for
+// metric="lowrank" (:493-531, :669-710): the per-chain variance rows V
+// adapted as kDiag's, the chain's scales sqrt(V) recomputed each draw, and
+// one factor block frozen for the launch and staged in shared memory. The plain
 // PyTorch version it is held against is ops/fused_nuts.py::fused_nuts_plain.
 //
 // Mapping. One thread block is one chain block of CB chains, one warp per
@@ -18,16 +22,19 @@
 // chain:
 //   1. Box-Muller normals z from the momentum stream, salted seed0 +
 //      1013904223 with lane_r = row * Npad + col (:700-705);
-//   2. the momentum p = z @ L^-1 (kDense, row convention, :154-166) or
-//      p = z / sqrt(V) (kDiag, :143-151, :712);
-//   3. E0 = p.(p @ COV)/2 - logp, or p.(V p)/2 - logp;
+//   2. the momentum p = z @ L^-1 (kDense, row convention, :154-166),
+//      p = z / sqrt(V) (kDiag, :143-151, :712) or the low-rank
+//      S^-1 (alpha^-1/2 z + V((lam^-1/2 - alpha^-1/2).(V^T z))) (kLowRank,
+//      :169-192, S = sqrt(V));
+//   3. E0 = p.(p @ COV)/2 - logp, p.(V p)/2 - logp, or with the low-rank
+//      velocity;
 //   4. the step size and depth cap from the iteration counter (:716-723);
 //   5. the transition of nuts_transition.cuh, with its counter restarted;
 //   6. the gradient recomputed at the proposal (:731);
 //   7. mean_tree_accept, then dual averaging (:734-750);
-//   8. tune chunks, kDiag with adapt_metric: the chain's Welford step on
-//      its proposal, which refreshes V for the next draw from the pre-swap
-//      foreground (:753-757); kDense with adapt_dense: the block's CB new
+//   8. tune chunks, kDiag and kLowRank with adapt_metric: the chain's
+//      Welford step on its proposal, which refreshes V for the next draw
+//      from the pre-swap foreground (:753-757); kDense with adapt_dense: the block's CB new
 //      positions are Chan-combined into the block-local pooled Welford
 //      state of both windows, then the shared window swap (:758-764);
 //   9. the trace row and the per-draw stats, written to (T, C) outputs.
@@ -45,7 +52,10 @@
 // stay in L2. kDiag: the transition's 12 vectors (V among them), q, grad,
 // the start momentum and the chain's four Welford rows, 19 x CB x n
 // floats (2.4 KB a block at the eight-schools n = 10, 61 KB at n = 100),
-// read from device memory once a launch and written back once.
+// read from device memory once a launch and written back once. kLowRank:
+// the transition's 17 vectors (the scales among them), q, grad, the start
+// momentum, the four Welford rows and V, 25 x CB x n floats (80 KB at
+// n = 100 and CB = 8), and the factor block (3.3 KB).
 //
 // What bounds it on this card. Per chain and draw: the momentum (kDense
 // 2n^2 FLOP, kDiag about 10n with the Box-Muller transcendentals), per
@@ -112,15 +122,20 @@ __device__ __forceinline__ float log1mexp_fused(float x) {
 }
 
 // vectors a warp keeps in shared memory: the transition's, then the
-// chain's q and grad, then for kDiag the start momentum and the four
-// Welford rows (for kDense the momentum is a transition scratch vector)
+// chain's q and grad, then for kDiag and kLowRank the start momentum and
+// the four Welford rows, and for kLowRank the variances V (kDiag keeps V in
+// the transition's vv; for kDense the momentum is a transition scratch
+// vector)
 template <int METRIC>
 __host__ __device__ constexpr int n_fused_vecs() {
-    return n_warp_vecs<METRIC>() + (METRIC == kDense ? 2 : 7);
+    return n_warp_vecs<METRIC>() + (METRIC == kDense ? 2 : METRIC == kDiag ? 7 : 8);
 }
 
+// kLowRank instances take 8 warps a block (max_chain_block,
+// nuts_transition.cuh), so that ptxas may give a thread more than 128
+// registers
 template <int BODY, int METRIC>
-__global__ void __launch_bounds__(32 * kMaxChainBlock) fused_nuts_kernel(Args A) {
+__global__ void __launch_bounds__(32 * max_chain_block<METRIC>()) fused_nuts_kernel(Args A) {
     extern __shared__ float smem[];
     const int n = A.n, cb = A.cb, D = A.D, C = A.C;
     const int w = threadIdx.x >> 5, lane = threadIdx.x & 31;
@@ -140,6 +155,9 @@ __global__ void __launch_bounds__(32 * kMaxChainBlock) fused_nuts_kernel(Args A)
     float* p0 = METRIC == kDense ? V.vb : warp_vec(smem, NV + 2, cb, w, n);
     DiagWelford::Rows wrows{warp_vec(smem, NV + 3, cb, w, n), warp_vec(smem, NV + 4, cb, w, n),
                             warp_vec(smem, NV + 5, cb, w, n), warp_vec(smem, NV + 6, cb, w, n)};
+    // the chain's variances: kDiag's inverse mass, or kLowRank's V, whose
+    // square roots are the scales in vv
+    float* vrow = METRIC == kLowRank ? warp_vec(smem, NV + 7, cb, w, n) : V.vv;
     float* slot_sc = smem + (size_t)n_fused_vecs<METRIC>() * cb * n;
     float* wel_sh = slot_sc + (size_t)4 * D * cb;
     float* after = wel_sh + (METRIC == kDense ? 5 * n : 0);
@@ -157,6 +175,10 @@ __global__ void __launch_bounds__(32 * kMaxChainBlock) fused_nuts_kernel(Args A)
         for (int k = tid; k < n * n; k += nthreads) after[k] = A.ptr_f[kCov][k];
         T.cov = after;
     }
+    if constexpr (METRIC == kLowRank) {  // the factor block, in kCov's place
+        for (int k = tid; k < lowrank_fac_floats(n); k += nthreads) after[k] = A.ptr_f[kCov][k];
+        T.cov = after;
+    }
     const float* linv = A.ptr_f[kLinv];
 
     // the chain's state
@@ -169,16 +191,16 @@ __global__ void __launch_bounds__(32 * kMaxChainBlock) fused_nuts_kernel(Args A)
     float lp = sc[sLogp], iter = sc[sIter];
     DualAverage da{sc[sLogStep], sc[sLogBar], sc[sHbar], sc[sCount], sc[sMu]};
 
-    // kDiag: the chain's inverse mass and, with adapt_metric, its Welford
-    // state ([var, fg mean, fg raw, bg mean, bg raw] x (C, n) in kVar)
-    // (kDense keeps no diag Welford counters: they would hold registers
-    // across the draw loop)
+    // kDiag, kLowRank: the chain's variances and, with adapt_metric, its
+    // Welford state ([var, fg mean, fg raw, bg mean, bg raw] x (C, n) in
+    // kVar) (kDense keeps no diag Welford counters: they would hold
+    // registers across the draw loop)
     DiagWelford dw{0.f, 0.f, 0.f, 0.f, 0.f, 0.f};
-    if constexpr (METRIC == kDiag)
+    if constexpr (METRIC != kDense)
         dw = {sc[sFw], sc[sFw2], sc[sBw], sc[sBw2], sc[sPn], sc[sWin]};
-    if (METRIC == kDiag) {
+    if (METRIC != kDense) {
         const float* vin = A.ptr_f[kVar] + row;
-        for (int i = lane; i < n; i += 32) V.vv[i] = vin[i];
+        for (int i = lane; i < n; i += 32) vrow[i] = vin[i];
         if (A.adapt_metric)
             for (int i = lane; i < n; i += 32) {
                 wrows.fgm[i] = vin[CN + i];
@@ -203,13 +225,19 @@ __global__ void __launch_bounds__(32 * kMaxChainBlock) fused_nuts_kernel(Args A)
     for (int t = 0; t < A.T; ++t) {
         const uint32_t seed0 = A.seed0 + (uint32_t)blk * 7919u + (uint32_t)t * 15485863u;
 
-        // 1-2. momentum: Box-Muller normals, then p = z @ L^-1 (kDense) or
-        // p = z / sqrt(V) (kDiag)
+        // 1-2. momentum: Box-Muller normals, then p = z @ L^-1 (kDense),
+        // p = z / sqrt(V) (kDiag) or the low-rank momentum (kLowRank)
         float part = 0.f;
         if constexpr (METRIC == kDense) {
             dense_momentum(seed0 + 1013904223u, s1u, w, A.Npad, linv, V.va, p0, n, lane);
             // 3. start energy
             matvec(p0, T.cov, V.vc, n, lane);
+            for (int i = lane; i < n; i += 32) part += p0[i] * V.vc[i];
+        } else if constexpr (METRIC == kLowRank) {
+            for (int i = lane; i < n; i += 32) V.vv[i] = sqrtf(vrow[i]);
+            lowrank_momentum(seed0 + 1013904223u, s1u, w, A.Npad, V.vv, T.cov, V.va, p0, n,
+                             lane);
+            velocity<kLowRank>(T.cov, V.vv, p0, V.vc, n, lane);
             for (int i = lane; i < n; i += 32) part += p0[i] * V.vc[i];
         } else {
             diag_momentum(seed0 + 1013904223u, s1u, w, A.Npad, V.vv, p0, n, lane);
@@ -231,8 +259,8 @@ __global__ void __launch_bounds__(32 * kMaxChainBlock) fused_nuts_kernel(Args A)
         if (A.adapting) da.update(mta, A.target, A.gamma, A.k, A.t0);
         // 8a. kDiag tune chunks with adapt_metric: the chain's Welford step
         // on its proposal, which refreshes V for the next draw (:753-757)
-        if (METRIC == kDiag && A.adapt_metric && A.tuning)
-            dw.update(V.prq, wrows, V.vv, n, A.mult, lane);
+        if (METRIC != kDense && A.adapt_metric && A.tuning)
+            dw.update(V.prq, wrows, vrow, n, A.mult, lane);
         // advance the chain
         iter = iter + 1.0f;
         lp = r.pr_lp;
@@ -277,15 +305,15 @@ __global__ void __launch_bounds__(32 * kMaxChainBlock) fused_nuts_kernel(Args A)
         for (int k = 0; k < kNumScal; ++k) so[k] = 0.f;
         so[sLogp] = lp; so[sIter] = iter; so[sLogStep] = da.log_step; so[sLogBar] = da.log_bar;
         so[sHbar] = da.hbar; so[sCount] = da.count; so[sMu] = da.mu;
-        if constexpr (METRIC == kDiag) {
+        if constexpr (METRIC != kDense) {
             so[sFw] = dw.fw; so[sFw2] = dw.fw2; so[sBw] = dw.bw; so[sBw2] = dw.bw2;
             so[sPn] = dw.pn; so[sWin] = dw.win;
         }
     }
-    if (METRIC == kDiag && A.adapt_metric) {
+    if (METRIC != kDense && A.adapt_metric) {
         float* vout = const_cast<float*>(A.ptr_f[kVarOut]) + row;
         for (int i = lane; i < n; i += 32) {
-            vout[i] = V.vv[i];
+            vout[i] = vrow[i];
             vout[CN + i] = wrows.fgm[i];
             vout[2 * CN + i] = wrows.fgv[i];
             vout[3 * CN + i] = wrows.bgm[i];
@@ -305,14 +333,16 @@ template <int BODY, int METRIC>
 cudaError_t launch(const Args& A0, cudaStream_t stream) {
     Args A = A0;
     size_t bytes = ((size_t)n_fused_vecs<METRIC>() * A.cb * A.n + (size_t)4 * A.D * A.cb
-                    + (METRIC == kDense ? (size_t)5 * A.n : 0)) * sizeof(float);
+                    + (METRIC == kDense ? (size_t)5 * A.n : 0)
+                    + (METRIC == kLowRank ? (size_t)lowrank_fac_floats(A.n) : 0)) * sizeof(float);
     const size_t sq_bytes = (size_t)A.n * A.n * sizeof(float);
     const size_t body_bytes = body_floats(BODY, A.n, A.rows) * sizeof(float);
     A.lam_in_smem = (body_bytes > 0 && bytes + body_bytes <= kSmemLimit) ? 1 : 0;
     if (A.lam_in_smem) bytes += body_bytes;
     A.cov_in_smem = (METRIC == kDense && bytes + sq_bytes <= kSmemLimit) ? 1 : 0;
     if (A.cov_in_smem) bytes += sq_bytes;
-    if (bytes > kSmemLimit) return cudaErrorInvalidConfiguration;
+    if (bytes > kSmemLimit || A.cb > max_chain_block<METRIC>())
+        return cudaErrorInvalidConfiguration;
     cudaError_t err = cudaFuncSetAttribute(fused_nuts_kernel<BODY, METRIC>,
                                            cudaFuncAttributeMaxDynamicSharedMemorySize,
                                            (int)bytes);
@@ -326,6 +356,7 @@ cudaError_t launch_metric(const Args& A, int metric, cudaStream_t stream) {
     switch (metric) {
         case kDiag: return launch<BODY, kDiag>(A, stream);
         case kDense: return launch<BODY, kDense>(A, stream);
+        case kLowRank: return launch<BODY, kLowRank>(A, stream);
         default: return cudaErrorInvalidValue;
     }
 }
@@ -336,9 +367,10 @@ extern "C" {
 
 // Returns cudaGetLastError() after the launch (0 on success). ptrs: the
 // kNumPtrs device pointers (kTrace may be null: no trace; kCov and kLinv
-// are read only for the dense metric, kVar only for the diag one, kVarOut
-// with adapt_metric, the pooled Welford ones with adapt_dense); ints:
-// kNumInts; floats: kNumFloats.
+// are read only for the dense metric, kCov the factor block for the
+// low-rank one, kVar for the diag and low-rank ones, kVarOut with
+// adapt_metric, the pooled Welford ones with adapt_dense); ints: kNumInts;
+// floats: kNumFloats.
 int fused_nuts_launch(void* const* ptrs, const int* ints, const float* floats, void* stream) {
     Args A;
     for (int k = 0; k < kNumPtrs; ++k) A.ptr_f[k] = static_cast<const float*>(ptrs[k]);
@@ -360,16 +392,19 @@ int fused_nuts_launch(void* const* ptrs, const int* ints, const float* floats, v
     A.cov_in_smem = 0;
     if (A.cb < 1 || A.cb > kMaxChainBlock || A.C % A.cb != 0 || A.n < 1 || A.n > 32 * kMaxCols
         || A.D < 1 || A.T < 1 || A.n_stages < 1 || A.n_stages > 3 || A.max_depth > A.D
-        || A.early_max > A.D || (body == 2 && A.n != 10) || (body == 3 && A.rows < 1))
+        || A.early_max > A.D || (body == 2 && A.n != 10) || (body == 3 && A.rows < 1)
+        || (body == 4 && (A.rows < 1 || A.rows > kMaxRank)))
         return (int)cudaErrorInvalidValue;
     if (A.adapt_dense && (!A.tuning || metric != kDense)) return (int)cudaErrorInvalidValue;
-    if (A.adapt_metric && metric != kDiag) return (int)cudaErrorInvalidValue;
+    if (A.adapt_metric && metric == kDense) return (int)cudaErrorInvalidValue;
+    if (metric == kLowRank && A.ptr_f[kCov] == nullptr) return (int)cudaErrorInvalidValue;
     cudaStream_t s = static_cast<cudaStream_t>(stream);
     switch (body) {
         case 0: return (int)launch_metric<0>(A, metric, s);
         case 1: return (int)launch_metric<1>(A, metric, s);
         case 2: return (int)launch_metric<2>(A, metric, s);
         case 3: return (int)launch_metric<3>(A, metric, s);
+        case 4: return (int)launch_metric<4>(A, metric, s);
         default: return (int)cudaErrorInvalidValue;
     }
 }

@@ -157,7 +157,7 @@ int hmc_trajectory_launch(void* const* ptrs, const int* ints, const float* float
     const int body = ints[iBody];
     if (A.C < 1 || A.n < 1 || A.cb < 1 || A.K.n_stages < 1 || A.K.n_stages > 3
         || ((body == 1 || body == 3) && A.n > 32 * kMaxCols) || (body == 2 && A.n != 10)
-        || (body == 3 && A.K.rows < 1))
+        || (body == 3 && A.K.rows < 1) || (body == 4 && (A.K.rows < 1 || A.K.rows > kMaxRank)))
         return (int)cudaErrorInvalidValue;
     cudaStream_t s = static_cast<cudaStream_t>(stream);
     switch (body) {
@@ -165,6 +165,7 @@ int hmc_trajectory_launch(void* const* ptrs, const int* ints, const float* float
         case 1: return (int)launch<1>(A, s);
         case 2: return (int)launch<2>(A, s);
         case 3: return (int)launch<3>(A, s);
+        case 4: return (int)launch<4>(A, s);
         default: return (int)cudaErrorInvalidValue;
     }
 }

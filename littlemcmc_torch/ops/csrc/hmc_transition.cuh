@@ -7,7 +7,8 @@
 // package's two HMC kernels also share. Templated on the model body (BODY,
 // model_eval of nuts_transition.cuh) and on the metric (METRIC): kDiag reads
 // a per-chain inverse-mass diagonal vv, kDense computes the velocity p @ COV
-// into a scratch vector with one warp matvec.
+// into a scratch vector with one warp matvec, kLowRank the low-rank
+// velocity (lowrank_velocity; vv the chain's scales, K.cov the factor).
 //
 // Unlike the NUTS transition, chains share nothing here: no counter stream
 // moves inside the trajectory, so each warp runs its own step count and
@@ -25,12 +26,13 @@ namespace lmc {
 // What a trajectory reads that is the same for every chain of a launch.
 struct HmcConsts {
     const float* lam;  // the model body's constants (body_floats), shared or global
-    const float* cov;  // kDense: the shared covariance, shared or global
+    const float* cov;  // kDense: the shared covariance, shared or global; kLowRank: the factor
     int n, n_stages;
     float Emax;
     float b[4];
     float a[3];
-    // body 3's data rows: last, and passed to model_eval for body 3 only;
+    // body 3's data rows (body 4's spikes): last, and passed to model_eval
+    // for bodies 3 and 4 only;
     // otherwise ptxas gives hmc_trajectory<1> 40 registers and a spill,
     // and the kernel runs at half the speed
     int rows;
@@ -41,13 +43,14 @@ struct HmcResult {
     bool div;
 };
 
-// p.(M^-1 p) / 2 for one chain; kDense writes the velocity into vel.
+// p.(M^-1 p) / 2 for one chain; kDense and kLowRank write the velocity
+// into vel.
 template <int METRIC>
 __device__ __forceinline__ float half_kinetic(const HmcConsts& K, const float* p,
                                               const float* vv, float* vel, int lane) {
     float part = 0.f;
-    if (METRIC == kDense) {
-        matvec(p, K.cov, vel, K.n, lane);
+    if (METRIC != kDiag) {
+        velocity<METRIC>(K.cov, vv, p, vel, K.n, lane);
         for (int i = lane; i < K.n; i += 32) part += p[i] * vel[i];
     } else {
         for (int i = lane; i < K.n; i += 32) part += p[i] * (vv[i] * p[i]);
@@ -71,14 +74,14 @@ __device__ HmcResult hmc_trajectory(const HmcConsts& K, float* q, float* p, floa
         for (int i = lane; i < n; i += 32) p[i] = p[i] + kick0 * g[i];
         for (int s = 0; s < K.n_stages; ++s) {
             const float drift = K.a[s] * eps;
-            if (METRIC == kDense) {
-                matvec(p, K.cov, vel, n, lane);
+            if (METRIC != kDiag) {
+                velocity<METRIC>(K.cov, vv, p, vel, n, lane);
                 for (int i = lane; i < n; i += 32) q[i] = q[i] + drift * vel[i];
             } else {
                 for (int i = lane; i < n; i += 32) q[i] = q[i] + drift * (vv[i] * p[i]);
             }
             __syncwarp();
-            lp = model_eval<BODY>(q, g, K.lam, n, BODY == 3 ? K.rows : 0, lane);
+            lp = model_eval<BODY>(q, g, K.lam, n, BODY >= 3 ? K.rows : 0, lane);
             const float kick = K.b[s + 1] * eps;
             for (int i = lane; i < n; i += 32) p[i] = p[i] + kick * g[i];
         }

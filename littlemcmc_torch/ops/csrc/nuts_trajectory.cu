@@ -1,8 +1,9 @@
-// One whole NUTS transition per chain, diag or dense metric, model inlined.
+// One whole NUTS transition per chain, diag, dense or low-rank metric, model
+// inlined.
 //
 // Replaces the TPU kernel littlemcmc_tpu/ops/nuts_trajectory_pallas.py::
 // build_trajectory_op (pallas_call at :1023; body _build_kernel_body :755
-// and _run_transition :374-697) for metric="diag" and metric="dense",
+// and _run_transition :374-697) for metric="diag", "dense" and "lowrank",
 // pack=1. The plain PyTorch version it is held against is
 // ops/nuts_trajectory.py::trajectory_plain. The transition itself is
 // nuts_transition.cuh, which the fused kernel (fused_nuts.cu) shares.
@@ -38,7 +39,13 @@
 // blocks shrink the lockstep tail. The dense metric recomputes each
 // velocity where the U-turn checks need it, as the JAX kernel does; caching
 // (p, p @ COV) pairs in the stack would halve those matvecs and is left to
-// a later change.
+// a later change. The low-rank metric (the pooled QuadPotentialLowRankAdapt)
+// keeps each chain's scales where kDiag keeps its diagonal and stages the
+// shared factor block (8 rows of V^T, the coefficients and alpha: 3.3 KB
+// at n = 100) in shared memory once a launch, beside the merge stack's
+// scalars; each velocity is two thin matvecs from it (4 n k + 5 n
+// operations, k = 8), nuts_transition.cuh::lowrank_velocity. The spiked
+// Gaussian body (4) reads its V the same way.
 //
 // Build: nvcc -gencode arch=compute_90a,code=sm_90a -std=c++17 -O3
 // -fmad=false (no contraction of a*b+c, so elementwise rounding matches
@@ -55,7 +62,9 @@ struct Params {
     const float* q;
     const float* p;
     const float* g;
-    const float* var;  // kDiag: (C, n) inverse-mass diagonals; kDense: (n, n) COV
+    const float* var;  // kDiag: (C, n) inverse-mass diagonals; kDense: (n, n) COV;
+                       // kLowRank: (C, n) scales
+    const float* fac;  // kLowRank: the factor block (lowrank_fac_size floats)
     const float* logp;
     const float* eps;
     const int* mdc;
@@ -80,16 +89,17 @@ struct Params {
     int lam_in_smem, cov_in_smem;
 };
 
+// One chain block's transitions: the body of the kernels below.
 template <int BODY, int METRIC>
-__global__ void __launch_bounds__(32 * kMaxChainBlock) nuts_trajectory_kernel(Params P) {
+__device__ __forceinline__ void run_block(const Params& P) {
     extern __shared__ float smem[];
     const int n = P.n, cb = P.cb, D = P.D;
     const int w = threadIdx.x >> 5, lane = threadIdx.x & 31;
     const int chain = blockIdx.x * cb + w;
 
     // shared layout: the transition's vectors [NV][cb][n], the stack slots'
-    // scalars [4][D][cb], then the body's constants (body_floats) and
-    // COV where they fit
+    // scalars [4][D][cb], then the body's constants (body_floats), COV
+    // where they fit and the low-rank factor block
     const WarpVecs V = warp_vecs<METRIC>(smem, cb, w, n);
     float* slot_sc = smem + (size_t)n_warp_vecs<METRIC>() * cb * n;
     float* after = slot_sc + (size_t)4 * D * cb;
@@ -105,19 +115,23 @@ __global__ void __launch_bounds__(32 * kMaxChainBlock) nuts_trajectory_kernel(Pa
         for (int k = threadIdx.x; k < n * n; k += blockDim.x) after[k] = P.var[k];
         T.cov = after;
     }
+    if constexpr (METRIC == kLowRank) {
+        for (int k = threadIdx.x; k < lowrank_fac_floats(n); k += blockDim.x) after[k] = P.fac[k];
+        T.cov = after;
+    }
 
     const float* qin = P.q + (size_t)chain * n;
     const float* pin = P.p + (size_t)chain * n;
     const float* gin = P.g + (size_t)chain * n;
-    if (METRIC == kDiag) {
+    if (METRIC != kDense) {  // the diagonal, or the low-rank scales
         const float* vin = P.var + (size_t)chain * n;
         for (int i = lane; i < n; i += 32) V.vv[i] = vin[i];
     }
-    __syncthreads();  // the body's constants and COV are in shared memory
+    __syncthreads();  // the body's constants, COV and the factor are in shared memory
 
     float part = 0.f;
-    if (METRIC == kDense) {
-        matvec(pin, T.cov, V.va, n, lane);
+    if (METRIC != kDiag) {
+        velocity<METRIC>(T.cov, V.vv, pin, V.va, n, lane);
         for (int i = lane; i < n; i += 32) part += pin[i] * V.va[i];
     } else {
         for (int i = lane; i < n; i += 32) {
@@ -152,13 +166,33 @@ __global__ void __launch_bounds__(32 * kMaxChainBlock) nuts_trajectory_kernel(Pa
     }
 }
 
+template <int BODY, int METRIC>
+__global__ void __launch_bounds__(32 * kMaxChainBlock) nuts_trajectory_kernel(Params P) {
+    run_block<BODY, METRIC>(P);
+}
+
+// kLowRank: 8 warps a block, one block an SM, so ptxas may give each
+// thread up to 255 registers (max_chain_block, nuts_transition.cuh)
+template <int BODY>
+__global__ void __launch_bounds__(32 * kMaxLowRankChainBlock, 1)
+    nuts_trajectory_lowrank_kernel(Params P) {
+    run_block<BODY, kLowRank>(P);
+}
+
+template <int BODY, int METRIC>
+constexpr auto kernel_of() {
+    if constexpr (METRIC == kLowRank) return nuts_trajectory_lowrank_kernel<BODY>;
+    else return nuts_trajectory_kernel<BODY, METRIC>;
+}
+
 // 227 KB per block on Hopper, less room for the static shared int
 constexpr size_t kSmemLimit = 232448 - 1024;
 
 template <int BODY, int METRIC>
 cudaError_t launch(const Params& P, cudaStream_t stream) {
     size_t bytes = (size_t)n_warp_vecs<METRIC>() * P.cb * P.n * sizeof(float)
-                   + (size_t)4 * P.D * P.cb * sizeof(float);
+                   + (size_t)4 * P.D * P.cb * sizeof(float)
+                   + (METRIC == kLowRank ? (size_t)lowrank_fac_floats(P.n) * sizeof(float) : 0);
     const size_t sq_bytes = (size_t)P.n * P.n * sizeof(float);
     const size_t body_bytes = body_floats(BODY, P.n, P.rows) * sizeof(float);
     Params Q = P;
@@ -166,12 +200,13 @@ cudaError_t launch(const Params& P, cudaStream_t stream) {
     if (Q.lam_in_smem) bytes += body_bytes;
     Q.cov_in_smem = (METRIC == kDense && bytes + sq_bytes <= kSmemLimit) ? 1 : 0;
     if (Q.cov_in_smem) bytes += sq_bytes;
-    if (bytes > kSmemLimit) return cudaErrorInvalidConfiguration;
-    cudaError_t err = cudaFuncSetAttribute(nuts_trajectory_kernel<BODY, METRIC>,
-                                           cudaFuncAttributeMaxDynamicSharedMemorySize,
+    if (bytes > kSmemLimit || P.cb > max_chain_block<METRIC>())
+        return cudaErrorInvalidConfiguration;
+    const auto kernel = kernel_of<BODY, METRIC>();
+    cudaError_t err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
                                            (int)bytes);
     if (err != cudaSuccess) return err;
-    nuts_trajectory_kernel<BODY, METRIC><<<P.C / P.cb, 32 * P.cb, bytes, stream>>>(Q);
+    kernel<<<P.C / P.cb, 32 * P.cb, bytes, stream>>>(Q);
     return cudaGetLastError();
 }
 
@@ -180,6 +215,7 @@ cudaError_t launch_metric(const Params& P, int metric, cudaStream_t stream) {
     switch (metric) {
         case kDiag: return launch<BODY, kDiag>(P, stream);
         case kDense: return launch<BODY, kDense>(P, stream);
+        case kLowRank: return launch<BODY, kLowRank>(P, stream);
         default: return cudaErrorInvalidValue;
     }
 }
@@ -189,10 +225,12 @@ cudaError_t launch_metric(const Params& P, int metric, cudaStream_t stream) {
 extern "C" {
 
 // Returns cudaGetLastError() after the launch (0 on success). metric: 0
-// diag (var is (C, n)), 1 dense (var is the shared (n, n) covariance);
-// consts: the body's packed constants, rows its data rows (body 3).
+// diag (var is (C, n)), 1 dense (var is the shared (n, n) covariance), 2
+// low-rank (var is the (C, n) scales, fac the shared factor block);
+// consts: the body's packed constants, rows its data rows (body 3) or
+// spikes (body 4).
 int nuts_trajectory_launch(
-    const float* q, const float* p, const float* g, const float* var,
+    const float* q, const float* p, const float* g, const float* var, const float* fac,
     const float* logp, const float* eps, const int* mdc,
     unsigned int seed0, unsigned int seed1, int body, int metric, const float* consts,
     int rows, int C, int n, int D, float Emax, int cb, int n_stages, const float* coef,
@@ -203,9 +241,12 @@ int nuts_trajectory_launch(
         return (int)cudaErrorInvalidValue;
     if ((body == 1 || body == 3 || metric == kDense) && n > 32 * kMaxCols)
         return (int)cudaErrorInvalidValue;
-    if ((body == 2 && n != 10) || (body == 3 && rows < 1)) return (int)cudaErrorInvalidValue;
+    if ((body == 2 && n != 10) || (body == 3 && rows < 1)
+        || (body == 4 && (rows < 1 || rows > kMaxRank)) || (metric == kLowRank && fac == nullptr))
+        return (int)cudaErrorInvalidValue;
     Params P;
-    P.q = q; P.p = p; P.g = g; P.var = var; P.logp = logp; P.eps = eps; P.mdc = mdc;
+    P.q = q; P.p = p; P.g = g; P.var = var; P.fac = fac;
+    P.logp = logp; P.eps = eps; P.mdc = mdc;
     P.consts = consts; P.stack = stack;
     P.q_out = q_out; P.g_out = g_out; P.energy = energy; P.logp_out = logp_out;
     P.log_size = log_size; P.lwas = lwas; P.mec = mec; P.depth = depth;
@@ -222,6 +263,7 @@ int nuts_trajectory_launch(
         case 1: return (int)launch_metric<1>(P, metric, s);
         case 2: return (int)launch_metric<2>(P, metric, s);
         case 3: return (int)launch_metric<3>(P, metric, s);
+        case 4: return (int)launch_metric<4>(P, metric, s);
         default: return (int)cudaErrorInvalidValue;
     }
 }

@@ -15,6 +15,16 @@
 //   or global memory, p[i] broadcast across the warp, up to kMaxCols output
 //   columns per lane in registers, fmaf explicit) into one of five scratch
 //   vectors (vv, va, vb, vc, vd), before the loop that reads it.
+// - kLowRank: the pooled low-rank metric (_make_lowrank_velocities,
+//   nuts_trajectory_pallas.py:717-753): per-chain scales S in vv and one
+//   factor block shared by every chain (T.cov: V^T as kMaxRank rows of n,
+//   then lam - alpha, lam^-1/2 - alpha^-1/2, alpha and alpha^-1/2; the
+//   layout of ops/nuts_trajectory.py::build_lowrank_fac). The velocity
+//   S(alpha x + V((lam - alpha).(V^T x))), x = S p, is two thin matvecs
+//   (lowrank_velocity below: the kMaxRank dots V^T x as lane partials and
+//   one xor butterfly for all of them, then each lane's columns from the
+//   shared V), 4 n k + 5 n operations against kDense's 2 n^2, into the
+//   scratch vectors va, vb, vc, vd and ve where kDense writes its own.
 //
 // Control flow runs in lockstep per thread block: the depth, leaf and merge
 // loops continue while ANY chain of the block needs them (__syncthreads_or),
@@ -36,8 +46,15 @@ namespace lmc {
 
 constexpr int kMaxCols = 8;         // register tile of a warp matvec: n <= 256
 constexpr int kMaxChainBlock = 16;  // warps per block: 512 threads x 128 registers
+constexpr int kMaxRank = 8;         // columns of the low-rank factor and of body 4's V
+// kLowRank instances of the NUTS kernels take at most 8 warps a block: the
+// thin matvecs' kMaxRank partial sums beside the transition's state need
+// more than the 128 registers a thread has at 16 warps (ptxas spilled up to
+// 328 bytes there), and 8 warps of 255 registers fill the register file
+constexpr int kMaxLowRankChainBlock = 8;
 constexpr int kDiag = 0;
 constexpr int kDense = 1;
+constexpr int kLowRank = 2;
 constexpr uint32_t kGolden = 0x9E3779B9u;
 
 __device__ __forceinline__ uint32_t fmix32(uint32_t x) {
@@ -93,17 +110,70 @@ __device__ __forceinline__ void matvec(const float* x, const float* M, float* ou
     }
 }
 
+// c[j] = sum_i x_i Vt[j n + i] for j < k (k <= kMaxRank), x_i = a[i] b[i]
+// (SCALED) or a[i]: lane partials over i = lane, lane + 32, ..., then one
+// xor butterfly for all k dots, so every lane holds the same bits, the
+// order of ops/nuts_trajectory.py::thin_dots (which the plain versions
+// use). The caller syncs the warp after writing a.
+template <bool SCALED>
+__device__ __forceinline__ void thin_dots(const float* a, const float* b, const float* Vt, int k,
+                                          int n, int lane, float (&c)[kMaxRank]) {
+#pragma unroll
+    for (int j = 0; j < kMaxRank; ++j) c[j] = 0.f;
+    for (int i = lane; i < n; i += 32) {
+        const float x = SCALED ? a[i] * b[i] : a[i];
+#pragma unroll
+        for (int j = 0; j < kMaxRank; ++j)
+            if (j < k) c[j] = c[j] + x * Vt[(size_t)j * n + i];
+    }
+#pragma unroll
+    for (int o = 16; o > 0; o >>= 1) {
+#pragma unroll
+        for (int j = 0; j < kMaxRank; ++j)
+            if (j < k) c[j] += __shfl_xor_sync(0xffffffffu, c[j], o);
+    }
+}
+
+// The low-rank metric's velocity of p for one chain with scales s and the
+// factor block fac (see kLowRank above): out = S (alpha x + sum_j V_j d_j),
+// x = S p, d_j = (V^T x)_j (lam_j - alpha), the columns added in turn from
+// 0 as thin_combine of the plain versions adds them. Lanes own columns
+// lane, lane + 32, ... of out.
+__device__ __forceinline__ void lowrank_velocity(const float* p, const float* s, const float* fac,
+                                                 float* out, int n, int lane) {
+    float c[kMaxRank];
+    __syncwarp();  // every lane's part of p is written
+    thin_dots<true>(p, s, fac, kMaxRank, n, lane, c);
+    const float* cvel = fac + (size_t)kMaxRank * n;
+    const float alpha = fac[(size_t)kMaxRank * (n + 2)];
+#pragma unroll
+    for (int j = 0; j < kMaxRank; ++j) c[j] = c[j] * cvel[j];
+    for (int i = lane; i < n; i += 32) {
+        const float x = s[i] * p[i];
+        float acc = 0.f;
+#pragma unroll
+        for (int j = 0; j < kMaxRank; ++j) acc = acc + fac[(size_t)j * n + i] * c[j];
+        out[i] = s[i] * (alpha * x + acc);
+    }
+}
+
+// Floats of the low-rank factor block (ops/nuts_trajectory.py::lowrank_fac_size).
+__host__ __device__ inline int lowrank_fac_floats(int n) { return kMaxRank * (n + 2) + 2; }
+
 // A model body's constants, as the wrappers pass them in one packed buffer
 // (TrajectorySpec.kernel_consts): body 1 the (n, n) precision P; body 2
 // [y; 1/sigma^2], (2, 10); body 3, the logistic regression over `rows`
 // data rows, the design Xb at the odd row stride n | 1 (lanes reading one
 // row each hit 32 different banks of shared memory), then y (rows), then
-// the prior precision. body_floats counts the floats of P and of body 3's
-// constants, which stage_body copies into shared memory where the launch
-// found room (eight schools' 20 floats stay in global memory, in L1).
+// the prior precision; body 4, the spiked Gaussian with `rows` = k spikes,
+// V^T (k rows of n), then 1/lam - 1 (k), then 1/s (n). body_floats counts
+// the floats of P and of bodies 3 and 4, which stage_body copies into
+// shared memory where the launch found room (eight schools' 20 floats stay
+// in global memory, in L1).
 __host__ __device__ inline size_t body_floats(int body, int n, int rows) {
     if (body == 1) return (size_t)n * n;
     if (body == 3) return (size_t)rows * (n | 1) + rows + 1;
+    if (body == 4) return (size_t)rows * (n + 1) + n;
     return 0;
 }
 
@@ -159,14 +229,14 @@ __device__ __forceinline__ float logistic_rows(const float* q, const float* X, i
 
 // The model body at q (shared memory, one chain): writes grad into g
 // (shared memory) and returns logp. lam: the body's constants (body_floats);
-// rows: body 3's data rows. Lanes own columns lane, lane+32, ... (body 3:
-// rows first, see logistic_rows). Body ids match
+// rows: body 3's data rows, body 4's spikes. Lanes own columns lane,
+// lane+32, ... (body 3: rows first, see logistic_rows). Body ids match
 // ops/nuts_trajectory.py::BODY_IDS; any other id does not compile, and
 // every launch switch refuses it at run time.
 template <int BODY>
 __device__ float model_eval(const float* q, float* g, const float* lam, int n, int rows,
                            int lane) {
-    static_assert(BODY >= 0 && BODY <= 3, "unknown model body");
+    static_assert(BODY >= 0 && BODY <= 4, "unknown model body");
     float part = 0.f;
     if constexpr (BODY == 0) {  // standard normal: logp = -q.q/2, grad = -q
         for (int i = lane; i < n; i += 32) {
@@ -231,7 +301,7 @@ __device__ float model_eval(const float* q, float* g, const float* lam, int n, i
                     : lane == 1 ? -log_tau / 25.0f + tau * s_rtt : dtt;
         __syncwarp();
         return -0.5f * (m5 * m5) - 0.5f * (l5 * l5) - 0.5f * s_tt2 - 0.5f * s_dr;
-    } else {
+    } else if constexpr (BODY == 3) {
         // logistic regression (models/logistic.py:90-136): logp = sum over
         // rows of y * logit - softplus(logit) - prior_prec * q.q / 2,
         // grad = (y - sigma(logit)) Xb - prior_prec * q
@@ -259,13 +329,37 @@ __device__ float model_eval(const float* q, float* g, const float* lam, int n, i
         }
         __syncwarp();
         return ll + -0.5f * prior_prec * qq;
+    } else {
+        // the spiked Gaussian (models/gaussian.py:204-237): x = q / s,
+        // g = -(x + V((1/lam - 1).(V^T x))) / s, logp = q.g / 2, with the
+        // thin matvecs of the low-rank metric (rows = k spikes)
+        __syncwarp();  // q is written
+        const float* il = lam + (size_t)rows * n;
+        const float* inv_s = il + rows;
+        float c[kMaxRank];
+        thin_dots<true>(q, inv_s, lam, rows, n, lane, c);
+#pragma unroll
+        for (int j = 0; j < kMaxRank; ++j)
+            if (j < rows) c[j] = c[j] * il[j];
+        for (int i = lane; i < n; i += 32) {
+            const float x = q[i] * inv_s[i];
+            float acc = 0.f;
+#pragma unroll
+            for (int j = 0; j < kMaxRank; ++j)
+                if (j < rows) acc = acc + lam[(size_t)j * n + i] * c[j];
+            const float gi = -(x + acc) * inv_s[i];
+            g[i] = gi;
+            part += q[i] * gi;
+        }
+        __syncwarp();
+        return 0.5f * warp_sum(part);
     }
 }
 
 // What a transition reads that is the same for every chain of a launch.
 struct TreeConsts {
     const float* lam;  // the model body's constants (body_floats), shared or global
-    const float* cov;  // kDense: the shared covariance, shared or global
+    const float* cov;  // kDense: the shared covariance, shared or global; kLowRank: the factor
     float* stack;      // [4][D][C][n]: left p, right p, p sum, proposal q
     int C, n, D, cb, n_stages, rows;
     float Emax;
@@ -276,8 +370,8 @@ struct TreeConsts {
 // One warp's working vectors, each of length n in shared memory.
 struct WarpVecs {
     float *lq, *lp, *lg, *rq, *rp, *rg, *cq, *cp, *cg, *prq, *psum;
-    float* vv;                 // kDiag: inverse-mass diagonal; kDense: velocity scratch
-    float *va, *vb, *vc, *vd;  // kDense: velocity scratch (unused for kDiag)
+    float* vv;  // kDiag: inverse-mass diagonal; kDense: velocity scratch; kLowRank: scales
+    float *va, *vb, *vc, *vd;  // kDense, kLowRank: velocity scratch (unused for kDiag)
 };
 
 // Vector v of warp w in a [NV][cb][n] shared layout.
@@ -285,7 +379,9 @@ __device__ __forceinline__ float* warp_vec(float* smem, int v, int cb, int w, in
     return smem + ((size_t)v * cb + w) * n;
 }
 
-// The transition's vectors at the start of `smem`: 12 for kDiag, 16 for kDense.
+// The transition's vectors at the start of `smem`: 12 for kDiag, 16 for
+// kDense, 17 for kLowRank (its 17th, the velocity scratch where kDense
+// uses vv, follows vd: lowrank_scratch).
 template <int METRIC>
 __device__ __forceinline__ WarpVecs warp_vecs(float* smem, int cb, int w, int n) {
     WarpVecs V;
@@ -296,7 +392,7 @@ __device__ __forceinline__ WarpVecs warp_vecs(float* smem, int cb, int w, int n)
     V.cg = warp_vec(smem, 8, cb, w, n);  V.prq = warp_vec(smem, 9, cb, w, n);
     V.psum = warp_vec(smem, 10, cb, w, n);
     V.vv = warp_vec(smem, 11, cb, w, n);
-    if (METRIC == kDense) {
+    if (METRIC != kDiag) {
         V.va = warp_vec(smem, 12, cb, w, n);  V.vb = warp_vec(smem, 13, cb, w, n);
         V.vc = warp_vec(smem, 14, cb, w, n);  V.vd = warp_vec(smem, 15, cb, w, n);
     } else {
@@ -305,8 +401,30 @@ __device__ __forceinline__ WarpVecs warp_vecs(float* smem, int cb, int w, int n)
     return V;
 }
 
+// kLowRank's fifth velocity scratch vector, vector 16 of warp_vecs' layout
+__device__ __forceinline__ float* lowrank_scratch(const WarpVecs& V, int cb, int n) {
+    return V.vd + (size_t)cb * n;
+}
+
+// The most warps (chains) a block of a NUTS kernel instance takes.
 template <int METRIC>
-__host__ __device__ constexpr int n_warp_vecs() { return METRIC == kDense ? 16 : 12; }
+__host__ __device__ constexpr int max_chain_block() {
+    return METRIC == kLowRank ? kMaxLowRankChainBlock : kMaxChainBlock;
+}
+
+template <int METRIC>
+__host__ __device__ constexpr int n_warp_vecs() {
+    return METRIC == kLowRank ? 17 : METRIC == kDense ? 16 : 12;
+}
+
+// The velocity of p into out for kDense (p @ COV) or kLowRank (s the
+// chain's scales); kDiag computes its velocity where it is used.
+template <int METRIC>
+__device__ __forceinline__ void velocity(const float* cov, const float* s, const float* p,
+                                         float* out, int n, int lane) {
+    if constexpr (METRIC == kDense) matvec(p, cov, out, n, lane);
+    else lowrank_velocity(p, s, cov, out, n, lane);
+}
 
 struct TreeResult {
     float pr_e, pr_lp, log_size, lwas, mec;
@@ -328,6 +446,8 @@ __device__ TreeResult transition(const TreeConsts& T, const WarpVecs& V, float* 
     float *lq = V.lq, *lp = V.lp, *lg = V.lg, *rq = V.rq, *rp = V.rp, *rg = V.rg;
     float *cq = V.cq, *cp = V.cp, *cg = V.cg, *prq = V.prq, *psum = V.psum, *vv = V.vv;
     const float* cov = T.cov;
+    // the velocity scratch that kDense keeps in vv (kLowRank's scales)
+    float* vs = METRIC == kLowRank ? lowrank_scratch(V, cb, n) : vv;
 
     float* s_e = slot_sc;                        // [D][cb] proposal energy
     float* s_lpp = slot_sc + (size_t)D * cb;     // proposal logp
@@ -389,9 +509,9 @@ __device__ TreeResult transition(const TreeConsts& T, const WarpVecs& V, float* 
                 for (int i = lane; i < n; i += 32) cp[i] = cp[i] + kick0 * cg[i];
                 for (int s = 0; s < T.n_stages; ++s) {
                     const float drift = T.a[s] * epss;
-                    if (METRIC == kDense) {
-                        matvec(cp, cov, vv, n, lane);
-                        for (int i = lane; i < n; i += 32) cq[i] = cq[i] + drift * vv[i];
+                    if (METRIC != kDiag) {
+                        velocity<METRIC>(cov, vv, cp, vs, n, lane);
+                        for (int i = lane; i < n; i += 32) cq[i] = cq[i] + drift * vs[i];
                     } else {
                         for (int i = lane; i < n; i += 32) cq[i] = cq[i] + drift * (vv[i] * cp[i]);
                     }
@@ -401,9 +521,9 @@ __device__ TreeResult transition(const TreeConsts& T, const WarpVecs& V, float* 
                     for (int i = lane; i < n; i += 32) cp[i] = cp[i] + kick * cg[i];
                 }
                 part = 0.f;
-                if (METRIC == kDense) {
-                    matvec(cp, cov, vv, n, lane);
-                    for (int i = lane; i < n; i += 32) part += cp[i] * vv[i];
+                if (METRIC != kDiag) {
+                    velocity<METRIC>(cov, vv, cp, vs, n, lane);
+                    for (int i = lane; i < n; i += 32) part += cp[i] * vs[i];
                 } else {
                     for (int i = lane; i < n; i += 32) part += cp[i] * (vv[i] * cp[i]);
                 }
@@ -440,15 +560,15 @@ __device__ TreeResult transition(const TreeConsts& T, const WarpVecs& V, float* 
                     const bool take2 = logf(u) < t2_ls - ls;
                     float *slp = slot(0, s), *srp = slot(1, s), *sps = slot(2, s),
                           *sq = slot(3, s);
-                    if (METRIC == kDense) {
-                        matvec(sps, cov, V.va, n, lane);  // velocity of the even leaf
-                        matvec(cp, cov, V.vb, n, lane);   // and of this leaf
+                    if (METRIC != kDiag) {
+                        velocity<METRIC>(cov, vv, sps, V.va, n, lane);  // the even leaf's
+                        velocity<METRIC>(cov, vv, cp, V.vb, n, lane);   // and this leaf's
                     }
                     float d1 = 0.f, d2 = 0.f;
                     for (int i = lane; i < n; i += 32) {
                         const float t1p = sps[i], t2p = cp[i];
                         const float ps = t1p + t2p;
-                        if (METRIC == kDense) {
+                        if (METRIC != kDiag) {
                             d1 += ps * V.va[i];
                             d2 += ps * V.vb[i];
                         } else {
@@ -484,18 +604,18 @@ __device__ TreeResult transition(const TreeConsts& T, const WarpVecs& V, float* 
                           *a_q = slot(3, s1);
                     const float *b_lp = slot(0, s2), *b_rp = slot(1, s2), *b_ps = slot(2, s2),
                                 *b_q = slot(3, s2);
-                    if (METRIC == kDense) {
-                        matvec(a_lp, cov, V.va, n, lane);
-                        matvec(a_rp, cov, V.vb, n, lane);
-                        matvec(b_lp, cov, V.vc, n, lane);
-                        matvec(b_rp, cov, V.vd, n, lane);
+                    if (METRIC != kDiag) {
+                        velocity<METRIC>(cov, vv, a_lp, V.va, n, lane);
+                        velocity<METRIC>(cov, vv, a_rp, V.vb, n, lane);
+                        velocity<METRIC>(cov, vv, b_lp, V.vc, n, lane);
+                        velocity<METRIC>(cov, vv, b_rp, V.vd, n, lane);
                     }
                     float d[6] = {0.f, 0.f, 0.f, 0.f, 0.f, 0.f};
                     for (int i = lane; i < n; i += 32) {
                         const float t1lp = a_lp[i], t1rp = a_rp[i], t1ps = a_ps[i];
                         const float t2lp = b_lp[i], t2rp = b_rp[i], t2ps = b_ps[i];
                         float vt1lp, vt1rp, vt2lp, vt2rp;
-                        if (METRIC == kDense) {
+                        if (METRIC != kDiag) {
                             vt1lp = V.va[i]; vt1rp = V.vb[i]; vt2lp = V.vc[i]; vt2rp = V.vd[i];
                         } else {
                             const float v = vv[i];
@@ -553,13 +673,13 @@ __device__ TreeResult transition(const TreeConsts& T, const WarpVecs& V, float* 
             acc_lw = logaddexp(acc_lw, n_lw);
             const float *nlp = slot(depth == 0 ? 2 : 0, 0), *nrp = slot(depth == 0 ? 2 : 1, 0),
                         *nps = slot(2, 0), *nq = slot(3, 0);
-            if (METRIC == kDense) {
+            if (METRIC != kDiag) {
                 // velocities of the five edge momenta the U-turn checks use
-                matvec(lp, cov, V.va, n, lane);  // old left edge
-                matvec(rp, cov, V.vb, n, lane);  // old right edge
-                matvec(cp, cov, V.vc, n, lane);  // the new subtree's outer edge
-                matvec(nlp, cov, V.vd, n, lane);
-                matvec(nrp, cov, vv, n, lane);
+                velocity<METRIC>(cov, vv, lp, V.va, n, lane);  // old left edge
+                velocity<METRIC>(cov, vv, rp, V.vb, n, lane);  // old right edge
+                velocity<METRIC>(cov, vv, cp, V.vc, n, lane);  // the new subtree's outer edge
+                velocity<METRIC>(cov, vv, nlp, V.vd, n, lane);
+                velocity<METRIC>(cov, vv, nrp, vs, n, lane);
             }
             float d[6] = {0.f, 0.f, 0.f, 0.f, 0.f, 0.f};
             for (int i = lane; i < n; i += 32) {
@@ -578,9 +698,9 @@ __device__ TreeResult transition(const TreeConsts& T, const WarpVecs& V, float* 
                 // 3-way U-turn on the merged span (reference nuts.py:332-340)
                 const float ps1 = go_right ? old_ps + n_lp : n_ps + old_l_p;
                 const float ps2 = go_right ? old_r_p + n_ps : n_lp + old_ps;
-                if (METRIC == kDense) {
+                if (METRIC != kDiag) {
                     const float v_ol = V.va[i], v_or = V.vb[i], v_c = V.vc[i];
-                    const float v_nl = V.vd[i], v_nr = vv[i];
+                    const float v_nl = V.vd[i], v_nr = vs[i];
                     d[0] += pst * (go_right ? v_ol : v_c);
                     d[1] += pst * (go_right ? v_c : v_or);
                     d[2] += ps1 * (go_right ? v_ol : v_nr);

@@ -1,16 +1,19 @@
 """T classic-HMC transitions per call: the fused HMC op, for a shared dense
-metric or a per-chain inverse-mass diagonal.
+metric, a per-chain inverse-mass diagonal or the pooled low-rank metric.
 
 Counterpart of ``littlemcmc_tpu/ops/fused_hmc_pallas.py::build_fused_hmc_op``
 with ``metric="dense"``, static (draw chunks) and with ``adapt_dense``
-(pooled dense adaptation inside tune chunks), and with ``metric="diag"``,
+(pooled dense adaptation inside tune chunks), with ``metric="diag"``,
 static and with ``adapt_metric`` (per-chain diag adaptation inside tune
-chunks). One call runs ``T`` transitions for every chain with the chain
-state kept inside the op, and per draw (``:251-325``):
+chunks), and with ``metric="lowrank"`` (the variances adapted as the diag
+ones, the factor block frozen for the chunk; ``:118-132``, ``:258-277``).
+One call runs ``T`` transitions for every chain with the chain state kept
+inside the op, and per draw (``:251-325``):
 
-- the momentum ``p = z @ L^{-1}`` (:func:`.fused_nuts.dense_momentum`) or
+- the momentum ``p = z @ L^{-1}`` (:func:`.fused_nuts.dense_momentum`),
   ``p = z / sqrt(V)`` (:func:`.fused_nuts.diag_momentum`, ``V`` at
-  ``:257``, ``:279``);
+  ``:257``, ``:279``) or the low-rank one
+  (:func:`.fused_nuts.lowrank_momentum`);
 - the jittered path length ``U * path_length`` and
   ``n_steps = clamp(floor(path / eps), 1, max_steps)`` (``:282-286``);
 - the trajectory and the accept (:func:`.hmc_trajectory.hmc_transition`,
@@ -45,13 +48,13 @@ import torch
 
 from ..integration import INTEGRATOR_COEFFS
 from .fused_nuts import (_DRAW_STRIDE, _SCALARS, _WELFORD_PTRS, DiagWelford, _BlockWelford,
-                         _da_update, check_inputs, check_kernel_shapes, dense_momentum,
-                         diag_momentum, gather_blocks, padded_dim, state_buffers,
-                         state_results, welford_buffers, welford_results)
+                         _da_update, check_inputs, check_kernel_shapes, gather_blocks,
+                         momentum_and_velocity, padded_dim, state_buffers, state_results,
+                         welford_buffers, welford_results)
 from .hmc_trajectory import hmc_transition
 from .nuts_trajectory import (BODY_IDS, DEFAULT_CHAIN_BLOCK, METRIC_IDS, TrajectorySpec, _M32,
                               _seed_words, body_logp_grad, counter_salt, counter_uniform,
-                              int32_bits, metric_velocity, resolve_chain_block)
+                              int32_bits, resolve_chain_block)
 
 __all__ = ["fused_hmc", "fused_hmc_plain", "STAT_KEYS"]
 
@@ -79,8 +82,8 @@ def fused_hmc_plain(q, grad, logp, iter_count, da_log_step, da_log_bar, da_hbar,
                     config, metric: str = "dense", window_multiplier: float = 1.0,
                     chain_block: int = DEFAULT_CHAIN_BLOCK, collect_trace: bool = True,
                     welford: Optional[Sequence[torch.Tensor]] = None,
-                    dense_welford: Optional[Sequence[torch.Tensor]] = None
-                    ) -> Dict[str, torch.Tensor]:
+                    dense_welford: Optional[Sequence[torch.Tensor]] = None,
+                    fac: Optional[torch.Tensor] = None) -> Dict[str, torch.Tensor]:
     """The plain PyTorch op, block by block, on any device."""
     C, n = q.shape
     cb = resolve_chain_block(C, chain_block)
@@ -100,20 +103,17 @@ def fused_hmc_plain(q, grad, logp, iter_count, da_log_step, da_log_bar, da_hbar,
         s = {k: v[rows] for k, v in state.items()}
         qb, gb = q[rows], grad[rows]
         wel = _BlockWelford(dense_welford, B) if dense_welford is not None else None
-        vb = var[rows] if metric == "diag" else var
+        vb = var if metric == "dense" else var[rows]
         dw = DiagWelford(welford).rows(rows) if welford is not None else None
         per_draw = {k: [] for k in STAT_KEYS + ("trace",)}
         for t in range(T):
             seed0 = (w0 + t * _DRAW_STRIDE) & _M32
-            if metric == "dense":
-                p0 = dense_momentum(seed0, w1, blk, cb, linv, offset=0)
-            else:
-                p0 = diag_momentum(seed0, w1, blk, vb, offset=0)
+            p0, vel = momentum_and_velocity(metric, seed0, w1, blk, cb, vb, linv, fac, offset=0)
             eps = torch.exp(s["da_log_step"] if adapting else s["da_log_bar"])
             salt = counter_salt(seed0, w1, blk, cb, q.device)
             path_length = counter_uniform(salt, 3) * float(config.path_length)
             n_steps = torch.clamp(torch.floor(path_length / eps), 1.0, float(config.max_steps))
-            out = hmc_transition(model, metric_velocity(vb, metric), coeffs, float(config.Emax),
+            out = hmc_transition(model, vel, coeffs, float(config.Emax),
                                  qb, p0, gb, s["logp"], eps, n_steps, counter_uniform(salt, 4))
             if adapting:
                 _da_update(s, out["accept_stat"], config)
@@ -149,7 +149,7 @@ def fused_hmc_plain(q, grad, logp, iter_count, da_log_step, da_log_bar, da_hbar,
 # --------------------------------------------------------------------------
 
 def _launch_kernel(q, grad, scalars, var, linv, seed, *, spec, T, tuning, config, metric,
-                   window_multiplier, chain_block, collect_trace, welford, dense_welford):
+                   window_multiplier, chain_block, collect_trace, welford, dense_welford, fac):
     from ._build import launch
 
     C, n = q.shape
@@ -169,7 +169,7 @@ def _launch_kernel(q, grad, scalars, var, linv, seed, *, spec, T, tuning, config
         "stat_f": empty(len(_STAT_F32), T, C), "stat_i": empty(T, C, dtype=torch.int32),
         "stat_b": empty(2, T, C, dtype=torch.bool),
     }
-    buf.update(state_buffers(scalars, var, linv, metric, welford, empty))
+    buf.update(state_buffers(scalars, var, linv, metric, welford, empty, fac))
     adapt_dense = dense_welford is not None
     if adapt_dense:
         buf.update(welford_buffers(dense_welford, C // cb, empty))
@@ -203,8 +203,8 @@ def fused_hmc(q, grad, logp, iter_count, da_log_step, da_log_bar, da_hbar, da_co
               metric: str = "dense", window_multiplier: float = 1.0,
               chain_block: int = DEFAULT_CHAIN_BLOCK, collect_trace: bool = True,
               welford: Optional[Sequence[torch.Tensor]] = None,
-              dense_welford: Optional[Sequence[torch.Tensor]] = None
-              ) -> Dict[str, torch.Tensor]:
+              dense_welford: Optional[Sequence[torch.Tensor]] = None,
+              fac: Optional[torch.Tensor] = None) -> Dict[str, torch.Tensor]:
     """``T`` HMC transitions for every chain, where the tensors lie.
 
     The inputs of :func:`.fused_nuts.fused_nuts`, with ``config`` an
@@ -220,10 +220,12 @@ def fused_hmc(q, grad, logp, iter_count, da_log_step, da_log_bar, da_hbar, da_co
     (``fused_hmc.launches`` counts those launches) or raise.
     """
     scalars = (logp, iter_count, da_log_step, da_log_bar, da_hbar, da_count, da_mu)
-    check_inputs(spec, q, grad, scalars, var, linv, metric, welford, dense_welford, tuning)
+    check_inputs(spec, q, grad, scalars, var, linv, metric, welford, dense_welford, tuning,
+                 fac)
     kw = dict(spec=spec, T=T, tuning=tuning, config=config, metric=metric,
               window_multiplier=window_multiplier, chain_block=chain_block,
-              collect_trace=collect_trace, welford=welford, dense_welford=dense_welford)
+              collect_trace=collect_trace, welford=welford, dense_welford=dense_welford,
+              fac=fac)
     if q.device.type == "cpu":
         return fused_hmc_plain(q, grad, *scalars, var, linv, seed, **kw)
     if q.device.type == "cuda":

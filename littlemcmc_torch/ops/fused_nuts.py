@@ -1,19 +1,26 @@
-"""T NUTS transitions per call: the fused op, for a shared dense metric or
-a per-chain inverse-mass diagonal.
+"""T NUTS transitions per call: the fused op, for a shared dense metric, a
+per-chain inverse-mass diagonal or the pooled low-rank metric.
 
 Counterpart of ``littlemcmc_tpu/ops/fused_nuts_pallas.py::
 build_fused_nuts_op`` with ``metric="dense"``, static (draw chunks) and
-with ``adapt_dense`` (pooled dense adaptation inside tune chunks), and with
+with ``adapt_dense`` (pooled dense adaptation inside tune chunks), with
 ``metric="diag"``, static and with ``adapt_metric`` (per-chain diag
-adaptation inside tune chunks). One call runs ``T`` transitions for every
-chain with the chain state kept inside the op, and per draw:
+adaptation inside tune chunks), and with ``metric="lowrank"``: per-chain
+variance rows, adapted per chain in tune chunks as the diag ones, and one
+factor block frozen for the chunk (``:493-531``, ``:669-710``). One call
+runs ``T`` transitions for every chain with the chain state kept inside
+the op, and per draw:
 
 - the momentum from Box-Muller normals ``z`` of the counter stream
   (``_boxmuller_std`` ``:134``): ``p = z @ L^{-1}`` (``_dense_momentum``
-  ``:154``) or ``p = z / sqrt(V)`` (``_boxmuller_momentum`` ``:143``);
+  ``:154``), ``p = z / sqrt(V)`` (``_boxmuller_momentum`` ``:143``) or
+  ``p = (α^{−½}z + V((λ^{−½}−α^{−½})·(Vᵀz))) / sqrt(V)``
+  (``_lowrank_momentum`` ``:169``);
 - the step size and early depth cap from the iteration counter;
 - one transition (:func:`.nuts_trajectory.transition_block`, velocity
-  ``p @ cov`` or ``V p``) and the proposal's gradient;
+  ``p @ cov``, ``V p`` or the low-rank one of
+  :func:`.nuts_trajectory.lowrank_velocity` with ``S = sqrt(V)``) and the
+  proposal's gradient;
 - ``mean_tree_accept`` and dual averaging (``_da_update_cols`` ``:399``);
 - in tune chunks with ``welford`` (diag), each chain's dual-window Welford
   step on its proposal, which refreshes ``V`` for the next draw from the
@@ -49,14 +56,16 @@ import torch
 
 from ..integration import INTEGRATOR_COEFFS
 from ..math import fp32_matmul, round_up
-from .nuts_trajectory import (BODY_IDS, DEFAULT_CHAIN_BLOCK, MAX_KERNEL_CHAIN_BLOCK,
-                              MAX_KERNEL_NDIM_DENSE, METRIC_IDS, TrajectorySpec, _M32, _GOLDEN,
+from .nuts_trajectory import (BODY_IDS, DEFAULT_CHAIN_BLOCK, MAX_KERNEL_NDIM_DENSE, METRIC_IDS, TrajectorySpec, _M32, _GOLDEN,
                               _rowdot, _seed_words, block_uniform, body_logp_grad,
-                              counter_uniform, fmix32, int32_bits, metric_velocity,
-                              resolve_chain_block, transition_block)
+                              counter_uniform, fmix32, int32_bits, kernel_chain_block,
+                              lowrank_fac_parts,
+                              lowrank_fac_size, lowrank_velocity, metric_velocity,
+                              resolve_chain_block, thin_combine, thin_dots, transition_block)
 
 __all__ = ["fused_nuts", "fused_nuts_plain", "combine_dense_welford", "padded_dim",
-           "dense_momentum", "diag_momentum", "STAT_KEYS", "WELFORD_KEYS"]
+           "dense_momentum", "diag_momentum", "lowrank_momentum", "STAT_KEYS",
+           "WELFORD_KEYS"]
 
 _TWO_PI = 6.283185307179586
 _MOMENTUM_SALT = 1013904223
@@ -132,6 +141,33 @@ def diag_momentum(seed0: int, seed1: int, block_id: int, var: torch.Tensor,
     inverse-mass diagonals are the rows of ``var``."""
     rows, n = var.shape
     return boxmuller_normals(seed0, seed1, block_id, rows, n, var.device, offset) / torch.sqrt(var)
+
+
+def lowrank_momentum(seed0: int, seed1: int, block_id: int, stds: torch.Tensor,
+                     fac: torch.Tensor, offset: int = _MOMENTUM_SALT) -> torch.Tensor:
+    """The momentum ``p = S⁻¹(α^{−½}z + V((λ^{−½}−α^{−½})·(Vᵀz)))`` of one
+    chain block whose scales are the rows of ``stds``, from the factor
+    block ``fac`` (``_lowrank_momentum``, ``fused_nuts_pallas.py:169-192``),
+    in the kernels' order of operations."""
+    rows, n = stds.shape
+    z = boxmuller_normals(seed0, seed1, block_id, rows, n, stds.device, offset)
+    Vt, _, cmom, _, ah = lowrank_fac_parts(fac, n)
+    return (ah * z + thin_combine(Vt, thin_dots(z, Vt) * cmom)) / stds
+
+
+def momentum_and_velocity(metric: str, seed0: int, seed1: int, blk: int, rows: int, vb,
+                          linv, fac, offset: int = _MOMENTUM_SALT):
+    """One chain block's momentum draw (``rows`` chains) and velocity for
+    its metric: ``vb`` is the block's rows of the per-chain variances (diag,
+    low-rank) or the shared covariance (dense)."""
+    if metric == "dense":
+        return (dense_momentum(seed0, seed1, blk, rows, linv, offset),
+                metric_velocity(vb, metric))
+    if metric == "lowrank":
+        stds = torch.sqrt(vb)
+        return (lowrank_momentum(seed0, seed1, blk, stds, fac, offset),
+                lowrank_velocity(stds, fac))
+    return diag_momentum(seed0, seed1, blk, vb, offset), metric_velocity(vb, metric)
 
 
 def _log1mexp(x: torch.Tensor) -> torch.Tensor:
@@ -310,8 +346,8 @@ def fused_nuts_plain(q, grad, logp, iter_count, da_log_step, da_log_bar, da_hbar
                      window_multiplier: float = 1.0,
                      chain_block: int = DEFAULT_CHAIN_BLOCK, collect_trace: bool = True,
                      welford: Optional[Sequence[torch.Tensor]] = None,
-                     dense_welford: Optional[Sequence[torch.Tensor]] = None
-                     ) -> Dict[str, torch.Tensor]:
+                     dense_welford: Optional[Sequence[torch.Tensor]] = None,
+                     fac: Optional[torch.Tensor] = None) -> Dict[str, torch.Tensor]:
     """The plain PyTorch op, block by block, on any device."""
     C, n = q.shape
     cb = resolve_chain_block(C, chain_block)
@@ -332,16 +368,12 @@ def fused_nuts_plain(q, grad, logp, iter_count, da_log_step, da_log_bar, da_hbar
         s = {k: v[rows] for k, v in state.items()}
         qb, gb = q[rows], grad[rows]
         wel = _BlockWelford(dense_welford, B) if dense_welford is not None else None
-        vb = var[rows] if metric == "diag" else var
+        vb = var if metric == "dense" else var[rows]
         dw = DiagWelford(welford).rows(rows) if welford is not None else None
         per_draw = {k: [] for k in STAT_KEYS + ("trace",)}
         for t in range(T):
             seed0 = (w0 + t * _DRAW_STRIDE) & _M32
-            if metric == "dense":
-                p0 = dense_momentum(seed0, w1, blk, cb, linv)
-            else:
-                p0 = diag_momentum(seed0, w1, blk, vb)
-            vel = metric_velocity(vb, metric)
+            p0, vel = momentum_and_velocity(metric, seed0, w1, blk, cb, vb, linv, fac)
             lp0 = s["logp"]
             E0 = 0.5 * _rowdot(p0, vel(p0)) - lp0
             eps = torch.exp(s["da_log_step"] if adapting else s["da_log_bar"])
@@ -405,14 +437,17 @@ def gather_blocks(outs, device, collect_trace: bool, adapt_metric: bool, adapt_d
 # The CUDA kernel's wrapper
 # --------------------------------------------------------------------------
 
-def check_inputs(spec, q, grad, scalars, var, linv, metric, welford, dense_welford, tuning):
+def check_inputs(spec, q, grad, scalars, var, linv, metric, welford, dense_welford, tuning,
+                 fac=None):
     """The fused ops' input contract: float32 tensors of the shapes
     :func:`fused_nuts` documents, on one device."""
     C, n = q.shape
     if n != spec.ndim:
         raise ValueError(f"q has {n} columns but the model has {spec.ndim}")
-    if metric not in ("diag", "dense"):
-        raise ValueError(f"unknown metric {metric!r}; known: diag, dense")
+    if metric not in METRIC_IDS:
+        raise ValueError(f"unknown metric {metric!r}; known: {sorted(METRIC_IDS)}")
+    if (fac is not None) != (metric == "lowrank"):
+        raise ValueError("the low-rank metric, and only it, takes the factor block fac")
     dev = q.device
     named = [("q", q, (C, n)), ("grad", grad, (C, n))]
     named += [(k, v, (C,)) for k, v in zip(_SCALARS, scalars)]
@@ -424,6 +459,8 @@ def check_inputs(spec, q, grad, scalars, var, linv, metric, welford, dense_welfo
         if dense_welford is not None:
             raise ValueError("dense_welford (pooled dense adaptation) needs metric='dense'")
         named.append(("var", var, (C, n)))
+        if metric == "lowrank":
+            named.append(("fac", fac, (lowrank_fac_size(n),)))
         if welford is not None:
             named += [(k, v, (C, n) if k in _WELFORD_ROWS else (C,))
                       for k, v in zip(WELFORD_KEYS, welford)]
@@ -444,24 +481,25 @@ def check_inputs(spec, q, grad, scalars, var, linv, metric, welford, dense_welfo
                              f"{dev}; got {c.dtype} on {c.device}")
 
 
-def check_kernel_shapes(C: int, n: int, chain_block: int) -> int:
+def check_kernel_shapes(C: int, n: int, chain_block: int, metric: str = "diag") -> int:
     """The fused kernels' chain block for ``C`` chains, after checking what
-    they take: at most 16 chains a block, ``n`` at most 256."""
-    cb = resolve_chain_block(C, chain_block)
-    if cb > MAX_KERNEL_CHAIN_BLOCK:
-        raise ValueError(f"chain_block {cb} exceeds the kernel's "
-                         f"{MAX_KERNEL_CHAIN_BLOCK} chains per thread block")
+    they take: at most 16 chains a block (the fused NUTS kernel's low-rank
+    metric 8, :func:`.nuts_trajectory.kernel_chain_block`), ``n`` at most
+    256."""
+    cb = kernel_chain_block(C, chain_block, metric)
     if n > MAX_KERNEL_NDIM_DENSE:
         raise ValueError(f"the fused kernel takes n <= {MAX_KERNEL_NDIM_DENSE}, got {n}")
     return cb
 
 
-def state_buffers(scalars, var, linv, metric, welford, empty) -> Dict[str, torch.Tensor]:
+def state_buffers(scalars, var, linv, metric, welford, empty,
+                  fac=None) -> Dict[str, torch.Tensor]:
     """The fused kernels' state inputs and the outputs they update: the
     ``(C, 16)`` scalar state (the chain and dual averaging in columns 0-6,
     the diag Welford weights and counters in 8-13), the metric (``cov`` and
-    ``linv``, or ``var``: the inverse mass, stacked over the four Welford
-    rows with ``welford``) and the outputs."""
+    ``linv``, or ``var``: the variances, stacked over the four Welford
+    rows with ``welford``, and for the low-rank metric the factor block in
+    ``cov``'s place) and the outputs."""
     C = scalars[0].shape[0]
     zero = torch.zeros_like(scalars[0])
     wl = dict(zip(WELFORD_KEYS, welford)) if welford is not None else {}
@@ -470,7 +508,10 @@ def state_buffers(scalars, var, linv, metric, welford, empty) -> Dict[str, torch
            "cov": None, "linv": None, "var": None, "var_out": None}
     if metric == "dense":
         buf.update(cov=var.contiguous(), linv=linv.contiguous())
-    elif welford is None:
+        return buf
+    if metric == "lowrank":
+        buf["cov"] = fac.contiguous()
+    if welford is None:
         buf["var"] = var.contiguous()
     else:
         buf["var"] = torch.stack([var] + [wl[k] for k in _WELFORD_ROWS]).contiguous()
@@ -491,11 +532,11 @@ def state_results(buf) -> Dict[str, torch.Tensor]:
 
 
 def _launch_kernel(q, grad, scalars, var, linv, seed, *, spec, T, tuning, config, metric,
-                   window_multiplier, chain_block, collect_trace, welford, dense_welford):
+                   window_multiplier, chain_block, collect_trace, welford, dense_welford, fac):
     from ._build import launch
 
     C, n = q.shape
-    cb = check_kernel_shapes(C, n, chain_block)
+    cb = check_kernel_shapes(C, n, chain_block, metric)
     B = C // cb
     D = int(config.max_treedepth)
     dev = q.device
@@ -514,7 +555,7 @@ def _launch_kernel(q, grad, scalars, var, linv, seed, *, spec, T, tuning, config
         "stat_f": empty(len(_STAT_F32), T, C), "stat_i": empty(2, T, C, dtype=torch.int32),
         "stat_b": empty(2, T, C, dtype=torch.bool),
     }
-    buf.update(state_buffers(scalars, var, linv, metric, welford, empty))
+    buf.update(state_buffers(scalars, var, linv, metric, welford, empty, fac))
     adapt_dense = dense_welford is not None
     if adapt_dense:
         buf.update(welford_buffers(dense_welford, B, empty))
@@ -551,21 +592,23 @@ def fused_nuts(q, grad, logp, iter_count, da_log_step, da_log_bar, da_hbar, da_c
                config, metric: str = "dense", window_multiplier: float = 1.0,
                chain_block: int = DEFAULT_CHAIN_BLOCK, collect_trace: bool = True,
                welford: Optional[Sequence[torch.Tensor]] = None,
-               dense_welford: Optional[Sequence[torch.Tensor]] = None
-               ) -> Dict[str, torch.Tensor]:
+               dense_welford: Optional[Sequence[torch.Tensor]] = None,
+               fac: Optional[torch.Tensor] = None) -> Dict[str, torch.Tensor]:
     """``T`` NUTS transitions for every chain, where the tensors lie.
 
     Inputs (float32): ``q, grad`` ``(C, n)``; the per-chain ``logp``,
     ``iter_count`` and dual-averaging leaves ``(C,)``; the metric ``var``:
     for ``metric="dense"`` the shared covariance ``(n, n)`` with its
     inverse lower Cholesky factor ``linv``, for ``metric="diag"`` the
-    per-chain inverse-mass diagonals ``(C, n)`` and ``linv=None``; ``seed``
-    two int32 words. ``config`` is a
+    per-chain inverse-mass diagonals ``(C, n)`` and ``linv=None``, for
+    ``metric="lowrank"`` the per-chain variances ``(C, n)``, ``linv=None``
+    and ``fac`` the shared factor block of
+    :func:`.nuts_trajectory.build_lowrank_fac`; ``seed`` two int32 words. ``config`` is a
     :class:`~littlemcmc_torch.base.NUTSConfig`. ``welford`` (diag: the
     per-chain adaptation, ``adapt_metric``) is the state of
     :data:`WELFORD_KEYS`, rows ``(C, n)`` and weights and counters
     ``(C,)``; tune chunks update it and ``var`` every draw, draw chunks
-    pass it through. ``dense_welford`` (dense: tune chunks of pooled
+    pass it through (diag and low-rank alike; the factor stays frozen). ``dense_welford`` (dense: tune chunks of pooled
     adaptation) is the global pooled state ``(fg_mean (n,), fg_raw (n, n),
     fg_w, bg_mean, bg_raw, bg_w, n_samples, prev_update, window)``, scalars
     as 0-d tensors.
@@ -582,10 +625,12 @@ def fused_nuts(q, grad, logp, iter_count, da_log_step, da_log_bar, da_hbar, da_c
     kernel (``fused_nuts.launches`` counts those launches) or raise.
     """
     scalars = (logp, iter_count, da_log_step, da_log_bar, da_hbar, da_count, da_mu)
-    check_inputs(spec, q, grad, scalars, var, linv, metric, welford, dense_welford, tuning)
+    check_inputs(spec, q, grad, scalars, var, linv, metric, welford, dense_welford, tuning,
+                 fac)
     kw = dict(spec=spec, T=T, tuning=tuning, config=config, metric=metric,
               window_multiplier=window_multiplier, chain_block=chain_block,
-              collect_trace=collect_trace, welford=welford, dense_welford=dense_welford)
+              collect_trace=collect_trace, welford=welford, dense_welford=dense_welford,
+              fac=fac)
     if q.device.type == "cpu":
         return fused_nuts_plain(q, grad, *scalars, var, linv, seed, **kw)
     if q.device.type == "cuda":

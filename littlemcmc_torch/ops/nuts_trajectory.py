@@ -1,13 +1,17 @@
 """One whole NUTS transition per chain: the trajectory op.
 
 Counterpart of ``littlemcmc_tpu/ops/nuts_trajectory_pallas.py::
-build_trajectory_op`` with ``metric="diag"`` or ``metric="dense"`` and
-``pack=1``. One call builds each chain's whole tree: the merge stack, the
-edge states and the proposal stay inside the op, and the model's
+build_trajectory_op`` with ``metric="diag"``, ``"dense"`` or ``"lowrank"``
+and ``pack=1``. One call builds each chain's whole tree: the merge stack,
+the edge states and the proposal stay inside the op, and the model's
 ``(logp, grad)`` is inlined. The diag metric is a per-chain inverse-mass
 diagonal (velocity ``var * p``); the dense metric is one ``(n, n)``
 covariance shared by every chain (velocity ``p @ var``,
-``make_velocities(V, "dense")``, ``nuts_trajectory_pallas.py:309-333``).
+``make_velocities(V, "dense")``, ``nuts_trajectory_pallas.py:309-333``);
+the low-rank metric is a per-chain scale ``S`` and one factor block shared
+by every chain (velocity ``S(αx + V((λ−α)·(Vᵀx)))``, ``x = S p``;
+``_make_lowrank_velocities``, ``:717-753``), laid out for the card by
+:func:`build_lowrank_fac`.
 It does the multinomial swaps, the 3-way generalized U-turn, divergence
 on ``|dE| >= Emax`` with NaN counted as infinite, and each chain's own
 depth cap.
@@ -47,19 +51,26 @@ from .quadform import quadform_logp_grad_plain
 
 __all__ = ["TrajectorySpec", "fmix32", "counter_salt", "counter_uniform",
            "resolve_chain_block", "trajectory", "trajectory_plain",
-           "body_logp_grad", "DEFAULT_CHAIN_BLOCK", "METRIC_IDS"]
+           "body_logp_grad", "DEFAULT_CHAIN_BLOCK", "METRIC_IDS", "LOWRANK_MAX_K",
+           "lowrank_fac_size", "build_lowrank_fac", "warp_sum", "thin_dots"]
 
 # Chains per CUDA thread block, one warp per chain: 128 blocks at the
 # main path's 1024 chains for the card's 132 SMs.
 DEFAULT_CHAIN_BLOCK = 8
-# 16 warps of 32 threads at up to 128 registers fill an SM's 65,536
+# 16 warps of 32 threads at up to 128 registers fill an SM's 65,536; the
+# low-rank metric's instances take 8 warps of up to 255 registers
 MAX_KERNEL_CHAIN_BLOCK = 16
+MAX_KERNEL_LOWRANK_CHAIN_BLOCK = 8
 MAX_KERNEL_NDIM_DENSE = 256  # register tile of the dense and the logistic model bodies
 
 # model bodies and metrics compiled into the kernels (ids match
 # csrc/nuts_transition.cuh)
-BODY_IDS = {"standard_normal": 0, "correlated_gaussian": 1, "eight_schools": 2, "logistic": 3}
-METRIC_IDS = {"diag": 0, "dense": 1}
+BODY_IDS = {"standard_normal": 0, "correlated_gaussian": 1, "eight_schools": 2, "logistic": 3,
+            "spiked_gaussian": 4}
+METRIC_IDS = {"diag": 0, "dense": 1, "lowrank": 2}
+# columns of the low-rank factor block the kernels read (kMaxRank in
+# csrc/nuts_transition.cuh); a smaller rank is padded with zero columns
+LOWRANK_MAX_K = 8
 
 _M32 = 0xFFFFFFFF
 _GOLDEN = 0x9E3779B9
@@ -83,6 +94,10 @@ class TrajectorySpec:
     intercept folded in, the responses ``y`` ``(N,)`` and the prior
     precision ``1/prior_scale^2`` ``(1,)``, all fp32 and unpadded;
     ``logp = sum(y * logits - softplus(logits)) - prior_prec q.q/2``.
+    ``spiked_gaussian``: the zero-mean Gaussian with covariance
+    ``S(I + V(Λ−I)Vᵀ)S`` (``models/gaussian.py:140-237``); ``V`` ``(n, k)``
+    with ``k <= 8``, ``1/λ − 1`` ``(k,)`` and ``1/s`` ``(n,)``;
+    ``g = −S⁻¹(x + V((1/λ−1)·(Vᵀx)))``, ``x = S⁻¹q``, ``logp = q.g/2``.
 
     ``packable``: the JAX model's spec has a lane-packed body
     (``packed_fn``). Nothing in the port packs lanes; the flag only
@@ -90,9 +105,10 @@ class TrajectorySpec:
 
     ``kernel_consts`` is what the CUDA kernels read: the one constant, or
     for the logistic body its three packed into one contiguous buffer
-    (:func:`~littlemcmc_torch.ops.logistic.pack_logistic`), or None for a
-    body without constants; ``rows`` is the logistic body's ``N`` (0 for
-    the others).
+    (:func:`~littlemcmc_torch.ops.logistic.pack_logistic`), for the spiked
+    Gaussian ``[Vᵀ (k x n), 1/λ − 1, 1/s]`` in one buffer, or None for a
+    body without constants; ``rows`` is the logistic body's ``N`` and the
+    spiked Gaussian's ``k`` (0 for the others).
     """
 
     body: str
@@ -109,15 +125,27 @@ class TrajectorySpec:
         if self.body == "eight_schools" and self.ndim != 10:
             raise ValueError(f"the eight_schools body has 10 parameters, not {self.ndim}")
         got = [tuple(c.shape) for c in self.consts]
-        rows = got[0][0] if self.body == "logistic" and got and got[0] else 0
+        rows = 0
+        if self.body == "logistic" and got and got[0]:
+            rows = got[0][0]
+        elif self.body == "spiked_gaussian" and got and len(got[0]) == 2:
+            rows = got[0][1]
         want = {"standard_normal": [], "correlated_gaussian": [(self.ndim, self.ndim)],
                 "eight_schools": [(2, 10)],
-                "logistic": [(rows, self.ndim), (rows,), (1,)]}[self.body]
-        if got != want or (self.body == "logistic" and rows < 1):
+                "logistic": [(rows, self.ndim), (rows,), (1,)],
+                "spiked_gaussian": [(self.ndim, rows), (rows,), (self.ndim,)]}[self.body]
+        if (got != want or (self.body == "logistic" and rows < 1)
+                or (self.body == "spiked_gaussian" and not 1 <= rows <= LOWRANK_MAX_K)):
             raise ValueError(f"the {self.body} body takes constants of shapes {want}, got "
-                             f"{got}")
-        packed = (pack_logistic(*self.consts) if self.body == "logistic"
-                  else (self.consts[0] if self.consts else None))
+                             f"{got}" + (f" (k <= {LOWRANK_MAX_K})"
+                                         if self.body == "spiked_gaussian" else ""))
+        if self.body == "logistic":
+            packed = pack_logistic(*self.consts)
+        elif self.body == "spiked_gaussian":
+            V, il, inv_s = self.consts
+            packed = torch.cat([V.T.reshape(-1), il, inv_s]).contiguous()
+        else:
+            packed = self.consts[0] if self.consts else None
         object.__setattr__(self, "kernel_consts", packed)
         object.__setattr__(self, "rows", rows)
 
@@ -134,7 +162,105 @@ def body_logp_grad(spec: TrajectorySpec, q: torch.Tensor):
         return _eight_schools_logp_grad(spec.consts[0], q)
     if spec.body == "logistic":
         return logistic_logp_grad_plain(q, *spec.consts)
+    if spec.body == "spiked_gaussian":
+        return _spiked_logp_grad(*spec.consts, q)
     return quadform_logp_grad_plain(q, spec.consts[0])
+
+
+# the lane each lane of a warp reads at each step of an xor butterfly
+_XOR_LANES = {o: torch.arange(32) ^ o for o in (16, 8, 4, 2, 1)}
+
+
+def warp_sum(x: torch.Tensor) -> torch.Tensor:
+    """The sum over the last axis in the kernels' order: lane ``l`` adds
+    elements ``l, l + 32, ...`` in turn, then an xor butterfly over the 32
+    lanes (``warp_sum`` of ``csrc/nuts_transition.cuh``), so that a plain
+    version and a kernel round the same thin products to the same bits."""
+    n = x.shape[-1]
+    x = torch.nn.functional.pad(x, (0, (-n) % 32))
+    chunks = x.reshape(*x.shape[:-1], -1, 32)
+    part = chunks[..., 0, :] + 0.0
+    for c in range(1, chunks.shape[-2]):
+        part = part + chunks[..., c, :]
+    for o, lanes in _XOR_LANES.items():
+        part = part + part[..., lanes.to(part.device)]
+    return part[..., 0]
+
+
+def thin_dots(x: torch.Tensor, Vt: torch.Tensor) -> torch.Tensor:
+    """``Vᵀx`` for ``x`` ``(..., n)`` and ``Vt`` ``(k, n)``: ``(..., k)``,
+    each of the ``k`` dots a :func:`warp_sum` (the kernels' ``thin_dots``)."""
+    return warp_sum(x[..., None, :] * Vt)
+
+
+def thin_combine(Vt: torch.Tensor, d: torch.Tensor) -> torch.Tensor:
+    """``V d`` for ``Vt`` ``(k, n)`` and ``d`` ``(..., k)``: the columns
+    added in turn from 0, as the kernels add them."""
+    acc = torch.zeros(d.shape[:-1] + Vt.shape[1:], dtype=d.dtype, device=d.device)
+    for j in range(Vt.shape[0]):
+        acc = acc + Vt[j] * d[..., j:j + 1]
+    return acc
+
+
+def _spiked_logp_grad(V: torch.Tensor, il: torch.Tensor, inv_s: torch.Tensor,
+                      q: torch.Tensor):
+    """The spiked Gaussian's body (``models/gaussian.py:204-237``) with the
+    kernels' sums: ``x = q/s``, ``g = −(x + V((1/λ−1)·(Vᵀx)))/s``,
+    ``logp = q.g/2``."""
+    Vt = V.T
+    x = q * inv_s
+    y = x + thin_combine(Vt, thin_dots(x, Vt) * il)
+    g = -y * inv_s
+    return 0.5 * warp_sum(q * g), g
+
+
+def lowrank_fac_size(n: int) -> int:
+    """Floats of the low-rank factor block the kernels read (the card's
+    layout of ``lowrank_fac_rows``, ``nuts_trajectory_pallas.py:699``):
+    ``Vᵀ`` as 8 rows of ``n``, then ``λ − α`` and ``λ^{−½} − α^{−½}`` (8
+    each, zero past the rank), then ``α`` and ``α^{−½}``."""
+    return LOWRANK_MAX_K * (n + 2) + 2
+
+
+def build_lowrank_fac(V: torch.Tensor, lam: torch.Tensor, alpha: torch.Tensor) -> torch.Tensor:
+    """The factor block of :func:`lowrank_fac_size` from one basis ``V``
+    ``(n, k)`` (``k <= 8``), its eigenvalues ``lam`` ``(k,)`` and the bulk
+    ``alpha`` (``build_lowrank_fac``, ``nuts_trajectory_pallas.py:706``).
+    The coefficients are computed here once, in float32, so the kernels and
+    their plain versions read the same bits."""
+    n, k = V.shape
+    if k > LOWRANK_MAX_K:
+        raise ValueError(f"the kernels take a low-rank metric of rank <= {LOWRANK_MAX_K}, "
+                         f"got {k}")
+    K = LOWRANK_MAX_K
+    f = dict(dtype=torch.float32, device=V.device)
+    Vt = torch.zeros(K, n, **f)
+    Vt[:k] = V.T
+    a = alpha.to(torch.float32).reshape(1)
+    ah = a ** -0.5
+    cvel, cmom = torch.zeros(K, **f), torch.zeros(K, **f)
+    cvel[:k] = lam - a
+    cmom[:k] = lam ** -0.5 - ah
+    return torch.cat([Vt.reshape(-1), cvel, cmom, a, ah]).contiguous()
+
+
+def lowrank_fac_parts(fac: torch.Tensor, n: int):
+    """``(Vt (8, n), λ − α, λ^{−½} − α^{−½}, α, α^{−½})`` of a factor block."""
+    K = LOWRANK_MAX_K
+    Vt = fac[:K * n].reshape(K, n)
+    return Vt, fac[K * n:K * n + K], fac[K * n + K:K * n + 2 * K], fac[-2], fac[-1]
+
+
+def lowrank_velocity(stds: torch.Tensor, fac: torch.Tensor) -> Callable:
+    """``p -> S(αx + V((λ−α)·(Vᵀx)))`` with ``x = S p`` (``stds`` the rows'
+    ``S``), in the kernels' order of operations."""
+    Vt, cvel, _, alpha, _ = lowrank_fac_parts(fac, stds.shape[-1])
+
+    def vel(p):
+        x = stds * p
+        return stds * (alpha * x + thin_combine(Vt, thin_dots(x, Vt) * cvel))
+
+    return vel
 
 
 def _eight_schools_logp_grad(consts: torch.Tensor, q: torch.Tensor):
@@ -226,13 +352,17 @@ def _col(x: torch.Tensor) -> torch.Tensor:
     return x[:, None]
 
 
-def metric_velocity(var: torch.Tensor, metric: str) -> Callable:
+def metric_velocity(var, metric: str, fac: Optional[torch.Tensor] = None) -> Callable:
     """The velocity ``p -> M^{-1} p`` of a metric: ``var * p`` for a
-    per-chain diagonal, ``p @ var`` for a shared dense covariance."""
+    per-chain diagonal, ``p @ var`` for a shared dense covariance, and for
+    the low-rank metric (``var`` the chains' scales, ``fac`` the factor
+    block) :func:`lowrank_velocity`."""
     if metric == "diag":
         return lambda p: var * p
     if metric == "dense":
         return lambda p: fp32_matmul(p, var)
+    if metric == "lowrank":
+        return lowrank_velocity(var, fac)
     raise ValueError(f"unknown metric {metric!r}; known: {sorted(METRIC_IDS)}")
 
 
@@ -462,8 +592,8 @@ def block_uniform(seed0: int, seed1: int, block_id: int, rows: int, device) -> C
 def trajectory_plain(q, p, grad, logp, eps, max_depth_c, var, seed, *,
                      spec: TrajectorySpec, max_treedepth: int, Emax: float,
                      chain_block: int = DEFAULT_CHAIN_BLOCK,
-                     integrator: str = "leapfrog",
-                     metric: str = "diag") -> Dict[str, torch.Tensor]:
+                     integrator: str = "leapfrog", metric: str = "diag",
+                     fac: Optional[torch.Tensor] = None) -> Dict[str, torch.Tensor]:
     """The plain PyTorch transition, block by block, on any device."""
     C = q.shape[0]
     cb = resolve_chain_block(C, chain_block)
@@ -476,7 +606,7 @@ def trajectory_plain(q, p, grad, logp, eps, max_depth_c, var, seed, *,
     outs = []
     for blk in range(C // cb):
         rows = slice(blk * cb, (blk + 1) * cb)
-        vel = metric_velocity(var[rows] if metric == "diag" else var, metric)
+        vel = metric_velocity(var if metric == "dense" else var[rows], metric, fac)
         p0, lp0 = p[rows], logp[rows]
         E0 = 0.5 * _rowdot(p0, vel(p0)) - lp0
         outs.append(transition_block(
@@ -496,17 +626,22 @@ _OUT_I32 = ("depth", "n_leaves")
 _OUT_BOOL = ("diverging", "turning")
 
 
-def _check_inputs(spec, q, p, grad, logp, eps, max_depth_c, var, metric):
+def _check_inputs(spec, q, p, grad, logp, eps, max_depth_c, var, metric, fac):
     C, n = q.shape
     if n != spec.ndim:
         raise ValueError(f"q has {n} columns but the model has {spec.ndim}")
     if metric not in METRIC_IDS:
         raise ValueError(f"unknown metric {metric!r}; known: {sorted(METRIC_IDS)}")
+    if (fac is not None) != (metric == "lowrank"):
+        raise ValueError("the low-rank metric, and only it, takes the factor block fac")
     dev = q.device
-    var_shape = (C, n) if metric == "diag" else (n, n)
+    metric_in = (("var", var, (n, n) if metric == "dense" else (C, n)),)
+    if metric == "lowrank":
+        metric_in += (("fac", fac, (lowrank_fac_size(n),)),)
     for name, t, shape, dtype in (
             ("q", q, (C, n), torch.float32), ("p", p, (C, n), torch.float32),
-            ("grad", grad, (C, n), torch.float32), ("var", var, var_shape, torch.float32),
+            ("grad", grad, (C, n), torch.float32),
+            *((k, t, sh, torch.float32) for k, t, sh in metric_in),
             ("logp", logp, (C,), torch.float32), ("eps", eps, (C,), torch.float32),
             ("max_depth_c", max_depth_c, (C,), torch.int32)):
         if t.device != dev or t.dtype != dtype or tuple(t.shape) != shape:
@@ -520,15 +655,23 @@ def _check_inputs(spec, q, p, grad, logp, eps, max_depth_c, var, metric):
                              f"{dev}; got {c.dtype} on {c.device}")
 
 
+def kernel_chain_block(C: int, chain_block: int, metric: str) -> int:
+    """The NUTS kernels' chain block for ``C`` chains, after checking that
+    a thread block takes it: at most 16 chains, 8 for the low-rank metric."""
+    cb = resolve_chain_block(C, chain_block)
+    most = MAX_KERNEL_LOWRANK_CHAIN_BLOCK if metric == "lowrank" else MAX_KERNEL_CHAIN_BLOCK
+    if cb > most:
+        raise ValueError(f"chain_block {cb} exceeds the kernel's {most} chains per thread "
+                         f"block (metric {metric!r})")
+    return cb
+
+
 def _launch_kernel(q, p, grad, logp, eps, max_depth_c, var, seed, *, spec,
-                   max_treedepth, Emax, chain_block, integrator, metric):
+                   max_treedepth, Emax, chain_block, integrator, metric, fac):
     from ._build import load_library
 
     C, n = q.shape
-    cb = resolve_chain_block(C, chain_block)
-    if cb > MAX_KERNEL_CHAIN_BLOCK:
-        raise ValueError(f"chain_block {cb} exceeds the kernel's "
-                         f"{MAX_KERNEL_CHAIN_BLOCK} chains per thread block")
+    cb = kernel_chain_block(C, chain_block, metric)
     if (spec.body in ("correlated_gaussian", "logistic") or metric == "dense") \
             and n > MAX_KERNEL_NDIM_DENSE:
         raise ValueError(f"the {spec.body} body and the dense metric take "
@@ -555,6 +698,7 @@ def _launch_kernel(q, p, grad, logp, eps, max_depth_c, var, seed, *, spec,
         stream = torch.cuda.current_stream(q.device).cuda_stream
         err = lib.nuts_trajectory_launch(
             q.data_ptr(), p.data_ptr(), grad.data_ptr(), var.data_ptr(),
+            fac.data_ptr() if fac is not None else 0,
             logp.data_ptr(), eps.data_ptr(), max_depth_c.data_ptr(),
             seed0 & 0xFFFFFFFF, seed1 & 0xFFFFFFFF,
             BODY_IDS[spec.body], METRIC_IDS[metric], consts, spec.rows,
@@ -572,13 +716,15 @@ def _launch_kernel(q, p, grad, logp, eps, max_depth_c, var, seed, *, spec,
 def trajectory(q, p, grad, logp, eps, max_depth_c, var, seed, *,
                spec: TrajectorySpec, max_treedepth: int, Emax: float,
                chain_block: int = DEFAULT_CHAIN_BLOCK,
-               integrator: str = "leapfrog",
-               metric: str = "diag") -> Dict[str, torch.Tensor]:
+               integrator: str = "leapfrog", metric: str = "diag",
+               fac: Optional[torch.Tensor] = None) -> Dict[str, torch.Tensor]:
     """One NUTS transition for every chain, where the tensors lie.
 
     Inputs: ``q, p, grad`` ``(C, n)`` float32; ``var`` the metric:
     ``(C, n)`` inverse-mass diagonals for ``metric="diag"``, one ``(n, n)``
-    covariance for ``metric="dense"``; ``logp, eps`` ``(C,)`` float32,
+    covariance for ``metric="dense"``, and for ``metric="lowrank"`` the
+    chains' scales ``(C, n)``, with ``fac`` the shared factor block of
+    :func:`build_lowrank_fac`; ``logp, eps`` ``(C,)`` float32,
     ``max_depth_c`` ``(C,)`` int32, ``seed`` an int or two int32 words.
     Returns the JAX op's dict (``nuts_trajectory_pallas.py:1045-1057``):
     proposal ``q``/``grad``/``energy``/``logp``, ``log_size``,
@@ -588,9 +734,9 @@ def trajectory(q, p, grad, logp, eps, max_depth_c, var, seed, *,
     CPU tensors run :func:`trajectory_plain`; CUDA tensors launch the
     kernel (``trajectory.launches`` counts those launches) or raise.
     """
-    _check_inputs(spec, q, p, grad, logp, eps, max_depth_c, var, metric)
+    _check_inputs(spec, q, p, grad, logp, eps, max_depth_c, var, metric, fac)
     kw = dict(spec=spec, max_treedepth=max_treedepth, Emax=Emax,
-              chain_block=chain_block, integrator=integrator, metric=metric)
+              chain_block=chain_block, integrator=integrator, metric=metric, fac=fac)
     if q.device.type == "cpu":
         return trajectory_plain(q, p, grad, logp, eps, max_depth_c, var, seed, **kw)
     if q.device.type == "cuda":

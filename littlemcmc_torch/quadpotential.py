@@ -9,8 +9,11 @@ Counterpart of the diagonal and dense parts of
 every ``adaptation_window`` samples), ``QuadPotentialFullInv``
 (``:262-293``, a static dense metric given by the mass matrix itself),
 ``QuadPotentialFullAdapt``
-(``:415-541``, Stan windows, shrinkage and a latched Cholesky failure)
-and the ``quad_potential`` factory (``:845-863``). Where the JAX package
+(``:415-541``, Stan windows, shrinkage and a latched Cholesky failure),
+the low-rank metric ``QuadPotentialLowRankAdapt`` with its helpers
+``_orthonormal_columns`` and ``_effective_eigenvalues`` (``:544-843``),
+the ``quad_potential`` factory (``:845-863``) and ``isquadpotential``
+(``:866``). Where the JAX package
 vmaps a per-chain pytree, these classes hold ``(C, n)`` tensors (``(C,)``
 for per-chain scalars, ``(C, n, n)`` for dense matrices) and update every
 chain at once. The same code also serves one chain with ``(n,)`` tensors
@@ -31,7 +34,7 @@ __all__ = ["PositiveDefiniteError", "partial_check_positive_definite", "quad_pot
            "potential_to",
            "WelfordVariance", "WelfordCovariance", "QuadPotentialDiag",
            "QuadPotentialDiagAdapt", "QuadPotentialFull", "QuadPotentialFullAdapt",
-           "QuadPotentialFullInv"]
+           "QuadPotentialFullInv", "QuadPotentialLowRankAdapt", "isquadpotential"]
 
 
 class PositiveDefiniteError(ValueError):
@@ -296,8 +299,71 @@ class QuadPotentialFullInv:
         return None
 
 
+class _DiagWelfordLeaves:
+    """The per-chain diag Welford state of an adaptive metric (``var``,
+    ``stds``, ``inv_stds``, ``fg``, ``bg``, ``n_samples``, ``window``) as the
+    fused kernels take and return it."""
+
+    def welford_leaves(self) -> tuple:
+        """The Welford state as the fused kernels take it (the order of
+        ``ops.fused_nuts.WELFORD_KEYS``): the windows' means and raw
+        variances ``(C, n)``, their weights, and the counters as float32
+        ``(C,)``."""
+        f32 = torch.float32
+        return (self.fg.mean, self.fg.raw_var, self.fg.w_sum, self.fg.w_sum2,
+                self.bg.mean, self.bg.raw_var, self.bg.w_sum, self.bg.w_sum2,
+                self.n_samples.to(f32), self.window.to(f32))
+
+    def with_welford_leaves(self, var: torch.Tensor, leaves):
+        """This metric with the inverse-mass diagonal ``var`` and the Welford
+        state ``leaves`` of :meth:`welford_leaves`' layout (a fused kernel's
+        outputs); its other fields as they were."""
+        fgm, fgr, fgw, fgw2, bgm, bgr, bgw, bgw2, ns, win = leaves
+        stds = torch.sqrt(var)
+        return dataclasses.replace(
+            self, var=var, stds=stds, inv_stds=1.0 / stds,
+            fg=WelfordVariance(w_sum=fgw, w_sum2=fgw2, mean=fgm, raw_var=fgr),
+            bg=WelfordVariance(w_sum=bgw, w_sum2=bgw2, mean=bgm, raw_var=bgr),
+            n_samples=ns.to(torch.int32), window=win.to(torch.int32))
+
+    def _diag_step(self, sample: torch.Tensor):
+        """The diag adaptation's step (reference ``quadpotential.py:
+        231-245``): ``(fields, fg, swap)``, the new diag fields, the
+        foreground after the add and before the swap, and where the windows
+        swapped."""
+        fg = self.fg.add_sample(sample)
+        bg = self.bg.add_sample(sample)
+        var = fg.current_variance()
+        stds = torch.sqrt(var)
+        swap = (self.n_samples > 0) & (torch.remainder(self.n_samples, self.window) == 0)
+        fresh = WelfordVariance.create(torch.zeros_like(sample))
+
+        def pick(a, b):
+            return WelfordVariance(*(torch.where(_rows(swap, x), x, y) for x, y in
+                                     zip(_leaves(a), _leaves(b))))
+
+        window = torch.where(
+            swap, (self.window.to(torch.float32) * self.window_multiplier).to(torch.int32),
+            self.window)
+        fields = dict(var=var, stds=stds, inv_stds=1.0 / stds, fg=pick(bg, fg),
+                      bg=pick(fresh, bg), n_samples=self.n_samples + 1, window=window)
+        return fields, fg, swap
+
+    def _raise_diag_ok(self) -> None:
+        """Host-side check mirroring reference ``quadpotential.py:247-291``."""
+        stds = self.stds.detach().cpu().numpy().reshape(-1, self.stds.shape[-1])
+        for what, bad in (("zeros", stds == 0), ("non-finite values", ~np.isfinite(stds))):
+            index = np.nonzero(bad.any(axis=0))[0]
+            if index.size:
+                raise ValueError(
+                    f"Mass matrix contains {what} on the diagonal.\n"
+                    + "\n".join(f"The derivative of RV ravel()[{i}] is "
+                                f"{'zero' if what == 'zeros' else 'non-finite'}."
+                                for i in index))
+
+
 @dataclasses.dataclass(frozen=True)
-class QuadPotentialDiagAdapt:
+class QuadPotentialDiagAdapt(_DiagWelfordLeaves):
     """Diagonal metric adapted from sample variances with two Welford windows.
 
     Order of one update (reference ``quadpotential.py:231-245``): add the
@@ -359,50 +425,7 @@ class QuadPotentialDiagAdapt:
         """One adaptation step; a no-op outside tuning."""
         if not tuning:
             return self
-        fg = self.fg.add_sample(sample)
-        bg = self.bg.add_sample(sample)
-        var = fg.current_variance()
-        stds = torch.sqrt(var)
-
-        swap = (self.n_samples > 0) & (torch.remainder(self.n_samples, self.window) == 0)
-        fresh = WelfordVariance.create(torch.zeros_like(sample))
-
-        def pick(a, b):
-            return WelfordVariance(*(torch.where(_rows(swap, x), x, y) for x, y in
-                                     zip(_leaves(a), _leaves(b))))
-
-        new_window = torch.where(
-            swap, (self.window.to(torch.float32) * self.window_multiplier).to(torch.int32),
-            self.window)
-        return QuadPotentialDiagAdapt(
-            var=var, stds=stds, inv_stds=1.0 / stds,
-            fg=pick(bg, fg), bg=pick(fresh, bg),
-            n_samples=self.n_samples + 1, window=new_window,
-            window_multiplier=self.window_multiplier,
-        )
-
-    def welford_leaves(self) -> tuple:
-        """The Welford state as the fused kernels take it (the order of
-        ``ops.fused_nuts.WELFORD_KEYS``): the windows' means and raw
-        variances ``(C, n)``, their weights, and the counters as float32
-        ``(C,)``."""
-        f32 = torch.float32
-        return (self.fg.mean, self.fg.raw_var, self.fg.w_sum, self.fg.w_sum2,
-                self.bg.mean, self.bg.raw_var, self.bg.w_sum, self.bg.w_sum2,
-                self.n_samples.to(f32), self.window.to(f32))
-
-    def with_welford_leaves(self, var: torch.Tensor, leaves) -> "QuadPotentialDiagAdapt":
-        """This metric with the inverse mass ``var`` and the Welford state
-        ``leaves`` of :meth:`welford_leaves`' layout (a fused kernel's
-        outputs)."""
-        fgm, fgr, fgw, fgw2, bgm, bgr, bgw, bgw2, ns, win = leaves
-        stds = torch.sqrt(var)
-        return QuadPotentialDiagAdapt(
-            var=var, stds=stds, inv_stds=1.0 / stds,
-            fg=WelfordVariance(w_sum=fgw, w_sum2=fgw2, mean=fgm, raw_var=fgr),
-            bg=WelfordVariance(w_sum=bgw, w_sum2=bgw2, mean=bgm, raw_var=bgr),
-            n_samples=ns.to(torch.int32), window=win.to(torch.int32),
-            window_multiplier=self.window_multiplier)
+        return dataclasses.replace(self, **self._diag_step(sample)[0])
 
     def broadcast(self, chains: int) -> "QuadPotentialDiagAdapt":
         """One chain's metric repeated for ``chains`` chains."""
@@ -417,16 +440,7 @@ class QuadPotentialDiagAdapt:
             window_multiplier=self.window_multiplier)
 
     def raise_ok(self) -> None:
-        """Host-side check mirroring reference ``quadpotential.py:247-291``."""
-        stds = self.stds.detach().cpu().numpy().reshape(-1, self.stds.shape[-1])
-        for what, bad in (("zeros", stds == 0), ("non-finite values", ~np.isfinite(stds))):
-            index = np.nonzero(bad.any(axis=0))[0]
-            if index.size:
-                raise ValueError(
-                    f"Mass matrix contains {what} on the diagonal.\n"
-                    + "\n".join(f"The derivative of RV ravel()[{i}] is "
-                                f"{'zero' if what == 'zeros' else 'non-finite'}."
-                                for i in index))
+        self._raise_diag_ok()
 
 
 @dataclasses.dataclass(frozen=True)
@@ -546,6 +560,196 @@ class QuadPotentialFullAdapt(_DenseKinetics):
             raise ValueError("Cholesky factorization of the adapted mass matrix failed.")
 
 
+def _orthonormal_columns(A: torch.Tensor) -> torch.Tensor:
+    """The columns of ``A`` (``(..., n, k)``) orthonormalized by CholeskyQR
+    with the positive-R sign (reference ``quadpotential.py:544-566``):
+    ``A L^{-T}`` with ``L = chol(AᵀA + eps I)``, ``eps = 1e-6 (tr(AᵀA)/k +
+    1)``. The sign convention lets the cross-chain pool average per-chain
+    bases without cancellation; ``cholesky_ex`` keeps the host out."""
+    G = fp32_matmul(A.mT, A)
+    k = G.shape[-1]
+    eps = 1e-6 * (torch.diagonal(G, dim1=-2, dim2=-1).sum(-1) / k + 1.0)
+    eye = torch.eye(k, dtype=G.dtype, device=G.device)
+    L = torch.linalg.cholesky_ex(G + _mats(eps) * eye)[0]
+    return torch.linalg.solve_triangular(L, A.mT, upper=False).mT
+
+
+def _effective_eigenvalues(s2: torch.Tensor, w: torch.Tensor, clip: float) -> torch.Tensor:
+    """Second moments ``s2`` at weight ``w`` (broadcast against ``s2``)
+    shrunk toward 1 with a pseudo-count of 5, then clipped to ``[1/clip,
+    clip]`` (reference ``quadpotential.py:569-582``)."""
+    raw = s2 / torch.clamp(w, min=1.0)
+    shrunk = (w * raw + 5.0) / (w + 5.0)
+    return torch.clamp(shrunk, 1.0 / clip, clip)
+
+
+def _lowrank_start_basis(n: int, k: int) -> np.ndarray:
+    """The deterministic orthonormal start basis ``(n, k)`` of
+    ``QuadPotentialLowRankAdapt.create`` (reference ``:681-683``): the
+    same numpy calls, so the same bits as the JAX package's."""
+    return np.linalg.qr(np.random.RandomState(20240817).standard_normal((n, k)))[0].astype(
+        np.float32)
+
+
+@dataclasses.dataclass(frozen=True)
+class QuadPotentialLowRankAdapt(_DiagWelfordLeaves):
+    """Spiked adaptive metric ``Σ̂ = S (α(I−VVᵀ) + VΛVᵀ) S`` (reference
+    ``quadpotential.py:585-843``), batched over chains.
+
+    The diagonal ``S² = var`` follows :class:`QuadPotentialDiagAdapt`
+    exactly. ``vecs`` ``(..., n, k)`` spans the standardized directions
+    whose variance ``lam`` departs most from 1 and ``alpha`` rescales the
+    bulk; every metric operation is ``O(nk)``:
+    ``velocity(p) = S C (S p)`` and momentum ``p = S⁻¹ C^{-1/2} ζ`` with
+    ``C^s x = α^s x + V((λ^s − α^s)·(Vᵀx))``. Per chain, each tuning draw
+    takes one shifted subspace-iteration step ``V ← orth(V + Zᵀ(ZV)/m)``
+    against a ring buffer of the last ``buffer_size`` positions (inert
+    until ``buf_fill`` says the buffer is full) and scores the new sample
+    on the previous basis for the eigenvalue accumulators, which decay by
+    half at each window swap. Under cross-chain pooling
+    (:mod:`littlemcmc_torch.parallel.cross_chain`) the basis is refreshed
+    from the cross-chain batch instead.
+    """
+
+    var: torch.Tensor  # (..., n) inverse-mass diagonal (the sample variance)
+    stds: torch.Tensor
+    inv_stds: torch.Tensor
+    fg: WelfordVariance
+    bg: WelfordVariance
+    n_samples: torch.Tensor  # int32 per chain
+    window: torch.Tensor  # int32 per chain
+    vecs: torch.Tensor  # (..., n, k) orthonormal columns
+    lam: torch.Tensor  # (..., k) effective eigenvalues
+    alpha: torch.Tensor  # (...,) effective residual-bulk variance
+    lam_w: torch.Tensor  # (...,) second-moment weight
+    lam_s2: torch.Tensor  # (..., k) raw sums of squared projections
+    alpha_s2: torch.Tensor  # (...,) raw sum of residual squared norms
+    buf: torch.Tensor  # (..., m, n) ring buffer of recent positions
+    buf_pos: torch.Tensor  # int32 per chain, next write slot
+    buf_fill: torch.Tensor  # int32 per chain, valid rows (saturates at m)
+    window_multiplier: float = 1.0
+    rank: int = 8
+    lam_clip: float = 100.0
+    buffer_size: int = 32
+
+    @classmethod
+    def create(cls, initial_mean: torch.Tensor, initial_diag: torch.Tensor | None = None,
+               initial_weight: float = 0.0, adaptation_window: int = 101,
+               adaptation_window_multiplier: float = 1.0, rank: int = 8,
+               lam_clip: float = 100.0, buffer_size: int = 32) -> "QuadPotentialLowRankAdapt":
+        """Metric over ``initial_mean``'s shape: ``(n,)`` or ``(C, n)``."""
+        diag = QuadPotentialDiagAdapt.create(initial_mean, initial_diag, initial_weight,
+                                             adaptation_window, adaptation_window_multiplier)
+        n = initial_mean.shape[-1]
+        lead = initial_mean.shape[:-1]
+        dev, dt = initial_mean.device, initial_mean.dtype
+        k = max(1, min(int(rank), n))
+        v0 = torch.from_numpy(_lowrank_start_basis(n, k)).to(device=dev, dtype=dt)
+
+        def zeros(*shape, dtype=dt):
+            return torch.zeros((*lead, *shape), dtype=dtype, device=dev)
+
+        return cls(
+            var=diag.var, stds=diag.stds, inv_stds=diag.inv_stds, fg=diag.fg, bg=diag.bg,
+            n_samples=diag.n_samples, window=diag.window,
+            vecs=v0.expand(*lead, n, k).clone(), lam=zeros(k) + 1.0, alpha=zeros() + 1.0,
+            lam_w=zeros(), lam_s2=zeros(k), alpha_s2=zeros(),
+            buf=zeros(int(buffer_size), n), buf_pos=zeros(dtype=torch.int32),
+            buf_fill=zeros(dtype=torch.int32),
+            window_multiplier=float(adaptation_window_multiplier), rank=k,
+            lam_clip=float(lam_clip), buffer_size=int(buffer_size))
+
+    def replace(self, **changes) -> "QuadPotentialLowRankAdapt":
+        return dataclasses.replace(self, **changes)
+
+    @property
+    def inverse_mass(self) -> torch.Tensor:
+        return self.var
+
+    def _corr_matvec(self, x: torch.Tensor, power: float) -> torch.Tensor:
+        """``C^s x = α^s x + V((λ^s − α^s)·(Vᵀx))`` per chain."""
+        a = self.alpha ** power
+        c = fp32_matmul(x[..., None, :], self.vecs)[..., 0, :]
+        return (_rows(a, x) * x
+                + fp32_matmul(self.vecs, ((self.lam ** power - a[..., None]) * c)[..., None])
+                [..., 0])
+
+    def velocity(self, p: torch.Tensor) -> torch.Tensor:
+        return self.stds * self._corr_matvec(self.stds * p, 1.0)
+
+    def kinetic(self, p: torch.Tensor, velocity: torch.Tensor | None = None) -> torch.Tensor:
+        if velocity is None:
+            velocity = self.velocity(p)
+        return 0.5 * (p * velocity).sum(-1)
+
+    def sample_momentum(self, generator: torch.Generator | None = None) -> torch.Tensor:
+        """``p = S⁻¹ C^{-1/2} ζ``, so that ``cov(p) = Σ̂⁻¹``."""
+        zeta = torch.randn(self.stds.shape, generator=generator, dtype=self.stds.dtype,
+                           device=self.stds.device)
+        return self.inv_stds * self._corr_matvec(zeta, -0.5)
+
+    def update(self, sample: torch.Tensor, grad: torch.Tensor,
+               tuning: bool) -> "QuadPotentialLowRankAdapt":
+        """One adaptation step (reference ``quadpotential.py:722-820``); a
+        no-op outside tuning."""
+        if not tuning:
+            return self
+        diag, fg, swap = self._diag_step(sample)  # fg: the pre-swap foreground
+        inv_stds = diag["inv_stds"]
+
+        m = self.buffer_size
+        slot = torch.arange(m, device=sample.device) == self.buf_pos[..., None]
+        buf = torch.where(slot[..., None], sample[..., None, :], self.buf)
+        buf_pos = torch.remainder(self.buf_pos + 1, m)
+        # buf_fill (not n_samples) gates readiness: a fused chunk leaves
+        # n_samples large and the buffer stale, and its epilogue zeroes
+        # buf_fill so the buffer refills before it is trusted again
+        buf_fill = torch.clamp(self.buf_fill + 1, max=m)
+        ready = buf_fill >= m
+
+        Z = (buf - fg.mean[..., None, :]) * inv_stds[..., None, :]  # (..., m, n)
+        step = fp32_matmul(Z.mT, fp32_matmul(Z, self.vecs)) / float(m)
+        vecs = torch.where(_mats(ready), _orthonormal_columns(self.vecs + step), self.vecs)
+        # the new sample on the previous basis: out of sample, so the
+        # eigenvalues avoid the selection bias of the draws that chose it
+        z = (sample - fg.mean) * inv_stds
+        c2 = fp32_matmul(z[..., None, :], self.vecs)[..., 0, :] ** 2
+        r2 = torch.clamp((z * z).sum(-1) - c2.sum(-1), min=0.0)
+        decay = torch.where(swap, 0.5, 1.0).to(sample.dtype)
+        gain = ready.to(sample.dtype)
+        lam_w = self.lam_w * decay + gain
+        lam_s2 = self.lam_s2 * decay[..., None] + gain[..., None] * c2
+        alpha_s2 = self.alpha_s2 * decay + gain * r2
+        n_resid = max(self.var.shape[-1] - self.rank, 1)
+        return self.replace(
+            **diag, vecs=vecs,
+            lam=_effective_eigenvalues(lam_s2, lam_w[..., None], self.lam_clip),
+            alpha=_effective_eigenvalues(alpha_s2 / n_resid, lam_w, self.lam_clip),
+            lam_w=lam_w, lam_s2=lam_s2, alpha_s2=alpha_s2,
+            buf=buf, buf_pos=buf_pos, buf_fill=buf_fill)
+
+    def broadcast(self, chains: int) -> "QuadPotentialLowRankAdapt":
+        """One chain's metric repeated for ``chains`` chains."""
+        def rep(x):
+            if isinstance(x, WelfordVariance):
+                return WelfordVariance(*map(rep, _leaves(x)))
+            return x.expand(chains, *x.shape).clone()
+
+        return self.replace(**{f.name: rep(getattr(self, f.name))
+                               for f in dataclasses.fields(self)
+                               if not isinstance(getattr(self, f.name), (int, float))})
+
+    def raise_ok(self) -> None:
+        """The diagonal's check, then positive finite eigenvalues
+        (reference ``quadpotential.py:822-843``)."""
+        self._raise_diag_ok()
+        lam = self.lam.detach().cpu().numpy()
+        alpha = self.alpha.detach().cpu().numpy()
+        if (np.any(~np.isfinite(lam)) or np.any(lam <= 0)
+                or np.any(~np.isfinite(alpha)) or np.any(alpha <= 0)):
+            raise ValueError("Low-rank metric eigenvalues are non-finite or non-positive.")
+
+
 def quad_potential(C, is_cov: bool):
     """A static metric from a scaling vector or matrix (reference
     ``quadpotential.py:33-65``): a 1-D ``C`` is a diagonal, a 2-D ``C`` a
@@ -562,3 +766,11 @@ def quad_potential(C, is_cov: bool):
     if is_cov:
         return QuadPotentialFull.create(C)
     return QuadPotentialFullInv.create(C)
+
+
+def isquadpotential(value) -> bool:
+    """Whether ``value`` is one of this package's metrics (reference
+    ``quadpotential.py:866-879``)."""
+    return isinstance(value, (QuadPotentialDiag, QuadPotentialFull, QuadPotentialFullInv,
+                              QuadPotentialDiagAdapt, QuadPotentialFullAdapt,
+                              QuadPotentialLowRankAdapt))

@@ -3,9 +3,11 @@
 Counterpart of ``littlemcmc_tpu/sampling.py`` for the subset this package
 runs: NUTS or classic HMC (``NUTS``, ``HamiltonianMC``) on any model, with
 a diagonal metric (``adapt_diag`` / ``jitter+adapt_diag``, per-chain
-``QuadPotentialDiagAdapt``, optionally pooled across chains) or a dense one
+``QuadPotentialDiagAdapt``, optionally pooled across chains), a dense one
 (``adapt_full`` / ``jitter+adapt_full``, per chain or pooled across
-chains, or a static ``QuadPotentialFull`` / ``QuadPotentialFullInv``), with
+chains, or a static ``QuadPotentialFull`` / ``QuadPotentialFullInv``) or a
+low-rank one (``adapt_lowrank`` / ``jitter+adapt_lowrank``,
+``QuadPotentialLowRankAdapt``, per chain or pooled across chains), with
 dual averaging. Two engines:
 
 - per-draw: one trajectory-kernel launch per draw for all chains where the
@@ -14,11 +16,17 @@ dual averaging. Two engines:
   trajectory of ``hmc.run_hmc_trajectory`` (HMC, also for any dense
   metric), the adaptation updates between draws;
 - fused: one fused-kernel launch per chunk of draws, with momentum, dual
-  averaging and the metric's Welford updates (per-chain diag, or pooled
-  dense) inside it.
+  averaging and the metric's Welford updates (per-chain diag, pooled
+  dense, or the low-rank metric's per-chain variances) inside it.
 
-``sample`` elects between them as the JAX package does
-(``sampling.py:1237-1300``, ``elect_fused_engine`` ``:660-683``).
+``sample`` elects between them by the JAX package's rule
+(``sampling.py:1237-1300``, ``elect_fused_engine`` ``:660-683``) with one
+deliberate departure: ``trajectory_spec="auto"`` takes the model's spec
+for a dense metric too, where the JAX package resolves one only for a
+diagonal metric or pooled low-rank (``:1077-1105``). So
+``init="adapt_full"`` at 128 chains or more runs ``fused_dense_pooled``
+here and ``per_draw_dense_pooled`` there: on the card the fused engine
+takes 1.445 s against 3.42-4.72 s per draw (on an H100, ``PERF.md`` section 6).
 
 Both run in the chunk loop of ``_run_chunked`` (``sampling.py:686-876``):
 tune chunks follow the fused engine's refresh schedule, the divergence
@@ -52,25 +60,27 @@ from .ops.hmc_trajectory import DEFAULT_HMC_CHAIN_BLOCK, hmc_trajectory
 from .ops.nuts_trajectory import DEFAULT_CHAIN_BLOCK, trajectory
 from .parallel.cross_chain import cross_chain_potential_pool
 from .quadpotential import (QuadPotentialDiag, QuadPotentialDiagAdapt, QuadPotentialFull,
-                            QuadPotentialFullAdapt, QuadPotentialFullInv, potential_to,
-                            quad_potential)
+                            QuadPotentialFullAdapt, QuadPotentialFullInv,
+                            QuadPotentialLowRankAdapt, potential_to, quad_potential)
 from .report import warnings_from_stats
 
 __all__ = ["NUTS", "HamiltonianMC", "sample", "init_nuts"]
 
 _log = logging.getLogger("littlemcmc_torch")
 
-_INIT_METHODS = ("adapt_diag", "jitter+adapt_diag", "adapt_full", "jitter+adapt_full")
+_INIT_METHODS = ("adapt_diag", "jitter+adapt_diag", "adapt_full", "jitter+adapt_full",
+                 "adapt_lowrank", "jitter+adapt_lowrank")
 
 # draws per chunk (reference sampling.py:644)
 _AUTO_CHUNK = 250
 
-# chain count at which adapt_full auto-promotes to cross-chain pooled
-# adaptation (reference sampling.py:648)
+# chain count at which adapt_full and adapt_lowrank auto-promote to
+# cross-chain pooled adaptation (reference sampling.py:648)
 _POOLED_PROMOTE_CHAINS = 128
 
 _POTENTIALS = (QuadPotentialDiag, QuadPotentialDiagAdapt, QuadPotentialFull,
-               QuadPotentialFullAdapt, QuadPotentialFullInv)
+               QuadPotentialFullAdapt, QuadPotentialFullInv, QuadPotentialLowRankAdapt)
+_DIAG = (QuadPotentialDiag, QuadPotentialDiagAdapt)
 _DENSE = (QuadPotentialFull, QuadPotentialFullAdapt, QuadPotentialFullInv)
 
 # the JAX kernels' lane width and per-chain slot scalars, which set how many
@@ -125,8 +135,8 @@ class _StepSpec:
         if potential is not None and not isinstance(potential, _POTENTIALS):
             raise ValueError("`potential` must be a littlemcmc_torch quadpotential "
                              "(QuadPotentialDiag, QuadPotentialDiagAdapt, "
-                             "QuadPotentialFull, QuadPotentialFullAdapt or "
-                             "QuadPotentialFullInv).")
+                             "QuadPotentialFull, QuadPotentialFullAdapt, "
+                             "QuadPotentialFullInv or QuadPotentialLowRankAdapt).")
         self.logp_dlogp_func = logp_dlogp_func
         self.model_ndim = model_ndim
         self.potential = (potential if scaling is None
@@ -134,17 +144,25 @@ class _StepSpec:
         self.trajectory_spec = trajectory_spec
         self._last_stats = None
         self._last_trace = None
+        self._last_tune = 0
 
-    def warnings(self, stats=None, *, tune: int = 0, trace=None):
+    def warnings(self, stats=None, *, tune: Optional[int] = None, trace=None):
         """End-of-run sampler warnings of the last ``sample()`` run (or of
-        ``stats``), as the reference's ``step.warnings()``."""
+        ``stats``), as the reference's ``step.warnings()``. ``tune`` marks
+        the leading tuning columns to leave out; by default, for the last
+        run, the tuning draws it kept (``discard_tuned_samples=False``),
+        as the JAX package's ``step._last_tune`` (``sampling.py:106-113``)."""
         if stats is None:
             if self._last_stats is None:
                 return []
-            stats, trace = self._last_stats, self._last_trace
+            stats = self._last_stats
+            if tune is None:
+                tune = self._last_tune
+            if trace is None:
+                trace = self._last_trace
         return warnings_from_stats(stats, target_accept=self.config.target_accept,
                                    max_treedepth=getattr(self.config, "max_treedepth", None),
-                                   tune=int(tune), trace=trace)
+                                   tune=int(tune or 0), trace=trace)
 
 
 class NUTS(_StepSpec):
@@ -261,14 +279,18 @@ def _resolve_init(init: str) -> str:
     if init_l not in _INIT_METHODS:
         raise ValueError(
             f"Unknown initializer: {init}. littlemcmc_torch supports "
-            f"{', '.join(_INIT_METHODS)} (the low-rank metric is ROADMAP Queue 1 "
-            "item 12).")
+            f"{', '.join(_INIT_METHODS)}.")
     return init_l
 
 
 def _init_metric_kind(init_l: str) -> str:
-    """``"full"`` or ``"diag"`` from a lowercased init method."""
-    return "full" if init_l.endswith("adapt_full") else "diag"
+    """``"full"``, ``"lowrank"`` or ``"diag"`` from a lowercased init method
+    (reference ``sampling.py:329-335``)."""
+    if init_l.endswith("adapt_full"):
+        return "full"
+    if init_l.endswith("adapt_lowrank"):
+        return "lowrank"
+    return "diag"
 
 
 def _make_adaptive_potential(kind: str, mean: torch.Tensor):
@@ -278,6 +300,9 @@ def _make_adaptive_potential(kind: str, mean: torch.Tensor):
     if kind == "full":
         return QuadPotentialFullAdapt.create(
             mean, torch.eye(n, dtype=mean.dtype, device=mean.device), initial_weight=10.0)
+    if kind == "lowrank":
+        return QuadPotentialLowRankAdapt.create(mean, torch.ones_like(mean),
+                                                initial_weight=10.0)
     return QuadPotentialDiagAdapt.create(mean, torch.ones_like(mean), initial_weight=10.0)
 
 
@@ -288,8 +313,8 @@ def init_nuts(logp_dlogp_func=None, model_ndim: Optional[int] = None,
 
     Returns ``(start, step)``: one ``(ndim,)`` starting point (uniform in
     ``[-1, 1)`` for ``jitter+``) and a :class:`NUTS` spec carrying the
-    adaptive metric (diagonal, or dense for ``adapt_full``). ``sample()``
-    jitters per chain itself.
+    adaptive metric (diagonal, dense for ``adapt_full``, low-rank for
+    ``adapt_lowrank``). ``sample()`` jitters per chain itself.
     """
     init_l = _resolve_init(init)
     if model_ndim is None:
@@ -307,10 +332,17 @@ def init_nuts(logp_dlogp_func=None, model_ndim: Optional[int] = None,
                        potential=potential, **kwargs)
 
 
-def _resolve_spec(step: _StepSpec, logp_grad):
+def _resolve_spec(step: _StepSpec, logp_grad, lowrank_per_chain: bool):
+    """The model body the kernels inline: the step's spec, or for ``"auto"``
+    the model's ``trajectory_spec()``. ``"auto"`` resolves none for
+    per-chain low-rank adaptation, which no kernel runs, as in the JAX
+    package (``sampling.py:1077-1105``); unlike it, it resolves the spec
+    for a dense metric (the departure the module docstring gives)."""
     spec = step.trajectory_spec
     if spec != "auto":
         return spec
+    if lowrank_per_chain:
+        return None
     owner = getattr(logp_grad, "__self__", None)
     spec_fn = getattr(owner, "trajectory_spec", None)
     return spec_fn() if spec_fn is not None else None
@@ -319,7 +351,9 @@ def _resolve_spec(step: _StepSpec, logp_grad):
 def _per_draw_factory(kernel, generator: torch.Generator, seeds, pooled: bool):
     """Chunk runners of the per-draw engine, with the fused factory's
     contract: ``run_chunk(state, iter0) -> (state, (trace, info) | None,
-    ndiv)``; a pooled metric is pooled after every tuning draw."""
+    ndiv)``; a pooled metric is pooled after every tuning draw (the
+    low-rank one with the draw's positions, reference ``sampling.py:
+    575-580``)."""
 
     def factory(chunk: int, tuning: bool, collect: bool):
         def run_chunk(state, iter0: int):
@@ -328,7 +362,8 @@ def _per_draw_factory(kernel, generator: torch.Generator, seeds, pooled: bool):
                 state, info = kernel(state, tuning, generator, seeds[i])
                 if pooled and tuning:
                     state = dataclasses.replace(
-                        state, potential=cross_chain_potential_pool(state.potential, True))
+                        state, potential=cross_chain_potential_pool(state.potential, True,
+                                                                    state.q))
                 ndiv = ndiv + info.diverging.sum(dtype=torch.int32)
                 if collect:
                     qs.append(state.q)
@@ -402,7 +437,8 @@ def sample(
     The signature follows the JAX package's ``sample()``; this port runs
     ``step`` (:class:`NUTS`, the default, or :class:`HamiltonianMC`) with
     ``init`` in ``adapt_diag`` / ``jitter+adapt_diag`` / ``adapt_full`` /
-    ``jitter+adapt_full`` (or a static metric on the step), on any model:
+    ``jitter+adapt_full`` / ``adapt_lowrank`` / ``jitter+adapt_lowrank`` (or
+    a metric on the step), on any model:
     through the kernels where the model has a trajectory spec and the
     kernels take the metric, else on tensor ops. ``device=None`` means
     ``"cuda"`` and raises when no CUDA device exists; ``device="cpu"`` runs
@@ -411,24 +447,27 @@ def sample(
     JAX package.
 
     - ``cross_chain_adapt``: pool the metric's Welford statistics across
-      all chains. ``None`` pools ``adapt_full`` at >= 128 chains (reference
-      ``sampling.py:1040-1055``). Per-chain dense adaptation runs on the
-      per-draw engine's tensor ops (engine ``per_draw_dense``).
-    - ``fuse_draws``: ``None`` elects the engine as the JAX package does:
-      the fused kernels for a model with a spec, at a chain count that
-      blocks into chain blocks of at least 8, and a dense metric (static
-      or pooled), or a diagonal one (static, or adaptive per chain or
-      pooled) where the JAX kernels would pack lanes (a packable model,
-      ``StandardNormal`` or ``EightSchools``, at n <= 60 and a chain
+      all chains. ``None`` pools ``adapt_full`` and ``adapt_lowrank`` at
+      >= 128 chains (reference ``sampling.py:1040-1055``). Per-chain dense
+      and low-rank adaptation run on the per-draw engine's tensor ops
+      (engines ``per_draw_dense``, ``per_draw_lowrank``).
+    - ``fuse_draws``: ``None`` elects the engine by the JAX package's
+      rule (with the dense departure of the module docstring): the fused
+      kernels for a model with a spec, at a chain count that blocks into
+      chain blocks of at least 8, and a dense metric (static or pooled),
+      the pooled low-rank one, or a diagonal one (static, or adaptive per
+      chain or pooled) where the JAX kernels would pack lanes (a packable
+      model, ``StandardNormal`` or ``EightSchools``, at n <= 60 and a chain
       count that is a multiple of 16 or more; ``elect_fused_engine``);
       else per-draw. ``False`` forces the per-draw engine; ``True``
       requires the fused one and raises ``ValueError`` where it does not
       run. A failed build or launch raises; nothing falls back. NUTS on the
       per-draw engine launches its trajectory kernel for a model with a
       spec and a metric the kernel takes (diagonal, static dense, pooled
-      dense), else runs :func:`~littlemcmc_torch.nuts.run_nuts_tree`; HMC
-      runs its trajectory kernel for a diagonal metric and a model with a
-      spec, else :func:`~littlemcmc_torch.hmc.run_hmc_trajectory`.
+      dense, pooled low-rank), else runs
+      :func:`~littlemcmc_torch.nuts.run_nuts_tree`; HMC runs its trajectory
+      kernel for a diagonal metric and a model with a spec, else
+      :func:`~littlemcmc_torch.hmc.run_hmc_trajectory`.
     - ``perf_report``: pass a dict and it is filled with ``engine`` (e.g.
       ``fused_dense_pooled``), ``trajectory`` (``cuda`` or ``plain`` for the
       kernels or their plain versions, ``tensor`` for the NUTS tree or
@@ -466,14 +505,18 @@ def sample(
     elif kwargs:
         _log.warning("`step` was provided; ignoring step-method kwargs: %s "
                      "(set them on the step constructor instead)", sorted(kwargs))
-    spec = _resolve_spec(step, logp_grad)
     config = step.config
 
-    # pool adapt_full across chains from _POOLED_PROMOTE_CHAINS chains on
+    # pool adapt_full and adapt_lowrank across chains from
+    # _POOLED_PROMOTE_CHAINS chains on
+    lowrank = (isinstance(step.potential, QuadPotentialLowRankAdapt)
+               or (step.potential is None and kind == "lowrank"))
     if cross_chain_adapt is None:
-        poolable = kind == "full" or isinstance(step.potential, QuadPotentialFullAdapt)
+        poolable = (kind in ("full", "lowrank") or lowrank
+                    or isinstance(step.potential, QuadPotentialFullAdapt))
         cross_chain_adapt = poolable and chains >= _POOLED_PROMOTE_CHAINS
     pooled = bool(cross_chain_adapt)
+    spec = _resolve_spec(step, logp_grad, lowrank and not pooled)
 
     seed = _as_seed(random_seed)
     # one generator on the device for starts and momenta, one on the host
@@ -500,31 +543,34 @@ def sample(
     else:
         potential = _make_adaptive_potential(kind, starts)
     dense = isinstance(potential, _DENSE)
+    diag = isinstance(potential, _DIAG)
     # the kernels take a diagonal metric, a static dense one and a pooled
-    # adaptive dense one; per-chain dense adaptation and QuadPotentialFullInv
-    # run on tensor ops
+    # adaptive dense or low-rank one; per-chain dense and low-rank
+    # adaptation and QuadPotentialFullInv run on tensor ops
     kernel_metric = trajectory_metric(potential, pooled) is not None
     hmc = isinstance(step, HamiltonianMC)
     # the JAX election (sampling.py:1237-1300): the fused kernels run a
     # model with a spec, at a chain count that blocks into rows of 8, with
-    # a dense metric or a diagonal one (a static diagonal is not pooled);
-    # fuse_draws=None takes a diagonal metric there only where the JAX
-    # kernels pack lanes (elect_fused_engine, sampling.py:660-683)
+    # a dense metric, the pooled low-rank one or a diagonal one (a static
+    # diagonal is not pooled); fuse_draws=None takes a diagonal metric
+    # there only where the JAX kernels pack lanes (elect_fused_engine,
+    # sampling.py:660-683)
     fusable = (spec is not None and kernel_metric and _usable_chain_count(chains)
-               and (dense or not pooled or isinstance(potential, QuadPotentialDiagAdapt)))
+               and (not diag or not pooled or isinstance(potential, QuadPotentialDiagAdapt)))
     if fuse_draws is True and not fusable:
         raise ValueError(
             "fuse_draws=True but the fused kernels do not run this configuration: "
             "they need a model with a trajectory_spec() (StandardNormal, "
-            "CorrelatedGaussian, EightSchools, LogisticRegression), a chain count "
-            "that blocks into chain blocks of at least 8, and a diagonal metric (a "
-            "static diagonal one not pooled across chains), a static QuadPotentialFull "
-            "or a pooled adaptive dense metric.")
+            "CorrelatedGaussian, SpikedGaussian, EightSchools, LogisticRegression), a "
+            "chain count that blocks into chain blocks of at least 8, and a diagonal "
+            "metric (a static diagonal one not pooled across chains), a static "
+            "QuadPotentialFull or a pooled adaptive dense or low-rank metric.")
     if fuse_draws is None:
-        fused = fusable and (dense or _resolve_pack(spec, model_ndim, chains) > 1)
+        fused = fusable and (not diag or _resolve_pack(spec, model_ndim, chains) > 1)
     else:
         fused = bool(fuse_draws)
-    engine = (("fused_" if fused else "per_draw_") + ("dense" if dense else "diag")
+    metric_tag = "dense" if dense else "diag" if diag else "lowrank"
+    engine = (("fused_" if fused else "per_draw_") + metric_tag
               + ("_pooled" if pooled else ""))
 
     batched_fn = getattr(step, "batched_logp_dlogp_func", None) or batched(logp_grad)
@@ -550,8 +596,8 @@ def sample(
     else:
         if hmc:
             # the per-draw HMC kernel is diagonal-only (reference
-            # sampling.py:287-298)
-            hmc_spec = None if dense else spec
+            # sampling.py:287-298, 1350-1353)
+            hmc_spec = spec if diag else None
             kernel = build_hmc_kernel(batched_fn, config, hmc_spec)
             if hmc_spec is None:
                 trajectory_kind = "tensor"
@@ -608,6 +654,7 @@ def sample(
                   chains * (tune + draws) / elapsed, int(ndiv))
 
     step._last_stats = stats
+    step._last_tune = 0 if discard_tuned_samples else tune
     step._last_trace = trace
     if trace.shape[1] > 0 and compute_convergence_checks:
         # R-hat scans the trace per dimension on the host: skipped for

@@ -448,3 +448,76 @@ def test_tree_on_the_card_stays_on_the_card(hopper):
     assert report["kernel_launches"] == {"nuts_trajectory": 0, "fused_nuts": 0}
     assert quadform.quadform_logp_grad.launches - launches >= 200
     assert np.isfinite(trace).all() and stats["diverging"].mean() < 0.01
+
+
+# --------------------------------------------------------------------------
+# the low-rank metric and the spiked Gaussian body
+# --------------------------------------------------------------------------
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("body,n,chains,metric", [
+    ("spiked_gaussian", 100, 512, "lowrank"),
+    ("correlated_gaussian", 100, 256, "lowrank"),
+    ("spiked_gaussian", 12, 256, "lowrank"),
+    ("spiked_gaussian", 100, 256, "diag"),
+])
+def test_lowrank_and_spiked_trajectory_kernel_matches_plain(hopper, body, n, chains, metric):
+    """The trajectory kernel at kLowRank (the spiked Gaussian's body 4 and
+    the correlated body 1) and body 4 at kDiag against the plain version:
+    the smoke's phase 2m. The thin matvecs sum in the kernel's order in
+    both, so trees agree but for the energy sums' order."""
+    from chip_smoke import _compare, _lowrank_inputs, _posterior_inputs
+
+    model = tm.SpikedGaussian(n) if body == "spiked_gaussian" else tm.CorrelatedGaussian(n)
+    args, fac = (_lowrank_inputs(model, chains, 0.5, seed=n) if metric == "lowrank"
+                 else (_posterior_inputs(model, chains, 0.1, seed=n), None))
+    launches = trajectory.launches
+    _compare(body, model, args, (13, -2), need=0.99, metric=metric, fac=fac)
+    assert trajectory.launches == launches + 1
+
+
+@pytest.mark.cuda
+def test_spiked_body_in_the_hmc_kernel_matches_plain(hopper):
+    res, failures, _, _ = hmc_check(tm.SpikedGaussian(100),
+                                    _hmc_inputs(tm.SpikedGaussian(100), None, 256, 0.1, 5),
+                                    (17, 19), 0.99)
+    assert not failures, res
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("step", ["nuts", "hmc"])
+@pytest.mark.parametrize("tuning", [False, True], ids=["draw_chunk", "tune_chunk"])
+def test_fused_lowrank_kernel_matches_plain(hopper, step, tuning):
+    """The fused kernels' low-rank branch with body 4 against the plain
+    version at 256 chains: a 2-draw draw chunk, and a 4-draw tune chunk
+    with the per-chain Welford steps across a window swap and dual
+    averaging on (the smoke's phase 2n)."""
+    res, failures, _, _, _, _ = fused_check(tm.SpikedGaussian(100), 256, 4 if tuning else 2,
+                                            tuning, True, seed=31, words=(37, -5), step=step,
+                                            metric="lowrank")
+    assert not failures, res
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("step,fuse,engine,launches", [
+    ("nuts", None, "fused_lowrank_pooled", {"nuts_trajectory": 0, "fused_nuts": 6}),
+    ("nuts", False, "per_draw_lowrank_pooled", {"nuts_trajectory": 400, "fused_nuts": 0}),
+    ("hmc", None, "fused_lowrank_pooled", {"hmc_trajectory": 0, "fused_hmc": 6}),
+])
+def test_lowrank_sample_on_the_card(hopper, step, fuse, engine, launches):
+    """``init="jitter+adapt_lowrank"`` at 256 chains: pooled, fused by
+    default (tune chunks of 10, 10, 30, 50 and 100 draws, then one draw
+    chunk), per-draw with ``fuse_draws=False``; the posterior near the
+    truth."""
+    model = tm.SpikedGaussian(20)
+    rep = {}
+    kw = dict(model_ndim=20, chains=256, tune=200, draws=200, random_seed=5,
+              init="jitter+adapt_lowrank", fuse_draws=fuse, perf_report=rep,
+              progressbar=False)
+    if step == "hmc":
+        kw["step"] = HamiltonianMC(model_ndim=20)
+    trace, stats = sample(model.logp_grad, **kw)
+    assert rep["engine"] == engine and rep["kernel_launches"] == launches
+    assert np.isfinite(trace).all() and stats["diverging"].mean() < 0.01
+    ratio = trace.reshape(-1, 20).var(0) / model.true_var
+    assert abs(ratio.mean() - 1) < 0.1, ratio

@@ -388,6 +388,30 @@ def test_adapt_full_engine_election(chains, fuse_draws, engine):
     assert trace.shape == (chains, 4, 3) and np.isfinite(trace).all()
 
 
+@pytest.mark.parametrize("step", ["nuts", "hmc"])
+def test_dense_auto_spec_departs_from_jax(monkeypatch, step):
+    """``trajectory_spec="auto"`` with ``init="adapt_full"`` at 128 chains,
+    for NUTS and ``HamiltonianMC``: the JAX package resolves no spec for a
+    dense metric (``littlemcmc_tpu/sampling.py:1077-1105``), so even on a
+    TPU it runs ``per_draw_dense_pooled`` on its XLA tree; the port keeps
+    the model's spec and runs ``fused_dense_pooled``, the engine the card
+    favours (1.445 s against 3.42-4.72 s per draw, on an H100, ``PERF.md``
+    section 6). The JAX run reads its backend as ``"tpu"`` for this."""
+    jmodel, tmodel = jm.CorrelatedGaussian(6, rho=0.6), tm.CorrelatedGaussian(6, rho=0.6,
+                                                                                 device="cpu")
+    kw = dict(model_ndim=6, chains=128, tune=3, draws=2, random_seed=1, init="adapt_full",
+              progressbar=False, compute_convergence_checks=False)
+    jkw, tkw = ({}, {}) if step == "nuts" else (
+        {"step": lmc.HamiltonianMC(model_ndim=6)}, {"step": lt.HamiltonianMC(model_ndim=6)})
+    monkeypatch.setattr(jax, "default_backend", lambda: "tpu")
+    jrep, trep = {}, {}
+    lmc.sample(jmodel.logp_grad, perf_report=jrep, **jkw, **kw)
+    monkeypatch.undo()
+    lt.sample(tmodel.logp_grad, perf_report=trep, device="cpu", **tkw, **kw)
+    assert (jrep["engine"], jrep["trajectory"]) == ("per_draw_dense_pooled", "xla")
+    assert (trep["engine"], trep["trajectory"]) == ("fused_dense_pooled", "plain")
+
+
 def test_chunk_loop_follows_the_pooled_tune_schedule():
     """(iv) the slice's call runs 12 chunks: tune 10, 10, 30, 50, 100 x 4,
     then draws 250 x 4; a factory without a schedule runs 250-draw tune

@@ -152,7 +152,28 @@ def test_sample_rejects_what_the_slice_does_not_run():
         lt.sample(plain_model, model_ndim=2, device="cpu", progressbar=False,
                   callback=print)
     with pytest.raises(ValueError, match="Unknown initializer"):
-        lt.sample(plain_model, model_ndim=2, init="adapt_lowrank", device="cpu")
+        lt.sample(plain_model, model_ndim=2, init="advi", device="cpu")
+
+
+def test_warnings_leave_out_the_kept_tuning_draws():
+    """``step.warnings()`` after ``discard_tuned_samples=False`` leaves the
+    kept tuning draws out, as the JAX package's ``step._last_tune`` does
+    (``littlemcmc_tpu/sampling.py:106-113``, ``:1555``): StandardNormal(2),
+    8 chains, 50 + 50, seed 1, where every tuning column of both runs is
+    marked divergent. Both packages give the same warning kinds."""
+    kinds = {}
+    for name, pkg, model in (("jax", lmc, jm.StandardNormal(2)),
+                             ("torch", lt, StandardNormal(2, device="cpu"))):
+        step = pkg.NUTS(model_ndim=2)
+        kw = {"device": "cpu"} if name == "torch" else {}
+        trace, stats = pkg.sample(model.logp_grad, model_ndim=2, chains=8, tune=50, draws=50,
+                                  step=step, random_seed=1, discard_tuned_samples=False,
+                                  progressbar=False, **kw)
+        assert np.asarray(stats["diverging"]).shape == (8, 100)
+        kinds[name] = sorted(w.kind.name for w in step.warnings())
+        # an explicit tune=0 still counts every column
+        assert "DIVERGENCES" in {w.kind.name for w in step.warnings(tune=0)}
+    assert kinds["torch"] == kinds["jax"] and "DIVERGENCES" not in kinds["torch"], kinds
 
 
 def _port_files():
