@@ -79,6 +79,29 @@ Phases, each printing its own lines:
    tune chunk with the per-chain Welford steps across a window swap and
    dual averaging on, its variances and Welford state against a float64
    replay, as 2h-2i hold the diag branch;
+   2o-2p. Neal's centred funnel's body (5) in the per-draw NUTS and HMC
+   kernels and in the fused kernels' kDiag instance against their plain
+   versions at 1024 chains (a quarter starting in the neck, v < -2; the
+   fused ones a 2-draw draw chunk and a 2-draw tune chunk), held as
+   ``_compare``, ``hmc_check`` and ``fused_check`` hold eight schools: at
+   least 99% of chains (chain-draws) agree, energies of divergent and
+   far-off trajectories ``scaled`` (float32 ``exp(-v)`` is chaotic in the
+   neck);
+   2q. the JAX probe matrix's nine models (``models/probe_matrix.py``) and
+   ``HierarchicalRegression``, each lowered to a generated body, through
+   ``probe_specs`` on the card: one build of ``csrc/autospec_probe.cu``
+   with the ten bodies, each within rtol 5e-3 / atol 1e-3 of its plain
+   version at the probe's inputs, the seconds printed;
+   2r. the generated ``HierarchicalRegression`` body in the per-draw NUTS
+   kernel against its plain version (the traced graph, vmapped), 1024
+   chains near the reference posterior
+   (``tests/hierarchical_reference_moments.json``), as 2k holds the
+   logistic body;
+   2s. the six fused-kernel capability probes (``csrc/fused_probe.cu``)
+   against their plain versions at the JAX probes' tolerances, each timed;
+   the cells F1, F2, L1 and L3 (``fuse_draws=None`` electing the fused
+   engine) must launch each of the election's five once, and L1-L3 the
+   low-rank one once;
 3. the main path: ``sample(CorrelatedGaussian(100).logp_grad,
    model_ndim=100, chains=1024, tune=500, draws=1000, random_seed=42)``,
    with the kernel's launch count set to 0 before and read after, and the
@@ -131,6 +154,21 @@ Phases, each printing its own lines:
    the diag contrast (``init="jitter+adapt_diag"``: ``per_draw_diag`` on
    body 4); and the learned-metric gate, L1's min bulk ESS per 1000
    leapfrogs at least 10x L0's;
+   3s-3u. F1: ``sample(NealsFunnel(10).logp_grad, model_ndim=10,
+   chains=1024, tune=500, draws=1000, target_accept=0.9)`` on
+   ``fused_diag`` (6 launches of the fused NUTS kernel with body 5), under
+   the JAX suite's envelope (``scripts/bench_suite.py:216-230``: max
+   R-hat <= 1.35, divergences off the neck <= 0.025, v's sd >= 2.13,
+   divergences <= 0.045), v's quantiles and the neck's share printed;
+   F2: the same with ``NonCenteredFunnel(10)`` and the default target
+   (``fused_diag`` on body 0): R-hat < 1.05, the standard normal's
+   variance, mean, ESS and divergence gates, the funnel-space v sd
+   (``transform``) within 10% of 3; H1: ``sample(HierarchicalRegression()
+   .logp_grad, model_ndim=42, chains=1024, tune=500, draws=3000,
+   target_accept=0.9)``: ``per_draw_diag`` on the generated body (3500
+   launches of the trajectory kernel, one probe launch before the first),
+   under ``_logistic_quality``'s gates against the reference moments
+   (``H1_DRAWS`` says why 3000 draws);
 4. the kernel's time per launch at the main path's final state beside its
    plain version's time and its bound, where 50 more draws from that
    state spend their device time (``torch.profiler``); each kernel's
@@ -158,12 +196,18 @@ Phases, each printing its own lines:
    L0's final state, body 4 in the HMC kernel at 2m's input, the fused
    kernels' low-rank branch at 2n's draw-chunk input and per 250-draw
    chunk at L1's and L3's final states; where L1, L3 and a post-tune draw
-   of L2 spend their time; then one JSON line of twenty-one kernel
-   rows (for the fused kernels ``ms``, ``plain_ms`` and ``bound_ms`` are
-   one launch on 2c's, 2e's, 2h's or 2i's draw-chunk input: 4 draws, in
-   2h-2i 1 for body 1 and 2 for body 2; ``chunk_*`` the 250-draw launch;
-   for the eight-schools per-draw rows ``main_*`` one launch at 10,240
-   chains).
+   of L2 spend their time;
+   4h. the funnel body's kernels at F1's final state (the fused kDiag
+   instance per 250-draw chunk, the per-draw kernel per launch), the
+   generated body in ``nuts_trajectory`` per launch at H1's final state,
+   the tensor-op tree on the same model (ms a draw over 20 draws from that
+   state, the number the generated body exists to beat) beside 50 draws
+   on the generated body, and the probe kernel alone; then one JSON line
+   of kernel rows, the six fused probes last (for the fused kernels
+   ``ms``, ``plain_ms`` and ``bound_ms`` are one launch on 2c's, 2e's, 2h's, 2i's
+   or 2p's draw-chunk input: 4 draws, in 2h-2i 1 for body 1 and 2 for
+   body 2, in 2p 2; ``chunk_*`` the 250-draw launch; for the
+   eight-schools per-draw rows ``main_*`` one launch at 10,240 chains).
 
 The last line is ``{"ok": true, "device": {...}}``. Any failure raises
 and the script exits non-zero without that line. Without a CUDA device,
@@ -202,6 +246,15 @@ T2_CHAINS, T2_TUNE, T2_DRAWS = 256, 250, 100
 # the logistic posterior's reference moments, from a long run of the JAX
 # package on a CPU (tests/test_torch_logistic.py writes them)
 REFERENCE = ROOT / "tests" / "logistic_reference_moments.json"
+# the hierarchical regression's, from a long run of the JAX package on a CPU
+# (tests/test_torch_autospec.py writes them)
+HIER_REFERENCE = ROOT / "tests" / "hierarchical_reference_moments.json"
+# H1's draws: the bench suite's 500 + 1000 (scripts/bench_suite.py:259-265)
+# give each chain about 55 effective draws, and a split R-hat of chains that
+# short sits near 1 + 1/(2 x 27.5): 1.0158 here, 1.0163 in the JAX suite's
+# own run of this cell (BENCH_SUITE.json). 3000 draws bring it near 1.005,
+# under the cell's 1.01 gate
+H1_DRAWS = 3000
 DEVICE = "cuda"  # where the checks' inputs are made: the card
 FLAGS = ("depth", "n_leaves", "diverging", "turning")
 HMC_FLAGS = ("n_steps", "accepted", "diverging")
@@ -311,6 +364,11 @@ def _reference() -> dict:
     return json.loads(REFERENCE.read_text())
 
 
+def _hier_reference() -> dict:
+    """The hierarchical regression's reference posterior moments (42 each)."""
+    return json.loads(HIER_REFERENCE.read_text())
+
+
 def _posterior_sd(model):
     """The posterior sd of each parameter: exact for the Gaussians; for
     eight schools the exact sds of mu and log_tau and 1 for theta_tilde,
@@ -320,6 +378,8 @@ def _posterior_sd(model):
 
     if hasattr(model, "true_var"):
         return np.sqrt(model.true_var)
+    if hasattr(model, "n_groups"):
+        return np.array(_hier_reference()["sd"])
     if not hasattr(model, "exact_moments"):
         return np.array(_reference()["sd"])
     m = model.exact_moments()
@@ -337,11 +397,29 @@ def _positions(model, rng, C):
     if hasattr(model, "cov"):
         return (rng.standard_normal((C, model.ndim)) @ np.linalg.cholesky(model.cov).T
                 ).astype(np.float32)
+    if hasattr(model, "n_groups"):
+        ref = _hier_reference()
+        return (np.array(ref["mean"]) + np.array(ref["sd"])
+                * rng.standard_normal((C, model.ndim))).astype(np.float32)
+    if model.trajectory_spec().body == "funnel":
+        return _funnel_positions(rng, C, model.ndim, model.scale)
     if model.trajectory_spec().body == "logistic":
         ref = _reference()
         return (np.array(ref["mean"]) + np.array(ref["sd"])
                 * rng.standard_normal((C, model.ndim))).astype(np.float32)
     return _es_positions(rng, C)
+
+
+def _funnel_positions(rng, C, n=10, scale=3.0):
+    """Centred-funnel positions spread like the posterior, a quarter of
+    the chains in the neck (v in [-6, -2]): v ~ N(0, scale), x ~ N(0,
+    exp(v/2))."""
+    import numpy as np
+
+    v = rng.normal(0.0, scale, C)
+    v[: C // 4] = rng.uniform(-6.0, -2.0, C // 4)
+    x = rng.standard_normal((C, n - 1)) * np.exp(v / 2.0)[:, None]
+    return np.concatenate([v[:, None], x], 1).astype(np.float32)
 
 
 def _es_positions(rng, C):
@@ -476,7 +554,8 @@ def _compare(name, model, args, seed, need, metric="diag", fac=None):
     # E_TOL is set for energies about 100 in size; the logistic body's are
     # sums over 1000 data rows, 500-700 in size, held in proportion
     e_size = (torch.clamp(want["energy"].abs() / 100.0, min=1.0)
-              if model.trajectory_spec().body == "logistic" else torch.ones_like(want["energy"]))
+              if model.trajectory_spec().body in ("logistic", "auto")
+              else torch.ones_like(want["energy"]))
     errs["energy_max_in_tol"] = float(((got["energy"] - want["energy"]).abs()
                                        / (E_TOL * e_size))[agree].max())
     print(json.dumps({"phase": "kernel_vs_plain", "model": name, "metric": metric,
@@ -507,22 +586,29 @@ def _roofline_ms(ops: float, nbytes: float) -> tuple[float, str]:
     return 1e3 * max(t_ops, t_bytes), ("operations" if t_ops >= t_bytes else "bytes")
 
 
-def _body_ops(body: str, n: int, rows: int = 0) -> int:
+def _body_ops(body: str, n: int, rows: int = 0, ir_ops: int = 0) -> int:
     """Operations of one evaluation of a model body: the correlated
     Gaussian's 2n^2-FLOP matvec, eight schools' about 15n (the theta
     lanes, four warp sums and an exp), the standard normal's 2n, the
     logistic regression's two products over ``rows`` data rows (4 rows n)
     and about 8 operations a row for the softplus, the sigmoid and the
-    log likelihood (an exponential counted as one)."""
+    log likelihood (an exponential counted as one); the funnel's about 6n
+    (the sum of squares, the gradient and an exp); a generated body's
+    ``ir_ops``, its program's operations (``Program.flops``)."""
     if body == "spiked_gaussian":  # two thin matvecs of k = rows columns
         return 4 * rows * n + 5 * n
+    if body == "auto":
+        return ir_ops
+    if body == "funnel":
+        return 6 * n
     return {"correlated_gaussian": 2 * n * n, "eight_schools": 15 * n,
             "standard_normal": 2 * n, "logistic": 4 * rows * n + 8 * rows}[body]
 
 
 def _body_consts(body: str, n: int, rows: int = 0) -> int:
-    """Floats of a model body's constants, each read once."""
-    return {"correlated_gaussian": n * n, "eight_schools": 2 * n,
+    """Floats of a model body's constants, each read once (a generated
+    body's: ``rows``)."""
+    return {"correlated_gaussian": n * n, "eight_schools": 2 * n, "funnel": 1, "auto": rows,
             "logistic": rows * n + rows + 1, "spiked_gaussian": rows * (n + 1) + n}.get(body, 0)
 
 
@@ -561,7 +647,7 @@ def _quadform_bound_ms(C: int, n: int) -> tuple[float, str]:
 
 def _bound_ms(n_leaves_total: int, C: int, n: int, metric: str = "diag",
               body: str = "correlated_gaussian", rows: int = 0,
-              rank: int = 0) -> tuple[float, str]:
+              rank: int = 0, ir_ops: int = 0) -> tuple[float, str]:
     """Least time for one transition: per leaf and chain the model body
     (plus one velocity: the dense metric's 2n^2-FLOP matvec, the low-rank
     metric's two thin matvecs of its ``rank`` columns) and about 20n
@@ -569,8 +655,8 @@ def _bound_ms(n_leaves_total: int, C: int, n: int, metric: str = "diag",
     energy's velocity); the inputs (the low-rank metric: the scales and
     the factor block) read once and the outputs written once."""
     vel = {"dense": 2 * n * n, "lowrank": _lowrank_velocity_ops(n, rank)}.get(metric, 0)
-    per_leaf = vel + _body_ops(body, n, rows) + 20 * n
-    ops = n_leaves_total * per_leaf + C * (_body_ops(body, n, rows) + 2 * n) + C * vel
+    per_leaf = vel + _body_ops(body, n, rows, ir_ops) + 20 * n
+    ops = n_leaves_total * per_leaf + C * (_body_ops(body, n, rows, ir_ops) + 2 * n) + C * vel
     var_floats = {"dense": n * n,
                   "lowrank": C * n + _lowrank_fac_floats(n, rank)}.get(metric, C * n)
     consts = _body_consts(body, n, rows)
@@ -893,7 +979,7 @@ def fused_check(model, C, T, tuning, adapt_step_size, seed, words, step="nuts",
     Th = held.shape[0]
     dq = ((got["trace"][:Th] - want["trace"][:Th]).abs())[held]
     de = (got["energy"][:Th] - want["energy"][:Th]).abs()
-    scaled = model.trajectory_spec().body in ("eight_schools", "logistic")
+    scaled = model.trajectory_spec().body in ("eight_schools", "logistic", "funnel", "auto")
     if scaled:  # the energy of a draw far from the start's, as scaled stats
         de = de / (1.0 + want["energy_error"][:Th].abs())
     de = de[held]
@@ -1407,12 +1493,14 @@ def _es_quality(model, exact, trace, stats, report, label, card, div_limit, extr
     return line
 
 
-def _logistic_quality(trace, stats, report, label, card, extra, tune=None, draws=None):
-    """The gates of a logistic run (BASELINE config 4): divergence rate
-    below 1%, max split R-hat < 1.01 and min bulk ESS > 1000 over the 25
-    parameters, each posterior mean within 0.1 reference sd of the
-    reference mean and each sd within 10% of the reference sd. The
-    diagnostics run in threads. Prints and returns its JSON line."""
+def _logistic_quality(trace, stats, report, label, card, extra, tune=None, draws=None,
+                      ref=None):
+    """The gates of a logistic run (BASELINE config 4), or with ``ref`` of
+    another model against its reference moments: divergence rate below 1%,
+    max split R-hat < 1.01 and min bulk ESS > 1000 over the parameters,
+    each posterior mean within 0.1 reference sd of the reference mean and
+    each sd within 10% of the reference sd. The diagnostics run in
+    threads. Prints and returns its JSON line."""
     from concurrent.futures import ThreadPoolExecutor
 
     import numpy as np
@@ -1420,20 +1508,21 @@ def _logistic_quality(trace, stats, report, label, card, extra, tune=None, draws
 
     tune = LG_TUNE if tune is None else tune
     draws = LG_DRAWS if draws is None else draws
-    if trace.shape != (CHAINS, draws, LG_N) or not np.isfinite(trace).all():
+    ref = _reference() if ref is None else ref
+    ndim = len(ref["mean"])
+    if trace.shape != (CHAINS, draws, ndim) or not np.isfinite(trace).all():
         raise RuntimeError(f"{label}: bad trace: shape {trace.shape}, finite "
                            f"{np.isfinite(trace).all()}")
-    ref = _reference()
     t_ess = time.perf_counter()
     with ThreadPoolExecutor(8) as pool:
-        ess = list(pool.map(lambda i: ess_bulk(trace[:, :, i]), range(LG_N)))
-        rhat = list(pool.map(lambda i: split_rhat(trace[:, :, i]), range(LG_N)))
-    flat = trace.reshape(-1, LG_N).astype(np.float64)
+        ess = list(pool.map(lambda i: ess_bulk(trace[:, :, i]), range(ndim)))
+        rhat = list(pool.map(lambda i: split_rhat(trace[:, :, i]), range(ndim)))
+    flat = trace.reshape(-1, ndim).astype(np.float64)
     mean_err = np.abs(flat.mean(0) - np.array(ref["mean"])) / np.array(ref["sd"])
     sd_ratio = flat.std(0) / np.array(ref["sd"])
     secs = report["sample_seconds"]
     line = {"phase": label, "engine": report["engine"], "trajectory": report["trajectory"],
-            "chains": CHAINS, "ndim": LG_N, "tune": tune, "draws": draws, **extra,
+            "chains": CHAINS, "ndim": ndim, "tune": tune, "draws": draws, **extra,
             "sample_seconds": secs, "ms_per_draw": 1e3 * secs / (tune + draws),
             "transitions_per_s": CHAINS * (tune + draws) / secs,
             "min_bulk_ess": float(min(ess)), "min_bulk_ess_per_s": float(min(ess)) / secs,
@@ -1598,7 +1687,7 @@ def _fused_path_breakdown(model, step: str = "nuts", sample_kw=None, draw_chunks
     return line
 
 
-def _es_kernel_timing(model, state, pd_state, step: str, gen) -> dict:
+def _es_kernel_timing(model, state, pd_state, step: str, gen, label: str = "es") -> dict:
     """The eight-schools kernels' time at the main paths' final states
     (10,240 chains): the fused kernel's kDiag instance per 250-draw draw
     chunk at the fused path's (device time under the profiler) with its
@@ -1631,7 +1720,8 @@ def _es_kernel_timing(model, state, pd_state, step: str, gen) -> dict:
     p0 = s.potential.sample_momentum(gen)
     if step == "nuts":
         pname = "nuts_trajectory"
-        targs = (s.q, p0, s.q_grad, s.logp, eps,
+        # a fused engine's state holds its scalars as strided views
+        targs = (s.q.contiguous(), p0, s.q_grad.contiguous(), s.logp.contiguous(), eps,
                  torch.full((C,), DEPTH, dtype=torch.int32, device=DEVICE), var)
         kw = dict(spec=spec, max_treedepth=DEPTH, Emax=1000.0, chain_block=CHAIN_BLOCK)
         pout = trajectory(*targs, (3, 8), **kw)
@@ -1651,7 +1741,7 @@ def _es_kernel_timing(model, state, pd_state, step: str, gen) -> dict:
             return hmc_trajectory(*targs, (3, 8), **kw)
     p_events = _cuda_time_ms(call, reps=20, warmup=3)
     p_ms, p_src = _device_ms(call, pname, 20, p_events)
-    line = {"phase": f"es_{step}_kernel_timing", "chains": C,
+    line = {"phase": f"{label}_{step}_kernel_timing", "chains": C,
             "fused_chunk_draws": 250, "fused_ms": f_ms, "fused_ms_source": f_src,
             "fused_events_ms": events, "fused_bound_ms": f_bound, "fused_bound_by": f_by,
             "fused_work_per_chain_draw": work / C / 250,
@@ -1830,9 +1920,11 @@ def _lowrank_cells(smi, sg, reset_counts, counts, t_start) -> dict:
         if rep["engine"] != engine or got != want:
             raise RuntimeError(f"low-rank cell {label}: engine {rep['engine']}, launches "
                                f"{got}; expected {engine}, {want}")
+        probes = _probe_launches(fused=engine.startswith("fused"), lowrank=label != "L0")
         leapfrogs = float(np.sum(st["tree_size"] if "tree_size" in st else st["n_steps"]))
         line = _quality(sg, tr, st, rep["sample_seconds"], rep, f"lowrank_{label}", smi,
-                        {"kernel_launches": got, "draw_leapfrogs": leapfrogs},
+                        {"kernel_launches": got, "probe_launches": probes,
+                         "draw_leapfrogs": leapfrogs},
                         gated=label != "L0", per_dim=True)
         line["min_bulk_ess_per_1000_leapfrogs"] = 1e3 * line["min_bulk_ess"] / leapfrogs
         out[label] = (line, fs)
@@ -1973,6 +2065,388 @@ def _lowrank_timing(sg, lr, lr_args, lr_cmp, sg_args, sg_cmp, sg_hargs, sg_hmc_c
     return rows
 
 
+def _funnel_auto_checks(f, hr, t_start) -> dict:
+    """Phases 2o-2r: the funnel body (5) in the four kernels against their
+    plain versions at 1024 chains; the probe matrix's nine generated bodies
+    and ``HierarchicalRegression``'s through ``probe_specs`` on the card;
+    the generated body in the per-draw NUTS kernel against its plain
+    version at ``HierarchicalRegression``'s shapes, 1024 chains. ``f``: the
+    centred funnel; ``hr``: a ``HierarchicalRegression`` (its spec traced
+    here). Returns what the kernels line needs."""
+    import torch
+    from littlemcmc_torch.models.probe_matrix import autospec_matrix
+    from littlemcmc_torch.ops.autospec import make_trajectory_spec, probe_spec, probe_specs
+
+    out = {}
+    # 2o. the per-draw kernels with body 5 (a quarter of the chains in the
+    # neck; energies of divergent and far-off trajectories held scaled)
+    out["f_args"] = _posterior_inputs(f, CHAINS, 0.2, seed=33)
+    out["f_traj"] = _compare("funnel", f, out["f_args"], (197, -5), need=0.99)
+    out["f_hargs"] = _hmc_inputs(f, None, CHAINS, 0.15, 34)
+    out["f_hmc"] = _compare_hmc(f, out["f_hargs"], (199, 3), need=0.99, scaled=True)
+    # 2p. the fused kernels' kDiag instance with body 5: a 2-draw draw chunk
+    # and a 2-draw tune chunk with the Welford steps (a window swap at draw
+    # 1) and dual averaging on
+    out["f_fused"] = {}
+    for step in ("nuts", "hmc"):
+        draw = _compare_fused(2, False, True, 35, (211, 7), step, f, "diag")
+        tune = _compare_fused(2, True, True, 36, (223, 11), step, f, "diag")
+        out["f_fused"][step] = (draw, max(draw[2], tune[2]))
+    _line(phase="funnel_checks", elapsed_s=f"{time.perf_counter() - t_start:.1f}")
+    # 2q. the probe matrix and the hierarchical body, one probe build
+    dev = torch.device(DEVICE)
+    specs = [make_trajectory_spec(ndim=3, logp_fn=fn, device=dev, name=name)
+             for name, fn in autospec_matrix(dev).items()]
+    specs.append(hr.trajectory_spec())
+    t0 = time.perf_counter()
+    launches = probe_spec.launches
+    report = probe_specs(specs)
+    print(json.dumps({"phase": "autospec_probes", "bodies": len(specs),
+                      "launches": probe_spec.launches - launches,
+                      "build_and_probe_seconds": time.perf_counter() - t0,
+                      "passed": sorted(report), "errors": report}), flush=True)
+    out["probe_err"] = max(max(r.values()) for r in report.values())
+    # 2r. the generated body in the per-draw NUTS kernel, 1024 chains near
+    # the reference posterior
+    out["h_args"] = _posterior_inputs(hr, CHAINS, 0.3, seed=37)
+    out["h_traj"] = _compare("hierarchical", hr, out["h_args"], (227, -13), need=0.99)
+    _line(phase="autospec_checks", elapsed_s=f"{time.perf_counter() - t_start:.1f}")
+    return out
+
+
+def _funnel_quality(trace, stats, report, label, card, extra) -> dict:
+    """F1's gates, the JAX suite's envelope for the centred funnel
+    (``scripts/bench_suite.py:216-230``): max split R-hat <= 1.35, the
+    divergence rate off the neck (v >= -2) <= 0.025, v's sd >= 2.13 and
+    the divergence rate <= 0.045; v's quantiles and the neck's share
+    printed beside the JAX study's arms (``FUNNEL_DIVERGENCE_STUDY.json``:
+    512 chains, 1000 + 3000, on a TPU and a CPU, not on this card)."""
+    from concurrent.futures import ThreadPoolExecutor
+
+    import numpy as np
+    from littlemcmc_torch.utils.diagnostics import ess_bulk, split_rhat
+
+    n = trace.shape[-1]
+    if not np.isfinite(trace).all():
+        raise RuntimeError(f"{label}: non-finite trace")
+    with ThreadPoolExecutor(8) as pool:
+        ess = list(pool.map(lambda i: ess_bulk(trace[:, :, i]), range(n)))
+        rhat = list(pool.map(lambda i: split_rhat(trace[:, :, i]), range(n)))
+    v = trace[..., 0].reshape(-1)
+    div = stats["diverging"].reshape(-1)
+    neck = v < -2.0
+    secs = report["sample_seconds"]
+    line = {"phase": label, "engine": report["engine"], "trajectory": report["trajectory"],
+            "chains": trace.shape[0], "ndim": n, "draws": trace.shape[1], **extra,
+            "sample_seconds": secs, "min_bulk_ess": float(min(ess)),
+            "min_bulk_ess_per_s": float(min(ess)) / secs, "max_split_rhat": float(max(rhat)),
+            "divergence_rate": float(div.mean()), "v_sd": float(v.std()),
+            "v_mean": float(v.mean()), "v_q05": float(np.percentile(v, 5)),
+            "v_q95": float(np.percentile(v, 95)), "p_neck": float(neck.mean()),
+            "p_div_given_neck": float(div[neck].mean()) if neck.any() else 0.0,
+            "p_div_given_not_neck": float(div[~neck].mean()),
+            "mean_depth": float(stats["depth"].mean()),
+            "step_size": float(stats["step_size"][:, -1].mean()),
+            "jax_study_arms": "divergence rate 0.024-0.039, v sd 2.50-2.58 (TPU and CPU runs)",
+            "card": card}
+    print(json.dumps(line), flush=True)
+    _check_gates(label, [("max split R-hat <= 1.35", line["max_split_rhat"] <= 1.35),
+                         ("p_div_given_not_neck <= 0.025", line["p_div_given_not_neck"] <= 0.025),
+                         ("v sd >= 2.13", line["v_sd"] >= 2.13),
+                         ("divergence rate <= 0.045", line["divergence_rate"] <= 0.045)])
+    return line
+
+
+# the TPU kernel each fused probe replaces: the pallas_call of its JAX probe
+PROBE_REPLACES = {"cos": 77, "grid_scratch": 112, "smem_accumulate": 165, "thin_factor": 226,
+                  "stat_io_layout": 302, "block_outputs_3d": 381}
+
+
+def _probe_work(name: str) -> tuple[float, float]:
+    """``(fp32 operations, bytes)`` of one launch of fused probe ``name``:
+    its inputs read once, its outputs written once."""
+    from littlemcmc_torch.ops.fused_probe import PROBES
+
+    T, B, R, N, K = PROBES[name]
+    return {
+        "cos": (3 * R * N, 8 * R * N),
+        "grid_scratch": (2 * R * N * (T - 1), 4 * R * N),
+        "smem_accumulate": (T * (2 * R + 1) * N * N, 4 * (R * N + N * N + 1)),
+        "thin_factor": (4 * R * N * K + 2 * R * N, 4 * (2 * R * N + 16 * N)),
+        "stat_io_layout": (T * B * R * (2 * N + 7),
+                           4 * (2 + B * R * N + B * R * K + R * N)
+                           + 4 * (T * B * R * N + T * B * R * 3 + B * R * N + B * R * K)),
+        "block_outputs_3d": (B * T * N * N + B * 8 * N, 4 * B * (16 * N + N * N)),
+    }[name]
+
+
+def _fused_probe_checks(t_start) -> dict:
+    """Phase 2s: the six fused-kernel capability probes (``csrc/fused_probe.cu``)
+    on the card against their plain versions at the JAX probes' tolerances
+    (``check_probe``), each timed: ``ms`` its device time a launch, ``plain_ms``
+    its plain version's a call (CUDA events), and its bound. name -> row."""
+    import torch
+    from littlemcmc_torch.ops.fused_probe import (PROBES, check_probe, probe_inputs,
+                                                  probe_kernel, probe_plain)
+
+    dev = torch.device(DEVICE)
+    out = {}
+    for name in PROBES:
+        err = check_probe(name, dev)
+        inputs = probe_inputs(name, dev)
+        ev = _cuda_time_ms(lambda: probe_kernel(name, inputs, dev), reps=20, warmup=2)
+        ms, src = _device_ms(lambda: probe_kernel(name, inputs, dev), f"probe_{name}_kernel",
+                             20, ev)
+        plain_ms = _cuda_time_ms(lambda: probe_plain(name, inputs, dev), reps=5, warmup=1)
+        bound = _roofline_ms(*_probe_work(name))
+        out[name] = {"name": f"fused_probe_{name}", "route": "cuda",
+                     "source": "littlemcmc_torch/ops/csrc/fused_probe.cu",
+                     "replaces": f"littlemcmc_tpu/ops/fused_probe.py:{PROBE_REPLACES[name]}",
+                     "launches": 0, "max_abs_err": err, "ms": ms, "ms_source": src,
+                     "events_ms": ev, "plain_ms": plain_ms, "bound_ms": bound[0],
+                     "bound_by": bound[1], "library_ms": None}
+    _line(phase="fused_probe_checks", **{f"{k}_max_abs_err": v["max_abs_err"]
+                                         for k, v in out.items()},
+          elapsed_s=f"{time.perf_counter() - t_start:.1f}")
+    return out
+
+
+def _probe_launches(fused: bool, lowrank: bool) -> dict:
+    """The fused probes' launch counts since the last reset, checked against
+    one launch of each probe the election runs: the fused engine's five
+    (``fused``) and the low-rank one (``lowrank``)."""
+    from littlemcmc_torch.ops.fused_probe import FUSED_ENGINE_PROBES, probe_kernel
+
+    got = dict(probe_kernel.launches)
+    want = {k: int(fused and k in FUSED_ENGINE_PROBES) + int(lowrank and k == "thin_factor")
+            for k in got}
+    if got != want:
+        raise RuntimeError(f"fused probe launches {got}, expected {want}")
+    return got
+
+
+def _funnel_auto_cells(smi, reset_counts, counts, t_start) -> dict:
+    """Phases 3s-3u, seed 42, 1024 chains, each driven with the launch
+    counts set to 0 just before and read just after: F1, the centred
+    funnel, 500 + 1000, target_accept 0.9, on ``fused_diag`` (the fused
+    NUTS kernel's body 5); F2, the non-centred funnel, the same sizes,
+    default target, ``fused_diag`` on body 0; H1, ``HierarchicalRegression``,
+    500 + ``H1_DRAWS``, target_accept 0.9, on ``per_draw_diag`` with the
+    generated body (its probe launched once before the first kernel
+    launch)."""
+    from littlemcmc_torch import NUTS, sample
+    from littlemcmc_torch.models import HierarchicalRegression, NealsFunnel, NonCenteredFunnel
+    from littlemcmc_torch.ops.autospec import probe_spec
+    from littlemcmc_torch.utils.diagnostics import split_rhat
+
+    out = {}
+    n_chunks = -(-TUNE // 250) - (-DRAWS // 250)
+    f = NealsFunnel(10)
+    reset_counts()
+    rep = {}
+    tr, st, out["f1_state"] = sample(f.logp_grad, model_ndim=10, chains=CHAINS, tune=TUNE,
+                                     draws=DRAWS, random_seed=42,
+                                     step=NUTS(model_ndim=10, target_accept=0.9),
+                                     perf_report=rep, return_final_state=True,
+                                     progressbar=False, compute_convergence_checks=False)
+    got = {k: v for k, v in counts().items() if v}
+    if rep["engine"] != "fused_diag" or got != {"fused_nuts": n_chunks}:
+        raise RuntimeError(f"F1: engine {rep['engine']}, launches {got}")
+    out["f1_probes"] = _probe_launches(fused=True, lowrank=False)
+    out["f1"] = _funnel_quality(tr, st, rep, "F1_funnel_centred", smi,
+                                {"kernel_launches": got, "probe_launches": out["f1_probes"],
+                                 "tune": TUNE, "target_accept": 0.9})
+    out["f"] = f
+    ncf = NonCenteredFunnel(10)
+    reset_counts()
+    rep = {}
+    tr, st = sample(ncf.logp_grad, model_ndim=10, chains=CHAINS, tune=TUNE, draws=DRAWS,
+                    random_seed=42, perf_report=rep, progressbar=False,
+                    compute_convergence_checks=False)
+    got = {k: v for k, v in counts().items() if v}
+    if rep["engine"] != "fused_diag" or got != {"fused_nuts": n_chunks}:
+        raise RuntimeError(f"F2: engine {rep['engine']}, launches {got}")
+    f2_probes = _probe_launches(fused=True, lowrank=False)
+    rhat = max(split_rhat(tr[:, :, i]) for i in range(10))
+    v_sd = float(ncf.transform(tr)[..., 0].std())
+    line = _quality(ncf, tr, st, rep["sample_seconds"], rep, "F2_funnel_noncentred", smi,
+                    {"kernel_launches": got, "probe_launches": f2_probes,
+                     "max_split_rhat": float(rhat),
+                     "funnel_v_sd": v_sd, "funnel_v_sd_exact": 3.0}, gated=False)
+    _check_gates("F2_funnel_noncentred", [
+        ("max split R-hat < 1.05", rhat < 1.05),
+        ("divergence_rate < 0.01", line["divergence_rate"] < 0.01),
+        ("0.9 <= posterior_var_ratio <= 1.1", 0.9 <= line["posterior_var_ratio"] <= 1.1),
+        ("max |mean| / sd < 0.1", line["max_abs_mean_over_sd"] < 0.1),
+        ("min bulk ESS > 1000", line["min_bulk_ess"] > 1000),
+        ("funnel-space v sd within 10% of 3", abs(v_sd / 3.0 - 1.0) < 0.1)])
+    out["f2"] = line
+    _line(phase="funnel_cells", elapsed_s=f"{time.perf_counter() - t_start:.1f}")
+    hr = HierarchicalRegression()  # a fresh instance: its body is probed in this run
+    reset_counts()
+    probe_spec.launches = 0
+    rep = {}
+    tr, st, out["h1_state"] = sample(hr.logp_grad, model_ndim=hr.ndim, chains=CHAINS,
+                                     tune=TUNE, draws=H1_DRAWS, random_seed=42,
+                                     step=NUTS(model_ndim=hr.ndim, target_accept=0.9),
+                                     perf_report=rep, return_final_state=True,
+                                     progressbar=False, compute_convergence_checks=False)
+    got = {k: v for k, v in counts().items() if v}
+    got["autospec_probe"] = probe_spec.launches
+    if (rep["engine"] != "per_draw_diag"
+            or rep["trajectory"] != ("cuda" if DEVICE == "cuda" else "plain")
+            or got != {"trajectory": TUNE + H1_DRAWS, "autospec_probe": 1}):
+        raise RuntimeError(f"H1: engine {rep['engine']}, trajectory {rep['trajectory']}, "
+                           f"launches {got}")
+    out["h1"] = _logistic_quality(tr, st, rep, "H1_hierarchical_generated", smi,
+                                  {"kernel_launches": got, "target_accept": 0.9},
+                                  tune=TUNE, draws=H1_DRAWS, ref=_hier_reference())
+    out["hr"] = hr
+    out["h1_launches"] = got
+    _line(phase="autospec_cell", elapsed_s=f"{time.perf_counter() - t_start:.1f}")
+    return out
+
+
+def _tree_draw_ms(model, state, gen, draws: int) -> dict:
+    """ms a draw of NUTS on the tensor-op tree, the model's own batched
+    ``(logp, grad)`` at every leaf, over ``draws`` draws from ``state`` on
+    CUDA events (no profiler: the tree issues about 12,000 device kernels a
+    draw of the hierarchical model, which the profiler takes minutes to
+    collect)."""
+    import torch
+    from littlemcmc_torch.base import NUTSConfig
+    from littlemcmc_torch.nuts import build_nuts_kernel
+
+    kernel = build_nuts_kernel(NUTSConfig(), None, batched_logp_grad_fn=model.batched_logp_grad)
+    state, _ = kernel(state, False, gen, (1, 2))  # warm-up
+    start, end = (torch.cuda.Event(enable_timing=True) for _ in range(2))
+    start.record()
+    for i in range(draws):
+        state, _ = kernel(state, False, gen, (100 + i, 7))
+    end.record()
+    end.synchronize()
+    line = {"phase": "tree_timing_hierarchical", "draws": draws,
+            "ms_per_draw": start.elapsed_time(end) / draws}
+    print(json.dumps(line), flush=True)
+    return line
+
+
+def _funnel_auto_timing(chk, cells, gen, t_start) -> list:
+    """Phase 4h: the funnel body's kernels (the fused NUTS kDiag instance
+    per 250-draw chunk and the per-draw NUTS kernel per launch, both at
+    F1's final state), the generated body in ``nuts_trajectory`` per launch
+    at H1's final state, the tree on the same model (ms a draw over 20
+    draws from that state), where a post-tune H1 draw spends its time, and
+    the probe kernel alone; then the kernels line's rows of this slice."""
+    import torch
+    from littlemcmc_torch.ops.autospec import _probe_inputs, run_probe
+    from littlemcmc_torch.ops.hmc_trajectory import hmc_trajectory
+    from littlemcmc_torch.ops.nuts_trajectory import trajectory
+
+    f = cells["f"]
+    f_line = _es_kernel_timing(f, cells["f1_state"], cells["f1_state"], "nuts", gen,
+                               label="funnel")
+    hr = cells["hr"]
+    spec = hr.trajectory_spec()
+    prog = spec.auto
+    s = cells["h1_state"]
+    C, n = s.q.shape
+    eps = torch.exp(s.da.log_bar)
+    targs = (s.q.contiguous(), s.potential.sample_momentum(gen), s.q_grad.contiguous(),
+             s.logp.contiguous(), eps, torch.full((C,), DEPTH, dtype=torch.int32, device=DEVICE),
+             s.potential.var.contiguous())
+    kw = dict(spec=spec, max_treedepth=DEPTH, Emax=1000.0, chain_block=CHAIN_BLOCK)
+    pout = trajectory(*targs, (3, 8), **kw)
+    h_bound = _bound_ms(int(pout["n_leaves"].sum()), C, n, body="auto", rows=spec.rows,
+                        ir_ops=prog.flops)
+    h_events = _cuda_time_ms(lambda: trajectory(*targs, (3, 8), **kw), reps=20, warmup=3)
+    h_ms, h_src = _device_ms(lambda: trajectory(*targs, (3, 8), **kw), "nuts_trajectory", 20,
+                             h_events)
+    tree = _tree_draw_ms(hr, s, gen, draws=20)
+    kern = _breakdown(hr, s, gen, draws=50, label="_hierarchical_generated")
+    q = _probe_inputs(n, torch.device(DEVICE))
+    p_events = _cuda_time_ms(lambda: run_probe(spec, q), reps=20, warmup=2)
+    p_ms, p_src = _device_ms(lambda: run_probe(spec, q), "autospec_probe", 20, p_events)
+    p_plain = _cuda_time_ms(lambda: prog.plain(q), reps=20, warmup=2)
+    p_bound = _roofline_ms(q.shape[0] * prog.flops,
+                           4 * (q.numel() + spec.rows) + 4 * (q.shape[0] + q.numel()))
+    line = {"phase": "autospec_timing", "chains": C, "ms": h_ms, "ms_source": h_src,
+            "events_ms": h_events, "bound_ms": h_bound[0], "bound_by": h_bound[1],
+            "leaves_per_chain": float(pout["n_leaves"].float().mean()),
+            "program_ops": len(prog.instrs), "program_flops": prog.flops,
+            "const_floats": spec.rows, "scratch_floats": prog.scratch_floats,
+            "tree_ms_per_draw": tree["ms_per_draw"],
+            "generated_ms_per_draw": kern["ms_per_draw"],
+            "tree_over_generated": tree["ms_per_draw"] / kern["ms_per_draw"],
+            "probe_ms": p_ms, "probe_ms_source": p_src, "probe_plain_ms": p_plain,
+            "probe_bound_ms": p_bound[0], "probe_bound_by": p_bound[1]}
+    print(json.dumps(line), flush=True)
+    _line(phase="autospec_timing_done", elapsed_s=f"{time.perf_counter() - t_start:.1f}")
+
+    traj_src, traj_tpu = ("littlemcmc_torch/ops/csrc/nuts_trajectory.cu",
+                          "littlemcmc_tpu/ops/nuts_trajectory_pallas.py:1023")
+    body_tpu = "littlemcmc_tpu/models/funnel.py:54"
+    k_err, k_plain = chk["f_traj"]
+    rows = [
+        # body 5 in the per-draw NUTS kernel: ms at F1's final state;
+        # plain_ms and max_abs_err at 2o's input (1024 chains); no cell
+        # runs the funnel per draw
+        {"name": "nuts_trajectory", "metric": "diag", "body": "funnel", "route": "cuda",
+         "source": traj_src, "replaces": f"{traj_tpu} (body {body_tpu})", "launches": 0,
+         "max_abs_err": k_err, "ms": f_line["per_draw_ms"],
+         "ms_source": f_line["per_draw_ms_source"], "plain_ms": k_plain,
+         "bound_ms": f_line["per_draw_bound_ms"], "bound_by": f_line["per_draw_bound_by"],
+         "library_ms": None},
+    ]
+    for step in ("nuts", "hmc"):
+        (k_ms, p_ms2, _, work, ev_ms), err = chk["f_fused"][step]
+        bound = _fused_diag_bound_ms(work, CHAINS, 10, 2, False, "funnel", step)
+        row = {"name": f"fused_{step}", "metric": "diag", "body": "funnel", "route": "cuda",
+               "source": f"littlemcmc_torch/ops/csrc/fused_{step}.cu",
+               "replaces": ("littlemcmc_tpu/ops/fused_nuts_pallas.py:978" if step == "nuts"
+                            else "littlemcmc_tpu/ops/fused_hmc_pallas.py:511")
+               + f" (body {body_tpu})",
+               "launches": cells["f1"]["kernel_launches"]["fused_nuts"] if step == "nuts" else 0,
+               "max_abs_err": err, "ms": k_ms, "events_ms": ev_ms, "draws": 2,
+               "plain_ms": p_ms2, "bound_ms": bound[0], "bound_by": bound[1],
+               "library_ms": None}
+        if step == "nuts":
+            row.update(chunk_draws=250, chunk_ms=f_line["fused_ms"],
+                       chunk_bound_ms=f_line["fused_bound_ms"],
+                       chunk_bound_by=f_line["fused_bound_by"])
+        rows.append(row)
+    h_err, h_plain = chk["f_hmc"]
+    hb = _hmc_bound_ms(int(chk["f_hargs"][5].sum()), CHAINS, 10, body="funnel")
+    h_t = _cuda_time_ms(lambda: hmc_trajectory(*chk["f_hargs"], (3, 5),
+                                               spec=f.trajectory_spec(), Emax=1000.0),
+                        reps=10, warmup=2)
+    rows.append({"name": "hmc_trajectory", "metric": "diag", "body": "funnel", "route": "cuda",
+                 "source": "littlemcmc_torch/ops/csrc/hmc_trajectory.cu",
+                 "replaces": f"littlemcmc_tpu/ops/hmc_trajectory_pallas.py:273 (body {body_tpu})",
+                 "launches": 0, "max_abs_err": h_err, "ms": h_t, "ms_source": "events",
+                 "plain_ms": h_plain, "bound_ms": hb[0], "bound_by": hb[1], "library_ms": None})
+    a_err, a_plain = chk["h_traj"]
+    rows += [
+        # the generated body in the per-draw NUTS kernel: ms and bound at
+        # H1's final state, plain_ms and max_abs_err at 2r's input
+        {"name": "nuts_trajectory", "metric": "diag", "body": "auto (HierarchicalRegression)",
+         "route": "cuda", "source": traj_src + " + ops/autospec.py (generated body)",
+         "replaces": "littlemcmc_tpu/ops/autospec.py:540 (body of make_pallas_model_spec :411)",
+         "launches": cells["h1_launches"]["trajectory"], "max_abs_err": a_err,
+         "ms": h_ms, "ms_source": h_src, "events_ms": h_events, "plain_ms": a_plain,
+         "bound_ms": h_bound[0], "bound_by": h_bound[1], "library_ms": None,
+         "tree_ms_per_draw": tree["ms_per_draw"]},
+        # the probe kernel alone: 8 chains at the probe's inputs
+        {"name": "autospec_probe", "body": "auto (HierarchicalRegression)", "route": "cuda",
+         "source": "littlemcmc_torch/ops/csrc/autospec_probe.cu",
+         "replaces": "littlemcmc_tpu/ops/autospec.py:540",
+         "launches": cells["h1_launches"]["autospec_probe"], "max_abs_err": chk["probe_err"],
+         "ms": p_ms, "ms_source": p_src, "plain_ms": p_plain, "bound_ms": p_bound[0],
+         "bound_by": p_bound[1], "library_ms": None},
+    ]
+    return rows
+
+
 def main() -> int:
     if not (ROOT / "littlemcmc_torch" / "ops" / "csrc").is_dir():
         print("chip_smoke.py must run from a littlemcmc checkout "
@@ -1994,23 +2468,49 @@ def main() -> int:
                          check=True, timeout=60).stdout.strip()
     from littlemcmc_torch.ops import _build
 
+    from littlemcmc_torch.models import HierarchicalRegression
+    from littlemcmc_torch.models.probe_matrix import autospec_matrix
+    from littlemcmc_torch.ops.autospec import (header_source, make_trajectory_spec,
+                                               probe_header)
+
+    # the generated bodies' builds start with the sources': the
+    # hierarchical body in the per-draw NUTS kernel and the probe kernel
+    # (H1's, and 2q's with the probe matrix's nine bodies as well)
     t0 = time.perf_counter()
+    hr = HierarchicalRegression()
+    matrix = [make_trajectory_spec(ndim=3, logp_fn=fn, device=DEVICE, name=name).auto
+              for name, fn in autospec_matrix(DEVICE).items()]
+    hprog = hr.trajectory_spec().auto
+    generated = [("nuts_trajectory", header_source(hprog)),
+                 ("autospec_probe", probe_header([hprog])),
+                 ("autospec_probe", probe_header(matrix + [hprog]))]
+    trace_s = time.perf_counter() - t0
+    # one nvcc a source, the static and the generated ones started together
+    _build._compile(list(_build._static_jobs().values())
+                    + [_build._generated_job(k, h) for k, h in generated])
     libs = _build.build_all()
+    gen_logs = {f"{k}:{i}": _build._generated_job(k, h)[2]
+                for i, (k, h) in enumerate(generated)}
     _line(phase="build", seconds=f"{time.perf_counter() - t0:.1f}",
-          libraries=",".join(sorted(libs)), cuda=torch.version.cuda,
-          torch=torch.__version__, device=torch.cuda.get_device_name(0).replace(" ", "_"))
-    for name in sorted(libs):
-        log = (libs[name].parent / f"{name}.log").read_text()
-        for ln in log.splitlines():
-            if "registers" in ln or "spill" in ln or "entry function" in ln:
+          trace_and_lower_seconds=f"{trace_s:.1f}",
+          libraries=",".join(sorted(libs)) + ",generated:" + ",".join(gen_logs),
+          cuda=torch.version.cuda, torch=torch.__version__,
+          device=torch.cuda.get_device_name(0).replace(" ", "_"))
+    logs = {name: libs[name].parent / f"{name}.log" for name in sorted(libs)}
+    logs.update(gen_logs)
+    for name, path in logs.items():
+        for ln in path.read_text().splitlines():
+            if ("registers" in ln or "spill" in ln or "entry function" in ln
+                    or ln.startswith("nvcc_seconds")):
                 print(f"ptxas[{name}]: {ln.strip()}", flush=True)
 
     from littlemcmc_torch import NUTS, HamiltonianMC, sample
     from littlemcmc_torch.base import HMCConfig, NUTSConfig
     from littlemcmc_torch.models import (CorrelatedGaussian, EightSchools, LogisticRegression,
-                                         SpikedGaussian, StandardNormal)
+                                         NealsFunnel, SpikedGaussian, StandardNormal)
     from littlemcmc_torch.ops.fused_hmc import fused_hmc
     from littlemcmc_torch.ops.fused_nuts import fused_nuts
+    from littlemcmc_torch.ops.fused_probe import probe_kernel
     from littlemcmc_torch.ops.hmc_trajectory import hmc_trajectory, hmc_trajectory_plain
     from littlemcmc_torch.ops.logistic import logistic_logp_grad
     from littlemcmc_torch.ops.nuts_trajectory import trajectory, trajectory_plain
@@ -2022,6 +2522,8 @@ def main() -> int:
     def reset_counts():
         for op in ops + model_ops:
             op.launches = 0
+        for name in probe_kernel.launches:
+            probe_kernel.launches[name] = 0
 
     def counts():
         """The four transition kernels' launch counts (the batched model
@@ -2114,6 +2616,11 @@ def main() -> int:
         draw = _compare_fused(2, False, True, 27, (181, 7), step, sg, "lowrank", chains=256)
         tune = _compare_fused(4, True, True, 28, (191, 11), step, sg, "lowrank", chains=256)
         lr_fused[step] = (draw, max(draw[2], tune[2]))
+    # 2o-2r. the funnel body (5) in the four kernels, the probe matrix, the
+    # generated body in the per-draw NUTS kernel
+    fa_chk = _funnel_auto_checks(NealsFunnel(10), hr, t_start)
+    # 2s. the fused-kernel capability probes
+    probe_rows = _fused_probe_checks(t_start)
     _line(phase="kernel_checks", elapsed_s=f"{time.perf_counter() - t_start:.1f}")
 
     # --- 3. the main path -------------------------------------------------------
@@ -2293,6 +2800,9 @@ def main() -> int:
     # kernel (path B); per-chain dense adaptation on the tree (T2)
     tp = _tree_paths(smi, lg, reset_counts, counts, model_ops, t_start)
 
+    # 3s-3u. the funnel cells F1, F2 and the generated-body cell H1
+    fa_cells = _funnel_auto_cells(smi, reset_counts, counts, t_start)
+
     # --- 4. the kernel's time at the main path's final state -------------------
     gen = torch.Generator(device=DEVICE).manual_seed(7)
     pot = state.potential
@@ -2464,6 +2974,10 @@ def main() -> int:
                               (sg_err, sg_plain_ms), sg_hargs, (sg_hmc_err, sg_hmc_plain_ms),
                               lr_fused, gen, t_start)
 
+    # 4h. the funnel's and the generated body's kernels at F1's and H1's
+    # final states, the tree on H1's model, the probe kernel
+    fa_rows = _funnel_auto_timing(fa_chk, fa_cells, gen, t_start)
+
     traj_src = "littlemcmc_torch/ops/csrc/nuts_trajectory.cu"
     traj_tpu = "littlemcmc_tpu/ops/nuts_trajectory_pallas.py:1023"
     fn_src, fn_tpu = ("littlemcmc_torch/ops/csrc/fused_nuts.cu",
@@ -2593,7 +3107,12 @@ def main() -> int:
          "bound_by": fh_bound_by,
          "library_ms": None, "chunk_draws": 250, "chunk_ms": fh_ms,
          "chunk_bound_ms": fh_chunk_bound_ms, "chunk_bound_by": fh_chunk_bound_by},
-    ] + es_rows + lg_rows + lr_rows}), flush=True)
+    ] + es_rows + lg_rows + lr_rows + fa_rows + [
+        # the fused probes: launches on F1's path (the fused engine's five)
+        # and L1's (the low-rank one)
+        dict(row, launches=(fa_cells["f1_probes"] if name != "thin_factor"
+                            else lr["L1"][0]["probe_launches"])[name])
+        for name, row in probe_rows.items()]}), flush=True)
     _line(phase="done", elapsed_s=f"{time.perf_counter() - t_start:.1f}")
     print(smi, flush=True)
     print(json.dumps({"ok": True, "device": {"platform": "gpu",

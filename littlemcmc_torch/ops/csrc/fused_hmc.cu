@@ -356,18 +356,24 @@ int fused_hmc_launch(void* const* ptrs, const int* ints, const float* floats, vo
     if (A.cb < 1 || A.cb > kMaxChainBlock || A.C % A.cb != 0 || A.K.n < 1
         || A.K.n > 32 * kMaxCols || A.T < 1 || A.K.n_stages < 1 || A.K.n_stages > 3
         || A.max_steps < 1 || (body == 2 && A.K.n != 10) || (body == 3 && A.K.rows < 1)
-        || (body == 4 && (A.K.rows < 1 || A.K.rows > kMaxRank)))
+        || (body == 4 && (A.K.rows < 1 || A.K.rows > kMaxRank)) || (body == 5 && A.K.n < 2))
         return (int)cudaErrorInvalidValue;
     if (A.adapt_dense && (!A.tuning || metric != kDense)) return (int)cudaErrorInvalidValue;
     if (A.adapt_metric && metric == kDense) return (int)cudaErrorInvalidValue;
     if (metric == kLowRank && A.K.cov == nullptr) return (int)cudaErrorInvalidValue;
     cudaStream_t s = static_cast<cudaStream_t>(stream);
     switch (body) {
+#ifndef LMC_AUTOSPEC_ONLY  // a generated body's library holds its instances only
         case 0: return (int)launch_metric<0>(A, metric, s);
         case 1: return (int)launch_metric<1>(A, metric, s);
         case 2: return (int)launch_metric<2>(A, metric, s);
         case 3: return (int)launch_metric<3>(A, metric, s);
         case 4: return (int)launch_metric<4>(A, metric, s);
+        case 5: return (int)launch_metric<5>(A, metric, s);
+#endif
+#ifdef LMC_AUTOSPEC_HEADER
+        case kAutoBody: return (int)launch_metric<kAutoBody>(A, metric, s);
+#endif
         default: return (int)cudaErrorInvalidValue;
     }
 }

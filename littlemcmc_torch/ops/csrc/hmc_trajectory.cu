@@ -157,15 +157,22 @@ int hmc_trajectory_launch(void* const* ptrs, const int* ints, const float* float
     const int body = ints[iBody];
     if (A.C < 1 || A.n < 1 || A.cb < 1 || A.K.n_stages < 1 || A.K.n_stages > 3
         || ((body == 1 || body == 3) && A.n > 32 * kMaxCols) || (body == 2 && A.n != 10)
-        || (body == 3 && A.K.rows < 1) || (body == 4 && (A.K.rows < 1 || A.K.rows > kMaxRank)))
+        || (body == 3 && A.K.rows < 1) || (body == 4 && (A.K.rows < 1 || A.K.rows > kMaxRank))
+        || (body == 5 && A.n < 2) || (body == kAutoBody && A.n > 32 * kMaxCols))
         return (int)cudaErrorInvalidValue;
     cudaStream_t s = static_cast<cudaStream_t>(stream);
     switch (body) {
+#ifndef LMC_AUTOSPEC_ONLY  // a generated body's library holds its instances only
         case 0: return (int)launch<0>(A, s);
         case 1: return (int)launch<1>(A, s);
         case 2: return (int)launch<2>(A, s);
         case 3: return (int)launch<3>(A, s);
         case 4: return (int)launch<4>(A, s);
+        case 5: return (int)launch<5>(A, s);
+#endif
+#ifdef LMC_AUTOSPEC_HEADER
+        case kAutoBody: return (int)launch<kAutoBody>(A, s);
+#endif
         default: return (int)cudaErrorInvalidValue;
     }
 }

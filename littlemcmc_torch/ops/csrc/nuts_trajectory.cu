@@ -242,7 +242,8 @@ int nuts_trajectory_launch(
     if ((body == 1 || body == 3 || metric == kDense) && n > 32 * kMaxCols)
         return (int)cudaErrorInvalidValue;
     if ((body == 2 && n != 10) || (body == 3 && rows < 1)
-        || (body == 4 && (rows < 1 || rows > kMaxRank)) || (metric == kLowRank && fac == nullptr))
+        || (body == 4 && (rows < 1 || rows > kMaxRank)) || (metric == kLowRank && fac == nullptr)
+        || (body == 5 && n < 2) || (body == kAutoBody && n > 32 * kMaxCols))
         return (int)cudaErrorInvalidValue;
     Params P;
     P.q = q; P.p = p; P.g = g; P.var = var; P.fac = fac;
@@ -259,11 +260,17 @@ int nuts_trajectory_launch(
     P.cov_in_smem = 0;
     cudaStream_t s = static_cast<cudaStream_t>(stream);
     switch (body) {
+#ifndef LMC_AUTOSPEC_ONLY  // a generated body's library holds its instances only
         case 0: return (int)launch_metric<0>(P, metric, s);
         case 1: return (int)launch_metric<1>(P, metric, s);
         case 2: return (int)launch_metric<2>(P, metric, s);
         case 3: return (int)launch_metric<3>(P, metric, s);
         case 4: return (int)launch_metric<4>(P, metric, s);
+        case 5: return (int)launch_metric<5>(P, metric, s);
+#endif
+#ifdef LMC_AUTOSPEC_HEADER
+        case kAutoBody: return (int)launch_metric<kAutoBody>(P, metric, s);
+#endif
         default: return (int)cudaErrorInvalidValue;
     }
 }

@@ -55,6 +55,15 @@ constexpr int kMaxLowRankChainBlock = 8;
 constexpr int kDiag = 0;
 constexpr int kDense = 1;
 constexpr int kLowRank = 2;
+// the body generated from a traced user model (ops/autospec.py): compiled
+// only into the libraries built with its generated header
+// (LMC_AUTOSPEC_HEADER), one library per generated body
+constexpr int kAutoBody = 6;
+#ifdef LMC_AUTOSPEC_HEADER
+constexpr bool kHaveAutoBody = true;
+#else
+constexpr bool kHaveAutoBody = false;
+#endif
 constexpr uint32_t kGolden = 0x9E3779B9u;
 
 __device__ __forceinline__ uint32_t fmix32(uint32_t x) {
@@ -166,14 +175,17 @@ __host__ __device__ inline int lowrank_fac_floats(int n) { return kMaxRank * (n 
 // data rows, the design Xb at the odd row stride n | 1 (lanes reading one
 // row each hit 32 different banks of shared memory), then y (rows), then
 // the prior precision; body 4, the spiked Gaussian with `rows` = k spikes,
-// V^T (k rows of n), then 1/lam - 1 (k), then 1/s (n). body_floats counts
-// the floats of P and of bodies 3 and 4, which stage_body copies into
-// shared memory where the launch found room (eight schools' 20 floats stay
-// in global memory, in L1).
+// V^T (k rows of n), then 1/lam - 1 (k), then 1/s (n); body 5, the
+// funnel, [1/scale^2]; the generated body, its `rows` constant floats
+// (index vectors as int32 bits). body_floats counts the floats of P, of
+// bodies 3 and 4 and of the generated body, which stage_body copies into
+// shared memory where the launch found room (eight schools' 20 floats and
+// the funnel's one stay in global memory, in L1).
 __host__ __device__ inline size_t body_floats(int body, int n, int rows) {
     if (body == 1) return (size_t)n * n;
     if (body == 3) return (size_t)rows * (n | 1) + rows + 1;
     if (body == 4) return (size_t)rows * (n + 1) + n;
+    if (body == kAutoBody) return (size_t)rows;
     return 0;
 }
 
@@ -227,6 +239,16 @@ __device__ __forceinline__ float logistic_rows(const float* q, const float* X, i
     return ll;
 }
 
+}  // namespace lmc
+
+// The generated body: namespace lmc::autobody, with eval(q, g, lam, n,
+// lane, scratch), kScratchFloats and the global scratch pointer
+#ifdef LMC_AUTOSPEC_HEADER
+#include LMC_AUTOSPEC_HEADER
+#endif
+
+namespace lmc {
+
 // The model body at q (shared memory, one chain): writes grad into g
 // (shared memory) and returns logp. lam: the body's constants (body_floats);
 // rows: body 3's data rows, body 4's spikes. Lanes own columns lane,
@@ -236,7 +258,8 @@ __device__ __forceinline__ float logistic_rows(const float* q, const float* X, i
 template <int BODY>
 __device__ float model_eval(const float* q, float* g, const float* lam, int n, int rows,
                            int lane) {
-    static_assert(BODY >= 0 && BODY <= 4, "unknown model body");
+    static_assert((BODY >= 0 && BODY <= 5) || (BODY == kAutoBody && kHaveAutoBody),
+                  "unknown model body");
     float part = 0.f;
     if constexpr (BODY == 0) {  // standard normal: logp = -q.q/2, grad = -q
         for (int i = lane; i < n; i += 32) {
@@ -329,6 +352,38 @@ __device__ float model_eval(const float* q, float* g, const float* lam, int n, i
         }
         __syncwarp();
         return ll + -0.5f * prior_prec * qq;
+    } else if constexpr (BODY == 5) {
+        // Neal's centred funnel (models/funnel.py:54-86): q = [v, x],
+        // lam = [1/scale^2]. sq sums x_i^2 over i >= 1 only: q.q - v^2
+        // would cancel in the neck (v < -2), where v^2 dwarfs sq
+        __syncwarp();  // q is written
+        const float inv_s2 = lam[0];
+        const float v = q[0];
+        for (int i = lane; i < n; i += 32) {
+            if (i >= 1) {
+                const float x = q[i];
+                part += x * x;
+            }
+        }
+        const float sq = warp_sum(part);
+        const float e = expf(-v);
+        const float nx = (float)(n - 1);
+        for (int i = lane; i < n; i += 32)
+            g[i] = i == 0 ? -inv_s2 * v - 0.5f * nx + 0.5f * sq * e : -q[i] * e;
+        __syncwarp();
+        return -0.5f * inv_s2 * v * v - 0.5f * nx * v - 0.5f * sq * e;
+    } else if constexpr (BODY == kAutoBody) {
+#ifdef LMC_AUTOSPEC_HEADER
+        // the generated body: its intermediates in this warp's row of the
+        // global scratch (one row per warp of the grid)
+        __syncwarp();  // q is written
+        float* scratch = autobody::scratch
+                         + ((size_t)blockIdx.x * (blockDim.x >> 5) + (threadIdx.x >> 5))
+                               * autobody::kScratchFloats;
+        return autobody::eval(q, g, lam, n, lane, scratch);
+#else
+        return part;
+#endif
     } else {
         // the spiked Gaussian (models/gaussian.py:204-237): x = q / s,
         // g = -(x + V((1/lam - 1).(V^T x))) / s, logp = q.g / 2, with the

@@ -52,7 +52,7 @@ from .fused_nuts import (_DRAW_STRIDE, _SCALARS, _WELFORD_PTRS, DiagWelford, _Bl
                          momentum_and_velocity, padded_dim, state_buffers, state_results,
                          welford_buffers, welford_results)
 from .hmc_trajectory import hmc_transition
-from .nuts_trajectory import (BODY_IDS, DEFAULT_CHAIN_BLOCK, METRIC_IDS, TrajectorySpec, _M32,
+from .nuts_trajectory import (kernel_library, BODY_IDS, DEFAULT_CHAIN_BLOCK, METRIC_IDS, TrajectorySpec, _M32,
                               _seed_words, body_logp_grad, counter_salt, counter_uniform,
                               int32_bits, resolve_chain_block)
 
@@ -186,7 +186,8 @@ def _launch_kernel(q, grad, scalars, var, linv, seed, *, spec, T, tuning, config
     floats.update({f"b{i}": (list(b_coef) + [0.0] * 4)[i] for i in range(4)})
     floats.update({f"a{i}": (list(a_coef) + [0.0] * 3)[i] for i in range(3)})
     launch("fused_hmc", [buf[k].data_ptr() if buf.get(k) is not None else None for k in _PTRS],
-           [ints[k] for k in _INTS], [floats[k] for k in _FLOATS], dev)
+           [ints[k] for k in _INTS], [floats[k] for k in _FLOATS], dev,
+           lib=kernel_library("fused_hmc", spec, dev, C))
     fused_hmc.launches += 1
 
     res = {"trace": buf["trace"], "q": buf["q_out"], "grad": buf["grad_out"]}

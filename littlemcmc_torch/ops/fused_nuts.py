@@ -56,7 +56,7 @@ import torch
 
 from ..integration import INTEGRATOR_COEFFS
 from ..math import fp32_matmul, round_up
-from .nuts_trajectory import (BODY_IDS, DEFAULT_CHAIN_BLOCK, MAX_KERNEL_NDIM_DENSE, METRIC_IDS, TrajectorySpec, _M32, _GOLDEN,
+from .nuts_trajectory import (kernel_library, BODY_IDS, DEFAULT_CHAIN_BLOCK, MAX_KERNEL_NDIM_DENSE, METRIC_IDS, TrajectorySpec, _M32, _GOLDEN,
                               _rowdot, _seed_words, block_uniform, body_logp_grad,
                               counter_uniform, fmix32, int32_bits, kernel_chain_block,
                               lowrank_fac_parts,
@@ -574,7 +574,8 @@ def _launch_kernel(q, grad, scalars, var, linv, seed, *, spec, T, tuning, config
     floats.update({f"b{i}": (list(b_coef) + [0.0] * 4)[i] for i in range(4)})
     floats.update({f"a{i}": (list(a_coef) + [0.0] * 3)[i] for i in range(3)})
     launch("fused_nuts", [buf[k].data_ptr() if buf.get(k) is not None else None for k in _PTRS],
-           [ints[k] for k in _INTS], [floats[k] for k in _FLOATS], dev)
+           [ints[k] for k in _INTS], [floats[k] for k in _FLOATS], dev,
+           lib=kernel_library("fused_nuts", spec, dev, C))
     fused_nuts.launches += 1
 
     res = {"trace": buf["trace"], "q": buf["q_out"], "grad": buf["grad_out"]}

@@ -35,7 +35,7 @@ from typing import Callable, Dict
 import torch
 
 from ..integration import INTEGRATOR_COEFFS
-from .nuts_trajectory import (BODY_IDS, MAX_KERNEL_NDIM_DENSE, TrajectorySpec, _rowdot,
+from .nuts_trajectory import (kernel_library, BODY_IDS, MAX_KERNEL_NDIM_DENSE, TrajectorySpec, _rowdot,
                               _seed_words, body_logp_grad, counter_salt, counter_uniform,
                               int32_bits, metric_velocity, resolve_chain_block)
 
@@ -162,7 +162,8 @@ def _launch_kernel(q, p, grad, logp, eps, n_steps, var, seed, *, spec, Emax, cha
             spec.rows],
            # Emax b0 b1 b2 b3 a0 a1 a2
            [float(Emax)] + list(b_coef) + [0.0] * (4 - len(b_coef))
-           + list(a_coef) + [0.0] * (3 - len(a_coef)), dev)
+           + list(a_coef) + [0.0] * (3 - len(a_coef)), dev,
+           lib=kernel_library("hmc_trajectory", spec, dev, C))
     hmc_trajectory.launches += 1
     out = {"q": buf["q_out"], "grad": buf["grad_out"]}
     out.update({k: buf[k] for k in _OUT_F32 + ("accepted", "diverging")})

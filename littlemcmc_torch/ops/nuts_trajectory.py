@@ -66,7 +66,7 @@ MAX_KERNEL_NDIM_DENSE = 256  # register tile of the dense and the logistic model
 # model bodies and metrics compiled into the kernels (ids match
 # csrc/nuts_transition.cuh)
 BODY_IDS = {"standard_normal": 0, "correlated_gaussian": 1, "eight_schools": 2, "logistic": 3,
-            "spiked_gaussian": 4}
+            "spiked_gaussian": 4, "funnel": 5, "auto": 6}
 METRIC_IDS = {"diag": 0, "dense": 1, "lowrank": 2}
 # columns of the low-rank factor block the kernels read (kMaxRank in
 # csrc/nuts_transition.cuh); a smaller rank is padded with zero columns
@@ -98,6 +98,15 @@ class TrajectorySpec:
     ``S(I + V(Λ−I)Vᵀ)S`` (``models/gaussian.py:140-237``); ``V`` ``(n, k)``
     with ``k <= 8``, ``1/λ − 1`` ``(k,)`` and ``1/s`` ``(n,)``;
     ``g = −S⁻¹(x + V((1/λ−1)·(Vᵀx)))``, ``x = S⁻¹q``, ``logp = q.g/2``.
+    ``funnel``: Neal's centred funnel (``models/funnel.py:54-86``), ``q =
+    [v, x]``; one ``(1,)`` fp32 constant ``[1/scale^2]``; ``sq =
+    sum_{i>=1} x_i^2`` summed on its own, ``logp = -v^2/(2 s^2) -
+    (n-1) v/2 - exp(-v) sq/2``.
+    ``auto``: a body generated from a traced user model
+    (:mod:`~littlemcmc_torch.ops.autospec`); ``auto`` holds the program
+    (its IR, the CUDA source and the traced graph, the plain version),
+    ``consts`` the model's constants flattened to float32 (index tensors
+    as int32 bits).
 
     ``packable``: the JAX model's spec has a lane-packed body
     (``packed_fn``). Nothing in the port packs lanes; the flag only
@@ -107,14 +116,17 @@ class TrajectorySpec:
     for the logistic body its three packed into one contiguous buffer
     (:func:`~littlemcmc_torch.ops.logistic.pack_logistic`), for the spiked
     Gaussian ``[Vᵀ (k x n), 1/λ − 1, 1/s]`` in one buffer, or None for a
-    body without constants; ``rows`` is the logistic body's ``N`` and the
-    spiked Gaussian's ``k`` (0 for the others).
+    body without constants, for the funnel ``[1/scale^2]`` and for a
+    generated body its constants packed into one buffer; ``rows`` is the
+    logistic body's ``N``, the spiked Gaussian's ``k`` and a generated
+    body's count of constant floats (0 for the others).
     """
 
     body: str
     consts: Tuple[torch.Tensor, ...]
     ndim: int
     packable: bool = False
+    auto: Optional[object] = dataclasses.field(default=None, repr=False)
     kernel_consts: Optional[torch.Tensor] = dataclasses.field(init=False, repr=False)
     rows: int = dataclasses.field(init=False)
 
@@ -122,6 +134,8 @@ class TrajectorySpec:
         if self.body not in BODY_IDS:
             raise ValueError(f"unknown model body {self.body!r}; "
                              f"known: {sorted(BODY_IDS)}")
+        if (self.auto is not None) != (self.body == "auto"):
+            raise ValueError("a generated body, and only it, carries its program (auto=)")
         if self.body == "eight_schools" and self.ndim != 10:
             raise ValueError(f"the eight_schools body has 10 parameters, not {self.ndim}")
         got = [tuple(c.shape) for c in self.consts]
@@ -130,10 +144,14 @@ class TrajectorySpec:
             rows = got[0][0]
         elif self.body == "spiked_gaussian" and got and len(got[0]) == 2:
             rows = got[0][1]
+        elif self.body == "auto":
+            rows = sum(c.numel() for c in self.consts)
         want = {"standard_normal": [], "correlated_gaussian": [(self.ndim, self.ndim)],
                 "eight_schools": [(2, 10)],
                 "logistic": [(rows, self.ndim), (rows,), (1,)],
-                "spiked_gaussian": [(self.ndim, rows), (rows,), (self.ndim,)]}[self.body]
+                "spiked_gaussian": [(self.ndim, rows), (rows,), (self.ndim,)],
+                "funnel": [(1,)],
+                "auto": [(c.numel(),) for c in self.consts]}[self.body]
         if (got != want or (self.body == "logistic" and rows < 1)
                 or (self.body == "spiked_gaussian" and not 1 <= rows <= LOWRANK_MAX_K)):
             raise ValueError(f"the {self.body} body takes constants of shapes {want}, got "
@@ -144,6 +162,8 @@ class TrajectorySpec:
         elif self.body == "spiked_gaussian":
             V, il, inv_s = self.consts
             packed = torch.cat([V.T.reshape(-1), il, inv_s]).contiguous()
+        elif self.body == "auto":
+            packed = torch.cat(self.consts).contiguous() if self.consts else None
         else:
             packed = self.consts[0] if self.consts else None
         object.__setattr__(self, "kernel_consts", packed)
@@ -164,6 +184,10 @@ def body_logp_grad(spec: TrajectorySpec, q: torch.Tensor):
         return logistic_logp_grad_plain(q, *spec.consts)
     if spec.body == "spiked_gaussian":
         return _spiked_logp_grad(*spec.consts, q)
+    if spec.body == "funnel":
+        return _funnel_logp_grad(spec.consts[0], q)
+    if spec.body == "auto":
+        return spec.auto.plain(q)
     return quadform_logp_grad_plain(q, spec.consts[0])
 
 
@@ -212,6 +236,21 @@ def _spiked_logp_grad(V: torch.Tensor, il: torch.Tensor, inv_s: torch.Tensor,
     y = x + thin_combine(Vt, thin_dots(x, Vt) * il)
     g = -y * inv_s
     return 0.5 * warp_sum(q * g), g
+
+
+def _funnel_logp_grad(inv_s2: torch.Tensor, q: torch.Tensor):
+    """The centred funnel's body in the kernels' order: ``sq`` a
+    :func:`warp_sum` over columns 1.. only, then ``logp`` and ``grad`` as
+    ``model_eval<5>`` of ``csrc/nuts_transition.cuh`` evaluates them."""
+    v = q[:, 0]
+    x = q[:, 1:]
+    sq = warp_sum(torch.cat([torch.zeros_like(q[:, :1]), x * x], 1))
+    e = torch.exp(-v)
+    nx = float(q.shape[1] - 1)
+    s = inv_s2[0]
+    logp = (-0.5 * s) * v * v - (0.5 * nx) * v - (0.5 * sq) * e
+    dv = (-s) * v - 0.5 * nx + (0.5 * sq) * e
+    return logp, torch.cat([dv[:, None], (-x) * e[:, None]], 1)
 
 
 def lowrank_fac_size(n: int) -> int:
@@ -666,10 +705,22 @@ def kernel_chain_block(C: int, chain_block: int, metric: str) -> int:
     return cb
 
 
-def _launch_kernel(q, p, grad, logp, eps, max_depth_c, var, seed, *, spec,
-                   max_treedepth, Emax, chain_block, integrator, metric, fac):
+def kernel_library(name: str, spec: TrajectorySpec, device, warps: int):
+    """The library whose kernel ``name`` a launch with ``spec``'s body
+    runs: the sources' build, or for a generated body its own build
+    (:func:`~littlemcmc_torch.ops.autospec.kernel_library`, which probes
+    the body first and binds its scratch for ``warps`` warps)."""
+    if spec.body == "auto":
+        from .autospec import kernel_library as generated_library
+
+        return generated_library(spec, name, device, warps)
     from ._build import load_library
 
+    return load_library(name)
+
+
+def _launch_kernel(q, p, grad, logp, eps, max_depth_c, var, seed, *, spec,
+                   max_treedepth, Emax, chain_block, integrator, metric, fac):
     C, n = q.shape
     cb = kernel_chain_block(C, chain_block, metric)
     if (spec.body in ("correlated_gaussian", "logistic") or metric == "dense") \
@@ -693,7 +744,7 @@ def _launch_kernel(q, p, grad, logp, eps, max_depth_c, var, seed, *, spec,
     stack = torch.empty((4, D, C, n), dtype=torch.float32, device=q.device)
     consts = spec.kernel_consts.data_ptr() if spec.kernel_consts is not None else 0
 
-    lib = load_library()
+    lib = kernel_library("nuts_trajectory", spec, q.device, C)
     with torch.cuda.device(q.device):
         stream = torch.cuda.current_stream(q.device).cuda_stream
         err = lib.nuts_trajectory_launch(

@@ -120,9 +120,11 @@ class _StepSpec:
     one from ``scaling`` with :func:`quad_potential`, a 1-D diagonal or a
     dense covariance with ``is_cov=True``), the model body the kernels
     inline (``trajectory_spec``: ``"auto"`` takes the model's
-    ``trajectory_spec()``; or pass a
-    :class:`~littlemcmc_torch.ops.TrajectorySpec`), and the end-of-run
-    warnings."""
+    ``trajectory_spec()``, else on the card a body generated from the
+    model, :func:`~littlemcmc_torch.ops.autospec.try_auto_spec`; or pass a
+    :class:`~littlemcmc_torch.ops.TrajectorySpec`, such as
+    :func:`~littlemcmc_torch.ops.autospec.make_trajectory_spec`'s), and the
+    end-of-run warnings."""
 
     generates_stats = True
 
@@ -332,12 +334,18 @@ def init_nuts(logp_dlogp_func=None, model_ndim: Optional[int] = None,
                        potential=potential, **kwargs)
 
 
-def _resolve_spec(step: _StepSpec, logp_grad, lowrank_per_chain: bool):
+def _resolve_spec(step: _StepSpec, logp_grad, lowrank_per_chain: bool, user_fn,
+                  is_logp_only: bool, model_ndim: int, dev: torch.device):
     """The model body the kernels inline: the step's spec, or for ``"auto"``
-    the model's ``trajectory_spec()``. ``"auto"`` resolves none for
-    per-chain low-rank adaptation, which no kernel runs, as in the JAX
-    package (``sampling.py:1077-1105``); unlike it, it resolves the spec
-    for a dense metric (the departure the module docstring gives)."""
+    the model's ``trajectory_spec()``, else on a CUDA device the body
+    generated from the user's callable ``user_fn``
+    (:func:`~littlemcmc_torch.ops.autospec.try_auto_spec`; None, with a log
+    line, where the model declines at trace time), as the JAX package
+    auto-lowers on a TPU only (``sampling.py:1103-1128``); on the CPU a
+    user model runs on the tree. ``"auto"`` resolves none for per-chain
+    low-rank adaptation, which no kernel runs, as in the JAX package
+    (``sampling.py:1077-1105``); unlike it, it resolves the spec for a
+    dense metric (the departure the module docstring gives)."""
     spec = step.trajectory_spec
     if spec != "auto":
         return spec
@@ -345,7 +353,35 @@ def _resolve_spec(step: _StepSpec, logp_grad, lowrank_per_chain: bool):
         return None
     owner = getattr(logp_grad, "__self__", None)
     spec_fn = getattr(owner, "trajectory_spec", None)
-    return spec_fn() if spec_fn is not None else None
+    if spec_fn is not None:
+        return spec_fn()
+    if dev.type != "cuda" or user_fn is None:
+        return None
+    from .ops.autospec import try_auto_spec
+
+    spec = try_auto_spec(user_fn, model_ndim, is_logp_only, dev)
+    if spec is not None:
+        _log.info("Auto-lowered the model into the CUDA trajectory kernels' body "
+                  "(pass trajectory_spec=None to disable).")
+    return spec
+
+
+def _capability_checks(dev: torch.device, fused_auto: bool, lowrank_kernel: bool) -> None:
+    """The JAX election's capability probes (``sampling.py:1088-1095,
+    1278-1290``) as self-checks on the card, which raise where a probe
+    disagrees (:mod:`~littlemcmc_torch.ops.fused_probe`): the fused
+    kernels' where ``fuse_draws=None`` elects the fused engine
+    (``fused_auto``), the low-rank branch's where a kernel runs the pooled
+    low-rank metric (``lowrank_kernel``). Nothing runs off the card, as the
+    JAX package probes only on a TPU."""
+    if dev.type != "cuda":
+        return
+    from .ops.fused_probe import fused_engine_check, lowrank_kernel_check
+
+    if fused_auto:
+        fused_engine_check(dev)
+    if lowrank_kernel:
+        lowrank_kernel_check(dev)
 
 
 def _per_draw_factory(kernel, generator: torch.Generator, seeds, pooled: bool):
@@ -459,9 +495,12 @@ def sample(
       chain or pooled) where the JAX kernels would pack lanes (a packable
       model, ``StandardNormal`` or ``EightSchools``, at n <= 60 and a chain
       count that is a multiple of 16 or more; ``elect_fused_engine``);
-      else per-draw. ``False`` forces the per-draw engine; ``True``
-      requires the fused one and raises ``ValueError`` where it does not
-      run. A failed build or launch raises; nothing falls back. NUTS on the
+      else per-draw. On the card a fused election by ``None`` first runs
+      the fused kernels' capability probes, and a kernel with the pooled
+      low-rank metric the low-rank one (``ops/fused_probe.py``). ``False``
+      forces the per-draw engine; ``True`` requires the fused one and
+      raises ``ValueError`` where it does not run. A failed build, launch
+      or probe raises; nothing falls back. NUTS on the
       per-draw engine launches its trajectory kernel for a model with a
       spec and a metric the kernel takes (diagonal, static dense, pooled
       dense, pooled low-rank), else runs
@@ -516,7 +555,11 @@ def sample(
                     or isinstance(step.potential, QuadPotentialFullAdapt))
         cross_chain_adapt = poolable and chains >= _POOLED_PROMOTE_CHAINS
     pooled = bool(cross_chain_adapt)
-    spec = _resolve_spec(step, logp_grad, lowrank and not pooled)
+    user_fn = (logp_dlogp_func if logp_dlogp_func is not None
+               else step.logp_dlogp_func if step.logp_dlogp_func is not None else logp_fn)
+    spec = _resolve_spec(step, logp_grad, lowrank and not pooled, user_fn,
+                         logp_dlogp_func is None and step.logp_dlogp_func is None,
+                         model_ndim, dev)
 
     seed = _as_seed(random_seed)
     # one generator on the device for starts and momenta, one on the host
@@ -561,7 +604,9 @@ def sample(
         raise ValueError(
             "fuse_draws=True but the fused kernels do not run this configuration: "
             "they need a model with a trajectory_spec() (StandardNormal, "
-            "CorrelatedGaussian, SpikedGaussian, EightSchools, LogisticRegression), a "
+            "CorrelatedGaussian, SpikedGaussian, EightSchools, LogisticRegression, "
+            "NealsFunnel, NonCenteredFunnel, HierarchicalRegression, or on the card a "
+            "body generated from the model), a "
             "chain count that blocks into chain blocks of at least 8, and a diagonal "
             "metric (a static diagonal one not pooled across chains), a static "
             "QuadPotentialFull or a pooled adaptive dense or low-rank metric.")
@@ -572,6 +617,9 @@ def sample(
     metric_tag = "dense" if dense else "diag" if diag else "lowrank"
     engine = (("fused_" if fused else "per_draw_") + metric_tag
               + ("_pooled" if pooled else ""))
+    _capability_checks(dev, fused and fuse_draws is None,
+                       metric_tag == "lowrank" and kernel_metric and spec is not None
+                       and (fused or not hmc))
 
     batched_fn = getattr(step, "batched_logp_dlogp_func", None) or batched(logp_grad)
     state = init_chain_state(starts, potential, config, batched_fn)

@@ -425,10 +425,12 @@ def test_logistic_kernel_raises_rather_than_falling_back(hopper, monkeypatch):
 
 @pytest.mark.cuda
 def test_tree_on_the_card_stays_on_the_card(hopper):
-    """NUTS on the tensor-op tree with CUDA tensors: a plain closure and
-    per-chain adapt_full with the quadform kernel (128 chains, 100 + 100):
-    the trace is finite, the engine the tree's, the quadform kernel ran at
-    every leaf, and no trajectory kernel launched."""
+    """NUTS on the tensor-op tree with CUDA tensors: a plain closure kept
+    off the kernels (``trajectory_spec=None``; by default the card lowers
+    it into a generated body) and per-chain adapt_full with the quadform
+    kernel (128 chains, 100 + 100): the trace is finite, the engine the
+    tree's, the quadform kernel ran at every leaf, and no trajectory
+    kernel launched."""
     from littlemcmc_torch.ops import quadform
 
     def closure(q):
@@ -436,7 +438,8 @@ def test_tree_on_the_card_stays_on_the_card(hopper):
 
     report = {}
     trace, _ = sample(closure, model_ndim=3, chains=128, tune=100, draws=100, random_seed=2,
-                      perf_report=report, progressbar=False)
+                      step=NUTS(model_ndim=3, trajectory_spec=None), perf_report=report,
+                      progressbar=False)
     assert report["trajectory"] == "tensor" and np.isfinite(trace).all()
     assert abs(trace.reshape(-1, 3).var(0).mean() - 1) < 0.1
     model = tm.CorrelatedGaussian(10, use_kernel=True)
@@ -521,3 +524,187 @@ def test_lowrank_sample_on_the_card(hopper, step, fuse, engine, launches):
     assert np.isfinite(trace).all() and stats["diverging"].mean() < 0.01
     ratio = trace.reshape(-1, 20).var(0) / model.true_var
     assert abs(ratio.mean() - 1) < 0.1, ratio
+
+
+# --------------------------------------------------------------------------
+# Neal's funnel (body 5) and the generated bodies
+# --------------------------------------------------------------------------
+
+@pytest.mark.cuda
+def test_funnel_body_in_the_per_draw_kernels_matches_plain(hopper):
+    """The per-draw NUTS and HMC kernels with the funnel body (5) against
+    their plain versions, 512 chains, a quarter starting in the neck: the
+    smoke's phase 2o; energies of divergent and far-off trajectories held
+    ``scaled``."""
+    from chip_smoke import _compare, _posterior_inputs
+
+    f = tm.NealsFunnel(10)
+    launches = trajectory.launches
+    _compare("funnel", f, _posterior_inputs(f, 512, 0.2, seed=4), (5, -6), need=0.99)
+    assert trajectory.launches == launches + 1
+    res, failures, _, _ = hmc_check(f, _hmc_inputs(f, None, 512, 0.15, 5), (7, 8), 0.99,
+                                    scaled=True)
+    assert not failures, res
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("step", ["nuts", "hmc"])
+@pytest.mark.parametrize("tuning", [False, True], ids=["draw_chunk", "tune_chunk"])
+def test_fused_funnel_kernel_matches_plain(hopper, step, tuning):
+    """The fused kernels' kDiag instance with the funnel body against the
+    plain version at 256 chains: a 2-draw draw chunk, a 4-draw tune chunk
+    with the Welford steps and dual averaging on (the smoke's phase 2p)."""
+    res, failures, _, _, _, _ = fused_check(tm.NealsFunnel(10), 256, 4 if tuning else 2,
+                                            tuning, True, seed=9, words=(23, -5), step=step,
+                                            metric="diag")
+    assert not failures, res
+
+
+@pytest.mark.cuda
+def test_funnel_sample_on_the_card(hopper):
+    """The centred funnel at 1024 chains, 250 + 250, target_accept 0.9, on
+    ``fused_diag`` (two launches of the fused kernel): finite, v's sd at
+    least 2 (the JAX study's arms 2.50-2.58 at 3000 draws)."""
+    model = tm.NealsFunnel(10)
+    report = {}
+    trace, stats = sample(model.logp_grad, model_ndim=10, chains=1024, tune=250, draws=250,
+                          random_seed=3, step=NUTS(model_ndim=10, target_accept=0.9),
+                          perf_report=report, progressbar=False)
+    assert report["engine"] == "fused_diag" and report["trajectory"] == "cuda"
+    assert report["kernel_launches"] == {"nuts_trajectory": 0, "fused_nuts": 2}
+    assert np.isfinite(trace).all() and trace[..., 0].std() > 2.0
+
+
+def _auto_specs(dev):
+    from littlemcmc_torch.models.probe_matrix import autospec_matrix
+    from littlemcmc_torch.ops.autospec import make_trajectory_spec
+
+    specs = [make_trajectory_spec(ndim=3, logp_fn=f, device=dev, name=name)
+             for name, f in autospec_matrix(dev).items()]
+    return specs + [tm.HierarchicalRegression().trajectory_spec()]
+
+
+@pytest.mark.cuda
+def test_probe_matrix_on_the_card(hopper):
+    """The JAX probe matrix's nine models and ``HierarchicalRegression``
+    through ``probe_specs``: one build of the probe kernel, every
+    generated body within the probe's rtol 5e-3 / atol 1e-3 of its plain
+    version (the smoke's phase 2q)."""
+    from littlemcmc_torch.ops.autospec import probe_spec, probe_specs
+
+    specs = _auto_specs(hopper)
+    launches = probe_spec.launches
+    report = probe_specs(specs)
+    assert probe_spec.launches == launches + len(specs) and len(report) == 10
+    assert all(s.auto.probed for s in specs)
+
+
+@pytest.mark.cuda
+def test_generated_body_in_the_kernels_matches_plain(hopper):
+    """``HierarchicalRegression``'s generated body in the per-draw NUTS
+    kernel (256 chains), the HMC kernel and the fused NUTS kernel (a
+    2-draw draw chunk) against their plain versions (the smoke's phase
+    2r); the body is probed before its first launch."""
+    from chip_smoke import _compare, _posterior_inputs
+    from littlemcmc_torch.ops.autospec import probe_spec
+
+    model = tm.HierarchicalRegression()
+    launches = probe_spec.launches
+    _compare("hierarchical", model, _posterior_inputs(model, 256, 0.3, seed=6), (9, 10),
+             need=0.99)
+    assert probe_spec.launches == launches + 1 and model.trajectory_spec().auto.probed
+    res, failures, _, _ = hmc_check(model, _hmc_inputs(model, None, 256, 0.3, 7), (11, 12),
+                                    0.99, scaled=True)
+    assert not failures, res
+    res, failures, _, _, _, _ = fused_check(model, 256, 2, False, True, seed=8, words=(3, 4),
+                                            step="nuts", metric="diag")
+    assert not failures, res
+
+
+@pytest.mark.cuda
+def test_corrupted_generated_body_raises(hopper):
+    """A generated body that computes another function (one ``log1pf``
+    made ``logf`` by hand) fails its probe: ``probe_spec`` raises with the
+    model's name, and so does the first kernel launch with it; nothing
+    falls back."""
+    from littlemcmc_torch.models.probe_matrix import autospec_matrix
+    from littlemcmc_torch.ops.autospec import make_trajectory_spec, probe_spec
+
+    def bad():
+        spec = make_trajectory_spec(ndim=3, logp_fn=autospec_matrix(hopper)["student_t"],
+                                    device=hopper, name="student_t_corrupted")
+        assert "log1pf(" in spec.auto.body
+        spec.auto.body = spec.auto.body.replace("log1pf(", "logf(", 1)
+        return spec
+
+    with pytest.raises(RuntimeError, match="student_t_corrupted"):
+        probe_spec(bad())
+    spec = bad()
+    q = torch.zeros(8, 3, device=hopper)
+    c = torch.zeros(8, device=hopper)
+    with pytest.raises(RuntimeError, match="disagrees"):
+        trajectory(q, q, q, c, c + 0.1, torch.full((8,), 3, dtype=torch.int32, device=hopper),
+                   q + 1.0, 1, spec=spec, max_treedepth=3, Emax=1000.0)
+    assert not spec.auto.probed
+
+
+@pytest.mark.cuda
+def test_user_model_auto_lowers_on_the_card(hopper, caplog):
+    """``sample(logp_fn=f)`` for a torch model in the op set, on the card:
+    the default spec is the generated one, so ``per_draw_diag`` runs on the
+    trajectory kernel (``trajectory == "cuda"``, one launch a draw) and the
+    log says so; a model that declines runs the tree."""
+    import logging
+
+    from littlemcmc_torch.models.probe_matrix import autospec_matrix
+
+    f = autospec_matrix(hopper)["logistic"]
+    report = {}
+    with caplog.at_level(logging.INFO, logger="littlemcmc_torch"):
+        trace, stats = sample(logp_fn=f, model_ndim=3, chains=256, tune=200, draws=200,
+                              random_seed=2, perf_report=report, progressbar=False)
+    assert any("Auto-lowered" in r.message for r in caplog.records)
+    assert report["engine"] == "per_draw_diag" and report["trajectory"] == "cuda"
+    assert report["kernel_launches"] == {"nuts_trajectory": 400, "fused_nuts": 0}
+    assert np.isfinite(trace).all() and 0.6 < stats["mean_tree_accept"][:, -100:].mean() < 0.95
+    report = {}
+    sample(logp_fn=lambda q: -torch.sum(torch.cumsum(q, 0) ** 2), model_ndim=3, chains=64,
+           tune=20, draws=20, random_seed=2, perf_report=report, progressbar=False,
+           compute_convergence_checks=False)
+    assert report["trajectory"] == "tensor"
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("name", ["cos", "grid_scratch", "smem_accumulate", "thin_factor",
+                                  "stat_io_layout", "block_outputs_3d"])
+def test_fused_probe_on_the_card(hopper, name):
+    """Each fused-kernel capability probe (``csrc/fused_probe.cu``) on the
+    card within the JAX probe's tolerance of its plain version, one
+    launch counted."""
+    from littlemcmc_torch.ops.fused_probe import check_probe, probe_kernel
+
+    launches = probe_kernel.launches[name]
+    assert check_probe(name, hopper) <= 1e-3
+    assert probe_kernel.launches[name] == launches + 1
+
+
+@pytest.mark.cuda
+def test_corrupted_fused_probe_raises(hopper, monkeypatch):
+    """A probe whose result disagrees raises, in ``check_probe`` and in the
+    fused election of ``sample()``; nothing falls back to the per-draw
+    engine."""
+    from littlemcmc_torch.ops import fused_probe
+
+    real = fused_probe.probe_plain
+
+    def off(name, inputs, device="cpu"):
+        out = real(name, inputs, device)
+        return {k: v + 0.01 if name == "grid_scratch" else v for k, v in out.items()}
+
+    monkeypatch.setattr(fused_probe, "probe_plain", off)
+    with pytest.raises(RuntimeError, match="grid_scratch disagrees"):
+        fused_probe.check_probe("grid_scratch", hopper)
+    model = tm.NealsFunnel(10)
+    with pytest.raises(RuntimeError, match="grid_scratch disagrees"):
+        sample(model.logp_grad, model_ndim=10, chains=64, tune=10, draws=10, random_seed=1,
+               progressbar=False)
