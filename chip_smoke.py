@@ -60,7 +60,8 @@ Phases, each printing its own lines:
    ``quadform_logp_grad`` (1024 chains, n = 100; rtol 2e-4 / atol 1e-4):
    ``tests/test_ops.py``'s tolerances; each timed beside its plain version
    and the library yardstick (PyTorch's own calls for the same function,
-   TF32 off);
+   TF32 off), with its launch geometry and the wrapper's host work a call
+   (CUDA events around back-to-back calls less the device time);
    2k. the per-draw NUTS kernel with the logistic body (3) against its
    plain version, 1024 chains from the reference posterior: at least 99%
    of chains agree, q within 1e-4 posterior sd, energies (sums over 1000
@@ -1348,13 +1349,22 @@ def _compare_model_kernel(kind: str, C: int, n: int, rows: int = 0, seed: int = 
     """Phase 2j: :func:`model_kernel_check` at the main paths' widths,
     printed with the kernel's, plain version's and library's device time
     per call (:func:`_device_total_ms`, 200 calls each; the kernel's also
-    on CUDA events, which count the wrapper's host work too) and the
-    bound; raises on a failure. Returns the kernel's row of the kernels
-    line, but ``launches``."""
+    on CUDA events, which count the wrapper's host work too), the plan
+    the wrapper launched with and the bound; raises on a failure. Returns
+    the kernel's row of the kernels line, but ``launches``."""
+    from littlemcmc_torch.ops.logistic import logistic_logp_grad
+    from littlemcmc_torch.ops.quadform import quadform_logp_grad
+
     res, failures, (kernel, plain, library) = model_kernel_check(kind, C, n, rows, seed)
     for name, fn in (("kernel", kernel), ("plain", plain), ("library", library)):
         res[f"{name}_ms"], res[f"{name}_ms_source"] = _device_total_ms(fn, 200)
     res["kernel_events_ms"] = _cuda_time_ms(kernel, reps=200, warmup=10)
+    # the wrapper's host work a call, where back-to-back calls wait for it;
+    # only against the profiler's device time (events hold the host work)
+    res["kernel_host_ms"] = (res["kernel_events_ms"] - res["kernel_ms"]
+                             if res["kernel_ms_source"] == "profiler" else None)
+    op = logistic_logp_grad if kind == "logistic" else quadform_logp_grad
+    res["plan"] = op.last_plan._asdict()
     bound = _logistic_bound_ms(C, n, rows) if kind == "logistic" else _quadform_bound_ms(C, n)
     res["bound_ms"], res["bound_by"] = bound
     print(json.dumps(res), flush=True)
@@ -1366,9 +1376,10 @@ def _compare_model_kernel(kind: str, C: int, n: int, rows: int = 0, seed: int = 
             "source": f"littlemcmc_torch/ops/csrc/{src}", "replaces": f"littlemcmc_tpu/{tpu}",
             "max_abs_err": max(res["kernel_logp_max_abs"], res["kernel_grad_max_abs"]),
             "ms": res["kernel_ms"], "ms_source": res["kernel_ms_source"],
-            "events_ms": res["kernel_events_ms"], "plain_ms": res["plain_ms"],
-            "bound_ms": bound[0], "bound_by": bound[1], "library_ms": res["library_ms"],
-            "chains": C, "ndim": n, "rows": rows}
+            "events_ms": res["kernel_events_ms"], "host_ms": res["kernel_host_ms"],
+            "plain_ms": res["plain_ms"], "bound_ms": bound[0], "bound_by": bound[1],
+            "library_ms": res["library_ms"], "chains": C, "ndim": n, "rows": rows,
+            "plan": res["plan"]}
 
 
 def _check_gates(label, gates) -> None:

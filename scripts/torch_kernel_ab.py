@@ -14,11 +14,12 @@ kernel at phase 2d's input (the same positions, step counts from a fixed
 seed; device time under ``torch.profiler``). Where the checkout has
 them, also the batched model kernels at phase 2j's widths (1024 chains;
 the logistic regression's 1000 x 25 design, the 100-d precision): CUDA
-events around back-to-back calls (which hold the wrapper's host work too)
-and the kernel's device time under ``torch.profiler``. The inputs are made
-with numpy from fixed seeds, so two checkouts see the same work. To
-compare two checkouts, run them in turns (A, B, B, A) in one command on
-one card.
+events around back-to-back calls (which hold the wrapper's host work too),
+the kernel's device time under ``torch.profiler``, and the host time of
+a tree leaf's pattern (the call, a reduction, a host read). The inputs
+are made with numpy from fixed seeds, so two checkouts see the same
+work. To compare two checkouts, run them in turns (A, B, B, A) in one
+command on one card.
 """
 
 from __future__ import annotations
@@ -41,6 +42,21 @@ def _ms(fn, reps: int, warmup: int) -> float:
     end.record()
     end.synchronize()
     return start.elapsed_time(end) / reps
+
+
+def _leaf_ms(fn, reps: int, warmup: int) -> float:
+    """Host milliseconds an iteration of a tree leaf's pattern takes: the
+    call, a PyTorch reduction of its outputs and a host read of it (so
+    the kernel's device time sits on the host's path)."""
+    import time
+
+    for _ in range(warmup):
+        float(sum(x.sum() for x in fn()))
+    t0 = time.perf_counter()
+    for _ in range(reps):
+        logp, grad = fn()
+        float(logp.sum() + grad.sum())
+    return (time.perf_counter() - t0) * 1e3 / reps
 
 
 def _device_ms(fn, name: str, reps: int):
@@ -139,6 +155,7 @@ def main() -> int:
                          ("quadform_logp_grad", lambda: quadform_logp_grad(q, model.prec_f32))):
             model_ms[f"{name}_ms"] = _ms(fn, reps=200, warmup=10)
             model_ms[f"{name}_device_ms"] = _device_ms(fn, f"{name}_kernel", 200)
+            model_ms[f"{name}_leaf_ms"] = _leaf_ms(fn, reps=300, warmup=20)
 
     smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
                          capture_output=True, text=True, timeout=60).stdout.strip()

@@ -352,9 +352,25 @@ def test_kernels_refuse_an_unknown_body(hopper, monkeypatch, kernel):
     ("logistic", 5, 10, 300),
     ("logistic", 1024, 25, 1000),
     ("logistic", 37, 40, 129),
+    # chains not a multiple of the chain tile; rows and n odd, so y starts
+    # off a 16-byte boundary and the last row tile is ragged
+    ("logistic", 1023, 25, 1000),
+    ("logistic", 129, 25, 1001),
+    ("logistic", 64, 26, 333),  # n even: the pad column
+    ("logistic", 40, 256, 1000),  # n = 256: 64-row tiles cycling through 3 stages
+    ("logistic", 77, 150, 700),  # 128-row tiles
+    ("logistic", 33, 25, 5000),  # 20 row tiles of 256 cycling through 4 stages
     ("quadform", 5, 7, 0),
     ("quadform", 1024, 100, 0),
     ("quadform", 19, 33, 0),
+    ("quadform", 1023, 100, 0),
+    ("quadform", 129, 64, 0),
+    ("quadform", 70, 256, 0),  # n = 256: 8 tiles of the precision through 6 stages
+    # 3, 5, 6 and 7 column slots a lane
+    ("quadform", 33, 80, 0),
+    ("quadform", 24, 150, 0),
+    ("quadform", 17, 190, 0),
+    ("quadform", 9, 200, 0),
 ])
 def test_model_kernels_match_plain(hopper, kind, chains, n, rows):
     """Rows 6 (logistic) and 5 (quadform) against their plain versions at
@@ -365,6 +381,57 @@ def test_model_kernels_match_plain(hopper, kind, chains, n, rows):
 
     res, failures, _ = model_kernel_check(kind, chains, n, rows, seed=chains)
     assert not failures, res
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("kind", ["logistic", "quadform"])
+def test_model_kernels_repeat_to_the_bit(hopper, kind):
+    """Two launches on the same inputs give the same bits: every sum of
+    rows 5 and 6 runs in a fixed order (no atomics)."""
+    from chip_smoke import model_kernel_check
+
+    _, failures, (kernel, _, _) = model_kernel_check(kind, 1023, 25 if kind == "logistic"
+                                                     else 100, 1001, seed=4)
+    assert not failures
+    first, second = kernel(), kernel()
+    for a, b in zip(first, second):
+        assert torch.equal(a, b)
+
+
+def _unaligned(x):
+    """``x``'s values in a view that starts 4 bytes past a 16-byte
+    boundary."""
+    flat = torch.empty(x.numel() + 1, dtype=x.dtype, device=x.device)[1:]
+    flat.copy_(x.reshape(-1))
+    return flat.view(x.shape)
+
+
+@pytest.mark.cuda
+def test_model_kernels_take_unaligned_inputs(hopper):
+    """q and the constants off 16-byte alignment: the quadform kernel
+    loads such a q plainly, and both wrappers copy misaligned constants
+    before the TMA reads them; results as the plain versions', with
+    ``tests/test_ops.py``'s tolerances."""
+    from littlemcmc_torch.ops.logistic import (logistic_logp_grad, logistic_logp_grad_plain,
+                                               pack_logistic)
+    from littlemcmc_torch.ops.quadform import quadform_logp_grad, quadform_logp_grad_plain
+
+    rng = np.random.default_rng(8)
+    gm = tm.CorrelatedGaussian(37)
+    q = _unaligned(torch.from_numpy(rng.standard_normal((45, 37)).astype(np.float32))
+                   .to(hopper))
+    assert q.data_ptr() % 16 != 0
+    for got, want in zip(quadform_logp_grad(q, _unaligned(gm.prec_f32)),
+                         quadform_logp_grad_plain(q, gm.prec_f32)):
+        torch.testing.assert_close(got, want, rtol=2e-4, atol=1e-4)
+    lg = tm.LogisticRegression(*tm.german_credit_synthetic(301, 8))
+    q = _unaligned(torch.from_numpy(0.3 * rng.standard_normal((45, 9)).astype(np.float32))
+                   .to(hopper))
+    packed = _unaligned(pack_logistic(lg.Xb, lg.y, lg.prior_prec))
+    got = logistic_logp_grad(q, lg.Xb, lg.y, lg.prior_prec, packed=packed)
+    want = logistic_logp_grad_plain(q, lg.Xb, lg.y, lg.prior_prec)
+    torch.testing.assert_close(got[0], want[0], rtol=3e-4, atol=1e-2)
+    torch.testing.assert_close(got[1], want[1], rtol=3e-4, atol=1e-3)
 
 
 @pytest.mark.cuda
