@@ -47,11 +47,10 @@ Phases, each printing its own lines:
    and ``_held_stat_errors`` say for ``scaled``;
    2h-2i. the fused NUTS and HMC kernels' diag branch against their plain
    versions, bodies 1 (100-d correlated Gaussian) and 2 (eight schools),
-   1024 chains, trees to the path's depth of 10: a draw chunk of 2 draws
-   (1 for body 1), and a tune chunk of 4 (2 for body 1) with the per-chain
-   Welford steps (a window swap at draw 2, or 1) and dual averaging on, its
-   metric and Welford state within 1e-4 of their scales of a float64
-   replay of the kernel's trace;
+   1024 chains, trees to the path's depth of 10: a draw chunk of 1 draw,
+   and a tune chunk of 2 with the per-chain Welford steps (a window swap
+   at draw 1) and dual averaging on, its metric and Welford state within
+   1e-4 of their scales of a float64 replay of the kernel's trace;
    2j. the batched model kernels against their plain versions at the
    paths' widths, from inputs made with numpy from fixed seeds: row 6,
    ``logistic_logp_grad`` (1024 chains, the 1000 x 25 design of
@@ -72,11 +71,11 @@ Phases, each printing its own lines:
    them;
    2m. the trajectory kernel's low-rank branch against its plain version:
    the spiked Gaussian's body (4) at 1024 chains and the correlated body
-   (1) at 256, the metric near each model's covariance
+   (1, on no cell) at 64, the metric near each model's covariance
    (``_lowrank_metric``); body 4 at kDiag (256 chains) and in the HMC
    kernel (256 chains); the numbers held as in phase 2;
    2n. the fused NUTS and HMC kernels' low-rank branch with body 4 against
-   their plain versions at 256 chains: a 2-draw draw chunk, and a 4-draw
+   their plain versions at 256 chains: a 2-draw draw chunk, and a 2-draw
    tune chunk with the per-chain Welford steps across a window swap and
    dual averaging on, its variances and Welford state against a float64
    replay, as 2h-2i hold the diag branch;
@@ -129,7 +128,7 @@ Phases, each printing its own lines:
    3k. the main path with ``fuse_draws=True``: the fused NUTS kernel's diag
    branch with the correlated body (6 launches), the main path's gates;
    3l. path (A): ``sample(LogisticRegression(use_kernel=True).logp_grad,
-   model_ndim=25, chains=1024, tune=200, draws=200, random_seed=42,
+   model_ndim=25, chains=1024, tune=200, draws=150, random_seed=42,
    step=NUTS(model_ndim=25, batched_logp_dlogp_func=m.batched_logp_grad,
    trajectory_spec=None))``: the tensor-op tree (``per_draw_diag``,
    trajectory ``tensor``), the logistic kernel launched at every leaf
@@ -141,7 +140,7 @@ Phases, each printing its own lines:
    the two paths' posterior means within 0.1 reference sd of each other;
    3n. T2: ``sample(CorrelatedGaussian(100, use_kernel=True).logp_grad,
    init="jitter+adapt_full", cross_chain_adapt=False, chains=256,
-   tune=250, draws=100)``: the tree with a per-chain dense metric
+   tune=250, draws=50)``: the tree with a per-chain dense metric
    (``per_draw_dense``), the quadform kernel at every leaf, the main
    path's gates;
    3o-3r. the low-rank cells: ``sample(SpikedGaussian(100).logp_grad,
@@ -200,14 +199,14 @@ Phases, each printing its own lines:
    of L2 spend their time;
    4h. the funnel body's kernels at F1's final state (the fused kDiag
    instance per 250-draw chunk, the per-draw kernel per launch), the
-   generated body in ``nuts_trajectory`` per launch at H1's final state,
+   generated body in ``nuts_trajectory`` per launch at H1's final state
+   (with where its scratch rows were placed: ``scratch_in_smem``),
    the tensor-op tree on the same model (ms a draw over 20 draws from that
    state, the number the generated body exists to beat) beside 50 draws
    on the generated body, and the probe kernel alone; then one JSON line
    of kernel rows, the six fused probes last (for the fused kernels
    ``ms``, ``plain_ms`` and ``bound_ms`` are one launch on 2c's, 2e's, 2h's, 2i's
-   or 2p's draw-chunk input: 4 draws, in 2h-2i 1 for body 1 and 2 for
-   body 2, in 2p 2; ``chunk_*`` the 250-draw launch; for the
+   or 2p's draw-chunk input: 4 draws, in 2h-2i 1, in 2p 2; ``chunk_*`` the 250-draw launch; for the
    eight-schools per-draw rows ``main_*`` one launch at 10,240 chains).
 
 The last line is ``{"ok": true, "device": {...}}``. Any failure raises
@@ -234,16 +233,17 @@ N, CHAINS, TUNE, DRAWS, DEPTH, CHAIN_BLOCK = 100, 1024, 500, 1000, 10, 8
 ES_CHAINS, ES_TUNE, ES_DRAWS, ES_TARGET = 10240, 500, 500, 0.95
 # logistic regression, BASELINE config 4 (scripts/bench_suite.py:250-252):
 # 25 parameters, 1000 data rows, at the main path's chains and draws; on
-# the tensor-op tree (path A) cut to 200 + 200: the tree takes 1.2-1.9 ms
+# the tensor-op tree (path A) cut to 200 + 150: the tree takes 1.2-1.9 ms
 # a leaf, with the host's speed; 500 + 500 took 138-205 s, 300 + 200
-# 67-160 s, and the low-rank phases need the room (at 200 + 100 its R-hat
-# gate failed: 1.012)
+# 67-160 s, 200 + 200 80-100 s, and the script's 1200 s need the room.
+# Its R-hat gate needs the draws: 1.0058 at 200, 1.012 (failed) at 100
 LG_N, LG_ROWS, LG_TUNE, LG_DRAWS = 25, 1000, 500, 1000
-LG_TREE_TUNE, LG_TREE_DRAWS = 200, 200
+LG_TREE_TUNE, LG_TREE_DRAWS = 200, 150
 # the tree with a per-chain dense metric and the quadform kernel (T2),
-# cut to 250 + 100 for the script's time (500 + 250 took 190-300 s,
-# 300 + 150 96-198 s)
-T2_CHAINS, T2_TUNE, T2_DRAWS = 256, 250, 100
+# cut to 250 + 50 for the script's time (500 + 250 took 190-300 s,
+# 300 + 150 96-198 s, 250 + 100 117-160 s); its gates hold no R-hat, and
+# 256 x 50 draws keep its bulk ESS far above 1000
+T2_CHAINS, T2_TUNE, T2_DRAWS = 256, 250, 50
 # the logistic posterior's reference moments, from a long run of the JAX
 # package on a CPU (tests/test_torch_logistic.py writes them)
 REFERENCE = ROOT / "tests" / "logistic_reference_moments.json"
@@ -370,11 +370,35 @@ def _hier_reference() -> dict:
     return json.loads(HIER_REFERENCE.read_text())
 
 
+def _logistic_moments(model):
+    """The logistic posterior's means and sds: the reference's for
+    BASELINE config 4's 1000 x 25 design, else a Laplace approximation
+    (float64 on the host: the mode by Newton's method, the sds from the
+    inverse Hessian there)."""
+    import numpy as np
+
+    if tuple(model.Xb.shape) == (LG_ROWS, LG_N):
+        ref = _reference()
+        return np.array(ref["mean"]), np.array(ref["sd"])
+    X = model.Xb.double().cpu().numpy()
+    y = model.y.double().cpu().numpy()
+    prec = float(model.prior_prec[0])
+    beta = np.zeros(X.shape[1])
+    for _ in range(50):
+        s = 1.0 / (1.0 + np.exp(-X @ beta))
+        hess = (X * (s * (1.0 - s))[:, None]).T @ X + prec * np.eye(len(beta))
+        step = np.linalg.solve(hess, X.T @ (y - s) - prec * beta)
+        beta += step
+        if np.abs(step).max() < 1e-10:
+            break
+    return beta, np.sqrt(np.diag(np.linalg.inv(hess)))
+
+
 def _posterior_sd(model):
     """The posterior sd of each parameter: exact for the Gaussians; for
     eight schools the exact sds of mu and log_tau and 1 for theta_tilde,
-    the scale its prior gives them; for the logistic regression the
-    reference's."""
+    the scale its prior gives them; for the logistic regression
+    :func:`_logistic_moments`'."""
     import numpy as np
 
     if hasattr(model, "true_var"):
@@ -382,7 +406,7 @@ def _posterior_sd(model):
     if hasattr(model, "n_groups"):
         return np.array(_hier_reference()["sd"])
     if not hasattr(model, "exact_moments"):
-        return np.array(_reference()["sd"])
+        return _logistic_moments(model)[1]
     m = model.exact_moments()
     return np.array([m["mu"][1], m["log_tau"][1]] + [1.0] * 8)
 
@@ -390,7 +414,7 @@ def _posterior_sd(model):
 def _positions(model, rng, C):
     """Positions spread like the posterior, float32 ``(C, n)``: the
     Gaussians' exactly; eight schools' by :func:`_es_positions`; the
-    logistic regression's from its reference means and sds."""
+    logistic regression's from :func:`_logistic_moments`."""
     import numpy as np
 
     if hasattr(model, "scales"):
@@ -405,9 +429,8 @@ def _positions(model, rng, C):
     if model.trajectory_spec().body == "funnel":
         return _funnel_positions(rng, C, model.ndim, model.scale)
     if model.trajectory_spec().body == "logistic":
-        ref = _reference()
-        return (np.array(ref["mean"]) + np.array(ref["sd"])
-                * rng.standard_normal((C, model.ndim))).astype(np.float32)
+        mean, sd = _logistic_moments(model)
+        return (mean + sd * rng.standard_normal((C, model.ndim))).astype(np.float32)
     return _es_positions(rng, C)
 
 
@@ -2350,7 +2373,7 @@ def _funnel_auto_timing(chk, cells, gen, t_start) -> list:
     draws from that state), where a post-tune H1 draw spends its time, and
     the probe kernel alone; then the kernels line's rows of this slice."""
     import torch
-    from littlemcmc_torch.ops.autospec import _probe_inputs, run_probe
+    from littlemcmc_torch.ops.autospec import _probe_inputs, run_probe, scratch_in_smem
     from littlemcmc_torch.ops.hmc_trajectory import hmc_trajectory
     from littlemcmc_torch.ops.nuts_trajectory import trajectory
 
@@ -2373,6 +2396,7 @@ def _funnel_auto_timing(chk, cells, gen, t_start) -> list:
     h_events = _cuda_time_ms(lambda: trajectory(*targs, (3, 8), **kw), reps=20, warmup=3)
     h_ms, h_src = _device_ms(lambda: trajectory(*targs, (3, 8), **kw), "nuts_trajectory", 20,
                              h_events)
+    in_smem = scratch_in_smem(spec, "nuts_trajectory")
     tree = _tree_draw_ms(hr, s, gen, draws=20)
     kern = _breakdown(hr, s, gen, draws=50, label="_hierarchical_generated")
     q = _probe_inputs(n, torch.device(DEVICE))
@@ -2386,6 +2410,8 @@ def _funnel_auto_timing(chk, cells, gen, t_start) -> list:
             "leaves_per_chain": float(pout["n_leaves"].float().mean()),
             "program_ops": len(prog.instrs), "program_flops": prog.flops,
             "const_floats": spec.rows, "scratch_floats": prog.scratch_floats,
+            "scratch_in_smem": in_smem,
+            "program_loops": sum(st.shape is not None and not st.rows for st in prog.steps),
             "tree_ms_per_draw": tree["ms_per_draw"],
             "generated_ms_per_draw": kern["ms_per_draw"],
             "tree_over_generated": tree["ms_per_draw"] / kern["ms_per_draw"],
@@ -2446,7 +2472,7 @@ def _funnel_auto_timing(chk, cells, gen, t_start) -> list:
          "launches": cells["h1_launches"]["trajectory"], "max_abs_err": a_err,
          "ms": h_ms, "ms_source": h_src, "events_ms": h_events, "plain_ms": a_plain,
          "bound_ms": h_bound[0], "bound_by": h_bound[1], "library_ms": None,
-         "tree_ms_per_draw": tree["ms_per_draw"]},
+         "tree_ms_per_draw": tree["ms_per_draw"], "scratch_in_smem": in_smem},
         # the probe kernel alone: 8 chains at the probe's inputs
         {"name": "autospec_probe", "body": "auto (HierarchicalRegression)", "route": "cuda",
          "source": "littlemcmc_torch/ops/csrc/autospec_probe.cu",
@@ -2580,14 +2606,14 @@ def main() -> int:
     es_hargs = _hmc_inputs(es, None, CHAINS, 0.25, 12)
     es_hmc_err, es_hmc_plain_ms = _compare_hmc(es, es_hargs, (97, 101), need=0.99, scaled=True)
     # 2h-2i. the fused kernels' diag branch, bodies 1 and 2, 1024 chains: a
-    # draw chunk, and a tune chunk with the Welford steps and dual averaging
-    # on; the tune chunk 4 draws, 2 for the 100-d body (its trees, at the
-    # path's depth of 10, run about 70 leaves a chain-draw, and the plain
-    # version steps each block to its deepest chain's tree), the draw chunk
-    # half that, to keep the script in its time beside the tree's paths
+    # 1-draw draw chunk, and a 2-draw tune chunk with the Welford steps (a
+    # window swap at draw 1) and dual averaging on; the plain version steps
+    # each block to its deepest chain's tree (about 70 leaves a chain-draw
+    # for the 100-d body at the path's depth of 10), so the chunks are
+    # short, to keep the script in its time
     diag_cmp = {}
     for step in ("nuts", "hmc"):
-        for mname, model, T in (("correlated_gaussian", cg, 2), ("eight_schools", es, 4)):
+        for mname, model, T in (("correlated_gaussian", cg, 2), ("eight_schools", es, 2)):
             draw = _compare_fused(T // 2, False, True, 13, (103, -7), step, model, "diag")
             tune = _compare_fused(T, True, True, 14, (107, 11), step, model, "diag")
             diag_cmp[step, mname] = (draw, max(draw[2], tune[2]), T // 2)
@@ -2606,13 +2632,13 @@ def main() -> int:
     lg_hmc_err, lg_hmc_plain_ms = _compare_hmc(lg, lg_hargs, (131, 137), need=0.99,
                                                scaled=True)
     # 2m. the trajectory kernel's low-rank branch (body 4 at 1024 chains,
-    # body 1 at 256), the spiked body (4) in the kDiag trajectory kernel and
-    # in the HMC kernel (256 chains)
+    # body 1, on no cell, at 64), the spiked body (4) in the kDiag
+    # trajectory kernel and in the HMC kernel (256 chains)
     sg = SpikedGaussian(N)
     lr_args = _lowrank_inputs(sg, CHAINS, 0.5, seed=23)
     lr_err, lr_plain_ms = _compare("spiked_gaussian", sg, lr_args[0], (139, -149), need=0.99,
                                    metric="lowrank", fac=lr_args[1])
-    cg_args, cg_fac = _lowrank_inputs(cg, 256, 0.5, seed=24)
+    cg_args, cg_fac = _lowrank_inputs(cg, 64, 0.5, seed=24)
     _compare("correlated_gaussian", cg, cg_args, (151, 157), need=0.99, metric="lowrank",
              fac=cg_fac)
     sg_args = _posterior_inputs(sg, 256, 0.1, seed=25)
@@ -2620,12 +2646,12 @@ def main() -> int:
     sg_hargs = _hmc_inputs(sg, None, 256, 0.1, 26)
     sg_hmc_err, sg_hmc_plain_ms = _compare_hmc(sg, sg_hargs, (173, 179), need=0.99)
     # 2n. the fused kernels' low-rank branch with body 4, 256 chains: a
-    # 2-draw draw chunk, and a 4-draw tune chunk with the per-chain Welford
-    # steps across a window swap and dual averaging on
+    # 2-draw draw chunk, and a 2-draw tune chunk with the per-chain Welford
+    # steps across a window swap (at draw 1) and dual averaging on
     lr_fused = {}
     for step in ("nuts", "hmc"):
         draw = _compare_fused(2, False, True, 27, (181, 7), step, sg, "lowrank", chains=256)
-        tune = _compare_fused(4, True, True, 28, (191, 11), step, sg, "lowrank", chains=256)
+        tune = _compare_fused(2, True, True, 28, (191, 11), step, sg, "lowrank", chains=256)
         lr_fused[step] = (draw, max(draw[2], tune[2]))
     # 2o-2r. the funnel body (5) in the four kernels, the probe matrix, the
     # generated body in the per-draw NUTS kernel

@@ -193,11 +193,13 @@ _SIGNATURES = {
     },
     "autospec_probe": {
         "autospec_probe_launch": (_I, [_P, _P, _P, _P]),
+        "autospec_scratch_in_smem": (_I, []),
         "cuda_error_string": (ctypes.c_char_p, [_I]),
     },
 }
 # what a generated body's library exports besides its kernel's functions
-_GENERATED_SIGNATURES = {"autospec_bind_scratch": (_I, [_P, _P])}
+_GENERATED_SIGNATURES = {"autospec_bind_scratch": (_I, [_P, _P]),
+                         "autospec_scratch_in_smem": (_I, [])}
 
 
 def _declare(lib: ctypes.CDLL, signatures) -> ctypes.CDLL:

@@ -30,22 +30,31 @@ module turns it into one that the four transition kernels inline
    ``accumulate=True``, the reductions over an axis) one segment sum
    through a constant CSR map, its terms added in the index order, as
    PyTorch's CPU kernels add them. Ops on constants alone are evaluated
-   here. Values of one element live in registers, the rest in a per-chain
-   scratch whose slots are reused by liveness.
-3. **Emit.** The program becomes one CUDA device function,
+   here. Values of one element live in registers.
+3. **Fuse.** Consecutive ops that compute their output element by element
+   over one shape (elementwise ops, gathers, segment sums, ``mv``/``mm``),
+   with the full reductions of values of that shape, become one loop
+   (:class:`Step`); each element's values are registers of the loop. A
+   value takes a slot of the per-chain scratch only where it is read at
+   another element (a gather's source, a matmul's operands, a segment
+   sum's terms, a broadcast) or after its loop; slots are reused by
+   liveness, a loop counting as one op.
+4. **Emit.** The program becomes one CUDA device function,
    ``autobody::eval(q, g, lam, n, lane, scratch)``, with ``model_eval``'s
    contract: one warp a chain, ``q`` and ``g`` in shared memory, ``logp``
-   returned; each op a ``for (i = lane; i < len; i += 32)`` loop and a
-   ``__syncwarp()``, each full reduction a warp sum. The constants are
-   the body's packed buffer (index maps as int32 bits), which the kernels
-   stage in shared memory where the launch has room; the scratch is a
-   global ``(warps, scratch_floats)`` buffer bound to the library.
-4. **Build.** ``ops/_build.py::build_generated`` writes the header and a
+   returned; each loop a ``for (i = lane; i < len; i += 32)`` loop and a
+   ``__syncwarp()``, each full reduction a lane's sum in the loop and a
+   warp sum after it. The constants are the body's packed buffer (index
+   maps as int32 bits), which the kernels stage in shared memory where the
+   launch has room; the scratch rows ``(warps, scratch_floats)`` follow
+   them there where they fit, else they are a global buffer bound to the
+   library (:func:`scratch_in_smem` reads the last launch's placement).
+5. **Build.** ``ops/_build.py::build_generated`` writes the header and a
    translation unit that includes the kernel's ``.cu`` with the generated
    body switched on, and compiles it with the kernels' flags into
    ``build/littlemcmc_torch/autospec/<hash>/``, at the first launch of the
    kernel the elected engine runs. A failed ``nvcc`` or launch raises.
-5. **Probe.** :func:`probe_spec` builds ``csrc/autospec_probe.cu`` with the
+6. **Probe.** :func:`probe_spec` builds ``csrc/autospec_probe.cu`` with the
    generated bodies, evaluates each alone on 8 chains at three input
    scales (0.1, 1 and 5, as the JAX probe) and holds it against the plain
    version at the JAX probe's tolerance (rtol 5e-3, atol 1e-3). Every
@@ -60,8 +69,9 @@ hide it. Only a trace-time decline leads to the tree.
 The plain version of a generated body is the traced graph itself, mapped
 over chains with ``torch.func.vmap`` (:meth:`Program.plain`), so the
 kernels' plain versions run generated specs unchanged on the CPU.
-:func:`interpret` runs the lowered program in numpy, slots and maps
-included, which holds the lowering on a machine without ``nvcc``.
+:func:`interpret` runs the fused program in numpy, loop by loop, its
+registers, slots and maps included, which holds the lowering on a machine
+without ``nvcc``.
 """
 
 from __future__ import annotations
@@ -81,9 +91,9 @@ from ..device import resolve_device
 from ..model import from_logp_fn
 from .nuts_trajectory import TrajectorySpec
 
-__all__ = ["Decline", "Program", "make_trajectory_spec", "probe_spec", "probe_specs",
+__all__ = ["Decline", "Program", "Step", "make_trajectory_spec", "probe_spec", "probe_specs",
            "run_probe", "try_auto_spec", "interpret", "header_source", "probe_header",
-           "MAX_NDIM"]
+           "scratch_in_smem", "MAX_NDIM"]
 
 _log = logging.getLogger("littlemcmc_torch")
 
@@ -108,9 +118,11 @@ class Decline(Exception):
 @dataclasses.dataclass
 class Value:
     """One value of the program: its shape, where it lives (``q``, a
-    constant at ``off`` in the packed buffer, a register, a literal, or a
-    scratch buffer ``buf`` whose offset the allocator sets) and its type
-    (``f`` float32, ``b`` a flag held as 0/1, ``i`` an int32 index)."""
+    constant at ``off`` in the packed buffer, a register, a literal, a
+    scratch buffer ``buf`` whose offset the allocator sets, or ``local``:
+    a buffer read only element by element inside the loop that computes
+    it, which lives in that loop's registers) and its type (``f`` float32,
+    ``b`` a flag held as 0/1, ``i`` an int32 index)."""
 
     shape: Tuple[int, ...]
     kind: str
@@ -245,6 +257,27 @@ _ATEN_EW = {
 
 # ops whose output is a selection of one input's elements (zeros
 # elsewhere), and the inputs that must be constant indices
+# a matrix-vector product with at most this many outputs, each a sum of
+# at least 32 terms, splits each sum across the warp's lanes (a "rows"
+# step) instead of giving each output to one lane
+THIN_MV_OUTPUTS = 8
+
+
+@dataclasses.dataclass
+class Step:
+    """One step of the emitted body: one op with a one-element output
+    (``shape`` None), one thin matrix-vector product whose sums the lanes
+    split (``rows``), or one loop over the elements of ``shape`` running
+    ``instrs`` in order, each element's values in registers; its
+    reductions add per lane in the loop and across the warp after it.
+    ``g_store``: the loop writes the gradient's elements into ``g``."""
+
+    shape: Optional[Tuple[int, ...]]
+    instrs: List[Instr]
+    g_store: bool = False
+    rows: bool = False
+
+
 _MOVES = {"view", "_unsafe_view", "reshape", "alias", "detach", "clone", "lift_fresh_copy",
           "unsqueeze", "squeeze", "expand", "t", "transpose", "permute", "select", "slice",
           "narrow", "index_select", "index", "select_backward", "slice_backward", "flip",
@@ -255,10 +288,10 @@ _CREATORS = {"ones_like", "zeros_like", "full_like", "new_zeros", "new_ones", "n
 
 @dataclasses.dataclass(eq=False)
 class Program:
-    """A lowered model: its values and ops, the packed constants and the
-    scratch it needs, the emitted body and its hash, the operations of
-    one evaluation (for the bound) and the traced graph (the plain
-    version)."""
+    """A lowered model: its values and ops, the steps (loops) the ops are
+    fused into, the packed constants and the scratch it needs, the emitted
+    body and its hash, the operations of one evaluation (for the bound)
+    and the traced graph (the plain version)."""
 
     name: str
     ndim: int
@@ -271,6 +304,7 @@ class Program:
     scratch_floats: int
     flops: int
     graph: torch.fx.GraphModule
+    steps: List[Step] = dataclasses.field(default_factory=list)
     body: str = ""
     digest: str = ""
     probed: bool = False
@@ -725,35 +759,124 @@ def _pack_consts(values, instrs, device):
     return parts, total
 
 
-def _allocate(values, instrs, outs) -> int:
-    """Scratch offsets: each buffer takes a slot from its op to its last
-    reader; a slot is reused once free, never for the op's own inputs.
-    Returns the scratch floats of one chain."""
+def _reads(values, ins) -> List[Tuple[int, bool]]:
+    """Every value ``ins`` reads, with whether it reads it at the op's own
+    element: an elementwise input (or a segment sum's base) of the
+    output's shape, or a reduction's input."""
+    if ins.op == "reduce":
+        return [(ins.ins[0], True)]
+    shape = values[ins.out].shape
+    if ins.op == "ew":
+        return [(v, values[v].shape == shape) for v in ins.ins]
+    if ins.op == "segment":
+        base, vals = ins.ins
+        return [(base, values[base].shape == shape), (vals, False)]
+    return [(v, False) for v in ins.ins]  # gather sources, matmul operands
+
+
+def _loop_shape(values, ins) -> Optional[Tuple[int, ...]]:
+    """The elements a loop runs ``ins`` over, or None for a one-element op."""
+    v = values[ins.ins[0] if ins.op == "reduce" else ins.out]
+    return v.shape if v.numel > 1 else None
+
+
+def _thin_mv(values, ins) -> bool:
+    """A matrix-vector product of a few outputs over long sums."""
+    return (ins.op == "mv" and 1 < values[ins.out].numel <= THIN_MV_OUTPUTS
+            and values[ins.ins[0]].shape[-1] >= 32)
+
+
+def _fuse(values, instrs, grad: int) -> List[Step]:
+    """The program's steps. An element-wise op (or a full reduction) joins
+    the open loop where it runs over the same shape and reads nothing that
+    loop computes at another element nor its reductions' totals; else the
+    loop closes and a new one opens. A one-element op that reads nothing
+    of the open loop runs before it, else after it. Then each buffer a
+    loop computes and only that loop reads, element by element, becomes
+    ``local``; the gradient is written from its loop where it can be."""
+    steps: List[Step] = []
+    loop: Optional[Step] = None
+    made: set = set()  # the open loop's buffers and its reductions' outputs
+
+    for ins in instrs:
+        reads = _reads(values, ins)
+        shape = _loop_shape(values, ins)
+        thin = _thin_mv(values, ins)
+        if shape is None or thin:
+            if any(values[v].buf in made for v, _ in reads):
+                steps.append(loop)
+                loop, made = None, set()
+            steps.append(Step(values[ins.out].shape if thin else None, [ins], rows=thin))
+            continue
+        if loop is not None and (loop.shape != shape or any(
+                values[v].buf in made and not here for v, here in reads)):
+            steps.append(loop)
+            loop, made = None, set()
+        if loop is None:
+            loop = Step(shape, [])
+        loop.instrs.append(ins)
+        made.add(values[ins.out].buf)
+    if loop is not None:
+        steps.append(loop)
+
+    home = {}  # buffer -> the loop that computes it
+    for k, st in enumerate(steps):
+        if st.shape is not None and not st.rows:
+            for ins in st.instrs:
+                if ins.op != "reduce":
+                    home[values[ins.out].buf] = k
+    kept = set()  # buffers read at another element or outside their loop
+    for k, st in enumerate(steps):
+        for ins in st.instrs:
+            for v, here in _reads(values, ins):
+                b = values[v].buf
+                if b in home and not (home[b] == k and here):
+                    kept.add(b)
+    gb = values[grad].buf
+    if values[grad].kind == "slot" and gb in home:
+        st = steps[home[gb]]
+        if st.shape == values[grad].shape:
+            st.g_store = True
+        else:
+            kept.add(gb)
+    for v in values:
+        if v.kind == "slot" and v.buf in home and v.buf not in kept:
+            v.kind = "local"
+    return steps
+
+
+def _allocate(values, steps, outs) -> int:
+    """Scratch offsets: each buffer that keeps a slot takes one from its
+    step to its last reader; a slot is reused once free, never within the
+    step that reads it (a loop counts as one step: its inputs stay live to
+    its end). Returns the scratch floats of one chain."""
     last = {}
-    for k, ins in enumerate(instrs):
-        for v in ins.ins + ins.maps:
-            if values[v].kind == "slot":
-                last[values[v].buf] = k
+    for k, st in enumerate(steps):
+        for ins in st.instrs:
+            for v in ins.ins + ins.maps:
+                if values[v].kind == "slot":
+                    last[values[v].buf] = k
     for v in outs:
         if values[v].kind == "slot":
-            last[values[v].buf] = len(instrs)
+            last[values[v].buf] = len(steps)
     sizes, slot_of, free = [], {}, []
-    for k, ins in enumerate(instrs):
-        ov = values[ins.out]
-        if ov.kind == "slot" and ov.buf not in slot_of:
-            fits = [s for s in free if sizes[s] >= ov.numel]
-            if fits:
-                s = min(fits, key=lambda x: sizes[x])
-            elif free:
-                s = max(free, key=lambda x: sizes[x])
-                sizes[s] = ov.numel
-            else:
-                s = len(sizes)
-                sizes.append(ov.numel)
-            if s in free:
-                free.remove(s)
-            slot_of[ov.buf] = s
-            last.setdefault(ov.buf, k)
+    for k, st in enumerate(steps):
+        for ins in st.instrs:
+            ov = values[ins.out]
+            if ov.kind == "slot" and ov.buf not in slot_of:
+                fits = [s for s in free if sizes[s] >= ov.numel]
+                if fits:
+                    s = min(fits, key=lambda x: sizes[x])
+                elif free:
+                    s = max(free, key=lambda x: sizes[x])
+                    sizes[s] = ov.numel
+                else:
+                    s = len(sizes)
+                    sizes.append(ov.numel)
+                if s in free:
+                    free.remove(s)
+                slot_of[ov.buf] = s
+                last.setdefault(ov.buf, k)
         for b, at in last.items():
             if at == k and b in slot_of and slot_of[b] not in free:
                 free.append(slot_of[b])
@@ -821,17 +944,26 @@ def _flit(x: float) -> str:
     return f"({x:.9e}f)"
 
 
+_REDUCE = {"sum": ("0.0f", "{a} + {b}", "warp_sum"),
+           "max": ("(-CUDART_INF_F)", "fmaxf({a}, {b})", "ax_warp_max")}
+
+
 class _Emitter:
     def __init__(self, prog: Program):
         self.p = prog
         self.lines: List[str] = []
+        self.step: Optional[Step] = None  # the step being emitted
+        self.temps: set = set()  # the buffers the open loop holds in registers
+        self.totals: List[str] = []  # the open loop's warp sums, after it
 
     def v(self, vid) -> Value:
         return self.p.values[vid]
 
     def rd(self, vid, e: str) -> str:
-        """Element ``e`` of a value, as a float."""
+        """Element ``e`` of a value from where it is stored, as a float."""
         v = self.v(vid)
+        if v.kind == "local" or v.buf in self.temps:
+            raise AssertionError(f"value {vid} read at another element of its loop")
         if v.kind == "reg":
             return f"r{v.buf}"
         if v.kind == "lit":
@@ -843,6 +975,13 @@ class _Emitter:
         if v.dtype == "i":
             return f"(float)__float_as_int(lam[{v.off} + ({e})])"
         return f"lam[{v.off} + ({e})]"
+
+    def el(self, vid, oshape) -> str:
+        """``vid`` at the loop's element ``i`` (broadcast to ``oshape``):
+        its register where the loop computed it, else where it is stored."""
+        if self.v(vid).buf in self.temps:
+            return f"t{self.v(vid).buf}"
+        return self.rd(vid, self.bidx(vid, oshape))
 
     def idx(self, vid, e: str) -> str:
         """Element ``e`` of an index map."""
@@ -863,125 +1002,194 @@ class _Emitter:
         terms = [f"{names[d]} * {strides[d]}" for d in range(ro) if padded[d] != 1]
         return " + ".join(terms) or "0"
 
-    def loop(self, ins, body: List[str]):
-        out = self.v(ins.out)
-        shape = out.shape
-        head = [f"for (int i = lane; i < {out.numel}; i += 32) {{"]
-        if len(shape) == 2:
-            head.append(f"    const int i0 = i / {shape[1]}, i1 = i - i0 * {shape[1]};")
-            head.append("    (void)i0; (void)i1;")
-        self.lines += ["{"] + ["    " + h for h in head] + ["        " + b for b in body] \
-            + ["    }", "}", "__syncwarp();"]
+    def operands(self, ins, reg: bool):
+        """Element readers ``(a(t), b(t), K)`` of a matmul's operands for
+        the output element ``i`` (``i0``, ``i1``), or for a one-element
+        output."""
+        a, b = ins.ins
+        av, bv = self.v(a), self.v(b)
+        K = av.shape[-1] if av.shape else 1
+        if ins.op == "dot" or (reg and ins.op == "mv"):
+            return (lambda t: self.rd(a, t)), (lambda t: self.rd(b, t)), K
+        if ins.op == "mv":
+            return (lambda t: self.rd(a, f"i * {K} + {t}")), (lambda t: self.rd(b, t)), K
+        P = bv.shape[1]
+        if reg:
+            return (lambda t: self.rd(a, t)), (lambda t: self.rd(b, f"{t} * {P}")), K
+        return ((lambda t: self.rd(a, f"i0 * {K} + {t}")),
+                (lambda t: self.rd(b, f"{t} * {P} + i1")), K)
 
-    def store(self, ins, expr: str) -> str:
-        return f"s[{self.v(ins.out).off} + i] = {expr};"
-
-    def emit(self, ins):
+    def emit(self, ins) -> List[str]:
+        """The statements of one op of ``self.step``: a one-element op, a
+        thin matrix-vector product, or within a loop the op's element
+        ``i`` (into its register ``t<buf>``; a reduction adds it to the
+        lane's sum)."""
+        if self.step.rows:
+            return self.rows(ins)
+        if self.step.shape is None:
+            return self.scalar(ins)
+        shape = self.step.shape
         out = self.v(ins.out)
-        reg = out.kind == "reg"
-        name = f"r{out.buf}"
+        t = f"t{out.buf}"
+        if ins.op == "reduce":
+            init, comb, red = _REDUCE[ins.fn]
+            acc = f"a{out.buf}"
+            self.lines.append(f"float {acc} = {init};")
+            self.totals.append(f"const float r{out.buf} = {red}({acc});")
+            return [f"{acc} = {comb.format(a=acc, b=self.el(ins.ins[0], shape))};"]
         if ins.op == "ew":
-            nargs, tmpl, _ = _EW[ins.fn]
+            _, tmpl, _ = _EW[ins.fn]
             params = {f"p{k}": _flit(x) for k, x in enumerate(ins.params)}
-            if reg:
-                expr = tmpl.format(*[self.rd(x, "0") for x in ins.ins], **params)
-                self.lines.append(f"const float {name} = {expr};")
-            else:
-                expr = tmpl.format(*[self.rd(x, self.bidx(x, out.shape)) for x in ins.ins],
-                                   **params)
-                self.loop(ins, [self.store(ins, expr)])
+            expr = tmpl.format(*[self.el(x, shape) for x in ins.ins], **params)
+            return [f"const float {t} = {expr};"]
+        if ins.op == "gather":
+            lines = [f"float {t} = 0.0f;"]
+            for src, mp in zip(ins.ins, ins.maps):
+                lines.append(f"{{ const int m = {self.idx(mp, 'i')}; "
+                             f"if (m >= 0) {t} = {self.rd(src, 'm')}; }}")
+            return lines
+        if ins.op == "segment":
+            base, vals = ins.ins
+            starts, members = ins.maps
+            comb = _REDUCE[ins.fn][1].format(a=t, b=self.rd(vals, self.idx(members, "k")))
+            return [f"float {t} = {self.el(base, shape)};",
+                    f"for (int k = {self.idx(starts, 'i')}, k1 = {self.idx(starts, 'i + 1')}; "
+                    f"k < k1; ++k) {t} = {comb};"]
+        if ins.op in ("mv", "mm"):
+            ra, rb, K = self.operands(ins, reg=False)
+            return [f"float {t} = 0.0f;",
+                    f"for (int j = 0; j < {K}; ++j) {t} = fmaf({ra('j')}, {rb('j')}, {t});"]
+        raise AssertionError(ins.op)
+
+    def loop(self, st: Step):
+        """One fused loop: each element's values in registers, the kept
+        ones stored to their slots, reductions added per lane and summed
+        across the warp after the loop."""
+        shape = st.shape
+        body = []
+        if len(shape) == 2:
+            body += [f"const int i0 = i / {shape[1]}, i1 = i - i0 * {shape[1]};",
+                     "(void)i0; (void)i1;"]
+        for ins in st.instrs:
+            out = self.v(ins.out)
+            body += self.emit(ins)
+            if ins.op == "reduce":
+                continue
+            self.temps.add(out.buf)
+            if out.kind == "slot":
+                body.append(f"s[{out.off} + i] = t{out.buf};")
+            if st.g_store and out.buf == self.v(self.p.grad).buf:
+                body.append(f"g[i] = t{out.buf};")
+        self.lines += ([f"for (int i = lane; i < {math.prod(shape)}; i += 32) {{"]
+                       + ["    " + b for b in body] + ["}"] + self.totals + ["__syncwarp();"])
+        self.temps.clear()
+        self.totals = []
+
+    def rows(self, ins):
+        """A thin matrix-vector product: every lane adds its share of each
+        output's sum (terms lane, lane + 32, ...), the warp sums them, and
+        lane o stores output o."""
+        a, b = ins.ins
+        out = self.v(ins.out)
+        M, K = out.numel, self.v(a).shape[-1]
+        c = f"c{out.buf}"
+        return [f"float {c}[{M}];",
+                "#pragma unroll",
+                f"for (int o = 0; o < {M}; ++o) {c}[o] = 0.0f;",
+                f"for (int j = lane; j < {K}; j += 32) {{",
+                f"    const float x = {self.rd(b, 'j')};",
+                "#pragma unroll",
+                f"    for (int o = 0; o < {M}; ++o) "
+                f"{c}[o] = fmaf({self.rd(a, f'o * {K} + j')}, x, {c}[o]);",
+                "}",
+                "#pragma unroll",
+                f"for (int o = 0; o < {M}; ++o) {{",
+                f"    const float total = warp_sum({c}[o]);",
+                f"    if (lane == o) s[{out.off} + o] = total;",
+                "}",
+                "__syncwarp();"]
+
+    def scalar(self, ins):
+        """An op with a one-element output, into its register ``r<buf>``."""
+        name = f"r{self.v(ins.out).buf}"
+        lines: List[str] = []
+        if ins.op == "ew":
+            _, tmpl, _ = _EW[ins.fn]
+            params = {f"p{k}": _flit(x) for k, x in enumerate(ins.params)}
+            expr = tmpl.format(*[self.rd(x, "0") for x in ins.ins], **params)
+            lines.append(f"const float {name} = {expr};")
         elif ins.op == "reduce":
             x = ins.ins[0]
-            n = self.v(x).numel
-            init, comb, red = (("0.0f", "{a} + {b}", "warp_sum") if ins.fn == "sum"
-                               else ("(-CUDART_INF_F)", "fmaxf({a}, {b})", "ax_warp_max"))
-            acc = f"a{out.buf}"
-            self.lines += [f"float {acc} = {init};",
-                           f"for (int i = lane; i < {n}; i += 32) "
-                           f"{acc} = {comb.format(a=acc, b=self.rd(x, 'i'))};",
-                           f"const float {name} = {red}({acc});"]
+            init, comb, red = _REDUCE[ins.fn]
+            acc = f"a{self.v(ins.out).buf}"
+            lines += [f"float {acc} = {init};",
+                      f"for (int i = lane; i < {self.v(x).numel}; i += 32) "
+                      f"{acc} = {comb.format(a=acc, b=self.rd(x, 'i'))};",
+                      f"const float {name} = {red}({acc});"]
         elif ins.op == "segment":
             base, vals = ins.ins
             starts, members = ins.maps
-            comb = "{a} + {b}" if ins.fn == "sum" else "fmaxf({a}, {b})"
-            body = [f"float acc = {self.rd(base, self.bidx(base, out.shape))};",
-                    f"const int k1 = {self.idx(starts, 'i + 1')};",
-                    f"for (int k = {self.idx(starts, 'i')}; k < k1; ++k) "
-                    f"acc = {comb.format(a='acc', b=self.rd(vals, self.idx(members, 'k')))};"]
-            if reg:
-                self.lines += [f"float {name};", "{", "    const int i = 0;"] \
-                    + ["    " + b for b in body] + [f"    {name} = acc;", "}"]
-            else:
-                self.loop(ins, body + [self.store(ins, "acc")])
+            comb = _REDUCE[ins.fn][1].format(a=name, b=self.rd(vals, self.idx(members, "k")))
+            lines += [f"float {name} = {self.rd(base, '0')};",
+                      f"for (int k = {self.idx(starts, '0')}, k1 = {self.idx(starts, '1')}; "
+                      f"k < k1; ++k) {name} = {comb};"]
         elif ins.op == "gather":
-            body = ["float val = 0.0f;", "int m;"]
+            lines.append(f"float {name} = 0.0f;")
             for src, mp in zip(ins.ins, ins.maps):
-                body += [f"m = {self.idx(mp, 'i')};",
-                         f"if (m >= 0) val = {self.rd(src, 'm')};"]
-            if reg:
-                self.lines += [f"float {name};", "{", "    const int i = 0;"] \
-                    + ["    " + b for b in body] + [f"    {name} = val;", "}"]
-            else:
-                self.loop(ins, body + [self.store(ins, "val")])
+                lines.append(f"{{ const int m = {self.idx(mp, '0')}; "
+                             f"if (m >= 0) {name} = {self.rd(src, 'm')}; }}")
         elif ins.op in ("mv", "mm", "dot"):
-            a, b = ins.ins
-            av, bv = self.v(a), self.v(b)
-            K = av.shape[-1] if av.shape else 1
-            if ins.op == "dot":
-                ra, rb = (lambda t: self.rd(a, t)), (lambda t: self.rd(b, t))
-            elif ins.op == "mv":
-                ra, rb = (lambda t: self.rd(a, f"i * {K} + {t}")), (lambda t: self.rd(b, t))
-            else:
-                P = bv.shape[1]
-                ra = lambda t: self.rd(a, f"i0 * {K} + {t}")  # noqa: E731
-                rb = lambda t: self.rd(b, f"{t} * {P} + i1")  # noqa: E731
-            if reg:
-                if ins.op == "mm":
-                    ra = lambda t: self.rd(a, t)  # noqa: E731
-                    rb = lambda t: self.rd(b, f"{t} * {bv.shape[1]}")  # noqa: E731
-                elif ins.op == "mv":
-                    ra = lambda t: self.rd(a, t)  # noqa: E731
-                acc = f"a{out.buf}"
-                self.lines += [f"float {acc} = 0.0f;",
-                               f"for (int t = lane; t < {K}; t += 32) "
-                               f"{acc} = fmaf({ra('t')}, {rb('t')}, {acc});",
-                               f"const float {name} = warp_sum({acc});"]
-            else:
-                self.loop(ins, ["float acc = 0.0f;",
-                                f"for (int t = 0; t < {K}; ++t) "
-                                f"acc = fmaf({ra('t')}, {rb('t')}, acc);",
-                                self.store(ins, "acc")])
+            ra, rb, K = self.operands(ins, reg=True)
+            acc = f"a{self.v(ins.out).buf}"
+            lines += [f"float {acc} = 0.0f;",
+                      f"for (int t = lane; t < {K}; t += 32) "
+                      f"{acc} = fmaf({ra('t')}, {rb('t')}, {acc});",
+                      f"const float {name} = warp_sum({acc});"]
         else:
             raise AssertionError(ins.op)
+        return lines
 
     def body(self) -> str:
         p = self.p
-        for ins in p.instrs:
-            self.emit(ins)
-        g = self.v(p.grad)
-        self.lines += [f"for (int i = lane; i < {p.ndim}; i += 32) g[i] = "
-                       f"{self.rd(p.grad, 'i' if g.numel > 1 else '0')};",
-                       "__syncwarp();", f"return {self.rd(p.logp, '0')};"]
+        for st in p.steps:
+            self.step = st
+            if st.shape is None or st.rows:
+                self.lines += self.emit(st.instrs[0])
+            else:
+                self.loop(st)
+        if not any(st.g_store for st in p.steps):
+            g = self.v(p.grad)
+            self.lines += [f"for (int i = lane; i < {p.ndim}; i += 32) g[i] = "
+                           f"{self.rd(p.grad, 'i' if g.numel > 1 else '0')};",
+                           "__syncwarp();"]
+        self.lines.append(f"return {self.rd(p.logp, '0')};")
         inner = "\n".join("    " + ln for ln in self.lines)
+        loops = sum(st.shape is not None and not st.rows for st in p.steps)
         return (f"constexpr int kScratchFloats = {p.scratch_floats};\n"
-                f"// {p.name}: {len(p.instrs)} ops, {p.const_floats} constant floats\n"
-                "__device__ __noinline__ float eval(const float* q, float* g, const float* lam,\n"
-                "                                   int n, int lane, float* s) {\n"
+                f"// {p.name}: {len(p.instrs)} ops in {loops} loops, {p.const_floats} "
+                "constant floats\n"
+                "__device__ __noinline__ float eval(const float* __restrict__ q,\n"
+                "                                   float* __restrict__ g,\n"
+                "                                   const float* __restrict__ lam, int n,\n"
+                "                                   int lane, float* __restrict__ s) {\n"
                 "    (void)n; (void)lam; (void)s;\n"
                 f"{inner}\n}}\n")
 
 
 def header_source(prog: Program) -> str:
     """The header the trajectory kernels' generated build includes:
-    ``lmc::autobody`` with the body, its scratch size and the scratch
-    pointer, and ``autospec_bind_scratch`` to set it."""
+    ``lmc::autobody`` with the body, its scratch size and the global
+    scratch pointer, ``autospec_bind_scratch`` to set it and
+    ``autospec_scratch_in_smem``, where the last launch put the scratch
+    rows (1 shared memory, 0 the global scratch)."""
     return (f"// Generated by littlemcmc_torch/ops/autospec.py: the body of {prog.name}\n"
             + _HELPERS + "namespace lmc {\nnamespace autobody {\n" + prog.body
             + "__device__ float* scratch;  // (warps, kScratchFloats)\n"
             "}  // namespace autobody\n}  // namespace lmc\n"
             'extern "C" int autospec_bind_scratch(float* p, void* stream) {\n'
             "    (void)stream;\n"
-            "    return (int)cudaMemcpyToSymbol(lmc::autobody::scratch, &p, sizeof(p));\n}\n")
+            "    return (int)cudaMemcpyToSymbol(lmc::autobody::scratch, &p, sizeof(p));\n}\n"
+            'extern "C" int autospec_scratch_in_smem(void) { return lmc::last_scratch_in_smem; }\n')
 
 
 def probe_header(progs: Sequence[Program]) -> str:
@@ -1006,19 +1214,26 @@ def probe_header(progs: Sequence[Program]) -> str:
 # --------------------------------------------------------------------------
 
 def interpret(prog: Program, q: np.ndarray):
-    """``(logp, grad)`` of the lowered program at one chain's ``q`` in
-    numpy float32, through the scratch slots and index maps the kernel
-    uses (a slot overwritten while its value is live, or a wrong map,
-    shows here)."""
+    """``(logp, grad)`` of the fused program at one chain's ``q`` in numpy
+    float32, step by step as the kernel runs it: a loop's values in its
+    registers (dropped at its end), the kept ones through the scratch
+    slots, index maps and segment sums. A slot overwritten while its value
+    is live, a register read outside its loop or a wrong map shows here."""
     consts = (torch.cat(prog.const_parts).cpu().numpy() if prog.const_parts
               else np.zeros(0, np.float32))
     scratch = np.full(prog.scratch_floats, np.nan, np.float32)
     regs: Dict[int, np.float32] = {}
+    temps: Dict[int, np.ndarray] = {}  # the open loop's registers, by buffer
     q = np.asarray(q, np.float32)
+    g_out = None
 
     def read(vid, as_int=False):
         v = prog.values[vid]
-        if v.kind == "q":
+        if v.buf in temps and v.kind in ("slot", "local"):
+            a = temps[v.buf]
+        elif v.kind == "local":
+            raise AssertionError(f"value {vid} read outside its loop")
+        elif v.kind == "q":
             a = q
         elif v.kind == "const":
             a = consts[v.off:v.off + v.numel]
@@ -1032,45 +1247,54 @@ def interpret(prog: Program, q: np.ndarray):
         a = a.reshape(v.shape)
         return a if as_int else a.astype(np.float32)
 
-    def write(vid, a):
+    def write(vid, a, in_loop):
         v = prog.values[vid]
         a = np.asarray(a, np.float32)
         if v.kind == "reg":
             regs[v.buf] = np.float32(a.reshape(-1)[0])
-        else:
-            scratch[v.off:v.off + v.numel] = np.broadcast_to(a, v.shape).reshape(-1)
+            return
+        a = np.broadcast_to(a, v.shape).reshape(-1).copy()
+        if in_loop:
+            temps[v.buf] = a
+        if v.kind == "slot":
+            scratch[v.off:v.off + v.numel] = a
 
     with np.errstate(all="ignore"):
-        for ins in prog.instrs:
-            out = prog.values[ins.out]
-            if ins.op == "ew":
-                fn = _EW[ins.fn][2]
-                write(ins.out, np.broadcast_to(fn(*[read(x) for x in ins.ins], *ins.params),
-                                               out.shape))
-            elif ins.op == "reduce":
-                x = read(ins.ins[0]).reshape(-1)
-                write(ins.out, x.sum(dtype=np.float32) if ins.fn == "sum" else x.max())
-            elif ins.op == "segment":
-                base = np.broadcast_to(read(ins.ins[0]), out.shape).reshape(-1).copy()
-                vals = read(ins.ins[1]).reshape(-1)
-                starts = read(ins.maps[0], True).reshape(-1)
-                members = read(ins.maps[1], True).reshape(-1)
-                for o in range(out.numel):
-                    for k in range(starts[o], starts[o + 1]):
-                        base[o] = (base[o] + vals[members[k]] if ins.fn == "sum"
-                                   else max(base[o], vals[members[k]]))
-                write(ins.out, base.reshape(out.shape))
-            elif ins.op == "gather":
-                res = np.zeros(out.numel, np.float32)
-                for src, mp in zip(ins.ins, ins.maps):
-                    m = read(mp, True).reshape(-1)
-                    sel = m >= 0
-                    res[sel] = read(src).reshape(-1)[m[sel]]
-                write(ins.out, res.reshape(out.shape))
-            else:
-                a, b = read(ins.ins[0]), read(ins.ins[1])
-                write(ins.out, np.dot(a, b).astype(np.float32))
-    return np.float32(read(prog.logp).reshape(())), read(prog.grad)
+        for st in prog.steps:
+            temps.clear()
+            for ins in st.instrs:
+                out = prog.values[ins.out]
+                if ins.op == "ew":
+                    fn = _EW[ins.fn][2]
+                    res = np.broadcast_to(fn(*[read(x) for x in ins.ins], *ins.params),
+                                          out.shape)
+                elif ins.op == "reduce":
+                    x = read(ins.ins[0]).reshape(-1)
+                    res = x.sum(dtype=np.float32) if ins.fn == "sum" else x.max()
+                elif ins.op == "segment":
+                    res = np.broadcast_to(read(ins.ins[0]), out.shape).reshape(-1).copy()
+                    vals = read(ins.ins[1]).reshape(-1)
+                    starts = read(ins.maps[0], True).reshape(-1)
+                    members = read(ins.maps[1], True).reshape(-1)
+                    for o in range(out.numel):
+                        for k in range(starts[o], starts[o + 1]):
+                            res[o] = (res[o] + vals[members[k]] if ins.fn == "sum"
+                                      else max(res[o], vals[members[k]]))
+                elif ins.op == "gather":
+                    res = np.zeros(out.numel, np.float32)
+                    for src, mp in zip(ins.ins, ins.maps):
+                        m = read(mp, True).reshape(-1)
+                        sel = m >= 0
+                        res[sel] = read(src).reshape(-1)[m[sel]]
+                else:
+                    res = np.dot(read(ins.ins[0]), read(ins.ins[1])).astype(np.float32)
+                write(ins.out, res, st.shape is not None and not st.rows
+                      and ins.op != "reduce")
+            if st.g_store:
+                g_out = temps[prog.values[prog.grad].buf].reshape(prog.values[prog.grad].shape)
+        temps.clear()
+        grad = read(prog.grad) if g_out is None else g_out
+    return np.float32(read(prog.logp).reshape(())), grad
 
 
 # --------------------------------------------------------------------------
@@ -1082,13 +1306,15 @@ def _lower(gm: torch.fx.GraphModule, ndim: int, name: str, device) -> Program:
     lp, g = low.run()
     instrs = _live(low.values, low.instrs, (lp, g))
     parts, n_consts = _pack_consts(low.values, instrs, device)
-    scratch = _allocate(low.values, instrs, (lp, g))
+    steps = _fuse(low.values, instrs, g)
+    scratch = _allocate(low.values, steps, (lp, g))
     if scratch > MAX_SCRATCH_FLOATS:
         raise Decline(f"{scratch} scratch floats a chain (the kernels take "
                       f"{MAX_SCRATCH_FLOATS})")
+    instrs = [ins for st in steps for ins in st.instrs]
     prog = Program(name=name, ndim=ndim, values=low.values, instrs=instrs, logp=lp, grad=g,
                    const_parts=parts, const_floats=n_consts, scratch_floats=scratch,
-                   flops=sum(_flops(low.values, i) for i in instrs), graph=gm)
+                   flops=sum(_flops(low.values, i) for i in instrs), graph=gm, steps=steps)
     prog.body = _Emitter(prog).body()
     prog.digest = hashlib.sha256(prog.body.encode()).hexdigest()[:16]
     return prog
@@ -1157,6 +1383,22 @@ def kernel_library(spec: TrajectorySpec, kernel: str, device, warps: int):
                                f"{err} ({lib.cuda_error_string(err).decode()})")
         _SCRATCH[path] = buf
     return lib
+
+
+def scratch_in_smem(spec: TrajectorySpec, kernel: str) -> bool:
+    """Whether the last launch of ``kernel`` with ``spec``'s generated body
+    put its scratch rows in shared memory (else in the global scratch);
+    ``kernel`` ``autospec_probe`` reads the last probe launch. Raises
+    where that library was not built."""
+    from . import _build
+
+    if kernel == "autospec_probe":
+        lib, _ = _build.load_generated("autospec_probe", probe_header([spec.auto]))
+    elif kernel in spec.auto.libraries:
+        lib = spec.auto.libraries[kernel][0]
+    else:
+        raise RuntimeError(f"{kernel} has not been built with the body of {spec.auto.name}")
+    return bool(lib.autospec_scratch_in_smem())
 
 
 def _probe_inputs(n: int, device) -> torch.Tensor:

@@ -47,9 +47,10 @@
 // kDense), the precision P and COV (40 KB each) in shared memory; L^-1
 // (40 KB, read once a draw) in global memory behind L2, and the block's
 // Welford raw scatters (2 x n x n) in the per-block outputs, as in
-// fused_nuts.cu. Warps do not wait for each other inside a draw: each runs
-// its own step count; only the adapt_dense adds synchronise the block once
-// a draw.
+// fused_nuts.cu; a generated body's scratch rows after all of it where
+// they fit, else in its global scratch. Warps do not wait for each other
+// inside a draw: each runs its own step count; only the adapt_dense adds
+// synchronise the block once a draw.
 //
 // What bounds it on this card. Per chain and draw: the momentum (kDense
 // 2n^2 FLOP, kDiag about 10n), the start and end energies (kDense 2n^2
@@ -61,6 +62,16 @@
 //
 // Build: as nuts_trajectory.cu (-fmad=false, fmaf explicit in the matvecs).
 
+// the logistic body's register tile in this kernel (nuts_transition.cuh::
+// kLogisticChunk): its draw loop's state leaves the body fewer registers.
+// 8 columns x 2 rows is the tile with which ptxas spills in no instance
+// (PERF.md, row 1b)
+#ifndef LMC_LOGISTIC_CHUNK
+#define LMC_LOGISTIC_CHUNK 8
+#endif
+#ifndef LMC_LOGISTIC_ROWS
+#define LMC_LOGISTIC_ROWS 2
+#endif
 #include "fused_common.cuh"
 #include "hmc_transition.cuh"
 
@@ -97,7 +108,7 @@ struct Args {
     uint32_t seed0, seed1;
     HmcConsts K;
     float target, gamma, k, t0, mult, path_length;
-    int lam_in_smem, cov_in_smem;
+    int lam_in_smem, cov_in_smem, scratch_in_smem;
 };
 
 template <typename T>
@@ -125,7 +136,8 @@ __global__ void __launch_bounds__(32 * kMaxChainBlock) fused_hmc_kernel(Args A) 
 
     // shared layout: the warp vectors [n_fused_vecs][cb][n]; the pooled
     // Welford means and scratch [5][n] (kDense); then the body's constants
-    // (P, or the logistic Xb and y) and COV where they fit
+    // (P, or the logistic Xb and y) and COV where they fit, the low-rank
+    // factor block, and the generated body's scratch rows where they fit
     float* qs = warp_vec(smem, 0, cb, w, n);
     float* gs = warp_vec(smem, 1, cb, w, n);
     float* q = warp_vec(smem, 2, cb, w, n);
@@ -147,11 +159,14 @@ __global__ void __launch_bounds__(32 * kMaxChainBlock) fused_hmc_kernel(Args A) 
     if (METRIC == kDense && A.cov_in_smem) {
         for (int k = tid; k < n * n; k += nthreads) after[k] = K.cov[k];
         K.cov = after;
+        after += (size_t)n * n;
     }
     if constexpr (METRIC == kLowRank) {  // the factor block, in kCov's place
         for (int k = tid; k < lowrank_fac_floats(n); k += nthreads) after[k] = K.cov[k];
         K.cov = after;
+        after += lowrank_fac_floats(n);
     }
+    set_consts_scratch(K, warp_scratch<BODY>(A.scratch_in_smem ? after : nullptr, w));
     const float* linv = arg<const float>(A, kLinv);
 
     // the chain's state
@@ -306,6 +321,8 @@ cudaError_t launch(const Args& A0, cudaStream_t stream) {
     if (A.lam_in_smem) bytes += body_bytes;
     A.cov_in_smem = (METRIC == kDense && bytes + sq_bytes <= kSmemLimit) ? 1 : 0;
     if (A.cov_in_smem) bytes += sq_bytes;
+    A.scratch_in_smem = scratch_fits<BODY>(bytes, A.cb, kSmemLimit) ? 1 : 0;
+    if (A.scratch_in_smem) bytes += (size_t)body_scratch_floats<BODY>() * A.cb * sizeof(float);
     if (bytes > kSmemLimit) return cudaErrorInvalidConfiguration;
     cudaError_t err = cudaFuncSetAttribute(fused_hmc_kernel<BODY, METRIC>,
                                            cudaFuncAttributeMaxDynamicSharedMemorySize,
@@ -352,6 +369,7 @@ int fused_hmc_launch(void* const* ptrs, const int* ints, const float* floats, vo
     A.t0 = floats[fT0]; A.mult = floats[fMult]; A.path_length = floats[fPathLength];
     A.lam_in_smem = 0;
     A.cov_in_smem = 0;
+    A.scratch_in_smem = 0;
     const int body = ints[iBody], metric = ints[iMetric];
     if (A.cb < 1 || A.cb > kMaxChainBlock || A.C % A.cb != 0 || A.K.n < 1
         || A.K.n > 32 * kMaxCols || A.T < 1 || A.K.n_stages < 1 || A.K.n_stages > 3

@@ -55,7 +55,9 @@
 // read from device memory once a launch and written back once. kLowRank:
 // the transition's 17 vectors (the scales among them), q, grad, the start
 // momentum, the four Welford rows and V, 25 x CB x n floats (80 KB at
-// n = 100 and CB = 8), and the factor block (3.3 KB).
+// n = 100 and CB = 8), and the factor block (3.3 KB). A generated body's
+// scratch rows (CB x its scratch floats) follow all of it where they fit,
+// else they stay in its global scratch, behind L2.
 //
 // What bounds it on this card. Per chain and draw: the momentum (kDense
 // 2n^2 FLOP, kDiag about 10n with the Box-Muller transcendentals), per
@@ -72,6 +74,16 @@
 //
 // Build: as nuts_trajectory.cu (-fmad=false, fmaf explicit in the matvecs).
 
+// the logistic body's register tile in this kernel (nuts_transition.cuh::
+// kLogisticChunk): its draw loop's state leaves the body fewer registers.
+// 4 columns x 2 rows is the widest tile with which ptxas spills in no
+// instance that was free of spills (PERF.md, row 1b)
+#ifndef LMC_LOGISTIC_CHUNK
+#define LMC_LOGISTIC_CHUNK 4
+#endif
+#ifndef LMC_LOGISTIC_ROWS
+#define LMC_LOGISTIC_ROWS 2
+#endif
 #include "fused_common.cuh"
 #include "nuts_transition.cuh"
 
@@ -109,7 +121,7 @@ struct Args {
     int early_window, early_max, max_depth, Npad, rows;
     uint32_t seed0, seed1;
     float Emax, b[4], a[3], target, gamma, k, t0, mult;
-    int lam_in_smem, cov_in_smem;
+    int lam_in_smem, cov_in_smem, scratch_in_smem;
 };
 
 // log(1 - exp(-x)) for x > 0, the fused JAX kernel's formula (:113-131)
@@ -147,7 +159,8 @@ __global__ void __launch_bounds__(32 * max_chain_block<METRIC>()) fused_nuts_ker
     // shared layout: the warp vectors [n_fused_vecs][cb][n], the slot
     // scalars [4][D][cb], the pooled Welford fg and bg means, the batch
     // mean and the two mean shifts [5][n] (kDense), then the body's constants
-    // (P, or the logistic Xb and y) and COV where they fit
+    // (P, or the logistic Xb and y) and COV where they fit, the low-rank
+    // factor block, and the generated body's scratch rows where they fit
     const WarpVecs V = warp_vecs<METRIC>(smem, cb, w, n);
     float* qs = warp_vec(smem, NV, cb, w, n);
     float* gs = warp_vec(smem, NV + 1, cb, w, n);
@@ -174,11 +187,14 @@ __global__ void __launch_bounds__(32 * max_chain_block<METRIC>()) fused_nuts_ker
     if (METRIC == kDense && A.cov_in_smem) {
         for (int k = tid; k < n * n; k += nthreads) after[k] = A.ptr_f[kCov][k];
         T.cov = after;
+        after += (size_t)n * n;
     }
     if constexpr (METRIC == kLowRank) {  // the factor block, in kCov's place
         for (int k = tid; k < lowrank_fac_floats(n); k += nthreads) after[k] = A.ptr_f[kCov][k];
         T.cov = after;
+        after += lowrank_fac_floats(n);
     }
+    set_consts_scratch(T, warp_scratch<BODY>(A.scratch_in_smem ? after : nullptr, w));
     const float* linv = A.ptr_f[kLinv];
 
     // the chain's state
@@ -252,7 +268,7 @@ __global__ void __launch_bounds__(32 * max_chain_block<METRIC>()) fused_nuts_ker
         const TreeResult r = transition<BODY, METRIC>(T, V, slot_sc, chain, w, lane, qs, p0,
                                                       gs, lp, E0, eps, mdc, salt);
         // 6. the proposal's gradient
-        model_eval<BODY>(V.prq, V.cg, T.lam, n, A.rows, lane);
+        model_eval<BODY>(V.prq, V.cg, T.lam, n, A.rows, lane, consts_scratch(T));
         // 7. mean tree accept and dual averaging (step_sizes.py:85-92)
         const float ls = r.log_size;
         const float mta = ls > 0.f ? expf(r.lwas - (ls + log1mexp_fused(ls))) : 0.f;
@@ -341,6 +357,8 @@ cudaError_t launch(const Args& A0, cudaStream_t stream) {
     if (A.lam_in_smem) bytes += body_bytes;
     A.cov_in_smem = (METRIC == kDense && bytes + sq_bytes <= kSmemLimit) ? 1 : 0;
     if (A.cov_in_smem) bytes += sq_bytes;
+    A.scratch_in_smem = scratch_fits<BODY>(bytes, A.cb, kSmemLimit) ? 1 : 0;
+    if (A.scratch_in_smem) bytes += (size_t)body_scratch_floats<BODY>() * A.cb * sizeof(float);
     if (bytes > kSmemLimit || A.cb > max_chain_block<METRIC>())
         return cudaErrorInvalidConfiguration;
     cudaError_t err = cudaFuncSetAttribute(fused_nuts_kernel<BODY, METRIC>,
@@ -390,6 +408,7 @@ int fused_nuts_launch(void* const* ptrs, const int* ints, const float* floats, v
     A.t0 = floats[fT0]; A.mult = floats[fMult];
     A.lam_in_smem = 0;
     A.cov_in_smem = 0;
+    A.scratch_in_smem = 0;
     if (A.cb < 1 || A.cb > kMaxChainBlock || A.C % A.cb != 0 || A.n < 1 || A.n > 32 * kMaxCols
         || A.D < 1 || A.T < 1 || A.n_stages < 1 || A.n_stages > 3 || A.max_depth > A.D
         || A.early_max > A.D || (body == 2 && A.n != 10) || (body == 3 && A.rows < 1)

@@ -23,7 +23,8 @@
 // written once. The design keeps the chain's q, p, g and inverse mass and
 // the precision P in shared memory (P is read from global memory, where L2
 // holds it, when it does not fit), so each step reads device memory not at
-// all.
+// all; a generated body's scratch rows follow the constants there where
+// they fit (nuts_transition.cuh::warp_scratch).
 //
 // Build: as nuts_trajectory.cu (-fmad=false, fmaf explicit in the matvecs).
 
@@ -48,7 +49,7 @@ struct Args {
     int C, n, cb;
     uint32_t seed0, seed1;
     HmcConsts K;
-    int lam_in_smem;
+    int lam_in_smem, scratch_in_smem;
 };
 
 template <typename T>
@@ -64,14 +65,17 @@ __global__ void __launch_bounds__(32 * kWarps) hmc_trajectory_kernel(Args A) {
     const int chain = blockIdx.x * kWarps + w;
 
     // shared layout: the chain's q, p, g and inverse mass [4][kWarps][n],
-    // then the body's constants where they fit
+    // then the body's constants and the generated body's scratch rows
+    // [kWarps][body_scratch_floats] where they fit
     float* q = warp_vec(smem, 0, kWarps, w, n);
     float* p = warp_vec(smem, 1, kWarps, w, n);
     float* g = warp_vec(smem, 2, kWarps, w, n);
     float* vv = warp_vec(smem, 3, kWarps, w, n);
+    float* after = smem + (size_t)4 * kWarps * n;
     HmcConsts K = A.K;
-    K.lam = stage_body<BODY>(K.lam, n, K.rows,
-                             A.lam_in_smem ? smem + (size_t)4 * kWarps * n : nullptr);
+    K.lam = stage_body<BODY>(K.lam, n, K.rows, A.lam_in_smem ? after : nullptr);
+    if (A.lam_in_smem) after += body_floats(BODY, n, K.rows);
+    set_consts_scratch(K, warp_scratch<BODY>(A.scratch_in_smem ? after : nullptr, w));
     const bool live = chain < A.C;
     const size_t row = (size_t)chain * n;
     if (live) {
@@ -125,6 +129,8 @@ cudaError_t launch(const Args& A0, cudaStream_t stream) {
     const size_t body_bytes = body_floats(BODY, A.n, A.K.rows) * sizeof(float);
     A.lam_in_smem = (body_bytes > 0 && bytes + body_bytes <= kSmemLimit) ? 1 : 0;
     if (A.lam_in_smem) bytes += body_bytes;
+    A.scratch_in_smem = scratch_fits<BODY>(bytes, kWarps, kSmemLimit) ? 1 : 0;
+    if (A.scratch_in_smem) bytes += (size_t)body_scratch_floats<BODY>() * kWarps * sizeof(float);
     if (bytes > kSmemLimit) return cudaErrorInvalidConfiguration;
     cudaError_t err = cudaFuncSetAttribute(hmc_trajectory_kernel<BODY>,
                                            cudaFuncAttributeMaxDynamicSharedMemorySize,
@@ -154,6 +160,7 @@ int hmc_trajectory_launch(void* const* ptrs, const int* ints, const float* float
     for (int k = 0; k < 4; ++k) A.K.b[k] = floats[fB0 + k];
     for (int k = 0; k < 3; ++k) A.K.a[k] = floats[fA0 + k];
     A.lam_in_smem = 0;
+    A.scratch_in_smem = 0;
     const int body = ints[iBody];
     if (A.C < 1 || A.n < 1 || A.cb < 1 || A.K.n_stages < 1 || A.K.n_stages > 3
         || ((body == 1 || body == 3) && A.n > 32 * kMaxCols) || (body == 2 && A.n != 10)

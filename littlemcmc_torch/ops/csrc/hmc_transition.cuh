@@ -31,11 +31,15 @@ struct HmcConsts {
     float Emax;
     float b[4];
     float a[3];
-    // body 3's data rows (body 4's spikes): last, and passed to model_eval
-    // for bodies 3 and 4 only;
-    // otherwise ptxas gives hmc_trajectory<1> 40 registers and a spill,
-    // and the kernel runs at half the speed
+    // body 3's data rows (body 4's spikes): last but for the generated
+    // body's scratch, and passed to model_eval for bodies 3 and up only;
+    // otherwise ptxas gives
+    // hmc_trajectory<1> 40 registers and a spill, and the kernel runs at
+    // half the speed
     int rows;
+#ifdef LMC_AUTOSPEC_HEADER
+    float* scratch;  // the warp's scratch row for the generated body (warp_scratch)
+#endif
 };
 
 struct HmcResult {
@@ -81,7 +85,8 @@ __device__ HmcResult hmc_trajectory(const HmcConsts& K, float* q, float* p, floa
                 for (int i = lane; i < n; i += 32) q[i] = q[i] + drift * (vv[i] * p[i]);
             }
             __syncwarp();
-            lp = model_eval<BODY>(q, g, K.lam, n, BODY >= 3 ? K.rows : 0, lane);
+            lp = model_eval<BODY>(q, g, K.lam, n, BODY >= 3 ? K.rows : 0, lane,
+                                  consts_scratch(K));
             const float kick = K.b[s + 1] * eps;
             for (int i = lane; i < n; i += 32) p[i] = p[i] + kick * g[i];
         }

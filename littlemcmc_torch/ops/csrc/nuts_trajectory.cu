@@ -32,9 +32,15 @@
 // stays in the 50 MB L2. The logistic body (3) stages its design matrix
 // Xb (1000 x 25 floats, 100 KB, at an odd row stride) and y in shared
 // memory beside the vectors when they fit, else reads them through L2;
-// its leaf costs 2 N n FMAs and 2 N exponentials a chain (lanes own data
-// rows for the logits, then gradient columns; nuts_transition.cuh::
-// logistic_rows). Chains that stopped building skip the leapfrog
+// its leaf costs 2 N n FMAs and 2 N exponentials a chain. Lanes own data
+// rows through both passes, four rows a lane at once, and the gradient's
+// column sums come out of one reduce-scatter a 32-column chunk
+// (nuts_transition.cuh::logistic_rows): no dependent chain longer than n
+// FMAs, where one warp a chain (eight an SM) leaves no other warps to hide
+// it. A generated body (ops/autospec.py) keeps its values in registers
+// within a fused loop and the rest in the warp's scratch row, in shared
+// memory after everything else where it fits (else in a global scratch
+// that L2 holds). Chains that stopped building skip the leapfrog
 // and the merges. Each block waits for its own deepest tree only: small
 // blocks shrink the lockstep tail. The dense metric recomputes each
 // velocity where the U-turn checks need it, as the JAX kernel does; caching
@@ -86,7 +92,7 @@ struct Params {
     float Emax;
     float b[4];
     float a[3];
-    int lam_in_smem, cov_in_smem;
+    int lam_in_smem, cov_in_smem, scratch_in_smem;
 };
 
 // One chain block's transitions: the body of the kernels below.
@@ -99,7 +105,8 @@ __device__ __forceinline__ void run_block(const Params& P) {
 
     // shared layout: the transition's vectors [NV][cb][n], the stack slots'
     // scalars [4][D][cb], then the body's constants (body_floats), COV
-    // where they fit and the low-rank factor block
+    // where they fit, the low-rank factor block, and the generated body's
+    // scratch rows [cb][body_scratch_floats] where they fit
     const WarpVecs V = warp_vecs<METRIC>(smem, cb, w, n);
     float* slot_sc = smem + (size_t)n_warp_vecs<METRIC>() * cb * n;
     float* after = slot_sc + (size_t)4 * D * cb;
@@ -114,11 +121,14 @@ __device__ __forceinline__ void run_block(const Params& P) {
     if (METRIC == kDense && P.cov_in_smem) {
         for (int k = threadIdx.x; k < n * n; k += blockDim.x) after[k] = P.var[k];
         T.cov = after;
+        after += (size_t)n * n;
     }
     if constexpr (METRIC == kLowRank) {
         for (int k = threadIdx.x; k < lowrank_fac_floats(n); k += blockDim.x) after[k] = P.fac[k];
         T.cov = after;
+        after += lowrank_fac_floats(n);
     }
+    set_consts_scratch(T, warp_scratch<BODY>(P.scratch_in_smem ? after : nullptr, w));
 
     const float* qin = P.q + (size_t)chain * n;
     const float* pin = P.p + (size_t)chain * n;
@@ -149,7 +159,7 @@ __device__ __forceinline__ void run_block(const Params& P) {
                                                   lp0, E0, P.eps[chain], P.mdc[chain], salt);
 
     // the proposal's gradient is recomputed, not carried (:810-813)
-    model_eval<BODY>(V.prq, V.cg, T.lam, n, P.rows, lane);
+    model_eval<BODY>(V.prq, V.cg, T.lam, n, P.rows, lane, consts_scratch(T));
     float* qo = P.q_out + (size_t)chain * n;
     float* go = P.g_out + (size_t)chain * n;
     for (int i = lane; i < n; i += 32) { qo[i] = V.prq[i]; go[i] = V.cg[i]; }
@@ -200,6 +210,8 @@ cudaError_t launch(const Params& P, cudaStream_t stream) {
     if (Q.lam_in_smem) bytes += body_bytes;
     Q.cov_in_smem = (METRIC == kDense && bytes + sq_bytes <= kSmemLimit) ? 1 : 0;
     if (Q.cov_in_smem) bytes += sq_bytes;
+    Q.scratch_in_smem = scratch_fits<BODY>(bytes, P.cb, kSmemLimit) ? 1 : 0;
+    if (Q.scratch_in_smem) bytes += (size_t)body_scratch_floats<BODY>() * P.cb * sizeof(float);
     if (bytes > kSmemLimit || P.cb > max_chain_block<METRIC>())
         return cudaErrorInvalidConfiguration;
     const auto kernel = kernel_of<BODY, METRIC>();
@@ -258,6 +270,7 @@ int nuts_trajectory_launch(
     for (int k = 0; k < 3; ++k) P.a[k] = coef[4 + k];
     P.lam_in_smem = 0;
     P.cov_in_smem = 0;
+    P.scratch_in_smem = 0;
     cudaStream_t s = static_cast<cudaStream_t>(stream);
     switch (body) {
 #ifndef LMC_AUTOSPEC_ONLY  // a generated body's library holds its instances only

@@ -66,6 +66,13 @@ constexpr bool kHaveAutoBody = false;
 #endif
 constexpr uint32_t kGolden = 0x9E3779B9u;
 
+// Where the last launch of this library put the generated body's scratch
+// rows: 1 shared memory, 0 the global scratch (scratch_fits sets it; the
+// generated header exports it as autospec_scratch_in_smem). Static: one
+// flag a library (an inline variable would be one symbol that the dynamic
+// loader shares among every library of the process).
+static int last_scratch_in_smem = 0;
+
 __device__ __forceinline__ uint32_t fmix32(uint32_t x) {
     x ^= x >> 16;
     x *= 0x85EBCA6Bu;
@@ -200,41 +207,123 @@ __device__ const float* stage_body(const float* consts, int n, int rows, float* 
     return stage;
 }
 
+// The logistic body's register tile, set by each kernel's source before
+// it includes this header (default: the per-draw kernels'): the rows a
+// lane takes at once (their logits are independent FMA chains, and each
+// gradient chunk reads the group's rows) and the gradient columns it
+// accumulates at once (one partial sum a column in registers). The fused
+// kernels, at 16 warps of 128 registers with the draw loop's state live,
+// take a smaller tile.
+#ifndef LMC_LOGISTIC_ROWS
+#define LMC_LOGISTIC_ROWS 4
+#endif
+#ifndef LMC_LOGISTIC_CHUNK
+#define LMC_LOGISTIC_CHUNK 32
+#endif
+constexpr int kLogisticRows = LMC_LOGISTIC_ROWS;
+constexpr int kLogisticChunk = LMC_LOGISTIC_CHUNK;
+
+// One stage of reduce_scatter: lanes with bit H set keep the upper half of
+// the columns they hold and send the lower half to their partner, which
+// keeps the lower half, each adding what it receives.
+template <int H, int W>
+__device__ __forceinline__ void reduce_scatter_stage(float (&v)[W], int lane) {
+    const bool upper = lane & H;
+#pragma unroll
+    for (int i = 0; i < H; ++i) {
+        const float send = upper ? v[i] : v[i + H];
+        const float keep = upper ? v[i + H] : v[i];
+        v[i] = keep + __shfl_xor_sync(0xffffffffu, send, H);
+    }
+    if constexpr (H > 1) reduce_scatter_stage<H / 2, W>(v, lane);
+}
+
+// The transpose butterfly: each lane's W partial sums v in (v is spent),
+// the warp's total of column lane % W out. W = 32 takes 16 + 8 + 4 + 2 + 1
+// shuffles; a narrower W adds the lanes' copies with xor W, ..., 16.
+template <int W>
+__device__ __forceinline__ float reduce_scatter(float (&v)[W], int lane) {
+    static_assert(W == 4 || W == 8 || W == 16 || W == 32,
+                  "reduce_scatter takes 4, 8, 16 or 32 columns");
+    reduce_scatter_stage<W / 2, W>(v, lane);
+    float s = v[0];
+#pragma unroll
+    for (int o = W; o < 32; o <<= 1) s += __shfl_xor_sync(0xffffffffu, s, o);
+    return s;
+}
+
 // Logistic regression over `rows` data rows for one chain at q (shared
 // memory, read as a broadcast): X (rows, ldx) and y are relative to the
-// rows' first. Lanes own the rows lane, lane + 32, ...: each takes its
-// row's logit with fp32 FMAs, the stable softplus of jax.nn.softplus
-// (max(x, 0) + log1p(exp(-|x|))) and the sigmoid, and adds its row's
-// y * logit - softplus to the lane's part of the log likelihood, which it
-// returns. Then each 32-row group's residuals y - sigma are broadcast by
-// shuffle and the lanes own the gradient columns lane, lane + 32, ...
-// (acc, added to). No per-row reduction across the warp.
+// rows' first. Lanes own rows through both passes, a lane taking
+// kLogisticRows rows (lane, lane + 32, ...) of each block of
+// 32 kLogisticRows: their logits as independent fp32 FMA chains, the
+// stable softplus of jax.nn.softplus (max(x, 0) + log1p(exp(-|x|))) and
+// the sigmoid from one exp(-|x|), y * logit - softplus into the lane's
+// part of the log likelihood (returned). Then for each chunk of
+// kLogisticChunk gradient columns every lane adds its rows' residuals
+// y - sigma times x into one partial sum per column, and reduce_scatter
+// turns the lanes' partial sums into the chunk's column totals: once at
+// the end where n fits one chunk, after each row block otherwise, the
+// lane owning the column adding it into g. No loop runs a dependent chain
+// longer than n FMAs. On return g holds the likelihood's gradient, each
+// column written by its owning lane (the caller syncs the warp).
 __device__ __forceinline__ float logistic_rows(const float* q, const float* X, int ldx,
                                                const float* y, int rows, int n, int lane,
-                                               float (&acc)[kMaxCols]) {
-    float ll = 0.f;
-    for (int base = 0; base < rows; base += 32) {
-        const int r = base + lane;
-        float resid = 0.f;
-        if (r < rows) {
-            const float* x = X + (size_t)r * ldx;
-            float logit = 0.f;
-            for (int k = 0; k < n; ++k) logit = fmaf(q[k], x[k], logit);
-            const float yr = y[r];
-            const float softplus = fmaxf(logit, 0.f) + log1pf(expf(-fabsf(logit)));
-            ll += yr * logit - softplus;
-            resid = yr - 1.f / (1.f + expf(-logit));
-        }
-        const int m = min(32, rows - base);
-        for (int t = 0; t < m; ++t) {
-            const float rt = __shfl_sync(0xffffffffu, resid, t);
-            const float* xt = X + (size_t)(base + t) * ldx;
+                                               float* g) {
+    constexpr int R = kLogisticRows, W = kLogisticChunk;
+    const int chunks = (n + W - 1) / W;
+    for (int c = 0; c < chunks; ++c)
+        if (lane < W && c * W + lane < n) g[c * W + lane] = 0.f;
+    float acc[W];
 #pragma unroll
-            for (int k = 0; k < kMaxCols; ++k) {
-                const int j = lane + 32 * k;
-                if (j < n) acc[k] = fmaf(rt, xt[j], acc[k]);
+    for (int j = 0; j < W; ++j) acc[j] = 0.f;
+    float ll = 0.f;
+    for (int base = 0; base < rows; base += 32 * R) {
+        // a lane past the last row reads the last row, with a zero residual
+        int xo[R];
+        float lg[R], res[R];
+#pragma unroll
+        for (int t = 0; t < R; ++t) {
+            xo[t] = min(base + 32 * t + lane, rows - 1) * ldx;
+            lg[t] = 0.f;
+        }
+        for (int k = 0; k < n; ++k) {
+            const float qk = q[k];
+#pragma unroll
+            for (int t = 0; t < R; ++t) lg[t] = fmaf(qk, X[xo[t] + k], lg[t]);
+        }
+#pragma unroll
+        for (int t = 0; t < R; ++t) {
+            const int r = base + 32 * t + lane;
+            res[t] = 0.f;
+            if (r < rows) {
+                const float yr = y[r];
+                const float e = expf(-fabsf(lg[t]));
+                const float softplus = fmaxf(lg[t], 0.f) + log1pf(e);
+                ll += yr * lg[t] - softplus;
+                const float sigma = lg[t] >= 0.f ? 1.f / (1.f + e) : e / (1.f + e);
+                res[t] = yr - sigma;
             }
         }
+        for (int c = 0; c < chunks; ++c) {
+            const int j0 = c * W;
+#pragma unroll
+            for (int t = 0; t < R; ++t) {
+#pragma unroll
+                for (int j = 0; j < W; ++j)
+                    if (j0 + j < n) acc[j] = fmaf(res[t], X[xo[t] + j0 + j], acc[j]);
+            }
+            if (chunks > 1) {
+                const float s = reduce_scatter<W>(acc, lane);
+                if (lane < W && j0 + lane < n) g[j0 + lane] += s;
+#pragma unroll
+                for (int j = 0; j < W; ++j) acc[j] = 0.f;
+            }
+        }
+    }
+    if (chunks == 1) {
+        const float s = reduce_scatter<W>(acc, lane);
+        if (lane < W && lane < n) g[lane] = s;
     }
     return ll;
 }
@@ -249,15 +338,58 @@ __device__ __forceinline__ float logistic_rows(const float* q, const float* X, i
 
 namespace lmc {
 
+// Floats of one warp's scratch row: the generated body's intermediates
+// that another lane or a later loop of it reads (ops/autospec.py), 0 for
+// the hand-written bodies.
+template <int BODY>
+__host__ __device__ constexpr int body_scratch_floats() {
+#ifdef LMC_AUTOSPEC_HEADER
+    return BODY == kAutoBody ? autobody::kScratchFloats : 0;
+#else
+    return 0;
+#endif
+}
+
+// Warp w's scratch row for model_eval: in `smem` ([warps][floats], where
+// the launch found room in shared memory), else this warp's row of the
+// global scratch (one row per warp of the grid); null for a body without
+// scratch.
+template <int BODY>
+__device__ __forceinline__ float* warp_scratch(float* smem, int w) {
+    constexpr int floats = body_scratch_floats<BODY>();
+    if constexpr (floats == 0) {
+        return nullptr;
+    } else {
+        if (smem != nullptr) return smem + (size_t)w * floats;
+#ifdef LMC_AUTOSPEC_HEADER
+        return autobody::scratch + ((size_t)blockIdx.x * (blockDim.x >> 5) + w) * floats;
+#else
+        return nullptr;
+#endif
+    }
+}
+
+// Whether a launch with `bytes` of dynamic shared memory in use also takes
+// `warps` scratch rows of the body there; records the placement of a
+// generated body's scratch for autospec_scratch_in_smem.
+template <int BODY>
+inline bool scratch_fits(size_t bytes, int warps, size_t limit) {
+    const size_t need = (size_t)body_scratch_floats<BODY>() * warps * sizeof(float);
+    const bool fits = need > 0 && bytes + need <= limit;
+    if (BODY == kAutoBody) last_scratch_in_smem = fits ? 1 : 0;
+    return fits;
+}
+
 // The model body at q (shared memory, one chain): writes grad into g
 // (shared memory) and returns logp. lam: the body's constants (body_floats);
-// rows: body 3's data rows, body 4's spikes. Lanes own columns lane,
+// rows: body 3's data rows, body 4's spikes; scratch: the warp's scratch
+// row (warp_scratch; the generated body's only). Lanes own columns lane,
 // lane+32, ... (body 3: rows first, see logistic_rows). Body ids match
 // ops/nuts_trajectory.py::BODY_IDS; any other id does not compile, and
 // every launch switch refuses it at run time.
 template <int BODY>
 __device__ float model_eval(const float* q, float* g, const float* lam, int n, int rows,
-                           int lane) {
+                           int lane, float* scratch) {
     static_assert((BODY >= 0 && BODY <= 5) || (BODY == kAutoBody && kHaveAutoBody),
                   "unknown model body");
     float part = 0.f;
@@ -331,25 +463,15 @@ __device__ float model_eval(const float* q, float* g, const float* lam, int n, i
         __syncwarp();  // q is written
         const int ldx = n | 1;
         const float prior_prec = lam[(size_t)rows * ldx + rows];
-        float acc[kMaxCols];
-#pragma unroll
-        for (int k = 0; k < kMaxCols; ++k) acc[k] = 0.f;
         const float ll = warp_sum(logistic_rows(q, lam, ldx, lam + (size_t)rows * ldx, rows, n,
-                                                lane, acc));
-#pragma unroll
-        for (int k = 0; k < kMaxCols; ++k) {
-            const int j = lane + 32 * k;
-            if (j < n) {
-                const float qj = q[j];
-                part += qj * qj;
-            }
+                                                lane, g));
+        for (int j = lane; j < n; j += 32) {
+            const float qj = q[j];
+            part += qj * qj;
         }
         const float qq = warp_sum(part);
-#pragma unroll
-        for (int k = 0; k < kMaxCols; ++k) {
-            const int j = lane + 32 * k;
-            if (j < n) g[j] = acc[k] - prior_prec * q[j];
-        }
+        __syncwarp();  // every column of g is written
+        for (int j = lane; j < n; j += 32) g[j] = g[j] - prior_prec * q[j];
         __syncwarp();
         return ll + -0.5f * prior_prec * qq;
     } else if constexpr (BODY == 5) {
@@ -374,14 +496,12 @@ __device__ float model_eval(const float* q, float* g, const float* lam, int n, i
         return -0.5f * inv_s2 * v * v - 0.5f * nx * v - 0.5f * sq * e;
     } else if constexpr (BODY == kAutoBody) {
 #ifdef LMC_AUTOSPEC_HEADER
-        // the generated body: its intermediates in this warp's row of the
-        // global scratch (one row per warp of the grid)
+        // the generated body: its intermediates in registers and in the
+        // warp's scratch row
         __syncwarp();  // q is written
-        float* scratch = autobody::scratch
-                         + ((size_t)blockIdx.x * (blockDim.x >> 5) + (threadIdx.x >> 5))
-                               * autobody::kScratchFloats;
         return autobody::eval(q, g, lam, n, lane, scratch);
 #else
+        (void)scratch;
         return part;
 #endif
     } else {
@@ -420,7 +540,34 @@ struct TreeConsts {
     float Emax;
     float b[4];
     float a[3];
+#ifdef LMC_AUTOSPEC_HEADER
+    float* scratch;  // the warp's scratch row for the generated body (warp_scratch)
+#endif
 };
+
+// The warp's scratch row a TreeConsts or HmcConsts carries, and setting
+// it: only a generated body's build has the field (another member would
+// shift the hand-written instances' register allocation, which sits at
+// the 128-register cap).
+template <class K>
+__device__ __forceinline__ float* consts_scratch(const K& k) {
+#ifdef LMC_AUTOSPEC_HEADER
+    return k.scratch;
+#else
+    (void)k;
+    return nullptr;
+#endif
+}
+
+template <class K>
+__device__ __forceinline__ void set_consts_scratch(K& k, float* scratch) {
+#ifdef LMC_AUTOSPEC_HEADER
+    k.scratch = scratch;
+#else
+    (void)k;
+    (void)scratch;
+#endif
+}
 
 // One warp's working vectors, each of length n in shared memory.
 struct WarpVecs {
@@ -571,7 +718,7 @@ __device__ TreeResult transition(const TreeConsts& T, const WarpVecs& V, float* 
                         for (int i = lane; i < n; i += 32) cq[i] = cq[i] + drift * (vv[i] * cp[i]);
                     }
                     __syncwarp();
-                    c_lp = model_eval<BODY>(cq, cg, T.lam, n, T.rows, lane);
+                    c_lp = model_eval<BODY>(cq, cg, T.lam, n, T.rows, lane, consts_scratch(T));
                     const float kick = T.b[s + 1] * epss;
                     for (int i = lane; i < n; i += 32) cp[i] = cp[i] + kick * cg[i];
                 }

@@ -5,7 +5,9 @@
 
 Builds the CUDA kernels of the checkout at ROOT (default: the one this
 script is in) and prints one JSON line: ptxas's register, stack-frame and
-spill lines of every kernel, and the milliseconds per launch of the NUTS
+spill lines of every kernel (and of the NUTS trajectory kernel built with
+``HierarchicalRegression``'s generated body), and the milliseconds per
+launch of the NUTS
 trajectory kernel, the fused NUTS kernel and the fused HMC kernel at the
 shapes of ``chip_smoke.py``'s phases 2, 2c and 2e (1024 chains, the 100-d
 correlated Gaussian): one diag-metric transition from stationary inputs,
@@ -16,10 +18,18 @@ them, also the batched model kernels at phase 2j's widths (1024 chains;
 the logistic regression's 1000 x 25 design, the 100-d precision): CUDA
 events around back-to-back calls (which hold the wrapper's host work too),
 the kernel's device time under ``torch.profiler``, and the host time of
-a tree leaf's pattern (the call, a reduction, a host read). The inputs
-are made with numpy from fixed seeds, so two checkouts see the same
-work. To compare two checkouts, run them in turns (A, B, B, A) in one
-command on one card.
+a tree leaf's pattern (the call, a reduction, a host read). Then the
+trajectory kernel's model bodies that the port's paths spend most in:
+the logistic body (3) at ``chip_smoke.py``'s phase 2k input and at path
+(B)'s final state, and the generated ``HierarchicalRegression`` body at
+H1's final state (1024 chains each, tree depth 10; CUDA events and the
+device time under ``torch.profiler``). The inputs are made with numpy
+from fixed seeds, so two checkouts see the same work; the final states
+come from ``build/kernel_ab_states.pt`` beside this script, which the
+first run samples (``sample()`` of the checkout it runs, seed 42: path
+(B) 500 + 1000, H1 500 + 3000 at target_accept 0.9) and the later ones
+load (delete it to sample anew). To compare two checkouts, run them in
+turns (A, B, B, A) in one command on one card.
 """
 
 from __future__ import annotations
@@ -76,8 +86,68 @@ def _device_ms(fn, name: str, reps: int):
     return us / reps / 1e3 if us else None
 
 
+def _final_states(path: Path) -> dict:
+    """Path (B)'s and H1's final states as trajectory inputs ``(q, p, grad,
+    logp, step, depth cap, inverse mass)``: loaded from ``path``, or
+    sampled with this checkout and saved there."""
+    import torch
+
+    if path.exists():
+        return torch.load(path)
+    from littlemcmc_torch import NUTS, sample
+    from littlemcmc_torch.models import HierarchicalRegression, LogisticRegression
+
+    gen = torch.Generator(device="cuda").manual_seed(7)
+    out = {}
+    hr = HierarchicalRegression()
+    for key, model, kw in (("logistic", LogisticRegression(), dict(tune=500, draws=1000)),
+                           ("hierarchical", hr, dict(tune=500, draws=3000, step=NUTS(
+                               model_ndim=hr.ndim, target_accept=0.9)))):
+        _, _, s = sample(model.logp_grad, model_ndim=model.ndim, chains=1024, random_seed=42,
+                         return_final_state=True, progressbar=False,
+                         compute_convergence_checks=False, **kw)
+        out[key] = tuple(x.contiguous() for x in (
+            s.q, s.potential.sample_momentum(gen), s.q_grad, s.logp, torch.exp(s.da.log_bar),
+            torch.full((1024,), 10, dtype=torch.int32, device="cuda"), s.potential.var))
+    path.parent.mkdir(parents=True, exist_ok=True)
+    torch.save(out, path)
+    return out
+
+
+def _body_times(states_path: Path) -> dict:
+    """The trajectory kernel with the logistic body at phase 2k's input and
+    at path (B)'s final state, and with the generated hierarchical body at
+    H1's final state: events and device ms a launch, leaves a chain, and
+    the generated build's ptxas lines."""
+    import chip_smoke
+    from littlemcmc_torch.models import HierarchicalRegression, LogisticRegression
+    from littlemcmc_torch.ops import _build
+    from littlemcmc_torch.ops.autospec import header_source
+    from littlemcmc_torch.ops.nuts_trajectory import trajectory
+
+    states = _final_states(states_path)
+    lg, hr = LogisticRegression(), HierarchicalRegression()
+    cases = (("logistic_2k", lg, chip_smoke._posterior_inputs(lg, 1024, 0.25, 17), (109, -113)),
+             ("logistic_b_final", lg, states["logistic"], (3, 8)),
+             ("hierarchical_h1_final", hr, states["hierarchical"], (3, 8)))
+    out = {}
+    for name, model, args, seed in cases:
+        kw = dict(spec=model.trajectory_spec(), max_treedepth=10, Emax=1000.0, chain_block=8)
+        leaves = trajectory(*args, seed, **kw)["n_leaves"].float().mean()
+        out[f"{name}_leaves_per_chain"] = float(leaves)
+        out[f"{name}_ms"] = _ms(lambda: trajectory(*args, seed, **kw), reps=20, warmup=3)
+        out[f"{name}_device_ms"] = _device_ms(lambda: trajectory(*args, seed, **kw),
+                                              "nuts_trajectory_kernel", 20)
+    log = _build._generated_job("nuts_trajectory", header_source(hr.trajectory_spec().auto))[2]
+    out["ptxas_hierarchical_generated"] = [
+        ln.strip() for ln in log.read_text().splitlines()
+        if "registers" in ln or "spill" in ln or "entry" in ln]
+    return out
+
+
 def main() -> int:
     root = Path(sys.argv[1] if len(sys.argv) > 1 else Path(__file__).resolve().parents[1])
+    states_path = Path(__file__).resolve().parents[1] / "build" / "kernel_ab_states.pt"
     sys.path.insert(0, str(root.resolve()))
     import numpy as np
     import torch
@@ -156,6 +226,7 @@ def main() -> int:
             model_ms[f"{name}_ms"] = _ms(fn, reps=200, warmup=10)
             model_ms[f"{name}_device_ms"] = _device_ms(fn, f"{name}_kernel", 200)
             model_ms[f"{name}_leaf_ms"] = _leaf_ms(fn, reps=300, warmup=20)
+    model_ms.update(_body_times(states_path))
 
     smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
                          capture_output=True, text=True, timeout=60).stdout.strip()

@@ -191,6 +191,74 @@ def test_hierarchical_program_gathers_and_scatters(matrix_specs):
     assert prog.scratch_floats < slots
 
 
+def test_hierarchical_program_fuses_into_few_loops(matrix_specs):
+    """(a) the hierarchical body's 59 ops run as far fewer loops, each
+    ending in one ``__syncwarp()``: consecutive ops over one shape, and
+    the reductions of their values, share a loop and keep their values in
+    its registers (``local``); the thin ``X^T r`` product splits its sums
+    across the lanes."""
+    prog = matrix_specs["hierarchical_regression"][1].auto
+    loops = [st for st in prog.steps if st.shape is not None and not st.rows]
+    assert len(prog.instrs) == 59
+    assert len(loops) == prog.body.count("for (int i = lane;") < 20
+    assert prog.body.count("__syncwarp();") < 20
+    assert max(len(st.instrs) for st in loops) >= 7
+    assert any(v.kind == "local" for v in prog.values)
+    assert [st.instrs[0].op for st in prog.steps if st.rows] == ["mv"]
+
+
+def test_hierarchical_program_needs_less_scratch(matrix_specs):
+    """(a) only values read at another element or after their loop keep a
+    slot: the hierarchical body needs fewer scratch floats a chain than
+    the 2,592 it took with every value of more than one element in a
+    slot, and no more than its kept values' sum."""
+    prog = matrix_specs["hierarchical_regression"][1].auto
+    kept = {v.buf: v.numel for v in prog.values if v.kind == "slot"}
+    assert prog.scratch_floats < 2592
+    assert prog.scratch_floats <= sum(kept.values())
+
+
+def test_fusion_keeps_the_program_and_its_flops(matrix_specs):
+    """(a) fusing reorders no op's inputs and drops or adds none: the
+    fused steps hold the unfused program's ops (lowered again from the
+    traced graph), each after the ops it reads, and ``Program.flops``
+    counts the same arithmetic, 23,899 operations for the hierarchical
+    body (its kernel row's bound counts them)."""
+    for name in ("hierarchical_regression", "logistic", "hierarchical_gather"):
+        prog = matrix_specs[name][1].auto
+        low = autospec._Lowering(prog.graph, prog.ndim)
+        lp, g = low.run()
+        plain_ops = autospec._live(low.values, low.instrs, (lp, g))
+        assert sorted((i.op, i.fn) for i in plain_ops) == sorted((i.op, i.fn) for i in prog.instrs)
+        assert prog.flops == sum(autospec._flops(low.values, i) for i in plain_ops)
+        made = set()
+        for ins in prog.instrs:
+            assert all(prog.values[v].buf in made or prog.values[v].kind != "slot"
+                       for v in ins.ins), name
+            made.add(prog.values[ins.out].buf)
+    assert matrix_specs["hierarchical_regression"][1].auto.flops == 23899
+
+
+def test_interpreter_catches_a_value_read_outside_its_loop(matrix_specs):
+    """(a) the interpreter keeps a loop's registers to that loop: a kept
+    value planted as ``local`` (no slot) is read by a later step and the
+    run fails, where reading the scratch would have hidden the fault."""
+    prog = matrix_specs["hierarchical_regression"][1].auto
+    home = {prog.values[i.out].buf: k for k, st in enumerate(prog.steps)
+            if st.shape is not None and not st.rows for i in st.instrs if i.op != "reduce"}
+    later = next(v.buf for k, st in enumerate(prog.steps) for i in st.instrs for v in
+                 (prog.values[x] for x in i.ins) if v.kind == "slot" and home.get(v.buf, k) < k)
+    planted = [v for v in prog.values if v.buf == later]
+    try:
+        for v in planted:
+            v.kind = "local"
+        with pytest.raises(AssertionError, match="outside its loop"):
+            autospec.interpret(prog, _qs(prog.ndim)[0])
+    finally:
+        for v in planted:
+            v.kind = "slot"
+
+
 # --------------------------------------------------------------------------
 # (b) the source, and the declines
 # --------------------------------------------------------------------------
@@ -207,6 +275,27 @@ def test_emitted_source_is_deterministic():
     assert f"kScratchFloats = {a.scratch_floats}" in head
     probe = autospec.probe_header([a, c])
     assert "autobody_0" in probe and "autobody_1" in probe and "autoprobe" in probe
+
+
+def test_fused_source_is_the_same_in_every_process():
+    """(b) the fused body does not depend on the order of a hash: two
+    processes with other hash seeds emit the hierarchical body and a probe
+    matrix model with the same digests (the build's cache key)."""
+    import os
+    import subprocess
+
+    code = ("import torch; from littlemcmc_torch import models as tm; "
+            "from littlemcmc_torch.models.probe_matrix import autospec_matrix; "
+            "from littlemcmc_torch.ops.autospec import make_trajectory_spec; "
+            "print(tm.HierarchicalRegression(device='cpu').trajectory_spec().auto.digest, "
+            "make_trajectory_spec(ndim=3, logp_fn=autospec_matrix('cpu')['hierarchical_gather'], "
+            "device='cpu').auto.digest)")
+    root = str(Path(__file__).resolve().parents[1])
+    digests = [subprocess.run([sys.executable, "-c", code], capture_output=True, text=True,
+                              check=True, cwd=root,
+                              env={**os.environ, "PYTHONHASHSEED": seed}).stdout.split()
+               for seed in ("1", "2")]
+    assert digests[0] == digests[1] and len(digests[0]) == 2
 
 
 def _numpy_model(x):

@@ -463,6 +463,40 @@ def test_fused_logistic_kernel_matches_plain(hopper, step, tuning):
 
 
 @pytest.mark.cuda
+@pytest.mark.parametrize("n,rows,chains", [(40, 1000, 128), (256, 1000, 64), (25, 1001, 128),
+                                           (25, 5000, 64)],
+                         ids=["two_chunks", "eight_chunks", "rows_1001", "rows_5000"])
+def test_logistic_body_beyond_the_main_shape_matches_plain(hopper, n, rows, chains):
+    """The logistic body (3) past BASELINE config 4's 1000 x 25 design, in
+    all four kernels against their plain versions: n = 40 (two gradient
+    chunks in the per-draw kernels' 32-column tile, more in the fused
+    kernels' narrower ones, reduced after every row block), n = 256, 1001
+    rows (a last row block that lanes leave early) and 5000 rows (a
+    500 KB design, read through L2 where the others sit in shared memory).
+    The designs' features are independent standard normals (responses
+    from a logistic model of logits about 1.5 in sd), so each posterior is
+    near spherical and the smoke's step sizes hold; positions from its
+    Laplace approximation (``chip_smoke._logistic_moments``). The checks
+    and tolerances of the smoke's phases 2k-2l."""
+    from chip_smoke import _compare, _posterior_inputs
+
+    rng = np.random.RandomState(n + rows)
+    X = rng.standard_normal((rows, n - 1))
+    beta = rng.standard_normal(n - 1) * 1.5 / np.sqrt(n - 1)
+    y = (rng.uniform(size=rows) < 1.0 / (1.0 + np.exp(-(X @ beta)))).astype(np.float64)
+    model = tm.LogisticRegression(X, y)
+    _compare("logistic", model, _posterior_inputs(model, chains, 0.25, seed=n), (n, rows),
+             need=0.99)
+    res, failures, _, _ = hmc_check(model, _hmc_inputs(model, None, chains, 0.25, n + 1),
+                                    (rows, n), 0.99, scaled=True)
+    assert not failures, res
+    for step in ("nuts", "hmc"):
+        res, failures, _, _, _, _ = fused_check(model, 64, 2, False, True, seed=n + 2,
+                                                words=(n, -rows), step=step, metric="diag")
+        assert not failures, res
+
+
+@pytest.mark.cuda
 def test_logistic_kernel_raises_rather_than_falling_back(hopper, monkeypatch):
     """``LogisticRegression(use_kernel=True).batched_logp_grad`` on CUDA
     tensors launches the kernel; when its build fails it raises and never
@@ -686,6 +720,39 @@ def test_generated_body_in_the_kernels_matches_plain(hopper):
     res, failures, _, _, _, _ = fused_check(model, 256, 2, False, True, seed=8, words=(3, 4),
                                             step="nuts", metric="diag")
     assert not failures, res
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("rows,in_smem", [(512, True), (1536, False)],
+                         ids=["scratch_in_shared_memory", "scratch_in_global_memory"])
+def test_generated_body_scratch_placement(hopper, rows, in_smem):
+    """A generated body in all four kernels against their plain versions,
+    with its scratch rows where each launch placed them: H1's
+    ``HierarchicalRegression`` (512 rows: 1,584 scratch floats a warp, in
+    shared memory beside its 39 KB of constants) and one of 1536 rows
+    (4,656 floats a warp: 146 KB for 8 warps does not fit beside its 115
+    KB of constants, so the global scratch stays). Every kernel says where
+    its last launch put them (``autospec.scratch_in_smem``)."""
+    from chip_smoke import _compare, _posterior_inputs
+    from littlemcmc_torch.ops.autospec import MAX_SCRATCH_FLOATS, scratch_in_smem
+
+    model = tm.HierarchicalRegression(n_rows=rows)
+    spec = model.trajectory_spec()
+    assert spec.auto.scratch_floats <= MAX_SCRATCH_FLOATS
+    _compare("hierarchical", model, _posterior_inputs(model, 128, 0.3, seed=rows), (rows, 1),
+             need=0.99)
+    assert scratch_in_smem(spec, "nuts_trajectory") is in_smem
+    res, failures, _, _ = hmc_check(model, _hmc_inputs(model, None, 128, 0.3, rows + 1),
+                                    (rows, 2), 0.99, scaled=True)
+    assert not failures, res
+    assert scratch_in_smem(spec, "hmc_trajectory") is in_smem
+    for step in ("nuts", "hmc"):
+        res, failures, _, _, _, _ = fused_check(model, 64, 2, False, True, seed=rows + 2,
+                                                words=(rows, 3), step=step, metric="diag")
+        assert not failures, res
+        assert scratch_in_smem(spec, f"fused_{step}") is in_smem
+    # the probe keeps no constants in shared memory: both bodies' rows fit
+    assert scratch_in_smem(spec, "autospec_probe")
 
 
 @pytest.mark.cuda
