@@ -848,7 +848,8 @@ def _held_stat_errors(got, want, held, da_count, config, adapting, step="nuts",
     return share
 
 
-def _diag_fused_inputs(model, C, seed, tuning, iter_count=300.0, swap_at=2, var_sd=None):
+def _diag_fused_inputs(model, C, seed, tuning, iter_count=300.0, swap_at=2, var_sd=None,
+                       log_step=-1.2):
     """Fused-op inputs for the diag metric: positions near the posterior
     (eight schools: :func:`_es_positions`), an inverse-mass diagonal near
     the posterior variances, dual averaging part way through, and for a
@@ -856,9 +857,9 @@ def _diag_fused_inputs(model, C, seed, tuning, iter_count=300.0, swap_at=2, var_
     10 - ``swap_at`` in the background) whose windows swap at draw
     ``swap_at`` (n_samples 50 - ``swap_at``, window 50), step sizes near 0.3 (eight schools adapts
     to about 0.27; at 0.5 the correlated Gaussian's diag trees diverge on
-    96% of chain-draws). ``var_sd``: the sds the variances are drawn near
-    (default the posterior's; the low-rank metric's variances are the
-    spiked Gaussian's squared scales). Returns the op's arguments through
+    96% of chain-draws; ``log_step`` their centre). ``var_sd``: the sds the
+    variances are drawn near (default the posterior's; the low-rank
+    metric's variances are the spiked Gaussian's squared scales). Returns the op's arguments through
     ``linv`` (None) and the Welford state (None for a draw chunk)."""
     import numpy as np
     import torch
@@ -868,7 +869,6 @@ def _diag_fused_inputs(model, C, seed, tuning, iter_count=300.0, swap_at=2, var_
     n = model.ndim
     sd = _posterior_sd(model)
     q = _positions(model, rng, C)
-    log_step = -1.2
     qt = torch.from_numpy(q).to(dev)
     logp, grad = model.batched_logp_grad(qt)
 
@@ -945,7 +945,7 @@ def _diag_welford_errors(got, want_var, want, sd, chains=None):
 
 
 def fused_check(model, C, T, tuning, adapt_step_size, seed, words, step="nuts",
-                metric="dense"):
+                metric="dense", log_step=-1.2):
     """One fused launch of ``T`` draws at ``C`` chains against the plain
     version on the same inputs (``step``: the fused NUTS op, or with
     ``"hmc"`` the fused HMC op; ``metric``: the dense branch, with the
@@ -957,8 +957,9 @@ def fused_check(model, C, T, tuning, adapt_step_size, seed, words, step="nuts",
     number, and in a tune chunk the Welford state against the plain
     version and a float64 replay and the dual-averaging state against its
     update replayed over the kernel's accept statistics. NUTS's trees run
-    to the sampler's depth of 10. Returns the result line, the list of
-    failures and both outputs."""
+    to the sampler's depth of 10; ``log_step``: the diag and low-rank
+    inputs' step sizes (:func:`_diag_fused_inputs`). Returns the result
+    line, the list of failures and both outputs."""
     import numpy as np
     import torch
     from littlemcmc_torch.base import HMCConfig, NUTSConfig
@@ -979,7 +980,8 @@ def fused_check(model, C, T, tuning, adapt_step_size, seed, words, step="nuts",
     else:
         lowrank = metric == "lowrank"
         args, welford = _diag_fused_inputs(model, C, seed, tuning, swap_at=min(2, T - 1),
-                                           var_sd=_lowrank_metric(model)[0] if lowrank else None)
+                                           var_sd=_lowrank_metric(model)[0] if lowrank else None,
+                                           log_step=log_step)
         kw["welford"] = welford
         if lowrank:
             kw["fac"] = _model_fac(model, args[0].device)

@@ -13,7 +13,9 @@
 // PyTorch version it is held against is ops/fused_nuts.py::fused_nuts_plain.
 //
 // Mapping. One thread block is one chain block of CB chains, one warp per
-// chain, as in the per-draw kernel; the block loops t = 0..T-1 inside the
+// chain, as in the per-draw kernel (bodies 0 and 1 with the diagonal metric
+// in blocks of up to 8 chains on the block transition, in instances
+// compiled for 8 warps); the block loops t = 0..T-1 inside the
 // launch, where the TPU kernel's grid walks its sequential draw axis. The
 // chain state (q, grad in shared memory; logp, the iteration counter, the
 // dual-averaging state and the diag Welford counters in registers, the
@@ -52,7 +54,10 @@
 // stay in L2. kDiag: the transition's 12 vectors (V among them), q, grad,
 // the start momentum and the chain's four Welford rows, 19 x CB x n
 // floats (2.4 KB a block at the eight-schools n = 10, 61 KB at n = 100),
-// read from device memory once a launch and written back once. kLowRank:
+// read from device memory once a launch and written back once; on the
+// block transition (bodies 0 and 1, CB <= 8) beside them the staged
+// positions (3.2 KB), P (40 KB) and as many of the merge stack's slots
+// as fit (all 9 of depth 10 at n = 100: 115 KB; 220 KB in all). kLowRank:
 // the transition's 17 vectors (the scales among them), q, grad, the start
 // momentum, the four Welford rows and V, 25 x CB x n floats (80 KB at
 // n = 100 and CB = 8), and the factor block (3.3 KB). A generated body's
@@ -121,7 +126,7 @@ struct Args {
     int early_window, early_max, max_depth, Npad, rows;
     uint32_t seed0, seed1;
     float Emax, b[4], a[3], target, gamma, k, t0, mult;
-    int lam_in_smem, cov_in_smem, scratch_in_smem;
+    int lam_in_smem, cov_in_smem, scratch_in_smem, smem_slots;
 };
 
 // log(1 - exp(-x)) for x > 0, the fused JAX kernel's formula (:113-131)
@@ -144,10 +149,11 @@ __host__ __device__ constexpr int n_fused_vecs() {
 }
 
 // kLowRank instances take 8 warps a block (max_chain_block,
-// nuts_transition.cuh), so that ptxas may give a thread more than 128
-// registers
-template <int BODY, int METRIC>
-__global__ void __launch_bounds__(32 * max_chain_block<METRIC>()) fused_nuts_kernel(Args A) {
+// nuts_transition.cuh), and so do the block transition's (BLOCK), so that
+// ptxas may give a thread more than 128 registers
+template <int BODY, int METRIC, bool BLOCK>
+__global__ void __launch_bounds__(32 * (BLOCK ? kBlockChains : max_chain_block<METRIC>()))
+    fused_nuts_kernel(Args A) {
     extern __shared__ float smem[];
     const int n = A.n, cb = A.cb, D = A.D, C = A.C;
     const int w = threadIdx.x >> 5, lane = threadIdx.x & 31;
@@ -155,12 +161,15 @@ __global__ void __launch_bounds__(32 * max_chain_block<METRIC>()) fused_nuts_ker
     const int blk = blockIdx.x;
     const int chain = blk * cb + w;
     constexpr int NV = n_warp_vecs<METRIC>();
+    LMC_CLK_BLOCK_START(C);
 
     // shared layout: the warp vectors [n_fused_vecs][cb][n], the slot
     // scalars [4][D][cb], the pooled Welford fg and bg means, the batch
-    // mean and the two mean shifts [5][n] (kDense), then the body's constants
-    // (P, or the logistic Xb and y) and COV where they fit, the low-rank
-    // factor block, and the generated body's scratch rows where they fit
+    // mean and the two mean shifts [5][n] (kDense), the block transition's
+    // staged positions (body 1, on a 16-byte boundary), then the body's
+    // constants (P, or the logistic Xb and y) and COV where they fit, the
+    // low-rank factor block, the generated body's scratch rows where they
+    // fit, and the block transition's lower stack slots [4][smem_slots][cb][n]
     const WarpVecs V = warp_vecs<METRIC>(smem, cb, w, n);
     float* qs = warp_vec(smem, NV, cb, w, n);
     float* gs = warp_vec(smem, NV + 1, cb, w, n);
@@ -174,6 +183,11 @@ __global__ void __launch_bounds__(32 * max_chain_block<METRIC>()) fused_nuts_ker
     float* slot_sc = smem + (size_t)n_fused_vecs<METRIC>() * cb * n;
     float* wel_sh = slot_sc + (size_t)4 * D * cb;
     float* after = wel_sh + (METRIC == kDense ? 5 * n : 0);
+    float* qt = nullptr;
+    if constexpr (BLOCK && BODY == 1) {
+        qt = align16(after);
+        after = qt + staged_floats<BODY>(n, cb);
+    }
 
     TreeConsts T;
     T.lam = stage_body<BODY>(A.ptr_f[kConsts], n, A.rows, A.lam_in_smem ? after : nullptr);
@@ -195,6 +209,7 @@ __global__ void __launch_bounds__(32 * max_chain_block<METRIC>()) fused_nuts_ker
         after += lowrank_fac_floats(n);
     }
     set_consts_scratch(T, warp_scratch<BODY>(A.scratch_in_smem ? after : nullptr, w));
+    const BlockState BS{after, qt, A.smem_slots};
     const float* linv = A.ptr_f[kLinv];
 
     // the chain's state
@@ -265,10 +280,12 @@ __global__ void __launch_bounds__(32 * max_chain_block<METRIC>()) fused_nuts_ker
         const int mdc = (A.tuning && iter < (float)A.early_window) ? A.early_max : A.max_depth;
         // 5. the transition, on the stream salted with seed0
         const uint32_t salt = fmix32((seed0 + (uint32_t)w * 101027u) ^ s1u);
-        const TreeResult r = transition<BODY, METRIC>(T, V, slot_sc, chain, w, lane, qs, p0,
-                                                      gs, lp, E0, eps, mdc, salt);
+        const TreeResult r = any_transition<BODY, METRIC, BLOCK>(T, BS, V, slot_sc, chain, w,
+                                                                 lane, qs, p0, gs, lp, E0, eps,
+                                                                 mdc, salt);
         // 6. the proposal's gradient
-        model_eval<BODY>(V.prq, V.cg, T.lam, n, A.rows, lane, consts_scratch(T));
+        if constexpr (BLOCK) proposal_grad<BODY>(T, BS, V.prq, V.cg, w, lane);
+        else model_eval<BODY>(V.prq, V.cg, T.lam, n, A.rows, lane, consts_scratch(T));
         // 7. mean tree accept and dual averaging (step_sizes.py:85-92)
         const float ls = r.log_size;
         const float mta = ls > 0.f ? expf(r.lwas - (ls + log1mexp_fused(ls))) : 0.f;
@@ -340,17 +357,20 @@ __global__ void __launch_bounds__(32 * max_chain_block<METRIC>()) fused_nuts_ker
         wel.store(wel_sh, const_cast<float*>(A.ptr_f[kFgMean]) + (size_t)blk * n,
                   const_cast<float*>(A.ptr_f[kBgMean]) + (size_t)blk * n,
                   const_cast<float*>(A.ptr_f[kWOut]) + (size_t)blk * 8, n, tid, nthreads);
+    LMC_CLK_BLOCK_END(C);
 }
 
 // 227 KB per block on Hopper, less room for the static shared int
 constexpr size_t kSmemLimit = 232448 - 1024;
 
-template <int BODY, int METRIC>
-cudaError_t launch(const Args& A0, cudaStream_t stream) {
+template <int BODY, int METRIC, bool BLOCK>
+cudaError_t launch_instance(const Args& A0, cudaStream_t stream) {
     Args A = A0;
     size_t bytes = ((size_t)n_fused_vecs<METRIC>() * A.cb * A.n + (size_t)4 * A.D * A.cb
-                    + (METRIC == kDense ? (size_t)5 * A.n : 0)
-                    + (METRIC == kLowRank ? (size_t)lowrank_fac_floats(A.n) : 0)) * sizeof(float);
+                    + (METRIC == kDense ? (size_t)5 * A.n : 0)) * sizeof(float);
+    if (BLOCK && BODY == 1)  // the staged positions, moved up to 12 bytes to a 16-byte boundary
+        bytes += 12 + staged_floats<BODY>(A.n, A.cb) * sizeof(float);
+    if (METRIC == kLowRank) bytes += (size_t)lowrank_fac_floats(A.n) * sizeof(float);
     const size_t sq_bytes = (size_t)A.n * A.n * sizeof(float);
     const size_t body_bytes = body_floats(BODY, A.n, A.rows) * sizeof(float);
     A.lam_in_smem = (body_bytes > 0 && bytes + body_bytes <= kSmemLimit) ? 1 : 0;
@@ -359,14 +379,25 @@ cudaError_t launch(const Args& A0, cudaStream_t stream) {
     if (A.cov_in_smem) bytes += sq_bytes;
     A.scratch_in_smem = scratch_fits<BODY>(bytes, A.cb, kSmemLimit) ? 1 : 0;
     if (A.scratch_in_smem) bytes += (size_t)body_scratch_floats<BODY>() * A.cb * sizeof(float);
-    if (bytes > kSmemLimit || A.cb > max_chain_block<METRIC>())
+    if (bytes > kSmemLimit || A.cb > (BLOCK ? kBlockChains : max_chain_block<METRIC>()))
         return cudaErrorInvalidConfiguration;
-    cudaError_t err = cudaFuncSetAttribute(fused_nuts_kernel<BODY, METRIC>,
+    if (BLOCK) {
+        A.smem_slots = smem_stack_slots(bytes, A.cb, A.n, A.D, kSmemLimit);
+        bytes += (size_t)A.smem_slots * 4 * A.cb * A.n * sizeof(float);
+    }
+    cudaError_t err = cudaFuncSetAttribute(fused_nuts_kernel<BODY, METRIC, BLOCK>,
                                            cudaFuncAttributeMaxDynamicSharedMemorySize,
                                            (int)bytes);
     if (err != cudaSuccess) return err;
-    fused_nuts_kernel<BODY, METRIC><<<A.C / A.cb, 32 * A.cb, bytes, stream>>>(A);
+    fused_nuts_kernel<BODY, METRIC, BLOCK><<<A.C / A.cb, 32 * A.cb, bytes, stream>>>(A);
     return cudaGetLastError();
+}
+
+template <int BODY, int METRIC>
+cudaError_t launch(const Args& A, cudaStream_t stream) {
+    if constexpr (block_body<BODY, METRIC>())
+        if (A.cb <= kBlockChains) return launch_instance<BODY, METRIC, true>(A, stream);
+    return launch_instance<BODY, METRIC, false>(A, stream);
 }
 
 template <int BODY>
@@ -409,6 +440,7 @@ int fused_nuts_launch(void* const* ptrs, const int* ints, const float* floats, v
     A.lam_in_smem = 0;
     A.cov_in_smem = 0;
     A.scratch_in_smem = 0;
+    A.smem_slots = 0;
     if (A.cb < 1 || A.cb > kMaxChainBlock || A.C % A.cb != 0 || A.n < 1 || A.n > 32 * kMaxCols
         || A.D < 1 || A.T < 1 || A.n_stages < 1 || A.n_stages > 3 || A.max_depth > A.D
         || A.early_max > A.D || (body == 2 && A.n != 10) || (body == 3 && A.rows < 1)
@@ -437,5 +469,12 @@ int fused_nuts_launch(void* const* ptrs, const int* ints, const float* floats, v
 const char* cuda_error_string(int err) {
     return cudaGetErrorString(static_cast<cudaError_t>(err));
 }
+
+#ifdef LMC_TRANSITION_CLOCKS
+// The instrumented build's side buffer (nuts_transition.cuh, clock_buf).
+int transition_clocks_bind(void* buf) {
+    return (int)cudaMemcpyToSymbol(lmc::clock_buf, &buf, sizeof(buf));
+}
+#endif
 
 }  // extern "C"

@@ -9,7 +9,11 @@
 // nuts_transition.cuh, which the fused kernel (fused_nuts.cu) shares.
 //
 // Mapping. One thread block is one chain block of CB chains, one warp per
-// chain, run in lockstep (see nuts_transition.cuh). Randomness: the JAX
+// chain, run in lockstep (see nuts_transition.cuh). Bodies 0 and 1 with
+// the diagonal metric in blocks of up to 8 chains (the main path's) run
+// the block transition (nuts_transition.cuh, block_transition) in
+// instances compiled for 8 warps; everything else runs `transition`.
+// Randomness: the JAX
 // kernel's counter stream with block_id = blockIdx.x and the chain's row
 // within its block, so this kernel, the plain version and the JAX kernel
 // under interpret=True draw the same numbers.
@@ -29,9 +33,19 @@
 // shared memory, broadcast q[i] across the warp and keep up to 8 output
 // columns per lane in registers. The merge stack lives in a global scratch
 // tensor (4 x D x C x n floats, 16 MB at the main path's shapes) that
-// stays in the 50 MB L2. The logistic body (3) stages its design matrix
-// Xb (1000 x 25 floats, 100 KB, at an odd row stride) and y in shared
-// memory beside the vectors when they fit, else reads them through L2;
+// stays in the 50 MB L2. The block transition (the main path's instance,
+// nuts_transition.cuh at kBlockChains) instead evaluates the correlated
+// Gaussian for its 8 chains in one product a leaf, P read once a group of
+// 4 chains rather than once a chain, keeps the stack's lower slots in
+// shared memory (all 9 of depth 10 at n = 100: 115 KB beside 38 KB of
+// vectors, P and the 3.2 KB of staged positions), and issues each pass's
+// loads for 4 trips at once. The section clocks
+// (scripts/torch_transition_clocks.py, PERF.md) found a chain's leaf there
+// latency-bound: 13,400 cycles of its 19,500 in the per-warp product, with
+// one warp a chain and eight an SM. The logistic body (3) stages its
+// design matrix Xb (1000 x 25 floats, 100 KB, at an odd row stride) and y
+// in shared memory beside the vectors when they fit, else reads them
+// through L2;
 // its leaf costs 2 N n FMAs and 2 N exponentials a chain. Lanes own data
 // rows through both passes, four rows a lane at once, and the gradient's
 // column sums come out of one reduce-scatter a 32-column chunk
@@ -92,24 +106,33 @@ struct Params {
     float Emax;
     float b[4];
     float a[3];
-    int lam_in_smem, cov_in_smem, scratch_in_smem;
+    int lam_in_smem, cov_in_smem, scratch_in_smem, smem_slots;
 };
 
-// One chain block's transitions: the body of the kernels below.
-template <int BODY, int METRIC>
+// One chain block's transitions: the body of the kernels below; BLOCK: the
+// block transition.
+template <int BODY, int METRIC, bool BLOCK>
 __device__ __forceinline__ void run_block(const Params& P) {
     extern __shared__ float smem[];
     const int n = P.n, cb = P.cb, D = P.D;
     const int w = threadIdx.x >> 5, lane = threadIdx.x & 31;
     const int chain = blockIdx.x * cb + w;
+    LMC_CLK_BLOCK_START(P.C);
 
     // shared layout: the transition's vectors [NV][cb][n], the stack slots'
-    // scalars [4][D][cb], then the body's constants (body_floats), COV
-    // where they fit, the low-rank factor block, and the generated body's
-    // scratch rows [cb][body_scratch_floats] where they fit
+    // scalars [4][D][cb], the block transition's staged positions (body 1,
+    // on a 16-byte boundary), then the body's constants (body_floats), COV
+    // where they fit, the low-rank factor block, the generated body's
+    // scratch rows [cb][body_scratch_floats] where they fit, and the block
+    // transition's lower stack slots [4][smem_slots][cb][n]
     const WarpVecs V = warp_vecs<METRIC>(smem, cb, w, n);
     float* slot_sc = smem + (size_t)n_warp_vecs<METRIC>() * cb * n;
     float* after = slot_sc + (size_t)4 * D * cb;
+    float* qt = nullptr;
+    if constexpr (BLOCK && BODY == 1) {
+        qt = align16(after);
+        after = qt + staged_floats<BODY>(n, cb);
+    }
     TreeConsts T;
     T.lam = stage_body<BODY>(P.consts, n, P.rows, P.lam_in_smem ? after : nullptr);
     T.cov = P.var; T.stack = P.stack;
@@ -129,6 +152,7 @@ __device__ __forceinline__ void run_block(const Params& P) {
         after += lowrank_fac_floats(n);
     }
     set_consts_scratch(T, warp_scratch<BODY>(P.scratch_in_smem ? after : nullptr, w));
+    const BlockState BS{after, qt, P.smem_slots};
 
     const float* qin = P.q + (size_t)chain * n;
     const float* pin = P.p + (size_t)chain * n;
@@ -155,11 +179,13 @@ __device__ __forceinline__ void run_block(const Params& P) {
     // counter PRNG: salt per chain, one call counter per block
     const uint32_t salt = fmix32((P.seed0 + blockIdx.x * 7919u + (uint32_t)w * 101027u)
                                  ^ (P.seed1 * kGolden));
-    const TreeResult r = transition<BODY, METRIC>(T, V, slot_sc, chain, w, lane, qin, pin, gin,
-                                                  lp0, E0, P.eps[chain], P.mdc[chain], salt);
+    const TreeResult r = any_transition<BODY, METRIC, BLOCK>(T, BS, V, slot_sc, chain, w, lane,
+                                                             qin, pin, gin, lp0, E0,
+                                                             P.eps[chain], P.mdc[chain], salt);
 
     // the proposal's gradient is recomputed, not carried (:810-813)
-    model_eval<BODY>(V.prq, V.cg, T.lam, n, P.rows, lane, consts_scratch(T));
+    if constexpr (BLOCK) proposal_grad<BODY>(T, BS, V.prq, V.cg, w, lane);
+    else model_eval<BODY>(V.prq, V.cg, T.lam, n, P.rows, lane, consts_scratch(T));
     float* qo = P.q_out + (size_t)chain * n;
     float* go = P.g_out + (size_t)chain * n;
     for (int i = lane; i < n; i += 32) { qo[i] = V.prq[i]; go[i] = V.cg[i]; }
@@ -174,11 +200,15 @@ __device__ __forceinline__ void run_block(const Params& P) {
         P.diverging[chain] = r.diverging;
         P.turning[chain] = r.turning;
     }
+    LMC_CLK_BLOCK_END(P.C);
 }
 
-template <int BODY, int METRIC>
-__global__ void __launch_bounds__(32 * kMaxChainBlock) nuts_trajectory_kernel(Params P) {
-    run_block<BODY, METRIC>(P);
+// BLOCK: the block transition's instances, 8 warps a block, so ptxas may
+// give a thread up to 255 registers
+template <int BODY, int METRIC, bool BLOCK>
+__global__ void __launch_bounds__(32 * (BLOCK ? kBlockChains : kMaxChainBlock))
+    nuts_trajectory_kernel(Params P) {
+    run_block<BODY, METRIC, BLOCK>(P);
 }
 
 // kLowRank: 8 warps a block, one block an SM, so ptxas may give each
@@ -186,23 +216,25 @@ __global__ void __launch_bounds__(32 * kMaxChainBlock) nuts_trajectory_kernel(Pa
 template <int BODY>
 __global__ void __launch_bounds__(32 * kMaxLowRankChainBlock, 1)
     nuts_trajectory_lowrank_kernel(Params P) {
-    run_block<BODY, kLowRank>(P);
+    run_block<BODY, kLowRank, false>(P);
 }
 
-template <int BODY, int METRIC>
+template <int BODY, int METRIC, bool BLOCK>
 constexpr auto kernel_of() {
     if constexpr (METRIC == kLowRank) return nuts_trajectory_lowrank_kernel<BODY>;
-    else return nuts_trajectory_kernel<BODY, METRIC>;
+    else return nuts_trajectory_kernel<BODY, METRIC, BLOCK>;
 }
 
 // 227 KB per block on Hopper, less room for the static shared int
 constexpr size_t kSmemLimit = 232448 - 1024;
 
-template <int BODY, int METRIC>
-cudaError_t launch(const Params& P, cudaStream_t stream) {
+template <int BODY, int METRIC, bool BLOCK>
+cudaError_t launch_instance(const Params& P, cudaStream_t stream) {
     size_t bytes = (size_t)n_warp_vecs<METRIC>() * P.cb * P.n * sizeof(float)
-                   + (size_t)4 * P.D * P.cb * sizeof(float)
-                   + (METRIC == kLowRank ? (size_t)lowrank_fac_floats(P.n) * sizeof(float) : 0);
+                   + (size_t)4 * P.D * P.cb * sizeof(float);
+    if (BLOCK && BODY == 1)  // the staged positions, moved up to 12 bytes to a 16-byte boundary
+        bytes += 12 + staged_floats<BODY>(P.n, P.cb) * sizeof(float);
+    if (METRIC == kLowRank) bytes += (size_t)lowrank_fac_floats(P.n) * sizeof(float);
     const size_t sq_bytes = (size_t)P.n * P.n * sizeof(float);
     const size_t body_bytes = body_floats(BODY, P.n, P.rows) * sizeof(float);
     Params Q = P;
@@ -212,14 +244,25 @@ cudaError_t launch(const Params& P, cudaStream_t stream) {
     if (Q.cov_in_smem) bytes += sq_bytes;
     Q.scratch_in_smem = scratch_fits<BODY>(bytes, P.cb, kSmemLimit) ? 1 : 0;
     if (Q.scratch_in_smem) bytes += (size_t)body_scratch_floats<BODY>() * P.cb * sizeof(float);
-    if (bytes > kSmemLimit || P.cb > max_chain_block<METRIC>())
+    if (bytes > kSmemLimit || P.cb > (BLOCK ? kBlockChains : max_chain_block<METRIC>()))
         return cudaErrorInvalidConfiguration;
-    const auto kernel = kernel_of<BODY, METRIC>();
+    if (BLOCK) {
+        Q.smem_slots = smem_stack_slots(bytes, P.cb, P.n, P.D, kSmemLimit);
+        bytes += (size_t)Q.smem_slots * 4 * P.cb * P.n * sizeof(float);
+    }
+    const auto kernel = kernel_of<BODY, METRIC, BLOCK>();
     cudaError_t err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
                                            (int)bytes);
     if (err != cudaSuccess) return err;
     kernel<<<P.C / P.cb, 32 * P.cb, bytes, stream>>>(Q);
     return cudaGetLastError();
+}
+
+template <int BODY, int METRIC>
+cudaError_t launch(const Params& P, cudaStream_t stream) {
+    if constexpr (block_body<BODY, METRIC>())
+        if (P.cb <= kBlockChains) return launch_instance<BODY, METRIC, true>(P, stream);
+    return launch_instance<BODY, METRIC, false>(P, stream);
 }
 
 template <int BODY>
@@ -271,6 +314,7 @@ int nuts_trajectory_launch(
     P.lam_in_smem = 0;
     P.cov_in_smem = 0;
     P.scratch_in_smem = 0;
+    P.smem_slots = 0;
     cudaStream_t s = static_cast<cudaStream_t>(stream);
     switch (body) {
 #ifndef LMC_AUTOSPEC_ONLY  // a generated body's library holds its instances only
@@ -291,5 +335,12 @@ int nuts_trajectory_launch(
 const char* cuda_error_string(int err) {
     return cudaGetErrorString(static_cast<cudaError_t>(err));
 }
+
+#ifdef LMC_TRANSITION_CLOCKS
+// The instrumented build's side buffer (nuts_transition.cuh, clock_buf).
+int transition_clocks_bind(void* buf) {
+    return (int)cudaMemcpyToSymbol(lmc::clock_buf, &buf, sizeof(buf));
+}
+#endif
 
 }  // extern "C"

@@ -88,6 +88,91 @@ __device__ __forceinline__ float counter_uniform(uint32_t salt, uint32_t call) {
     return ((float)(x >> 8) + 0.5f) * (1.0f / 16777216.0f);
 }
 
+// Section clocks of the transition, compiled only into the instrumented
+// builds of scripts/torch_transition_clocks.py (LMC_TRANSITION_CLOCKS; the
+// package's own build never sets it). Each warp charges the SM cycles
+// since its last mark to the section a mark names, in registers, and adds
+// them to its chain's row of clock_buf at the end of each transition;
+// each block records its start and end on the global timer and its SM.
+// clock_buf: [C][kClkSlots] per chain, then [blocks][4] (start ns, end ns,
+// SM id, unused), bound by transition_clocks_bind. The marks sit in both
+// transitions: transition's measured the main path's instance before it
+// moved to block_transition (PERF.md).
+constexpr int kClkBody = 0;         // the model body
+constexpr int kClkLeapfrog = 1;     // the leapfrog's element-wise loops (kick, drift, energy)
+constexpr int kClkLeafStore = 2;    // an even leaf's stack stores
+constexpr int kClkMerge = 3;        // the merges' and the depth's passes over the slots
+constexpr int kClkWarpSums = 4;     // the warp sums (energy, merges, U-turn checks)
+constexpr int kClkSync = 5;         // block-wide votes while this chain builds
+constexpr int kClkWait = 6;         // block-wide votes while it waits for the block's deepest
+constexpr int kClkOther = 7;        // scalar work (uniforms, log-sum-exps), the depth's set-up
+constexpr int kClkSections = 8;
+constexpr int kClkSlots = 10;       // the sections, then leaf steps and leaves built
+#ifdef LMC_TRANSITION_CLOCKS
+__device__ unsigned long long* clock_buf;
+
+struct SectionClock {
+    unsigned int t, acc[kClkSections], steps, built;
+    __device__ __forceinline__ void begin() {
+        t = (unsigned int)clock();
+#pragma unroll
+        for (int k = 0; k < kClkSections; ++k) acc[k] = 0u;
+        steps = built = 0u;
+    }
+    template <int K>
+    __device__ __forceinline__ void mark() {
+        const unsigned int now = (unsigned int)clock();
+        acc[K] += now - t;
+        t = now;
+    }
+    __device__ __forceinline__ void vote(bool building) {
+        if (building) mark<kClkSync>();
+        else mark<kClkWait>();
+    }
+    __device__ __forceinline__ void flush(int chain, int lane) {
+        if (clock_buf == nullptr || lane != 0) return;
+        unsigned long long* row = clock_buf + (size_t)chain * kClkSlots;
+#pragma unroll
+        for (int k = 0; k < kClkSections; ++k) atomicAdd(row + k, (unsigned long long)acc[k]);
+        atomicAdd(row + kClkSections, (unsigned long long)steps);
+        atomicAdd(row + kClkSections + 1, (unsigned long long)built);
+    }
+};
+
+__device__ __forceinline__ unsigned long long global_ns() {
+    unsigned long long t;
+    asm volatile("mov.u64 %0, %%globaltimer;" : "=l"(t));
+    return t;
+}
+
+// Block b's start (END false) or end on the global timer, and its SM.
+template <bool END>
+__device__ __forceinline__ void clock_block(int C) {
+    if (clock_buf == nullptr || threadIdx.x != 0) return;
+    unsigned long long* row = clock_buf + (size_t)C * kClkSlots + (size_t)blockIdx.x * 4;
+    row[END ? 1 : 0] = global_ns();
+    unsigned int sm;
+    asm volatile("mov.u32 %0, %%smid;" : "=r"(sm));
+    row[2] = sm;
+}
+
+#define LMC_CLK_BEGIN() ::lmc::SectionClock clk_; clk_.begin()
+#define LMC_CLK(K) clk_.mark<K>()
+#define LMC_CLK_VOTE(building) clk_.vote(building)
+#define LMC_CLK_LEAF(building) (++clk_.steps, clk_.built += (building) ? 1u : 0u)
+#define LMC_CLK_FLUSH(chain, lane) clk_.flush(chain, lane)
+#define LMC_CLK_BLOCK_START(C) ::lmc::clock_block<false>(C)
+#define LMC_CLK_BLOCK_END(C) (__syncthreads(), ::lmc::clock_block<true>(C))
+#else
+#define LMC_CLK_BEGIN() ((void)0)
+#define LMC_CLK(K) ((void)0)
+#define LMC_CLK_VOTE(building) ((void)(building))
+#define LMC_CLK_LEAF(building) ((void)(building))
+#define LMC_CLK_FLUSH(chain, lane) ((void)0)
+#define LMC_CLK_BLOCK_START(C) ((void)0)
+#define LMC_CLK_BLOCK_END(C) ((void)0)
+#endif
+
 __device__ __forceinline__ float warp_sum(float v) {
 #pragma unroll
     for (int o = 16; o > 0; o >>= 1) v += __shfl_xor_sync(0xffffffffu, v, o);
@@ -619,6 +704,205 @@ __host__ __device__ constexpr int n_warp_vecs() {
     return METRIC == kLowRank ? 17 : METRIC == kDense ? 16 : 12;
 }
 
+// ---------------------------------------------------------------------------
+// The block transition (block_transition below): bodies 0 and 1 with the
+// diagonal metric in chain blocks of up to kBlockChains chains, the
+// instance of the 100-d main path (per-draw and fused). Every other
+// instance, and these bodies in blocks of more chains, runs `transition`.
+// Against `transition` it
+// - evaluates body 1 for every chain of the block in one product a leaf
+//   (block_quadform): a thread takes kBodyChains chains at two columns of
+//   P, so each column is read once a chain group and leaf (not once a
+//   chain), the group's q_c[i] coming as one 16-byte broadcast from the
+//   staged rows qt ([n][staged_stride(cb)], each building warp writes its
+//   q there in its drift pass), kProductDepth steps of i with their loads
+//   issued together, indexed as shared memory; a chain that does not build
+//   this leaf is evaluated all the same, at whatever q it staged last, and
+//   its gradient goes unread;
+// - keeps the merge stack's lower slots in shared memory (smem_stack_slots:
+//   as many as fit beside everything else), the rest in the global stack;
+// - runs every per-element pass kTrips trips at a time, the loads of all
+//   trips first (lane_trips): one chain's lanes wait on shared memory once
+//   a group, not once a trip, with no other warps on the SM to hide it;
+// - fuses the leapfrog's passes: a stage's kick, drift and staging in one,
+//   then the log density, the next kick and the kinetic energy in one;
+// - sums the U-turn dots in one butterfly (warp_sums);
+// - reads the integrator's coefficients with constant indices, so the
+//   launch's constants stay in registers;
+// and its kernels are compiled for kBlockChains warps a block, so ptxas may
+// give a thread up to 255 registers. Each element's arithmetic and each
+// sum's order are transition's, so both give the same bits.
+constexpr int kBlockChains = 8;
+constexpr int kBodyChains = 4;
+constexpr int kTrips = 4;
+constexpr int kProductDepth = 4;
+
+template <int BODY, int METRIC>
+__host__ __device__ constexpr bool block_body() {
+    return (BODY == 0 || BODY == 1) && METRIC == kDiag;
+}
+
+__host__ __device__ constexpr int staged_stride(int cb) {
+    return (cb + kBodyChains - 1) / kBodyChains * kBodyChains;
+}
+
+// Floats of the block transition's staged positions (body 1's product).
+template <int BODY>
+__host__ __device__ constexpr size_t staged_floats(int n, int cb) {
+    return BODY == 1 ? (size_t)n * staged_stride(cb) : 0;
+}
+
+// The block transition's shared-memory state beside TreeConsts.
+struct BlockState {
+    float* sstack;   // [4][smem_slots][cb][n]: the merge stack's lower slots
+    float* qt;       // body 1's staged positions, [n][staged_stride(cb)]
+    int smem_slots;
+};
+
+// Slots of the merge stack a launch keeps in shared memory: as many as fit
+// beside `bytes` in `limit`, up to the max(D - 1, 1) that trees of depth
+// cap D use (an even leaf at depth d < D writes slot popcount(leaf) <=
+// d - 1); the slots above stay in the global stack.
+inline int smem_stack_slots(size_t bytes, int cb, int n, int D, size_t limit) {
+    const size_t slot_bytes = (size_t)4 * cb * n * sizeof(float);
+    const int used = D > 1 ? D - 1 : 1;
+    const size_t room = bytes < limit ? (limit - bytes) / slot_bytes : 0;
+    return room < (size_t)used ? (int)room : used;
+}
+
+// A 16-byte boundary at or after p.
+__device__ __forceinline__ float* align16(float* p) {
+    return reinterpret_cast<float*>((reinterpret_cast<uintptr_t>(p) + 15) & ~(uintptr_t)15);
+}
+
+// The calling kernel's dynamic shared memory, indexed with 32-bit offsets
+// so that the compiler emits shared-memory loads (a pointer that went
+// through a struct or an integer is generic: 64-bit addressing and generic
+// loads), and the offset of a pointer into it.
+__device__ __forceinline__ float* dyn_smem() {
+    extern __shared__ float lmc_dyn_smem[];
+    return lmc_dyn_smem;
+}
+
+__device__ __forceinline__ int smem_offset(const float* p) {
+    return (int)(p - dyn_smem());
+}
+
+// g_c = -q_c P for the block's chains c < cb: the staged positions at
+// qt_off and g (the first chain's row of a [cb][n] layout) at g_off in
+// shared memory, P there at p_off (P_SHARED) or in global memory at Pg.
+// A thread takes kBodyChains chains at two columns, j and j + ceil(n/2),
+// so each step of i reads two values of P and one 16-byte broadcast of
+// the group's q for 8 FMAs; every thread of the block calls it. Each
+// output is one fmaf chain over i from 0, as model_eval<1>.
+template <bool P_SHARED>
+__device__ __forceinline__ void block_quadform(int qt_off, const float* __restrict__ Pg,
+                                               int p_off, int g_off, int n, int cb) {
+    constexpr int U = kProductDepth;
+    float* sm = dyn_smem();
+    const int groups = staged_stride(cb) / kBodyChains, half = (n + 1) / 2;
+    for (int t = threadIdx.x; t < groups * half; t += blockDim.x) {
+        const int grp = t / half, j = t - grp * half, j2 = j + half;
+        const bool two = j2 < n;
+        const int j2c = two ? j2 : j;  // a lone last column reads its own twice
+        const float4* qp = reinterpret_cast<const float4*>(sm + qt_off) + grp;
+        const float* pp = P_SHARED ? sm + p_off : Pg;
+        float a[kBodyChains] = {0.f, 0.f, 0.f, 0.f}, b[kBodyChains] = {0.f, 0.f, 0.f, 0.f};
+        int i = 0, row = 0;
+        for (; i + U <= n; i += U) {
+            float p1[U], p2[U];
+            float4 q[U];
+#pragma unroll
+            for (int u = 0; u < U; ++u) {
+                p1[u] = pp[row + u * n + j];
+                p2[u] = pp[row + u * n + j2c];
+                q[u] = qp[(i + u) * groups];
+            }
+#pragma unroll
+            for (int u = 0; u < U; ++u) {
+                a[0] = fmaf(q[u].x, p1[u], a[0]); b[0] = fmaf(q[u].x, p2[u], b[0]);
+                a[1] = fmaf(q[u].y, p1[u], a[1]); b[1] = fmaf(q[u].y, p2[u], b[1]);
+                a[2] = fmaf(q[u].z, p1[u], a[2]); b[2] = fmaf(q[u].z, p2[u], b[2]);
+                a[3] = fmaf(q[u].w, p1[u], a[3]); b[3] = fmaf(q[u].w, p2[u], b[3]);
+            }
+            row += U * n;
+        }
+        for (; i < n; ++i, row += n) {
+            const float p1 = pp[row + j], p2 = pp[row + j2c];
+            const float4 q = qp[i * groups];
+            a[0] = fmaf(q.x, p1, a[0]); b[0] = fmaf(q.x, p2, b[0]);
+            a[1] = fmaf(q.y, p1, a[1]); b[1] = fmaf(q.y, p2, b[1]);
+            a[2] = fmaf(q.z, p1, a[2]); b[2] = fmaf(q.z, p2, b[2]);
+            a[3] = fmaf(q.w, p1, a[3]); b[3] = fmaf(q.w, p2, b[3]);
+        }
+        const int c0 = grp * kBodyChains;
+#pragma unroll
+        for (int r = 0; r < kBodyChains; ++r) {
+            if (c0 + r < cb) {
+                float* gc = sm + g_off + (c0 + r) * n;
+                gc[j] = -a[r];
+                if (two) gc[j2] = -b[r];
+            }
+        }
+    }
+}
+
+// block_quadform for the block transition's kernels: P where stage_body
+// put it (T.lam, shared or global memory).
+__device__ __forceinline__ void block_product(const TreeConsts& T, int qt_off, int g_off) {
+    if (__isShared(T.lam))
+        block_quadform<true>(qt_off, nullptr, smem_offset(T.lam), g_off, T.n, T.cb);
+    else
+        block_quadform<false>(qt_off, T.lam, 0, g_off, T.n, T.cb);
+}
+
+// The lane's elements i = lane, lane + 32, ... < n, TRIPS at a time: in
+// each group load(k, i) for every trip k, then use(k, i) for every trip,
+// in order (a lane's sums add its elements in the order of a plain loop).
+template <int TRIPS = kTrips, class Load, class Use>
+__device__ __forceinline__ void lane_trips(int n, int lane, Load&& load, Use&& use) {
+    for (int base = lane; base < n; base += 32 * TRIPS) {
+#pragma unroll
+        for (int k = 0; k < TRIPS; ++k)
+            if (base + 32 * k < n) load(k, base + 32 * k);
+#pragma unroll
+        for (int k = 0; k < TRIPS; ++k)
+            if (base + 32 * k < n) use(k, base + 32 * k);
+    }
+}
+
+// K warp sums at once: one xor butterfly, each round's K shuffles
+// independent; each sum has warp_sum's bits.
+template <int K>
+__device__ __forceinline__ void warp_sums(float (&v)[K]) {
+#pragma unroll
+    for (int o = 16; o > 0; o >>= 1) {
+#pragma unroll
+        for (int k = 0; k < K; ++k) v[k] += __shfl_xor_sync(0xffffffffu, v[k], o);
+    }
+}
+
+// The block transition's gradient at each chain's proposal q (this warp's
+// row of a [cb][n] layout in shared memory) into g (likewise); every
+// thread of the block calls it. Body 1 stages every warp's q and
+// evaluates the block in one product.
+template <int BODY>
+__device__ __forceinline__ void proposal_grad(const TreeConsts& T, const BlockState& BS,
+                                              const float* q, float* g, int w, int lane) {
+    if constexpr (BODY == 1) {
+        const int n = T.n, stride = staged_stride(T.cb), qt_off = smem_offset(BS.qt);
+        float* sm = dyn_smem();
+        for (int i = lane; i < n; i += 32) sm[qt_off + i * stride + w] = q[i];
+        __syncthreads();  // every warp's q is staged, and done reading its last g
+        block_product(T, qt_off, smem_offset(g) - w * n);
+        __syncthreads();  // every g is written
+    } else {
+        (void)BS;
+        (void)w;
+        model_eval<BODY>(q, g, T.lam, T.n, T.rows, lane, consts_scratch(T));
+    }
+}
+
 // The velocity of p into out for kDense (p @ COV) or kLowRank (s the
 // chain's scales); kDiag computes its velocity where it is used.
 template <int METRIC>
@@ -663,6 +947,7 @@ __device__ TreeResult transition(const TreeConsts& T, const WarpVecs& V, float* 
     };
     auto ssc = [&](float* arr, int s) -> float& { return arr[s * cb + w]; };
 
+    LMC_CLK_BEGIN();
     for (int i = lane; i < n; i += 32) {
         const float q = q0[i], p = p0[i], g = g0[i];
         lq[i] = q; rq[i] = q; prq[i] = q;
@@ -701,10 +986,14 @@ __device__ TreeResult transition(const TreeConsts& T, const WarpVecs& V, float* 
         bool bld = active, sdv = false, stn = false;
         const int n_total = 1 << depth;
         int leaf = 0, h = 0;
+        LMC_CLK(kClkOther);
         bool go_l = __syncthreads_or(bld);
+        LMC_CLK_VOTE(bld);
         while (leaf < n_total && go_l) {
             float dE = 0.f, lpaw = 0.f;
             bool div_leaf = false;
+            const bool was_bld = bld;
+            LMC_CLK_LEAF(bld);
             if (bld) {
                 // one symplectic step (reference integration.py:100-121)
                 const float kick0 = T.b[0] * epss;
@@ -718,7 +1007,9 @@ __device__ TreeResult transition(const TreeConsts& T, const WarpVecs& V, float* 
                         for (int i = lane; i < n; i += 32) cq[i] = cq[i] + drift * (vv[i] * cp[i]);
                     }
                     __syncwarp();
+                    LMC_CLK(kClkLeapfrog);
                     c_lp = model_eval<BODY>(cq, cg, T.lam, n, T.rows, lane, consts_scratch(T));
+                    LMC_CLK(kClkBody);
                     const float kick = T.b[s + 1] * epss;
                     for (int i = lane; i < n; i += 32) cp[i] = cp[i] + kick * cg[i];
                 }
@@ -729,7 +1020,9 @@ __device__ TreeResult transition(const TreeConsts& T, const WarpVecs& V, float* 
                 } else {
                     for (int i = lane; i < n; i += 32) part += cp[i] * (vv[i] * cp[i]);
                 }
+                LMC_CLK(kClkLeapfrog);
                 c_e = 0.5f * warp_sum(part) - c_lp;
+                LMC_CLK(kClkWarpSums);
 
                 dE = c_e - E0;
                 if (isnan(dE)) dE = CUDART_INF_F;
@@ -740,11 +1033,14 @@ __device__ TreeResult transition(const TreeConsts& T, const WarpVecs& V, float* 
             }
             bool mrg = bld && !div_leaf;
             const bool is_odd = leaf & 1;
+            LMC_CLK(kClkOther);
             const bool go_m0 = __syncthreads_or(mrg);
+            LMC_CLK_VOTE(was_bld);
             if (!is_odd) {
                 if (mrg) {  // a leaf slot has left p == right p == p sum
                     float *dps = slot(2, h), *dq = slot(3, h);
                     for (int i = lane; i < n; i += 32) { dps[i] = cp[i]; dq[i] = cq[i]; }
+                    LMC_CLK(kClkLeafStore);
                     if (lane == 0) {
                         ssc(s_e, h) = c_e; ssc(s_lpp, h) = c_lp;
                         ssc(s_ls, h) = -dE; ssc(s_lw, h) = lpaw;
@@ -766,6 +1062,7 @@ __device__ TreeResult transition(const TreeConsts& T, const WarpVecs& V, float* 
                         velocity<METRIC>(cov, vv, sps, V.va, n, lane);  // the even leaf's
                         velocity<METRIC>(cov, vv, cp, V.vb, n, lane);   // and this leaf's
                     }
+                    LMC_CLK(kClkOther);
                     float d1 = 0.f, d2 = 0.f;
                     for (int i = lane; i < n; i += 32) {
                         const float t1p = sps[i], t2p = cp[i];
@@ -781,8 +1078,10 @@ __device__ TreeResult transition(const TreeConsts& T, const WarpVecs& V, float* 
                         slp[i] = t1p; srp[i] = t2p; sps[i] = ps;
                         if (take2) sq[i] = cq[i];
                     }
+                    LMC_CLK(kClkMerge);
                     d1 = warp_sum(d1);
                     d2 = warp_sum(d2);
+                    LMC_CLK(kClkWarpSums);
                     if (lane == 0) {
                         if (take2) { ssc(s_e, s) = c_e; ssc(s_lpp, s) = c_lp; }
                         ssc(s_ls, s) = ls; ssc(s_lw, s) = lw;
@@ -794,7 +1093,9 @@ __device__ TreeResult transition(const TreeConsts& T, const WarpVecs& V, float* 
 
             // one in-place merge per trailing one-bit of leaf past bit 0
             int j = 1, hh = h - (is_odd ? 1 : 0);
+            LMC_CLK(kClkOther);
             bool go_m = __syncthreads_or(mrg) && is_odd;
+            LMC_CLK_VOTE(was_bld);
             while (((leaf >> j) & 1) && go_m) {
                 const float u = uniform();
                 if (mrg) {
@@ -812,6 +1113,7 @@ __device__ TreeResult transition(const TreeConsts& T, const WarpVecs& V, float* 
                         velocity<METRIC>(cov, vv, b_lp, V.vc, n, lane);
                         velocity<METRIC>(cov, vv, b_rp, V.vd, n, lane);
                     }
+                    LMC_CLK(kClkOther);
                     float d[6] = {0.f, 0.f, 0.f, 0.f, 0.f, 0.f};
                     for (int i = lane; i < n; i += 32) {
                         const float t1lp = a_lp[i], t1rp = a_rp[i], t1ps = a_ps[i];
@@ -837,9 +1139,11 @@ __device__ TreeResult transition(const TreeConsts& T, const WarpVecs& V, float* 
                         a_ps[i] = ps;
                         if (take2) a_q[i] = b_q[i];
                     }
+                    LMC_CLK(kClkMerge);
                     bool turn = false;
 #pragma unroll
                     for (int k = 0; k < 6; ++k) turn |= warp_sum(d[k]) <= 0.f;
+                    LMC_CLK(kClkWarpSums);
                     if (lane == 0) {
                         if (take2) { ssc(s_e, s1) = ssc(s_e, s2); ssc(s_lpp, s1) = ssc(s_lpp, s2); }
                         ssc(s_ls, s1) = ls; ssc(s_lw, s1) = lw;
@@ -847,7 +1151,9 @@ __device__ TreeResult transition(const TreeConsts& T, const WarpVecs& V, float* 
                     __syncwarp();
                     mrg = mrg && !turn;
                 }
+                LMC_CLK(kClkOther);
                 go_m = __syncthreads_or(mrg);
+                LMC_CLK_VOTE(was_bld);
                 ++j;
                 --hh;
             }
@@ -856,7 +1162,9 @@ __device__ TreeResult transition(const TreeConsts& T, const WarpVecs& V, float* 
             sdv = sdv || div_leaf;
             stn = stn || turned;
             bld = bld && !div_leaf && !turned;
+            LMC_CLK(kClkOther);
             go_l = __syncthreads_or(bld);
+            LMC_CLK_VOTE(was_bld);
             ++leaf;
             h = hh + 1;
         }
@@ -883,6 +1191,7 @@ __device__ TreeResult transition(const TreeConsts& T, const WarpVecs& V, float* 
                 velocity<METRIC>(cov, vv, nlp, V.vd, n, lane);
                 velocity<METRIC>(cov, vv, nrp, vs, n, lane);
             }
+            LMC_CLK(kClkOther);
             float d[6] = {0.f, 0.f, 0.f, 0.f, 0.f, 0.f};
             for (int i = lane; i < n; i += 32) {
                 const float n_ps = nps[i], n_lp = nlp[i], n_rp = nrp[i];
@@ -923,8 +1232,10 @@ __device__ TreeResult transition(const TreeConsts& T, const WarpVecs& V, float* 
                     d[5] += ps2 * (v * p2b);
                 }
             }
+            LMC_CLK(kClkMerge);
 #pragma unroll
             for (int k = 0; k < 6; ++k) turning_new |= warp_sum(d[k]) <= 0.f;
+            LMC_CLK(kClkWarpSums);
         }
         const bool sel_turn = ok ? turning_new : stn;
         if (active) {
@@ -933,16 +1244,426 @@ __device__ TreeResult transition(const TreeConsts& T, const WarpVecs& V, float* 
             ++depth_c;
         }
         const bool nxt = !div && !trn && depth_c < mdc;
+        LMC_CLK(kClkOther);
         const bool any_nxt = __syncthreads_or(nxt);
+        LMC_CLK_VOTE(active);
         cont = (depth + 1) < max_sched && any_nxt;
         ++depth;
     }
     __syncwarp();
+    LMC_CLK(kClkOther);
+    LMC_CLK_FLUSH(chain, lane);
 
     TreeResult r;
     r.pr_e = pr_e; r.pr_lp = pr_lp; r.log_size = acc_ls; r.lwas = acc_lw; r.mec = mec;
     r.depth = depth_c; r.n_leaves = nlv; r.diverging = div; r.turning = trn;
     return r;
+}
+
+// `transition` for bodies 0 and 1 with the diagonal metric in blocks of
+// up to kBlockChains chains, redesigned for Hopper (see kBlockChains
+// above): the same arguments, with BS the block's shared-memory state;
+// the same result, to the bit.
+template <int BODY>
+__device__ TreeResult block_transition(const TreeConsts& T, const BlockState& BS,
+                                       const WarpVecs& V, float* slot_sc, int chain, int w,
+                                       int lane, const float* q0, const float* p0,
+                                       const float* g0, float lp0, float E0, float eps, int mdc,
+                                       uint32_t salt) {
+    static_assert(BODY == 0 || BODY == 1, "the block transition takes bodies 0 and 1");
+    constexpr int K = kTrips;
+    const int n = T.n, cb = T.cb, D = T.D, C = T.C, S = BS.smem_slots;
+    const int stride = staged_stride(cb);
+    float *lq = V.lq, *lp = V.lp, *lg = V.lg, *rq = V.rq, *rp = V.rp, *rg = V.rg;
+    float *cq = V.cq, *cp = V.cp, *cg = V.cg, *prq = V.prq, *psum = V.psum;
+    const float* vv = V.vv;
+    // body 1's staged positions and the block's gradients, as offsets into
+    // shared memory (block_quadform)
+    float* sm = dyn_smem();
+    const int qt_off = BODY == 1 ? smem_offset(BS.qt) : 0, g_off = smem_offset(cg) - w * n;
+    const int stages = T.n_stages;
+    const float b0 = T.b[0], b1 = T.b[1], b2 = T.b[2], b3 = T.b[3];
+    const float a0 = T.a[0], a1 = T.a[1], a2 = T.a[2];
+
+    float* s_e = slot_sc;                        // [D][cb] proposal energy
+    float* s_lpp = slot_sc + (size_t)D * cb;     // proposal logp
+    float* s_ls = slot_sc + (size_t)2 * D * cb;  // log size
+    float* s_lw = slot_sc + (size_t)3 * D * cb;  // log weighted accept sum
+    __shared__ int max_sched_sh;
+
+    // slot s's four vectors (left p, right p, p sum, proposal q): the
+    // shared slots laid out [S][4][cb][n], the global ones [D][4][C][n]
+    // (the global stack's [4][D][C][n] floats, as this transition's own
+    // scratch)
+    struct Slot { float *lp, *rp, *ps, *q; };
+    auto slot = [&](int s) -> Slot {
+        float* base;
+        size_t k;
+        if (s < S) {
+            base = BS.sstack + ((size_t)s * 4 * cb + w) * n;
+            k = (size_t)cb * n;
+        } else {
+            base = T.stack + ((size_t)s * 4 * C + chain) * n;
+            k = (size_t)C * n;
+        }
+        return {base, base + k, base + 2 * k, base + 3 * k};
+    };
+    auto ssc = [&](float* arr, int s) -> float& { return arr[s * cb + w]; };
+
+    LMC_CLK_BEGIN();
+    {
+        float q[K], p[K], g[K];
+        lane_trips(n, lane, [&](int k, int i) { q[k] = q0[i]; p[k] = p0[i]; g[k] = g0[i]; },
+                   [&](int k, int i) {
+                       lq[i] = q[k]; rq[i] = q[k]; prq[i] = q[k];
+                       lp[i] = p[k]; rp[i] = p[k]; psum[i] = p[k];
+                       lg[i] = g[k]; rg[i] = g[k];
+                   });
+    }
+
+    __syncthreads();  // the previous call's readers of max_sched_sh are done
+    if (threadIdx.x == 0) max_sched_sh = 0;
+    __syncthreads();
+    if (lane == 0) atomicMax(&max_sched_sh, mdc);
+    __syncthreads();
+    const int max_sched = min(max_sched_sh, D);
+
+    uint32_t calls = 0;
+    auto uniform = [&]() -> float { return counter_uniform(salt, ++calls); };
+
+    float acc_ls = 0.f, acc_lw = -CUDART_INF_F, mec = 0.f;
+    int depth_c = 0, nlv = 0;
+    bool div = false, trn = false;
+    float pr_e = E0, pr_lp = lp0, c_e = E0, c_lp = lp0;
+
+    int depth = 0;
+    bool cont = max_sched > 0;
+    while (cont) {
+        const bool active = !div && !trn && depth_c < mdc;
+        const bool go_right = uniform() < 0.5f;
+        const float epss = go_right ? eps : -eps;
+        {
+            const float *sq = go_right ? rq : lq, *sp = go_right ? rp : lp,
+                        *sg = go_right ? rg : lg;
+            float q[K], p[K], g[K];
+            lane_trips(n, lane, [&](int k, int i) { q[k] = sq[i]; p[k] = sp[i]; g[k] = sg[i]; },
+                       [&](int k, int i) { cq[i] = q[k]; cp[i] = p[k]; cg[i] = g[k]; });
+            __syncwarp();
+        }
+        bool bld = active, sdv = false, stn = false;
+        const int n_total = 1 << depth;
+        int leaf = 0, h = 0;
+        LMC_CLK(kClkOther);
+        bool go_l = __syncthreads_or(bld);
+        LMC_CLK_VOTE(bld);
+        while (leaf < n_total && go_l) {
+            float dE = 0.f, lpaw = 0.f;
+            bool div_leaf = false;
+            const bool was_bld = bld;
+            LMC_CLK_LEAF(bld);
+            // one symplectic step (reference integration.py:100-121): each
+            // stage's kick (the first stage's), drift and staging in one
+            // pass, the block's product, then the log density, the next kick
+            // and after the last stage the kinetic energy in one pass
+            for (int s = 0; s < stages; ++s) {
+                const bool first = s == 0, last = s + 1 == stages;
+                if (bld) {
+                    const float kick0 = b0 * epss;
+                    const float drift = (s == 0 ? a0 : s == 1 ? a1 : a2) * epss;
+                    float p[K], g[K], q[K], v[K];
+                    lane_trips(n, lane,
+                               [&](int k, int i) {
+                                   p[k] = cp[i]; q[k] = cq[i]; v[k] = vv[i];
+                                   if (first) g[k] = cg[i];
+                               },
+                               [&](int k, int i) {
+                                   float pk = p[k];
+                                   if (first) {
+                                       pk = pk + kick0 * g[k];
+                                       cp[i] = pk;
+                                   }
+                                   const float qk = q[k] + drift * (v[k] * pk);
+                                   cq[i] = qk;
+                                   if (BODY == 1) sm[qt_off + i * stride + w] = qk;
+                               });
+                }
+                LMC_CLK(kClkLeapfrog);
+                if constexpr (BODY == 1) {
+                    __syncthreads();  // every chain's q is staged, and its last g read
+                    block_product(T, qt_off, g_off);
+                    __syncthreads();  // every g is written
+                }
+                LMC_CLK(kClkBody);
+                if (bld) {
+                    const float kick = (s == 0 ? b1 : s == 1 ? b2 : b3) * epss;
+                    float sums[2] = {0.f, 0.f};  // the body's sum, p.(vv p) after the last stage
+                    float p[K], g[K], q[K], v[K];
+                    lane_trips(n, lane,
+                               [&](int k, int i) {
+                                   q[k] = cq[i]; p[k] = cp[i]; v[k] = vv[i];
+                                   if (BODY == 1) g[k] = cg[i];
+                               },
+                               [&](int k, int i) {
+                                   // body 0: logp = -q.q/2, grad = -q; body 1: logp = q.grad/2
+                                   float gk;
+                                   if (BODY == 1) {
+                                       gk = g[k];
+                                       sums[0] += q[k] * gk;
+                                   } else {
+                                       gk = -q[k];
+                                       sums[0] += q[k] * q[k];
+                                       cg[i] = gk;
+                                   }
+                                   const float pk = p[k] + kick * gk;
+                                   cp[i] = pk;
+                                   if (last) sums[1] += pk * (v[k] * pk);
+                               });
+                    LMC_CLK(kClkLeapfrog);
+                    warp_sums(sums);
+                    LMC_CLK(kClkWarpSums);
+                    c_lp = BODY == 1 ? 0.5f * sums[0] : -0.5f * sums[0];
+                    if (last) c_e = 0.5f * sums[1] - c_lp;
+                }
+            }
+            if (bld) {
+                dE = c_e - E0;
+                if (isnan(dE)) dE = CUDART_INF_F;
+                if (fabsf(dE) > fabsf(mec)) mec = dE;
+                div_leaf = !(fabsf(dE) < T.Emax);
+                ++nlv;
+                lpaw = -dE + fminf(0.f, -dE);
+            }
+            bool mrg = bld && !div_leaf;
+            const bool is_odd = leaf & 1;
+            LMC_CLK(kClkOther);
+            const bool go_m0 = __syncthreads_or(mrg);
+            LMC_CLK_VOTE(was_bld);
+            if (!is_odd) {
+                if (mrg) {  // a leaf slot has left p == right p == p sum
+                    const Slot sl = slot(h);
+                    float *dps = sl.ps, *dq = sl.q;
+                    float p[K], q[K];
+                    lane_trips(n, lane, [&](int k, int i) { p[k] = cp[i]; q[k] = cq[i]; },
+                               [&](int k, int i) { dps[i] = p[k]; dq[i] = q[k]; });
+                    LMC_CLK(kClkLeafStore);
+                    if (lane == 0) {
+                        ssc(s_e, h) = c_e; ssc(s_lpp, h) = c_lp;
+                        ssc(s_ls, h) = -dE; ssc(s_lw, h) = lpaw;
+                    }
+                }
+            } else if (go_m0) {
+                // leaf (+) leaf, peeled (nuts_trajectory_pallas.py:505-538)
+                const float u = uniform();
+                if (mrg) {
+                    __syncwarp();
+                    const int s = h - 1;
+                    const float t2_ls = -dE;
+                    const float ls = logaddexp(ssc(s_ls, s), t2_ls);
+                    const float lw = logaddexp(ssc(s_lw, s), lpaw);
+                    const bool take2 = logf(u) < t2_ls - ls;
+                    const Slot sl = slot(s);
+                    float *slp = sl.lp, *srp = sl.rp, *sps = sl.ps, *sq = sl.q;
+                    LMC_CLK(kClkOther);
+                    float d[2] = {0.f, 0.f};
+                    float t1[K], t2[K], v[K], q[K];
+                    lane_trips(n, lane,
+                               [&](int k, int i) {
+                                   t1[k] = sps[i]; t2[k] = cp[i]; v[k] = vv[i];
+                                   q[k] = cq[i];
+                               },
+                               [&](int k, int i) {
+                                   const float ps = t1[k] + t2[k];
+                                   d[0] += ps * (v[k] * t1[k]);
+                                   d[1] += ps * (v[k] * t2[k]);
+                                   slp[i] = t1[k]; srp[i] = t2[k]; sps[i] = ps;
+                                   if (take2) sq[i] = q[k];
+                               });
+                    LMC_CLK(kClkMerge);
+                    warp_sums(d);
+                    LMC_CLK(kClkWarpSums);
+                    if (lane == 0) {
+                        if (take2) { ssc(s_e, s) = c_e; ssc(s_lpp, s) = c_lp; }
+                        ssc(s_ls, s) = ls; ssc(s_lw, s) = lw;
+                    }
+                    mrg = !(d[0] <= 0.f || d[1] <= 0.f);
+                }
+            }
+            __syncwarp();
+
+            // one in-place merge per trailing one-bit of leaf past bit 0
+            int j = 1, hh = h - (is_odd ? 1 : 0);
+            LMC_CLK(kClkOther);
+            bool go_m = __syncthreads_or(mrg) && is_odd;
+            LMC_CLK_VOTE(was_bld);
+            while (((leaf >> j) & 1) && go_m) {
+                const float u = uniform();
+                if (mrg) {
+                    const int s1 = hh - 1, s2 = hh;
+                    const float ls = logaddexp(ssc(s_ls, s1), ssc(s_ls, s2));
+                    const float lw = logaddexp(ssc(s_lw, s1), ssc(s_lw, s2));
+                    const bool take2 = logf(u) < ssc(s_ls, s2) - ls;
+                    const Slot sa = slot(s1), sb = slot(s2);
+                    float *a_lp = sa.lp, *a_rp = sa.rp, *a_ps = sa.ps, *a_q = sa.q;
+                    const float *b_lp = sb.lp, *b_rp = sb.rp, *b_ps = sb.ps, *b_q = sb.q;
+                    LMC_CLK(kClkOther);
+                    float d[6] = {0.f, 0.f, 0.f, 0.f, 0.f, 0.f};
+                    float t1lp[K], t1rp[K], t1ps[K], t2lp[K], t2rp[K], t2ps[K], v[K], q[K];
+                    lane_trips(n, lane,
+                               [&](int k, int i) {
+                                   t1lp[k] = a_lp[i]; t1rp[k] = a_rp[i]; t1ps[k] = a_ps[i];
+                                   t2lp[k] = b_lp[i]; t2rp[k] = b_rp[i]; t2ps[k] = b_ps[i];
+                                   v[k] = vv[i];
+                                   q[k] = b_q[i];
+                               },
+                               [&](int k, int i) {
+                                   const float vt1lp = v[k] * t1lp[k], vt1rp = v[k] * t1rp[k];
+                                   const float vt2lp = v[k] * t2lp[k], vt2rp = v[k] * t2rp[k];
+                                   const float ps = t1ps[k] + t2ps[k];
+                                   d[0] += ps * vt1lp;
+                                   d[1] += ps * vt2rp;
+                                   const float ps1 = t1ps[k] + t2lp[k];
+                                   d[2] += ps1 * vt1lp;
+                                   d[3] += ps1 * vt2lp;
+                                   const float ps2 = t1rp[k] + t2ps[k];
+                                   d[4] += ps2 * vt1rp;
+                                   d[5] += ps2 * vt2rp;
+                                   a_rp[i] = t2rp[k];
+                                   a_ps[i] = ps;
+                                   if (take2) a_q[i] = q[k];
+                               });
+                    LMC_CLK(kClkMerge);
+                    warp_sums(d);
+                    bool turn = false;
+#pragma unroll
+                    for (int k = 0; k < 6; ++k) turn |= d[k] <= 0.f;
+                    LMC_CLK(kClkWarpSums);
+                    if (lane == 0) {
+                        if (take2) { ssc(s_e, s1) = ssc(s_e, s2); ssc(s_lpp, s1) = ssc(s_lpp, s2); }
+                        ssc(s_ls, s1) = ls; ssc(s_lw, s1) = lw;
+                    }
+                    __syncwarp();
+                    mrg = mrg && !turn;
+                }
+                LMC_CLK(kClkOther);
+                go_m = __syncthreads_or(mrg);
+                LMC_CLK_VOTE(was_bld);
+                ++j;
+                --hh;
+            }
+
+            const bool turned = bld && !div_leaf && !mrg;
+            sdv = sdv || div_leaf;
+            stn = stn || turned;
+            bld = bld && !div_leaf && !turned;
+            LMC_CLK(kClkOther);
+            go_l = __syncthreads_or(bld);
+            LMC_CLK_VOTE(was_bld);
+            ++leaf;
+            h = hh + 1;
+        }
+        __syncwarp();
+
+        // the finished subtree is slot 0; a depth-0 subtree is one leaf
+        const float u = uniform();
+        const bool ok = active && !sdv && !stn;
+        bool turning_new = false;
+        if (ok) {
+            // multinomial swap against the old tree (reference nuts.py:321-323)
+            const float n_ls = ssc(s_ls, 0), n_lw = ssc(s_lw, 0);
+            const bool take_new = logf(u) < n_ls - acc_ls;
+            if (take_new) { pr_e = ssc(s_e, 0); pr_lp = ssc(s_lpp, 0); }
+            acc_ls = logaddexp(acc_ls, n_ls);
+            acc_lw = logaddexp(acc_lw, n_lw);
+            const Slot s0 = slot(0);
+            const float *nlp = depth == 0 ? s0.ps : s0.lp, *nrp = depth == 0 ? s0.ps : s0.rp,
+                        *nps = s0.ps, *nq = s0.q;
+            LMC_CLK(kClkOther);
+            float d[6] = {0.f, 0.f, 0.f, 0.f, 0.f, 0.f};
+            constexpr int K2 = 2;  // trips at a time: 11 values a trip are live
+            float xps[K2], xlp[K2], xrp[K2], xq[K2], ops[K2], olp[K2], orp[K2];
+            float q[K2], p[K2], g[K2], v[K2];
+            lane_trips<K2>(n, lane,
+                       [&](int k, int i) {
+                           xps[k] = nps[i]; xlp[k] = nlp[i]; xrp[k] = nrp[i];
+                           if (take_new) xq[k] = nq[i];
+                           ops[k] = psum[i]; olp[k] = lp[i]; orp[k] = rp[i];
+                           q[k] = cq[i]; p[k] = cp[i]; g[k] = cg[i]; v[k] = vv[i];
+                       },
+                       [&](int k, int i) {
+                           const float n_ps = xps[k], n_lp = xlp[k], n_rp = xrp[k];
+                           if (take_new) prq[i] = xq[k];
+                           const float old_ps = ops[k];
+                           const float pst = old_ps + n_ps;
+                           psum[i] = pst;
+                           const float old_l_p = olp[k], old_r_p = orp[k];
+                           float new_l_p = old_l_p, new_r_p = old_r_p;
+                           if (go_right) {
+                               rq[i] = q[k]; rp[i] = p[k]; rg[i] = g[k]; new_r_p = p[k];
+                           } else {
+                               lq[i] = q[k]; lp[i] = p[k]; lg[i] = g[k]; new_l_p = p[k];
+                           }
+                           // 3-way U-turn on the merged span (reference nuts.py:332-340)
+                           const float ps1 = go_right ? old_ps + n_lp : n_ps + old_l_p;
+                           const float ps2 = go_right ? old_r_p + n_ps : n_lp + old_ps;
+                           const float vk = v[k];
+                           d[0] += pst * (vk * new_l_p);
+                           d[1] += pst * (vk * new_r_p);
+                           const float p1a = go_right ? old_l_p : n_rp;
+                           const float p1b = go_right ? n_lp : old_l_p;
+                           d[2] += ps1 * (vk * p1a);
+                           d[3] += ps1 * (vk * p1b);
+                           const float p2a = go_right ? old_r_p : n_lp;
+                           const float p2b = go_right ? n_rp : old_r_p;
+                           d[4] += ps2 * (vk * p2a);
+                           d[5] += ps2 * (vk * p2b);
+                       });
+            LMC_CLK(kClkMerge);
+            warp_sums(d);
+#pragma unroll
+            for (int k = 0; k < 6; ++k) turning_new |= d[k] <= 0.f;
+            LMC_CLK(kClkWarpSums);
+        }
+        const bool sel_turn = ok ? turning_new : stn;
+        if (active) {
+            trn = trn || sel_turn;
+            div = div || sdv;
+            ++depth_c;
+        }
+        const bool nxt = !div && !trn && depth_c < mdc;
+        LMC_CLK(kClkOther);
+        const bool any_nxt = __syncthreads_or(nxt);
+        LMC_CLK_VOTE(active);
+        cont = (depth + 1) < max_sched && any_nxt;
+        ++depth;
+    }
+    __syncwarp();
+    LMC_CLK(kClkOther);
+    LMC_CLK_FLUSH(chain, lane);
+
+    TreeResult r;
+    r.pr_e = pr_e; r.pr_lp = pr_lp; r.log_size = acc_ls; r.lwas = acc_lw; r.mec = mec;
+    r.depth = depth_c; r.n_leaves = nlv; r.diverging = div; r.turning = trn;
+    return r;
+}
+
+
+// The transition an instance runs: the block transition (BLOCK) or the
+// warp transition.
+template <int BODY, int METRIC, bool BLOCK>
+__device__ __forceinline__ TreeResult any_transition(const TreeConsts& T, const BlockState& BS,
+                                                     const WarpVecs& V, float* slot_sc,
+                                                     int chain, int w, int lane, const float* q0,
+                                                     const float* p0, const float* g0,
+                                                     float lp0, float E0, float eps, int mdc,
+                                                     uint32_t salt) {
+    if constexpr (BLOCK) {
+        return block_transition<BODY>(T, BS, V, slot_sc, chain, w, lane, q0, p0, g0, lp0, E0,
+                                      eps, mdc, salt);
+    } else {
+        (void)BS;
+        return transition<BODY, METRIC>(T, V, slot_sc, chain, w, lane, q0, p0, g0, lp0, E0,
+                                        eps, mdc, salt);
+    }
 }
 
 }  // namespace lmc

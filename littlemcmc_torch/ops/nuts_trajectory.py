@@ -55,7 +55,9 @@ __all__ = ["TrajectorySpec", "fmix32", "counter_salt", "counter_uniform",
            "lowrank_fac_size", "build_lowrank_fac", "warp_sum", "thin_dots"]
 
 # Chains per CUDA thread block, one warp per chain: 128 blocks at the
-# main path's 1024 chains for the card's 132 SMs.
+# main path's 1024 chains for the card's 132 SMs. Bodies 0 and 1 with the
+# diagonal metric run the block transition (csrc/nuts_transition.cuh) in
+# blocks of up to 8 chains, the warp transition in larger ones.
 DEFAULT_CHAIN_BLOCK = 8
 # 16 warps of 32 threads at up to 128 registers fill an SM's 65,536; the
 # low-rank metric's instances take 8 warps of up to 255 registers
@@ -740,7 +742,9 @@ def _launch_kernel(q, p, grad, logp, eps, max_depth_c, var, seed, *, spec,
         out[k] = torch.empty(C, dtype=torch.int32, device=q.device)
     for k in _OUT_BOOL:
         out[k] = torch.empty(C, dtype=torch.bool, device=q.device)
-    # merge stack: (left p, right p, p sum, proposal q) x D slots x C x n
+    # merge stack: (left p, right p, p sum, proposal q) x D slots x C x n (the
+    # block transition keeps its lower slots in shared memory and uses this
+    # for the rest)
     stack = torch.empty((4, D, C, n), dtype=torch.float32, device=q.device)
     consts = spec.kernel_consts.data_ptr() if spec.kernel_consts is not None else 0
 

@@ -23,7 +23,15 @@ trajectory kernel's model bodies that the port's paths spend most in:
 the logistic body (3) at ``chip_smoke.py``'s phase 2k input and at path
 (B)'s final state, and the generated ``HierarchicalRegression`` body at
 H1's final state (1024 chains each, tree depth 10; CUDA events and the
-device time under ``torch.profiler``). The inputs are made with numpy
+device time under ``torch.profiler``). Then rows 1 diag and 2b body 1,
+the NUTS transition's body-1 diag instances (the per-draw launch and a
+250-draw fused launch, 1024 chains), at phase 2's input and at the main
+path's final state: ms a launch (CUDA events), a digest of the outputs
+(equal digests: the two checkouts give the same bits), and from a build
+with the section clocks the grid's tail share and the sections' shares
+(``scripts/torch_transition_clocks.py``, whose main-path state, in
+``build/transition_clocks_state.pt``, the first run samples with its
+checkout and the later ones load). The inputs are made with numpy
 from fixed seeds, so two checkouts see the same work; the final states
 come from ``build/kernel_ab_states.pt`` beside this script, which the
 first run samples (``sample()`` of the checkout it runs, seed 42: path
@@ -145,6 +153,30 @@ def _body_times(states_path: Path) -> dict:
     return out
 
 
+def _transition_rows(root: Path) -> dict:
+    """Rows 1 diag and 2b body 1 at phase 2's input and the main path's
+    final state (:func:`torch_transition_clocks.run_clocks`): ms a launch
+    of the package's build, its output digest, the tail share, the
+    wait and body shares of a warp's cycles and the cycles a leaf step,
+    and the clocked build's ptxas lines."""
+    sys.path.insert(0, str(Path(__file__).resolve().parent))
+    import torch_transition_clocks as tc
+
+    here = Path(__file__).resolve().parents[1]
+    out = {}
+    for r in tc.run_clocks(root, here / "build" / "transition_clocks_state.pt",
+                           here / "build" / "transition_clocks"):
+        key = f"{r['kernel']}_diag_{r['case']}"
+        out[f"{key}_ms"] = r["plain_build_ms"]
+        out[f"{key}_digest"] = r["digest"]
+        for k in ("tail_share", "block_ms_mean", "block_ms_max", "share_body", "share_wait",
+                  "cycles_per_step", "mean_leaves_per_chain_draw", "max_depth"):
+            if k in r:
+                out[f"{key}_{k}"] = r[k]
+        out[f"ptxas_clocks_{r['kernel']}"] = r["ptxas_clocks"]
+    return out
+
+
 def main() -> int:
     root = Path(sys.argv[1] if len(sys.argv) > 1 else Path(__file__).resolve().parents[1])
     states_path = Path(__file__).resolve().parents[1] / "build" / "kernel_ab_states.pt"
@@ -227,6 +259,7 @@ def main() -> int:
             model_ms[f"{name}_device_ms"] = _device_ms(fn, f"{name}_kernel", 200)
             model_ms[f"{name}_leaf_ms"] = _leaf_ms(fn, reps=300, warmup=20)
     model_ms.update(_body_times(states_path))
+    model_ms.update(_transition_rows(root))
 
     smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
                          capture_output=True, text=True, timeout=60).stdout.strip()

@@ -1,0 +1,305 @@
+#!/usr/bin/env python3
+"""Where the NUTS transition's time goes on the card, section by section.
+
+    python3 scripts/torch_transition_clocks.py [ROOT]
+
+Builds the per-draw trajectory kernel (``nuts_trajectory.cu``) and the
+fused NUTS kernel (``fused_nuts.cu``) of the checkout at ROOT (default:
+the one this script is in) a second time with ``-DLMC_TRANSITION_CLOCKS``,
+which compiles in the section clocks of ``csrc/nuts_transition.cuh``
+(the package's own build never sets it), and runs their body-1 diag
+instances (the 100-d correlated Gaussian, 1024 chains, tree depth 10)
+through the package's wrappers at two inputs: ``chip_smoke.py``'s phase-2
+input (stationary, step 0.2) and the main path's final state
+(``sample(CorrelatedGaussian(100).logp_grad, model_ndim=100,
+chains=1024, tune=500, draws=1000, random_seed=42)``; sampled once with
+ROOT's package and kept in ``build/transition_clocks_state.pt`` beside
+this script, so that every checkout timed in one call sees the same
+state). The fused kernel runs a 250-draw draw chunk from each.
+
+For each launch it prints one JSON line:
+
+- ``ms`` (CUDA events, the instrumented build) and ``plain_build_ms`` (the
+  package's own build, the same launch): the instrumentation's cost;
+- the blocks' start and end on the global timer and their SMs: the
+  span, the blocks' busy times, and ``tail_share``, the share of SM-time
+  between the first start and the last end in which the SMs that ran a
+  block sat idle after their block had ended (``tail_share_all_sms``
+  counts the card's SMs that ran none, too);
+- the sections' shares of a warp's transition cycles (``clock()`` marks
+  in ``transition``): the body, the leapfrog's element-wise loops, an even
+  leaf's stack stores, the merges' stack traffic, the warp sums, the
+  block-wide votes while the chain builds (``sync``) and while it waits
+  for its block's deepest chain (``wait``), the rest; ``cycles_per_step``
+  each section's cycles per leaf step of the block, and the leaf steps and
+  leaves built per chain.
+
+Each line also holds ``digest``, a hash of the package build's outputs
+(every output tensor's bytes), so that two checkouts whose kernels round
+alike show the same digest. A checkout whose sources lack the clocks (no
+``transition_clocks_bind``) is timed without them. ``run_clocks`` is what
+``torch_kernel_ab.py`` calls.
+"""
+
+from __future__ import annotations
+
+import ctypes
+import hashlib
+import json
+import subprocess
+import sys
+import time
+from pathlib import Path
+
+SECTIONS = ("body", "leapfrog", "leaf_store", "merge", "warp_sums", "sync", "wait", "other")
+SLOTS = len(SECTIONS) + 2  # then leaf steps and leaves built (kClkSlots)
+C, N, DEPTH, CB = 1024, 100, 10, 8
+
+
+def _start_clocked(root: Path, out_dir: Path) -> dict:
+    """Start nvcc on ROOT's two NUTS kernels with the clocks, both at once,
+    into ``out_dir``/<hash of ROOT's sources> (a library already there is
+    kept): name -> (library path, log path, process or None)."""
+    from littlemcmc_torch.ops import _build
+
+    csrc = root / "littlemcmc_torch" / "ops" / "csrc"
+    h = hashlib.sha256(" ".join(_build.BUILD_FLAGS).encode())
+    for src in sorted(csrc.glob("*.cu*")):
+        h.update(src.name.encode() + src.read_bytes())
+    out_dir = out_dir / h.hexdigest()[:16]
+    out_dir.mkdir(parents=True, exist_ok=True)
+    procs = {}
+    for name in ("nuts_trajectory", "fused_nuts"):
+        lib, log = out_dir / f"lib{name}_clocks.so", out_dir / f"{name}_clocks.log"
+        proc = None
+        if not lib.exists():
+            cmd = [_build._nvcc(), *_build.BUILD_FLAGS, "-DLMC_TRANSITION_CLOCKS", "-o",
+                   str(lib), str(csrc / f"{name}.cu")]
+            proc = subprocess.Popen(cmd, stdout=open(log, "w"), stderr=subprocess.STDOUT)
+        procs[name] = (lib, log, proc)
+    return procs
+
+
+def _finish_clocked(procs: dict) -> dict:
+    """Wait for :func:`_start_clocked`'s builds: name -> (library path,
+    ptxas lines)."""
+    out = {}
+    for name, (lib, log, proc) in procs.items():
+        if proc is not None and proc.wait() != 0:
+            raise RuntimeError(f"nvcc failed on {name} with the clocks:\n{log.read_text()}")
+        out[name] = (lib, [ln.strip() for ln in log.read_text().splitlines()
+                           if "registers" in ln or "spill" in ln or "entry" in ln])
+    return out
+
+
+def _load_clocked(path: Path, name: str):
+    """The instrumented library with the package's signatures, and its
+    clock binder (None where the sources have no clocks)."""
+    from littlemcmc_torch.ops import _build
+
+    lib = _build._declare(ctypes.CDLL(str(path)), _build._SIGNATURES[name])
+    bind = getattr(lib, "transition_clocks_bind", None)
+    if bind is not None:
+        bind.restype, bind.argtypes = ctypes.c_int, [ctypes.c_void_p]
+    return lib, bind
+
+
+def _main_state(path: Path):
+    """The main path's final state (sampled once, then loaded)."""
+    import torch
+
+    if path.exists():
+        return torch.load(path)
+    from littlemcmc_torch import sample
+    from littlemcmc_torch.models import CorrelatedGaussian
+
+    cg = CorrelatedGaussian(N)
+    _, _, s = sample(cg.logp_grad, model_ndim=N, chains=C, tune=500, draws=1000,
+                     random_seed=42, return_final_state=True, progressbar=False,
+                     compute_convergence_checks=False)
+    da = s.da
+    state = {k: v.contiguous() for k, v in dict(
+        q=s.q, grad=s.q_grad, logp=s.logp, var=s.potential.var,
+        p=s.potential.sample_momentum(torch.Generator(device="cuda").manual_seed(7)),
+        iter=s.iter_count.float(), log_step=da.log_step, log_bar=da.log_bar, hbar=da.hbar,
+        count=da.count.float(), mu=da.mu).items()}
+    path.parent.mkdir(parents=True, exist_ok=True)
+    torch.save(state, path)
+    return state
+
+
+def _inputs(root: Path, state_path: Path) -> dict:
+    """name -> (kernel, positional args, seed words): each kernel at phase
+    2's input and at the main path's final state."""
+    import numpy as np
+    import torch
+
+    sys.path.insert(0, str(root))
+    import chip_smoke
+    from littlemcmc_torch.models import CorrelatedGaussian
+
+    cg = CorrelatedGaussian(N)
+    q, p, g, lp, eps, mdc, var = chip_smoke._stationary_inputs(
+        cg, np.linalg.cholesky(cg.cov), C, 0.2, seed=0)
+    s = _main_state(state_path)
+    full = torch.full((C,), DEPTH, dtype=torch.int32, device="cuda")
+    f = dict(dtype=torch.float32, device="cuda")
+    leps = torch.log(eps)
+    return {
+        "phase2": ("trajectory", (q, p, g, lp, eps, mdc, var), (17, 29)),
+        "main_final": ("trajectory", (s["q"], s["p"], s["grad"], s["logp"],
+                                      torch.exp(s["log_bar"]), full, s["var"]), (3, 8)),
+        "fused_phase2": ("fused_nuts", (q, g, lp, torch.full((C,), 1500.0, **f), leps, leps,
+                                        torch.zeros(C, **f), torch.full((C,), 40.0, **f),
+                                        leps + float(np.log(10.0)), var, None), (5, 9)),
+        "fused_main_final": ("fused_nuts", (s["q"], s["grad"], s["logp"], s["iter"],
+                                            s["log_step"], s["log_bar"], s["hbar"], s["count"],
+                                            s["mu"], s["var"], None), (5, 9)),
+    }
+
+
+def _tail(blocks, n_sms: int) -> dict:
+    """The grid's tail from the blocks' (start ns, end ns, SM) rows."""
+    import numpy as np
+
+    start, end, sm = (blocks[:, k].astype(np.float64) for k in range(3))
+    span = end.max() - start.min()
+    busy = {}
+    for s_, e_, m in zip(start, end, sm):  # an SM's busy time: its blocks' first start to last end
+        lo, hi = busy.get(m, (s_, e_))
+        busy[m] = (min(lo, s_), max(hi, e_))
+    used = sum(hi - lo for lo, hi in busy.values())
+    dur = end - start
+    return {"span_ms": span / 1e6, "blocks": int(len(start)), "sms_used": len(busy),
+            "block_ms_min": float(dur.min()) / 1e6, "block_ms_median": float(np.median(dur)) / 1e6,
+            "block_ms_mean": float(dur.mean()) / 1e6, "block_ms_max": float(dur.max()) / 1e6,
+            "tail_share": 1.0 - used / (len(busy) * span),
+            "tail_share_all_sms": 1.0 - used / (n_sms * span)}
+
+
+def _sections(rows) -> dict:
+    """Section shares and cycles per leaf step from the chains' rows."""
+    import numpy as np
+
+    cyc = rows[:, :len(SECTIONS)].astype(np.float64)
+    steps = rows[:, len(SECTIONS)].astype(np.float64)
+    built = rows[:, len(SECTIONS) + 1].astype(np.float64)
+    total = cyc.sum()
+    out = {f"share_{k}": float(cyc[:, i].sum() / total) for i, k in enumerate(SECTIONS)}
+    out.update({f"cycles_per_step_{k}": float(cyc[:, i].sum() / steps.sum())
+                for i, k in enumerate(SECTIONS)})
+    out.update(cycles_per_step=float(total / steps.sum()),
+               leaf_steps_per_chain=float(steps.mean()), leaves_built_per_chain=float(built.mean()))
+    return out
+
+
+def _digest(out: dict) -> str:
+    """A hash of every output tensor's bytes, in key order."""
+    h = hashlib.sha256()
+    for k in sorted(out):
+        if out[k] is not None:
+            h.update(k.encode())
+            h.update(out[k].contiguous().cpu().numpy().tobytes())
+    return h.hexdigest()[:16]
+
+
+def _ms(fn, reps: int) -> float:
+    import torch
+
+    fn()
+    start, end = (torch.cuda.Event(enable_timing=True) for _ in range(2))
+    start.record()
+    for _ in range(reps):
+        fn()
+    end.record()
+    end.synchronize()
+    return start.elapsed_time(end) / reps
+
+
+def run_clocks(root: Path, state_path: Path, out_dir: Path) -> list:
+    """Every launch's JSON record for the checkout at ``root`` (its package
+    already on ``sys.path``)."""
+    import numpy as np
+    import torch
+    from littlemcmc_torch.base import NUTSConfig
+    from littlemcmc_torch.models import CorrelatedGaussian
+    from littlemcmc_torch.ops import _build
+    from littlemcmc_torch.ops.fused_nuts import fused_nuts
+    from littlemcmc_torch.ops.nuts_trajectory import trajectory
+
+    t0 = time.perf_counter()
+    procs = _start_clocked(root, out_dir)
+    _build.build_all()  # the package's own build, beside the clocked one
+    clocked = _finish_clocked(procs)
+    build_s = time.perf_counter() - t0
+    libs = {name: _load_clocked(path, name) for name, (path, _) in clocked.items()}
+    cases = _inputs(root, state_path)
+    spec = CorrelatedGaussian(N).trajectory_spec()
+    kws = {"trajectory": dict(spec=spec, max_treedepth=DEPTH, Emax=1000.0, chain_block=CB),
+           "fused_nuts": dict(spec=spec, T=250, tuning=False, config=NUTSConfig(),
+                              metric="diag", chain_block=CB)}
+    ops = {"trajectory": (trajectory, "nuts_trajectory"), "fused_nuts": (fused_nuts, "fused_nuts")}
+    n_sms = torch.cuda.get_device_properties(0).multi_processor_count
+    real_load = _build.load_library
+    records = []
+    for case, (kind, args, seed) in cases.items():
+        op, lib_name = ops[kind]
+        kw = kws[kind]
+        reps = 20 if kind == "trajectory" else 3
+
+        def call():
+            return op(*args, seed, **kw)
+
+        digest = _digest(call())
+        plain_build_ms = _ms(call, reps)
+        lib, bind = libs[lib_name]
+        _build.load_library = (lambda name, _l=lib, _n=lib_name:
+                               _l if name == _n else real_load(name))
+        try:
+            instr_ms = _ms(call, reps)
+            rec = {"root": str(root), "case": case, "kernel": lib_name, "ms": instr_ms,
+                   "plain_build_ms": plain_build_ms, "digest": digest,
+                   "ptxas_clocks": clocked[lib_name][1]}
+            if bind is not None:
+                buf = torch.zeros(C * SLOTS + (C // CB) * 4, dtype=torch.int64, device="cuda")
+                if bind(buf.data_ptr()) != 0:
+                    raise RuntimeError("transition_clocks_bind failed")
+                out = call()
+                torch.cuda.synchronize()
+                host = buf.cpu().numpy()
+                bind(0)
+                rec.update(_tail(host[C * SLOTS:].reshape(-1, 4), n_sms))
+                rec.update(_sections(host[:C * SLOTS].reshape(C, SLOTS)))
+                rec["mean_leaves_per_chain_draw"] = float(
+                    out["n_leaves"].float().mean())
+                rec["max_depth"] = int(out["depth"].max())
+            else:
+                rec["clocks"] = "none: the checkout's sources have no section clocks"
+        finally:
+            _build.load_library = real_load
+        rec["build_seconds"] = build_s
+        records.append(rec)
+    return records
+
+
+def main() -> int:
+    here = Path(__file__).resolve().parents[1]
+    root = Path(sys.argv[1] if len(sys.argv) > 1 else here).resolve()
+    sys.path.insert(0, str(root))
+    import torch
+
+    if not torch.cuda.is_available():
+        print("no CUDA device", file=sys.stderr)
+        return 2
+    torch.backends.cuda.matmul.allow_tf32 = False
+    smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
+                         capture_output=True, text=True, timeout=60).stdout.strip()
+    print(json.dumps({"card": smi, "root": str(root)}), flush=True)
+    for rec in run_clocks(root, here / "build" / "transition_clocks_state.pt",
+                          here / "build" / "transition_clocks"):
+        print(json.dumps(rec), flush=True)
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())

@@ -290,6 +290,84 @@ def test_fused_diag_kernel_matches_plain(hopper, step, body, tuning):
         assert (got["window"] == 100.0).all() and (got["n_samples"] == 52.0).all()
 
 
+# Bodies 0 and 1 with the diagonal metric in blocks of up to 8 chains run
+# the block transition (csrc/nuts_transition.cuh): body 1 evaluated for
+# the block in one product, the merge stack's lower slots in shared memory.
+# A step of 0.002 keeps every U-turn check of the correlated Gaussian (and
+# of its one-dimensional case, half a period at 3.1) from firing before
+# 1023 leaves: trees reach the depth cap of 10, which writes every slot of
+# the stack. At n = 256 the nine slots do not all fit beside the working
+# states (three per-draw, two fused in shared memory, the rest in global
+# memory): merges cross the boundary.
+#
+# At depth 10 a chain-draw makes about 1000 multinomial choices, each
+# comparing log(u) with a difference of log weights that the kernel and the
+# plain version round apart (the body's sums in another order); a choice
+# that falls within that rounding of u takes the other proposal while the
+# tree, and so the flags, stay the same. The block transition gives the
+# same bits as the warp transition it replaces (scripts/torch_kernel_ab.py's
+# output digests, PERF.md), so such a flip is the plain version's rounding: the proposals
+# and energies are held on all but _FLIPS of the held chain-draws.
+_BLOCK_BODY_NS = [1, 31, 32, 33, 100, 256]
+_FLIPS = 0.03
+
+
+def _flip_share(got, want, held, sd, q_key):
+    """The share of held chain-draws whose proposal (``q_key``: ``q`` of
+    one transition, ``trace`` of a fused chunk) or energy is off by more
+    than the tolerances (1e-4 posterior sd, 1e-3)."""
+    dq = ((got[q_key] - want[q_key]).abs() / sd).amax(-1)
+    de = (got["energy"] - want["energy"]).abs()
+    return float(((dq > 1e-4) | (de > 1e-3))[held].float().mean())
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("n", _BLOCK_BODY_NS)
+def test_block_body_kernel_to_depth_10_matches_plain(hopper, n):
+    model = tm.CorrelatedGaussian(n)
+    D = 10
+    args = _inputs(model, np.linalg.cholesky(model.cov), 128, D, 0.002, 13, hopper)
+    kw = dict(spec=model.trajectory_spec(), max_treedepth=D, Emax=1000.0, chain_block=8)
+    got = trajectory(*args, (31, -37), **kw)
+    torch.cuda.synchronize()
+    want = trajectory_plain(*args, (31, -37), **kw)
+    assert int(want["depth"].max()) == D
+    assert float((want["depth"] == D).float().mean()) > 0.5
+    agree = torch.stack([got[k] == want[k] for k in FLAGS]).all(0)
+    assert float(agree.float().mean()) >= 0.99
+    sd = torch.from_numpy(np.sqrt(model.true_var)).float().to(hopper)
+    assert _flip_share(got, want, agree, sd, "q") <= _FLIPS
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("n,tuning", [(n, False) for n in _BLOCK_BODY_NS]
+                         + [(33, True), (256, True)],
+                         ids=[f"draw_chunk-{n}" for n in _BLOCK_BODY_NS] + ["tune_chunk-33",
+                                                                          "tune_chunk-256"])
+def test_fused_block_body_kernel_to_depth_10_matches_plain(hopper, n, tuning):
+    """The fused kernel's body-1 diag instance, 2 draws of 64 chains at step
+    0.002 (the step held, so both draws reach depth 10): a draw chunk at
+    each n, and a tune chunk with the per-chain Welford steps across a
+    window swap on either side of 128 columns; the checks of the smoke's
+    phases 2h-2i, but for the proposals, energies and log densities that a
+    flipped choice moves (and in a tune chunk the Welford state against the
+    plain version, which follows the plain version's proposals): those on
+    all but _FLIPS of the held chain-draws, the Welford state against a
+    float64 replay of the kernel's own trace."""
+    model = tm.CorrelatedGaussian(n)
+    res, failures, got, want, _, _ = fused_check(model, 64, 2, tuning, False, seed=15,
+                                                 words=(41, -43), metric="diag",
+                                                 log_step=float(np.log(0.002)))
+    moved = ("q or energy differ", "stat model_logp", "stat energy_error")
+    assert not [f for f in failures if not f.startswith(moved)
+                and "against the plain version" not in f], res
+    assert int(want["depth"].max()) == 10 and res["mean_depth"] > 5
+    agree = torch.stack([got[k] == want[k] for k in FLAGS]).all(0)
+    held = _held(agree)
+    sd = torch.from_numpy(np.sqrt(model.true_var)).float().to(hopper)
+    assert _flip_share(got, want, held, sd, "trace") <= _FLIPS, res
+
+
 @pytest.mark.cuda
 @pytest.mark.parametrize("step", ["nuts", "hmc"])
 def test_eight_schools_sample_on_the_card(hopper, step):

@@ -1,0 +1,69 @@
+"""The arithmetic of ``scripts/torch_transition_clocks.py``, on the CPU.
+
+The script runs only on the card (it builds the NUTS kernels with their
+section clocks); what it computes from the clocks' side buffer is plain
+numpy and is held here on buffers whose answers are known: the grid's
+tail share from the blocks' start and end times, the sections' shares
+and cycles per leaf step from the chains' rows, and the output digest
+that tells two checkouts' bits apart.
+"""
+
+import importlib.util
+from pathlib import Path
+
+import numpy as np
+import pytest
+import torch
+
+_PATH = Path(__file__).resolve().parents[1] / "scripts" / "torch_transition_clocks.py"
+_spec = importlib.util.spec_from_file_location("torch_transition_clocks", _PATH)
+tc = importlib.util.module_from_spec(_spec)
+_spec.loader.exec_module(tc)
+
+
+def test_tail_share_of_one_block_a_sm():
+    # four blocks on four SMs: busy 10, 10, 5 and 5 of a 10 ns span
+    blocks = np.array([[0, 10, 0, 0], [0, 10, 1, 0], [0, 5, 2, 0], [5, 10, 3, 0]],
+                      dtype=np.int64)
+    out = tc._tail(blocks, n_sms=8)
+    assert out["sms_used"] == 4 and out["blocks"] == 4
+    assert out["span_ms"] == pytest.approx(10e-6)
+    assert out["tail_share"] == pytest.approx(1 - 30 / 40)
+    assert out["tail_share_all_sms"] == pytest.approx(1 - 30 / 80)
+    assert out["block_ms_max"] == pytest.approx(10e-6)
+    assert out["block_ms_mean"] == pytest.approx(7.5e-6)
+
+
+def test_tail_share_counts_an_sm_from_its_first_start_to_its_last_end():
+    # two blocks in turn on SM 0, one on SM 1 that ends early
+    blocks = np.array([[0, 4, 0, 0], [4, 12, 0, 0], [0, 3, 1, 0]], dtype=np.int64)
+    out = tc._tail(blocks, n_sms=2)
+    assert out["sms_used"] == 2
+    assert out["tail_share"] == pytest.approx(1 - (12 + 3) / 24)
+    assert out["tail_share_all_sms"] == out["tail_share"]
+
+
+def test_sections_shares_and_cycles_per_leaf_step():
+    rows = np.zeros((2, tc.SLOTS), dtype=np.int64)
+    rows[0, :len(tc.SECTIONS)] = [40, 10, 0, 10, 0, 0, 40, 0]  # 100 cycles
+    rows[1, :len(tc.SECTIONS)] = [80, 20, 0, 20, 0, 0, 0, 80]  # 200 cycles
+    rows[:, len(tc.SECTIONS)] = [10, 10]  # leaf steps
+    rows[:, len(tc.SECTIONS) + 1] = [5, 10]  # leaves built
+    out = tc._sections(rows)
+    shares = [out[f"share_{k}"] for k in tc.SECTIONS]
+    assert sum(shares) == pytest.approx(1.0)
+    assert out["share_body"] == pytest.approx(120 / 300)
+    assert out["share_wait"] == pytest.approx(40 / 300)
+    assert out["cycles_per_step"] == pytest.approx(300 / 20)
+    assert out["cycles_per_step_body"] == pytest.approx(120 / 20)
+    assert out["leaf_steps_per_chain"] == 10 and out["leaves_built_per_chain"] == 7.5
+
+
+def test_digest_tells_bits_apart():
+    rng = np.random.default_rng(0)
+    out = {"q": torch.from_numpy(rng.standard_normal((4, 3)).astype(np.float32)),
+           "depth": torch.arange(4, dtype=torch.int32), "trace": None}
+    same = {k: (v.clone() if v is not None else None) for k, v in out.items()}
+    assert tc._digest(out) == tc._digest(same)
+    same["q"][2, 1] = float(np.nextafter(np.float32(same["q"][2, 1].item()), np.float32(np.inf)))
+    assert tc._digest(out) != tc._digest(same)
