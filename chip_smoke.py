@@ -78,7 +78,10 @@ Phases, each printing its own lines:
    their plain versions at 256 chains: a 2-draw draw chunk, and a 2-draw
    tune chunk with the per-chain Welford steps across a window swap and
    dual averaging on, its variances and Welford state against a float64
-   replay, as 2h-2i hold the diag branch;
+   replay, as 2h-2i hold the diag branch; and the fused NUTS kernel's
+   kDiag instance with body 4 (the block transition, on no cell), 256
+   chains at 2m's step: a 2-draw draw chunk at 2m's positions and a
+   2-draw tune chunk with the step held;
    2o-2p. Neal's centred funnel's body (5) in the per-draw NUTS and HMC
    kernels and in the fused kernels' kDiag instance against their plain
    versions at 1024 chains (a quarter starting in the neck, v < -2; the
@@ -203,10 +206,15 @@ Phases, each printing its own lines:
    (with where its scratch rows were placed: ``scratch_in_smem``),
    the tensor-op tree on the same model (ms a draw over 20 draws from that
    state, the number the generated body exists to beat) beside 50 draws
-   on the generated body, and the probe kernel alone; then one JSON line
-   of kernel rows, the six fused probes last (for the fused kernels
-   ``ms``, ``plain_ms`` and ``bound_ms`` are one launch on 2c's, 2e's, 2h's, 2i's
-   or 2p's draw-chunk input: 4 draws, in 2h-2i 1, in 2p 2; ``chunk_*`` the 250-draw launch; for the
+   on the generated body, and the probe kernel alone; then the ptxas
+   lines of the per-draw and fused NUTS kernels' body-4 and body-5 diag
+   instances (those on the block transition beside those on the warp
+   transition), and one JSON line of kernel rows (each NUTS row's
+   ``transition``, ``block`` or ``warp``: the transition of
+   ``csrc/nuts_transition.cuh`` its instance runs), the six fused probes
+   last (for the fused kernels ``ms``, ``plain_ms`` and ``bound_ms`` are
+   one launch on 2c's, 2e's, 2h's, 2i's or 2p's draw-chunk input: 4
+   draws, in 2h-2i 1, in 2p 2; ``chunk_*`` the 250-draw launch; for the
    eight-schools per-draw rows ``main_*`` one launch at 10,240 chains).
 
 The last line is ``{"ok": true, "device": {...}}``. Any failure raises
@@ -601,6 +609,19 @@ def _compare(name, model, args, seed, need, metric="diag", fac=None):
                            f"{errs['energy_max_abs']} in energy ({errs['energy_max_in_tol']} "
                            f"of the limit)")
     return errs["q_max_abs"], start.elapsed_time(end)
+
+
+def _ptxas_entries(log: str) -> dict:
+    """ptxas's lines (``-Xptxas -v``) of each entry function of a build
+    log: its mangled name -> its stack-frame and register lines."""
+    out, entry = {}, None
+    for ln in log.splitlines():
+        if "Compiling entry function" in ln:
+            entry = ln.split("'")[1]
+            out[entry] = []
+        elif entry is not None and ("stack frame" in ln or "registers" in ln):
+            out[entry].append(ln.strip())
+    return out
 
 
 def _roofline_ms(ops: float, nbytes: float) -> tuple[float, str]:
@@ -1099,7 +1120,7 @@ def fused_check(model, C, T, tuning, adapt_step_size, seed, words, step="nuts",
 
 
 def _compare_fused(T, tuning, adapt_step_size, seed, words, step="nuts", model=None,
-                   metric="dense", chains=None):
+                   metric="dense", chains=None, log_step=-1.2):
     """Phases 2c, 2e, 2h, 2i and 2l: :func:`fused_check` at ``chains``
     (``model``: the main path's 100-d correlated Gaussian by default),
     printed, and the kernel timed on the same input. Returns the kernel's
@@ -1113,7 +1134,8 @@ def _compare_fused(T, tuning, adapt_step_size, seed, words, step="nuts", model=N
     op = fused_nuts if step == "nuts" else fused_hmc
     model = CorrelatedGaussian(N) if model is None else model
     res, failures, got, _, args, kw = fused_check(model, chains or CHAINS, T, tuning,
-                                                  adapt_step_size, seed, words, step, metric)
+                                                  adapt_step_size, seed, words, step, metric,
+                                                  log_step)
     res["events_ms"] = _cuda_time_ms(lambda: op(*args, words, **kw), reps=5, warmup=1)
     res["kernel_ms"], res["ms_source"] = _device_ms(lambda: op(*args, words, **kw),
                                                     f"fused_{step}", 5, res["events_ms"])
@@ -2552,7 +2574,8 @@ def main() -> int:
     from littlemcmc_torch.ops.fused_probe import probe_kernel
     from littlemcmc_torch.ops.hmc_trajectory import hmc_trajectory, hmc_trajectory_plain
     from littlemcmc_torch.ops.logistic import logistic_logp_grad
-    from littlemcmc_torch.ops.nuts_trajectory import trajectory, trajectory_plain
+    from littlemcmc_torch.ops.nuts_trajectory import (runs_block_transition, trajectory,
+                                                      trajectory_plain)
     from littlemcmc_torch.ops.quadform import quadform_logp_grad
 
     ops = (trajectory, fused_nuts, hmc_trajectory, fused_hmc)
@@ -2655,6 +2678,18 @@ def main() -> int:
         draw = _compare_fused(2, False, True, 27, (181, 7), step, sg, "lowrank", chains=256)
         tune = _compare_fused(2, True, True, 28, (191, 11), step, sg, "lowrank", chains=256)
         lr_fused[step] = (draw, max(draw[2], tune[2]))
+    # the fused NUTS kernel's kDiag instance with body 4 (the block
+    # transition; on no cell), 256 chains: a 2-draw draw chunk at 2m's
+    # positions and a 2-draw tune chunk with the Welford steps (the step
+    # held), at 2m's step of 0.1 (at the fused checks' 0.3, or with dual
+    # averaging moving it, 50-80% of these trees diverge, and fused_check
+    # holds body 4's energies unscaled)
+    sg_step = float(np.log(0.1))
+    sg_draw = _compare_fused(2, False, True, 25, (229, 7), "nuts", sg, "diag", chains=256,
+                             log_step=sg_step)
+    sg_tune = _compare_fused(2, True, False, 30, (233, 11), "nuts", sg, "diag", chains=256,
+                             log_step=sg_step)
+    sg_fused = (sg_draw, max(sg_draw[2], sg_tune[2]))
     # 2o-2r. the funnel body (5) in the four kernels, the probe matrix, the
     # generated body in the per-draw NUTS kernel
     fa_chk = _funnel_auto_checks(NealsFunnel(10), hr, t_start)
@@ -3083,6 +3118,18 @@ def main() -> int:
                 "plain_ms": p_ms, "bound_ms": bound[0], "bound_by": bound[1],
                 "library_ms": None}
 
+    def sg_fused_row():
+        """The spiked body's fused kDiag instance: one 2-draw draw chunk of
+        256 chains at 2m's positions."""
+        (k_ms, p_ms, _, work, ev_ms), err = sg_fused
+        bound = _fused_diag_bound_ms(work, 256, N, 2, False, "spiked_gaussian", "nuts",
+                                     sg.rank)
+        return {"name": "fused_nuts", "metric": "diag", "body": "spiked_gaussian",
+                "route": "cuda", "source": fn_src, "replaces": fn_tpu, "launches": 0,
+                "max_abs_err": err, "ms": k_ms, "events_ms": ev_ms, "chains": 256, "draws": 2,
+                "plain_ms": p_ms, "bound_ms": bound[0], "bound_by": bound[1],
+                "library_ms": None}
+
     lg_rows = [
         # the per-draw kernel's logistic body, path (B): ms, plain_ms,
         # bound_ms and max_abs_err one launch at 2k's input (1024 chains);
@@ -3105,11 +3152,26 @@ def main() -> int:
          "bound_ms": lt["lh_bound"][0], "bound_by": lt["lh_bound"][1], "library_ms": None},
         lg_fused_row("hmc"),
     ]
+    # the ptxas lines of the instances the block transition took over in
+    # this slice (bodies 4 and 5 with the diagonal metric), beside their
+    # warp-transition instances (blocks of more than 8 chains)
+    for name in ("nuts_trajectory", "fused_nuts"):
+        moved = {}
+        for entry, lines in _ptxas_entries(logs[name].read_text()).items():
+            for b in (4, 5):  # <body, metric, block>; the fused kernel's own block kernel
+                if f"ILi{b}ELi0ELb1E" in entry or f"block_kernelILi{b}E" in entry:
+                    moved[f"<{b},0,block>"] = lines
+                elif f"ILi{b}ELi0ELb0E" in entry:
+                    moved[f"<{b},0,warp>"] = lines
+        print(json.dumps({"phase": "ptxas_block_instances", "library": name,
+                          "instances": moved}), flush=True)
+
     # no single PyTorch call computes a NUTS or an HMC transition:
     # library_ms is null. ms: the kernel's device time per launch
     # (_device_ms); events_ms: CUDA events around back-to-back calls of its
-    # wrapper, which also count the card waiting for the host
-    print(json.dumps({"kernels": [
+    # wrapper, which also count the card waiting for the host; transition:
+    # which of nuts_transition.cuh's transitions a NUTS row's instance runs
+    rows = [
         {"name": "nuts_trajectory", "metric": "diag", "route": "cuda", "source": traj_src,
          "replaces": traj_tpu, "launches": launches, "max_abs_err": max_abs_err,
          "ms": kernel_ms, "events_ms": events_ms, "plain_ms": plain_ms, "bound_ms": bound_ms,
@@ -3146,12 +3208,18 @@ def main() -> int:
          "bound_by": fh_bound_by,
          "library_ms": None, "chunk_draws": 250, "chunk_ms": fh_ms,
          "chunk_bound_ms": fh_chunk_bound_ms, "chunk_bound_by": fh_chunk_bound_by},
-    ] + es_rows + lg_rows + lr_rows + fa_rows + [
+    ] + es_rows + lg_rows + lr_rows + [sg_fused_row()] + fa_rows + [
         # the fused probes: launches on F1's path (the fused engine's five)
         # and L1's (the low-rank one)
         dict(row, launches=(fa_cells["f1_probes"] if name != "thin_factor"
                             else lr["L1"][0]["probe_launches"])[name])
-        for name, row in probe_rows.items()]}), flush=True)
+        for name, row in probe_rows.items()]
+    for row in rows:
+        if row["name"] in ("nuts_trajectory", "fused_nuts"):
+            block = runs_block_transition(row.get("body", "correlated_gaussian"),
+                                          row["metric"], CHAIN_BLOCK)
+            row["transition"] = "block" if block else "warp"
+    print(json.dumps({"kernels": rows}), flush=True)
     _line(phase="done", elapsed_s=f"{time.perf_counter() - t_start:.1f}")
     print(smi, flush=True)
     print(json.dumps({"ok": True, "device": {"platform": "gpu",

@@ -13,8 +13,8 @@
 // PyTorch version it is held against is ops/fused_nuts.py::fused_nuts_plain.
 //
 // Mapping. One thread block is one chain block of CB chains, one warp per
-// chain, as in the per-draw kernel (bodies 0 and 1 with the diagonal metric
-// in blocks of up to 8 chains on the block transition, in instances
+// chain, as in the per-draw kernel (bodies 0, 1, 4 and 5 with the diagonal
+// metric in blocks of up to 8 chains on the block transition, in instances
 // compiled for 8 warps); the block loops t = 0..T-1 inside the
 // launch, where the TPU kernel's grid walks its sequential draw axis. The
 // chain state (q, grad in shared memory; logp, the iteration counter, the
@@ -55,9 +55,10 @@
 // the start momentum and the chain's four Welford rows, 19 x CB x n
 // floats (2.4 KB a block at the eight-schools n = 10, 61 KB at n = 100),
 // read from device memory once a launch and written back once; on the
-// block transition (bodies 0 and 1, CB <= 8) beside them the staged
-// positions (3.2 KB), P (40 KB) and as many of the merge stack's slots
-// as fit (all 9 of depth 10 at n = 100: 115 KB; 220 KB in all). kLowRank:
+// block transition (bodies 0, 1, 4 and 5, CB <= 8) beside them body 1's
+// staged positions (3.2 KB) and P (40 KB), or body 4's constants (2 KB),
+// and as many of the merge stack's slots as fit (all 9 of depth 10 at
+// n = 100: 115 KB; 220 KB in all for body 1). kLowRank:
 // the transition's 17 vectors (the scales among them), q, grad, the start
 // momentum, the four Welford rows and V, 25 x CB x n floats (80 KB at
 // n = 100 and CB = 8), and the factor block (3.3 KB). A generated body's
@@ -148,12 +149,11 @@ __host__ __device__ constexpr int n_fused_vecs() {
     return n_warp_vecs<METRIC>() + (METRIC == kDense ? 2 : METRIC == kDiag ? 7 : 8);
 }
 
-// kLowRank instances take 8 warps a block (max_chain_block,
-// nuts_transition.cuh), and so do the block transition's (BLOCK), so that
-// ptxas may give a thread more than 128 registers
+// The draws of one chain block: the body of the kernels below. A is taken
+// by value, as a kernel takes its parameter (taken by reference, it changes
+// the registers ptxas gives several instances of fused_nuts_kernel).
 template <int BODY, int METRIC, bool BLOCK>
-__global__ void __launch_bounds__(32 * (BLOCK ? kBlockChains : max_chain_block<METRIC>()))
-    fused_nuts_kernel(Args A) {
+__device__ __forceinline__ void fused_draws(Args A) {
     extern __shared__ float smem[];
     const int n = A.n, cb = A.cb, D = A.D, C = A.C;
     const int w = threadIdx.x >> 5, lane = threadIdx.x & 31;
@@ -360,6 +360,29 @@ __global__ void __launch_bounds__(32 * (BLOCK ? kBlockChains : max_chain_block<M
     LMC_CLK_BLOCK_END(C);
 }
 
+// kLowRank instances take 8 warps a block (max_chain_block,
+// nuts_transition.cuh), and so do the block transition's (BLOCK), so that
+// ptxas may give a thread more than 128 registers
+template <int BODY, int METRIC, bool BLOCK>
+__global__ void __launch_bounds__(32 * (BLOCK ? kBlockChains : max_chain_block<METRIC>()))
+    fused_nuts_kernel(Args A) {
+    fused_draws<BODY, METRIC, BLOCK>(A);
+}
+
+// Bodies 4 and 5 on the block transition, the same with one block an SM:
+// with room for a second block ptxas held the funnel's instance to 128
+// registers and spilled, where one block an SM leaves it up to 255
+template <int BODY>
+__global__ void __launch_bounds__(32 * kBlockChains, 1) fused_nuts_block_kernel(Args A) {
+    fused_draws<BODY, kDiag, true>(A);
+}
+
+template <int BODY, int METRIC, bool BLOCK>
+constexpr auto kernel_of() {
+    if constexpr (BLOCK && (BODY == 4 || BODY == 5)) return fused_nuts_block_kernel<BODY>;
+    else return fused_nuts_kernel<BODY, METRIC, BLOCK>;
+}
+
 // 227 KB per block on Hopper, less room for the static shared int
 constexpr size_t kSmemLimit = 232448 - 1024;
 
@@ -375,6 +398,10 @@ cudaError_t launch_instance(const Args& A0, cudaStream_t stream) {
     const size_t body_bytes = body_floats(BODY, A.n, A.rows) * sizeof(float);
     A.lam_in_smem = (body_bytes > 0 && bytes + body_bytes <= kSmemLimit) ? 1 : 0;
     if (A.lam_in_smem) bytes += body_bytes;
+    // the block transition reads body 4's constants as shared memory: where
+    // they do not fit there, the warp transition runs
+    if constexpr (BLOCK && BODY == 4)
+        if (!A.lam_in_smem) return launch_instance<BODY, METRIC, false>(A0, stream);
     A.cov_in_smem = (METRIC == kDense && bytes + sq_bytes <= kSmemLimit) ? 1 : 0;
     if (A.cov_in_smem) bytes += sq_bytes;
     A.scratch_in_smem = scratch_fits<BODY>(bytes, A.cb, kSmemLimit) ? 1 : 0;
@@ -385,11 +412,11 @@ cudaError_t launch_instance(const Args& A0, cudaStream_t stream) {
         A.smem_slots = smem_stack_slots(bytes, A.cb, A.n, A.D, kSmemLimit);
         bytes += (size_t)A.smem_slots * 4 * A.cb * A.n * sizeof(float);
     }
-    cudaError_t err = cudaFuncSetAttribute(fused_nuts_kernel<BODY, METRIC, BLOCK>,
-                                           cudaFuncAttributeMaxDynamicSharedMemorySize,
+    const auto kernel = kernel_of<BODY, METRIC, BLOCK>();
+    cudaError_t err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
                                            (int)bytes);
     if (err != cudaSuccess) return err;
-    fused_nuts_kernel<BODY, METRIC, BLOCK><<<A.C / A.cb, 32 * A.cb, bytes, stream>>>(A);
+    kernel<<<A.C / A.cb, 32 * A.cb, bytes, stream>>>(A);
     return cudaGetLastError();
 }
 

@@ -9,10 +9,11 @@
 // nuts_transition.cuh, which the fused kernel (fused_nuts.cu) shares.
 //
 // Mapping. One thread block is one chain block of CB chains, one warp per
-// chain, run in lockstep (see nuts_transition.cuh). Bodies 0 and 1 with
-// the diagonal metric in blocks of up to 8 chains (the main path's) run
-// the block transition (nuts_transition.cuh, block_transition) in
-// instances compiled for 8 warps; everything else runs `transition`.
+// chain, run in lockstep (see nuts_transition.cuh). Bodies 0, 1, 4 and 5
+// with the diagonal metric in blocks of up to 8 chains (the main path's,
+// F1's and L0's) run the block transition (nuts_transition.cuh,
+// block_transition) in instances compiled for 8 warps; everything else
+// runs `transition`.
 // Randomness: the JAX
 // kernel's counter stream with block_id = blockIdx.x and the chain's row
 // within its block, so this kernel, the plain version and the JAX kernel
@@ -240,6 +241,10 @@ cudaError_t launch_instance(const Params& P, cudaStream_t stream) {
     Params Q = P;
     Q.lam_in_smem = (body_bytes > 0 && bytes + body_bytes <= kSmemLimit) ? 1 : 0;
     if (Q.lam_in_smem) bytes += body_bytes;
+    // the block transition reads body 4's constants as shared memory: where
+    // they do not fit there, the warp transition runs
+    if constexpr (BLOCK && BODY == 4)
+        if (!Q.lam_in_smem) return launch_instance<BODY, METRIC, false>(P, stream);
     Q.cov_in_smem = (METRIC == kDense && bytes + sq_bytes <= kSmemLimit) ? 1 : 0;
     if (Q.cov_in_smem) bytes += sq_bytes;
     Q.scratch_in_smem = scratch_fits<BODY>(bytes, P.cb, kSmemLimit) ? 1 : 0;

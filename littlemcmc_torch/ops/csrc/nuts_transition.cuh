@@ -705,11 +705,12 @@ __host__ __device__ constexpr int n_warp_vecs() {
 }
 
 // ---------------------------------------------------------------------------
-// The block transition (block_transition below): bodies 0 and 1 with the
-// diagonal metric in chain blocks of up to kBlockChains chains, the
-// instance of the 100-d main path (per-draw and fused). Every other
-// instance, and these bodies in blocks of more chains, runs `transition`.
-// Against `transition` it
+// The block transition (block_transition below): bodies 0, 1, 4 and 5 with
+// the diagonal metric in chain blocks of up to kBlockChains chains, the
+// instances of the 100-d main path (body 1, per-draw and fused), of F1
+// (the centred funnel, body 5, fused) and of L0 (the spiked Gaussian,
+// body 4, per-draw). Every other instance, and these bodies in blocks of
+// more chains, runs `transition`. Against `transition` it
 // - evaluates body 1 for every chain of the block in one product a leaf
 //   (block_quadform): a thread takes kBodyChains chains at two columns of
 //   P, so each column is read once a chain group and leaf (not once a
@@ -726,6 +727,11 @@ __host__ __device__ constexpr int n_warp_vecs() {
 //   a group, not once a trip, with no other warps on the SM to hide it;
 // - fuses the leapfrog's passes: a stage's kick, drift and staging in one,
 //   then the log density, the next kick and the kinetic energy in one;
+//   bodies 4 and 5 are evaluated inside these two passes, each chain's
+//   warp on its own (body 4's spike dots V^T x and body 5's sum of the x
+//   columns' squares as lane partials in the first, added across the warp
+//   between the two, the gradient in the second), so their leaf makes no
+//   shared-memory round trip of its own;
 // - sums the U-turn dots in one butterfly (warp_sums);
 // - reads the integrator's coefficients with constant indices, so the
 //   launch's constants stay in registers;
@@ -739,7 +745,7 @@ constexpr int kProductDepth = 4;
 
 template <int BODY, int METRIC>
 __host__ __device__ constexpr bool block_body() {
-    return (BODY == 0 || BODY == 1) && METRIC == kDiag;
+    return (BODY == 0 || BODY == 1 || BODY == 4 || BODY == 5) && METRIC == kDiag;
 }
 
 __host__ __device__ constexpr int staged_stride(int cb) {
@@ -1260,8 +1266,8 @@ __device__ TreeResult transition(const TreeConsts& T, const WarpVecs& V, float* 
     return r;
 }
 
-// `transition` for bodies 0 and 1 with the diagonal metric in blocks of
-// up to kBlockChains chains, redesigned for Hopper (see kBlockChains
+// `transition` for bodies 0, 1, 4 and 5 with the diagonal metric in blocks
+// of up to kBlockChains chains, redesigned for Hopper (see kBlockChains
 // above): the same arguments, with BS the block's shared-memory state;
 // the same result, to the bit.
 template <int BODY>
@@ -1270,8 +1276,13 @@ __device__ TreeResult block_transition(const TreeConsts& T, const BlockState& BS
                                        int lane, const float* q0, const float* p0,
                                        const float* g0, float lp0, float E0, float eps, int mdc,
                                        uint32_t salt) {
-    static_assert(BODY == 0 || BODY == 1, "the block transition takes bodies 0 and 1");
-    constexpr int K = kTrips;
+    static_assert(BODY == 0 || BODY == 1 || BODY == 4 || BODY == 5,
+                  "the block transition takes bodies 0, 1, 4 and 5");
+    // trips at a time: the funnel's few columns take one, so that its
+    // passes carry no code for trips that never run; body 4 two, so that
+    // its spike dots' constants fit in registers beside the fused kernel's
+    // state without spilling
+    constexpr int K = BODY == 5 ? 1 : BODY == 4 ? 2 : kTrips;
     const int n = T.n, cb = T.cb, D = T.D, C = T.C, S = BS.smem_slots;
     const int stride = staged_stride(cb);
     float *lq = V.lq, *lp = V.lp, *lg = V.lg, *rq = V.rq, *rp = V.rp, *rg = V.rg;
@@ -1284,6 +1295,16 @@ __device__ TreeResult block_transition(const TreeConsts& T, const BlockState& BS
     const int stages = T.n_stages;
     const float b0 = T.b[0], b1 = T.b[1], b2 = T.b[2], b3 = T.b[3];
     const float a0 = T.a[0], a1 = T.a[1], a2 = T.a[2];
+    // bodies 4 and 5: the working vectors as offsets into shared memory;
+    // body 4's constants there too (the launch stages them: V^T, rows
+    // spikes of n, then 1/lam - 1, then 1/s), body 5's 1/scale^2 and the
+    // x columns' count, as model_eval reads them
+    const int rows = T.rows;
+    const int cq_o = smem_offset(cq), cp_o = smem_offset(cp), cg_o = smem_offset(cg),
+              vv_o = smem_offset(vv);
+    const int vt_o = BODY == 4 ? smem_offset(T.lam) : 0, il_o = vt_o + rows * n,
+              is_o = il_o + rows;
+    const float inv_s2 = BODY == 5 ? T.lam[0] : 0.f, nx = (float)(n - 1);
 
     float* s_e = slot_sc;                        // [D][cb] proposal energy
     float* s_lpp = slot_sc + (size_t)D * cb;     // proposal logp
@@ -1313,7 +1334,7 @@ __device__ TreeResult block_transition(const TreeConsts& T, const BlockState& BS
     LMC_CLK_BEGIN();
     {
         float q[K], p[K], g[K];
-        lane_trips(n, lane, [&](int k, int i) { q[k] = q0[i]; p[k] = p0[i]; g[k] = g0[i]; },
+        lane_trips<K>(n, lane, [&](int k, int i) { q[k] = q0[i]; p[k] = p0[i]; g[k] = g0[i]; },
                    [&](int k, int i) {
                        lq[i] = q[k]; rq[i] = q[k]; prq[i] = q[k];
                        lp[i] = p[k]; rp[i] = p[k]; psum[i] = p[k];
@@ -1346,7 +1367,7 @@ __device__ TreeResult block_transition(const TreeConsts& T, const BlockState& BS
             const float *sq = go_right ? rq : lq, *sp = go_right ? rp : lp,
                         *sg = go_right ? rg : lg;
             float q[K], p[K], g[K];
-            lane_trips(n, lane, [&](int k, int i) { q[k] = sq[i]; p[k] = sp[i]; g[k] = sg[i]; },
+            lane_trips<K>(n, lane, [&](int k, int i) { q[k] = sq[i]; p[k] = sp[i]; g[k] = sg[i]; },
                        [&](int k, int i) { cq[i] = q[k]; cp[i] = p[k]; cg[i] = g[k]; });
             __syncwarp();
         }
@@ -1361,68 +1382,186 @@ __device__ TreeResult block_transition(const TreeConsts& T, const BlockState& BS
             bool div_leaf = false;
             const bool was_bld = bld;
             LMC_CLK_LEAF(bld);
-            // one symplectic step (reference integration.py:100-121): each
-            // stage's kick (the first stage's), drift and staging in one
-            // pass, the block's product, then the log density, the next kick
-            // and after the last stage the kinetic energy in one pass
-            for (int s = 0; s < stages; ++s) {
-                const bool first = s == 0, last = s + 1 == stages;
-                if (bld) {
+            if constexpr (BODY == 4 || BODY == 5) {
+                // one symplectic step (reference integration.py:100-121) for
+                // bodies 4 and 5, each chain's warp on its own: a stage's
+                // kick (the first stage's), drift and the body's first sums
+                // (body 4's spike dots V^T x, body 5's squares of the x
+                // columns) in one pass, the sums added across the warp, then
+                // the gradient, the next kick and after the last stage the
+                // kinetic energy in one pass; the working vectors and body
+                // 4's constants indexed as shared memory by 32-bit offsets.
+                // Each element's arithmetic and each sum's order are
+                // model_eval's and transition's.
+                for (int s = 0; s < stages; ++s) {
+                    const bool first = s == 0, last = s + 1 == stages;
+                    if (!bld) continue;
                     const float kick0 = b0 * epss;
                     const float drift = (s == 0 ? a0 : s == 1 ? a1 : a2) * epss;
-                    float p[K], g[K], q[K], v[K];
-                    lane_trips(n, lane,
-                               [&](int k, int i) {
-                                   p[k] = cp[i]; q[k] = cq[i]; v[k] = vv[i];
-                                   if (first) g[k] = cg[i];
-                               },
-                               [&](int k, int i) {
-                                   float pk = p[k];
-                                   if (first) {
-                                       pk = pk + kick0 * g[k];
-                                       cp[i] = pk;
-                                   }
-                                   const float qk = q[k] + drift * (v[k] * pk);
-                                   cq[i] = qk;
-                                   if (BODY == 1) sm[qt_off + i * stride + w] = qk;
-                               });
-                }
-                LMC_CLK(kClkLeapfrog);
-                if constexpr (BODY == 1) {
-                    __syncthreads();  // every chain's q is staged, and its last g read
-                    block_product(T, qt_off, g_off);
-                    __syncthreads();  // every g is written
-                }
-                LMC_CLK(kClkBody);
-                if (bld) {
+                    float c[kMaxRank];  // body 4's spike dots; body 5's sum of squares in c[0]
+#pragma unroll
+                    for (int j = 0; j < kMaxRank; ++j) c[j] = 0.f;
+                    float v0 = 0.f;  // body 5: v = q[0], lane 0's
+                    {
+                        float p[K], g[K], q[K], v[K], is[K], vtk[K][kMaxRank];
+                        lane_trips<K>(
+                            n, lane,
+                            [&](int k, int i) {
+                                p[k] = sm[cp_o + i]; q[k] = sm[cq_o + i]; v[k] = sm[vv_o + i];
+                                if (first) g[k] = sm[cg_o + i];
+                                if constexpr (BODY == 4) {
+                                    is[k] = sm[is_o + i];
+#pragma unroll
+                                    for (int j = 0; j < kMaxRank; ++j)
+                                        if (j < rows) vtk[k][j] = sm[vt_o + j * n + i];
+                                }
+                            },
+                            [&](int k, int i) {
+                                float pk = p[k];
+                                if (first) {
+                                    pk = pk + kick0 * g[k];
+                                    sm[cp_o + i] = pk;
+                                }
+                                const float qk = q[k] + drift * (v[k] * pk);
+                                sm[cq_o + i] = qk;
+                                if constexpr (BODY == 4) {  // thin_dots<true>
+                                    const float x = qk * is[k];
+#pragma unroll
+                                    for (int j = 0; j < kMaxRank; ++j)
+                                        if (j < rows) c[j] = c[j] + x * vtk[k][j];
+                                } else {
+                                    if (i >= 1) c[0] += qk * qk;
+                                    else v0 = qk;
+                                }
+                            });
+                    }
+                    LMC_CLK(kClkLeapfrog);
+                    float v5 = 0.f, e5 = 0.f;  // body 5: v and exp(-v)
+                    if constexpr (BODY == 4) {
+                        // every spike's column in the butterfly, those past
+                        // `rows` zeros: a shuffle under a guard the compiler
+                        // cannot prove uniform costs a convergence barrier
+#pragma unroll
+                        for (int o = 16; o > 0; o >>= 1) {
+#pragma unroll
+                            for (int j = 0; j < kMaxRank; ++j)
+                                c[j] += __shfl_xor_sync(0xffffffffu, c[j], o);
+                        }
+#pragma unroll
+                        for (int j = 0; j < kMaxRank; ++j)
+                            if (j < rows) c[j] = c[j] * sm[il_o + j];
+                    } else {
+                        c[0] = warp_sum(c[0]);
+                        v5 = __shfl_sync(0xffffffffu, v0, 0);
+                        e5 = expf(-v5);
+                    }
+                    LMC_CLK(kClkWarpSums);
                     const float kick = (s == 0 ? b1 : s == 1 ? b2 : b3) * epss;
-                    float sums[2] = {0.f, 0.f};  // the body's sum, p.(vv p) after the last stage
-                    float p[K], g[K], q[K], v[K];
-                    lane_trips(n, lane,
-                               [&](int k, int i) {
-                                   q[k] = cq[i]; p[k] = cp[i]; v[k] = vv[i];
-                                   if (BODY == 1) g[k] = cg[i];
-                               },
-                               [&](int k, int i) {
-                                   // body 0: logp = -q.q/2, grad = -q; body 1: logp = q.grad/2
-                                   float gk;
-                                   if (BODY == 1) {
-                                       gk = g[k];
-                                       sums[0] += q[k] * gk;
-                                   } else {
-                                       gk = -q[k];
-                                       sums[0] += q[k] * q[k];
-                                       cg[i] = gk;
-                                   }
-                                   const float pk = p[k] + kick * gk;
-                                   cp[i] = pk;
-                                   if (last) sums[1] += pk * (v[k] * pk);
-                               });
+                    float sums[2] = {0.f, 0.f};  // body 4's q.grad, p.(vv p) after the last stage
+                    {
+                        float p[K], q[K], v[K], is[K], vtk[K][kMaxRank];
+                        lane_trips<K>(
+                            n, lane,
+                            [&](int k, int i) {
+                                q[k] = sm[cq_o + i]; p[k] = sm[cp_o + i]; v[k] = sm[vv_o + i];
+                                if constexpr (BODY == 4) {
+                                    is[k] = sm[is_o + i];
+#pragma unroll
+                                    for (int j = 0; j < kMaxRank; ++j)
+                                        if (j < rows) vtk[k][j] = sm[vt_o + j * n + i];
+                                }
+                            },
+                            [&](int k, int i) {
+                                float gk;
+                                if constexpr (BODY == 4) {
+                                    const float x = q[k] * is[k];
+                                    float acc = 0.f;
+#pragma unroll
+                                    for (int j = 0; j < kMaxRank; ++j)
+                                        if (j < rows) acc = acc + vtk[k][j] * c[j];
+                                    gk = -(x + acc) * is[k];
+                                    sums[0] += q[k] * gk;
+                                } else {
+                                    gk = i == 0 ? -inv_s2 * v5 - 0.5f * nx + 0.5f * c[0] * e5
+                                                : -q[k] * e5;
+                                }
+                                sm[cg_o + i] = gk;
+                                const float pk = p[k] + kick * gk;
+                                sm[cp_o + i] = pk;
+                                if (last) sums[1] += pk * (v[k] * pk);
+                            });
+                    }
                     LMC_CLK(kClkLeapfrog);
                     warp_sums(sums);
                     LMC_CLK(kClkWarpSums);
-                    c_lp = BODY == 1 ? 0.5f * sums[0] : -0.5f * sums[0];
+                    c_lp = BODY == 4 ? 0.5f * sums[0]
+                                     : -0.5f * inv_s2 * v5 * v5 - 0.5f * nx * v5 - 0.5f * c[0] * e5;
                     if (last) c_e = 0.5f * sums[1] - c_lp;
+                }
+            } else {
+                // one symplectic step (reference integration.py:100-121): each
+                // stage's kick (the first stage's), drift and staging in one
+                // pass, the block's product, then the log density, the next kick
+                // and after the last stage the kinetic energy in one pass
+                for (int s = 0; s < stages; ++s) {
+                    const bool first = s == 0, last = s + 1 == stages;
+                    if (bld) {
+                        const float kick0 = b0 * epss;
+                        const float drift = (s == 0 ? a0 : s == 1 ? a1 : a2) * epss;
+                        float p[K], g[K], q[K], v[K];
+                        lane_trips<K>(n, lane,
+                                   [&](int k, int i) {
+                                       p[k] = cp[i]; q[k] = cq[i]; v[k] = vv[i];
+                                       if (first) g[k] = cg[i];
+                                   },
+                                   [&](int k, int i) {
+                                       float pk = p[k];
+                                       if (first) {
+                                           pk = pk + kick0 * g[k];
+                                           cp[i] = pk;
+                                       }
+                                       const float qk = q[k] + drift * (v[k] * pk);
+                                       cq[i] = qk;
+                                       if (BODY == 1) sm[qt_off + i * stride + w] = qk;
+                                   });
+                    }
+                    LMC_CLK(kClkLeapfrog);
+                    if constexpr (BODY == 1) {
+                        __syncthreads();  // every chain's q is staged, and its last g read
+                        block_product(T, qt_off, g_off);
+                        __syncthreads();  // every g is written
+                    }
+                    LMC_CLK(kClkBody);
+                    if (bld) {
+                        const float kick = (s == 0 ? b1 : s == 1 ? b2 : b3) * epss;
+                        float sums[2] = {0.f, 0.f};  // the body's sum, p.(vv p) after the last one
+                        float p[K], g[K], q[K], v[K];
+                        lane_trips<K>(n, lane,
+                                   [&](int k, int i) {
+                                       q[k] = cq[i]; p[k] = cp[i]; v[k] = vv[i];
+                                       if (BODY == 1) g[k] = cg[i];
+                                   },
+                                   [&](int k, int i) {
+                                       // body 0: logp = -q.q/2, grad = -q; body 1: logp = q.grad/2
+                                       float gk;
+                                       if (BODY == 1) {
+                                           gk = g[k];
+                                           sums[0] += q[k] * gk;
+                                       } else {
+                                           gk = -q[k];
+                                           sums[0] += q[k] * q[k];
+                                           cg[i] = gk;
+                                       }
+                                       const float pk = p[k] + kick * gk;
+                                       cp[i] = pk;
+                                       if (last) sums[1] += pk * (v[k] * pk);
+                                   });
+                        LMC_CLK(kClkLeapfrog);
+                        warp_sums(sums);
+                        LMC_CLK(kClkWarpSums);
+                        c_lp = BODY == 1 ? 0.5f * sums[0] : -0.5f * sums[0];
+                        if (last) c_e = 0.5f * sums[1] - c_lp;
+                    }
                 }
             }
             if (bld) {
@@ -1443,7 +1582,7 @@ __device__ TreeResult block_transition(const TreeConsts& T, const BlockState& BS
                     const Slot sl = slot(h);
                     float *dps = sl.ps, *dq = sl.q;
                     float p[K], q[K];
-                    lane_trips(n, lane, [&](int k, int i) { p[k] = cp[i]; q[k] = cq[i]; },
+                    lane_trips<K>(n, lane, [&](int k, int i) { p[k] = cp[i]; q[k] = cq[i]; },
                                [&](int k, int i) { dps[i] = p[k]; dq[i] = q[k]; });
                     LMC_CLK(kClkLeafStore);
                     if (lane == 0) {
@@ -1466,7 +1605,7 @@ __device__ TreeResult block_transition(const TreeConsts& T, const BlockState& BS
                     LMC_CLK(kClkOther);
                     float d[2] = {0.f, 0.f};
                     float t1[K], t2[K], v[K], q[K];
-                    lane_trips(n, lane,
+                    lane_trips<K>(n, lane,
                                [&](int k, int i) {
                                    t1[k] = sps[i]; t2[k] = cp[i]; v[k] = vv[i];
                                    q[k] = cq[i];
@@ -1508,7 +1647,7 @@ __device__ TreeResult block_transition(const TreeConsts& T, const BlockState& BS
                     LMC_CLK(kClkOther);
                     float d[6] = {0.f, 0.f, 0.f, 0.f, 0.f, 0.f};
                     float t1lp[K], t1rp[K], t1ps[K], t2lp[K], t2rp[K], t2ps[K], v[K], q[K];
-                    lane_trips(n, lane,
+                    lane_trips<K>(n, lane,
                                [&](int k, int i) {
                                    t1lp[k] = a_lp[i]; t1rp[k] = a_rp[i]; t1ps[k] = a_ps[i];
                                    t2lp[k] = b_lp[i]; t2rp[k] = b_rp[i]; t2ps[k] = b_ps[i];
@@ -1579,7 +1718,7 @@ __device__ TreeResult block_transition(const TreeConsts& T, const BlockState& BS
                         *nps = s0.ps, *nq = s0.q;
             LMC_CLK(kClkOther);
             float d[6] = {0.f, 0.f, 0.f, 0.f, 0.f, 0.f};
-            constexpr int K2 = 2;  // trips at a time: 11 values a trip are live
+            constexpr int K2 = K < 2 ? K : 2;  // trips at a time: 11 values a trip are live
             float xps[K2], xlp[K2], xrp[K2], xq[K2], ops[K2], olp[K2], orp[K2];
             float q[K2], p[K2], g[K2], v[K2];
             lane_trips<K2>(n, lane,

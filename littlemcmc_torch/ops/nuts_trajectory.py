@@ -52,12 +52,13 @@ from .quadform import quadform_logp_grad_plain
 __all__ = ["TrajectorySpec", "fmix32", "counter_salt", "counter_uniform",
            "resolve_chain_block", "trajectory", "trajectory_plain",
            "body_logp_grad", "DEFAULT_CHAIN_BLOCK", "METRIC_IDS", "LOWRANK_MAX_K",
-           "lowrank_fac_size", "build_lowrank_fac", "warp_sum", "thin_dots"]
+           "lowrank_fac_size", "build_lowrank_fac", "warp_sum", "thin_dots",
+           "runs_block_transition"]
 
 # Chains per CUDA thread block, one warp per chain: 128 blocks at the
-# main path's 1024 chains for the card's 132 SMs. Bodies 0 and 1 with the
-# diagonal metric run the block transition (csrc/nuts_transition.cuh) in
-# blocks of up to 8 chains, the warp transition in larger ones.
+# main path's 1024 chains for the card's 132 SMs. Bodies 0, 1, 4 and 5 with
+# the diagonal metric run the block transition (csrc/nuts_transition.cuh)
+# in blocks of up to 8 chains, the warp transition in larger ones.
 DEFAULT_CHAIN_BLOCK = 8
 # 16 warps of 32 threads at up to 128 registers fill an SM's 65,536; the
 # low-rank metric's instances take 8 warps of up to 255 registers
@@ -70,6 +71,11 @@ MAX_KERNEL_NDIM_DENSE = 256  # register tile of the dense and the logistic model
 BODY_IDS = {"standard_normal": 0, "correlated_gaussian": 1, "eight_schools": 2, "logistic": 3,
             "spiked_gaussian": 4, "funnel": 5, "auto": 6}
 METRIC_IDS = {"diag": 0, "dense": 1, "lowrank": 2}
+# the bodies whose kDiag instances run the block transition in chain
+# blocks of up to BLOCK_TRANSITION_CHAINS (block_body() and kBlockChains in
+# csrc/nuts_transition.cuh)
+BLOCK_TRANSITION_BODIES = ("standard_normal", "correlated_gaussian", "spiked_gaussian", "funnel")
+BLOCK_TRANSITION_CHAINS = 8
 # columns of the low-rank factor block the kernels read (kMaxRank in
 # csrc/nuts_transition.cuh); a smaller rank is padded with zero columns
 LOWRANK_MAX_K = 8
@@ -363,6 +369,17 @@ def counter_uniform(salt: torch.Tensor, call) -> torch.Tensor:
     that broadcasts against ``salt``) for each salt, as float32."""
     x = fmix32(salt ^ ((call * _GOLDEN) & _M32))
     return ((x >> 8).to(torch.float32) + 0.5) * (1.0 / (1 << 24))
+
+
+def runs_block_transition(body: str, metric: str, chain_block: int) -> bool:
+    """Whether the NUTS kernels' instance for ``body`` and ``metric`` at
+    ``chain_block`` chains a block runs ``block_transition`` (else the warp
+    ``transition``): the predicate of the kernels' launch, which also runs
+    the warp transition for body 4 where its constants do not fit in shared
+    memory beside the working vectors (a few dozen n below the largest the
+    kernels take)."""
+    return (body in BLOCK_TRANSITION_BODIES and metric == "diag"
+            and chain_block <= BLOCK_TRANSITION_CHAINS)
 
 
 def resolve_chain_block(chains: int, chain_block: int) -> int:

@@ -442,6 +442,17 @@ def _run_chunked(factory, state, tune: int, draws: int, collect_tune: bool):
     return state, outs, ndiv
 
 
+# The JAX ``sample()``'s arguments that the port names but does not run
+# yet: each one's default there (``littlemcmc_tpu/sampling.py:897-906``)
+# and the ROADMAP Queue 1 item that ports it. Any other value raises.
+_UNPORTED_ARGUMENTS = {
+    "mesh": (None, 14), "chain_axis": ("chains", 14), "model_axis": (None, 14),
+    "dtype": (torch.float32, 17),
+    "progress_every": (None, 13), "checkpoint_dir": (None, 13), "checkpoint_every": (None, 13),
+    "resume": (False, 13),
+}
+
+
 def sample(
     logp_dlogp_func=None,
     model_ndim: Optional[int] = None,
@@ -460,8 +471,16 @@ def sample(
     logp_fn=None,
     mp_ctx=None,
     pickle_backend: str = "pickle",
+    mesh=None,
+    chain_axis: str = "chains",
+    model_axis: Optional[str] = None,
+    dtype=torch.float32,
     cross_chain_adapt: Optional[bool] = None,
     return_final_state: bool = False,
+    progress_every: Optional[int] = None,
+    checkpoint_dir: Optional[str] = None,
+    checkpoint_every: Optional[int] = None,
+    resume: bool = False,
     fuse_draws: Optional[bool] = None,
     compute_convergence_checks: bool = True,
     perf_report: Optional[dict] = None,
@@ -480,7 +499,11 @@ def sample(
     ``"cuda"`` and raises when no CUDA device exists; ``device="cpu"`` runs
     the kernels' plain PyTorch versions. ``cores``, ``chain_idx``,
     ``mp_ctx`` and ``pickle_backend`` are accepted and ignored, as in the
-    JAX package.
+    JAX package. ``mesh``, ``chain_axis``, ``model_axis``, ``dtype``,
+    ``progress_every``, ``checkpoint_dir``, ``checkpoint_every`` and
+    ``resume`` take the JAX package's defaults (``dtype`` float32); any
+    other value raises ``NotImplementedError`` naming the ROADMAP item that
+    ports it.
 
     - ``cross_chain_adapt``: pool the metric's Welford statistics across
       all chains. ``None`` pools ``adapt_full`` and ``adapt_lowrank`` at
@@ -521,6 +544,13 @@ def sample(
     del cores, chain_idx, mp_ctx, pickle_backend
     if callback is not None:
         raise NotImplementedError("`callback` is ROADMAP Queue 1 item 13.")
+    given = dict(mesh=mesh, chain_axis=chain_axis, model_axis=model_axis, dtype=dtype,
+                 progress_every=progress_every, checkpoint_dir=checkpoint_dir,
+                 checkpoint_every=checkpoint_every, resume=resume)
+    for name, (default, item) in _UNPORTED_ARGUMENTS.items():
+        value = given[name]
+        if not (value is default or (isinstance(default, str) and value == default)):
+            raise NotImplementedError(f"`{name}` is ROADMAP Queue 1 item {item}.")
     dev = resolve_device(device)
     chains = 4 if chains is None else int(chains)
     if model_ndim is None:

@@ -23,14 +23,17 @@ trajectory kernel's model bodies that the port's paths spend most in:
 the logistic body (3) at ``chip_smoke.py``'s phase 2k input and at path
 (B)'s final state, and the generated ``HierarchicalRegression`` body at
 H1's final state (1024 chains each, tree depth 10; CUDA events and the
-device time under ``torch.profiler``). Then rows 1 diag and 2b body 1,
-the NUTS transition's body-1 diag instances (the per-draw launch and a
-250-draw fused launch, 1024 chains), at phase 2's input and at the main
-path's final state: ms a launch (CUDA events), a digest of the outputs
-(equal digests: the two checkouts give the same bits), and from a build
-with the section clocks the grid's tail share and the sections' shares
-(``scripts/torch_transition_clocks.py``, whose main-path state, in
-``build/transition_clocks_state.pt``, the first run samples with its
+device time under ``torch.profiler``). Then the NUTS transition's diag
+instances of ``scripts/torch_transition_clocks.py``: rows 1 diag and 2b
+body 1 (the per-draw launch and a 250-draw fused launch, 1024 chains) at
+phase 2's input and at the main path's final state, row 2a (the funnel's
+fused launch) at F1's final state and 2p's input, the funnel per draw at
+2o's, row 1 body 4 (the spiked Gaussian per draw) at L0's final state and
+2m's input, and the spiked Gaussian's fused instance in a 2-draw chunk:
+ms a launch (CUDA events), a digest of the outputs (equal digests: the
+two checkouts give the same bits), and from a build with the section
+clocks the grid's tail share and the sections' shares (the final states,
+kept in ``build/`` by that script, the first run samples with its
 checkout and the later ones load). The inputs are made with numpy
 from fixed seeds, so two checkouts see the same work; the final states
 come from ``build/kernel_ab_states.pt`` beside this script, which the
@@ -154,23 +157,29 @@ def _body_times(states_path: Path) -> dict:
 
 
 def _transition_rows(root: Path) -> dict:
-    """Rows 1 diag and 2b body 1 at phase 2's input and the main path's
-    final state (:func:`torch_transition_clocks.run_clocks`): ms a launch
-    of the package's build, its output digest, the tail share, the
-    wait and body shares of a warp's cycles and the cycles a leaf step,
-    and the clocked build's ptxas lines."""
+    """The NUTS transition's diag instances at the inputs of
+    :func:`torch_transition_clocks.run_clocks`: rows 1 diag and 2b body 1
+    at phase 2's input and the main path's final state, row 2a (the
+    funnel's fused instance) at F1's final state and phase 2p's input, the
+    funnel per draw at phase 2o's input, row 1 body 4 (the spiked Gaussian
+    per draw) at L0's final state and phase 2m's input, and its fused
+    instance in a 2-draw chunk at 2m's positions: ms a launch of the
+    package's build, its output digest, the tail share, each section's
+    share of a warp's cycles and the cycles a leaf step, and the clocked
+    build's ptxas lines."""
     sys.path.insert(0, str(Path(__file__).resolve().parent))
     import torch_transition_clocks as tc
 
     here = Path(__file__).resolve().parents[1]
     out = {}
-    for r in tc.run_clocks(root, here / "build" / "transition_clocks_state.pt",
-                           here / "build" / "transition_clocks"):
+    for r in tc.run_clocks(root, here / "build", here / "build" / "transition_clocks"):
         key = f"{r['kernel']}_diag_{r['case']}"
         out[f"{key}_ms"] = r["plain_build_ms"]
         out[f"{key}_digest"] = r["digest"]
-        for k in ("tail_share", "block_ms_mean", "block_ms_max", "share_body", "share_wait",
-                  "cycles_per_step", "mean_leaves_per_chain_draw", "max_depth"):
+        for k in ("tail_share", "block_ms_mean", "block_ms_max", "cycles_per_step",
+                  "leaf_steps_per_chain", "leaves_built_per_chain",
+                  "mean_leaves_per_chain_draw", "max_depth",
+                  *(f"share_{s}" for s in tc.SECTIONS)):
             if k in r:
                 out[f"{key}_{k}"] = r[k]
         out[f"ptxas_clocks_{r['kernel']}"] = r["ptxas_clocks"]

@@ -7,15 +7,23 @@ Builds the per-draw trajectory kernel (``nuts_trajectory.cu``) and the
 fused NUTS kernel (``fused_nuts.cu``) of the checkout at ROOT (default:
 the one this script is in) a second time with ``-DLMC_TRANSITION_CLOCKS``,
 which compiles in the section clocks of ``csrc/nuts_transition.cuh``
-(the package's own build never sets it), and runs their body-1 diag
-instances (the 100-d correlated Gaussian, 1024 chains, tree depth 10)
-through the package's wrappers at two inputs: ``chip_smoke.py``'s phase-2
-input (stationary, step 0.2) and the main path's final state
-(``sample(CorrelatedGaussian(100).logp_grad, model_ndim=100,
-chains=1024, tune=500, draws=1000, random_seed=42)``; sampled once with
-ROOT's package and kept in ``build/transition_clocks_state.pt`` beside
-this script, so that every checkout timed in one call sees the same
-state). The fused kernel runs a 250-draw draw chunk from each.
+(the package's own build never sets it), and runs their diag instances
+through the package's wrappers (tree depth 10, chain blocks of 8):
+
+- the 100-d correlated Gaussian (body 1, rows 1 diag and 2b body 1), 1024
+  chains, at ``chip_smoke.py``'s phase-2 input (stationary, step 0.2) and
+  at the main path's final state;
+- Neal's centred funnel (body 5, row 2a) at F1's final state and phase
+  2p's draw-chunk input (fused), and at phase 2o's input (per draw);
+- the 100-d spiked Gaussian (body 4, row 1 body 4) at L0's final state
+  and phase 2m's input (per draw), and its fused instance in a 2-draw
+  chunk of 256 chains at 2m's positions.
+
+A fused launch from a final state runs a 250-draw draw chunk. The final
+states (main path, F1, L0: ``sample()`` at 1024 chains, 500 + 1000, seed
+42) are sampled once with ROOT's package and kept in ``build/`` beside
+this script (``STATE_FILES``), so that every checkout timed in one call
+sees the same states.
 
 For each launch it prints one JSON line:
 
@@ -104,19 +112,28 @@ def _load_clocked(path: Path, name: str):
     return lib, bind
 
 
-def _main_state(path: Path):
-    """The main path's final state (sampled once, then loaded)."""
+# The cells whose final states the cases start from, each sampled once
+# (seed 42, 1024 chains, 500 + 1000) with the first checkout run and kept
+# in build/ beside this script: the main path (``CorrelatedGaussian(100)``,
+# per-draw diag), F1 (``NealsFunnel(10)``, centred, ``target_accept=0.9``,
+# fused diag) and L0 (``SpikedGaussian(100)``, ``jitter+adapt_diag``,
+# per-draw diag on body 4).
+STATE_FILES = {"main": "transition_clocks_state.pt", "f1": "transition_clocks_f1_state.pt",
+               "l0": "transition_clocks_l0_state.pt"}
+
+
+def _final_state(path: Path, model, **kw) -> dict:
+    """A cell's final state (sampled once with ``kw``, then loaded): the
+    trajectory and fused ops' inputs, a momentum from a fixed seed."""
     import torch
 
     if path.exists():
         return torch.load(path)
     from littlemcmc_torch import sample
-    from littlemcmc_torch.models import CorrelatedGaussian
 
-    cg = CorrelatedGaussian(N)
-    _, _, s = sample(cg.logp_grad, model_ndim=N, chains=C, tune=500, draws=1000,
+    _, _, s = sample(model.logp_grad, model_ndim=model.ndim, chains=C, tune=500, draws=1000,
                      random_seed=42, return_final_state=True, progressbar=False,
-                     compute_convergence_checks=False)
+                     compute_convergence_checks=False, **kw)
     da = s.da
     state = {k: v.contiguous() for k, v in dict(
         q=s.q, grad=s.q_grad, logp=s.logp, var=s.potential.var,
@@ -128,34 +145,65 @@ def _main_state(path: Path):
     return state
 
 
-def _inputs(root: Path, state_path: Path) -> dict:
-    """name -> (kernel, positional args, seed words): each kernel at phase
-    2's input and at the main path's final state."""
+def _inputs(root: Path, state_dir: Path) -> dict:
+    """case -> (kernel, model, positional args, seed words, draws a fused
+    launch): rows 1 diag and 2b body 1 (the correlated Gaussian) at phase
+    2's input and the main path's final state; row 2a (the funnel's fused
+    instance) at F1's final state and phase 2p's draw-chunk input; the
+    funnel in the per-draw kernel at phase 2o's input; row 1 body 4 (the
+    spiked Gaussian per draw) at L0's final state and phase 2m's input; the
+    spiked Gaussian's fused instance in a 2-draw chunk of 256 chains at
+    phase 2m's positions."""
     import numpy as np
     import torch
 
     sys.path.insert(0, str(root))
     import chip_smoke
-    from littlemcmc_torch.models import CorrelatedGaussian
+    from littlemcmc_torch.models import CorrelatedGaussian, NealsFunnel, SpikedGaussian
 
-    cg = CorrelatedGaussian(N)
+    cg, fun, sg = CorrelatedGaussian(N), NealsFunnel(10), SpikedGaussian(N)
     q, p, g, lp, eps, mdc, var = chip_smoke._stationary_inputs(
         cg, np.linalg.cholesky(cg.cov), C, 0.2, seed=0)
-    s = _main_state(state_path)
+    main = _final_state(state_dir / STATE_FILES["main"], cg)
+    f1 = _final_state(state_dir / STATE_FILES["f1"], fun, target_accept=0.9)
+    l0 = _final_state(state_dir / STATE_FILES["l0"], sg, init="jitter+adapt_diag")
     full = torch.full((C,), DEPTH, dtype=torch.int32, device="cuda")
     f = dict(dtype=torch.float32, device="cuda")
     leps = torch.log(eps)
+
+    def traj(s):
+        return (s["q"], s["p"], s["grad"], s["logp"], torch.exp(s["log_bar"]), full, s["var"])
+
+    def fused(s):
+        return (s["q"], s["grad"], s["logp"], s["iter"], s["log_step"], s["log_bar"], s["hbar"],
+                s["count"], s["mu"], s["var"], None)
+
+    def chunk(model, chains, seed):  # the smoke's diag draw-chunk input (fused_check)
+        return chip_smoke._diag_fused_inputs(model, chains, seed, False, swap_at=1)[0]
+
     return {
-        "phase2": ("trajectory", (q, p, g, lp, eps, mdc, var), (17, 29)),
-        "main_final": ("trajectory", (s["q"], s["p"], s["grad"], s["logp"],
-                                      torch.exp(s["log_bar"]), full, s["var"]), (3, 8)),
-        "fused_phase2": ("fused_nuts", (q, g, lp, torch.full((C,), 1500.0, **f), leps, leps,
-                                        torch.zeros(C, **f), torch.full((C,), 40.0, **f),
-                                        leps + float(np.log(10.0)), var, None), (5, 9)),
-        "fused_main_final": ("fused_nuts", (s["q"], s["grad"], s["logp"], s["iter"],
-                                            s["log_step"], s["log_bar"], s["hbar"], s["count"],
-                                            s["mu"], s["var"], None), (5, 9)),
+        "phase2": ("trajectory", cg, (q, p, g, lp, eps, mdc, var), (17, 29), 0),
+        "main_final": ("trajectory", cg, traj(main), (3, 8), 0),
+        "fused_phase2": ("fused_nuts", cg, (q, g, lp, torch.full((C,), 1500.0, **f), leps, leps,
+                                            torch.zeros(C, **f), torch.full((C,), 40.0, **f),
+                                            leps + float(np.log(10.0)), var, None), (5, 9), 250),
+        "fused_main_final": ("fused_nuts", cg, fused(main), (5, 9), 250),
+        "f1_final": ("fused_nuts", fun, fused(f1), (5, 9), 250),
+        "phase2p": ("fused_nuts", fun, chunk(fun, C, 35), (211, 7), 2),
+        "phase2o": ("trajectory", fun, chip_smoke._posterior_inputs(fun, C, 0.2, 33), (197, -5),
+                    0),
+        "l0_final": ("trajectory", sg, traj(l0), (3, 8), 0),
+        "phase2m": ("trajectory", sg, chip_smoke._posterior_inputs(sg, 256, 0.1, 25), (163, 167),
+                    0),
+        "fused_phase2m": ("fused_nuts", sg, chunk(sg, 256, 25), (229, 7), 2),
     }
+
+
+def clock_buffer_len(chains: int, cb: int) -> int:
+    """int64 words of the clocks' side buffer for a launch of ``chains``
+    chains in blocks of ``cb``: a row of kClkSlots a chain, then (start
+    ns, end ns, SM, unused) a block."""
+    return chains * SLOTS + (chains // cb) * 4
 
 
 def _tail(blocks, n_sms: int) -> dict:
@@ -216,13 +264,11 @@ def _ms(fn, reps: int) -> float:
     return start.elapsed_time(end) / reps
 
 
-def run_clocks(root: Path, state_path: Path, out_dir: Path) -> list:
+def run_clocks(root: Path, state_dir: Path, out_dir: Path) -> list:
     """Every launch's JSON record for the checkout at ``root`` (its package
     already on ``sys.path``)."""
-    import numpy as np
     import torch
     from littlemcmc_torch.base import NUTSConfig
-    from littlemcmc_torch.models import CorrelatedGaussian
     from littlemcmc_torch.ops import _build
     from littlemcmc_torch.ops.fused_nuts import fused_nuts
     from littlemcmc_torch.ops.nuts_trajectory import trajectory
@@ -233,19 +279,21 @@ def run_clocks(root: Path, state_path: Path, out_dir: Path) -> list:
     clocked = _finish_clocked(procs)
     build_s = time.perf_counter() - t0
     libs = {name: _load_clocked(path, name) for name, (path, _) in clocked.items()}
-    cases = _inputs(root, state_path)
-    spec = CorrelatedGaussian(N).trajectory_spec()
-    kws = {"trajectory": dict(spec=spec, max_treedepth=DEPTH, Emax=1000.0, chain_block=CB),
-           "fused_nuts": dict(spec=spec, T=250, tuning=False, config=NUTSConfig(),
-                              metric="diag", chain_block=CB)}
+    cases = _inputs(root, state_dir)
     ops = {"trajectory": (trajectory, "nuts_trajectory"), "fused_nuts": (fused_nuts, "fused_nuts")}
     n_sms = torch.cuda.get_device_properties(0).multi_processor_count
     real_load = _build.load_library
     records = []
-    for case, (kind, args, seed) in cases.items():
+    for case, (kind, model, args, seed, T) in cases.items():
         op, lib_name = ops[kind]
-        kw = kws[kind]
-        reps = 20 if kind == "trajectory" else 3
+        chains = args[0].shape[0]
+        if kind == "trajectory":
+            kw = dict(spec=model.trajectory_spec(), max_treedepth=DEPTH, Emax=1000.0,
+                      chain_block=CB)
+        else:
+            kw = dict(spec=model.trajectory_spec(), T=T, tuning=False, config=NUTSConfig(),
+                      metric="diag", chain_block=CB)
+        reps = 3 if T >= 100 else 20
 
         def call():
             return op(*args, seed, **kw)
@@ -257,19 +305,21 @@ def run_clocks(root: Path, state_path: Path, out_dir: Path) -> list:
                                _l if name == _n else real_load(name))
         try:
             instr_ms = _ms(call, reps)
-            rec = {"root": str(root), "case": case, "kernel": lib_name, "ms": instr_ms,
-                   "plain_build_ms": plain_build_ms, "digest": digest,
+            rec = {"root": str(root), "case": case, "kernel": lib_name,
+                   "body": model.trajectory_spec().body, "chains": chains, "draws": T or 1,
+                   "ms": instr_ms, "plain_build_ms": plain_build_ms, "digest": digest,
                    "ptxas_clocks": clocked[lib_name][1]}
             if bind is not None:
-                buf = torch.zeros(C * SLOTS + (C // CB) * 4, dtype=torch.int64, device="cuda")
+                buf = torch.zeros(clock_buffer_len(chains, CB), dtype=torch.int64,
+                                  device="cuda")
                 if bind(buf.data_ptr()) != 0:
                     raise RuntimeError("transition_clocks_bind failed")
                 out = call()
                 torch.cuda.synchronize()
                 host = buf.cpu().numpy()
                 bind(0)
-                rec.update(_tail(host[C * SLOTS:].reshape(-1, 4), n_sms))
-                rec.update(_sections(host[:C * SLOTS].reshape(C, SLOTS)))
+                rec.update(_tail(host[chains * SLOTS:].reshape(-1, 4), n_sms))
+                rec.update(_sections(host[:chains * SLOTS].reshape(chains, SLOTS)))
                 rec["mean_leaves_per_chain_draw"] = float(
                     out["n_leaves"].float().mean())
                 rec["max_depth"] = int(out["depth"].max())
@@ -295,8 +345,7 @@ def main() -> int:
     smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
                          capture_output=True, text=True, timeout=60).stdout.strip()
     print(json.dumps({"card": smi, "root": str(root)}), flush=True)
-    for rec in run_clocks(root, here / "build" / "transition_clocks_state.pt",
-                          here / "build" / "transition_clocks"):
+    for rec in run_clocks(root, here / "build", here / "build" / "transition_clocks"):
         print(json.dumps(rec), flush=True)
     return 0
 

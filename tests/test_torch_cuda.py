@@ -24,7 +24,8 @@ from littlemcmc_torch import NUTS, HamiltonianMC, models as tm
 from littlemcmc_torch import sample
 from littlemcmc_torch.ops import trajectory, trajectory_plain
 
-from chip_smoke import FLAGS, _held, _hmc_inputs, fused_check, hmc_check
+from chip_smoke import (FLAGS, _held, _hmc_inputs, _positions, _posterior_sd, fused_check,
+                        hmc_check)
 
 
 @pytest.fixture
@@ -365,6 +366,116 @@ def test_fused_block_body_kernel_to_depth_10_matches_plain(hopper, n, tuning):
     agree = torch.stack([got[k] == want[k] for k in FLAGS]).all(0)
     held = _held(agree)
     sd = torch.from_numpy(np.sqrt(model.true_var)).float().to(hopper)
+    assert _flip_share(got, want, held, sd, "trace") <= _FLIPS, res
+
+
+# Bodies 4 (the spiked Gaussian) and 5 (Neal's centred funnel) with the
+# diagonal metric in blocks of up to 8 chains run the block transition too,
+# each evaluated inside the leapfrog's two passes. At a step of 0.002 the
+# spiked Gaussian's trees reach the depth cap of 10 on every chain without
+# the early cap (every stack slot written; at n = 256 the upper slots in
+# global memory), at k = 1, 4 and 8 spikes (the `rows` of the body's thin
+# dots). The funnel's positions put a quarter of the chains in the neck
+# (v in [-6, -2]): at 0.002 the chains in the mouth reach depth 10, at 0.2
+# a third of them diverge, at 1.0 nearly all do and some trajectories'
+# energies turn non-finite in the neck (exp(-v) overflows), so the
+# divergence and non-finite branches are held against the plain version.
+_SPIKES = (400.0, 100.0, 25.0, 9.0, 4.0, 3.0, 2.0, 1.5)
+
+
+def _spiked(n, k):
+    return tm.SpikedGaussian(n, rank=k, spikes=_SPIKES[:k])
+
+
+def _posterior_like_inputs(model, C, D, eps, seed, dev):
+    """:func:`_inputs` for a model without a covariance matrix: positions
+    spread like its posterior (``chip_smoke._positions``), an inverse-mass
+    diagonal near its posterior variances."""
+    rng = np.random.default_rng(seed)
+    n = model.ndim
+    q = torch.from_numpy(_positions(model, rng, C)).to(dev)
+    var = (_posterior_sd(model) ** 2 * rng.uniform(0.5, 2.0, (C, n))).astype(np.float32)
+    p = (rng.standard_normal((C, n)) / np.sqrt(var)).astype(np.float32)
+    eps = (eps * rng.uniform(0.8, 1.2, C)).astype(np.float32)
+    mdc = np.full(C, D, np.int32)
+    mdc[::5] = D - 2  # some chains carry the early tree-depth cap
+    logp, grad = model.batched_logp_grad(q)
+    return (q, torch.from_numpy(p).to(dev), grad.contiguous(), logp.contiguous(),
+            torch.from_numpy(eps).to(dev), torch.from_numpy(mdc).to(dev),
+            torch.from_numpy(var).to(dev))
+
+
+def _block_body_4_5_check(model, chains, eps, seed, dev):
+    """One launch of the per-draw kernel against its plain version: the
+    flags on at least 99% of chains, the proposals and energies on all but
+    _FLIPS of those. Returns the plain version's outputs."""
+    D = 10
+    args = _posterior_like_inputs(model, chains, D, eps, seed, dev)
+    kw = dict(spec=model.trajectory_spec(), max_treedepth=D, Emax=1000.0, chain_block=8)
+    launches = trajectory.launches
+    got = trajectory(*args, (31, -37), **kw)
+    torch.cuda.synchronize()
+    assert trajectory.launches == launches + 1
+    want = trajectory_plain(*args, (31, -37), **kw)
+    agree = torch.stack([got[k] == want[k] for k in FLAGS]).all(0)
+    assert float(agree.float().mean()) >= 0.99
+    sd = torch.from_numpy(_posterior_sd(model)).float().to(dev)
+    assert _flip_share(got, want, agree, sd, "q") <= _FLIPS
+    return want
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("n,k", [(100, 1), (100, 4), (100, 8), (256, 4)])
+def test_block_spiked_kernel_to_depth_10_matches_plain(hopper, n, k):
+    want = _block_body_4_5_check(_spiked(n, k), 128, 0.002, 13, hopper)
+    assert int(want["depth"].max()) == 10
+    assert float((want["depth"] == 10).float().mean()) > 0.75
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("eps", [0.002, 0.2, 1.0])
+def test_block_funnel_kernel_matches_plain(hopper, eps):
+    want = _block_body_4_5_check(tm.NealsFunnel(10), 256, eps, 17, hopper)
+    if eps == 0.002:
+        assert int(want["depth"].max()) == 10
+    else:
+        assert float(want["diverging"].float().mean()) > 0.3
+    if eps == 1.0:
+        assert not torch.isfinite(want["max_energy_change"]).all()
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("body,n,k,tuning,log_step", [
+    ("spiked", 100, 4, False, float(np.log(0.002))),
+    ("spiked", 256, 8, False, float(np.log(0.002))),
+    ("spiked", 100, 1, True, float(np.log(0.002))),
+    ("funnel", 10, 0, False, float(np.log(0.002))),
+    ("funnel", 10, 0, False, -1.2),
+    ("funnel", 10, 0, True, -1.2),
+], ids=["spiked-100-4-draw", "spiked-256-8-draw", "spiked-100-1-tune", "funnel-depth-10",
+        "funnel-draw", "funnel-tune"])
+def test_fused_block_spiked_and_funnel_kernel_matches_plain(hopper, body, n, k, tuning,
+                                                            log_step):
+    """The fused kernel's body-4 and body-5 diag instances, 2 draws of 64
+    chains (256 for the funnel at its step near 0.3, where a third of its
+    chains diverge): at step 0.002 as the body-1 test above holds them; at
+    the funnel's larger step every check of the smoke's phase 2p."""
+    model = _spiked(n, k) if body == "spiked" else tm.NealsFunnel(n)
+    deep = log_step < -5.0
+    res, failures, got, want, _, _ = fused_check(model, 64 if deep else 256, 2, tuning, False,
+                                                 seed=15, words=(41, -43), metric="diag",
+                                                 log_step=log_step)
+    if not deep:
+        assert not failures, res
+        assert float(want["diverging"].float().mean()) > 0.1
+        return
+    moved = ("q or energy differ", "stat model_logp", "stat energy_error")
+    assert not [f for f in failures if not f.startswith(moved)
+                and "against the plain version" not in f], res
+    assert int(want["depth"].max()) == 10
+    agree = torch.stack([got[k_] == want[k_] for k_ in FLAGS]).all(0)
+    held = _held(agree)
+    sd = torch.from_numpy(_posterior_sd(model)).float().to(hopper)
     assert _flip_share(got, want, held, sd, "trace") <= _FLIPS, res
 
 

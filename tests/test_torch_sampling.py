@@ -155,6 +155,40 @@ def test_sample_rejects_what_the_slice_does_not_run():
         lt.sample(plain_model, model_ndim=2, init="advi", device="cpu")
 
 
+_UNPORTED = {"mesh": (object(), 14), "chain_axis": ("devices", 14), "model_axis": ("model", 14),
+             "dtype": (torch.float64, 17), "progress_every": (10, 13),
+             "checkpoint_dir": ("checkpoints", 13), "checkpoint_every": (5, 13),
+             "resume": (True, 13)}
+
+
+def _plain_model(q):
+    return -0.5 * (q * q).sum(), -q
+
+
+@pytest.mark.parametrize("with_step", [False, True], ids=["no_step", "step"])
+@pytest.mark.parametrize("name", sorted(_UNPORTED))
+def test_sample_raises_for_each_jax_argument_it_does_not_run(name, with_step, tmp_path):
+    """JAX's ``sample()`` names eight arguments that the port does not run
+    yet (``littlemcmc_tpu/sampling.py:897-906``): the port names them too,
+    and a value other than JAX's default raises, whether or not ``step``
+    is given, citing the ROADMAP Queue 1 item that ports it."""
+    value, item = _UNPORTED[name]
+    kw = dict(step=lt.NUTS(model_ndim=2)) if with_step else {}
+    with pytest.raises(NotImplementedError, match=rf"`{name}` is ROADMAP Queue 1 item {item}\."):
+        lt.sample(_plain_model, model_ndim=2, chains=2, tune=5, draws=5, device="cpu",
+                  progressbar=False, compute_convergence_checks=False, **kw, **{name: value})
+    assert not (tmp_path / "checkpoints").exists()
+
+
+def test_sample_runs_with_the_jax_defaults_of_those_arguments():
+    trace, _ = lt.sample(_plain_model, model_ndim=2, chains=2, tune=5, draws=5, device="cpu",
+                         progressbar=False, compute_convergence_checks=False, mesh=None,
+                         chain_axis="chains", model_axis=None, dtype=torch.float32,
+                         progress_every=None, checkpoint_dir=None, checkpoint_every=None,
+                         resume=False)
+    assert tuple(trace.shape) == (2, 5, 2) and str(trace.dtype).endswith("float32")
+
+
 def test_warnings_leave_out_the_kept_tuning_draws():
     """``step.warnings()`` after ``discard_tuned_samples=False`` leaves the
     kept tuning draws out, as the JAX package's ``step._last_tune`` does

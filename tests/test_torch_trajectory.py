@@ -220,3 +220,30 @@ def test_convert_round_trip_and_shared_start():
     got = state.potential.update(torch.from_numpy(x), None, True)
     np.testing.assert_allclose(got.var.numpy(), np.asarray(want.var), rtol=1e-6)
 
+
+
+@pytest.mark.parametrize("chain_block", [1, 8, 16])
+def test_block_transition_predicate_matches_the_kernels(chain_block):
+    """``runs_block_transition`` names the instances that ``block_body()``
+    and ``kBlockChains`` of ``csrc/nuts_transition.cuh`` put on the block
+    transition: bodies 0, 1, 4 and 5 with the diagonal metric in blocks of
+    up to 8 chains."""
+    import re
+    from pathlib import Path
+
+    from littlemcmc_torch.ops.nuts_trajectory import (BLOCK_TRANSITION_BODIES,
+                                                      BLOCK_TRANSITION_CHAINS, BODY_IDS,
+                                                      METRIC_IDS, runs_block_transition)
+
+    src = (Path(__file__).resolve().parents[1] / "littlemcmc_torch" / "ops" / "csrc"
+           / "nuts_transition.cuh").read_text()
+    fn = re.search(r"constexpr bool block_body\(\) \{\s*return (.*?);", src, re.S).group(1)
+    assert fn.endswith("&& METRIC == kDiag")
+    bodies = {int(b) for b in re.findall(r"BODY == (\d+)", fn)}
+    chains = int(re.search(r"constexpr int kBlockChains = (\d+);", src).group(1))
+    assert {BODY_IDS[b] for b in BLOCK_TRANSITION_BODIES} == bodies == {0, 1, 4, 5}
+    assert BLOCK_TRANSITION_CHAINS == chains
+    for body, bid in BODY_IDS.items():
+        for metric in METRIC_IDS:
+            want = bid in bodies and metric == "diag" and chain_block <= chains
+            assert runs_block_transition(body, metric, chain_block) == want

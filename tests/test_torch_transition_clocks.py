@@ -67,3 +67,37 @@ def test_digest_tells_bits_apart():
     assert tc._digest(out) == tc._digest(same)
     same["q"][2, 1] = float(np.nextafter(np.float32(same["q"][2, 1].item()), np.float32(np.inf)))
     assert tc._digest(out) != tc._digest(same)
+
+
+@pytest.mark.parametrize("chains,cb", [(1024, 8), (256, 8), (64, 16)])
+def test_clock_buffer_holds_a_row_a_chain_and_one_a_block(chains, cb):
+    n = tc.clock_buffer_len(chains, cb)
+    assert n == chains * tc.SLOTS + (chains // cb) * 4
+    # the block rows start where the chains' rows end
+    buf = np.zeros(n, np.int64)
+    assert buf[chains * tc.SLOTS:].reshape(-1, 4).shape == (chains // cb, 4)
+
+
+def test_ptxas_entries_group_each_kernels_lines():
+    """``chip_smoke._ptxas_entries`` (phase 4's ptxas lines of the moved
+    instances) files each stack-frame and register line under the entry
+    function ptxas was compiling."""
+    import chip_smoke
+
+    log = "\n".join([
+        "ptxas info    : 0 bytes gmem",
+        "ptxas info    : Compiling entry function '_Z3fooILi4ELi0ELb1EEvv' for 'sm_90a'",
+        "ptxas info    : Function properties for _Z3fooILi4ELi0ELb1EEvv",
+        "    0 bytes stack frame, 0 bytes spill stores, 0 bytes spill loads",
+        "ptxas info    : Used 231 registers, 624 bytes cmem[0]",
+        "ptxas info    : Compiling entry function '_Z3fooILi4ELi0ELb0EEvv' for 'sm_90a'",
+        "ptxas info    : Function properties for _Z3fooILi4ELi0ELb0EEvv",
+        "    8 bytes stack frame, 4 bytes spill stores, 4 bytes spill loads",
+        "ptxas info    : Used 128 registers, 624 bytes cmem[0]",
+    ])
+    out = chip_smoke._ptxas_entries(log)
+    assert list(out) == ["_Z3fooILi4ELi0ELb1EEvv", "_Z3fooILi4ELi0ELb0EEvv"]
+    assert out["_Z3fooILi4ELi0ELb1EEvv"] == [
+        "0 bytes stack frame, 0 bytes spill stores, 0 bytes spill loads",
+        "ptxas info    : Used 231 registers, 624 bytes cmem[0]"]
+    assert "4 bytes spill stores" in out["_Z3fooILi4ELi0ELb0EEvv"][0]
