@@ -208,10 +208,10 @@ Phases, each printing its own lines:
    state, the number the generated body exists to beat) beside 50 draws
    on the generated body, and the probe kernel alone; then the ptxas
    lines of the per-draw and fused NUTS kernels' body-4 and body-5 diag
-   instances (those on the block transition beside those on the warp
-   transition), and one JSON line of kernel rows (each NUTS row's
-   ``transition``, ``block`` or ``warp``: the transition of
-   ``csrc/nuts_transition.cuh`` its instance runs), the six fused probes
+   instances and body-1 dense instances (those on the block transition
+   beside those on the warp transition), and one JSON line of kernel rows
+   (each NUTS row's ``transition``, ``block`` or ``warp``: the transition
+   of ``csrc/nuts_transition.cuh`` its instance runs), the six fused probes
    last (for the fused kernels ``ms``, ``plain_ms`` and ``bound_ms`` are
    one launch on 2c's, 2e's, 2h's, 2i's or 2p's draw-chunk input: 4
    draws, in 2h-2i 1, in 2p 2; ``chunk_*`` the 250-draw launch; for the
@@ -966,7 +966,7 @@ def _diag_welford_errors(got, want_var, want, sd, chains=None):
 
 
 def fused_check(model, C, T, tuning, adapt_step_size, seed, words, step="nuts",
-                metric="dense", log_step=-1.2):
+                metric="dense", log_step=-1.2, dense_log_step=-0.7, chain_block=CHAIN_BLOCK):
     """One fused launch of ``T`` draws at ``C`` chains against the plain
     version on the same inputs (``step``: the fused NUTS op, or with
     ``"hmc"`` the fused HMC op; ``metric``: the dense branch, with the
@@ -979,8 +979,10 @@ def fused_check(model, C, T, tuning, adapt_step_size, seed, words, step="nuts",
     version and a float64 replay and the dual-averaging state against its
     update replayed over the kernel's accept statistics. NUTS's trees run
     to the sampler's depth of 10; ``log_step``: the diag and low-rank
-    inputs' step sizes (:func:`_diag_fused_inputs`). Returns the result
-    line, the list of failures and both outputs."""
+    inputs' step sizes (:func:`_diag_fused_inputs`), ``dense_log_step``
+    the dense ones' (:func:`_fused_inputs`); ``chain_block``: the chains a
+    thread block. Returns the result line, the list of failures and both
+    outputs."""
     import numpy as np
     import torch
     from littlemcmc_torch.base import HMCConfig, NUTSConfig
@@ -993,9 +995,9 @@ def fused_check(model, C, T, tuning, adapt_step_size, seed, words, step="nuts",
     config = (NUTSConfig(adapt_step_size=adapt_step_size) if step == "nuts"
               else HMCConfig(adapt_step_size=adapt_step_size))
     kw = dict(spec=model.trajectory_spec(), T=T, tuning=tuning, config=config, metric=metric,
-              window_multiplier=2.0, chain_block=CHAIN_BLOCK)
+              window_multiplier=2.0, chain_block=chain_block)
     if metric == "dense":
-        args = _fused_inputs(model, C, seed)
+        args = _fused_inputs(model, C, seed, log_step=dense_log_step)
         welford = _welford_seed(model) if tuning else None
         kw["dense_welford"] = welford
     else:
@@ -1022,7 +1024,7 @@ def fused_check(model, C, T, tuning, adapt_step_size, seed, words, step="nuts",
     # draw's step size
     adapting = tuning and adapt_step_size
     checked = agree[:1] if adapting else agree
-    held = _held(checked, CHAIN_BLOCK if step == "nuts" else 1)
+    held = _held(checked, chain_block if step == "nuts" else 1)
     Th = held.shape[0]
     dq = ((got["trace"][:Th] - want["trace"][:Th]).abs())[held]
     de = (got["energy"][:Th] - want["energy"][:Th]).abs()
@@ -3153,16 +3155,20 @@ def main() -> int:
         lg_fused_row("hmc"),
     ]
     # the ptxas lines of the instances the block transition took over in
-    # this slice (bodies 4 and 5 with the diagonal metric), beside their
-    # warp-transition instances (blocks of more than 8 chains)
+    # the last slices (bodies 4 and 5 with the diagonal metric, body 1 with
+    # the dense metric), beside their warp-transition instances (blocks of
+    # more than 8 chains)
     for name in ("nuts_trajectory", "fused_nuts"):
         moved = {}
         for entry, lines in _ptxas_entries(logs[name].read_text()).items():
-            for b in (4, 5):  # <body, metric, block>; the fused kernel's own block kernel
-                if f"ILi{b}ELi0ELb1E" in entry or f"block_kernelILi{b}E" in entry:
-                    moved[f"<{b},0,block>"] = lines
-                elif f"ILi{b}ELi0ELb0E" in entry:
-                    moved[f"<{b},0,warp>"] = lines
+            # <body, metric, block>, or the fused kernel's own block kernels
+            for b, m, own in ((4, 0, "fused_nuts_block_kernel"),
+                              (5, 0, "fused_nuts_block_kernel"),
+                              (1, 1, f"{name}_dense_block_kernel")):
+                if f"ILi{b}ELi{m}ELb1E" in entry or f"{own}ILi{b}E" in entry:
+                    moved[f"<{b},{m},block>"] = lines
+                elif f"ILi{b}ELi{m}ELb0E" in entry:
+                    moved[f"<{b},{m},warp>"] = lines
         print(json.dumps({"phase": "ptxas_block_instances", "library": name,
                           "instances": moved}), flush=True)
 

@@ -14,8 +14,10 @@
 //
 // Mapping. One thread block is one chain block of CB chains, one warp per
 // chain, as in the per-draw kernel (bodies 0, 1, 4 and 5 with the diagonal
-// metric in blocks of up to 8 chains on the block transition, in instances
-// compiled for 8 warps); the block loops t = 0..T-1 inside the
+// metric and body 1 with the dense metric in blocks of up to 8 chains on
+// the block transition, in instances compiled for 8 warps; the dense one
+// draws its momenta z L^-1 and start velocities as block products too);
+// the block loops t = 0..T-1 inside the
 // launch, where the TPU kernel's grid walks its sequential draw axis. The
 // chain state (q, grad in shared memory; logp, the iteration counter, the
 // dual-averaging state and the diag Welford counters in registers, the
@@ -43,11 +45,16 @@
 // The per-draw seed word is seed0 = w0 + block*7919 + t*15485863 (:662).
 //
 // Where the state lives, and why. kDense at n = 100 and CB = 8: the
-// transition's 16 vectors and the chain's q and grad (18 x CB x n floats,
-// 58 KB), the slot scalars (1.3 KB), the Welford means and shifts (5 x n
-// floats), the precision P (40 KB) and COV (40 KB) sit in shared memory:
-// 141 KB of the 227 KB a block may use. L^-1 (40 KB) is read once per
-// draw, so it stays in global memory, where L2 holds it. The block-local
+// transition's 16 vectors (on the block transition vv is the velocity
+// scratch, vc and vd the tree's edges' velocities, vb the start momentum)
+// and the chain's q and grad (18 x CB x n floats, 58 KB), the slot
+// scalars (1.3 KB), the Welford means and shifts (5 x n floats), the
+// staged rows of the block products (3.2 KB), the precision P (40 KB) and
+// COV (40 KB) sit in shared memory: 144 KB of the 227 KB a block may use,
+// and beside them 4 of the merge stack's 6-vector slots (19.2 KB each);
+// the rest of the stack is the global [6][D][C][n]. At n = 256 P and COV
+// stay in global memory (L2) and one slot fits. L^-1 (40 KB) is read once
+// per draw, so it stays in global memory, where L2 holds it. The block-local
 // raw scatters of the two windows (2 x n x n floats a block, 10 MB at 128
 // blocks) live in the per-block output tensors, which the wrapper seeds
 // with 1/B of the global state and the kernel updates in place; they too
@@ -245,6 +252,7 @@ __device__ __forceinline__ void fused_draws(Args A) {
     BlockWelford wel;
     if (A.adapt_dense) wel.load(wel_sh, A.ptr_f[kWSeed], n, tid, nthreads);
     __syncthreads();  // P, COV and the Welford means are in shared memory
+    LMC_DCLK_BEGIN();
 
     const uint32_t s1u = A.seed1 * kGolden;
     float* trace = const_cast<float*>(A.ptr_f[kTrace]);
@@ -259,22 +267,47 @@ __device__ __forceinline__ void fused_draws(Args A) {
         // 1-2. momentum: Box-Muller normals, then p = z @ L^-1 (kDense),
         // p = z / sqrt(V) (kDiag) or the low-rank momentum (kLowRank)
         float part = 0.f;
-        if constexpr (METRIC == kDense) {
+        if constexpr (METRIC == kDense && BLOCK) {
+            // the block's momenta z L^-1 and (3.) start velocities p0 COV
+            // (into V.vc, where the block transition takes them) as two
+            // block products, z staged as it is drawn
+            const int qt_off = smem_offset(qt), stride = staged_stride(cb);
+            const uint32_t mbase = seed0 + 1013904223u;
+            for (int i = lane; i < n; i += 32)
+                stage(qt_off, stride, w, i, boxmuller_normal(mbase, s1u, w, A.Npad, i));
+            __syncthreads();  // every chain's z is staged
+            block_matmul<false, false>(qt_off, linv, 0, smem_offset(p0) - w * n, n, cb);
+            __syncthreads();  // every p0 is written
+            LMC_DCLK_PRODUCT();
+            LMC_DCLK(kSideMomentum);
+            for (int i = lane; i < n; i += 32) stage(qt_off, stride, w, i, p0[i]);
+            __syncthreads();  // every chain's p0 is staged
+            block_velocity(T, qt_off, smem_offset(V.vc) - w * n);
+            __syncthreads();  // every velocity is written
+            LMC_DCLK_PRODUCT();
+            for (int i = lane; i < n; i += 32) part += p0[i] * V.vc[i];
+        } else if constexpr (METRIC == kDense) {
             dense_momentum(seed0 + 1013904223u, s1u, w, A.Npad, linv, V.va, p0, n, lane);
+            LMC_DCLK_PRODUCT();
+            LMC_DCLK(kSideMomentum);
             // 3. start energy
             matvec(p0, T.cov, V.vc, n, lane);
+            LMC_DCLK_PRODUCT();
             for (int i = lane; i < n; i += 32) part += p0[i] * V.vc[i];
         } else if constexpr (METRIC == kLowRank) {
             for (int i = lane; i < n; i += 32) V.vv[i] = sqrtf(vrow[i]);
             lowrank_momentum(seed0 + 1013904223u, s1u, w, A.Npad, V.vv, T.cov, V.va, p0, n,
                              lane);
+            LMC_DCLK(kSideMomentum);
             velocity<kLowRank>(T.cov, V.vv, p0, V.vc, n, lane);
             for (int i = lane; i < n; i += 32) part += p0[i] * V.vc[i];
         } else {
             diag_momentum(seed0 + 1013904223u, s1u, w, A.Npad, V.vv, p0, n, lane);
+            LMC_DCLK(kSideMomentum);
             for (int i = lane; i < n; i += 32) part += p0[i] * (V.vv[i] * p0[i]);
         }
         const float E0 = 0.5f * warp_sum(part) - lp;
+        LMC_DCLK(kSideStart);
         // 4. step size and depth cap
         const float eps = expf(A.adapting ? da.log_step : da.log_bar);
         const int mdc = (A.tuning && iter < (float)A.early_window) ? A.early_max : A.max_depth;
@@ -283,9 +316,11 @@ __device__ __forceinline__ void fused_draws(Args A) {
         const TreeResult r = any_transition<BODY, METRIC, BLOCK>(T, BS, V, slot_sc, chain, w,
                                                                  lane, qs, p0, gs, lp, E0, eps,
                                                                  mdc, salt);
+        LMC_DCLK(kSideTree);
         // 6. the proposal's gradient
         if constexpr (BLOCK) proposal_grad<BODY>(T, BS, V.prq, V.cg, w, lane);
         else model_eval<BODY>(V.prq, V.cg, T.lam, n, A.rows, lane, consts_scratch(T));
+        if (BODY == 1) LMC_DCLK_PRODUCT();
         // 7. mean tree accept and dual averaging (step_sizes.py:85-92)
         const float ls = r.log_size;
         const float mta = ls > 0.f ? expf(r.lwas - (ls + log1mexp_fused(ls))) : 0.f;
@@ -318,6 +353,7 @@ __device__ __forceinline__ void fused_draws(Args A) {
             stb[o] = r.diverging;
             stb[TC + o] = r.turning;
         }
+        LMC_DCLK(kSideAfter);
         // 8b. kDense with adapt_dense: the block-local pooled Welford adds
         // (_dense_welford_batch_add :246, both windows) and the shared swap
         // (:267)
@@ -326,7 +362,10 @@ __device__ __forceinline__ void fused_draws(Args A) {
                              const_cast<float*>(A.ptr_f[kFgRaw]) + (size_t)blk * n * n,
                              const_cast<float*>(A.ptr_f[kBgRaw]) + (size_t)blk * n * n, cb, n,
                              A.mult, tid, nthreads);
+        LMC_DCLK(kSideWelford);
+        LMC_DCLK_DRAW();
     }
+    LMC_DCLK_FLUSH(chain, lane);
 
     // the final state
     for (int i = lane; i < n; i += 32) {
@@ -377,9 +416,17 @@ __global__ void __launch_bounds__(32 * kBlockChains, 1) fused_nuts_block_kernel(
     fused_draws<BODY, kDiag, true>(A);
 }
 
+// Body 1 with the dense metric on the block transition, one block an SM
+// (its shared memory holds one anyway)
+template <int BODY>
+__global__ void __launch_bounds__(32 * kBlockChains, 1) fused_nuts_dense_block_kernel(Args A) {
+    fused_draws<BODY, kDense, true>(A);
+}
+
 template <int BODY, int METRIC, bool BLOCK>
 constexpr auto kernel_of() {
     if constexpr (BLOCK && (BODY == 4 || BODY == 5)) return fused_nuts_block_kernel<BODY>;
+    else if constexpr (BLOCK && METRIC == kDense) return fused_nuts_dense_block_kernel<BODY>;
     else return fused_nuts_kernel<BODY, METRIC, BLOCK>;
 }
 
@@ -409,8 +456,9 @@ cudaError_t launch_instance(const Args& A0, cudaStream_t stream) {
     if (bytes > kSmemLimit || A.cb > (BLOCK ? kBlockChains : max_chain_block<METRIC>()))
         return cudaErrorInvalidConfiguration;
     if (BLOCK) {
-        A.smem_slots = smem_stack_slots(bytes, A.cb, A.n, A.D, kSmemLimit);
-        bytes += (size_t)A.smem_slots * 4 * A.cb * A.n * sizeof(float);
+        constexpr int vecs = slot_vecs<METRIC>();
+        A.smem_slots = smem_stack_slots(bytes, A.cb, A.n, A.D, kSmemLimit, vecs);
+        bytes += (size_t)A.smem_slots * vecs * A.cb * A.n * sizeof(float);
     }
     const auto kernel = kernel_of<BODY, METRIC, BLOCK>();
     cudaError_t err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
@@ -501,6 +549,11 @@ const char* cuda_error_string(int err) {
 // The instrumented build's side buffer (nuts_transition.cuh, clock_buf).
 int transition_clocks_bind(void* buf) {
     return (int)cudaMemcpyToSymbol(lmc::clock_buf, &buf, sizeof(buf));
+}
+
+// The side rows (nuts_transition.cuh, side_buf).
+int side_clocks_bind(void* buf) {
+    return (int)cudaMemcpyToSymbol(lmc::side_buf, &buf, sizeof(buf));
 }
 #endif
 

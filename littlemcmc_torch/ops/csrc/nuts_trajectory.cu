@@ -10,10 +10,10 @@
 //
 // Mapping. One thread block is one chain block of CB chains, one warp per
 // chain, run in lockstep (see nuts_transition.cuh). Bodies 0, 1, 4 and 5
-// with the diagonal metric in blocks of up to 8 chains (the main path's,
-// F1's and L0's) run the block transition (nuts_transition.cuh,
-// block_transition) in instances compiled for 8 warps; everything else
-// runs `transition`.
+// with the diagonal metric and body 1 with the dense metric in blocks of
+// up to 8 chains (the main path's, the `adapt_full` twin's, F1's and L0's)
+// run the block transition (nuts_transition.cuh, block_transition) in
+// instances compiled for 8 warps; everything else runs `transition`.
 // Randomness: the JAX
 // kernel's counter stream with block_id = blockIdx.x and the chain's row
 // within its block, so this kernel, the plain version and the JAX kernel
@@ -57,10 +57,15 @@
 // memory after everything else where it fits (else in a global scratch
 // that L2 holds). Chains that stopped building skip the leapfrog
 // and the merges. Each block waits for its own deepest tree only: small
-// blocks shrink the lockstep tail. The dense metric recomputes each
-// velocity where the U-turn checks need it, as the JAX kernel does; caching
-// (p, p @ COV) pairs in the stack would halve those matvecs and is left to
-// a later change. The low-rank metric (the pooled QuadPotentialLowRankAdapt)
+// blocks shrink the lockstep tail. The warp transition recomputes each
+// dense velocity where the U-turn checks need it, as the JAX kernel does
+// (46 matvecs a chain-draw at 7 leaves, 13,700 cycles each on one warp:
+// PERF.md). The dense block transition (body 1) computes a leaf's three
+// products for the block's chains at once (the start velocity too) and
+// caches each leaf's velocity p @ COV beside p in the stack (6 vectors a
+// slot: the global stack is [6][D][C][n] there) and at the tree's edges,
+// so that its merges and U-turn checks do no product: 21 block products a
+// draw at 7 leaves. The low-rank metric (the pooled QuadPotentialLowRankAdapt)
 // keeps each chain's scales where kDiag keeps its diagonal and stages the
 // shared factor block (8 rows of V^T, the coefficients and alpha: 3.3 KB
 // at n = 100) in shared memory once a launch, beside the merge stack's
@@ -90,7 +95,8 @@ struct Params {
     const float* eps;
     const int* mdc;
     const float* consts;  // the body's packed constants (body_floats, nuts_transition.cuh)
-    float* stack;         // [4][D][C][n]: left p, right p, p sum, proposal q
+    float* stack;         // [4][D][C][n]: left p, right p, p sum, proposal q; the
+                          // dense block transition's [6][D][C][n] adds their velocities
     float* q_out;
     float* g_out;
     float* energy;
@@ -121,11 +127,11 @@ __device__ __forceinline__ void run_block(const Params& P) {
     LMC_CLK_BLOCK_START(P.C);
 
     // shared layout: the transition's vectors [NV][cb][n], the stack slots'
-    // scalars [4][D][cb], the block transition's staged positions (body 1,
-    // on a 16-byte boundary), then the body's constants (body_floats), COV
+    // scalars [4][D][cb], the block transition's staged rows (body 1, on a
+    // 16-byte boundary), then the body's constants (body_floats), COV
     // where they fit, the low-rank factor block, the generated body's
     // scratch rows [cb][body_scratch_floats] where they fit, and the block
-    // transition's lower stack slots [4][smem_slots][cb][n]
+    // transition's lower stack slots [smem_slots][slot_vecs][cb][n]
     const WarpVecs V = warp_vecs<METRIC>(smem, cb, w, n);
     float* slot_sc = smem + (size_t)n_warp_vecs<METRIC>() * cb * n;
     float* after = slot_sc + (size_t)4 * D * cb;
@@ -165,7 +171,16 @@ __device__ __forceinline__ void run_block(const Params& P) {
     __syncthreads();  // the body's constants, COV and the factor are in shared memory
 
     float part = 0.f;
-    if (METRIC != kDiag) {
+    if constexpr (BLOCK && METRIC == kDense) {
+        // the block's start velocities p0 COV in one product, into V.vc
+        // (where the block transition takes them)
+        const int qt_off = smem_offset(qt), stride = staged_stride(cb);
+        for (int i = lane; i < n; i += 32) stage(qt_off, stride, w, i, pin[i]);
+        __syncthreads();  // every chain's p0 is staged
+        block_velocity(T, qt_off, smem_offset(V.vc) - w * n);
+        __syncthreads();  // every velocity is written
+        for (int i = lane; i < n; i += 32) part += pin[i] * V.vc[i];
+    } else if (METRIC != kDiag) {
         velocity<METRIC>(T.cov, V.vv, pin, V.va, n, lane);
         for (int i = lane; i < n; i += 32) part += pin[i] * V.va[i];
     } else {
@@ -220,9 +235,19 @@ __global__ void __launch_bounds__(32 * kMaxLowRankChainBlock, 1)
     run_block<BODY, kLowRank, false>(P);
 }
 
+// Body 1 with the dense metric on the block transition, one block an SM
+// (its shared memory holds one anyway): with room for a second block
+// ptxas may hold it to 128 registers and spill
+template <int BODY>
+__global__ void __launch_bounds__(32 * kBlockChains, 1)
+    nuts_trajectory_dense_block_kernel(Params P) {
+    run_block<BODY, kDense, true>(P);
+}
+
 template <int BODY, int METRIC, bool BLOCK>
 constexpr auto kernel_of() {
     if constexpr (METRIC == kLowRank) return nuts_trajectory_lowrank_kernel<BODY>;
+    else if constexpr (BLOCK && METRIC == kDense) return nuts_trajectory_dense_block_kernel<BODY>;
     else return nuts_trajectory_kernel<BODY, METRIC, BLOCK>;
 }
 
@@ -252,8 +277,9 @@ cudaError_t launch_instance(const Params& P, cudaStream_t stream) {
     if (bytes > kSmemLimit || P.cb > (BLOCK ? kBlockChains : max_chain_block<METRIC>()))
         return cudaErrorInvalidConfiguration;
     if (BLOCK) {
-        Q.smem_slots = smem_stack_slots(bytes, P.cb, P.n, P.D, kSmemLimit);
-        bytes += (size_t)Q.smem_slots * 4 * P.cb * P.n * sizeof(float);
+        constexpr int vecs = slot_vecs<METRIC>();
+        Q.smem_slots = smem_stack_slots(bytes, P.cb, P.n, P.D, kSmemLimit, vecs);
+        bytes += (size_t)Q.smem_slots * vecs * P.cb * P.n * sizeof(float);
     }
     const auto kernel = kernel_of<BODY, METRIC, BLOCK>();
     cudaError_t err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
@@ -345,6 +371,11 @@ const char* cuda_error_string(int err) {
 // The instrumented build's side buffer (nuts_transition.cuh, clock_buf).
 int transition_clocks_bind(void* buf) {
     return (int)cudaMemcpyToSymbol(lmc::clock_buf, &buf, sizeof(buf));
+}
+
+// The side rows (nuts_transition.cuh, side_buf): the transition's products.
+int side_clocks_bind(void* buf) {
+    return (int)cudaMemcpyToSymbol(lmc::side_buf, &buf, sizeof(buf));
 }
 #endif
 

@@ -108,16 +108,36 @@ constexpr int kClkWait = 6;         // block-wide votes while it waits for the b
 constexpr int kClkOther = 7;        // scalar work (uniforms, log-sum-exps), the depth's set-up
 constexpr int kClkSections = 8;
 constexpr int kClkSlots = 10;       // the sections, then leaf steps and leaves built
+// The side rows ([C][kSideSlots] per chain, bound by side_clocks_bind):
+// the fused kernel's per-draw work around the transition, each a chain's
+// SM cycles (the normals and the momentum, the start velocity and energy,
+// the transition, the work after it up to the pooled Welford adds, those
+// adds and the window swap), its draws, and the n x n products (a warp's
+// matvec, or a block-wide product counted once for each chain of the
+// block) that the transition and the fused kernel's draw run.
+constexpr int kSideMomentum = 0;
+constexpr int kSideStart = 1;
+constexpr int kSideTree = 2;
+constexpr int kSideAfter = 3;
+constexpr int kSideWelford = 4;
+constexpr int kSideDraws = 5;
+constexpr int kSideProducts = 6;
+constexpr int kSideSlots = 7;
 #ifdef LMC_TRANSITION_CLOCKS
 __device__ unsigned long long* clock_buf;
+__device__ unsigned long long* side_buf;
+
+__device__ __forceinline__ void side_add(int chain, int lane, int slot, unsigned long long v) {
+    if (side_buf != nullptr && lane == 0) atomicAdd(side_buf + (size_t)chain * kSideSlots + slot, v);
+}
 
 struct SectionClock {
-    unsigned int t, acc[kClkSections], steps, built;
+    unsigned int t, acc[kClkSections], steps, built, products;
     __device__ __forceinline__ void begin() {
         t = (unsigned int)clock();
 #pragma unroll
         for (int k = 0; k < kClkSections; ++k) acc[k] = 0u;
-        steps = built = 0u;
+        steps = built = products = 0u;
     }
     template <int K>
     __device__ __forceinline__ void mark() {
@@ -136,6 +156,32 @@ struct SectionClock {
         for (int k = 0; k < kClkSections; ++k) atomicAdd(row + k, (unsigned long long)acc[k]);
         atomicAdd(row + kClkSections, (unsigned long long)steps);
         atomicAdd(row + kClkSections + 1, (unsigned long long)built);
+        side_add(chain, lane, kSideProducts, products);
+    }
+};
+
+// The fused kernel's clock of a chain's draws (kSide* above): mark<K>
+// charges the cycles since the last mark to slot K.
+struct DrawClock {
+    long long t;
+    unsigned long long acc[kSideDraws], draws, products;
+    __device__ __forceinline__ void begin() {
+        t = clock64();
+#pragma unroll
+        for (int k = 0; k < kSideDraws; ++k) acc[k] = 0ull;
+        draws = products = 0ull;
+    }
+    template <int K>
+    __device__ __forceinline__ void mark() {
+        const long long now = clock64();
+        acc[K] += (unsigned long long)(now - t);
+        t = now;
+    }
+    __device__ __forceinline__ void flush(int chain, int lane) {
+#pragma unroll
+        for (int k = 0; k < kSideDraws; ++k) side_add(chain, lane, k, acc[k]);
+        side_add(chain, lane, kSideDraws, draws);
+        side_add(chain, lane, kSideProducts, products);
     }
 };
 
@@ -163,6 +209,12 @@ __device__ __forceinline__ void clock_block(int C) {
 #define LMC_CLK_FLUSH(chain, lane) clk_.flush(chain, lane)
 #define LMC_CLK_BLOCK_START(C) ::lmc::clock_block<false>(C)
 #define LMC_CLK_BLOCK_END(C) (__syncthreads(), ::lmc::clock_block<true>(C))
+#define LMC_CLK_PRODUCT() (++clk_.products)
+#define LMC_DCLK_BEGIN() ::lmc::DrawClock dclk_; dclk_.begin()
+#define LMC_DCLK(K) dclk_.mark<K>()
+#define LMC_DCLK_DRAW() (++dclk_.draws)
+#define LMC_DCLK_PRODUCT() (++dclk_.products)
+#define LMC_DCLK_FLUSH(chain, lane) dclk_.flush(chain, lane)
 #else
 #define LMC_CLK_BEGIN() ((void)0)
 #define LMC_CLK(K) ((void)0)
@@ -171,6 +223,12 @@ __device__ __forceinline__ void clock_block(int C) {
 #define LMC_CLK_FLUSH(chain, lane) ((void)0)
 #define LMC_CLK_BLOCK_START(C) ((void)0)
 #define LMC_CLK_BLOCK_END(C) ((void)0)
+#define LMC_CLK_PRODUCT() ((void)0)
+#define LMC_DCLK_BEGIN() ((void)0)
+#define LMC_DCLK(K) ((void)0)
+#define LMC_DCLK_DRAW() ((void)0)
+#define LMC_DCLK_PRODUCT() ((void)0)
+#define LMC_DCLK_FLUSH(chain, lane) ((void)0)
 #endif
 
 __device__ __forceinline__ float warp_sum(float v) {
@@ -706,13 +764,14 @@ __host__ __device__ constexpr int n_warp_vecs() {
 
 // ---------------------------------------------------------------------------
 // The block transition (block_transition below): bodies 0, 1, 4 and 5 with
-// the diagonal metric in chain blocks of up to kBlockChains chains, the
-// instances of the 100-d main path (body 1, per-draw and fused), of F1
-// (the centred funnel, body 5, fused) and of L0 (the spiked Gaussian,
-// body 4, per-draw). Every other instance, and these bodies in blocks of
-// more chains, runs `transition`. Against `transition` it
+// the diagonal metric, and body 1 with the dense metric, in chain blocks
+// of up to kBlockChains chains: the instances of the 100-d main path (body
+// 1, per-draw and fused), of `adapt_full` (body 1 dense, fused and its
+// per-draw twin), of F1 (the centred funnel, body 5, fused) and of L0 (the
+// spiked Gaussian, body 4, per-draw). Every other instance, and these in
+// blocks of more chains, runs `transition`. Against `transition` it
 // - evaluates body 1 for every chain of the block in one product a leaf
-//   (block_quadform): a thread takes kBodyChains chains at two columns of
+//   (block_matmul): a thread takes kBodyChains chains at two columns of
 //   P, so each column is read once a chain group and leaf (not once a
 //   chain), the group's q_c[i] coming as one 16-byte broadcast from the
 //   staged rows qt ([n][staged_stride(cb)], each building warp writes its
@@ -720,6 +779,13 @@ __host__ __device__ constexpr int n_warp_vecs() {
 //   issued together, indexed as shared memory; a chain that does not build
 //   this leaf is evaluated all the same, at whatever q it staged last, and
 //   its gradient goes unread;
+// - with the dense metric, computes the drift's and the kinetic energy's
+//   velocities p COV the same way (3 block products a leaf with the
+//   leapfrog, against transition's 3 warp products a leaf and a chain), and
+//   caches each leaf's energy velocity beside its momentum in the merge
+//   stack (slot_vecs: 6 vectors a slot) and the tree's edges, so that the
+//   merges and the U-turn checks do no product (transition: 2 a pair
+//   merge, 4 a deeper one, 5 a depth);
 // - keeps the merge stack's lower slots in shared memory (smem_stack_slots:
 //   as many as fit beside everything else), the rest in the global stack;
 // - runs every per-element pass kTrips trips at a time, the loads of all
@@ -742,10 +808,23 @@ constexpr int kBlockChains = 8;
 constexpr int kBodyChains = 4;
 constexpr int kTrips = 4;
 constexpr int kProductDepth = 4;
+// kDense: its passes' trips at a time (at 4 the merges' cached velocities
+// beside the fused kernel's draw state spilled; 1 was the fastest of 1, 2
+// and 4 on the card, PERF.md)
+constexpr int kDenseTrips = 1;
 
 template <int BODY, int METRIC>
 __host__ __device__ constexpr bool block_body() {
-    return (BODY == 0 || BODY == 1 || BODY == 4 || BODY == 5) && METRIC == kDiag;
+    return ((BODY == 0 || BODY == 1 || BODY == 4 || BODY == 5) && METRIC == kDiag)
+           || (BODY == 1 && METRIC == kDense);
+}
+
+// Vectors of n floats a slot of the block transition's merge stack holds:
+// left p, right p, p sum and proposal q, and for kDense the velocities of
+// the left and right p.
+template <int METRIC>
+__host__ __device__ constexpr int slot_vecs() {
+    return METRIC == kDense ? 6 : 4;
 }
 
 __host__ __device__ constexpr int staged_stride(int cb) {
@@ -760,17 +839,17 @@ __host__ __device__ constexpr size_t staged_floats(int n, int cb) {
 
 // The block transition's shared-memory state beside TreeConsts.
 struct BlockState {
-    float* sstack;   // [4][smem_slots][cb][n]: the merge stack's lower slots
-    float* qt;       // body 1's staged positions, [n][staged_stride(cb)]
+    float* sstack;   // [smem_slots][slot_vecs][cb][n]: the merge stack's lower slots
+    float* qt;       // body 1's staged rows, [n][staged_stride(cb)]
     int smem_slots;
 };
 
 // Slots of the merge stack a launch keeps in shared memory: as many as fit
 // beside `bytes` in `limit`, up to the max(D - 1, 1) that trees of depth
 // cap D use (an even leaf at depth d < D writes slot popcount(leaf) <=
-// d - 1); the slots above stay in the global stack.
-inline int smem_stack_slots(size_t bytes, int cb, int n, int D, size_t limit) {
-    const size_t slot_bytes = (size_t)4 * cb * n * sizeof(float);
+// d - 1); the slots above stay in the global stack. `vecs`: slot_vecs.
+inline int smem_stack_slots(size_t bytes, int cb, int n, int D, size_t limit, int vecs) {
+    const size_t slot_bytes = (size_t)vecs * cb * n * sizeof(float);
     const int used = D > 1 ? D - 1 : 1;
     const size_t room = bytes < limit ? (limit - bytes) / slot_bytes : 0;
     return room < (size_t)used ? (int)room : used;
@@ -794,16 +873,20 @@ __device__ __forceinline__ int smem_offset(const float* p) {
     return (int)(p - dyn_smem());
 }
 
-// g_c = -q_c P for the block's chains c < cb: the staged positions at
-// qt_off and g (the first chain's row of a [cb][n] layout) at g_off in
-// shared memory, P there at p_off (P_SHARED) or in global memory at Pg.
-// A thread takes kBodyChains chains at two columns, j and j + ceil(n/2),
-// so each step of i reads two values of P and one 16-byte broadcast of
-// the group's q for 8 FMAs; every thread of the block calls it. Each
-// output is one fmaf chain over i from 0, as model_eval<1>.
-template <bool P_SHARED>
-__device__ __forceinline__ void block_quadform(int qt_off, const float* __restrict__ Pg,
-                                               int p_off, int g_off, int n, int cb) {
+// y_c = x_c M (NEG: -x_c M) for the block's chains c < cb, M (n, n)
+// row-major: the staged rows x at qt_off ([n][staged_stride(cb)]) and y
+// (the first chain's row of a [cb][n] layout) at g_off in shared memory,
+// M there at p_off (P_SHARED) or in global memory at Pg. A thread takes
+// kBodyChains chains at two columns, j and j + ceil(n/2), so each step of
+// i reads two values of M and one 16-byte broadcast of the group's x for
+// 8 FMAs, kProductDepth steps with their loads issued together; every
+// thread of the block calls it. Each output is one fmaf chain over i from
+// 0, as matvec's and model_eval<1>'s, so it has their bits: body 1's
+// gradient -q P, and the dense metric's velocities p COV and momentum
+// z L^-1.
+template <bool P_SHARED, bool NEG = true>
+__device__ __forceinline__ void block_matmul(int qt_off, const float* __restrict__ Pg,
+                                             int p_off, int g_off, int n, int cb) {
     constexpr int U = kProductDepth;
     float* sm = dyn_smem();
     const int groups = staged_stride(cb) / kBodyChains, half = (n + 1) / 2;
@@ -846,20 +929,35 @@ __device__ __forceinline__ void block_quadform(int qt_off, const float* __restri
         for (int r = 0; r < kBodyChains; ++r) {
             if (c0 + r < cb) {
                 float* gc = sm + g_off + (c0 + r) * n;
-                gc[j] = -a[r];
-                if (two) gc[j2] = -b[r];
+                gc[j] = NEG ? -a[r] : a[r];
+                if (two) gc[j2] = NEG ? -b[r] : b[r];
             }
         }
     }
 }
 
-// block_quadform for the block transition's kernels: P where stage_body
-// put it (T.lam, shared or global memory).
+// block_matmul's -q P for the block transition's kernels: P where
+// stage_body put it (T.lam, shared or global memory).
 __device__ __forceinline__ void block_product(const TreeConsts& T, int qt_off, int g_off) {
     if (__isShared(T.lam))
-        block_quadform<true>(qt_off, nullptr, smem_offset(T.lam), g_off, T.n, T.cb);
+        block_matmul<true>(qt_off, nullptr, smem_offset(T.lam), g_off, T.n, T.cb);
     else
-        block_quadform<false>(qt_off, T.lam, 0, g_off, T.n, T.cb);
+        block_matmul<false>(qt_off, T.lam, 0, g_off, T.n, T.cb);
+}
+
+// The dense metric's velocities p_c COV of the staged momenta: COV where
+// the launch put it (T.cov, shared or global memory).
+__device__ __forceinline__ void block_velocity(const TreeConsts& T, int qt_off, int v_off) {
+    if (__isShared(T.cov))
+        block_matmul<true, false>(qt_off, nullptr, smem_offset(T.cov), v_off, T.n, T.cb);
+    else
+        block_matmul<false, false>(qt_off, T.cov, 0, v_off, T.n, T.cb);
+}
+
+// Row i of warp w's column of the staged rows: x into the block's next
+// product.
+__device__ __forceinline__ void stage(int qt_off, int stride, int w, int i, float x) {
+    dyn_smem()[qt_off + i * stride + w] = x;
 }
 
 // The lane's elements i = lane, lane + 32, ... < n, TRIPS at a time: in
@@ -1008,6 +1106,7 @@ __device__ TreeResult transition(const TreeConsts& T, const WarpVecs& V, float* 
                     const float drift = T.a[s] * epss;
                     if (METRIC != kDiag) {
                         velocity<METRIC>(cov, vv, cp, vs, n, lane);
+                        if (METRIC == kDense) LMC_CLK_PRODUCT();
                         for (int i = lane; i < n; i += 32) cq[i] = cq[i] + drift * vs[i];
                     } else {
                         for (int i = lane; i < n; i += 32) cq[i] = cq[i] + drift * (vv[i] * cp[i]);
@@ -1015,6 +1114,7 @@ __device__ TreeResult transition(const TreeConsts& T, const WarpVecs& V, float* 
                     __syncwarp();
                     LMC_CLK(kClkLeapfrog);
                     c_lp = model_eval<BODY>(cq, cg, T.lam, n, T.rows, lane, consts_scratch(T));
+                    if (BODY == 1) LMC_CLK_PRODUCT();
                     LMC_CLK(kClkBody);
                     const float kick = T.b[s + 1] * epss;
                     for (int i = lane; i < n; i += 32) cp[i] = cp[i] + kick * cg[i];
@@ -1022,6 +1122,7 @@ __device__ TreeResult transition(const TreeConsts& T, const WarpVecs& V, float* 
                 part = 0.f;
                 if (METRIC != kDiag) {
                     velocity<METRIC>(cov, vv, cp, vs, n, lane);
+                    if (METRIC == kDense) LMC_CLK_PRODUCT();
                     for (int i = lane; i < n; i += 32) part += cp[i] * vs[i];
                 } else {
                     for (int i = lane; i < n; i += 32) part += cp[i] * (vv[i] * cp[i]);
@@ -1067,6 +1168,7 @@ __device__ TreeResult transition(const TreeConsts& T, const WarpVecs& V, float* 
                     if (METRIC != kDiag) {
                         velocity<METRIC>(cov, vv, sps, V.va, n, lane);  // the even leaf's
                         velocity<METRIC>(cov, vv, cp, V.vb, n, lane);   // and this leaf's
+                        if (METRIC == kDense) { LMC_CLK_PRODUCT(); LMC_CLK_PRODUCT(); }
                     }
                     LMC_CLK(kClkOther);
                     float d1 = 0.f, d2 = 0.f;
@@ -1118,6 +1220,8 @@ __device__ TreeResult transition(const TreeConsts& T, const WarpVecs& V, float* 
                         velocity<METRIC>(cov, vv, a_rp, V.vb, n, lane);
                         velocity<METRIC>(cov, vv, b_lp, V.vc, n, lane);
                         velocity<METRIC>(cov, vv, b_rp, V.vd, n, lane);
+                        if (METRIC == kDense)
+                            for (int k = 0; k < 4; ++k) LMC_CLK_PRODUCT();
                     }
                     LMC_CLK(kClkOther);
                     float d[6] = {0.f, 0.f, 0.f, 0.f, 0.f, 0.f};
@@ -1196,6 +1300,8 @@ __device__ TreeResult transition(const TreeConsts& T, const WarpVecs& V, float* 
                 velocity<METRIC>(cov, vv, cp, V.vc, n, lane);  // the new subtree's outer edge
                 velocity<METRIC>(cov, vv, nlp, V.vd, n, lane);
                 velocity<METRIC>(cov, vv, nrp, vs, n, lane);
+                if (METRIC == kDense)
+                    for (int k = 0; k < 5; ++k) LMC_CLK_PRODUCT();
             }
             LMC_CLK(kClkOther);
             float d[6] = {0.f, 0.f, 0.f, 0.f, 0.f, 0.f};
@@ -1266,32 +1372,46 @@ __device__ TreeResult transition(const TreeConsts& T, const WarpVecs& V, float* 
     return r;
 }
 
-// `transition` for bodies 0, 1, 4 and 5 with the diagonal metric in blocks
-// of up to kBlockChains chains, redesigned for Hopper (see kBlockChains
-// above): the same arguments, with BS the block's shared-memory state;
-// the same result, to the bit.
-template <int BODY>
+// `transition` for bodies 0, 1, 4 and 5 with the diagonal metric and body
+// 1 with the dense metric in blocks of up to kBlockChains chains,
+// redesigned for Hopper (see kBlockChains above): the same arguments, with
+// BS the block's shared-memory state; the same result, to the bit. kDense
+// takes the start velocity p0 COV in V.vc (vl below).
+template <int BODY, int METRIC>
 __device__ TreeResult block_transition(const TreeConsts& T, const BlockState& BS,
                                        const WarpVecs& V, float* slot_sc, int chain, int w,
                                        int lane, const float* q0, const float* p0,
                                        const float* g0, float lp0, float E0, float eps, int mdc,
                                        uint32_t salt) {
-    static_assert(BODY == 0 || BODY == 1 || BODY == 4 || BODY == 5,
-                  "the block transition takes bodies 0, 1, 4 and 5");
+    static_assert(block_body<BODY, METRIC>(),
+                  "the block transition takes bodies 0, 1, 4 and 5 with the diagonal metric "
+                  "and body 1 with the dense metric");
+    // kDense: every n x n product of a leaf is block-wide (the drift's and
+    // the kinetic energy's velocities p COV, as body 1's gradient), into
+    // the velocity scratch vv; each leaf's energy velocity travels with
+    // its momentum into the stack (a slot's left and right p's velocities)
+    // and the tree's edges (vl, vr: v(lp), v(rp)), so that the merges and
+    // the U-turn checks do no product at all. A cached velocity is the same
+    // fmaf chain of the same momentum as transition's recomputed one.
+    constexpr bool DENSE = METRIC == kDense;
+    constexpr int NSV = slot_vecs<METRIC>();
+    float *vl = V.vc, *vr = V.vd;
     // trips at a time: the funnel's few columns take one, so that its
     // passes carry no code for trips that never run; body 4 two, so that
     // its spike dots' constants fit in registers beside the fused kernel's
     // state without spilling
-    constexpr int K = BODY == 5 ? 1 : BODY == 4 ? 2 : kTrips;
+    constexpr int K = BODY == 5 ? 1 : BODY == 4 ? 2 : DENSE ? kDenseTrips : kTrips;
     const int n = T.n, cb = T.cb, D = T.D, C = T.C, S = BS.smem_slots;
     const int stride = staged_stride(cb);
     float *lq = V.lq, *lp = V.lp, *lg = V.lg, *rq = V.rq, *rp = V.rp, *rg = V.rg;
     float *cq = V.cq, *cp = V.cp, *cg = V.cg, *prq = V.prq, *psum = V.psum;
     const float* vv = V.vv;
     // body 1's staged positions and the block's gradients, as offsets into
-    // shared memory (block_quadform)
+    // shared memory (block_matmul)
     float* sm = dyn_smem();
     const int qt_off = BODY == 1 ? smem_offset(BS.qt) : 0, g_off = smem_offset(cg) - w * n;
+    // kDense: the block's velocity scratch rows ([cb][n], vv each chain's)
+    const int vs_off = smem_offset(vv) - w * n;
     const int stages = T.n_stages;
     const float b0 = T.b[0], b1 = T.b[1], b2 = T.b[2], b3 = T.b[3];
     const float a0 = T.a[0], a1 = T.a[1], a2 = T.a[2];
@@ -1312,27 +1432,37 @@ __device__ TreeResult block_transition(const TreeConsts& T, const BlockState& BS
     float* s_lw = slot_sc + (size_t)3 * D * cb;  // log weighted accept sum
     __shared__ int max_sched_sh;
 
-    // slot s's four vectors (left p, right p, p sum, proposal q): the
-    // shared slots laid out [S][4][cb][n], the global ones [D][4][C][n]
-    // (the global stack's [4][D][C][n] floats, as this transition's own
-    // scratch)
-    struct Slot { float *lp, *rp, *ps, *q; };
+    // slot s's NSV vectors (left p, right p, p sum, proposal q, and for
+    // kDense the left and right p's velocities): the shared slots laid out
+    // [S][NSV][cb][n], the global ones [D][NSV][C][n] (the global stack's
+    // [NSV][D][C][n] floats, as this transition's own scratch)
+    struct Slot { float *lp, *rp, *ps, *q, *vl, *vr; };
     auto slot = [&](int s) -> Slot {
         float* base;
         size_t k;
         if (s < S) {
-            base = BS.sstack + ((size_t)s * 4 * cb + w) * n;
+            base = BS.sstack + ((size_t)s * NSV * cb + w) * n;
             k = (size_t)cb * n;
         } else {
-            base = T.stack + ((size_t)s * 4 * C + chain) * n;
+            base = T.stack + ((size_t)s * NSV * C + chain) * n;
             k = (size_t)C * n;
         }
-        return {base, base + k, base + 2 * k, base + 3 * k};
+        return {base, base + k, base + 2 * k, base + 3 * k, base + 4 * k, base + 5 * k};
     };
     auto ssc = [&](float* arr, int s) -> float& { return arr[s * cb + w]; };
 
     LMC_CLK_BEGIN();
-    {
+    if constexpr (DENSE) {  // the tree's edges' velocities: both the start's
+        float q[K], p[K], g[K], v[K];
+        lane_trips<K>(n, lane,
+                   [&](int k, int i) { q[k] = q0[i]; p[k] = p0[i]; g[k] = g0[i]; v[k] = vl[i]; },
+                   [&](int k, int i) {
+                       lq[i] = q[k]; rq[i] = q[k]; prq[i] = q[k];
+                       lp[i] = p[k]; rp[i] = p[k]; psum[i] = p[k];
+                       lg[i] = g[k]; rg[i] = g[k];
+                       vr[i] = v[k];
+                   });
+    } else {
         float q[K], p[K], g[K];
         lane_trips<K>(n, lane, [&](int k, int i) { q[k] = q0[i]; p[k] = p0[i]; g[k] = g0[i]; },
                    [&](int k, int i) {
@@ -1498,6 +1628,90 @@ __device__ TreeResult block_transition(const TreeConsts& T, const BlockState& BS
                                      : -0.5f * inv_s2 * v5 * v5 - 0.5f * nx * v5 - 0.5f * c[0] * e5;
                     if (last) c_e = 0.5f * sums[1] - c_lp;
                 }
+            } else if constexpr (DENSE) {
+                // one symplectic step (reference integration.py:100-121) for
+                // body 1 with the dense metric: the first stage's kick and
+                // the momentum's staging in one pass; then each stage's
+                // drift velocity (the block's product), the drift and the
+                // position's staging in one pass, the gradient (the block's
+                // product), the log density, the kick and the momentum's
+                // staging in one pass; after the last stage the kinetic
+                // energy's velocity (the block's product) and the energy;
+                // the working vectors indexed as shared memory by 32-bit
+                // offsets. Each chain's products run whether it builds or
+                // not.
+                if (bld) {
+                    const float kick0 = b0 * epss;
+                    float p[K], g[K];
+                    lane_trips<K>(n, lane,
+                               [&](int k, int i) { p[k] = sm[cp_o + i]; g[k] = sm[cg_o + i]; },
+                               [&](int k, int i) {
+                                   const float pk = p[k] + kick0 * g[k];
+                                   sm[cp_o + i] = pk;
+                                   stage(qt_off, stride, w, i, pk);
+                               });
+                }
+                LMC_CLK(kClkLeapfrog);
+                for (int s = 0; s < stages; ++s) {
+                    __syncthreads();  // every chain's p is staged, and its last velocity read
+                    block_velocity(T, qt_off, vs_off);
+                    __syncthreads();  // every velocity is written
+                    LMC_CLK_PRODUCT();
+                    LMC_CLK(kClkBody);
+                    if (bld) {
+                        const float drift = (s == 0 ? a0 : s == 1 ? a1 : a2) * epss;
+                        float q[K], v[K];
+                        lane_trips<K>(n, lane,
+                                   [&](int k, int i) { q[k] = sm[cq_o + i]; v[k] = sm[vv_o + i]; },
+                                   [&](int k, int i) {
+                                       const float qk = q[k] + drift * v[k];
+                                       sm[cq_o + i] = qk;
+                                       stage(qt_off, stride, w, i, qk);
+                                   });
+                    }
+                    LMC_CLK(kClkLeapfrog);
+                    __syncthreads();  // every chain's q is staged
+                    block_product(T, qt_off, g_off);
+                    __syncthreads();  // every g is written
+                    LMC_CLK_PRODUCT();
+                    LMC_CLK(kClkBody);
+                    if (bld) {
+                        const float kick = (s == 0 ? b1 : s == 1 ? b2 : b3) * epss;
+                        float sums[1] = {0.f};  // the body's sum q.grad
+                        float p[K], g[K], q[K];
+                        lane_trips<K>(n, lane,
+                                   [&](int k, int i) {
+                                       q[k] = sm[cq_o + i]; p[k] = sm[cp_o + i];
+                                       g[k] = sm[cg_o + i];
+                                   },
+                                   [&](int k, int i) {
+                                       sums[0] += q[k] * g[k];
+                                       const float pk = p[k] + kick * g[k];
+                                       sm[cp_o + i] = pk;
+                                       stage(qt_off, stride, w, i, pk);
+                                   });
+                        LMC_CLK(kClkLeapfrog);
+                        warp_sums(sums);
+                        LMC_CLK(kClkWarpSums);
+                        c_lp = 0.5f * sums[0];
+                    }
+                }
+                __syncthreads();  // every chain's p is staged
+                block_velocity(T, qt_off, vs_off);
+                __syncthreads();  // every velocity is written
+                LMC_CLK_PRODUCT();
+                LMC_CLK(kClkBody);
+                if (bld) {
+                    float sums[1] = {0.f};  // p.(p COV)
+                    float p[K], v[K];
+                    lane_trips<K>(n, lane,
+                               [&](int k, int i) { p[k] = sm[cp_o + i]; v[k] = sm[vv_o + i]; },
+                               [&](int k, int i) { sums[0] += p[k] * v[k]; });
+                    LMC_CLK(kClkLeapfrog);
+                    warp_sums(sums);
+                    LMC_CLK(kClkWarpSums);
+                    c_e = 0.5f * sums[0] - c_lp;
+                }
             } else {
                 // one symplectic step (reference integration.py:100-121): each
                 // stage's kick (the first stage's), drift and staging in one
@@ -1530,6 +1744,7 @@ __device__ TreeResult block_transition(const TreeConsts& T, const BlockState& BS
                         __syncthreads();  // every chain's q is staged, and its last g read
                         block_product(T, qt_off, g_off);
                         __syncthreads();  // every g is written
+                        LMC_CLK_PRODUCT();
                     }
                     LMC_CLK(kClkBody);
                     if (bld) {
@@ -1581,9 +1796,17 @@ __device__ TreeResult block_transition(const TreeConsts& T, const BlockState& BS
                 if (mrg) {  // a leaf slot has left p == right p == p sum
                     const Slot sl = slot(h);
                     float *dps = sl.ps, *dq = sl.q;
-                    float p[K], q[K];
-                    lane_trips<K>(n, lane, [&](int k, int i) { p[k] = cp[i]; q[k] = cq[i]; },
-                               [&](int k, int i) { dps[i] = p[k]; dq[i] = q[k]; });
+                    if constexpr (DENSE) {  // and its velocity as the left p's
+                        float* dvl = sl.vl;
+                        float p[K], q[K], v[K];
+                        lane_trips<K>(n, lane,
+                                   [&](int k, int i) { p[k] = cp[i]; q[k] = cq[i]; v[k] = vv[i]; },
+                                   [&](int k, int i) { dps[i] = p[k]; dq[i] = q[k]; dvl[i] = v[k]; });
+                    } else {
+                        float p[K], q[K];
+                        lane_trips<K>(n, lane, [&](int k, int i) { p[k] = cp[i]; q[k] = cq[i]; },
+                                   [&](int k, int i) { dps[i] = p[k]; dq[i] = q[k]; });
+                    }
                     LMC_CLK(kClkLeafStore);
                     if (lane == 0) {
                         ssc(s_e, h) = c_e; ssc(s_lpp, h) = c_lp;
@@ -1604,19 +1827,39 @@ __device__ TreeResult block_transition(const TreeConsts& T, const BlockState& BS
                     float *slp = sl.lp, *srp = sl.rp, *sps = sl.ps, *sq = sl.q;
                     LMC_CLK(kClkOther);
                     float d[2] = {0.f, 0.f};
-                    float t1[K], t2[K], v[K], q[K];
-                    lane_trips<K>(n, lane,
-                               [&](int k, int i) {
-                                   t1[k] = sps[i]; t2[k] = cp[i]; v[k] = vv[i];
-                                   q[k] = cq[i];
-                               },
-                               [&](int k, int i) {
-                                   const float ps = t1[k] + t2[k];
-                                   d[0] += ps * (v[k] * t1[k]);
-                                   d[1] += ps * (v[k] * t2[k]);
-                                   slp[i] = t1[k]; srp[i] = t2[k]; sps[i] = ps;
-                                   if (take2) sq[i] = q[k];
-                               });
+                    if constexpr (DENSE) {
+                        // the even leaf's velocity (the slot's left p's) and
+                        // this leaf's, which becomes the right p's
+                        float *svl = sl.vl, *svr = sl.vr;
+                        float t1[K], t2[K], v1[K], v2[K], q[K];
+                        lane_trips<K>(n, lane,
+                                   [&](int k, int i) {
+                                       t1[k] = sps[i]; t2[k] = cp[i]; v1[k] = svl[i];
+                                       v2[k] = vv[i]; q[k] = cq[i];
+                                   },
+                                   [&](int k, int i) {
+                                       const float ps = t1[k] + t2[k];
+                                       d[0] += ps * v1[k];
+                                       d[1] += ps * v2[k];
+                                       slp[i] = t1[k]; srp[i] = t2[k]; sps[i] = ps;
+                                       svr[i] = v2[k];
+                                       if (take2) sq[i] = q[k];
+                                   });
+                    } else {
+                        float t1[K], t2[K], v[K], q[K];
+                        lane_trips<K>(n, lane,
+                                   [&](int k, int i) {
+                                       t1[k] = sps[i]; t2[k] = cp[i]; v[k] = vv[i];
+                                       q[k] = cq[i];
+                                   },
+                                   [&](int k, int i) {
+                                       const float ps = t1[k] + t2[k];
+                                       d[0] += ps * (v[k] * t1[k]);
+                                       d[1] += ps * (v[k] * t2[k]);
+                                       slp[i] = t1[k]; srp[i] = t2[k]; sps[i] = ps;
+                                       if (take2) sq[i] = q[k];
+                                   });
+                    }
                     LMC_CLK(kClkMerge);
                     warp_sums(d);
                     LMC_CLK(kClkWarpSums);
@@ -1646,30 +1889,62 @@ __device__ TreeResult block_transition(const TreeConsts& T, const BlockState& BS
                     const float *b_lp = sb.lp, *b_rp = sb.rp, *b_ps = sb.ps, *b_q = sb.q;
                     LMC_CLK(kClkOther);
                     float d[6] = {0.f, 0.f, 0.f, 0.f, 0.f, 0.f};
-                    float t1lp[K], t1rp[K], t1ps[K], t2lp[K], t2rp[K], t2ps[K], v[K], q[K];
-                    lane_trips<K>(n, lane,
-                               [&](int k, int i) {
-                                   t1lp[k] = a_lp[i]; t1rp[k] = a_rp[i]; t1ps[k] = a_ps[i];
-                                   t2lp[k] = b_lp[i]; t2rp[k] = b_rp[i]; t2ps[k] = b_ps[i];
-                                   v[k] = vv[i];
-                                   q[k] = b_q[i];
-                               },
-                               [&](int k, int i) {
-                                   const float vt1lp = v[k] * t1lp[k], vt1rp = v[k] * t1rp[k];
-                                   const float vt2lp = v[k] * t2lp[k], vt2rp = v[k] * t2rp[k];
-                                   const float ps = t1ps[k] + t2ps[k];
-                                   d[0] += ps * vt1lp;
-                                   d[1] += ps * vt2rp;
-                                   const float ps1 = t1ps[k] + t2lp[k];
-                                   d[2] += ps1 * vt1lp;
-                                   d[3] += ps1 * vt2lp;
-                                   const float ps2 = t1rp[k] + t2ps[k];
-                                   d[4] += ps2 * vt1rp;
-                                   d[5] += ps2 * vt2rp;
-                                   a_rp[i] = t2rp[k];
-                                   a_ps[i] = ps;
-                                   if (take2) a_q[i] = q[k];
-                               });
+                    if constexpr (DENSE) {
+                        // the four edges' cached velocities; b's right p's
+                        // becomes a's
+                        const float *a_vl = sa.vl, *b_vl = sb.vl, *b_vr = sb.vr;
+                        float* a_vr = sa.vr;
+                        float t1rp[K], t1ps[K], t2lp[K], t2rp[K], t2ps[K], q[K];
+                        float vt1lp[K], vt1rp[K], vt2lp[K], vt2rp[K];
+                        lane_trips<K>(n, lane,
+                                   [&](int k, int i) {
+                                       t1rp[k] = a_rp[i]; t1ps[k] = a_ps[i];
+                                       t2lp[k] = b_lp[i]; t2rp[k] = b_rp[i]; t2ps[k] = b_ps[i];
+                                       vt1lp[k] = a_vl[i]; vt1rp[k] = a_vr[i];
+                                       vt2lp[k] = b_vl[i]; vt2rp[k] = b_vr[i];
+                                       q[k] = b_q[i];
+                                   },
+                                   [&](int k, int i) {
+                                       const float ps = t1ps[k] + t2ps[k];
+                                       d[0] += ps * vt1lp[k];
+                                       d[1] += ps * vt2rp[k];
+                                       const float ps1 = t1ps[k] + t2lp[k];
+                                       d[2] += ps1 * vt1lp[k];
+                                       d[3] += ps1 * vt2lp[k];
+                                       const float ps2 = t1rp[k] + t2ps[k];
+                                       d[4] += ps2 * vt1rp[k];
+                                       d[5] += ps2 * vt2rp[k];
+                                       a_rp[i] = t2rp[k];
+                                       a_vr[i] = vt2rp[k];
+                                       a_ps[i] = ps;
+                                       if (take2) a_q[i] = q[k];
+                                   });
+                    } else {
+                        float t1lp[K], t1rp[K], t1ps[K], t2lp[K], t2rp[K], t2ps[K], v[K], q[K];
+                        lane_trips<K>(n, lane,
+                                   [&](int k, int i) {
+                                       t1lp[k] = a_lp[i]; t1rp[k] = a_rp[i]; t1ps[k] = a_ps[i];
+                                       t2lp[k] = b_lp[i]; t2rp[k] = b_rp[i]; t2ps[k] = b_ps[i];
+                                       v[k] = vv[i];
+                                       q[k] = b_q[i];
+                                   },
+                                   [&](int k, int i) {
+                                       const float vt1lp = v[k] * t1lp[k], vt1rp = v[k] * t1rp[k];
+                                       const float vt2lp = v[k] * t2lp[k], vt2rp = v[k] * t2rp[k];
+                                       const float ps = t1ps[k] + t2ps[k];
+                                       d[0] += ps * vt1lp;
+                                       d[1] += ps * vt2rp;
+                                       const float ps1 = t1ps[k] + t2lp[k];
+                                       d[2] += ps1 * vt1lp;
+                                       d[3] += ps1 * vt2lp;
+                                       const float ps2 = t1rp[k] + t2ps[k];
+                                       d[4] += ps2 * vt1rp;
+                                       d[5] += ps2 * vt2rp;
+                                       a_rp[i] = t2rp[k];
+                                       a_ps[i] = ps;
+                                       if (take2) a_q[i] = q[k];
+                                   });
+                    }
                     LMC_CLK(kClkMerge);
                     warp_sums(d);
                     bool turn = false;
@@ -1719,43 +1994,85 @@ __device__ TreeResult block_transition(const TreeConsts& T, const BlockState& BS
             LMC_CLK(kClkOther);
             float d[6] = {0.f, 0.f, 0.f, 0.f, 0.f, 0.f};
             constexpr int K2 = K < 2 ? K : 2;  // trips at a time: 11 values a trip are live
-            float xps[K2], xlp[K2], xrp[K2], xq[K2], ops[K2], olp[K2], orp[K2];
-            float q[K2], p[K2], g[K2], v[K2];
-            lane_trips<K2>(n, lane,
-                       [&](int k, int i) {
-                           xps[k] = nps[i]; xlp[k] = nlp[i]; xrp[k] = nrp[i];
-                           if (take_new) xq[k] = nq[i];
-                           ops[k] = psum[i]; olp[k] = lp[i]; orp[k] = rp[i];
-                           q[k] = cq[i]; p[k] = cp[i]; g[k] = cg[i]; v[k] = vv[i];
-                       },
-                       [&](int k, int i) {
-                           const float n_ps = xps[k], n_lp = xlp[k], n_rp = xrp[k];
-                           if (take_new) prq[i] = xq[k];
-                           const float old_ps = ops[k];
-                           const float pst = old_ps + n_ps;
-                           psum[i] = pst;
-                           const float old_l_p = olp[k], old_r_p = orp[k];
-                           float new_l_p = old_l_p, new_r_p = old_r_p;
-                           if (go_right) {
-                               rq[i] = q[k]; rp[i] = p[k]; rg[i] = g[k]; new_r_p = p[k];
-                           } else {
-                               lq[i] = q[k]; lp[i] = p[k]; lg[i] = g[k]; new_l_p = p[k];
-                           }
-                           // 3-way U-turn on the merged span (reference nuts.py:332-340)
-                           const float ps1 = go_right ? old_ps + n_lp : n_ps + old_l_p;
-                           const float ps2 = go_right ? old_r_p + n_ps : n_lp + old_ps;
-                           const float vk = v[k];
-                           d[0] += pst * (vk * new_l_p);
-                           d[1] += pst * (vk * new_r_p);
-                           const float p1a = go_right ? old_l_p : n_rp;
-                           const float p1b = go_right ? n_lp : old_l_p;
-                           d[2] += ps1 * (vk * p1a);
-                           d[3] += ps1 * (vk * p1b);
-                           const float p2a = go_right ? old_r_p : n_lp;
-                           const float p2b = go_right ? n_rp : old_r_p;
-                           d[4] += ps2 * (vk * p2a);
-                           d[5] += ps2 * (vk * p2b);
-                       });
+            if constexpr (DENSE) {
+                // the old edges' velocities (vl, vr), the new subtree's
+                // edges' from its slot; its outer edge is the last leaf's
+                // p (the slot's right p), whose velocity becomes the
+                // tree's new edge's
+                const float *nvl = s0.vl, *nvr = depth == 0 ? s0.vl : s0.vr;
+                float xps[K2], xlp[K2], xq[K2], ops[K2], olp[K2], orp[K2];
+                float q[K2], p[K2], g[K2], vol[K2], vor[K2], vnl[K2], vnr[K2];
+                lane_trips<K2>(n, lane,
+                           [&](int k, int i) {
+                               xps[k] = nps[i]; xlp[k] = nlp[i];
+                               if (take_new) xq[k] = nq[i];
+                               ops[k] = psum[i]; olp[k] = lp[i]; orp[k] = rp[i];
+                               q[k] = cq[i]; p[k] = cp[i]; g[k] = cg[i];
+                               vol[k] = vl[i]; vor[k] = vr[i]; vnl[k] = nvl[i]; vnr[k] = nvr[i];
+                           },
+                           [&](int k, int i) {
+                               const float n_ps = xps[k], n_lp = xlp[k];
+                               if (take_new) prq[i] = xq[k];
+                               const float old_ps = ops[k];
+                               const float pst = old_ps + n_ps;
+                               psum[i] = pst;
+                               const float old_l_p = olp[k], old_r_p = orp[k];
+                               if (go_right) {
+                                   rq[i] = q[k]; rp[i] = p[k]; rg[i] = g[k]; vr[i] = vnr[k];
+                               } else {
+                                   lq[i] = q[k]; lp[i] = p[k]; lg[i] = g[k]; vl[i] = vnr[k];
+                               }
+                               // 3-way U-turn on the merged span (reference nuts.py:332-340)
+                               const float ps1 = go_right ? old_ps + n_lp : n_ps + old_l_p;
+                               const float ps2 = go_right ? old_r_p + n_ps : n_lp + old_ps;
+                               const float v_ol = vol[k], v_or = vor[k], v_c = vnr[k];
+                               const float v_nl = vnl[k], v_nr = vnr[k];
+                               d[0] += pst * (go_right ? v_ol : v_c);
+                               d[1] += pst * (go_right ? v_c : v_or);
+                               d[2] += ps1 * (go_right ? v_ol : v_nr);
+                               d[3] += ps1 * (go_right ? v_nl : v_ol);
+                               d[4] += ps2 * (go_right ? v_or : v_nl);
+                               d[5] += ps2 * (go_right ? v_nr : v_or);
+                           });
+            } else {
+                float xps[K2], xlp[K2], xrp[K2], xq[K2], ops[K2], olp[K2], orp[K2];
+                float q[K2], p[K2], g[K2], v[K2];
+                lane_trips<K2>(n, lane,
+                           [&](int k, int i) {
+                               xps[k] = nps[i]; xlp[k] = nlp[i]; xrp[k] = nrp[i];
+                               if (take_new) xq[k] = nq[i];
+                               ops[k] = psum[i]; olp[k] = lp[i]; orp[k] = rp[i];
+                               q[k] = cq[i]; p[k] = cp[i]; g[k] = cg[i]; v[k] = vv[i];
+                           },
+                           [&](int k, int i) {
+                               const float n_ps = xps[k], n_lp = xlp[k], n_rp = xrp[k];
+                               if (take_new) prq[i] = xq[k];
+                               const float old_ps = ops[k];
+                               const float pst = old_ps + n_ps;
+                               psum[i] = pst;
+                               const float old_l_p = olp[k], old_r_p = orp[k];
+                               float new_l_p = old_l_p, new_r_p = old_r_p;
+                               if (go_right) {
+                                   rq[i] = q[k]; rp[i] = p[k]; rg[i] = g[k]; new_r_p = p[k];
+                               } else {
+                                   lq[i] = q[k]; lp[i] = p[k]; lg[i] = g[k]; new_l_p = p[k];
+                               }
+                               // 3-way U-turn on the merged span (reference nuts.py:332-340)
+                               const float ps1 = go_right ? old_ps + n_lp : n_ps + old_l_p;
+                               const float ps2 = go_right ? old_r_p + n_ps : n_lp + old_ps;
+                               const float vk = v[k];
+                               d[0] += pst * (vk * new_l_p);
+                               d[1] += pst * (vk * new_r_p);
+                               const float p1a = go_right ? old_l_p : n_rp;
+                               const float p1b = go_right ? n_lp : old_l_p;
+                               d[2] += ps1 * (vk * p1a);
+                               d[3] += ps1 * (vk * p1b);
+                               const float p2a = go_right ? old_r_p : n_lp;
+                               const float p2b = go_right ? n_rp : old_r_p;
+                               d[4] += ps2 * (vk * p2a);
+                               d[5] += ps2 * (vk * p2b);
+                           });
+            }
             LMC_CLK(kClkMerge);
             warp_sums(d);
 #pragma unroll
@@ -1796,8 +2113,8 @@ __device__ __forceinline__ TreeResult any_transition(const TreeConsts& T, const 
                                                      float lp0, float E0, float eps, int mdc,
                                                      uint32_t salt) {
     if constexpr (BLOCK) {
-        return block_transition<BODY>(T, BS, V, slot_sc, chain, w, lane, q0, p0, g0, lp0, E0,
-                                      eps, mdc, salt);
+        return block_transition<BODY, METRIC>(T, BS, V, slot_sc, chain, w, lane, q0, p0, g0,
+                                              lp0, E0, eps, mdc, salt);
     } else {
         (void)BS;
         return transition<BODY, METRIC>(T, V, slot_sc, chain, w, lane, q0, p0, g0, lp0, E0,

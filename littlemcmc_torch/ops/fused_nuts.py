@@ -59,7 +59,7 @@ from ..math import fp32_matmul, round_up
 from .nuts_trajectory import (kernel_library, BODY_IDS, DEFAULT_CHAIN_BLOCK, MAX_KERNEL_NDIM_DENSE, METRIC_IDS, TrajectorySpec, _M32, _GOLDEN,
                               _rowdot, _seed_words, block_uniform, body_logp_grad,
                               counter_uniform, fmix32, int32_bits, kernel_chain_block,
-                              lowrank_fac_parts,
+                              lowrank_fac_parts, stack_shape,
                               lowrank_fac_size, lowrank_velocity, metric_velocity,
                               resolve_chain_block, thin_combine, thin_dots, transition_block)
 
@@ -550,7 +550,8 @@ def _launch_kernel(q, grad, scalars, var, linv, seed, *, spec, T, tuning, config
     buf = {
         "q": q.contiguous(), "grad": grad.contiguous(),
         "consts": spec.kernel_consts,
-        "stack": empty(4, D, C, n), "q_out": empty(C, n), "grad_out": empty(C, n),
+        "stack": empty(*stack_shape(spec.body, metric, cb, D, C, n)), "q_out": empty(C, n),
+        "grad_out": empty(C, n),
         "trace": empty(T, C, n) if collect_trace else None,
         "stat_f": empty(len(_STAT_F32), T, C), "stat_i": empty(2, T, C, dtype=torch.int32),
         "stat_b": empty(2, T, C, dtype=torch.bool),

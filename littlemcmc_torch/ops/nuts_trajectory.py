@@ -53,12 +53,13 @@ __all__ = ["TrajectorySpec", "fmix32", "counter_salt", "counter_uniform",
            "resolve_chain_block", "trajectory", "trajectory_plain",
            "body_logp_grad", "DEFAULT_CHAIN_BLOCK", "METRIC_IDS", "LOWRANK_MAX_K",
            "lowrank_fac_size", "build_lowrank_fac", "warp_sum", "thin_dots",
-           "runs_block_transition"]
+           "runs_block_transition", "stack_shape"]
 
 # Chains per CUDA thread block, one warp per chain: 128 blocks at the
 # main path's 1024 chains for the card's 132 SMs. Bodies 0, 1, 4 and 5 with
-# the diagonal metric run the block transition (csrc/nuts_transition.cuh)
-# in blocks of up to 8 chains, the warp transition in larger ones.
+# the diagonal metric and body 1 with the dense metric run the block
+# transition (csrc/nuts_transition.cuh) in blocks of up to 8 chains, the
+# warp transition in larger ones.
 DEFAULT_CHAIN_BLOCK = 8
 # 16 warps of 32 threads at up to 128 registers fill an SM's 65,536; the
 # low-rank metric's instances take 8 warps of up to 255 registers
@@ -71,10 +72,11 @@ MAX_KERNEL_NDIM_DENSE = 256  # register tile of the dense and the logistic model
 BODY_IDS = {"standard_normal": 0, "correlated_gaussian": 1, "eight_schools": 2, "logistic": 3,
             "spiked_gaussian": 4, "funnel": 5, "auto": 6}
 METRIC_IDS = {"diag": 0, "dense": 1, "lowrank": 2}
-# the bodies whose kDiag instances run the block transition in chain
-# blocks of up to BLOCK_TRANSITION_CHAINS (block_body() and kBlockChains in
-# csrc/nuts_transition.cuh)
+# the bodies whose kDiag instances, and those whose kDense instances, run
+# the block transition in chain blocks of up to BLOCK_TRANSITION_CHAINS
+# (block_body() and kBlockChains in csrc/nuts_transition.cuh)
 BLOCK_TRANSITION_BODIES = ("standard_normal", "correlated_gaussian", "spiked_gaussian", "funnel")
+BLOCK_TRANSITION_DENSE_BODIES = ("correlated_gaussian",)
 BLOCK_TRANSITION_CHAINS = 8
 # columns of the low-rank factor block the kernels read (kMaxRank in
 # csrc/nuts_transition.cuh); a smaller rank is padded with zero columns
@@ -378,8 +380,18 @@ def runs_block_transition(body: str, metric: str, chain_block: int) -> bool:
     the warp transition for body 4 where its constants do not fit in shared
     memory beside the working vectors (a few dozen n below the largest the
     kernels take)."""
-    return (body in BLOCK_TRANSITION_BODIES and metric == "diag"
-            and chain_block <= BLOCK_TRANSITION_CHAINS)
+    bodies = {"diag": BLOCK_TRANSITION_BODIES, "dense": BLOCK_TRANSITION_DENSE_BODIES}
+    return body in bodies.get(metric, ()) and chain_block <= BLOCK_TRANSITION_CHAINS
+
+
+def stack_shape(body: str, metric: str, chain_block: int, D: int, C: int, n: int):
+    """The NUTS kernels' global merge stack for a launch: ``D`` slots of
+    ``C`` chains' left p, right p, p sum and proposal q (``n`` floats
+    each), and where the block transition runs the dense metric the left
+    and right p's velocities too (``slot_vecs`` in
+    csrc/nuts_transition.cuh)."""
+    dense_block = metric == "dense" and runs_block_transition(body, metric, chain_block)
+    return (6 if dense_block else 4, D, C, n)
 
 
 def resolve_chain_block(chains: int, chain_block: int) -> int:
@@ -759,10 +771,10 @@ def _launch_kernel(q, p, grad, logp, eps, max_depth_c, var, seed, *, spec,
         out[k] = torch.empty(C, dtype=torch.int32, device=q.device)
     for k in _OUT_BOOL:
         out[k] = torch.empty(C, dtype=torch.bool, device=q.device)
-    # merge stack: (left p, right p, p sum, proposal q) x D slots x C x n (the
-    # block transition keeps its lower slots in shared memory and uses this
-    # for the rest)
-    stack = torch.empty((4, D, C, n), dtype=torch.float32, device=q.device)
+    # merge stack (the block transition keeps its lower slots in shared
+    # memory and uses this for the rest)
+    stack = torch.empty(stack_shape(spec.body, metric, cb, D, C, n), dtype=torch.float32,
+                        device=q.device)
     consts = spec.kernel_consts.data_ptr() if spec.kernel_consts is not None else 0
 
     lib = kernel_library("nuts_trajectory", spec, q.device, C)

@@ -24,12 +24,15 @@ the logistic body (3) at ``chip_smoke.py``'s phase 2k input and at path
 (B)'s final state, and the generated ``HierarchicalRegression`` body at
 H1's final state (1024 chains each, tree depth 10; CUDA events and the
 device time under ``torch.profiler``). Then the NUTS transition's diag
-instances of ``scripts/torch_transition_clocks.py``: rows 1 diag and 2b
-body 1 (the per-draw launch and a 250-draw fused launch, 1024 chains) at
-phase 2's input and at the main path's final state, row 2a (the funnel's
-fused launch) at F1's final state and 2p's input, the funnel per draw at
-2o's, row 1 body 4 (the spiked Gaussian per draw) at L0's final state and
-2m's input, and the spiked Gaussian's fused instance in a 2-draw chunk:
+and dense instances of ``scripts/torch_transition_clocks.py``: rows 1
+diag and 2b body 1 (the per-draw launch and a 250-draw fused launch, 1024
+chains) at phase 2's input and at the main path's final state, row 2a (the
+funnel's fused launch) at F1's final state and 2p's input, the funnel per
+draw at 2o's, row 1 body 4 (the spiked Gaussian per draw) at L0's final
+state and 2m's input, the spiked Gaussian's fused instance in a 2-draw
+chunk, row 2 dense (a 250-draw launch at ``adapt_full``'s final state,
+phase 2c's 4-draw tune chunk) and row 1 dense (phase 2b's input, the
+per-draw twin's final state):
 ms a launch (CUDA events), a digest of the outputs (equal digests: the
 two checkouts give the same bits), and from a build with the section
 clocks the grid's tail share and the sections' shares (the final states,
@@ -157,29 +160,35 @@ def _body_times(states_path: Path) -> dict:
 
 
 def _transition_rows(root: Path) -> dict:
-    """The NUTS transition's diag instances at the inputs of
+    """The NUTS transition's diag and dense instances at the inputs of
     :func:`torch_transition_clocks.run_clocks`: rows 1 diag and 2b body 1
     at phase 2's input and the main path's final state, row 2a (the
     funnel's fused instance) at F1's final state and phase 2p's input, the
     funnel per draw at phase 2o's input, row 1 body 4 (the spiked Gaussian
-    per draw) at L0's final state and phase 2m's input, and its fused
-    instance in a 2-draw chunk at 2m's positions: ms a launch of the
-    package's build, its output digest, the tail share, each section's
-    share of a warp's cycles and the cycles a leaf step, and the clocked
-    build's ptxas lines."""
+    per draw) at L0's final state and phase 2m's input, its fused
+    instance in a 2-draw chunk at 2m's positions, row 2 dense at
+    ``adapt_full``'s final state and phase 2c's tune chunk, row 1 dense at
+    phase 2b's input and the per-draw twin's final state: ms a launch of
+    the package's build, its output digest, the tail share, each section's
+    share of a warp's cycles and the cycles a leaf step, the n x n
+    products a chain-draw and the fused draw's parts around the transition,
+    and the clocked build's ptxas lines. Each key names the kernel, the
+    metric and the case."""
     sys.path.insert(0, str(Path(__file__).resolve().parent))
     import torch_transition_clocks as tc
 
     here = Path(__file__).resolve().parents[1]
     out = {}
     for r in tc.run_clocks(root, here / "build", here / "build" / "transition_clocks"):
-        key = f"{r['kernel']}_diag_{r['case']}"
+        key = f"{r['kernel']}_{r['metric']}_{r['case']}"
         out[f"{key}_ms"] = r["plain_build_ms"]
         out[f"{key}_digest"] = r["digest"]
         for k in ("tail_share", "block_ms_mean", "block_ms_max", "cycles_per_step",
                   "leaf_steps_per_chain", "leaves_built_per_chain",
-                  "mean_leaves_per_chain_draw", "max_depth",
-                  *(f"share_{s}" for s in tc.SECTIONS)):
+                  "mean_leaves_per_chain_draw", "max_depth", "products_per_chain_draw",
+                  "draw_share_outside_transition",
+                  *(f"share_{s}" for s in tc.SECTIONS),
+                  *(f"draw_{x}_{s}" for s in tc.SIDE[:5] for x in ("cycles", "share"))):
             if k in r:
                 out[f"{key}_{k}"] = r[k]
         out[f"ptxas_clocks_{r['kernel']}"] = r["ptxas_clocks"]

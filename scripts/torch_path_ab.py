@@ -1,17 +1,25 @@
 #!/usr/bin/env python3
-"""Time logistic regression's two paths of one checkout of littlemcmc_torch
-on the card.
+"""Time whole ``sample()`` paths of one checkout of littlemcmc_torch on the
+card.
 
-    python3 scripts/torch_path_ab.py [ROOT]
+    python3 scripts/torch_path_ab.py [ROOT] [--paths=logistic,adapt_full]
 
 Runs, with the checkout at ROOT (default: the one this script is in),
-BASELINE config 4's logistic regression (1000 x 25) at 1024 chains as
-``chip_smoke.py``'s phases 3l-3m do: path (B), the default call on the
-trajectory kernel's logistic body (500 + 1000 draws), and path (A), the
-tensor-op tree with the batched logistic kernel at every leaf (200 + 200),
-both from seed 42. Prints one JSON line: each path's ``sample_seconds``,
-launches by kernel (the batched logistic kernel's too) and post-tune mean
-tree size, and the card's name and power limit. To compare two
+from seed 42 at 1024 chains (default: both groups):
+
+- ``logistic``: BASELINE config 4's logistic regression (1000 x 25) as
+  ``chip_smoke.py``'s phases 3l-3m do: path (B), the default call on the
+  trajectory kernel's logistic body (500 + 1000 draws), and path (A), the
+  tensor-op tree with the batched logistic kernel at every leaf (200 +
+  200);
+- ``adapt_full``: the 100-d correlated Gaussian with ``init="adapt_full"``
+  (500 + 1000) as phases 3b-3c do: the fused engine and its per-draw twin,
+  and each fused launch's device ms from a profiled repeat of the fused
+  call.
+
+Prints one JSON line: each path's ``sample_seconds``, launches by kernel
+(the batched logistic kernel's too), mean tree size, the fused launches'
+ms where timed, and the card's name and power limit. To compare two
 checkouts, run them in turns (A, B, B, A) in one command on one card.
 """
 
@@ -23,21 +31,11 @@ import sys
 from pathlib import Path
 
 
-def main() -> int:
-    root = Path(sys.argv[1] if len(sys.argv) > 1 else Path(__file__).resolve().parents[1])
-    sys.path.insert(0, str(root.resolve()))
-    import torch
-
-    if not torch.cuda.is_available():
-        print("no CUDA device", file=sys.stderr)
-        return 2
+def _logistic_paths(out: dict) -> None:
     from littlemcmc_torch import NUTS, sample
     from littlemcmc_torch.models import LogisticRegression
-    from littlemcmc_torch.ops import _build
     from littlemcmc_torch.ops.logistic import logistic_logp_grad
 
-    _build.build_all()  # the kernels' build stays out of sample_seconds
-    out = {"root": str(root)}
     for path, model, tune, draws in (("B", LogisticRegression(), 500, 1000),
                                      ("A", LogisticRegression(use_kernel=True), 200, 200)):
         kw = {} if path == "B" else {"step": NUTS(
@@ -53,6 +51,56 @@ def main() -> int:
                      "kernel_launches": report.get("kernel_launches"),
                      "logistic_logp_grad_launches": logistic_logp_grad.launches - launches,
                      "mean_tree_size": float(tree.mean()) if tree is not None else None}
+
+
+def _adapt_full_paths(out: dict) -> None:
+    """The two ``adapt_full`` cells on the 100-d correlated Gaussian (1024
+    chains, 500 + 1000, seed 42), as ``chip_smoke.py``'s phases 3b-3c run
+    them: the fused engine and its per-draw twin (``fuse_draws=False``),
+    each once as the user calls it, then the fused call once more under
+    ``torch.profiler`` for each fused launch's device ms
+    (``chip_smoke._fused_path_breakdown``)."""
+    import chip_smoke
+    from littlemcmc_torch import sample
+    from littlemcmc_torch.models import CorrelatedGaussian
+
+    model = CorrelatedGaussian(100)
+    for path, fuse in (("adapt_full_fused", None), ("adapt_full_per_draw", False)):
+        report = {}
+        _, stats = sample(model.logp_grad, model_ndim=100, chains=1024, tune=500, draws=1000,
+                          random_seed=42, init="adapt_full", fuse_draws=fuse,
+                          perf_report=report, progressbar=False,
+                          compute_convergence_checks=False)
+        out[path] = {"engine": report["engine"], "sample_seconds": report["sample_seconds"],
+                     "kernel_launches": report.get("kernel_launches"),
+                     "mean_tree_size": float(stats["tree_size"].mean()),
+                     "mean_depth": float(stats["depth"].mean())}
+    line = chip_smoke._fused_path_breakdown(model)
+    out["adapt_full_fused"].update(
+        {k: line.get(k) for k in ("fused_launch_ms", "fused_tune_ms", "fused_draw_ms",
+                                  "device_busy_share", "sample_seconds_profiled")})
+
+
+PATHS = {"logistic": _logistic_paths, "adapt_full": _adapt_full_paths}
+
+
+def main() -> int:
+    args = [a for a in sys.argv[1:] if not a.startswith("--paths=")]
+    chosen = [a.split("=", 1)[1] for a in sys.argv[1:] if a.startswith("--paths=")]
+    paths = chosen[0].split(",") if chosen else list(PATHS)
+    root = Path(args[0] if args else Path(__file__).resolve().parents[1])
+    sys.path.insert(0, str(root.resolve()))
+    import torch
+
+    if not torch.cuda.is_available():
+        print("no CUDA device", file=sys.stderr)
+        return 2
+    from littlemcmc_torch.ops import _build
+
+    _build.build_all()  # the kernels' build stays out of sample_seconds
+    out = {"root": str(root)}
+    for name in paths:
+        PATHS[name](out)
     out["card"] = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
         capture_output=True, text=True, timeout=60).stdout.strip()

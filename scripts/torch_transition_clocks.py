@@ -1,14 +1,15 @@
 #!/usr/bin/env python3
 """Where the NUTS transition's time goes on the card, section by section.
 
-    python3 scripts/torch_transition_clocks.py [ROOT]
+    python3 scripts/torch_transition_clocks.py [ROOT] [--cases=CASE,...]
 
 Builds the per-draw trajectory kernel (``nuts_trajectory.cu``) and the
 fused NUTS kernel (``fused_nuts.cu``) of the checkout at ROOT (default:
 the one this script is in) a second time with ``-DLMC_TRANSITION_CLOCKS``,
 which compiles in the section clocks of ``csrc/nuts_transition.cuh``
-(the package's own build never sets it), and runs their diag instances
-through the package's wrappers (tree depth 10, chain blocks of 8):
+(the package's own build never sets it), and runs their diag and dense
+instances through the package's wrappers (tree depth 10, chain blocks of
+8):
 
 - the 100-d correlated Gaussian (body 1, rows 1 diag and 2b body 1), 1024
   chains, at ``chip_smoke.py``'s phase-2 input (stationary, step 0.2) and
@@ -17,13 +18,20 @@ through the package's wrappers (tree depth 10, chain blocks of 8):
   2p's draw-chunk input (fused), and at phase 2o's input (per draw);
 - the 100-d spiked Gaussian (body 4, row 1 body 4) at L0's final state
   and phase 2m's input (per draw), and its fused instance in a 2-draw
-  chunk of 256 chains at 2m's positions.
+  chunk of 256 chains at 2m's positions;
+- the 100-d correlated Gaussian with the pooled dense metric (rows 2 and
+  1 dense): the fused instance at ``adapt_full``'s final state (its
+  covariance and inverse Cholesky factor) and in phase 2c's tune chunk as
+  that cell runs it (``adapt_dense``, the step size adapting), the
+  per-draw instance at phase 2b's input and at the per-draw twin's final
+  state.
 
 A fused launch from a final state runs a 250-draw draw chunk. The final
-states (main path, F1, L0: ``sample()`` at 1024 chains, 500 + 1000, seed
-42) are sampled once with ROOT's package and kept in ``build/`` beside
-this script (``STATE_FILES``), so that every checkout timed in one call
-sees the same states.
+states (main path, F1, L0, ``adapt_full`` fused and per draw:
+``sample()`` at 1024 chains, 500 + 1000, seed 42) are sampled once with
+ROOT's package and kept in ``build/`` beside this script
+(``STATE_FILES``), so that every checkout timed in one call sees the
+same states.
 
 For each launch it prints one JSON line:
 
@@ -40,12 +48,19 @@ For each launch it prints one JSON line:
   block-wide votes while the chain builds (``sync``) and while it waits
   for its block's deepest chain (``wait``), the rest; ``cycles_per_step``
   each section's cycles per leaf step of the block, and the leaf steps and
-  leaves built per chain.
+  leaves built per chain;
+- from the side rows (where the sources have ``side_clocks_bind``): the
+  n x n products a chain-draw (a warp's matvec, or a block-wide product
+  once for each chain of its block), and for the fused kernel each part
+  of a draw around the transition in cycles a chain-draw and its share
+  (the normals and the momentum, the start velocity and energy, the
+  transition, the work after it, the pooled Welford adds).
 
 Each line also holds ``digest``, a hash of the package build's outputs
 (every output tensor's bytes), so that two checkouts whose kernels round
 alike show the same digest. A checkout whose sources lack the clocks (no
-``transition_clocks_bind``) is timed without them. ``run_clocks`` is what
+``transition_clocks_bind``) is timed without them. ``--cases`` runs only
+the cases named (the keys of ``_inputs``). ``run_clocks`` is what
 ``torch_kernel_ab.py`` calls.
 """
 
@@ -61,6 +76,12 @@ from pathlib import Path
 
 SECTIONS = ("body", "leapfrog", "leaf_store", "merge", "warp_sums", "sync", "wait", "other")
 SLOTS = len(SECTIONS) + 2  # then leaf steps and leaves built (kClkSlots)
+# the side rows' slots (kSide* in csrc/nuts_transition.cuh): the fused
+# kernel's draw in parts (the normals and momentum, the start velocity and
+# energy, the transition, the work after it, the pooled Welford adds), its
+# draws, and the n x n products
+SIDE = ("momentum", "start", "tree", "after", "welford", "draws", "products")
+SIDE_SLOTS = len(SIDE)
 C, N, DEPTH, CB = 1024, 100, 10, 8
 
 
@@ -101,30 +122,40 @@ def _finish_clocked(procs: dict) -> dict:
 
 
 def _load_clocked(path: Path, name: str):
-    """The instrumented library with the package's signatures, and its
-    clock binder (None where the sources have no clocks)."""
+    """The instrumented library with the package's signatures, its clock
+    binder and its side rows' binder (each None where the sources lack
+    them)."""
     from littlemcmc_torch.ops import _build
 
     lib = _build._declare(ctypes.CDLL(str(path)), _build._SIGNATURES[name])
-    bind = getattr(lib, "transition_clocks_bind", None)
-    if bind is not None:
-        bind.restype, bind.argtypes = ctypes.c_int, [ctypes.c_void_p]
-    return lib, bind
+    binders = []
+    for fn in ("transition_clocks_bind", "side_clocks_bind"):
+        bind = getattr(lib, fn, None)
+        if bind is not None:
+            bind.restype, bind.argtypes = ctypes.c_int, [ctypes.c_void_p]
+        binders.append(bind)
+    return lib, binders[0], binders[1]
 
 
 # The cells whose final states the cases start from, each sampled once
 # (seed 42, 1024 chains, 500 + 1000) with the first checkout run and kept
 # in build/ beside this script: the main path (``CorrelatedGaussian(100)``,
 # per-draw diag), F1 (``NealsFunnel(10)``, centred, ``target_accept=0.9``,
-# fused diag) and L0 (``SpikedGaussian(100)``, ``jitter+adapt_diag``,
-# per-draw diag on body 4).
+# fused diag), L0 (``SpikedGaussian(100)``, ``jitter+adapt_diag``,
+# per-draw diag on body 4), and ``adapt_full`` on the 100-d Gaussian
+# (the pooled dense metric) on the fused engine and on its per-draw twin
+# (``fuse_draws=False``).
 STATE_FILES = {"main": "transition_clocks_state.pt", "f1": "transition_clocks_f1_state.pt",
-               "l0": "transition_clocks_l0_state.pt"}
+               "l0": "transition_clocks_l0_state.pt",
+               "adapt_full": "transition_clocks_adapt_full_state.pt",
+               "adapt_full_twin": "transition_clocks_adapt_full_twin_state.pt"}
 
 
 def _final_state(path: Path, model, **kw) -> dict:
     """A cell's final state (sampled once with ``kw``, then loaded): the
-    trajectory and fused ops' inputs, a momentum from a fixed seed."""
+    trajectory and fused ops' inputs, a momentum from a fixed seed; for
+    the pooled dense metric ``var`` is the shared covariance and ``linv``
+    its inverse lower Cholesky factor."""
     import torch
 
     if path.exists():
@@ -134,10 +165,13 @@ def _final_state(path: Path, model, **kw) -> dict:
     _, _, s = sample(model.logp_grad, model_ndim=model.ndim, chains=C, tune=500, draws=1000,
                      random_seed=42, return_final_state=True, progressbar=False,
                      compute_convergence_checks=False, **kw)
-    da = s.da
-    state = {k: v.contiguous() for k, v in dict(
-        q=s.q, grad=s.q_grad, logp=s.logp, var=s.potential.var,
-        p=s.potential.sample_momentum(torch.Generator(device="cuda").manual_seed(7)),
+    da, pot = s.da, s.potential
+    metric = {"var": pot.var} if not hasattr(pot, "cov") else {
+        "var": pot.cov[0], "linv": torch.linalg.solve_triangular(
+            pot.chol[0], torch.eye(model.ndim, device="cuda"), upper=False)}
+    state = {k: v.contiguous().clone() for k, v in dict(
+        q=s.q, grad=s.q_grad, logp=s.logp, **metric,
+        p=pot.sample_momentum(torch.Generator(device="cuda").manual_seed(7)),
         iter=s.iter_count.float(), log_step=da.log_step, log_bar=da.log_bar, hbar=da.hbar,
         count=da.count.float(), mu=da.mu).items()}
     path.parent.mkdir(parents=True, exist_ok=True)
@@ -146,19 +180,26 @@ def _final_state(path: Path, model, **kw) -> dict:
 
 
 def _inputs(root: Path, state_dir: Path) -> dict:
-    """case -> (kernel, model, positional args, seed words, draws a fused
-    launch): rows 1 diag and 2b body 1 (the correlated Gaussian) at phase
-    2's input and the main path's final state; row 2a (the funnel's fused
-    instance) at F1's final state and phase 2p's draw-chunk input; the
-    funnel in the per-draw kernel at phase 2o's input; row 1 body 4 (the
-    spiked Gaussian per draw) at L0's final state and phase 2m's input; the
-    spiked Gaussian's fused instance in a 2-draw chunk of 256 chains at
-    phase 2m's positions."""
+    """case -> (kernel, model, positional args, seed words, keywords of the
+    op beyond the model's spec and the chain block): rows 1 diag and 2b
+    body 1 (the correlated Gaussian) at phase 2's input and the main path's
+    final state; row 2a (the funnel's fused instance) at F1's final state
+    and phase 2p's draw-chunk input; the funnel in the per-draw kernel at
+    phase 2o's input; row 1 body 4 (the spiked Gaussian per draw) at L0's
+    final state and phase 2m's input; the spiked Gaussian's fused instance
+    in a 2-draw chunk of 256 chains at phase 2m's positions; row 2 dense
+    (the correlated Gaussian's fused instance with the pooled dense
+    metric) in a 250-draw chunk at ``adapt_full``'s final state and in
+    phase 2c's tune chunk as the cell runs it (4 draws, ``adapt_dense``
+    across a window swap, the step size adapting); row 1 dense (the same
+    body per draw) at phase 2b's input and at the per-draw twin's final
+    state."""
     import numpy as np
     import torch
 
     sys.path.insert(0, str(root))
     import chip_smoke
+    from littlemcmc_torch.base import NUTSConfig
     from littlemcmc_torch.models import CorrelatedGaussian, NealsFunnel, SpikedGaussian
 
     cg, fun, sg = CorrelatedGaussian(N), NealsFunnel(10), SpikedGaussian(N)
@@ -167,35 +208,51 @@ def _inputs(root: Path, state_dir: Path) -> dict:
     main = _final_state(state_dir / STATE_FILES["main"], cg)
     f1 = _final_state(state_dir / STATE_FILES["f1"], fun, target_accept=0.9)
     l0 = _final_state(state_dir / STATE_FILES["l0"], sg, init="jitter+adapt_diag")
+    af = _final_state(state_dir / STATE_FILES["adapt_full"], cg, init="adapt_full")
+    twin = _final_state(state_dir / STATE_FILES["adapt_full_twin"], cg, init="adapt_full",
+                        fuse_draws=False)
     full = torch.full((C,), DEPTH, dtype=torch.int32, device="cuda")
     f = dict(dtype=torch.float32, device="cuda")
     leps = torch.log(eps)
+    diag, dense = dict(metric="diag"), dict(metric="dense")
 
     def traj(s):
         return (s["q"], s["p"], s["grad"], s["logp"], torch.exp(s["log_bar"]), full, s["var"])
 
     def fused(s):
         return (s["q"], s["grad"], s["logp"], s["iter"], s["log_step"], s["log_bar"], s["hbar"],
-                s["count"], s["mu"], s["var"], None)
+                s["count"], s["mu"], s["var"], s.get("linv"))
+
+    def draws(T, metric="diag"):
+        return dict(T=T, tuning=False, config=NUTSConfig(), metric=metric)
 
     def chunk(model, chains, seed):  # the smoke's diag draw-chunk input (fused_check)
         return chip_smoke._diag_fused_inputs(model, chains, seed, False, swap_at=1)[0]
 
     return {
-        "phase2": ("trajectory", cg, (q, p, g, lp, eps, mdc, var), (17, 29), 0),
-        "main_final": ("trajectory", cg, traj(main), (3, 8), 0),
+        "phase2": ("trajectory", cg, (q, p, g, lp, eps, mdc, var), (17, 29), diag),
+        "main_final": ("trajectory", cg, traj(main), (3, 8), diag),
         "fused_phase2": ("fused_nuts", cg, (q, g, lp, torch.full((C,), 1500.0, **f), leps, leps,
                                             torch.zeros(C, **f), torch.full((C,), 40.0, **f),
-                                            leps + float(np.log(10.0)), var, None), (5, 9), 250),
-        "fused_main_final": ("fused_nuts", cg, fused(main), (5, 9), 250),
-        "f1_final": ("fused_nuts", fun, fused(f1), (5, 9), 250),
-        "phase2p": ("fused_nuts", fun, chunk(fun, C, 35), (211, 7), 2),
+                                            leps + float(np.log(10.0)), var, None), (5, 9),
+                         draws(250)),
+        "fused_main_final": ("fused_nuts", cg, fused(main), (5, 9), draws(250)),
+        "f1_final": ("fused_nuts", fun, fused(f1), (5, 9), draws(250)),
+        "phase2p": ("fused_nuts", fun, chunk(fun, C, 35), (211, 7), draws(2)),
         "phase2o": ("trajectory", fun, chip_smoke._posterior_inputs(fun, C, 0.2, 33), (197, -5),
-                    0),
-        "l0_final": ("trajectory", sg, traj(l0), (3, 8), 0),
+                    diag),
+        "l0_final": ("trajectory", sg, traj(l0), (3, 8), diag),
         "phase2m": ("trajectory", sg, chip_smoke._posterior_inputs(sg, 256, 0.1, 25), (163, 167),
-                    0),
-        "fused_phase2m": ("fused_nuts", sg, chunk(sg, 256, 25), (229, 7), 2),
+                    diag),
+        "fused_phase2m": ("fused_nuts", sg, chunk(sg, 256, 25), (229, 7), draws(2)),
+        "adapt_full_final": ("fused_nuts", cg, fused(af), (5, 9), draws(250, "dense")),
+        "phase2c_tune": ("fused_nuts", cg, chip_smoke._fused_inputs(cg, C, 5), (47, 13),
+                         dict(T=4, tuning=True, config=NUTSConfig(adapt_step_size=True),
+                              metric="dense", window_multiplier=2.0,
+                              dense_welford=chip_smoke._welford_seed(cg))),
+        "phase2b": ("trajectory", cg, chip_smoke._dense_stationary_inputs(cg, C, 0.5, seed=2),
+                    (23, 31), dense),
+        "twin_final": ("trajectory", cg, traj(twin), (3, 8), dense),
     }
 
 
@@ -241,6 +298,29 @@ def _sections(rows) -> dict:
     return out
 
 
+def _side(rows, draws: int) -> dict:
+    """From the chains' side rows (``[C][SIDE_SLOTS]``): each part of the
+    fused kernel's draw (``SIDE``) in cycles a chain-draw and its share of
+    the draw, the share outside the transition, and the n x n products a
+    chain-draw (a per-draw launch is one draw; its rows hold the
+    transition's products only)."""
+    import numpy as np
+
+    rows = rows.astype(np.float64)
+    chain_draws = rows[:, SIDE.index("draws")].sum() or rows.shape[0] * draws
+    out = {"products_per_chain_draw": float(rows[:, SIDE.index("products")].sum() / chain_draws)}
+    parts = SIDE[:5]
+    total = rows[:, :5].sum()
+    if total > 0:
+        out.update({f"draw_cycles_{k}": float(rows[:, i].sum() / chain_draws)
+                    for i, k in enumerate(parts)})
+        out.update({f"draw_share_{k}": float(rows[:, i].sum() / total)
+                    for i, k in enumerate(parts)})
+        out["draw_share_outside_transition"] = 1.0 - float(
+            rows[:, SIDE.index("tree")].sum() / total)
+    return out
+
+
 def _digest(out: dict) -> str:
     """A hash of every output tensor's bytes, in key order."""
     h = hashlib.sha256()
@@ -264,11 +344,10 @@ def _ms(fn, reps: int) -> float:
     return start.elapsed_time(end) / reps
 
 
-def run_clocks(root: Path, state_dir: Path, out_dir: Path) -> list:
+def run_clocks(root: Path, state_dir: Path, out_dir: Path, only=None) -> list:
     """Every launch's JSON record for the checkout at ``root`` (its package
-    already on ``sys.path``)."""
+    already on ``sys.path``); ``only``: the cases to run (default all)."""
     import torch
-    from littlemcmc_torch.base import NUTSConfig
     from littlemcmc_torch.ops import _build
     from littlemcmc_torch.ops.fused_nuts import fused_nuts
     from littlemcmc_torch.ops.nuts_trajectory import trajectory
@@ -284,15 +363,15 @@ def run_clocks(root: Path, state_dir: Path, out_dir: Path) -> list:
     n_sms = torch.cuda.get_device_properties(0).multi_processor_count
     real_load = _build.load_library
     records = []
-    for case, (kind, model, args, seed, T) in cases.items():
+    for case, (kind, model, args, seed, extra) in cases.items():
+        if only and case not in only:
+            continue
         op, lib_name = ops[kind]
         chains = args[0].shape[0]
+        kw = dict(spec=model.trajectory_spec(), chain_block=CB, **extra)
         if kind == "trajectory":
-            kw = dict(spec=model.trajectory_spec(), max_treedepth=DEPTH, Emax=1000.0,
-                      chain_block=CB)
-        else:
-            kw = dict(spec=model.trajectory_spec(), T=T, tuning=False, config=NUTSConfig(),
-                      metric="diag", chain_block=CB)
+            kw.update(max_treedepth=DEPTH, Emax=1000.0)
+        T = extra.get("T", 0)
         reps = 3 if T >= 100 else 20
 
         def call():
@@ -300,24 +379,30 @@ def run_clocks(root: Path, state_dir: Path, out_dir: Path) -> list:
 
         digest = _digest(call())
         plain_build_ms = _ms(call, reps)
-        lib, bind = libs[lib_name]
+        lib, bind, bind_side = libs[lib_name]
         _build.load_library = (lambda name, _l=lib, _n=lib_name:
                                _l if name == _n else real_load(name))
         try:
             instr_ms = _ms(call, reps)
             rec = {"root": str(root), "case": case, "kernel": lib_name,
-                   "body": model.trajectory_spec().body, "chains": chains, "draws": T or 1,
-                   "ms": instr_ms, "plain_build_ms": plain_build_ms, "digest": digest,
+                   "body": model.trajectory_spec().body, "metric": extra["metric"],
+                   "chains": chains, "draws": T or 1, "ms": instr_ms,
+                   "plain_build_ms": plain_build_ms, "digest": digest,
                    "ptxas_clocks": clocked[lib_name][1]}
             if bind is not None:
                 buf = torch.zeros(clock_buffer_len(chains, CB), dtype=torch.int64,
                                   device="cuda")
-                if bind(buf.data_ptr()) != 0:
-                    raise RuntimeError("transition_clocks_bind failed")
+                side = torch.zeros(chains * SIDE_SLOTS, dtype=torch.int64, device="cuda")
+                if bind(buf.data_ptr()) != 0 or (
+                        bind_side is not None and bind_side(side.data_ptr()) != 0):
+                    raise RuntimeError("transition_clocks_bind or side_clocks_bind failed")
                 out = call()
                 torch.cuda.synchronize()
                 host = buf.cpu().numpy()
                 bind(0)
+                if bind_side is not None:
+                    bind_side(0)
+                    rec.update(_side(side.cpu().numpy().reshape(chains, SIDE_SLOTS), T or 1))
                 rec.update(_tail(host[chains * SLOTS:].reshape(-1, 4), n_sms))
                 rec.update(_sections(host[:chains * SLOTS].reshape(chains, SLOTS)))
                 rec["mean_leaves_per_chain_draw"] = float(
@@ -334,7 +419,9 @@ def run_clocks(root: Path, state_dir: Path, out_dir: Path) -> list:
 
 def main() -> int:
     here = Path(__file__).resolve().parents[1]
-    root = Path(sys.argv[1] if len(sys.argv) > 1 else here).resolve()
+    args = [a for a in sys.argv[1:] if not a.startswith("--cases=")]
+    only = [c for a in sys.argv[1:] if a.startswith("--cases=") for c in a[8:].split(",")]
+    root = Path(args[0] if args else here).resolve()
     sys.path.insert(0, str(root))
     import torch
 
@@ -345,7 +432,7 @@ def main() -> int:
     smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
                          capture_output=True, text=True, timeout=60).stdout.strip()
     print(json.dumps({"card": smi, "root": str(root)}), flush=True)
-    for rec in run_clocks(root, here / "build", here / "build" / "transition_clocks"):
+    for rec in run_clocks(root, here / "build", here / "build" / "transition_clocks", only):
         print(json.dumps(rec), flush=True)
     return 0
 

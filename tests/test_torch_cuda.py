@@ -369,6 +369,94 @@ def test_fused_block_body_kernel_to_depth_10_matches_plain(hopper, n, tuning):
     assert _flip_share(got, want, held, sd, "trace") <= _FLIPS, res
 
 
+# Body 1 with the dense metric in blocks of up to 8 chains runs the block
+# transition too: the drift's and the energy's velocities p COV as
+# block-wide products like the body's, each leaf's energy velocity cached
+# beside its momentum in the merge stack (6 vectors a slot) and the tree's
+# edges, so that the merges and U-turn checks do no product. With the true
+# covariance as the metric the dynamics turn with period 2 pi: at a step of
+# 0.002 no U-turn fires before 1023 leaves, so trees reach the depth cap
+# of 10 and write every slot of the stack (the lower ones in shared
+# memory, from slot 4 at n = 100 and slot 1 at n = 256 in the global
+# stack's 6-vector layout; at n = 256 P and COV stay in global memory
+# too). Blocks of 1 and 5 chains take the block transition's ragged
+# products (a chain group of 4 with 3 or 1 empty places); blocks of 16 stay
+# on the warp transition.
+@pytest.mark.cuda
+@pytest.mark.parametrize("n,chains,block", [(100, 64, 8), (100, 40, 5), (100, 16, 1),
+                                            (256, 64, 8), (33, 64, 8), (100, 64, 16)])
+def test_dense_block_kernel_to_depth_10_matches_plain(hopper, n, chains, block):
+    from littlemcmc_torch.ops.nuts_trajectory import runs_block_transition
+
+    model = tm.CorrelatedGaussian(n)
+    assert runs_block_transition("correlated_gaussian", "dense", block) == (block <= 8)
+    D = 10
+    args = _dense_inputs(model, chains, D, 0.002, 13, hopper)
+    kw = dict(spec=model.trajectory_spec(), max_treedepth=D, Emax=1000.0, chain_block=block,
+              metric="dense")
+    launches = trajectory.launches
+    got = trajectory(*args, (31, -37), **kw)
+    torch.cuda.synchronize()
+    assert trajectory.launches == launches + 1
+    want = trajectory_plain(*args, (31, -37), **kw)
+    assert int(want["depth"].max()) == D
+    assert float((want["depth"] == D).float().mean()) > 0.5
+    agree = torch.stack([got[k] == want[k] for k in FLAGS]).all(0)
+    assert float(agree.float().mean()) >= 0.99
+    sd = torch.from_numpy(np.sqrt(model.true_var)).float().to(hopper)
+    assert _flip_share(got, want, agree, sd, "q") <= _FLIPS
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("n,chains,block,tuning,adapt_step_size", [
+    (100, 64, 8, False, False), (100, 40, 5, False, False), (100, 16, 1, False, False),
+    (256, 64, 8, False, False), (100, 64, 8, True, False), (256, 64, 8, True, False),
+], ids=["draw-100-8", "draw-100-5", "draw-100-1", "draw-256-8", "tune-100-8", "tune-256-8"])
+def test_fused_dense_block_kernel_to_depth_10_matches_plain(hopper, n, chains, block, tuning,
+                                                            adapt_step_size):
+    """The fused kernel's body-1 dense instance on the block transition, 3
+    draws at step 0.002 (held, so every draw reaches depth 10): a draw
+    chunk at n = 100 in blocks of 8, 5 and 1 chains and at n = 256 (P, COV
+    and L^-1 in global memory), and an ``adapt_dense`` tune chunk across
+    the window swap at draw 2; the checks of the smoke's phase 2c, but for
+    the proposals, energies and log densities that a flipped choice moves:
+    those on all but _FLIPS of the held chain-draws, the pooled Welford
+    state against a float64 replay of the kernel's own trace."""
+    model = tm.CorrelatedGaussian(n)
+    res, failures, got, want, _, _ = fused_check(
+        model, chains, 3, tuning, adapt_step_size, seed=15, words=(41, -43),
+        dense_log_step=float(np.log(0.002)), chain_block=block)
+    moved = ("q or energy differ", "stat model_logp", "stat energy_error")
+    assert not [f for f in failures if not f.startswith(moved)
+                and "against the plain version" not in f], res
+    assert int(want["depth"].max()) == 10 and res["mean_depth"] > 5
+    agree = torch.stack([got[k] == want[k] for k in FLAGS]).all(0)
+    held = _held(agree, block)
+    sd = torch.from_numpy(np.sqrt(model.true_var)).float().to(hopper)
+    assert _flip_share(got, want, held, sd, "trace") <= _FLIPS, res
+    if tuning:
+        assert float(got["window"]) == 202.0
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("block", [8, 5, 1])
+def test_fused_dense_block_kernel_tune_chunk_as_the_cell_runs_it(hopper, block):
+    """The tune chunk as ``adapt_full`` runs it, on the block transition in
+    blocks of 8, 5 and 1 chains: the step size adapting from about 0.5
+    (a quarter of the trees diverge, so divergent leaves, which are neither
+    merged nor stored, are among those held) and ``adapt_dense`` across the
+    window swap; the first draw tree for tree, the dual-averaging state
+    against its replay, the pooled Welford state against a float64 replay
+    of the kernel's trace (the checks of the smoke's phase 2c)."""
+    res, failures, got, _, _, _ = fused_check(tm.CorrelatedGaussian(100), 40 * block, 4,
+                                              True, True, seed=5, words=(47, 13),
+                                              chain_block=block)
+    assert not failures, res
+    assert res["step_size_adapting"] and "da_tol_share" in res
+    assert res["divergence_share"] > 0.05
+    assert float(got["window"]) == 202.0
+
+
 # Bodies 4 (the spiked Gaussian) and 5 (Neal's centred funnel) with the
 # diagonal metric in blocks of up to 8 chains run the block transition too,
 # each evaluated inside the leapfrog's two passes. At a step of 0.002 the

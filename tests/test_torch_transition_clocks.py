@@ -101,3 +101,23 @@ def test_ptxas_entries_group_each_kernels_lines():
         "0 bytes stack frame, 0 bytes spill stores, 0 bytes spill loads",
         "ptxas info    : Used 231 registers, 624 bytes cmem[0]"]
     assert "4 bytes spill stores" in out["_Z3fooILi4ELi0ELb0EEvv"][0]
+
+
+def test_side_rows_parts_of_a_fused_draw_and_products():
+    """The fused kernel's side rows: each part of a draw in cycles a
+    chain-draw and its share, the share outside the transition, and the
+    n x n products a chain-draw; a per-draw launch's rows hold products
+    only, one draw a chain."""
+    rows = np.zeros((2, tc.SIDE_SLOTS), dtype=np.int64)
+    rows[:, :5] = [[10, 20, 60, 5, 5], [30, 20, 100, 15, 5]]  # 270 cycles
+    rows[:, tc.SIDE.index("draws")] = [2, 2]
+    rows[:, tc.SIDE.index("products")] = [40, 52]
+    out = tc._side(rows, 250)
+    assert out["products_per_chain_draw"] == pytest.approx(92 / 4)
+    assert out["draw_cycles_momentum"] == pytest.approx(40 / 4)
+    assert out["draw_cycles_tree"] == pytest.approx(160 / 4)
+    assert sum(out[f"draw_share_{k}"] for k in tc.SIDE[:5]) == pytest.approx(1.0)
+    assert out["draw_share_outside_transition"] == pytest.approx(110 / 270)
+    per_draw = np.zeros((4, tc.SIDE_SLOTS), dtype=np.int64)
+    per_draw[:, tc.SIDE.index("products")] = [46, 46, 23, 23]
+    assert tc._side(per_draw, 1) == {"products_per_chain_draw": pytest.approx(34.5)}
