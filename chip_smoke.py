@@ -5,7 +5,10 @@ Run from the root of a checkout, on a machine with one NVIDIA Hopper card:
 
     python3 chip_smoke.py
 
-Phases, each printing its own lines:
+Phases, each printing its own lines (every NUTS check of phase 2 launches
+the kernel on all its chains and runs the plain version on a quarter of
+them, whole chain blocks, every fourth chain of the inputs as made:
+``PLAIN_SHARE``):
 
 1. the card (``nvidia-smi`` name and power limit), the CUDA version, and
    the build of every CUDA kernel from ``littlemcmc_torch/ops/csrc``;
@@ -143,7 +146,7 @@ Phases, each printing its own lines:
    the two paths' posterior means within 0.1 reference sd of each other;
    3n. T2: ``sample(CorrelatedGaussian(100, use_kernel=True).logp_grad,
    init="jitter+adapt_full", cross_chain_adapt=False, chains=256,
-   tune=250, draws=50)``: the tree with a per-chain dense metric
+   tune=250, draws=50, max_treedepth=7)``: the tree with a per-chain dense metric
    (``per_draw_dense``), the quadform kernel at every leaf, the main
    path's gates;
    3o-3r. the low-rank cells: ``sample(SpikedGaussian(100).logp_grad,
@@ -250,8 +253,10 @@ LG_TREE_TUNE, LG_TREE_DRAWS = 200, 150
 # the tree with a per-chain dense metric and the quadform kernel (T2),
 # cut to 250 + 50 for the script's time (500 + 250 took 190-300 s,
 # 300 + 150 96-198 s, 250 + 100 117-160 s); its gates hold no R-hat, and
-# 256 x 50 draws keep its bulk ESS far above 1000
-T2_CHAINS, T2_TUNE, T2_DRAWS = 256, 250, 50
+# 256 x 50 draws keep its bulk ESS far above 1000. Its trees to depth 7:
+# the tree runs a leaf for all 256 chains while any builds, 243 leaves a
+# draw at depth 10 (the deepest 9, the mean 5.8 in 164 s)
+T2_CHAINS, T2_TUNE, T2_DRAWS, T2_DEPTH = 256, 250, 50, 7
 # the logistic posterior's reference moments, from a long run of the JAX
 # package on a CPU (tests/test_torch_logistic.py writes them)
 REFERENCE = ROOT / "tests" / "logistic_reference_moments.json"
@@ -268,6 +273,13 @@ DEVICE = "cuda"  # where the checks' inputs are made: the card
 FLAGS = ("depth", "n_leaves", "diverging", "turning")
 HMC_FLAGS = ("n_steps", "accepted", "diverging")
 Q_TOL_SD, E_TOL = 1e-4, 1e-3  # kernel vs plain, on the chains that agree
+# The NUTS checks' plain versions run on the first 1 / PLAIN_SHARE of the
+# chains (whole chain blocks, _plain_chains): they step their blocks one
+# after another in Python, so their time grows with the blocks they run,
+# and at every chain took 347 s of the script's 1075 s on an H100 (700 W
+# power limit). The kernel's
+# launch still covers every chain at the path's shapes.
+PLAIN_SHARE = 4
 # what the fused ops' checks hold, by step method: the decisions that must
 # agree, the per-draw energies (within E_TOL), the accept statistic that
 # feeds dual averaging (within ACCEPT_REL * E_TOL relative: NUTS's averages
@@ -541,6 +553,85 @@ def _lowrank_inputs(model, C, eps, seed):
             torch.from_numpy(stds).to(dev)), _model_fac(model, dev)
 
 
+def _plain_chains(C: int, share: int, cb: int = CHAIN_BLOCK) -> int:
+    """The chains a check's plain version runs: the first ``C / share``,
+    whole chain blocks of ``cb`` (at least one). A chain block's counter
+    stream, trees and outputs depend on no other block (and a block's
+    pooled Welford seed on the count of blocks only through a power of two
+    here, :func:`_plain_inputs`), so the plain version's blocks are the
+    kernel launch's first blocks, bit for bit in their inputs."""
+    m = max(cb, C // share // cb * cb)
+    ratio = C // m
+    if C % m or ratio & (ratio - 1):
+        raise ValueError(f"{C} chains in blocks of {cb}: a plain version on {m} of them "
+                         "is not a power-of-two share of whole blocks")
+    return m
+
+
+def _spread(args, kw, C: int, share: int, shared=()):
+    """The op's inputs with the chains reordered so that the first ``C /
+    share`` of them, the plain version's, are every ``share``-th chain of
+    the given order: inputs that keep some kind of chain in a range of
+    rows (a quarter of the funnel's and of eight schools' chains in the
+    neck, the first quarter) keep its share among the chains the plain
+    version runs. Per-chain tensors and Welford rows move; those at the
+    positions ``shared`` stay."""
+    import torch
+
+    if share == 1:
+        return args, kw
+    perm = torch.arange(C).reshape(C // share, share).T.reshape(-1)
+    pick = lambda a: a[perm.to(a.device)]  # noqa: E731
+    args = tuple(pick(a) if (a is not None and i not in shared) else a
+                 for i, a in enumerate(args))
+    kw = dict(kw)
+    if kw.get("welford") is not None:
+        kw["welford"] = tuple(pick(w) for w in kw["welford"])
+    return args, kw
+
+
+def _plain_inputs(args, kw, m: int, C: int, shared=()):
+    """The op's arguments and keywords for its plain version on the first
+    ``m`` of ``C`` chains: every per-chain tensor's first ``m`` rows (those
+    at the positions ``shared``, the metric shared by every chain, whole),
+    the per-chain Welford state's too, and the pooled dense Welford state's
+    weights and raw scatters scaled by ``m / C``, so that each of the plain
+    version's ``m / cb`` blocks is seeded with what each of the kernel's
+    ``C / cb`` blocks is (1/B of the global state; a power-of-two scale,
+    exact in float32)."""
+    pargs = tuple(a[:m] if (a is not None and i not in shared) else a
+                  for i, a in enumerate(args))
+    pkw = dict(kw)
+    if kw.get("welford") is not None:
+        pkw["welford"] = tuple(w[:m] for w in kw["welford"])
+    if kw.get("dense_welford") is not None:
+        r = m / C
+        fgm, fgr, fgw, bgm, bgr, bgw, ns, pu, win = kw["dense_welford"]
+        pkw["dense_welford"] = (fgm, fgr * r, fgw * r, bgm, bgr * r, bgw * r, ns, pu, win)
+    return pargs, pkw
+
+
+def _first_chains(out, m: int, C: int, T: int, cb: int):
+    """The first ``m`` of ``C`` chains of a fused op's outputs: the trace's
+    and per-draw stats' ``(T, C)`` columns, per-chain rows, the first
+    ``m / cb`` blocks' pooled Welford states; shared counters whole."""
+    import torch
+
+    sub = {}
+    for k, v in out.items():
+        if not torch.is_tensor(v) or v.dim() == 0:
+            sub[k] = v
+        elif k.startswith("dense_"):
+            sub[k] = v[:m // cb]
+        elif v.dim() >= 2 and tuple(v.shape[:2]) == (T, C):
+            sub[k] = v[:, :m]
+        elif v.shape[0] == C:
+            sub[k] = v[:m]
+        else:
+            sub[k] = v
+    return sub
+
+
 def _held(agree, cb=CHAIN_BLOCK):
     """Per (draw, chain) of a ``(T, C)`` flag agreement: every chain of the
     chain's block agreed at this draw and all earlier ones. One chain's
@@ -553,22 +644,32 @@ def _held(agree, cb=CHAIN_BLOCK):
     return torch.cumprod(block.to(torch.int32), 0).bool().repeat_interleave(cb, 1)
 
 
-def _compare(name, model, args, seed, need, metric="diag", fac=None):
+def _compare(name, model, args, seed, need, metric="diag", fac=None, share=1):
     """One kernel launch against the plain version on the same inputs
     (the dense metric: numbers held on the chains whose block agreed), q
     in units of the model's posterior sd (:func:`_posterior_sd`); ``fac``
-    the low-rank metric's factor block."""
+    the low-rank metric's factor block; ``share``: the plain version runs
+    on the first 1 / ``share`` of the chains (:func:`_plain_chains`; the
+    inputs' chains reordered so that those are every ``share``-th,
+    :func:`_spread`), on which the kernel's launch over every chain is
+    held."""
     import numpy as np
     import torch
     from littlemcmc_torch.ops.nuts_trajectory import trajectory, trajectory_plain
 
     kw = dict(spec=model.trajectory_spec(), max_treedepth=DEPTH, Emax=1000.0,
               chain_block=CHAIN_BLOCK, metric=metric, fac=fac)
+    C = args[0].shape[0]
+    m = _plain_chains(C, share)
+    shared = (6,) if metric == "dense" else ()
+    args, _ = _spread(args, {}, C, share, shared)
     got = trajectory(*args, seed, **kw)
     torch.cuda.synchronize()
+    pargs, _ = _plain_inputs(args, {}, m, C, shared)
+    got = {k: v[:m] for k, v in got.items()}
     start, end = (torch.cuda.Event(enable_timing=True) for _ in range(2))
     start.record()
-    want = trajectory_plain(*args, seed, **kw)
+    want = trajectory_plain(*pargs, seed, **kw)
     end.record()
     end.synchronize()
     agree = torch.stack([got[k] == want[k] for k in FLAGS]).all(0)
@@ -591,7 +692,7 @@ def _compare(name, model, args, seed, need, metric="diag", fac=None):
     errs["energy_max_in_tol"] = float(((got["energy"] - want["energy"]).abs()
                                        / (E_TOL * e_size))[agree].max())
     print(json.dumps({"phase": "kernel_vs_plain", "model": name, "metric": metric,
-                      "chains": args[0].shape[0],
+                      "chains": C, "plain_chains": m,
                       "ndim": args[0].shape[1], "agree_share": share,
                       "mean_depth": float(want["depth"].float().mean()),
                       "mean_leaves": float(want["n_leaves"].float().mean()),
@@ -966,7 +1067,8 @@ def _diag_welford_errors(got, want_var, want, sd, chains=None):
 
 
 def fused_check(model, C, T, tuning, adapt_step_size, seed, words, step="nuts",
-                metric="dense", log_step=-1.2, dense_log_step=-0.7, chain_block=CHAIN_BLOCK):
+                metric="dense", log_step=-1.2, dense_log_step=-0.7, chain_block=CHAIN_BLOCK,
+                share=1):
     """One fused launch of ``T`` draws at ``C`` chains against the plain
     version on the same inputs (``step``: the fused NUTS op, or with
     ``"hmc"`` the fused HMC op; ``metric``: the dense branch, with the
@@ -981,8 +1083,13 @@ def fused_check(model, C, T, tuning, adapt_step_size, seed, words, step="nuts",
     to the sampler's depth of 10; ``log_step``: the diag and low-rank
     inputs' step sizes (:func:`_diag_fused_inputs`), ``dense_log_step``
     the dense ones' (:func:`_fused_inputs`); ``chain_block``: the chains a
-    thread block. Returns the result line, the list of failures and both
-    outputs."""
+    thread block; ``share``: the plain version runs on the first 1 /
+    ``share`` of the chains (:func:`_plain_chains`; the inputs' chains
+    reordered so that those are every ``share``-th, :func:`_spread`), and
+    the kernel's launch over every chain is held against it on those, its
+    Welford and dual-averaging states against their replays on every
+    chain. Returns the result line, the list of failures and both outputs
+    (the kernel's over every chain) and the inputs as launched."""
     import numpy as np
     import torch
     from littlemcmc_torch.base import HMCConfig, NUTSConfig
@@ -1008,12 +1115,19 @@ def fused_check(model, C, T, tuning, adapt_step_size, seed, words, step="nuts",
         kw["welford"] = welford
         if lowrank:
             kw["fac"] = _model_fac(model, args[0].device)
+    m = _plain_chains(C, share, chain_block)
+    shared = (9, 10) if metric == "dense" else (10,)
+    args, kw = _spread(args, kw, C, share, shared)
+    if metric != "dense":
+        welford = kw["welford"]
     launches = op.launches
-    got = op(*args, words, **kw)
+    full = op(*args, words, **kw)
     torch.cuda.synchronize()
+    pargs, pkw = _plain_inputs(args, kw, m, C, shared)
+    got = _first_chains(full, m, C, T, chain_block)
     start, end = (torch.cuda.Event(enable_timing=True) for _ in range(2))
     start.record()
-    want = plain(*args, words, **kw)
+    want = plain(*pargs, words, **pkw)
     end.record()
     end.synchronize()
 
@@ -1035,7 +1149,7 @@ def fused_check(model, C, T, tuning, adapt_step_size, seed, words, step="nuts",
     work = kind["work"]
     res = {"phase": f"fused_{step}_vs_plain", "metric": metric,
            "body": model.trajectory_spec().body, "chunk": "tune" if tuning else "draw",
-           "step_size_adapting": adapting, "chains": C,
+           "step_size_adapting": adapting, "chains": C, "plain_chains": m,
            "draws": T, "agree_share": float(checked.float().mean()),
            "agree_share_all_draws": float(agree.float().mean()),
            "held_share": float(held.float().mean()),
@@ -1044,7 +1158,7 @@ def fused_check(model, C, T, tuning, adapt_step_size, seed, words, step="nuts",
            "q_max_abs": float(dq.max()), "q_max_err_in_sd": float(
                ((got["trace"][:Th] - want["trace"][:Th]).abs() / sd)[held].max()),
            "energy_max_abs": float(de.max()),
-           "stat_tol_share": _held_stat_errors(got, want, held, args[7], config, adapting,
+           "stat_tol_share": _held_stat_errors(got, want, held, pargs[7], config, adapting,
                                                step, scaled),
            "plain_ms": start.elapsed_time(end)}
     if scaled:
@@ -1079,8 +1193,8 @@ def fused_check(model, C, T, tuning, adapt_step_size, seed, words, step="nuts",
     failures += [f"stat {k} at {v:.3g} of its limit"
                  for k, v in res["stat_tol_share"].items() if v > 1.0]
     if tuning and metric == "dense":
-        replay = _replay_welford(welford, got["trace"])
-        res["welford_vs_replay"] = _welford_errors(got, replay, welford[0])
+        replay = _replay_welford(welford, full["trace"])
+        res["welford_vs_replay"] = _welford_errors(full, replay, welford[0])
         failures += _welford_failures(res["welford_vs_replay"], "a float64 replay of its trace")
         if not adapting:
             plain_w = {side: combine_dense_welford(*(want[f"dense_{side}_{x}"]
@@ -1096,8 +1210,8 @@ def fused_check(model, C, T, tuning, adapt_step_size, seed, words, step="nuts",
         # float64 replay of the kernel's own trace (every chain), and of the
         # plain version on the chains held through the chunk; the weights
         # and counters equal
-        var64, state64 = _replay_diag_welford(welford, got["trace"])
-        res["welford_vs_replay"] = _diag_welford_errors(got, var64, state64, sd)
+        var64, state64 = _replay_diag_welford(welford, full["trace"])
+        res["welford_vs_replay"] = _diag_welford_errors(full, var64, state64, sd)
         checks = [("a float64 replay of its trace", res["welford_vs_replay"])]
         if not adapting:
             res["welford_vs_plain"] = _diag_welford_errors(got, want["var"], want, sd,
@@ -1110,15 +1224,15 @@ def fused_check(model, C, T, tuning, adapt_step_size, seed, words, step="nuts",
         s = dict(zip(("da_log_step", "da_log_bar", "da_hbar", "da_count", "da_mu"),
                      args[4:9]))
         for t in range(T):
-            _da_update(s, got[kind["accept"]][t], config)
+            _da_update(s, full[kind["accept"]][t], config)
         # within 1e-5 relative, 1e-6 absolute near 0 (hbar is a
         # running mean of target - accept, near 0 once adapted)
-        res["da_max_abs"] = max(float((got[k] - v).abs().max()) for k, v in s.items())
-        res["da_tol_share"] = max(float(((got[k] - v).abs() / (1e-6 + 1e-5 * v.abs())).max())
+        res["da_max_abs"] = max(float((full[k] - v).abs().max()) for k, v in s.items())
+        res["da_tol_share"] = max(float(((full[k] - v).abs() / (1e-6 + 1e-5 * v.abs())).max())
                                   for k, v in s.items())
         if res["da_tol_share"] > 1.0:
             failures.append("dual averaging differs from its replay")
-    return res, failures, got, want, args, kw
+    return res, failures, full, want, args, kw
 
 
 def _compare_fused(T, tuning, adapt_step_size, seed, words, step="nuts", model=None,
@@ -1137,7 +1251,8 @@ def _compare_fused(T, tuning, adapt_step_size, seed, words, step="nuts", model=N
     model = CorrelatedGaussian(N) if model is None else model
     res, failures, got, _, args, kw = fused_check(model, chains or CHAINS, T, tuning,
                                                   adapt_step_size, seed, words, step, metric,
-                                                  log_step)
+                                                  log_step,
+                                                  share=PLAIN_SHARE if step == "nuts" else 1)
     res["events_ms"] = _cuda_time_ms(lambda: op(*args, words, **kw), reps=5, warmup=1)
     res["kernel_ms"], res["ms_source"] = _device_ms(lambda: op(*args, words, **kw),
                                                     f"fused_{step}", 5, res["events_ms"])
@@ -1876,7 +1991,8 @@ def _tree_paths(smi, lg, reset_counts, counts, model_ops, t_start) -> dict:
     report_t = {}
     trace_t, stats_t = sample(cg_k.logp_grad, model_ndim=N, chains=T2_CHAINS, tune=T2_TUNE,
                               draws=T2_DRAWS, random_seed=42, init="jitter+adapt_full",
-                              cross_chain_adapt=False, perf_report=report_t, progressbar=False,
+                              cross_chain_adapt=False, max_treedepth=T2_DEPTH,
+                              perf_report=report_t, progressbar=False,
                               compute_convergence_checks=False)
     t2_launches = quadform_logp_grad.launches
     if (report_t["engine"] != "per_draw_dense" or report_t["trajectory"] != "tensor"
@@ -2141,7 +2257,8 @@ def _funnel_auto_checks(f, hr, t_start) -> dict:
     # 2o. the per-draw kernels with body 5 (a quarter of the chains in the
     # neck; energies of divergent and far-off trajectories held scaled)
     out["f_args"] = _posterior_inputs(f, CHAINS, 0.2, seed=33)
-    out["f_traj"] = _compare("funnel", f, out["f_args"], (197, -5), need=0.99)
+    out["f_traj"] = _compare("funnel", f, out["f_args"], (197, -5), need=0.99,
+                             share=PLAIN_SHARE)
     out["f_hargs"] = _hmc_inputs(f, None, CHAINS, 0.15, 34)
     out["f_hmc"] = _compare_hmc(f, out["f_hargs"], (199, 3), need=0.99, scaled=True)
     # 2p. the fused kernels' kDiag instance with body 5: a 2-draw draw chunk
@@ -2169,7 +2286,8 @@ def _funnel_auto_checks(f, hr, t_start) -> dict:
     # 2r. the generated body in the per-draw NUTS kernel, 1024 chains near
     # the reference posterior
     out["h_args"] = _posterior_inputs(hr, CHAINS, 0.3, seed=37)
-    out["h_traj"] = _compare("hierarchical", hr, out["h_args"], (227, -13), need=0.99)
+    out["h_traj"] = _compare("hierarchical", hr, out["h_args"], (227, -13), need=0.99,
+                             share=PLAIN_SHARE)
     _line(phase="autospec_checks", elapsed_s=f"{time.perf_counter() - t_start:.1f}")
     return out
 
@@ -2597,14 +2715,15 @@ def main() -> int:
     # --- 2. the kernel against its plain version -------------------------------
     cg = CorrelatedGaussian(N)
     args = _stationary_inputs(cg, np.linalg.cholesky(cg.cov), CHAINS, 0.2, seed=0)
-    max_abs_err, plain_ms = _compare("correlated_gaussian", cg, args, (17, 29), need=0.99)
+    max_abs_err, plain_ms = _compare("correlated_gaussian", cg, args, (17, 29), need=0.99,
+                                     share=PLAIN_SHARE)
     sn = StandardNormal(4)
     _compare("standard_normal", sn, _stationary_inputs(sn, np.eye(4), CHAINS, 0.5, seed=1),
-             (5, 6), need=1.0)
+             (5, 6), need=1.0, share=PLAIN_SHARE)
     # 2b. the dense branch, the true covariance as the shared metric
     dense_err, _ = _compare("correlated_gaussian", cg,
                          _dense_stationary_inputs(cg, CHAINS, 0.5, seed=2), (23, 31),
-                         need=0.99, metric="dense")
+                         need=0.99, metric="dense", share=PLAIN_SHARE)
     # 2c. the fused kernel: a draw chunk, a tune chunk with the step size
     # held, and a tune chunk as the main path runs it
     fused_cmp = _compare_fused(4, False, True, seed=3, words=(41, -7))
@@ -2629,7 +2748,8 @@ def main() -> int:
     es = EightSchools()
     es_exact = es.exact_moments()
     es_args = _posterior_inputs(es, CHAINS, 0.3, seed=11)
-    es_traj_err, es_plain_ms = _compare("eight_schools", es, es_args, (83, -89), need=0.99)
+    es_traj_err, es_plain_ms = _compare("eight_schools", es, es_args, (83, -89), need=0.99,
+                                        share=PLAIN_SHARE)
     es_hargs = _hmc_inputs(es, None, CHAINS, 0.25, 12)
     es_hmc_err, es_hmc_plain_ms = _compare_hmc(es, es_hargs, (97, 101), need=0.99, scaled=True)
     # 2h-2i. the fused kernels' diag branch, bodies 1 and 2, 1024 chains: a
@@ -2650,7 +2770,8 @@ def main() -> int:
     # 2k. the per-draw NUTS kernel with the logistic body, 1024 chains
     lg = LogisticRegression()
     lg_args = _posterior_inputs(lg, CHAINS, 0.25, 17)
-    lg_traj_err, lg_plain_ms = _compare("logistic", lg, lg_args, (109, -113), need=0.99)
+    lg_traj_err, lg_plain_ms = _compare("logistic", lg, lg_args, (109, -113), need=0.99,
+                                        share=PLAIN_SHARE)
     # 2l. the logistic body in the fused NUTS, the HMC and the fused HMC
     # kernels (on no path of this script), 256 chains, a 2-draw draw chunk
     lg_fused = {step: _compare_fused(2, False, True, 18, (113, 7), step, lg, "diag", chains=256)
@@ -2664,12 +2785,13 @@ def main() -> int:
     sg = SpikedGaussian(N)
     lr_args = _lowrank_inputs(sg, CHAINS, 0.5, seed=23)
     lr_err, lr_plain_ms = _compare("spiked_gaussian", sg, lr_args[0], (139, -149), need=0.99,
-                                   metric="lowrank", fac=lr_args[1])
+                                   metric="lowrank", fac=lr_args[1], share=PLAIN_SHARE)
     cg_args, cg_fac = _lowrank_inputs(cg, 64, 0.5, seed=24)
     _compare("correlated_gaussian", cg, cg_args, (151, 157), need=0.99, metric="lowrank",
-             fac=cg_fac)
+             fac=cg_fac, share=PLAIN_SHARE)
     sg_args = _posterior_inputs(sg, 256, 0.1, seed=25)
-    sg_err, sg_plain_ms = _compare("spiked_gaussian", sg, sg_args, (163, 167), need=0.99)
+    sg_err, sg_plain_ms = _compare("spiked_gaussian", sg, sg_args, (163, 167), need=0.99,
+                                   share=PLAIN_SHARE)
     sg_hargs = _hmc_inputs(sg, None, 256, 0.1, 26)
     sg_hmc_err, sg_hmc_plain_ms = _compare_hmc(sg, sg_hargs, (173, 179), need=0.99)
     # 2n. the fused kernels' low-rank branch with body 4, 256 chains: a
@@ -2936,11 +3058,14 @@ def main() -> int:
     d_events_ms = _cuda_time_ms(lambda: trajectory(*dargs, (3, 8), **dkw), reps=20, warmup=3)
     d_ms, d_src = _device_ms(lambda: trajectory(*dargs, (3, 8), **dkw), "nuts_trajectory", 20,
                              d_events_ms)
-    d_plain_ms = _cuda_time_ms(lambda: trajectory_plain(*dargs, (3, 8), **dkw), reps=1,
+    d_pargs, _ = _plain_inputs(dargs, {}, _plain_chains(CHAINS, PLAIN_SHARE), CHAINS,
+                               shared=(6,))
+    d_plain_ms = _cuda_time_ms(lambda: trajectory_plain(*d_pargs, (3, 8), **dkw), reps=1,
                                warmup=0)
     d_bound_ms, d_bound_by = _bound_ms(d_leaves, CHAINS, N, "dense")
     _line(phase="dense_timing", kernel_ms=f"{d_ms:.4f}", ms_source=d_src,
           events_ms=f"{d_events_ms:.4f}", plain_ms=f"{d_plain_ms:.1f}",
+          plain_chains=_plain_chains(CHAINS, PLAIN_SHARE),
           bound_ms=f"{d_bound_ms:.4f}", bound_by=d_bound_by,
           mean_leaves=f"{d_leaves / CHAINS:.2f}", elapsed_s=f"{time.perf_counter() - t_start:.1f}")
 
@@ -3156,15 +3281,17 @@ def main() -> int:
     ]
     # the ptxas lines of the instances the block transition took over in
     # the last slices (bodies 4 and 5 with the diagonal metric, body 1 with
-    # the dense metric), beside their warp-transition instances (blocks of
-    # more than 8 chains)
+    # the dense metric, body 4 with the low-rank metric, which has no warp
+    # instance), beside their warp-transition instances (blocks of more
+    # than 8 chains)
     for name in ("nuts_trajectory", "fused_nuts"):
         moved = {}
         for entry, lines in _ptxas_entries(logs[name].read_text()).items():
             # <body, metric, block>, or the fused kernel's own block kernels
             for b, m, own in ((4, 0, "fused_nuts_block_kernel"),
                               (5, 0, "fused_nuts_block_kernel"),
-                              (1, 1, f"{name}_dense_block_kernel")):
+                              (1, 1, f"{name}_dense_block_kernel"),
+                              (4, 2, f"{name}_lowrank_block_kernel")):
                 if f"ILi{b}ELi{m}ELb1E" in entry or f"{own}ILi{b}E" in entry:
                     moved[f"<{b},{m},block>"] = lines
                 elif f"ILi{b}ELi{m}ELb0E" in entry:
@@ -3225,6 +3352,9 @@ def main() -> int:
             block = runs_block_transition(row.get("body", "correlated_gaussian"),
                                           row["metric"], CHAIN_BLOCK)
             row["transition"] = "block" if block else "warp"
+            # plain_ms: the plain version on the first of the row's chains
+            # (PLAIN_SHARE)
+            row["plain_chains"] = _plain_chains(row.get("chains", CHAINS), PLAIN_SHARE)
     print(json.dumps({"kernels": rows}), flush=True)
     _line(phase="done", elapsed_s=f"{time.perf_counter() - t_start:.1f}")
     print(smi, flush=True)

@@ -1,5 +1,6 @@
 // Device helpers the fused multi-draw kernels share (fused_nuts.cu and
-// fused_hmc.cu): the dense, diag and low-rank momenta, dual averaging, the
+// fused_hmc.cu): the dense, diag and low-rank momenta (the low-rank one
+// also in the block transition's passes), dual averaging, the
 // block-local pooled dense Welford state and the per-chain diag Welford
 // state.
 //
@@ -69,6 +70,95 @@ __device__ __forceinline__ void lowrank_momentum(uint32_t mbase, uint32_t s1u, i
         for (int j = 0; j < kMaxRank; ++j) acc = acc + fac[(size_t)j * n + i] * c[j];
         p[i] = (ah * z[i] + acc) / s[i];
     }
+}
+
+// lowrank_momentum and the momentum's velocity (lowrank_velocity) for the
+// block transition's fused instance, to the bit, in three passes over
+// shared memory by 32-bit offsets, K trips at a time (lane_trips): the
+// factor block at fac_o, the chain's variances at vrow_o; its scales S =
+// sqrt(V) into s_o, the normals into z_o, the momentum into p_o and its
+// velocity into v_o. The scales, the normals and the dots V^T z in one
+// pass; the momentum and the dots V^T (S p) in the second; the velocity
+// and p.velocity in the third. Returns the lane's part of p.velocity (the
+// caller adds it across the warp).
+template <int K>
+__device__ __forceinline__ float lowrank_momentum_block(uint32_t mbase, uint32_t s1u, int w,
+                                                        int Npad, int fac_o, int vrow_o, int s_o,
+                                                        int z_o, int p_o, int v_o, int n,
+                                                        int lane) {
+    float* sm = dyn_smem();
+    const int cvel_o = fac_o + kMaxRank * n, cmom_o = cvel_o + kMaxRank;
+    const float alpha = sm[fac_o + kMaxRank * (n + 2)], ah = sm[fac_o + kMaxRank * (n + 2) + 1];
+    float c[kMaxRank];  // V^T z, then times lam^-1/2 - alpha^-1/2
+#pragma unroll
+    for (int j = 0; j < kMaxRank; ++j) c[j] = 0.f;
+    {
+        float vr[K], vt[K][kMaxRank];
+        lane_trips<K>(
+            n, lane,
+            [&](int k, int i) {
+                vr[k] = sm[vrow_o + i];
+#pragma unroll
+                for (int j = 0; j < kMaxRank; ++j) vt[k][j] = sm[fac_o + j * n + i];
+            },
+            [&](int k, int i) {
+                sm[s_o + i] = sqrtf(vr[k]);
+                const float z = boxmuller_normal(mbase, s1u, w, Npad, i);
+                sm[z_o + i] = z;
+#pragma unroll
+                for (int j = 0; j < kMaxRank; ++j) c[j] = c[j] + z * vt[k][j];  // thin_dots<false>
+            });
+    }
+    warp_sums(c);
+#pragma unroll
+    for (int j = 0; j < kMaxRank; ++j) c[j] = c[j] * sm[cmom_o + j];
+    float d[kMaxRank];  // V^T (S p), then times lam - alpha
+#pragma unroll
+    for (int j = 0; j < kMaxRank; ++j) d[j] = 0.f;
+    {
+        float z[K], sc[K], vt[K][kMaxRank];
+        lane_trips<K>(
+            n, lane,
+            [&](int k, int i) {
+                z[k] = sm[z_o + i]; sc[k] = sm[s_o + i];
+#pragma unroll
+                for (int j = 0; j < kMaxRank; ++j) vt[k][j] = sm[fac_o + j * n + i];
+            },
+            [&](int k, int i) {
+                float acc = 0.f;
+#pragma unroll
+                for (int j = 0; j < kMaxRank; ++j) acc = acc + vt[k][j] * c[j];
+                const float p = (ah * z[k] + acc) / sc[k];
+                sm[p_o + i] = p;
+                const float x = p * sc[k];  // thin_dots<true>
+#pragma unroll
+                for (int j = 0; j < kMaxRank; ++j) d[j] = d[j] + x * vt[k][j];
+            });
+    }
+    warp_sums(d);
+#pragma unroll
+    for (int j = 0; j < kMaxRank; ++j) d[j] = d[j] * sm[cvel_o + j];
+    float part = 0.f;
+    {
+        float p[K], sc[K], vt[K][kMaxRank];
+        lane_trips<K>(
+            n, lane,
+            [&](int k, int i) {
+                p[k] = sm[p_o + i]; sc[k] = sm[s_o + i];
+#pragma unroll
+                for (int j = 0; j < kMaxRank; ++j) vt[k][j] = sm[fac_o + j * n + i];
+            },
+            [&](int k, int i) {
+                const float x = sc[k] * p[k];
+                float acc = 0.f;
+#pragma unroll
+                for (int j = 0; j < kMaxRank; ++j) acc = acc + vt[k][j] * d[j];
+                const float v = sc[k] * (alpha * x + acc);
+                sm[v_o + i] = v;
+                part += p[k] * v;
+            });
+    }
+    return part;
 }
 
 // One chain's dual-averaging state (reference step_sizes.py:85-92), the

@@ -14,9 +14,11 @@
 //
 // Mapping. One thread block is one chain block of CB chains, one warp per
 // chain, as in the per-draw kernel (bodies 0, 1, 4 and 5 with the diagonal
-// metric and body 1 with the dense metric in blocks of up to 8 chains on
-// the block transition, in instances compiled for 8 warps; the dense one
-// draws its momenta z L^-1 and start velocities as block products too);
+// metric, body 1 with the dense metric and body 4 with the low-rank metric
+// in blocks of up to 8 chains on the block transition, in instances
+// compiled for 8 warps; the dense one draws its momenta z L^-1 and start
+// velocities as block products too, the low-rank one its momenta and
+// start velocities in three passes of each chain's warp);
 // the block loops t = 0..T-1 inside the
 // launch, where the TPU kernel's grid walks its sequential draw axis. The
 // chain state (q, grad in shared memory; logp, the iteration counter, the
@@ -294,12 +296,25 @@ __device__ __forceinline__ void fused_draws(Args A) {
             matvec(p0, T.cov, V.vc, n, lane);
             LMC_DCLK_PRODUCT();
             for (int i = lane; i < n; i += 32) part += p0[i] * V.vc[i];
+        } else if constexpr (METRIC == kLowRank && BLOCK) {
+            // the scales, the momentum and (3.) its velocity into V.vc
+            // (where the block transition takes it) in three passes, the
+            // factor block staged in shared memory
+            part = lowrank_momentum_block<kLowRankTrips>(
+                seed0 + 1013904223u, s1u, w, A.Npad, smem_offset(T.cov), smem_offset(vrow),
+                smem_offset(V.vv), smem_offset(V.va), smem_offset(p0), smem_offset(V.vc), n,
+                lane);
+            LMC_DCLK_PRODUCT();
+            LMC_DCLK_PRODUCT();
+            LMC_DCLK(kSideMomentum);
         } else if constexpr (METRIC == kLowRank) {
             for (int i = lane; i < n; i += 32) V.vv[i] = sqrtf(vrow[i]);
             lowrank_momentum(seed0 + 1013904223u, s1u, w, A.Npad, V.vv, T.cov, V.va, p0, n,
                              lane);
+            LMC_DCLK_PRODUCT();
             LMC_DCLK(kSideMomentum);
             velocity<kLowRank>(T.cov, V.vv, p0, V.vc, n, lane);
+            LMC_DCLK_PRODUCT();
             for (int i = lane; i < n; i += 32) part += p0[i] * V.vc[i];
         } else {
             diag_momentum(seed0 + 1013904223u, s1u, w, A.Npad, V.vv, p0, n, lane);
@@ -423,9 +438,16 @@ __global__ void __launch_bounds__(32 * kBlockChains, 1) fused_nuts_dense_block_k
     fused_draws<BODY, kDense, true>(A);
 }
 
+// Body 4 with the low-rank metric on the block transition, one block an SM
+template <int BODY>
+__global__ void __launch_bounds__(32 * kBlockChains, 1) fused_nuts_lowrank_block_kernel(Args A) {
+    fused_draws<BODY, kLowRank, true>(A);
+}
+
 template <int BODY, int METRIC, bool BLOCK>
 constexpr auto kernel_of() {
-    if constexpr (BLOCK && (BODY == 4 || BODY == 5)) return fused_nuts_block_kernel<BODY>;
+    if constexpr (BLOCK && METRIC == kLowRank) return fused_nuts_lowrank_block_kernel<BODY>;
+    else if constexpr (BLOCK && (BODY == 4 || BODY == 5)) return fused_nuts_block_kernel<BODY>;
     else if constexpr (BLOCK && METRIC == kDense) return fused_nuts_dense_block_kernel<BODY>;
     else return fused_nuts_kernel<BODY, METRIC, BLOCK>;
 }
@@ -446,9 +468,13 @@ cudaError_t launch_instance(const Args& A0, cudaStream_t stream) {
     A.lam_in_smem = (body_bytes > 0 && bytes + body_bytes <= kSmemLimit) ? 1 : 0;
     if (A.lam_in_smem) bytes += body_bytes;
     // the block transition reads body 4's constants as shared memory: where
-    // they do not fit there, the warp transition runs
-    if constexpr (BLOCK && BODY == 4)
+    // they do not fit there, the warp transition runs (with the low-rank
+    // metric, which has no warp instance of body 4, the launch is refused)
+    if constexpr (BLOCK && BODY == 4 && METRIC == kLowRank) {
+        if (!A.lam_in_smem) return cudaErrorInvalidConfiguration;
+    } else if constexpr (BLOCK && BODY == 4) {
         if (!A.lam_in_smem) return launch_instance<BODY, METRIC, false>(A0, stream);
+    }
     A.cov_in_smem = (METRIC == kDense && bytes + sq_bytes <= kSmemLimit) ? 1 : 0;
     if (A.cov_in_smem) bytes += sq_bytes;
     A.scratch_in_smem = scratch_fits<BODY>(bytes, A.cb, kSmemLimit) ? 1 : 0;
@@ -468,11 +494,18 @@ cudaError_t launch_instance(const Args& A0, cudaStream_t stream) {
     return cudaGetLastError();
 }
 
+// An instance on the block transition whose blocks never take more than
+// kBlockChains chains (body 4 with kLowRank) has no warp instance.
 template <int BODY, int METRIC>
 cudaError_t launch(const Args& A, cudaStream_t stream) {
-    if constexpr (block_body<BODY, METRIC>())
-        if (A.cb <= kBlockChains) return launch_instance<BODY, METRIC, true>(A, stream);
-    return launch_instance<BODY, METRIC, false>(A, stream);
+    if constexpr (block_body<BODY, METRIC>() && max_chain_block<METRIC>() <= kBlockChains) {
+        if (A.cb > kBlockChains) return cudaErrorInvalidConfiguration;
+        return launch_instance<BODY, METRIC, true>(A, stream);
+    } else {
+        if constexpr (block_body<BODY, METRIC>())
+            if (A.cb <= kBlockChains) return launch_instance<BODY, METRIC, true>(A, stream);
+        return launch_instance<BODY, METRIC, false>(A, stream);
+    }
 }
 
 template <int BODY>

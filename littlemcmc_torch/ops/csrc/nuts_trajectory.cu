@@ -10,10 +10,11 @@
 //
 // Mapping. One thread block is one chain block of CB chains, one warp per
 // chain, run in lockstep (see nuts_transition.cuh). Bodies 0, 1, 4 and 5
-// with the diagonal metric and body 1 with the dense metric in blocks of
-// up to 8 chains (the main path's, the `adapt_full` twin's, F1's and L0's)
-// run the block transition (nuts_transition.cuh, block_transition) in
-// instances compiled for 8 warps; everything else runs `transition`.
+// with the diagonal metric, body 1 with the dense metric and body 4 with
+// the low-rank metric in blocks of up to 8 chains (the main path's, the
+// `adapt_full` twin's, F1's, L0's and L2's) run the block transition
+// (nuts_transition.cuh, block_transition) in instances compiled for 8
+// warps; everything else runs `transition`.
 // Randomness: the JAX
 // kernel's counter stream with block_id = blockIdx.x and the chain's row
 // within its block, so this kernel, the plain version and the JAX kernel
@@ -71,7 +72,11 @@
 // at n = 100) in shared memory once a launch, beside the merge stack's
 // scalars; each velocity is two thin matvecs from it (4 n k + 5 n
 // operations, k = 8), nuts_transition.cuh::lowrank_velocity. The spiked
-// Gaussian body (4) reads its V the same way.
+// Gaussian body (4) reads its V the same way. With the low-rank metric
+// body 4 runs the block transition: the velocities' thin dots ride in the
+// leapfrog's passes beside the body's, and each leaf's velocity is cached
+// in the stack as the dense metric's is (2 velocities a leaf, none in the
+// merges and U-turn checks, where the warp transition recomputes them).
 //
 // Build: nvcc -gencode arch=compute_90a,code=sm_90a -std=c++17 -O3
 // -fmad=false (no contraction of a*b+c, so elementwise rounding matches
@@ -96,7 +101,8 @@ struct Params {
     const int* mdc;
     const float* consts;  // the body's packed constants (body_floats, nuts_transition.cuh)
     float* stack;         // [4][D][C][n]: left p, right p, p sum, proposal q; the
-                          // dense block transition's [6][D][C][n] adds their velocities
+                          // dense and low-rank block transitions' [6][D][C][n] add
+                          // their velocities
     float* q_out;
     float* g_out;
     float* energy;
@@ -181,8 +187,10 @@ __device__ __forceinline__ void run_block(const Params& P) {
         __syncthreads();  // every velocity is written
         for (int i = lane; i < n; i += 32) part += pin[i] * V.vc[i];
     } else if (METRIC != kDiag) {
-        velocity<METRIC>(T.cov, V.vv, pin, V.va, n, lane);
-        for (int i = lane; i < n; i += 32) part += pin[i] * V.va[i];
+        // the block transition takes the start velocity in V.vc
+        float* v0 = BLOCK ? V.vc : V.va;
+        velocity<METRIC>(T.cov, V.vv, pin, v0, n, lane);
+        for (int i = lane; i < n; i += 32) part += pin[i] * v0[i];
     } else {
         for (int i = lane; i < n; i += 32) {
             const float p = pin[i];
@@ -228,11 +236,19 @@ __global__ void __launch_bounds__(32 * (BLOCK ? kBlockChains : kMaxChainBlock))
 }
 
 // kLowRank: 8 warps a block, one block an SM, so ptxas may give each
-// thread up to 255 registers (max_chain_block, nuts_transition.cuh)
+// thread up to 255 registers (max_chain_block, nuts_transition.cuh); body
+// 4's instance runs the block transition (nuts_trajectory_lowrank_block_kernel)
 template <int BODY>
 __global__ void __launch_bounds__(32 * kMaxLowRankChainBlock, 1)
     nuts_trajectory_lowrank_kernel(Params P) {
     run_block<BODY, kLowRank, false>(P);
+}
+
+// Body 4 with the low-rank metric on the block transition, one block an SM
+template <int BODY>
+__global__ void __launch_bounds__(32 * kBlockChains, 1)
+    nuts_trajectory_lowrank_block_kernel(Params P) {
+    run_block<BODY, kLowRank, true>(P);
 }
 
 // Body 1 with the dense metric on the block transition, one block an SM
@@ -246,7 +262,8 @@ __global__ void __launch_bounds__(32 * kBlockChains, 1)
 
 template <int BODY, int METRIC, bool BLOCK>
 constexpr auto kernel_of() {
-    if constexpr (METRIC == kLowRank) return nuts_trajectory_lowrank_kernel<BODY>;
+    if constexpr (BLOCK && METRIC == kLowRank) return nuts_trajectory_lowrank_block_kernel<BODY>;
+    else if constexpr (METRIC == kLowRank) return nuts_trajectory_lowrank_kernel<BODY>;
     else if constexpr (BLOCK && METRIC == kDense) return nuts_trajectory_dense_block_kernel<BODY>;
     else return nuts_trajectory_kernel<BODY, METRIC, BLOCK>;
 }
@@ -267,9 +284,13 @@ cudaError_t launch_instance(const Params& P, cudaStream_t stream) {
     Q.lam_in_smem = (body_bytes > 0 && bytes + body_bytes <= kSmemLimit) ? 1 : 0;
     if (Q.lam_in_smem) bytes += body_bytes;
     // the block transition reads body 4's constants as shared memory: where
-    // they do not fit there, the warp transition runs
-    if constexpr (BLOCK && BODY == 4)
+    // they do not fit there, the warp transition runs (with the low-rank
+    // metric, which has no warp instance of body 4, the launch is refused)
+    if constexpr (BLOCK && BODY == 4 && METRIC == kLowRank) {
+        if (!Q.lam_in_smem) return cudaErrorInvalidConfiguration;
+    } else if constexpr (BLOCK && BODY == 4) {
         if (!Q.lam_in_smem) return launch_instance<BODY, METRIC, false>(P, stream);
+    }
     Q.cov_in_smem = (METRIC == kDense && bytes + sq_bytes <= kSmemLimit) ? 1 : 0;
     if (Q.cov_in_smem) bytes += sq_bytes;
     Q.scratch_in_smem = scratch_fits<BODY>(bytes, P.cb, kSmemLimit) ? 1 : 0;
@@ -289,11 +310,18 @@ cudaError_t launch_instance(const Params& P, cudaStream_t stream) {
     return cudaGetLastError();
 }
 
+// An instance on the block transition whose blocks never take more than
+// kBlockChains chains (body 4 with kLowRank) has no warp instance.
 template <int BODY, int METRIC>
 cudaError_t launch(const Params& P, cudaStream_t stream) {
-    if constexpr (block_body<BODY, METRIC>())
-        if (P.cb <= kBlockChains) return launch_instance<BODY, METRIC, true>(P, stream);
-    return launch_instance<BODY, METRIC, false>(P, stream);
+    if constexpr (block_body<BODY, METRIC>() && max_chain_block<METRIC>() <= kBlockChains) {
+        if (P.cb > kBlockChains) return cudaErrorInvalidConfiguration;
+        return launch_instance<BODY, METRIC, true>(P, stream);
+    } else {
+        if constexpr (block_body<BODY, METRIC>())
+            if (P.cb <= kBlockChains) return launch_instance<BODY, METRIC, true>(P, stream);
+        return launch_instance<BODY, METRIC, false>(P, stream);
+    }
 }
 
 template <int BODY>

@@ -25,6 +25,9 @@
 //   one xor butterfly for all of them, then each lane's columns from the
 //   shared V), 4 n k + 5 n operations against kDense's 2 n^2, into the
 //   scratch vectors va, vb, vc, vd and ve where kDense writes its own.
+//   Body 4 with this metric runs block_transition below, which computes
+//   the same velocities inside its per-element passes and caches each
+//   leaf's, as it does kDense's.
 //
 // Control flow runs in lockstep per thread block: the depth, leaf and merge
 // loops continue while ANY chain of the block needs them (__syncthreads_or),
@@ -114,7 +117,8 @@ constexpr int kClkSlots = 10;       // the sections, then leaf steps and leaves 
 // the transition, the work after it up to the pooled Welford adds, those
 // adds and the window swap), its draws, and the n x n products (a warp's
 // matvec, or a block-wide product counted once for each chain of the
-// block) that the transition and the fused kernel's draw run.
+// block) that the transition and the fused kernel's draw run, for
+// kLowRank its velocities (and the fused momentum's thin matvecs).
 constexpr int kSideMomentum = 0;
 constexpr int kSideStart = 1;
 constexpr int kSideTree = 2;
@@ -764,12 +768,15 @@ __host__ __device__ constexpr int n_warp_vecs() {
 
 // ---------------------------------------------------------------------------
 // The block transition (block_transition below): bodies 0, 1, 4 and 5 with
-// the diagonal metric, and body 1 with the dense metric, in chain blocks
-// of up to kBlockChains chains: the instances of the 100-d main path (body
-// 1, per-draw and fused), of `adapt_full` (body 1 dense, fused and its
-// per-draw twin), of F1 (the centred funnel, body 5, fused) and of L0 (the
-// spiked Gaussian, body 4, per-draw). Every other instance, and these in
-// blocks of more chains, runs `transition`. Against `transition` it
+// the diagonal metric, body 1 with the dense metric and body 4 with the
+// low-rank metric, in chain blocks of up to kBlockChains chains: the
+// instances of the 100-d main path (body 1, per-draw and fused), of
+// `adapt_full` (body 1 dense, fused and its per-draw twin), of F1 (the
+// centred funnel, body 5, fused), of L0 (the spiked Gaussian, body 4,
+// per-draw) and of L1 and L2 (body 4 with the pooled low-rank metric,
+// fused and per-draw; kLowRank instances take at most kBlockChains chains,
+// so body 4's never runs `transition`). Every other instance, and these
+// in blocks of more chains, runs `transition`. Against `transition` it
 // - evaluates body 1 for every chain of the block in one product a leaf
 //   (block_matmul): a thread takes kBodyChains chains at two columns of
 //   P, so each column is read once a chain group and leaf (not once a
@@ -786,6 +793,15 @@ __host__ __device__ constexpr int n_warp_vecs() {
 //   stack (slot_vecs: 6 vectors a slot) and the tree's edges, so that the
 //   merges and the U-turn checks do no product (transition: 2 a pair
 //   merge, 4 a deeper one, 5 a depth);
+// - with the low-rank metric, computes the drift's and the kinetic
+//   energy's velocities S(alpha x + V((lam - alpha).(V^T x))) inside its
+//   passes: the dots V^T x of a momentum as lane partials in the pass that
+//   writes it (the first stage's kick, or the previous stage's), added
+//   across the warp in one butterfly with whatever else is due there, the
+//   velocity in the pass that reads them (the drift's, or the energy's
+//   own); the factor block in shared memory, read by 32-bit offsets; and
+//   caches each leaf's energy velocity as kDense does (transition: 2
+//   velocities a leaf, 2 a pair merge, 4 a deeper one, 5 a depth);
 // - keeps the merge stack's lower slots in shared memory (smem_stack_slots:
 //   as many as fit beside everything else), the rest in the global stack;
 // - runs every per-element pass kTrips trips at a time, the loads of all
@@ -812,19 +828,23 @@ constexpr int kProductDepth = 4;
 // beside the fused kernel's draw state spilled; 1 was the fastest of 1, 2
 // and 4 on the card, PERF.md)
 constexpr int kDenseTrips = 1;
+// body 4 with kLowRank: its passes' trips at a time (at 2 and 4 the
+// metric's and the body's columns of V beside the fused kernel's draw
+// state spilled; 1 was the fastest of 1, 2 and 4 on the card, PERF.md)
+constexpr int kLowRankTrips = 1;
 
 template <int BODY, int METRIC>
 __host__ __device__ constexpr bool block_body() {
     return ((BODY == 0 || BODY == 1 || BODY == 4 || BODY == 5) && METRIC == kDiag)
-           || (BODY == 1 && METRIC == kDense);
+           || (BODY == 1 && METRIC == kDense) || (BODY == 4 && METRIC == kLowRank);
 }
 
 // Vectors of n floats a slot of the block transition's merge stack holds:
-// left p, right p, p sum and proposal q, and for kDense the velocities of
-// the left and right p.
+// left p, right p, p sum and proposal q, and for kDense and kLowRank the
+// velocities of the left and right p.
 template <int METRIC>
 __host__ __device__ constexpr int slot_vecs() {
-    return METRIC == kDense ? 6 : 4;
+    return METRIC == kDiag ? 4 : 6;
 }
 
 __host__ __device__ constexpr int staged_stride(int cb) {
@@ -1106,7 +1126,7 @@ __device__ TreeResult transition(const TreeConsts& T, const WarpVecs& V, float* 
                     const float drift = T.a[s] * epss;
                     if (METRIC != kDiag) {
                         velocity<METRIC>(cov, vv, cp, vs, n, lane);
-                        if (METRIC == kDense) LMC_CLK_PRODUCT();
+                        LMC_CLK_PRODUCT();
                         for (int i = lane; i < n; i += 32) cq[i] = cq[i] + drift * vs[i];
                     } else {
                         for (int i = lane; i < n; i += 32) cq[i] = cq[i] + drift * (vv[i] * cp[i]);
@@ -1122,7 +1142,7 @@ __device__ TreeResult transition(const TreeConsts& T, const WarpVecs& V, float* 
                 part = 0.f;
                 if (METRIC != kDiag) {
                     velocity<METRIC>(cov, vv, cp, vs, n, lane);
-                    if (METRIC == kDense) LMC_CLK_PRODUCT();
+                    LMC_CLK_PRODUCT();
                     for (int i = lane; i < n; i += 32) part += cp[i] * vs[i];
                 } else {
                     for (int i = lane; i < n; i += 32) part += cp[i] * (vv[i] * cp[i]);
@@ -1168,7 +1188,8 @@ __device__ TreeResult transition(const TreeConsts& T, const WarpVecs& V, float* 
                     if (METRIC != kDiag) {
                         velocity<METRIC>(cov, vv, sps, V.va, n, lane);  // the even leaf's
                         velocity<METRIC>(cov, vv, cp, V.vb, n, lane);   // and this leaf's
-                        if (METRIC == kDense) { LMC_CLK_PRODUCT(); LMC_CLK_PRODUCT(); }
+                        LMC_CLK_PRODUCT();
+                        LMC_CLK_PRODUCT();
                     }
                     LMC_CLK(kClkOther);
                     float d1 = 0.f, d2 = 0.f;
@@ -1220,8 +1241,7 @@ __device__ TreeResult transition(const TreeConsts& T, const WarpVecs& V, float* 
                         velocity<METRIC>(cov, vv, a_rp, V.vb, n, lane);
                         velocity<METRIC>(cov, vv, b_lp, V.vc, n, lane);
                         velocity<METRIC>(cov, vv, b_rp, V.vd, n, lane);
-                        if (METRIC == kDense)
-                            for (int k = 0; k < 4; ++k) LMC_CLK_PRODUCT();
+                        for (int k = 0; k < 4; ++k) LMC_CLK_PRODUCT();
                     }
                     LMC_CLK(kClkOther);
                     float d[6] = {0.f, 0.f, 0.f, 0.f, 0.f, 0.f};
@@ -1300,8 +1320,7 @@ __device__ TreeResult transition(const TreeConsts& T, const WarpVecs& V, float* 
                 velocity<METRIC>(cov, vv, cp, V.vc, n, lane);  // the new subtree's outer edge
                 velocity<METRIC>(cov, vv, nlp, V.vd, n, lane);
                 velocity<METRIC>(cov, vv, nrp, vs, n, lane);
-                if (METRIC == kDense)
-                    for (int k = 0; k < 5; ++k) LMC_CLK_PRODUCT();
+                for (int k = 0; k < 5; ++k) LMC_CLK_PRODUCT();
             }
             LMC_CLK(kClkOther);
             float d[6] = {0.f, 0.f, 0.f, 0.f, 0.f, 0.f};
@@ -1372,11 +1391,12 @@ __device__ TreeResult transition(const TreeConsts& T, const WarpVecs& V, float* 
     return r;
 }
 
-// `transition` for bodies 0, 1, 4 and 5 with the diagonal metric and body
-// 1 with the dense metric in blocks of up to kBlockChains chains,
-// redesigned for Hopper (see kBlockChains above): the same arguments, with
-// BS the block's shared-memory state; the same result, to the bit. kDense
-// takes the start velocity p0 COV in V.vc (vl below).
+// `transition` for bodies 0, 1, 4 and 5 with the diagonal metric, body 1
+// with the dense metric and body 4 with the low-rank metric in blocks of
+// up to kBlockChains chains, redesigned for Hopper (see kBlockChains
+// above): the same arguments, with BS the block's shared-memory state; the
+// same result, to the bit. kDense and kLowRank take the start velocity of
+// p0 in V.vc (vl below).
 template <int BODY, int METRIC>
 __device__ TreeResult block_transition(const TreeConsts& T, const BlockState& BS,
                                        const WarpVecs& V, float* slot_sc, int chain, int w,
@@ -1384,8 +1404,8 @@ __device__ TreeResult block_transition(const TreeConsts& T, const BlockState& BS
                                        const float* g0, float lp0, float E0, float eps, int mdc,
                                        uint32_t salt) {
     static_assert(block_body<BODY, METRIC>(),
-                  "the block transition takes bodies 0, 1, 4 and 5 with the diagonal metric "
-                  "and body 1 with the dense metric");
+                  "the block transition takes bodies 0, 1, 4 and 5 with the diagonal metric, "
+                  "body 1 with the dense metric and body 4 with the low-rank metric");
     // kDense: every n x n product of a leaf is block-wide (the drift's and
     // the kinetic energy's velocities p COV, as body 1's gradient), into
     // the velocity scratch vv; each leaf's energy velocity travels with
@@ -1393,14 +1413,21 @@ __device__ TreeResult block_transition(const TreeConsts& T, const BlockState& BS
     // and the tree's edges (vl, vr: v(lp), v(rp)), so that the merges and
     // the U-turn checks do no product at all. A cached velocity is the same
     // fmaf chain of the same momentum as transition's recomputed one.
+    // kLowRank: each leaf's two velocities inside the leapfrog's passes,
+    // the energy's into the velocity scratch vlf, cached likewise (CACHED).
     constexpr bool DENSE = METRIC == kDense;
+    constexpr bool LOWRANK = METRIC == kLowRank;
+    constexpr bool CACHED = DENSE || LOWRANK;
     constexpr int NSV = slot_vecs<METRIC>();
     float *vl = V.vc, *vr = V.vd;
+    float* vlf = LOWRANK ? lowrank_scratch(V, T.cb, T.n) : V.vv;  // a leaf's velocity
     // trips at a time: the funnel's few columns take one, so that its
     // passes carry no code for trips that never run; body 4 two, so that
     // its spike dots' constants fit in registers beside the fused kernel's
     // state without spilling
-    constexpr int K = BODY == 5 ? 1 : BODY == 4 ? 2 : DENSE ? kDenseTrips : kTrips;
+    constexpr int K = BODY == 5 ? 1
+                      : BODY == 4 ? (LOWRANK ? kLowRankTrips : 2)
+                      : DENSE ? kDenseTrips : kTrips;
     const int n = T.n, cb = T.cb, D = T.D, C = T.C, S = BS.smem_slots;
     const int stride = staged_stride(cb);
     float *lq = V.lq, *lp = V.lp, *lg = V.lg, *rq = V.rq, *rp = V.rp, *rg = V.rg;
@@ -1424,6 +1451,12 @@ __device__ TreeResult block_transition(const TreeConsts& T, const BlockState& BS
               vv_o = smem_offset(vv);
     const int vt_o = BODY == 4 ? smem_offset(T.lam) : 0, il_o = vt_o + rows * n,
               is_o = il_o + rows;
+    // kLowRank: the factor block (V^T as kMaxRank rows of n, lam - alpha,
+    // then alpha at ...) and the leaf's velocity, as offsets into shared
+    // memory
+    const int fac_o = LOWRANK ? smem_offset(T.cov) : 0, cvel_o = fac_o + kMaxRank * n,
+              vlf_o = LOWRANK ? smem_offset(vlf) : 0;
+    const float alpha = LOWRANK ? sm[fac_o + kMaxRank * (n + 2)] : 0.f;
     const float inv_s2 = BODY == 5 ? T.lam[0] : 0.f, nx = (float)(n - 1);
 
     float* s_e = slot_sc;                        // [D][cb] proposal energy
@@ -1433,7 +1466,8 @@ __device__ TreeResult block_transition(const TreeConsts& T, const BlockState& BS
     __shared__ int max_sched_sh;
 
     // slot s's NSV vectors (left p, right p, p sum, proposal q, and for
-    // kDense the left and right p's velocities): the shared slots laid out
+    // kDense and kLowRank the left and right p's velocities): the shared
+    // slots laid out
     // [S][NSV][cb][n], the global ones [D][NSV][C][n] (the global stack's
     // [NSV][D][C][n] floats, as this transition's own scratch)
     struct Slot { float *lp, *rp, *ps, *q, *vl, *vr; };
@@ -1452,7 +1486,7 @@ __device__ TreeResult block_transition(const TreeConsts& T, const BlockState& BS
     auto ssc = [&](float* arr, int s) -> float& { return arr[s * cb + w]; };
 
     LMC_CLK_BEGIN();
-    if constexpr (DENSE) {  // the tree's edges' velocities: both the start's
+    if constexpr (CACHED) {  // the tree's edges' velocities: both the start's
         float q[K], p[K], g[K], v[K];
         lane_trips<K>(n, lane,
                    [&](int k, int i) { q[k] = q0[i]; p[k] = p0[i]; g[k] = g0[i]; v[k] = vl[i]; },
@@ -1512,7 +1546,156 @@ __device__ TreeResult block_transition(const TreeConsts& T, const BlockState& BS
             bool div_leaf = false;
             const bool was_bld = bld;
             LMC_CLK_LEAF(bld);
-            if constexpr (BODY == 4 || BODY == 5) {
+            if constexpr (LOWRANK) {
+                // one symplectic step (reference integration.py:100-121)
+                // for body 4 with the low-rank metric, each chain's warp on
+                // its own: the first stage's kick with the metric's dots
+                // V^T (S p) of the kicked p in one pass; each stage's
+                // drift velocity S(alpha x + V d), x = S p, d the dots
+                // times lam - alpha, with the drift and the body's spike
+                // dots V^T (q / s) in one pass; the body's gradient, the
+                // kick, q.grad and the dots of the kicked p in one pass,
+                // q.grad and the dots in one butterfly; after the last
+                // stage the energy velocity (the leaf's, cached) and
+                // p.velocity in one pass. Each element's arithmetic and
+                // each sum's order are lowrank_velocity's, model_eval's and
+                // transition's.
+                if (bld) {
+                    float d[kMaxRank];  // the metric's dots of the stage's p
+                    {
+                        const float kick0 = b0 * epss;
+#pragma unroll
+                        for (int j = 0; j < kMaxRank; ++j) d[j] = 0.f;
+                        float p[K], g[K], sc[K], vtm[K][kMaxRank];
+                        lane_trips<K>(
+                            n, lane,
+                            [&](int k, int i) {
+                                p[k] = sm[cp_o + i]; g[k] = sm[cg_o + i]; sc[k] = sm[vv_o + i];
+#pragma unroll
+                                for (int j = 0; j < kMaxRank; ++j) vtm[k][j] = sm[fac_o + j * n + i];
+                            },
+                            [&](int k, int i) {
+                                const float pk = p[k] + kick0 * g[k];
+                                sm[cp_o + i] = pk;
+                                const float x = pk * sc[k];  // thin_dots<true>
+#pragma unroll
+                                for (int j = 0; j < kMaxRank; ++j) d[j] = d[j] + x * vtm[k][j];
+                            });
+                        LMC_CLK(kClkLeapfrog);
+                        warp_sums(d);
+                        LMC_CLK(kClkWarpSums);
+                    }
+                    for (int s = 0; s < stages; ++s) {
+                        const float drift = (s == 0 ? a0 : s == 1 ? a1 : a2) * epss;
+#pragma unroll
+                        for (int j = 0; j < kMaxRank; ++j) d[j] = d[j] * sm[cvel_o + j];
+                        float c[kMaxRank];  // body 4's spike dots
+#pragma unroll
+                        for (int j = 0; j < kMaxRank; ++j) c[j] = 0.f;
+                        {
+                            float p[K], q[K], sc[K], is[K], vtm[K][kMaxRank], vtk[K][kMaxRank];
+                            lane_trips<K>(
+                                n, lane,
+                                [&](int k, int i) {
+                                    p[k] = sm[cp_o + i]; q[k] = sm[cq_o + i];
+                                    sc[k] = sm[vv_o + i]; is[k] = sm[is_o + i];
+#pragma unroll
+                                    for (int j = 0; j < kMaxRank; ++j) {
+                                        vtm[k][j] = sm[fac_o + j * n + i];
+                                        if (j < rows) vtk[k][j] = sm[vt_o + j * n + i];
+                                    }
+                                },
+                                [&](int k, int i) {
+                                    const float x = sc[k] * p[k];  // lowrank_velocity
+                                    float acc = 0.f;
+#pragma unroll
+                                    for (int j = 0; j < kMaxRank; ++j) acc = acc + vtm[k][j] * d[j];
+                                    const float v = sc[k] * (alpha * x + acc);
+                                    const float qk = q[k] + drift * v;
+                                    sm[cq_o + i] = qk;
+                                    const float xb = qk * is[k];  // model_eval<4>'s thin_dots
+#pragma unroll
+                                    for (int j = 0; j < kMaxRank; ++j)
+                                        if (j < rows) c[j] = c[j] + xb * vtk[k][j];
+                                });
+                        }
+                        LMC_CLK_PRODUCT();
+                        LMC_CLK(kClkLeapfrog);
+                        warp_sums(c);  // every spike's column, those past `rows` zeros
+#pragma unroll
+                        for (int j = 0; j < kMaxRank; ++j)
+                            if (j < rows) c[j] = c[j] * sm[il_o + j];
+                        LMC_CLK(kClkWarpSums);
+                        const float kick = (s == 0 ? b1 : s == 1 ? b2 : b3) * epss;
+                        float sums[1 + kMaxRank];  // q.grad, then the dots of the kicked p
+#pragma unroll
+                        for (int j = 0; j <= kMaxRank; ++j) sums[j] = 0.f;
+                        {
+                            float p[K], q[K], sc[K], is[K], vtm[K][kMaxRank], vtk[K][kMaxRank];
+                            lane_trips<K>(
+                                n, lane,
+                                [&](int k, int i) {
+                                    q[k] = sm[cq_o + i]; p[k] = sm[cp_o + i];
+                                    sc[k] = sm[vv_o + i]; is[k] = sm[is_o + i];
+#pragma unroll
+                                    for (int j = 0; j < kMaxRank; ++j) {
+                                        vtm[k][j] = sm[fac_o + j * n + i];
+                                        if (j < rows) vtk[k][j] = sm[vt_o + j * n + i];
+                                    }
+                                },
+                                [&](int k, int i) {
+                                    const float x = q[k] * is[k];
+                                    float acc = 0.f;
+#pragma unroll
+                                    for (int j = 0; j < kMaxRank; ++j)
+                                        if (j < rows) acc = acc + vtk[k][j] * c[j];
+                                    const float gk = -(x + acc) * is[k];
+                                    sums[0] += q[k] * gk;
+                                    sm[cg_o + i] = gk;
+                                    const float pk = p[k] + kick * gk;
+                                    sm[cp_o + i] = pk;
+                                    const float xp = pk * sc[k];  // thin_dots<true>
+#pragma unroll
+                                    for (int j = 0; j < kMaxRank; ++j)
+                                        sums[1 + j] = sums[1 + j] + xp * vtm[k][j];
+                                });
+                        }
+                        LMC_CLK(kClkLeapfrog);
+                        warp_sums(sums);
+                        LMC_CLK(kClkWarpSums);
+                        c_lp = 0.5f * sums[0];
+#pragma unroll
+                        for (int j = 0; j < kMaxRank; ++j) d[j] = sums[1 + j];
+                    }
+#pragma unroll
+                    for (int j = 0; j < kMaxRank; ++j) d[j] = d[j] * sm[cvel_o + j];
+                    float e[1] = {0.f};  // p.(the energy velocity)
+                    {
+                        float p[K], sc[K], vtm[K][kMaxRank];
+                        lane_trips<K>(
+                            n, lane,
+                            [&](int k, int i) {
+                                p[k] = sm[cp_o + i]; sc[k] = sm[vv_o + i];
+#pragma unroll
+                                for (int j = 0; j < kMaxRank; ++j) vtm[k][j] = sm[fac_o + j * n + i];
+                            },
+                            [&](int k, int i) {
+                                const float x = sc[k] * p[k];
+                                float acc = 0.f;
+#pragma unroll
+                                for (int j = 0; j < kMaxRank; ++j) acc = acc + vtm[k][j] * d[j];
+                                const float v = sc[k] * (alpha * x + acc);
+                                sm[vlf_o + i] = v;
+                                e[0] += p[k] * v;
+                            });
+                    }
+                    LMC_CLK_PRODUCT();
+                    LMC_CLK(kClkLeapfrog);
+                    warp_sums(e);
+                    LMC_CLK(kClkWarpSums);
+                    c_e = 0.5f * e[0] - c_lp;
+                }
+            } else if constexpr (BODY == 4 || BODY == 5) {
                 // one symplectic step (reference integration.py:100-121) for
                 // bodies 4 and 5, each chain's warp on its own: a stage's
                 // kick (the first stage's), drift and the body's first sums
@@ -1796,11 +1979,11 @@ __device__ TreeResult block_transition(const TreeConsts& T, const BlockState& BS
                 if (mrg) {  // a leaf slot has left p == right p == p sum
                     const Slot sl = slot(h);
                     float *dps = sl.ps, *dq = sl.q;
-                    if constexpr (DENSE) {  // and its velocity as the left p's
+                    if constexpr (CACHED) {  // and its velocity as the left p's
                         float* dvl = sl.vl;
                         float p[K], q[K], v[K];
                         lane_trips<K>(n, lane,
-                                   [&](int k, int i) { p[k] = cp[i]; q[k] = cq[i]; v[k] = vv[i]; },
+                                   [&](int k, int i) { p[k] = cp[i]; q[k] = cq[i]; v[k] = vlf[i]; },
                                    [&](int k, int i) { dps[i] = p[k]; dq[i] = q[k]; dvl[i] = v[k]; });
                     } else {
                         float p[K], q[K];
@@ -1827,7 +2010,7 @@ __device__ TreeResult block_transition(const TreeConsts& T, const BlockState& BS
                     float *slp = sl.lp, *srp = sl.rp, *sps = sl.ps, *sq = sl.q;
                     LMC_CLK(kClkOther);
                     float d[2] = {0.f, 0.f};
-                    if constexpr (DENSE) {
+                    if constexpr (CACHED) {
                         // the even leaf's velocity (the slot's left p's) and
                         // this leaf's, which becomes the right p's
                         float *svl = sl.vl, *svr = sl.vr;
@@ -1835,7 +2018,7 @@ __device__ TreeResult block_transition(const TreeConsts& T, const BlockState& BS
                         lane_trips<K>(n, lane,
                                    [&](int k, int i) {
                                        t1[k] = sps[i]; t2[k] = cp[i]; v1[k] = svl[i];
-                                       v2[k] = vv[i]; q[k] = cq[i];
+                                       v2[k] = vlf[i]; q[k] = cq[i];
                                    },
                                    [&](int k, int i) {
                                        const float ps = t1[k] + t2[k];
@@ -1889,7 +2072,7 @@ __device__ TreeResult block_transition(const TreeConsts& T, const BlockState& BS
                     const float *b_lp = sb.lp, *b_rp = sb.rp, *b_ps = sb.ps, *b_q = sb.q;
                     LMC_CLK(kClkOther);
                     float d[6] = {0.f, 0.f, 0.f, 0.f, 0.f, 0.f};
-                    if constexpr (DENSE) {
+                    if constexpr (CACHED) {
                         // the four edges' cached velocities; b's right p's
                         // becomes a's
                         const float *a_vl = sa.vl, *b_vl = sb.vl, *b_vr = sb.vr;
@@ -1994,7 +2177,7 @@ __device__ TreeResult block_transition(const TreeConsts& T, const BlockState& BS
             LMC_CLK(kClkOther);
             float d[6] = {0.f, 0.f, 0.f, 0.f, 0.f, 0.f};
             constexpr int K2 = K < 2 ? K : 2;  // trips at a time: 11 values a trip are live
-            if constexpr (DENSE) {
+            if constexpr (CACHED) {
                 // the old edges' velocities (vl, vr), the new subtree's
                 // edges' from its slot; its outer edge is the last leaf's
                 // p (the slot's right p), whose velocity becomes the

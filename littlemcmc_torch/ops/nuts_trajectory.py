@@ -57,9 +57,9 @@ __all__ = ["TrajectorySpec", "fmix32", "counter_salt", "counter_uniform",
 
 # Chains per CUDA thread block, one warp per chain: 128 blocks at the
 # main path's 1024 chains for the card's 132 SMs. Bodies 0, 1, 4 and 5 with
-# the diagonal metric and body 1 with the dense metric run the block
-# transition (csrc/nuts_transition.cuh) in blocks of up to 8 chains, the
-# warp transition in larger ones.
+# the diagonal metric, body 1 with the dense metric and body 4 with the
+# low-rank metric run the block transition (csrc/nuts_transition.cuh) in
+# blocks of up to 8 chains, the warp transition in larger ones.
 DEFAULT_CHAIN_BLOCK = 8
 # 16 warps of 32 threads at up to 128 registers fill an SM's 65,536; the
 # low-rank metric's instances take 8 warps of up to 255 registers
@@ -72,11 +72,13 @@ MAX_KERNEL_NDIM_DENSE = 256  # register tile of the dense and the logistic model
 BODY_IDS = {"standard_normal": 0, "correlated_gaussian": 1, "eight_schools": 2, "logistic": 3,
             "spiked_gaussian": 4, "funnel": 5, "auto": 6}
 METRIC_IDS = {"diag": 0, "dense": 1, "lowrank": 2}
-# the bodies whose kDiag instances, and those whose kDense instances, run
-# the block transition in chain blocks of up to BLOCK_TRANSITION_CHAINS
-# (block_body() and kBlockChains in csrc/nuts_transition.cuh)
+# the bodies whose kDiag instances, those whose kDense instances and those
+# whose kLowRank instances run the block transition in chain blocks of up
+# to BLOCK_TRANSITION_CHAINS (block_body() and kBlockChains in
+# csrc/nuts_transition.cuh)
 BLOCK_TRANSITION_BODIES = ("standard_normal", "correlated_gaussian", "spiked_gaussian", "funnel")
 BLOCK_TRANSITION_DENSE_BODIES = ("correlated_gaussian",)
+BLOCK_TRANSITION_LOWRANK_BODIES = ("spiked_gaussian",)
 BLOCK_TRANSITION_CHAINS = 8
 # columns of the low-rank factor block the kernels read (kMaxRank in
 # csrc/nuts_transition.cuh); a smaller rank is padded with zero columns
@@ -379,19 +381,21 @@ def runs_block_transition(body: str, metric: str, chain_block: int) -> bool:
     ``transition``): the predicate of the kernels' launch, which also runs
     the warp transition for body 4 where its constants do not fit in shared
     memory beside the working vectors (a few dozen n below the largest the
-    kernels take)."""
-    bodies = {"diag": BLOCK_TRANSITION_BODIES, "dense": BLOCK_TRANSITION_DENSE_BODIES}
+    kernels take; with the low-rank metric, whose body-4 instance has no
+    warp transition, it refuses such a launch)."""
+    bodies = {"diag": BLOCK_TRANSITION_BODIES, "dense": BLOCK_TRANSITION_DENSE_BODIES,
+              "lowrank": BLOCK_TRANSITION_LOWRANK_BODIES}
     return body in bodies.get(metric, ()) and chain_block <= BLOCK_TRANSITION_CHAINS
 
 
 def stack_shape(body: str, metric: str, chain_block: int, D: int, C: int, n: int):
     """The NUTS kernels' global merge stack for a launch: ``D`` slots of
     ``C`` chains' left p, right p, p sum and proposal q (``n`` floats
-    each), and where the block transition runs the dense metric the left
-    and right p's velocities too (``slot_vecs`` in
+    each), and where the block transition runs the dense or the low-rank
+    metric the left and right p's velocities too (``slot_vecs`` in
     csrc/nuts_transition.cuh)."""
-    dense_block = metric == "dense" and runs_block_transition(body, metric, chain_block)
-    return (6 if dense_block else 4, D, C, n)
+    cached = metric != "diag" and runs_block_transition(body, metric, chain_block)
+    return (6 if cached else 4, D, C, n)
 
 
 def resolve_chain_block(chains: int, chain_block: int) -> int:

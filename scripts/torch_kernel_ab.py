@@ -31,8 +31,9 @@ funnel's fused launch) at F1's final state and 2p's input, the funnel per
 draw at 2o's, row 1 body 4 (the spiked Gaussian per draw) at L0's final
 state and 2m's input, the spiked Gaussian's fused instance in a 2-draw
 chunk, row 2 dense (a 250-draw launch at ``adapt_full``'s final state,
-phase 2c's 4-draw tune chunk) and row 1 dense (phase 2b's input, the
-per-draw twin's final state):
+phase 2c's 4-draw tune chunk), row 1 dense (phase 2b's input, the
+per-draw twin's final state), row 2c (a 250-draw launch at L1's final
+state) and row 1 low-rank (L2's final state, phase 2m's low-rank input):
 ms a launch (CUDA events), a digest of the outputs (equal digests: the
 two checkouts give the same bits), and from a build with the section
 clocks the grid's tail share and the sections' shares (the final states,
@@ -168,10 +169,13 @@ def _transition_rows(root: Path) -> dict:
     per draw) at L0's final state and phase 2m's input, its fused
     instance in a 2-draw chunk at 2m's positions, row 2 dense at
     ``adapt_full``'s final state and phase 2c's tune chunk, row 1 dense at
-    phase 2b's input and the per-draw twin's final state: ms a launch of
+    phase 2b's input and the per-draw twin's final state, row 2c at L1's
+    final state, row 1 low-rank at L2's final state and phase 2m's
+    low-rank input: ms a launch of
     the package's build, its output digest, the tail share, each section's
     share of a warp's cycles and the cycles a leaf step, the n x n
-    products a chain-draw and the fused draw's parts around the transition,
+    products (low-rank: velocities) a chain-draw and the fused draw's
+    parts around the transition,
     and the clocked build's ptxas lines. Each key names the kernel, the
     metric and the case."""
     sys.path.insert(0, str(Path(__file__).resolve().parent))
@@ -186,6 +190,7 @@ def _transition_rows(root: Path) -> dict:
         for k in ("tail_share", "block_ms_mean", "block_ms_max", "cycles_per_step",
                   "leaf_steps_per_chain", "leaves_built_per_chain",
                   "mean_leaves_per_chain_draw", "max_depth", "products_per_chain_draw",
+                  "velocities_per_chain_draw",
                   "draw_share_outside_transition",
                   *(f"share_{s}" for s in tc.SECTIONS),
                   *(f"draw_{x}_{s}" for s in tc.SIDE[:5] for x in ("cycles", "share"))):

@@ -2,10 +2,10 @@
 """Time whole ``sample()`` paths of one checkout of littlemcmc_torch on the
 card.
 
-    python3 scripts/torch_path_ab.py [ROOT] [--paths=logistic,adapt_full]
+    python3 scripts/torch_path_ab.py [ROOT] [--paths=logistic,adapt_full,lowrank]
 
 Runs, with the checkout at ROOT (default: the one this script is in),
-from seed 42 at 1024 chains (default: both groups):
+from seed 42 at 1024 chains (default: every group):
 
 - ``logistic``: BASELINE config 4's logistic regression (1000 x 25) as
   ``chip_smoke.py``'s phases 3l-3m do: path (B), the default call on the
@@ -15,7 +15,11 @@ from seed 42 at 1024 chains (default: both groups):
 - ``adapt_full``: the 100-d correlated Gaussian with ``init="adapt_full"``
   (500 + 1000) as phases 3b-3c do: the fused engine and its per-draw twin,
   and each fused launch's device ms from a profiled repeat of the fused
-  call.
+  call;
+- ``lowrank``: the 100-d spiked Gaussian with ``init="jitter+adapt_lowrank"``
+  (500 + 1000) as phases 3o-3p do: L1 on the fused engine and L2, its
+  per-draw twin, each with its min bulk ESS and min-bulk-ESS/s, and each
+  of L1's fused launches' device ms from a profiled repeat.
 
 Prints one JSON line: each path's ``sample_seconds``, launches by kernel
 (the batched logistic kernel's too), mean tree size, the fused launches'
@@ -81,7 +85,43 @@ def _adapt_full_paths(out: dict) -> None:
                                   "device_busy_share", "sample_seconds_profiled")})
 
 
-PATHS = {"logistic": _logistic_paths, "adapt_full": _adapt_full_paths}
+def _lowrank_paths(out: dict) -> None:
+    """The low-rank cells L1 and L2 on ``SpikedGaussian(100)`` (1024
+    chains, 500 + 1000, seed 42, ``init="jitter+adapt_lowrank"``, pooled),
+    as ``chip_smoke.py``'s phases 3o-3p run them: the fused engine and its
+    per-draw twin (``fuse_draws=False``), each once as the user calls it,
+    with the min bulk ESS over the 100 dimensions and min-bulk-ESS/s; then
+    L1 once more under ``torch.profiler`` for each fused launch's device
+    ms (``chip_smoke._fused_path_breakdown``)."""
+    from concurrent.futures import ThreadPoolExecutor
+
+    import chip_smoke
+    from littlemcmc_torch import sample
+    from littlemcmc_torch.models import SpikedGaussian
+    from littlemcmc_torch.utils.diagnostics import ess_bulk
+
+    model = SpikedGaussian(100)
+    kw = dict(model_ndim=100, chains=1024, tune=500, draws=1000, init="jitter+adapt_lowrank")
+    for path, fuse in (("L1", None), ("L2", False)):
+        report = {}
+        trace, stats = sample(model.logp_grad, random_seed=42, fuse_draws=fuse,
+                              perf_report=report, progressbar=False,
+                              compute_convergence_checks=False, **kw)
+        with ThreadPoolExecutor(8) as pool:
+            ess = float(min(pool.map(lambda i: ess_bulk(trace[:, :, i]), range(100))))
+        out[path] = {"engine": report["engine"], "sample_seconds": report["sample_seconds"],
+                     "kernel_launches": report.get("kernel_launches"),
+                     "mean_tree_size": float(stats["tree_size"].mean()),
+                     "mean_depth": float(stats["depth"].mean()), "min_bulk_ess": ess,
+                     "min_bulk_ess_per_s": ess / report["sample_seconds"]}
+    line = chip_smoke._fused_path_breakdown(model, "nuts", kw, draw_chunks=4, label="_lowrank")
+    out["L1"].update(
+        {k: line.get(k) for k in ("fused_launch_ms", "fused_tune_ms", "fused_draw_ms",
+                                  "device_busy_share", "sample_seconds_profiled")})
+
+
+PATHS = {"logistic": _logistic_paths, "adapt_full": _adapt_full_paths,
+         "lowrank": _lowrank_paths}
 
 
 def main() -> int:

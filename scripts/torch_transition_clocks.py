@@ -24,10 +24,14 @@ instances through the package's wrappers (tree depth 10, chain blocks of
   covariance and inverse Cholesky factor) and in phase 2c's tune chunk as
   that cell runs it (``adapt_dense``, the step size adapting), the
   per-draw instance at phase 2b's input and at the per-draw twin's final
-  state.
+  state;
+- the 100-d spiked Gaussian with the pooled low-rank metric (rows 2c and
+  1 low-rank): the fused instance at L1's final state (its variances and
+  factor block), the per-draw instance at L2's final state (its scales
+  and factor block) and at phase 2m's low-rank input.
 
 A fused launch from a final state runs a 250-draw draw chunk. The final
-states (main path, F1, L0, ``adapt_full`` fused and per draw:
+states (main path, F1, L0, ``adapt_full`` fused and per draw, L1 and L2:
 ``sample()`` at 1024 chains, 500 + 1000, seed 42) are sampled once with
 ROOT's package and kept in ``build/`` beside this script
 (``STATE_FILES``), so that every checkout timed in one call sees the
@@ -51,7 +55,11 @@ For each launch it prints one JSON line:
   leaves built per chain;
 - from the side rows (where the sources have ``side_clocks_bind``): the
   n x n products a chain-draw (a warp's matvec, or a block-wide product
-  once for each chain of its block), and for the fused kernel each part
+  once for each chain of its block), for the low-rank metric instead its
+  velocities a chain-draw (``velocities_per_chain_draw``: each velocity
+  and, in the fused kernel, the momentum's thin matvecs; a parent's
+  sources count them only with the marks of this checkout copied in),
+  and for the fused kernel each part
   of a draw around the transition in cycles a chain-draw and its share
   (the normals and the momentum, the start velocity and energy, the
   transition, the work after it, the pooled Welford adds).
@@ -142,20 +150,41 @@ def _load_clocked(path: Path, name: str):
 # in build/ beside this script: the main path (``CorrelatedGaussian(100)``,
 # per-draw diag), F1 (``NealsFunnel(10)``, centred, ``target_accept=0.9``,
 # fused diag), L0 (``SpikedGaussian(100)``, ``jitter+adapt_diag``,
-# per-draw diag on body 4), and ``adapt_full`` on the 100-d Gaussian
-# (the pooled dense metric) on the fused engine and on its per-draw twin
-# (``fuse_draws=False``).
+# per-draw diag on body 4), ``adapt_full`` on the 100-d Gaussian (the
+# pooled dense metric) on the fused engine and on its per-draw twin
+# (``fuse_draws=False``), and L1 and L2 (``SpikedGaussian(100)``,
+# ``jitter+adapt_lowrank``: the pooled low-rank metric, fused and per
+# draw).
 STATE_FILES = {"main": "transition_clocks_state.pt", "f1": "transition_clocks_f1_state.pt",
                "l0": "transition_clocks_l0_state.pt",
                "adapt_full": "transition_clocks_adapt_full_state.pt",
-               "adapt_full_twin": "transition_clocks_adapt_full_twin_state.pt"}
+               "adapt_full_twin": "transition_clocks_adapt_full_twin_state.pt",
+               "l1": "transition_clocks_l1_state.pt", "l2": "transition_clocks_l2_state.pt"}
+
+
+def metric_state(pot, ndim: int) -> dict:
+    """The metric's tensors a case reads from a final state's potential:
+    ``var``, the inverse mass (diag) or the variances (low-rank); for the
+    pooled dense metric ``var`` is the shared covariance and ``linv`` its
+    inverse lower Cholesky factor; for the pooled low-rank metric also
+    ``stds``, the chains' scales (the per-draw kernel's ``var``), and
+    ``fac``, the factor block both kernels read."""
+    import torch
+    from littlemcmc_torch.nuts import _shared_lowrank_factor
+
+    if hasattr(pot, "cov"):
+        return {"var": pot.cov[0], "linv": torch.linalg.solve_triangular(
+            pot.chol[0], torch.eye(ndim, device=pot.cov.device), upper=False)}
+    fac = _shared_lowrank_factor(pot, True)
+    if fac is not None:
+        return {"var": pot.var, "stds": pot.stds, "fac": fac}
+    return {"var": pot.var}
 
 
 def _final_state(path: Path, model, **kw) -> dict:
     """A cell's final state (sampled once with ``kw``, then loaded): the
-    trajectory and fused ops' inputs, a momentum from a fixed seed; for
-    the pooled dense metric ``var`` is the shared covariance and ``linv``
-    its inverse lower Cholesky factor."""
+    trajectory and fused ops' inputs, a momentum from a fixed seed, and
+    the metric's tensors (:func:`metric_state`)."""
     import torch
 
     if path.exists():
@@ -166,9 +195,7 @@ def _final_state(path: Path, model, **kw) -> dict:
                      random_seed=42, return_final_state=True, progressbar=False,
                      compute_convergence_checks=False, **kw)
     da, pot = s.da, s.potential
-    metric = {"var": pot.var} if not hasattr(pot, "cov") else {
-        "var": pot.cov[0], "linv": torch.linalg.solve_triangular(
-            pot.chol[0], torch.eye(model.ndim, device="cuda"), upper=False)}
+    metric = metric_state(pot, model.ndim)
     state = {k: v.contiguous().clone() for k, v in dict(
         q=s.q, grad=s.q_grad, logp=s.logp, **metric,
         p=pot.sample_momentum(torch.Generator(device="cuda").manual_seed(7)),
@@ -193,7 +220,9 @@ def _inputs(root: Path, state_dir: Path) -> dict:
     phase 2c's tune chunk as the cell runs it (4 draws, ``adapt_dense``
     across a window swap, the step size adapting); row 1 dense (the same
     body per draw) at phase 2b's input and at the per-draw twin's final
-    state."""
+    state; rows 2c and 1 low-rank (the spiked Gaussian with the pooled
+    low-rank metric) at L1's final state (a 250-draw chunk) and at L2's
+    final state and phase 2m's low-rank input (per draw)."""
     import numpy as np
     import torch
 
@@ -211,13 +240,17 @@ def _inputs(root: Path, state_dir: Path) -> dict:
     af = _final_state(state_dir / STATE_FILES["adapt_full"], cg, init="adapt_full")
     twin = _final_state(state_dir / STATE_FILES["adapt_full_twin"], cg, init="adapt_full",
                         fuse_draws=False)
+    l1 = _final_state(state_dir / STATE_FILES["l1"], sg, init="jitter+adapt_lowrank")
+    l2 = _final_state(state_dir / STATE_FILES["l2"], sg, init="jitter+adapt_lowrank",
+                      fuse_draws=False)
+    lr_args, lr_fac = chip_smoke._lowrank_inputs(sg, C, 0.5, seed=23)
     full = torch.full((C,), DEPTH, dtype=torch.int32, device="cuda")
     f = dict(dtype=torch.float32, device="cuda")
     leps = torch.log(eps)
     diag, dense = dict(metric="diag"), dict(metric="dense")
 
-    def traj(s):
-        return (s["q"], s["p"], s["grad"], s["logp"], torch.exp(s["log_bar"]), full, s["var"])
+    def traj(s, var="var"):
+        return (s["q"], s["p"], s["grad"], s["logp"], torch.exp(s["log_bar"]), full, s[var])
 
     def fused(s):
         return (s["q"], s["grad"], s["logp"], s["iter"], s["log_step"], s["log_bar"], s["hbar"],
@@ -253,6 +286,12 @@ def _inputs(root: Path, state_dir: Path) -> dict:
         "phase2b": ("trajectory", cg, chip_smoke._dense_stationary_inputs(cg, C, 0.5, seed=2),
                     (23, 31), dense),
         "twin_final": ("trajectory", cg, traj(twin), (3, 8), dense),
+        "l1_final": ("fused_nuts", sg, fused(l1), (5, 9), dict(draws(250, "lowrank"),
+                                                                fac=l1["fac"])),
+        "l2_final": ("trajectory", sg, traj(l2, "stds"), (3, 8),
+                     dict(metric="lowrank", fac=l2["fac"])),
+        "phase2m_lowrank": ("trajectory", sg, lr_args, (139, -149),
+                            dict(metric="lowrank", fac=lr_fac)),
     }
 
 
@@ -298,17 +337,19 @@ def _sections(rows) -> dict:
     return out
 
 
-def _side(rows, draws: int) -> dict:
+def _side(rows, draws: int, metric: str = "diag") -> dict:
     """From the chains' side rows (``[C][SIDE_SLOTS]``): each part of the
     fused kernel's draw (``SIDE``) in cycles a chain-draw and its share of
     the draw, the share outside the transition, and the n x n products a
-    chain-draw (a per-draw launch is one draw; its rows hold the
-    transition's products only)."""
+    chain-draw, for the low-rank metric its velocities a chain-draw (a
+    per-draw launch is one draw; its rows hold the transition's products
+    or velocities only)."""
     import numpy as np
 
     rows = rows.astype(np.float64)
     chain_draws = rows[:, SIDE.index("draws")].sum() or rows.shape[0] * draws
-    out = {"products_per_chain_draw": float(rows[:, SIDE.index("products")].sum() / chain_draws)}
+    what = "velocities" if metric == "lowrank" else "products"
+    out = {f"{what}_per_chain_draw": float(rows[:, SIDE.index("products")].sum() / chain_draws)}
     parts = SIDE[:5]
     total = rows[:, :5].sum()
     if total > 0:
@@ -402,7 +443,8 @@ def run_clocks(root: Path, state_dir: Path, out_dir: Path, only=None) -> list:
                 bind(0)
                 if bind_side is not None:
                     bind_side(0)
-                    rec.update(_side(side.cpu().numpy().reshape(chains, SIDE_SLOTS), T or 1))
+                    rec.update(_side(side.cpu().numpy().reshape(chains, SIDE_SLOTS), T or 1,
+                                     extra["metric"]))
                 rec.update(_tail(host[chains * SLOTS:].reshape(-1, 4), n_sms))
                 rec.update(_sections(host[:chains * SLOTS].reshape(chains, SLOTS)))
                 rec["mean_leaves_per_chain_draw"] = float(

@@ -567,6 +567,102 @@ def test_fused_block_spiked_and_funnel_kernel_matches_plain(hopper, body, n, k, 
     assert _flip_share(got, want, held, sd, "trace") <= _FLIPS, res
 
 
+# Body 4 with the pooled low-rank metric in blocks of up to 8 chains (every
+# block the low-rank metric takes) runs the block transition: the drift's
+# and the energy's velocities computed inside the leapfrog's passes, each
+# leaf's energy velocity cached beside its momentum in the merge stack (6
+# vectors a slot) and the tree's edges, so that the merges and U-turn
+# checks compute no velocity. With the model's own spikes as the factor
+# block (the bulk 1 exact) and the scales off by up to 25%, or its
+# variances off by up to a factor 2 in the fused op, no U-turn fires before
+# 1023 leaves at a step of 0.002: trees reach the depth cap of 10 and
+# write every slot of the stack (at n = 256 the upper ones in the global
+# stack's 6-vector layout). Blocks of 5, 3 and 1 chains leave the block
+# ragged; k = 4 and 8 spikes fill half and all of the factor's columns.
+# The plain versions step their blocks one after another, so every case
+# runs 8 blocks.
+@pytest.mark.cuda
+@pytest.mark.parametrize("n,k,chains,block", [(100, 4, 64, 8), (100, 8, 64, 8), (100, 4, 40, 5),
+                                              (100, 8, 8, 1), (256, 8, 64, 8), (33, 4, 24, 3)],
+                         ids=["100-4-8", "100-8-8", "100-4-5", "100-8-1", "256-8-8", "33-4-3"])
+def test_lowrank_block_kernel_to_depth_10_matches_plain(hopper, n, k, chains, block):
+    from chip_smoke import _lowrank_inputs
+    from littlemcmc_torch.ops.nuts_trajectory import runs_block_transition
+
+    model = _spiked(n, k)
+    assert runs_block_transition("spiked_gaussian", "lowrank", block)
+    D = 10
+    args, fac = _lowrank_inputs(model, chains, 0.002, seed=13)
+    mdc = args[5].clone()
+    mdc[::5] = D - 2  # some chains carry the early tree-depth cap
+    args = args[:5] + (mdc, args[6])
+    kw = dict(spec=model.trajectory_spec(), max_treedepth=D, Emax=1000.0, chain_block=block,
+              metric="lowrank", fac=fac)
+    launches = trajectory.launches
+    got = trajectory(*args, (31, -37), **kw)
+    torch.cuda.synchronize()
+    assert trajectory.launches == launches + 1
+    want = trajectory_plain(*args, (31, -37), **kw)
+    assert int(want["depth"].max()) == D
+    assert float((want["depth"] == D).float().mean()) > 0.5
+    agree = torch.stack([got[k_] == want[k_] for k_ in FLAGS]).all(0)
+    assert float(agree.float().mean()) >= 0.99
+    sd = torch.from_numpy(_posterior_sd(model)).float().to(hopper)
+    assert _flip_share(got, want, agree, sd, "q") <= _FLIPS
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("n,k,chains,block,tuning", [
+    (100, 4, 64, 8, False), (100, 8, 64, 8, False), (100, 4, 40, 5, False),
+    (100, 8, 8, 1, False), (256, 8, 64, 8, False), (100, 4, 64, 8, True),
+    (100, 8, 24, 3, True),
+], ids=["draw-100-4-8", "draw-100-8-8", "draw-100-4-5", "draw-100-8-1", "draw-256-8-8",
+        "tune-100-4-8", "tune-100-8-3"])
+def test_fused_lowrank_block_kernel_to_depth_10_matches_plain(hopper, n, k, chains, block,
+                                                              tuning):
+    """The fused kernel's body-4 low-rank instance on the block transition
+    (its momenta and start velocities in the block's passes too), 2 draws
+    at step 0.002 (held, so both draws reach depth 10): draw chunks in
+    blocks of 8, 5 and 1 chains and at n = 256, tune chunks with the
+    per-chain Welford steps across a window swap; the checks of the
+    smoke's phase 2n, but for the proposals, energies and log densities
+    that a flipped choice moves (and the Welford state against the plain
+    version, which follows its proposals): those on all but _FLIPS of the
+    held chain-draws, the Welford state against a float64 replay of the
+    kernel's own trace."""
+    model = _spiked(n, k)
+    res, failures, got, want, _, _ = fused_check(model, chains, 2, tuning, False, seed=15,
+                                                 words=(41, -43), metric="lowrank",
+                                                 log_step=float(np.log(0.002)),
+                                                 chain_block=block)
+    moved = ("q or energy differ", "stat model_logp", "stat energy_error")
+    assert not [f for f in failures if not f.startswith(moved)
+                and "against the plain version" not in f], res
+    assert int(want["depth"].max()) == 10 and res["mean_depth"] > 5
+    agree = torch.stack([got[k_] == want[k_] for k_ in FLAGS]).all(0)
+    held = _held(agree, block)
+    sd = torch.from_numpy(_posterior_sd(model)).float().to(hopper)
+    assert _flip_share(got, want, held, sd, "trace") <= _FLIPS, res
+
+
+@pytest.mark.cuda
+def test_lowrank_block_kernel_refuses_where_the_spikes_do_not_fit(hopper):
+    """Body 4 with the low-rank metric has no warp transition: where its
+    constants do not fit in shared memory beside the working vectors (n =
+    390 in blocks of 8: 17 vectors of 8 chains, the factor block and 8
+    spikes of 390), the per-draw launch is refused, never run elsewhere."""
+    from chip_smoke import _lowrank_inputs
+
+    model = _spiked(390, 8)
+    args, fac = _lowrank_inputs(model, 8, 0.1, seed=3)
+    with pytest.raises(RuntimeError, match="launch failed"):
+        trajectory(*args, (3, 5), spec=model.trajectory_spec(), max_treedepth=10, Emax=1000.0,
+                   chain_block=8, metric="lowrank", fac=fac)
+    got = trajectory(*args, (3, 5), spec=model.trajectory_spec(), max_treedepth=10,
+                     Emax=1000.0, chain_block=4, metric="lowrank", fac=fac)
+    assert torch.isfinite(got["q"]).all()
+
+
 @pytest.mark.cuda
 @pytest.mark.parametrize("step", ["nuts", "hmc"])
 def test_eight_schools_sample_on_the_card(hopper, step):

@@ -261,16 +261,35 @@ def spiked():
 def test_lowrank_trajectory_plain_matches_jax(spiked):
     """One transition of 16 chains, block for block, from the model's
     draws with momenta of the metric."""
+    want = _lowrank_trajectory_check(spiked, 0.5, 8, seed=7)
+    assert want["depth"].mean() > 1.5
+
+
+def test_lowrank_trajectory_plain_matches_jax_to_deeper_merges(spiked):
+    """The same at a step of 0.08 and a depth cap of 7: mean depth above
+    3, so that the merges of subtrees of 2, 4 and more leaves, and the
+    U-turn checks across them, run (the block transition caches their
+    velocities; the plain version computes them where the JAX kernel
+    does)."""
+    want = _lowrank_trajectory_check(spiked, 0.08, 7, seed=8)
+    assert want["depth"].mean() > 3.0
+    assert int(want["depth"].max()) >= 5
+
+
+def _lowrank_trajectory_check(spiked, eps0, D, seed):
+    """One transition of 16 chains, block for block, the plain version
+    against the JAX op in interpret mode: the flags on all chains but one,
+    the proposals within 1e-4 sd and the energies within 1e-4 on those
+    that agree. Returns the JAX op's outputs."""
     j, t, V, lam, alpha = spiked
     C_ = 16
-    rng = np.random.default_rng(7)
+    rng = np.random.default_rng(seed)
     q = t.draws(rng.standard_normal((C_, NS)))
     stds = (j.scales * rng.uniform(0.8, 1.25, (C_, NS))).astype(np.float32)
     zeta = rng.standard_normal((C_, NS))
     p = ((alpha ** -0.5 * zeta + ((zeta @ V) * (lam ** -0.5 - alpha ** -0.5)) @ V.T)
          / stds).astype(np.float32)
-    eps = (0.5 * rng.uniform(0.8, 1.2, C_)).astype(np.float32)
-    D = 8
+    eps = (eps0 * rng.uniform(0.8, 1.2, C_)).astype(np.float32)
     mdc = np.full(C_, D, np.int32)
     mdc[::5] = D - 2
     lp, g = (np.asarray(x) for x in jax.vmap(j.logp_grad)(jnp.asarray(q)))
@@ -287,11 +306,11 @@ def test_lowrank_trajectory_plain_matches_jax(spiked):
     got = {k: v.numpy() for k, v in got.items()}
     agree = np.all([got[k] == want[k] for k in FLAGS], axis=0)
     assert agree.sum() >= C_ - 1, agree
-    assert want["depth"].mean() > 1.5
     sd = np.sqrt(j.true_var)
     np.testing.assert_allclose(got["q"][agree] / sd, want["q"][agree] / sd, atol=1e-4, rtol=0)
     for k in ("energy", "logp", "log_size"):
         np.testing.assert_allclose(got[k][agree], want[k][agree], atol=1e-4, rtol=1e-4)
+    return want
 
 
 def _fused_args(j, t, V, lam, alpha, seed, C_=16):

@@ -226,14 +226,16 @@ def test_convert_round_trip_and_shared_start():
 def test_block_transition_predicate_matches_the_kernels(chain_block):
     """``runs_block_transition`` names the instances that ``block_body()``
     and ``kBlockChains`` of ``csrc/nuts_transition.cuh`` put on the block
-    transition: bodies 0, 1, 4 and 5 with the diagonal metric and body 1
-    with the dense metric, in blocks of up to 8 chains."""
+    transition: bodies 0, 1, 4 and 5 with the diagonal metric, body 1 with
+    the dense metric and body 4 with the low-rank metric, in blocks of up
+    to 8 chains."""
     import re
     from pathlib import Path
 
     from littlemcmc_torch.ops.nuts_trajectory import (BLOCK_TRANSITION_BODIES,
                                                       BLOCK_TRANSITION_CHAINS,
-                                                      BLOCK_TRANSITION_DENSE_BODIES, BODY_IDS,
+                                                      BLOCK_TRANSITION_DENSE_BODIES,
+                                                      BLOCK_TRANSITION_LOWRANK_BODIES, BODY_IDS,
                                                       METRIC_IDS, runs_block_transition)
 
     src = (Path(__file__).resolve().parents[1] / "littlemcmc_torch" / "ops" / "csrc"
@@ -241,14 +243,17 @@ def test_block_transition_predicate_matches_the_kernels(chain_block):
     fn = re.search(r"constexpr bool block_body\(\) \{\s*return (.*?);", src, re.S).group(1)
     # one (bodies && METRIC == kX) term a metric, joined by ||
     terms = re.findall(r"\(+([^&]*?)\)?\s*&&\s*METRIC == (k\w+)\)", fn)
-    assert [m for _, m in terms] == ["kDiag", "kDense"]
-    bodies = {METRIC_IDS[{"kDiag": "diag", "kDense": "dense"}[m]]:
-              {int(b) for b in re.findall(r"BODY == (\d+)", t)} for t, m in terms}
+    assert [m for _, m in terms] == ["kDiag", "kDense", "kLowRank"]
+    names = {"kDiag": "diag", "kDense": "dense", "kLowRank": "lowrank"}
+    bodies = {METRIC_IDS[names[m]]: {int(b) for b in re.findall(r"BODY == (\d+)", t)}
+              for t, m in terms}
     chains = int(re.search(r"constexpr int kBlockChains = (\d+);", src).group(1))
     assert ({BODY_IDS[b] for b in BLOCK_TRANSITION_BODIES} == bodies[METRIC_IDS["diag"]]
             == {0, 1, 4, 5})
     assert {BODY_IDS[b] for b in BLOCK_TRANSITION_DENSE_BODIES} == bodies[METRIC_IDS["dense"]]
     assert bodies[METRIC_IDS["dense"]] == {1}
+    assert ({BODY_IDS[b] for b in BLOCK_TRANSITION_LOWRANK_BODIES}
+            == bodies[METRIC_IDS["lowrank"]] == {4})
     assert BLOCK_TRANSITION_CHAINS == chains
     for body, bid in BODY_IDS.items():
         for metric, mid in METRIC_IDS.items():
@@ -263,13 +268,16 @@ def test_block_transition_predicate_matches_the_kernels(chain_block):
     ("correlated_gaussian", "diag", 8, 4),
     ("spiked_gaussian", "dense", 8, 4),
     ("logistic", "dense", 8, 4),
-    ("spiked_gaussian", "lowrank", 8, 4),
+    ("spiked_gaussian", "lowrank", 8, 6),
+    ("spiked_gaussian", "lowrank", 1, 6),
+    ("correlated_gaussian", "lowrank", 8, 4),
 ])
 def test_stack_shape_by_metric_and_instance(body, metric, chain_block, vecs):
     """The global merge stack holds the velocities of a slot's edges (6
     vectors a slot, ``slot_vecs`` of ``csrc/nuts_transition.cuh``) only
-    where the dense metric runs the block transition; every other instance,
-    and blocks of more than 8 chains, keep 4."""
+    where the dense or the low-rank metric runs the block transition; every
+    other instance (body 1 with the low-rank metric among them), and blocks
+    of more than 8 chains, keep 4."""
     import re
     from pathlib import Path
 
@@ -278,5 +286,5 @@ def test_stack_shape_by_metric_and_instance(body, metric, chain_block, vecs):
     src = (Path(__file__).resolve().parents[1] / "littlemcmc_torch" / "ops" / "csrc"
            / "nuts_transition.cuh").read_text()
     fn = re.search(r"constexpr int slot_vecs\(\) \{\s*return (.*?);", src, re.S).group(1)
-    assert fn == "METRIC == kDense ? 6 : 4"
+    assert fn == "METRIC == kDiag ? 4 : 6"
     assert stack_shape(body, metric, chain_block, 10, 1024, 100) == (vecs, 10, 1024, 100)

@@ -121,3 +121,48 @@ def test_side_rows_parts_of_a_fused_draw_and_products():
     per_draw = np.zeros((4, tc.SIDE_SLOTS), dtype=np.int64)
     per_draw[:, tc.SIDE.index("products")] = [46, 46, 23, 23]
     assert tc._side(per_draw, 1) == {"products_per_chain_draw": pytest.approx(34.5)}
+
+
+def test_side_rows_count_the_lowrank_metrics_velocities():
+    """For the low-rank metric the side rows' products slot counts its
+    velocities (a velocity, or the fused momentum's thin matvecs), and the
+    record names them so; a fused launch's parts are as for the others."""
+    per_draw = np.zeros((4, tc.SIDE_SLOTS), dtype=np.int64)
+    per_draw[:, tc.SIDE.index("products")] = [30, 30, 14, 14]
+    assert tc._side(per_draw, 1, "lowrank") == {"velocities_per_chain_draw": pytest.approx(22.0)}
+    fused = np.zeros((2, tc.SIDE_SLOTS), dtype=np.int64)
+    fused[:, :5] = [[10, 20, 60, 5, 5], [30, 20, 100, 15, 5]]
+    fused[:, tc.SIDE.index("draws")] = [250, 250]
+    fused[:, tc.SIDE.index("products")] = [8000, 9000]
+    out = tc._side(fused, 250, "lowrank")
+    assert "products_per_chain_draw" not in out
+    assert out["velocities_per_chain_draw"] == pytest.approx(17000 / 500)
+    assert out["draw_share_outside_transition"] == pytest.approx(110 / 270)
+
+
+@pytest.mark.parametrize("kind", ["diag", "lowrank"])
+def test_metric_state_of_a_final_states_potential(kind):
+    """``metric_state``: the variances alone for a diagonal metric; for the
+    pooled low-rank metric also the scales and the factor block built from
+    row 0's basis, eigenvalues and bulk (the L1 and L2 cases read them)."""
+    from littlemcmc_torch.ops.nuts_trajectory import build_lowrank_fac, lowrank_fac_size
+    from littlemcmc_torch.quadpotential import (QuadPotentialDiagAdapt,
+                                                QuadPotentialLowRankAdapt)
+
+    C_, n = 16, 6
+    rng = np.random.default_rng(3)
+    mean = torch.from_numpy(rng.standard_normal((C_, n)).astype(np.float32))
+    diag = torch.from_numpy(rng.uniform(0.5, 2.0, (C_, n)).astype(np.float32))
+    if kind == "diag":
+        pot = QuadPotentialDiagAdapt.create(mean, diag, 10.0)
+    else:
+        pot = QuadPotentialLowRankAdapt.create(mean, diag, 10.0, rank=2)
+    out = tc.metric_state(pot, n)
+    if kind == "diag":
+        assert list(out) == ["var"] and out["var"] is pot.var
+        return
+    assert list(out) == ["var", "stds", "fac"]
+    assert out["var"] is pot.var and out["stds"] is pot.stds
+    assert out["fac"].shape == (lowrank_fac_size(n),)
+    torch.testing.assert_close(out["fac"], build_lowrank_fac(pot.vecs[0], pot.lam[0],
+                                                             pot.alpha[0]), rtol=0, atol=0)
