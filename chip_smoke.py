@@ -210,11 +210,13 @@ them, whole chain blocks, every fourth chain of the inputs as made:
    the tensor-op tree on the same model (ms a draw over 20 draws from that
    state, the number the generated body exists to beat) beside 50 draws
    on the generated body, and the probe kernel alone; then the ptxas
-   lines of the per-draw and fused NUTS kernels' body-4 and body-5 diag
-   instances and body-1 dense instances (those on the block transition
-   beside those on the warp transition), and one JSON line of kernel rows
-   (each NUTS row's ``transition``, ``block`` or ``warp``: the transition
-   of ``csrc/nuts_transition.cuh`` its instance runs), the six fused probes
+   lines of the per-draw and fused NUTS kernels' body-2, body-4 and body-5
+   diag instances, body-1 dense and body-4 low-rank instances (those on
+   the block transition beside those on the warp transition), and one JSON
+   line of kernel rows (each NUTS row's ``transition``, ``block`` or
+   ``warp``: the transition of ``csrc/nuts_transition.cuh`` its instance
+   runs; the eight-schools NUTS rows' ``blocks_per_sm``, the blocks of
+   their launch at 10,240 chains that fit on an SM), the six fused probes
    last (for the fused kernels ``ms``, ``plain_ms`` and ``bound_ms`` are
    one launch on 2c's, 2e's, 2h's, 2i's or 2p's draw-chunk input: 4
    draws, in 2h-2i 1, in 2p 2; ``chunk_*`` the 250-draw launch; for the
@@ -1922,6 +1924,11 @@ def _es_kernel_timing(model, state, pd_state, step: str, gen, label: str = "es")
             "fused_work_per_chain_draw": work / C / 250,
             "per_draw_ms": p_ms, "per_draw_ms_source": p_src, "per_draw_events_ms": p_events,
             "per_draw_bound_ms": p_bound, "per_draw_bound_by": p_by}
+    if step == "nuts":  # the blocks an SM of the two NUTS launches just timed
+        from littlemcmc_torch.ops._build import last_blocks_per_sm
+
+        line.update(fused_blocks_per_sm=last_blocks_per_sm("fused_nuts"),
+                    per_draw_blocks_per_sm=last_blocks_per_sm("nuts_trajectory"))
     print(json.dumps(line), flush=True)
     return line
 
@@ -3213,7 +3220,8 @@ def main() -> int:
          "plain_ms": es_plain_ms, "bound_ms": es_bound[0], "bound_by": es_bound[1],
          "library_ms": None, "main_chains": ES_CHAINS,
          "main_ms": es_timing["nuts"]["per_draw_ms"],
-         "main_bound_ms": es_timing["nuts"]["per_draw_bound_ms"]},
+         "main_bound_ms": es_timing["nuts"]["per_draw_bound_ms"],
+         "blocks_per_sm": es_timing["nuts"]["per_draw_blocks_per_sm"]},
         {"name": "hmc_trajectory", "metric": "diag", "body": "eight_schools",
          "route": "cuda", "source": "littlemcmc_torch/ops/csrc/hmc_trajectory.cu",
          "replaces": "littlemcmc_tpu/ops/hmc_trajectory_pallas.py:273",
@@ -3224,10 +3232,11 @@ def main() -> int:
          "main_ms": es_timing["hmc"]["per_draw_ms"],
          "main_bound_ms": es_timing["hmc"]["per_draw_bound_ms"]},
         diag_row("nuts", "correlated_gaussian", N, fd_launches, fd_ms, fd_bound),
-        diag_row("nuts", "eight_schools", 10,
-                 es_lines["nuts", "fused_diag"]["kernel_launches"]["fused_nuts"],
-                 es_timing["nuts"]["fused_ms"],
-                 (es_timing["nuts"]["fused_bound_ms"], es_timing["nuts"]["fused_bound_by"])),
+        dict(diag_row("nuts", "eight_schools", 10,
+                      es_lines["nuts", "fused_diag"]["kernel_launches"]["fused_nuts"],
+                      es_timing["nuts"]["fused_ms"],
+                      (es_timing["nuts"]["fused_bound_ms"], es_timing["nuts"]["fused_bound_by"])),
+             blocks_per_sm=es_timing["nuts"]["fused_blocks_per_sm"]),
         diag_row("hmc", "eight_schools", 10,
                  es_lines["hmc", "fused_diag"]["kernel_launches"]["fused_hmc"],
                  es_timing["hmc"]["fused_ms"],
@@ -3280,15 +3289,16 @@ def main() -> int:
         lg_fused_row("hmc"),
     ]
     # the ptxas lines of the instances the block transition took over in
-    # the last slices (bodies 4 and 5 with the diagonal metric, body 1 with
-    # the dense metric, body 4 with the low-rank metric, which has no warp
-    # instance), beside their warp-transition instances (blocks of more
-    # than 8 chains)
+    # the last slices (bodies 2, 4 and 5 with the diagonal metric, body 1
+    # with the dense metric, body 4 with the low-rank metric, which has no
+    # warp instance), beside their warp-transition instances (blocks of
+    # more than 8 chains)
     for name in ("nuts_trajectory", "fused_nuts"):
         moved = {}
         for entry, lines in _ptxas_entries(logs[name].read_text()).items():
-            # <body, metric, block>, or the fused kernel's own block kernels
-            for b, m, own in ((4, 0, "fused_nuts_block_kernel"),
+            # <body, metric, block>, or the kernels' own block kernels
+            for b, m, own in ((2, 0, f"{name}_es_block_kernel"),
+                              (4, 0, "fused_nuts_block_kernel"),
                               (5, 0, "fused_nuts_block_kernel"),
                               (1, 1, f"{name}_dense_block_kernel"),
                               (4, 2, f"{name}_lowrank_block_kernel")):

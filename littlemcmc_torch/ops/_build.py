@@ -30,7 +30,7 @@ from pathlib import Path
 from typing import Dict, Optional, Sequence
 
 __all__ = ["build_all", "build_generated", "load_library", "load_generated", "launch",
-           "BUILD_FLAGS"]
+           "last_blocks_per_sm", "BUILD_FLAGS"]
 
 _CSRC = Path(__file__).resolve().parent / "csrc"
 _BUILD_ROOT = Path(__file__).resolve().parents[2] / "build" / "littlemcmc_torch"
@@ -164,11 +164,13 @@ _SIGNATURES = {
                  _P, _P, _P, _P, _P, _P, _P,  # q g energy logp ls lwas mec
                  _P, _P, _P, _P,              # depth n_leaves div turn
                  _P]),                        # stream
+        "nuts_trajectory_last_blocks_per_sm": (_I, []),
         "cuda_error_string": (ctypes.c_char_p, [_I]),
     },
     # pointers, ints, floats (each module's _PTRS, _INTS, _FLOATS), stream
     "fused_nuts": {
         "fused_nuts_launch": (_I, [_P, _P, _P, _P]),
+        "fused_nuts_last_blocks_per_sm": (_I, []),
         "cuda_error_string": (ctypes.c_char_p, [_I]),
     },
     "hmc_trajectory": {
@@ -229,6 +231,13 @@ def load_generated(name: str, header: str):
     header, built first if missing."""
     path = str(build_generated([(name, header)])[0])
     return _load_generated_path(name, path), path
+
+
+def last_blocks_per_sm(name: str) -> int:
+    """Blocks an SM of the last launch of the NUTS kernel ``name``
+    (``nuts_trajectory`` or ``fused_nuts``): the CUDA runtime's occupancy
+    at that launch's threads and dynamic shared memory."""
+    return getattr(load_library(name), f"{name}_last_blocks_per_sm")()
 
 
 def launch(name: str, ptrs: Sequence[Optional[int]], ints: Sequence[int],

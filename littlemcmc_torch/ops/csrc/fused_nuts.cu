@@ -13,7 +13,7 @@
 // PyTorch version it is held against is ops/fused_nuts.py::fused_nuts_plain.
 //
 // Mapping. One thread block is one chain block of CB chains, one warp per
-// chain, as in the per-draw kernel (bodies 0, 1, 4 and 5 with the diagonal
+// chain, as in the per-draw kernel (bodies 0, 1, 2, 4 and 5 with the diagonal
 // metric, body 1 with the dense metric and body 4 with the low-rank metric
 // in blocks of up to 8 chains on the block transition, in instances
 // compiled for 8 warps; the dense one draws its momenta z L^-1 and start
@@ -64,7 +64,7 @@
 // the start momentum and the chain's four Welford rows, 19 x CB x n
 // floats (2.4 KB a block at the eight-schools n = 10, 61 KB at n = 100),
 // read from device memory once a launch and written back once; on the
-// block transition (bodies 0, 1, 4 and 5, CB <= 8) beside them body 1's
+// block transition (bodies 0, 1, 2, 4 and 5, CB <= 8) beside them body 1's
 // staged positions (3.2 KB) and P (40 KB), or body 4's constants (2 KB),
 // and as many of the merge stack's slots as fit (all 9 of depth 10 at
 // n = 100: 115 KB; 220 KB in all for body 1). kLowRank:
@@ -444,9 +444,18 @@ __global__ void __launch_bounds__(32 * kBlockChains, 1) fused_nuts_lowrank_block
     fused_draws<BODY, kLowRank, true>(A);
 }
 
+// Body 2 (eight schools, n = 10) on the block transition, compiled for
+// kEsBlocksPerSm blocks an SM (nuts_transition.cuh)
+template <int BODY>
+__global__ void __launch_bounds__(32 * kBlockChains, kEsBlocksPerSm)
+    fused_nuts_es_block_kernel(Args A) {
+    fused_draws<BODY, kDiag, true>(A);
+}
+
 template <int BODY, int METRIC, bool BLOCK>
 constexpr auto kernel_of() {
     if constexpr (BLOCK && METRIC == kLowRank) return fused_nuts_lowrank_block_kernel<BODY>;
+    else if constexpr (BLOCK && BODY == 2) return fused_nuts_es_block_kernel<BODY>;
     else if constexpr (BLOCK && (BODY == 4 || BODY == 5)) return fused_nuts_block_kernel<BODY>;
     else if constexpr (BLOCK && METRIC == kDense) return fused_nuts_dense_block_kernel<BODY>;
     else return fused_nuts_kernel<BODY, METRIC, BLOCK>;
@@ -489,6 +498,8 @@ cudaError_t launch_instance(const Args& A0, cudaStream_t stream) {
     const auto kernel = kernel_of<BODY, METRIC, BLOCK>();
     cudaError_t err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
                                            (int)bytes);
+    if (err != cudaSuccess) return err;
+    err = record_residency<BODY, METRIC, BLOCK>(kernel, 32 * A.cb, bytes);
     if (err != cudaSuccess) return err;
     kernel<<<A.C / A.cb, 32 * A.cb, bytes, stream>>>(A);
     return cudaGetLastError();
@@ -572,6 +583,11 @@ int fused_nuts_launch(void* const* ptrs, const int* ints, const float* floats, v
 #endif
         default: return (int)cudaErrorInvalidValue;
     }
+}
+
+// Blocks an SM of the last launch (nuts_transition.cuh, last_blocks_per_sm).
+int fused_nuts_last_blocks_per_sm(void) {
+    return lmc::last_blocks_per_sm;
 }
 
 const char* cuda_error_string(int err) {

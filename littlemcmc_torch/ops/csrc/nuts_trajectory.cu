@@ -9,12 +9,12 @@
 // nuts_transition.cuh, which the fused kernel (fused_nuts.cu) shares.
 //
 // Mapping. One thread block is one chain block of CB chains, one warp per
-// chain, run in lockstep (see nuts_transition.cuh). Bodies 0, 1, 4 and 5
-// with the diagonal metric, body 1 with the dense metric and body 4 with
+// chain, run in lockstep (see nuts_transition.cuh). Bodies 0, 1, 2, 4 and
+// 5 with the diagonal metric, body 1 with the dense metric and body 4 with
 // the low-rank metric in blocks of up to 8 chains (the main path's, the
-// `adapt_full` twin's, F1's, L0's and L2's) run the block transition
-// (nuts_transition.cuh, block_transition) in instances compiled for 8
-// warps; everything else runs `transition`.
+// `adapt_full` twin's, eight schools' per-draw twin's, F1's, L0's and
+// L2's) run the block transition (nuts_transition.cuh, block_transition)
+// in instances compiled for 8 warps; everything else runs `transition`.
 // Randomness: the JAX
 // kernel's counter stream with block_id = blockIdx.x and the chain's row
 // within its block, so this kernel, the plain version and the JAX kernel
@@ -77,6 +77,13 @@
 // leapfrog's passes beside the body's, and each leaf's velocity is cached
 // in the stack as the dense metric's is (2 velocities a leaf, none in the
 // merges and U-turn checks, where the warp transition recomputes them).
+// Eight schools (body 2, n = 10: ten lanes of each chain's warp work) runs
+// the block transition with the body inside the leapfrog's two passes,
+// each lane's column, inverse mass and two constants in registers through
+// a leaf and the body's four sums in one butterfly, the whole merge stack
+// in shared memory; its cells' 10,240 chains make 1,280 blocks, several
+// times the card's 132 SMs, so its instance is compiled for more than one
+// block an SM (nuts_trajectory_es_block_kernel).
 //
 // Build: nvcc -gencode arch=compute_90a,code=sm_90a -std=c++17 -O3
 // -fmad=false (no contraction of a*b+c, so elementwise rounding matches
@@ -260,9 +267,18 @@ __global__ void __launch_bounds__(32 * kBlockChains, 1)
     run_block<BODY, kDense, true>(P);
 }
 
+// Body 2 (eight schools, n = 10) on the block transition, compiled for
+// kEsBlocksPerSm blocks an SM (nuts_transition.cuh)
+template <int BODY>
+__global__ void __launch_bounds__(32 * kBlockChains, kEsBlocksPerSm)
+    nuts_trajectory_es_block_kernel(Params P) {
+    run_block<BODY, kDiag, true>(P);
+}
+
 template <int BODY, int METRIC, bool BLOCK>
 constexpr auto kernel_of() {
     if constexpr (BLOCK && METRIC == kLowRank) return nuts_trajectory_lowrank_block_kernel<BODY>;
+    else if constexpr (BLOCK && BODY == 2) return nuts_trajectory_es_block_kernel<BODY>;
     else if constexpr (METRIC == kLowRank) return nuts_trajectory_lowrank_kernel<BODY>;
     else if constexpr (BLOCK && METRIC == kDense) return nuts_trajectory_dense_block_kernel<BODY>;
     else return nuts_trajectory_kernel<BODY, METRIC, BLOCK>;
@@ -305,6 +321,8 @@ cudaError_t launch_instance(const Params& P, cudaStream_t stream) {
     const auto kernel = kernel_of<BODY, METRIC, BLOCK>();
     cudaError_t err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
                                            (int)bytes);
+    if (err != cudaSuccess) return err;
+    err = record_residency<BODY, METRIC, BLOCK>(kernel, 32 * P.cb, bytes);
     if (err != cudaSuccess) return err;
     kernel<<<P.C / P.cb, 32 * P.cb, bytes, stream>>>(Q);
     return cudaGetLastError();
@@ -389,6 +407,11 @@ int nuts_trajectory_launch(
 #endif
         default: return (int)cudaErrorInvalidValue;
     }
+}
+
+// Blocks an SM of the last launch (nuts_transition.cuh, last_blocks_per_sm).
+int nuts_trajectory_last_blocks_per_sm(void) {
+    return lmc::last_blocks_per_sm;
 }
 
 const char* cuda_error_string(int err) {

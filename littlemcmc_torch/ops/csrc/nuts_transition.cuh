@@ -76,6 +76,31 @@ constexpr uint32_t kGolden = 0x9E3779B9u;
 // loader shares among every library of the process).
 static int last_scratch_in_smem = 0;
 
+// Blocks an SM of the last launch of this library's NUTS kernel:
+// cudaOccupancyMaxActiveBlocksPerMultiprocessor at the launch's threads
+// and dynamic shared memory (record_residency; the library exports it).
+static int last_blocks_per_sm = 0;
+
+// Records the blocks an SM of a launch of `kernel` (last_blocks_per_sm),
+// asking the runtime once an instance (the template arguments) and launch
+// shape, so that the per-draw path adds no host work a launch. Static, as
+// last_blocks_per_sm: its counters are this library's own. A readout for
+// chip_smoke.py and the scripts: the launch itself does not use it.
+template <int BODY, int METRIC, bool BLOCK, class Kernel>
+static cudaError_t record_residency(Kernel kernel, int threads, size_t bytes) {
+    static int seen_threads = 0, blocks = 0;
+    static size_t seen_bytes = 0;
+    if (threads != seen_threads || bytes != seen_bytes) {
+        const cudaError_t err =
+            cudaOccupancyMaxActiveBlocksPerMultiprocessor(&blocks, kernel, threads, bytes);
+        if (err != cudaSuccess) return err;
+        seen_threads = threads;
+        seen_bytes = bytes;
+    }
+    last_blocks_per_sm = blocks;
+    return cudaSuccess;
+}
+
 __device__ __forceinline__ uint32_t fmix32(uint32_t x) {
     x ^= x >> 16;
     x *= 0x85EBCA6Bu;
@@ -767,11 +792,12 @@ __host__ __device__ constexpr int n_warp_vecs() {
 }
 
 // ---------------------------------------------------------------------------
-// The block transition (block_transition below): bodies 0, 1, 4 and 5 with
-// the diagonal metric, body 1 with the dense metric and body 4 with the
-// low-rank metric, in chain blocks of up to kBlockChains chains: the
+// The block transition (block_transition below): bodies 0, 1, 2, 4 and 5
+// with the diagonal metric, body 1 with the dense metric and body 4 with
+// the low-rank metric, in chain blocks of up to kBlockChains chains: the
 // instances of the 100-d main path (body 1, per-draw and fused), of
-// `adapt_full` (body 1 dense, fused and its per-draw twin), of F1 (the
+// `adapt_full` (body 1 dense, fused and its per-draw twin), of eight
+// schools at 10,240 chains (body 2, fused and per draw), of F1 (the
 // centred funnel, body 5, fused), of L0 (the spiked Gaussian, body 4,
 // per-draw) and of L1 and L2 (body 4 with the pooled low-rank metric,
 // fused and per-draw; kLowRank instances take at most kBlockChains chains,
@@ -809,11 +835,15 @@ __host__ __device__ constexpr int n_warp_vecs() {
 //   a group, not once a trip, with no other warps on the SM to hide it;
 // - fuses the leapfrog's passes: a stage's kick, drift and staging in one,
 //   then the log density, the next kick and the kinetic energy in one;
-//   bodies 4 and 5 are evaluated inside these two passes, each chain's
-//   warp on its own (body 4's spike dots V^T x and body 5's sum of the x
-//   columns' squares as lane partials in the first, added across the warp
-//   between the two, the gradient in the second), so their leaf makes no
-//   shared-memory round trip of its own;
+//   bodies 2, 4 and 5 are evaluated inside these two passes, each chain's
+//   warp on its own (body 2's four sums as lane partials after the first,
+//   mu and log_tau broadcast by two shuffles, body 4's spike dots V^T x
+//   and body 5's sum of the x columns' squares as lane partials in the
+//   first, added across the warp between the two, the gradient in the
+//   second), so their leaf makes no shared-memory round trip of its own;
+//   body 2 (n = 10, lane j < 10 owning column j) keeps its column's p, q,
+//   gradient, inverse mass and its two constants y_j and 1/sigma_j^2 in
+//   registers through the leaf, the constants loaded once a transition;
 // - sums the U-turn dots in one butterfly (warp_sums);
 // - reads the integrator's coefficients with constant indices, so the
 //   launch's constants stay in registers;
@@ -833,9 +863,20 @@ constexpr int kDenseTrips = 1;
 // state spilled; 1 was the fastest of 1, 2 and 4 on the card, PERF.md)
 constexpr int kLowRankTrips = 1;
 
+// Blocks an SM that body 2's block instances are compiled for
+// (nuts_trajectory_es_block_kernel, fused_nuts_es_block_kernel): eight
+// schools' cells run 1,280 blocks of 8 chains; a block's 16.6 KB (per
+// draw) or 18.9 KB (fused) of shared memory at depth 10 and the SM's
+// 2,048 threads leave room for 8 an SM, so the registers set how many run
+// at once, at most 65,536 / (256 k) a thread for k blocks. 2 was the
+// fastest of 1, 2, 3 and 4 on the card whose instances do not spill (3
+// and 4 spill in both kernels; PERF.md). A re-sweep edits this constant
+// in a copy of the tree.
+constexpr int kEsBlocksPerSm = 2;
+
 template <int BODY, int METRIC>
 __host__ __device__ constexpr bool block_body() {
-    return ((BODY == 0 || BODY == 1 || BODY == 4 || BODY == 5) && METRIC == kDiag)
+    return ((BODY == 0 || BODY == 1 || BODY == 2 || BODY == 4 || BODY == 5) && METRIC == kDiag)
            || (BODY == 1 && METRIC == kDense) || (BODY == 4 && METRIC == kLowRank);
 }
 
@@ -1391,8 +1432,8 @@ __device__ TreeResult transition(const TreeConsts& T, const WarpVecs& V, float* 
     return r;
 }
 
-// `transition` for bodies 0, 1, 4 and 5 with the diagonal metric, body 1
-// with the dense metric and body 4 with the low-rank metric in blocks of
+// `transition` for bodies 0, 1, 2, 4 and 5 with the diagonal metric, body
+// 1 with the dense metric and body 4 with the low-rank metric in blocks of
 // up to kBlockChains chains, redesigned for Hopper (see kBlockChains
 // above): the same arguments, with BS the block's shared-memory state; the
 // same result, to the bit. kDense and kLowRank take the start velocity of
@@ -1404,7 +1445,7 @@ __device__ TreeResult block_transition(const TreeConsts& T, const BlockState& BS
                                        const float* g0, float lp0, float E0, float eps, int mdc,
                                        uint32_t salt) {
     static_assert(block_body<BODY, METRIC>(),
-                  "the block transition takes bodies 0, 1, 4 and 5 with the diagonal metric, "
+                  "the block transition takes bodies 0, 1, 2, 4 and 5 with the diagonal metric, "
                   "body 1 with the dense metric and body 4 with the low-rank metric");
     // kDense: every n x n product of a leaf is block-wide (the drift's and
     // the kinetic energy's velocities p COV, as body 1's gradient), into
@@ -1421,11 +1462,11 @@ __device__ TreeResult block_transition(const TreeConsts& T, const BlockState& BS
     constexpr int NSV = slot_vecs<METRIC>();
     float *vl = V.vc, *vr = V.vd;
     float* vlf = LOWRANK ? lowrank_scratch(V, T.cb, T.n) : V.vv;  // a leaf's velocity
-    // trips at a time: the funnel's few columns take one, so that its
-    // passes carry no code for trips that never run; body 4 two, so that
-    // its spike dots' constants fit in registers beside the fused kernel's
-    // state without spilling
-    constexpr int K = BODY == 5 ? 1
+    // trips at a time: eight schools' and the funnel's few columns take
+    // one, so that their passes carry no code for trips that never run;
+    // body 4 two, so that its spike dots' constants fit in registers beside
+    // the fused kernel's state without spilling
+    constexpr int K = BODY == 2 || BODY == 5 ? 1
                       : BODY == 4 ? (LOWRANK ? kLowRankTrips : 2)
                       : DENSE ? kDenseTrips : kTrips;
     const int n = T.n, cb = T.cb, D = T.D, C = T.C, S = BS.smem_slots;
@@ -1458,6 +1499,10 @@ __device__ TreeResult block_transition(const TreeConsts& T, const BlockState& BS
               vlf_o = LOWRANK ? smem_offset(vlf) : 0;
     const float alpha = LOWRANK ? sm[fac_o + kMaxRank * (n + 2)] : 0.f;
     const float inv_s2 = BODY == 5 ? T.lam[0] : 0.f, nx = (float)(n - 1);
+    // body 2: lane j < 10's column of the constants [y; 1/sigma^2] (zero in
+    // columns 0 and 1), in registers for the transition
+    const bool es_own = BODY == 2 && lane < 10;
+    const float es_y = es_own ? T.lam[lane] : 0.f, es_is2 = es_own ? T.lam[10 + lane] : 0.f;
 
     float* s_e = slot_sc;                        // [D][cb] proposal energy
     float* s_lpp = slot_sc + (size_t)D * cb;     // proposal logp
@@ -1690,6 +1735,71 @@ __device__ TreeResult block_transition(const TreeConsts& T, const BlockState& BS
                             });
                     }
                     LMC_CLK_PRODUCT();
+                    LMC_CLK(kClkLeapfrog);
+                    warp_sums(e);
+                    LMC_CLK(kClkWarpSums);
+                    c_e = 0.5f * e[0] - c_lp;
+                }
+            } else if constexpr (BODY == 2) {
+                // one symplectic step (reference integration.py:100-121) for
+                // eight schools (n = 10), each chain's warp on its own, lane
+                // j < 10 holding column j's p, q, gradient and inverse mass
+                // in registers through the leaf: a stage's kick (the first
+                // stage's) and drift; mu and log_tau from lanes 0 and 1 by
+                // two shuffles and the body's four sums (model_eval<2>'s
+                // tt^2, dy resid, resid and resid tt) in one butterfly; the
+                // gradient, the next kick and after the last stage the
+                // kinetic energy; cq, cp and cg stored once, at the leaf's
+                // end. Each element's arithmetic and each sum's order are
+                // model_eval<2>'s and transition's (lanes 10-31 add exact
+                // zeros), so the bits are theirs.
+                if (bld) {
+                    float p = 0.f, q = 0.f, g = 0.f, v = 0.f;
+                    if (es_own) {
+                        p = sm[cp_o + lane]; q = sm[cq_o + lane]; g = sm[cg_o + lane];
+                        v = sm[vv_o + lane];
+                    }
+                    for (int s = 0; s < stages; ++s) {
+                        if (s == 0) {
+                            const float kick0 = b0 * epss;
+                            p = p + kick0 * g;
+                        }
+                        const float drift = (s == 0 ? a0 : s == 1 ? a1 : a2) * epss;
+                        q = q + drift * (v * p);
+                        LMC_CLK(kClkLeapfrog);
+                        const float mu = __shfl_sync(0xffffffffu, q, 0);
+                        const float log_tau = __shfl_sync(0xffffffffu, q, 1);
+                        const float tau = expf(log_tau);
+                        float sums[4] = {0.f, 0.f, 0.f, 0.f};  // tt^2, dy resid, resid, resid tt
+                        float dtt = 0.f;
+                        if (es_own) {
+                            const float tt = lane >= 2 ? q : 0.f;
+                            const float theta = mu + tau * tt;
+                            const float dy = es_y - theta;
+                            const float resid = dy * es_is2;
+                            sums[0] = tt * tt;
+                            sums[1] = dy * resid;
+                            sums[2] = resid;
+                            sums[3] = resid * tt;
+                            dtt = -tt + tau * resid;
+                        }
+                        LMC_CLK(kClkBody);
+                        warp_sums(sums);
+                        LMC_CLK(kClkWarpSums);
+                        const float m5 = mu / 5.0f, l5 = log_tau / 5.0f;
+                        g = lane == 0 ? -mu / 25.0f + sums[2]
+                          : lane == 1 ? -log_tau / 25.0f + tau * sums[3] : dtt;
+                        c_lp = -0.5f * (m5 * m5) - 0.5f * (l5 * l5) - 0.5f * sums[0]
+                               - 0.5f * sums[1];
+                        const float kick = (s == 0 ? b1 : s == 1 ? b2 : b3) * epss;
+                        p = p + kick * g;
+                        LMC_CLK(kClkLeapfrog);
+                    }
+                    float e[1] = {0.f};  // p.(vv p)
+                    if (es_own) {
+                        e[0] += p * (v * p);
+                        sm[cq_o + lane] = q; sm[cp_o + lane] = p; sm[cg_o + lane] = g;
+                    }
                     LMC_CLK(kClkLeapfrog);
                     warp_sums(e);
                     LMC_CLK(kClkWarpSums);

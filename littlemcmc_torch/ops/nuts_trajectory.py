@@ -56,10 +56,10 @@ __all__ = ["TrajectorySpec", "fmix32", "counter_salt", "counter_uniform",
            "runs_block_transition", "stack_shape"]
 
 # Chains per CUDA thread block, one warp per chain: 128 blocks at the
-# main path's 1024 chains for the card's 132 SMs. Bodies 0, 1, 4 and 5 with
-# the diagonal metric, body 1 with the dense metric and body 4 with the
-# low-rank metric run the block transition (csrc/nuts_transition.cuh) in
-# blocks of up to 8 chains, the warp transition in larger ones.
+# main path's 1024 chains for the card's 132 SMs. Bodies 0, 1, 2, 4 and 5
+# with the diagonal metric, body 1 with the dense metric and body 4 with
+# the low-rank metric run the block transition (csrc/nuts_transition.cuh)
+# in blocks of up to 8 chains, the warp transition in larger ones.
 DEFAULT_CHAIN_BLOCK = 8
 # 16 warps of 32 threads at up to 128 registers fill an SM's 65,536; the
 # low-rank metric's instances take 8 warps of up to 255 registers
@@ -76,7 +76,8 @@ METRIC_IDS = {"diag": 0, "dense": 1, "lowrank": 2}
 # whose kLowRank instances run the block transition in chain blocks of up
 # to BLOCK_TRANSITION_CHAINS (block_body() and kBlockChains in
 # csrc/nuts_transition.cuh)
-BLOCK_TRANSITION_BODIES = ("standard_normal", "correlated_gaussian", "spiked_gaussian", "funnel")
+BLOCK_TRANSITION_BODIES = ("standard_normal", "correlated_gaussian", "eight_schools",
+                           "spiked_gaussian", "funnel")
 BLOCK_TRANSITION_DENSE_BODIES = ("correlated_gaussian",)
 BLOCK_TRANSITION_LOWRANK_BODIES = ("spiked_gaussian",)
 BLOCK_TRANSITION_CHAINS = 8

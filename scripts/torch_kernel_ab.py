@@ -33,10 +33,14 @@ state and 2m's input, the spiked Gaussian's fused instance in a 2-draw
 chunk, row 2 dense (a 250-draw launch at ``adapt_full``'s final state,
 phase 2c's 4-draw tune chunk), row 1 dense (phase 2b's input, the
 per-draw twin's final state), row 2c (a 250-draw launch at L1's final
-state) and row 1 low-rank (L2's final state, phase 2m's low-rank input):
-ms a launch (CUDA events), a digest of the outputs (equal digests: the
-two checkouts give the same bits), and from a build with the section
-clocks the grid's tail share and the sections' shares (the final states,
+state), row 1 low-rank (L2's final state, phase 2m's low-rank input),
+rows 2b body 2 and 1 body 2 (eight schools at 10,240 chains: a 250-draw
+launch at the NUTS ``fused_diag`` cell's final state, a per-draw launch
+at its twin's, and one at phase 2f's 1024-chain input): ms a launch (CUDA
+events), a digest of the outputs (equal digests: the two checkouts give
+the same bits), the blocks an SM and waves of the launch (where the
+checkout records them), and from a build with the section clocks the
+grid's tail share and the sections' shares (the final states,
 kept in ``build/`` by that script, the first run samples with its
 checkout and the later ones load). The inputs are made with numpy
 from fixed seeds, so two checkouts see the same work; the final states
@@ -171,8 +175,10 @@ def _transition_rows(root: Path) -> dict:
     ``adapt_full``'s final state and phase 2c's tune chunk, row 1 dense at
     phase 2b's input and the per-draw twin's final state, row 2c at L1's
     final state, row 1 low-rank at L2's final state and phase 2m's
-    low-rank input: ms a launch of
-    the package's build, its output digest, the tail share, each section's
+    low-rank input, rows 2b body 2 and 1 body 2 at the eight-schools NUTS
+    cell's and its twin's final states and phase 2f's input: ms a launch of
+    the package's build, its output digest, its blocks an SM and waves,
+    the tail share, each section's
     share of a warp's cycles and the cycles a leaf step, the n x n
     products (low-rank: velocities) a chain-draw and the fused draw's
     parts around the transition,
@@ -187,7 +193,8 @@ def _transition_rows(root: Path) -> dict:
         key = f"{r['kernel']}_{r['metric']}_{r['case']}"
         out[f"{key}_ms"] = r["plain_build_ms"]
         out[f"{key}_digest"] = r["digest"]
-        for k in ("tail_share", "block_ms_mean", "block_ms_max", "cycles_per_step",
+        for k in ("blocks_per_sm", "waves", "tail_share", "block_ms_mean", "block_ms_max",
+                  "cycles_per_step",
                   "leaf_steps_per_chain", "leaves_built_per_chain",
                   "mean_leaves_per_chain_draw", "max_depth", "products_per_chain_draw",
                   "velocities_per_chain_draw",

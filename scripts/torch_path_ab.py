@@ -2,7 +2,7 @@
 """Time whole ``sample()`` paths of one checkout of littlemcmc_torch on the
 card.
 
-    python3 scripts/torch_path_ab.py [ROOT] [--paths=logistic,adapt_full,lowrank]
+    python3 scripts/torch_path_ab.py [ROOT] [--paths=logistic,adapt_full,lowrank,eight_schools]
 
 Runs, with the checkout at ROOT (default: the one this script is in),
 from seed 42 at 1024 chains (default: every group):
@@ -19,7 +19,12 @@ from seed 42 at 1024 chains (default: every group):
 - ``lowrank``: the 100-d spiked Gaussian with ``init="jitter+adapt_lowrank"``
   (500 + 1000) as phases 3o-3p do: L1 on the fused engine and L2, its
   per-draw twin, each with its min bulk ESS and min-bulk-ESS/s, and each
-  of L1's fused launches' device ms from a profiled repeat.
+  of L1's fused launches' device ms from a profiled repeat;
+- ``eight_schools``: eight schools at 10,240 chains (500 + 500,
+  ``target_accept=0.95``) with NUTS as phases 3g-3h do: the ``fused_diag``
+  cell and its ``fuse_draws=False`` twin, each with its min bulk ESS over
+  the 10 dimensions and min-bulk-ESS/s, and each of the fused cell's four
+  launches' device ms from a profiled repeat.
 
 Prints one JSON line: each path's ``sample_seconds``, launches by kernel
 (the batched logistic kernel's too), mean tree size, the fused launches'
@@ -120,8 +125,47 @@ def _lowrank_paths(out: dict) -> None:
                                   "device_busy_share", "sample_seconds_profiled")})
 
 
+def _eight_schools_paths(out: dict) -> None:
+    """Eight schools' NUTS cells (``EightSchools()``, 10,240 chains, 500 +
+    500, ``target_accept=0.95``, seed 42) as ``chip_smoke.py``'s phases
+    3g-3h run them: the ``fused_diag`` engine and its per-draw twin
+    (``fuse_draws=False``), each once as the user calls it, with the min
+    bulk ESS over the 10 dimensions and min-bulk-ESS/s; then the fused call
+    once more under ``torch.profiler`` for each fused launch's device ms
+    (``chip_smoke._fused_path_breakdown``)."""
+    import chip_smoke
+    from littlemcmc_torch import NUTS, sample
+    from littlemcmc_torch.models import EightSchools
+    from littlemcmc_torch.utils.diagnostics import ess_bulk
+
+    model = EightSchools()
+    kw = dict(model_ndim=10, chains=chip_smoke.ES_CHAINS, tune=chip_smoke.ES_TUNE,
+              draws=chip_smoke.ES_DRAWS)
+
+    def step():
+        return NUTS(model_ndim=10, target_accept=chip_smoke.ES_TARGET)
+
+    for path, fuse in (("eight_schools_fused", None), ("eight_schools_per_draw", False)):
+        report = {}
+        trace, stats = sample(model.logp_grad, random_seed=42, fuse_draws=fuse, step=step(),
+                              perf_report=report, progressbar=False,
+                              compute_convergence_checks=False, **kw)
+        ess = float(min(ess_bulk(trace[:, :, i]) for i in range(10)))
+        out[path] = {"engine": report["engine"], "sample_seconds": report["sample_seconds"],
+                     "kernel_launches": report.get("kernel_launches"),
+                     "mean_tree_size": float(stats["tree_size"].mean()),
+                     "mean_depth": float(stats["depth"].mean()),
+                     "divergence_share": float(stats["diverging"].mean()),
+                     "min_bulk_ess": ess, "min_bulk_ess_per_s": ess / report["sample_seconds"]}
+    line = chip_smoke._fused_path_breakdown(model, "nuts", dict(kw, step=step()),
+                                            draw_chunks=2, label="_eight_schools")
+    out["eight_schools_fused"].update(
+        {k: line.get(k) for k in ("fused_launch_ms", "fused_tune_ms", "fused_draw_ms",
+                                  "device_busy_share", "sample_seconds_profiled")})
+
+
 PATHS = {"logistic": _logistic_paths, "adapt_full": _adapt_full_paths,
-         "lowrank": _lowrank_paths}
+         "lowrank": _lowrank_paths, "eight_schools": _eight_schools_paths}
 
 
 def main() -> int:

@@ -28,19 +28,30 @@ instances through the package's wrappers (tree depth 10, chain blocks of
 - the 100-d spiked Gaussian with the pooled low-rank metric (rows 2c and
   1 low-rank): the fused instance at L1's final state (its variances and
   factor block), the per-draw instance at L2's final state (its scales
-  and factor block) and at phase 2m's low-rank input.
+  and factor block) and at phase 2m's low-rank input;
+- eight schools (body 2, rows 2b body 2 and 1 body 2) at 10,240 chains:
+  the fused instance at the final state of the NUTS ``fused_diag`` cell
+  (``es_fused_final``), the per-draw instance at its ``fuse_draws=False``
+  twin's (``es_per_draw_final``), and the per-draw instance at
+  ``chip_smoke.py``'s phase-2f input (1024 chains, ``phase2f``).
 
 A fused launch from a final state runs a 250-draw draw chunk. The final
 states (main path, F1, L0, ``adapt_full`` fused and per draw, L1 and L2:
-``sample()`` at 1024 chains, 500 + 1000, seed 42) are sampled once with
-ROOT's package and kept in ``build/`` beside this script
-(``STATE_FILES``), so that every checkout timed in one call sees the
-same states.
+``sample()`` at 1024 chains, 500 + 1000, seed 42; the eight-schools cell
+and its twin: 10,240 chains, 500 + 500, ``target_accept=0.95``, seed 42)
+are sampled once with ROOT's package and kept in ``build/`` beside this
+script (``STATE_FILES``), so that every checkout timed in one call sees
+the same states.
 
 For each launch it prints one JSON line:
 
 - ``ms`` (CUDA events, the instrumented build) and ``plain_build_ms`` (the
   package's own build, the same launch): the instrumentation's cost;
+- ``blocks_per_sm``, the blocks of the package build's launch that fit
+  on an SM at once (the CUDA runtime's occupancy at the launch's threads
+  and dynamic shared memory, which the libraries record at each launch;
+  null for a checkout from before that query), and ``waves``, the grid's
+  blocks over that many on every SM;
 - the blocks' start and end on the global timer and their SMs: the
   span, the blocks' busy times, and ``tail_share``, the share of SM-time
   between the first start and the last end in which the SMs that ran a
@@ -154,12 +165,16 @@ def _load_clocked(path: Path, name: str):
 # pooled dense metric) on the fused engine and on its per-draw twin
 # (``fuse_draws=False``), and L1 and L2 (``SpikedGaussian(100)``,
 # ``jitter+adapt_lowrank``: the pooled low-rank metric, fused and per
-# draw).
+# draw); and eight schools' NUTS cell (``EightSchools()``, chip_smoke.py's
+# ES_CHAINS, ES_TUNE, ES_DRAWS and ES_TARGET: 10,240 chains, 500 + 500,
+# ``target_accept=0.95``), on the fused diag engine and on its per-draw twin.
 STATE_FILES = {"main": "transition_clocks_state.pt", "f1": "transition_clocks_f1_state.pt",
                "l0": "transition_clocks_l0_state.pt",
                "adapt_full": "transition_clocks_adapt_full_state.pt",
                "adapt_full_twin": "transition_clocks_adapt_full_twin_state.pt",
-               "l1": "transition_clocks_l1_state.pt", "l2": "transition_clocks_l2_state.pt"}
+               "l1": "transition_clocks_l1_state.pt", "l2": "transition_clocks_l2_state.pt",
+               "es_fused": "transition_clocks_es_fused_state.pt",
+               "es_twin": "transition_clocks_es_twin_state.pt"}
 
 
 def metric_state(pot, ndim: int) -> dict:
@@ -181,8 +196,10 @@ def metric_state(pot, ndim: int) -> dict:
     return {"var": pot.var}
 
 
-def _final_state(path: Path, model, **kw) -> dict:
-    """A cell's final state (sampled once with ``kw``, then loaded): the
+def _final_state(path: Path, model, chains: int = C, tune: int = 500, draws: int = 1000,
+                 **kw) -> dict:
+    """A cell's final state (``sample()`` of ``chains`` chains, ``tune`` +
+    ``draws``, seed 42 and ``kw``, sampled once, then loaded): the
     trajectory and fused ops' inputs, a momentum from a fixed seed, and
     the metric's tensors (:func:`metric_state`)."""
     import torch
@@ -191,14 +208,14 @@ def _final_state(path: Path, model, **kw) -> dict:
         return torch.load(path)
     from littlemcmc_torch import sample
 
-    _, _, s = sample(model.logp_grad, model_ndim=model.ndim, chains=C, tune=500, draws=1000,
-                     random_seed=42, return_final_state=True, progressbar=False,
+    _, _, s = sample(model.logp_grad, model_ndim=model.ndim, chains=chains, tune=tune,
+                     draws=draws, random_seed=42, return_final_state=True, progressbar=False,
                      compute_convergence_checks=False, **kw)
     da, pot = s.da, s.potential
     metric = metric_state(pot, model.ndim)
     state = {k: v.contiguous().clone() for k, v in dict(
         q=s.q, grad=s.q_grad, logp=s.logp, **metric,
-        p=pot.sample_momentum(torch.Generator(device="cuda").manual_seed(7)),
+        p=pot.sample_momentum(torch.Generator(device=s.q.device).manual_seed(7)),
         iter=s.iter_count.float(), log_step=da.log_step, log_bar=da.log_bar, hbar=da.hbar,
         count=da.count.float(), mu=da.mu).items()}
     path.parent.mkdir(parents=True, exist_ok=True)
@@ -206,93 +223,128 @@ def _final_state(path: Path, model, **kw) -> dict:
     return state
 
 
-def _inputs(root: Path, state_dir: Path) -> dict:
+def _inputs(root: Path, state_dir: Path, only=None) -> dict:
     """case -> (kernel, model, positional args, seed words, keywords of the
-    op beyond the model's spec and the chain block): rows 1 diag and 2b
-    body 1 (the correlated Gaussian) at phase 2's input and the main path's
-    final state; row 2a (the funnel's fused instance) at F1's final state
-    and phase 2p's draw-chunk input; the funnel in the per-draw kernel at
-    phase 2o's input; row 1 body 4 (the spiked Gaussian per draw) at L0's
-    final state and phase 2m's input; the spiked Gaussian's fused instance
-    in a 2-draw chunk of 256 chains at phase 2m's positions; row 2 dense
-    (the correlated Gaussian's fused instance with the pooled dense
-    metric) in a 250-draw chunk at ``adapt_full``'s final state and in
-    phase 2c's tune chunk as the cell runs it (4 draws, ``adapt_dense``
-    across a window swap, the step size adapting); row 1 dense (the same
-    body per draw) at phase 2b's input and at the per-draw twin's final
-    state; rows 2c and 1 low-rank (the spiked Gaussian with the pooled
-    low-rank metric) at L1's final state (a 250-draw chunk) and at L2's
-    final state and phase 2m's low-rank input (per draw)."""
+    op beyond the model's spec and the chain block), for the cases in
+    ``only`` (default all; a final state is sampled or loaded only for a
+    case that reads it): rows 1 diag and 2b body 1 (the correlated
+    Gaussian) at phase 2's input and the main path's final state; row 2a
+    (the funnel's fused instance) at F1's final state and phase 2p's
+    draw-chunk input; the funnel in the per-draw kernel at phase 2o's
+    input; row 1 body 4 (the spiked Gaussian per draw) at L0's final state
+    and phase 2m's input; the spiked Gaussian's fused instance in a 2-draw
+    chunk of 256 chains at phase 2m's positions; row 2 dense (the
+    correlated Gaussian's fused instance with the pooled dense metric) in
+    a 250-draw chunk at ``adapt_full``'s final state and in phase 2c's tune
+    chunk as the cell runs it (4 draws, ``adapt_dense`` across a window
+    swap, the step size adapting); row 1 dense (the same body per draw) at
+    phase 2b's input and at the per-draw twin's final state; rows 2c and 1
+    low-rank (the spiked Gaussian with the pooled low-rank metric) at L1's
+    final state (a 250-draw chunk) and at L2's final state and phase 2m's
+    low-rank input (per draw); rows 2b body 2 and 1 body 2 (eight schools)
+    in a 250-draw chunk at the NUTS ``fused_diag`` cell's final state, one
+    launch at its per-draw twin's final state (10,240 chains each) and one
+    at phase 2f's input (1024 chains)."""
+    import functools
+
     import numpy as np
     import torch
 
     sys.path.insert(0, str(root))
     import chip_smoke
+    from littlemcmc_torch import NUTS
     from littlemcmc_torch.base import NUTSConfig
-    from littlemcmc_torch.models import CorrelatedGaussian, NealsFunnel, SpikedGaussian
+    from littlemcmc_torch.models import (CorrelatedGaussian, EightSchools, NealsFunnel,
+                                         SpikedGaussian)
 
-    cg, fun, sg = CorrelatedGaussian(N), NealsFunnel(10), SpikedGaussian(N)
-    q, p, g, lp, eps, mdc, var = chip_smoke._stationary_inputs(
-        cg, np.linalg.cholesky(cg.cov), C, 0.2, seed=0)
-    main = _final_state(state_dir / STATE_FILES["main"], cg)
-    f1 = _final_state(state_dir / STATE_FILES["f1"], fun, target_accept=0.9)
-    l0 = _final_state(state_dir / STATE_FILES["l0"], sg, init="jitter+adapt_diag")
-    af = _final_state(state_dir / STATE_FILES["adapt_full"], cg, init="adapt_full")
-    twin = _final_state(state_dir / STATE_FILES["adapt_full_twin"], cg, init="adapt_full",
-                        fuse_draws=False)
-    l1 = _final_state(state_dir / STATE_FILES["l1"], sg, init="jitter+adapt_lowrank")
-    l2 = _final_state(state_dir / STATE_FILES["l2"], sg, init="jitter+adapt_lowrank",
-                      fuse_draws=False)
-    lr_args, lr_fac = chip_smoke._lowrank_inputs(sg, C, 0.5, seed=23)
-    full = torch.full((C,), DEPTH, dtype=torch.int32, device="cuda")
+    cg, fun, sg, es = CorrelatedGaussian(N), NealsFunnel(10), SpikedGaussian(N), EightSchools()
+    es_step = dict(chains=chip_smoke.ES_CHAINS, tune=chip_smoke.ES_TUNE,
+                   draws=chip_smoke.ES_DRAWS,
+                   step=NUTS(model_ndim=es.ndim, target_accept=chip_smoke.ES_TARGET))
+    cells = {"main": (cg, {}), "f1": (fun, dict(target_accept=0.9)),
+             "l0": (sg, dict(init="jitter+adapt_diag")),
+             "adapt_full": (cg, dict(init="adapt_full")),
+             "adapt_full_twin": (cg, dict(init="adapt_full", fuse_draws=False)),
+             "l1": (sg, dict(init="jitter+adapt_lowrank")),
+             "l2": (sg, dict(init="jitter+adapt_lowrank", fuse_draws=False)),
+             "es_fused": (es, es_step), "es_twin": (es, dict(es_step, fuse_draws=False))}
+
+    @functools.lru_cache(maxsize=None)
+    def state(key):
+        model, kw = cells[key]
+        return _final_state(state_dir / STATE_FILES[key], model, **kw)
+
+    @functools.lru_cache(maxsize=None)
+    def stationary():
+        return chip_smoke._stationary_inputs(cg, np.linalg.cholesky(cg.cov), C, 0.2, seed=0)
+
     f = dict(dtype=torch.float32, device="cuda")
-    leps = torch.log(eps)
     diag, dense = dict(metric="diag"), dict(metric="dense")
 
     def traj(s, var="var"):
-        return (s["q"], s["p"], s["grad"], s["logp"], torch.exp(s["log_bar"]), full, s[var])
+        depth = torch.full((s["q"].shape[0],), DEPTH, dtype=torch.int32, device="cuda")
+        return (s["q"], s["p"], s["grad"], s["logp"], torch.exp(s["log_bar"]), depth, s[var])
 
     def fused(s):
         return (s["q"], s["grad"], s["logp"], s["iter"], s["log_step"], s["log_bar"], s["hbar"],
                 s["count"], s["mu"], s["var"], s.get("linv"))
 
-    def draws(T, metric="diag"):
-        return dict(T=T, tuning=False, config=NUTSConfig(), metric=metric)
+    def draws(T, metric="diag", config=None):
+        return dict(T=T, tuning=False, config=config or NUTSConfig(), metric=metric)
 
     def chunk(model, chains, seed):  # the smoke's diag draw-chunk input (fused_check)
         return chip_smoke._diag_fused_inputs(model, chains, seed, False, swap_at=1)[0]
 
-    return {
-        "phase2": ("trajectory", cg, (q, p, g, lp, eps, mdc, var), (17, 29), diag),
-        "main_final": ("trajectory", cg, traj(main), (3, 8), diag),
-        "fused_phase2": ("fused_nuts", cg, (q, g, lp, torch.full((C,), 1500.0, **f), leps, leps,
-                                            torch.zeros(C, **f), torch.full((C,), 40.0, **f),
-                                            leps + float(np.log(10.0)), var, None), (5, 9),
-                         draws(250)),
-        "fused_main_final": ("fused_nuts", cg, fused(main), (5, 9), draws(250)),
-        "f1_final": ("fused_nuts", fun, fused(f1), (5, 9), draws(250)),
-        "phase2p": ("fused_nuts", fun, chunk(fun, C, 35), (211, 7), draws(2)),
-        "phase2o": ("trajectory", fun, chip_smoke._posterior_inputs(fun, C, 0.2, 33), (197, -5),
-                    diag),
-        "l0_final": ("trajectory", sg, traj(l0), (3, 8), diag),
-        "phase2m": ("trajectory", sg, chip_smoke._posterior_inputs(sg, 256, 0.1, 25), (163, 167),
-                    diag),
-        "fused_phase2m": ("fused_nuts", sg, chunk(sg, 256, 25), (229, 7), draws(2)),
-        "adapt_full_final": ("fused_nuts", cg, fused(af), (5, 9), draws(250, "dense")),
-        "phase2c_tune": ("fused_nuts", cg, chip_smoke._fused_inputs(cg, C, 5), (47, 13),
-                         dict(T=4, tuning=True, config=NUTSConfig(adapt_step_size=True),
-                              metric="dense", window_multiplier=2.0,
-                              dense_welford=chip_smoke._welford_seed(cg))),
-        "phase2b": ("trajectory", cg, chip_smoke._dense_stationary_inputs(cg, C, 0.5, seed=2),
-                    (23, 31), dense),
-        "twin_final": ("trajectory", cg, traj(twin), (3, 8), dense),
-        "l1_final": ("fused_nuts", sg, fused(l1), (5, 9), dict(draws(250, "lowrank"),
-                                                                fac=l1["fac"])),
-        "l2_final": ("trajectory", sg, traj(l2, "stds"), (3, 8),
-                     dict(metric="lowrank", fac=l2["fac"])),
-        "phase2m_lowrank": ("trajectory", sg, lr_args, (139, -149),
-                            dict(metric="lowrank", fac=lr_fac)),
+    def fused_phase2():
+        q, _, g, lp, eps, _, var = stationary()
+        leps = torch.log(eps)
+        return (q, g, lp, torch.full((C,), 1500.0, **f), leps, leps, torch.zeros(C, **f),
+                torch.full((C,), 40.0, **f), leps + float(np.log(10.0)), var, None)
+
+    def lowrank_2m():
+        return chip_smoke._lowrank_inputs(sg, C, 0.5, seed=23)
+
+    cases = {
+        "phase2": lambda: ("trajectory", cg, stationary(), (17, 29), diag),
+        "main_final": lambda: ("trajectory", cg, traj(state("main")), (3, 8), diag),
+        "fused_phase2": lambda: ("fused_nuts", cg, fused_phase2(), (5, 9), draws(250)),
+        "fused_main_final": lambda: ("fused_nuts", cg, fused(state("main")), (5, 9),
+                                     draws(250)),
+        "f1_final": lambda: ("fused_nuts", fun, fused(state("f1")), (5, 9), draws(250)),
+        "phase2p": lambda: ("fused_nuts", fun, chunk(fun, C, 35), (211, 7), draws(2)),
+        "phase2o": lambda: ("trajectory", fun,
+                            chip_smoke._posterior_inputs(fun, C, 0.2, 33), (197, -5), diag),
+        "l0_final": lambda: ("trajectory", sg, traj(state("l0")), (3, 8), diag),
+        "phase2m": lambda: ("trajectory", sg, chip_smoke._posterior_inputs(sg, 256, 0.1, 25),
+                            (163, 167), diag),
+        "fused_phase2m": lambda: ("fused_nuts", sg, chunk(sg, 256, 25), (229, 7), draws(2)),
+        "adapt_full_final": lambda: ("fused_nuts", cg, fused(state("adapt_full")), (5, 9),
+                                     draws(250, "dense")),
+        "phase2c_tune": lambda: ("fused_nuts", cg, chip_smoke._fused_inputs(cg, C, 5), (47, 13),
+                                 dict(T=4, tuning=True, config=NUTSConfig(adapt_step_size=True),
+                                      metric="dense", window_multiplier=2.0,
+                                      dense_welford=chip_smoke._welford_seed(cg))),
+        "phase2b": lambda: ("trajectory", cg,
+                            chip_smoke._dense_stationary_inputs(cg, C, 0.5, seed=2), (23, 31),
+                            dense),
+        "twin_final": lambda: ("trajectory", cg, traj(state("adapt_full_twin")), (3, 8), dense),
+        "l1_final": lambda: ("fused_nuts", sg, fused(state("l1")), (5, 9),
+                             dict(draws(250, "lowrank"), fac=state("l1")["fac"])),
+        "l2_final": lambda: ("trajectory", sg, traj(state("l2"), "stds"), (3, 8),
+                             dict(metric="lowrank", fac=state("l2")["fac"])),
+        "phase2m_lowrank": lambda: ("trajectory", sg, lowrank_2m()[0], (139, -149),
+                                    dict(metric="lowrank", fac=lowrank_2m()[1])),
+        "es_fused_final": lambda: ("fused_nuts", es, fused(state("es_fused")), (5, 9),
+                                   draws(250, config=NUTSConfig(
+                                       target_accept=chip_smoke.ES_TARGET))),
+        "es_per_draw_final": lambda: ("trajectory", es, traj(state("es_twin")), (3, 8), diag),
+        "phase2f": lambda: ("trajectory", es, chip_smoke._posterior_inputs(es, 1024, 0.3, 11),
+                            (83, -89), diag),
     }
+    unknown = set(only or ()) - set(cases)
+    if unknown:
+        raise ValueError(f"unknown cases {sorted(unknown)}; known: {sorted(cases)}")
+    return {k: make() for k, make in cases.items() if not only or k in only}
 
 
 def clock_buffer_len(chains: int, cb: int) -> int:
@@ -385,6 +437,15 @@ def _ms(fn, reps: int) -> float:
     return start.elapsed_time(end) / reps
 
 
+def _blocks_per_sm(lib_name: str):
+    """Blocks an SM of the package build's last launch of ``lib_name``
+    (its ``*_last_blocks_per_sm``), or None where the library lacks it."""
+    from littlemcmc_torch.ops import _build
+
+    fn = getattr(_build.load_library(lib_name), f"{lib_name}_last_blocks_per_sm", None)
+    return int(fn()) if fn is not None else None
+
+
 def run_clocks(root: Path, state_dir: Path, out_dir: Path, only=None) -> list:
     """Every launch's JSON record for the checkout at ``root`` (its package
     already on ``sys.path``); ``only``: the cases to run (default all)."""
@@ -399,7 +460,7 @@ def run_clocks(root: Path, state_dir: Path, out_dir: Path, only=None) -> list:
     clocked = _finish_clocked(procs)
     build_s = time.perf_counter() - t0
     libs = {name: _load_clocked(path, name) for name, (path, _) in clocked.items()}
-    cases = _inputs(root, state_dir)
+    cases = _inputs(root, state_dir, only)
     ops = {"trajectory": (trajectory, "nuts_trajectory"), "fused_nuts": (fused_nuts, "fused_nuts")}
     n_sms = torch.cuda.get_device_properties(0).multi_processor_count
     real_load = _build.load_library
@@ -419,6 +480,7 @@ def run_clocks(root: Path, state_dir: Path, out_dir: Path, only=None) -> list:
             return op(*args, seed, **kw)
 
         digest = _digest(call())
+        blocks_per_sm = _blocks_per_sm(lib_name)
         plain_build_ms = _ms(call, reps)
         lib, bind, bind_side = libs[lib_name]
         _build.load_library = (lambda name, _l=lib, _n=lib_name:
@@ -429,6 +491,8 @@ def run_clocks(root: Path, state_dir: Path, out_dir: Path, only=None) -> list:
                    "body": model.trajectory_spec().body, "metric": extra["metric"],
                    "chains": chains, "draws": T or 1, "ms": instr_ms,
                    "plain_build_ms": plain_build_ms, "digest": digest,
+                   "blocks_per_sm": blocks_per_sm,
+                   "waves": (chains // CB / (blocks_per_sm * n_sms) if blocks_per_sm else None),
                    "ptxas_clocks": clocked[lib_name][1]}
             if bind is not None:
                 buf = torch.zeros(clock_buffer_len(chains, CB), dtype=torch.int64,
@@ -461,8 +525,9 @@ def run_clocks(root: Path, state_dir: Path, out_dir: Path, only=None) -> list:
 
 def main() -> int:
     here = Path(__file__).resolve().parents[1]
-    args = [a for a in sys.argv[1:] if not a.startswith("--cases=")]
-    only = [c for a in sys.argv[1:] if a.startswith("--cases=") for c in a[8:].split(",")]
+    opts = [a for a in sys.argv[1:] if a.startswith("--")]
+    args = [a for a in sys.argv[1:] if not a.startswith("--")]
+    only = [c for a in opts if a.startswith("--cases=") for c in a[8:].split(",")]
     root = Path(args[0] if args else here).resolve()
     sys.path.insert(0, str(root))
     import torch

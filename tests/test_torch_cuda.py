@@ -663,6 +663,100 @@ def test_lowrank_block_kernel_refuses_where_the_spikes_do_not_fit(hopper):
     assert torch.isfinite(got["q"]).all()
 
 
+# Body 2 (eight schools, n = 10) with the diagonal metric in blocks of up
+# to 8 chains runs the block transition too, in instances of its own
+# compiled for several blocks an SM (the cells' 10,240 chains make 1,280
+# blocks of 8): the body evaluated inside the leapfrog's passes, each
+# lane's column and its two constants in registers, the whole merge stack
+# in shared memory. The inputs put a quarter of the chains deep in the
+# funnel's neck (chip_smoke._es_positions); at a step of 0.002 three
+# quarters of the trees reach the depth cap of 10 (every slot of the
+# stack written), a few U-turn early. Blocks of 5 and 1 chains leave the
+# block ragged; blocks of 16 stay on the warp transition.
+@pytest.mark.cuda
+@pytest.mark.parametrize("chains,block", [(64, 8), (40, 5), (8, 1), (64, 16)],
+                         ids=["8", "5", "1", "16-warp"])
+def test_es_block_kernel_to_depth_10_matches_plain(hopper, chains, block):
+    from littlemcmc_torch.ops.nuts_trajectory import runs_block_transition
+
+    es = tm.EightSchools()
+    assert runs_block_transition("eight_schools", "diag", block) == (block <= 8)
+    D = 10
+    args = _posterior_like_inputs(es, chains, D, 0.002, 13, hopper)
+    kw = dict(spec=es.trajectory_spec(), max_treedepth=D, Emax=1000.0, chain_block=block)
+    launches = trajectory.launches
+    got = trajectory(*args, (31, -37), **kw)
+    torch.cuda.synchronize()
+    assert trajectory.launches == launches + 1
+    want = trajectory_plain(*args, (31, -37), **kw)
+    assert int(want["depth"].max()) == D
+    assert float((want["depth"] == D).float().mean()) > 0.5
+    agree = torch.stack([got[k] == want[k] for k in FLAGS]).all(0)
+    assert float(agree.float().mean()) >= 0.99
+    sd = torch.from_numpy(_posterior_sd(es)).float().to(hopper)
+    assert _flip_share(got, want, agree, sd, "q") <= _FLIPS
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("block,tuning", [(8, False), (5, False), (1, False), (8, True),
+                                          (5, True), (1, True)],
+                         ids=["draw-8", "draw-5", "draw-1", "tune-8", "tune-5", "tune-1"])
+def test_fused_es_block_kernel_matches_plain(hopper, block, tuning):
+    """The fused kernel's body-2 diag instance on the block transition, in
+    blocks of 8, 5 and 1 chains: a 2-draw draw chunk of 8 blocks at step
+    0.002 (held, so the trees reach depth 10), as the body-1 test above
+    holds it; and a 4-draw tune chunk of 40 blocks as the cell's first
+    chunk runs it (the per-chain Welford steps across a window swap, the
+    step size adapting from about 0.3, where 40% of the trees diverge, so
+    divergent leaves are among those held) with every check of the smoke's
+    phase 2i."""
+    es = tm.EightSchools()
+    if tuning:
+        res, failures, got, _, _, _ = fused_check(es, 40 * block, 4, True, True, seed=15,
+                                                  words=(41, -43), metric="diag",
+                                                  chain_block=block)
+        assert not failures, res
+        assert res["step_size_adapting"] and res["divergence_share"] > 0.1
+        return
+    res, failures, got, want, _, _ = fused_check(es, 8 * block, 2, False, False, seed=15,
+                                                 words=(41, -43), metric="diag",
+                                                 log_step=float(np.log(0.002)),
+                                                 chain_block=block)
+    moved = ("q or energy differ", "stat model_logp", "stat energy_error")
+    assert not [f for f in failures if not f.startswith(moved)
+                and "against the plain version" not in f], res
+    assert int(want["depth"].max()) == 10 and res["mean_depth"] > 5
+    agree = torch.stack([got[k] == want[k] for k in FLAGS]).all(0)
+    held = _held(agree, block)
+    sd = torch.from_numpy(_posterior_sd(es)).float().to(hopper)
+    assert _flip_share(got, want, held, sd, "trace") <= _FLIPS, res
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("kernel", ["trajectory", "fused_nuts"])
+def test_es_block_kernels_at_the_cells_10240_chains(hopper, kernel):
+    """One launch of each eight-schools block instance at the cells' 10,240
+    chains (1,280 blocks, several sharing an SM: the launch's blocks an SM
+    from the runtime's occupancy), held against the plain version on every
+    sixteenth chain (whole blocks, a quarter of them in the neck): the
+    per-draw launch as the smoke's phase 2f checks it, a 2-draw tune chunk
+    as phase 2i does."""
+    from chip_smoke import _compare, _posterior_inputs
+    from littlemcmc_torch.ops._build import last_blocks_per_sm
+
+    es = tm.EightSchools()
+    if kernel == "trajectory":
+        _compare("eight_schools", es, _posterior_inputs(es, 10240, 0.3, seed=4), (5, -6),
+                 need=0.99, share=16)
+        name = "nuts_trajectory"
+    else:
+        res, failures, _, _, _, _ = fused_check(es, 10240, 2, True, True, seed=9,
+                                                words=(23, -5), metric="diag", share=16)
+        assert not failures, res
+        name = "fused_nuts"
+    assert last_blocks_per_sm(name) >= 2
+
+
 @pytest.mark.cuda
 @pytest.mark.parametrize("step", ["nuts", "hmc"])
 def test_eight_schools_sample_on_the_card(hopper, step):

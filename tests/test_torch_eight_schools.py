@@ -145,6 +145,34 @@ def test_trajectory_plain_matches_jax_eight_schools():
         np.testing.assert_allclose(got[k][agree], want[k][agree], atol=1e-4, rtol=1e-4)
 
 
+def test_trajectory_plain_matches_jax_eight_schools_to_deeper_merges():
+    """(b) one NUTS transition of 64 chains in blocks of 8 at a smaller
+    step, so that trees run deeper: the cap of 8, mean depth above 3, so
+    that a block's merges reach the upper slots of the stack (which the
+    card's block transition keeps in shared memory) and the subtrees'
+    U-turn checks span several levels; a quarter of the chains in the
+    funnel's neck. The tolerances of the test above."""
+    n, Cn, D = 10, 64, 8
+    q, p, var, eps, lp, g = _diag_inputs(np.random.default_rng(7), Cn, 0.08)
+    mdc = np.full(Cn, D, np.int32)
+    mdc[::5] = D - 2
+    op = build_trajectory_op(jm.EightSchools().pallas_trajectory_spec(), n, D, 1000.0,
+                             interpret=True, chain_block=CB, pack=1)
+    want = jax.tree.map(np.asarray, op(q, p, g, lp, eps, mdc, var,
+                                       jnp.asarray(SEED, jnp.int32)))
+    t = [torch.from_numpy(np.array(x)) for x in (q, p, g, lp, eps, mdc, var)]
+    got = trajectory(*t, SEED, spec=tm.EightSchools(device="cpu").trajectory_spec(),
+                     max_treedepth=D, Emax=1000.0, chain_block=CB)
+    got = {k: v.numpy() for k, v in got.items()}
+    agree = np.all([got[k] == want[k] for k in FLAGS], axis=0)
+    assert agree.mean() >= 0.99, agree
+    assert want["depth"].mean() > 3 and want["depth"].max() >= 6, want["depth"]
+    np.testing.assert_allclose(got["q"][agree] / ES_SD, want["q"][agree] / ES_SD, atol=1e-5,
+                               rtol=0)
+    for k in ("energy", "logp", "log_size"):
+        np.testing.assert_allclose(got[k][agree], want[k][agree], atol=1e-4, rtol=1e-4)
+
+
 def test_hmc_trajectory_plain_matches_jax_eight_schools():
     """(c) one HMC transition of 32 chains with step counts 1 to 40: every
     chain agrees on its accept and divergence; q within 1e-4 of its

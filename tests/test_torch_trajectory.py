@@ -226,9 +226,9 @@ def test_convert_round_trip_and_shared_start():
 def test_block_transition_predicate_matches_the_kernels(chain_block):
     """``runs_block_transition`` names the instances that ``block_body()``
     and ``kBlockChains`` of ``csrc/nuts_transition.cuh`` put on the block
-    transition: bodies 0, 1, 4 and 5 with the diagonal metric, body 1 with
-    the dense metric and body 4 with the low-rank metric, in blocks of up
-    to 8 chains."""
+    transition: bodies 0, 1, 2, 4 and 5 with the diagonal metric, body 1
+    with the dense metric and body 4 with the low-rank metric, in blocks of
+    up to 8 chains."""
     import re
     from pathlib import Path
 
@@ -249,7 +249,7 @@ def test_block_transition_predicate_matches_the_kernels(chain_block):
               for t, m in terms}
     chains = int(re.search(r"constexpr int kBlockChains = (\d+);", src).group(1))
     assert ({BODY_IDS[b] for b in BLOCK_TRANSITION_BODIES} == bodies[METRIC_IDS["diag"]]
-            == {0, 1, 4, 5})
+            == {0, 1, 2, 4, 5})
     assert {BODY_IDS[b] for b in BLOCK_TRANSITION_DENSE_BODIES} == bodies[METRIC_IDS["dense"]]
     assert bodies[METRIC_IDS["dense"]] == {1}
     assert ({BODY_IDS[b] for b in BLOCK_TRANSITION_LOWRANK_BODIES}
@@ -266,6 +266,7 @@ def test_block_transition_predicate_matches_the_kernels(chain_block):
     ("correlated_gaussian", "dense", 1, 6),
     ("correlated_gaussian", "dense", 16, 4),
     ("correlated_gaussian", "diag", 8, 4),
+    ("eight_schools", "diag", 8, 4),
     ("spiked_gaussian", "dense", 8, 4),
     ("logistic", "dense", 8, 4),
     ("spiked_gaussian", "lowrank", 8, 6),

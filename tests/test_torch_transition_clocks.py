@@ -166,3 +166,32 @@ def test_metric_state_of_a_final_states_potential(kind):
     assert out["fac"].shape == (lowrank_fac_size(n),)
     torch.testing.assert_close(out["fac"], build_lowrank_fac(pot.vecs[0], pot.lam[0],
                                                              pot.alpha[0]), rtol=0, atol=0)
+
+
+def test_eight_schools_state_files_hold_the_cells_final_states(tmp_path, monkeypatch):
+    """The eight-schools cases start from the final states of
+    ``chip_smoke.py``'s NUTS cell (10,240 chains, 500 + 500,
+    ``target_accept=0.95``) and its per-draw twin, each in a file of its
+    own; ``_final_state`` samples a state once with the cell's keywords
+    (here on the CPU at 16 chains, 30 + 20, the twin's ``fuse_draws=False``)
+    and loads it after, the same tensors."""
+    import chip_smoke
+    import littlemcmc_torch as lt
+    from littlemcmc_torch.models import EightSchools
+
+    assert {"es_fused", "es_twin"} <= set(tc.STATE_FILES)
+    assert len(set(tc.STATE_FILES.values())) == len(tc.STATE_FILES)
+    es = EightSchools(device="cpu")
+    path = tmp_path / tc.STATE_FILES["es_twin"]
+    kw = dict(chains=16, tune=30, draws=20, device="cpu", fuse_draws=False,
+              step=lt.NUTS(model_ndim=10, target_accept=chip_smoke.ES_TARGET))
+    state = tc._final_state(path, es, **kw)
+    assert path.exists()
+    assert set(state) == {"q", "grad", "logp", "var", "p", "iter", "log_step", "log_bar", "hbar",
+                          "count", "mu"}
+    assert state["q"].shape == state["p"].shape == state["var"].shape == (16, 10)
+    assert (state["iter"] == 50.0).all() and torch.isfinite(state["logp"]).all()
+    monkeypatch.setattr(lt, "sample", lambda *a, **k: pytest.fail("sampled a kept state again"))
+    again = tc._final_state(path, es, **kw)
+    for k in state:
+        torch.testing.assert_close(again[k], state[k], rtol=0, atol=0)
