@@ -39,10 +39,12 @@ them, whole chain blocks, every fourth chain of the inputs as made:
    (standard normal) from stationary inputs with the sampler's jittered
    step counts (accept and divergence agree on at least 99% / all chains;
    q within 1e-4 sd, energies within 1e-3, the accept statistic within
-   1e-3 relative, on the chains that agree);
+   1e-3 relative, on the chains that agree; body 1 runs the block HMC
+   transition, ``runs_hmc_block_transition``);
    2e. the fused HMC kernel against its plain version in the three modes
    of 2c (HMC's chains share no stream, so each is held until its first
-   disagreement; the path lengths must agree exactly);
+   disagreement; the path lengths must agree exactly; its dense instance
+   in blocks of 8 runs the block HMC transition);
    2f-2g. the per-draw NUTS and HMC kernels with the eight-schools body
    against their plain versions, 1024 chains (a quarter deep in the
    funnel's neck), at least 99% of chains agreeing; energies of draws far
@@ -212,11 +214,16 @@ them, whole chain blocks, every fourth chain of the inputs as made:
    on the generated body, and the probe kernel alone; then the ptxas
    lines of the per-draw and fused NUTS kernels' body-2, body-4 and body-5
    diag instances, body-1 dense and body-4 low-rank instances (those on
-   the block transition beside those on the warp transition), and one JSON
+   the block transition beside those on the warp transition) and of the
+   HMC kernels' body-1 instances on the block HMC transition (per draw,
+   whose warp instance is not compiled, and the fused dense one beside its
+   warp instance), and one JSON
    line of kernel rows (each NUTS row's ``transition``, ``block`` or
    ``warp``: the transition of ``csrc/nuts_transition.cuh`` its instance
-   runs; the eight-schools NUTS rows' ``blocks_per_sm``, the blocks of
-   their launch at 10,240 chains that fit on an SM), the six fused probes
+   runs, and each HMC row's, ``block`` for the block HMC transition of
+   ``csrc/hmc_transition.cuh``; the main HMC rows' ``blocks_per_sm``; the
+   eight-schools NUTS rows' ``blocks_per_sm``, the blocks of their launch
+   at 10,240 chains that fit on an SM), the six fused probes
    last (for the fused kernels ``ms``, ``plain_ms`` and ``bound_ms`` are
    one launch on 2c's, 2e's, 2h's, 2i's or 2p's draw-chunk input: 4
    draws, in 2h-2i 1, in 2p 2; ``chunk_*`` the 250-draw launch; for the
@@ -725,6 +732,27 @@ def _ptxas_entries(log: str) -> dict:
         elif entry is not None and ("stack frame" in ln or "registers" in ln):
             out[entry].append(ln.strip())
     return out
+
+
+def _hmc_moved_instances(log: str) -> dict:
+    """The ptxas lines (``_ptxas_entries``) of the HMC kernels' body-1
+    instances, keyed ``<body,metric,block|warp>``: the per-draw kernel's
+    block instance (diag), the fused kernel's dense block instance
+    (``fused_hmc_kernel<1,1,true>``) and its warp instance; another
+    instance is left out."""
+    import re
+
+    moved = {}
+    for entry, lines in _ptxas_entries(log).items():
+        m = re.search(r"\d+(hmc_trajectory_block_kernel|fused_hmc_kernel)"
+                      r"ILi(\d+)E(?:Li(\d+)E)?(?:Lb(\d)E)?", entry)
+        if m is None or m.group(2) != "1":
+            continue
+        if m.group(1) == "fused_hmc_kernel" and m.group(3) == "1":
+            moved[f"<1,1,{'block' if m.group(4) == '1' else 'warp'}>"] = lines
+        elif m.group(1) == "hmc_trajectory_block_kernel":
+            moved["<1,0,block>"] = lines
+    return moved
 
 
 def _roofline_ms(ops: float, nbytes: float) -> tuple[float, str]:
@@ -2701,7 +2729,8 @@ def main() -> int:
     from littlemcmc_torch.ops.fused_probe import probe_kernel
     from littlemcmc_torch.ops.hmc_trajectory import hmc_trajectory, hmc_trajectory_plain
     from littlemcmc_torch.ops.logistic import logistic_logp_grad
-    from littlemcmc_torch.ops.nuts_trajectory import (runs_block_transition, trajectory,
+    from littlemcmc_torch.ops.nuts_trajectory import (runs_block_transition,
+                                                      runs_hmc_block_transition, trajectory,
                                                       trajectory_plain)
     from littlemcmc_torch.ops.quadform import quadform_logp_grad
 
@@ -3092,7 +3121,8 @@ def main() -> int:
     h_plain_ms = _cuda_time_ms(lambda: hmc_trajectory_plain(*hargs, (3, 8), **hkw), reps=1,
                                warmup=0)
     h_bound_ms, h_bound_by = _hmc_bound_ms(h_steps, CHAINS, N)
-    _line(phase="hmc_timing", kernel_ms=f"{h_ms:.4f}", ms_source=h_src,
+    h_bps = _build.last_blocks_per_sm("hmc_trajectory")
+    _line(phase="hmc_timing", kernel_ms=f"{h_ms:.4f}", ms_source=h_src, blocks_per_sm=h_bps,
           events_ms=f"{h_events_ms:.4f}", plain_ms=f"{h_plain_ms:.2f}",
           bound_ms=f"{h_bound_ms:.5f}", bound_by=h_bound_by,
           mean_n_steps=f"{h_steps / CHAINS:.2f}", max_n_steps=int(hargs[5].max()),
@@ -3113,7 +3143,9 @@ def main() -> int:
     fh_steps = int(fhout["n_steps"].sum())
     fh_ms = _cuda_time_ms(lambda: fused_hmc(*fhargs, (5, 9), **fhkw), reps=3, warmup=0)
     fh_chunk_bound_ms, fh_chunk_bound_by = _fused_hmc_bound_ms(fh_steps, CHAINS, N, 250, False)
+    fh_bps = _build.last_blocks_per_sm("fused_hmc")
     _line(phase="fused_hmc_timing", chunk_draws=250, kernel_ms=f"{fh_ms:.4f}",
+          blocks_per_sm=fh_bps,
           ms_per_draw=f"{fh_ms / 250:.5f}", bound_ms=f"{fh_chunk_bound_ms:.4f}",
           bound_by=fh_chunk_bound_by, mean_n_steps=f"{fh_steps / CHAINS / 250:.3f}",
           max_n_steps=int(fhout["n_steps"].max()),
@@ -3308,6 +3340,14 @@ def main() -> int:
                     moved[f"<{b},{m},warp>"] = lines
         print(json.dumps({"phase": "ptxas_block_instances", "library": name,
                           "instances": moved}), flush=True)
+    # the HMC kernels' instances on the block HMC transition (body 1: per
+    # draw with the diagonal metric, whose warp instance is not compiled;
+    # fused with the dense metric) beside the fused one's warp instance
+    # (blocks of more than 8 chains)
+    for name in ("hmc_trajectory", "fused_hmc"):
+        print(json.dumps({"phase": "ptxas_block_instances", "library": name,
+                          "instances": _hmc_moved_instances(logs[name].read_text())}),
+              flush=True)
 
     # no single PyTorch call computes a NUTS or an HMC transition:
     # library_ms is null. ms: the kernel's device time per launch
@@ -3340,7 +3380,7 @@ def main() -> int:
          "replaces": "littlemcmc_tpu/ops/hmc_trajectory_pallas.py:273",
          "launches": hmc_launches, "max_abs_err": hmc_err, "ms": h_ms,
          "events_ms": h_events_ms, "plain_ms": h_plain_ms, "bound_ms": h_bound_ms,
-         "bound_by": h_bound_by, "library_ms": None},
+         "bound_by": h_bound_by, "library_ms": None, "blocks_per_sm": h_bps},
         # as fused_nuts: one 4-draw launch on phase 2e's draw-chunk input;
         # chunk_*: one 250-draw launch at 3e's final state
         {"name": "fused_hmc", "metric": "dense", "route": "cuda",
@@ -3350,7 +3390,8 @@ def main() -> int:
          "events_ms": fh_cmp[4], "draws": 4, "plain_ms": fh_cmp[1], "bound_ms": fh_bound_ms,
          "bound_by": fh_bound_by,
          "library_ms": None, "chunk_draws": 250, "chunk_ms": fh_ms,
-         "chunk_bound_ms": fh_chunk_bound_ms, "chunk_bound_by": fh_chunk_bound_by},
+         "chunk_bound_ms": fh_chunk_bound_ms, "chunk_bound_by": fh_chunk_bound_by,
+         "blocks_per_sm": fh_bps},
     ] + es_rows + lg_rows + lr_rows + [sg_fused_row()] + fa_rows + [
         # the fused probes: launches on F1's path (the fused engine's five)
         # and L1's (the low-rank one)
@@ -3358,6 +3399,13 @@ def main() -> int:
                             else lr["L1"][0]["probe_launches"])[name])
         for name, row in probe_rows.items()]
     for row in rows:
+        if row["name"] in ("hmc_trajectory", "fused_hmc"):
+            # the HMC kernels' transition: the block HMC transition of
+            # csrc/hmc_transition.cuh, or a warp a chain
+            block = runs_hmc_block_transition(row.get("body", "correlated_gaussian"),
+                                              row["metric"], CHAIN_BLOCK,
+                                              row["name"] == "fused_hmc")
+            row["transition"] = "block" if block else "warp"
         if row["name"] in ("nuts_trajectory", "fused_nuts"):
             block = runs_block_transition(row.get("body", "correlated_gaussian"),
                                           row["metric"], CHAIN_BLOCK)

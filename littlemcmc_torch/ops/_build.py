@@ -175,10 +175,12 @@ _SIGNATURES = {
     },
     "hmc_trajectory": {
         "hmc_trajectory_launch": (_I, [_P, _P, _P, _P]),
+        "hmc_trajectory_last_blocks_per_sm": (_I, []),
         "cuda_error_string": (ctypes.c_char_p, [_I]),
     },
     "fused_hmc": {
         "fused_hmc_launch": (_I, [_P, _P, _P, _P]),
+        "fused_hmc_last_blocks_per_sm": (_I, []),
         "cuda_error_string": (ctypes.c_char_p, [_I]),
     },
     "logistic_logp_grad": {
@@ -234,9 +236,10 @@ def load_generated(name: str, header: str):
 
 
 def last_blocks_per_sm(name: str) -> int:
-    """Blocks an SM of the last launch of the NUTS kernel ``name``
-    (``nuts_trajectory`` or ``fused_nuts``): the CUDA runtime's occupancy
-    at that launch's threads and dynamic shared memory."""
+    """Blocks an SM of the last launch of the transition kernel ``name``
+    (``nuts_trajectory``, ``fused_nuts``, ``hmc_trajectory`` or
+    ``fused_hmc``): the CUDA runtime's occupancy at that launch's threads
+    and dynamic shared memory."""
     return getattr(load_library(name), f"{name}_last_blocks_per_sm")()
 
 

@@ -13,11 +13,17 @@
 // PyTorch version it is held against is ops/fused_hmc.py::fused_hmc_plain.
 //
 // Mapping. fused_nuts.cu's layout: one thread block is one chain block of
-// CB chains, one warp per chain; the block loops t = 0..T-1 inside the
-// launch, where the TPU kernel's grid walks its sequential draw axis, and
-// the chain state (q, grad and, for kDiag, V and the four Welford rows in
-// shared memory; logp, the iteration counter, the dual-averaging state and
-// the Welford counters in registers) stays on chip across draws. Per draw
+// CB chains, one warp per chain (fused_hmc_kernel<BODY, METRIC, false>;
+// body 1 with the dense metric in blocks of up to kBlockChains runs the
+// instance <1, kDense, true>, on the block HMC transition of
+// hmc_transition.cuh: the block's chains in lockstep to their longest
+// count a draw, and the momenta z L^-1, the energies' velocities and each
+// step's velocity and gradient one block product each, L^-1 read through
+// L2; the same bits); the block loops t = 0..T-1 inside the launch, where
+// the TPU kernel's grid walks its sequential draw axis, and the chain state
+// (q, grad and, for kDiag, V and the four Welford rows in shared memory;
+// logp, the iteration counter, the dual-averaging state and the Welford
+// counters in registers) stays on chip across draws. Per draw
 // and chain, in the JAX body's order (:251-325):
 //   1. the momentum p = z @ L^-1 (kDense), p = z / sqrt(V) (kDiag, V at
 //      :257, :279) or the low-rank one (kLowRank, fused_common.cuh::
@@ -48,9 +54,10 @@
 // (40 KB, read once a draw) in global memory behind L2, and the block's
 // Welford raw scatters (2 x n x n) in the per-block outputs, as in
 // fused_nuts.cu; a generated body's scratch rows after all of it where
-// they fit, else in its global scratch. Warps do not wait for each other
-// inside a draw: each runs its own step count; only the adapt_dense adds
-// synchronise the block once a draw.
+// they fit, else in its global scratch (the block instance adds its staged
+// rows, n x 8 floats). In the warp instance warps do not wait for each
+// other inside a draw: each runs its own step count; only the adapt_dense
+// adds synchronise the block once a draw.
 //
 // What bounds it on this card. Per chain and draw: the momentum (kDense
 // 2n^2 FLOP, kDiag about 10n), the start and end energies (kDense 2n^2
@@ -125,19 +132,56 @@ __host__ __device__ constexpr int n_fused_vecs() {
     return METRIC == kDense ? 7 : METRIC == kDiag ? 11 : 13;
 }
 
-template <int BODY, int METRIC>
-__global__ void __launch_bounds__(32 * kMaxChainBlock) fused_hmc_kernel(Args A) {
+// The start energy and the trajectory of the draw: the warp's (half_kinetic,
+// hmc_trajectory) or, on the block transition (BLOCK), the block's
+// (block_half_kinetic, hmc_block_trajectory; qt the staged rows).
+template <int METRIC, bool BLOCK>
+__device__ __forceinline__ float start_energy(const HmcConsts& K, int cb, float* qt, int w,
+                                              const float* p, const float* vv, float* vel,
+                                              int lane LMC_HCLK_PARAM) {
+    if constexpr (BLOCK)
+        return block_half_kinetic(K, cb, smem_offset(qt), w, p, vel, lane LMC_HCLK_ARG);
+    else
+        return half_kinetic<METRIC>(K, p, vv, vel, lane LMC_HCLK_ARG);
+}
+
+template <int BODY, int METRIC, bool BLOCK>
+__device__ __forceinline__ HmcResult trajectory_of(const HmcConsts& K, int cb, float* qt, int w,
+                                                   float* q, float* p, float* g, const float* vv,
+                                                   float* vel, float lp0, float E0, float eps,
+                                                   int n_steps, int lane LMC_HCLK_PARAM) {
+    if constexpr (BLOCK)
+        return hmc_block_trajectory<METRIC>(K, cb, smem_offset(qt), w, q, p, g, vv, vel, lp0,
+                                            E0, eps, n_steps, lane LMC_HCLK_ARG);
+    else
+        return hmc_trajectory<BODY, METRIC>(K, q, p, g, vv, vel, lp0, E0, eps, n_steps,
+                                            lane LMC_HCLK_ARG);
+}
+
+// The draws of one chain block. BLOCK: body 1 with the dense metric on the
+// block HMC transition (hmc_block_body), in chain blocks of up to
+// kBlockChains compiled for kFusedHmcBlocksPerSm blocks an SM; every other
+// instance compiles with no minimum of blocks (0), as it did before the
+// block instance: one kernel with the body inline, since a minimum of 1,
+// or the body in a device function called by two kernels, changed the
+// registers ptxas gave several of the other instances.
+template <int BODY, int METRIC, bool BLOCK>
+__global__ void __launch_bounds__(32 * (BLOCK ? kBlockChains : kMaxChainBlock),
+                                  BLOCK ? kFusedHmcBlocksPerSm : 0)
+    fused_hmc_kernel(Args A) {
     extern __shared__ float smem[];
     const int n = A.K.n, cb = A.cb, C = A.C;
     const int w = threadIdx.x >> 5, lane = threadIdx.x & 31;
     const int tid = threadIdx.x, nthreads = blockDim.x;
     const int blk = blockIdx.x;
     const int chain = blk * cb + w;
+    LMC_CLK_BLOCK_START(C);
 
     // shared layout: the warp vectors [n_fused_vecs][cb][n]; the pooled
-    // Welford means and scratch [5][n] (kDense); then the body's constants
-    // (P, or the logistic Xb and y) and COV where they fit, the low-rank
-    // factor block, and the generated body's scratch rows where they fit
+    // Welford means and scratch [5][n] (kDense); the block transition's
+    // staged rows (on a 16-byte boundary); then the body's constants (P,
+    // or the logistic Xb and y) and COV where they fit, the low-rank factor
+    // block, and the generated body's scratch rows where they fit
     float* qs = warp_vec(smem, 0, cb, w, n);
     float* gs = warp_vec(smem, 1, cb, w, n);
     float* q = warp_vec(smem, 2, cb, w, n);
@@ -152,6 +196,11 @@ __global__ void __launch_bounds__(32 * kMaxChainBlock) fused_hmc_kernel(Args A) 
     float* vrow = METRIC == kLowRank ? warp_vec(smem, 12, cb, w, n) : vel;
     float* wel_sh = smem + (size_t)n_fused_vecs<METRIC>() * cb * n;
     float* after = wel_sh + (METRIC == kDense ? 5 * n : 0);
+    float* qt = nullptr;
+    if constexpr (BLOCK) {
+        qt = align16(after);
+        after = qt + staged_floats<BODY>(n, cb);
+    }
 
     HmcConsts K = A.K;
     K.lam = stage_body<BODY>(K.lam, n, K.rows, A.lam_in_smem ? after : nullptr);
@@ -202,6 +251,7 @@ __global__ void __launch_bounds__(32 * kMaxChainBlock) fused_hmc_kernel(Args A) 
     BlockWelford wel;
     if (A.adapt_dense) wel.load(wel_sh, arg<const float>(A, kWSeed), n, tid, nthreads);
     __syncthreads();  // P, COV and the Welford means are in shared memory
+    LMC_CLK_BEGIN();
 
     const uint32_t s1u = A.seed1 * kGolden;
     float* trace = arg<float>(A, kTrace);
@@ -215,7 +265,16 @@ __global__ void __launch_bounds__(32 * kMaxChainBlock) fused_hmc_kernel(Args A) 
 
         // 1. momentum: Box-Muller normals, then p = z @ L^-1, z / sqrt(V) or
         // the low-rank momentum from the scales sqrt(V)
-        if constexpr (METRIC == kDense) {
+        if constexpr (METRIC == kDense && BLOCK) {
+            // the block's momenta z L^-1 as one block product, each z
+            // staged as it is drawn
+            const int qt_off = smem_offset(qt), stride = staged_stride(cb);
+            for (int i = lane; i < n; i += 32)
+                stage(qt_off, stride, w, i, boxmuller_normal(seed0, s1u, w, A.Npad, i));
+            __syncthreads();  // every chain's z is staged
+            block_matmul<false, false>(qt_off, linv, 0, smem_offset(p) - w * n, n, cb);
+            __syncthreads();  // every momentum is written
+        } else if constexpr (METRIC == kDense) {
             dense_momentum(seed0, s1u, w, A.Npad, linv, z, p, n, lane);
         } else if constexpr (METRIC == kLowRank) {
             for (int i = lane; i < n; i += 32) scales[i] = sqrtf(vrow[i]);
@@ -223,6 +282,7 @@ __global__ void __launch_bounds__(32 * kMaxChainBlock) fused_hmc_kernel(Args A) 
         } else {
             diag_momentum(seed0, s1u, w, A.Npad, vel, p, n, lane);
         }
+        LMC_CLK(kHClkMomentum);
         // 2. the jittered path length and the step count (hmc.py:141-143)
         const float eps = expf(A.adapting ? da.log_step : da.log_bar);
         const uint32_t salt = fmix32((seed0 + (uint32_t)w * 101027u) ^ s1u);
@@ -231,11 +291,15 @@ __global__ void __launch_bounds__(32 * kMaxChainBlock) fused_hmc_kernel(Args A) 
         // 3. the trajectory from the chain's state, and the accept
         const float* vv = METRIC == kDiag ? vel : scales;
         float* vscratch = METRIC != kDiag ? vel : nullptr;
-        const float E0 = half_kinetic<METRIC>(K, p, vv, vscratch, lane) - lp;
+        LMC_CLK(kHClkOther);
+        const float E0 = start_energy<METRIC, BLOCK>(K, cb, qt, w, p, vv, vscratch,
+                                                     lane LMC_HCLK_ARG) - lp;
         for (int i = lane; i < n; i += 32) { q[i] = qs[i]; g[i] = gs[i]; }
         __syncwarp();
-        const HmcResult r = hmc_trajectory<BODY, METRIC>(K, q, p, g, vv, vscratch, lp, E0, eps,
-                                                         (int)nst, lane);
+        LMC_CLK(kHClkOther);
+        const HmcResult r = trajectory_of<BODY, METRIC, BLOCK>(K, cb, qt, w, q, p, g, vv,
+                                                               vscratch, lp, E0, eps, (int)nst,
+                                                               lane LMC_HCLK_ARG);
         const bool accepted = !r.div && counter_uniform(salt, 4u) < r.acc;
         // 5. dual averaging on the accept statistic (step_sizes.py:85-92)
         if (A.adapting) da.update(r.acc, A.target, A.gamma, A.k, A.t0);
@@ -248,8 +312,10 @@ __global__ void __launch_bounds__(32 * kMaxChainBlock) fused_hmc_kernel(Args A) 
         }
         // 6a. kDiag with adapt_metric: the chain's Welford step on the
         // selected state (each lane reads its own columns of qs)
+        LMC_CLK(kHClkOther);
         if (METRIC != kDense && A.adapt_metric && A.tuning)
             dw.update(qs, wrows, vrow, n, A.mult, lane);
+        LMC_CLK(kHClkWelford);
         // 4. per-draw stats
         if (lane == 0) {
             const size_t o = (size_t)t * C + chain;
@@ -267,12 +333,18 @@ __global__ void __launch_bounds__(32 * kMaxChainBlock) fused_hmc_kernel(Args A) 
         // 6b. kDense with adapt_dense: the block-local pooled Welford adds
         // (_dense_welford_batch_add :246, both windows) and the shared swap
         // (:267)
-        if (METRIC == kDense && A.adapt_dense)
+        LMC_CLK(kHClkOther);
+        if (METRIC == kDense && A.adapt_dense) {
+            LMC_HCLK_WAIT();
             wel.add_and_swap(warp_vec(smem, 0, cb, 0, n), wel_sh,
                              arg<float>(A, kFgRaw) + (size_t)blk * n * n,
                              arg<float>(A, kBgRaw) + (size_t)blk * n * n, cb, n, A.mult, tid,
                              nthreads);
+            LMC_CLK(kHClkWelford);
+        }
     }
+    LMC_HCLK_WAIT();
+    LMC_CLK_FLUSH(chain, lane);
 
     // the final state
     for (int i = lane; i < n; i += 32) {
@@ -303,33 +375,49 @@ __global__ void __launch_bounds__(32 * kMaxChainBlock) fused_hmc_kernel(Args A) 
         wel.store(wel_sh, arg<float>(A, kFgMean) + (size_t)blk * n,
                   arg<float>(A, kBgMean) + (size_t)blk * n, arg<float>(A, kWOut) + (size_t)blk * 8,
                   n, tid, nthreads);
+    LMC_CLK_BLOCK_END(C);
 }
 
-// 227 KB per block on Hopper
+// 227 KB per block on Hopper; the block instance's less 1 KB for the
+// static shared int of block_max_steps
 constexpr size_t kSmemLimit = 232448;
 
-template <int BODY, int METRIC>
-cudaError_t launch(const Args& A0, cudaStream_t stream) {
+template <int BODY, int METRIC, bool BLOCK>
+cudaError_t launch_instance(const Args& A0, cudaStream_t stream) {
     Args A = A0;
     const int n = A.K.n;
+    constexpr size_t limit = BLOCK ? kSmemLimit - 1024 : kSmemLimit;
     size_t bytes = ((size_t)n_fused_vecs<METRIC>() * A.cb * n
                     + (METRIC == kDense ? (size_t)5 * n : 0)
                     + (METRIC == kLowRank ? (size_t)lowrank_fac_floats(n) : 0)) * sizeof(float);
+    if (BLOCK)  // the staged positions, moved up to 12 bytes to a 16-byte boundary
+        bytes += 12 + staged_floats<BODY>(n, A.cb) * sizeof(float);
     const size_t sq_bytes = (size_t)n * n * sizeof(float);
     const size_t body_bytes = body_floats(BODY, n, A.K.rows) * sizeof(float);
-    A.lam_in_smem = (body_bytes > 0 && bytes + body_bytes <= kSmemLimit) ? 1 : 0;
+    A.lam_in_smem = (body_bytes > 0 && bytes + body_bytes <= limit) ? 1 : 0;
     if (A.lam_in_smem) bytes += body_bytes;
-    A.cov_in_smem = (METRIC == kDense && bytes + sq_bytes <= kSmemLimit) ? 1 : 0;
+    A.cov_in_smem = (METRIC == kDense && bytes + sq_bytes <= limit) ? 1 : 0;
     if (A.cov_in_smem) bytes += sq_bytes;
-    A.scratch_in_smem = scratch_fits<BODY>(bytes, A.cb, kSmemLimit) ? 1 : 0;
+    A.scratch_in_smem = scratch_fits<BODY>(bytes, A.cb, limit) ? 1 : 0;
     if (A.scratch_in_smem) bytes += (size_t)body_scratch_floats<BODY>() * A.cb * sizeof(float);
-    if (bytes > kSmemLimit) return cudaErrorInvalidConfiguration;
-    cudaError_t err = cudaFuncSetAttribute(fused_hmc_kernel<BODY, METRIC>,
-                                           cudaFuncAttributeMaxDynamicSharedMemorySize,
+    if (bytes > limit) return cudaErrorInvalidConfiguration;
+    const auto kernel = fused_hmc_kernel<BODY, METRIC, BLOCK>;
+    cudaError_t err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
                                            (int)bytes);
     if (err != cudaSuccess) return err;
-    fused_hmc_kernel<BODY, METRIC><<<A.C / A.cb, 32 * A.cb, bytes, stream>>>(A);
+    err = record_residency<BODY, METRIC, BLOCK>(kernel, 32 * A.cb, bytes);
+    if (err != cudaSuccess) return err;
+    kernel<<<A.C / A.cb, 32 * A.cb, bytes, stream>>>(A);
     return cudaGetLastError();
+}
+
+// Body 1 with the dense metric in chain blocks of up to kBlockChains runs
+// the block instance, in larger blocks the warp one.
+template <int BODY, int METRIC>
+cudaError_t launch(const Args& A, cudaStream_t stream) {
+    if constexpr (hmc_block_body<BODY, METRIC, true>())
+        if (A.cb <= kBlockChains) return launch_instance<BODY, METRIC, true>(A, stream);
+    return launch_instance<BODY, METRIC, false>(A, stream);
 }
 
 template <int BODY>
@@ -396,8 +484,20 @@ int fused_hmc_launch(void* const* ptrs, const int* ints, const float* floats, vo
     }
 }
 
+// Blocks an SM of the last launch (nuts_transition.cuh, last_blocks_per_sm).
+int fused_hmc_last_blocks_per_sm(void) {
+    return lmc::last_blocks_per_sm;
+}
+
 const char* cuda_error_string(int err) {
     return cudaGetErrorString(static_cast<cudaError_t>(err));
 }
+
+#ifdef LMC_TRANSITION_CLOCKS
+// The instrumented build's side buffer (nuts_transition.cuh, clock_buf).
+int transition_clocks_bind(void* buf) {
+    return (int)cudaMemcpyToSymbol(lmc::clock_buf, &buf, sizeof(buf));
+}
+#endif
 
 }  // extern "C"

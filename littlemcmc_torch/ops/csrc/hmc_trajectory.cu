@@ -10,7 +10,12 @@
 // Mapping. One warp per chain, 8 chains per thread block. Chains share
 // nothing during the trajectory, so each warp runs its own n_steps[c]
 // leapfrogs and finishes when they are done; the only block-wide barrier
-// is after the precision and the chain's vectors are loaded. The accept
+// is after the precision and the chain's vectors are loaded. Body 1 (the
+// correlated Gaussian, HMC's main path) runs the block transition of
+// hmc_transition.cuh instead (hmc_trajectory_block_kernel: the block's
+// kHmcBlockChains chains in lockstep to their longest count, each step's
+// gradient -q P one product of the whole block, P read once a group of 4
+// chains; the same bits). The accept
 // uniform is call 1 of the chain's counter stream, salted with the chain's
 // logical chain block and row (the JAX op's chain block, an argument), not
 // with this kernel's thread block, so the kernel, the plain version and the
@@ -63,6 +68,7 @@ __global__ void __launch_bounds__(32 * kWarps) hmc_trajectory_kernel(Args A) {
     const int n = A.n;
     const int w = threadIdx.x >> 5, lane = threadIdx.x & 31;
     const int chain = blockIdx.x * kWarps + w;
+    LMC_CLK_BLOCK_START(A.C);
 
     // shared layout: the chain's q, p, g and inverse mass [4][kWarps][n],
     // then the body's constants and the generated body's scratch rows
@@ -88,12 +94,14 @@ __global__ void __launch_bounds__(32 * kWarps) hmc_trajectory_kernel(Args A) {
     }
     __syncthreads();  // the body's constants are in shared memory
     if (!live) return;
+    LMC_CLK_BEGIN();
 
     const float lp0 = arg<const float>(A, kLogp)[chain];
-    const float E0 = half_kinetic<kDiag>(K, p, vv, nullptr, lane) - lp0;
+    const float E0 = half_kinetic<kDiag>(K, p, vv, nullptr, lane LMC_HCLK_ARG) - lp0;
     const HmcResult r = hmc_trajectory<BODY, kDiag>(K, q, p, g, vv, nullptr, lp0, E0,
                                                     arg<const float>(A, kEps)[chain],
-                                                    arg<const int>(A, kNSteps)[chain], lane);
+                                                    arg<const int>(A, kNSteps)[chain],
+                                                    lane LMC_HCLK_ARG);
 
     // the Metropolis accept: call 1 of the chain's stream in its logical block
     const uint32_t blk = (uint32_t)(chain / A.cb), rw = (uint32_t)(chain % A.cb);
@@ -117,13 +125,120 @@ __global__ void __launch_bounds__(32 * kWarps) hmc_trajectory_kernel(Args A) {
         arg<bool>(A, kAccepted)[chain] = accepted;
         arg<bool>(A, kDiverging)[chain] = r.div;
     }
+    LMC_CLK(kHClkOther);
+    LMC_HCLK_WAIT();
+    LMC_CLK_FLUSH(chain, lane);
+    LMC_CLK_BLOCK_END(A.C);
+}
+
+// Body 1 on the block transition (hmc_transition.cuh): kHmcBlockChains
+// chains a block in lockstep, the body's gradient one block product a
+// stage. Shared layout: the chains' q, p, g and inverse mass
+// [4][kHmcBlockChains][n], the staged positions on a 16-byte boundary,
+// then P where it fits (else it is read from global memory, where L2
+// holds it).
+template <int BODY>
+__global__ void __launch_bounds__(32 * kHmcBlockChains, kHmcBlocksPerSm)
+    hmc_trajectory_block_kernel(Args A) {
+    static_assert(hmc_block_body<BODY, kDiag, false>(), "body 1 only");
+    extern __shared__ float smem[];
+    constexpr int CB = kHmcBlockChains;
+    const int n = A.n;
+    const int w = threadIdx.x >> 5, lane = threadIdx.x & 31;
+    const int chain = blockIdx.x * CB + w;
+    LMC_CLK_BLOCK_START(A.C);
+
+    float* q = warp_vec(smem, 0, CB, w, n);
+    float* p = warp_vec(smem, 1, CB, w, n);
+    float* g = warp_vec(smem, 2, CB, w, n);
+    float* vv = warp_vec(smem, 3, CB, w, n);
+    float* qt = align16(smem + (size_t)4 * CB * n);
+    float* after = qt + staged_floats<BODY>(n, CB);
+    HmcConsts K = A.K;
+    K.lam = stage_body<BODY>(K.lam, n, K.rows, A.lam_in_smem ? after : nullptr);
+    // a warp past the last chain runs the block's products with no chain
+    const bool live = chain < A.C;
+    const size_t row = (size_t)chain * n;
+    if (live) {
+        for (int i = lane; i < n; i += 32) {
+            q[i] = arg<const float>(A, kQ)[row + i];
+            p[i] = arg<const float>(A, kP)[row + i];
+            g[i] = arg<const float>(A, kG)[row + i];
+            vv[i] = arg<const float>(A, kVar)[row + i];
+        }
+    }
+    __syncthreads();  // P is in shared memory
+    LMC_CLK_BEGIN();
+
+    const float lp0 = live ? arg<const float>(A, kLogp)[chain] : 0.f;
+    const int nst = live ? arg<const int>(A, kNSteps)[chain] : 0;
+    const float E0 = half_kinetic<kDiag>(K, p, vv, nullptr, lane LMC_HCLK_ARG) - lp0;
+    const HmcResult r = hmc_block_trajectory<kDiag>(
+        K, CB, smem_offset(qt), w, q, p, g, vv, nullptr, lp0, E0,
+        live ? arg<const float>(A, kEps)[chain] : 0.f, nst, lane LMC_HCLK_ARG);
+
+    if (live) {
+        // the Metropolis accept: call 1 of the chain's stream in its logical block
+        const uint32_t blk = (uint32_t)(chain / A.cb), rw = (uint32_t)(chain % A.cb);
+        const uint32_t salt =
+            fmix32((A.seed0 + blk * 7919u + rw * 101027u) ^ (A.seed1 * kGolden));
+        const bool accepted = !r.div && counter_uniform(salt, 1u) < r.acc;
+        // a chain of no steps keeps its gradient row as loaded only in the
+        // warp transition: here the block's products overwrote it
+        const bool moved = accepted && nst > 0;
+        const float* qin = arg<const float>(A, kQ) + row;
+        const float* gin = arg<const float>(A, kG) + row;
+        float* qo = arg<float>(A, kQOut) + row;
+        float* go = arg<float>(A, kGOut) + row;
+        for (int i = lane; i < n; i += 32) {
+            qo[i] = accepted ? q[i] : qin[i];
+            go[i] = moved ? g[i] : gin[i];
+        }
+        if (lane == 0) {
+            arg<float>(A, kLogpOut)[chain] = accepted ? r.lp : lp0;
+            arg<float>(A, kLogpEnd)[chain] = r.lp;
+            arg<float>(A, kEnergy)[chain] = r.en;
+            arg<float>(A, kEnergyChange)[chain] = r.dE;
+            arg<float>(A, kAccept)[chain] = r.acc;
+            arg<bool>(A, kAccepted)[chain] = accepted;
+            arg<bool>(A, kDiverging)[chain] = r.div;
+        }
+    }
+    LMC_CLK(kHClkOther);
+    LMC_HCLK_WAIT();
+    if (live) LMC_CLK_FLUSH(chain, lane);
+    LMC_CLK_BLOCK_END(A.C);
 }
 
 // 227 KB per block on Hopper
 constexpr size_t kSmemLimit = 232448;
 
+// The block kernel's launch (hmc_block_body); one block less 1 KB for the
+// static shared int of block_max_steps.
 template <int BODY>
-cudaError_t launch(const Args& A0, cudaStream_t stream) {
+cudaError_t launch_block(const Args& A0, cudaStream_t stream) {
+    Args A = A0;
+    constexpr int CB = kHmcBlockChains;
+    constexpr size_t limit = kSmemLimit - 1024;
+    // the working vectors, then the staged positions, moved up to 12 bytes
+    // to a 16-byte boundary
+    size_t bytes = ((size_t)4 * CB * A.n + staged_floats<BODY>(A.n, CB)) * sizeof(float) + 12;
+    const size_t body_bytes = body_floats(BODY, A.n, A.K.rows) * sizeof(float);
+    A.lam_in_smem = bytes + body_bytes <= limit ? 1 : 0;
+    if (A.lam_in_smem) bytes += body_bytes;
+    if (bytes > limit) return cudaErrorInvalidConfiguration;
+    const auto kernel = hmc_trajectory_block_kernel<BODY>;
+    cudaError_t err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                                           (int)bytes);
+    if (err != cudaSuccess) return err;
+    err = record_residency<BODY, kDiag, true>(kernel, 32 * CB, bytes);
+    if (err != cudaSuccess) return err;
+    kernel<<<(A.C + CB - 1) / CB, 32 * CB, bytes, stream>>>(A);
+    return cudaGetLastError();
+}
+
+template <int BODY>
+cudaError_t launch_warp(const Args& A0, cudaStream_t stream) {
     Args A = A0;
     size_t bytes = (size_t)4 * kWarps * A.n * sizeof(float);
     const size_t body_bytes = body_floats(BODY, A.n, A.K.rows) * sizeof(float);
@@ -136,8 +251,17 @@ cudaError_t launch(const Args& A0, cudaStream_t stream) {
                                            cudaFuncAttributeMaxDynamicSharedMemorySize,
                                            (int)bytes);
     if (err != cudaSuccess) return err;
+    err = record_residency<BODY, kDiag, false>(hmc_trajectory_kernel<BODY>, 32 * kWarps, bytes);
+    if (err != cudaSuccess) return err;
     hmc_trajectory_kernel<BODY><<<(A.C + kWarps - 1) / kWarps, 32 * kWarps, bytes, stream>>>(A);
     return cudaGetLastError();
+}
+
+// Body 1 runs the block kernel only: its warp instance is not compiled.
+template <int BODY>
+cudaError_t launch(const Args& A, cudaStream_t stream) {
+    if constexpr (hmc_block_body<BODY, kDiag, false>()) return launch_block<BODY>(A, stream);
+    else return launch_warp<BODY>(A, stream);
 }
 
 }  // namespace
@@ -184,8 +308,20 @@ int hmc_trajectory_launch(void* const* ptrs, const int* ints, const float* float
     }
 }
 
+// Blocks an SM of the last launch (nuts_transition.cuh, last_blocks_per_sm).
+int hmc_trajectory_last_blocks_per_sm(void) {
+    return lmc::last_blocks_per_sm;
+}
+
 const char* cuda_error_string(int err) {
     return cudaGetErrorString(static_cast<cudaError_t>(err));
 }
+
+#ifdef LMC_TRANSITION_CLOCKS
+// The instrumented build's side buffer (nuts_transition.cuh, clock_buf).
+int transition_clocks_bind(void* buf) {
+    return (int)cudaMemcpyToSymbol(lmc::clock_buf, &buf, sizeof(buf));
+}
+#endif
 
 }  // extern "C"

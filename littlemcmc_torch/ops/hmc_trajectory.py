@@ -17,7 +17,12 @@ Metropolis-accepts it:
 Two implementations compute the same function: :func:`hmc_trajectory_plain`,
 plain PyTorch, for CPU tensors and as the yardstick; and the CUDA kernel
 ``csrc/hmc_trajectory.cu`` for CUDA tensors. :func:`hmc_trajectory` picks
-by the tensors' device and never falls back.
+by the tensors' device and never falls back. The kernel integrates body 1
+(the correlated Gaussian) on the block HMC transition
+(:func:`.nuts_trajectory.runs_hmc_block_transition`): each thread block's
+chains in lockstep to their longest count, each frozen past its own, as
+the plain version's loop runs every chain to the longest count with the
+steps past a chain's own masked; the same bits as one warp a chain.
 
 Randomness: the accept uniform is call 1 of the JAX kernel's per-chain
 counter stream (``:133-155``), salted by the logical chain block ``block``

@@ -53,7 +53,7 @@ __all__ = ["TrajectorySpec", "fmix32", "counter_salt", "counter_uniform",
            "resolve_chain_block", "trajectory", "trajectory_plain",
            "body_logp_grad", "DEFAULT_CHAIN_BLOCK", "METRIC_IDS", "LOWRANK_MAX_K",
            "lowrank_fac_size", "build_lowrank_fac", "warp_sum", "thin_dots",
-           "runs_block_transition", "stack_shape"]
+           "runs_block_transition", "runs_hmc_block_transition", "stack_shape"]
 
 # Chains per CUDA thread block, one warp per chain: 128 blocks at the
 # main path's 1024 chains for the card's 132 SMs. Bodies 0, 1, 2, 4 and 5
@@ -81,6 +81,10 @@ BLOCK_TRANSITION_BODIES = ("standard_normal", "correlated_gaussian", "eight_scho
 BLOCK_TRANSITION_DENSE_BODIES = ("correlated_gaussian",)
 BLOCK_TRANSITION_LOWRANK_BODIES = ("spiked_gaussian",)
 BLOCK_TRANSITION_CHAINS = 8
+# the bodies of the HMC kernels' block transition (hmc_block_body in
+# csrc/hmc_transition.cuh): per draw with the diagonal metric, fused with
+# the dense one
+HMC_BLOCK_TRANSITION_BODIES = ("correlated_gaussian",)
 # columns of the low-rank factor block the kernels read (kMaxRank in
 # csrc/nuts_transition.cuh); a smaller rank is padded with zero columns
 LOWRANK_MAX_K = 8
@@ -387,6 +391,22 @@ def runs_block_transition(body: str, metric: str, chain_block: int) -> bool:
     bodies = {"diag": BLOCK_TRANSITION_BODIES, "dense": BLOCK_TRANSITION_DENSE_BODIES,
               "lowrank": BLOCK_TRANSITION_LOWRANK_BODIES}
     return body in bodies.get(metric, ()) and chain_block <= BLOCK_TRANSITION_CHAINS
+
+
+def runs_hmc_block_transition(body: str, metric: str, chain_block: int, fused: bool) -> bool:
+    """Whether the HMC kernels' instance for ``body`` and ``metric`` runs
+    the block HMC transition of ``csrc/hmc_transition.cuh`` (else each
+    warp integrates its chain on its own): the per-draw kernel's body 1
+    with the diagonal metric at any chain block (its thread blocks are not
+    its counter stream's, ``kHmcBlockChains``), and the fused kernel's
+    body 1 with the dense metric in chain blocks of up to
+    ``BLOCK_TRANSITION_CHAINS`` (``hmc_block_body`` in the kernels'
+    launch)."""
+    if body not in HMC_BLOCK_TRANSITION_BODIES:
+        return False
+    if fused:
+        return metric == "dense" and chain_block <= BLOCK_TRANSITION_CHAINS
+    return metric == "diag"
 
 
 def stack_shape(body: str, metric: str, chain_block: int, D: int, C: int, n: int):

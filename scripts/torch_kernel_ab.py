@@ -1,7 +1,7 @@
 #!/usr/bin/env python3
 """Time the kernels of one checkout of littlemcmc_torch on the card.
 
-    python3 scripts/torch_kernel_ab.py [ROOT]
+    python3 scripts/torch_kernel_ab.py [ROOT] [--cases=CASE,...]
 
 Builds the CUDA kernels of the checkout at ROOT (default: the one this
 script is in) and prints one JSON line: ptxas's register, stack-frame and
@@ -36,19 +36,25 @@ per-draw twin's final state), row 2c (a 250-draw launch at L1's final
 state), row 1 low-rank (L2's final state, phase 2m's low-rank input),
 rows 2b body 2 and 1 body 2 (eight schools at 10,240 chains: a 250-draw
 launch at the NUTS ``fused_diag`` cell's final state, a per-draw launch
-at its twin's, and one at phase 2f's 1024-chain input): ms a launch (CUDA
-events), a digest of the outputs (equal digests: the two checkouts give
+at its twin's, and one at phase 2f's 1024-chain input), and rows 3 and 4
+dense (HMC: the per-draw launch at the HMC main path's final state and at
+phase 2d's input, the fused dense instance's 250-draw launch at HMC
+``adapt_full``'s final state and phase 2e's 4-draw tune chunk): ms a
+launch (CUDA events), a digest of the outputs (equal digests: the two checkouts give
 the same bits), the blocks an SM and waves of the launch (where the
 checkout records them), and from a build with the section clocks the
-grid's tail share and the sections' shares (the final states,
+grid's tail share and the sections' shares (for HMC also the wait share
+and the steps a chain and a block runs; the final states,
 kept in ``build/`` by that script, the first run samples with its
 checkout and the later ones load). The inputs are made with numpy
 from fixed seeds, so two checkouts see the same work; the final states
 come from ``build/kernel_ab_states.pt`` beside this script, which the
 first run samples (``sample()`` of the checkout it runs, seed 42: path
 (B) 500 + 1000, H1 500 + 3000 at target_accept 0.9) and the later ones
-load (delete it to sample anew). To compare two checkouts, run them in
-turns (A, B, B, A) in one command on one card.
+load (delete it to sample anew). ``--cases`` runs only those transition
+cases (``torch_transition_clocks.py``'s names; the rest of the line is
+timed as always). To compare two checkouts, run them in turns (A, B, B, A)
+in one command on one card.
 """
 
 from __future__ import annotations
@@ -164,7 +170,7 @@ def _body_times(states_path: Path) -> dict:
     return out
 
 
-def _transition_rows(root: Path) -> dict:
+def _transition_rows(root: Path, only=None) -> dict:
     """The NUTS transition's diag and dense instances at the inputs of
     :func:`torch_transition_clocks.run_clocks`: rows 1 diag and 2b body 1
     at phase 2's input and the main path's final state, row 2a (the
@@ -179,7 +185,8 @@ def _transition_rows(root: Path) -> dict:
     cell's and its twin's final states and phase 2f's input: ms a launch of
     the package's build, its output digest, its blocks an SM and waves,
     the tail share, each section's
-    share of a warp's cycles and the cycles a leaf step, the n x n
+    share of a warp's cycles and the cycles a leaf step (HMC: the wait
+    share and the steps a chain, its block's and its own), the n x n
     products (low-rank: velocities) a chain-draw and the fused draw's
     parts around the transition,
     and the clocked build's ptxas lines. Each key names the kernel, the
@@ -189,17 +196,22 @@ def _transition_rows(root: Path) -> dict:
 
     here = Path(__file__).resolve().parents[1]
     out = {}
-    for r in tc.run_clocks(root, here / "build", here / "build" / "transition_clocks"):
+    for r in tc.run_clocks(root, here / "build", here / "build" / "transition_clocks", only):
         key = f"{r['kernel']}_{r['metric']}_{r['case']}"
         out[f"{key}_ms"] = r["plain_build_ms"]
         out[f"{key}_digest"] = r["digest"]
-        for k in ("blocks_per_sm", "waves", "tail_share", "block_ms_mean", "block_ms_max",
+        if r.get("device_ms") is not None:
+            out[f"{key}_device_ms"] = r["device_ms"]
+        for k in ("blocks_per_sm", "waves", "tail_share", "span_ms", "block_ms_mean",
+                  "block_ms_max",
                   "cycles_per_step",
                   "leaf_steps_per_chain", "leaves_built_per_chain",
                   "mean_leaves_per_chain_draw", "max_depth", "products_per_chain_draw",
                   "velocities_per_chain_draw",
-                  "draw_share_outside_transition",
-                  *(f"share_{s}" for s in tc.SECTIONS),
+                  "draw_share_outside_transition", "wait_share", "chains_per_block",
+                  "lockstep_steps_per_chain_draw", "steps_per_chain_draw", "mean_steps",
+                  "max_steps", "block_max_steps_per_draw", "lockstep_step_ratio",
+                  *(f"share_{s}" for s in tc.SECTIONS + tc.HMC_SECTIONS),
                   *(f"draw_{x}_{s}" for s in tc.SIDE[:5] for x in ("cycles", "share"))):
             if k in r:
                 out[f"{key}_{k}"] = r[k]
@@ -208,7 +220,9 @@ def _transition_rows(root: Path) -> dict:
 
 
 def main() -> int:
-    root = Path(sys.argv[1] if len(sys.argv) > 1 else Path(__file__).resolve().parents[1])
+    args = [a for a in sys.argv[1:] if not a.startswith("--")]
+    only = [c for a in sys.argv[1:] if a.startswith("--cases=") for c in a[8:].split(",")]
+    root = Path(args[0] if args else Path(__file__).resolve().parents[1])
     states_path = Path(__file__).resolve().parents[1] / "build" / "kernel_ab_states.pt"
     sys.path.insert(0, str(root.resolve()))
     import numpy as np
@@ -289,7 +303,7 @@ def main() -> int:
             model_ms[f"{name}_device_ms"] = _device_ms(fn, f"{name}_kernel", 200)
             model_ms[f"{name}_leaf_ms"] = _leaf_ms(fn, reps=300, warmup=20)
     model_ms.update(_body_times(states_path))
-    model_ms.update(_transition_rows(root))
+    model_ms.update(_transition_rows(root, only or None))
 
     smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
                          capture_output=True, text=True, timeout=60).stdout.strip()

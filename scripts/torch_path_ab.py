@@ -2,7 +2,7 @@
 """Time whole ``sample()`` paths of one checkout of littlemcmc_torch on the
 card.
 
-    python3 scripts/torch_path_ab.py [ROOT] [--paths=logistic,adapt_full,lowrank,eight_schools]
+    python3 scripts/torch_path_ab.py [ROOT] [--paths=logistic,adapt_full,lowrank,eight_schools,hmc]
 
 Runs, with the checkout at ROOT (default: the one this script is in),
 from seed 42 at 1024 chains (default: every group):
@@ -24,6 +24,12 @@ from seed 42 at 1024 chains (default: every group):
   ``target_accept=0.95``) with NUTS as phases 3g-3h do: the ``fused_diag``
   cell and its ``fuse_draws=False`` twin, each with its min bulk ESS over
   the 10 dimensions and min-bulk-ESS/s, and each of the fused cell's four
+  launches' device ms from a profiled repeat;
+- ``hmc``: the 100-d correlated Gaussian with ``HamiltonianMC`` (500 +
+  1000) as phases 3d-3e do: HMC's main path (``per_draw_diag`` on the
+  HMC trajectory kernel) and HMC ``adapt_full`` (``fused_dense_pooled``
+  on the fused HMC kernel), each with its min bulk ESS over the 100
+  dimensions and min-bulk-ESS/s, and each of ``adapt_full``'s fused
   launches' device ms from a profiled repeat.
 
 Prints one JSON line: each path's ``sample_seconds``, launches by kernel
@@ -164,8 +170,47 @@ def _eight_schools_paths(out: dict) -> None:
                                   "device_busy_share", "sample_seconds_profiled")})
 
 
+def _hmc_paths(out: dict) -> None:
+    """HMC on the 100-d correlated Gaussian (1024 chains, 500 + 1000, seed
+    42) as ``chip_smoke.py``'s phases 3d-3e run it: the main path
+    (``jitter+adapt_diag`` on the per-draw HMC kernel) and ``adapt_full``
+    (the pooled dense metric on the fused HMC kernel), each once as the
+    user calls it, with the min bulk ESS over the 100 dimensions and
+    min-bulk-ESS/s; then the ``adapt_full`` call once more under
+    ``torch.profiler`` for each fused launch's device ms
+    (``chip_smoke._fused_path_breakdown``)."""
+    from concurrent.futures import ThreadPoolExecutor
+
+    import chip_smoke
+    from littlemcmc_torch import HamiltonianMC, sample
+    from littlemcmc_torch.models import CorrelatedGaussian
+    from littlemcmc_torch.utils.diagnostics import ess_bulk
+
+    model = CorrelatedGaussian(100)
+    for path, init in (("hmc_main", None), ("hmc_adapt_full", "adapt_full")):
+        report = {}
+        kw = {"init": init} if init else {}
+        trace, stats = sample(model.logp_grad, model_ndim=100, chains=1024, tune=500,
+                              draws=1000, random_seed=42, step=HamiltonianMC(model_ndim=100),
+                              perf_report=report, progressbar=False,
+                              compute_convergence_checks=False, **kw)
+        with ThreadPoolExecutor(8) as pool:
+            ess = float(min(pool.map(lambda i: ess_bulk(trace[:, :, i]), range(100))))
+        out[path] = {"engine": report["engine"], "sample_seconds": report["sample_seconds"],
+                     "kernel_launches": report.get("kernel_launches"),
+                     "mean_n_steps": float(stats["n_steps"].mean()),
+                     "accept": float(stats["accept"].mean()),
+                     "divergence_share": float(stats["diverging"].mean()),
+                     "step_size": float(stats["step_size"][:, -1].mean()),
+                     "min_bulk_ess": ess, "min_bulk_ess_per_s": ess / report["sample_seconds"]}
+    line = chip_smoke._fused_path_breakdown(model, step="hmc")
+    out["hmc_adapt_full"].update(
+        {k: line.get(k) for k in ("fused_launch_ms", "fused_tune_ms", "fused_draw_ms",
+                                  "device_busy_share", "sample_seconds_profiled")})
+
+
 PATHS = {"logistic": _logistic_paths, "adapt_full": _adapt_full_paths,
-         "lowrank": _lowrank_paths, "eight_schools": _eight_schools_paths}
+         "lowrank": _lowrank_paths, "eight_schools": _eight_schools_paths, "hmc": _hmc_paths}
 
 
 def main() -> int:

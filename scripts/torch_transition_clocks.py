@@ -1,15 +1,18 @@
 #!/usr/bin/env python3
-"""Where the NUTS transition's time goes on the card, section by section.
+"""Where the NUTS and HMC transitions' time goes on the card, section by
+section.
 
     python3 scripts/torch_transition_clocks.py [ROOT] [--cases=CASE,...]
 
-Builds the per-draw trajectory kernel (``nuts_trajectory.cu``) and the
-fused NUTS kernel (``fused_nuts.cu``) of the checkout at ROOT (default:
-the one this script is in) a second time with ``-DLMC_TRANSITION_CLOCKS``,
-which compiles in the section clocks of ``csrc/nuts_transition.cuh``
-(the package's own build never sets it), and runs their diag and dense
-instances through the package's wrappers (tree depth 10, chain blocks of
-8):
+Builds the per-draw trajectory kernel (``nuts_trajectory.cu``), the
+fused NUTS kernel (``fused_nuts.cu``) and the two HMC kernels
+(``hmc_trajectory.cu``, ``fused_hmc.cu``) of the checkout at ROOT
+(default: the one this script is in) a second time with
+``-DLMC_TRANSITION_CLOCKS``, which compiles in the section clocks of
+``csrc/nuts_transition.cuh`` and ``csrc/hmc_transition.cuh`` (the
+package's own build never sets it), and runs their diag and dense
+instances through the package's wrappers (NUTS: tree depth 10, chain
+blocks of 8):
 
 - the 100-d correlated Gaussian (body 1, rows 1 diag and 2b body 1), 1024
   chains, at ``chip_smoke.py``'s phase-2 input (stationary, step 0.2) and
@@ -33,20 +36,30 @@ instances through the package's wrappers (tree depth 10, chain blocks of
   the fused instance at the final state of the NUTS ``fused_diag`` cell
   (``es_fused_final``), the per-draw instance at its ``fuse_draws=False``
   twin's (``es_per_draw_final``), and the per-draw instance at
-  ``chip_smoke.py``'s phase-2f input (1024 chains, ``phase2f``).
+  ``chip_smoke.py``'s phase-2f input (1024 chains, ``phase2f``);
+- HMC on the 100-d correlated Gaussian (rows 3 and 4 dense): the per-draw
+  kernel at the HMC main path's final state with step counts drawn as the
+  sampler draws them (``hmc_final``) and at phase 2d's input
+  (``hmc_phase2d``), the fused kernel's dense instance in a 250-draw
+  chunk at HMC ``adapt_full``'s final state (``hmc_af_final``) and in
+  phase 2e's tune chunk as that cell runs it (``hmc_af_tune``:
+  ``adapt_dense``, the step size adapting).
 
 A fused launch from a final state runs a 250-draw draw chunk. The final
 states (main path, F1, L0, ``adapt_full`` fused and per draw, L1 and L2:
 ``sample()`` at 1024 chains, 500 + 1000, seed 42; the eight-schools cell
-and its twin: 10,240 chains, 500 + 500, ``target_accept=0.95``, seed 42)
-are sampled once with ROOT's package and kept in ``build/`` beside this
-script (``STATE_FILES``), so that every checkout timed in one call sees
-the same states.
+and its twin: 10,240 chains, 500 + 500, ``target_accept=0.95``, seed 42;
+HMC's main path and ``adapt_full``: ``HamiltonianMC``, 1024 chains, 500 +
+1000, seed 42) are sampled once with ROOT's package and kept in
+``build/`` beside this script (``STATE_FILES``), so that every checkout
+timed in one call sees the same states.
 
 For each launch it prints one JSON line:
 
 - ``ms`` (CUDA events, the instrumented build) and ``plain_build_ms`` (the
-  package's own build, the same launch): the instrumentation's cost;
+  package's own build, the same launch): the instrumentation's cost; for
+  the HMC cases also ``device_ms``, the package build's device time a
+  launch under ``torch.profiler``;
 - ``blocks_per_sm``, the blocks of the package build's launch that fit
   on an SM at once (the CUDA runtime's occupancy at the launch's threads
   and dynamic shared memory, which the libraries record at each launch;
@@ -75,6 +88,17 @@ For each launch it prints one JSON line:
   (the normals and the momentum, the start velocity and energy, the
   transition, the work after it, the pooled Welford adds).
 
+An HMC line names its sections otherwise (``HMC_SECTIONS``: the body's
+product, the dense metric's velocity products, the kick and drift loops
+with their staging, the energies' sums, the fused draw's momentum, the
+Welford adds, ``wait``: a chain past its count in its block's lockstep and
+the block-wide waits for its longest chain, the rest), each section's share
+of the block's cycles and its cycles a lockstep step; the steps a chain
+and a draw (the chain's own and its block's lockstep ones), and from the
+step counts (inputs or outputs) their mean, their largest, and the mean of
+each CUDA block's largest a draw (``block_max_steps_per_draw``, the
+steps a lockstep block runs).
+
 Each line also holds ``digest``, a hash of the package build's outputs
 (every output tensor's bytes), so that two checkouts whose kernels round
 alike show the same digest. A checkout whose sources lack the clocks (no
@@ -101,11 +125,18 @@ SLOTS = len(SECTIONS) + 2  # then leaf steps and leaves built (kClkSlots)
 # draws, and the n x n products
 SIDE = ("momentum", "start", "tree", "after", "welford", "draws", "products")
 SIDE_SLOTS = len(SIDE)
+# the HMC kernels' sections (kHClk* in csrc/hmc_transition.cuh), in the same
+# slots; the step slots hold the block's lockstep steps and the chain's own
+HMC_SECTIONS = ("body", "velocity", "kick_drift", "energy", "momentum", "welford", "wait",
+                "other")
 C, N, DEPTH, CB = 1024, 100, 10, 8
+# the op each case kind runs, and its library
+KINDS = {"trajectory": "nuts_trajectory", "fused_nuts": "fused_nuts",
+         "hmc_trajectory": "hmc_trajectory", "fused_hmc": "fused_hmc"}
 
 
-def _start_clocked(root: Path, out_dir: Path) -> dict:
-    """Start nvcc on ROOT's two NUTS kernels with the clocks, both at once,
+def _start_clocked(root: Path, out_dir: Path, names) -> dict:
+    """Start nvcc on ROOT's kernels ``names`` with the clocks, all at once,
     into ``out_dir``/<hash of ROOT's sources> (a library already there is
     kept): name -> (library path, log path, process or None)."""
     from littlemcmc_torch.ops import _build
@@ -117,7 +148,7 @@ def _start_clocked(root: Path, out_dir: Path) -> dict:
     out_dir = out_dir / h.hexdigest()[:16]
     out_dir.mkdir(parents=True, exist_ok=True)
     procs = {}
-    for name in ("nuts_trajectory", "fused_nuts"):
+    for name in names:
         lib, log = out_dir / f"lib{name}_clocks.so", out_dir / f"{name}_clocks.log"
         proc = None
         if not lib.exists():
@@ -167,14 +198,18 @@ def _load_clocked(path: Path, name: str):
 # ``jitter+adapt_lowrank``: the pooled low-rank metric, fused and per
 # draw); and eight schools' NUTS cell (``EightSchools()``, chip_smoke.py's
 # ES_CHAINS, ES_TUNE, ES_DRAWS and ES_TARGET: 10,240 chains, 500 + 500,
-# ``target_accept=0.95``), on the fused diag engine and on its per-draw twin.
+# ``target_accept=0.95``), on the fused diag engine and on its per-draw twin;
+# HMC's main path (``HamiltonianMC(model_ndim=100)``, per-draw diag) and
+# HMC ``adapt_full`` (the pooled dense metric on the fused engine).
 STATE_FILES = {"main": "transition_clocks_state.pt", "f1": "transition_clocks_f1_state.pt",
                "l0": "transition_clocks_l0_state.pt",
                "adapt_full": "transition_clocks_adapt_full_state.pt",
                "adapt_full_twin": "transition_clocks_adapt_full_twin_state.pt",
                "l1": "transition_clocks_l1_state.pt", "l2": "transition_clocks_l2_state.pt",
                "es_fused": "transition_clocks_es_fused_state.pt",
-               "es_twin": "transition_clocks_es_twin_state.pt"}
+               "es_twin": "transition_clocks_es_twin_state.pt",
+               "hmc": "transition_clocks_hmc_state.pt",
+               "hmc_adapt_full": "transition_clocks_hmc_adapt_full_state.pt"}
 
 
 def metric_state(pot, ndim: int) -> dict:
@@ -244,7 +279,12 @@ def _inputs(root: Path, state_dir: Path, only=None) -> dict:
     low-rank input (per draw); rows 2b body 2 and 1 body 2 (eight schools)
     in a 250-draw chunk at the NUTS ``fused_diag`` cell's final state, one
     launch at its per-draw twin's final state (10,240 chains each) and one
-    at phase 2f's input (1024 chains)."""
+    at phase 2f's input (1024 chains); rows 3 and 4 dense (HMC on the
+    correlated Gaussian): the per-draw kernel at the HMC main path's final
+    state (:func:`hmc_steps`) and at phase 2d's input, the fused dense
+    instance in a 250-draw chunk at HMC ``adapt_full``'s final state and in
+    phase 2e's tune chunk as that cell runs it (4 draws, ``adapt_dense``
+    across a window swap, the step size adapting)."""
     import functools
 
     import numpy as np
@@ -252,8 +292,8 @@ def _inputs(root: Path, state_dir: Path, only=None) -> dict:
 
     sys.path.insert(0, str(root))
     import chip_smoke
-    from littlemcmc_torch import NUTS
-    from littlemcmc_torch.base import NUTSConfig
+    from littlemcmc_torch import NUTS, HamiltonianMC
+    from littlemcmc_torch.base import HMCConfig, NUTSConfig
     from littlemcmc_torch.models import (CorrelatedGaussian, EightSchools, NealsFunnel,
                                          SpikedGaussian)
 
@@ -267,7 +307,9 @@ def _inputs(root: Path, state_dir: Path, only=None) -> dict:
              "adapt_full_twin": (cg, dict(init="adapt_full", fuse_draws=False)),
              "l1": (sg, dict(init="jitter+adapt_lowrank")),
              "l2": (sg, dict(init="jitter+adapt_lowrank", fuse_draws=False)),
-             "es_fused": (es, es_step), "es_twin": (es, dict(es_step, fuse_draws=False))}
+             "es_fused": (es, es_step), "es_twin": (es, dict(es_step, fuse_draws=False)),
+             "hmc": (cg, dict(step=HamiltonianMC(model_ndim=N))),
+             "hmc_adapt_full": (cg, dict(init="adapt_full", step=HamiltonianMC(model_ndim=N)))}
 
     @functools.lru_cache(maxsize=None)
     def state(key):
@@ -303,6 +345,11 @@ def _inputs(root: Path, state_dir: Path, only=None) -> dict:
 
     def lowrank_2m():
         return chip_smoke._lowrank_inputs(sg, C, 0.5, seed=23)
+
+    def hmc_final():
+        s = state("hmc")
+        eps = torch.exp(s["log_bar"])
+        return (s["q"], s["p"], s["grad"], s["logp"], eps, hmc_steps(eps, HMCConfig()), s["var"])
 
     cases = {
         "phase2": lambda: ("trajectory", cg, stationary(), (17, 29), diag),
@@ -340,11 +387,31 @@ def _inputs(root: Path, state_dir: Path, only=None) -> dict:
         "es_per_draw_final": lambda: ("trajectory", es, traj(state("es_twin")), (3, 8), diag),
         "phase2f": lambda: ("trajectory", es, chip_smoke._posterior_inputs(es, 1024, 0.3, 11),
                             (83, -89), diag),
+        "hmc_final": lambda: ("hmc_trajectory", cg, hmc_final(), (3, 8), {}),
+        "hmc_phase2d": lambda: ("hmc_trajectory", cg, chip_smoke._hmc_inputs(
+            cg, np.linalg.cholesky(cg.cov), C, 0.2, 6), (61, -67), {}),
+        "hmc_af_final": lambda: ("fused_hmc", cg, fused(state("hmc_adapt_full")), (5, 9),
+                                 draws(250, "dense", HMCConfig())),
+        "hmc_af_tune": lambda: ("fused_hmc", cg, chip_smoke._fused_inputs(cg, C, 10), (67, 19),
+                                dict(T=4, tuning=True, config=HMCConfig(adapt_step_size=True),
+                                     metric="dense", window_multiplier=2.0,
+                                     dense_welford=chip_smoke._welford_seed(cg))),
     }
     unknown = set(only or ()) - set(cases)
     if unknown:
         raise ValueError(f"unknown cases {sorted(unknown)}; known: {sorted(cases)}")
     return {k: make() for k, make in cases.items() if not only or k in only}
+
+
+def hmc_steps(eps, config, seed: int = 11):
+    """Each chain's step count as the HMC sampler draws it (``hmc.py``):
+    ``clamp(floor(U(0, 1) * path_length / eps), 1, max_steps)``, the
+    uniforms from a generator seeded ``seed`` on ``eps``'s device."""
+    import torch
+
+    gen = torch.Generator(device=eps.device).manual_seed(seed)
+    path = torch.rand(eps.shape[0], generator=gen, device=eps.device) * config.path_length
+    return torch.clamp(torch.floor(path / eps), 1, config.max_steps).to(torch.int32)
 
 
 def clock_buffer_len(chains: int, cb: int) -> int:
@@ -358,6 +425,7 @@ def _tail(blocks, n_sms: int) -> dict:
     """The grid's tail from the blocks' (start ns, end ns, SM) rows."""
     import numpy as np
 
+    blocks = blocks[blocks[:, 1] > 0]  # rows of blocks that ran (a buffer may hold more)
     start, end, sm = (blocks[:, k].astype(np.float64) for k in range(3))
     span = end.max() - start.min()
     busy = {}
@@ -387,6 +455,43 @@ def _sections(rows) -> dict:
     out.update(cycles_per_step=float(total / steps.sum()),
                leaf_steps_per_chain=float(steps.mean()), leaves_built_per_chain=float(built.mean()))
     return out
+
+
+def _hmc_sections(rows, draws: int) -> dict:
+    """The HMC kernels' section shares (``HMC_SECTIONS``) of the chains'
+    cycles, each section's cycles a lockstep step, the wait share, and the
+    steps a chain-draw: its block's lockstep steps and its own."""
+    import numpy as np
+
+    cyc = rows[:, :len(HMC_SECTIONS)].astype(np.float64)
+    lock = rows[:, len(HMC_SECTIONS)].astype(np.float64)
+    own = rows[:, len(HMC_SECTIONS) + 1].astype(np.float64)
+    total = cyc.sum()
+    out = {f"share_{k}": float(cyc[:, i].sum() / total) for i, k in enumerate(HMC_SECTIONS)}
+    out.update({f"cycles_per_step_{k}": float(cyc[:, i].sum() / lock.sum())
+                for i, k in enumerate(HMC_SECTIONS)})
+    out.update(cycles_per_step=float(total / lock.sum()), wait_share=out["share_wait"],
+               lockstep_steps_per_chain_draw=float(lock.mean() / draws),
+               steps_per_chain_draw=float(own.mean() / draws))
+    return out
+
+
+def _hmc_step_counts(n_steps, chains_per_block: int) -> dict:
+    """From the step counts (``(T, C)``, or ``(C,)`` for one draw): their
+    mean and largest, and the mean over draws and CUDA blocks of
+    ``chains_per_block`` chains of each block's largest (the steps a block
+    that integrates in lockstep runs a draw), and that over the mean."""
+    import numpy as np
+
+    x = np.asarray(n_steps, dtype=np.float64).reshape(-1, np.shape(n_steps)[-1])
+    T, chains = x.shape
+    pad = -chains % chains_per_block  # a last block that is not full
+    x = np.concatenate([x, np.zeros((T, pad))], axis=1)
+    block_max = x.reshape(T, -1, chains_per_block).max(-1)
+    mean = float(np.asarray(n_steps, dtype=np.float64).mean())
+    return {"mean_steps": mean, "max_steps": int(np.max(n_steps)),
+            "block_max_steps_per_draw": float(block_max.mean()),
+            "lockstep_step_ratio": float(block_max.mean()) / mean}
 
 
 def _side(rows, draws: int, metric: str = "diag") -> dict:
@@ -451,28 +556,40 @@ def run_clocks(root: Path, state_dir: Path, out_dir: Path, only=None) -> list:
     already on ``sys.path``); ``only``: the cases to run (default all)."""
     import torch
     from littlemcmc_torch.ops import _build
+    from littlemcmc_torch.ops.fused_hmc import fused_hmc
     from littlemcmc_torch.ops.fused_nuts import fused_nuts
+    from littlemcmc_torch.ops.hmc_trajectory import hmc_trajectory
     from littlemcmc_torch.ops.nuts_trajectory import trajectory
 
     t0 = time.perf_counter()
-    procs = _start_clocked(root, out_dir)
+    procs = _start_clocked(root, out_dir, sorted(set(KINDS.values())))
     _build.build_all()  # the package's own build, beside the clocked one
     clocked = _finish_clocked(procs)
     build_s = time.perf_counter() - t0
     libs = {name: _load_clocked(path, name) for name, (path, _) in clocked.items()}
     cases = _inputs(root, state_dir, only)
-    ops = {"trajectory": (trajectory, "nuts_trajectory"), "fused_nuts": (fused_nuts, "fused_nuts")}
+    import chip_smoke  # root's, which _inputs put on sys.path
+    ops = {"trajectory": trajectory, "fused_nuts": fused_nuts, "hmc_trajectory": hmc_trajectory,
+           "fused_hmc": fused_hmc}
     n_sms = torch.cuda.get_device_properties(0).multi_processor_count
     real_load = _build.load_library
     records = []
     for case, (kind, model, args, seed, extra) in cases.items():
         if only and case not in only:
             continue
-        op, lib_name = ops[kind]
+        op, lib_name = ops[kind], KINDS[kind]
+        hmc = kind in ("hmc_trajectory", "fused_hmc")
         chains = args[0].shape[0]
-        kw = dict(spec=model.trajectory_spec(), chain_block=CB, **extra)
+        metric = extra.get("metric", "diag")
+        # the per-draw HMC op's chain block is its counter stream's (512 by
+        # default), not the kernel's thread block
+        kw = dict(spec=model.trajectory_spec(), **extra)
+        if kind != "hmc_trajectory":
+            kw["chain_block"] = CB
         if kind == "trajectory":
             kw.update(max_treedepth=DEPTH, Emax=1000.0)
+        if kind == "hmc_trajectory":
+            kw["Emax"] = 1000.0
         T = extra.get("T", 0)
         reps = 3 if T >= 100 else 20
 
@@ -482,21 +599,26 @@ def run_clocks(root: Path, state_dir: Path, out_dir: Path, only=None) -> list:
         digest = _digest(call())
         blocks_per_sm = _blocks_per_sm(lib_name)
         plain_build_ms = _ms(call, reps)
+        # the HMC cases' device time under the profiler: a per-draw HMC
+        # launch is shorter than its wrapper's host work
+        device_ms = chip_smoke._device_ms(call, lib_name, reps, None)[0] if hmc else None
         lib, bind, bind_side = libs[lib_name]
         _build.load_library = (lambda name, _l=lib, _n=lib_name:
                                _l if name == _n else real_load(name))
         try:
             instr_ms = _ms(call, reps)
             rec = {"root": str(root), "case": case, "kernel": lib_name,
-                   "body": model.trajectory_spec().body, "metric": extra["metric"],
+                   "body": model.trajectory_spec().body, "metric": metric,
                    "chains": chains, "draws": T or 1, "ms": instr_ms,
-                   "plain_build_ms": plain_build_ms, "digest": digest,
+                   "plain_build_ms": plain_build_ms, "device_ms": device_ms, "digest": digest,
                    "blocks_per_sm": blocks_per_sm,
                    "waves": (chains // CB / (blocks_per_sm * n_sms) if blocks_per_sm else None),
                    "ptxas_clocks": clocked[lib_name][1]}
             if bind is not None:
-                buf = torch.zeros(clock_buffer_len(chains, CB), dtype=torch.int64,
-                                  device="cuda")
+                # the per-draw HMC kernel's thread blocks may hold fewer than
+                # CB chains: room for a block row a chain
+                buf = torch.zeros(clock_buffer_len(chains, 1 if hmc else CB),
+                                  dtype=torch.int64, device="cuda")
                 side = torch.zeros(chains * SIDE_SLOTS, dtype=torch.int64, device="cuda")
                 if bind(buf.data_ptr()) != 0 or (
                         bind_side is not None and bind_side(side.data_ptr()) != 0):
@@ -510,10 +632,20 @@ def run_clocks(root: Path, state_dir: Path, out_dir: Path, only=None) -> list:
                     rec.update(_side(side.cpu().numpy().reshape(chains, SIDE_SLOTS), T or 1,
                                      extra["metric"]))
                 rec.update(_tail(host[chains * SLOTS:].reshape(-1, 4), n_sms))
-                rec.update(_sections(host[:chains * SLOTS].reshape(chains, SLOTS)))
-                rec["mean_leaves_per_chain_draw"] = float(
-                    out["n_leaves"].float().mean())
-                rec["max_depth"] = int(out["depth"].max())
+                rows = host[:chains * SLOTS].reshape(chains, SLOTS)
+                if hmc:
+                    rec.update(_hmc_sections(rows, T or 1))
+                    per_block = -(-chains // rec["blocks"])
+                    steps = out["n_steps"] if kind == "fused_hmc" else args[5]
+                    rec.update(chains_per_block=per_block,
+                               **_hmc_step_counts(steps.cpu().numpy(), per_block))
+                    if blocks_per_sm:
+                        rec["waves"] = rec["blocks"] / (blocks_per_sm * n_sms)
+                else:
+                    rec.update(_sections(rows))
+                    rec["mean_leaves_per_chain_draw"] = float(
+                        out["n_leaves"].float().mean())
+                    rec["max_depth"] = int(out["depth"].max())
             else:
                 rec["clocks"] = "none: the checkout's sources have no section clocks"
         finally:

@@ -255,6 +255,93 @@ def test_hmc_sample_on_the_card(hopper, init, engine, launches):
     assert abs((trace.reshape(-1, 20).var(0) / model.true_var).mean() - 1) < 0.1
 
 
+# Body 1 in the per-draw HMC kernel (the diagonal metric) and in the fused
+# HMC kernel with the dense metric in chain blocks of up to 8 run the block
+# HMC transition (csrc/hmc_transition.cuh): the block's chains in lockstep
+# to their longest count, each product of the whole block. Each block
+# instance is held against its plain version by the smoke's checks.
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("n", [100, 250])
+def test_hmc_block_kernel_ragged_counts_match_plain(hopper, n):
+    """Ragged counts within each thread block: the first chain of every 8
+    at 40 steps and the rest at 1, one chain at a step that diverges
+    mid-trajectory (it integrates on to its 20 steps), one at 0 steps; P
+    in shared memory (n = 100) and through L2 (n = 250)."""
+    from littlemcmc_torch.ops.nuts_trajectory import runs_hmc_block_transition
+
+    assert runs_hmc_block_transition("correlated_gaussian", "diag", 512, fused=False)
+    model = tm.CorrelatedGaussian(n)
+    q, p, grad, logp, eps, n_steps, var = _hmc_inputs(model, np.linalg.cholesky(model.cov),
+                                                      256, 0.2, 5)
+    n_steps = torch.ones_like(n_steps)
+    n_steps[::8] = 40
+    n_steps[3], n_steps[5] = 20, 0
+    eps = eps.clone()
+    eps[3] = 0.4  # its energy grows past Emax (to 1e15-1e17) and stays finite
+    args = (q, p, grad, logp, eps, n_steps, var)
+    res, failures, got, want = hmc_check(model, args, (13, -17), 0.99, scaled=True)
+    assert not failures, res
+    assert bool(want["diverging"][3]) and bool(got["diverging"][3])
+    assert res["max_n_steps"] == 40
+    # the chain of no steps keeps its start, accepted or not
+    torch.testing.assert_close(got["q"][5], q[5], rtol=0, atol=0)
+    torch.testing.assert_close(got["grad"][5], grad[5], rtol=0, atol=0)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("n,block,tuning", [
+    (100, 8, False), (100, 5, False), (100, 1, False), (250, 8, False), (100, 8, True),
+    (100, 5, True),
+], ids=["draw-100-8", "draw-100-5", "draw-100-1", "draw-250-8", "tune-100-8", "tune-100-5"])
+def test_fused_hmc_block_kernel_matches_plain(hopper, n, block, tuning):
+    """The fused HMC kernel's dense block instance, step size held: a draw
+    chunk at n = 100 in blocks of 8, 5 and 1 chains (ragged products) and at
+    n = 250 (P, COV and L^-1 through L2), and an ``adapt_dense`` tune chunk
+    across the window swap (the checks of the smoke's phase 2e)."""
+    from littlemcmc_torch.ops.nuts_trajectory import runs_hmc_block_transition
+
+    assert runs_hmc_block_transition("correlated_gaussian", "dense", block, fused=True)
+    res, failures, got, _, _, _ = fused_check(tm.CorrelatedGaussian(n), 40 * block, 4, tuning,
+                                              False, seed=8, words=(21, -3), step="hmc",
+                                              chain_block=block)
+    assert not failures, res
+    if tuning:
+        assert float(got["window"]) == 202.0
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("block", [8, 5, 1])
+def test_fused_hmc_block_kernel_tune_chunk_as_the_cell_runs_it(hopper, block):
+    """The tune chunk as HMC ``adapt_full`` runs it, on the block instance
+    in blocks of 8, 5 and 1 chains: the step size adapting, ``adapt_dense``
+    across the window swap; its first draw chain for chain, the
+    dual-averaging state against its replay, the pooled Welford state
+    against a float64 replay of the kernel's trace."""
+    res, failures, got, _, _, _ = fused_check(tm.CorrelatedGaussian(100), 40 * block, 4, True,
+                                              True, seed=10, words=(67, 19), step="hmc",
+                                              chain_block=block)
+    assert not failures, res
+    assert res["step_size_adapting"] and "da_tol_share" in res
+    assert float(got["window"]) == 202.0
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("tuning", [False, True], ids=["draw_chunk", "tune_chunk"])
+def test_fused_hmc_blocks_of_16_stay_on_the_warp_instance(hopper, tuning):
+    """Chain blocks of 16 run the fused HMC kernel's warp instance
+    (``fused_hmc<1,1>``), held as the block instance is."""
+    from littlemcmc_torch.ops.nuts_trajectory import runs_hmc_block_transition
+
+    assert not runs_hmc_block_transition("correlated_gaussian", "dense", 16, fused=True)
+    res, failures, got, _, _, _ = fused_check(tm.CorrelatedGaussian(100), 256, 4, tuning,
+                                              False, seed=8, words=(21, -3), step="hmc",
+                                              chain_block=16)
+    assert not failures, res
+    if tuning:
+        assert float(got["window"]) == 202.0
+
+
 # --------------------------------------------------------------------------
 # eight schools and the fused kernels' diag branch
 # --------------------------------------------------------------------------

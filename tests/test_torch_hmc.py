@@ -106,6 +106,128 @@ def test_hmc_trajectory_plain_matches_jax(body):
     np.testing.assert_allclose(got["accept_stat"], want["accept_stat"], atol=1e-6, rtol=1e-4)
 
 
+def _ragged_inputs(jmodel, n, C, CB, seed):
+    """Stationary inputs with ragged step counts within each chain block of
+    ``CB``: its first chain at 24 steps and the rest at 1, chain 3 at 20
+    steps of a step size past the stable one (its energy grows past Emax
+    and stays finite: it diverges mid-trajectory and integrates on), chain
+    5 at 0 steps."""
+    chol = np.linalg.cholesky(jmodel.cov)
+    rng = np.random.default_rng(seed)
+    q = (rng.standard_normal((C, n)) @ chol.T).astype(np.float32)
+    var = (jmodel.true_var * rng.uniform(0.5, 2.0, (C, n))).astype(np.float32)
+    p = (rng.standard_normal((C, n)) / np.sqrt(var)).astype(np.float32)
+    eps = (0.15 * rng.uniform(0.8, 1.2, C)).astype(np.float32)
+    n_steps = np.ones(C, np.int32)
+    n_steps[::CB] = 24
+    n_steps[3], eps[3] = 20, 0.5
+    n_steps[5] = 0
+    lp, g = (np.asarray(x) for x in jax.vmap(jmodel.logp_grad)(jnp.asarray(q)))
+    return q, p, g, lp, eps, n_steps, var
+
+
+def test_hmc_ragged_counts_plain_match_jax():
+    """(i) with the ragged counts the block HMC transition's lockstep meets
+    (:func:`_ragged_inputs`), chain for chain against
+    ``build_hmc_trajectory_op(interpret=True)``, whose loop also runs to
+    the block's longest count with each chain live to its own
+    (``run_hmc_trajectory_values``)."""
+    n, C, CB = 20, 16, 8
+    jmodel, tmodel = jm.CorrelatedGaussian(n), tm.CorrelatedGaussian(n, device="cpu")
+    inputs = _ragged_inputs(jmodel, n, C, CB, 13)
+    op = build_hmc_trajectory_op(_highest_spec(jmodel, n), n, 1000.0, interpret=True,
+                                 chain_block=CB)
+    want = jax.tree.map(np.asarray, op(*inputs, jnp.asarray(SEED, jnp.int32)))
+    got = hmc_trajectory(*[torch.from_numpy(np.array(x)) for x in inputs], SEED,
+                         spec=tmodel.trajectory_spec(), Emax=1000.0, chain_block=CB)
+    got = {k: v.numpy() for k, v in got.items()}
+    np.testing.assert_array_equal(got["accepted"], want["accepted"])
+    np.testing.assert_array_equal(got["diverging"], want["diverging"])
+    assert want["diverging"][3] and np.isfinite(want["energy"][3])
+    assert abs(want["energy_change"][3]) > 1000.0
+    sd = np.sqrt(jmodel.true_var)
+    np.testing.assert_allclose(got["q"] / sd, want["q"] / sd, atol=1e-5, rtol=0)
+    np.testing.assert_allclose(got["grad"], want["grad"], atol=1e-4, rtol=1e-4)
+    for k in ("logp", "logp_end", "energy", "energy_change"):
+        np.testing.assert_allclose(got[k], want[k], atol=1e-4, rtol=1e-5)
+    # the chain of no steps keeps its start, its energy change 0
+    np.testing.assert_array_equal(got["q"][5], inputs[0][5])
+    np.testing.assert_array_equal(got["grad"][5], inputs[2][5])
+    assert got["energy_change"][5] == 0.0
+
+
+@pytest.mark.parametrize("metric", ["diag", "dense"])
+def test_lockstep_keeps_each_chains_bits(metric):
+    """The property the block HMC transition relies on: a chain's result
+    is the same to the bit whether its block mates run other counts (the
+    block integrates to the longest, each chain frozen past its own) or
+    the block holds only copies of it at its own count. Each chain of a
+    ragged batch (:func:`_ragged_inputs`) against row ``c`` of a batch of
+    copies of chain ``c``, through the plain trajectory with the diagonal
+    metric and with a shared dense one."""
+    from littlemcmc_torch.integration import INTEGRATOR_COEFFS
+    from littlemcmc_torch.ops.hmc_trajectory import hmc_transition
+    from littlemcmc_torch.ops.nuts_trajectory import body_logp_grad, metric_velocity
+
+    n, C, CB = 20, 16, 8
+    jmodel, tmodel = jm.CorrelatedGaussian(n), tm.CorrelatedGaussian(n, device="cpu")
+    q, p, g, lp, eps, n_steps, var = (torch.from_numpy(np.array(x)) for x in
+                                      _ragged_inputs(jmodel, n, C, CB, 17))
+    spec = tmodel.trajectory_spec()
+    cov = torch.from_numpy((0.5 * jmodel.cov + 0.5 * np.diag(np.diag(jmodel.cov)))
+                           .astype(np.float32))
+    vel = metric_velocity(var if metric == "diag" else cov, metric)
+    if metric == "dense":  # chain 3 past the dense metric's stable step size too
+        eps[3] = 1.0
+    u = torch.from_numpy(np.random.default_rng(3).uniform(size=C).astype(np.float32))
+
+    def run(rows, counts, vel_fn):
+        return hmc_transition(lambda x: body_logp_grad(spec, x), vel_fn,
+                              INTEGRATOR_COEFFS["leapfrog"], 1000.0, q[rows], p[rows], g[rows],
+                              lp[rows], eps[rows], counts, u[rows])
+
+    ragged = run(torch.arange(C), n_steps, vel)
+    assert ragged["diverging"][3] and 0 < int(ragged["accepted"].sum()) < C
+    for c in range(C):
+        rows = torch.full((C,), c)
+        alone = run(rows, n_steps[rows], vel if metric == "dense" else
+                    metric_velocity(var[rows], "diag"))
+        for k, v in ragged.items():
+            torch.testing.assert_close(alone[k][c], v[c], rtol=0, atol=0, equal_nan=True,
+                                       msg=lambda m, k=k, c=c: f"{k} of chain {c}: {m}")
+
+
+@pytest.mark.parametrize("chain_block", [1, 8, 16])
+def test_hmc_block_predicate_matches_the_kernels(chain_block):
+    """``runs_hmc_block_transition`` names the instances that
+    ``hmc_block_body()`` of ``csrc/hmc_transition.cuh`` and ``kBlockChains``
+    put on the block HMC transition: body 1, per draw with the diagonal
+    metric at any chain block, fused with the dense metric in blocks of up
+    to 8 chains."""
+    import re
+    from pathlib import Path
+
+    from littlemcmc_torch.ops.nuts_trajectory import (BODY_IDS, METRIC_IDS,
+                                                      runs_hmc_block_transition)
+
+    csrc = Path(__file__).resolve().parents[1] / "littlemcmc_torch" / "ops" / "csrc"
+    src = (csrc / "hmc_transition.cuh").read_text()
+    fn = re.search(r"constexpr bool hmc_block_body\(\) \{\s*return (.*?);", src, re.S).group(1)
+    bodies = {int(b) for b in re.findall(r"BODY == (\d+)", fn)}
+    fused_metric, draw_metric = re.search(r"METRIC == \(FUSED \? (k\w+) : (k\w+)\)", fn).groups()
+    chains = int(re.search(r"constexpr int kBlockChains = (\d+);",
+                           (csrc / "nuts_transition.cuh").read_text()).group(1))
+    names = {"kDiag": "diag", "kDense": "dense", "kLowRank": "lowrank"}
+    assert bodies == {1} and (names[fused_metric], names[draw_metric]) == ("dense", "diag")
+    for body, bid in BODY_IDS.items():
+        for metric in METRIC_IDS:
+            on = bid in bodies
+            assert runs_hmc_block_transition(body, metric, chain_block, fused=False) == (
+                on and metric == names[draw_metric])
+            assert runs_hmc_block_transition(body, metric, chain_block, fused=True) == (
+                on and metric == names[fused_metric] and chain_block <= chains)
+
+
 # --------------------------------------------------------------------------
 # (ii) the fused HMC op
 # --------------------------------------------------------------------------

@@ -195,3 +195,114 @@ def test_eight_schools_state_files_hold_the_cells_final_states(tmp_path, monkeyp
     again = tc._final_state(path, es, **kw)
     for k in state:
         torch.testing.assert_close(again[k], state[k], rtol=0, atol=0)
+
+
+def test_tail_skips_rows_of_blocks_that_never_ran():
+    """The HMC per-draw cases bind a block row for every chain (their
+    thread blocks may hold fewer chains than the NUTS kernels'): the rows
+    no block wrote (end 0) are left out of the tail."""
+    blocks = np.array([[0, 10, 0, 0], [0, 5, 1, 0], [0, 0, 0, 0], [0, 0, 0, 0]],
+                      dtype=np.int64)
+    out = tc._tail(blocks, n_sms=2)
+    assert out["blocks"] == 2 and out["sms_used"] == 2
+    assert out["tail_share"] == pytest.approx(1 - 15 / 20)
+
+
+def test_hmc_sections_shares_steps_and_wait():
+    """The HMC kernels' rows: each section's share of the chains' cycles
+    (``HMC_SECTIONS``), its cycles a lockstep step, the wait share, and the
+    steps a chain-draw, its block's lockstep steps and its own."""
+    rows = np.zeros((2, tc.SLOTS), dtype=np.int64)
+    rows[0, :len(tc.HMC_SECTIONS)] = [60, 0, 20, 5, 0, 0, 0, 15]  # 100 cycles, all live
+    rows[1, :len(tc.HMC_SECTIONS)] = [24, 0, 8, 5, 0, 0, 50, 13]  # 100, half of it frozen
+    rows[:, len(tc.HMC_SECTIONS)] = [8, 8]  # the block's lockstep steps over 2 draws
+    rows[:, len(tc.HMC_SECTIONS) + 1] = [8, 3]  # each chain's own
+    out = tc._hmc_sections(rows, 2)
+    assert sum(out[f"share_{k}"] for k in tc.HMC_SECTIONS) == pytest.approx(1.0)
+    assert out["wait_share"] == out["share_wait"] == pytest.approx(50 / 200)
+    assert out["share_body"] == pytest.approx(84 / 200)
+    assert out["cycles_per_step"] == pytest.approx(200 / 16)
+    assert out["cycles_per_step_wait"] == pytest.approx(50 / 16)
+    assert out["lockstep_steps_per_chain_draw"] == pytest.approx(4.0)
+    assert out["steps_per_chain_draw"] == pytest.approx(11 / 4)
+
+
+@pytest.mark.parametrize("shape", ["one_draw", "draws"])
+def test_hmc_step_counts_and_each_blocks_longest(shape):
+    """The step counts' mean and largest, and each block's largest a draw
+    (the steps a lockstep block runs), a last block that is not full
+    included."""
+    counts = np.array([1, 5, 3, 2, 9, 1, 1, 1, 4, 4])  # blocks of 4: 5, 9, 4
+    if shape == "draws":
+        counts = np.stack([counts, np.ones_like(counts)])  # a second draw: 1, 1, 1
+    out = tc._hmc_step_counts(counts, 4)
+    assert out["mean_steps"] == pytest.approx(counts.mean())
+    assert out["max_steps"] == 9
+    want = 6.0 if shape == "one_draw" else (6.0 + 1.0) / 2
+    assert out["block_max_steps_per_draw"] == pytest.approx(want)
+    assert out["lockstep_step_ratio"] == pytest.approx(want / counts.mean())
+
+
+def test_hmc_steps_as_the_sampler_draws_them():
+    """``hmc_steps``: floor(U * path_length / eps) clamped to [1,
+    max_steps], the uniforms from a seeded generator: the same counts
+    again, a step past the path length gives 1, a tiny step max_steps."""
+    from littlemcmc_torch.base import HMCConfig
+
+    cfg = HMCConfig(max_steps=50)
+    eps = torch.tensor([0.25, 0.1, 10.0, 1e-6])
+    n = tc.hmc_steps(eps, cfg, seed=3)
+    torch.testing.assert_close(n, tc.hmc_steps(eps, cfg, seed=3), rtol=0, atol=0)
+    gen = torch.Generator().manual_seed(3)
+    u = torch.rand(4, generator=gen) * cfg.path_length
+    torch.testing.assert_close(n, torch.clamp(torch.floor(u / eps), 1, 50).to(torch.int32))
+    assert n.dtype == torch.int32 and int(n[2]) == 1 and int(n[3]) == 50
+
+
+def test_hmc_state_files_hold_the_cells_final_states(tmp_path, monkeypatch):
+    """The HMC cases start from the final states of HMC's main path and of
+    HMC ``adapt_full``, each in a file of its own; ``_final_state`` samples
+    the main path's once with ``HamiltonianMC`` (here on the CPU at 16
+    chains, 30 + 20) and loads it after, the same tensors."""
+    import littlemcmc_torch as lt
+    from littlemcmc_torch.models import CorrelatedGaussian
+
+    assert {"hmc", "hmc_adapt_full"} <= set(tc.STATE_FILES)
+    assert len(set(tc.STATE_FILES.values())) == len(tc.STATE_FILES)
+    model = CorrelatedGaussian(6, device="cpu")
+    path = tmp_path / tc.STATE_FILES["hmc"]
+    kw = dict(chains=16, tune=30, draws=20, device="cpu", step=lt.HamiltonianMC(model_ndim=6))
+    state = tc._final_state(path, model, **kw)
+    assert path.exists()
+    assert set(state) == {"q", "grad", "logp", "var", "p", "iter", "log_step", "log_bar", "hbar",
+                          "count", "mu"}
+    assert state["q"].shape == state["var"].shape == (16, 6)
+    steps = tc.hmc_steps(torch.exp(state["log_bar"]), lt.base.HMCConfig())
+    assert steps.shape == (16,) and int(steps.min()) >= 1
+    monkeypatch.setattr(lt, "sample", lambda *a, **k: pytest.fail("sampled a kept state again"))
+    again = tc._final_state(path, model, **kw)
+    for k in state:
+        torch.testing.assert_close(again[k], state[k], rtol=0, atol=0)
+
+
+def test_hmc_ptxas_instances_name_the_block_and_warp_ones():
+    """``chip_smoke._hmc_moved_instances`` (phase 4's ptxas lines of the HMC
+    kernels' block instances): body 1's per-draw block instance and the
+    fused kernel's dense block and warp instances, keyed as the NUTS ones,
+    and no other instance."""
+    import chip_smoke
+
+    def entry(name, regs):
+        return [f"ptxas info    : Compiling entry function '_ZN12_GLOBAL__N_1{name}EEvNS_4ArgsE'"
+                " for 'sm_90a'", "    0 bytes stack frame, 0 bytes spill stores, 0 bytes spill"
+                " loads", f"ptxas info    : Used {regs} registers"]
+
+    log = "\n".join(entry("27hmc_trajectory_block_kernelILi1E", 90)
+                    + entry("21hmc_trajectory_kernelILi0E", 40)
+                    + entry("16fused_hmc_kernelILi1ELi1ELb1E", 158)
+                    + entry("16fused_hmc_kernelILi1ELi1ELb0E", 106)
+                    + entry("16fused_hmc_kernelILi1ELi0ELb0E", 64))
+    out = chip_smoke._hmc_moved_instances(log)
+    assert list(out) == ["<1,0,block>", "<1,1,block>", "<1,1,warp>"]
+    assert out["<1,1,block>"][1].endswith("Used 158 registers")
+    assert out["<1,1,warp>"][1].endswith("Used 106 registers")
