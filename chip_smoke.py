@@ -217,11 +217,15 @@ them, whole chain blocks, every fourth chain of the inputs as made:
    the block transition beside those on the warp transition) and of the
    HMC kernels' body-1 instances on the block HMC transition (per draw,
    whose warp instance is not compiled, and the fused dense one beside its
-   warp instance), and one JSON
+   warp instance) and of the fused HMC kernel's register instances (body
+   4 low-rank beside its warp instance, eight schools' packed one, whose
+   warp instance is not compiled), and one JSON
    line of kernel rows (each NUTS row's ``transition``, ``block`` or
    ``warp``: the transition of ``csrc/nuts_transition.cuh`` its instance
    runs, and each HMC row's, ``block`` for the block HMC transition of
-   ``csrc/hmc_transition.cuh``; the main HMC rows' ``blocks_per_sm``; the
+   ``csrc/hmc_transition.cuh``, for the fused HMC kernel also
+   ``registers`` (row 4c, the low-rank instance) or ``packed`` (row 4b,
+   eight schools), ``fused_hmc_transition``; the main HMC rows' ``blocks_per_sm``; the
    eight-schools NUTS rows' ``blocks_per_sm``, the blocks of their launch
    at 10,240 chains that fit on an SM), the six fused probes
    last (for the fused kernels ``ms``, ``plain_ms`` and ``bound_ms`` are
@@ -735,23 +739,33 @@ def _ptxas_entries(log: str) -> dict:
 
 
 def _hmc_moved_instances(log: str) -> dict:
-    """The ptxas lines (``_ptxas_entries``) of the HMC kernels' body-1
-    instances, keyed ``<body,metric,block|warp>``: the per-draw kernel's
-    block instance (diag), the fused kernel's dense block instance
-    (``fused_hmc_kernel<1,1,true>``) and its warp instance; another
+    """The ptxas lines (``_ptxas_entries``) of the HMC kernels' redesigned
+    instances, keyed ``<body,metric,transition>``: body 1's per-draw block
+    instance (diag), the fused kernel's dense block instance
+    (``fused_hmc_kernel<1,1,true>``) and its warp instance, the fused
+    kernel's low-rank register instance (``fused_hmc_lowrank_kernel<4>``)
+    and its warp instance (``fused_hmc_kernel<4,2,false>``), and eight
+    schools' packed instance (``fused_hmc_packed_kernel<2>``); another
     instance is left out."""
     import re
 
     moved = {}
     for entry, lines in _ptxas_entries(log).items():
-        m = re.search(r"\d+(hmc_trajectory_block_kernel|fused_hmc_kernel)"
+        m = re.search(r"\d+(hmc_trajectory_block_kernel|fused_hmc_kernel|"
+                      r"fused_hmc_lowrank_kernel|fused_hmc_packed_kernel)"
                       r"ILi(\d+)E(?:Li(\d+)E)?(?:Lb(\d)E)?", entry)
-        if m is None or m.group(2) != "1":
+        if m is None:
             continue
-        if m.group(1) == "fused_hmc_kernel" and m.group(3) == "1":
-            moved[f"<1,1,{'block' if m.group(4) == '1' else 'warp'}>"] = lines
-        elif m.group(1) == "hmc_trajectory_block_kernel":
+        kind, body, metric = m.group(1), m.group(2), m.group(3)
+        if kind == "fused_hmc_kernel" and (body, metric) in (("1", "1"), ("4", "2")):
+            block = m.group(4) == "1"
+            moved[f"<{body},{metric},{'block' if block else 'warp'}>"] = lines
+        elif kind == "hmc_trajectory_block_kernel" and body == "1":
             moved["<1,0,block>"] = lines
+        elif kind == "fused_hmc_lowrank_kernel":
+            moved[f"<{body},2,registers>"] = lines
+        elif kind == "fused_hmc_packed_kernel":
+            moved[f"<{body},0,packed>"] = lines
     return moved
 
 
@@ -1952,11 +1966,13 @@ def _es_kernel_timing(model, state, pd_state, step: str, gen, label: str = "es")
             "fused_work_per_chain_draw": work / C / 250,
             "per_draw_ms": p_ms, "per_draw_ms_source": p_src, "per_draw_events_ms": p_events,
             "per_draw_bound_ms": p_bound, "per_draw_bound_by": p_by}
-    if step == "nuts":  # the blocks an SM of the two NUTS launches just timed
-        from littlemcmc_torch.ops._build import last_blocks_per_sm
+    from littlemcmc_torch.ops._build import last_blocks_per_sm
 
-        line.update(fused_blocks_per_sm=last_blocks_per_sm("fused_nuts"),
-                    per_draw_blocks_per_sm=last_blocks_per_sm("nuts_trajectory"))
+    # the blocks an SM of the fused launch (and of NUTS's per-draw launch)
+    # just timed
+    line["fused_blocks_per_sm"] = last_blocks_per_sm(f"fused_{step}")
+    if step == "nuts":
+        line["per_draw_blocks_per_sm"] = last_blocks_per_sm("nuts_trajectory")
     print(json.dumps(line), flush=True)
     return line
 
@@ -2165,6 +2181,7 @@ def _lowrank_timing(sg, lr, lr_args, lr_cmp, sg_args, sg_cmp, sg_hargs, sg_hmc_c
     from littlemcmc_torch import HamiltonianMC
     from littlemcmc_torch.base import HMCConfig, NUTSConfig
     from littlemcmc_torch.nuts import _shared_lowrank_factor
+    from littlemcmc_torch.ops._build import last_blocks_per_sm
     from littlemcmc_torch.ops.fused_hmc import fused_hmc
     from littlemcmc_torch.ops.fused_nuts import fused_nuts
     from littlemcmc_torch.ops.hmc_trajectory import hmc_trajectory
@@ -2251,6 +2268,7 @@ def _lowrank_timing(sg, lr, lr_args, lr_cmp, sg_args, sg_cmp, sg_hargs, sg_hmc_c
         work_c = int(op(*fargs, (5, 9), **fkw)[FUSED_STEPS[step]["work"]].sum())
         c_ev = _cuda_time_ms(lambda: op(*fargs, (5, 9), **fkw), reps=3, warmup=0)
         c_ms, c_src = _device_ms(lambda: op(*fargs, (5, 9), **fkw), f"fused_{step}", 3, c_ev)
+        c_bps = last_blocks_per_sm(f"fused_{step}")
         c_bound = _fused_diag_bound_ms(work_c, CHAINS, N, 250, False, "spiked_gaussian", step,
                                        k, _fac_rank(fac, N))
         rows.append({"name": f"fused_{step}", "metric": "lowrank", "body": "spiked_gaussian",
@@ -2263,7 +2281,7 @@ def _lowrank_timing(sg, lr, lr_args, lr_cmp, sg_args, sg_cmp, sg_hargs, sg_hmc_c
                      "plain_ms": p_ms, "bound_ms": bound[0], "bound_by": bound[1],
                      "library_ms": None, "chunk_draws": 250, "chunk_ms": c_ms,
                      "chunk_ms_source": c_src, "chunk_bound_ms": c_bound[0],
-                     "chunk_bound_by": c_bound[1]})
+                     "chunk_bound_by": c_bound[1], "chunk_blocks_per_sm": c_bps})
     _fused_path_breakdown(sg, "nuts", dict(model_ndim=N, chains=CHAINS, tune=TUNE, draws=DRAWS,
                                            init="jitter+adapt_lowrank"),
                           draw_chunks=4, label="_lowrank")
@@ -2729,7 +2747,8 @@ def main() -> int:
     from littlemcmc_torch.ops.fused_probe import probe_kernel
     from littlemcmc_torch.ops.hmc_trajectory import hmc_trajectory, hmc_trajectory_plain
     from littlemcmc_torch.ops.logistic import logistic_logp_grad
-    from littlemcmc_torch.ops.nuts_trajectory import (runs_block_transition,
+    from littlemcmc_torch.ops.nuts_trajectory import (fused_hmc_transition,
+                                                      runs_block_transition,
                                                       runs_hmc_block_transition, trajectory,
                                                       trajectory_plain)
     from littlemcmc_torch.ops.quadform import quadform_logp_grad
@@ -3269,10 +3288,11 @@ def main() -> int:
                       es_timing["nuts"]["fused_ms"],
                       (es_timing["nuts"]["fused_bound_ms"], es_timing["nuts"]["fused_bound_by"])),
              blocks_per_sm=es_timing["nuts"]["fused_blocks_per_sm"]),
-        diag_row("hmc", "eight_schools", 10,
-                 es_lines["hmc", "fused_diag"]["kernel_launches"]["fused_hmc"],
-                 es_timing["hmc"]["fused_ms"],
-                 (es_timing["hmc"]["fused_bound_ms"], es_timing["hmc"]["fused_bound_by"])),
+        dict(diag_row("hmc", "eight_schools", 10,
+                      es_lines["hmc", "fused_diag"]["kernel_launches"]["fused_hmc"],
+                      es_timing["hmc"]["fused_ms"],
+                      (es_timing["hmc"]["fused_bound_ms"], es_timing["hmc"]["fused_bound_by"])),
+             blocks_per_sm=es_timing["hmc"]["fused_blocks_per_sm"]),
     ]
     def lg_fused_row(step):
         """The logistic body's fused kDiag instance: one 2-draw draw chunk of
@@ -3399,13 +3419,17 @@ def main() -> int:
                             else lr["L1"][0]["probe_launches"])[name])
         for name, row in probe_rows.items()]
     for row in rows:
-        if row["name"] in ("hmc_trajectory", "fused_hmc"):
-            # the HMC kernels' transition: the block HMC transition of
-            # csrc/hmc_transition.cuh, or a warp a chain
+        if row["name"] == "hmc_trajectory":
+            # the per-draw HMC kernel's transition: the block HMC transition
+            # of csrc/hmc_transition.cuh, or a warp a chain
             block = runs_hmc_block_transition(row.get("body", "correlated_gaussian"),
-                                              row["metric"], CHAIN_BLOCK,
-                                              row["name"] == "fused_hmc")
+                                              row["metric"], CHAIN_BLOCK, False)
             row["transition"] = "block" if block else "warp"
+        if row["name"] == "fused_hmc":
+            # the fused HMC kernel's: block, registers (row 4c), packed
+            # (row 4b) or warp; every row's instance runs at n <= N
+            row["transition"] = fused_hmc_transition(row.get("body", "correlated_gaussian"),
+                                                     row["metric"], CHAIN_BLOCK, N)
         if row["name"] in ("nuts_trajectory", "fused_nuts"):
             block = runs_block_transition(row.get("body", "correlated_gaussian"),
                                           row["metric"], CHAIN_BLOCK)

@@ -299,6 +299,41 @@ struct DiagWelford {
         pn = pn + 1.0f;
         __syncwarp();
     }
+
+    // update for a chain whose columns live in registers (the fused HMC
+    // kernel's register instances): swap_due() once, column() on each of
+    // the lane's columns x (its means, raw variances and V), then advance().
+    // The same arithmetic as update, column by column; update keeps its own
+    // code, so that the shared-memory instances of both fused kernels
+    // compile as before.
+    __device__ __forceinline__ bool swap_due() const {
+        return pn > 0.f && (pn - win * floorf(pn / win)) == 0.f;
+    }
+    __device__ __forceinline__ void column(float x, float& fgm, float& fgv, float& bgm,
+                                           float& bgv, float& v, bool swap) const {
+        const float rf = 1.0f / (fw + 1.0f), rb = 1.0f / (bw + 1.0f);
+        const float old_diff = x - fgm;
+        const float fmean = fgm + rf * old_diff;
+        const float fraw = fgv + old_diff * (x - fmean);
+        const float bold = x - bgm;
+        const float bmean = bgm + rb * bold;
+        const float braw = bgv + bold * (x - bmean);
+        v = fraw * rf;
+        fgm = swap ? bmean : fmean;
+        fgv = swap ? braw : fraw;
+        bgm = swap ? 0.f : bmean;
+        bgv = swap ? 0.f : braw;
+    }
+    __device__ __forceinline__ void advance(bool swap, float mult) {
+        const float fw_n = fw + 1.0f, bw_n = bw + 1.0f;
+        const float fw2_n = fw2 + 1.0f, bw2_n = bw2 + 1.0f;
+        fw = swap ? bw_n : fw_n;
+        fw2 = swap ? bw2_n : fw2_n;
+        bw = swap ? 0.f : bw_n;
+        bw2 = swap ? 0.f : bw2_n;
+        win = swap ? floorf(win * mult) : win;
+        pn = pn + 1.0f;
+    }
 };
 
 }  // namespace lmc

@@ -184,6 +184,94 @@ __host__ __device__ constexpr bool hmc_block_body() {
     return BODY == 1 && METRIC == (FUSED ? kDense : kDiag);
 }
 
+// ---------------------------------------------------------------------------
+// The fused kernel's two instances with the chain's state in registers
+// (fused_hmc.cu): body 4 with the pooled low-rank metric (row 4c, one warp
+// a chain, lane l holding columns l, l + 32, ... < 32 * kRegTrips of every
+// vector and of both thin factors) and body 2 with the diagonal metric
+// (row 4b, eight schools: kEsHmcChainsPerWarp chains a warp, each on a
+// segment of kEsHmcLanes lanes, lane j of a segment holding column j).
+
+// columns a lane holds in the low-rank register instance: n <= 128
+constexpr int kRegTrips = 4;
+// eight schools' packed instance: chains a warp (2: segments of 16 lanes;
+// 3: segments of 10, lanes 30 and 31 spare) and __launch_bounds__' minimum
+// of blocks an SM at its largest block (kMaxChainBlock chains)
+constexpr int kEsHmcChainsPerWarp = 3;
+constexpr int kEsHmcLanes = kEsHmcChainsPerWarp == 2 ? 16 : 10;
+constexpr int kEsHmcMaxWarps = (kMaxChainBlock + kEsHmcChainsPerWarp - 1) / kEsHmcChainsPerWarp;
+constexpr int kEsHmcMinBlocks = 5;
+
+// Whether the fused HMC kernel's instance for BODY and METRIC keeps the
+// chain's state in registers (the launch checks the chain block and n:
+// hmc_register_fits): body 4 with the low-rank metric, and eight schools
+// (body 2) with the diagonal one, packed several chains a warp.
+template <int BODY, int METRIC>
+__host__ __device__ constexpr bool hmc_register_body() {
+    return BODY == 4 && METRIC == kLowRank;
+}
+template <int BODY, int METRIC>
+__host__ __device__ constexpr bool hmc_packed_body() {
+    return BODY == 2 && METRIC == kDiag;
+}
+inline bool hmc_register_fits(int cb, int n) { return cb <= kBlockChains && n <= 32 * kRegTrips; }
+
+// warp_sums of the first K of v's sums (the rest untouched).
+template <int K, int N>
+__device__ __forceinline__ void warp_sums_head(float (&v)[N]) {
+    static_assert(K <= N, "K of N sums");
+#pragma unroll
+    for (int o = 16; o > 0; o >>= 1) {
+#pragma unroll
+        for (int k = 0; k < K; ++k) v[k] += __shfl_xor_sync(0xffffffffu, v[k], o);
+    }
+}
+
+// K sums over the segment of L lanes that holds one chain (L = 16: lanes
+// 16s.., L = 10: lanes 10s.., lanes 30 and 31 of no segment), each with
+// the bits of warp_sum over a warp whose lanes past its chain's 10 columns
+// hold zeros. warp_sum's first round adds each of lanes 0-15 its zero
+// partner in lanes 16-31: here an explicit + 0.0f, which turns a -0 into
+// +0 as that round does; then the 16-lane butterfly. With L = 10 its lanes
+// 10-15 are virtual: they hold +0 until the round of offset 8, which gives
+// lanes 2-7 their + 0 and leaves every virtual lane j with the bits of lane
+// j - 8 (0 + x against x + 0, x not -0); the later rounds keep lanes j and
+// j ^ 8 equal, so a lane whose partner is virtual reads lane (partner - 8).
+// tests/test_torch_hmc.py proves both forms against warp_sum in float32.
+// Every lane of the warp calls it.
+template <int L, int K>
+__device__ __forceinline__ void segment_sums(float (&v)[K], int lane) {
+    static_assert(L == 16 || L == 10, "segments of 16 or 10 lanes");
+#pragma unroll
+    for (int k = 0; k < K; ++k) v[k] = v[k] + 0.0f;
+    if constexpr (L == 16) {
+#pragma unroll
+        for (int o = 8; o > 0; o >>= 1) {
+#pragma unroll
+            for (int k = 0; k < K; ++k) v[k] += __shfl_xor_sync(0xffffffffu, v[k], o);
+        }
+    } else {
+        const int seg = lane / 10, i = lane - 10 * seg, base = lane - i;
+        const bool in = seg < 3;
+        {
+            const int j = i ^ 8;  // lanes 2-7: a virtual partner, +0
+            const int src = in && j < 10 ? base + j : lane;
+#pragma unroll
+            for (int k = 0; k < K; ++k) {
+                const float x = __shfl_sync(0xffffffffu, v[k], src);
+                v[k] = v[k] + (j < 10 ? x : 0.0f);
+            }
+        }
+#pragma unroll
+        for (int o = 4; o > 0; o >>= 1) {
+            const int j = i ^ o;
+            const int src = in ? base + (j < 10 ? j : j - 8) : lane;
+#pragma unroll
+            for (int k = 0; k < K; ++k) v[k] += __shfl_sync(0xffffffffu, v[k], src);
+        }
+    }
+}
+
 // out_c = x_c M (NEG: -x_c M) for the block's staged rows at qt_off, M
 // where the launch put it (shared or global memory), into the [cb][n]
 // rows at out_off: block_matmul.

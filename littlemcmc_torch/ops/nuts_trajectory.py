@@ -53,7 +53,8 @@ __all__ = ["TrajectorySpec", "fmix32", "counter_salt", "counter_uniform",
            "resolve_chain_block", "trajectory", "trajectory_plain",
            "body_logp_grad", "DEFAULT_CHAIN_BLOCK", "METRIC_IDS", "LOWRANK_MAX_K",
            "lowrank_fac_size", "build_lowrank_fac", "warp_sum", "thin_dots",
-           "runs_block_transition", "runs_hmc_block_transition", "stack_shape"]
+           "runs_block_transition", "runs_hmc_block_transition", "fused_hmc_transition",
+           "stack_shape"]
 
 # Chains per CUDA thread block, one warp per chain: 128 blocks at the
 # main path's 1024 chains for the card's 132 SMs. Bodies 0, 1, 2, 4 and 5
@@ -85,6 +86,15 @@ BLOCK_TRANSITION_CHAINS = 8
 # csrc/hmc_transition.cuh): per draw with the diagonal metric, fused with
 # the dense one
 HMC_BLOCK_TRANSITION_BODIES = ("correlated_gaussian",)
+# the fused HMC kernel's instances with the chain's state in registers
+# (hmc_register_body and hmc_packed_body in csrc/hmc_transition.cuh): body
+# 4 with the low-rank metric, one warp a chain, in chain blocks of up to
+# BLOCK_TRANSITION_CHAINS at n <= HMC_REGISTER_MAX_N (32 kRegTrips); eight
+# schools with the diagonal metric, several chains a warp, at any chain
+# block
+HMC_REGISTER_INSTANCES = {("spiked_gaussian", "lowrank"): "registers",
+                          ("eight_schools", "diag"): "packed"}
+HMC_REGISTER_MAX_N = 128
 # columns of the low-rank factor block the kernels read (kMaxRank in
 # csrc/nuts_transition.cuh); a smaller rank is padded with zero columns
 LOWRANK_MAX_K = 8
@@ -407,6 +417,23 @@ def runs_hmc_block_transition(body: str, metric: str, chain_block: int, fused: b
     if fused:
         return metric == "dense" and chain_block <= BLOCK_TRANSITION_CHAINS
     return metric == "diag"
+
+
+def fused_hmc_transition(body: str, metric: str, chain_block: int, n: int) -> str:
+    """The transition the fused HMC kernel's instance for ``body`` and
+    ``metric`` runs at ``chain_block`` chains a block and ``n`` columns
+    (``launch`` in ``csrc/fused_hmc.cu``): ``"block"``, the block HMC
+    transition (:func:`runs_hmc_block_transition`); ``"registers"``, one
+    warp a chain with its vectors in registers; ``"packed"``, several chains
+    a warp in registers; else ``"warp"``, one warp a chain on shared
+    memory."""
+    if runs_hmc_block_transition(body, metric, chain_block, fused=True):
+        return "block"
+    kind = HMC_REGISTER_INSTANCES.get((body, metric))
+    if kind == "registers" and (chain_block > BLOCK_TRANSITION_CHAINS
+                                or n > HMC_REGISTER_MAX_N):
+        return "warp"
+    return kind or "warp"
 
 
 def stack_shape(body: str, metric: str, chain_block: int, D: int, C: int, n: int):

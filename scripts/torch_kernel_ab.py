@@ -39,7 +39,10 @@ launch at the NUTS ``fused_diag`` cell's final state, a per-draw launch
 at its twin's, and one at phase 2f's 1024-chain input), and rows 3 and 4
 dense (HMC: the per-draw launch at the HMC main path's final state and at
 phase 2d's input, the fused dense instance's 250-draw launch at HMC
-``adapt_full``'s final state and phase 2e's 4-draw tune chunk): ms a
+``adapt_full``'s final state and phase 2e's 4-draw tune chunk), and rows
+4c and 4b (the fused HMC kernel's low-rank and eight-schools instances: a
+250-draw launch at L3's and at the eight-schools HMC cell's final states,
+and each cell's 4-draw tune chunk): ms a
 launch (CUDA events), a digest of the outputs (equal digests: the two checkouts give
 the same bits), the blocks an SM and waves of the launch (where the
 checkout records them), and from a build with the section clocks the
@@ -182,7 +185,8 @@ def _transition_rows(root: Path, only=None) -> dict:
     phase 2b's input and the per-draw twin's final state, row 2c at L1's
     final state, row 1 low-rank at L2's final state and phase 2m's
     low-rank input, rows 2b body 2 and 1 body 2 at the eight-schools NUTS
-    cell's and its twin's final states and phase 2f's input: ms a launch of
+    cell's and its twin's final states and phase 2f's input, the HMC rows
+    3, 4 dense, 4c and 4b at theirs: ms a launch of
     the package's build, its output digest, its blocks an SM and waves,
     the tail share, each section's
     share of a warp's cycles and the cycles a leaf step (HMC: the wait

@@ -17,14 +17,18 @@ from seed 42 at 1024 chains (default: every group):
   and each fused launch's device ms from a profiled repeat of the fused
   call;
 - ``lowrank``: the 100-d spiked Gaussian with ``init="jitter+adapt_lowrank"``
-  (500 + 1000) as phases 3o-3p do: L1 on the fused engine and L2, its
-  per-draw twin, each with its min bulk ESS and min-bulk-ESS/s, and each
-  of L1's fused launches' device ms from a profiled repeat;
-- ``eight_schools``: eight schools at 10,240 chains (500 + 500,
-  ``target_accept=0.95``) with NUTS as phases 3g-3h do: the ``fused_diag``
-  cell and its ``fuse_draws=False`` twin, each with its min bulk ESS over
-  the 10 dimensions and min-bulk-ESS/s, and each of the fused cell's four
+  (500 + 1000) as phases 3o-3q do: L1 on the fused engine, L2, its
+  per-draw twin, and L3, L1 with ``HamiltonianMC`` (the fused HMC
+  kernel's low-rank instance), each with its min bulk ESS, min-bulk-ESS/s
+  and its dimensions' variance ratios, and each of L1's and L3's fused
   launches' device ms from a profiled repeat;
+- ``eight_schools``: eight schools at 10,240 chains (500 + 500,
+  ``target_accept=0.95``) as phases 3g-3j do: with NUTS the ``fused_diag``
+  cell and its ``fuse_draws=False`` twin, with ``HamiltonianMC`` the
+  ``fused_diag`` cell (the fused HMC kernel's diag instance), each with its
+  min bulk ESS over the 10 dimensions, min-bulk-ESS/s, max split R-hat and
+  mu's and log_tau's posterior means against the exact ones, and each of
+  the fused cells' four launches' device ms from a profiled repeat;
 - ``hmc``: the 100-d correlated Gaussian with ``HamiltonianMC`` (500 +
   1000) as phases 3d-3e do: HMC's main path (``per_draw_diag`` on the
   HMC trajectory kernel) and HMC ``adapt_full`` (``fused_dense_pooled``
@@ -91,83 +95,104 @@ def _adapt_full_paths(out: dict) -> None:
                      "mean_tree_size": float(stats["tree_size"].mean()),
                      "mean_depth": float(stats["depth"].mean())}
     line = chip_smoke._fused_path_breakdown(model)
-    out["adapt_full_fused"].update(
-        {k: line.get(k) for k in ("fused_launch_ms", "fused_tune_ms", "fused_draw_ms",
-                                  "device_busy_share", "sample_seconds_profiled")})
+    out["adapt_full_fused"].update({k: line.get(k) for k in _BREAKDOWN_KEYS})
+
+
+_BREAKDOWN_KEYS = ("fused_launch_ms", "fused_tune_ms", "fused_draw_ms", "device_busy_share",
+                   "sample_seconds_profiled")
 
 
 def _lowrank_paths(out: dict) -> None:
-    """The low-rank cells L1 and L2 on ``SpikedGaussian(100)`` (1024
+    """The low-rank cells L1, L2 and L3 on ``SpikedGaussian(100)`` (1024
     chains, 500 + 1000, seed 42, ``init="jitter+adapt_lowrank"``, pooled),
-    as ``chip_smoke.py``'s phases 3o-3p run them: the fused engine and its
-    per-draw twin (``fuse_draws=False``), each once as the user calls it,
-    with the min bulk ESS over the 100 dimensions and min-bulk-ESS/s; then
-    L1 once more under ``torch.profiler`` for each fused launch's device
-    ms (``chip_smoke._fused_path_breakdown``)."""
+    as ``chip_smoke.py``'s phases 3o-3q run them: the fused engine, its
+    per-draw twin (``fuse_draws=False``) and the fused engine with
+    ``HamiltonianMC``, each once as the user calls it, with the min bulk
+    ESS over the 100 dimensions, min-bulk-ESS/s and the smallest and
+    largest of the dimensions' variance ratios (the cells' gate: each in
+    [0.9, 1.1]); then L1 and L3 once more under ``torch.profiler`` for
+    each fused launch's device ms (``chip_smoke._fused_path_breakdown``)."""
     from concurrent.futures import ThreadPoolExecutor
 
     import chip_smoke
-    from littlemcmc_torch import sample
+    from littlemcmc_torch import HamiltonianMC, sample
     from littlemcmc_torch.models import SpikedGaussian
     from littlemcmc_torch.utils.diagnostics import ess_bulk
 
     model = SpikedGaussian(100)
     kw = dict(model_ndim=100, chains=1024, tune=500, draws=1000, init="jitter+adapt_lowrank")
-    for path, fuse in (("L1", None), ("L2", False)):
+    hmc = dict(kw, step=HamiltonianMC(model_ndim=100))
+    for path, fuse, pkw in (("L1", None, kw), ("L2", False, kw), ("L3", None, hmc)):
         report = {}
         trace, stats = sample(model.logp_grad, random_seed=42, fuse_draws=fuse,
                               perf_report=report, progressbar=False,
-                              compute_convergence_checks=False, **kw)
+                              compute_convergence_checks=False, **pkw)
         with ThreadPoolExecutor(8) as pool:
             ess = float(min(pool.map(lambda i: ess_bulk(trace[:, :, i]), range(100))))
+        ratio = trace.reshape(-1, 100).var(0) / model.true_var
+        work = stats["tree_size"] if "tree_size" in stats else stats["n_steps"]
         out[path] = {"engine": report["engine"], "sample_seconds": report["sample_seconds"],
                      "kernel_launches": report.get("kernel_launches"),
-                     "mean_tree_size": float(stats["tree_size"].mean()),
-                     "mean_depth": float(stats["depth"].mean()), "min_bulk_ess": ess,
-                     "min_bulk_ess_per_s": ess / report["sample_seconds"]}
-    line = chip_smoke._fused_path_breakdown(model, "nuts", kw, draw_chunks=4, label="_lowrank")
-    out["L1"].update(
-        {k: line.get(k) for k in ("fused_launch_ms", "fused_tune_ms", "fused_draw_ms",
-                                  "device_busy_share", "sample_seconds_profiled")})
+                     "mean_tree_size" if "tree_size" in stats else "mean_n_steps":
+                         float(work.mean()),
+                     "divergence_share": float(stats["diverging"].mean()),
+                     "var_ratio_min": float(ratio.min()), "var_ratio_max": float(ratio.max()),
+                     "min_bulk_ess": ess, "min_bulk_ess_per_s": ess / report["sample_seconds"]}
+    for path, step, pkw in (("L1", "nuts", kw), ("L3", "hmc", hmc)):
+        line = chip_smoke._fused_path_breakdown(model, step, pkw, draw_chunks=4,
+                                                label="_lowrank")
+        out[path].update({k: line.get(k) for k in _BREAKDOWN_KEYS})
 
 
 def _eight_schools_paths(out: dict) -> None:
-    """Eight schools' NUTS cells (``EightSchools()``, 10,240 chains, 500 +
-    500, ``target_accept=0.95``, seed 42) as ``chip_smoke.py``'s phases
-    3g-3h run them: the ``fused_diag`` engine and its per-draw twin
-    (``fuse_draws=False``), each once as the user calls it, with the min
-    bulk ESS over the 10 dimensions and min-bulk-ESS/s; then the fused call
-    once more under ``torch.profiler`` for each fused launch's device ms
-    (``chip_smoke._fused_path_breakdown``)."""
+    """Eight schools' cells (``EightSchools()``, 10,240 chains, 500 + 500,
+    ``target_accept=0.95``, seed 42) as ``chip_smoke.py``'s phases 3g-3j run
+    them: with NUTS the ``fused_diag`` engine and its per-draw twin
+    (``fuse_draws=False``), with ``HamiltonianMC`` the ``fused_diag``
+    engine, each once as the user calls it, with the min bulk ESS over the
+    10 dimensions, min-bulk-ESS/s, the max split R-hat and mu's and
+    log_tau's posterior means in exact posterior sds from the exact ones
+    (the gates: R-hat < 1.05, each mean within 0.1 sd); then each fused
+    call once more under ``torch.profiler`` for each fused launch's device
+    ms (``chip_smoke._fused_path_breakdown``)."""
+    import numpy as np
+
     import chip_smoke
-    from littlemcmc_torch import NUTS, sample
+    from littlemcmc_torch import NUTS, HamiltonianMC, sample
     from littlemcmc_torch.models import EightSchools
-    from littlemcmc_torch.utils.diagnostics import ess_bulk
+    from littlemcmc_torch.utils.diagnostics import ess_bulk, split_rhat
 
     model = EightSchools()
+    exact = model.exact_moments()
     kw = dict(model_ndim=10, chains=chip_smoke.ES_CHAINS, tune=chip_smoke.ES_TUNE,
               draws=chip_smoke.ES_DRAWS)
-
-    def step():
-        return NUTS(model_ndim=10, target_accept=chip_smoke.ES_TARGET)
-
-    for path, fuse in (("eight_schools_fused", None), ("eight_schools_per_draw", False)):
+    steps = {"nuts": lambda: NUTS(model_ndim=10, target_accept=chip_smoke.ES_TARGET),
+             "hmc": lambda: HamiltonianMC(model_ndim=10, target_accept=chip_smoke.ES_TARGET)}
+    for path, fuse, step in (("eight_schools_fused", None, "nuts"),
+                             ("eight_schools_per_draw", False, "nuts"),
+                             ("eight_schools_hmc_fused", None, "hmc")):
         report = {}
-        trace, stats = sample(model.logp_grad, random_seed=42, fuse_draws=fuse, step=step(),
-                              perf_report=report, progressbar=False,
+        trace, stats = sample(model.logp_grad, random_seed=42, fuse_draws=fuse,
+                              step=steps[step](), perf_report=report, progressbar=False,
                               compute_convergence_checks=False, **kw)
         ess = float(min(ess_bulk(trace[:, :, i]) for i in range(10)))
+        work = stats["tree_size"] if "tree_size" in stats else stats["n_steps"]
         out[path] = {"engine": report["engine"], "sample_seconds": report["sample_seconds"],
                      "kernel_launches": report.get("kernel_launches"),
-                     "mean_tree_size": float(stats["tree_size"].mean()),
-                     "mean_depth": float(stats["depth"].mean()),
+                     "mean_tree_size" if "tree_size" in stats else "mean_n_steps":
+                         float(work.mean()),
                      "divergence_share": float(stats["diverging"].mean()),
+                     "max_split_rhat": float(max(split_rhat(trace[:, :, i])
+                                                 for i in range(10))),
                      "min_bulk_ess": ess, "min_bulk_ess_per_s": ess / report["sample_seconds"]}
-    line = chip_smoke._fused_path_breakdown(model, "nuts", dict(kw, step=step()),
-                                            draw_chunks=2, label="_eight_schools")
-    out["eight_schools_fused"].update(
-        {k: line.get(k) for k in ("fused_launch_ms", "fused_tune_ms", "fused_draw_ms",
-                                  "device_busy_share", "sample_seconds_profiled")})
+        for i, name in enumerate(("mu", "log_tau")):
+            mean, sd = exact[name]
+            out[path][f"{name}_mean_err_in_sd"] = float(
+                abs(trace[:, :, i].astype(np.float64).mean() - mean) / sd)
+    for path, step in (("eight_schools_fused", "nuts"), ("eight_schools_hmc_fused", "hmc")):
+        line = chip_smoke._fused_path_breakdown(model, step, dict(kw, step=steps[step]()),
+                                                draw_chunks=2, label="_eight_schools")
+        out[path].update({k: line.get(k) for k in _BREAKDOWN_KEYS})
 
 
 def _hmc_paths(out: dict) -> None:
@@ -204,9 +229,7 @@ def _hmc_paths(out: dict) -> None:
                      "step_size": float(stats["step_size"][:, -1].mean()),
                      "min_bulk_ess": ess, "min_bulk_ess_per_s": ess / report["sample_seconds"]}
     line = chip_smoke._fused_path_breakdown(model, step="hmc")
-    out["hmc_adapt_full"].update(
-        {k: line.get(k) for k in ("fused_launch_ms", "fused_tune_ms", "fused_draw_ms",
-                                  "device_busy_share", "sample_seconds_profiled")})
+    out["hmc_adapt_full"].update({k: line.get(k) for k in _BREAKDOWN_KEYS})
 
 
 PATHS = {"logistic": _logistic_paths, "adapt_full": _adapt_full_paths,

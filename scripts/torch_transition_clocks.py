@@ -43,14 +43,22 @@ blocks of 8):
   (``hmc_phase2d``), the fused kernel's dense instance in a 250-draw
   chunk at HMC ``adapt_full``'s final state (``hmc_af_final``) and in
   phase 2e's tune chunk as that cell runs it (``hmc_af_tune``:
-  ``adapt_dense``, the step size adapting).
+  ``adapt_dense``, the step size adapting);
+- HMC's fused rows 4c and 4b: the low-rank instance on the 100-d spiked
+  Gaussian in a 250-draw chunk at L3's final state (``hmc_l3_final``) and
+  in a 4-draw tune chunk as L3 runs it (``hmc_l3_tune``: the per-chain
+  Welford steps across a window swap, the step size adapting, the model's
+  spikes as the factor), and the diag instance on eight schools at 10,240
+  chains in a 250-draw chunk at the HMC ``fused_diag`` cell's final state
+  (``hmc_es_final``) and in a 4-draw tune chunk as that cell runs it
+  (``hmc_es_tune``).
 
 A fused launch from a final state runs a 250-draw draw chunk. The final
 states (main path, F1, L0, ``adapt_full`` fused and per draw, L1 and L2:
 ``sample()`` at 1024 chains, 500 + 1000, seed 42; the eight-schools cell
 and its twin: 10,240 chains, 500 + 500, ``target_accept=0.95``, seed 42;
-HMC's main path and ``adapt_full``: ``HamiltonianMC``, 1024 chains, 500 +
-1000, seed 42) are sampled once with ROOT's package and kept in
+HMC's main path, ``adapt_full`` and L3: ``HamiltonianMC``, 1024 chains, 500 +
+1000, seed 42; eight schools' HMC cell: as its NUTS cell) are sampled once with ROOT's package and kept in
 ``build/`` beside this script (``STATE_FILES``), so that every checkout
 timed in one call sees the same states.
 
@@ -199,8 +207,11 @@ def _load_clocked(path: Path, name: str):
 # draw); and eight schools' NUTS cell (``EightSchools()``, chip_smoke.py's
 # ES_CHAINS, ES_TUNE, ES_DRAWS and ES_TARGET: 10,240 chains, 500 + 500,
 # ``target_accept=0.95``), on the fused diag engine and on its per-draw twin;
-# HMC's main path (``HamiltonianMC(model_ndim=100)``, per-draw diag) and
-# HMC ``adapt_full`` (the pooled dense metric on the fused engine).
+# HMC's main path (``HamiltonianMC(model_ndim=100)``, per-draw diag),
+# HMC ``adapt_full`` (the pooled dense metric on the fused engine), L3 (L1
+# with ``HamiltonianMC``: the pooled low-rank metric on the fused HMC
+# kernel) and eight schools' HMC cell (as its NUTS cell, with
+# ``HamiltonianMC``: the fused diag engine).
 STATE_FILES = {"main": "transition_clocks_state.pt", "f1": "transition_clocks_f1_state.pt",
                "l0": "transition_clocks_l0_state.pt",
                "adapt_full": "transition_clocks_adapt_full_state.pt",
@@ -209,7 +220,9 @@ STATE_FILES = {"main": "transition_clocks_state.pt", "f1": "transition_clocks_f1
                "es_fused": "transition_clocks_es_fused_state.pt",
                "es_twin": "transition_clocks_es_twin_state.pt",
                "hmc": "transition_clocks_hmc_state.pt",
-               "hmc_adapt_full": "transition_clocks_hmc_adapt_full_state.pt"}
+               "hmc_adapt_full": "transition_clocks_hmc_adapt_full_state.pt",
+               "l3": "transition_clocks_l3_state.pt",
+               "hmc_es": "transition_clocks_hmc_es_state.pt"}
 
 
 def metric_state(pot, ndim: int) -> dict:
@@ -258,11 +271,11 @@ def _final_state(path: Path, model, chains: int = C, tune: int = 500, draws: int
     return state
 
 
-def _inputs(root: Path, state_dir: Path, only=None) -> dict:
+def _inputs(root: Path, state_dir: Path, only=None, kinds_only: bool = False) -> dict:
     """case -> (kernel, model, positional args, seed words, keywords of the
     op beyond the model's spec and the chain block), for the cases in
     ``only`` (default all; a final state is sampled or loaded only for a
-    case that reads it): rows 1 diag and 2b body 1 (the correlated
+    case that reads it; ``kinds_only``: case -> kernel, nothing sampled): rows 1 diag and 2b body 1 (the correlated
     Gaussian) at phase 2's input and the main path's final state; row 2a
     (the funnel's fused instance) at F1's final state and phase 2p's
     draw-chunk input; the funnel in the per-draw kernel at phase 2o's
@@ -284,7 +297,11 @@ def _inputs(root: Path, state_dir: Path, only=None) -> dict:
     state (:func:`hmc_steps`) and at phase 2d's input, the fused dense
     instance in a 250-draw chunk at HMC ``adapt_full``'s final state and in
     phase 2e's tune chunk as that cell runs it (4 draws, ``adapt_dense``
-    across a window swap, the step size adapting)."""
+    across a window swap, the step size adapting); rows 4c and 4b (the
+    fused HMC kernel's low-rank instance on the spiked Gaussian and its
+    diag instance on eight schools): a 250-draw chunk at L3's and at the
+    eight-schools HMC cell's final state, and each cell's 4-draw tune chunk
+    (:func:`hmc_tune_chunk`)."""
     import functools
 
     import numpy as np
@@ -297,7 +314,9 @@ def _inputs(root: Path, state_dir: Path, only=None) -> dict:
     from littlemcmc_torch.models import (CorrelatedGaussian, EightSchools, NealsFunnel,
                                          SpikedGaussian)
 
-    cg, fun, sg, es = CorrelatedGaussian(N), NealsFunnel(10), SpikedGaussian(N), EightSchools()
+    on = {"device": "cpu"} if kinds_only else {}  # kinds_only runs on a machine without a card
+    cg, fun, sg, es = (CorrelatedGaussian(N, **on), NealsFunnel(10, **on), SpikedGaussian(N, **on),
+                       EightSchools(**on))
     es_step = dict(chains=chip_smoke.ES_CHAINS, tune=chip_smoke.ES_TUNE,
                    draws=chip_smoke.ES_DRAWS,
                    step=NUTS(model_ndim=es.ndim, target_accept=chip_smoke.ES_TARGET))
@@ -309,7 +328,10 @@ def _inputs(root: Path, state_dir: Path, only=None) -> dict:
              "l2": (sg, dict(init="jitter+adapt_lowrank", fuse_draws=False)),
              "es_fused": (es, es_step), "es_twin": (es, dict(es_step, fuse_draws=False)),
              "hmc": (cg, dict(step=HamiltonianMC(model_ndim=N))),
-             "hmc_adapt_full": (cg, dict(init="adapt_full", step=HamiltonianMC(model_ndim=N)))}
+             "hmc_adapt_full": (cg, dict(init="adapt_full", step=HamiltonianMC(model_ndim=N))),
+             "l3": (sg, dict(init="jitter+adapt_lowrank", step=HamiltonianMC(model_ndim=N))),
+             "hmc_es": (es, dict(es_step, step=HamiltonianMC(model_ndim=es.ndim,
+                                                            target_accept=chip_smoke.ES_TARGET)))}
 
     @functools.lru_cache(maxsize=None)
     def state(key):
@@ -352,55 +374,93 @@ def _inputs(root: Path, state_dir: Path, only=None) -> dict:
         return (s["q"], s["p"], s["grad"], s["logp"], eps, hmc_steps(eps, HMCConfig()), s["var"])
 
     cases = {
-        "phase2": lambda: ("trajectory", cg, stationary(), (17, 29), diag),
-        "main_final": lambda: ("trajectory", cg, traj(state("main")), (3, 8), diag),
-        "fused_phase2": lambda: ("fused_nuts", cg, fused_phase2(), (5, 9), draws(250)),
-        "fused_main_final": lambda: ("fused_nuts", cg, fused(state("main")), (5, 9),
-                                     draws(250)),
-        "f1_final": lambda: ("fused_nuts", fun, fused(state("f1")), (5, 9), draws(250)),
-        "phase2p": lambda: ("fused_nuts", fun, chunk(fun, C, 35), (211, 7), draws(2)),
-        "phase2o": lambda: ("trajectory", fun,
-                            chip_smoke._posterior_inputs(fun, C, 0.2, 33), (197, -5), diag),
-        "l0_final": lambda: ("trajectory", sg, traj(state("l0")), (3, 8), diag),
-        "phase2m": lambda: ("trajectory", sg, chip_smoke._posterior_inputs(sg, 256, 0.1, 25),
-                            (163, 167), diag),
-        "fused_phase2m": lambda: ("fused_nuts", sg, chunk(sg, 256, 25), (229, 7), draws(2)),
-        "adapt_full_final": lambda: ("fused_nuts", cg, fused(state("adapt_full")), (5, 9),
-                                     draws(250, "dense")),
-        "phase2c_tune": lambda: ("fused_nuts", cg, chip_smoke._fused_inputs(cg, C, 5), (47, 13),
-                                 dict(T=4, tuning=True, config=NUTSConfig(adapt_step_size=True),
-                                      metric="dense", window_multiplier=2.0,
-                                      dense_welford=chip_smoke._welford_seed(cg))),
-        "phase2b": lambda: ("trajectory", cg,
-                            chip_smoke._dense_stationary_inputs(cg, C, 0.5, seed=2), (23, 31),
-                            dense),
-        "twin_final": lambda: ("trajectory", cg, traj(state("adapt_full_twin")), (3, 8), dense),
-        "l1_final": lambda: ("fused_nuts", sg, fused(state("l1")), (5, 9),
-                             dict(draws(250, "lowrank"), fac=state("l1")["fac"])),
-        "l2_final": lambda: ("trajectory", sg, traj(state("l2"), "stds"), (3, 8),
-                             dict(metric="lowrank", fac=state("l2")["fac"])),
-        "phase2m_lowrank": lambda: ("trajectory", sg, lowrank_2m()[0], (139, -149),
-                                    dict(metric="lowrank", fac=lowrank_2m()[1])),
-        "es_fused_final": lambda: ("fused_nuts", es, fused(state("es_fused")), (5, 9),
-                                   draws(250, config=NUTSConfig(
-                                       target_accept=chip_smoke.ES_TARGET))),
-        "es_per_draw_final": lambda: ("trajectory", es, traj(state("es_twin")), (3, 8), diag),
-        "phase2f": lambda: ("trajectory", es, chip_smoke._posterior_inputs(es, 1024, 0.3, 11),
-                            (83, -89), diag),
-        "hmc_final": lambda: ("hmc_trajectory", cg, hmc_final(), (3, 8), {}),
-        "hmc_phase2d": lambda: ("hmc_trajectory", cg, chip_smoke._hmc_inputs(
-            cg, np.linalg.cholesky(cg.cov), C, 0.2, 6), (61, -67), {}),
-        "hmc_af_final": lambda: ("fused_hmc", cg, fused(state("hmc_adapt_full")), (5, 9),
-                                 draws(250, "dense", HMCConfig())),
-        "hmc_af_tune": lambda: ("fused_hmc", cg, chip_smoke._fused_inputs(cg, C, 10), (67, 19),
-                                dict(T=4, tuning=True, config=HMCConfig(adapt_step_size=True),
-                                     metric="dense", window_multiplier=2.0,
-                                     dense_welford=chip_smoke._welford_seed(cg))),
+        "phase2": ("trajectory", lambda: (cg, stationary(), (17, 29), diag)),
+        "main_final": ("trajectory", lambda: (cg, traj(state("main")), (3, 8), diag)),
+        "fused_phase2": ("fused_nuts", lambda: (cg, fused_phase2(), (5, 9), draws(250))),
+        "fused_main_final": ("fused_nuts", lambda: (cg, fused(state("main")), (5, 9),
+                                                    draws(250))),
+        "f1_final": ("fused_nuts", lambda: (fun, fused(state("f1")), (5, 9), draws(250))),
+        "phase2p": ("fused_nuts", lambda: (fun, chunk(fun, C, 35), (211, 7), draws(2))),
+        "phase2o": ("trajectory", lambda: (fun, chip_smoke._posterior_inputs(fun, C, 0.2, 33),
+                                           (197, -5), diag)),
+        "l0_final": ("trajectory", lambda: (sg, traj(state("l0")), (3, 8), diag)),
+        "phase2m": ("trajectory", lambda: (sg, chip_smoke._posterior_inputs(sg, 256, 0.1, 25),
+                                           (163, 167), diag)),
+        "fused_phase2m": ("fused_nuts", lambda: (sg, chunk(sg, 256, 25), (229, 7), draws(2))),
+        "adapt_full_final": ("fused_nuts", lambda: (cg, fused(state("adapt_full")), (5, 9),
+                                                    draws(250, "dense"))),
+        "phase2c_tune": ("fused_nuts", lambda: (
+            cg, chip_smoke._fused_inputs(cg, C, 5), (47, 13),
+            dict(T=4, tuning=True, config=NUTSConfig(adapt_step_size=True), metric="dense",
+                 window_multiplier=2.0, dense_welford=chip_smoke._welford_seed(cg)))),
+        "phase2b": ("trajectory", lambda: (
+            cg, chip_smoke._dense_stationary_inputs(cg, C, 0.5, seed=2), (23, 31), dense)),
+        "twin_final": ("trajectory", lambda: (cg, traj(state("adapt_full_twin")), (3, 8),
+                                              dense)),
+        "l1_final": ("fused_nuts", lambda: (sg, fused(state("l1")), (5, 9),
+                                            dict(draws(250, "lowrank"), fac=state("l1")["fac"]))),
+        "l2_final": ("trajectory", lambda: (sg, traj(state("l2"), "stds"), (3, 8),
+                                            dict(metric="lowrank", fac=state("l2")["fac"]))),
+        "phase2m_lowrank": ("trajectory", lambda: (sg, lowrank_2m()[0], (139, -149),
+                                                   dict(metric="lowrank", fac=lowrank_2m()[1]))),
+        "es_fused_final": ("fused_nuts", lambda: (
+            es, fused(state("es_fused")), (5, 9),
+            draws(250, config=NUTSConfig(target_accept=chip_smoke.ES_TARGET)))),
+        "es_per_draw_final": ("trajectory", lambda: (es, traj(state("es_twin")), (3, 8), diag)),
+        "phase2f": ("trajectory", lambda: (es, chip_smoke._posterior_inputs(es, 1024, 0.3, 11),
+                                           (83, -89), diag)),
+        "hmc_final": ("hmc_trajectory", lambda: (cg, hmc_final(), (3, 8), {})),
+        "hmc_phase2d": ("hmc_trajectory", lambda: (cg, chip_smoke._hmc_inputs(
+            cg, np.linalg.cholesky(cg.cov), C, 0.2, 6), (61, -67), {})),
+        "hmc_af_final": ("fused_hmc", lambda: (cg, fused(state("hmc_adapt_full")), (5, 9),
+                                               draws(250, "dense", HMCConfig()))),
+        "hmc_af_tune": ("fused_hmc", lambda: (
+            cg, chip_smoke._fused_inputs(cg, C, 10), (67, 19),
+            dict(T=4, tuning=True, config=HMCConfig(adapt_step_size=True), metric="dense",
+                 window_multiplier=2.0, dense_welford=chip_smoke._welford_seed(cg)))),
+        "hmc_l3_final": ("fused_hmc", lambda: (
+            sg, fused(state("l3")), (5, 9),
+            dict(draws(250, "lowrank", HMCConfig()), fac=state("l3")["fac"]))),
+        "hmc_l3_tune": ("fused_hmc", lambda: (sg, *hmc_tune_chunk(sg, C, 41, "lowrank"))),
+        "hmc_es_final": ("fused_hmc", lambda: (
+            es, fused(state("hmc_es")), (5, 9),
+            draws(250, config=HMCConfig(target_accept=chip_smoke.ES_TARGET)))),
+        "hmc_es_tune": ("fused_hmc", lambda: (es, *hmc_tune_chunk(
+            es, chip_smoke.ES_CHAINS, 43, "diag", chip_smoke.ES_TARGET))),
     }
     unknown = set(only or ()) - set(cases)
     if unknown:
         raise ValueError(f"unknown cases {sorted(unknown)}; known: {sorted(cases)}")
-    return {k: make() for k, make in cases.items() if not only or k in only}
+    chosen = {k: v for k, v in cases.items() if not only or k in only}
+    if kinds_only:
+        return {k: kind for k, (kind, _) in chosen.items()}
+    return {k: (kind, *make()) for k, (kind, make) in chosen.items()}
+
+
+def hmc_tune_chunk(model, chains: int, seed: int, metric: str, target_accept=None,
+                   T: int = 4):
+    """A fused HMC tune chunk as a cell with a per-chain metric runs it
+    (``chip_smoke.py``'s inputs, made on its ``DEVICE``): ``T`` draws, the
+    step size adapting, the per-chain Welford steps across a window swap
+    at draw 2 (``_diag_fused_inputs``), window multiplier 2; ``metric``
+    ``"diag"`` (eight schools) or ``"lowrank"`` (the variances near the
+    spiked Gaussian's squared scales, its spikes as the factor,
+    ``_model_fac``). Returns the op's arguments, its seed words and its
+    keywords beyond the model's spec and the chain block."""
+    import chip_smoke
+    from littlemcmc_torch.base import HMCConfig
+
+    lowrank = metric == "lowrank"
+    args, welford = chip_smoke._diag_fused_inputs(
+        model, chains, seed, True, swap_at=2,
+        var_sd=chip_smoke._lowrank_metric(model)[0] if lowrank else None)
+    cfg = HMCConfig(adapt_step_size=True) if target_accept is None else HMCConfig(
+        adapt_step_size=True, target_accept=target_accept)
+    kw = dict(T=T, tuning=True, config=cfg, metric=metric, window_multiplier=2.0,
+              welford=welford)
+    if lowrank:
+        kw["fac"] = chip_smoke._model_fac(model, args[0].device)
+    return args, (seed, -seed - 2), kw
 
 
 def hmc_steps(eps, config, seed: int = 11):
@@ -562,7 +622,9 @@ def run_clocks(root: Path, state_dir: Path, out_dir: Path, only=None) -> list:
     from littlemcmc_torch.ops.nuts_trajectory import trajectory
 
     t0 = time.perf_counter()
-    procs = _start_clocked(root, out_dir, sorted(set(KINDS.values())))
+    # the instrumented builds of the kernels the cases run only
+    kinds = _inputs(root, state_dir, only, kinds_only=True)
+    procs = _start_clocked(root, out_dir, sorted({KINDS[k] for k in kinds.values()}))
     _build.build_all()  # the package's own build, beside the clocked one
     clocked = _finish_clocked(procs)
     build_s = time.perf_counter() - t0

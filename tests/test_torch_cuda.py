@@ -342,6 +342,107 @@ def test_fused_hmc_blocks_of_16_stay_on_the_warp_instance(hopper, tuning):
         assert float(got["window"]) == 202.0
 
 
+# Rows 4c and 4b: the fused HMC kernel's instances with the chain's state
+# in registers (csrc/fused_hmc.cu). Body 4 with the low-rank metric in
+# chain blocks of up to 8 at n <= 128 runs fused_hmc_lowrank_kernel (one
+# warp a chain, every vector and both thin factors in registers); larger
+# blocks and n keep the warp instance. Eight schools with the diagonal
+# metric runs fused_hmc_packed_kernel at every chain block: several chains
+# a warp, a thread block still the counter stream's chain block, so a
+# block of 1 or 7 chains leaves part of a warp without a chain. Both give
+# the warp instance's bits (scripts/torch_kernel_ab.py's digests, PERF.md);
+# here each is held against the plain version.
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("n,block", [(100, 1), (100, 7), (100, 8), (100, 16), (12, 8),
+                                     (128, 8), (129, 8)])
+@pytest.mark.parametrize("tuning", [False, True], ids=["draw_chunk", "tune_chunk"])
+def test_fused_hmc_lowrank_register_instance_matches_plain(hopper, n, block, tuning):
+    """The fused HMC kernel's low-rank branch on the spiked Gaussian at 32
+    chain blocks: the register instance in blocks of 1, 7 and 8 and at n =
+    12, 100 and 128, the warp instance in blocks of 16 and at n = 129; a
+    4-draw draw chunk, and a 4-draw ``adapt_metric`` tune chunk with dual
+    averaging (its first draw held chain for chain, the dual-averaging
+    state against its replay, the Welford rows against a float64 replay of
+    the kernel's trace)."""
+    from littlemcmc_torch.ops.nuts_trajectory import fused_hmc_transition
+
+    want = "registers" if block <= 8 and n <= 128 else "warp"
+    assert fused_hmc_transition("spiked_gaussian", "lowrank", block, n) == want
+    res, failures, _, _, _, _ = fused_check(tm.SpikedGaussian(n), 32 * block, 4, tuning, tuning,
+                                            seed=31, words=(37, -5), step="hmc",
+                                            metric="lowrank", chain_block=block)
+    assert not failures, res
+    assert res["accept_rate"] > 0.1
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("block,chains", [(1, 37), (7, 259), (8, 256), (16, 512)])
+@pytest.mark.parametrize("tuning", [False, True], ids=["draw_chunk", "tune_chunk"])
+def test_fused_hmc_packed_instance_matches_plain(hopper, block, chains, tuning):
+    """Eight schools' packed instance against the plain version in chain
+    blocks of 1, 7, 8 and 16 (37 and 259 chains: blocks whose chains the
+    packing does not divide, so a warp holds fewer chains than it has
+    segments), a quarter of the chains in the funnel's neck: a 4-draw draw
+    chunk, and a 4-draw ``adapt_metric`` tune chunk with dual averaging."""
+    from littlemcmc_torch.ops._build import last_blocks_per_sm
+    from littlemcmc_torch.ops.nuts_trajectory import fused_hmc_transition
+
+    assert fused_hmc_transition("eight_schools", "diag", block, 10) == "packed"
+    res, failures, got, _, _, _ = fused_check(tm.EightSchools(), chains, 4, tuning, tuning,
+                                              seed=9, words=(23, -5), step="hmc",
+                                              metric="diag", chain_block=block)
+    assert not failures, res
+    assert last_blocks_per_sm("fused_hmc") >= 1
+    if tuning:
+        assert (got["window"] == 100.0).all() and (got["n_samples"] == 52.0).all()
+
+
+# ptxas's lines of the fused HMC kernel's instances before the register
+# instances (registers, stack frame, spill stores, spill loads, as the
+# sm_90a build printed them; PERF.md, rows 4b and 4c), keyed
+# <body,metric,block>; <2,0,0>, the warp instance the packed one replaced,
+# is no longer compiled
+_FUSED_HMC_PTXAS = {
+    "<0,0,0>": (64, 96, 0, 0), "<0,1,0>": (105, 96, 0, 0), "<0,2,0>": (127, 96, 0, 0),
+    "<1,0,0>": (64, 136, 64, 72), "<1,1,0>": (106, 96, 0, 0), "<1,1,1>": (158, 32, 0, 0),
+    "<1,2,0>": (123, 96, 0, 0), "<2,1,0>": (100, 96, 0, 0), "<2,2,0>": (127, 96, 0, 0),
+    "<3,0,0>": (128, 96, 0, 0), "<3,1,0>": (128, 96, 0, 0), "<3,2,0>": (128, 96, 0, 0),
+    "<4,0,0>": (126, 96, 0, 0), "<4,1,0>": (127, 96, 0, 0), "<4,2,0>": (128, 96, 0, 0),
+    "<5,0,0>": (64, 96, 0, 0), "<5,1,0>": (102, 96, 0, 0), "<5,2,0>": (120, 96, 0, 0),
+}
+
+
+@pytest.mark.cuda
+def test_fused_hmc_ptxas_lines(hopper):
+    """The register instances (``fused_hmc_lowrank_kernel<4>``,
+    ``fused_hmc_packed_kernel<2>``) spill nothing, and every other
+    instance of ``fused_hmc.cu`` keeps the line it had before them."""
+    import re
+
+    from chip_smoke import _ptxas_entries
+    from littlemcmc_torch.ops import _build
+
+    log = (_build.build_all()["fused_hmc"].parent / "fused_hmc.log").read_text()
+    got, new = {}, {}
+    for entry, lines in _ptxas_entries(log).items():
+        text = " ".join(lines)
+        frame, stores, loads = map(int, re.search(
+            r"(\d+) bytes stack frame, (\d+) bytes spill stores, (\d+) bytes spill loads",
+            text).groups())
+        regs = int(re.search(r"Used (\d+) registers", text).group(1))
+        m = re.search(r"fused_hmc_kernelILi(\d)ELi(\d)ELb(\d)E", entry)
+        if m:
+            got["<%s,%s,%s>" % m.groups()] = (regs, frame, stores, loads)
+        m = re.search(r"fused_hmc_(lowrank|packed)_kernelILi(\d)E", entry)
+        if m:
+            new[m.group(1)] = (regs, frame, stores, loads)
+    assert got == _FUSED_HMC_PTXAS
+    assert set(new) == {"lowrank", "packed"}
+    for kind, (regs, frame, stores, loads) in new.items():
+        assert stores == 0 and loads == 0, (kind, regs, frame)
+
+
 # --------------------------------------------------------------------------
 # eight schools and the fused kernels' diag branch
 # --------------------------------------------------------------------------

@@ -20,11 +20,15 @@ correlated body is a test-local spec in full float32; its dense velocity
 stays the package's bf16x3 split, about 2^-21 relative.
 """
 
+from pathlib import Path
+
 import jax
 import jax.numpy as jnp
 import numpy as np
 import pytest
 import torch
+from hypothesis import given, settings
+from hypothesis import strategies as st
 
 import littlemcmc_tpu as lmc
 import littlemcmc_torch as lt
@@ -537,3 +541,135 @@ def test_warnings_from_hmc_stats(mean_accept):
     assert got == want
     assert ("BAD_ACCEPTANCE" in dict(got)) == (mean_accept < 0.7)
     assert "DIVERGENCES" in dict(got) and "TREEDEPTH" not in dict(got)
+
+
+# --------------------------------------------------------------------------
+# (v) the fused HMC kernel's register instances: their predicate, and the
+# packed instance's segmented butterfly, proven in float32
+# --------------------------------------------------------------------------
+
+_CSRC = Path(__file__).resolve().parents[1] / "littlemcmc_torch" / "ops" / "csrc"
+
+
+def _header_int(name: str, header: str = "hmc_transition.cuh") -> int:
+    import re
+
+    src = (_CSRC / header).read_text()
+    return int(re.search(rf"constexpr int {name} = (\d+);", src).group(1))
+
+
+@pytest.mark.parametrize("chain_block", [1, 7, 8, 9, 16])
+@pytest.mark.parametrize("n", [10, 100, 128, 129])
+def test_fused_hmc_transition_matches_the_kernels(chain_block, n):
+    """``fused_hmc_transition`` names the instance ``launch`` of
+    ``csrc/fused_hmc.cu`` runs: the block one (body 1 dense, blocks of up
+    to 8), the low-rank register one (body 4 low-rank, blocks of up to 8,
+    n <= 32 kRegTrips), eight schools' packed one (any block), else the
+    warp one; the bodies and metrics as ``hmc_register_body()`` and
+    ``hmc_packed_body()`` name them."""
+    import re
+
+    from littlemcmc_torch.ops.nuts_trajectory import (BODY_IDS, HMC_REGISTER_MAX_N,
+                                                      METRIC_IDS, fused_hmc_transition)
+
+    src = (_CSRC / "hmc_transition.cuh").read_text()
+    ids = {"kDiag": 0, "kDense": 1, "kLowRank": 2}
+    pairs = {}
+    for kind, fn in (("registers", "hmc_register_body"), ("packed", "hmc_packed_body")):
+        body, metric = re.search(rf"constexpr bool {fn}\(\) \{{\s*return BODY == (\d+) && "
+                                 r"METRIC == (k\w+);", src).groups()
+        pairs[int(body), ids[metric]] = kind
+    assert HMC_REGISTER_MAX_N == 32 * _header_int("kRegTrips")
+    chains = _header_int("kBlockChains", "nuts_transition.cuh")
+    for body, bid in BODY_IDS.items():
+        for metric, mid in METRIC_IDS.items():
+            want = pairs.get((bid, mid), "warp")
+            if (body, metric) == ("correlated_gaussian", "dense") and chain_block <= chains:
+                want = "block"
+            if want == "registers" and (chain_block > chains or n > HMC_REGISTER_MAX_N):
+                want = "warp"
+            assert fused_hmc_transition(body, metric, chain_block, n) == want, (body, metric)
+
+
+def _warp_sum32(x):
+    """``warp_sum`` of ``csrc/nuts_transition.cuh`` in float32 over a warp
+    whose lanes 0..9 hold ``x`` and the rest +0: every lane's result."""
+    v = np.zeros(32, np.float32)
+    v[:10] = x
+    lanes = np.arange(32)
+    for o in (16, 8, 4, 2, 1):
+        v = v + v[lanes ^ o]
+    return v
+
+
+def _segment_sum(x, L):
+    """``segment_sums<L>`` of ``csrc/hmc_transition.cuh`` in float32 on one
+    segment whose lanes 0..9 hold ``x``: its lanes' results."""
+    zero = np.float32(0.0)
+    if L == 16:
+        v = np.zeros(16, np.float32)
+        v[:10] = x
+        v = v + zero
+        lanes = np.arange(16)
+        for o in (8, 4, 2, 1):
+            v = v + v[lanes ^ o]
+        return v[:10]
+    v = np.asarray(x, np.float32) + zero
+    i = np.arange(10)
+    j = i ^ 8
+    v = v + np.where(j < 10, v[np.where(j < 10, j, i)], zero)
+    for o in (4, 2, 1):
+        j = i ^ o
+        v = v + v[np.where(j < 10, j, j - 8)]
+    return v
+
+
+def _same_bits(a, b):
+    a, b = np.asarray(a, np.float32), np.asarray(b, np.float32)
+    return (a.view(np.uint32) == b.view(np.uint32)) | (np.isnan(a) & np.isnan(b))
+
+
+def _check_segments(x):
+    with np.errstate(over="ignore", invalid="ignore"):
+        ref = _warp_sum32(x)
+        assert _same_bits(ref, ref[0]).all()  # the butterfly leaves every lane alike
+        for L in (16, 10):
+            got = _segment_sum(x, L)
+            assert _same_bits(got, ref[0]).all(), (L, x, got, ref[0])
+
+
+_SPECIAL = np.array([0.0, -0.0, 1e-45, -1e-45, 1.17549435e-38, -3e-39, np.inf, -np.inf,
+                     3.4e38, -3.4e38, 1.0, -1.0, 1e-8], np.float32)
+
+
+def test_segment_sums_shipped_form_is_one_of_the_proven_ones():
+    """The packed instance's segment (``kEsHmcLanes``) is one of the two
+    forms proven below, and matches its chains a warp."""
+    cpw = _header_int("kEsHmcChainsPerWarp")
+    assert cpw in (2, 3)
+    src = (_CSRC / "hmc_transition.cuh").read_text()
+    assert "constexpr int kEsHmcLanes = kEsHmcChainsPerWarp == 2 ? 16 : 10;" in src
+
+
+@pytest.mark.parametrize("pattern", range(6))
+def test_segment_sums_keep_signed_zeros_subnormals_and_infinities(pattern):
+    """Every lane of a segment gets warp_sum's bits on columns of signed
+    zeros (all -0: the first round's + 0 makes +0), subnormals, infinities
+    of both signs (inf - inf: NaN) and values near overflow."""
+    rng = np.random.default_rng(pattern)
+    cases = [np.full(10, -0.0, np.float32), np.full(10, 1e-45, np.float32),
+             rng.choice(_SPECIAL, 10), rng.choice(_SPECIAL[:6], 10),
+             np.array([np.inf] + [-0.0] * 9, np.float32),
+             np.array([3.4e38] * 5 + [-3.4e38] * 5, np.float32)]
+    _check_segments(cases[pattern])
+
+
+@settings(max_examples=400, deadline=None)
+@given(st.lists(st.one_of(st.floats(width=32), st.sampled_from([float(v) for v in _SPECIAL])),
+                min_size=10, max_size=10))
+def test_segment_sums_give_warp_sums_bits(xs):
+    """Both segment forms of the packed instance's butterfly (16 lanes; 10
+    lanes reading a virtual lane j >= 10 from lane j - 8) give every lane
+    of the segment the bits of warp_sum over 32 lanes with zeros above
+    lane 9, on any float32 columns (NaN payloads aside)."""
+    _check_segments(np.array(xs, np.float32))

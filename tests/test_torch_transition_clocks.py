@@ -306,3 +306,73 @@ def test_hmc_ptxas_instances_name_the_block_and_warp_ones():
     assert list(out) == ["<1,0,block>", "<1,1,block>", "<1,1,warp>"]
     assert out["<1,1,block>"][1].endswith("Used 158 registers")
     assert out["<1,1,warp>"][1].endswith("Used 106 registers")
+
+
+def test_hmc_tune_chunk_as_the_per_chain_metric_cells_run_it(monkeypatch):
+    """``hmc_tune_chunk`` (the cases ``hmc_l3_tune`` and ``hmc_es_tune``):
+    the fused HMC op's inputs for a tune chunk with the step size adapting
+    and the per-chain Welford steps swapping windows at draw 2; the
+    low-rank one with the spiked Gaussian's spikes as the factor. Here made
+    on the CPU and run through the plain op, at 16 chains."""
+    import chip_smoke
+    from littlemcmc_torch.models import EightSchools, SpikedGaussian
+    from littlemcmc_torch.ops.fused_hmc import fused_hmc
+    from littlemcmc_torch.ops.fused_nuts import WELFORD_KEYS
+    from littlemcmc_torch.ops.nuts_trajectory import lowrank_fac_size
+
+    monkeypatch.setattr(chip_smoke, "DEVICE", "cpu")
+    for model, metric, ta in ((SpikedGaussian(12, device="cpu"), "lowrank", None),
+                              (EightSchools(device="cpu"), "diag", 0.95)):
+        args, words, kw = tc.hmc_tune_chunk(model, 16, 41, metric, ta)
+        assert len(args) == 11 and args[0].shape == (16, model.ndim) and args[10] is None
+        assert kw["T"] == 4 and kw["tuning"] and kw["config"].adapt_step_size
+        assert kw["config"].target_accept == (0.8 if ta is None else ta)
+        assert kw["metric"] == metric and kw["window_multiplier"] == 2.0
+        assert len(kw["welford"]) == len(WELFORD_KEYS)
+        # the windows swap at the chunk's draw 2: n_samples 48, window 50
+        assert float(kw["welford"][-2][0]) == 48.0 and float(kw["welford"][-1][0]) == 50.0
+        if metric == "lowrank":
+            assert kw["fac"].shape == (lowrank_fac_size(model.ndim),)
+        else:
+            assert "fac" not in kw
+        out = fused_hmc(*args, words, spec=model.trajectory_spec(), chain_block=8, **kw)
+        assert out["n_steps"].shape == (4, 16) and (out["window"] == 100.0).all()
+        # the same inputs again: the case's seed fixes them
+        again = tc.hmc_tune_chunk(model, 16, 41, metric, ta)
+        torch.testing.assert_close(again[0][0], args[0], rtol=0, atol=0)
+
+
+def test_rows_4b_4c_state_files_and_cases():
+    """L3 and eight schools' HMC cell keep their final states in files of
+    their own; the four cases of rows 4c and 4b name the fused HMC op, and
+    ``kinds_only`` names each case's kernel without sampling (what the
+    instrumented build compiles)."""
+    assert {"l3", "hmc_es"} <= set(tc.STATE_FILES)
+    assert len(set(tc.STATE_FILES.values())) == len(tc.STATE_FILES)
+    kinds = tc._inputs(_PATH.parents[1], _PATH.parent, None, kinds_only=True)
+    for case in ("hmc_l3_final", "hmc_l3_tune", "hmc_es_final", "hmc_es_tune"):
+        assert kinds[case] == "fused_hmc"
+    assert set(kinds.values()) == set(tc.KINDS)
+    assert tc._inputs(_PATH.parents[1], _PATH.parent, ["hmc_es_tune"], kinds_only=True) == {
+        "hmc_es_tune": "fused_hmc"}
+
+
+def test_hmc_ptxas_instances_name_the_register_instances():
+    """``chip_smoke._hmc_moved_instances`` keys the fused HMC kernel's
+    register instances (the low-rank one and eight schools' packed one)
+    and the low-rank warp instance kept for larger blocks."""
+    import chip_smoke
+
+    def entry(name, regs, spill=0):
+        return [f"ptxas info    : Compiling entry function '_ZN12_GLOBAL__N_1{name}EEvNS_4ArgsE'"
+                " for 'sm_90a'", f"    0 bytes stack frame, {spill} bytes spill stores, {spill} "
+                "bytes spill loads", f"ptxas info    : Used {regs} registers"]
+
+    log = "\n".join(entry("24fused_hmc_lowrank_kernelILi4E", 200)
+                    + entry("23fused_hmc_packed_kernelILi2E", 64)
+                    + entry("16fused_hmc_kernelILi4ELi2ELb0E", 128)
+                    + entry("16fused_hmc_kernelILi4ELi0ELb0E", 126))
+    out = chip_smoke._hmc_moved_instances(log)
+    assert list(out) == ["<4,2,registers>", "<2,0,packed>", "<4,2,warp>"]
+    assert out["<4,2,registers>"][1].endswith("Used 200 registers")
+    assert out["<2,0,packed>"][1].endswith("Used 64 registers")
