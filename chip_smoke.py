@@ -177,6 +177,19 @@ them, whole chain blocks, every fourth chain of the inputs as made:
    launches of the trajectory kernel, one probe launch before the first),
    under ``_logistic_quality``'s gates against the reference moments
    (``H1_DRAWS`` says why 3000 draws);
+   3v-3y. the rest of the one-card ``sample()`` surface
+   (``_surface_cells``): the 100-d main path at 100 + 150 with
+   ``checkpoint_every=50``, interrupted by a callback at iteration 150
+   and resumed, per draw and with ``fuse_draws=True``, against an
+   uninterrupted run's bits, and the checkpoint's save and restore
+   seconds; the main path at 50 + 50 inside ``device_trace``, one device
+   record for each launch ``perf_report`` counts; ``LinearRegression()``
+   and ``StochasticVolatility()`` (T = 128) at 1024 chains, 500 + 1000, on
+   their generated bodies (the flat-prior closed form, R-hat and
+   divergence gates; the globals' R-hat, divergences and the latent
+   path's correlation), and ``StochasticVolatility(T=500)`` declining to
+   the tree for 10 + 10 draws (``SV_BIG_CHAINS``, ``SV_BIG_DEPTH``),
+   ungated;
 4. the kernel's time per launch at the main path's final state beside its
    plain version's time and its bound, where 50 more draws from that
    state spend their device time (``torch.profiler``); each kernel's
@@ -211,7 +224,10 @@ them, whole chain blocks, every fourth chain of the inputs as made:
    (with where its scratch rows were placed: ``scratch_in_smem``),
    the tensor-op tree on the same model (ms a draw over 20 draws from that
    state, the number the generated body exists to beat) beside 50 draws
-   on the generated body, and the probe kernel alone; then the ptxas
+   on the generated body, and the probe kernel alone;
+   4i. the two new generated bodies in ``nuts_trajectory`` at their
+   cells' final states against their plain versions, per launch, with
+   their ptxas lines (``_surface_rows``); then the ptxas
    lines of the per-draw and fused NUTS kernels' body-2, body-4 and body-5
    diag instances, body-1 dense and body-4 low-rank instances (those on
    the block transition beside those on the warp transition) and of the
@@ -282,6 +298,23 @@ HIER_REFERENCE = ROOT / "tests" / "hierarchical_reference_moments.json"
 # own run of this cell (BENCH_SUITE.json). 3000 draws bring it near 1.005,
 # under the cell's 1.01 gate
 H1_DRAWS = 3000
+# the sample() surface (3v-3w): checkpoint/resume on the 100-d main path,
+# 100 + 150 draws, a checkpoint every 50, interrupted at iteration 150 by a
+# callback and resumed; the main path at 50 + 50 inside device_trace
+CK_TUNE, CK_DRAWS, CK_EVERY, CK_STOP = 100, 150, 50, 150
+TR_TUNE, TR_DRAWS = 50, 50
+# the generated-body models (3x-3y): linear regression and stochastic
+# volatility at T = 128 (131 parameters) at the main path's chains and
+# draws; T = 500 (scripts/bench_suite.py:266-274, 503 parameters) declines
+# to the tree and runs 10 + 10 draws there, ungated, at the suite's own
+# quarter scale of its chains (1024 // 4) and trees to depth 8 (the early
+# tuning cap): at 1024 chains and depth 10 its 20 draws took 50.7 s (2.5 s
+# a draw, 527 leaves), at 256 chains 43.6 s (558 leaves), of the script's
+# time. The stochastic-volatility body's plain version runs on a
+# sixteenth of the chains (35.4 s on a quarter)
+SV_TARGET, SV_BIG_T, SV_BIG_TUNE, SV_BIG_DRAWS, SV_BIG_CHAINS = 0.95, 500, 10, 10, 256
+SV_BIG_DEPTH = 8
+SV_PLAIN_SHARE = 16
 DEVICE = "cuda"  # where the checks' inputs are made: the card
 FLAGS = ("depth", "n_leaves", "diverging", "turning")
 HMC_FLAGS = ("n_steps", "accepted", "diverging")
@@ -325,28 +358,46 @@ def _cuda_time_ms(fn, reps: int, warmup: int) -> float:
     return start.elapsed_time(end) / reps
 
 
-def _device_ms(fn, name: str, reps: int, fallback_ms: float) -> tuple[float, str]:
+def _device_ms(fn, name: str, reps: int, fallback_ms: float = None) -> tuple[float, str]:
     """Mean device milliseconds of one launch of the kernel whose name
-    holds ``name``, over ``reps`` calls of ``fn`` under ``torch.profiler``:
-    the kernel's own time, without the gaps in which the card waits for
-    the host's next launch, which CUDA events around a kernel shorter than
-    its Python wrapper also count. Returns ``(ms, "profiler")``, or
-    ``(fallback_ms, "events")`` where the profiler sees no device time."""
-    import torch
-    from torch.profiler import ProfilerActivity, profile
+    holds ``name``, over ``reps`` calls of ``fn`` inside
+    :func:`~littlemcmc_torch.utils.profiling.device_trace`: the kernel's
+    own time, without the gaps in which the card waits for the host's next
+    launch, which CUDA events around a kernel shorter than its Python
+    wrapper also count. A window whose trace lost a launch's device record
+    is taken again, up to three windows; where none kept every record, the
+    mean is over the records of the window that kept the most. Returns
+    ``(ms, source)``: ``"profiler"``, or ``"profiler:"`` and each window's
+    records of ``reps``; raises where no window kept one (``fallback_ms``
+    is not used: no row falls back to events)."""
+    import tempfile
 
+    import torch
+    from littlemcmc_torch.utils.profiling import device_trace
+
+    del fallback_ms
     fn()
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-        for _ in range(reps):
-            fn()
-        torch.cuda.synchronize()
-    hits = [e for e in prof.key_averages()
-            if e.device_type == torch.autograd.DeviceType.CUDA and name in e.key]
-    count = sum(e.count for e in hits)
-    if count != reps:
-        return fallback_ms, f"events:{count}/{reps}_profiled"
-    return sum(e.self_device_time_total for e in hits) / reps / 1e3, "profiler"
+    kept, best = [], (0, 0.0)
+    for _ in range(3):
+        with tempfile.TemporaryDirectory() as d:
+            with device_trace(d, check=False) as tr:
+                for _ in range(reps):
+                    fn()
+        hits = [e for e in tr.profiler.key_averages()
+                if e.device_type == torch.autograd.DeviceType.CUDA and name in e.key]
+        kept.append(sum(e.count for e in hits))
+        if kept[-1] > reps:
+            raise RuntimeError(f"{name}: {kept[-1]} device records of {reps} launches: the "
+                               f"name matches another kernel")
+        best = max(best, (kept[-1], sum(e.self_device_time_total for e in hits)))
+        if kept[-1] == reps:
+            break
+    if best[0] == 0:
+        raise RuntimeError(f"{name}: the profiler kept no device record of {reps} launches "
+                           f"in three windows")
+    src = "profiler" if kept == [reps] else "profiler:" + ",".join(f"{k}/{reps}" for k in kept)
+    return best[1] / best[0] / 1e3, src
 
 
 def _stationary_inputs(model, chol, C, eps, seed):
@@ -657,7 +708,7 @@ def _held(agree, cb=CHAIN_BLOCK):
     return torch.cumprod(block.to(torch.int32), 0).bool().repeat_interleave(cb, 1)
 
 
-def _compare(name, model, args, seed, need, metric="diag", fac=None, share=1):
+def _compare(name, model, args, seed, need, metric="diag", fac=None, share=1, sd=None):
     """One kernel launch against the plain version on the same inputs
     (the dense metric: numbers held on the chains whose block agreed), q
     in units of the model's posterior sd (:func:`_posterior_sd`); ``fac``
@@ -665,7 +716,8 @@ def _compare(name, model, args, seed, need, metric="diag", fac=None, share=1):
     on the first 1 / ``share`` of the chains (:func:`_plain_chains`; the
     inputs' chains reordered so that those are every ``share``-th,
     :func:`_spread`), on which the kernel's launch over every chain is
-    held."""
+    held; ``sd``: the posterior sds, where :func:`_posterior_sd` does not
+    know the model."""
     import numpy as np
     import torch
     from littlemcmc_torch.ops.nuts_trajectory import trajectory, trajectory_plain
@@ -695,7 +747,8 @@ def _compare(name, model, args, seed, need, metric="diag", fac=None, share=1):
         rel = d / want[k][agree].abs().clamp_min(1e-6)
         errs[f"{k}_max_abs"] = float(d.max())
         errs[f"{k}_max_rel"] = float(rel.max())
-    sd = torch.from_numpy(_posterior_sd(model)).float().to(got["q"].device)
+    sd = torch.from_numpy(np.asarray(_posterior_sd(model) if sd is None else sd)
+                          ).float().to(got["q"].device)
     errs["q_max_err_in_sd"] = float(((got["q"] - want["q"]).abs() / sd)[agree].max())
     # E_TOL is set for energies about 100 in size; the logistic body's are
     # sums over 1000 data rows, 500-700 in size, held in proportion
@@ -2651,13 +2704,15 @@ def _funnel_auto_timing(chk, cells, gen, t_start) -> list:
         rows.append(row)
     h_err, h_plain = chk["f_hmc"]
     hb = _hmc_bound_ms(int(chk["f_hargs"][5].sum()), CHAINS, 10, body="funnel")
-    h_t = _cuda_time_ms(lambda: hmc_trajectory(*chk["f_hargs"], (3, 5),
-                                               spec=f.trajectory_spec(), Emax=1000.0),
-                        reps=10, warmup=2)
+    h_call = lambda: hmc_trajectory(*chk["f_hargs"], (3, 5),  # noqa: E731
+                                    spec=f.trajectory_spec(), Emax=1000.0)
+    h_ev = _cuda_time_ms(h_call, reps=10, warmup=2)
+    h_t, h_t_src = _device_ms(h_call, "hmc_trajectory", 10)
     rows.append({"name": "hmc_trajectory", "metric": "diag", "body": "funnel", "route": "cuda",
                  "source": "littlemcmc_torch/ops/csrc/hmc_trajectory.cu",
                  "replaces": f"littlemcmc_tpu/ops/hmc_trajectory_pallas.py:273 (body {body_tpu})",
-                 "launches": 0, "max_abs_err": h_err, "ms": h_t, "ms_source": "events",
+                 "launches": 0, "max_abs_err": h_err, "ms": h_t, "ms_source": h_t_src,
+                 "events_ms": h_ev,
                  "plain_ms": h_plain, "bound_ms": hb[0], "bound_by": hb[1], "library_ms": None})
     a_err, a_plain = chk["h_traj"]
     rows += [
@@ -2678,6 +2733,265 @@ def _funnel_auto_timing(chk, cells, gen, t_start) -> list:
          "ms": p_ms, "ms_source": p_src, "plain_ms": p_plain, "bound_ms": p_bound[0],
          "bound_by": p_bound[1], "library_ms": None},
     ]
+    return rows
+
+
+def _surface_cells(smi, cg, lin, sv, reset_counts, counts, t_start) -> dict:
+    """Phases 3v-3y: the rest of the one-card ``sample()`` surface and the
+    two generated-body models.
+
+    3v. ``checkpoint_resume``: the 100-d main path (1024 chains, 100 + 150)
+    with ``checkpoint_every=50``, interrupted by a callback at iteration
+    150, then resumed; once on the default per-draw engine, once with
+    ``fuse_draws=True``. Gates: the partial and the resumed traces equal an
+    uninterrupted run's bits, checkpoints at 50, 100 and 150. Then the
+    save and restore seconds of the final state.
+    3w. ``device_trace``: the main path at 50 + 50 inside
+    :func:`~littlemcmc_torch.utils.profiling.device_trace`. Gate: one
+    device record of the trajectory kernel for each launch
+    ``perf_report`` counts.
+    3x. ``linear_regression``: ``LinearRegression()``, 1024 chains, 500 +
+    1000 on the generated body. Gates: each posterior mean within 0.1
+    posterior sd of the flat-prior closed form, R-hat < 1.01, divergences
+    < 1%.
+    3y. ``stochastic_volatility``: ``StochasticVolatility()`` (T = 128),
+    1024 chains, 500 + 1000, ``target_accept=0.95``, on the generated body.
+    Gates: the globals' R-hat < 1.05, divergences < 2%, the latent path's
+    posterior mean correlated > 0.85 with the true path. Then T = 500 for
+    10 + 10 draws on the tree (its decline reason and ms a draw, ungated).
+    """
+    import os
+    import shutil
+    import tempfile
+    from concurrent.futures import ThreadPoolExecutor
+
+    import numpy as np
+    import torch
+    from littlemcmc_torch import NUTS, sample
+    from littlemcmc_torch.models import StochasticVolatility
+    from littlemcmc_torch.ops.autospec import probe_spec
+    from littlemcmc_torch.utils.checkpoint import restore_checkpoint, save_checkpoint
+    from littlemcmc_torch.utils.diagnostics import ess_bulk, split_rhat
+    from littlemcmc_torch.utils.profiling import device_trace
+
+    out = {}
+    # 3v. checkpoint, interrupt and resume against an uninterrupted run
+    kw = dict(model_ndim=N, chains=CHAINS, tune=CK_TUNE, draws=CK_DRAWS, random_seed=42,
+              progressbar=False, compute_convergence_checks=False)
+    for fuse, engine in ((None, "per_draw_diag"), (True, "fused_diag")):
+        d = tempfile.mkdtemp(prefix="lmc_ckpt_")
+        seen = []
+
+        def interrupt(iteration, tuning, states, chunk, n_divergences):
+            seen.append(iteration)
+            if iteration >= CK_STOP:
+                raise KeyboardInterrupt
+
+        try:
+            launches, reports = [], []
+            runs = (dict(checkpoint_dir=d, checkpoint_every=CK_EVERY, callback=interrupt),
+                    dict(checkpoint_dir=d, resume=True), dict(return_final_state=True))
+            results = []
+            for extra in runs:
+                reset_counts()
+                rep = {}
+                results.append(sample(cg.logp_grad, fuse_draws=fuse, perf_report=rep,
+                                      **extra, **kw))
+                launches.append({k: v for k, v in counts().items() if v})
+                reports.append(rep)
+            part, rest, (full, _, state) = results[0][0], results[1][0], results[2]
+            ckpts = sorted(os.listdir(d))
+            t0 = time.perf_counter()
+            path = save_checkpoint(os.path.join(d, "timed"), state, CK_TUNE + CK_DRAWS,
+                                   extra={"generator": torch.Generator(device=DEVICE)
+                                          .manual_seed(1).get_state()})
+            save_s = time.perf_counter() - t0
+            nbytes = os.path.getsize(os.path.join(path, "state.pt"))
+            t0 = time.perf_counter()
+            back, _ = restore_checkpoint(path, state)
+            torch.cuda.synchronize()
+            restore_s = time.perf_counter() - t0
+            same_state = bool(torch.equal(back.q, state.q)
+                              and torch.equal(back.potential.var, state.potential.var))
+        finally:
+            shutil.rmtree(d, ignore_errors=True)
+        same = bool(np.array_equal(np.concatenate([part, rest], axis=1), full))
+        line = {"phase": f"checkpoint_resume_{engine}", "engine": reports[0]["engine"],
+                "callbacks_at": seen, "checkpoints": ckpts,
+                "partial_draws": part.shape[1], "resumed_draws": rest.shape[1],
+                "launches_interrupted": launches[0], "launches_resumed": launches[1],
+                "launches_uninterrupted": launches[2], "bits_equal": same,
+                "sample_seconds": [r["sample_seconds"] for r in reports],
+                "save_seconds": save_s, "restore_seconds": restore_s,
+                "checkpoint_bytes": nbytes, "restored_equal": same_state, "card": smi}
+        print(json.dumps(line), flush=True)
+        _check_gates(line["phase"], [
+            ("engine", all(r["engine"] == engine for r in reports)),
+            ("resumed traces equal an uninterrupted run's bits", same),
+            ("checkpoints at 50, 100, 150",
+             ckpts == [f"step_{k:08d}" for k in (50, 100, 150)]),
+            ("partial and resumed draws", (part.shape[1], rest.shape[1])
+             == (CK_STOP - CK_TUNE, CK_TUNE + CK_DRAWS - CK_STOP)),
+            ("restored state equal", same_state)])
+        out[engine] = line
+
+    # 3w. one device record a launch of the main path
+    d = tempfile.mkdtemp(prefix="lmc_trace_")
+    try:
+        reset_counts()
+        rep = {}
+        t0 = time.perf_counter()
+        with device_trace(d) as tr:
+            sample(cg.logp_grad, model_ndim=N, chains=CHAINS, tune=TR_TUNE, draws=TR_DRAWS,
+                   random_seed=42, perf_report=rep, progressbar=False,
+                   compute_convergence_checks=False)
+        wall_s = time.perf_counter() - t0
+        trace_bytes = os.path.getsize(tr.path)
+    finally:
+        shutil.rmtree(d, ignore_errors=True)
+    recs = tr.kernel_records("nuts_trajectory")
+    busy = tr.busy_ms()
+    line = {"phase": "device_trace", "engine": rep["engine"],
+            "kernel_launches": rep["kernel_launches"], "device_records": recs,
+            "all_device_records": sum(tr.records.values()),
+            "launches_by_counter": tr.launches, "sample_seconds": rep["sample_seconds"],
+            "device_busy_ms": busy, "device_busy_share": busy / (1e3 * rep["sample_seconds"]),
+            "window_seconds": wall_s, "trace_bytes": trace_bytes, "card": smi}
+    print(json.dumps(line), flush=True)
+    _check_gates("device_trace", [
+        ("one device record a launch",
+         recs == rep["kernel_launches"]["nuts_trajectory"] == TR_TUNE + TR_DRAWS)])
+    out["device_trace"] = line
+
+    def cell(model, label, target, gates_fn):
+        reset_counts()
+        probes0 = probe_spec.launches
+        rep = {}
+        tr_, st, fs = sample(model.logp_grad, model_ndim=model.ndim, chains=CHAINS, tune=TUNE,
+                             draws=DRAWS, random_seed=42,
+                             step=NUTS(model_ndim=model.ndim, target_accept=target),
+                             perf_report=rep, return_final_state=True, progressbar=False,
+                             compute_convergence_checks=False)
+        got = {k: v for k, v in counts().items() if v}
+        got["autospec_probe"] = probe_spec.launches - probes0
+        with ThreadPoolExecutor(8) as pool:
+            ess = list(pool.map(lambda i: ess_bulk(tr_[:, :, i]), range(model.ndim)))
+            rhat = list(pool.map(lambda i: split_rhat(tr_[:, :, i]), range(model.ndim)))
+        secs = rep["sample_seconds"]
+        line = {"phase": label, "engine": rep["engine"], "trajectory": rep["trajectory"],
+                "chains": CHAINS, "ndim": model.ndim, "tune": TUNE, "draws": DRAWS,
+                "target_accept": target, "kernel_launches": got, "sample_seconds": secs,
+                "transitions_per_s": CHAINS * (TUNE + DRAWS) / secs,
+                "min_bulk_ess": float(min(ess)), "min_bulk_ess_per_s": float(min(ess)) / secs,
+                "max_rhat": float(max(rhat)),
+                "divergence_rate": float(st["diverging"].mean()),
+                "mean_tree_size": float(st["tree_size"].mean()),
+                "mean_depth": float(st["depth"].mean()),
+                "step_size": float(st["step_size"][:, -1].mean()), "card": smi}
+        gates = [("engine per_draw_diag on the generated body",
+                  rep["engine"] == "per_draw_diag" and rep["trajectory"] == "cuda"),
+                 ("launches", got == {"trajectory": TUNE + DRAWS, "autospec_probe": 1})]
+        gates += gates_fn(tr_, st, line, ess, rhat)
+        print(json.dumps(line), flush=True)
+        _check_gates(label, gates)
+        return line, fs, tr_
+
+    def lin_gates(tr_, st, line, ess, rhat):
+        exact = lin.posterior_moments()
+        flat = tr_.reshape(-1, lin.ndim)
+        err = np.abs(flat.mean(0) - exact["mean"]) / exact["sd"]
+        line.update(mean=flat.mean(0).tolist(), exact_mean=exact["mean"].tolist(),
+                    sd=flat.std(0).tolist(), exact_sd=exact["sd"].tolist(),
+                    max_mean_err_in_sd=float(err.max()))
+        return [("means within 0.1 sd of the closed form", bool((err < 0.1).all())),
+                ("R-hat < 1.01", max(rhat) < 1.01),
+                ("divergences < 1%", line["divergence_rate"] < 0.01)]
+
+    def sv_gates(tr_, st, line, ess, rhat):
+        flat = tr_.reshape(-1, sv.ndim)
+        corr = float(np.corrcoef(flat[:, 3:].mean(0), sv.h_true)[0, 1])
+        phi = np.tanh(flat[:, 0])
+        line.update(globals_rhat=[float(r) for r in rhat[:3]], h_corr=corr,
+                    globals_min_bulk_ess=float(min(ess[:3])), phi_mean=float(phi.mean()),
+                    phi_sd=float(phi.std()), true_phi=sv.true_phi)
+        return [("globals' R-hat < 1.05", max(rhat[:3]) < 1.05),
+                ("divergences < 2%", line["divergence_rate"] < 0.02),
+                ("corr(mean h, h_true) > 0.85", corr > 0.85)]
+
+    out["lin"] = cell(lin, "linear_regression", 0.8, lin_gates)
+    out["sv"] = cell(sv, "stochastic_volatility", SV_TARGET, sv_gates)
+
+    # T = 500 declines at trace time and runs the tree
+    big = StochasticVolatility(T=SV_BIG_T, device=DEVICE)
+    reset_counts()
+    rep = {}
+    tr_, st = sample(big.logp_grad, model_ndim=big.ndim, chains=SV_BIG_CHAINS, tune=SV_BIG_TUNE,
+                     draws=SV_BIG_DRAWS, random_seed=42,
+                     step=NUTS(model_ndim=big.ndim, target_accept=SV_TARGET,
+                               max_treedepth=SV_BIG_DEPTH),
+                     perf_report=rep, progressbar=False, compute_convergence_checks=False)
+    line = {"phase": "stochastic_volatility_T500", "max_treedepth": SV_BIG_DEPTH,
+            "ndim": big.ndim, "engine": rep["engine"],
+            "trajectory": rep["trajectory"], "decline_reason": big.decline_reason,
+            "chains": SV_BIG_CHAINS, "tune": SV_BIG_TUNE, "draws": SV_BIG_DRAWS,
+            "sample_seconds": rep["sample_seconds"],
+            "ms_per_draw": 1e3 * rep["sample_seconds"] / (SV_BIG_TUNE + SV_BIG_DRAWS),
+            "mean_tree_size": float(st["tree_size"].mean()),
+            "finite": bool(np.isfinite(tr_).all()), "card": smi}
+    print(json.dumps(line), flush=True)
+    _check_gates("stochastic_volatility_T500", [
+        ("the tree", rep["trajectory"] == "tensor" and big.decline_reason is not None
+         and not any(counts().values()))])
+    out["sv_big"] = line
+    _line(phase="surface_cells", elapsed_s=f"{time.perf_counter() - t_start:.1f}")
+    return out
+
+
+def _surface_rows(cells, logs, gen, t_start) -> list:
+    """Phase 4i: row 7's two new generated bodies in the per-draw NUTS
+    kernel, each at its cell's final state: the launch against the plain
+    version (on a quarter of the chains, q in the cell's posterior sds),
+    its device ms, events ms and bound, and the ptxas lines of its
+    ``nuts_trajectory`` instance (``logs``: the build logs)."""
+    import torch
+    from littlemcmc_torch.ops.nuts_trajectory import trajectory
+
+    rows = []
+    for key, seed, share in (("lin", (239, 7), PLAIN_SHARE), ("sv", (241, -3), SV_PLAIN_SHARE)):
+        model = cells[f"{key}_model"]
+        line, s, tr_ = cells[key]
+        name = type(model).__name__
+        spec = model.trajectory_spec()
+        prog = spec.auto
+        C, n = s.q.shape
+        targs = (s.q.contiguous(), s.potential.sample_momentum(gen), s.q_grad.contiguous(),
+                 s.logp.contiguous(), torch.exp(s.da.log_bar),
+                 torch.full((C,), DEPTH, dtype=torch.int32, device=DEVICE),
+                 s.potential.var.contiguous())
+        err, plain_ms = _compare(f"auto_{name}", model, targs, seed, need=0.99, share=share,
+                                 sd=tr_.reshape(-1, n).std(0))
+        kw = dict(spec=spec, max_treedepth=DEPTH, Emax=1000.0, chain_block=CHAIN_BLOCK)
+        pout = trajectory(*targs, seed, **kw)
+        bound = _bound_ms(int(pout["n_leaves"].sum()), C, n, body="auto", rows=spec.rows,
+                          ir_ops=prog.flops)
+        ev = _cuda_time_ms(lambda: trajectory(*targs, seed, **kw), reps=20, warmup=3)
+        ms, src = _device_ms(lambda: trajectory(*targs, seed, **kw), "nuts_trajectory", 20)
+        ptxas = [ln.strip() for ln in logs[f"nuts_trajectory:{name}"].read_text().splitlines()
+                 if "registers" in ln or "spill" in ln or "entry function" in ln]
+        rows.append({
+            "name": "nuts_trajectory", "metric": "diag", "body": f"auto ({name}, n = {n})",
+            "route": "cuda",
+            "source": "littlemcmc_torch/ops/csrc/nuts_trajectory.cu + ops/autospec.py "
+                      "(generated body)",
+            "replaces": "littlemcmc_tpu/ops/autospec.py:540 (body of make_pallas_model_spec "
+                        ":411)",
+            "launches": line["kernel_launches"].get("trajectory", 0), "max_abs_err": err,
+            "ms": ms, "ms_source": src, "events_ms": ev, "plain_ms": plain_ms,
+            "bound_ms": bound[0], "bound_by": bound[1], "library_ms": None,
+            "plain_chains": _plain_chains(C, share),
+            "leaves_per_chain": float(pout["n_leaves"].float().mean()),
+            "program_flops": prog.flops, "ptxas": ptxas})
+    _line(phase="surface_rows", elapsed_s=f"{time.perf_counter() - t_start:.1f}")
     return rows
 
 
@@ -2702,7 +3016,8 @@ def main() -> int:
                          check=True, timeout=60).stdout.strip()
     from littlemcmc_torch.ops import _build
 
-    from littlemcmc_torch.models import HierarchicalRegression
+    from littlemcmc_torch.models import (HierarchicalRegression, LinearRegression,
+                                         StochasticVolatility)
     from littlemcmc_torch.models.probe_matrix import autospec_matrix
     from littlemcmc_torch.ops.autospec import (header_source, make_trajectory_spec,
                                                probe_header)
@@ -2715,9 +3030,16 @@ def main() -> int:
     matrix = [make_trajectory_spec(ndim=3, logp_fn=fn, device=DEVICE, name=name).auto
               for name, fn in autospec_matrix(DEVICE).items()]
     hprog = hr.trajectory_spec().auto
+    # the linear-regression and stochastic-volatility bodies (3x-3y), each
+    # in the per-draw NUTS kernel and the probe sample() runs first
+    lin, sv = LinearRegression(), StochasticVolatility()
+    new_progs = {type(m).__name__: m.trajectory_spec().auto for m in (lin, sv)}
     generated = [("nuts_trajectory", header_source(hprog)),
                  ("autospec_probe", probe_header([hprog])),
                  ("autospec_probe", probe_header(matrix + [hprog]))]
+    for prog in new_progs.values():
+        generated += [("nuts_trajectory", header_source(prog)),
+                      ("autospec_probe", probe_header([prog]))]
     trace_s = time.perf_counter() - t0
     # one nvcc a source, the static and the generated ones started together
     _build._compile(list(_build._static_jobs().values())
@@ -2725,6 +3047,8 @@ def main() -> int:
     libs = _build.build_all()
     gen_logs = {f"{k}:{i}": _build._generated_job(k, h)[2]
                 for i, (k, h) in enumerate(generated)}
+    gen_logs.update({f"nuts_trajectory:{name}": _build._generated_job(
+        "nuts_trajectory", header_source(prog))[2] for name, prog in new_progs.items()})
     _line(phase="build", seconds=f"{time.perf_counter() - t0:.1f}",
           trace_and_lower_seconds=f"{trace_s:.1f}",
           libraries=",".join(sorted(libs)) + ",generated:" + ",".join(gen_logs),
@@ -3056,6 +3380,11 @@ def main() -> int:
     # 3s-3u. the funnel cells F1, F2 and the generated-body cell H1
     fa_cells = _funnel_auto_cells(smi, reset_counts, counts, t_start)
 
+    # 3v-3y. checkpoint/resume, device_trace, linear regression and
+    # stochastic volatility
+    sf = _surface_cells(smi, cg, lin, sv, reset_counts, counts, t_start)
+    sf.update(lin_model=lin, sv_model=sv)
+
     # --- 4. the kernel's time at the main path's final state -------------------
     gen = torch.Generator(device=DEVICE).manual_seed(7)
     pot = state.potential
@@ -3237,6 +3566,9 @@ def main() -> int:
     # final states, the tree on H1's model, the probe kernel
     fa_rows = _funnel_auto_timing(fa_chk, fa_cells, gen, t_start)
 
+    # 4i. the two new generated bodies at their cells' final states
+    sf_rows = _surface_rows(sf, logs, gen, t_start)
+
     traj_src = "littlemcmc_torch/ops/csrc/nuts_trajectory.cu"
     traj_tpu = "littlemcmc_tpu/ops/nuts_trajectory_pallas.py:1023"
     fn_src, fn_tpu = ("littlemcmc_torch/ops/csrc/fused_nuts.cu",
@@ -3412,7 +3744,7 @@ def main() -> int:
          "library_ms": None, "chunk_draws": 250, "chunk_ms": fh_ms,
          "chunk_bound_ms": fh_chunk_bound_ms, "chunk_bound_by": fh_chunk_bound_by,
          "blocks_per_sm": fh_bps},
-    ] + es_rows + lg_rows + lr_rows + [sg_fused_row()] + fa_rows + [
+    ] + es_rows + lg_rows + lr_rows + [sg_fused_row()] + fa_rows + sf_rows + [
         # the fused probes: launches on F1's path (the fused engine's five)
         # and L1's (the low-rank one)
         dict(row, launches=(fa_cells["f1_probes"] if name != "thin_factor"
@@ -3436,7 +3768,8 @@ def main() -> int:
             row["transition"] = "block" if block else "warp"
             # plain_ms: the plain version on the first of the row's chains
             # (PLAIN_SHARE)
-            row["plain_chains"] = _plain_chains(row.get("chains", CHAINS), PLAIN_SHARE)
+            row.setdefault("plain_chains",
+                           _plain_chains(row.get("chains", CHAINS), PLAIN_SHARE))
     print(json.dumps({"kernels": rows}), flush=True)
     _line(phase="done", elapsed_s=f"{time.perf_counter() - t_start:.1f}")
     print(smi, flush=True)

@@ -14,10 +14,11 @@ from typing import Callable, Tuple
 
 import torch
 
+from .integration import IntegratorState, recompute_with_momentum
 from .step_sizes import DualAverageState, dual_average_init, dual_average_update
 
-__all__ = ["NUTSConfig", "HMCConfig", "ChainState", "init_chain_state", "finish_step",
-           "pooled_tune_schedule"]
+__all__ = ["NUTSConfig", "HMCConfig", "ChainState", "init_chain_state",
+           "start_of_trajectory", "finish_step", "pooled_tune_schedule"]
 
 BatchedLogpGrad = Callable[[torch.Tensor], Tuple[torch.Tensor, torch.Tensor]]
 
@@ -37,6 +38,10 @@ class _BaseConfig:
     integrator: str = "leapfrog"
     # chains per kernel block (0: the step method's default)
     chain_block: int = 0
+    # step_rand(step_size (C,), generator) -> (C,): redraws the step sizes
+    # before each trajectory on the per-draw engine (reference
+    # base_hmc.py:154-155)
+    step_rand: object = None
 
 
 @dataclasses.dataclass(frozen=True)
@@ -83,6 +88,15 @@ def init_chain_state(q0: torch.Tensor, potential, config: _BaseConfig,
         da=dual_average_init(config.step_scale / (ndim ** 0.25), chains, q0.device),
         iter_count=torch.zeros(chains, dtype=torch.int32, device=q0.device),
     )
+
+
+def start_of_trajectory(state: ChainState, generator) -> IntegratorState:
+    """Draw a fresh momentum for every chain and assemble the trajectory
+    start from the cached ``(logp, grad)``, with no model call (reference
+    ``base_hmc.py:142-143``; ``littlemcmc_tpu/base.py:114``). ``generator``:
+    a ``torch.Generator`` or a :class:`~littlemcmc_torch.streams.DrawStream`."""
+    p0 = state.potential.sample_momentum(generator)
+    return recompute_with_momentum(state.potential, state.q, state.q_grad, state.logp, p0)
 
 
 def finish_step(state: ChainState, proposal_q: torch.Tensor,

@@ -32,17 +32,21 @@ turns a JAX model spec's constants, zero-padded to the TPU kernel's lane
 width, into the port's unpadded ones. :func:`phase_state_from_numpy` and
 :func:`tree_node_from_numpy` carry the tensor-op tree's ``PhaseState`` and
 ``TreeNode`` (``littlemcmc_tpu/nuts.py:68-104``) across, field by field,
-so both trees can start from the same state.
+so both trees can start from the same state. :func:`config_from_fields`
+carries a step method's config (``NUTSConfig`` or ``HMCConfig``,
+``littlemcmc_tpu/base.py:25-64``) from its fields, e.g.
+``dataclasses.asdict(cfg)``, and :func:`config_to_fields` is its inverse.
 """
 
 from __future__ import annotations
 
-from typing import Dict, Optional, Sequence, Tuple
+import dataclasses
+from typing import Any, Dict, Optional, Sequence, Tuple, Union
 
 import numpy as np
 import torch
 
-from .base import ChainState
+from .base import ChainState, HMCConfig, NUTSConfig
 from .nuts import PhaseState, TreeNode
 from .quadpotential import (QuadPotentialDiagAdapt, QuadPotentialFull, QuadPotentialFullAdapt,
                             QuadPotentialFullInv, QuadPotentialLowRankAdapt,
@@ -50,7 +54,8 @@ from .quadpotential import (QuadPotentialDiagAdapt, QuadPotentialFull, QuadPoten
 from .step_sizes import DualAverageState
 
 __all__ = ["chain_state_from_numpy", "chain_state_to_numpy", "spec_consts_from_numpy",
-           "phase_state_from_numpy", "tree_node_from_numpy"]
+           "phase_state_from_numpy", "tree_node_from_numpy", "config_from_fields",
+           "config_to_fields"]
 
 _WELFORD = ("w_sum", "w_sum2", "mean", "raw_var")
 _WELFORD_COV = ("n_samples", "mean", "raw_cov")
@@ -171,3 +176,20 @@ def tree_node_from_numpy(d: Dict[str, Optional[np.ndarray]], device=None) -> Tre
     """The tree's ``TreeNode`` from the JAX one's fields as numpy arrays;
     ``left_v``/``right_v`` may be None (a diagonal metric's nodes)."""
     return _tree_tuple(TreeNode, d, device)
+
+
+def config_from_fields(fields: Dict[str, Any]) -> Union[NUTSConfig, HMCConfig]:
+    """The port's config from a step method's config fields: an
+    ``HMCConfig`` where they name ``path_length`` or ``max_steps``, else a
+    ``NUTSConfig``. A field the port's config lacks raises ``ValueError``."""
+    cls = HMCConfig if ({"path_length", "max_steps"} & set(fields)) else NUTSConfig
+    known = {f.name for f in dataclasses.fields(cls)}
+    extra = sorted(set(fields) - known)
+    if extra:
+        raise ValueError(f"{cls.__name__} has no field(s) {extra}")
+    return cls(**fields)
+
+
+def config_to_fields(config: Union[NUTSConfig, HMCConfig]) -> Dict[str, Any]:
+    """The inverse of :func:`config_from_fields`."""
+    return {f.name: getattr(config, f.name) for f in dataclasses.fields(config)}

@@ -17,8 +17,8 @@ Counterpart of ``littlemcmc_tpu/hmc.py``:
   low-rank metric: one fused-op launch per chunk of draws.
 
 A low-rank metric on the per-draw engine runs the tensor-op trajectory
-(the HMC trajectory kernel is diagonal-only). ``step_rand`` is not ported
-yet.
+(the HMC trajectory kernel is diagonal-only). A ``step_rand`` hook runs on
+the per-draw engine only.
 """
 
 from __future__ import annotations
@@ -35,6 +35,7 @@ from .ops.fused_hmc import fused_hmc
 from .ops.hmc_trajectory import DEFAULT_HMC_CHAIN_BLOCK, hmc_trajectory
 from .ops.nuts_trajectory import DEFAULT_CHAIN_BLOCK, TrajectorySpec
 from .step_sizes import DualAverageState
+from .streams import rand, torch_generator
 
 __all__ = ["HMCConfig", "HMCInfo", "run_hmc_trajectory", "build_hmc_kernel",
            "build_fused_hmc_runner_factory"]
@@ -79,7 +80,7 @@ def run_hmc_trajectory(generator: torch.Generator, start: IntegratorState,
     """
     C = start.q.shape[0]
     f = dict(generator=generator, dtype=start.q.dtype, device=start.q.device)
-    path_length = torch.rand(C, **f) * config.path_length
+    path_length = rand(C, **f) * config.path_length
     n_steps = torch.clamp((path_length / step_size).to(torch.int32), 1, config.max_steps)
 
     end = start
@@ -92,7 +93,7 @@ def run_hmc_trajectory(generator: torch.Generator, start: IntegratorState,
                                 torch.full_like(energy_change, float("-inf")), energy_change)
     diverging = ~torch.isfinite(end.energy) | (energy_change.abs() > config.Emax)
     accept_stat = torch.clamp(torch.exp(energy_change), max=1.0)
-    accepted = ~diverging & (torch.rand(C, **f) < accept_stat)
+    accepted = ~diverging & (rand(C, **f) < accept_stat)
     final = _select(accepted, end, start)
     return final, end, accept_stat, accepted, diverging, energy_change, path_length, n_steps
 
@@ -103,10 +104,15 @@ def build_hmc_kernel(logp_grad_fn: BatchedLogpGrad, config: HMCConfig = HMCConfi
     """``kernel(state, tuning, generator, seed) -> (state, info)``.
 
     ``generator`` draws the momenta and path lengths (and, without a
-    ``trajectory_spec``, the accept uniforms) on the state's device;
-    ``seed`` is the trajectory op's two int32 counter-stream words for this
-    draw. With a ``trajectory_spec`` every chain's trajectory is one launch
-    of the HMC trajectory op (a diagonal metric only, reference
+    ``trajectory_spec``, the accept uniforms) on the state's device: a
+    ``torch.Generator``, or a seed list's
+    :class:`~littlemcmc_torch.streams.DrawStream`; ``seed`` is the
+    trajectory op's two int32 counter-stream words for this draw.
+    ``config.step_rand`` (``step_rand(step_size (C,), generator) ->
+    (C,)``, the ``torch.Generator``) redraws the step sizes after the
+    momentum (reference ``hmc.py:128-129, 190-191``). With a
+    ``trajectory_spec`` every chain's trajectory is one launch of the HMC
+    trajectory op (a diagonal metric only, reference
     ``hmc.py:201-206``); without one, :func:`run_hmc_trajectory` calls
     ``logp_grad_fn`` (``(C, n) -> ((C,), (C, n))``) step by step.
     """
@@ -118,6 +124,8 @@ def build_hmc_kernel(logp_grad_fn: BatchedLogpGrad, config: HMCConfig = HMCConfi
         adapting = tuning and config.adapt_step_size
         step_size = state.da.current(adapting)
         p0 = pot.sample_momentum(generator)
+        if config.step_rand is not None:
+            step_size = config.step_rand(step_size, torch_generator(generator))
         if trajectory_spec is None:
             start = recompute_with_momentum(pot, state.q, state.q_grad, state.logp, p0)
             final, end, accept_stat, accepted, diverging, energy_change, path_length, \
@@ -132,9 +140,8 @@ def build_hmc_kernel(logp_grad_fn: BatchedLogpGrad, config: HMCConfig = HMCConfi
                                  "(QuadPotentialDiag / QuadPotentialDiagAdapt)")
             # the jittered path length from the generator, outside the
             # kernel, as the JAX package draws it in XLA (hmc.py:193-199)
-            path_length = torch.rand(state.q.shape[0], generator=generator,
-                                     dtype=state.q.dtype, device=state.q.device
-                                     ) * config.path_length
+            path_length = rand(state.q.shape[0], generator, state.q.dtype,
+                               state.q.device) * config.path_length
             n_steps = torch.clamp((path_length / step_size).to(torch.int32), 1,
                                   config.max_steps)
             out = hmc_trajectory(state.q, p0, state.q_grad, state.logp, step_size, n_steps,

@@ -60,6 +60,7 @@ from .quadpotential import (QuadPotentialDiag, QuadPotentialDiagAdapt, QuadPoten
                             QuadPotentialFullAdapt, QuadPotentialLowRankAdapt,
                             WelfordCovariance, cholesky_or_keep)
 from .step_sizes import DualAverageState
+from .streams import torch_generator, tree_random
 
 __all__ = ["NUTSInfo", "PhaseState", "TreeNode", "TreeResult", "GeneratorTreeRandom",
            "run_nuts_tree", "build_nuts_kernel", "build_fused_nuts_runner_factory"]
@@ -495,8 +496,12 @@ def build_nuts_kernel(config: NUTSConfig = NUTSConfig(),
     """``kernel(state, tuning, generator, seed) -> (state, info)``.
 
     ``generator`` draws the momenta (on the state's device) and, on the
-    tree, the tree's random numbers; ``seed`` is the trajectory kernel's
-    two int32 counter-stream words for this draw. With a
+    tree, the tree's random numbers: a ``torch.Generator``, or a seed
+    list's :class:`~littlemcmc_torch.streams.DrawStream`; ``seed`` is the
+    trajectory kernel's two int32 counter-stream words for this draw.
+    ``config.step_rand`` (``step_rand(step_size (C,), generator) ->
+    (C,)``, the ``torch.Generator``) redraws the step sizes before the
+    trajectory (reference ``nuts.py:737-738``). With a
     ``trajectory_spec`` each draw is one trajectory-kernel launch for all
     chains (``pooled_metric``: the state's adaptive dense metric is pooled
     across chains, so its row 0 is the covariance the kernel shares);
@@ -518,6 +523,8 @@ def build_nuts_kernel(config: NUTSConfig = NUTSConfig(),
 
         adapting = tuning and config.adapt_step_size
         step_size = state.da.current(adapting)
+        if config.step_rand is not None:
+            step_size = config.step_rand(step_size, torch_generator(generator))
 
         # early tree-depth schedule (reference nuts.py:205-208)
         early = tuning & (state.iter_count < config.early_window)
@@ -527,9 +534,9 @@ def build_nuts_kernel(config: NUTSConfig = NUTSConfig(),
 
         if trajectory_spec is None:
             start = PhaseState(state.q, p0, state.q_grad, start_energy, state.logp)
-            tree = run_nuts_tree(GeneratorTreeRandom(generator, state.q.shape[0],
-                                                     state.q.device), None, start,
-                                 step_size, max_depth_c, pot, batched_logp_grad_fn, config)
+            rng, keys = tree_random(generator, state.q.shape[0], state.q.device)
+            tree = run_nuts_tree(rng, keys, start, step_size, max_depth_c, pot,
+                                 batched_logp_grad_fn, config)
             # the proposal's gradient is not carried through the tree:
             # recomputed once at the accepted position (reference nuts.py:869-873)
             prop_logp, prop_grad = batched_logp_grad_fn(tree.prop_q)

@@ -29,6 +29,7 @@ import numpy as np
 import torch
 
 from .math import fp32_matmul
+from .streams import randn
 
 __all__ = ["PositiveDefiniteError", "partial_check_positive_definite", "quad_potential",
            "potential_to",
@@ -199,8 +200,7 @@ class QuadPotentialDiag:
         return 0.5 * (p * velocity).sum(-1)
 
     def sample_momentum(self, generator: torch.Generator | None = None) -> torch.Tensor:
-        z = torch.randn(self.s.shape, generator=generator, dtype=self.s.dtype,
-                        device=self.s.device)
+        z = randn(self.s.shape, generator, self.s.dtype, self.s.device)
         return z * self.inv_s
 
     def update(self, sample, grad, tuning: bool) -> "QuadPotentialDiag":
@@ -233,8 +233,7 @@ class _DenseKinetics:
 
     def sample_momentum(self, generator: torch.Generator | None = None) -> torch.Tensor:
         """``p = L^{-T} z``, so that ``p ~ N(0, cov^{-1})``."""
-        z = torch.randn(self.cov.shape[:-1], generator=generator, dtype=self.cov.dtype,
-                        device=self.cov.device)
+        z = randn(self.cov.shape[:-1], generator, self.cov.dtype, self.cov.device)
         return torch.linalg.solve_triangular(self.chol.mT, z[..., None], upper=True)[..., 0]
 
 
@@ -284,8 +283,7 @@ class QuadPotentialFullInv:
         return 0.5 * (p * velocity).sum(-1)
 
     def sample_momentum(self, generator: torch.Generator | None = None) -> torch.Tensor:
-        z = torch.randn(self.chol.shape[:-1], generator=generator, dtype=self.chol.dtype,
-                        device=self.chol.device)
+        z = randn(self.chol.shape[:-1], generator, self.chol.dtype, self.chol.device)
         return _matvec(self.chol, z)
 
     def update(self, sample, grad, tuning: bool) -> "QuadPotentialFullInv":
@@ -416,8 +414,7 @@ class QuadPotentialDiagAdapt(_DiagWelfordLeaves):
         return 0.5 * (p * velocity).sum(-1)
 
     def sample_momentum(self, generator: torch.Generator | None = None) -> torch.Tensor:
-        z = torch.randn(self.stds.shape, generator=generator, dtype=self.stds.dtype,
-                        device=self.stds.device)
+        z = randn(self.stds.shape, generator, self.stds.dtype, self.stds.device)
         return self.inv_stds * z
 
     def update(self, sample: torch.Tensor, grad: torch.Tensor,
@@ -684,8 +681,7 @@ class QuadPotentialLowRankAdapt(_DiagWelfordLeaves):
 
     def sample_momentum(self, generator: torch.Generator | None = None) -> torch.Tensor:
         """``p = S⁻¹ C^{-1/2} ζ``, so that ``cov(p) = Σ̂⁻¹``."""
-        zeta = torch.randn(self.stds.shape, generator=generator, dtype=self.stds.dtype,
-                           device=self.stds.device)
+        zeta = randn(self.stds.shape, generator, self.stds.dtype, self.stds.device)
         return self.inv_stds * self._corr_matvec(zeta, -0.5)
 
     def update(self, sample: torch.Tensor, grad: torch.Tensor,

@@ -31,7 +31,8 @@ takes 1.445 s against 3.42-4.72 s per draw (on an H100, ``PERF.md`` section 6).
 Both run in the chunk loop of ``_run_chunked`` (``sampling.py:686-876``):
 tune chunks follow the fused engine's refresh schedule, the divergence
 count stays on the device, and the trace and stats stay there until the
-end.
+end; between chunks it gives progress lines, callbacks and checkpoints
+(:mod:`littlemcmc_torch.utils.checkpoint`) where the caller asks for them.
 
 Outputs match the JAX package: ``trace`` is a ``(chains, draws, ndim)``
 numpy array and ``stats`` maps the reference's stat names to
@@ -43,6 +44,8 @@ from __future__ import annotations
 
 import dataclasses
 import logging
+import math
+import sys
 import time
 from typing import List, Optional, Union
 
@@ -63,6 +66,7 @@ from .quadpotential import (QuadPotentialDiag, QuadPotentialDiagAdapt, QuadPoten
                             QuadPotentialFullAdapt, QuadPotentialFullInv,
                             QuadPotentialLowRankAdapt, potential_to, quad_potential)
 from .report import warnings_from_stats
+from .streams import ChainStreams
 
 __all__ = ["NUTS", "HamiltonianMC", "sample", "init_nuts"]
 
@@ -128,12 +132,10 @@ class _StepSpec:
 
     generates_stats = True
 
-    def __init__(self, logp_dlogp_func, model_ndim, scaling, is_cov, potential, step_rand,
+    def __init__(self, logp_dlogp_func, model_ndim, scaling, is_cov, potential,
                  trajectory_spec):
         if scaling is not None and potential is not None:
             raise ValueError("Cannot specify both `potential` and `scaling`.")
-        if step_rand is not None:
-            raise NotImplementedError("`step_rand` is not ported yet.")
         if potential is not None and not isinstance(potential, _POTENTIALS):
             raise ValueError("`potential` must be a littlemcmc_torch quadpotential "
                              "(QuadPotentialDiag, QuadPotentialDiagAdapt, "
@@ -175,6 +177,10 @@ class NUTS(_StepSpec):
     instead of the model's own batched form or a vmap of
     ``logp_dlogp_func`` (the JAX package's ``sampling.py:164``).
     ``trajectory_spec=None`` keeps a model off the trajectory kernels.
+    ``step_rand``: ``step_rand(step_size, generator) -> step_size``, called
+    before every trajectory with the ``(chains,)`` step sizes and the run's
+    device ``torch.Generator`` (the port's counterpart of the JAX hook's
+    key); the engine is then per-draw (reference ``nuts.py:737-738``).
     """
 
     name = "nuts"
@@ -205,14 +211,14 @@ class NUTS(_StepSpec):
                  integrator: str = "leapfrog", batched_logp_dlogp_func=None,
                  trajectory_spec="auto", chain_block: int = 0):
         del path_length  # accepted for constructor parity
-        super().__init__(logp_dlogp_func, model_ndim, scaling, is_cov, potential, step_rand,
+        super().__init__(logp_dlogp_func, model_ndim, scaling, is_cov, potential,
                          trajectory_spec)
         self.batched_logp_dlogp_func = batched_logp_dlogp_func
         self.config = NUTSConfig(
             target_accept=float(target_accept), Emax=float(Emax),
             adapt_step_size=bool(adapt_step_size), step_scale=float(step_scale),
             gamma=float(gamma), k=float(k), t0=float(t0),
-            integrator=str(integrator), chain_block=int(chain_block),
+            integrator=str(integrator), chain_block=int(chain_block), step_rand=step_rand,
             max_treedepth=int(max_treedepth),
             early_max_treedepth=int(early_max_treedepth),
         )
@@ -223,7 +229,8 @@ class HamiltonianMC(_StepSpec):
 
     Each draw integrates a jittered path of ``U(0, 1) * path_length`` in
     steps of the adapted step size (at most ``max_steps``) and
-    Metropolis-accepts its end.
+    Metropolis-accepts its end. ``step_rand`` as :class:`NUTS`'s, called
+    after the momentum (reference ``hmc.py:128-129, 190-191``).
     """
 
     name = "hmc"
@@ -251,25 +258,39 @@ class HamiltonianMC(_StepSpec):
                  step_rand=None, path_length: float = 2.0, max_steps: int = 1024,
                  integrator: str = "leapfrog", trajectory_spec="auto",
                  chain_block: int = 0):
-        super().__init__(logp_dlogp_func, model_ndim, scaling, is_cov, potential, step_rand,
+        super().__init__(logp_dlogp_func, model_ndim, scaling, is_cov, potential,
                          trajectory_spec)
         self.config = HMCConfig(
             target_accept=float(target_accept), Emax=float(Emax),
             adapt_step_size=bool(adapt_step_size), step_scale=float(step_scale),
             gamma=float(gamma), k=float(k), t0=float(t0),
-            integrator=str(integrator), chain_block=int(chain_block),
+            integrator=str(integrator), chain_block=int(chain_block), step_rand=step_rand,
             path_length=float(path_length), max_steps=int(max_steps),
         )
 
 
 def _as_seed(random_seed) -> int:
+    """One master seed: the seed, a new one for None, the first of a seed
+    list (``init_nuts``' one start; reference ``sampling.py:403-411``)."""
     if random_seed is None:
         return int(np.random.randint(2 ** 30))
     if isinstance(random_seed, (int, np.integer)):
         return int(random_seed)
-    raise NotImplementedError(
-        "random_seed must be an int or None; per-chain seed lists are not "
-        "ported yet.")
+    return int(np.atleast_1d(np.asarray(random_seed))[0])
+
+
+def _chain_seeds(random_seed, chains: int) -> Optional[List[int]]:
+    """A seed list's seeds, one per chain, or None for a master seed (None,
+    an int, a 0-d array), as the JAX package's ``_resolve_chain_keys``
+    (``sampling.py:414-440``)."""
+    if (random_seed is None or isinstance(random_seed, (int, np.integer))
+            or np.ndim(random_seed) == 0):
+        return None
+    seeds = np.asarray(random_seed).ravel()
+    if seeds.size != chains:
+        raise ValueError("random_seed must be an int or a sequence with one seed per "
+                         f"chain ({chains}); got {seeds.size} seeds.")
+    return [int(x) for x in seeds]
 
 
 def _resolve_init(init: str) -> str:
@@ -384,18 +405,22 @@ def _capability_checks(dev: torch.device, fused_auto: bool, lowrank_kernel: bool
         lowrank_kernel_check(dev)
 
 
-def _per_draw_factory(kernel, generator: torch.Generator, seeds, pooled: bool):
+def _per_draw_factory(kernel, generator: torch.Generator, seeds, pooled: bool,
+                      streams: Optional[ChainStreams] = None):
     """Chunk runners of the per-draw engine, with the fused factory's
     contract: ``run_chunk(state, iter0) -> (state, (trace, info) | None,
     ndiv)``; a pooled metric is pooled after every tuning draw (the
     low-rank one with the draw's positions, reference ``sampling.py:
-    575-580``)."""
+    575-580``). With a seed list's ``streams`` each draw takes its own
+    :class:`~littlemcmc_torch.streams.DrawStream` in place of
+    ``generator``."""
 
     def factory(chunk: int, tuning: bool, collect: bool):
         def run_chunk(state, iter0: int):
             qs, infos, ndiv = [], [], 0
             for i in range(iter0, iter0 + chunk):
-                state, info = kernel(state, tuning, generator, seeds[i])
+                gen_i = generator if streams is None else streams.draw(i)
+                state, info = kernel(state, tuning, gen_i, seeds[i])
                 if pooled and tuning:
                     state = dataclasses.replace(
                         state, potential=cross_chain_potential_pool(state.potential, True,
@@ -414,42 +439,119 @@ def _per_draw_factory(kernel, generator: torch.Generator, seeds, pooled: bool):
     return factory
 
 
-def _run_chunked(factory, state, tune: int, draws: int, collect_tune: bool):
-    """Run ``tune + draws`` transitions chunk by chunk (the core of the
+def _stderr_is_tty() -> bool:
+    try:
+        return sys.stderr.isatty()
+    except Exception:  # noqa: BLE001 - a closed or replaced stderr
+        return False
+
+
+def _emit_progress(chains: int, done: int, total: int, tuning: bool, ndiv: int, t0: float,
+                   final: bool = False) -> None:
+    """One progress update: an in-place bar on a TTY, else a log line
+    (reference ``sampling.py:509-533``)."""
+    rate = chains * done / max(time.perf_counter() - t0, 1e-9)
+    phase = "tuning" if tuning else "sampling"
+    if _stderr_is_tty():
+        width = 28
+        filled = int(width * done / max(total, 1))
+        bar = "\u2588" * filled + "\u2591" * (width - filled)
+        sys.stderr.write(f"\r|{bar}| {done}/{total} [{phase}] "
+                         f"{ndiv} divergences, {rate:,.0f} transitions/s  ")
+        if final:
+            sys.stderr.write("\n")
+        sys.stderr.flush()
+    else:
+        _log.info("  %d/%d iterations (%s), %d divergences, %.0f transitions/s",
+                  done, total, phase, ndiv, rate)
+
+
+def _base_chunk(progress_every: Optional[int], checkpoint_every: Optional[int]) -> int:
+    """Draws per chunk: ``_AUTO_CHUNK``, or the gcd of the progress and
+    checkpoint intervals given, or the smaller one where that gcd is
+    below 25 and the larger fires late (reference ``sampling.py:733-748``)."""
+    given = [int(k) for k in (progress_every, checkpoint_every) if k]
+    if not given:
+        return _AUTO_CHUNK
+    if len(given) == 1:
+        return given[0]
+    base = math.gcd(*given)
+    return base if base >= 25 else min(given)
+
+
+def _run_chunked(factory, state, tune: int, draws: int, collect_tune: bool, *,
+                 done: int = 0, ndiv=0, chunk: int = _AUTO_CHUNK, aligned: bool = False,
+                 progress_every: Optional[int] = None, progress: bool = False,
+                 checkpoint_every: Optional[int] = None, save=None, callback=None,
+                 chains: int = 0):
+    """Run transitions ``done`` to ``tune + draws`` chunk by chunk (the
     reference's ``_run_chunked``, ``sampling.py:686-876``).
 
-    Chunks are ``_AUTO_CHUNK`` draws; tune chunks follow the factory's
+    Chunks are ``chunk`` draws (``aligned``: chunks end at the multiples
+    of ``chunk`` and at the end of tuning, so a checkpoint every ``chunk``
+    draws lands on those multiples); tune chunks follow the factory's
     ``tune_chunk_schedule`` where it has one, since a boundary-cadence
-    metric refreshes only between chunks. Returns the final state, the
-    collected ``(trace, info)`` chunks and the divergence count (a device
-    tensor).
+    metric refreshes only between chunks. ``ndiv`` (the divergences so far)
+    stays on the device; the host reads it only where a progress line
+    (``progress_every`` with ``progress``), a checkpoint (``save(state,
+    done, n_divergences)`` every ``checkpoint_every``) or ``callback(
+    iteration, tuning, states, chunk, n_divergences)``, called after every
+    chunk, needs it. A ``KeyboardInterrupt`` returns the chunks completed
+    so far and, with ``save``, checkpoints the last completed chunk's state.
+    Returns the state, the collected ``(trace, info)`` chunks and the
+    divergence count.
     """
     total = tune + draws
-    done, outs, ndiv = 0, [], 0
+    outs = []
+    t0 = time.perf_counter()
+    next_progress = done + progress_every if progress_every else None
+    next_checkpoint = done + checkpoint_every if (save and checkpoint_every) else None
     sched = getattr(factory, "tune_chunk_schedule", None)
-    while done < total:
-        tuning = done < tune
-        step_len = _AUTO_CHUNK
-        if tuning and sched is not None:
-            step_len = min(step_len, sched(done))
-        stop = min(tune if tuning else total, done + step_len)
-        collect = collect_tune if tuning else True
-        state, out, nd = factory(stop - done, tuning, collect)(state, done)
-        if collect:
-            outs.append(out)
-        ndiv = ndiv + nd
-        done = stop
+    try:
+        while done < total:
+            tuning = done < tune
+            step_len = chunk - done % chunk if aligned else chunk
+            if tuning and sched is not None:
+                step_len = min(step_len, sched(done))
+            stop = min(tune if tuning else total, done + step_len)
+            collect = collect_tune if tuning else True
+            state, out, nd = factory(stop - done, tuning, collect)(state, done)
+            if collect:
+                outs.append(out)
+            ndiv = ndiv + nd
+            done = stop
+
+            due_progress = next_progress is not None and done >= next_progress
+            due_checkpoint = next_checkpoint is not None and done >= next_checkpoint
+            n_div = None
+            if callback is not None or due_checkpoint or (due_progress and progress):
+                n_div = int(ndiv)
+            if callback is not None:
+                callback(iteration=done, tuning=tuning, states=state, chunk=out,
+                         n_divergences=n_div)
+            if due_progress:
+                if progress:
+                    _emit_progress(chains, done, total, done <= tune, n_div, t0,
+                                   final=done >= total)
+                next_progress = done + progress_every
+            if due_checkpoint:
+                save(state, done, n_div)
+                next_checkpoint = done + checkpoint_every
+    except KeyboardInterrupt:
+        _log.warning("Sampling interrupted at iteration %d/%d: returning the %d chunk(s) "
+                     "collected so far.", done, total, len(outs))
+        if save:
+            save(state, done, int(ndiv))
+            _log.warning("Saved an interrupt checkpoint at iteration %d.", done)
     return state, outs, ndiv
 
 
 # The JAX ``sample()``'s arguments that the port names but does not run
-# yet: each one's default there (``littlemcmc_tpu/sampling.py:897-906``)
+# yet: each one's default there (``littlemcmc_tpu/sampling.py:897-899``)
 # and the ROADMAP Queue 1 item that ports it. Any other value raises.
 _UNPORTED_ARGUMENTS = {
     "mesh": (None, 14), "chain_axis": ("chains", 14), "model_axis": (None, 14),
     "dtype": (torch.float32, 17),
-    "progress_every": (None, 13), "checkpoint_dir": (None, 13), "checkpoint_every": (None, 13),
-    "resume": (False, 13),
 }
 
 
@@ -464,7 +566,7 @@ def sample(
     cores: Optional[int] = None,
     start=None,
     progressbar: Union[bool, str] = True,
-    random_seed: Optional[Union[int, List[int]]] = None,
+    random_seed: Optional[Union[int, List[int], np.ndarray]] = None,
     discard_tuned_samples: bool = True,
     chain_idx: int = 0,
     callback=None,
@@ -499,11 +601,41 @@ def sample(
     ``"cuda"`` and raises when no CUDA device exists; ``device="cpu"`` runs
     the kernels' plain PyTorch versions. ``cores``, ``chain_idx``,
     ``mp_ctx`` and ``pickle_backend`` are accepted and ignored, as in the
-    JAX package. ``mesh``, ``chain_axis``, ``model_axis``, ``dtype``,
-    ``progress_every``, ``checkpoint_dir``, ``checkpoint_every`` and
-    ``resume`` take the JAX package's defaults (``dtype`` float32); any
-    other value raises ``NotImplementedError`` naming the ROADMAP item that
-    ports it.
+    JAX package. ``mesh``, ``chain_axis``, ``model_axis`` and ``dtype``
+    take the JAX package's defaults (``dtype`` float32); any other value
+    raises ``NotImplementedError`` naming the ROADMAP item that ports it.
+
+    - ``random_seed``: an int (or a 0-d array, or None for a new one) seeds
+      the run; a sequence with one seed per chain gives each chain its own
+      counter stream (:mod:`littlemcmc_torch.streams`): on the tensor-op
+      paths (the NUTS tree, HMC's tensor trajectory) a chain's draws then
+      depend on its own seed alone, whatever its slot or neighbours; the
+      kernels' per-draw words, the starts' order and a ``step_rand`` hook's
+      generator come from chain 0's seed, as the JAX kernels' words do
+      (``littlemcmc_tpu/nuts.py:800-802``).
+    - ``progress_every``: chunks of that many draws, a progress line after
+      each (with ``progressbar``) with the divergences so far. Without it
+      (and without the arguments below) the chunks are 250 draws and the
+      host reads nothing between them.
+    - ``callback``: ``callback(iteration, tuning, states, chunk,
+      n_divergences)`` after every chunk (the reference's per-draw hook,
+      ``sampling.py:307-308``, amortized over the chunk; ``progress_every=1``
+      for the per-draw contract). A ``KeyboardInterrupt`` between chunks
+      (from the callback or the user) returns the chunks completed so far.
+    - ``checkpoint_dir``, ``checkpoint_every``, ``resume``: a checkpoint
+      (:mod:`littlemcmc_torch.utils.checkpoint`) every ``checkpoint_every``
+      draws and at an interrupt; ``resume=True`` continues from the latest
+      one bit-identically and returns only the draws after it (with a
+      warning where it covered part of the requested draws). The draws are
+      keyed on the seed and the global iteration, so ``progress_every`` and
+      ``checkpoint_every`` do not change them on the per-draw engines or on
+      the fused ones with a static or per-chain metric. A pooled metric on
+      the fused engines refreshes at every chunk boundary (the diagonal
+      one at each tune chunk's, the dense and low-rank ones at
+      ``pooled_tune_schedule``'s and every boundary inside it, as the JAX
+      package's ``sampling.py:763-772``), so there a chunking other than
+      the default's changes the draws; a resumed run continues the chunking
+      it was saved under only where its intervals are the same.
 
     - ``cross_chain_adapt``: pool the metric's Welford statistics across
       all chains. ``None`` pools ``adapt_full`` and ``adapt_lowrank`` at
@@ -535,22 +667,21 @@ def sample(
       kernels or their plain versions, ``tensor`` for the NUTS tree or
       HMC's tensor-op trajectory), ``chain_block``, ``chunk`` (draws per chunk),
       ``kernel_launches`` (launches of each of the step method's kernels in
-      this call, by kernel name) and ``sample_seconds`` (the chunk loop;
-      CUDA events on the card).
+      this call, by kernel name), ``sample_seconds`` (the chunk loop;
+      CUDA events on the card) and ``transfer_seconds`` (the trace's and
+      stats' fetch to the host).
 
     Returns ``(trace, stats)`` (plus the final ``ChainState`` with
     ``return_final_state``).
     """
     del cores, chain_idx, mp_ctx, pickle_backend
-    if callback is not None:
-        raise NotImplementedError("`callback` is ROADMAP Queue 1 item 13.")
-    given = dict(mesh=mesh, chain_axis=chain_axis, model_axis=model_axis, dtype=dtype,
-                 progress_every=progress_every, checkpoint_dir=checkpoint_dir,
-                 checkpoint_every=checkpoint_every, resume=resume)
+    given = dict(mesh=mesh, chain_axis=chain_axis, model_axis=model_axis, dtype=dtype)
     for name, (default, item) in _UNPORTED_ARGUMENTS.items():
         value = given[name]
         if not (value is default or (isinstance(default, str) and value == default)):
             raise NotImplementedError(f"`{name}` is ROADMAP Queue 1 item {item}.")
+    if resume and not checkpoint_dir:
+        raise ValueError("resume=True requires checkpoint_dir")
     dev = resolve_device(device)
     chains = 4 if chains is None else int(chains)
     if model_ndim is None:
@@ -591,11 +722,14 @@ def sample(
                          logp_dlogp_func is None and step.logp_dlogp_func is None,
                          model_ndim, dev)
 
+    chain_seeds = _chain_seeds(random_seed, chains)
     seed = _as_seed(random_seed)
     # one generator on the device for starts and momenta, one on the host
-    # for the kernels' counter-stream seeds
+    # for the kernels' counter-stream seeds; a seed list's chains draw from
+    # their own streams instead
     gen = torch.Generator(device=dev).manual_seed(seed)
     host_gen = torch.Generator().manual_seed(seed + 1)
+    streams = None if chain_seeds is None else ChainStreams(chain_seeds, dev, gen)
 
     if start is not None:
         start = torch.as_tensor(start, dtype=torch.float32, device=dev)
@@ -607,7 +741,9 @@ def sample(
         else:
             starts = start
     elif init_l.startswith("jitter"):
-        starts = 2.0 * torch.rand((chains, model_ndim), generator=gen, device=dev) - 1.0
+        u = (torch.rand((chains, model_ndim), generator=gen, device=dev) if streams is None
+             else streams.draw(-1).uniform((model_ndim,)))
+        starts = 2.0 * u - 1.0
     else:
         starts = torch.zeros((chains, model_ndim), device=dev)
 
@@ -630,6 +766,11 @@ def sample(
     # sampling.py:660-683)
     fusable = (spec is not None and kernel_metric and _usable_chain_count(chains)
                and (not diag or not pooled or isinstance(potential, QuadPotentialDiagAdapt)))
+    if fuse_draws is True and config.step_rand is not None:
+        raise ValueError("fuse_draws=True but the step has a step_rand hook: the fused "
+                         "kernels draw no host-side step sizes (reference "
+                         "sampling.py:1241, 1338); pass fuse_draws=None or False.")
+    fusable = fusable and config.step_rand is None
     if fuse_draws is True and not fusable:
         raise ValueError(
             "fuse_draws=True but the fused kernels do not run this configuration: "
@@ -689,7 +830,33 @@ def sample(
                 trajectory_kind = "tensor"
         seeds = torch.randint(-2 ** 31, 2 ** 31, (tune + draws, 2),
                               generator=host_gen, dtype=torch.int64).tolist()
-        factory = _per_draw_factory(kernel, gen, seeds, pooled)
+        factory = _per_draw_factory(kernel, gen, seeds, pooled, streams)
+
+    done0, ndiv0 = 0, 0
+    if resume:
+        from .utils.checkpoint import latest_checkpoint, restore_checkpoint
+
+        path = latest_checkpoint(checkpoint_dir)
+        if path is not None:
+            state, meta = restore_checkpoint(path, state)
+            done0 = int(meta.get("step", 0))
+            ndiv0 = torch.tensor(int(meta.get("n_divergences", 0)), dtype=torch.int32,
+                                 device=dev)
+            gen.set_state(meta["extra"]["generator"])
+            if fused:
+                factory = build(config, spec, potential, pooled,
+                                [int(w) for w in meta["extra"]["seed_words"]])
+            _log.info("Resumed from %s at iteration %d/%d.", path, done0, tune + draws)
+    save = None
+    if checkpoint_dir:
+        from .utils.checkpoint import save_checkpoint
+
+        def save(st, done, n_div):
+            save_checkpoint(checkpoint_dir, st, done,
+                            meta={"n_divergences": n_div, "tune": tune, "draws": draws},
+                            extra={"generator": gen.get_state(),
+                                   "seed_words": words if fused else None})
+    chunk = _base_chunk(progress_every, checkpoint_every if checkpoint_dir else None)
     if progressbar:
         _log.info("Sampling %d chains (%d tune + %d draws) on %s, engine %s...",
                   chains, tune, draws, dev, engine)
@@ -699,8 +866,11 @@ def sample(
         ev0, ev1 = (torch.cuda.Event(enable_timing=True) for _ in range(2))
         ev0.record()
     t0 = time.perf_counter()
-    state, outs, ndiv = _run_chunked(factory, state, tune, draws,
-                                        collect_tune=not discard_tuned_samples)
+    state, outs, ndiv = _run_chunked(
+        factory, state, tune, draws, collect_tune=not discard_tuned_samples, done=done0,
+        ndiv=ndiv0, chunk=chunk, aligned=chunk != _AUTO_CHUNK or done0 > 0,
+        progress_every=progress_every, progress=bool(progressbar),
+        checkpoint_every=checkpoint_every, save=save, callback=callback, chains=chains)
     if on_card:
         ev1.record()
         ev1.synchronize()
@@ -709,6 +879,7 @@ def sample(
         elapsed = time.perf_counter() - t0
 
     dtypes = step.stats_dtypes[0]
+    t_xfer = time.perf_counter()
     if outs:
         trace = torch.cat([o[0] for o in outs]).transpose(0, 1).cpu().numpy()
         stats = {name: torch.cat([getattr(o[1], name) for o in outs]).transpose(0, 1)
@@ -716,16 +887,24 @@ def sample(
     else:
         trace = np.zeros((chains, 0, model_ndim), np.float32)
         stats = {name: np.zeros((chains, 0), dt) for name, dt in dtypes.items()}
+    transfer = time.perf_counter() - t_xfer
+    expected = draws + (0 if discard_tuned_samples else tune)
+    if resume and trace.shape[1] < expected:
+        _log.warning("Resume: the restored checkpoint already covered %d of the %d requested "
+                     "draws; only the remaining %d were sampled and returned. Pass a larger "
+                     "`draws` (or a fresh checkpoint_dir) for a full trace.",
+                     expected - trace.shape[1], expected, trace.shape[1])
 
     if perf_report is not None:
         perf_report.update(
             engine=engine,
             trajectory=trajectory_kind,
             chain_block=chain_block,
-            chunk=_AUTO_CHUNK,
+            chunk=chunk,
             kernel_launches={name: op.launches - launches0[name]
                              for name, op in counters.items()},
             sample_seconds=elapsed,
+            transfer_seconds=transfer,
         )
     if progressbar:
         _log.info("Done in %.2fs (%.0f transitions/s, %d divergences).", elapsed,

@@ -16,7 +16,7 @@ from typing import Dict, Optional
 
 import numpy as np
 
-__all__ = ["split_rhat", "ess_bulk", "bfmi", "summary"]
+__all__ = ["split_rhat", "ess_bulk", "bfmi", "to_arviz", "summary"]
 
 
 def _split_chains(x: np.ndarray) -> np.ndarray:
@@ -177,6 +177,22 @@ def bfmi(energy: np.ndarray) -> np.ndarray:
     diff_var = np.var(np.diff(energy, axis=1), axis=1)
     energy_var = np.var(energy, axis=1)
     return diff_var / energy_var
+
+
+def to_arviz(trace: np.ndarray, stats: Optional[Dict[str, np.ndarray]] = None,
+             var_name: str = "x"):
+    """A run as an ``arviz.InferenceData`` (``arviz`` is imported here, at
+    the call; the JAX package's ``to_arviz``, the reference cookbook's
+    bridge, ``docs/tutorials/framework_cookbook.rst:200-206``)."""
+    import arviz as az
+
+    sample_stats = None
+    if stats is not None:
+        rename = {"mean_tree_accept": "acceptance_rate", "depth": "tree_depth",
+                  "diverging": "diverging", "energy": "energy",
+                  "step_size": "step_size", "tree_size": "n_steps"}
+        sample_stats = {rename.get(k, k): np.asarray(v) for k, v in stats.items()}
+    return az.from_dict(posterior={var_name: np.asarray(trace)}, sample_stats=sample_stats)
 
 
 def summary(trace: np.ndarray, stats: Optional[Dict[str, np.ndarray]] = None) -> Dict[str, np.ndarray]:

@@ -2,7 +2,7 @@
 """Time whole ``sample()`` paths of one checkout of littlemcmc_torch on the
 card.
 
-    python3 scripts/torch_path_ab.py [ROOT] [--paths=logistic,adapt_full,lowrank,eight_schools,hmc]
+    python3 scripts/torch_path_ab.py [ROOT] [--paths=logistic,adapt_full,lowrank,eight_schools,hmc,main]
 
 Runs, with the checkout at ROOT (default: the one this script is in),
 from seed 42 at 1024 chains (default: every group):
@@ -34,7 +34,10 @@ from seed 42 at 1024 chains (default: every group):
   HMC trajectory kernel) and HMC ``adapt_full`` (``fused_dense_pooled``
   on the fused HMC kernel), each with its min bulk ESS over the 100
   dimensions and min-bulk-ESS/s, and each of ``adapt_full``'s fused
-  launches' device ms from a profiled repeat.
+  launches' device ms from a profiled repeat;
+- ``main``: the NUTS main path's default call (the 100-d correlated
+  Gaussian, ``per_draw_diag``) three times, each call's
+  ``sample_seconds`` and the traces' digests.
 
 Prints one JSON line: each path's ``sample_seconds``, launches by kernel
 (the batched logistic kernel's too), mean tree size, the fused launches'
@@ -232,8 +235,36 @@ def _hmc_paths(out: dict) -> None:
     out["hmc_adapt_full"].update({k: line.get(k) for k in _BREAKDOWN_KEYS})
 
 
+def _main_paths(out: dict) -> None:
+    """The NUTS main path as a user calls it, with no argument past the
+    defaults: the 100-d correlated Gaussian (1024 chains, 500 + 1000, seed
+    42, ``per_draw_diag`` on the trajectory kernel), three times in a row,
+    with each call's ``sample_seconds`` and the trace's digest (equal
+    digests: the same bits)."""
+    import hashlib
+
+    from littlemcmc_torch import sample
+    from littlemcmc_torch.models import CorrelatedGaussian
+
+    model = CorrelatedGaussian(100)
+    secs, digests = [], set()
+    for _ in range(3):
+        report = {}
+        trace, stats = sample(model.logp_grad, model_ndim=100, chains=1024, tune=500,
+                              draws=1000, random_seed=42, perf_report=report,
+                              progressbar=False, compute_convergence_checks=False)
+        secs.append(report["sample_seconds"])
+        digests.add(hashlib.sha256(trace.tobytes()).hexdigest()[:16])
+    out["main"] = {"engine": report["engine"], "sample_seconds": secs,
+                   "kernel_launches": report.get("kernel_launches"),
+                   "transfer_seconds": report.get("transfer_seconds"),
+                   "mean_tree_size": float(stats["tree_size"].mean()),
+                   "digests": sorted(digests)}
+
+
 PATHS = {"logistic": _logistic_paths, "adapt_full": _adapt_full_paths,
-         "lowrank": _lowrank_paths, "eight_schools": _eight_schools_paths, "hmc": _hmc_paths}
+         "lowrank": _lowrank_paths, "eight_schools": _eight_schools_paths, "hmc": _hmc_paths,
+         "main": _main_paths}
 
 
 def main() -> int:

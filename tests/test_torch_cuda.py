@@ -1497,3 +1497,92 @@ def test_corrupted_fused_probe_raises(hopper, monkeypatch):
     with pytest.raises(RuntimeError, match="grid_scratch disagrees"):
         sample(model.logp_grad, model_ndim=10, chains=64, tune=10, draws=10, random_seed=1,
                progressbar=False)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("fuse_draws", [None, True], ids=["per_draw", "fused"])
+def test_checkpoint_resume_on_the_card(hopper, fuse_draws, tmp_path):
+    """An interrupt between chunks and a resume give an uninterrupted
+    run's bits on the card: the per-draw kernel engine (the device
+    generator's state in the checkpoint) and the fused one (its seed
+    words)."""
+    model = tm.CorrelatedGaussian(20)
+    kw = dict(model_ndim=20, chains=256, tune=40, draws=60, random_seed=5,
+              fuse_draws=fuse_draws, progressbar=False, compute_convergence_checks=False)
+
+    def interrupt(iteration, tuning, states, chunk, n_divergences):
+        if iteration >= 60:
+            raise KeyboardInterrupt
+
+    ckpt = str(tmp_path / "ckpt")
+    part, _ = sample(model.logp_grad, checkpoint_dir=ckpt, checkpoint_every=20,
+                     callback=interrupt, **kw)
+    rest, _ = sample(model.logp_grad, checkpoint_dir=ckpt, resume=True, **kw)
+    full, _ = sample(model.logp_grad, **kw)
+    assert part.shape[1] == 20 and rest.shape[1] == 40
+    np.testing.assert_array_equal(np.concatenate([part, rest], axis=1), full)
+
+
+@pytest.mark.cuda
+def test_device_trace_holds_one_record_a_launch(hopper, tmp_path):
+    from littlemcmc_torch.utils.profiling import device_trace
+
+    model = tm.CorrelatedGaussian(20)
+    rep = {}
+    with device_trace(str(tmp_path)) as tr:
+        sample(model.logp_grad, model_ndim=20, chains=256, tune=20, draws=20, random_seed=1,
+               perf_report=rep, progressbar=False, compute_convergence_checks=False)
+    assert rep["kernel_launches"]["nuts_trajectory"] == 40
+    assert tr.launches == {"nuts_trajectory": 40}
+    assert tr.kernel_records("nuts_trajectory") == 40
+
+
+@pytest.mark.cuda
+def test_seed_list_and_step_rand_on_the_card(hopper):
+    """A seed list runs the kernel engine reproducibly; an identity
+    ``step_rand`` hook keeps the bits and elects the per-draw engine."""
+    model = tm.CorrelatedGaussian(20)
+    kw = dict(model_ndim=20, chains=64, tune=20, draws=20, progressbar=False,
+              compute_convergence_checks=False)
+    a, _ = sample(model.logp_grad, random_seed=list(range(64)), **kw)
+    b, _ = sample(model.logp_grad, random_seed=list(range(64)), **kw)
+    np.testing.assert_array_equal(a, b)
+    c, _ = sample(model.logp_grad, random_seed=3, **kw)
+    rep = {}
+    d, _ = sample(model.logp_grad, random_seed=3, perf_report=rep,
+                  step=NUTS(model_ndim=20, step_rand=lambda s, g: s), **kw)
+    np.testing.assert_array_equal(c, d)
+    assert rep["engine"] == "per_draw_diag" and rep["trajectory"] == "cuda"
+
+
+@pytest.mark.cuda
+def test_stochastic_volatility_on_the_card(hopper):
+    """``StochasticVolatility(T=64)`` on its generated body with the JAX
+    package's gates (``tests/test_models.py:187-207``)."""
+    from littlemcmc_torch.utils.diagnostics import split_rhat
+
+    m = tm.StochasticVolatility(T=64)
+    rep = {}
+    trace, stats = sample(m.logp_grad, model_ndim=m.ndim, tune=600, draws=600, chains=8,
+                          random_seed=4, target_accept=0.95, progressbar=False,
+                          perf_report=rep)
+    assert rep["trajectory"] == "cuda"
+    flat = trace.reshape(-1, m.ndim)
+    phi = np.tanh(flat[:, 0])
+    assert abs(phi.mean() - m.true_phi) < 3 * phi.std() + 0.02
+    assert max(float(split_rhat(trace[:, :, i])) for i in range(3)) < 1.06
+    assert float(np.mean(stats["diverging"])) < 0.02
+    assert np.corrcoef(flat[:, 3:].mean(axis=0), m.h_true)[0, 1] > 0.85
+
+
+@pytest.mark.cuda
+def test_linear_regression_on_the_card(hopper):
+    m = tm.LinearRegression()
+    rep = {}
+    trace, _ = sample(m.logp_grad, model_ndim=3, chains=256, tune=300, draws=300,
+                      random_seed=4, progressbar=False, perf_report=rep)
+    assert rep["trajectory"] == "cuda"
+    exact = m.posterior_moments()
+    flat = trace.reshape(-1, 3)
+    assert np.all(np.abs(flat.mean(0) - exact["mean"]) < 0.1 * exact["sd"])
+    np.testing.assert_allclose(flat.std(0), exact["sd"], rtol=0.1)
