@@ -190,6 +190,21 @@ them, whole chain blocks, every fourth chain of the inputs as made:
    path's correlation), and ``StochasticVolatility(T=500)`` declining to
    the tree for 10 + 10 draws (``SV_BIG_CHAINS``, ``SV_BIG_DEPTH``),
    ungated;
+   3z. the main path with ``mesh=chain_mesh()``, a mesh of one rank: the
+   same trace digest as ``mesh=None`` (phase 3), 1500 launches of row 1,
+   its ``sample_seconds`` beside phase 3's;
+   3z2. chains sharded over ``MESH_RANKS`` ranks on the one card, one
+   process each (``chip_smoke.py --mesh-rank``), joined by Gloo: the main
+   path at full width (512 chains a rank on row 1) whose gathered trace
+   has phase 3's digest on every rank, and ``adapt_full`` pooled over the
+   ranks (row 2 dense, 12 launches a rank) under the main path's gates,
+   with 3b's digest and summed foreground Welford weight; each rank's
+   ``sample_seconds``, seconds in collectives and launches of rows 1 and 2;
+   3z3. ``dtype=torch.float64`` on the 100-d Gaussian at 1024 chains,
+   ``F64_TUNE`` + ``F64_DRAWS``: the tensor-op tree (no launch of rows
+   1-6 or of the probes) under the main path's gates, and ms a draw of the
+   float64 tree beside the float32 tree's, both from the main path's
+   final state;
 4. the kernel's time per launch at the main path's final state beside its
    plain version's time and its bound, where 50 more draws from that
    state spend their device time (``torch.profiler``); each kernel's
@@ -282,9 +297,10 @@ LG_TREE_TUNE, LG_TREE_DRAWS = 200, 150
 # the tree with a per-chain dense metric and the quadform kernel (T2),
 # cut to 250 + 50 for the script's time (500 + 250 took 190-300 s,
 # 300 + 150 96-198 s, 250 + 100 117-160 s); its gates hold no R-hat, and
-# 256 x 50 draws keep its bulk ESS far above 1000. Its trees to depth 7:
-# the tree runs a leaf for all 256 chains while any builds, 243 leaves a
-# draw at depth 10 (the deepest 9, the mean 5.8 in 164 s)
+# 256 x 50 draws keep its bulk ESS far above 1000. Its trees to depth 7
+# (at depth 6 its variance ratio and bulk ESS gates failed): the tree
+# runs a leaf for all 256 chains while any builds, 243 leaves a draw at
+# depth 10 (the deepest 9, the mean 5.8 in 164 s)
 T2_CHAINS, T2_TUNE, T2_DRAWS, T2_DEPTH = 256, 250, 50, 7
 # the logistic posterior's reference moments, from a long run of the JAX
 # package on a CPU (tests/test_torch_logistic.py writes them)
@@ -307,14 +323,25 @@ TR_TUNE, TR_DRAWS = 50, 50
 # volatility at T = 128 (131 parameters) at the main path's chains and
 # draws; T = 500 (scripts/bench_suite.py:266-274, 503 parameters) declines
 # to the tree and runs 10 + 10 draws there, ungated, at the suite's own
-# quarter scale of its chains (1024 // 4) and trees to depth 8 (the early
-# tuning cap): at 1024 chains and depth 10 its 20 draws took 50.7 s (2.5 s
-# a draw, 527 leaves), at 256 chains 43.6 s (558 leaves), of the script's
+# quarter scale of its chains (1024 // 4) and trees to depth 7 (8, the
+# early tuning cap, until the phases 3z-3z3 needed the room): at 1024
+# chains and depth 10 its 20 draws took 50.7 s (2.5 s a draw, 527 leaves),
+# at 256 chains 43.6 s (558 leaves), at depth 8 20-22 s, of the script's
 # time. The stochastic-volatility body's plain version runs on a
 # sixteenth of the chains (35.4 s on a quarter)
 SV_TARGET, SV_BIG_T, SV_BIG_TUNE, SV_BIG_DRAWS, SV_BIG_CHAINS = 0.95, 500, 10, 10, 256
-SV_BIG_DEPTH = 8
+SV_BIG_DEPTH = 7
 SV_PLAIN_SHARE = 16
+# chains sharded over ranks (3z2): two ranks on the one card, one process
+# each, joined by Gloo (NCCL refuses two ranks on one device); each rank
+# waits at most MESH_TIMEOUT seconds for the other in a collective
+MESH_RANKS, MESH_TIMEOUT = 2, 600
+# float64 (3z3): the tensor-op tree at the main path's chains and width,
+# cut to 100 + 30 to fit about a minute: the tree runs a leaf for all
+# 1024 chains while any builds (80-150 leaves a chain-draw, 3-5 ms a
+# leaf), and 200 + 200 took 142.6 s, 100 + 50 67.8 s; ms a draw of the
+# float64 and float32 trees over 5 draws from the main path's final state
+F64_TUNE, F64_DRAWS, F64_TIMED_DRAWS = 100, 30, 5
 DEVICE = "cuda"  # where the checks' inputs are made: the card
 FLAGS = ("depth", "n_leaves", "diverging", "turning")
 HMC_FLAGS = ("n_steps", "accepted", "diverging")
@@ -2591,7 +2618,8 @@ def _funnel_auto_cells(smi, reset_counts, counts, t_start) -> dict:
     return out
 
 
-def _tree_draw_ms(model, state, gen, draws: int) -> dict:
+def _tree_draw_ms(model, state, gen, draws: int,
+                  label: str = "tree_timing_hierarchical") -> dict:
     """ms a draw of NUTS on the tensor-op tree, the model's own batched
     ``(logp, grad)`` at every leaf, over ``draws`` draws from ``state`` on
     CUDA events (no profiler: the tree issues about 12,000 device kernels a
@@ -2609,7 +2637,7 @@ def _tree_draw_ms(model, state, gen, draws: int) -> dict:
         state, _ = kernel(state, False, gen, (100 + i, 7))
     end.record()
     end.synchronize()
-    line = {"phase": "tree_timing_hierarchical", "draws": draws,
+    line = {"phase": label, "draws": draws,
             "ms_per_draw": start.elapsed_time(end) / draws}
     print(json.dumps(line), flush=True)
     return line
@@ -2995,6 +3023,207 @@ def _surface_rows(cells, logs, gen, t_start) -> list:
     return rows
 
 
+def _digest(trace) -> str:
+    """The first 16 hex digits of the trace's SHA-256."""
+    import hashlib
+
+    return hashlib.sha256(trace.tobytes()).hexdigest()[:16]
+
+
+def _mesh_rank(rank: int, port: int, out_dir: str) -> int:
+    """One rank of phase 3z2 (``python3 chip_smoke.py --mesh-rank RANK PORT
+    DIR``, started by :func:`_mesh_cells`): joins a Gloo group of
+    ``MESH_RANKS`` over localhost, runs the main path and ``adapt_full`` at
+    full width with ``mesh=global_chain_mesh()`` on the one card, and
+    writes what it measured to ``DIR/rankRANK.json``; rank 0 holds
+    ``adapt_full`` to the main path's gates."""
+    sys.path.insert(0, str(ROOT))
+    import torch
+    from littlemcmc_torch import sample
+    from littlemcmc_torch.models import CorrelatedGaussian
+    from littlemcmc_torch.ops.fused_nuts import fused_nuts
+    from littlemcmc_torch.ops.nuts_trajectory import trajectory
+    from littlemcmc_torch.parallel import global_chain_mesh, initialize_distributed
+
+    if not torch.cuda.is_available():
+        return 2
+    torch.backends.cuda.matmul.allow_tf32 = False
+    backend = initialize_distributed(f"127.0.0.1:{port}", MESH_RANKS, rank, backend="gloo",
+                                     timeout=MESH_TIMEOUT)
+    mesh = global_chain_mesh()
+    smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
+                          "--format=csv,noheader"], capture_output=True, text=True,
+                         check=True, timeout=60).stdout.strip()
+    cg = CorrelatedGaussian(N)
+    res = {"rank": rank, "backend": backend, "card": smi}
+    for label, kw in (("main_path", {}), ("adapt_full", {"init": "adapt_full"})):
+        trajectory.launches = fused_nuts.launches = 0
+        rep = {}
+        trace, stats, final = sample(cg.logp_grad, model_ndim=N, chains=CHAINS, tune=TUNE,
+                                     draws=DRAWS, random_seed=42, mesh=mesh, perf_report=rep,
+                                     return_final_state=True, progressbar=False, **kw)
+        res[label] = {"digest": _digest(trace), "engine": rep["engine"],
+                      "sample_seconds": rep["sample_seconds"],
+                      "collective_seconds": rep["collective_seconds"],
+                      "transfer_seconds": rep["transfer_seconds"], "ranks": rep["ranks"],
+                      "launches": {"nuts_trajectory": trajectory.launches,
+                                   "fused_nuts": fused_nuts.launches},
+                      "kernel_launches": rep["kernel_launches"]}
+        if label == "adapt_full":
+            res[label]["fg_weight"] = float(final.potential.fg.n_samples.double().sum())
+            if rank == 0:
+                _quality(cg, trace, stats, rep["sample_seconds"], rep, "mesh2_adapt_full",
+                         smi, {"rank": rank, "ranks": rep["ranks"],
+                               "backend": rep["backend"]})
+    with open(Path(out_dir) / f"rank{rank}.json", "w") as f:
+        json.dump(res, f)
+    torch.distributed.barrier()
+    torch.distributed.destroy_process_group()
+    return 0
+
+
+def _mesh_cells(smi, cg, main_trace, main_report, trace_f, state_f, reset_counts, counts,
+                t_start) -> dict:
+    """Phases 3z and 3z2: the main path under ``mesh=chain_mesh()`` (one
+    rank) against ``mesh=None``'s digest, then ``MESH_RANKS`` ranks on the
+    one card (Gloo, one process each: :func:`_mesh_rank`): the main path's
+    gathered trace against the one-process digest, ``adapt_full`` pooled
+    over the ranks against 3b's digest and summed foreground Welford
+    weight. Raises on any difference, a failed rank or a rank past
+    ``MESH_TIMEOUT``."""
+    import socket
+    import tempfile
+
+    from littlemcmc_torch import sample
+    from littlemcmc_torch.parallel import chain_mesh
+
+    # 3z. a mesh of one rank
+    reset_counts()
+    rep = {}
+    trace, _ = sample(cg.logp_grad, model_ndim=N, chains=CHAINS, tune=TUNE, draws=DRAWS,
+                      random_seed=42, mesh=chain_mesh(), perf_report=rep, progressbar=False,
+                      compute_convergence_checks=False)
+    want_digest = _digest(main_trace)
+    one = {"digest": _digest(trace), "sample_seconds": rep["sample_seconds"],
+           "launches": counts()}
+    _line(phase="mesh1_main_path", digest=one["digest"], main_path_digest=want_digest,
+          sample_seconds=f"{rep['sample_seconds']:.4f}",
+          main_path_sample_seconds=f"{main_report['sample_seconds']:.4f}",
+          ratio=f"{rep['sample_seconds'] / main_report['sample_seconds']:.4f}",
+          ranks=rep["ranks"], backend=rep["backend"],
+          collective_seconds=f"{rep['collective_seconds']:.4f}",
+          kernel_launches=json.dumps(rep["kernel_launches"]).replace(" ", ""), card=smi)
+    if one["digest"] != want_digest or rep["kernel_launches"]["nuts_trajectory"] != TUNE + DRAWS:
+        raise RuntimeError(f"mesh of one rank: digest {one['digest']} (mesh=None: "
+                           f"{want_digest}), launches {rep['kernel_launches']}")
+
+    # 3z2. two ranks on the one card
+    with socket.socket() as s:
+        s.bind(("127.0.0.1", 0))
+        port = s.getsockname()[1]
+    out_dir = tempfile.mkdtemp(prefix="mesh_ranks_")
+    t0 = time.perf_counter()
+    procs = [subprocess.Popen([sys.executable, str(ROOT / "chip_smoke.py"), "--mesh-rank",
+                               str(r), str(port), out_dir]) for r in range(MESH_RANKS)]
+    try:
+        codes = [p.wait(timeout=MESH_TIMEOUT) for p in procs]
+    finally:
+        for p in procs:  # a hung rank must not outlive the phase
+            if p.poll() is None:
+                p.kill()
+                p.wait(timeout=30)
+    if codes != [0] * MESH_RANKS:
+        raise RuntimeError(f"mesh ranks exited with {codes}")
+    ranks = [json.loads((Path(out_dir) / f"rank{r}.json").read_text())
+             for r in range(MESH_RANKS)]
+    fg_weight = float(state_f.potential.fg.n_samples.double().sum())
+    want_f = _digest(trace_f)
+    local = CHAINS // MESH_RANKS
+    for r in ranks:
+        a, b = r["main_path"], r["adapt_full"]
+        _line(phase="mesh2_rank", rank=r["rank"], backend=r["backend"], chains=local,
+              main_path_sample_seconds=f"{a['sample_seconds']:.4f}",
+              main_path_collective_seconds=f"{a['collective_seconds']:.4f}",
+              main_path_transfer_seconds=f"{a['transfer_seconds']:.4f}",
+              main_path_row1_launches=a["launches"]["nuts_trajectory"],
+              main_path_digest=a["digest"],
+              adapt_full_sample_seconds=f"{b['sample_seconds']:.4f}",
+              adapt_full_collective_seconds=f"{b['collective_seconds']:.4f}",
+              adapt_full_row2_launches=b["launches"]["fused_nuts"],
+              adapt_full_digest=b["digest"], adapt_full_fg_weight=b["fg_weight"],
+              card=r["card"])
+        failed = [what for what, ok in (
+            ("backend gloo", r["backend"] == "gloo"),
+            ("main path digest", a["digest"] == want_digest),
+            ("main path engine", a["engine"] == "per_draw_diag"),
+            ("row 1 launches", a["launches"] == {"nuts_trajectory": TUNE + DRAWS,
+                                                 "fused_nuts": 0}),
+            ("adapt_full engine", b["engine"] == "fused_dense_pooled"),
+            ("adapt_full digest", b["digest"] == want_f),
+            # tune chunks 10, 10, 30, 50, then 100 four times; draw chunks 4 x 250
+            ("row 2 launches", b["launches"] == {"nuts_trajectory": 0, "fused_nuts": 12}),
+            ("summed fg weight", abs(b["fg_weight"] - fg_weight) <= 1e-6 * fg_weight))
+            if not ok]
+        if failed:
+            raise RuntimeError(f"mesh rank {r['rank']}: {failed} ({r})")
+    _line(phase="mesh2_done", ranks=MESH_RANKS, seconds=f"{time.perf_counter() - t0:.1f}",
+          one_process_digest=want_digest, one_process_adapt_full_digest=want_f,
+          one_process_fg_weight=fg_weight,
+          elapsed_s=f"{time.perf_counter() - t_start:.1f}")
+    return {"mesh1": one, "ranks": ranks}
+
+
+def _float64_cell(smi, cg, state, reset_counts, counts, model_ops, t_start) -> dict:
+    """Phase 3z3: the 100-d Gaussian at 1024 chains with
+    ``dtype=torch.float64``: the kernels are float32-only, so the tensor-op
+    tree runs (no launch of rows 1-6), under the main path's gates at
+    ``F64_TUNE`` + ``F64_DRAWS``; then ms a draw of the tree in float64
+    beside the float32 tree's, both from the main path's final state
+    ``state`` (cast to float64, the model evaluated again)."""
+    import dataclasses
+
+    import torch
+    from littlemcmc_torch import sample
+    from littlemcmc_torch.ops.fused_probe import probe_kernel
+
+    reset_counts()
+    rep = {}
+    trace, stats, final = sample(cg.logp_grad, model_ndim=N, chains=CHAINS, tune=F64_TUNE,
+                                 draws=F64_DRAWS, random_seed=42, dtype=torch.float64,
+                                 perf_report=rep, return_final_state=True, progressbar=False,
+                                 compute_convergence_checks=False)
+    launched = dict(counts(), **{op.__name__: op.launches for op in model_ops},
+                    **{f"probe_{k}": v for k, v in probe_kernel.launches.items()})
+    if (rep["engine"] != "per_draw_diag" or rep["trajectory"] != "tensor"
+            or any(launched.values()) or trace.dtype != "float64"
+            or final.q.dtype != torch.float64 or final.potential.var.dtype != torch.float64):
+        raise RuntimeError(f"float64 ran engine {rep['engine']} ({rep['trajectory']}), "
+                           f"launches {launched}, trace {trace.dtype}, state {final.q.dtype}")
+    line = _quality(cg, trace, stats, rep["sample_seconds"], rep, "float64_tree", smi,
+                    {"dtype": "float64", "kernel_launches_rows_1_6": sum(launched.values())},
+                    tune=F64_TUNE, draws=F64_DRAWS)
+    def wide(x):
+        if isinstance(x, torch.Tensor):
+            return x.double() if x.is_floating_point() else x
+        if not dataclasses.is_dataclass(x):
+            return x
+        return dataclasses.replace(x, **{f.name: wide(getattr(x, f.name))
+                                         for f in dataclasses.fields(x)})
+
+    logp, grad = cg.batched_logp_grad(state.q.double())
+    state64 = dataclasses.replace(wide(state), logp=logp, q_grad=grad)
+    f64 = _tree_draw_ms(cg, state64, torch.Generator(device=DEVICE).manual_seed(11),
+                        F64_TIMED_DRAWS, "tree_timing_float64")
+    f32 = _tree_draw_ms(cg, state, torch.Generator(device=DEVICE).manual_seed(11),
+                        F64_TIMED_DRAWS, "tree_timing_float32")
+    _line(phase="float64_done", sample_seconds=f"{rep['sample_seconds']:.3f}",
+          float64_ms_per_draw=f"{f64['ms_per_draw']:.3f}",
+          float32_ms_per_draw=f"{f32['ms_per_draw']:.3f}",
+          ratio=f"{f64['ms_per_draw'] / f32['ms_per_draw']:.3f}", card=smi,
+          elapsed_s=f"{time.perf_counter() - t_start:.1f}")
+    return {"line": line, "float64_ms": f64["ms_per_draw"], "float32_ms": f32["ms_per_draw"]}
+
+
 def main() -> int:
     if not (ROOT / "littlemcmc_torch" / "ops" / "csrc").is_dir():
         print("chip_smoke.py must run from a littlemcmc checkout "
@@ -3368,6 +3597,11 @@ def main() -> int:
     _line(phase="diag_engines", fused_sample_seconds=line_fd["sample_seconds"],
           per_draw_sample_seconds=report["sample_seconds"],
           elapsed_s=f"{time.perf_counter() - t_start:.1f}")
+
+    # 3z-3z2. the main path over a mesh of one rank, then over two ranks on
+    # the one card with adapt_full pooled across them; 3z3. float64
+    _mesh_cells(smi, cg, trace, report, trace_f, state_f, reset_counts, counts, t_start)
+    _float64_cell(smi, cg, state, reset_counts, counts, model_ops, t_start)
 
     # 3o-3r. the low-rank cells on the spiked Gaussian: L1-L3 and L0, the
     # diag contrast
@@ -3780,4 +4014,6 @@ def main() -> int:
 
 
 if __name__ == "__main__":
+    if sys.argv[1:2] == ["--mesh-rank"]:
+        sys.exit(_mesh_rank(int(sys.argv[2]), int(sys.argv[3]), sys.argv[4]))
     sys.exit(main())

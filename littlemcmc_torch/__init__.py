@@ -14,7 +14,7 @@ but for the Pallas model spec and ``from_torch_callable``, which have no
 counterpart here.
 """
 
-from . import models, utils
+from . import models, parallel, utils
 from .base import ChainState, HMCConfig, NUTSConfig, init_chain_state
 from .exceptions import IntegrationError, ParallelSamplingError, SamplingError
 from .hmc import HMCInfo, build_hmc_kernel
@@ -58,5 +58,6 @@ __all__ = [
     "IntegrationError",
     "ParallelSamplingError",
     "models",
+    "parallel",
     "utils",
 ]

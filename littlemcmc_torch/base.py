@@ -76,7 +76,7 @@ class ChainState:
 
 def init_chain_state(q0: torch.Tensor, potential, config: _BaseConfig,
                      logp_grad_fn: BatchedLogpGrad) -> ChainState:
-    """Start every chain at its row of ``q0`` (``(C, n)``).
+    """Start every chain at its row of ``q0`` (``(C, n)``), in ``q0``'s dtype.
 
     The initial step size is ``step_scale / ndim**0.25``
     (reference ``base_hmc.py:102``).
@@ -85,7 +85,8 @@ def init_chain_state(q0: torch.Tensor, potential, config: _BaseConfig,
     chains, ndim = q0.shape
     return ChainState(
         q=q0, q_grad=grad, logp=logp, potential=potential,
-        da=dual_average_init(config.step_scale / (ndim ** 0.25), chains, q0.device),
+        da=dual_average_init(config.step_scale / (ndim ** 0.25), chains, q0.device,
+                             q0.dtype),
         iter_count=torch.zeros(chains, dtype=torch.int32, device=q0.device),
     )
 

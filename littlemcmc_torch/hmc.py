@@ -30,7 +30,7 @@ import torch
 from .base import ChainState, HMCConfig, finish_step, pooled_tune_schedule
 from .integration import IntegratorState, leapfrog, recompute_with_momentum
 from .nuts import (_diag_inverse_mass, fused_metric_after, fused_metric_inputs,
-                   fused_metric_kind)
+                   fused_metric_kind, shard_blocks)
 from .ops.fused_hmc import fused_hmc
 from .ops.hmc_trajectory import DEFAULT_HMC_CHAIN_BLOCK, hmc_trajectory
 from .ops.nuts_trajectory import DEFAULT_CHAIN_BLOCK, TrajectorySpec
@@ -99,7 +99,7 @@ def run_hmc_trajectory(generator: torch.Generator, start: IntegratorState,
 
 
 def build_hmc_kernel(logp_grad_fn: BatchedLogpGrad, config: HMCConfig = HMCConfig(),
-                     trajectory_spec: Optional[TrajectorySpec] = None
+                     trajectory_spec: Optional[TrajectorySpec] = None, shard=None
                      ) -> Callable[..., Tuple[ChainState, HMCInfo]]:
     """``kernel(state, tuning, generator, seed) -> (state, info)``.
 
@@ -115,6 +115,9 @@ def build_hmc_kernel(logp_grad_fn: BatchedLogpGrad, config: HMCConfig = HMCConfi
     trajectory op (a diagonal metric only, reference
     ``hmc.py:201-206``); without one, :func:`run_hmc_trajectory` calls
     ``logp_grad_fn`` (``(C, n) -> ((C,), (C, n))``) step by step.
+    ``shard``: the rank's chains under a mesh, which the kernel launches on
+    as the global counter-stream blocks they are
+    (:func:`~littlemcmc_torch.nuts.shard_blocks`).
     """
     chain_block = config.chain_block or DEFAULT_HMC_CHAIN_BLOCK
 
@@ -147,7 +150,8 @@ def build_hmc_kernel(logp_grad_fn: BatchedLogpGrad, config: HMCConfig = HMCConfi
             out = hmc_trajectory(state.q, p0, state.q_grad, state.logp, step_size, n_steps,
                                  var.contiguous(), seed, spec=trajectory_spec,
                                  Emax=config.Emax, chain_block=chain_block,
-                                 integrator=config.integrator)
+                                 integrator=config.integrator,
+                                 block0=shard_blocks(shard, state.q.shape[0], chain_block)[0])
             q, grad, logp = out["q"], out["grad"], out["logp"]
             accept_stat, accepted = out["accept_stat"], out["accepted"]
             diverging, energy_change = out["diverging"], out["energy_change"]
@@ -166,7 +170,7 @@ def build_hmc_kernel(logp_grad_fn: BatchedLogpGrad, config: HMCConfig = HMCConfi
 
 def build_fused_hmc_runner_factory(config: HMCConfig, trajectory_spec: TrajectorySpec,
                                    potential_template, pooled: bool,
-                                   seed_words: Tuple[int, int]):
+                                   seed_words: Tuple[int, int], shard=None):
     """Chunk-runner factory of the fused multi-draw HMC kernel.
 
     The contract of :func:`littlemcmc_torch.nuts.build_fused_nuts_runner_factory`
@@ -182,9 +186,11 @@ def build_fused_hmc_runner_factory(config: HMCConfig, trajectory_spec: Trajector
     variances adapted per chain in the kernel and its factor refreshed at
     each tune chunk's boundary; the last two with tune chunks from
     :func:`~littlemcmc_torch.base.pooled_tune_schedule` (reference
-    ``hmc.py:285-552``).
+    ``hmc.py:285-552``). ``shard``: the rank's chains under a mesh, as the
+    NUTS factory's.
     """
     kind = fused_metric_kind(potential_template, pooled)
+    group = None if shard is None else shard.group
     if trajectory_spec is None:
         raise NotImplementedError("the fused HMC kernel needs a model with a "
                                   "trajectory_spec() (StandardNormal, CorrelatedGaussian, "
@@ -196,7 +202,9 @@ def build_fused_hmc_runner_factory(config: HMCConfig, trajectory_spec: Trajector
     def factory(chunk: int, tuning: bool, collect: bool):
         def run_chunk(state: ChainState, iter0: int):
             pot = state.potential
-            m = fused_metric_inputs(kind, pot, tuning)
+            C = state.q.shape[0]
+            block0, blocks = shard_blocks(shard, C, chain_block)
+            m = fused_metric_inputs(kind, pot, tuning, group)
             da = state.da
             outs = fused_hmc(
                 state.q, state.q_grad, state.logp, state.iter_count.to(torch.float32),
@@ -205,11 +213,12 @@ def build_fused_hmc_runner_factory(config: HMCConfig, trajectory_spec: Trajector
                 spec=trajectory_spec, T=chunk, tuning=bool(tuning), config=config,
                 metric=m["metric"], window_multiplier=mult, chain_block=chain_block,
                 collect_trace=collect, welford=m["welford"],
-                dense_welford=m["dense_welford"], fac=m["fac"])
+                dense_welford=m["dense_welford"], fac=m["fac"], block0=block0,
+                welford_blocks=blocks)
             new_state = ChainState(
                 q=outs["q"], q_grad=outs["grad"], logp=outs["logp"],
                 potential=fused_metric_after(pot, outs, tuning, pooled, m["dense_welford"],
-                                             state.q.shape[0]),
+                                             C, group),
                 da=DualAverageState(log_step=outs["da_log_step"],
                                     log_bar=outs["da_log_bar"], hbar=outs["da_hbar"],
                                     count=outs["da_count"].to(torch.int32),

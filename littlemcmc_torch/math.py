@@ -12,6 +12,14 @@ import torch
 __all__ = ["logbern", "log1mexp", "logdiffexp", "round_up", "fp32_matmul"]
 
 
+def _floating(x) -> torch.Tensor:
+    """``x`` as a floating tensor: a floating tensor keeps its dtype (a
+    float64 run stays float64), anything else becomes float32."""
+    if isinstance(x, torch.Tensor) and x.is_floating_point():
+        return x
+    return torch.as_tensor(x, dtype=torch.float32)
+
+
 def fp32_matmul(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
     """``a @ b`` in full float32, whatever ``torch.set_float32_matmul_precision``
     (or ``allow_tf32``) says: the products feed energies and U-turn
@@ -32,7 +40,7 @@ def logbern(log_p: torch.Tensor, generator: torch.Generator | None = None) -> to
     A NaN ``log_p`` yields ``False`` (the comparison is false), as in the
     JAX package.
     """
-    log_p = torch.as_tensor(log_p, dtype=torch.float32)
+    log_p = _floating(log_p)
     u = torch.rand(log_p.shape, generator=generator, dtype=log_p.dtype,
                    device=log_p.device)
     return torch.log(u) < log_p
@@ -41,7 +49,7 @@ def logbern(log_p: torch.Tensor, generator: torch.Generator | None = None) -> to
 def log1mexp(x) -> torch.Tensor:
     """``log(1 - exp(-x))`` for ``x > 0``, with the switch at 0.683
     (Maechler's note; reference ``math.py:28-35``)."""
-    x = torch.as_tensor(x, dtype=torch.float32)
+    x = _floating(x)
     small = x < 0.683
     safe_small = torch.where(small, x, torch.ones_like(x))
     safe_large = torch.where(small, torch.ones_like(x), x)
@@ -51,8 +59,8 @@ def log1mexp(x) -> torch.Tensor:
 
 def logdiffexp(a, b) -> torch.Tensor:
     """``log(exp(a) - exp(b))`` for ``a > b``."""
-    a = torch.as_tensor(a, dtype=torch.float32)
-    return a + log1mexp(a - torch.as_tensor(b, dtype=torch.float32))
+    a = _floating(a)
+    return a + log1mexp(a - torch.as_tensor(b, dtype=a.dtype, device=a.device))
 
 
 def round_up(x: int, m: int) -> int:

@@ -10,7 +10,9 @@ bit-identical to the JAX model's. ``logp_grad`` takes one chain's ``(n,)`` posit
 ``use_kernel=True`` the batched CUDA kernel
 :func:`~littlemcmc_torch.ops.quadform.quadform_logp_grad`), and
 ``trajectory_spec`` names the model body the CUDA trajectory kernel
-inlines.
+inlines. A float64 position (``sample(dtype=torch.float64)``) is evaluated
+in float64 on tensor ops, the correlated Gaussian's precision the float64
+inverse, as the JAX models' ``dtype``; the kernels stay float32.
 """
 
 from __future__ import annotations
@@ -20,7 +22,7 @@ import torch
 
 from ..device import resolve_device
 from ..ops.nuts_trajectory import TrajectorySpec, body_logp_grad
-from ..ops.quadform import quadform_logp_grad
+from ..ops.quadform import quadform_logp_grad, quadform_logp_grad_plain
 
 __all__ = ["StandardNormal", "CorrelatedGaussian", "SpikedGaussian"]
 
@@ -60,7 +62,7 @@ class CorrelatedGaussian:
     ``cov[i, j] = scales[i] * scales[j] * rho^|i-j|``, scales log-uniform
     in ``scale_range`` from ``np.random.RandomState(seed)``. ``use_kernel``:
     ``batched_logp_grad`` calls the batched CUDA kernel (the JAX model's
-    ``use_pallas``).
+    ``use_pallas``) on float32 positions.
     """
 
     def __init__(self, ndim: int = 100, rho: float = 0.9, scale_range=(0.1, 10.0),
@@ -78,18 +80,23 @@ class CorrelatedGaussian:
         self.prec_f32 = torch.from_numpy(self.prec.astype(np.float32)).to(self.device)
         self.use_kernel = bool(use_kernel)
         self._spec = TrajectorySpec("correlated_gaussian", (self.prec_f32,), self.ndim)
+        self._prec_f64 = None
 
     def logp(self, q: torch.Tensor) -> torch.Tensor:
         return self.logp_grad(q)[0]
 
     def logp_grad(self, q: torch.Tensor):
-        logp, grad = body_logp_grad(self._spec, q[None])
+        logp, grad = self.batched_logp_grad(q[None], kernel=False)
         return logp[0], grad[0]
 
-    def batched_logp_grad(self, q: torch.Tensor):
+    def batched_logp_grad(self, q: torch.Tensor, kernel: bool = True):
         """``(logp (C,), grad (C, n))`` for ``q: (C, n)``: one matmul, or
-        one launch of the quadform kernel with ``use_kernel``."""
-        if self.use_kernel:
+        one launch of the quadform kernel with ``use_kernel`` (float32)."""
+        if q.dtype != torch.float32:
+            if self._prec_f64 is None:
+                self._prec_f64 = torch.from_numpy(self.prec).to(self.device)
+            return quadform_logp_grad_plain(q, self._prec_f64.to(q.dtype))
+        if self.use_kernel and kernel:
             return quadform_logp_grad(q, self.prec_f32)
         return body_logp_grad(self._spec, q)
 

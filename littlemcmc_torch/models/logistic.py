@@ -49,7 +49,8 @@ class LogisticRegression:
     ``use_kernel``: ``batched_logp_grad`` calls the batched CUDA kernel
     (the counterpart of the JAX model's ``use_pallas``). Models of more
     than 256 parameters have no trajectory spec (the kernels hold at most
-    256 gradient columns a warp) and run NUTS on the tensor-op tree.
+    256 gradient columns a warp) and run NUTS on the tensor-op tree. A
+    float64 position is evaluated on tensor ops with the float64 data.
     """
 
     def __init__(self, X=None, y=None, prior_scale: float = 10.0, use_kernel: bool = False,
@@ -70,21 +71,34 @@ class LogisticRegression:
                                        device=self.device)
         self.use_kernel = bool(use_kernel)
         self._spec = TrajectorySpec("logistic", (self.Xb, self.y, self.prior_prec), self.ndim)
+        self._data64 = (xb, y)
+        self._consts64 = None
+
+    def _consts(self, dtype):
+        """``(Xb, y, prior_prec)`` in ``dtype`` (the float64 ones from the
+        float64 data)."""
+        if dtype == torch.float32:
+            return self.Xb, self.y, self.prior_prec
+        if self._consts64 is None:
+            xb, y = (torch.from_numpy(a).to(self.device) for a in self._data64)
+            self._consts64 = (xb, y, torch.tensor([1.0 / self.prior_scale ** 2],
+                                                  dtype=torch.float64, device=self.device))
+        return tuple(c.to(dtype) for c in self._consts64)
 
     def logp(self, q: torch.Tensor) -> torch.Tensor:
         return self.logp_grad(q)[0]
 
     def logp_grad(self, q: torch.Tensor):
         """``(logp, grad)`` at one chain's ``(ndim,)`` position."""
-        logp, grad = logistic_logp_grad_plain(q[None], self.Xb, self.y, self.prior_prec)
+        logp, grad = logistic_logp_grad_plain(q[None], *self._consts(q.dtype))
         return logp[0], grad[0]
 
     def batched_logp_grad(self, q: torch.Tensor):
         """``(logp (C,), grad (C, ndim))`` for ``q: (C, ndim)``."""
-        if self.use_kernel:
+        if self.use_kernel and q.dtype == torch.float32:
             return logistic_logp_grad(q, self.Xb, self.y, self.prior_prec,
                                       packed=self._spec.kernel_consts)
-        return logistic_logp_grad_plain(q, self.Xb, self.y, self.prior_prec)
+        return logistic_logp_grad_plain(q, *self._consts(q.dtype))
 
     def trajectory_spec(self):
         """The ``logistic`` body, or None past 256 parameters."""

@@ -54,8 +54,9 @@ from .integration import INTEGRATOR_COEFFS
 from .math import log1mexp
 from .ops.fused_nuts import WELFORD_KEYS, combine_dense_welford, fused_nuts
 from .ops.nuts_trajectory import (DEFAULT_CHAIN_BLOCK, TrajectorySpec, _rowdot,
-                                  build_lowrank_fac, trajectory)
+                                  build_lowrank_fac, resolve_chain_block, trajectory)
 from .parallel.cross_chain import cross_chain_potential_pool, lowrank_boundary_refresh
+from .parallel.distributed import all_any, gather_chains, gather_tree, group_rank_size
 from .quadpotential import (QuadPotentialDiag, QuadPotentialDiagAdapt, QuadPotentialFull,
                             QuadPotentialFullAdapt, QuadPotentialLowRankAdapt,
                             WelfordCovariance, cholesky_or_keep)
@@ -145,10 +146,17 @@ class GeneratorTreeRandom:
     the first. A random source has four methods: ``split(keys, num)``
     (a tuple of ``num`` key batches), ``where(mask, a, b)`` (per chain),
     ``bernoulli(keys)`` (a fair coin per chain, bool ``(C,)``) and
-    ``uniform(keys)`` (U(0, 1) per chain, float32 ``(C,)``)."""
+    ``uniform(keys)`` (U(0, 1) per chain, float32 ``(C,)``), and may have
+    ``any(mask)``, which the tree's loops ask whether any chain goes on.
 
-    def __init__(self, generator: torch.Generator, chains: int, device):
+    Under a mesh (``shard``, a
+    :class:`~littlemcmc_torch.parallel.mesh.ChainShard`) each call draws
+    for the whole chain batch and keeps this rank's rows, and ``any`` asks
+    every rank, so each rank's tree draws what the unsharded tree draws."""
+
+    def __init__(self, generator: torch.Generator, chains: int, device, shard=None):
         self.generator, self.chains, self.device = generator, chains, device
+        self.shard = shard
 
     def split(self, keys, num: int):
         return (None,) * num
@@ -160,7 +168,22 @@ class GeneratorTreeRandom:
         return self.uniform(keys) < 0.5
 
     def uniform(self, keys) -> torch.Tensor:
-        return torch.rand(self.chains, generator=self.generator, device=self.device)
+        if self.shard is None:
+            return torch.rand(self.chains, generator=self.generator, device=self.device)
+        return self.shard.rows(torch.rand(self.shard.chains, generator=self.generator,
+                                          device=self.device))
+
+    def any(self, mask: torch.Tensor) -> bool:
+        if self.shard is None:
+            return bool(mask.any())
+        return all_any(mask, self.shard.group)
+
+
+def _any(rng, mask: torch.Tensor) -> bool:
+    """Whether any chain of ``mask`` goes on: one host read (the random
+    source's ``any`` where it has one, which may ask every rank)."""
+    ask = getattr(rng, "any", None)
+    return bool(mask.any()) if ask is None else ask(mask)
 
 
 def _mwhere(mask: torch.Tensor, a, b):
@@ -301,7 +324,7 @@ def _build_subtree(rng, keys, edge: PhaseState, depth: int, epsilon: torch.Tenso
     diverging = torch.zeros(C, dtype=torch.bool, device=dev)
     turning = torch.zeros_like(diverging)
     # host read: one per leaf (the JAX loop's jnp.any(c.building))
-    while leaf_idx < n_total and bool(building.any()):
+    while leaf_idx < n_total and _any(rng, building):
         cur, v_new = _leapfrog_b(velocity_b, kinetic_b, logp_grad_b, epsilon, cur,
                                  config.integrator)
         inf = float("inf")
@@ -319,7 +342,7 @@ def _build_subtree(rng, keys, edge: PhaseState, depth: int, epsilon: torch.Tenso
         merging0 = building & ~div_leaf
         merging, j, h = merging0, 0, height
         # host read: one per merge (the JAX merge loop's jnp.any(merging_))
-        while (leaf_idx >> j) & 1 and bool(merging.any()):
+        while (leaf_idx >> j) & 1 and _any(rng, merging):
             keys, k_merge = rng.split(keys, 2)
             node, turning_new = _merge_nodes(rng, k_merge, _peek(stack, h - 1), node,
                                              j >= 1, velocity_b)
@@ -353,7 +376,9 @@ def run_nuts_tree(rng, keys, start: PhaseState, step_size: torch.Tensor,
     velocity_b, kinetic_b = _make_batched_potential_ops(potential)
     C = start.q.shape[0]
     dtype, dev = start.energy.dtype, start.q.device
-    max_depth_sched = int(max_depth_c.max())  # host read, once a trajectory
+    # host read, once a trajectory; an early cap above max_treedepth stops
+    # there, as the kernels' schedule does (min(max_sched, D))
+    max_depth_sched = min(int(max_depth_c.max()), config.max_treedepth)
     store_v = _diag_inverse_mass(potential) is None
 
     v_start = velocity_b(start.p) if store_v else None
@@ -376,7 +401,7 @@ def run_nuts_tree(rng, keys, start: PhaseState, step_size: torch.Tensor,
 
     while depth < max_depth_sched:
         active = ~diverging & ~turning & (depth_c < max_depth_c)
-        if not bool(active.any()):  # host read: one per doubling
+        if not _any(rng, active):  # host read: one per doubling
             break
         keys_next, k_dir, k_sub, k_swap = rng.split(keys, 4)
         keys = rng.where(active, keys_next, keys)
@@ -480,7 +505,8 @@ def trajectory_metric(potential, pooled: bool):
     dense and low-rank adaptation, ``QuadPotentialFullInv``): such a
     metric runs on the tree."""
     if isinstance(potential, (QuadPotentialDiag, QuadPotentialDiagAdapt)):
-        return "diag", potential.inverse_mass, None
+        # a pooled diagonal is one row expanded over the chains
+        return "diag", potential.inverse_mass.contiguous(), None
     cov = _shared_dense_cov(potential, pooled)
     if cov is not None:
         return "dense", cov, None
@@ -488,11 +514,22 @@ def trajectory_metric(potential, pooled: bool):
     return None if fac is None else ("lowrank", potential.stds.contiguous(), fac)
 
 
+def shard_blocks(shard, chains: int, chain_block: int) -> Tuple[int, Optional[int]]:
+    """``(block0, blocks)`` of a launch on this rank's ``chains`` chains in
+    blocks of ``chain_block`` (:func:`resolve_chain_block`): the global
+    index of its first block and the blocks of every rank; ``(0, None)``
+    without a mesh of more than one rank."""
+    if shard is None or shard.size == 1:
+        return 0, None
+    cb = resolve_chain_block(chains, chain_block)
+    return shard.lo // cb, shard.chains // cb
+
+
 def build_nuts_kernel(config: NUTSConfig = NUTSConfig(),
                       trajectory_spec: Optional[TrajectorySpec] = None,
                       pooled_metric: bool = False,
-                      batched_logp_grad_fn: Optional[BatchedLogpGrad] = None
-                      ) -> Callable[..., Tuple[ChainState, NUTSInfo]]:
+                      batched_logp_grad_fn: Optional[BatchedLogpGrad] = None,
+                      shard=None) -> Callable[..., Tuple[ChainState, NUTSInfo]]:
     """``kernel(state, tuning, generator, seed) -> (state, info)``.
 
     ``generator`` draws the momenta (on the state's device) and, on the
@@ -509,7 +546,10 @@ def build_nuts_kernel(config: NUTSConfig = NUTSConfig(),
     scales and the shared factor block), :func:`run_nuts_tree` calls
     ``batched_logp_grad_fn``
     (``(C, n) -> ((C,), (C, n))``) at every leaf and once more at the
-    proposal (reference ``nuts.py:863-873``).
+    proposal (reference ``nuts.py:863-873``). ``shard``: the rank's
+    :class:`~littlemcmc_torch.parallel.mesh.ChainShard` under a mesh, whose
+    chains the kernel launches on as the global blocks they are
+    (:func:`shard_blocks`).
     """
     if trajectory_spec is None and batched_logp_grad_fn is None:
         raise ValueError("the tensor-op tree needs batched_logp_grad_fn")
@@ -557,7 +597,8 @@ def build_nuts_kernel(config: NUTSConfig = NUTSConfig(),
                              max_depth_c, var, seed,
                              spec=trajectory_spec, max_treedepth=config.max_treedepth,
                              Emax=config.Emax, chain_block=chain_block,
-                             integrator=config.integrator, metric=metric, fac=fac)
+                             integrator=config.integrator, metric=metric, fac=fac,
+                             block0=shard_blocks(shard, state.q.shape[0], chain_block)[0])
             log_size = out["log_size"]
             mta = torch.where(
                 log_size > 0,
@@ -613,7 +654,7 @@ def _pool_dense_welford(pot: QuadPotentialFullAdapt):
 
 
 def _dense_boundary_potential(pot: QuadPotentialFullAdapt, outs, c_fg: torch.Tensor,
-                              C: int) -> QuadPotentialFullAdapt:
+                              C: int, share: Optional[int] = None) -> QuadPotentialFullAdapt:
     """The pooled dense metric at a chunk boundary from the fused op's
     per-block Welford states (reference ``nuts.py:967-1003``).
 
@@ -624,7 +665,9 @@ def _dense_boundary_potential(pot: QuadPotentialFullAdapt, outs, c_fg: torch.Ten
     carries 1/C of the weight at the pooled mean, so Chan-combining the C
     rows gives back the global state and the per-draw engine can take
     over. Rows are views of one matrix; the pooled metric's rows are
-    identical before and after.
+    identical before and after. Under a mesh ``C`` is this rank's chains
+    and ``share`` every rank's, over which the weight is shared (default
+    ``C``).
     """
     Wf, Mf, Rf = combine_dense_welford(outs["dense_fg_w"], outs["dense_fg_mean"],
                                        outs["dense_fg_raw"], c_fg)
@@ -634,7 +677,7 @@ def _dense_boundary_potential(pot: QuadPotentialFullAdapt, outs, c_fg: torch.Ten
     chol, ok = cholesky_or_keep(cov_new, pot.chol[0])
     n = cov_new.shape[0]
     cov = torch.where(ok, cov_new, pot.cov[0])
-    Cf = float(C)
+    Cf = float(share or C)
 
     def rep(x):
         return x.expand(C, *x.shape)
@@ -675,7 +718,7 @@ def fused_metric_kind(potential_template, pooled: bool) -> str:
         "tensor-op tree for NUTS)")
 
 
-def fused_metric_inputs(kind: str, pot, tuning: bool) -> dict:
+def fused_metric_inputs(kind: str, pot, tuning: bool, group=None) -> dict:
     """The metric arguments of a fused launch from the chunk's starting
     metric (reference ``nuts.py:1106-1139``): ``metric``, ``var``, ``linv``,
     ``welford``, ``dense_welford`` and ``fac``. The shared covariance and
@@ -684,7 +727,8 @@ def fused_metric_inputs(kind: str, pot, tuning: bool) -> dict:
     tune chunks of an adaptive diag or low-rank metric, the per-chain
     Welford state (``_fused_welford_tuple`` ``:920``), and for the low-rank
     metric the factor block of row 0, frozen for the chunk. Draw chunks
-    leave the variances as they are, so they pass no Welford state."""
+    leave the variances as they are, so they pass no Welford state.
+    ``group``: the pooled state is pooled over every rank's chains."""
     args = dict(linv=None, welford=None, dense_welford=None, fac=None)
     if kind.startswith("dense"):
         cov = pot.cov[0].contiguous()
@@ -692,7 +736,9 @@ def fused_metric_inputs(kind: str, pot, tuning: bool) -> dict:
         pooled_tune = tuning and kind == "dense_pooled"
         return dict(args, metric="dense", var=cov,
                     linv=torch.linalg.solve_triangular(pot.chol[0], eye, upper=False),
-                    dense_welford=_pool_dense_welford(pot) if pooled_tune else None)
+                    dense_welford=(_pool_dense_welford(pot.replace(
+                        fg=gather_tree(pot.fg, group), bg=gather_tree(pot.bg, group)))
+                        if pooled_tune else None))
     if kind == "diag_static":
         return dict(args, metric="diag", var=pot.v)
     args.update(var=pot.var.contiguous(), welford=pot.welford_leaves() if tuning else None)
@@ -701,7 +747,12 @@ def fused_metric_inputs(kind: str, pot, tuning: bool) -> dict:
     return dict(args, metric="diag")
 
 
-def fused_metric_after(pot, outs, tuning: bool, pooled: bool, dense_welford, C: int):
+_DENSE_BLOCK_KEYS = ("dense_fg_w", "dense_fg_mean", "dense_fg_raw", "dense_bg_w",
+                     "dense_bg_mean", "dense_bg_raw")
+
+
+def fused_metric_after(pot, outs, tuning: bool, pooled: bool, dense_welford, C: int,
+                       group=None):
     """The metric at the chunk boundary from the fused op's outputs: an
     adaptive diag metric rebuilt from the updated per-chain state and, in
     pooled tune chunks, pooled across chains once (reference
@@ -711,22 +762,26 @@ def fused_metric_after(pot, outs, tuning: bool, pooled: bool, dense_welford, C: 
     :func:`~littlemcmc_torch.parallel.cross_chain.lowrank_boundary_refresh`
     on the chunk's last positions; the pooled dense metric refreshed from
     the combined block states (:func:`_dense_boundary_potential`); a static
-    metric as it was."""
+    metric as it was. ``group``: pool over every rank's chains, the dense
+    metric from every rank's blocks, gathered in global block order."""
     if "var" in outs:
         pot = pot.with_welford_leaves(outs["var"], [outs[k] for k in WELFORD_KEYS])
     if isinstance(pot, QuadPotentialLowRankAdapt):
         pot = pot.replace(buf_fill=torch.zeros_like(pot.buf_fill))
-        return lowrank_boundary_refresh(pot, outs["q"]) if tuning else pot
+        return lowrank_boundary_refresh(pot, outs["q"], group) if tuning else pot
     if "var" in outs:
-        return cross_chain_potential_pool(pot, pooled and tuning)
-    if dense_welford is not None:
-        return _dense_boundary_potential(pot, outs, dense_welford[0], C)
-    return pot
+        return cross_chain_potential_pool(pot, pooled and tuning, group=group)
+    if dense_welford is None:
+        return pot
+    size = group_rank_size(group)[1]
+    if size > 1:
+        outs = {**outs, **{k: gather_chains(outs[k], group) for k in _DENSE_BLOCK_KEYS}}
+    return _dense_boundary_potential(pot, outs, dense_welford[0], C, C * size)
 
 
 def build_fused_nuts_runner_factory(config: NUTSConfig, trajectory_spec: TrajectorySpec,
                                     potential_template, pooled: bool,
-                                    seed_words: Tuple[int, int]):
+                                    seed_words: Tuple[int, int], shard=None):
     """Chunk-runner factory of the fused multi-draw NUTS kernel.
 
     Returns ``factory(chunk, tuning, collect) -> run_chunk`` with
@@ -761,8 +816,14 @@ def build_fused_nuts_runner_factory(config: NUTSConfig, trajectory_spec: Traject
     ``seed_words``: the run's two seed words ``(w0, w1)``. Chunk seeds fold
     the global iteration in (``w0 + iter0 * 15485863``), so the draws do not
     depend on the chunking (reference ``nuts.py:1190-1207``).
+
+    ``shard``: the rank's :class:`~littlemcmc_torch.parallel.mesh.ChainShard`
+    under a mesh. Its blocks launch as the global blocks they are, seeded
+    with their share of the pooled dense state (:func:`shard_blocks`), and
+    each boundary pools over every rank (:func:`fused_metric_after`).
     """
     kind = fused_metric_kind(potential_template, pooled)
+    group = None if shard is None else shard.group
     if trajectory_spec is None:
         raise NotImplementedError(_NO_SPEC)
     mult = (1.0 if kind.endswith("static") else potential_template.window_multiplier)
@@ -772,7 +833,9 @@ def build_fused_nuts_runner_factory(config: NUTSConfig, trajectory_spec: Traject
     def factory(chunk: int, tuning: bool, collect: bool):
         def run_chunk(state: ChainState, iter0: int):
             pot = state.potential
-            m = fused_metric_inputs(kind, pot, tuning)
+            C = state.q.shape[0]
+            block0, blocks = shard_blocks(shard, C, chain_block)
+            m = fused_metric_inputs(kind, pot, tuning, group)
             da = state.da
             outs = fused_nuts(
                 state.q, state.q_grad, state.logp, state.iter_count.to(torch.float32),
@@ -781,11 +844,12 @@ def build_fused_nuts_runner_factory(config: NUTSConfig, trajectory_spec: Traject
                 spec=trajectory_spec, T=chunk, tuning=bool(tuning), config=config,
                 metric=m["metric"], window_multiplier=mult, chain_block=chain_block,
                 collect_trace=collect, welford=m["welford"],
-                dense_welford=m["dense_welford"], fac=m["fac"])
+                dense_welford=m["dense_welford"], fac=m["fac"], block0=block0,
+                welford_blocks=blocks)
             new_state = ChainState(
                 q=outs["q"], q_grad=outs["grad"], logp=outs["logp"],
                 potential=fused_metric_after(pot, outs, tuning, pooled, m["dense_welford"],
-                                             state.q.shape[0]),
+                                             C, group),
                 da=DualAverageState(log_step=outs["da_log_step"],
                                     log_bar=outs["da_log_bar"], hbar=outs["da_hbar"],
                                     count=outs["da_count"].to(torch.int32),

@@ -54,7 +54,7 @@ from .fused_nuts import (_DRAW_STRIDE, _SCALARS, _WELFORD_PTRS, DiagWelford, _Bl
 from .hmc_trajectory import hmc_transition
 from .nuts_trajectory import (kernel_library, BODY_IDS, DEFAULT_CHAIN_BLOCK, METRIC_IDS, TrajectorySpec, _M32,
                               _seed_words, body_logp_grad, counter_salt, counter_uniform,
-                              int32_bits, resolve_chain_block)
+                              int32_bits, resolve_chain_block, shard_seed)
 
 __all__ = ["fused_hmc", "fused_hmc_plain", "STAT_KEYS"]
 
@@ -83,7 +83,8 @@ def fused_hmc_plain(q, grad, logp, iter_count, da_log_step, da_log_bar, da_hbar,
                     chain_block: int = DEFAULT_CHAIN_BLOCK, collect_trace: bool = True,
                     welford: Optional[Sequence[torch.Tensor]] = None,
                     dense_welford: Optional[Sequence[torch.Tensor]] = None,
-                    fac: Optional[torch.Tensor] = None) -> Dict[str, torch.Tensor]:
+                    fac: Optional[torch.Tensor] = None,
+                    welford_blocks: Optional[int] = None) -> Dict[str, torch.Tensor]:
     """The plain PyTorch op, block by block, on any device."""
     C, n = q.shape
     cb = resolve_chain_block(C, chain_block)
@@ -102,7 +103,8 @@ def fused_hmc_plain(q, grad, logp, iter_count, da_log_step, da_log_bar, da_hbar,
         rows = slice(blk * cb, (blk + 1) * cb)
         s = {k: v[rows] for k, v in state.items()}
         qb, gb = q[rows], grad[rows]
-        wel = _BlockWelford(dense_welford, B) if dense_welford is not None else None
+        wel = (_BlockWelford(dense_welford, welford_blocks or B) if dense_welford is not None
+               else None)
         vb = var if metric == "dense" else var[rows]
         dw = DiagWelford(welford).rows(rows) if welford is not None else None
         per_draw = {k: [] for k in STAT_KEYS + ("trace",)}
@@ -149,7 +151,8 @@ def fused_hmc_plain(q, grad, logp, iter_count, da_log_step, da_log_bar, da_hbar,
 # --------------------------------------------------------------------------
 
 def _launch_kernel(q, grad, scalars, var, linv, seed, *, spec, T, tuning, config, metric,
-                   window_multiplier, chain_block, collect_trace, welford, dense_welford, fac):
+                   window_multiplier, chain_block, collect_trace, welford, dense_welford, fac,
+                   welford_blocks):
     from ._build import launch
 
     C, n = q.shape
@@ -172,7 +175,7 @@ def _launch_kernel(q, grad, scalars, var, linv, seed, *, spec, T, tuning, config
     buf.update(state_buffers(scalars, var, linv, metric, welford, empty, fac))
     adapt_dense = dense_welford is not None
     if adapt_dense:
-        buf.update(welford_buffers(dense_welford, C // cb, empty))
+        buf.update(welford_buffers(dense_welford, C // cb, empty, welford_blocks))
     ints = dict(C=C, n=n, T=int(T), cb=cb, n_stages=len(a_coef), body=BODY_IDS[spec.body],
                 metric=METRIC_IDS[metric], tuning=int(bool(tuning)),
                 adapting=int(bool(tuning) and config.adapt_step_size),
@@ -205,7 +208,8 @@ def fused_hmc(q, grad, logp, iter_count, da_log_step, da_log_bar, da_hbar, da_co
               chain_block: int = DEFAULT_CHAIN_BLOCK, collect_trace: bool = True,
               welford: Optional[Sequence[torch.Tensor]] = None,
               dense_welford: Optional[Sequence[torch.Tensor]] = None,
-              fac: Optional[torch.Tensor] = None) -> Dict[str, torch.Tensor]:
+              fac: Optional[torch.Tensor] = None, block0: int = 0,
+              welford_blocks: Optional[int] = None) -> Dict[str, torch.Tensor]:
     """``T`` HMC transitions for every chain, where the tensors lie.
 
     The inputs of :func:`.fused_nuts.fused_nuts`, with ``config`` an
@@ -215,7 +219,8 @@ def fused_hmc(q, grad, logp, iter_count, da_log_step, da_log_bar, da_hbar, da_co
     ``(T, C)``, the final state leaves, with ``welford`` the updated
     ``var`` and Welford leaves, and with ``dense_welford`` the per-block
     Welford states and shared counters of
-    :func:`.fused_nuts.combine_dense_welford`'s input.
+    :func:`.fused_nuts.combine_dense_welford`'s input. ``block0`` and
+    ``welford_blocks`` shard the chains as :func:`.fused_nuts.fused_nuts`'s.
 
     CPU tensors run :func:`fused_hmc_plain`; CUDA tensors launch the kernel
     (``fused_hmc.launches`` counts those launches) or raise.
@@ -226,7 +231,8 @@ def fused_hmc(q, grad, logp, iter_count, da_log_step, da_log_bar, da_hbar, da_co
     kw = dict(spec=spec, T=T, tuning=tuning, config=config, metric=metric,
               window_multiplier=window_multiplier, chain_block=chain_block,
               collect_trace=collect_trace, welford=welford, dense_welford=dense_welford,
-              fac=fac)
+              fac=fac, welford_blocks=welford_blocks)
+    seed = shard_seed(seed, block0)
     if q.device.type == "cpu":
         return fused_hmc_plain(q, grad, *scalars, var, linv, seed, **kw)
     if q.device.type == "cuda":

@@ -61,7 +61,8 @@ from .nuts_trajectory import (kernel_library, BODY_IDS, DEFAULT_CHAIN_BLOCK, MAX
                               counter_uniform, fmix32, int32_bits, kernel_chain_block,
                               lowrank_fac_parts, stack_shape,
                               lowrank_fac_size, lowrank_velocity, metric_velocity,
-                              resolve_chain_block, thin_combine, thin_dots, transition_block)
+                              resolve_chain_block, shard_seed, thin_combine, thin_dots,
+                              transition_block)
 
 __all__ = ["fused_nuts", "fused_nuts_plain", "combine_dense_welford", "padded_dim",
            "dense_momentum", "diag_momentum", "lowrank_momentum", "STAT_KEYS",
@@ -244,7 +245,8 @@ class DiagWelford:
 
 class _BlockWelford:
     """One chain block's pooled dense Welford state (both windows and the
-    shared counters), seeded with 1/B of the global pooled state."""
+    shared counters), seeded with 1/B of the global pooled state (B the
+    chain blocks of every rank)."""
 
     def __init__(self, dense_welford, B: int):
         fgm, fgr, fgw, bgm, bgr, bgw, ns, pu, win = dense_welford
@@ -292,19 +294,25 @@ def stack_block_welford(blocks, device) -> Dict[str, torch.Tensor]:
     return res
 
 
-def welford_buffers(dense_welford, B: int, empty) -> Dict[str, torch.Tensor]:
-    """The fused kernels' Welford buffers: the seed (the global means, 1/B
-    of the weights and the counters), per-block mean outputs, the raw
-    scatters seeded with 1/B of the global ones (updated in place), and
-    the per-block weights and counters."""
+def welford_buffers(dense_welford, B: int, empty,
+                    welford_blocks: Optional[int] = None) -> Dict[str, torch.Tensor]:
+    """The fused kernels' Welford buffers for ``B`` blocks: the seed (the
+    global means, a ``1/welford_blocks`` share of the weights and the
+    counters), per-block mean outputs, the raw scatters seeded with that
+    share of the global ones (updated in place), and the per-block weights
+    and counters. ``welford_blocks`` counts the blocks of every rank that
+    share the state (default ``B``): on a shard of ``D`` equal ranks, ``B
+    D``, so the ranks' blocks together carry the chunk's starting state
+    once (``littlemcmc_tpu/nuts.py:953-964``)."""
     fgm, fgr, fgw, bgm, bgr, bgw, ns, pu, win = dense_welford
     n = fgm.shape[0]
+    share = float(welford_blocks or B)
     return dict(
         welford_seed=torch.cat([fgm, bgm, torch.stack(
-            [fgw / float(B), bgw / float(B), ns, pu, win])]).contiguous(),
+            [fgw / share, bgw / share, ns, pu, win])]).contiguous(),
         dense_fg_mean=empty(B, n), dense_bg_mean=empty(B, n),
-        dense_fg_raw=(fgr / float(B)).expand(B, n, n).contiguous(),
-        dense_bg_raw=(bgr / float(B)).expand(B, n, n).contiguous(),
+        dense_fg_raw=(fgr / share).expand(B, n, n).contiguous(),
+        dense_bg_raw=(bgr / share).expand(B, n, n).contiguous(),
         welford_out=empty(B, 8))
 
 
@@ -347,7 +355,8 @@ def fused_nuts_plain(q, grad, logp, iter_count, da_log_step, da_log_bar, da_hbar
                      chain_block: int = DEFAULT_CHAIN_BLOCK, collect_trace: bool = True,
                      welford: Optional[Sequence[torch.Tensor]] = None,
                      dense_welford: Optional[Sequence[torch.Tensor]] = None,
-                     fac: Optional[torch.Tensor] = None) -> Dict[str, torch.Tensor]:
+                     fac: Optional[torch.Tensor] = None,
+                     welford_blocks: Optional[int] = None) -> Dict[str, torch.Tensor]:
     """The plain PyTorch op, block by block, on any device."""
     C, n = q.shape
     cb = resolve_chain_block(C, chain_block)
@@ -367,7 +376,8 @@ def fused_nuts_plain(q, grad, logp, iter_count, da_log_step, da_log_bar, da_hbar
         rows = slice(blk * cb, (blk + 1) * cb)
         s = {k: v[rows] for k, v in state.items()}
         qb, gb = q[rows], grad[rows]
-        wel = _BlockWelford(dense_welford, B) if dense_welford is not None else None
+        wel = (_BlockWelford(dense_welford, welford_blocks or B) if dense_welford is not None
+               else None)
         vb = var if metric == "dense" else var[rows]
         dw = DiagWelford(welford).rows(rows) if welford is not None else None
         per_draw = {k: [] for k in STAT_KEYS + ("trace",)}
@@ -532,7 +542,8 @@ def state_results(buf) -> Dict[str, torch.Tensor]:
 
 
 def _launch_kernel(q, grad, scalars, var, linv, seed, *, spec, T, tuning, config, metric,
-                   window_multiplier, chain_block, collect_trace, welford, dense_welford, fac):
+                   window_multiplier, chain_block, collect_trace, welford, dense_welford, fac,
+                   welford_blocks):
     from ._build import launch
 
     C, n = q.shape
@@ -559,7 +570,7 @@ def _launch_kernel(q, grad, scalars, var, linv, seed, *, spec, T, tuning, config
     buf.update(state_buffers(scalars, var, linv, metric, welford, empty, fac))
     adapt_dense = dense_welford is not None
     if adapt_dense:
-        buf.update(welford_buffers(dense_welford, B, empty))
+        buf.update(welford_buffers(dense_welford, B, empty, welford_blocks))
     ints = dict(C=C, n=n, D=D, T=int(T), cb=cb, n_stages=len(a_coef),
                 body=BODY_IDS[spec.body], metric=METRIC_IDS[metric], tuning=int(bool(tuning)),
                 adapting=int(bool(tuning) and config.adapt_step_size),
@@ -595,7 +606,8 @@ def fused_nuts(q, grad, logp, iter_count, da_log_step, da_log_bar, da_hbar, da_c
                chain_block: int = DEFAULT_CHAIN_BLOCK, collect_trace: bool = True,
                welford: Optional[Sequence[torch.Tensor]] = None,
                dense_welford: Optional[Sequence[torch.Tensor]] = None,
-               fac: Optional[torch.Tensor] = None) -> Dict[str, torch.Tensor]:
+               fac: Optional[torch.Tensor] = None, block0: int = 0,
+               welford_blocks: Optional[int] = None) -> Dict[str, torch.Tensor]:
     """``T`` NUTS transitions for every chain, where the tensors lie.
 
     Inputs (float32): ``q, grad`` ``(C, n)``; the per-chain ``logp``,
@@ -623,6 +635,11 @@ def fused_nuts(q, grad, logp, iter_count, da_log_step, da_log_bar, da_hbar, da_c
     (B,)`` (and ``dense_bg_*``) and the shared counters ``n_samples``,
     ``prev_update``, ``window``, for :func:`combine_dense_welford`.
 
+    On a shard of the chains, ``block0`` is the global index of its first
+    chain block (:func:`.nuts_trajectory.shard_seed`) and ``welford_blocks``
+    the chain blocks of all the ranks, which share the pooled dense state
+    (:func:`welford_buffers`).
+
     CPU tensors run :func:`fused_nuts_plain`; CUDA tensors launch the
     kernel (``fused_nuts.launches`` counts those launches) or raise.
     """
@@ -632,7 +649,8 @@ def fused_nuts(q, grad, logp, iter_count, da_log_step, da_log_bar, da_hbar, da_c
     kw = dict(spec=spec, T=T, tuning=tuning, config=config, metric=metric,
               window_multiplier=window_multiplier, chain_block=chain_block,
               collect_trace=collect_trace, welford=welford, dense_welford=dense_welford,
-              fac=fac)
+              fac=fac, welford_blocks=welford_blocks)
+    seed = shard_seed(seed, block0)
     if q.device.type == "cpu":
         return fused_nuts_plain(q, grad, *scalars, var, linv, seed, **kw)
     if q.device.type == "cuda":

@@ -42,7 +42,7 @@ import torch
 from ..integration import INTEGRATOR_COEFFS
 from .nuts_trajectory import (kernel_library, BODY_IDS, MAX_KERNEL_NDIM_DENSE, TrajectorySpec, _rowdot,
                               _seed_words, body_logp_grad, counter_salt, counter_uniform,
-                              int32_bits, metric_velocity, resolve_chain_block)
+                              int32_bits, metric_velocity, resolve_chain_block, shard_seed)
 
 __all__ = ["hmc_trajectory", "hmc_trajectory_plain", "hmc_transition",
            "DEFAULT_HMC_CHAIN_BLOCK", "OUT_KEYS"]
@@ -177,7 +177,7 @@ def _launch_kernel(q, p, grad, logp, eps, n_steps, var, seed, *, spec, Emax, cha
 
 def hmc_trajectory(q, p, grad, logp, eps, n_steps, var, seed, *, spec: TrajectorySpec,
                    Emax: float, chain_block: int = DEFAULT_HMC_CHAIN_BLOCK,
-                   integrator: str = "leapfrog") -> Dict[str, torch.Tensor]:
+                   integrator: str = "leapfrog", block0: int = 0) -> Dict[str, torch.Tensor]:
     """One HMC transition for every chain, where the tensors lie.
 
     Inputs: ``q, p, grad`` ``(C, n)`` float32, ``var`` the ``(C, n)``
@@ -186,12 +186,15 @@ def hmc_trajectory(q, p, grad, logp, eps, n_steps, var, seed, *, spec: Trajector
     Returns the JAX op's dict (``hmc_trajectory_pallas.py:298-308``): the
     selected ``q``, ``grad`` and ``logp``, the end state's ``logp_end`` and
     ``energy``, ``energy_change``, ``accept_stat``, and the bool flags
-    ``accepted`` and ``diverging``.
+    ``accepted`` and ``diverging``. ``block0``: the global index of the
+    first counter-stream block of a shard of the chains
+    (:func:`.nuts_trajectory.shard_seed`).
 
     CPU tensors run :func:`hmc_trajectory_plain`; CUDA tensors launch the
     kernel (``hmc_trajectory.launches`` counts those launches) or raise.
     """
     _check_inputs(spec, q, p, grad, logp, eps, n_steps, var)
+    seed = shard_seed(seed, block0)
     kw = dict(spec=spec, Emax=Emax, chain_block=chain_block, integrator=integrator)
     if q.device.type == "cpu":
         return hmc_trajectory_plain(q, p, grad, logp, eps, n_steps, var, seed, **kw)

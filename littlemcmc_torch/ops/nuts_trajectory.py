@@ -687,6 +687,20 @@ def _seed_words(seed) -> Tuple[int, int]:
     return s0, s1
 
 
+def shard_seed(seed, block0: int):
+    """The seed of a launch on a shard whose first chain block is global
+    block ``block0``, so each chain draws the stream it draws in the
+    unsharded launch. Every kernel and plain version reads its first seed
+    word only as ``seed0 + block*7919`` (mod 2^32, ``counter_salt`` and
+    each ``.cu`` file's salts), so adding ``block0*7919`` to that word
+    salts local block ``b`` as global block ``block0 + b``; ``block0 = 0``
+    leaves the seed as it is."""
+    if not block0:
+        return seed
+    w0, w1 = _seed_words(seed)
+    return ((w0 + int(block0) * 7919) & _M32, w1)
+
+
 def int32_bits(word: int) -> int:
     """A seed word as the int32 whose bits the kernels read as uint32."""
     return (word & _M32) - ((word & 0x80000000) << 1)
@@ -853,7 +867,7 @@ def trajectory(q, p, grad, logp, eps, max_depth_c, var, seed, *,
                spec: TrajectorySpec, max_treedepth: int, Emax: float,
                chain_block: int = DEFAULT_CHAIN_BLOCK,
                integrator: str = "leapfrog", metric: str = "diag",
-               fac: Optional[torch.Tensor] = None) -> Dict[str, torch.Tensor]:
+               fac: Optional[torch.Tensor] = None, block0: int = 0) -> Dict[str, torch.Tensor]:
     """One NUTS transition for every chain, where the tensors lie.
 
     Inputs: ``q, p, grad`` ``(C, n)`` float32; ``var`` the metric:
@@ -866,11 +880,14 @@ def trajectory(q, p, grad, logp, eps, max_depth_c, var, seed, *,
     proposal ``q``/``grad``/``energy``/``logp``, ``log_size``,
     ``log_weighted_accept_sum``, ``max_energy_change``, ``depth`` and
     ``n_leaves`` (int32), ``diverging`` and ``turning`` (bool).
+    ``block0``: the global index of the first chain block of a shard of
+    the chains (:func:`shard_seed`).
 
     CPU tensors run :func:`trajectory_plain`; CUDA tensors launch the
     kernel (``trajectory.launches`` counts those launches) or raise.
     """
     _check_inputs(spec, q, p, grad, logp, eps, max_depth_c, var, metric, fac)
+    seed = shard_seed(seed, block0)
     kw = dict(spec=spec, max_treedepth=max_treedepth, Emax=Emax,
               chain_block=chain_block, integrator=integrator, metric=metric, fac=fac)
     if q.device.type == "cpu":

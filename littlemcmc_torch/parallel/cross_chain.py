@@ -12,6 +12,14 @@ parallel Welford combination (Chan et al.): ``W = sum w_c``,
 ``M = sum w_c m_c / W``, ``raw = sum raw_c + sum w_c (m_c - M)(m_c - M)^T``.
 The pooled diagonal (and the pooled low-rank factor) is stored as one row
 ``expand``-ed over the chains.
+
+Under a mesh each rank holds its own rows of the chain batch; with its
+``group`` a function here all-gathers every rank's per-chain state (and
+the low-rank refresh's samples) in global chain order
+(:func:`~littlemcmc_torch.parallel.distributed.gather_tree`), pools the
+whole batch and keeps this rank's rows, so a sharded run's pooled metric
+has the bits of the unsharded one. Under Gloo a CUDA tensor crosses
+through a host copy.
 """
 
 from __future__ import annotations
@@ -21,9 +29,10 @@ import dataclasses
 import torch
 
 from ..quadpotential import (QuadPotentialDiagAdapt, QuadPotentialFullAdapt,
-                             QuadPotentialLowRankAdapt, _effective_eigenvalues,
+                             QuadPotentialLowRankAdapt, _effective_eigenvalues, _leaves,
                              _orthonormal_columns, cholesky_or_keep)
 from ..math import fp32_matmul
+from .distributed import gather_chains, gather_tree, group_rank_size, local_rows
 
 __all__ = ["cross_chain_potential_pool", "lowrank_boundary_refresh"]
 
@@ -88,8 +97,20 @@ def _pooled_lowrank(pot: QuadPotentialLowRankAdapt, samples: torch.Tensor,
         lam_w=b(lam_w), lam_s2=b(lam_s2), alpha_s2=b(alpha_s2))
 
 
-def lowrank_boundary_refresh(pot: QuadPotentialLowRankAdapt,
-                             samples: torch.Tensor) -> QuadPotentialLowRankAdapt:
+def _over_ranks(fn, potential, samples, group):
+    """``fn(potential, samples)`` on the global chain batch: with a
+    ``group`` of more than one rank, on the metric and samples gathered
+    from every rank, keeping this rank's rows of the result."""
+    if group_rank_size(group)[1] == 1:
+        return fn(potential, samples)
+    local = next(f for f in _leaves(potential) if isinstance(f, torch.Tensor)).shape[0]
+    out = fn(gather_tree(potential, group),
+             None if samples is None else gather_chains(samples, group))
+    return local_rows(out, group, local)
+
+
+def _lowrank_boundary_refresh(pot: QuadPotentialLowRankAdapt,
+                              samples: torch.Tensor) -> QuadPotentialLowRankAdapt:
     """The fused engine's chunk-boundary low-rank refresh (reference
     ``cross_chain.py:97-143``). The fused kernels freeze the shared factor
     for a chunk, so the eigenvalue accumulators see no per-draw
@@ -115,7 +136,15 @@ def lowrank_boundary_refresh(pot: QuadPotentialLowRankAdapt,
     return _pooled_lowrank(pot, samples, inner=3)
 
 
-def cross_chain_potential_pool(potential, tuning: bool, samples: torch.Tensor | None = None):
+def lowrank_boundary_refresh(pot: QuadPotentialLowRankAdapt, samples: torch.Tensor,
+                             group=None) -> QuadPotentialLowRankAdapt:
+    """:func:`_lowrank_boundary_refresh` on ``samples`` ``(C, n)``, over
+    every rank of ``group``'s chains where given."""
+    return _over_ranks(_lowrank_boundary_refresh, pot, samples, group)
+
+
+def cross_chain_potential_pool(potential, tuning: bool, samples: torch.Tensor | None = None,
+                               group=None):
     """Overwrite each chain's metric with the cross-chain pooled estimate.
 
     ``potential`` is a chain-batched metric (leading axis = chains). A
@@ -123,10 +152,16 @@ def cross_chain_potential_pool(potential, tuning: bool, samples: torch.Tensor | 
     Cholesky factorization of the pooled covariance keeps every chain's
     previous factor. ``samples`` (the chains' positions after this step,
     ``(C, n)``) feeds the low-rank metric's batch subspace iteration;
-    without it the low-rank branch pools only the diagonal.
+    without it the low-rank branch pools only the diagonal. ``group``: pool
+    over every rank's chains (the module docstring).
     """
-    if not tuning:
+    if not tuning or not isinstance(potential, (QuadPotentialDiagAdapt, QuadPotentialFullAdapt,
+                                                QuadPotentialLowRankAdapt)):
         return potential
+    return _over_ranks(_pool, potential, samples, group)
+
+
+def _pool(potential, samples: torch.Tensor | None):
     if isinstance(potential, QuadPotentialLowRankAdapt):
         if samples is not None:
             return _pooled_lowrank(potential, samples)
@@ -140,3 +175,4 @@ def cross_chain_potential_pool(potential, tuning: bool, samples: torch.Tensor | 
         return dataclasses.replace(potential, cov=torch.where(ok, cov, potential.cov),
                                    chol=chol)
     return potential
+

@@ -65,10 +65,13 @@ def _leaves(obj) -> list:
     return [getattr(obj, f.name) for f in dataclasses.fields(obj)]
 
 
-def potential_to(potential, device):
-    """A metric with every tensor moved to ``device``."""
+def potential_to(potential, device, dtype=None):
+    """A metric with every tensor moved to ``device`` (and every floating
+    tensor cast to ``dtype``, where given)."""
     def move(x):
         if isinstance(x, torch.Tensor):
+            if dtype is not None and x.is_floating_point():
+                return x.to(device, dtype)
             return x.to(device)
         if dataclasses.is_dataclass(x):
             return dataclasses.replace(x, **{f.name: move(getattr(x, f.name))

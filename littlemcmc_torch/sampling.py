@@ -38,6 +38,12 @@ Outputs match the JAX package: ``trace`` is a ``(chains, draws, ndim)``
 numpy array and ``stats`` maps the reference's stat names to
 ``(chains, draws)`` numpy arrays with the reference's dtypes
 (``littlemcmc_tpu/nuts.py:899-914``, ``sampling.py:127-143``).
+
+Under a ``mesh`` (:mod:`littlemcmc_torch.parallel`) every rank runs the
+same call on its own rows of the chain batch and returns the whole trace
+(``sampling.py:1160-1212``, ``:1516-1520``). ``dtype=torch.float64`` runs
+the tensor-op paths in float64; the kernels are float32-only, so the
+election declines them (``sampling.py:1103``).
 """
 
 from __future__ import annotations
@@ -62,11 +68,14 @@ from .ops.fused_nuts import fused_nuts
 from .ops.hmc_trajectory import DEFAULT_HMC_CHAIN_BLOCK, hmc_trajectory
 from .ops.nuts_trajectory import DEFAULT_CHAIN_BLOCK, trajectory
 from .parallel.cross_chain import cross_chain_potential_pool
+from .parallel.distributed import (all_any, all_sum, broadcast_int, collective_seconds,
+                                   gather_to_host, gather_tree)
+from .parallel.mesh import chain_shard
 from .quadpotential import (QuadPotentialDiag, QuadPotentialDiagAdapt, QuadPotentialFull,
                             QuadPotentialFullAdapt, QuadPotentialFullInv,
                             QuadPotentialLowRankAdapt, potential_to, quad_potential)
 from .report import warnings_from_stats
-from .streams import ChainStreams
+from .streams import ChainStreams, ShardGenerator
 
 __all__ = ["NUTS", "HamiltonianMC", "sample", "init_nuts"]
 
@@ -356,7 +365,8 @@ def init_nuts(logp_dlogp_func=None, model_ndim: Optional[int] = None,
 
 
 def _resolve_spec(step: _StepSpec, logp_grad, lowrank_per_chain: bool, user_fn,
-                  is_logp_only: bool, model_ndim: int, dev: torch.device):
+                  is_logp_only: bool, model_ndim: int, dev: torch.device,
+                  dtype=torch.float32):
     """The model body the kernels inline: the step's spec, or for ``"auto"``
     the model's ``trajectory_spec()``, else on a CUDA device the body
     generated from the user's callable ``user_fn``
@@ -366,8 +376,16 @@ def _resolve_spec(step: _StepSpec, logp_grad, lowrank_per_chain: bool, user_fn,
     user model runs on the tree. ``"auto"`` resolves none for per-chain
     low-rank adaptation, which no kernel runs, as in the JAX package
     (``sampling.py:1077-1105``); unlike it, it resolves the spec for a
-    dense metric (the departure the module docstring gives)."""
+    dense metric (the departure the module docstring gives). The kernels
+    are float32-only: for another ``dtype`` ``"auto"`` resolves none, as
+    the JAX package's auto spec gates on float32 (``sampling.py:1103``),
+    and a spec passed in raises."""
     spec = step.trajectory_spec
+    if dtype != torch.float32:
+        if spec is not None and spec != "auto":
+            raise ValueError(f"the CUDA kernels run float32 only; dtype={dtype} runs on the "
+                             "tensor ops: pass trajectory_spec='auto' or None")
+        return None
     if spec != "auto":
         return spec
     if lowrank_per_chain:
@@ -406,14 +424,14 @@ def _capability_checks(dev: torch.device, fused_auto: bool, lowrank_kernel: bool
 
 
 def _per_draw_factory(kernel, generator: torch.Generator, seeds, pooled: bool,
-                      streams: Optional[ChainStreams] = None):
+                      streams: Optional[ChainStreams] = None, group=None):
     """Chunk runners of the per-draw engine, with the fused factory's
     contract: ``run_chunk(state, iter0) -> (state, (trace, info) | None,
     ndiv)``; a pooled metric is pooled after every tuning draw (the
     low-rank one with the draw's positions, reference ``sampling.py:
     575-580``). With a seed list's ``streams`` each draw takes its own
     :class:`~littlemcmc_torch.streams.DrawStream` in place of
-    ``generator``."""
+    ``generator``. ``group``: the pool is over every rank's chains."""
 
     def factory(chunk: int, tuning: bool, collect: bool):
         def run_chunk(state, iter0: int):
@@ -424,7 +442,7 @@ def _per_draw_factory(kernel, generator: torch.Generator, seeds, pooled: bool,
                 if pooled and tuning:
                     state = dataclasses.replace(
                         state, potential=cross_chain_potential_pool(state.potential, True,
-                                                                    state.q))
+                                                                    state.q, group=group))
                 ndiv = ndiv + info.diverging.sum(dtype=torch.int32)
                 if collect:
                     qs.append(state.q)
@@ -483,7 +501,7 @@ def _run_chunked(factory, state, tune: int, draws: int, collect_tune: bool, *,
                  done: int = 0, ndiv=0, chunk: int = _AUTO_CHUNK, aligned: bool = False,
                  progress_every: Optional[int] = None, progress: bool = False,
                  checkpoint_every: Optional[int] = None, save=None, callback=None,
-                 chains: int = 0):
+                 chains: int = 0, count=int):
     """Run transitions ``done`` to ``tune + draws`` chunk by chunk (the
     reference's ``_run_chunked``, ``sampling.py:686-876``).
 
@@ -498,8 +516,9 @@ def _run_chunked(factory, state, tune: int, draws: int, collect_tune: bool, *,
     iteration, tuning, states, chunk, n_divergences)``, called after every
     chunk, needs it. A ``KeyboardInterrupt`` returns the chunks completed
     so far and, with ``save``, checkpoints the last completed chunk's state.
-    Returns the state, the collected ``(trace, info)`` chunks and the
-    divergence count.
+    ``count`` reads ``ndiv`` on the host (under a mesh, summed over the
+    ranks). Returns the state, the collected ``(trace, info)`` chunks and
+    the divergence count.
     """
     total = tune + draws
     outs = []
@@ -525,7 +544,7 @@ def _run_chunked(factory, state, tune: int, draws: int, collect_tune: bool, *,
             due_checkpoint = next_checkpoint is not None and done >= next_checkpoint
             n_div = None
             if callback is not None or due_checkpoint or (due_progress and progress):
-                n_div = int(ndiv)
+                n_div = count(ndiv)
             if callback is not None:
                 callback(iteration=done, tuning=tuning, states=state, chunk=out,
                          n_divergences=n_div)
@@ -541,18 +560,17 @@ def _run_chunked(factory, state, tune: int, draws: int, collect_tune: bool, *,
         _log.warning("Sampling interrupted at iteration %d/%d: returning the %d chunk(s) "
                      "collected so far.", done, total, len(outs))
         if save:
-            save(state, done, int(ndiv))
+            save(state, done, count(ndiv))
             _log.warning("Saved an interrupt checkpoint at iteration %d.", done)
     return state, outs, ndiv
 
 
 # The JAX ``sample()``'s arguments that the port names but does not run
-# yet: each one's default there (``littlemcmc_tpu/sampling.py:897-899``)
-# and the ROADMAP Queue 1 item that ports it. Any other value raises.
-_UNPORTED_ARGUMENTS = {
-    "mesh": (None, 14), "chain_axis": ("chains", 14), "model_axis": (None, 14),
-    "dtype": (torch.float32, 17),
-}
+# yet: each one's default there (``littlemcmc_tpu/sampling.py:899``) and
+# the ROADMAP Queue 1 item that ports it. Any other value raises.
+_UNPORTED_ARGUMENTS = {"model_axis": (None, 18)}
+
+_DTYPES = (torch.float32, torch.float64)
 
 
 def sample(
@@ -601,10 +619,33 @@ def sample(
     ``"cuda"`` and raises when no CUDA device exists; ``device="cpu"`` runs
     the kernels' plain PyTorch versions. ``cores``, ``chain_idx``,
     ``mp_ctx`` and ``pickle_backend`` are accepted and ignored, as in the
-    JAX package. ``mesh``, ``chain_axis``, ``model_axis`` and ``dtype``
-    take the JAX package's defaults (``dtype`` float32); any other value
-    raises ``NotImplementedError`` naming the ROADMAP item that ports it.
+    JAX package. ``model_axis`` takes the JAX package's default (None);
+    any other value raises ``NotImplementedError`` naming the ROADMAP item
+    that ports it.
 
+    - ``mesh``, ``chain_axis``: a ``DeviceMesh`` with a dimension
+      ``chain_axis`` (:func:`~littlemcmc_torch.parallel.chain_mesh`, one
+      rank per device; every rank makes the same call). ``chains`` must
+      split evenly over that dimension; rank ``r`` samples global chains
+      ``[r C/D, (r+1) C/D)`` on ``device``, the engine elected on that
+      per-rank count. Every rank draws the whole batch's starts and
+      momenta from the shared seed and keeps its rows, the kernels salt
+      each chain block with its global index, pooled adaptation pools over
+      every rank's chains, and the trace and stats are gathered, so every
+      rank returns the whole ``(chains, draws, ndim)`` trace, which is the
+      unsharded run's bit for bit wherever the per-rank chain count blocks
+      as the whole does (a multiple of the chain block) and the device
+      gives a row the same bits whatever the batch's length: the card
+      does; PyTorch's vectorized CPU kernels round a batch's last partial
+      vector of a transcendental function otherwise than its full ones,
+      so on the CPU with ``ATEN_CPU_CAPABILITY=default``; with
+      ``return_final_state`` the whole final state too. ``random_seed=None``
+      takes rank 0's new seed. A checkpoint holds one file per rank in a
+      directory that all ranks share. An interrupt must reach every rank.
+    - ``dtype``: ``torch.float32`` or ``torch.float64``. The kernels are
+      float32-only: float64 runs the tensor-op tree (or HMC's tensor-op
+      trajectory) on the model's tensor version, with a float64 trace, and
+      ``fuse_draws=True`` raises.
     - ``random_seed``: an int (or a 0-d array, or None for a new one) seeds
       the run; a sequence with one seed per chain gives each chain its own
       counter stream (:mod:`littlemcmc_torch.streams`): on the tensor-op
@@ -668,18 +709,21 @@ def sample(
       HMC's tensor-op trajectory), ``chain_block``, ``chunk`` (draws per chunk),
       ``kernel_launches`` (launches of each of the step method's kernels in
       this call, by kernel name), ``sample_seconds`` (the chunk loop;
-      CUDA events on the card) and ``transfer_seconds`` (the trace's and
-      stats' fetch to the host).
+      CUDA events on the card), ``transfer_seconds`` (the trace's and
+      stats' fetch to the host, with their gather under a mesh), ``ranks``,
+      ``backend`` (the mesh's process-group backend, None without a mesh)
+      and ``collective_seconds`` (this rank's time in collectives).
 
     Returns ``(trace, stats)`` (plus the final ``ChainState`` with
     ``return_final_state``).
     """
     del cores, chain_idx, mp_ctx, pickle_backend
-    given = dict(mesh=mesh, chain_axis=chain_axis, model_axis=model_axis, dtype=dtype)
+    given = dict(model_axis=model_axis)
     for name, (default, item) in _UNPORTED_ARGUMENTS.items():
-        value = given[name]
-        if not (value is default or (isinstance(default, str) and value == default)):
+        if given[name] is not default:
             raise NotImplementedError(f"`{name}` is ROADMAP Queue 1 item {item}.")
+    if dtype not in _DTYPES:
+        raise ValueError(f"dtype must be torch.float32 or torch.float64, got {dtype}")
     if resume and not checkpoint_dir:
         raise ValueError("resume=True requires checkpoint_dir")
     dev = resolve_device(device)
@@ -689,6 +733,11 @@ def sample(
             model_ndim = step.model_ndim
         else:
             raise ValueError("model_ndim is required.")
+    shard = None if mesh is None else chain_shard(mesh, chain_axis, chains)
+    group = None if shard is None else shard.group
+    sharded = shard is not None and shard.size > 1
+    local = chains if shard is None else shard.local
+    collective0 = collective_seconds()
     if draws == 0:
         _log.warning("Tuning was enabled throughout the whole trace.")
     elif draws < 500:
@@ -720,19 +769,26 @@ def sample(
                else step.logp_dlogp_func if step.logp_dlogp_func is not None else logp_fn)
     spec = _resolve_spec(step, logp_grad, lowrank and not pooled, user_fn,
                          logp_dlogp_func is None and step.logp_dlogp_func is None,
-                         model_ndim, dev)
+                         model_ndim, dev, dtype)
 
+    if random_seed is None and sharded:
+        # every rank draws the whole batch from one seed: rank 0's
+        # (littlemcmc_tpu/sampling.py:997-1003)
+        random_seed = broadcast_int(np.random.randint(2 ** 30), group)
     chain_seeds = _chain_seeds(random_seed, chains)
     seed = _as_seed(random_seed)
     # one generator on the device for starts and momenta, one on the host
     # for the kernels' counter-stream seeds; a seed list's chains draw from
-    # their own streams instead
+    # their own streams instead (under a mesh, this rank's chains' seeds)
     gen = torch.Generator(device=dev).manual_seed(seed)
     host_gen = torch.Generator().manual_seed(seed + 1)
-    streams = None if chain_seeds is None else ChainStreams(chain_seeds, dev, gen)
+    streams = None
+    if chain_seeds is not None:
+        lo = 0 if shard is None else shard.lo
+        streams = ChainStreams(chain_seeds[lo:lo + local], dev, gen)
 
     if start is not None:
-        start = torch.as_tensor(start, dtype=torch.float32, device=dev)
+        start = torch.as_tensor(start, dtype=dtype, device=dev)
         if start.ndim == 1:
             starts = start.expand(chains, model_ndim).clone()
         elif tuple(start.shape) != (chains, model_ndim):
@@ -740,15 +796,21 @@ def sample(
                              f"got {tuple(start.shape)}")
         else:
             starts = start
+    elif init_l.startswith("jitter") and streams is not None:
+        # this rank's chains' own streams
+        starts = 2.0 * streams.draw(-1).uniform((model_ndim,), dtype) - 1.0
     elif init_l.startswith("jitter"):
-        u = (torch.rand((chains, model_ndim), generator=gen, device=dev) if streams is None
-             else streams.draw(-1).uniform((model_ndim,)))
-        starts = 2.0 * u - 1.0
+        starts = 2.0 * torch.rand((chains, model_ndim), generator=gen, device=dev,
+                                  dtype=dtype) - 1.0
     else:
-        starts = torch.zeros((chains, model_ndim), device=dev)
+        starts = torch.zeros((chains, model_ndim), dtype=dtype, device=dev)
+    if shard is not None and starts.shape[0] != local:
+        # every rank computed the whole batch's starts; it keeps its rows
+        # (littlemcmc_tpu/sampling.py:1189-1194)
+        starts = shard.rows(starts)
 
     if step.potential is not None:
-        potential = potential_to(step.potential, dev).broadcast(chains)
+        potential = potential_to(step.potential, dev, dtype).broadcast(local)
     else:
         potential = _make_adaptive_potential(kind, starts)
     dense = isinstance(potential, _DENSE)
@@ -758,18 +820,22 @@ def sample(
     # adaptation and QuadPotentialFullInv run on tensor ops
     kernel_metric = trajectory_metric(potential, pooled) is not None
     hmc = isinstance(step, HamiltonianMC)
-    # the JAX election (sampling.py:1237-1300): the fused kernels run a
-    # model with a spec, at a chain count that blocks into rows of 8, with
-    # a dense metric, the pooled low-rank one or a diagonal one (a static
-    # diagonal is not pooled); fuse_draws=None takes a diagonal metric
-    # there only where the JAX kernels pack lanes (elect_fused_engine,
-    # sampling.py:660-683)
-    fusable = (spec is not None and kernel_metric and _usable_chain_count(chains)
+    # the JAX election (sampling.py:1237-1300), on this rank's chains
+    # (:1070-1074, :1246-1248): the fused kernels run a model with a spec,
+    # at a chain count that blocks into rows of 8, with a dense metric, the
+    # pooled low-rank one or a diagonal one (a static diagonal is not
+    # pooled); fuse_draws=None takes a diagonal metric there only where the
+    # JAX kernels pack lanes (elect_fused_engine, sampling.py:660-683)
+    fusable = (spec is not None and kernel_metric and _usable_chain_count(local)
                and (not diag or not pooled or isinstance(potential, QuadPotentialDiagAdapt)))
     if fuse_draws is True and config.step_rand is not None:
         raise ValueError("fuse_draws=True but the step has a step_rand hook: the fused "
                          "kernels draw no host-side step sizes (reference "
                          "sampling.py:1241, 1338); pass fuse_draws=None or False.")
+    if fuse_draws is True and dtype != torch.float32:
+        raise ValueError(f"fuse_draws=True but dtype={dtype}: the fused kernels run float32 "
+                         "only (the JAX package's auto spec gates on float32, "
+                         "sampling.py:1103); pass fuse_draws=None or False.")
     fusable = fusable and config.step_rand is None
     if fuse_draws is True and not fusable:
         raise ValueError(
@@ -778,11 +844,11 @@ def sample(
             "CorrelatedGaussian, SpikedGaussian, EightSchools, LogisticRegression, "
             "NealsFunnel, NonCenteredFunnel, HierarchicalRegression, or on the card a "
             "body generated from the model), a "
-            "chain count that blocks into chain blocks of at least 8, and a diagonal "
-            "metric (a static diagonal one not pooled across chains), a static "
+            "chain count per rank that blocks into chain blocks of at least 8, and a "
+            "diagonal metric (a static diagonal one not pooled across chains), a static "
             "QuadPotentialFull or a pooled adaptive dense or low-rank metric.")
     if fuse_draws is None:
-        fused = fusable and (not diag or _resolve_pack(spec, model_ndim, chains) > 1)
+        fused = fusable and (not diag or _resolve_pack(spec, model_ndim, local) > 1)
     else:
         fused = bool(fuse_draws)
     metric_tag = "dense" if dense else "diag" if diag else "lowrank"
@@ -795,8 +861,8 @@ def sample(
     batched_fn = getattr(step, "batched_logp_dlogp_func", None) or batched(logp_grad)
     state = init_chain_state(starts, potential, config, batched_fn)
     # fail fast on a bad start, as the reference's "Bad initial energy"
-    # check (base_hmc.py:145-148), for all chains at once
-    if not bool(torch.isfinite(state.logp).all()):
+    # check (base_hmc.py:145-148), for all chains (of every rank) at once
+    if all_any(~torch.isfinite(state.logp), group):
         raise ValueError(
             "Bad initial energy: model log-probability is not finite at the "
             "starting point. The model might be misspecified.")
@@ -811,13 +877,13 @@ def sample(
         words = torch.randint(-2 ** 31, 2 ** 31, (2,), generator=host_gen,
                               dtype=torch.int64).tolist()
         build = build_fused_hmc_runner_factory if hmc else build_fused_nuts_runner_factory
-        factory = build(config, spec, potential, pooled, words)
+        factory = build(config, spec, potential, pooled, words, shard=shard)
     else:
         if hmc:
             # the per-draw HMC kernel is diagonal-only (reference
             # sampling.py:287-298, 1350-1353)
             hmc_spec = spec if diag else None
-            kernel = build_hmc_kernel(batched_fn, config, hmc_spec)
+            kernel = build_hmc_kernel(batched_fn, config, hmc_spec, shard=shard)
             if hmc_spec is None:
                 trajectory_kind = "tensor"
             else:
@@ -825,12 +891,17 @@ def sample(
         else:
             nuts_spec = spec if kernel_metric else None
             kernel = build_nuts_kernel(config, nuts_spec, pooled_metric=pooled,
-                                       batched_logp_grad_fn=batched_fn)
+                                       batched_logp_grad_fn=batched_fn, shard=shard)
             if nuts_spec is None:
                 trajectory_kind = "tensor"
         seeds = torch.randint(-2 ** 31, 2 ** 31, (tune + draws, 2),
                               generator=host_gen, dtype=torch.int64).tolist()
-        factory = _per_draw_factory(kernel, gen, seeds, pooled, streams)
+        factory = _per_draw_factory(kernel, ShardGenerator(gen, shard) if sharded else gen,
+                                    seeds, pooled, streams, group)
+
+    def count(ndiv) -> int:
+        """The divergences so far, over every rank."""
+        return all_sum(int(ndiv), group)
 
     done0, ndiv0 = 0, 0
     if resume:
@@ -838,14 +909,15 @@ def sample(
 
         path = latest_checkpoint(checkpoint_dir)
         if path is not None:
-            state, meta = restore_checkpoint(path, state)
+            state, meta = restore_checkpoint(path, state, group=group)
             done0 = int(meta.get("step", 0))
-            ndiv0 = torch.tensor(int(meta.get("n_divergences", 0)), dtype=torch.int32,
-                                 device=dev)
+            # the checkpoint's count (every rank's) resumes on rank 0's counter
+            n_div = int(meta.get("n_divergences", 0)) if shard is None or shard.rank == 0 else 0
+            ndiv0 = torch.tensor(n_div, dtype=torch.int32, device=dev)
             gen.set_state(meta["extra"]["generator"])
             if fused:
                 factory = build(config, spec, potential, pooled,
-                                [int(w) for w in meta["extra"]["seed_words"]])
+                                [int(w) for w in meta["extra"]["seed_words"]], shard=shard)
             _log.info("Resumed from %s at iteration %d/%d.", path, done0, tune + draws)
     save = None
     if checkpoint_dir:
@@ -855,7 +927,8 @@ def sample(
             save_checkpoint(checkpoint_dir, st, done,
                             meta={"n_divergences": n_div, "tune": tune, "draws": draws},
                             extra={"generator": gen.get_state(),
-                                   "seed_words": words if fused else None})
+                                   "seed_words": words if fused else None},
+                            group=group)
     chunk = _base_chunk(progress_every, checkpoint_every if checkpoint_dir else None)
     if progressbar:
         _log.info("Sampling %d chains (%d tune + %d draws) on %s, engine %s...",
@@ -870,7 +943,8 @@ def sample(
         factory, state, tune, draws, collect_tune=not discard_tuned_samples, done=done0,
         ndiv=ndiv0, chunk=chunk, aligned=chunk != _AUTO_CHUNK or done0 > 0,
         progress_every=progress_every, progress=bool(progressbar),
-        checkpoint_every=checkpoint_every, save=save, callback=callback, chains=chains)
+        checkpoint_every=checkpoint_every, save=save, callback=callback, chains=chains,
+        count=count)
     if on_card:
         ev1.record()
         ev1.synchronize()
@@ -880,13 +954,22 @@ def sample(
 
     dtypes = step.stats_dtypes[0]
     t_xfer = time.perf_counter()
+
+    def fetch(x: torch.Tensor) -> np.ndarray:
+        """A ``(local, ...)`` chunk on the device as the whole batch's
+        ``(chains, ...)`` array on the host (gathered under a mesh,
+        ``littlemcmc_tpu/sampling.py:1516-1520``)."""
+        return gather_to_host(x, group).numpy()
+
     if outs:
-        trace = torch.cat([o[0] for o in outs]).transpose(0, 1).cpu().numpy()
-        stats = {name: torch.cat([getattr(o[1], name) for o in outs]).transpose(0, 1)
-                 .cpu().numpy().astype(dt) for name, dt in dtypes.items()}
+        trace = fetch(torch.cat([o[0] for o in outs]).transpose(0, 1))
+        stats = {name: fetch(torch.cat([getattr(o[1], name) for o in outs]).transpose(0, 1))
+                 .astype(dt) for name, dt in dtypes.items()}
     else:
-        trace = np.zeros((chains, 0, model_ndim), np.float32)
+        trace = np.zeros((chains, 0, model_ndim), torch.empty(0, dtype=dtype).numpy().dtype)
         stats = {name: np.zeros((chains, 0), dt) for name, dt in dtypes.items()}
+    if return_final_state and sharded:
+        state = gather_tree(state, group)
     transfer = time.perf_counter() - t_xfer
     expected = draws + (0 if discard_tuned_samples else tune)
     if resume and trace.shape[1] < expected:
@@ -905,10 +988,13 @@ def sample(
                              for name, op in counters.items()},
             sample_seconds=elapsed,
             transfer_seconds=transfer,
+            ranks=1 if shard is None else shard.size,
+            backend=None if shard is None else torch.distributed.get_backend(group),
+            collective_seconds=collective_seconds() - collective0,
         )
     if progressbar:
         _log.info("Done in %.2fs (%.0f transitions/s, %d divergences).", elapsed,
-                  chains * (tune + draws) / elapsed, int(ndiv))
+                  chains * (tune + draws) / elapsed, count(ndiv))
 
     step._last_stats = stats
     step._last_tune = 0 if discard_tuned_samples else tune

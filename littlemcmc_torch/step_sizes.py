@@ -30,10 +30,10 @@ class DualAverageState:
         return torch.exp(self.log_step if adapting else self.log_bar)
 
 
-def dual_average_init(initial_step: float, chains: int,
-                      device=None) -> DualAverageState:
-    """``chains`` identical states starting at ``initial_step``."""
-    step = torch.full((chains,), initial_step, dtype=torch.float32, device=device)
+def dual_average_init(initial_step: float, chains: int, device=None,
+                      dtype=torch.float32) -> DualAverageState:
+    """``chains`` identical states starting at ``initial_step``, in ``dtype``."""
+    step = torch.full((chains,), initial_step, dtype=dtype, device=device)
     log_step = torch.log(step)
     return DualAverageState(
         log_step=log_step,

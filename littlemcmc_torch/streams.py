@@ -14,6 +14,14 @@ take where they otherwise take a ``torch.Generator``: its momenta
 (:func:`randn`), uniforms (:func:`rand`) and the NUTS tree's keyed random
 source (:func:`tree_random`). A run with one master seed keeps its
 ``torch.Generator`` and draws nothing from here.
+
+Under a mesh a seed list gives each rank its own chains' seeds, by global
+chain index; a run with one master seed wraps its generator in a
+:class:`ShardGenerator`, which draws the whole chain batch on every rank
+and keeps the rank's rows, so each rank's chains draw what they draw in
+the unsharded run. (On the CPU a row's bits can depend on the batch's
+length, which PyTorch's vectorized kernels split into full vectors and a
+tail: ``ATEN_CPU_CAPABILITY=default`` makes them agree.)
 """
 
 from __future__ import annotations
@@ -23,8 +31,8 @@ from typing import Sequence
 
 import torch
 
-__all__ = ["ChainStreams", "DrawStream", "KeyedTreeRandom", "randn", "rand", "tree_random",
-           "torch_generator"]
+__all__ = ["ChainStreams", "DrawStream", "KeyedTreeRandom", "ShardGenerator", "randn", "rand",
+           "tree_random", "torch_generator"]
 
 _M32 = 0xFFFFFFFF
 _GOLDEN = 0x9E3779B9
@@ -108,18 +116,37 @@ class KeyedTreeRandom:
         return _unit(_mix(keys, 0x6000), torch.float32)
 
 
+class ShardGenerator:
+    """A rank's view of the run's ``torch.Generator`` under a mesh: every
+    draw is made for all ``shard.chains`` chains, the same on every rank,
+    and the rank keeps its rows (``shard``: a
+    :class:`~littlemcmc_torch.parallel.mesh.ChainShard`)."""
+
+    def __init__(self, generator: torch.Generator, shard):
+        self.generator, self.shard = generator, shard
+
+
 def randn(shape, generator, dtype, device) -> torch.Tensor:
     """Standard normals of ``shape`` (chains first) from a
-    ``torch.Generator`` or a :class:`DrawStream`."""
+    ``torch.Generator``, a :class:`ShardGenerator` or a :class:`DrawStream`."""
     if isinstance(generator, DrawStream):
         return generator.normal(tuple(shape[1:]), dtype)
+    if isinstance(generator, ShardGenerator):
+        full = torch.randn((generator.shard.chains,) + tuple(shape[1:]),
+                           generator=generator.generator, dtype=dtype, device=device)
+        return generator.shard.rows(full)
     return torch.randn(shape, generator=generator, dtype=dtype, device=device)
 
 
 def rand(chains: int, generator, dtype, device) -> torch.Tensor:
-    """``(chains,)`` uniforms from a ``torch.Generator`` or a :class:`DrawStream`."""
+    """``(chains,)`` uniforms from a ``torch.Generator``, a
+    :class:`ShardGenerator` or a :class:`DrawStream`."""
     if isinstance(generator, DrawStream):
         return generator.uniform((), dtype)
+    if isinstance(generator, ShardGenerator):
+        full = torch.rand(generator.shard.chains, generator=generator.generator, dtype=dtype,
+                          device=device)
+        return generator.shard.rows(full)
     return torch.rand(chains, generator=generator, dtype=dtype, device=device)
 
 
@@ -129,9 +156,14 @@ def tree_random(generator, chains: int, device):
         return KeyedTreeRandom(), generator.next_keys()
     from .nuts import GeneratorTreeRandom
 
+    if isinstance(generator, ShardGenerator):
+        return GeneratorTreeRandom(generator.generator, chains, device,
+                                   shard=generator.shard), None
     return GeneratorTreeRandom(generator, chains, device), None
 
 
 def torch_generator(generator) -> torch.Generator:
     """The ``torch.Generator`` behind ``generator`` (a ``step_rand`` hook's)."""
-    return generator.generator if isinstance(generator, DrawStream) else generator
+    if isinstance(generator, (DrawStream, ShardGenerator)):
+        return generator.generator
+    return generator

@@ -18,6 +18,14 @@ Each checkpoint is a directory ``step_%08d`` under the checkpoint
 directory holding ``state.pt`` and the JSON meta file; it is written under
 a temporary name and renamed into place, so :func:`latest_checkpoint`
 never sees half of one.
+
+Under a mesh (``group``, the chain dimension's process group; JAX's
+``utils/checkpoint.py:10-14, 67-76``) every rank writes its own rows as
+``state_rank%d.pt`` into one temporary step directory on a filesystem that
+all ranks share; after a barrier rank 0 writes the meta file (with the rank
+count) and renames the directory into place, and a second barrier holds
+every rank until it is there. A resume restores each rank's file and
+refuses a checkpoint of another rank count.
 """
 
 from __future__ import annotations
@@ -32,6 +40,7 @@ from typing import Any, Dict, Optional
 import torch
 
 from ..base import ChainState
+from ..parallel.distributed import barrier, group_rank_size
 from ..quadpotential import (QuadPotentialDiag, QuadPotentialDiagAdapt, QuadPotentialFull,
                              QuadPotentialFullAdapt, QuadPotentialFullInv,
                              QuadPotentialLowRankAdapt, WelfordCovariance, WelfordVariance)
@@ -88,12 +97,18 @@ def _unpack(x, device):
     return x
 
 
+def _state_name(group) -> str:
+    rank, size = group_rank_size(group)
+    return _STATE_NAME if size == 1 else f"state_rank{rank}.pt"
+
+
 def save_checkpoint(directory: str, state: ChainState, step: int,
                     meta: Optional[Dict[str, Any]] = None,
-                    extra: Optional[Dict[str, Any]] = None) -> str:
+                    extra: Optional[Dict[str, Any]] = None, group=None) -> str:
     """Snapshot ``state`` (and JSON ``meta``, and the tensors and numbers
     of ``extra``) as checkpoint ``step`` under ``directory``; returns its
-    path. An existing checkpoint of that step is replaced."""
+    path. An existing checkpoint of that step is replaced. ``group``: every
+    rank of it calls this with its own rows (the module docstring)."""
     path = _ckpt_path(directory, step)
     payload = {
         "format": _FORMAT,
@@ -103,6 +118,9 @@ def save_checkpoint(directory: str, state: ChainState, step: int,
         "extra": _pack(extra or {}),
     }
     parent = os.path.dirname(path)
+    rank, size = group_rank_size(group)
+    if size > 1:
+        return _save_sharded(payload, path, step, meta, group, rank, size)
     os.makedirs(parent, exist_ok=True)
     tmp = tempfile.mkdtemp(prefix=".tmp_step_", dir=parent)
     try:
@@ -118,6 +136,26 @@ def save_checkpoint(directory: str, state: ChainState, step: int,
     return path
 
 
+def _save_sharded(payload, path: str, step: int, meta, group, rank: int, size: int) -> str:
+    """Every rank's file into one temporary directory, then rank 0's
+    rename into place, between barriers."""
+    tmp = os.path.join(os.path.dirname(path), f".tmp_step_{step:08d}")
+    if rank == 0:
+        shutil.rmtree(tmp, ignore_errors=True)
+        os.makedirs(tmp)
+    barrier(group)
+    torch.save(payload, os.path.join(tmp, _state_name(group)))
+    barrier(group)
+    if rank == 0:
+        with open(os.path.join(tmp, _META_NAME), "w") as f:
+            json.dump({"step": int(step), "ranks": size, **(meta or {})}, f)
+        if os.path.isdir(path):
+            shutil.rmtree(path)
+        os.replace(tmp, path)
+    barrier(group)
+    return path
+
+
 def latest_checkpoint(directory: str) -> Optional[str]:
     """The most recent ``step_*`` checkpoint path in ``directory``, or None."""
     directory = os.path.abspath(directory)
@@ -128,7 +166,8 @@ def latest_checkpoint(directory: str) -> Optional[str]:
     return os.path.join(directory, steps[-1]) if steps else None
 
 
-def restore_checkpoint(path: str, template: Optional[ChainState] = None, device=None):
+def restore_checkpoint(path: str, template: Optional[ChainState] = None, device=None,
+                       group=None):
     """Restore a state saved by :func:`save_checkpoint`; returns ``(state,
     meta)``, ``meta`` the JSON meta with the payload's ``extra`` under
     ``"extra"``.
@@ -136,8 +175,18 @@ def restore_checkpoint(path: str, template: Optional[ChainState] = None, device=
     The tensors go to ``device``, else to ``template``'s device (the CPU
     without either). ``template`` (e.g. a freshly initialized state) is
     checked against the checkpoint: the same metric class and the same
-    position shape, else ``ValueError``."""
-    payload = torch.load(os.path.join(path, _STATE_NAME), map_location="cpu",
+    position shape, else ``ValueError``. ``group``: this rank's file of a
+    checkpoint of as many ranks."""
+    size = group_rank_size(group)[1]
+    meta = {}
+    meta_file = os.path.join(path, _META_NAME)
+    if os.path.exists(meta_file):
+        with open(meta_file) as f:
+            meta = json.load(f)
+    if int(meta.get("ranks", 1)) != size:
+        raise ValueError(f"{path} was written by {meta.get('ranks', 1)} rank(s); this run has "
+                         f"{size}")
+    payload = torch.load(os.path.join(path, _state_name(group)), map_location="cpu",
                          weights_only=True)
     if payload.get("format") != _FORMAT:
         raise ValueError(f"{path}: not a littlemcmc_torch checkpoint of format {_FORMAT}")
@@ -154,10 +203,5 @@ def restore_checkpoint(path: str, template: Optional[ChainState] = None, device=
         if tuple(state.q.shape) != tuple(template.q.shape):
             raise ValueError(f"{path} holds positions of shape {tuple(state.q.shape)}; this "
                              f"run has {tuple(template.q.shape)}")
-    meta = {}
-    meta_file = os.path.join(path, _META_NAME)
-    if os.path.exists(meta_file):
-        with open(meta_file) as f:
-            meta = json.load(f)
     meta["extra"] = _unpack(payload.get("extra", {}), "cpu")
     return state, meta

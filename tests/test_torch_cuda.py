@@ -974,7 +974,9 @@ def test_kernels_refuse_an_unknown_body(hopper, monkeypatch, kernel):
     invalid-argument error, raised by the wrapper), never run as another
     body."""
     from littlemcmc_torch.base import HMCConfig, NUTSConfig
-    from littlemcmc_torch.ops import fused_hmc, fused_nuts, hmc_trajectory
+    from littlemcmc_torch.ops.fused_hmc import fused_hmc
+    from littlemcmc_torch.ops.fused_nuts import fused_nuts
+    from littlemcmc_torch.ops.hmc_trajectory import hmc_trajectory
     from littlemcmc_torch.ops.nuts_trajectory import BODY_IDS
 
     model = tm.StandardNormal(4)
@@ -1586,3 +1588,74 @@ def test_linear_regression_on_the_card(hopper):
     flat = trace.reshape(-1, 3)
     assert np.all(np.abs(flat.mean(0) - exact["mean"]) < 0.1 * exact["sd"])
     np.testing.assert_allclose(flat.std(0), exact["sd"], rtol=0.1)
+
+
+# A shard of the chains (a rank's rows under a mesh) launches each kernel
+# with ``block0``, the global index of its first chain block: every kernel
+# salts its counter stream with the block index, so ``block0`` makes each
+# block draw what it draws in the unsharded launch. The fused ops' pooled
+# dense state is shared by every rank's blocks (``welford_blocks``).
+def _shard_args(name, model, C, dev):
+    from chip_smoke import _fused_inputs, _welford_seed
+
+    n = model.ndim
+    if name == "nuts_trajectory":
+        per_chain = _inputs(model, np.linalg.cholesky(model.cov), C, 10, 0.2, 7, dev)
+        return per_chain, (), dict(spec=model.trajectory_spec(), max_treedepth=10,
+                                   Emax=1000.0, chain_block=8)
+    if name == "hmc_trajectory":
+        per_chain = _hmc_inputs(model, np.linalg.cholesky(model.cov), C, 0.2, 7)
+        return per_chain, (), dict(spec=model.trajectory_spec(), Emax=1000.0, chain_block=16)
+    from littlemcmc_torch.base import HMCConfig, NUTSConfig
+
+    args = _fused_inputs(model, C, 7)
+    config = NUTSConfig() if name == "fused_nuts" else HMCConfig()
+    return args[:9], args[9:], dict(spec=model.trajectory_spec(), T=4, tuning=True,
+                                    config=config, metric="dense", chain_block=8,
+                                    dense_welford=_welford_seed(model))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("name", ["nuts_trajectory", "fused_nuts", "hmc_trajectory",
+                                  "fused_hmc"])
+def test_block0_keeps_the_bits_and_a_shard_gives_the_unsharded_rows(hopper, name):
+    """Rows 1, 2 (dense, an ``adapt_dense`` tune chunk), 3 and 4 (dense,
+    likewise) on the 100-d correlated Gaussian at 64 chains: ``block0=0``
+    gives the default launch's bits, and the two halves of the chains,
+    launched apart with ``block0`` 0 and half the blocks (and the fused ops'
+    ``welford_blocks`` the whole launch's blocks), give the whole launch's
+    rows, draws and block Welford states bit for bit."""
+    from littlemcmc_torch.ops.fused_hmc import fused_hmc
+    from littlemcmc_torch.ops.fused_nuts import fused_nuts
+    from littlemcmc_torch.ops.hmc_trajectory import hmc_trajectory
+
+    op = {"nuts_trajectory": trajectory, "fused_nuts": fused_nuts,
+          "hmc_trajectory": hmc_trajectory, "fused_hmc": fused_hmc}[name]
+    C, half = 64, 32
+    model = tm.CorrelatedGaussian(100)
+    per_chain, shared, kw = _shard_args(name, model, C, hopper)
+    fused = name.startswith("fused")
+    cb = kw["chain_block"]
+    seed = (21, -5)
+    full = op(*per_chain, *shared, seed, **kw)
+    again = op(*per_chain, *shared, seed, block0=0, **kw)
+    for k, v in full.items():
+        if isinstance(v, torch.Tensor):
+            assert torch.equal(v, again[k]), k
+    for lo in (0, half):
+        rows = slice(lo, lo + half)
+        extra = dict(welford_blocks=C // cb) if fused else {}
+        part = op(*(a[rows] for a in per_chain), *shared, seed, block0=lo // cb, **extra,
+                  **kw)
+        for k, v in full.items():
+            if not isinstance(v, torch.Tensor):
+                continue
+            if k.startswith("dense_"):  # per block
+                want = v[lo // cb:(lo + half) // cb]
+            elif v.ndim == 0:
+                want = v
+            elif fused and v.ndim >= 2 and v.shape[:2] == (kw["T"], C):  # per draw
+                want = v[:, rows]
+            else:
+                want = v[rows]
+            assert torch.equal(part[k], want), (k, lo)

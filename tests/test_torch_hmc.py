@@ -433,16 +433,21 @@ def test_fused_hmc_plain_tune_chunk_with_dual_averaging(models):
 SN = 20
 
 
-@pytest.fixture(scope="module", params=[("jitter+adapt_diag", 64, "per_draw_diag"),
-                                        ("jitter+adapt_full", 128, "fused_dense_pooled")],
-                ids=["diag", "adapt_full"])
+@pytest.fixture(scope="module", params=[("jitter+adapt_diag", 64, "per_draw_diag", None),
+                                        ("jitter+adapt_full", 128, "fused_dense_pooled", None),
+                                        ("jitter+adapt_full", 64, "per_draw_dense", False)],
+                ids=["diag", "adapt_full", "adapt_full_per_chain"])
 def slice_runs(request):
     """Both packages on the 20-d correlated Gaussian, each through its
-    kernels (the JAX package's under interpret=True), one chain block."""
-    init, chains, engine = request.param
+    kernels (the JAX package's under interpret=True), one chain block; with
+    per-chain dense adaptation (``cross_chain_adapt=False``) each on its
+    tensor-op trajectory (the per-draw HMC kernels are diagonal-only)."""
+    init, chains, engine, cross = request.param
     jmodel = jm.CorrelatedGaussian(SN)
-    kw = dict(model_ndim=SN, chains=chains, tune=300, draws=300, random_seed=3, init=init,
-              progressbar=False, return_final_state=True)
+    # a chain's own dense metric needs a longer tune than a pooled one
+    kw = dict(model_ndim=SN, chains=chains, tune=300 if cross is None else 800, draws=300,
+              random_seed=3, init=init, progressbar=False, return_final_state=True,
+              cross_chain_adapt=cross)
     jstep = lmc.HamiltonianMC(model_ndim=SN, pallas_trajectory=_highest_spec(jmodel, SN),
                               pallas_interpret=True, chain_block=chains)
     jreport, treport = {}, {}

@@ -156,8 +156,7 @@ def test_sample_rejects_what_the_slice_does_not_run():
         lt.sample(plain_model, model_ndim=2, init="advi", device="cpu")
 
 
-_UNPORTED = {"mesh": (object(), 14), "chain_axis": ("devices", 14), "model_axis": ("model", 14),
-             "dtype": (torch.float64, 17)}
+_UNPORTED = {"model_axis": ("model", 18)}
 
 
 def _plain_model(q):
@@ -167,10 +166,10 @@ def _plain_model(q):
 @pytest.mark.parametrize("with_step", [False, True], ids=["no_step", "step"])
 @pytest.mark.parametrize("name", sorted(_UNPORTED))
 def test_sample_raises_for_each_jax_argument_it_does_not_run(name, with_step, tmp_path):
-    """JAX's ``sample()`` names four arguments that the port does not run
-    yet (``littlemcmc_tpu/sampling.py:897-899``): the port names them too,
-    and a value other than JAX's default raises, whether or not ``step``
-    is given, citing the ROADMAP Queue 1 item that ports it."""
+    """JAX's ``sample()`` names an argument that the port does not run yet
+    (``model_axis``, ``littlemcmc_tpu/sampling.py:899``): the port names it
+    too, and a value other than JAX's default raises, whether or not
+    ``step`` is given, citing the ROADMAP Queue 1 item that ports it."""
     value, item = _UNPORTED[name]
     kw = dict(step=lt.NUTS(model_ndim=2)) if with_step else {}
     with pytest.raises(NotImplementedError, match=rf"`{name}` is ROADMAP Queue 1 item {item}\."):
@@ -435,14 +434,15 @@ def test_perf_report_has_transfer_seconds():
 
 def test_public_names_match_the_jax_package():
     """The port exports the JAX package's names but for its Pallas model
-    spec, ``from_torch_callable``, ``ops``, ``parallel`` and the version."""
+    spec, ``from_torch_callable``, ``ops`` and the version."""
     jax_only = {"PallasModelSpec", "make_pallas_model_spec", "from_torch_callable", "ops",
-                "parallel", "__version__"}
+                "__version__"}
     assert set(lt.__all__) == set(lmc.__all__) - jax_only
     for name in lt.__all__:
         assert getattr(lt, name) is not None, name
     assert lt.warnings_from_stats is lt.report.warnings_from_stats
     assert lt.utils.device_trace is not None and lt.models.LinearRegression is not None
+    assert lt.parallel.chain_mesh is not None and lt.parallel.initialize_distributed is not None
 
 
 def test_to_arviz():

@@ -343,3 +343,19 @@ def test_metrics_without_a_kernel_run_on_the_tree():
         assert trace.shape == (16, 10, 3) and np.isfinite(trace).all()
     with pytest.raises(ValueError, match="fuse_draws=True"):
         lt.sample(model.logp_grad, init="adapt_full", fuse_draws=True, **kw)
+
+
+@pytest.mark.parametrize("trajectory_spec", ["auto", None], ids=["kernel", "tree"])
+def test_early_cap_above_max_treedepth_stops_at_max_treedepth(trajectory_spec):
+    """``early_max_treedepth`` (8 by default) above ``max_treedepth``: the
+    tree, as the trajectory kernel (``min(max_sched, D)``), stops at
+    ``max_treedepth`` in the early window too, where its merge stack of
+    ``max_treedepth`` slots would overflow; a tiny step size makes every
+    tree reach the cap."""
+    model = tm.CorrelatedGaussian(3, device="cpu")
+    step = lt.NUTS(model_ndim=3, max_treedepth=3, adapt_step_size=False, step_scale=1e-4,
+                   trajectory_spec=trajectory_spec)
+    trace, stats = lt.sample(model.logp_grad, step=step, model_ndim=3, chains=16, tune=4,
+                             draws=2, random_seed=2, device="cpu", progressbar=False,
+                             discard_tuned_samples=False, compute_convergence_checks=False)
+    assert stats["depth"].max() == 3 and (stats["tree_size"] == 7).all()
